@@ -1,0 +1,65 @@
+"""Exact k-nearest-neighbour search (port of
+``raft_tpu.neighbors.brute_force.knn``) — the ground truth for recall.
+
+Reference: raft/neighbors/brute_force.cuh:150 ``knn``.  Tiled over the
+database: each (n_queries, tile_n) distance block is one fp32 product, its
+local top-k merges into the running top-k, so peak memory is
+O(n_queries · tile_n).  Plain PyTorch; the JAX version has no Pallas
+kernel.  Metrics of this slice: the L2 family and InnerProduct.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.mdarray import ensure_tensor
+from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, SQRT_METRICS
+from raft_tpu_torch.matrix.select_k import select_k
+from raft_tpu_torch.utils import precision
+
+_TILE_N = 65536
+
+
+def knn(res, database, queries, k: int, *,
+        metric: int = DistanceType.L2Unexpanded, global_id_offset: int = 0,
+        tile_n: int = _TILE_N) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN of ``queries`` (q, d) in ``database`` (n, d): (distances
+    (q, k) f32, indices (q, k) int32), best first; ``global_id_offset``
+    shifts the returned ids."""
+    with precision.highest():
+        database = ensure_tensor(database, res, "database")
+        queries = ensure_tensor(queries, res, "queries")
+        expects(database.ndim == 2 and queries.ndim == 2
+                and database.shape[1] == queries.shape[1],
+                "knn: (n,d) database and (q,d) queries required")
+        expects(0 < k <= database.shape[0], "knn: need 0 < k <= n")
+        expects(tile_n >= k, "knn: tile_n must be at least k")
+        expects(metric in L2_METRICS or metric == DistanceType.InnerProduct,
+                "knn: L2 / InnerProduct metrics only in this port slice")
+        select_min = metric != DistanceType.InnerProduct
+        qf = queries.float()
+        q_sq = (qf * qf).sum(1, keepdim=True)
+        best_d = best_i = None
+        for s in range(0, database.shape[0], tile_n):
+            tile = database[s:s + tile_n].float()
+            ip = qf @ tile.T
+            if select_min:
+                d = torch.clamp_min(q_sq + (tile * tile).sum(1)[None, :]
+                                    - 2.0 * ip, 0.0)
+            else:
+                d = ip
+            td, ti = select_k(d, min(k, tile.shape[0]),
+                              select_min=select_min)
+            ti = ti + s
+            if best_d is not None:
+                td = torch.cat([best_d, td], 1)
+                ti = torch.cat([best_i, ti], 1)
+                td, pos = select_k(td, k, select_min=select_min)
+                ti = torch.gather(ti, 1, pos)
+            best_d, best_i = td, ti
+        if metric in SQRT_METRICS:
+            best_d = torch.sqrt(best_d)
+        return best_d, (best_i + global_id_offset).int()
