@@ -11,8 +11,10 @@ no CUDA work at import time.  Entry points run on the card unless the
 caller's :class:`DeviceResources` asks for the CPU, where each kernel
 wrapper runs its plain PyTorch version instead.
 
-Ported so far (see ROADMAP.md): IVF-PQ build + fused recon search on the
-default path — :mod:`raft_tpu_torch.neighbors.ivf_pq`,
+Ported so far (see ROADMAP.md): IVF-PQ build (two-level k-means from 8192
+lists) and search over the recon cache, the packed codes and the int8
+cache (``scan_mode`` "auto", "fused", "codes", "recon8") —
+:mod:`raft_tpu_torch.neighbors.ivf_pq`,
 :mod:`raft_tpu_torch.cluster.kmeans_balanced`,
 :mod:`raft_tpu_torch.neighbors.refine` and
 :mod:`raft_tpu_torch.neighbors.brute_force` (``knn``).

@@ -13,8 +13,13 @@ For L2Expanded with dim >= 32 — exactly where the JAX package's
 call of Kernel A (:func:`raft_tpu_torch.ops.kmeans_update.kmeans_assign_update`:
 bf16 assignment, weighted sums and counts, per-row min distance).  Other
 cases (the dim-2 codebook subspaces, InnerProduct) run plain PyTorch, as
-the JAX package runs XLA there.  The two-level mesocluster build
-(``_fit_hierarchical``, n_clusters >= 8192) is not ported yet.
+the JAX package runs XLA there.  From ``_MESO_THRESHOLD`` (8192) clusters
+``fit`` takes the two-level mesocluster build (:func:`_fit_hierarchical`,
+reference: detail/kmeans_balanced.cuh build_hierarchical): ~sqrt(K)
+mesoclusters, fine clusters per mesocluster on fixed-size member samples
+(one Python loop over the mesoclusters, where the JAX package ``vmap``s
+them), then a short full-K refinement.  Its Lloyd passes at dim >= 32 are
+Kernel A too.
 
 Random draws come from the handle's ``torch.Generator``, so a fit is
 reproducible from its seed but draws differently from the JAX package's
@@ -134,6 +139,67 @@ def _fused_ok(dim: int, metric: int) -> bool:
     return metric == DistanceType.L2Expanded and dim >= 32
 
 
+def _meso_partition_sample(meso_labels: torch.Tensor,
+                           generator: torch.Generator, n_meso: int,
+                           per: int) -> torch.Tensor:
+    """(n_meso, per) row indices: ``per`` members of each mesocluster
+    without an (n_meso, n) membership matrix — one sort groups rows into
+    contiguous label segments, each mesocluster takes ``per`` rows of its
+    segment from a random offset, cycling when it has fewer members."""
+    n = meso_labels.shape[0]
+    dev = meso_labels.device
+    sorted_lab, order = torch.sort(meso_labels, stable=True)
+    seg = torch.arange(n_meso, dtype=sorted_lab.dtype, device=dev)
+    starts = torch.searchsorted(sorted_lab, seg)
+    ends = torch.searchsorted(sorted_lab, seg, right=True)
+    counts = torch.clamp_min(ends - starts, 1)
+    off = torch.randint(0, n, (n_meso,), generator=generator, device=dev)
+    j = (torch.arange(per, device=dev)[None, :] + off[:, None]) % counts[
+        :, None]
+    return order[torch.clamp(starts[:, None] + j, 0, n - 1)]
+
+
+def _strided_init(X: torch.Tensor, k: int) -> torch.Tensor:
+    """k evenly strided rows of X, the last repeated if X is short."""
+    c0 = X[::max(X.shape[0] // k, 1)][:k].float()
+    if c0.shape[0] < k:
+        c0 = torch.cat([c0, c0[-1:].expand(k - c0.shape[0], -1)])
+    return c0
+
+
+def _fit_hierarchical(X: torch.Tensor, n_clusters: int,
+                      generator: torch.Generator, n_iters: int,
+                      metric: int) -> torch.Tensor:
+    """Two-level balanced build (``raft_tpu/cluster/kmeans_balanced.py``
+    ``_fit_hierarchical``): ~sqrt(K) mesoclusters over all rows; per
+    mesocluster, k_max fine clusters trained on ``per`` sampled members,
+    of which it keeps its quota; then max(2, n_iters // 5) full-K
+    iterations from the stacked fine centers.  Per-iteration assignment
+    falls from O(n·K) to O(n·sqrt(K)) + O(per·K)."""
+    xf = X.float()
+    n, dim = xf.shape
+    fused = _fused_ok(dim, metric)
+    n_meso = max(2, min(int(round(float(n_clusters) ** 0.5)),
+                        n_clusters // 2))
+    k_base, rem = divmod(n_clusters, n_meso)
+    k_max = k_base + (1 if rem else 0)
+
+    _, meso_labels = _balanced_loop(xf, _strided_init(xf, n_meso),
+                                    generator, n_meso, n_iters, metric,
+                                    use_fused=fused)
+    per = min(n, max(2048, 32 * k_max))
+    idx = _meso_partition_sample(meso_labels, generator, n_meso, per)
+    fine = []
+    for m in range(n_meso):
+        sub = xf[idx[m]]
+        centers, _ = _balanced_loop(sub, _strided_init(sub, k_max),
+                                    generator, k_max, n_iters, metric,
+                                    use_fused=fused)
+        fine.append(centers[:k_base + (1 if m < rem else 0)])
+    return _balanced_loop(xf, torch.cat(fine), generator, n_clusters,
+                          max(2, n_iters // 5), metric, use_fused=fused)[0]
+
+
 def fit(res, params: KMeansBalancedParams, X, n_clusters: int, *,
         hierarchical: Optional[bool] = None) -> torch.Tensor:
     """Train balanced centroids; returns (n_clusters, dim) float32
@@ -152,16 +218,10 @@ def fit(res, params: KMeansBalancedParams, X, n_clusters: int, *,
         if hierarchical is None:
             hierarchical = n_clusters >= _MESO_THRESHOLD
         if hierarchical and n_clusters >= 4:
-            raise NotImplementedError(
-                "kmeans_balanced.fit: the hierarchical (mesocluster) build "
-                "for n_clusters >= 8192 is not ported yet (ROADMAP.md §1, "
-                "'Deferred by the first slice': hierarchical k-means)")
+            return _fit_hierarchical(X, n_clusters, res.generator,
+                                     params.n_iters, params.metric)
         # evenly-strided init over the (caller-shuffled) trainset
-        stride = max(n // n_clusters, 1)
-        c0 = X[::stride][:n_clusters].float()
-        if c0.shape[0] < n_clusters:
-            c0 = torch.cat([c0, c0[-1:].expand(n_clusters - c0.shape[0],
-                                                -1)])
+        c0 = _strided_init(X, n_clusters)
         if params.metric == DistanceType.InnerProduct:
             c0 = c0 / torch.clamp_min(
                 torch.linalg.norm(c0, dim=1, keepdim=True), 1e-12)

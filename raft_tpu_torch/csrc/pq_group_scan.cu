@@ -35,19 +35,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "scan_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 256;
-constexpr int kMaxChunksPerLane = 4;   // rot <= 32 lanes * 4 * 8 = 1024
+using namespace raft_scan;
 
-__device__ __forceinline__ float bf_lo(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-__device__ __forceinline__ float bf_hi(uint32_t u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
+constexpr int kMaxChunksPerLane = 4;   // rot <= 32 lanes * 4 * 8 = 1024
 
 __device__ __forceinline__ float dot8(const float* s, uint4 u, float acc) {
   acc = fmaf(s[0], bf_lo(u.x), acc);
@@ -59,11 +53,6 @@ __device__ __forceinline__ float dot8(const float* s, uint4 u, float acc) {
   acc = fmaf(s[6], bf_lo(u.w), acc);
   acc = fmaf(s[7], bf_hi(u.w), acc);
   return acc;
-}
-
-__device__ __forceinline__ bool key_greater(float va, int ra, float vb,
-                                            int rb) {
-  return va > vb || (va == vb && ra > rb);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -159,69 +148,9 @@ scan_kernel(const float* __restrict__ qrot,
     __syncthreads();
     const int cnt = s_cnt;
     if (cnt > 0) {
-      int P = 1;
-      while (P < cnt) P <<= 1;
-      for (int i = cnt + tid; i < P; i += kThreads) {
-        s_cv[i] = INFINITY;
-        s_ci[i] = -1;
-        s_cr[i] = INT_MAX;
-      }
-      __syncthreads();
-      // bitonic sort of the probe's candidates by (distance, row)
-      for (int size = 2; size <= P; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-          for (int t = tid; t < (P >> 1); t += kThreads) {
-            const int lo = 2 * stride * (t / stride) + (t % stride);
-            const int hi = lo + stride;
-            const bool asc = (lo & size) == 0;
-            const float va = s_cv[lo], vb = s_cv[hi];
-            const int ra = s_cr[lo], rb = s_cr[hi];
-            if (key_greater(va, ra, vb, rb) == asc) {
-              s_cv[lo] = vb;
-              s_cv[hi] = va;
-              s_cr[lo] = rb;
-              s_cr[hi] = ra;
-              const int ia = s_ci[lo];
-              s_ci[lo] = s_ci[hi];
-              s_ci[hi] = ia;
-            }
-          }
-          __syncthreads();
-        }
-      }
-      // merge the probe's best m into the running top k by rank: an old
-      // entry counts the new ones strictly below it, a new entry the old
-      // ones at or below it, so old entries win ties
-      const int m = min(cnt, min(kt, k));
-      for (int i = tid; i < k; i += kThreads) {
-        const float v = s_topv[i];
-        int lo = 0, hi = m;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s_cv[mid] < v) lo = mid + 1; else hi = mid;
-        }
-        if (i + lo < k) {
-          s_newv[i + lo] = v;
-          s_newi[i + lo] = s_topi[i];
-        }
-      }
-      for (int j = tid; j < m; j += kThreads) {
-        const float v = s_cv[j];
-        int lo = 0, hi = k;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s_topv[mid] <= v) lo = mid + 1; else hi = mid;
-        }
-        if (j + lo < k) {
-          s_newv[j + lo] = v;
-          s_newi[j + lo] = s_ci[j];
-        }
-      }
-      __syncthreads();
-      for (int i = tid; i < k; i += kThreads) {
-        s_topv[i] = s_newv[i];
-        s_topi[i] = s_newi[i];
-      }
+      sort_candidates(s_cv, s_ci, s_cr, cnt);
+      merge_topk(s_topv, s_topi, s_newv, s_newi, s_cv, s_ci,
+                 min(cnt, min(kt, k)), k);
     }
     __syncthreads();
   }
@@ -232,37 +161,27 @@ scan_kernel(const float* __restrict__ qrot,
   }
 }
 
-int next_pow2(int v) {
-  int p = 1;
-  while (p < v) p <<= 1;
-  return p;
-}
-
-// dynamic shared memory of one block; ops/pq_group_scan.py's gate
-// (scan_reject_reason) uses the same formula
-size_t smem_bytes(int cap, int rot) {
-  return sizeof(float) * (4 * (size_t)kMaxK + 3 * (size_t)next_pow2(cap)
-                          + (size_t)rot);
-}
-
 }  // namespace
 
+// smem: the block's dynamic shared memory in bytes, the layout above, as
+// ops/pq_group_scan.py's scan_smem_bytes sizes it (the one copy of the
+// formula; its gate holds it to the card's limit).
 extern "C" int raft_ivf_pq_scan_fused(const void* qrot, const void* centers,
                                       const void* probes, const void* recon,
                                       const void* rsq, const void* ids,
                                       int nq, int n_probes, int n_lists,
                                       int cap, int rot, int k, int kt,
-                                      void* out_v, void* out_i,
+                                      int smem, void* out_v, void* out_i,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > kMaxK || rot % 8 != 0 || rot / 8 > 32 * kMaxChunksPerLane)
+  if (k < 1 || k > kMaxK || rot % 8 != 0 || rot / 8 > 32 * kMaxChunksPerLane
+      || smem < 1)
     return (int)cudaErrorInvalidValue;
   const int nch = rot / 8;
   int lpr = 1;
   while (lpr < nch && lpr < 32) lpr <<= 1;
-  const size_t smem = smem_bytes(cap, rot);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (nq > 0)
     scan_kernel<<<nq, kThreads, smem, s>>>(

@@ -1,5 +1,6 @@
 """IVF-PQ: inverted file with product-quantized residuals (port of
-``raft_tpu.neighbors.ivf_pq``) — build and the default fused search.
+``raft_tpu.neighbors.ivf_pq``) — build and search over the recon cache,
+the packed codes and the int8 cache.
 
 Reference: raft/neighbors/ivf_pq.cuh:224 ``build``, :266 ``extend``, :342
 ``search``; ivf_pq_types.hpp:48 / :110 / :264 for the param structs and the
@@ -8,23 +9,34 @@ JAX package, the same ``(distances, ids)`` contract (exhausted slots are
 ``(+inf, -1)``), tensors on the handle's device.
 
 Build: a random subsample trains the balanced coarse quantizer
-(:func:`raft_tpu_torch.cluster.kmeans_balanced.fit`, whose Lloyd pass is
-Kernel A); per-subspace codebooks train with the same loop in plain
-PyTorch (dim-2 subspaces); every row is encoded, bit-packed and packed into
-padded lists; the bf16 reconstruction cache (``list_recon``, residual
-space) and its row norms are attached.
+(:func:`raft_tpu_torch.cluster.kmeans_balanced.fit`, whose Lloyd passes
+are Kernel A, two-level from 8192 lists); per-subspace codebooks train
+with the same loop in plain PyTorch; every row is encoded, bit-packed and
+packed into padded lists; with ``cache_reconstructions`` the bf16
+reconstruction cache (``list_recon``, residual space) and its row norms
+are attached.
 
 Search: rotate the queries, rank coarse probes exactly
-(:func:`raft_tpu_torch.neighbors.ivf_flat._select_clusters`), then ONE call
-of Kernel B (:func:`raft_tpu_torch.ops.pq_group_scan.ivf_pq_scan_fused`),
-which scans the probed lists of the recon cache and keeps each query's
-top-k on chip; sqrt metrics get their sqrt afterwards.  ``scan_mode``
-``"auto"`` and ``"fused"`` both take this path.
+(:func:`raft_tpu_torch.neighbors.ivf_flat._select_clusters`), then ONE
+kernel launch chosen by ``scan_mode`` as the JAX package resolves it
+(:func:`_resolve_mode`):
+
+- fused recon (``"auto"`` / ``"fused"`` with a recon cache and codes not
+  eligible): Kernel B, :mod:`raft_tpu_torch.ops.pq_group_scan`;
+- fused codes (``"fused"``, and ``"auto"`` without a recon cache): Kernel
+  C, :func:`raft_tpu_torch.ops.pq_code_scan.ivf_pq_scan_codes_fused`;
+- ``"codes"``: Kernel D, each (query, probe) pair's top kt, then each
+  query's top k (:func:`_finalize_topk`);
+- ``"recon8"``: Kernel E over the int8 cache, then the same finalize.
+
+The code and int8 caches are derived lazily by the first search that
+needs them; sqrt metrics get their sqrt afterwards.
 
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``scan_mode`` ``"recon"`` / ``"codes"`` / ``"recon8"`` / ``"lut"``
-(and indexes without a recon cache, which need them), InnerProduct search,
-``filter=``, ``canary_queries > 0``, ``CodebookKind.PER_CLUSTER``,
+item: ``scan_mode="recon"`` (the per-pair recon scan) and every search that
+resolves to the LUT scan (pq_bits outside {4, 8} without a recon cache,
+per-pair code scans at kt > 128), recon8 scans at kt > 128, InnerProduct
+search, ``filter=``, ``canary_queries > 0``, ``CodebookKind.PER_CLUSTER``,
 checkpoint / resume, ``serialize`` / ``load``.  The port has no boundary
 validator yet: inputs are checked for shape, not for finiteness.
 
@@ -37,6 +49,7 @@ index across for like-for-like search comparisons.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -52,10 +65,14 @@ from raft_tpu_torch.neighbors.ivf_flat import (_LIST_ALIGN,
                                                _append_lists_multi,
                                                _pack_lists, _round_up,
                                                _select_clusters)
-from raft_tpu_torch.ops.pq_group_scan import ivf_pq_scan_fused
+from raft_tpu_torch.matrix.select_k import select_k
+from raft_tpu_torch.ops import pq_code_scan as pcs
+from raft_tpu_torch.ops.pq_code_scan import code_field as _code_field
+from raft_tpu_torch.ops.pq_group_scan import (ivf_pq_scan_fused,
+                                              scan_reject_reason)
 from raft_tpu_torch.utils import precision
 
-_DEFERRED = "is not ported yet (ROADMAP.md §1, 'Deferred by the first slice'"
+_DEFERRED = "is not ported yet (ROADMAP.md §1, 'Deferred'"
 
 
 def _not_ported(what: str, item: str):
@@ -83,8 +100,8 @@ class IndexParams:
     codebook_kind: int = CodebookKind.PER_SUBSPACE
     force_random_rotation: bool = False
     add_data_on_build: bool = True
-    # bf16 reconstruction cache, (n, rot_dim) * 2 B; the fused search
-    # scans it
+    # bf16 reconstruction cache, (n, rot_dim) * 2 B; the fused recon
+    # search scans it
     cache_reconstructions: bool = True
     canary_queries: int = 0
     canary_k: int = 10
@@ -94,13 +111,16 @@ class IndexParams:
 @dataclasses.dataclass
 class SearchParams:
     """Reference: ivf_pq_types.hpp:110 ``search_params`` (the JAX package's
-    fields and defaults).  On this slice's path: ``n_probes``,
-    ``scan_mode`` ("auto"/"fused") and ``per_probe_topk`` (the kernel's kt;
-    0 -> k).  ``coarse_recall_target`` and ``exact_coarse`` have no effect:
-    the coarse ranking is always exact here.  ``merge_window`` and
-    ``packed_extract`` size TPU-only mechanisms and are accepted and
-    ignored; ``lut_dtype`` / ``internal_distance_dtype`` belong to the LUT
-    mode, not ported yet."""
+    fields and defaults).  On the ported paths: ``n_probes``,
+    ``scan_mode`` ("auto", "fused", "codes", "recon8"; "recon" and every
+    resolution to the LUT scan raise), ``use_reconstruction`` (the old
+    override: True -> "recon", False -> "lut") and ``per_probe_topk``
+    (each (query, probe) pair's kt; 0 -> k).  ``coarse_recall_target`` and
+    ``exact_coarse`` have no effect: the coarse ranking is always exact
+    here.  ``merge_window`` and ``packed_extract`` size TPU-only mechanisms
+    and are accepted and ignored — the port's selection never truncates
+    mantissa bits as the TPU's packed extraction does; ``lut_dtype`` /
+    ``internal_distance_dtype`` belong to the LUT mode, not ported yet."""
 
     n_probes: int = 20
     coarse_recall_target: float = 0.95
@@ -123,8 +143,14 @@ class Index:
     ``list_indices`` (n_lists, capacity) int32 with -1 padding;
     ``rotation`` (dim, rot_dim) orthonormal; ``list_recon`` (n_lists,
     capacity, rot_dim) bf16 residual reconstructions and ``list_recon_sq``
-    their squared norms (n_lists, capacity) f32.  The codes-lane and int8
-    caches belong to scan modes not ported yet and stay None."""
+    their squared norms (n_lists, capacity) f32.  Derived scan caches,
+    attached by the first search that needs them: ``list_code_rsq``
+    (n_lists, capacity) f32, the bf16 reconstructions' row norms for the
+    code scans; ``list_recon_i8`` (n_lists, capacity, rot_pad) int8 rows
+    zero-padded to a multiple of 16 bytes, ``list_recon_scale``
+    (n_lists,) f32 and ``list_recon_i8_sq`` (n_lists, capacity) f32 for
+    the int8 scan.  ``list_code_lanes`` (the TPU's lane-major code words)
+    stays None: the port's kernels read ``list_codes`` as it is."""
 
     centers: torch.Tensor
     codebooks: torch.Tensor
@@ -232,16 +258,6 @@ def _pack_codes(codes: torch.Tensor, pq_bits: int) -> torch.Tensor:
     return (bits * weights).sum(-1).to(torch.uint8)
 
 
-def _code_field(packed: torch.Tensor, j: int, pq_bits: int) -> torch.Tensor:
-    """Subspace j's code (int64) out of (..., W) packed bytes; a field
-    spans at most two bytes."""
-    W = packed.shape[-1]
-    b0, shift = divmod(j * pq_bits, 8)
-    lo = packed[..., b0].long()
-    hi = packed[..., min(b0 + 1, W - 1)].long()
-    return ((lo | (hi << 8)) >> shift) & ((1 << pq_bits) - 1)
-
-
 def _unpack_codes(packed: torch.Tensor, pq_dim: int, pq_bits: int
                   ) -> torch.Tensor:
     """Inverse of :func:`_pack_codes`: (..., W) -> (..., pq_dim) uint8."""
@@ -301,7 +317,9 @@ def _encode(codebooks: torch.Tensor, resid: torch.Tensor) -> torch.Tensor:
 
 def build(res, params: IndexParams, dataset, *, checkpoint=None,
           resume: bool = False) -> Index:
-    """Build an IVF-PQ index (reference: ivf_pq.cuh:224)."""
+    """Build an IVF-PQ index (reference: ivf_pq.cuh:224).  The wall
+    seconds of its stages (trainset, coarse_fit, codebooks,
+    encode_and_pack, recon_cache) land in ``build.stage_seconds``."""
     if checkpoint is not None or resume:
         raise _not_ported("build checkpoint / resume",
                           "checkpointing")
@@ -324,6 +342,9 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
                                   params.force_random_rotation
                                   or rot_dim != dim, seed=7, device=dev)
 
+        stages = build.stage_seconds = {}
+        t = _stage(stages, None, time.perf_counter(), dev)
+
         # coarse quantizer, in the rotated space
         n_train = max(params.n_lists,
                       int(n * params.kmeans_trainset_fraction))
@@ -334,8 +355,10 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
         else:
             trainset = dataset
         train_rot = trainset.float() @ rotation
+        t = _stage(stages, "trainset", t, dev)
         bal = KMeansBalancedParams(n_iters=params.kmeans_n_iters)
         centers = kmeans_balanced.fit(res, bal, train_rot, params.n_lists)
+        t = _stage(stages, "coarse_fit", t, dev)
 
         # per-subspace codebooks over the trainset's residuals
         labels_t = kmeans_balanced.predict(res, bal, train_rot, centers)
@@ -344,6 +367,7 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
             resid.transpose(0, 1), res.generator, 1 << params.pq_bits,
             params.kmeans_n_iters)
         del train_rot, resid, labels_t
+        t = _stage(stages, "codebooks", t, dev)
 
         index = Index(
             centers=centers, codebooks=codebooks,
@@ -361,9 +385,27 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
         if params.add_data_on_build:
             index = extend(res, index, dataset,
                            torch.arange(n, dtype=torch.int32, device=dev))
+        t = _stage(stages, "encode_and_pack", t, dev)
         if params.cache_reconstructions and index.list_recon is None:
             index = _with_recon(index)
+        _stage(stages, "recon_cache", t, dev)
         return index
+
+
+# wall seconds of the latest build's stages, device work included (each
+# stage ends with a device synchronisation)
+build.stage_seconds = {}
+
+
+def _stage(stages, name: Optional[str], t0: float, device) -> float:
+    """End build stage ``name`` begun at ``t0``: wait for the device, record
+    its wall seconds (``None`` records nothing) and return the time."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    now = time.perf_counter()
+    if name is not None:
+        stages[name] = now - t0
+    return now
 
 
 def extend(res, index: Index, new_vectors, new_indices=None) -> Index:
@@ -456,15 +498,8 @@ def _decode_lists(codebooks: torch.Tensor, list_codes: torch.Tensor,
     (n_lists, capacity, rot_dim) = concat_j codebook_j[code_j], one
     subspace at a time.  Padded slots decode code 0 to a real-looking row;
     only their id (-1) masks them."""
-    L, cap, _ = list_codes.shape
-    pq_len = codebooks.shape[-1]
-    out = torch.empty(L, cap, pq_dim * pq_len, dtype=torch.bfloat16,
-                      device=list_codes.device)
-    for j in range(pq_dim):
-        cj = _code_field(list_codes, j, pq_bits)
-        out[:, :, j * pq_len:(j + 1) * pq_len] = codebooks[j][cj].to(
-            torch.bfloat16)
-    return out
+    expects(codebooks.shape[0] == pq_dim, "_decode_lists: pq_dim mismatch")
+    return pcs.decode_codes(list_codes, codebooks, pq_bits)
 
 
 def _decode_rows(codebooks: torch.Tensor, codes: torch.Tensor
@@ -493,11 +528,113 @@ def _with_recon(index: Index) -> Index:
     return index
 
 
+def _rsq_from_codes(codebooks: torch.Tensor, list_codes: torch.Tensor,
+                    pq_dim: int, pq_bits: int) -> torch.Tensor:
+    """Per-row squared norms (n_lists, capacity) f32 of the bf16
+    reconstructions straight from the packed codes: Σ_j ‖bf16(cb)[j,
+    code_j]‖², the subspaces summed in order.  Squaring the bf16-ROUNDED
+    codebook keeps the value that of :func:`_recon_sq` of the cache
+    without materialising it."""
+    cb_sq = (codebooks.to(torch.bfloat16).float() ** 2).sum(-1)
+    acc = torch.zeros(list_codes.shape[:2], dtype=torch.float32,
+                      device=list_codes.device)
+    for j in range(pq_dim):
+        acc += cb_sq[j][_code_field(list_codes, j, pq_bits)]
+    return acc
+
+
+def _with_code_rsq(index: Index) -> Index:
+    """Attach the row norms the code scans need: the recon cache's when
+    the index has them, else :func:`_rsq_from_codes`.  The kernels read
+    ``list_codes`` as it is, so ``list_code_lanes`` stays None."""
+    if index.list_recon_sq is not None:
+        index.list_code_rsq = index.list_recon_sq
+    else:
+        index.list_code_rsq = _rsq_from_codes(index.codebooks,
+                                              index.list_codes,
+                                              index.pq_dim, index.pq_bits)
+    return index
+
+
+def _quantize_recon(list_recon: torch.Tensor, rot_pad: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """bf16 recon lists -> (int8 rows zero-padded to ``rot_pad``, per-list
+    f32 scale, dequantized row norms).  One symmetric scale per list,
+    ``max|recon| / 127`` (1.0 for an all-zero list); ``round`` half to
+    even, clipped to ±127; ``rsq8 = scale² · Σ q²`` in fp32."""
+    r = list_recon.float()
+    rot = r.shape[2]
+    maxabs = r.abs().amax(dim=(1, 2))
+    scale = torch.where(maxabs > 0, maxabs / 127.0, torch.ones_like(maxabs))
+    q = torch.clamp(torch.round(r / scale[:, None, None]), -127, 127)
+    rsq8 = scale[:, None] ** 2 * (q * q).sum(-1)
+    qi = torch.nn.functional.pad(q.to(torch.int8), (0, rot_pad - rot))
+    return qi, scale, rsq8
+
+
+# lists per chunk of the int8 quantisation's fp32 transients
+_QUANT_LISTS = 256
+
+
+def _with_recon8(index: Index) -> Index:
+    """Attach the int8 recon cache, its scales and row norms, a few lists
+    at a time; the bf16 recon is decoded on the fly when the index has
+    none, and only the int8 copy is kept.  Rows are padded to a multiple
+    of 16 bytes for the kernel's 16-byte loads (the TPU pads to 128)."""
+    rot_pad = _round_up(index.rot_dim, 16)
+    parts = []
+    for s in range(0, index.n_lists, _QUANT_LISTS):
+        recon = (index.list_recon[s:s + _QUANT_LISTS]
+                 if index.list_recon is not None else
+                 _decode_lists(index.codebooks,
+                               index.list_codes[s:s + _QUANT_LISTS],
+                               index.pq_dim, index.pq_bits))
+        parts.append(_quantize_recon(recon, rot_pad))
+    index.list_recon_i8 = torch.cat([p[0] for p in parts])
+    index.list_recon_scale = torch.cat([p[1] for p in parts])
+    index.list_recon_i8_sq = torch.cat([p[2] for p in parts])
+    return index
+
+
 # ---------------------------------------------------------------------------
 # search
 # ---------------------------------------------------------------------------
 
 _SCAN_MODES = ("auto", "codes", "recon", "recon8", "lut", "fused")
+
+
+def _codes_mode_eligible(index: Index) -> bool:
+    """Static preconditions of the code scans: L2-family metric,
+    per-subspace codebooks, and pq_bits whose fields never cross a byte."""
+    return (index.metric in L2_METRICS
+            and index.codebook_kind == CodebookKind.PER_SUBSPACE
+            and index.pq_bits in (4, 8))
+
+
+def _resolve_mode(params: SearchParams, index: Index) -> Tuple[str, bool]:
+    """``(backing mode, want_fused)`` exactly as the JAX package resolves
+    ``scan_mode``: "fused" -> codes when eligible, else recon with a
+    recon cache, else lut; "auto" -> recon with a recon cache, else codes
+    when eligible, else lut; codes / recon8 on a non-L2 metric -> recon
+    or lut.  ``want_fused``: the scan keeps each query's top k in the
+    kernel where the shape allows it."""
+    mode = params.scan_mode or "auto"
+    if params.use_reconstruction is not None:
+        mode = "recon" if params.use_reconstruction else "lut"
+    expects(mode in _SCAN_MODES,
+            f"ivf_pq.search: unknown scan_mode {mode!r} (one of "
+            f"{_SCAN_MODES})")
+    want_fused = mode in ("auto", "fused")
+    has_recon = index.list_recon is not None
+    if mode == "fused":
+        mode = ("codes" if _codes_mode_eligible(index)
+                else "recon" if has_recon else "lut")
+    if mode == "auto":
+        mode = ("recon" if has_recon
+                else "codes" if _codes_mode_eligible(index) else "lut")
+    if mode in ("codes", "recon8") and index.metric not in L2_METRICS:
+        mode = "lut" if not has_recon else "recon"
+    return mode, want_fused
 
 
 def _fused_epilogue(vals: torch.Tensor, metric: int) -> torch.Tensor:
@@ -508,47 +645,143 @@ def _fused_epilogue(vals: torch.Tensor, metric: int) -> torch.Tensor:
     return vals
 
 
+def _finalize_topk(vals: torch.Tensor, ids: torch.Tensor, k: int,
+                   metric: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each query's top k over its (n_probes, kt) per-pair candidates
+    (``grouped.finalize_topk``): (+inf, -1) past the candidates, every
+    +inf rank id -1, sqrt for the sqrt metrics."""
+    nq = vals.shape[0]
+    alld, alli = vals.reshape(nq, -1), ids.reshape(nq, -1)
+    kf = min(k, alld.shape[1])
+    best_d = torch.full((nq, k), float("inf"), dtype=torch.float32,
+                        device=vals.device)
+    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=vals.device)
+    if kf > 0:
+        d, i = select_k(alld, kf, in_idx=alli)
+        best_d[:, :kf] = d
+        best_i[:, :kf] = torch.where(torch.isinf(d), torch.full_like(i, -1),
+                                     torch.clamp_min(i, -1))
+    return _fused_epilogue(best_d, metric), best_i
+
+
+def _search_fused_recon(index, qrot, probes, k, kt):
+    """Kernel B over the bf16 recon cache, each query's top k in kernel."""
+    reason = scan_reject_reason(index.capacity, index.rot_dim, k, kt)
+    if reason:
+        raise _not_ported(f"the fused recon scan at this shape ({reason}), "
+                          "which needs the per-pair recon scan",
+                          "per-pair recon scan")
+    if index.list_recon_sq is None:
+        index.list_recon_sq = _recon_sq(index.list_recon)
+    vals, ids = ivf_pq_scan_fused(
+        qrot, index.centers.float(), probes, index.list_recon,
+        index.list_recon_sq, index.list_indices, k, kt)
+    return _fused_epilogue(vals, index.metric), ids
+
+
+def _search_fused_codes(index, qrot, probes, k, kt):
+    """Kernel C over the packed codes, each query's top k in kernel."""
+    vals, ids = pcs.ivf_pq_scan_codes_fused(
+        qrot, index.centers.float(), probes, index.list_codes,
+        index.codebooks, index.list_code_rsq, index.list_indices,
+        index.pq_bits, k, kt)
+    return _fused_epilogue(vals, index.metric), ids
+
+
+def _search_codes(index, qrot, probes, k, kt):
+    """Kernel D over the packed codes, then each query's top k."""
+    reason = pcs.codes_reject_reason(index.capacity, index.rot_dim,
+                                     index.pq_dim, index.pq_bits, kt)
+    if reason:
+        raise _not_ported(f"the codes scan at this shape ({reason}), "
+                          "which needs the LUT scan", "LUT scan")
+    vals, ids = pcs.ivf_pq_scan_codes(
+        qrot, index.centers.float(), probes, index.list_codes,
+        index.codebooks, index.list_code_rsq, index.list_indices,
+        index.pq_bits, kt)
+    return _finalize_topk(vals, ids, k, index.metric)
+
+
+def _search_recon8(index, qrot, probes, k, kt):
+    """Kernel E over the int8 recon cache, then each query's top k."""
+    if index.list_recon_i8 is None:
+        _with_recon8(index)
+    reason = pcs.recon8_reject_reason(index.capacity,
+                                      index.list_recon_i8.shape[2], kt)
+    if reason:
+        raise _not_ported(f"the recon8 scan at this shape ({reason})",
+                          "wide recon8 scans")
+    vals, ids = pcs.ivf_pq_scan_recon8(
+        qrot, index.centers.float(), probes, index.list_recon_i8,
+        index.list_recon_scale, index.list_recon_i8_sq, index.list_indices,
+        kt)
+    return _finalize_topk(vals, ids, k, index.metric)
+
+
 def search(res, params: SearchParams, index: Index, queries, k: int, *,
            filter=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search (reference: ivf_pq.cuh:342).  Returns (distances (nq, k)
     f32, ids (nq, k) int32) on the handle's device.
 
-    .. note:: like the JAX package's, the first search of an index
-       without ``list_recon_sq`` attaches it in place."""
+    ``scan_mode`` resolves as in the JAX package (:func:`_resolve_mode`)
+    and runs: fused recon -> Kernel B; codes wanting the fused form ->
+    Kernel C (Kernel D where C's gate refuses the shape, counted in
+    ``search.fused_fallbacks`` with the gate's reason in
+    ``search.last_fallback_reason``); codes -> Kernel D; recon8 -> Kernel
+    E.
+
+    .. note:: like the JAX package's, the first search of an index may
+       attach derived caches in place (``list_recon_sq``,
+       ``list_code_rsq``, the int8 cache); ``extend`` returns an index
+       without them, so they never go stale."""
     if filter is not None:
         raise _not_ported("filtered search (filter=)", "filters")
-    mode = params.scan_mode or "auto"
-    if params.use_reconstruction is not None:
-        mode = "recon" if params.use_reconstruction else "lut"
-    expects(mode in _SCAN_MODES,
-            f"ivf_pq.search: unknown scan_mode {mode!r} (one of "
-            f"{_SCAN_MODES})")
-    if mode not in ("auto", "fused"):
-        raise _not_ported(f"scan_mode={mode!r}", "non-fused scan modes")
+    mode, want_fused = _resolve_mode(params, index)
     if index.metric == DistanceType.InnerProduct:
         raise _not_ported("InnerProduct search", "InnerProduct search")
     expects(index.metric in L2_METRICS,
             f"ivf_pq.search: metric {index.metric} not supported")
-    if index.list_recon is None:
-        raise _not_ported("search of an index without a reconstruction "
-                          "cache (it needs the codes or lut scan mode)",
-                          "non-fused scan modes")
+    if mode == "lut" or (mode == "codes" and not _codes_mode_eligible(index)):
+        raise _not_ported(
+            f"a search resolving to the LUT scan (scan_mode="
+            f"{params.scan_mode!r}, use_reconstruction="
+            f"{params.use_reconstruction}, pq_bits {index.pq_bits})",
+            "LUT scan")
+    if mode == "recon" and not want_fused:
+        raise _not_ported("scan_mode='recon' (the per-pair recon scan)",
+                          "per-pair recon scan")
     with precision.highest():
         queries = ensure_tensor(queries, res, "queries")
         expects(queries.ndim == 2 and queries.shape[1] == index.dim,
                 "ivf_pq.search: query dim mismatch")
         expects(0 < k, "ivf_pq.search: k must be positive")
-        if index.list_recon_sq is None:
-            index.list_recon_sq = _recon_sq(index.list_recon)
         n_probes = min(params.n_probes, index.n_lists)
         kt = min(params.per_probe_topk or k, index.capacity)
         qrot = queries.float() @ index.rotation
         probes = _select_clusters(index.centers, qrot, n_probes,
                                   index.metric)
-        vals, ids = ivf_pq_scan_fused(
-            qrot, index.centers.float(), probes, index.list_recon,
-            index.list_recon_sq, index.list_indices, k, kt)
-        return _fused_epilogue(vals, index.metric), ids
+        if mode == "recon":
+            return _search_fused_recon(index, qrot, probes, k, kt)
+        if mode == "recon8":
+            return _search_recon8(index, qrot, probes, k, kt)
+        if index.list_code_rsq is None:
+            _with_code_rsq(index)
+        if want_fused:
+            reason = pcs.codes_fused_reject_reason(
+                index.capacity, index.rot_dim, index.pq_dim, index.pq_bits,
+                k, kt)
+            if not reason:
+                return _search_fused_codes(index, qrot, probes, k, kt)
+            search.fused_fallbacks += 1
+            search.last_fallback_reason = reason
+        return _search_codes(index, qrot, probes, k, kt)
+
+
+# fused codes searches that Kernel C's gate sent to Kernel D + finalize,
+# and the gate's reason for the latest (the JAX package's fused_fallback
+# counter, until the port has an observability module)
+search.fused_fallbacks = 0
+search.last_fallback_reason = ""
 
 
 # ---------------------------------------------------------------------------
@@ -556,7 +789,9 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
 # ---------------------------------------------------------------------------
 
 _LEAVES = ("centers", "codebooks", "list_codes", "list_indices",
-           "list_sizes", "rotation", "list_recon", "list_recon_sq")
+           "list_sizes", "rotation", "list_recon", "list_recon_sq",
+           "list_code_rsq", "list_recon_i8", "list_recon_scale",
+           "list_recon_i8_sq")
 
 
 def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
@@ -565,10 +800,13 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
     """Build the port's :class:`Index` from numpy arrays keyed by the JAX
     ``Index`` leaf names (``centers``, ``codebooks``, ``list_codes``,
     ``list_indices``, ``list_sizes``, ``rotation`` and, when present,
-    ``list_recon`` / ``list_recon_sq``), e.g. ``np.asarray`` of a
-    ``raft_tpu``-built index's leaves.  bf16 arrays (the ml_dtypes
-    bfloat16 numpy dtype, which ``torch.from_numpy`` rejects) go through
-    float32 to ``torch.bfloat16``, which is exact."""
+    ``list_recon`` / ``list_recon_sq`` and the derived scan caches
+    ``list_code_rsq``, ``list_recon_i8`` / ``list_recon_scale`` /
+    ``list_recon_i8_sq``), e.g. ``np.asarray`` of a ``raft_tpu``-built
+    index's leaves.  The int8 rows may carry any zero padding that keeps
+    them a multiple of 16 bytes (the JAX package pads them to 128).  bf16
+    arrays (the ml_dtypes bfloat16 numpy dtype, which ``torch.from_numpy``
+    rejects) go through float32 to ``torch.bfloat16``, which is exact."""
     if codebook_kind != CodebookKind.PER_SUBSPACE:
         raise _not_ported("CodebookKind.PER_CLUSTER", "per-cluster books")
     missing = [n for n in _LEAVES[:6] if arrays.get(n) is None]

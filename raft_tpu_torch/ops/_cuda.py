@@ -39,7 +39,14 @@ SIGNATURES = {
     "raft_kmeans_assign_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                                   _P, _P),
     "raft_ivf_pq_scan_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _P, _P, _P),
+                               _I, _I, _I, _P, _P, _P),
+    "raft_ivf_pq_scan_codes_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                     _P, _P),
+    "raft_ivf_pq_scan_codes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "raft_ivf_pq_scan_recon8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -47,7 +47,10 @@ def _next_pow2(v: int) -> int:
 
 
 def scan_smem_bytes(cap: int, rot: int) -> int:
-    """Dynamic shared memory of one block (``smem_bytes`` in the source)."""
+    """Dynamic shared memory of one block: top-k, the next_pow2(cap)
+    candidate buffer and the residual, as ``scan_kernel`` lays them out.
+    The one copy of the formula: the gate tests it and the launch passes
+    it."""
     return 4 * (4 * K_MAX + 3 * _next_pow2(cap) + rot)
 
 
@@ -87,6 +90,70 @@ def _check(qrot, centers, probes, list_recon, list_recon_sq, list_indices):
     return n_lists, cap, rot
 
 
+def probe_distances(qrot, centers, probes, list_indices, list_rsq, dot):
+    """Every (query, probe, slot) distance of a chunk of queries: ``(d,
+    ids)``, each (chunk, n_probes, cap).  ``d = max(sub_sq + rsq −
+    2·dot(bf16(sub), lists), 0)`` with ``sub = qrot − centers[list]``;
+    ``dot(subb (chunk, n_probes, rot) f32, lists (chunk, n_probes))``
+    returns the (chunk, n_probes, cap) products of the probed rows.  Rows
+    with a negative id and probes outside ``[0, n_lists)`` are +inf."""
+    n_lists = centers.shape[0]
+    pr = probes.long()
+    ok = (pr >= 0) & (pr < n_lists)       # the kernels skip the rest
+    pr = torch.where(ok, pr, torch.zeros_like(pr))
+    sub = qrot[:, None, :].float() - centers[pr]
+    sub_sq = (sub * sub).sum(-1)                                # (c, P)
+    ip = dot(sub.to(torch.bfloat16).float(), pr)                # (c, P, cap)
+    d = torch.clamp_min(sub_sq[..., None] + list_rsq[pr] - 2.0 * ip, 0.0)
+    cid = list_indices[pr]
+    d = torch.where((cid >= 0) & ok[..., None], d,
+                    torch.full_like(d, float("inf")))
+    return d, cid
+
+
+def pair_topk(d, cid, kt: int):
+    """Each (query, probe) pair's top kt by (distance, slot) — a stable
+    sort, so ties go to the lowest slot — with (+inf, −1) past its live
+    rows: (chunk, n_probes, kt) each."""
+    d, pos = torch.sort(d, dim=-1, stable=True)
+    d, pos = d[..., :kt], pos[..., :kt]
+    i = torch.gather(cid, -1, pos)
+    return d, torch.where(torch.isinf(d), torch.full_like(i, -1), i).int()
+
+
+def query_topk(d, cid, k: int):
+    """Each query's top k of its (chunk, n_probes, kt) kept candidates,
+    ascending, (+inf, −1) on exhausted ranks."""
+    d = d.reshape(d.shape[0], -1)
+    cid = cid.reshape(cid.shape[0], -1)
+    kk = min(k, d.shape[1])
+    v, pos = torch.topk(d, kk, dim=1, largest=False, sorted=True)
+    i = torch.gather(cid, 1, pos)
+    vals = torch.full((d.shape[0], k), float("inf"), dtype=torch.float32,
+                      device=d.device)
+    ids = torch.full((d.shape[0], k), -1, dtype=torch.int32, device=d.device)
+    vals[:, :kk] = v
+    ids[:, :kk] = torch.where(torch.isinf(v), torch.full_like(i, -1), i)
+    return vals, ids
+
+
+def plain_chunks(qrot, probes):
+    """The plain versions' query chunks: ``(qrot, probes)`` slices of
+    _PLAIN_CHUNK queries."""
+    for s in range(0, probes.shape[0], _PLAIN_CHUNK):
+        yield qrot[s:s + _PLAIN_CHUNK], probes[s:s + _PLAIN_CHUNK]
+
+
+def cat_parts(parts, tail, device):
+    """Concatenate per-chunk ``(vals, ids)`` along the queries; an empty
+    batch gives empty (0, *tail) outputs."""
+    if not parts:
+        return (torch.empty(0, *tail, dtype=torch.float32, device=device),
+                torch.empty(0, *tail, dtype=torch.int32, device=device))
+    return (torch.cat([v for v, _ in parts]),
+            torch.cat([i for _, i in parts]))
+
+
 def ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
                             list_recon_sq, list_indices, k: int, kt: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,38 +162,15 @@ def ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
     arithmetic as the kernel except the order of the fp32 sums."""
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices)
-    nq, n_probes = probes.shape
-    dev = qrot.device
     kt = min(kt, cap)
-    vals = torch.full((nq, k), float("inf"), dtype=torch.float32,
-                      device=dev)
-    ids = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
-    for s in range(0, nq, _PLAIN_CHUNK):
-        pr = probes[s:s + _PLAIN_CHUNK].long()                 # (c, P)
-        ok = (pr >= 0) & (pr < n_lists)       # the kernel skips the rest
-        pr = torch.where(ok, pr, torch.zeros_like(pr))
-        sub = qrot[s:s + _PLAIN_CHUNK, None, :].float() - centers[pr]
-        sub_sq = (sub * sub).sum(-1)                            # (c, P)
-        subb = sub.to(torch.bfloat16).float()
-        ip = torch.matmul(list_recon[pr].float(),
-                          subb[..., None])[..., 0]              # (c, P, cap)
-        d = torch.clamp_min(sub_sq[..., None] + list_recon_sq[pr]
-                            - 2.0 * ip, 0.0)
-        cid = list_indices[pr]
-        d = torch.where((cid >= 0) & ok[..., None], d,
-                        torch.full_like(d, float("inf")))
-        if kt < cap:
-            d, pos = torch.topk(d, kt, dim=-1, largest=False, sorted=True)
-            cid = torch.gather(cid, -1, pos)
-        d = d.reshape(d.shape[0], -1)
-        cid = cid.reshape(cid.shape[0], -1)
-        kk = min(k, d.shape[1])
-        v, pos = torch.topk(d, kk, dim=1, largest=False, sorted=True)
-        i = torch.gather(cid, 1, pos)
-        vals[s:s + v.shape[0], :kk] = v
-        ids[s:s + v.shape[0], :kk] = torch.where(
-            torch.isinf(v), torch.full_like(i, -1), i).int()
-    return vals, ids
+
+    def dot(subb, pr):
+        return torch.matmul(list_recon[pr].float(), subb[..., None])[..., 0]
+
+    parts = [query_topk(*pair_topk(*probe_distances(
+        q, centers, p, list_indices, list_recon_sq, dot), kt), k)
+        for q, p in plain_chunks(qrot, probes)]
+    return cat_parts(parts, (k,), qrot.device)
 
 
 def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
@@ -164,7 +208,7 @@ def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
         qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
         list_recon.data_ptr(), list_recon_sq.data_ptr(),
         list_indices.data_ptr(), nq, n_probes, n_lists, cap, rot, k, kt,
-        vals.data_ptr(), ids.data_ptr(), stream)
+        scan_smem_bytes(cap, rot), vals.data_ptr(), ids.data_ptr(), stream)
     _cuda.check(status, "ivf_pq_scan_fused")
     ivf_pq_scan_fused.launches += 1
     return vals, ids

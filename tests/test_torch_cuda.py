@@ -14,6 +14,7 @@ import torch
 
 from raft_tpu_torch import LogicError
 from raft_tpu_torch.ops import kmeans_update as ku
+from raft_tpu_torch.ops import pq_code_scan as pcs
 from raft_tpu_torch.ops import pq_group_scan as pgs
 
 pytestmark = pytest.mark.cuda
@@ -27,7 +28,8 @@ def dev():
 
 
 @pytest.mark.parametrize("n,dim,k", [(1000, 50, 37), (4096, 128, 300),
-                                     (333, 32, 1)])
+                                     (333, 32, 1), (2912, 96, 91),
+                                     (20000, 96, 8192)])
 def test_kmeans_assign_update_kernel_matches_plain(dev, n, dim, k):
     """Counts exact (dyadic weights sum exactly in any order), dmin equal
     (same products in the same order), sums to fp32 summation order."""
@@ -65,6 +67,7 @@ def _random_index(dev, n_lists, cap, rot, seed):
 
 @pytest.mark.parametrize("cap,rot,k,kt", [(96, 128, 10, 10), (96, 128, 10, 4),
                                           (700, 128, 20, 20),
+                                          (2368, 96, 20, 20),
                                           (64, 32, 256, 256), (40, 24, 5, 3)])
 def test_ivf_pq_scan_kernel_matches_plain(dev, cap, rot, k, kt):
     """Distances within 1e-4 at every rank, the same exhausted ranks, no
@@ -120,3 +123,138 @@ def test_ivf_pq_scan_rejects_what_it_cannot_hold(dev):
     probes = torch.zeros(2, 1, dtype=torch.int32, device=dev)
     with pytest.raises(LogicError, match="outside 1..256"):
         pgs.ivf_pq_scan_fused(q, centers, probes, recon, rsq, ids, 300, 10)
+
+
+def _random_code_index(dev, n_lists, cap, pq_dim, pq_len, pq_bits, seed):
+    """Random packed codes and books, norms of the bf16 reconstructions,
+    ids with padding (-1) and tombstones (<= -2), and an int8 cache."""
+    rng = np.random.default_rng(seed)
+    width = -(-pq_dim * pq_bits // 8)
+    codes = torch.from_numpy(rng.integers(0, 256, (n_lists, cap, width))
+                             .astype(np.uint8)).to(dev)
+    books = torch.from_numpy(rng.normal(
+        size=(pq_dim, 1 << pq_bits, pq_len)).astype(np.float32)).to(dev)
+    recon = pcs.decode_codes(codes, books, pq_bits).float()
+    rsq = (recon ** 2).sum(-1)
+    ids = _random_index(dev, n_lists, cap, 8, seed)[3]
+    rot = pq_dim * pq_len
+    rot_pad = -(-rot // 16) * 16
+    i8 = torch.from_numpy(rng.integers(-127, 128, (n_lists, cap, rot_pad))
+                          .astype(np.int8)).to(dev)
+    i8[:, :, rot:] = 0
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, n_lists).astype(
+        np.float32)).to(dev)
+    rsq8 = scales[:, None] ** 2 * (i8.float() ** 2).sum(-1)
+    centers = torch.from_numpy(rng.normal(size=(n_lists, rot)).astype(
+        np.float32)).to(dev)
+    return centers, codes, books, rsq, ids, i8, scales, rsq8
+
+
+def _queries(dev, nq, rot, n_lists, n_probes):
+    rng = np.random.default_rng(7)
+    qrot = torch.from_numpy(rng.normal(size=(nq, rot)).astype(
+        np.float32)).to(dev)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(nq)]).astype(np.int32)
+    probes[0, -1] = -1                 # skipped by every version
+    return qrot, torch.from_numpy(probes).to(dev)
+
+
+def _assert_kernel_matches_plain(vk, ik, vp, ip):
+    fin = torch.isfinite(vp)
+    assert torch.equal(fin, torch.isfinite(vk))
+    assert torch.equal(ik < 0, ~fin)
+    torch.testing.assert_close(vk[fin], vp[fin], rtol=1e-4, atol=1e-4)
+    same = float((ik == ip).float().mean())
+    assert same >= 0.99, same
+
+
+CODE_SHAPES = [  # cap, pq_dim, pq_len, pq_bits, k, kt
+    (96, 16, 8, 8, 10, 10), (700, 48, 2, 8, 20, 4), (300, 32, 2, 4, 10, 3),
+    (64, 7, 4, 4, 256, 256), (40, 24, 1, 8, 5, 40),
+    (2368, 48, 2, 8, 20, 20), (2368, 48, 2, 8, 20, 4)]
+
+
+@pytest.mark.parametrize("cap,pq_dim,pq_len,pq_bits,k,kt", CODE_SHAPES)
+def test_codes_fused_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
+                                          k, kt):
+    """Kernel C: distances within 1e-4 at every rank (the LUT sums the
+    plain version's exact products in another order), the same exhausted
+    ranks, no padding or tombstone id, ids equal but at ties."""
+    n_lists, nq, n_probes = 64, 40, 12
+    centers, codes, books, rsq, ids, *_ = _random_code_index(
+        dev, n_lists, cap, pq_dim, pq_len, pq_bits, cap + k)
+    qrot, probes = _queries(dev, nq, pq_dim * pq_len, n_lists, n_probes)
+    before = pcs.ivf_pq_scan_codes_fused.launches
+    vk, ik = pcs.ivf_pq_scan_codes_fused(qrot, centers, probes, codes,
+                                         books, rsq, ids, pq_bits, k, kt)
+    torch.cuda.synchronize()
+    assert pcs.ivf_pq_scan_codes_fused.launches == before + 1
+    vp, ip = pcs.ivf_pq_scan_codes_fused_plain(qrot, centers, probes, codes,
+                                               books, rsq, ids, pq_bits, k,
+                                               kt)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+@pytest.mark.parametrize("cap,pq_dim,pq_len,pq_bits,k,kt", CODE_SHAPES)
+def test_codes_pair_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
+                                         k, kt):
+    """Kernel D: each pair's top kt, (+inf, -1) past its live rows and on
+    the skipped probe."""
+    n_lists, nq, n_probes = 64, 40, 12
+    centers, codes, books, rsq, ids, *_ = _random_code_index(
+        dev, n_lists, cap, pq_dim, pq_len, pq_bits, cap + kt)
+    qrot, probes = _queries(dev, nq, pq_dim * pq_len, n_lists, n_probes)
+    kt = min(kt, 128)
+    before = pcs.ivf_pq_scan_codes.launches
+    vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books, rsq,
+                                   ids, pq_bits, kt)
+    torch.cuda.synchronize()
+    assert pcs.ivf_pq_scan_codes.launches == before + 1
+    assert vk.shape == (nq, n_probes, min(kt, cap))
+    assert bool(torch.isinf(vk[0, -1]).all())
+    vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes, books,
+                                         rsq, ids, pq_bits, kt)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+@pytest.mark.parametrize("cap,rot,kt", [(96, 128, 10), (700, 96, 4),
+                                        (2368, 96, 4), (300, 24, 3),
+                                        (64, 1000, 64)])
+def test_recon8_kernel_matches_plain(dev, cap, rot, kt):
+    """Kernel E: the dot scaled after it is summed, as the plain version
+    does; each pair's top kt."""
+    n_lists, nq, n_probes = 64, 40, 12
+    rng = np.random.default_rng(cap + rot)
+    rot_pad = -(-rot // 16) * 16
+    i8 = torch.from_numpy(rng.integers(-127, 128, (n_lists, cap, rot_pad))
+                          .astype(np.int8)).to(dev)
+    i8[:, :, rot:] = 0
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, n_lists).astype(
+        np.float32)).to(dev)
+    rsq8 = scales[:, None] ** 2 * (i8.float() ** 2).sum(-1)
+    centers, _, _, ids = _random_index(dev, n_lists, cap, rot, cap)
+    qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
+    before = pcs.ivf_pq_scan_recon8.launches
+    vk, ik = pcs.ivf_pq_scan_recon8(qrot, centers, probes, i8, scales, rsq8,
+                                    ids, kt)
+    torch.cuda.synchronize()
+    assert pcs.ivf_pq_scan_recon8.launches == before + 1
+    vp, ip = pcs.ivf_pq_scan_recon8_plain(qrot, centers, probes, i8, scales,
+                                          rsq8, ids, kt)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+def test_code_scans_reject_what_they_cannot_hold(dev):
+    centers, codes, books, rsq, ids, i8, scales, rsq8 = _random_code_index(
+        dev, 4, 32, 8, 2, 8, 0)
+    q = torch.zeros(2, 16, device=dev)
+    probes = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(LogicError, match="outside 1..256"):
+        pcs.ivf_pq_scan_codes_fused(q, centers, probes, codes, books, rsq,
+                                    ids, 8, 300, 4)
+    with pytest.raises(LogicError, match="kt=0"):
+        pcs.ivf_pq_scan_codes(q, centers, probes, codes, books, rsq, ids, 8,
+                              0)
+    with pytest.raises(LogicError, match="kt=0"):
+        pcs.ivf_pq_scan_recon8(q, centers, probes, i8, scales, rsq8, ids, 0)

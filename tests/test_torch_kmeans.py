@@ -138,3 +138,68 @@ def test_fit_inertia_within_margin_of_the_reference():
     assert pi <= 1.02 * ji, (pi, ji)
     labels = kmeans_balanced.predict(res, KMeansBalancedParams(), x, pcent)
     assert np.bincount(labels.numpy(), minlength=32).min() > 0
+
+
+def _sift_like(n, dim, seed):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(n, 16)).astype(np.float32)
+    a = rng.normal(size=(16, dim)).astype(np.float32) / 4
+    return z @ a + 0.05 * rng.normal(size=(n, dim)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dim", [32, 24])
+def test_hierarchical_fit_inertia_within_margin_of_the_reference(
+        monkeypatch, dim):
+    """With the mesocluster threshold lowered to 16 in both packages, a
+    32-cluster fit takes the two-level build (6 mesoclusters of 5-6 fine
+    clusters, then 2 full-K iterations).  The draws differ (Philox vs
+    threefry), so the port is held to clustering quality: its inertia
+    within 2% of the JAX fit's — seeds move the ratio by about 0.5% — and
+    every cluster populated.  dim 32 runs Kernel A's plain version, dim 24
+    the plain fp32 loop."""
+    monkeypatch.setattr(jax_kmb, "_MESO_THRESHOLD", 16)
+    monkeypatch.setattr(kmeans_balanced, "_MESO_THRESHOLD", 16)
+    x = _sift_like(4096, dim, seed=8)
+    jcent = jax_kmb.fit(None, JaxKMeansBalancedParams(n_iters=10),
+                        jnp.asarray(x), 32, key=jax.random.key(2))
+    res = DeviceResources(seed=2, device="cpu")
+    pcent = kmeans_balanced.fit(res, KMeansBalancedParams(n_iters=10), x, 32)
+    assert pcent.shape == (32, dim)
+    ji, pi = _inertia(x, np.asarray(jcent)), _inertia(x, pcent.numpy())
+    assert pi <= 1.02 * ji, (pi, ji)
+    labels = kmeans_balanced.predict(res, KMeansBalancedParams(), x, pcent)
+    assert np.bincount(labels.numpy(), minlength=32).min() > 0
+
+
+def test_hierarchical_fit_is_the_default_from_the_threshold(monkeypatch):
+    """fit dispatches to the two-level build at n_clusters >= the
+    threshold, and not below it."""
+    calls = []
+    real = kmeans_balanced._fit_hierarchical
+    monkeypatch.setattr(kmeans_balanced, "_MESO_THRESHOLD", 16)
+    monkeypatch.setattr(kmeans_balanced, "_fit_hierarchical",
+                        lambda *a: calls.append(a[1]) or real(*a))
+    x = _sift_like(1024, 8, seed=9)
+    res = DeviceResources(seed=0, device="cpu")
+    kmeans_balanced.fit(res, KMeansBalancedParams(n_iters=2), x, 15)
+    kmeans_balanced.fit(res, KMeansBalancedParams(n_iters=2), x, 16)
+    assert calls == [16]
+
+
+def test_meso_partition_sample_takes_members_of_each_mesocluster():
+    """Every sampled row belongs to its mesocluster; a mesocluster with
+    fewer members than ``per`` cycles through all of them; the draws
+    replay from the generator's seed."""
+    rng = np.random.default_rng(3)
+    labels = torch.from_numpy(rng.integers(0, 5, 300))
+    labels[labels == 4] = 3            # mesocluster 4 empty
+    labels[:2] = 4                     # ... now two members
+    gen = torch.Generator().manual_seed(1)
+    idx = kmeans_balanced._meso_partition_sample(labels, gen, 5, 64)
+    assert idx.shape == (5, 64)
+    for m in range(5):
+        assert bool((labels[idx[m]] == m).all())
+    assert set(idx[4].tolist()) == {0, 1}
+    again = kmeans_balanced._meso_partition_sample(
+        labels, torch.Generator().manual_seed(1), 5, 64)
+    assert torch.equal(idx, again)

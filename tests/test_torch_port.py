@@ -36,6 +36,28 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.name} imports {sorted(bad)}"
 
 
+def _c_entry_points():
+    """name -> argument count of every ``extern "C"`` entry point in
+    raft_tpu_torch/csrc."""
+    import re
+
+    found = {}
+    for src in sorted((ROOT / "raft_tpu_torch" / "csrc").glob("*.cu")):
+        for name, args in re.findall(
+                r'extern "C" int (raft_\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = len([a for a in args.split(",") if a.strip()])
+    return found
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every C entry point is bound with as many ctypes arguments as it
+    declares (a missing one would shift every later argument)."""
+    from raft_tpu_torch.ops import _cuda
+
+    assert {n: len(a) for n, a in _cuda.SIGNATURES.items()} == \
+        _c_entry_points()
+
+
 def test_cuda_handle_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -174,16 +196,21 @@ def test_extend_fast_path_appends_with_the_recon_cache(tiny_index):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(scan_mode="recon"), "non-fused scan modes"),
-    (dict(scan_mode="lut"), "non-fused scan modes"),
-    (dict(scan_mode="codes"), "non-fused scan modes"),
-    (dict(scan_mode="recon8"), "non-fused scan modes"),
-    (dict(use_reconstruction=False), "non-fused scan modes"),
-])
+    (dict(scan_mode="recon"), "per-pair recon scan"),
+    (dict(scan_mode="lut"), "LUT scan"),
+    (dict(scan_mode="codes", per_probe_topk=129), "LUT scan"),
+    (dict(use_reconstruction=True), "per-pair recon scan"),
+    (dict(use_reconstruction=False), "LUT scan"),
+    # the ids the cases had when every non-fused mode was one deferred item
+], ids=[f"change{i}-non-fused scan modes" for i in range(5)])
 def test_search_modes_off_the_path_raise(tiny_index, change, item):
+    """The per-pair recon scan and the LUT scan are not ported; a codes
+    search at kt > 128, which the JAX package sends to the LUT scan,
+    raises with them."""
     res, index, db = tiny_index
     with pytest.raises(NotImplementedError, match=item):
-        ivf_pq.search(res, ivf_pq.SearchParams(**change), index, db[:2], 5)
+        ivf_pq.search(res, ivf_pq.SearchParams(**change), index, db[:2],
+                      200)
 
 
 def test_filtered_and_ip_search_raise(tiny_index):
@@ -222,9 +249,14 @@ def test_checkpoint_serialization_and_hierarchical_raise(tiny_index):
                      (ivf_pq.deserialize, (None,))):
         with pytest.raises(NotImplementedError, match="serialization"):
             fn(res, *args)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        kmeans_balanced.fit(res, KMeansBalancedParams(), db[:40], 8,
+    # the hierarchical build is ported; it raises only on what fit refuses
+    with pytest.raises(LogicError, match="n_clusters > n_samples"):
+        kmeans_balanced.fit(res, KMeansBalancedParams(), db[:40], 41,
                             hierarchical=True)
+    with pytest.raises(LogicError, match="L2Expanded / InnerProduct"):
+        kmeans_balanced.fit(res, KMeansBalancedParams(
+            metric=DistanceType.L2SqrtExpanded), db[:40], 8,
+            hierarchical=True)
 
 
 def test_padded_rotation_is_orthonormal_and_search_finds_self():
