@@ -19,34 +19,62 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``IndexParams(n_lists=4096, pq_dim=64)``, then batches of 5,000 queries
    searched at n_probes 96, k 20 and refined to k 10, recall@10 against
    ``brute_force.knn``.  Launch counts are zeroed just before and read
-   just after; Kernels A and B must each be > 0.
+   just after; Kernels A, B and H (the build's balanced k-means
+   assignments) must each be > 0.
 5. Kernel B (``ivf_pq_scan_fused``) against its plain version on the
-   flagship's batch: 5000 queries of the built index at n_probes 96, k 20.
-6. Where the flagship's time goes: one more build and one search+refine
+   flagship's batch: 5000 queries of the built index at n_probes 96, k 20;
+   Kernel H (``fused_l2_nn``) against its plain version at the shapes the
+   build gave it (the extend's assignment, 1,000,000 x 128 -> 4,096, and a
+   codebook fit's, 65,536 x 2 -> 256).
+6. IVF-PQ recon mode on the flagship index: ``scan_mode="recon"`` at
+   n_probes 96, k 20, refined to k 10 (Kernel G, launches zeroed before,
+   read after), and Kernel G (``ivf_pq_scan_recon``) against its plain
+   version on that batch.
+7. Where the flagship's time goes: one more build and one search+refine
    batch under ``torch.profiler`` — device busy time, idle share, heaviest
    kernels.
-7. Deep path at full width (``conf/deep-like-10m.json`` entry
-   ``raft_ivf_pq.dim48``): a 10,000,000 x 96 database + 5,000 queries from
-   the same generator, ``ivf_pq.build`` at ``IndexParams(n_lists=8192,
-   pq_dim=48, kmeans_trainset_fraction=0.1)`` (the hierarchical k-means
-   build, Kernel A; its stages' wall seconds), Kernel A against its plain
-   version at the fit's three pass shapes, then per scan mode — ``auto``
-   (Kernel B), ``fused`` kt 4 (Kernel C), ``codes`` kt 4 (Kernel D),
-   ``recon8`` kt 4 (Kernel E), and ``auto`` on the index with its recon
-   cache dropped (Kernel C at kt 20) — search at n_probes 96, k 20,
-   refine to k 10: ms per batch, QPS and recall@10, each mode's launch
-   counts zeroed before it and read after.  Kernels B, C, D and E against
-   their plain versions on the full batch at each mode's shape, and each
-   mode's batch under the profiler.
-8. A JSON line with each kernel's route, source, launches, error, time
-   (CUDA events), plain-version time and bound on its main path, and
-   under ``also_checked`` the same measurements at the deep path's
-   shapes; the ``nvidia-smi`` line; the result line ``{"ok": true,
-   "device": {...}}`` last.
+8. IVF-Flat at full width on the same data (``conf/sift-like-1m.json``
+   entries ``raft_ivf_flat.nlist4096`` and ``.nlist16384``):
+   ``ivf_flat.build`` at n_lists 4096 (seconds, stages, capacity), search
+   at n_probes 32 / 64 / 128, k 10 (ms, QPS, recall@10, the super-tile
+   factor F, Kernel F launches), Kernel F (``ivf_flat_scan``) against its
+   plain version at n_probes 64, one batch under the profiler; then n_lists
+   16384 (the hierarchical fit) at n_probes 128 with Kernel F against plain
+   there, and Kernels A and H against plain at its fit's and extend's
+   shapes.
+9. k-means at full width (BASELINE.md config 3): ``kmeans.fit`` on the
+   1,000,000 x 128 rows at ``KMeansParams(n_clusters=1024)`` (k-means++,
+   max_iter 300, tol 1e-4) and ``predict`` — seconds, iterations, inertia,
+   Kernel A and H launches — then Kernel H (``fused_l2_nn``) against its
+   plain version at 1,000,000 x 128 -> 1,024 and at BASELINE.md config 2's
+   100,000 x 128 -> 100,000, with ``torch.cdist(x, y).min(1)`` timed as a
+   yardstick (no single PyTorch call computes min + first argmin), and
+   Kernel A against plain at the Lloyd pass's shape.
+10. Deep path at full width (``conf/deep-like-10m.json`` entry
+    ``raft_ivf_pq.dim48``): a 10,000,000 x 96 database + 5,000 queries
+    from the same generator, ``ivf_pq.build`` at ``IndexParams(
+    n_lists=8192, pq_dim=48, kmeans_trainset_fraction=0.1)`` (the
+    hierarchical k-means build, Kernel A; its stages' wall seconds),
+    Kernels A and H against their plain versions at the fit's three pass
+    shapes and H at the codebook fits' shape, then per scan mode — ``auto`` (Kernel B), ``fused`` kt 4 (Kernel C),
+    ``codes`` kt 4 (Kernel D), ``recon8`` kt 4 (Kernel E), ``recon`` kt 4
+    (Kernel G), and ``auto`` on the index with its recon cache dropped
+    (Kernel C at kt 20) — search at n_probes 96, k 20, refine to k 10: ms
+    per batch, QPS and recall@10, each mode's launch counts zeroed before
+    it and read after.  Kernels B, C, D, E and G against their plain
+    versions on the full batch at each mode's shape, and each mode's batch
+    under the profiler.
+11. A JSON line with each kernel's route, source, launches, error, time
+    (CUDA events), plain-version time and bound on its main path, and
+    under ``also_checked`` the same measurements at the other shapes its
+    paths give it; the ``nvidia-smi`` line; the result line ``{"ok":
+    true, "device": {...}}`` last.
 
-Bounds use the H100 SXM peaks: 3.35 TB/s of device memory and 989
-TFLOP/s for bf16 products (every kernel multiplies bf16 values, the int8
-scan by way of bf16).
+Bounds use the H100 SXM peaks: 3.35 TB/s of device memory, 989 TFLOP/s
+for bf16 products (Kernels A-E and G multiply bf16 values, the int8 scan
+by way of bf16) and 67 TFLOP/s of fp32 FFMA for Kernels F and H, whose
+contract fixes fp32 products (TF32 tensor cores would round each factor
+to ten mantissa bits).
 """
 
 from __future__ import annotations
@@ -58,6 +86,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 
 N_DB, N_QUERIES, DIM, LATENT, NOISE = 1_000_000, 5_000, 128, 16, 0.05
 N_LISTS, PQ_DIM, N_PROBES, K_SEARCH, K = 4096, 64, 96, 20, 10
@@ -65,6 +94,11 @@ DEEP_DB, DEEP_DIM, DEEP_LISTS, DEEP_PQ_DIM = 10_000_000, 96, 8192, 48
 DEEP_TRAIN_FRACTION, DEEP_KT = 0.1, 4
 SEARCH_REPS = 3
 KERNEL_REPS = 5
+# IVF-Flat (conf/sift-like-1m.json raft_ivf_flat.nlist4096 / .nlist16384)
+FLAT_LISTS, FLAT_PROBES, FLAT_CHECK_PROBES = 4096, (32, 64, 128), 64
+FLAT_FINE_LISTS, FLAT_FINE_PROBES = 16384, 128
+# k-means (BASELINE config 3) and fusedL2NN (BASELINE config 2)
+KMEANS_CLUSTERS, NN_ROWS = 1024, 100_000
 
 
 def sift_like(n, n_queries, dim, latent, noise, device, seed=0,
@@ -89,7 +123,9 @@ def sift_like(n, n_queries, dim, latent, noise, device, seed=0,
 
 def counters():
     """Every kernel wrapper, by kernel name."""
+    from raft_tpu_torch.ops import fused_l2_nn as fnn
     from raft_tpu_torch.ops import kmeans_update as ku
+    from raft_tpu_torch.ops import pair_scan as ps
     from raft_tpu_torch.ops import pq_code_scan as pcs
     from raft_tpu_torch.ops import pq_group_scan as pgs
 
@@ -97,7 +133,10 @@ def counters():
             "ivf_pq_scan_fused": pgs.ivf_pq_scan_fused,
             "ivf_pq_scan_codes_fused": pcs.ivf_pq_scan_codes_fused,
             "ivf_pq_scan_codes": pcs.ivf_pq_scan_codes,
-            "ivf_pq_scan_recon8": pcs.ivf_pq_scan_recon8}
+            "ivf_pq_scan_recon8": pcs.ivf_pq_scan_recon8,
+            "ivf_flat_scan": ps.ivf_flat_scan,
+            "ivf_pq_scan_recon": ps.ivf_pq_scan_recon,
+            "fused_l2_nn": fnn.fused_l2_nn}
 
 
 def zero_launches():
@@ -109,10 +148,11 @@ def read_launches():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=BF16_FLOP_PER_S):
     """(ms, "bytes" | "operations"): the larger of the bytes over the
-    memory rate and the bf16 operations over the bf16 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    memory rate and the operations over their peak (bf16 products by
+    default; the fp32 FFMA peak for Kernels F and H)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                         else "operations")
 
@@ -254,13 +294,14 @@ def check_kernel_a(train, centroids, shape):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def ties_only(v, i, ref_i):
+def ties_only(v, i, ref_i, atol=1e-4):
     """True when every id that differs from the reference sits at a
-    distance tie: next to an equal distance in its sorted row, or on the
-    row's last finite rank (whose tie partner may lie past the row)."""
+    distance tie (within ``atol`` + 1e-4 relative): next to an equal
+    distance in its sorted row, or on the row's last finite rank (whose tie
+    partner may lie past the row)."""
     import torch
 
-    tol = 1e-4 * (1.0 + v.abs())
+    tol = atol + 1e-4 * v.abs()
     tie = torch.zeros_like(v, dtype=torch.bool)
     near = (v[..., 1:] - v[..., :-1]).abs() <= tol[..., 1:]
     tie[..., 1:] |= near
@@ -271,18 +312,20 @@ def ties_only(v, i, ref_i):
     return bool(((i == ref_i) | tie | last).all())
 
 
-def compare_with_plain(name, vk, ik, vp, ip):
-    """Distances within 1e-4 rel/abs at every rank, the same exhausted
-    ranks, -1 exactly there, ids equal except at distance ties."""
+def compare_with_plain(name, vk, ik, vp, ip, atol=1e-4):
+    """Distances within 1e-4 relative + ``atol`` at every rank, the same
+    exhausted ranks, -1 exactly there, ids equal except at distance
+    ties."""
     import torch
 
     fin = torch.isfinite(vp)
     assert torch.equal(fin, torch.isfinite(vk)), f"{name}: exhausted ranks"
     assert torch.equal(ik < 0, ~fin), f"{name}: -1 ids off exhausted ranks"
     err = float((vk[fin] - vp[fin]).abs().max()) if bool(fin.any()) else 0.0
-    assert torch.allclose(vk[fin], vp[fin], rtol=1e-4, atol=1e-4), (
+    assert torch.allclose(vk[fin], vp[fin], rtol=1e-4, atol=atol), (
         f"{name} distances differ by {err}")
-    assert ties_only(vk, ik, ip), f"{name}: ids differ off distance ties"
+    assert ties_only(vk, ik, ip, atol), (
+        f"{name}: ids differ off distance ties")
     same = float((ik == ip).float().mean())
     print(f"{name} vs plain: max |dist err| {err}, ids equal at {same:.5f} "
           f"of ranks (others are distance ties)", flush=True)
@@ -456,9 +499,368 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E")):
     return check_scans(index, qrot, probes, specs)
 
 
-def deep_mode(res, index, db, queries, truth, label, sp, kernel):
-    """One scan mode on the deep index: launch counts zeroed before and
-    read after; a first search (which attaches the mode's lazy cache),
+def check_kernel_g(index, queries, kt):
+    """Kernel G vs plain on a path's batch (5000 queries, n_probes 96) at
+    per-pair ``kt``, as ``scan_mode="recon"`` runs it."""
+    from raft_tpu_torch.ops import pair_scan as ps
+
+    qrot, probes = probe(index, queries)
+    nq, n_probes = probes.shape
+    rot = index.rot_dim
+    kt = min(kt, index.capacity)
+    args = (qrot, index.centers, probes, index.list_recon,
+            index.list_recon_sq, index.list_indices, kt)
+
+    def recon_rows(slot):
+        return index.list_recon.reshape(-1, rot)[slot].float()
+
+    return check_scans(index, qrot, probes, [
+        ("ivf_pq_scan_recon", "pair_scan.cu",
+         "raft_tpu/ops/pq_group_scan_pallas.py:566", ps.ivf_pq_scan_recon,
+         ps.ivf_pq_scan_recon_plain, args, recon_rows, index.list_recon_sq,
+         None, rot * 2 + 8, 0, nq * n_probes * kt * 8, rot)])[0]
+
+
+def flat_scan_args(index, queries, n_probes, k):
+    """What ``ivf_flat.search`` hands Kernel F: the queries, the
+    (super-tile) probes, the (L/F, F·cap) views of the lists, kt; and F."""
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    probes = ivf_flat._select_clusters(index.centers, queries, n_probes,
+                                       index.metric)
+    cap, dim = index.capacity, index.dim
+    F, n_eff = ivf_flat.super_tile_factor(cap, index.n_lists, n_probes)
+    if F > 1:
+        probes = ivf_flat.dedup_super_probes(probes, F, n_eff)
+    return (queries, probes, index.list_data.reshape(n_eff, F * cap, dim),
+            index.list_data_sq.reshape(n_eff, F * cap),
+            index.list_indices.reshape(n_eff, F * cap),
+            min(k, F * cap)), F
+
+
+def check_kernel_f(index, queries, n_probes, k):
+    """Kernel F vs plain on an IVF-Flat batch at ``n_probes``: values
+    within 1e-5 of the scale ‖q‖² + max ‖x‖² that fp32 cancellation moves
+    them by, ids equal but at ties, every returned id found in its pair's
+    tile with its distance recomputed; then its CUDA-event time, the plain
+    version's and the bound (each probed tile's live rows read once, 2·dim
+    fp32 operations per (query, probed live row))."""
+    import torch
+    from raft_tpu_torch.ops import pair_scan as ps
+
+    args, F = flat_scan_args(index, queries, n_probes, k)
+    q, probes, data, dsq, ids, kt = args
+    vk, ik = ps.ivf_flat_scan(*args)
+    (vp, ip), plain_ms = timed_once(lambda: ps.ivf_flat_scan_plain(*args))
+    q_sq = (q * q).sum(1)
+    scale = float(q_sq.max() + dsq.max())
+    err = compare_with_plain("ivf_flat_scan", vk, ik, vp, ip,
+                             atol=1e-5 * scale)
+    fin = torch.isfinite(vk)
+    flat = ids.reshape(-1)
+    slot_of = torch.full((int(flat.max()) + 1,), -1, dtype=torch.int64,
+                         device=flat.device)
+    slot_of[flat[flat >= 0].long()] = torch.nonzero(flat >= 0)[:, 0]
+    slot = slot_of[ik[fin].long()]
+    nq, n_pr = probes.shape
+    pair_q = torch.arange(nq, device=q.device)[:, None, None].expand(
+        nq, n_pr, kt)[fin]
+    pair_tile = probes.long()[:, :, None].expand(nq, n_pr, kt)[fin]
+    assert bool((slot // data.shape[1] == pair_tile).all()), (
+        "ivf_flat_scan: an id outside its pair's tile")
+    rows = data.reshape(-1, index.dim)[slot]
+    d = torch.clamp_min(q_sq[pair_q] + dsq.reshape(-1)[slot]
+                        - 2.0 * (q[pair_q] * rows).sum(1), 0.0)
+    assert torch.allclose(d, vk[fin], rtol=0, atol=1e-5 * scale), (
+        "ivf_flat_scan: returned ids do not match their distances")
+    del rows, d
+    ms = cuda_ms(lambda: ps.ivf_flat_scan(*args), KERNEL_REPS)
+    live = (ids >= 0).sum(1)
+    pr = probes.long()
+    pr = pr[pr < data.shape[0]]
+    nbytes = (int(live[torch.unique(pr)].sum()) * (index.dim * 4 + 8)
+              + q.numel() * 4 + probes.numel() * 4 + vk.numel() * 8)
+    flops = 2.0 * index.dim * int(live[pr].sum())
+    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+    print(f"ivf_flat_scan at n_probes {n_probes} (F {F}, tile {data.shape[1]} "
+          f"slots): {ms:.3f} ms/batch of {nq}, plain {plain_ms:.1f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.1f} GFLOP)", flush=True)
+    return {"name": "ivf_flat_scan", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/pair_scan.cu",
+            "replaces": "raft_tpu/ops/pq_group_scan_pallas.py:637",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "F": F}
+
+
+def flat_searches(res, index, queries, truth, probes_list, label):
+    """ivf_flat.search at each n_probes, k 10: a first search, then
+    SEARCH_REPS timed batches; ms, QPS, recall@10, F and Kernel F
+    launches per setting."""
+    import torch
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import pair_scan as ps
+
+    out = {}
+    for n_probes in probes_list:
+        sp = ivf_flat.SearchParams(n_probes=n_probes)
+        F, _ = ivf_flat.super_tile_factor(index.capacity, index.n_lists,
+                                          n_probes)
+        before = ps.ivf_flat_scan.launches
+        ivf_flat.search(res, sp, index, queries, K)
+        ms = []
+        for _ in range(SEARCH_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, found = ivf_flat.search(res, sp, index, queries, K)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
+        recall = float(hits) / truth.numel()
+        med = sorted(ms)[len(ms) // 2]
+        out[n_probes] = {"ms": med, "recall": recall, "F": F}
+        print(f"{label} n_probes {n_probes} (F {F}): search "
+              f"{', '.join(f'{m:.2f}' for m in ms)} ms per batch of "
+              f"{queries.shape[0]}; QPS {queries.shape[0] / (med / 1e3):.0f} "
+              f"(median); recall@10 {recall:.4f}; Kernel F launches "
+              f"{ps.ivf_flat_scan.launches - before}", flush=True)
+    return out
+
+
+def build_flat(res, db, n_lists, label):
+    """ivf_flat.build with its seconds, stages and list sizes printed."""
+    import torch
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = ivf_flat.build(res, ivf_flat.IndexParams(n_lists=n_lists), db)
+    torch.cuda.synchronize()
+    sizes = index.list_sizes.float()
+    print(f"{label} build: {time.perf_counter() - t0:.2f} s; stages (s): "
+          f"{json.dumps(ivf_flat.build.stage_seconds)}; {index.n_lists} "
+          f"lists, capacity {index.capacity} (sizes mean "
+          f"{float(sizes.mean()):.1f}, max {int(sizes.max())}, min "
+          f"{int(sizes.min())})", flush=True)
+    return index
+
+
+def ivf_flat_path(db, queries, truth):
+    """The IVF-Flat phases: ``raft_ivf_flat.nlist4096`` built and searched
+    at n_probes 32 / 64 / 128 (launches zeroed before the build, read
+    after the searches), Kernel F vs plain at n_probes 64, one batch under
+    the profiler; then ``raft_ivf_flat.nlist16384`` (the hierarchical fit)
+    at n_probes 128 with Kernel F vs plain there, and Kernels A and H vs
+    plain at the shapes its hierarchical fit and its extend give them, on a
+    trainset of the build's size (``also_checked``).  Returns F's kernels
+    row and the A and H ``also_checked`` entries."""
+    import torch
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    res = DeviceResources(seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    index = build_flat(res, db, FLAT_LISTS, "IVF-Flat nlist 4096")
+    results = flat_searches(res, index, queries, truth, FLAT_PROBES,
+                            "IVF-Flat nlist 4096")
+    launches = read_launches()
+    print(f"IVF-Flat nlist 4096 launches (build + searches): "
+          f"{json.dumps(launches)}; peak device memory {peak_gb():.2f} GB",
+          flush=True)
+    for name in ("ivf_flat_scan", "fused_l2_nn", "kmeans_assign_update"):
+        assert launches[name] > 0, f"IVF-Flat: {name} never launched"
+    assert results[FLAT_PROBES[-1]]["recall"] >= 0.90, (
+        f"IVF-Flat recall@10 {results[FLAT_PROBES[-1]]['recall']} below "
+        f"0.90 at n_probes {FLAT_PROBES[-1]}")
+    row = check_kernel_f(index, queries, FLAT_CHECK_PROBES, K)
+    row["launches"] = launches["ivf_flat_scan"]
+    sp = ivf_flat.SearchParams(n_probes=FLAT_CHECK_PROBES)
+    device_breakdown(f"IVF-Flat search batch (n_probes {FLAT_CHECK_PROBES})",
+                     lambda: ivf_flat.search(res, sp, index, queries, K))
+    del index
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    fine = build_flat(res, db, FLAT_FINE_LISTS, "IVF-Flat nlist 16384")
+    flat_searches(res, fine, queries, truth, (FLAT_FINE_PROBES,),
+                  "IVF-Flat nlist 16384")
+    fine_launches = read_launches()
+    for name in ("ivf_flat_scan", "fused_l2_nn", "kmeans_assign_update"):
+        assert fine_launches[name] > 0, f"IVF-Flat 16384: {name} never launched"
+    row_fine = check_kernel_f(fine, queries, FLAT_FINE_PROBES, K)
+    row["also_checked"] = [at_shape(
+        row_fine, f"nlist 16384: {N_QUERIES:,} queries x {FLAT_FINE_PROBES} "
+        f"probes, k {K}, F {row_fine['F']}, capacity {fine.capacity}",
+        fine_launches["ivf_flat_scan"])]
+    n_train = int(N_DB * ivf_flat.IndexParams().kmeans_trainset_fraction)
+    sel = torch.randperm(N_DB, generator=DeviceResources(seed=0).generator,
+                         device=db.device)[:n_train]
+    a_rows, h_rows = hierarchical_checks(
+        db[sel], FLAT_FINE_LISTS, "IVF-Flat nlist 16384",
+        fine_launches["kmeans_assign_update"], fine_launches["fused_l2_nn"])
+    h_rows.append(h_check(db, fine.centers, f"IVF-Flat nlist 16384 extend: "
+                          f"{N_DB:,} x {DIM} -> {FLAT_FINE_LISTS:,}",
+                          fine_launches["fused_l2_nn"]))
+    del fine, sel
+    torch.cuda.empty_cache()
+    return row, a_rows, h_rows
+
+
+def check_kernel_h(x, y, shape, yardstick):
+    """Kernel H vs plain at one shape: dmin within 1e-5 of the scale ‖x‖²
+    + max ‖y‖², each index equal to the plain version's or at a distance
+    tie with it (both recomputed directly); its CUDA-event time, the plain
+    version's, the bound (x and y read once, 2·m·n·k fp32 operations) and,
+    with ``yardstick``, the two-call ``torch.cdist(x, y).min(1)``."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_nn as fnn
+    from raft_tpu_torch.utils import precision
+
+    dk, ik = fnn.fused_l2_nn(x, y)
+    (dp, ip), plain_ms = timed_once(lambda: fnn.fused_l2_nn_plain(x, y))
+    scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
+    err = float((dk - dp).abs().max())
+    assert err <= 1e-5 * scale, f"fused_l2_nn at {shape}: dmin off by {err}"
+    gap = (((x - y[ik.long()]) ** 2).sum(1)
+           - ((x - y[ip.long()]) ** 2).sum(1)).abs()
+    assert bool(((ik == ip) | (gap <= 1e-5 * scale)).all()), (
+        f"fused_l2_nn at {shape}: an index off a distance tie")
+    same = float((ik == ip).float().mean())
+    ms = cuda_ms(lambda: fnn.fused_l2_nn(x, y), KERNEL_REPS)
+    (m, k), n = x.shape, y.shape[0]
+    flops = 2.0 * m * n * k
+    bound_ms, bound_by = bound((m + n) * k * 4 + m * 8, flops,
+                               FP32_FLOP_PER_S)
+    yard_ms = None
+    if yardstick:
+        with precision.highest():
+            yard_ms = cuda_ms(lambda: torch.cdist(x, y).min(1), KERNEL_REPS)
+    print(f"fused_l2_nn at {shape}: max |dmin err| {err} (scale {scale:.1f}), "
+          f"indices equal at {same:.6f} (others at ties); {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); cdist+min yardstick "
+          f"{yard_ms if yard_ms is None else round(yard_ms, 3)} ms",
+          flush=True)
+    return {"name": "fused_l2_nn", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/fused_l2_nn.cu",
+            "replaces": "raft_tpu/ops/fused_l2_nn_pallas.py:65",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "yardstick_cdist_min_ms": yard_ms}
+
+
+def h_check(x, y, shape, launches):
+    """Kernel H vs plain at one more shape a path gives it, as an
+    ``also_checked`` entry."""
+    return at_shape(check_kernel_h(x, y, shape, False), shape, launches)
+
+
+def hierarchical_checks(train, n_clusters, label, a_launches, h_launches):
+    """Kernels A and H against their plain versions at the three pass
+    shapes of the hierarchical balanced fit of ``n_clusters`` clusters on
+    ``train``: the mesocluster pass (all rows), a per-mesocluster pass (a
+    sample of the fit's size) and a full-K pass, each from strided
+    initial centroids as the fit starts.  Returns the ``also_checked``
+    entries of A and of H."""
+    from raft_tpu_torch.cluster.kmeans_balanced import _strided_init
+
+    n_meso = round(n_clusters ** 0.5)
+    k_max = -(-n_clusters // n_meso)
+    per = max(2048, 32 * k_max)
+    a_rows, h_rows = [], []
+    for what, rows, k in (("mesocluster", train, n_meso),
+                          ("per-mesocluster", train[:per], k_max),
+                          ("full-K", train, n_clusters)):
+        shape = (f"{label} {what} pass: {rows.shape[0]:,} x {rows.shape[1]} "
+                 f"-> {k:,}")
+        c0 = _strided_init(rows, k)
+        a_rows.append(at_shape(check_kernel_a(rows, c0, shape), shape,
+                               a_launches))
+        h_rows.append(h_check(rows, c0, shape, h_launches))
+    return a_rows, h_rows
+
+
+def codebook_h_check(index, rows, label, launches):
+    """Kernel H vs plain at the shape an IVF-PQ build's codebook fits give
+    it: the first subspace of ``_BOOK_TRAIN_ROWS`` rotated residuals
+    against its codebook (256 x pq_len)."""
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import fused_l2_nn as fnn
+
+    rot = rows[:ivf_pq._BOOK_TRAIN_ROWS].float() @ index.rotation
+    lab = fnn.fused_l2_nn_plain(rot, index.centers)[1].long()
+    pq_len = index.rot_dim // index.pq_dim
+    sub = (rot - index.centers[lab])[:, :pq_len].contiguous()
+    book = index.codebooks[0].contiguous()
+    return h_check(sub, book, f"{label} codebook fit: {sub.shape[0]:,} x "
+                   f"{pq_len} -> {book.shape[0]}", launches)
+
+
+def kmeans_path(db):
+    """BASELINE config 3: ``kmeans.fit`` on the 1,000,000 x 128 rows at
+    ``KMeansParams(n_clusters=1024)`` (k-means++, max_iter 300, tol 1e-4),
+    then ``predict``; launches zeroed before the fit and read after the
+    predict.  k-means++ alone is timed again from the same generator.
+    Kernel H vs plain at 1,000,000 x 128 -> 1,024 and at BASELINE config
+    2's 100,000 x 128 -> 100,000 (``also_checked``; no path of this script
+    runs that shape, so its launches are 0), and Kernel A vs plain at the
+    Lloyd loop's shape (1,000,000 x 128 -> 1,024).  Returns H's kernels
+    row and A's ``also_checked`` entry."""
+    import torch
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.cluster.kmeans_types import KMeansParams
+
+    params = KMeansParams(n_clusters=KMEANS_CLUSTERS)
+    res = DeviceResources(seed=0)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    centroids, inertia, n_iter = kmeans.fit(res, params, db)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    kmeans.predict(res, params, db, centroids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, inertia_p = kmeans.predict(res, params, db, centroids)
+    torch.cuda.synchronize()
+    predict_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    t0 = time.perf_counter()
+    kmeans.init_plus_plus(res, db, KMEANS_CLUSTERS,
+                          generator=kmeans._restart_generator(
+                              params.seed, 0, db.device))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    inertia, inertia_p = float(inertia), float(inertia_p)
+    print(f"k-means 1M x 128 -> {KMEANS_CLUSTERS}: fit {fit_s:.2f} s "
+          f"(k-means++ alone {init_s:.2f} s), n_iter {n_iter}, inertia "
+          f"{inertia:.6e}; predict {predict_ms:.2f} ms, inertia "
+          f"{inertia_p:.6e}; launches {json.dumps(launches)}", flush=True)
+    for name in ("kmeans_assign_update", "fused_l2_nn"):
+        assert launches[name] > 0, f"k-means: {name} never launched"
+    assert centroids.shape == (KMEANS_CLUSTERS, DIM) and bool(
+        torch.isfinite(centroids).all()), "k-means: bad centroids"
+    assert int(labels.min()) >= 0 and int(labels.max()) < KMEANS_CLUSTERS
+    assert 0 < inertia < float("inf") and abs(inertia_p - inertia) <= (
+        1e-5 * inertia), "k-means: predict's inertia is not the fit's"
+    row = check_kernel_h(db, centroids,
+                         f"1,000,000 x 128 -> {KMEANS_CLUSTERS:,}", True)
+    row["launches"] = launches["fused_l2_nn"]
+    row["also_checked"] = [h_check(
+        db[:NN_ROWS], db[NN_ROWS:2 * NN_ROWS],
+        f"{NN_ROWS:,} x 128 -> {NN_ROWS:,} (BASELINE config 2)", 0)]
+    shape = f"k-means Lloyd pass: 1,000,000 x 128 -> {KMEANS_CLUSTERS:,}"
+    a_row = at_shape(check_kernel_a(db, centroids, shape), shape,
+                     launches["kmeans_assign_update"])
+    return row, a_row
+
+
+def search_mode(res, index, db, queries, truth, label, sp, kernel):
+    """One IVF-PQ scan mode on a built index: launch counts zeroed before
+    and read after; a first search (which attaches the mode's lazy cache),
     then SEARCH_REPS batches of search + refine."""
     import torch
     from raft_tpu_torch.neighbors import ivf_pq, refine
@@ -485,28 +887,27 @@ def deep_mode(res, index, db, queries, truth, label, sp, kernel):
     hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
     recall = float(hits) / truth.numel()
     med = sorted(batch_ms)[len(batch_ms) // 2]
-    print(f"deep {label}: first search {first_ms:.2f} ms (lazy caches "
+    print(f"{label}: first search {first_ms:.2f} ms (lazy caches "
           f"included); search {', '.join(f'{m:.2f}' for m in search_ms)} "
           f"ms; search+refine {', '.join(f'{m:.2f}' for m in batch_ms)} ms "
           f"per batch of {queries.shape[0]}; QPS "
           f"{queries.shape[0] / (med / 1e3):.0f} (median); recall@10 "
           f"{recall:.4f}; launches {json.dumps(launches)}; fused codes "
           f"fallbacks {fallbacks}", flush=True)
-    assert launches[kernel] > 0, f"deep {label}: {kernel} never launched"
+    assert launches[kernel] > 0, f"{label}: {kernel} never launched"
     return {"label": label, "recall": recall, "launches": launches,
             "batch_ms": med, "cand": cand}
 
 
 def deep_path(dev):
-    """Phase 7: the deep-like-10m / raft_ivf_pq.dim48 index at full width,
+    """Phase 10: the deep-like-10m / raft_ivf_pq.dim48 index at full width,
     every compact-code scan mode through ``ivf_pq.search``, then every
     kernel of the path against its plain version at the shapes the path
     gives it.  Returns the kernel rows of C, D and E with the launches of
-    their modes' runs, and the deep-shape checks of Kernels A and B
+    their modes' runs, and the deep-shape checks of Kernels A, B, G and H
     (``at_shape`` entries)."""
     import torch
     from raft_tpu_torch import DeviceResources
-    from raft_tpu_torch.cluster.kmeans_balanced import _strided_init
     from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
 
     torch.cuda.synchronize()
@@ -540,33 +941,25 @@ def deep_path(dev):
     # coarse_fit is the hierarchical k-means, ~sqrt(K) mesoclusters looped
     print(f"deep build stages (s): {json.dumps(ivf_pq.build.stage_seconds)}",
           flush=True)
-    assert build_launches["kmeans_assign_update"] > 0, (
-        "deep build: Kernel A never launched")
+    for name in ("kmeans_assign_update", "fused_l2_nn"):
+        assert build_launches[name] > 0, f"deep build: {name} never launched"
     print(f"deep peak device memory through the build: {peak_gb():.2f} GB",
           flush=True)
 
-    # Kernel A at the hierarchical fit's three pass shapes, on the build's
-    # trainset (the first draw of a seed-0 handle, rotated): the
-    # mesocluster stage's first pass (all rows, its strided init), a
-    # per-mesocluster pass (a sample of the fit's size) and a pass of the
-    # full-K refinement
+    # Kernels A and H at the hierarchical fit's three pass shapes, on the
+    # build's trainset (the first draw of a seed-0 handle, rotated), and H
+    # at the codebook fits' shape
     n_train = int(DEEP_DB * DEEP_TRAIN_FRACTION)
     sel = torch.randperm(DEEP_DB, generator=DeviceResources(seed=0).generator,
                          device=dev)[:n_train]
     train = db[sel] @ index.rotation
     del sel
-    n_meso = round(DEEP_LISTS ** 0.5)
-    k_max = -(-DEEP_LISTS // n_meso)
-    per = max(2048, 32 * k_max)
-    a_deep = []
-    for what, rows, k in (("mesocluster", train, n_meso),
-                          ("per-mesocluster", train[:per], k_max),
-                          ("full-K", train, DEEP_LISTS)):
-        shape = f"deep {what} pass: {rows.shape[0]:,} x {DEEP_DIM} -> {k:,}"
-        a_deep.append(at_shape(
-            check_kernel_a(rows, _strided_init(rows, k), shape), shape,
-            build_launches["kmeans_assign_update"]))
+    a_deep, h_deep = hierarchical_checks(
+        train, DEEP_LISTS, "deep", build_launches["kmeans_assign_update"],
+        build_launches["fused_l2_nn"])
     del train
+    h_deep.append(codebook_h_check(index, db, "deep",
+                                   build_launches["fused_l2_nn"]))
     torch.cuda.empty_cache()
 
     def sp(**kw):
@@ -579,9 +972,10 @@ def deep_path(dev):
             ("fused", sp(scan_mode="fused", **kt4), "ivf_pq_scan_codes_fused"),
             ("codes", sp(scan_mode="codes", **kt4), "ivf_pq_scan_codes"),
             ("recon8", sp(scan_mode="recon8", **kt4),
-             "ivf_pq_scan_recon8")):
-        runs[label] = deep_mode(res, index, db, queries, truth, label,
-                                params_, kernel)
+             "ivf_pq_scan_recon8"),
+            ("recon", sp(scan_mode="recon", **kt4), "ivf_pq_scan_recon")):
+        runs[label] = search_mode(res, index, db, queries, truth,
+                                  f"deep {label}", params_, kernel)
         runs[label]["params"] = params_
     agree = float((runs["fused"]["cand"] == runs["codes"]["cand"]).float()
                   .mean())
@@ -589,7 +983,7 @@ def deep_path(dev):
           f"ranks", flush=True)
     assert runs["auto"]["recall"] >= 0.90, (
         f"deep auto recall@10 {runs['auto']['recall']} below 0.90")
-    for label in ("fused", "codes", "recon8"):
+    for label in ("fused", "codes", "recon8", "recon"):
         assert runs[label]["recall"] >= 0.80, (
             f"deep {label} recall@10 {runs[label]['recall']} below 0.80")
     assert agree >= 0.99, f"deep fused and codes ids agree at {agree}"
@@ -605,6 +999,11 @@ def deep_path(dev):
         f"deep: {N_QUERIES:,} queries x {N_PROBES} probes, k {K_SEARCH}, kt "
         f"{K_SEARCH}, capacity {index.capacity:,}, rot {index.rot_dim}",
         runs["auto"]["launches"]["ivf_pq_scan_fused"])
+    g_deep = at_shape(
+        check_kernel_g(index, queries, DEEP_KT),
+        f"deep recon: {N_QUERIES:,} queries x {N_PROBES} probes, kt "
+        f"{DEEP_KT}, capacity {index.capacity:,}, rot {index.rot_dim}",
+        runs["recon"]["launches"]["ivf_pq_scan_recon"])
 
     for label, run in runs.items():
         device_breakdown(f"deep {label} search+refine batch",
@@ -616,8 +1015,8 @@ def deep_path(dev):
     # Kernel C runs at kt = k
     index.list_recon = index.list_recon_sq = index.list_code_rsq = None
     torch.cuda.empty_cache()
-    lean = deep_mode(res, index, db, queries, truth, "auto without a recon "
-                     "cache", sp(), "ivf_pq_scan_codes_fused")
+    lean = search_mode(res, index, db, queries, truth, "deep auto without a "
+                       "recon cache", sp(), "ivf_pq_scan_codes_fused")
     assert lean["recall"] >= 0.90, (
         f"deep auto (no recon cache) recall@10 {lean['recall']} below 0.90")
     row_c = check_code_kernels(index, queries, K_SEARCH, ("C",))[0]
@@ -627,7 +1026,7 @@ def deep_path(dev):
         lean["launches"]["ivf_pq_scan_codes_fused"]))
     print(f"deep peak device memory, plain versions included: "
           f"{peak_gb():.2f} GB", flush=True)
-    return rows, a_deep, b_deep
+    return rows, a_deep, b_deep, g_deep, h_deep
 
 
 def main() -> int:
@@ -707,13 +1106,30 @@ def main() -> int:
     print(f"recall@10: {recall:.4f}", flush=True)
     print(f"peak device memory: {peak_gb:.2f} GB", flush=True)
     print(f"launches on the main path: {json.dumps(launches)}", flush=True)
-    for name in ("kmeans_assign_update", "ivf_pq_scan_fused"):
+    for name in ("kmeans_assign_update", "ivf_pq_scan_fused", "fused_l2_nn"):
         assert launches[name] > 0, (
             f"{name} was never launched on the main path")
     assert recall >= 0.90, f"recall@10 {recall} below the 0.90 floor"
 
     phase("kernel B vs plain (the main path's batch on the built index)")
     row_b = check_kernel_b(index, queries)
+
+    phase("kernel H vs plain at the flagship build's shapes")
+    h_more = [h_check(db @ index.rotation, index.centers,
+                      f"flagship extend: {N_DB:,} x {DIM} -> {N_LISTS:,}",
+                      launches["fused_l2_nn"]),
+              codebook_h_check(index, db, "flagship",
+                               launches["fused_l2_nn"])]
+
+    phase("IVF-PQ recon mode: scan_mode='recon', n_probes 96, k 20 -> 10")
+    recon = search_mode(res, index, db, queries, truth, "flagship recon",
+                        ivf_pq.SearchParams(n_probes=N_PROBES,
+                                            scan_mode="recon"),
+                        "ivf_pq_scan_recon")
+    assert recon["recall"] >= 0.90, (
+        f"flagship recon recall@10 {recon['recall']} below 0.90")
+    row_g = dict(check_kernel_g(index, queries, K_SEARCH),
+                 launches=recon["launches"]["ivf_pq_scan_recon"])
 
     phase("where the time goes (one build, one batch, under the profiler)")
     del index
@@ -723,17 +1139,27 @@ def main() -> int:
     device_breakdown("search+refine batch", lambda: refine.refine(
         res, db, queries, ivf_pq.search(res, sp, index, queries,
                                         K_SEARCH)[1], K))
-    del index, db, queries, truth, cand, found
+    del index, cand, found
+    torch.cuda.empty_cache()
+
+    phase("IVF-Flat at full width: sift-like-1m, nlist 4096 and 16384")
+    row_f, a_flat, h_flat = ivf_flat_path(db, queries, truth)
+
+    phase("k-means at full width: 1M x 128 -> 1024 (BASELINE config 3)")
+    row_h, a_kmeans = kmeans_path(db)
+    del db, queries, truth
     torch.cuda.empty_cache()
 
     phase("deep path at full width: 10M x 96, n_lists 8192, pq_dim 48")
-    rows_cde, a_deep, b_deep = deep_path(dev)
+    rows_cde, a_deep, b_deep, g_deep, h_deep = deep_path(dev)
 
     phase("result")
+    row_g["also_checked"] = [g_deep]
+    row_h["also_checked"] += h_more + h_flat + h_deep
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
-                 also_checked=a_deep),
+                 also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["ivf_pq_scan_fused"],
-                 also_checked=[b_deep])] + rows_cde
+                 also_checked=[b_deep])] + rows_cde + [row_f, row_g, row_h]
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

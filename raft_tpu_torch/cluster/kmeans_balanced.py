@@ -12,9 +12,12 @@ For L2Expanded with dim >= 32 — exactly where the JAX package's
 ``_fused_ok`` routes to its Pallas pass on a TPU — each iteration is one
 call of Kernel A (:func:`raft_tpu_torch.ops.kmeans_update.kmeans_assign_update`:
 bf16 assignment, weighted sums and counts, per-row min distance).  Other
-cases (the dim-2 codebook subspaces, InnerProduct) run plain PyTorch, as
-the JAX package runs XLA there.  From ``_MESO_THRESHOLD`` (8192) clusters
-``fit`` takes the two-level mesocluster build (:func:`_fit_hierarchical`,
+cases (the dim-2 codebook subspaces, InnerProduct) assign with
+:func:`_assign` — Kernel H (``fused_l2_nn``) for L2, as the JAX package's
+``_assign`` calls ``fused_l2_nn``, and a plain product for InnerProduct —
+and update in plain PyTorch; ``predict`` is :func:`_assign` too.  From
+``_MESO_THRESHOLD`` (8192) clusters ``fit`` takes the two-level
+mesocluster build (:func:`_fit_hierarchical`,
 reference: detail/kmeans_balanced.cuh build_hierarchical): ~sqrt(K)
 mesoclusters, fine clusters per mesocluster on fixed-size member samples
 (one Python loop over the mesoclusters, where the JAX package ``vmap``s
@@ -35,6 +38,7 @@ import torch
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import ensure_tensor
+from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.ops.kmeans_update import kmeans_assign_update
 from raft_tpu_torch.utils import precision
@@ -43,32 +47,26 @@ from raft_tpu_torch.utils import precision
 _BALANCE_RATIO = 8.0
 # from this cluster count the JAX package switches to its two-level build
 _MESO_THRESHOLD = 8192
-# rows per chunk of the plain (chunk, k) distance block
+# rows per chunk of the InnerProduct (chunk, k) product block
 _ASSIGN_CHUNK = 16384
 
 
 def _assign(X: torch.Tensor, centroids: torch.Tensor, metric: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(labels int64, distances f32): L2 min squared distance with the first
-    argmin (``fused_l2_nn``'s contract), or InnerProduct argmax with the
-    negated product.  fp32 products, chunked over rows."""
+    """(labels int64, distances f32): L2 through ``distance.fused_l2_nn``
+    (Kernel H on the card: the min squared distance and the first argmin),
+    as the JAX ``_assign`` calls ``fused_l2_nn``; InnerProduct an argmax
+    with the negated product, fp32 products, chunked over rows."""
+    if metric != DistanceType.InnerProduct:
+        d, lab = fused_l2_nn(X, centroids)
+        return lab.long(), d
     cf = centroids.float()
-    c_sq = (cf * cf).sum(1)
     labels = torch.empty(X.shape[0], dtype=torch.int64, device=X.device)
     dists = torch.empty(X.shape[0], dtype=torch.float32, device=X.device)
     for s in range(0, X.shape[0], _ASSIGN_CHUNK):
-        xc = X[s:s + _ASSIGN_CHUNK].float()
-        ip = xc @ cf.T
-        if metric == DistanceType.InnerProduct:
-            best, lab = torch.max(ip, dim=1)
-            d = -best
-        else:
-            d2 = torch.clamp_min((xc * xc).sum(1, keepdim=True)
-                                 + c_sq[None, :] - 2.0 * ip, 0.0)
-            lab = torch.argmin(d2, dim=1)
-            d = torch.gather(d2, 1, lab[:, None])[:, 0]
-        labels[s:s + xc.shape[0]] = lab
-        dists[s:s + xc.shape[0]] = d
+        best, lab = torch.max(X[s:s + _ASSIGN_CHUNK].float() @ cf.T, dim=1)
+        labels[s:s + lab.shape[0]] = lab
+        dists[s:s + lab.shape[0]] = -best
     return labels, dists
 
 

@@ -21,3 +21,10 @@ def expects(cond: bool, msg: str = "precondition violated") -> None:
     """Raise :class:`LogicError` unless ``cond`` (``RAFT_EXPECTS``)."""
     if not cond:
         raise LogicError(msg)
+
+
+def not_ported(where: str, what: str, item: str) -> NotImplementedError:
+    """The error a path this port has not reached yet raises, naming its
+    entry in ROADMAP.md §1's 'Deferred' list."""
+    return NotImplementedError(f"{where}: {what} is not ported yet "
+                               f"(ROADMAP.md §1, 'Deferred': {item})")

@@ -33,3 +33,12 @@ def _writable(x) -> np.ndarray:
     views of another framework's buffers) are copied."""
     a = np.ascontiguousarray(np.asarray(x))
     return a if a.flags.writeable else a.copy()
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """For the entry points without a handle: a tensor stays where it is;
+    a numpy array moves to ``device``, the card unless the caller asks for
+    the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(_writable(x)).to(device or "cuda")

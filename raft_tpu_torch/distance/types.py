@@ -38,3 +38,40 @@ class DistanceType(enum.IntEnum):
 L2_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
               DistanceType.L2Unexpanded, DistanceType.L2SqrtUnexpanded)
 SQRT_METRICS = (DistanceType.L2SqrtExpanded, DistanceType.L2SqrtUnexpanded)
+
+# pylibraft-style metric names (the JAX package's METRIC_NAMES)
+METRIC_NAMES = {
+    "sqeuclidean": DistanceType.L2Expanded,
+    "euclidean": DistanceType.L2SqrtExpanded,
+    "l2": DistanceType.L2SqrtExpanded,
+    "cosine": DistanceType.CosineExpanded,
+    "l1": DistanceType.L1,
+    "cityblock": DistanceType.L1,
+    "manhattan": DistanceType.L1,
+    "inner_product": DistanceType.InnerProduct,
+    "chebyshev": DistanceType.Linf,
+    "linf": DistanceType.Linf,
+    "canberra": DistanceType.Canberra,
+    "minkowski": DistanceType.LpUnexpanded,
+    "lp": DistanceType.LpUnexpanded,
+    "correlation": DistanceType.CorrelationExpanded,
+    "jaccard": DistanceType.JaccardExpanded,
+    "hellinger": DistanceType.HellingerExpanded,
+    "haversine": DistanceType.Haversine,
+    "braycurtis": DistanceType.BrayCurtis,
+    "jensenshannon": DistanceType.JensenShannon,
+    "hamming": DistanceType.HammingUnexpanded,
+    "kl_divergence": DistanceType.KLDivergence,
+    "russellrao": DistanceType.RusselRaoExpanded,
+    "dice": DistanceType.DiceExpanded,
+}
+
+
+def resolve_metric(metric) -> DistanceType:
+    """A :class:`DistanceType`, its integer value or a metric name."""
+    if isinstance(metric, int):
+        return DistanceType(metric)
+    name = str(metric).lower()
+    if name in METRIC_NAMES:
+        return METRIC_NAMES[name]
+    raise ValueError(f"unknown metric {metric!r}")

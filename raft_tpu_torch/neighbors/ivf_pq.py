@@ -22,23 +22,27 @@ kernel launch chosen by ``scan_mode`` as the JAX package resolves it
 (:func:`_resolve_mode`):
 
 - fused recon (``"auto"`` / ``"fused"`` with a recon cache and codes not
-  eligible): Kernel B, :mod:`raft_tpu_torch.ops.pq_group_scan`;
+  eligible): Kernel B, :mod:`raft_tpu_torch.ops.pq_group_scan` (Kernel G
+  + finalize where Kernel B's gate refuses the shape);
 - fused codes (``"fused"``, and ``"auto"`` without a recon cache): Kernel
   C, :func:`raft_tpu_torch.ops.pq_code_scan.ivf_pq_scan_codes_fused`;
-- ``"codes"``: Kernel D, each (query, probe) pair's top kt, then each
-  query's top k (:func:`_finalize_topk`);
+- ``"recon"`` / ``use_reconstruction=True``: Kernel G
+  (:func:`raft_tpu_torch.ops.pair_scan.ivf_pq_scan_recon`), each (query,
+  probe) pair's top kt, then each query's top k (:func:`_finalize_topk`);
+- ``"codes"``: Kernel D, each pair's top kt, then the same finalize;
 - ``"recon8"``: Kernel E over the int8 cache, then the same finalize.
 
 The code and int8 caches are derived lazily by the first search that
-needs them; sqrt metrics get their sqrt afterwards.
+needs them (the recon cache too, with a warning, for ``"recon"`` on an
+index built without it); sqrt metrics get their sqrt afterwards.
 
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``scan_mode="recon"`` (the per-pair recon scan) and every search that
-resolves to the LUT scan (pq_bits outside {4, 8} without a recon cache,
-per-pair code scans at kt > 128), recon8 scans at kt > 128, InnerProduct
-search, ``filter=``, ``canary_queries > 0``, ``CodebookKind.PER_CLUSTER``,
-checkpoint / resume, ``serialize`` / ``load``.  The port has no boundary
-validator yet: inputs are checked for shape, not for finiteness.
+item: every search that resolves to the LUT scan (pq_bits outside {4, 8}
+without a recon cache, per-pair code scans at kt > 128), recon8 scans at
+kt > 128, InnerProduct search, ``filter=``, ``canary_queries > 0``,
+``CodebookKind.PER_CLUSTER``, checkpoint / resume, ``serialize`` /
+``load``.  The port has no boundary validator yet: inputs are checked for
+shape, not for finiteness.
 
 Random draws (the trainset subsample, the k-means re-seeds) come from the
 handle's ``torch.Generator``, so a port-built index differs from a
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -57,26 +62,24 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
-from raft_tpu_torch.distance.types import (DistanceType, L2_METRICS,
-                                           SQRT_METRICS)
+from raft_tpu_torch.distance.types import DistanceType, L2_METRICS
+from raft_tpu_torch.neighbors import ivf_flat
 from raft_tpu_torch.neighbors.ivf_flat import (_LIST_ALIGN,
                                                _append_lists_multi,
-                                               _pack_lists, _round_up,
-                                               _select_clusters)
-from raft_tpu_torch.matrix.select_k import select_k
+                                               _finalize_topk, _pack_lists,
+                                               _round_up, _select_clusters,
+                                               _sqrt_epilogue, _stage)
 from raft_tpu_torch.ops import pq_code_scan as pcs
+from raft_tpu_torch.ops.pair_scan import ivf_pq_scan_recon
 from raft_tpu_torch.ops.pq_code_scan import code_field as _code_field
 from raft_tpu_torch.ops.pq_group_scan import (ivf_pq_scan_fused,
                                               scan_reject_reason)
 from raft_tpu_torch.utils import precision
 
-_DEFERRED = "is not ported yet (ROADMAP.md §1, 'Deferred'"
-
-
 def _not_ported(what: str, item: str):
-    return NotImplementedError(f"ivf_pq: {what} {_DEFERRED}: {item})")
+    return not_ported("ivf_pq", what, item)
 
 
 class CodebookKind:
@@ -109,22 +112,21 @@ class IndexParams:
 
 
 @dataclasses.dataclass
-class SearchParams:
+class SearchParams(ivf_flat.SearchParams):
     """Reference: ivf_pq_types.hpp:110 ``search_params`` (the JAX package's
-    fields and defaults).  On the ported paths: ``n_probes``,
-    ``scan_mode`` ("auto", "fused", "codes", "recon8"; "recon" and every
-    resolution to the LUT scan raise), ``use_reconstruction`` (the old
-    override: True -> "recon", False -> "lut") and ``per_probe_topk``
-    (each (query, probe) pair's kt; 0 -> k).  ``coarse_recall_target`` and
-    ``exact_coarse`` have no effect: the coarse ranking is always exact
-    here.  ``merge_window`` and ``packed_extract`` size TPU-only mechanisms
-    and are accepted and ignored — the port's selection never truncates
-    mantissa bits as the TPU's packed extraction does; ``lut_dtype`` /
+    fields and defaults; ``n_probes``, ``coarse_recall_target`` and
+    ``exact_coarse`` from :class:`ivf_flat.SearchParams`).  On the ported
+    paths: ``n_probes``, ``scan_mode`` ("auto", "fused", "codes", "recon",
+    "recon8"; every resolution to the LUT scan raises),
+    ``use_reconstruction`` (the old override: True -> "recon", False ->
+    "lut") and ``per_probe_topk`` (each (query, probe) pair's kt; 0 -> k).
+    ``coarse_recall_target`` and ``exact_coarse`` have no effect: the
+    coarse ranking is always exact here.  ``merge_window`` and
+    ``packed_extract`` size TPU-only mechanisms and are accepted and
+    ignored — the port's selection never truncates mantissa bits as the
+    TPU's packed extraction does; ``lut_dtype`` /
     ``internal_distance_dtype`` belong to the LUT mode, not ported yet."""
 
-    n_probes: int = 20
-    coarse_recall_target: float = 0.95
-    exact_coarse: bool = False
     lut_dtype: object = torch.float32
     internal_distance_dtype: object = torch.float32
     use_reconstruction: Optional[bool] = None
@@ -397,17 +399,6 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
 build.stage_seconds = {}
 
 
-def _stage(stages, name: Optional[str], t0: float, device) -> float:
-    """End build stage ``name`` begun at ``t0``: wait for the device, record
-    its wall seconds (``None`` records nothing) and return the time."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    now = time.perf_counter()
-    if name is not None:
-        stages[name] = now - t0
-    return now
-
-
 def extend(res, index: Index, new_vectors, new_indices=None) -> Index:
     """Encode + add vectors (reference: ivf_pq.cuh:266).  Returns a new
     index, the next generation.  Lists with headroom for every new row take
@@ -637,46 +628,32 @@ def _resolve_mode(params: SearchParams, index: Index) -> Tuple[str, bool]:
     return mode, want_fused
 
 
-def _fused_epilogue(vals: torch.Tensor, metric: int) -> torch.Tensor:
-    """The kernel's output already holds (+inf, -1) on exhausted ranks;
-    the sqrt metrics take their sqrt."""
-    if metric in SQRT_METRICS:
-        vals = torch.sqrt(torch.clamp_min(vals, 0.0))
-    return vals
-
-
-def _finalize_topk(vals: torch.Tensor, ids: torch.Tensor, k: int,
-                   metric: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each query's top k over its (n_probes, kt) per-pair candidates
-    (``grouped.finalize_topk``): (+inf, -1) past the candidates, every
-    +inf rank id -1, sqrt for the sqrt metrics."""
-    nq = vals.shape[0]
-    alld, alli = vals.reshape(nq, -1), ids.reshape(nq, -1)
-    kf = min(k, alld.shape[1])
-    best_d = torch.full((nq, k), float("inf"), dtype=torch.float32,
-                        device=vals.device)
-    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=vals.device)
-    if kf > 0:
-        d, i = select_k(alld, kf, in_idx=alli)
-        best_d[:, :kf] = d
-        best_i[:, :kf] = torch.where(torch.isinf(d), torch.full_like(i, -1),
-                                     torch.clamp_min(i, -1))
-    return _fused_epilogue(best_d, metric), best_i
-
-
 def _search_fused_recon(index, qrot, probes, k, kt):
-    """Kernel B over the bf16 recon cache, each query's top k in kernel."""
+    """Kernel B over the bf16 recon cache, each query's top k in kernel;
+    where Kernel B's gate refuses the shape, Kernel G + finalize, counted
+    in ``search.fused_fallbacks`` with the gate's reason (the JAX
+    package's fused_fallback)."""
     reason = scan_reject_reason(index.capacity, index.rot_dim, k, kt)
     if reason:
-        raise _not_ported(f"the fused recon scan at this shape ({reason}), "
-                          "which needs the per-pair recon scan",
-                          "per-pair recon scan")
+        search.fused_fallbacks += 1
+        search.last_fallback_reason = reason
+        return _search_recon(index, qrot, probes, k, kt)
     if index.list_recon_sq is None:
         index.list_recon_sq = _recon_sq(index.list_recon)
     vals, ids = ivf_pq_scan_fused(
         qrot, index.centers.float(), probes, index.list_recon,
         index.list_recon_sq, index.list_indices, k, kt)
-    return _fused_epilogue(vals, index.metric), ids
+    return _sqrt_epilogue(vals, index.metric), ids
+
+
+def _search_recon(index, qrot, probes, k, kt):
+    """Kernel G over the bf16 recon cache, then each query's top k."""
+    if index.list_recon_sq is None:
+        index.list_recon_sq = _recon_sq(index.list_recon)
+    vals, ids = ivf_pq_scan_recon(
+        qrot, index.centers.float(), probes, index.list_recon,
+        index.list_recon_sq, index.list_indices, kt)
+    return _finalize_topk(vals, ids, k, index.metric)
 
 
 def _search_fused_codes(index, qrot, probes, k, kt):
@@ -685,7 +662,7 @@ def _search_fused_codes(index, qrot, probes, k, kt):
         qrot, index.centers.float(), probes, index.list_codes,
         index.codebooks, index.list_code_rsq, index.list_indices,
         index.pq_bits, k, kt)
-    return _fused_epilogue(vals, index.metric), ids
+    return _sqrt_epilogue(vals, index.metric), ids
 
 
 def _search_codes(index, qrot, probes, k, kt):
@@ -724,11 +701,12 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
     f32, ids (nq, k) int32) on the handle's device.
 
     ``scan_mode`` resolves as in the JAX package (:func:`_resolve_mode`)
-    and runs: fused recon -> Kernel B; codes wanting the fused form ->
-    Kernel C (Kernel D where C's gate refuses the shape, counted in
-    ``search.fused_fallbacks`` with the gate's reason in
-    ``search.last_fallback_reason``); codes -> Kernel D; recon8 -> Kernel
-    E.
+    and runs: fused recon -> Kernel B (Kernel G where B's gate refuses the
+    shape); codes wanting the fused form -> Kernel C (Kernel D where C's
+    gate refuses it); each fallback is counted in ``search.fused_fallbacks``
+    with the gate's reason in ``search.last_fallback_reason``; recon ->
+    Kernel G (building the recon cache first, with a warning, on an index
+    without one); codes -> Kernel D; recon8 -> Kernel E.
 
     .. note:: like the JAX package's, the first search of an index may
        attach derived caches in place (``list_recon_sq``,
@@ -747,9 +725,15 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
             f"{params.scan_mode!r}, use_reconstruction="
             f"{params.use_reconstruction}, pq_bits {index.pq_bits})",
             "LUT scan")
-    if mode == "recon" and not want_fused:
-        raise _not_ported("scan_mode='recon' (the per-pair recon scan)",
-                          "per-pair recon scan")
+    if mode == "recon" and index.list_recon is None:
+        # scan_mode="recon" / use_reconstruction=True without a cache
+        warnings.warn(
+            "ivf_pq.search: scan_mode='recon' on an index built without a "
+            "reconstruction cache — materializing the (n_lists, cap, "
+            "rot_dim) bf16 cache now (and keeping it on the index). Build "
+            "with cache_reconstructions=True or pick another scan_mode to "
+            "avoid this.")
+        _with_recon(index)
     with precision.highest():
         queries = ensure_tensor(queries, res, "queries")
         expects(queries.ndim == 2 and queries.shape[1] == index.dim,
@@ -761,7 +745,8 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
         probes = _select_clusters(index.centers, qrot, n_probes,
                                   index.metric)
         if mode == "recon":
-            return _search_fused_recon(index, qrot, probes, k, kt)
+            return (_search_fused_recon if want_fused else _search_recon)(
+                index, qrot, probes, k, kt)
         if mode == "recon8":
             return _search_recon8(index, qrot, probes, k, kt)
         if index.list_code_rsq is None:
@@ -777,9 +762,10 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
         return _search_codes(index, qrot, probes, k, kt)
 
 
-# fused codes searches that Kernel C's gate sent to Kernel D + finalize,
-# and the gate's reason for the latest (the JAX package's fused_fallback
-# counter, until the port has an observability module)
+# fused searches a gate sent to the per-pair scan + finalize (Kernel B ->
+# G, Kernel C -> D), and the gate's reason for the latest (the JAX
+# package's fused_fallback counter, until the port has an observability
+# module)
 search.fused_fallbacks = 0
 search.last_fallback_reason = ""
 

@@ -47,6 +47,11 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "raft_ivf_pq_scan_recon8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _P, _P, _P),
+    "raft_ivf_flat_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P, _P, _P),
+    "raft_ivf_pq_scan_recon": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P, _P, _P),
+    "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -70,23 +70,23 @@ def scan_reject_reason(cap: int, rot: int, k: int, kt: int) -> str:
     return ""
 
 
-def _check(qrot, centers, probes, list_recon, list_recon_sq, list_indices):
+def _check(qrot, centers, probes, list_recon, list_recon_sq, list_indices,
+           what: str = "ivf_pq_scan_fused"):
     expects(qrot.ndim == 2 and centers.ndim == 2 and probes.ndim == 2
             and list_recon.ndim == 3,
-            "ivf_pq_scan_fused: qrot (nq, rot), centers (L, rot), probes "
-            "(nq, n_probes), list_recon (L, cap, rot) required")
+            f"{what}: qrot (nq, rot), centers (L, rot), probes "
+            f"(nq, n_probes), list_recon (L, cap, rot) required")
     n_lists, cap, rot = list_recon.shape
     expects(qrot.shape[1] == rot and centers.shape == (n_lists, rot)
             and probes.shape[0] == qrot.shape[0]
             and list_recon_sq.shape == (n_lists, cap)
             and list_indices.shape == (n_lists, cap),
-            "ivf_pq_scan_fused: shape mismatch")
+            f"{what}: shape mismatch")
     expects(list_recon.dtype == torch.bfloat16,
-            "ivf_pq_scan_fused: list_recon must be bfloat16")
+            f"{what}: list_recon must be bfloat16")
     devs = {t.device for t in (qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices)}
-    expects(len(devs) == 1, "ivf_pq_scan_fused: tensors on different "
-            "devices")
+    expects(len(devs) == 1, f"{what}: tensors on different devices")
     return n_lists, cap, rot
 
 

@@ -118,7 +118,7 @@ def test_kernel_c_plain_matches_jax_fused_codes(carried, pq_bits, kt,
     vals, found = pcs.ivf_pq_scan_codes_fused(
         qrot, port.centers, probes, port.list_codes, port.codebooks,
         port.list_code_rsq, tids, pq_bits, K, min(kt or K, port.capacity))
-    pd = ivf_pq._fused_epilogue(vals, port.metric).numpy()
+    pd = ivf_pq._sqrt_epilogue(vals, port.metric).numpy()
     _assert_same_results(pd, found.numpy(), np.asarray(rd), np.asarray(ri),
                          pq_bits)
     if zapped:

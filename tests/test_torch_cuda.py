@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from raft_tpu_torch import LogicError
+from raft_tpu_torch.ops import fused_l2_nn as fnn
 from raft_tpu_torch.ops import kmeans_update as ku
+from raft_tpu_torch.ops import pair_scan as ps
 from raft_tpu_torch.ops import pq_code_scan as pcs
 from raft_tpu_torch.ops import pq_group_scan as pgs
 
@@ -258,3 +260,99 @@ def test_code_scans_reject_what_they_cannot_hold(dev):
                               0)
     with pytest.raises(LogicError, match="kt=0"):
         pcs.ivf_pq_scan_recon8(q, centers, probes, i8, scales, rsq8, ids, 0)
+
+
+def _flat_lists(dev, n_lists, cap, dim, seed):
+    """Random fp32 list rows, their squared norms, and ids with padding
+    (-1) and tombstones (<= -2)."""
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.normal(size=(n_lists, cap, dim)).astype(
+        np.float32)).to(dev)
+    ids = _random_index(dev, n_lists, cap, 8, seed)[3]
+    return data, (data * data).sum(-1), ids
+
+
+@pytest.mark.parametrize("cap,dim,kt,ip", [
+    (96, 128, 10, False), (96, 128, 10, True), (832, 128, 10, False),
+    (768, 128, 10, False), (300, 96, 40, False), (64, 1024, 64, True),
+    (40, 12, 3, False)])
+def test_ivf_flat_scan_kernel_matches_plain(dev, cap, dim, kt, ip):
+    """Kernel F: each pair's top kt, (+inf, -1) -- (-inf, -1) for
+    InnerProduct -- past its live rows and on the skipped probes; values
+    within 1e-5 of the scale ‖q‖² + max ‖x‖² that fp32 cancellation moves
+    them by; ids equal but at ties."""
+    n_lists, nq, n_probes = 64, 40, 12
+    data, dsq, ids = _flat_lists(dev, n_lists, cap, dim, cap + dim)
+    q, probes = _queries(dev, nq, dim, n_lists, n_probes)
+    probes[1, 2] = n_lists             # a super-tile dedupe sentinel
+    before = ps.ivf_flat_scan.launches
+    vk, ik = ps.ivf_flat_scan(q, probes, data, dsq, ids, kt, ip)
+    torch.cuda.synchronize()
+    assert ps.ivf_flat_scan.launches == before + 1
+    assert vk.shape == (nq, n_probes, min(kt, cap))
+    assert bool(torch.isinf(vk[0, -1]).all() and torch.isinf(vk[1, 2]).all())
+    vp, ip_ = ps.ivf_flat_scan_plain(q, probes, data, dsq, ids, kt, ip)
+    fin = torch.isfinite(vp)
+    assert torch.equal(fin, torch.isfinite(vk)) and torch.equal(ik < 0, ~fin)
+    scale = float((q * q).sum(1).max() + dsq.max())
+    torch.testing.assert_close(vk[fin], vp[fin], rtol=0, atol=1e-5 * scale)
+    assert float((ik == ip_).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("cap,rot,kt", [(96, 128, 10), (416, 128, 20),
+                                        (2368, 96, 4), (40, 24, 40),
+                                        (64, 1024, 64)])
+def test_ivf_pq_scan_recon_kernel_matches_plain(dev, cap, rot, kt):
+    """Kernel G: Kernel B's distances with each pair's top kt."""
+    n_lists, nq, n_probes = 64, 40, 12
+    centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, cap + kt)
+    qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
+    before = ps.ivf_pq_scan_recon.launches
+    vk, ik = ps.ivf_pq_scan_recon(qrot, centers, probes, recon, rsq, ids, kt)
+    torch.cuda.synchronize()
+    assert ps.ivf_pq_scan_recon.launches == before + 1
+    assert vk.shape == (nq, n_probes, min(kt, cap))
+    vp, ip = ps.ivf_pq_scan_recon_plain(qrot, centers, probes, recon, rsq,
+                                        ids, kt)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+@pytest.mark.parametrize("m,n,k,sqrt", [(1000, 1024, 128, False),
+                                        (333, 37, 50, True),
+                                        (4096, 8192, 96, False),
+                                        (70, 3, 2, False), (5, 300, 1000, True)])
+def test_fused_l2_nn_kernel_matches_plain(dev, m, n, k, sqrt):
+    """Kernel H: dmin within 1e-5 of ‖x‖² + max ‖y‖²; the index equal to
+    the plain version's or at a distance tie with it; a duplicated y row
+    resolves to its first copy."""
+    rng = np.random.default_rng(m + n + k)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(dev)
+    if n > 5:
+        y[n - 1] = y[1]                # two equal rows: index 1 must win
+        x[0] = y[1] + 1e-3
+    before = fnn.fused_l2_nn.launches
+    dk, ik = fnn.fused_l2_nn(x, y, sqrt)
+    torch.cuda.synchronize()
+    assert fnn.fused_l2_nn.launches == before + 1
+    dp, ip = fnn.fused_l2_nn_plain(x, y, sqrt)
+    d2k, d2p = (dk ** 2, dp ** 2) if sqrt else (dk, dp)
+    scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
+    torch.testing.assert_close(d2k, d2p, rtol=0, atol=1e-5 * scale)
+    yk = y[ik.long()]
+    dist_k = ((x - yk) ** 2).sum(1)
+    dist_p = ((x - y[ip.long()]) ** 2).sum(1)
+    assert bool(((ik == ip) | ((dist_k - dist_p).abs() <= 1e-5 * scale))
+                .all())
+    if n > 5:
+        assert int(ik[0]) == 1
+
+
+def test_pair_scans_and_fused_l2_nn_reject_what_they_cannot_hold(dev):
+    data, dsq, ids = _flat_lists(dev, 4, 32, 10, 0)
+    q = torch.zeros(2, 10, device=dev)
+    probes = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(LogicError, match="multiple of 4"):
+        ps.ivf_flat_scan(q, probes, data, dsq, ids, 4)
+    with pytest.raises(LogicError, match="fused_l2_nn"):
+        fnn.fused_l2_nn(q, torch.zeros(0, 10, device=dev))

@@ -64,7 +64,7 @@ def _port_scan(port, q, probes, k, kt, list_indices=None):
     vals, found = ivf_pq_scan_fused(
         qrot, port.centers, torch.tensor(probes), port.list_recon,
         port.list_recon_sq, ids, k, min(kt or k, port.capacity))
-    return (ivf_pq._fused_epilogue(vals, port.metric).numpy(),
+    return (ivf_pq._sqrt_epilogue(vals, port.metric).numpy(),
             found.numpy())
 
 

@@ -196,21 +196,52 @@ def test_extend_fast_path_appends_with_the_recon_cache(tiny_index):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(scan_mode="recon"), "per-pair recon scan"),
+    (dict(scan_mode="recon"), None),
     (dict(scan_mode="lut"), "LUT scan"),
     (dict(scan_mode="codes", per_probe_topk=129), "LUT scan"),
-    (dict(use_reconstruction=True), "per-pair recon scan"),
+    (dict(use_reconstruction=True), None),
     (dict(use_reconstruction=False), "LUT scan"),
     # the ids the cases had when every non-fused mode was one deferred item
 ], ids=[f"change{i}-non-fused scan modes" for i in range(5)])
 def test_search_modes_off_the_path_raise(tiny_index, change, item):
-    """The per-pair recon scan and the LUT scan are not ported; a codes
-    search at kt > 128, which the JAX package sends to the LUT scan,
-    raises with them."""
+    """The LUT scan is not ported; a codes search at kt > 128, which the
+    JAX package sends to the LUT scan, raises with it.  The per-pair recon
+    scan is (Kernel G): ``scan_mode="recon"`` and
+    ``use_reconstruction=True`` return what the JAX function they resolve
+    to returns on the same lists and probes."""
     res, index, db = tiny_index
-    with pytest.raises(NotImplementedError, match=item):
-        ivf_pq.search(res, ivf_pq.SearchParams(**change), index, db[:2],
-                      200)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            ivf_pq.search(res, ivf_pq.SearchParams(**change), index, db[:2],
+                          200)
+        return
+    import jax.numpy as jnp
+    from raft_tpu.neighbors import grouped
+    from raft_tpu.neighbors import ivf_pq as jax_ivf_pq
+
+    q, k = db[:2], 200
+    d, i = ivf_pq.search(res, ivf_pq.SearchParams(**change), index, q, k)
+    n_probes, cap, rot = index.n_lists, index.capacity, index.rot_dim
+    probes = ivf_flat._select_clusters(
+        index.centers, torch.from_numpy(q) @ index.rotation, n_probes,
+        index.metric)
+    ng, _ = grouped.group_capacity(2, n_probes, index.n_lists)
+    block = grouped.block_size(ng, grouped.GROUP * cap * 8, cap * rot * 2,
+                               grouped.GROUP * rot * 4)
+    rd, ri = jax_ivf_pq._search_impl_recon_grouped(
+        index.centers.numpy(),
+        jnp.asarray(index.list_recon.float().numpy()).astype(jnp.bfloat16),
+        index.list_recon_sq.numpy(), index.list_indices.numpy(),
+        index.rotation.numpy(), jnp.asarray(q), jnp.asarray(probes.numpy()),
+        k, index.metric, ng, block, use_pallas=True, pallas_interpret=True,
+        kt=min(k, cap))
+    rd, ri = np.asarray(rd), np.asarray(ri)
+    fin = np.isfinite(rd)
+    np.testing.assert_array_equal(np.isfinite(d.numpy()), fin)
+    np.testing.assert_allclose(d.numpy()[fin], rd[fin], rtol=1e-4, atol=1e-4)
+    overlap = np.mean([len(set(a) & set(b)) / k
+                       for a, b in zip(i.numpy(), ri)])
+    assert overlap >= 0.99, overlap
 
 
 def test_filtered_and_ip_search_raise(tiny_index):
@@ -273,3 +304,38 @@ def test_padded_rotation_is_orthonormal_and_search_finds_self():
     _, found = ivf_pq.search(res, ivf_pq.SearchParams(n_probes=4), index,
                              db[:20], 5)
     assert (found[:, 0] == torch.arange(20, dtype=torch.int32)).float().mean() >= 0.9
+
+
+@pytest.fixture(scope="module")
+def tiny_flat():
+    rng = np.random.default_rng(8)
+    db = rng.normal(size=(600, 16)).astype(np.float32)
+    res = DeviceResources(seed=0, device="cpu")
+    return res, ivf_flat.build(res, ivf_flat.IndexParams(
+        n_lists=8, kmeans_n_iters=3), db), db
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda res, index, db: ivf_flat.delete(res, index, [1]), "mutation"),
+    (lambda res, index, db: ivf_flat.upsert(res, index, [1], db[:1]),
+     "mutation"),
+    (lambda res, index, db: ivf_flat.compact(res, index), "mutation"),
+    (lambda res, index, db: ivf_flat.serialize(res, None, index),
+     "serialization"),
+    (lambda res, index, db: ivf_flat.deserialize(res, None),
+     "serialization"),
+    (lambda res, index, db: ivf_flat.save(res, "f", index), "serialization"),
+    (lambda res, index, db: ivf_flat.load(res, "f"), "serialization"),
+    (lambda res, index, db: ivf_flat.search(
+        res, ivf_flat.SearchParams(), index, db[:2], 5,
+        filter=np.ones((2, 600), bool)), "filters"),
+    (lambda res, index, db: ivf_flat.build(
+        res, ivf_flat.IndexParams(n_lists=2, canary_queries=4), db),
+     "canaries"),
+], ids=["delete", "upsert", "compact", "serialize", "deserialize", "save",
+        "load", "filter", "canaries"])
+def test_ivf_flat_paths_off_the_path_raise(tiny_flat, call, item):
+    """Each IVF-Flat path this port has not reached raises
+    NotImplementedError naming its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match=item):
+        call(*tiny_flat)
