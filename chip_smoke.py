@@ -50,7 +50,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    100,000 x 128 -> 100,000, with ``torch.cdist(x, y).min(1)`` timed as a
    yardstick (no single PyTorch call computes min + first argmin), and
    Kernel A against plain at the Lloyd pass's shape.
-10. Deep path at full width (``conf/deep-like-10m.json`` entry
+10. CAGRA at full width (``conf/sift-like-1m.json`` entry
+    ``raft_cagra.deg32``) on the same rows: ``cagra.build`` at
+    ``IndexParams(graph_degree=32, intermediate_graph_degree=64)`` (seconds,
+    stage seconds, the build's projected dimension, Kernel I / H / A
+    launches zeroed before the build; I and H must be > 0), the conf's four
+    search points (itopk 24, 32, 64 width 2, 128 width 2) at batch 5,000
+    and k 10 (first batch, warm ms, QPS, recall@10 — at least 0.90 at
+    itopk 64 and 128 — walk format, Kernel I launches), serving buckets of
+    1 / 8 / 64 queries at itopk 32 and 64, one batch under the profiler,
+    and Kernel I (``cagra_hop``) against its plain version on hops captured
+    from the run: the search's 5,000 / itopk 64 / wd 64, a bucket's 64 /
+    32 / 32, the build's self-walk 8,192 / 96 / 64 and its exact merge,
+    with ``torch.topk`` over the [buffer | candidate] keys timed as a
+    yardstick (it does no dedupe).
+11. Deep path at full width (``conf/deep-like-10m.json`` entry
     ``raft_ivf_pq.dim48``): a 10,000,000 x 96 database + 5,000 queries
     from the same generator, ``ivf_pq.build`` at ``IndexParams(
     n_lists=8192, pq_dim=48, kmeans_trainset_fraction=0.1)`` (the
@@ -64,7 +78,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     it and read after.  Kernels B, C, D, E and G against their plain
     versions on the full batch at each mode's shape, and each mode's batch
     under the profiler.
-11. A JSON line with each kernel's route, source, launches, error, time
+12. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time and bound on its main path, and
     under ``also_checked`` the same measurements at the other shapes its
     paths give it; the ``nvidia-smi`` line; the result line ``{"ok":
@@ -72,9 +86,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Bounds use the H100 SXM peaks: 3.35 TB/s of device memory, 989 TFLOP/s
 for bf16 products (Kernels A-E and G multiply bf16 values, the int8 scan
-by way of bf16) and 67 TFLOP/s of fp32 FFMA for Kernels F and H, whose
-contract fixes fp32 products (TF32 tensor cores would round each factor
-to ten mantissa bits).
+by way of bf16) and 67 TFLOP/s of fp32 FFMA for Kernels F, H and I (F and
+H: their contract fixes fp32 products, which TF32 tensor cores would
+round to ten mantissa bits; I: its bf16 products are summed one by one in
+dimension order, as its plain version sums them).
 """
 
 from __future__ import annotations
@@ -123,6 +138,7 @@ def sift_like(n, n_queries, dim, latent, noise, device, seed=0,
 
 def counters():
     """Every kernel wrapper, by kernel name."""
+    from raft_tpu_torch.ops import cagra_hop as chop
     from raft_tpu_torch.ops import fused_l2_nn as fnn
     from raft_tpu_torch.ops import kmeans_update as ku
     from raft_tpu_torch.ops import pair_scan as ps
@@ -136,7 +152,8 @@ def counters():
             "ivf_pq_scan_recon8": pcs.ivf_pq_scan_recon8,
             "ivf_flat_scan": ps.ivf_flat_scan,
             "ivf_pq_scan_recon": ps.ivf_pq_scan_recon,
-            "fused_l2_nn": fnn.fused_l2_nn}
+            "fused_l2_nn": fnn.fused_l2_nn,
+            "cagra_hop": chop.cagra_hop}
 
 
 def zero_launches():
@@ -184,6 +201,26 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps, kernel=""):
+    """Mean device ms per call of the CUDA kernels whose name contains
+    ``kernel`` (all of a call's kernels when empty), over ``reps`` calls
+    after one warm-up, from torch.profiler: CUDA events around a run of
+    ~30 us launches time the host's gaps between them, not the kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and kernel in e.key
+               ) / 1e3 / reps
 
 
 def timed_once(fn):
@@ -1029,6 +1066,234 @@ def deep_path(dev):
     return rows, a_deep, b_deep, g_deep, h_deep
 
 
+# CAGRA (conf/sift-like-1m.json raft_cagra.deg32)
+CAGRA_DEGREE, CAGRA_INTERMEDIATE = 32, 64
+CAGRA_POINTS = ((24, 1), (32, 1), (64, 2), (128, 2))
+CAGRA_BUCKETS, CAGRA_BUCKET_POINTS, BUCKET_REPS = (1, 8, 64), ((32, 1),
+                                                                (64, 2)), 20
+# the hop call whose inputs are kept for the kernel check, per shape (a
+# middle hop: some of the buffer visited, some not)
+CAPTURE_CALL = 4
+
+
+class HopCapture:
+    """Stands in for ``neighbors.cagra``'s handle on ``ops.cagra_hop`` while
+    a CAGRA run goes on: every hop goes to the real wrapper (which counts
+    its launches as always), and the inputs of the ``CAPTURE_CALL``-th hop
+    of each (nq, itopk, wd, pdim) shape are kept for the kernel check."""
+
+    def __init__(self):
+        from raft_tpu_torch.neighbors import cagra
+        from raft_tpu_torch.ops import cagra_hop as chop
+
+        self.cagra, self.real = cagra, chop
+        self.calls, self.kept = {}, {}
+
+    def cagra_hop(self, *args, ip_metric):
+        nq, wd, pdim = args[2].shape
+        key = (nq, args[5].shape[1], wd, pdim)
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if self.calls[key] == CAPTURE_CALL:
+            self.kept[key] = (args, ip_metric)
+        return self.real.cagra_hop(*args, ip_metric=ip_metric)
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def __enter__(self):
+        self.cagra._hop = self
+        return self
+
+    def __exit__(self, *exc):
+        self.cagra._hop = self.real
+
+
+def check_kernel_i(args, ip_metric, shape):
+    """Kernel I vs plain on one captured hop: the same finite slots, keys
+    within 1e-5 relative, ids equal except at key ties, visited flags equal
+    where ids are; its device time (profiler; the CUDA-event time of
+    back-to-back calls printed beside it), the plain version's, the bound
+    (every input read once, the buffer written once; 2·pdim fp32 operations
+    per candidate) and ``torch.topk`` over the [buffer | candidate] keys as
+    a yardstick (it does no dedupe: no single PyTorch call computes the
+    hop)."""
+    import torch
+    from raft_tpu_torch.ops import cagra_hop as chop
+
+    kd, ki, kv = chop.cagra_hop(*args, ip_metric=ip_metric)
+    (pd, pi, pv), plain_ms = timed_once(
+        lambda: chop.cagra_hop_plain(*args, ip_metric=ip_metric))
+    fin = torch.isfinite(pd)
+    assert torch.equal(fin, torch.isfinite(kd)), f"cagra_hop at {shape}: " \
+        "finite slots differ"
+    err = float((kd[fin] - pd[fin]).abs().max()) if bool(fin.any()) else 0.0
+    assert torch.allclose(kd[fin], pd[fin], rtol=1e-5, atol=1e-5), (
+        f"cagra_hop at {shape}: keys differ by {err}")
+    assert bool((ki[~fin] == -1).all()), f"cagra_hop at {shape}: dead ids"
+    assert ties_only(kd, ki, pi, 1e-5), (
+        f"cagra_hop at {shape}: ids differ off key ties")
+    same = ki == pi
+    assert torch.equal(kv[same], pv[same]), (
+        f"cagra_hop at {shape}: visited flags differ")
+    def hop():
+        return chop.cagra_hop(*args, ip_metric=ip_metric)
+
+    ms = device_ms(hop, KERNEL_REPS * 4, "hop_kernel")
+    event_ms = cuda_ms(hop, KERNEL_REPS * 4)
+    qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i, vis = args
+    nq, wd, pdim = nb_p.shape
+    itopk = buf_d.shape[1]
+    nbytes = (nq * (pdim * 2 + 4) + nq * wd * (pdim * 2 + 8)
+              + 2 * nq * itopk * 9)
+    flops = 2.0 * nq * wd * pdim
+    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+    key, _ = chop.hop_keys(qp_t, q_sq, nb_p, nb_sq, nb_id, ip_metric)
+    cat = torch.cat([buf_d, key], 1)
+    topk_ms = device_ms(lambda: torch.topk(cat, itopk, dim=1, largest=False),
+                        KERNEL_REPS * 4)
+    print(f"cagra_hop at {shape}: max |key err| {err}, ids equal at "
+          f"{float(same.float().mean()):.6f}; {ms:.4f} ms on the device "
+          f"(CUDA events over back-to-back calls {event_ms:.4f}), plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.1f} MB); torch.topk yardstick {topk_ms:.4f} ms",
+          flush=True)
+    return {"name": "cagra_hop", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/cagra_hop.cu",
+            "replaces": "raft_tpu/ops/cagra_hop_pallas.py:257",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "event_ms": event_ms, "yardstick_topk_ms": topk_ms}
+
+
+def walk_format(index):
+    (pdim, quant), = list(index._walk_tables)
+    return f"pdim {pdim}, {'int8' if quant else 'bf16'} table"
+
+
+def cagra_path(db, queries, truth):
+    """``raft_cagra.deg32`` on the flagship's rows: ``cagra.build`` (seconds,
+    stages, build pdim, Kernel I / H / A launches), the conf's four search
+    points at batch 5000, k 10 (first batch, warm ms, QPS, recall@10, walk
+    format, Kernel I launches), serving buckets of 1 / 8 / 64 queries, one
+    batch under the profiler, and Kernel I vs plain on hops captured from
+    the run.  Returns I's kernels row."""
+    import torch
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.neighbors import cagra
+
+    res = DeviceResources(seed=0)
+    params = cagra.IndexParams(graph_degree=CAGRA_DEGREE,
+                               intermediate_graph_degree=CAGRA_INTERMEDIATE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with HopCapture() as cap:
+        t0 = time.perf_counter()
+        index = cagra.build(res, params, db)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_launches = read_launches()
+        print(f"CAGRA build (graph_degree {CAGRA_DEGREE}, intermediate "
+              f"{CAGRA_INTERMEDIATE}): {build_s:.2f} s; stages (s): "
+              f"{json.dumps(cagra.build.stage_seconds)}; build pdim "
+              f"{cagra.build.build_pdim}; launches: Kernel I "
+              f"{build_launches['cagra_hop']}, H "
+              f"{build_launches['fused_l2_nn']}, A "
+              f"{build_launches['kmeans_assign_update']}; hop shapes "
+              f"(nq, itopk, wd, pdim) x calls: "
+              f"{ {str(k): v for k, v in cap.calls.items()} }; peak device "
+              f"memory {peak_gb():.2f} GB", flush=True)
+        for name in ("cagra_hop", "fused_l2_nn"):
+            assert build_launches[name] > 0, f"CAGRA build: {name} never " \
+                "launched"
+        g = index.graph
+        assert g.shape == (N_DB, CAGRA_DEGREE) and int(g.min()) >= 0 and \
+            int(g.max()) < N_DB, "CAGRA build: bad graph"
+
+        results = {}
+        for itopk, width in CAGRA_POINTS:
+            sp = cagra.SearchParams(itopk_size=itopk, search_width=width)
+            before = read_launches()["cagra_hop"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cagra.search(res, sp, index, queries, K)
+            torch.cuda.synchronize()
+            first_ms = 1e3 * (time.perf_counter() - t0)
+            ms = []
+            for _ in range(SEARCH_REPS):
+                t0 = time.perf_counter()
+                _, found = cagra.search(res, sp, index, queries, K)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
+            recall = float(hits) / truth.numel()
+            med = sorted(ms)[len(ms) // 2]
+            results[(itopk, width)] = recall
+            print(f"CAGRA itopk {itopk} width {width}: first batch "
+                  f"{first_ms:.2f} ms (walk cache included on the first "
+                  f"point); {', '.join(f'{m:.2f}' for m in ms)} ms per batch "
+                  f"of {N_QUERIES}; QPS {N_QUERIES / (med / 1e3):.0f} "
+                  f"(median); recall@10 {recall:.4f}; {walk_format(index)}; "
+                  f"Kernel I launches {read_launches()['cagra_hop'] - before}",
+                  flush=True)
+        launches = read_launches()
+        print(f"CAGRA launches (build + searches): {json.dumps(launches)}; "
+              f"peak device memory {peak_gb():.2f} GB", flush=True)
+        for point in ((64, 2), (128, 2)):
+            assert results[point] >= 0.90, (
+                f"CAGRA recall@10 {results[point]} below 0.90 at itopk "
+                f"{point[0]}, width {point[1]}")
+
+        bucket_before = read_launches()["cagra_hop"]
+        for itopk, width in CAGRA_BUCKET_POINTS:
+            sp = cagra.SearchParams(itopk_size=itopk, search_width=width)
+            for nq in CAGRA_BUCKETS:
+                q = queries[:nq]
+                cagra.search(res, sp, index, q, K)
+                ms = []
+                for _ in range(BUCKET_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    cagra.search(res, sp, index, q, K)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                print(f"CAGRA bucket of {nq} at itopk {itopk} width {width}: "
+                      f"median {sorted(ms)[len(ms) // 2]:.2f} ms per batch "
+                      f"(min {min(ms):.2f}, max {max(ms):.2f})", flush=True)
+        bucket_launches = read_launches()["cagra_hop"] - bucket_before
+
+    sp = cagra.SearchParams(itopk_size=64, search_width=2)
+    device_breakdown("CAGRA search batch (itopk 64, width 2)",
+                     lambda: cagra.search(res, sp, index, queries, K))
+
+    def kept(nq, itopk, wd):
+        """The captured hop of the largest batch up to ``nq`` at (itopk,
+        wd): the build's self-walk chunks and exact-merge chunks are
+        sized by the port, the search batches by this script."""
+        keys = [k for k in cap.kept if k[1] == itopk and k[2] == wd
+                and k[0] <= nq]
+        key = max(keys)
+        return key, cap.kept[key]
+
+    key, (args, ipm) = kept(N_QUERIES, 64, 2 * CAGRA_DEGREE)
+    row = check_kernel_i(args, ipm, f"search: {key} (nq, itopk, wd, pdim)")
+    row["launches"] = launches["cagra_hop"]
+    row["also_checked"] = []
+    for (nq, itopk, wd), what, n_launch in (
+            ((64, 32, CAGRA_DEGREE), "serving bucket", bucket_launches),
+            ((8192, 96, CAGRA_INTERMEDIATE), "build self-walk",
+             build_launches["cagra_hop"]),
+            ((N_DB, CAGRA_INTERMEDIATE + 1, 96), "build exact merge",
+             build_launches["cagra_hop"])):
+        key, (args, ipm) = kept(nq, itopk, wd)
+        shape = f"{what}: {key} (nq, itopk, wd, pdim)"
+        row["also_checked"].append(at_shape(check_kernel_i(args, ipm, shape),
+                                            shape, n_launch))
+    del index, cap
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1147,6 +1412,9 @@ def main() -> int:
 
     phase("k-means at full width: 1M x 128 -> 1024 (BASELINE config 3)")
     row_h, a_kmeans = kmeans_path(db)
+
+    phase("CAGRA at full width: sift-like-1m, raft_cagra.deg32")
+    row_i = cagra_path(db, queries, truth)
     del db, queries, truth
     torch.cuda.empty_cache()
 
@@ -1159,7 +1427,8 @@ def main() -> int:
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["ivf_pq_scan_fused"],
-                 also_checked=[b_deep])] + rows_cde + [row_f, row_g, row_h]
+                 also_checked=[b_deep])] + rows_cde + [row_f, row_g, row_h,
+                                                       row_i]
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,11 +13,13 @@ wrapper runs its plain PyTorch version instead.
 
 Ported so far (see ROADMAP.md): IVF-PQ build (two-level k-means from 8192
 lists) and search over the recon cache, the packed codes and the int8
-cache (``scan_mode`` "auto", "fused", "codes", "recon8") —
-:mod:`raft_tpu_torch.neighbors.ivf_pq`,
-:mod:`raft_tpu_torch.cluster.kmeans_balanced`,
-:mod:`raft_tpu_torch.neighbors.refine` and
-:mod:`raft_tpu_torch.neighbors.brute_force` (``knn``).
+cache (``scan_mode`` "auto", "fused", "codes", "recon8", "recon") —
+:mod:`raft_tpu_torch.neighbors.ivf_pq`; IVF-Flat
+(:mod:`raft_tpu_torch.neighbors.ivf_flat`); k-means
+(:mod:`raft_tpu_torch.cluster.kmeans`,
+:mod:`raft_tpu_torch.cluster.kmeans_balanced`); CAGRA build and walk search
+(:mod:`raft_tpu_torch.neighbors.cagra`); :mod:`raft_tpu_torch.neighbors.refine`
+and :mod:`raft_tpu_torch.neighbors.brute_force` (``knn``).
 """
 
 from raft_tpu_torch.core.error import LogicError, expects  # noqa: F401

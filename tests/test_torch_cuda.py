@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from raft_tpu_torch import LogicError
+from raft_tpu_torch.ops import cagra_hop as chop
 from raft_tpu_torch.ops import fused_l2_nn as fnn
 from raft_tpu_torch.ops import kmeans_update as ku
 from raft_tpu_torch.ops import pair_scan as ps
@@ -356,3 +357,81 @@ def test_pair_scans_and_fused_l2_nn_reject_what_they_cannot_hold(dev):
         ps.ivf_flat_scan(q, probes, data, dsq, ids, 4)
     with pytest.raises(LogicError, match="fused_l2_nn"):
         fnn.fused_l2_nn(q, torch.zeros(0, 10, device=dev))
+
+
+def _hop_inputs(dev, nq, itopk, wd, pdim, seed, id_hi=None, all_visited=False):
+    """Walk-shaped hop inputs: a sorted buffer with a dead (+inf, -1) tail
+    and random visited flags, candidates with masked parents, repeated ids
+    (same payload, as two parents' rows give) and ids already buffered."""
+    rng = np.random.default_rng(seed)
+    id_hi = id_hi or 4 * (itopk + wd)
+    qp = rng.normal(size=(nq, pdim)).astype(np.float32)
+    q_sq = (rng.random(nq) * 3).astype(np.float32)
+    nb_id = rng.integers(0, id_hi, size=(nq, wd)).astype(np.int32)
+    nb_id[:, : max(wd // 16, 1)] = -1
+    nb_p = rng.normal(size=(id_hi, pdim)).astype(np.float32)[
+        np.maximum(nb_id, 0)]
+    nb_sq = (rng.random(id_hi) * 3).astype(np.float32)[np.maximum(nb_id, 0)]
+    buf_d = np.sort(rng.random((nq, itopk)).astype(np.float32) * 2, axis=1)
+    buf_d[:, itopk - max(itopk // 8, 1):] = np.inf
+    buf_i = rng.integers(0, id_hi, size=(nq, itopk)).astype(np.int32)
+    buf_i[:, 0] = nb_id[:, -1]          # a candidate already buffered
+    for r in range(nq):                 # buffered ids are distinct
+        _, first = np.unique(buf_i[r], return_index=True)
+        dup = np.ones(itopk, bool)
+        dup[first] = False
+        buf_i[r, dup] = -1
+    buf_i[np.isinf(buf_d)] = -1
+    vis = rng.random((nq, itopk)) < 0.3
+    if all_visited:
+        vis[:] = True
+        nb_id[:] = -1
+
+    def t(a, dt=None):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return x if dt is None else x.to(dt)
+
+    return (t(qp, torch.bfloat16), t(q_sq), t(nb_p, torch.bfloat16),
+            t(nb_sq), t(nb_id), t(buf_d), t(buf_i), t(vis))
+
+
+@pytest.mark.parametrize("nq,itopk,wd,pdim,ip", [
+    (5000, 64, 64, 16, False),      # search, itopk 64, width 2, degree 32
+    (64, 32, 32, 16, False),        # a serving bucket, width 1
+    (8192, 96, 64, 16, False),      # the build's self-walk round
+    (1024, 65, 96, 128, False),     # the build's exact merge (full rows)
+    (1, 128, 64, 16, False),        # a single query, itopk 128
+    (300, 256, 256, 24, True),      # the gate's edge, InnerProduct
+    (77, 24, 32, 13, False)])       # pdim off 16-byte loads
+def test_cagra_hop_kernel_matches_plain(dev, nq, itopk, wd, pdim, ip):
+    """Kernel I: the same exact products summed in the same order, the
+    same dedupe and the same merge network as its plain version, so keys,
+    ids and visited flags are equal bit for bit."""
+    args = _hop_inputs(dev, nq, itopk, wd, pdim, nq + itopk + wd)
+    before = chop.cagra_hop.launches
+    kd, ki, kv = chop.cagra_hop(*args, ip_metric=ip)
+    torch.cuda.synchronize()
+    assert chop.cagra_hop.launches == before + 1
+    pd, pi, pv = chop.cagra_hop_plain(*args, ip_metric=ip)
+    assert torch.equal(kd, pd)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
+    fin = torch.isfinite(kd)
+    assert bool((torch.diff(kd, dim=1)[fin[:, 1:]] >= 0).all())
+    live = ki[ki >= 0].reshape(-1)
+    assert live.numel() > 0
+
+
+def test_cagra_hop_all_visited_is_a_fixed_point(dev):
+    """A fully visited buffer with only masked parents comes back as it
+    went in (why the walk may skip its per-hop exit check)."""
+    args = _hop_inputs(dev, 200, 64, 64, 16, 5, all_visited=True)
+    kd, ki, kv = chop.cagra_hop(*args, ip_metric=False)
+    assert torch.equal(kd, args[5]) and torch.equal(ki, args[6])
+    assert torch.equal(kv, args[7])
+
+
+def test_cagra_hop_rejects_what_it_cannot_hold(dev):
+    args = _hop_inputs(dev, 2, 300, 16, 16, 0)
+    with pytest.raises(LogicError, match="itopk=300"):
+        chop.cagra_hop(*args, ip_metric=False)
