@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name, the device count and ``nvidia-smi``'s name and
    power limit.  No CUDA device is a failure.
-2. Build: compile every kernel under ``raft_tpu_torch/csrc`` with nvcc.
+2. Build: compile every kernel under ``raft_tpu_torch/csrc`` with nvcc;
+   then the ``raise`` validator's first call and a second one.
 3. Kernel A (``kmeans_assign_update``) against its plain PyTorch version on
    the flagship's first Lloyd pass: its 500,000 x 128 training set and its
    4,096 initial centroids.
@@ -20,7 +21,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    searched at n_probes 96, k 20 and refined to k 10, recall@10 against
    ``brute_force.knn``.  Launch counts are zeroed just before and read
    just after; Kernels A, B and H (the build's balanced k-means
-   assignments) must each be > 0.
+   assignments) must each be > 0.  Then the ``raise`` validation policy's
+   cost: the batch's median ms under ``off`` and under ``raise``, in
+   turns, and the difference as a share of the batch (the search alone
+   too; and CAGRA's itopk-64 batch in phase 11).
 5. Kernel B (``ivf_pq_scan_fused``) against its plain version on the
    flagship's batch: 5000 queries of the built index at n_probes 96, k 20;
    Kernel H (``fused_l2_nn``) against its plain version at the shapes the
@@ -50,7 +54,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    100,000 x 128 -> 100,000, with ``torch.cdist(x, y).min(1)`` timed as a
    yardstick (no single PyTorch call computes min + first argmin), and
    Kernel A against plain at the Lloyd pass's shape.
-10. CAGRA at full width (``conf/sift-like-1m.json`` entry
+10. The round-5 profile decompositions (PERF.md kernel table rows 10-13),
+    through the port's profile modules at the JAX scripts' sizes, launch
+    counts zeroed before and read after: Kernel F's four (gather, extract)
+    variants on phase 8's two indexes at (n_lists, n_probes) (16384, 256)
+    and (4096, 128), kt 10, and the pre-gather's time; the raw variant of
+    Kernel G's rows on the flagship index (n_probes 96); Kernel J against
+    ``torch.index_select`` on 320,000 random rows of a 1,000,000 x 128
+    table, f32 and bf16, 1,024 and 2,048 rows a block; Kernel A's cuts
+    (mm, mmmin, mmargmin, full; base, uw, mxuonly) at 1,000,000 x 128 ->
+    1,024 with a bf16 ``torch.matmul`` of the same product as the
+    yardstick, and the JAX script's uw spot check.  Then every variant
+    against its plain version: raw distances within 1e-5 of ‖q‖² + max
+    ‖x‖² (1e-4 for G's rows), selections as Kernel F's, Kernel J
+    bit-equal, the cuts' dmin and labels bit-equal, counts exact
+    (mxuonly's column sums within 1e-4 relative), sums as Kernel A's.
+11. CAGRA at full width (``conf/sift-like-1m.json`` entry
     ``raft_cagra.deg32``) on the same rows: ``cagra.build`` at
     ``IndexParams(graph_degree=32, intermediate_graph_degree=64)`` (seconds,
     stage seconds, the build's projected dimension, Kernel I / H / A
@@ -64,7 +83,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     32 / 32, the build's self-walk 8,192 / 96 / 64 and its exact merge,
     with ``torch.topk`` over the [buffer | candidate] keys timed as a
     yardstick (it does no dedupe).
-11. Deep path at full width (``conf/deep-like-10m.json`` entry
+12. Deep path at full width (``conf/deep-like-10m.json`` entry
     ``raft_ivf_pq.dim48``): a 10,000,000 x 96 database + 5,000 queries
     from the same generator, ``ivf_pq.build`` at ``IndexParams(
     n_lists=8192, pq_dim=48, kmeans_trainset_fraction=0.1)`` (the
@@ -78,7 +97,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     it and read after.  Kernels B, C, D, E and G against their plain
     versions on the full batch at each mode's shape, and each mode's batch
     under the profiler.
-12. A JSON line with each kernel's route, source, launches, error, time
+13. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time and bound on its main path, and
     under ``also_checked`` the same measurements at the other shapes its
     paths give it; the ``nvidia-smi`` line; the result line ``{"ok":
@@ -144,6 +163,7 @@ def counters():
     from raft_tpu_torch.ops import pair_scan as ps
     from raft_tpu_torch.ops import pq_code_scan as pcs
     from raft_tpu_torch.ops import pq_group_scan as pgs
+    from raft_tpu_torch.ops import row_gather as rg
 
     return {"kmeans_assign_update": ku.kmeans_assign_update,
             "ivf_pq_scan_fused": pgs.ivf_pq_scan_fused,
@@ -153,7 +173,10 @@ def counters():
             "ivf_flat_scan": ps.ivf_flat_scan,
             "ivf_pq_scan_recon": ps.ivf_pq_scan_recon,
             "fused_l2_nn": fnn.fused_l2_nn,
-            "cagra_hop": chop.cagra_hop}
+            "cagra_hop": chop.cagra_hop,
+            "pair_scan_variant": ps.pair_scan_variant,
+            "row_gather": rg.row_gather,
+            "kmeans_pass_cut": ku.kmeans_pass_cut}
 
 
 def zero_launches():
@@ -691,7 +714,8 @@ def ivf_flat_path(db, queries, truth):
     at n_probes 128 with Kernel F vs plain there, and Kernels A and H vs
     plain at the shapes its hierarchical fit and its extend give them, on a
     trainset of the build's size (``also_checked``).  Returns F's kernels
-    row and the A and H ``also_checked`` entries."""
+    row, the A and H ``also_checked`` entries and the two indexes (nlist
+    16384, then 4096) for the profile phase."""
     import torch
     from raft_tpu_torch import DeviceResources
     from raft_tpu_torch.neighbors import ivf_flat
@@ -716,8 +740,6 @@ def ivf_flat_path(db, queries, truth):
     sp = ivf_flat.SearchParams(n_probes=FLAT_CHECK_PROBES)
     device_breakdown(f"IVF-Flat search batch (n_probes {FLAT_CHECK_PROBES})",
                      lambda: ivf_flat.search(res, sp, index, queries, K))
-    del index
-    torch.cuda.empty_cache()
 
     zero_launches()
     fine = build_flat(res, db, FLAT_FINE_LISTS, "IVF-Flat nlist 16384")
@@ -740,9 +762,9 @@ def ivf_flat_path(db, queries, truth):
     h_rows.append(h_check(db, fine.centers, f"IVF-Flat nlist 16384 extend: "
                           f"{N_DB:,} x {DIM} -> {FLAT_FINE_LISTS:,}",
                           fine_launches["fused_l2_nn"]))
-    del fine, sel
+    del sel
     torch.cuda.empty_cache()
-    return row, a_rows, h_rows
+    return row, a_rows, h_rows, (fine, index)
 
 
 def check_kernel_h(x, y, shape, yardstick):
@@ -893,6 +915,337 @@ def kmeans_path(db):
     a_row = at_shape(check_kernel_a(db, centroids, shape), shape,
                      launches["kmeans_assign_update"])
     return row, a_row
+
+
+# the profile decompositions (PERF.md kernel table rows 10-13): the JAX
+# scripts' (n_lists, n_probes), the gather's rows a block, the A cuts
+PROFILE_FLAT = ((FLAT_FINE_LISTS, 256), (FLAT_LISTS, 128))
+PROFILE_KT = 10
+GATHER_ROWS = (1024, 2048)
+POLICY_REPS = 5
+
+
+def policy_cost(label, fn):
+    """The ``raise`` validation policy's cost on one batch of a path:
+    ``fn`` under ``off`` and under ``raise``, in turns, POLICY_REPS times
+    each; the medians and their difference as a share of the batch."""
+    import torch
+    from raft_tpu_torch import config
+
+    ms = {"off": [], "raise": []}
+    for _ in range(POLICY_REPS):
+        for policy in ("off", "raise"):
+            with config.validation_policy(policy):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms[policy].append(1e3 * (time.perf_counter() - t0))
+    med = {p: sorted(v)[len(v) // 2] for p, v in ms.items()}
+    share = (med["raise"] - med["off"]) / med["off"]
+    print(f"validation policy cost, {label}: off "
+          f"{', '.join(f'{m:.3f}' for m in ms['off'])} ms; raise "
+          f"{', '.join(f'{m:.3f}' for m in ms['raise'])} ms; medians "
+          f"{med['off']:.3f} / {med['raise']:.3f} ms; raise costs "
+          f"{med['raise'] - med['off']:.3f} ms = {100 * share:.2f}% of the "
+          f"batch", flush=True)
+    return med, share
+
+
+def validator_first_call(dev):
+    """The ``raise`` validator's first call in the process (its CUDA
+    kernels load on first use) and a second one, on 5,000 x 128 queries;
+    the main path's first batch would pay the first."""
+    import torch
+    from raft_tpu_torch.integrity import boundary
+
+    q = torch.zeros(N_QUERIES, DIM, device=dev)
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        boundary.check_matrix(q, "queries", site="chip_smoke", dim=DIM,
+                              policy="raise")
+        ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"validator (raise) on {N_QUERIES:,} x {DIM}: first call "
+          f"{ms[0]:.3f} ms, second {ms[1]:.3f} ms", flush=True)
+
+
+def variant_row(name, src, replaces, launches, checks):
+    """A kernels-line row from its checks, the first the row's own shape
+    and the rest under ``also_checked``."""
+    first = checks[0]
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches,
+           **{key: first[key] for key in MEASURED}}
+    row["shape"] = first["shape"]
+    row["also_checked"] = [at_shape(c, c["shape"], launches)
+                           for c in checks[1:]]
+    return row
+
+
+def check_scan_variant(label, args, kw, ms, scale, row_bytes, n_rows,
+                       flops):
+    """One F / G variant against its plain version: raw blocks within
+    1e-5 · ``scale`` (F) or 1e-4 (G) at every slot with the same +inf,
+    selections as ``compare_with_plain`` holds Kernels F and G; the bound
+    from ``n_rows`` rows of ``row_bytes`` read once, the queries, the
+    probes and the output."""
+    import torch
+    from raft_tpu_torch.ops import pair_scan as ps
+
+    out = ps.pair_scan_variant(*args, **kw)
+    ref, plain_ms = timed_once(lambda: ps.pair_scan_variant_plain(*args,
+                                                                  **kw))
+    atol = 1e-5 * scale if kw.get("centers") is None else 1e-4 * max(
+        scale, 1.0)
+    if kw["extract"]:
+        err = compare_with_plain(label, *out, *ref, atol=atol)
+        out_bytes = out[0].numel() * 8
+    else:
+        fin = torch.isfinite(ref)
+        assert torch.equal(fin, torch.isfinite(out)), f"{label}: +inf slots"
+        err = float((out[fin] - ref[fin]).abs().max())
+        assert err <= atol, f"{label}: raw distances differ by {err}"
+        out_bytes = out.numel() * 4
+    q, probes = args[0], args[1]
+    nbytes = n_rows * row_bytes + q.numel() * 4 + probes.numel() * 4 \
+        + out_bytes
+    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S
+                               if kw.get("centers") is None
+                               else BF16_FLOP_PER_S)
+    print(f"{label}: {ms:.3f} ms, plain {plain_ms:.1f} ms, max |err| {err} "
+          f"(tol {atol:.3g}), bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)", flush=True)
+    del out, ref
+    return {"shape": label, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def flat_variant_checks(index, queries, n_probes, lines):
+    """Row 10 at one IVF-Flat shape: each (gather, extract) variant line
+    of the profile's run (``lines``) held to its plain version."""
+    import torch
+    from raft_tpu_torch.profiles import group_kernel_decomp_r5 as gkd
+
+    probes, data, dsq, ids = gkd.scan_inputs(index, queries, n_probes)
+    qg = gkd.pregather(queries, n_probes)
+    scale = float((queries * queries).sum(1).max() + dsq.max())
+    cap, dim = index.capacity, index.dim
+    pr = probes.long()
+    probed = torch.unique(pr)
+    live = (ids >= 0).sum(1)
+    checks = []
+    for line in lines:
+        gather, extract = line["gather"], line["extract"]
+        q_in = queries if gather else qg
+        if extract:     # live rows, their ids and norms; live products
+            n_rows = int(live[probed].sum())
+            row_bytes = dim * 4 + 8
+            flops = 2.0 * dim * int(live[pr].sum())
+        else:           # every slot, its norm; every product
+            n_rows = probed.numel() * cap
+            row_bytes = dim * 4 + 4
+            flops = 2.0 * dim * pr.numel() * cap
+        checks.append(check_scan_variant(
+            f"pair_scan_variant F nlist {index.n_lists}, n_probes "
+            f"{n_probes}, capacity {cap}, gather {gather}, extract "
+            f"{extract}", (q_in, probes, data, dsq, ids, PROFILE_KT),
+            dict(gather=gather, extract=extract), line["ms"], scale,
+            row_bytes, n_rows, flops))
+    return checks
+
+
+def recon_raw_inputs(index, queries):
+    """Row 10's raw variant on Kernel G's rows (``Bf16Rows``) at the
+    flagship ``recon`` shape: the scan's arguments and switches."""
+    qrot, probes = probe(index, queries)
+    return ((qrot, probes, index.list_recon, index.list_recon_sq,
+             index.list_indices, K_SEARCH),
+            dict(gather=True, extract=False, centers=index.centers))
+
+
+def recon_raw_check(index, args, kw, ms):
+    """G's raw scan (timed at ``ms`` on the profile path) against its
+    plain version, with its bound: every slot of every probed list."""
+    import torch
+
+    qrot, probes = args[0], args[1]
+    cap, rot = index.capacity, index.rot_dim
+    pr = probes.long()
+    n_rows = torch.unique(pr).numel() * cap
+    scale = float((qrot * qrot).sum(1).max() + index.list_recon_sq.max())
+    return check_scan_variant(
+        f"pair_scan_variant G raw, flagship recon: {N_QUERIES:,} queries x "
+        f"{N_PROBES} probes, capacity {cap}, rot {rot}", args, kw, ms, scale,
+        rot * 2 + 4, n_rows, 2.0 * rot * pr.numel() * cap)
+
+
+def gather_checks(table, ids, lines):
+    """Row 11: Kernel J bit-equal to ``index_select`` at each dtype and
+    block height the profile ran; bound = the gathered rows read once and
+    written once, and the ids."""
+    import torch
+    from raft_tpu_torch.ops import row_gather as rg
+
+    lib = {ln["dtype"]: ln["ms"] for ln in lines
+           if ln["impl"] == "index_select"}
+    checks = []
+    for dtype in ("bf16", "f32"):
+        t = table.to(torch.bfloat16) if dtype == "bf16" else table
+        for line in lines:
+            if line["impl"] != "row_gather" or line["dtype"] != dtype:
+                continue
+            out = rg.row_gather(t, ids, line["rows"])
+            ref, plain_ms = timed_once(lambda: rg.row_gather_plain(t, ids))
+            assert torch.equal(out, ref), f"row_gather {dtype} differs"
+            nbytes = 2 * out.numel() * out.element_size() + ids.numel() * 4
+            bound_ms, bound_by = bound(nbytes, 0.0)
+            label = (f"row_gather {dtype}: {ids.numel():,} of "
+                     f"{t.shape[0]:,} x {t.shape[1]} rows, {line['rows']} "
+                     f"rows a block")
+            print(f"{label}: {line['ms']:.4f} ms ({line['gb_per_s']:.1f} "
+                  f"GB/s gathered), index_select {lib[dtype]:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bit-equal, bound {bound_ms:.4f} ms "
+                  f"({bound_by})", flush=True)
+            checks.append({"shape": label, "max_abs_err": 0.0,
+                           "ms": line["ms"], "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": lib[dtype]})
+            del out, ref
+    return checks
+
+
+def cut_checks(x, c, timed):
+    """Rows 12-13: each Kernel A cut against its plain version — dmin and
+    the labels bit for bit, counts equal (mxuonly's column sums within
+    1e-4 relative), sums within 1e-5 · count · max|x| as Kernel A's —
+    with its time from the profiles' run (``timed``: cut -> (ms, source
+    line, library ms)); bound: the product's bf16 operations, or x, the
+    centroids and the outputs once."""
+    import torch
+    from raft_tpu_torch.ops import kmeans_update as ku
+
+    xb = x.to(torch.bfloat16)
+    n, dim = x.shape
+    k = c.shape[0]
+    flops = 2.0 * n * k * dim
+    checks = []
+    for cut, (ms, src, lib_ms) in timed.items():
+        sums, counts, dmin, labels = ku.kmeans_pass_cut(xb, c, cut)
+        (p_sums, p_counts, p_dmin, p_labels), plain_ms = timed_once(
+            lambda: ku.kmeans_pass_cut_plain(xb, c, cut))
+        assert torch.equal(dmin, p_dmin), f"kmeans_pass_cut {cut}: dmin"
+        assert (labels is None) == (p_labels is None)
+        assert labels is None or torch.equal(labels, p_labels), (
+            f"kmeans_pass_cut {cut}: labels")
+        if cut == "mxuonly":
+            cerr = float((counts - p_counts).abs().max())
+            assert cerr <= 1e-4 * float(p_counts.abs().max()), (
+                f"kmeans_pass_cut mxuonly: column sums differ by {cerr}")
+        else:
+            cerr = float((counts - p_counts).abs().max())
+            assert cerr == 0.0, f"kmeans_pass_cut {cut}: counts"
+        serr = (sums - p_sums).abs()
+        tol = 1e-5 * p_counts.clamp_min(0)[:, None] * float(
+            xb.float().abs().max()) + 1e-6
+        if cut in ("uw", "full"):
+            assert bool((serr <= tol).all()), (
+                f"kmeans_pass_cut {cut}: sums differ by {float(serr.max())}")
+        err = max(float(serr.max()), cerr)
+        nbytes = n * dim * 2 + k * dim * 2 + k * 4 + n * 4 + k * 4 + (
+            k * dim * 4 + n * 4 if cut in ("uw", "full") else 0)
+        bound_ms, bound_by = bound(nbytes, flops)
+        label = (f"kmeans_pass_cut {cut} ({src}): {n:,} x {dim} -> {k:,}, "
+                 f"tile 128x128")
+        print(f"{label}: {ms:.3f} ms, plain {plain_ms:.1f} ms, dmin and "
+              f"labels bit-equal, max |err| {err}, bound {bound_ms:.4f} ms "
+              f"({bound_by}), library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}",
+              flush=True)
+        checks.append({"shape": label, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms})
+        del sums, counts, dmin, labels, p_sums, p_counts, p_dmin, p_labels
+    return checks
+
+
+def profiles_path(dev, flagship, queries, flat_indexes):
+    """The four profile entry points of the port at the JAX scripts' sizes
+    (rows 10-13), launches zeroed before and read after: the F variants on
+    the IVF-Flat phase's two indexes and G's raw scan on the flagship
+    index; the row gather; the k-means cuts, base, uw and mxuonly.  Then
+    each kernel variant against its plain version; returns the three
+    kernels-line rows."""
+    import torch
+    from raft_tpu_torch.ops import pair_scan as ps
+    from raft_tpu_torch.profiles import gather_bench as gb
+    from raft_tpu_torch.profiles import group_kernel_decomp_r5 as gkd
+    from raft_tpu_torch.profiles import kmeans_decomp_r5 as kd
+    from raft_tpu_torch.profiles import kmeans_kernel_r5 as kk
+
+    def show(lines):
+        for line in lines:
+            print(json.dumps(line), flush=True)
+
+    torch.cuda.synchronize()
+    zero_launches()
+    flat_lines = {}
+    for (n_lists, n_probes), index in zip(PROFILE_FLAT, flat_indexes):
+        flat_lines[n_lists] = gkd.run_on_index(index, queries, n_probes,
+                                               PROFILE_KT, KERNEL_REPS)
+        show(flat_lines[n_lists])
+    g_args, g_kw = recon_raw_inputs(flagship, queries)
+    g_ms = cuda_ms(lambda: ps.pair_scan_variant(*g_args, **g_kw),
+                   KERNEL_REPS)
+    table, ids = gb.inputs(device=dev)
+    g_lines, match = gb.run(table, ids, GATHER_ROWS)
+    show(g_lines)
+    print("match:", match, flush=True)
+    assert match, "row_gather: not bit-equal to index_select"
+    x, c = kd.inputs(device=dev)
+    kd_lines = kd.run(x, c)
+    show(kd_lines)
+    kk_lines, spot = kk.run(x, c)
+    show(kk_lines + [spot])
+    assert all(spot.values()), f"kmeans_kernel_r5 spot check: {spot}"
+    launches = read_launches()
+    print(f"profile launches: {json.dumps(launches)}", flush=True)
+    for name in ("pair_scan_variant", "row_gather", "kmeans_pass_cut"):
+        assert launches[name] > 0, f"profiles: {name} never launched"
+
+    # F's own shape (nlist 4096) first, its raw gathering scan first of
+    # all: the row's main entry is the split of Kernel F's time
+    f_checks = []
+    for (n_lists, n_probes), index in reversed(list(zip(PROFILE_FLAT,
+                                                        flat_indexes))):
+        lines = sorted((ln for ln in flat_lines[n_lists] if "gather" in ln),
+                       key=lambda ln: (ln["extract"], not ln["gather"]))
+        f_checks += flat_variant_checks(index, queries, n_probes, lines)
+    g_check = recon_raw_check(flagship, g_args, g_kw, g_ms)
+    j_checks = gather_checks(table, ids, g_lines)
+    del table, ids
+    yard = kd_lines[-1]["ms"]
+    timed = {ln["variant"]: (ln["ms"], "profiles/kmeans_decomp_r5.py:67",
+                             yard if ln["variant"] == "mm" else None)
+             for ln in kd_lines if "variant" in ln}
+    timed.update({ln["variant"]: (ln["ms"], "profiles/kmeans_kernel_r5.py:77",
+                                  None)
+                  for ln in kk_lines if ln["variant"] != "base"})
+    a_checks = cut_checks(x, c, timed)
+    del x, c
+    torch.cuda.empty_cache()
+    return [
+        variant_row("pair_scan_variant", "raft_tpu_torch/csrc/pair_scan.cu",
+                    "profiles/group_kernel_decomp_r5.py:50",
+                    launches["pair_scan_variant"], f_checks + [g_check]),
+        variant_row("row_gather", "raft_tpu_torch/csrc/row_gather.cu",
+                    "profiles/gather_bench.py:70", launches["row_gather"],
+                    j_checks),
+        variant_row("kmeans_pass_cut", "raft_tpu_torch/csrc/kmeans_update.cu",
+                    "profiles/kmeans_decomp_r5.py:67",
+                    launches["kmeans_pass_cut"], a_checks)]
 
 
 def search_mode(res, index, db, queries, truth, label, sp, kernel):
@@ -1265,6 +1618,8 @@ def cagra_path(db, queries, truth):
     sp = cagra.SearchParams(itopk_size=64, search_width=2)
     device_breakdown("CAGRA search batch (itopk 64, width 2)",
                      lambda: cagra.search(res, sp, index, queries, K))
+    policy_cost(f"CAGRA search, itopk 64 width 2 (batch of {N_QUERIES})",
+                lambda: cagra.search(res, sp, index, queries, K))
 
     def kept(nq, itopk, wd):
         """The captured hop of the largest batch up to ``nq`` at (itopk,
@@ -1315,6 +1670,7 @@ def main() -> int:
     phase("build kernels")
     _cuda.library()
     print(f"build: {_cuda.build_seconds:.1f} s", flush=True)
+    validator_first_call(torch.device("cuda", 0))
 
     dev = torch.device("cuda", 0)
     db, queries = sift_like(N_DB, N_QUERIES, DIM, LATENT, NOISE, dev)
@@ -1375,6 +1731,13 @@ def main() -> int:
         assert launches[name] > 0, (
             f"{name} was never launched on the main path")
     assert recall >= 0.90, f"recall@10 {recall} below the 0.90 floor"
+    # the search alone tells its validation from refine's, whose host
+    # sync waits for the search's kernels before refine's work is queued
+    policy_cost(f"search + refine (batch of {N_QUERIES})", lambda:
+                refine.refine(res, db, queries, ivf_pq.search(
+                    res, sp, index, queries, K_SEARCH)[1], K))
+    policy_cost(f"search alone (batch of {N_QUERIES})", lambda:
+                ivf_pq.search(res, sp, index, queries, K_SEARCH))
 
     phase("kernel B vs plain (the main path's batch on the built index)")
     row_b = check_kernel_b(index, queries)
@@ -1404,14 +1767,19 @@ def main() -> int:
     device_breakdown("search+refine batch", lambda: refine.refine(
         res, db, queries, ivf_pq.search(res, sp, index, queries,
                                         K_SEARCH)[1], K))
-    del index, cand, found
+    del cand, found
     torch.cuda.empty_cache()
 
     phase("IVF-Flat at full width: sift-like-1m, nlist 4096 and 16384")
-    row_f, a_flat, h_flat = ivf_flat_path(db, queries, truth)
+    row_f, a_flat, h_flat, flat_indexes = ivf_flat_path(db, queries, truth)
 
     phase("k-means at full width: 1M x 128 -> 1024 (BASELINE config 3)")
     row_h, a_kmeans = kmeans_path(db)
+
+    phase("profiles: the round-5 decompositions (kernel table rows 10-13)")
+    rows_profiles = profiles_path(dev, index, queries, flat_indexes)
+    del index, flat_indexes
+    torch.cuda.empty_cache()
 
     phase("CAGRA at full width: sift-like-1m, raft_cagra.deg32")
     row_i = cagra_path(db, queries, truth)
@@ -1427,8 +1795,8 @@ def main() -> int:
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["ivf_pq_scan_fused"],
-                 also_checked=[b_deep])] + rows_cde + [row_f, row_g, row_h,
-                                                       row_i]
+                 also_checked=[b_deep])] + rows_cde + [
+                     row_f, row_g, row_h, row_i] + rows_profiles
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

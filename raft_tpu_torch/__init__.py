@@ -19,7 +19,9 @@ cache (``scan_mode`` "auto", "fused", "codes", "recon8", "recon") —
 (:mod:`raft_tpu_torch.cluster.kmeans`,
 :mod:`raft_tpu_torch.cluster.kmeans_balanced`); CAGRA build and walk search
 (:mod:`raft_tpu_torch.neighbors.cagra`); :mod:`raft_tpu_torch.neighbors.refine`
-and :mod:`raft_tpu_torch.neighbors.brute_force` (``knn``).
+and :mod:`raft_tpu_torch.neighbors.brute_force` (``knn``); the boundary
+validator of every entry point (:mod:`raft_tpu_torch.integrity.boundary`,
+policy in :mod:`raft_tpu_torch.config`).
 """
 
 from raft_tpu_torch.core.error import LogicError, expects  # noqa: F401

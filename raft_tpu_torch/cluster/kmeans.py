@@ -48,6 +48,7 @@ from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
 from raft_tpu_torch.distance.pairwise import pairwise_distance
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, \
     SQRT_METRICS
+from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.ops.kmeans_update import kmeans_assign_update
 from raft_tpu_torch.utils import precision
 
@@ -245,9 +246,12 @@ def fit(res, params: KMeansParams, X, sample_weight=None, centroids=None
     ``params.init == InitMethod.Array``; ``n_init`` restarts keep the
     lowest inertia."""
     with precision.highest():
-        X = ensure_tensor(X, res, "X").float()
-        expects(X.ndim == 2 and X.shape[0] > 0,
-                "kmeans.fit: non-empty 2-D X required")
+        X = ensure_tensor(X, res, "X")
+        expects(X.ndim == 2, "kmeans.fit: 2-D X required")
+        X, _ = boundary.check_matrix(X, "X", site="kmeans.fit",
+                                     allow_empty=False)
+        X = X.float()
+        expects(X.shape[0] > 0, "kmeans.fit: non-empty 2-D X required")
         expects(params.n_clusters <= X.shape[0],
                 "kmeans.fit: n_clusters > n_samples")
         w = _weights(sample_weight, X)
@@ -281,6 +285,7 @@ def predict(res, params: KMeansParams, X, centroids, *, sample_weight=None,
     """Nearest-centroid labels (int32) and the weighted inertia (reference:
     kmeans.cuh:151)."""
     X = ensure_tensor(X, res, "X")
+    X, _ = boundary.check_matrix(X, "X", site="kmeans.predict")
     centroids = ensure_tensor(centroids, res, "centroids")
     labels, d = min_cluster_and_distance(X, centroids, metric=params.metric)
     return labels, (d * _weights(sample_weight, X)).sum()
@@ -299,8 +304,9 @@ def fit_predict(res, params: KMeansParams, X, sample_weight=None,
 def transform(res, params: KMeansParams, X, centroids) -> torch.Tensor:
     """Distance from every sample to every centroid (reference:
     kmeans.cuh:243)."""
-    return pairwise_distance(ensure_tensor(X, res, "X"),
-                             ensure_tensor(centroids, res, "centroids"),
+    X, _ = boundary.check_matrix(ensure_tensor(X, res, "X"), "X",
+                                 site="kmeans.transform")
+    return pairwise_distance(X, ensure_tensor(centroids, res, "centroids"),
                              params.metric)
 
 

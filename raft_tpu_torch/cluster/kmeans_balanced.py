@@ -26,7 +26,10 @@ Kernel A too.
 
 Random draws come from the handle's ``torch.Generator``, so a fit is
 reproducible from its seed but draws differently from the JAX package's
-threefry keys.  No boundary validator yet: inputs are checked for shape.
+threefry keys.  ``fit`` and ``predict`` pass their rows through the
+boundary validator (:mod:`raft_tpu_torch.integrity.boundary`) at the JAX
+package's sites; ``build_clusters`` is not ported yet (ROADMAP.md §1
+item 5).
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
 from raft_tpu_torch.distance.types import DistanceType
+from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.ops.kmeans_update import kmeans_assign_update
 from raft_tpu_torch.utils import precision
 
@@ -204,6 +208,8 @@ def fit(res, params: KMeansBalancedParams, X, n_clusters: int, *,
     (reference: cluster/kmeans_balanced.cuh:75)."""
     with precision.highest():
         X = ensure_tensor(X, res, "X")
+        X, _ = boundary.check_matrix(X, "X", site="kmeans_balanced.fit",
+                                     allow_empty=False)
         expects(X.ndim == 2 and X.shape[0] > 0,
                 "kmeans_balanced.fit: non-empty 2-D X required")
         n, dim = X.shape
@@ -235,6 +241,19 @@ def predict(res, params: KMeansBalancedParams, X, centroids
     kmeans_balanced.cuh:133)."""
     with precision.highest():
         X = ensure_tensor(X, res, "X")
+        X, _ = boundary.check_matrix(X, "X", site="kmeans_balanced.predict")
         centroids = ensure_tensor(centroids, res, "centroids")
         labels, _ = _assign(X, centroids, params.metric)
         return labels
+
+
+def fit_predict(res, params: KMeansBalancedParams, X, n_clusters: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(centroids, labels)``: :func:`fit` then :func:`predict`
+    (reference: kmeans_balanced.cuh:198)."""
+    centroids = fit(res, params, X, n_clusters)
+    return centroids, predict(res, params, X, centroids)
+
+
+def build_clusters(res, params: KMeansBalancedParams, X, n_clusters: int):
+    raise not_ported("kmeans_balanced", "build_clusters", "primitives")

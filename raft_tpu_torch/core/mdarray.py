@@ -1,8 +1,7 @@
 """Tensor ingestion (port of ``raft_tpu.core.mdarray.ensure_array``).
 
-The port has no boundary validator yet (``raft_tpu.integrity.boundary`` is
-a later slice): inputs are checked for rank and shape by the entry points,
-not for finiteness.
+Rank, shape and finiteness are checked by the entry points, through
+:mod:`raft_tpu_torch.integrity.boundary`.
 """
 
 from __future__ import annotations

@@ -36,6 +36,6 @@ extern "C" int raft_fused_l2_nn(const void* x, const void* y,
             static_cast<const float*>(x), static_cast<const float*>(y),
             static_cast<const float*>(x_sq), static_cast<const float*>(y_sq),
             m, n, k, take_sqrt, static_cast<int*>(idx),
-            static_cast<float*>(dmin));
+            static_cast<float*>(dmin), nullptr, nullptr);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,24 @@
 // is a second kernel: one warp per row, atomicAdd into sums/counts
 // (summation order varies from run to run; counts of unit weights stay
 // exact).  mma.sync / wgmma tiles are later work.
+//
+// raft_kmeans_pass_cut runs the same pass cut into the parts the k-means
+// profiles time (nn_tile.cuh's kCut), as Kernel A variants:
+//   mm / mmmin / mmargmin: replace profiles/kmeans_decomp_r5.py:67 run
+//     (body _make_kernel :31) at its cuts: the product alone, + the row
+//     min, + the labels (counts[:] = their sum, an exact integer rounded
+//     once to fp32 — the TPU kernel adds each tile's fp32 sum of labels
+//     and broadcasts it over the row);
+//   uw (= run's "full"): profiles/kmeans_kernel_r5.py:77 run_variant's
+//     _kernel_uw :36 — Kernel A with unit weights and no weight multiply:
+//     sums of bf16(x) and row counts;
+//   mxuonly: run_variant's _kernel_mxuonly :59 — the row min and counts[c]
+//     = the sum over rows of d[:, c].
+// The TPU variants pad x with zero rows to their tile, and those rows
+// enter uw's counts and mxuonly's column sums: a layout artifact of the
+// TPU.  Here only the n real rows count.  The TPU's tile sweep (512 to
+// 4,096 rows) is a VMEM knob with no counterpart: every cut runs at
+// nn_tile.cuh's 128 x 128 tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,7 +59,9 @@ __device__ __forceinline__ float bf16_at(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
-// one warp per row: weighted row into its cluster's sum
+// one warp per row: weighted row into its cluster's sum (kWeighted ==
+// false: the unit-weight pass, no weight read and no multiply)
+template <bool kWeighted = true>
 __global__ void __launch_bounds__(kThreads)
 update_kernel(const __nv_bfloat16* __restrict__ x,
               const float* __restrict__ w, const int* __restrict__ labels,
@@ -50,13 +70,35 @@ update_kernel(const __nv_bfloat16* __restrict__ x,
   const int row = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) / 32);
   const int lane = threadIdx.x & 31;
   if (row >= n) return;
-  const float wr = w[row];
-  if (wr == 0.f) return;
+  const float wr = kWeighted ? w[row] : 1.f;
+  if (kWeighted && wr == 0.f) return;
   const int lab = labels[row];
   if (lane == 0) atomicAdd(counts + lab, wr);
-  for (int j = lane; j < dim; j += 32)
-    atomicAdd(sums + (size_t)lab * dim + j,
-              wr * bf16_at(x, (size_t)row * dim + j));
+  for (int j = lane; j < dim; j += 32) {
+    const float v = bf16_at(x, (size_t)row * dim + j);
+    atomicAdd(sums + (size_t)lab * dim + j, kWeighted ? wr * v : v);
+  }
+}
+
+// counts[:] = the exact sum of the labels, rounded once
+__global__ void fill_label_sum(const unsigned long long* __restrict__ total,
+                               int k, float* __restrict__ counts) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < k) counts[c] = (float)*total;
+}
+
+template <int kCut>
+void nn_cut(const void* x, const void* c, const void* c_sq, int n, int k,
+            int dim, void* labels, void* dmin, void* aux, void* label_sum,
+            cudaStream_t s) {
+  raft_nn::nn_kernel<__nv_bfloat16, false, kCut>
+      <<<(n + raft_nn::BM - 1) / raft_nn::BM, kThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const __nv_bfloat16*>(c), nullptr,
+          static_cast<const float*>(c_sq), n, k, dim, 0,
+          static_cast<int*>(labels), static_cast<float*>(dmin),
+          static_cast<float*>(aux),
+          static_cast<unsigned long long*>(label_sum));
 }
 
 }  // namespace
@@ -75,14 +117,70 @@ extern "C" int raft_kmeans_assign_update(const void* x, const void* w,
             static_cast<const __nv_bfloat16*>(x),
             static_cast<const __nv_bfloat16*>(c), nullptr,
             static_cast<const float*>(c_sq), n, k, dim, 0,
-            static_cast<int*>(labels), static_cast<float*>(dmin));
+            static_cast<int*>(labels), static_cast<float*>(dmin), nullptr,
+            nullptr);
     const size_t warps_per_block = kThreads / 32;
-    update_kernel<<<(unsigned)((n + warps_per_block - 1) / warps_per_block),
-                    kThreads, 0, s>>>(
+    update_kernel<true>
+        <<<(unsigned)((n + warps_per_block - 1) / warps_per_block), kThreads,
+           0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
         static_cast<const int*>(labels), n, dim, static_cast<float*>(sums),
         static_cast<float*>(counts));
   }
+  return (int)cudaGetLastError();
+}
+
+// The cuts, by cut: 0 mm, 1 mmmin, 2 mmargmin, 3 uw, 4 mxuonly (see the
+// note above).  sums (k, dim) and counts (k,) are zeroed first; aux:
+// mm's checksums (ceil(n / 128) * 8 floats); label_sum: one zeroed 64-bit
+// scratch word for mmargmin.  labels (n,) is written by mmargmin and uw.
+extern "C" int raft_kmeans_pass_cut(const void* x, const void* c,
+                                    const void* c_sq, int n, int k, int dim,
+                                    int cut, void* labels, void* sums,
+                                    void* counts, void* dmin, void* aux,
+                                    void* label_sum, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cut < 0 || cut > 4 || k < 1 || (cut == 0 && aux == nullptr)
+      || (cut == 2 && label_sum == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaMemsetAsync(sums, 0, sizeof(float) * (size_t)k * dim, s);
+  cudaMemsetAsync(counts, 0, sizeof(float) * (size_t)k, s);
+  if (cut == 2) cudaMemsetAsync(label_sum, 0, sizeof(unsigned long long), s);
+  if (n > 0) {
+    switch (cut) {
+      case 0:
+        nn_cut<raft_nn::kCutMm>(x, c, c_sq, n, k, dim, labels, dmin, aux,
+                                label_sum, s);
+        break;
+      case 1:
+        nn_cut<raft_nn::kCutMmMin>(x, c, c_sq, n, k, dim, labels, dmin, aux,
+                                   label_sum, s);
+        break;
+      case 2:
+        nn_cut<raft_nn::kCutMmArgmin>(x, c, c_sq, n, k, dim, labels, dmin,
+                                      aux, label_sum, s);
+        break;
+      case 3: {
+        nn_cut<raft_nn::kCutAssign>(x, c, c_sq, n, k, dim, labels, dmin, aux,
+                                    label_sum, s);
+        const size_t warps_per_block = kThreads / 32;
+        update_kernel<false>
+            <<<(unsigned)((n + warps_per_block - 1) / warps_per_block),
+               kThreads, 0, s>>>(
+                static_cast<const __nv_bfloat16*>(x), nullptr,
+                static_cast<const int*>(labels), n, dim,
+                static_cast<float*>(sums), static_cast<float*>(counts));
+        break;
+      }
+      default:
+        nn_cut<raft_nn::kCutMxuOnly>(x, c, c_sq, n, k, dim, labels, dmin,
+                                     counts, label_sum, s);
+    }
+  }
+  if (cut == 2)
+    fill_label_sum<<<(k + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        static_cast<const unsigned long long*>(label_sum), k,
+        static_cast<float*>(counts));
   return (int)cudaGetLastError();
 }
 

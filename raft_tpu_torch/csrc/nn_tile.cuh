@@ -20,6 +20,22 @@
 //   kRowNorm == false (Kernel A):  d = y_sq[c] - 2 acc
 //   kRowNorm == true  (Kernel H):  d = max(x_sq[r] + y_sq[c] - 2 acc, 0),
 //                                  and sqrt(d) on the way out if asked.
+//
+// kCut cuts the pass into the parts the k-means profiles time
+// (profiles/kmeans_decomp_r5.py:67 run, profiles/kmeans_kernel_r5.py:77
+// run_variant), as Kernel A variants; kCutAssign, the default, is the
+// pass Kernels A and H run, unchanged:
+//   kCutMm:       the product alone; dmin[r] = d[r, 0], and every
+//                 accumulator is folded into a per-warp checksum written
+//                 to aux[block * kWarps + warp], or nvcc would drop the
+//                 products nothing reads and the cut would time less than
+//                 the product;
+//   kCutMmMin:    + the row min into dmin (no labels);
+//   kCutMmArgmin: + the labels, and their sum into *label_sum (an exact
+//                 integer, one atomic per warp);
+//   kCutMxuOnly:  the row min, and every column's sum of d over the
+//                 block's real rows added into aux[c] (one atomic per
+//                 column per block, after a shared-memory reduce).
 
 #pragma once
 
@@ -36,6 +52,13 @@ constexpr int BN = 128;   // rows of y per tile
 constexpr int BK = 32;    // dimensions per shared-memory stage
 constexpr int TM = 8;     // rows per thread (strided by 16)
 constexpr int TN = 8;     // columns per thread (strided by 16)
+constexpr int kWarps = kThreads / 32;
+
+constexpr int kCutAssign = 0;
+constexpr int kCutMm = 1;
+constexpr int kCutMmMin = 2;
+constexpr int kCutMmArgmin = 3;
+constexpr int kCutMxuOnly = 4;
 
 __device__ __forceinline__ float elem(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
@@ -44,12 +67,15 @@ __device__ __forceinline__ float elem(const float* p, size_t i) {
   return p[i];
 }
 
-template <typename T, bool kRowNorm>
+template <typename T, bool kRowNorm, int kCut = kCutAssign>
 __global__ void __launch_bounds__(kThreads)
 nn_kernel(const T* __restrict__ x, const T* __restrict__ y,
           const float* __restrict__ x_sq, const float* __restrict__ y_sq,
           int n, int k, int dim, int take_sqrt, int* __restrict__ labels,
-          float* __restrict__ dmin) {
+          float* __restrict__ dmin, float* __restrict__ aux,
+          unsigned long long* __restrict__ label_sum) {
+  // the cuts without labels keep no index
+  constexpr bool kArg = kCut == kCutAssign || kCut == kCutMmArgmin;
   // +1 pad: the staging stores (consecutive threads, consecutive kk)
   // and the compute loads (consecutive threads, consecutive rows or
   // columns) both fall on distinct banks
@@ -63,6 +89,7 @@ nn_kernel(const T* __restrict__ x, const T* __restrict__ y,
   float xs[TM];
   float best[TM];
   int best_idx[TM];
+  float chk = 0.f;     // kCutMm: checksum of every accumulator
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = row0 + ty + 16 * i;
@@ -107,25 +134,64 @@ nn_kernel(const T* __restrict__ x, const T* __restrict__ y,
       __syncthreads();
     }
 
+    if constexpr (kCut == kCutMm) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) chk += acc[i][j];
+      if (c0 == 0 && tx == 0) {            // column 0 is (tx 0, j 0)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) best[i] = y_sq[0] - 2.f * acc[i][0];
+      }
+      continue;
+    }
+
+    float colsum[TN];   // kCutMxuOnly: this thread's rows, per column
     // running min / first argmin: this thread's columns come in
     // increasing order, so a strict < keeps the first minimum
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int col = c0 + tx + 16 * j;
+      colsum[j] = 0.f;
       if (col < k) {
         const float cs = y_sq[col];
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const float d = kRowNorm ? fmaxf(xs[i] + cs - 2.f * acc[i][j], 0.f)
                                    : cs - 2.f * acc[i][j];
+          if constexpr (kCut == kCutMxuOnly) {
+            if (row0 + ty + 16 * i < n) colsum[j] += d;
+          }
           if (d < best[i]) {
             best[i] = d;
-            best_idx[i] = col;
+            if constexpr (kArg) best_idx[i] = col;
           }
         }
       }
     }
+    if constexpr (kCut == kCutMxuOnly) {
+      // the 16 threads of a column (one per ty) through shared memory:
+      // As is free until the next tile's staging, after the barrier below
+      float* red = &As[0][0];              // [16][BN] of As's BK*(BM+1)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) red[ty * BN + tx + 16 * j] = colsum[j];
+      __syncthreads();
+      if (tid < BN && c0 + tid < k) {
+        float sum = 0.f;
+        for (int t = 0; t < 16; ++t) sum += red[t * BN + tid];
+        atomicAdd(aux + c0 + tid, sum);
+      }
+      __syncthreads();
+    }
   }
+
+  if constexpr (kCut == kCutMm) {
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      chk += __shfl_xor_sync(0xffffffffu, chk, off);
+    if ((tid & 31) == 0) aux[blockIdx.x * kWarps + (tid >> 5)] = chk;
+  }
+  unsigned long long lsum = 0;   // kCutMmArgmin: this lane's labels
 
   // merge the 16 threads sharing each row (one half-warp): smaller value
   // wins, equal values go to the smaller index
@@ -133,20 +199,28 @@ nn_kernel(const T* __restrict__ x, const T* __restrict__ y,
   for (int i = 0; i < TM; ++i) {
     float v = best[i];
     int id = best_idx[i];
+    if constexpr (kCut != kCutMm) {        // kCutMm: d[r, 0] is in tx 0
 #pragma unroll
-    for (int off = 8; off >= 1; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, id, off);
-      if (ov < v || (ov == v && oi < id)) {
-        v = ov;
-        id = oi;
+      for (int off = 8; off >= 1; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, id, off);
+        if (ov < v || (ov == v && oi < id)) {
+          v = ov;
+          id = oi;
+        }
       }
     }
     const int r = row0 + ty + 16 * i;
     if (tx == 0 && r < n) {
-      labels[r] = id;
+      if constexpr (kArg) labels[r] = id;
+      if constexpr (kCut == kCutMmArgmin) lsum += (unsigned long long)id;
       dmin[r] = take_sqrt ? sqrtf(v) : v;
     }
+  }
+  if constexpr (kCut == kCutMmArgmin) {
+    // the row sums sit in lanes 0 and 16 (tx 0 of the warp's two rows)
+    lsum += __shfl_down_sync(0xffffffffu, lsum, 16);
+    if ((tid & 31) == 0) atomicAdd(label_sum, lsum);
   }
 }
 

@@ -33,6 +33,21 @@
 // ops/pair_scan.py's pair_scan_smem_bytes.  A list is read once per query
 // that probes it; IVF-Flat's super-tiles (F adjacent lists scanned as one
 // tile) arrive here as lists of F * cap rows.
+//
+// Profile variants (template switches kExtract / kGather; the two library
+// entry points above are <true, true>).  They replace the switches of
+// profiles/group_kernel_decomp_r5.py:50 run_var (body _kernel_var :28),
+// which splits the TPU's grouped scan into its query gather, its row scan
+// and its top-kt extraction:
+//   kExtract == false: no selection — every slot's distance goes to an
+//     (nq, n_probes, cap) block, the formula at EVERY slot (an empty slot
+//     is a zero row, so d = q_sq for L2), as _kernel_var writes its raw
+//     (G, cap) block; an out-of-range probe's row is +inf.
+//   kGather == false: the pair's query row comes from a pre-gathered
+//     (nq * n_probes, dim) tensor by pair index, not from queries[q].
+// The one-hot query gather of the TPU kernel has no counterpart: the
+// kernel is query-major, so kGather == true reads queries[pair / n_probes]
+// directly, as Kernels F and G do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,7 +95,8 @@ struct Bf16Rows {
 
 // centers == nullptr: Kernel F (stage the query as it is); else Kernel G
 // (stage bf16(query - center)).  ip: InnerProduct form of Kernel F.
-template <class Rows>
+// kExtract / kGather: the profile variants (see the note above).
+template <class Rows, bool kExtract, bool kGather>
 __global__ void __launch_bounds__(kThreads)
 pair_scan_kernel(const float* __restrict__ queries,
                  const float* __restrict__ centers,
@@ -107,15 +123,20 @@ pair_scan_kernel(const float* __restrict__ queries,
   const int lig = lane % lpr;              // lane within its row group
   const int grp = warp * rows_per_warp + lane / lpr;
   const int row_groups = kWarps * rows_per_warp;
-  const float* qv = queries + (size_t)q * dim;
 
   for (int p = 0; p < n_probes; ++p) {
     const size_t pair = (size_t)q * n_probes + p;
-    float* ov = out_v + pair * kt;
-    int* oi = out_i + pair * kt;
+    const float* qv = queries + (kGather ? (size_t)q : pair) * dim;
+    // extract: the pair's kt values and ids; raw: its cap values
+    float* ov = out_v + pair * (kExtract ? kt : cap);
+    int* oi = kExtract ? out_i + pair * kt : nullptr;
     const int l = probes[pair];
     if (l < 0 || l >= n_lists) {            // uniform across the block
-      write_empty_pair(kt, ov, oi);
+      if constexpr (kExtract) {
+        write_empty_pair(kt, ov, oi);
+      } else {
+        for (int r = tid; r < cap; r += kThreads) ov[r] = INFINITY;
+      }
       continue;
     }
     if (warp == 0) {
@@ -147,7 +168,8 @@ pair_scan_kernel(const float* __restrict__ queries,
     // every lane runs every iteration, so the shuffles stay convergent
     for (int r0 = 0; r0 < cap; r0 += row_groups) {
       const int r = r0 + grp;
-      const int id = r < cap ? ids[base + r] : -1;
+      // raw: every slot of the list enters, empty ones too
+      const int id = r < cap ? (kExtract ? ids[base + r] : 0) : -1;
       float part = 0.f;
       if (id >= 0) {
         const uint4* row = data + (base + r) * nch;
@@ -163,12 +185,16 @@ pair_scan_kernel(const float* __restrict__ queries,
         float d = INFINITY;
         if (id >= 0)
           d = ip ? -part : fmaxf(ssq + norms[base + r] - 2.f * part, 0.f);
-        s_dist[r] = d;
+        if constexpr (kExtract) s_dist[r] = d;
+        else ov[r] = d;
       }
     }
+    // also keeps the next probe's staging from overwriting s_vec while a
+    // warp still loads it
     __syncthreads();
-    select_pair_topk(s_dist, ids + base, cap, kt, ov, oi, s_red_v, s_red_s,
-                     &s_done);
+    if constexpr (kExtract)
+      select_pair_topk(s_dist, ids + base, cap, kt, ov, oi, s_red_v,
+                       s_red_s, &s_done);
   }
 }
 
@@ -180,7 +206,7 @@ inline int lanes_per_row(int nch) {
   return lpr;
 }
 
-template <class Rows>
+template <class Rows, bool kExtract = true, bool kGather = true>
 int launch(const void* queries, const void* centers, const void* probes,
            const void* data, const void* norms, const void* ids, int nq,
            int n_probes, int n_lists, int cap, int dim, int kt, int ip,
@@ -188,15 +214,15 @@ int launch(const void* queries, const void* centers, const void* probes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nch = dim / Rows::kPerChunk;
   const int lpr = lanes_per_row(nch);
-  if (kt < 1 || cap < 1 || dim % Rows::kPerChunk != 0
+  if ((kExtract && kt < 1) || cap < 1 || dim % Rows::kPerChunk != 0
       || nch > lpr * Rows::kMaxChunksPerLane || smem < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      pair_scan_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      pair_scan_kernel<Rows, kExtract, kGather>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (nq > 0 && n_probes > 0)
-    pair_scan_kernel<Rows><<<nq, kThreads, smem, s>>>(
+    pair_scan_kernel<Rows, kExtract, kGather><<<nq, kThreads, smem, s>>>(
         static_cast<const float*>(queries),
         static_cast<const float*>(centers), static_cast<const int*>(probes),
         static_cast<const uint4*>(data), static_cast<const float*>(norms),
@@ -233,4 +259,60 @@ extern "C" int raft_ivf_pq_scan_recon(const void* qrot, const void* centers,
   return launch<Bf16Rows>(qrot, centers, probes, recon, rsq, ids, nq,
                           n_probes, n_lists, cap, rot, kt, 0, smem, out_v,
                           out_i, stream);
+}
+
+namespace {
+
+template <class Rows>
+int launch_variant(int gather, int extract, const void* queries,
+                   const void* centers, const void* probes, const void* data,
+                   const void* norms, const void* ids, int nq, int n_probes,
+                   int n_lists, int cap, int dim, int kt, int smem,
+                   void* out_v, void* out_i, void* stream) {
+  constexpr int ip = 0;
+  if (gather && extract)
+    return launch<Rows, true, true>(queries, centers, probes, data, norms,
+                                    ids, nq, n_probes, n_lists, cap, dim,
+                                    kt, ip, smem, out_v, out_i, stream);
+  if (extract)
+    return launch<Rows, true, false>(queries, centers, probes, data, norms,
+                                     ids, nq, n_probes, n_lists, cap, dim,
+                                     kt, ip, smem, out_v, out_i, stream);
+  if (gather)
+    return launch<Rows, false, true>(queries, centers, probes, data, norms,
+                                     ids, nq, n_probes, n_lists, cap, dim,
+                                     kt, ip, smem, out_v, out_i, stream);
+  return launch<Rows, false, false>(queries, centers, probes, data, norms,
+                                    ids, nq, n_probes, n_lists, cap, dim,
+                                    kt, ip, smem, out_v, out_i, stream);
+}
+
+}  // namespace
+
+// The profile variants of Kernels F (bf16_rows == 0: fp32 rows, queries
+// as they are, centers null) and G (bf16_rows != 0: bf16 recon rows,
+// residuals to centers), L2 only.  gather == 0: queries is (nq *
+// n_probes, dim), one row per pair.  extract == 0: out_v is (nq,
+// n_probes, cap), out_i unused and ids may be null; else both are (nq,
+// n_probes, kt).
+extern "C" int raft_pair_scan_variant(int bf16_rows, int gather, int extract,
+                                      const void* queries,
+                                      const void* centers,
+                                      const void* probes, const void* data,
+                                      const void* norms, const void* ids,
+                                      int nq, int n_probes, int n_lists,
+                                      int cap, int dim, int kt, int smem,
+                                      void* out_v, void* out_i,
+                                      void* stream) {
+  if ((extract && ids == nullptr) || norms == nullptr
+      || (bf16_rows != 0) != (centers != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (bf16_rows)
+    return launch_variant<Bf16Rows>(gather, extract, queries, centers,
+                                    probes, data, norms, ids, nq, n_probes,
+                                    n_lists, cap, dim, kt, smem, out_v,
+                                    out_i, stream);
+  return launch_variant<Fp32Rows>(gather, extract, queries, nullptr, probes,
+                                  data, norms, ids, nq, n_probes, n_lists,
+                                  cap, dim, kt, smem, out_v, out_i, stream);
 }

@@ -2,7 +2,8 @@
 
 Reference: raft/matrix/select_k.cuh:78.  Over ``torch.topk(sorted=True)``;
 the JAX package's two-pass tiled path exists for the TPU's sort networks
-and is not carried over.
+and is not carried over.  :func:`merge_topk` is the streaming-selection
+step the JAX package shares between its tiled scans.
 """
 
 from __future__ import annotations
@@ -33,3 +34,20 @@ def select_k(in_val: torch.Tensor, k: int, *,
     if in_idx is not None:
         idx = torch.gather(in_idx, 1, idx)
     return vals, idx
+
+
+def merge_topk(best_val: torch.Tensor, best_idx: torch.Tensor,
+               new_val: torch.Tensor, new_idx: torch.Tensor, *,
+               select_min: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge a running (batch, k) top-k with (batch, kt) new candidates:
+    concatenate, select k again, gather the payloads (the role
+    detail/knn_merge_parts.cuh's kernel plays in the reference).  Ties
+    keep the lower position of ``[best | new]``, so a running entry wins
+    over an equal new one, as ``lax.top_k`` keeps it."""
+    k = best_val.shape[1]
+    cat_v = torch.cat([best_val, new_val], 1)
+    cat_i = torch.cat([best_idx, new_idx], 1)
+    key = cat_v if select_min else -cat_v
+    pos = torch.sort(key, dim=1, stable=True).indices[:, :k]
+    return torch.gather(cat_v, 1, pos), torch.gather(cat_i, 1, pos)

@@ -5,7 +5,11 @@ Reference: raft/neighbors/brute_force.cuh:150 ``knn``.  Tiled over the
 database: each (n_queries, tile_n) distance block is one fp32 product, its
 local top-k merges into the running top-k, so peak memory is
 O(n_queries · tile_n).  Plain PyTorch; the JAX version has no Pallas
-kernel.  Metrics of this slice: the L2 family and InnerProduct.
+kernel.  Metrics of this slice: the L2 family and InnerProduct.  The
+queries pass the boundary validator (:mod:`raft_tpu_torch.integrity.
+boundary`): under ``mask`` a non-finite query row returns the worst
+distance and id -1.  ``knn_merge_parts`` is not ported yet (ROADMAP.md
+§1 item 5).
 """
 
 from __future__ import annotations
@@ -14,9 +18,10 @@ from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, SQRT_METRICS
+from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.utils import precision
 
@@ -39,6 +44,9 @@ def knn(res, database, queries, k: int, *,
         expects(tile_n >= k, "knn: tile_n must be at least k")
         expects(metric in L2_METRICS or metric == DistanceType.InnerProduct,
                 "knn: L2 / InnerProduct metrics only in this port slice")
+        queries, ok_rows = boundary.check_matrix(
+            queries, "queries", site="brute_force.knn",
+            dim=database.shape[1])
         select_min = metric != DistanceType.InnerProduct
         qf = queries.float()
         q_sq = (qf * qf).sum(1, keepdim=True)
@@ -62,4 +70,18 @@ def knn(res, database, queries, k: int, *,
             best_d, best_i = td, ti
         if metric in SQRT_METRICS:
             best_d = torch.sqrt(best_d)
-        return best_d, (best_i + global_id_offset).int()
+        return boundary.mask_search_outputs(
+            best_d, (best_i + global_id_offset).int(), ok_rows,
+            select_min=select_min)
+
+
+def knn_merge_parts(in_keys, in_values, *, n_samples=None,
+                    translations=None, select_min: bool = True):
+    raise not_ported("brute_force", "knn_merge_parts", "primitives")
+
+
+def tiled_brute_force_knn(res, database, queries, k: int, **kw
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alias for :func:`knn` (reference: detail/knn_brute_force.cuh
+    ``tiled_brute_force_knn``; tiling is always on here)."""
+    return knn(res, database, queries, k, **kw)

@@ -53,6 +53,9 @@ deep-scale build from ``_DEEP_SCALE_ROWS`` rows (CAGRA deep regime), the
 direct exact walk (``walk_pdim=0``, or no walk-table format fits: CAGRA
 direct walk) and hops beyond Kernel I's gate — itopk or search_width x
 degree above 256 (CAGRA wide hops).
+
+The dataset and the queries pass the boundary validator
+(:mod:`raft_tpu_torch.integrity.boundary`) at the JAX package's sites.
 """
 
 from __future__ import annotations
@@ -70,9 +73,11 @@ from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.distance.types import DistanceType, SQRT_METRICS
+from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.matrix.ops import row_duplicate_mask
 from raft_tpu_torch.neighbors.ivf_flat import _stage
 from raft_tpu_torch.ops import cagra_hop as _hop
+from raft_tpu_torch.ops.vmem_budget import merge_window_request
 from raft_tpu_torch.utils import precision
 
 # the walk primitives, under the JAX package's names
@@ -793,20 +798,28 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
     (nq, k) f32, ids (nq, k) int32) on the handle's device.
 
     .. note:: like the JAX package's, the first search builds and attaches
-       the packed walk table and the entry set to ``index`` in place."""
+       the packed walk table and the entry set to ``index`` in place.
+
+    Queries pass the boundary validator: under policy ``mask`` a
+    non-finite query row returns the worst distance and id -1."""
+    queries = ensure_tensor(queries, res, "queries")
+    queries, ok_rows = boundary.check_matrix(
+        queries, "queries", site="cagra.search", dim=index.dim)
+    expects(queries.ndim == 2 and queries.shape[1] == index.dim,
+            "cagra.search: query dim mismatch")
     if filter is not None:
         raise _not_ported("filtered search (filter=)", "filters")
     with precision.highest():
-        queries = ensure_tensor(queries, res, "queries").float()
-        expects(queries.ndim == 2 and queries.shape[1] == index.dim,
-                "cagra.search: query dim mismatch")
-        return _search_checked(res, params, index, queries, k)
+        dist, ids = _search_checked(res, params, index, queries.float(), k)
+    return boundary.mask_search_outputs(
+        dist, ids, ok_rows,
+        select_min=index.metric != DistanceType.InnerProduct)
 
 
 def _search_checked(res, params: SearchParams, index: Index, queries,
                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     expects(0 < k <= index.size, "cagra.search: need 0 < k <= n")
-    _hop.merge_window_request(params.merge_window)
+    merge_window_request(params.merge_window)
     itopk = max(params.itopk_size, k)
     max_iter = params.max_iterations or (
         10 + itopk // max(params.search_width, 1))
@@ -1280,6 +1293,9 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
         raise _not_ported("canary_queries > 0", "canaries")
     with precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
+        dataset, _ = boundary.check_matrix(dataset, "dataset",
+                                           site="cagra.build",
+                                           allow_empty=False)
         knn = build_knn_graph(res, dataset, params.intermediate_graph_degree,
                               params=params)
         stages = build.stage_seconds

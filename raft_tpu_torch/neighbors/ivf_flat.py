@@ -37,8 +37,10 @@ Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
 item: ``delete`` / ``upsert`` / ``compact`` (mutation), ``serialize`` /
 ``deserialize`` / ``save`` / ``load`` (serialization), ``filter=``
 (filters) and ``canary_queries > 0`` (canaries).  Lists hold float32 rows
-whatever the dataset's dtype.  The port has no boundary validator yet:
-inputs are checked for shape, not for finiteness.
+whatever the dataset's dtype.  Inputs pass the boundary validator
+(:mod:`raft_tpu_torch.integrity.boundary`) at the JAX package's sites:
+under ``mask`` a build or extend keeps the zeroed rows and a search flags
+masked query rows as ``(+inf, -1)`` (``(-inf, -1)`` for InnerProduct).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.distance.types import DistanceType, SQRT_METRICS
+from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.matrix.ops import row_duplicate_mask
 from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.ops.pair_scan import ivf_flat_scan
@@ -273,7 +276,11 @@ def build(res, params: IndexParams, dataset) -> Index:
         raise _not_ported("canary_queries > 0", "canaries")
     with precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
-        expects(dataset.ndim == 2 and dataset.shape[0] > 0,
+        expects(dataset.ndim == 2, "ivf_flat.build: 2-D dataset required")
+        dataset, _ = boundary.check_matrix(dataset, "dataset",
+                                           site="ivf_flat.build",
+                                           allow_empty=False)
+        expects(dataset.shape[0] > 0,
                 "ivf_flat.build: non-empty 2-D dataset required")
         n, dim = dataset.shape
         expects(params.n_lists <= n, "ivf_flat.build: n_lists > n_rows")
@@ -339,6 +346,9 @@ def extend(res, index: Index, new_vectors, new_indices=None) -> Index:
         new_vectors = ensure_tensor(new_vectors, res, "new_vectors").float()
         expects(new_vectors.ndim == 2 and new_vectors.shape[1] == index.dim,
                 "ivf_flat.extend: dim mismatch")
+        new_vectors, _ = boundary.check_matrix(
+            new_vectors, "new_vectors", site="ivf_flat.extend",
+            dim=index.dim)
         n_new = new_vectors.shape[0]
         dev = res.device
         if new_indices is None:
@@ -445,13 +455,28 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
     id -1 and +inf (-inf for InnerProduct).
 
     .. note:: like the JAX package's, the first L2 search attaches the
-       ``list_data_sq`` row-norm cache to ``index`` in place."""
+       ``list_data_sq`` row-norm cache to ``index`` in place.
+
+    Queries pass the boundary validator: under policy ``mask`` a
+    non-finite query row returns the worst distance and id -1."""
+    queries = ensure_tensor(queries, res, "queries")
+    queries, ok_rows = boundary.check_matrix(
+        queries, "queries", site="ivf_flat.search", dim=index.dim)
+    expects(queries.ndim == 2 and queries.shape[1] == index.dim,
+            "ivf_flat.search: query dim mismatch")
+    dist, ids = _search_checked(res, params, index, queries.float(), k,
+                                filter=filter)
+    return boundary.mask_search_outputs(
+        dist, ids, ok_rows,
+        select_min=index.metric != DistanceType.InnerProduct)
+
+
+def _search_checked(res, params: SearchParams, index: Index, queries,
+                    k: int, *, filter=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     if filter is not None:
         raise _not_ported("filtered search (filter=)", "filters")
     with precision.highest():
-        queries = ensure_tensor(queries, res, "queries").float()
-        expects(queries.ndim == 2 and queries.shape[1] == index.dim,
-                "ivf_flat.search: query dim mismatch")
         expects(0 < k, "ivf_flat.search: k must be positive")
         n_probes = min(params.n_probes, index.n_lists)
         ip = index.metric == DistanceType.InnerProduct

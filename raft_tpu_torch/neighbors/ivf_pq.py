@@ -41,8 +41,14 @@ item: every search that resolves to the LUT scan (pq_bits outside {4, 8}
 without a recon cache, per-pair code scans at kt > 128), recon8 scans at
 kt > 128, InnerProduct search, ``filter=``, ``canary_queries > 0``,
 ``CodebookKind.PER_CLUSTER``, checkpoint / resume, ``serialize`` /
-``load``.  The port has no boundary validator yet: inputs are checked for
-shape, not for finiteness.
+``load``, ``delete`` / ``upsert`` / ``compact`` and
+``calibrate_group_capacity``.
+
+Inputs pass the boundary validator (:mod:`raft_tpu_torch.integrity.
+boundary`) at the JAX package's sites and with its site strings: under
+the default policy ``raise`` a non-finite row raises ``ValidationError``;
+under ``mask`` a build keeps the zeroed rows and a search flags masked
+query rows as ``(+inf, -1)``.
 
 Random draws (the trainset subsample, the k-means re-seeds) come from the
 handle's ``torch.Generator``, so a port-built index differs from a
@@ -65,6 +71,7 @@ from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS
+from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.neighbors import ivf_flat
 from raft_tpu_torch.neighbors.ivf_flat import (_LIST_ALIGN,
                                                _append_lists_multi,
@@ -76,7 +83,9 @@ from raft_tpu_torch.ops.pair_scan import ivf_pq_scan_recon
 from raft_tpu_torch.ops.pq_code_scan import code_field as _code_field
 from raft_tpu_torch.ops.pq_group_scan import (ivf_pq_scan_fused,
                                               scan_reject_reason)
+from raft_tpu_torch.ops.vmem_budget import merge_window_request
 from raft_tpu_torch.utils import precision
+
 
 def _not_ported(what: str, item: str):
     return not_ported("ivf_pq", what, item)
@@ -121,11 +130,15 @@ class SearchParams(ivf_flat.SearchParams):
     ``use_reconstruction`` (the old override: True -> "recon", False ->
     "lut") and ``per_probe_topk`` (each (query, probe) pair's kt; 0 -> k).
     ``coarse_recall_target`` and ``exact_coarse`` have no effect: the
-    coarse ranking is always exact here.  ``merge_window`` and
-    ``packed_extract`` size TPU-only mechanisms and are accepted and
-    ignored — the port's selection never truncates mantissa bits as the
-    TPU's packed extraction does; ``lut_dtype`` /
-    ``internal_distance_dtype`` belong to the LUT mode, not ported yet."""
+    coarse ranking is always exact here.  ``merge_window`` sizes the TPU's
+    VMEM merge window: it is validated as the JAX package validates it
+    (:func:`raft_tpu_torch.ops.vmem_budget.merge_window_request`: "auto"
+    or an int >= 0, else ``ValueError``) on every search that does not
+    resolve to the LUT scan, and selects nothing.  ``packed_extract``
+    sizes a TPU-only mechanism and is accepted and ignored — the port's
+    selection never truncates mantissa bits as the TPU's packed extraction
+    does; ``lut_dtype`` / ``internal_distance_dtype`` belong to the LUT
+    mode, not ported yet."""
 
     lut_dtype: object = torch.float32
     internal_distance_dtype: object = torch.float32
@@ -331,7 +344,11 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
         raise _not_ported("canary_queries > 0", "canaries")
     with precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
-        expects(dataset.ndim == 2 and dataset.shape[0] > 0,
+        expects(dataset.ndim == 2, "ivf_pq.build: 2-D dataset required")
+        dataset, _ = boundary.check_matrix(dataset, "dataset",
+                                           site="ivf_pq.build",
+                                           allow_empty=False)
+        expects(dataset.shape[0] > 0,
                 "ivf_pq.build: non-empty 2-D dataset required")
         n, dim = dataset.shape
         expects(params.n_lists <= n, "ivf_pq.build: n_lists > n_rows")
@@ -407,6 +424,8 @@ def extend(res, index: Index, new_vectors, new_indices=None) -> Index:
     one more, and the recon cache is rebuilt if the index had one."""
     with precision.highest():
         new_vectors = ensure_tensor(new_vectors, res, "new_vectors")
+        new_vectors, _ = boundary.check_matrix(
+            new_vectors, "new_vectors", site="ivf_pq.extend", dim=index.dim)
         expects(new_vectors.ndim == 2 and new_vectors.shape[1] == index.dim,
                 "ivf_pq.extend: dim mismatch")
         n_new = new_vectors.shape[0]
@@ -711,7 +730,24 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
     .. note:: like the JAX package's, the first search of an index may
        attach derived caches in place (``list_recon_sq``,
        ``list_code_rsq``, the int8 cache); ``extend`` returns an index
-       without them, so they never go stale."""
+       without them, so they never go stale.
+
+    Queries pass the boundary validator: under policy ``mask`` a
+    non-finite query row returns ``(+inf, -1)`` instead of poisoning the
+    batch."""
+    queries = ensure_tensor(queries, res, "queries")
+    queries, ok_rows = boundary.check_matrix(
+        queries, "queries", site="ivf_pq.search", dim=index.dim)
+    dist, ids = _search_checked(res, params, index, queries, k,
+                                filter=filter)
+    return boundary.mask_search_outputs(
+        dist, ids, ok_rows,
+        select_min=index.metric != DistanceType.InnerProduct)
+
+
+def _search_checked(res, params: SearchParams, index: Index, queries,
+                    k: int, *, filter=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     if filter is not None:
         raise _not_ported("filtered search (filter=)", "filters")
     mode, want_fused = _resolve_mode(params, index)
@@ -725,6 +761,7 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
             f"{params.scan_mode!r}, use_reconstruction="
             f"{params.use_reconstruction}, pq_bits {index.pq_bits})",
             "LUT scan")
+    merge_window_request(params.merge_window)
     if mode == "recon" and index.list_recon is None:
         # scan_mode="recon" / use_reconstruction=True without a cache
         warnings.warn(
@@ -735,7 +772,6 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
             "avoid this.")
         _with_recon(index)
     with precision.highest():
-        queries = ensure_tensor(queries, res, "queries")
         expects(queries.ndim == 2 and queries.shape[1] == index.dim,
                 "ivf_pq.search: query dim mismatch")
         expects(0 < k, "ivf_pq.search: k must be positive")
@@ -809,6 +845,27 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
               for n in _LEAVES}
     return Index(**leaves, metric=metric, codebook_kind=codebook_kind,
                  pq_bits=pq_bits)
+
+
+def delete(res, index: Index, ids) -> Index:
+    raise _not_ported("delete", "mutation")
+
+
+def upsert(res, index: Index, ids, vectors) -> Index:
+    raise _not_ported("upsert", "mutation")
+
+
+def compact(res, index: Index) -> Index:
+    raise _not_ported("compact", "mutation")
+
+
+def calibrate_group_capacity(res, index: Index, queries,
+                             n_probes: int) -> float:
+    """The JAX package sizes its grouped scans' static pair-group count
+    from a query batch; the port's query-major kernels have no groups, so
+    whether ``Index.group_est`` keeps a meaning is decided with the LUT
+    scan (ROADMAP.md §1 item 4)."""
+    raise _not_ported("calibrate_group_capacity", "LUT scan")
 
 
 def serialize(res, stream, index: Index) -> None:

@@ -4,7 +4,9 @@
 Reference: raft/neighbors/refine.cuh:105.  Gather each query's candidate
 rows, compute exact fp32 distances, keep the best k; negative candidate
 ids are empty slots.  Plain PyTorch, as the JAX version is plain XLA
-(``raft_tpu/neighbors/refine.py:32-57``).  No boundary validator yet.
+(``raft_tpu/neighbors/refine.py:32-57``).  The queries pass the boundary
+validator (:mod:`raft_tpu_torch.integrity.boundary`): under ``mask`` a
+non-finite query row returns the worst distance and id -1.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, SQRT_METRICS
+from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.utils import precision
 
@@ -37,6 +40,8 @@ def refine(res, dataset, queries, candidates, k: int, *,
                 "refine: k exceeds candidate count")
         expects(metric in L2_METRICS or metric == DistanceType.InnerProduct,
                 "refine: L2 / InnerProduct metrics only (as the reference)")
+        queries, ok_rows = boundary.check_matrix(
+            queries, "queries", site="refine", dim=dataset.shape[1])
         valid = candidates >= 0
         cand = dataset[torch.where(valid, candidates, 0).long()].float()
         qf = queries.float()
@@ -51,4 +56,6 @@ def refine(res, dataset, queries, candidates, k: int, *,
                 d = torch.sqrt(d)
             d = torch.where(valid, d, torch.full_like(d, float("inf")))
             vals, pos = select_k(d, k, select_min=True)
-        return vals, torch.gather(candidates, 1, pos).int()
+        return boundary.mask_search_outputs(
+            vals, torch.gather(candidates, 1, pos).int(), ok_rows,
+            select_min=metric != DistanceType.InnerProduct)

@@ -38,6 +38,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "raft_kmeans_assign_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                                   _P, _P),
+    "raft_kmeans_pass_cut": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                             _P, _P),
     "raft_ivf_pq_scan_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P, _P, _P),
     "raft_ivf_pq_scan_codes_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -51,6 +53,9 @@ SIGNATURES = {
                            _I, _P, _P, _P),
     "raft_ivf_pq_scan_recon": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P, _P, _P),
+    "raft_pair_scan_variant": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _P, _P, _P),
+    "raft_row_gather": (_P, _P, _I, _I, _I, _P, _P),
     "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "raft_cagra_hop": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P, _P, _P),

@@ -47,23 +47,6 @@ WD_MAX = 256                     # candidates per hop (search_width * degree)
 PDIM_MAX = 4096                  # projected width (the build merge: dim)
 _SMEM_LIMIT = 48 * 1024          # static-launch shared memory, no opt-in
 
-# "auto" (0) or an int >= 0, as the JAX package's merge_window knob
-MERGE_WINDOW_AUTO = 0
-
-
-def merge_window_request(value) -> int:
-    """Normalise ``SearchParams.merge_window`` ("auto" | int) to the
-    integer the JAX package's selector takes: 0 = auto, n >= 1 = upper
-    bound (``raft_tpu/ops/vmem_budget.py:44``).  Kernel I has one merge,
-    so the value is validated and selects nothing."""
-    if value is None or value == "auto":
-        return MERGE_WINDOW_AUTO
-    w = int(value)
-    if w < 0:
-        raise ValueError(
-            f"merge_window must be 'auto' or an int >= 0, got {value!r}")
-    return w
-
 
 def hop_pow2(n: int) -> int:
     p = 1

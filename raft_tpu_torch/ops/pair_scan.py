@@ -12,6 +12,11 @@ Both are ``csrc/pair_scan.cu``; its source note says what bounds them on an
 H100 (bytes) and what the query-major design does about it.  No TPU layout
 comes over: no pair groups, no one-hot query gathers, no f32 id lanes.
 
+- :func:`pair_scan_variant`: the profile variants of F and G (the
+  switches of ``profiles/group_kernel_decomp_r5.py:50 run_var``): the raw
+  per-slot distance block with no selection, and queries pre-gathered per
+  pair; ``raft_tpu_torch.profiles.group_kernel_decomp_r5`` times them.
+
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version for CPU tensors — nothing else picks between them, and a failed
 build or launch raises.  ``<wrapper>.launches`` counts kernel launches;
@@ -33,9 +38,9 @@ import torch
 
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.ops import _cuda
-from raft_tpu_torch.ops.pq_group_scan import (_SMEM_LIMIT, _check, cat_parts,
-                                              pair_topk, plain_chunks,
-                                              probe_distances)
+from raft_tpu_torch.ops.pq_group_scan import (_PLAIN_CHUNK, _SMEM_LIMIT,
+                                              _check, cat_parts, pair_topk,
+                                              plain_chunks, probe_distances)
 
 _MAX_WIDTH = 1024                # 32 lanes * the chunks a lane holds
 
@@ -230,3 +235,140 @@ def ivf_pq_scan_recon(qrot, centers, probes, list_recon, list_recon_sq,
 
 
 ivf_pq_scan_recon.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the profile variants of F and G: raw distances, pre-gathered queries
+# ---------------------------------------------------------------------------
+
+def _check_variant(queries, probes, list_data, list_data_sq, list_indices,
+                   gather: bool, extract: bool, centers):
+    expects(probes.ndim == 2 and list_data.ndim == 3
+            and queries.ndim == 2,
+            "pair_scan_variant: queries 2-D, probes (nq, n_probes), "
+            "list_data (L, cap, width) required")
+    nq, n_probes = probes.shape
+    n_lists, cap, width = list_data.shape
+    expects(queries.shape == ((nq, width) if gather
+                              else (nq * n_probes, width)),
+            "pair_scan_variant: queries must be (nq, width), or (nq * "
+            "n_probes, width) pre-gathered per pair")
+    expects(list_data_sq.shape == (n_lists, cap)
+            and (not extract or list_indices.shape == (n_lists, cap))
+            and (centers is None or centers.shape == (n_lists, width)),
+            "pair_scan_variant: shape mismatch")
+    expects(centers is not None or list_data.dtype == torch.float32,
+            "pair_scan_variant: fp32 rows without centers (Kernel F), "
+            "bf16 rows with centers (Kernel G)")
+    expects(centers is None or list_data.dtype == torch.bfloat16,
+            "pair_scan_variant: the recon rows (with centers) must be "
+            "bfloat16")
+    return nq, n_probes, n_lists, cap, width
+
+
+def pair_scan_variant_plain(queries, probes, list_data, list_data_sq,
+                            list_indices, kt: int, *, gather: bool = True,
+                            extract: bool = True, centers=None):
+    """Plain PyTorch version of :func:`pair_scan_variant`, the same
+    arithmetic as Kernels F (``centers`` None: ``max(‖q‖² + ‖x‖² − 2q·x,
+    0)`` over fp32 rows) and G (``sub = q − center``, ``max(‖sub‖² + rsq −
+    2·bf16(sub)·x, 0)`` over bf16 rows) except the order of the fp32 sums.
+    Raw (``extract`` False): the formula at every slot, +inf for a probe
+    outside ``[0, n_lists)``; extract: each pair's top kt as F's plain
+    version keeps it."""
+    nq, n_probes, n_lists, cap, width = _check_variant(
+        queries, probes, list_data, list_data_sq, list_indices, gather,
+        extract, centers)
+    kt = min(kt, cap)
+    qf = queries.float()
+    if not gather:
+        qf = qf.reshape(nq, n_probes, width)
+    parts = []
+    for s in range(0, nq, _PLAIN_CHUNK):
+        p = probes[s:s + _PLAIN_CHUNK].long()
+        ok = (p >= 0) & (p < n_lists)
+        pr = torch.where(ok, p, torch.zeros_like(p))
+        q = qf[s:s + _PLAIN_CHUNK]
+        q = q[:, None, :].expand(-1, n_probes, -1) if gather else q
+        if centers is not None:
+            q = q - centers[pr].float()
+        q_sq = (q * q).sum(-1)
+        if centers is not None:
+            q = q.to(torch.bfloat16).float()
+        dot = torch.matmul(list_data[pr].float(), q[..., None])[..., 0]
+        d = torch.clamp_min(q_sq[..., None] + list_data_sq[pr] - 2.0 * dot,
+                            0.0)
+        d = torch.where(ok[..., None], d, torch.full_like(d, float("inf")))
+        if extract:
+            cid = list_indices[pr]
+            d = torch.where(cid >= 0, d, torch.full_like(d, float("inf")))
+            parts.append(pair_topk(d, cid, kt))
+        else:
+            parts.append(d)
+    if extract:
+        return cat_parts(parts, (n_probes, kt), queries.device)
+    return (torch.cat(parts) if parts else
+            torch.empty(0, n_probes, cap, device=queries.device))
+
+
+def pair_scan_variant(queries, probes, list_data, list_data_sq,
+                      list_indices, kt: int, *, gather: bool = True,
+                      extract: bool = True, centers=None):
+    """One (query, probe) pair scan with the profile's switches: Kernel
+    F's arithmetic over fp32 rows (``centers`` None) or Kernel G's over
+    bf16 recon rows (``centers`` the lists' centers, queries rotated).
+
+    ``gather`` False: ``queries`` is (nq·n_probes, width), the pair's own
+    query row by pair index.  ``extract`` True: ``(vals, ids)``, each (nq,
+    n_probes, kt), as Kernels F and G return them; False: the raw (nq,
+    n_probes, cap) distances at every slot, empty slots included (a zero
+    row: ``‖q‖²``), +inf for a probe outside ``[0, n_lists)``.  L2 only.
+    CUDA tensors launch the kernel variant (``pair_scan_variant.launches``
+    counts them); CPU tensors run the plain version."""
+    if not queries.is_cuda:
+        return pair_scan_variant_plain(
+            queries, probes, list_data, list_data_sq, list_indices, kt,
+            gather=gather, extract=extract, centers=centers)
+    nq, n_probes, n_lists, cap, width = _check_variant(
+        queries, probes, list_data, list_data_sq, list_indices, gather,
+        extract, centers)
+    kt = min(kt, cap)
+    bf16 = centers is not None
+    reason = pair_scan_reject_reason(cap, width, kt, 8 if bf16 else 4)
+    expects(not reason, f"pair_scan_variant: {reason}")
+    expects(queries.dtype == list_data_sq.dtype == torch.float32
+            and (not extract or list_indices.dtype == torch.int32)
+            and (not bf16 or centers.dtype == torch.float32),
+            "pair_scan_variant: queries / norms / centers float32 and "
+            "list_indices int32 required")
+    tensors = [queries, probes, list_data, list_data_sq]
+    tensors += [list_indices] if extract else []
+    tensors += [centers] if bf16 else []
+    expects(len({t.device for t in tensors}) == 1,
+            "pair_scan_variant: tensors on different devices")
+    queries = queries.contiguous()
+    probes = probes.to(torch.int32).contiguous()
+    data = _aligned(list_data, "pair_scan_variant: list_data")
+    norms = list_data_sq.contiguous()
+    ids = list_indices.contiguous() if extract else None
+    cen = centers.contiguous() if bf16 else None
+    if extract:
+        vals, out_ids = _outputs(nq, n_probes, kt, queries.device)
+    else:
+        vals = torch.empty(nq, n_probes, cap, dtype=torch.float32,
+                           device=queries.device)
+        out_ids = None
+    status = _cuda.library().raft_pair_scan_variant(
+        int(bf16), int(gather), int(extract), queries.data_ptr(),
+        None if cen is None else cen.data_ptr(), probes.data_ptr(),
+        data.data_ptr(), norms.data_ptr(),
+        None if ids is None else ids.data_ptr(), nq, n_probes, n_lists, cap,
+        width, kt, pair_scan_smem_bytes(cap, width), vals.data_ptr(),
+        None if out_ids is None else out_ids.data_ptr(),
+        torch.cuda.current_stream(queries.device).cuda_stream)
+    _cuda.check(status, "pair_scan_variant")
+    pair_scan_variant.launches += 1
+    return (vals, out_ids) if extract else vals
+
+
+pair_scan_variant.launches = 0

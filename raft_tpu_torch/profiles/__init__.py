@@ -1,0 +1,48 @@
+"""Kernel-decomposition profiles of the port, one module for each of the
+JAX package's round-5 profile scripts that runs a Pallas kernel:
+
+- :mod:`.group_kernel_decomp_r5` (``profiles/group_kernel_decomp_r5.py``):
+  Kernel F's scan split from its query gather and its top-kt selection;
+- :mod:`.gather_bench` (``profiles/gather_bench.py``): Kernel J, the
+  random row gather, against ``torch.index_select``;
+- :mod:`.kmeans_decomp_r5` (``profiles/kmeans_decomp_r5.py``): Kernel A's
+  pass cut into product, row min, argmin and epilogue;
+- :mod:`.kmeans_kernel_r5` (``profiles/kmeans_kernel_r5.py``): Kernel A,
+  its unit-weight pass and its product-plus-min cut.
+
+Each runs on the card as ``python3 -m raft_tpu_torch.profiles.<name>``
+and prints one JSON line per measurement.  Each also has a function with
+explicit sizes and a device; on the CPU it runs the plain versions and
+reports no time (``"ms": null``): a CPU run measures no device time.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+
+def device_ms(fn: Callable[[], object], reps: int,
+              device) -> Optional[float]:
+    """Mean ms per call of ``fn`` over ``reps`` calls after one warm-up,
+    from CUDA events on ``device``; None for a CPU device, after one
+    call."""
+    fn()
+    if torch.device(device).type != "cuda":
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def require_cuda() -> torch.device:
+    """The card, or an error: a profile measures device time only."""
+    if not torch.cuda.is_available():
+        raise SystemExit("this profile needs a CUDA device")
+    return torch.device("cuda", 0)

@@ -24,6 +24,7 @@ from raft_tpu_torch import DeviceResources
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import cagra
 from raft_tpu_torch.ops import cagra_hop as chop
+from raft_tpu_torch.ops.vmem_budget import merge_window_request
 
 
 @pytest.fixture(autouse=True)
@@ -258,10 +259,10 @@ def test_hop_gate_and_merge_window():
         "search_width*degree=512")
     assert chop.hop_reject_reason(64, 64, 64, 5000).startswith("pdim=5000")
     assert chop.hop_smem_bytes(64, 64, 16) == 4 * (16 + 128 + 3 * 128)
-    assert chop.merge_window_request("auto") == 0
-    assert chop.merge_window_request(2) == 2
+    assert merge_window_request("auto") == 0
+    assert merge_window_request(2) == 2
     with pytest.raises(ValueError, match="merge_window"):
-        chop.merge_window_request(-1)
+        merge_window_request(-1)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from raft_tpu_torch.ops import kmeans_update as ku
 from raft_tpu_torch.ops import pair_scan as ps
 from raft_tpu_torch.ops import pq_code_scan as pcs
 from raft_tpu_torch.ops import pq_group_scan as pgs
+from raft_tpu_torch.ops import row_gather as rg
 
 pytestmark = pytest.mark.cuda
 
@@ -435,3 +436,115 @@ def test_cagra_hop_rejects_what_it_cannot_hold(dev):
     args = _hop_inputs(dev, 2, 300, 16, 16, 0)
     with pytest.raises(LogicError, match="itopk=300"):
         chop.cagra_hop(*args, ip_metric=False)
+
+
+# ---------------------------------------------------------------------------
+# the profile variants: F / G raw and pre-gathered, Kernel J, Kernel A cuts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bf16,cap,width,kt", [
+    (False, 160, 128, 10), (False, 416, 128, 10), (False, 40, 12, 3),
+    (True, 96, 128, 20), (True, 300, 96, 4)])
+@pytest.mark.parametrize("gather,extract", [(True, False), (False, True),
+                                            (False, False)])
+def test_pair_scan_variant_kernel_matches_plain(dev, bf16, cap, width, kt,
+                                                gather, extract):
+    """Raw blocks: the formula at every slot, padded ones too, +inf on the
+    skipped probe, within 1e-5 of ‖q‖² + max ‖x‖² (F) or 1e-4 (G);
+    selections as Kernels F and G hold them.  A pre-gathered query row
+    gives the gathering kernel's result bit for bit."""
+    n_lists, nq, n_probes = 64, 40, 12
+    if bf16:
+        centers, data, dsq, ids = _random_index(dev, n_lists, cap, width,
+                                                cap + kt)
+    else:
+        centers = None
+        data, dsq, ids = _flat_lists(dev, n_lists, cap, width, cap + width)
+    q, probes = _queries(dev, nq, width, n_lists, n_probes)
+    q_in = q.repeat_interleave(n_probes, 0) if not gather else q
+    before = ps.pair_scan_variant.launches
+    out = ps.pair_scan_variant(q_in, probes, data, dsq, ids, kt,
+                               gather=gather, extract=extract,
+                               centers=centers)
+    torch.cuda.synchronize()
+    assert ps.pair_scan_variant.launches == before + 1
+    ref = ps.pair_scan_variant_plain(q_in, probes, data, dsq, ids, kt,
+                                     gather=gather, extract=extract,
+                                     centers=centers)
+    same = ps.pair_scan_variant(q, probes, data, dsq, ids, kt, gather=True,
+                                extract=extract, centers=centers)
+    if extract:
+        assert torch.equal(out[0], same[0]) and torch.equal(out[1], same[1])
+        _assert_kernel_matches_plain(*out, *ref)
+        return
+    assert torch.equal(out, same)
+    assert out.shape == (nq, n_probes, cap)
+    assert bool(torch.isinf(out[0, -1]).all())
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(out))
+    scale = float((q * q).sum(1).max() + dsq.max())
+    atol = 1e-4 * max(scale, 1.0) if bf16 else 1e-5 * scale
+    torch.testing.assert_close(out[fin], ref[fin], rtol=0, atol=atol)
+
+
+def test_pair_scan_variant_gather_extract_is_kernel_f(dev):
+    """The (gather, extract) variant is Kernel F's instantiation: the
+    same values and ids bit for bit."""
+    data, dsq, ids = _flat_lists(dev, 64, 160, 128, 3)
+    q, probes = _queries(dev, 40, 128, 64, 12)
+    vk, ik = ps.ivf_flat_scan(q, probes, data, dsq, ids, 10)
+    vv, iv = ps.pair_scan_variant(q, probes, data, dsq, ids, 10)
+    assert torch.equal(vk, vv) and torch.equal(ik, iv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,m,rows", [(128, 320, 512), (128, 5000, 1024),
+                                          (8, 777, 1), (1024, 300, 64),
+                                          (16, 4096, 2048)])
+def test_row_gather_kernel_matches_plain(dev, dtype, width, m, rows):
+    """Kernel J copies rows: bit-equal to index_select at any row width
+    that is a multiple of 16 bytes and any block height."""
+    rng = np.random.default_rng(width + m)
+    table = torch.from_numpy(rng.normal(size=(2000, width)).astype(
+        np.float32)).to(dev).to(dtype)
+    ids = torch.from_numpy(rng.integers(0, 2000, m).astype(np.int32)).to(dev)
+    before = rg.row_gather.launches
+    out = rg.row_gather(table, ids, rows)
+    torch.cuda.synchronize()
+    assert rg.row_gather.launches == before + 1
+    assert torch.equal(out, rg.row_gather_plain(table, ids, rows))
+
+
+def test_row_gather_rejects_what_it_cannot_hold(dev):
+    ids = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(LogicError, match="multiple of"):
+        rg.row_gather(torch.zeros(8, 3, device=dev), ids)
+    with pytest.raises(LogicError, match="int32"):
+        rg.row_gather(torch.zeros(8, 4, device=dev), ids.long())
+
+
+@pytest.mark.parametrize("cut", ku.PASS_CUTS)
+@pytest.mark.parametrize("n,dim,k", [(1000, 50, 37), (4096, 128, 300),
+                                     (333, 32, 1), (20000, 96, 1024)])
+def test_kmeans_pass_cut_kernel_matches_plain(dev, cut, n, dim, k):
+    """Each cut: dmin and the labels bit for bit (the same products in the
+    same order), label sums and row counts exact, sums and column sums to
+    the order of their fp32 additions."""
+    rng = np.random.default_rng(n + dim + k)
+    x = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.normal(size=(k, dim)).astype(np.float32)).to(dev)
+    before = ku.kmeans_pass_cut.launches
+    sums, counts, dmin, labels = ku.kmeans_pass_cut(x, c, cut)
+    torch.cuda.synchronize()
+    assert ku.kmeans_pass_cut.launches == before + 1
+    p_sums, p_counts, p_dmin, p_labels = ku.kmeans_pass_cut_plain(x, c, cut)
+    assert torch.equal(dmin, p_dmin)
+    assert (labels is None) == (p_labels is None)
+    if labels is not None:
+        assert torch.equal(labels, p_labels)
+    if cut == "mxuonly":
+        torch.testing.assert_close(counts, p_counts, rtol=1e-4,
+                                   atol=1e-4 * float(p_counts.abs().max()))
+    else:
+        assert torch.equal(counts, p_counts)
+    torch.testing.assert_close(sums, p_sums, rtol=1e-5, atol=1e-4)
