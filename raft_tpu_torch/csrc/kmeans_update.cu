@@ -11,23 +11,25 @@
 //   counts[c]= sum over rows labelled c of w[i]; rows with w == 0 add
 //              nothing.
 //
-// What bounds it on an H100: operations — 2*n*k*dim per pass (0.52
-// TFLOP at 500,000 x 4096 x 128) against ~0.13 GB of bytes.  This first
-// design is a SIMT register-tiled product in plain fp32 FMAs on the
-// bf16-rounded values (no tensor cores): a 128x128 (rows x centroids)
-// tile per block, 8x8 accumulators per thread, centroid tiles streamed
-// through shared memory, a running min/argmin per row in registers, so
-// the (n, k) distance matrix never leaves the SM.  Each accumulator sums
-// its products in dimension order 0..dim-1; a product of two bf16 values
-// is exact in fp32, so the plain PyTorch version, which accumulates in
-// the same order, reproduces dmin and the labels bit for bit.  The
-// assignment is nn_tile.cuh's nn_kernel, shared with Kernel H.  The update
-// is a second kernel: one warp per row, atomicAdd into sums/counts
-// (summation order varies from run to run; counts of unit weights stay
-// exact).  mma.sync / wgmma tiles are later work.
+// What bounds it on an H100: operations — 2*n*k*dim bf16 products per
+// pass (0.52 TFLOP at 500,000 x 4096 x 128) against ~0.13 GB of bytes.
+// The assignment is nn_tile_mma.cuh's tensor-core tile (wgmma m64n128k16,
+// bf16 -> fp32): the rows stay in shared memory, centroid tiles stream
+// through two cp.async stages, and each tile's epilogue folds the
+// accumulators into a running (min, first index) per row where they lie,
+// so the (n, k) distance matrix never leaves the SM.  The bf16 products
+// are exact in fp32 but the tensor core adds them in its own order, so
+// dmin is the plain version's to within rounding (~dim 2^-24 (|x|^2 +
+// |c|^2)) and a label may differ at a near-tie; ops/kmeans_update.py's
+// check_assignment states the tolerance.  The update is a second kernel:
+// one warp per row, atomicAdd into sums/counts (summation order varies
+// from run to run; counts of unit weights stay exact): a tenth of the
+// pass at 500,000 x 4,096, a quarter at 1M x 1,024, and most of it at
+// the mesocluster passes' k = 91 - 128, where the atomics pile onto few
+// clusters.
 //
 // raft_kmeans_pass_cut runs the same pass cut into the parts the k-means
-// profiles time (nn_tile.cuh's kCut), as Kernel A variants:
+// profiles time (nn_tile_mma.cuh's kCut), as Kernel A variants:
 //   mm / mmmin / mmargmin: replace profiles/kmeans_decomp_r5.py:67 run
 //     (body _make_kernel :31) at its cuts: the product alone, + the row
 //     min, + the labels (counts[:] = their sum, an exact integer rounded
@@ -41,19 +43,19 @@
 // The TPU variants pad x with zero rows to their tile, and those rows
 // enter uw's counts and mxuonly's column sums: a layout artifact of the
 // TPU.  Here only the n real rows count.  The TPU's tile sweep (512 to
-// 4,096 rows) is a VMEM knob with no counterpart: every cut runs at
-// nn_tile.cuh's 128 x 128 tile.
+// 4,096 rows) is a VMEM knob with no counterpart: every cut runs on
+// nn_tile_mma.cuh's tile, as Kernel A does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "nn_tile.cuh"
+#include "nn_tile_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = raft_nn::kThreads;
+constexpr int kThreads = 256;   // update_kernel: 8 rows a block
 
 __device__ __forceinline__ float bf16_at(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
@@ -87,18 +89,17 @@ __global__ void fill_label_sum(const unsigned long long* __restrict__ total,
   if (c < k) counts[c] = (float)*total;
 }
 
-template <int kCut>
-void nn_cut(const void* x, const void* c, const void* c_sq, int n, int k,
-            int dim, void* labels, void* dmin, void* aux, void* label_sum,
-            cudaStream_t s) {
-  raft_nn::nn_kernel<__nv_bfloat16, false, kCut>
-      <<<(n + raft_nn::BM - 1) / raft_nn::BM, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const __nv_bfloat16*>(c), nullptr,
-          static_cast<const float*>(c_sq), n, k, dim, 0,
-          static_cast<int*>(labels), static_cast<float*>(dmin),
-          static_cast<float*>(aux),
-          static_cast<unsigned long long*>(label_sum));
+// the unit-weight or weighted update of every row, one warp a row
+template <bool kWeighted>
+void update(const void* x, const void* w, const void* labels, int n,
+            int dim, void* sums, void* counts, cudaStream_t s) {
+  const size_t rows_per_block = kThreads / 32;
+  update_kernel<kWeighted>
+      <<<(unsigned)((n + rows_per_block - 1) / rows_per_block), kThreads, 0,
+         s>>>(static_cast<const __nv_bfloat16*>(x),
+              static_cast<const float*>(w), static_cast<const int*>(labels),
+              n, dim, static_cast<float*>(sums),
+              static_cast<float*>(counts));
 }
 
 }  // namespace
@@ -109,36 +110,28 @@ extern "C" int raft_kmeans_assign_update(const void* x, const void* w,
                                          void* sums, void* counts, void* dmin,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1) return (int)cudaErrorInvalidValue;
   cudaMemsetAsync(sums, 0, sizeof(float) * (size_t)k * dim, s);
   cudaMemsetAsync(counts, 0, sizeof(float) * (size_t)k, s);
   if (n > 0) {
-    raft_nn::nn_kernel<__nv_bfloat16, false>
-        <<<(n + raft_nn::BM - 1) / raft_nn::BM, kThreads, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const __nv_bfloat16*>(c), nullptr,
-            static_cast<const float*>(c_sq), n, k, dim, 0,
-            static_cast<int*>(labels), static_cast<float*>(dmin), nullptr,
-            nullptr);
-    const size_t warps_per_block = kThreads / 32;
-    update_kernel<true>
-        <<<(unsigned)((n + warps_per_block - 1) / warps_per_block), kThreads,
-           0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-        static_cast<const int*>(labels), n, dim, static_cast<float*>(sums),
-        static_cast<float*>(counts));
+    const cudaError_t e = raft_mma::launch_assign<raft_mma::kCutAssign>(
+        x, c, c_sq, n, k, dim, labels, dmin, nullptr, nullptr, s);
+    if (e != cudaSuccess) return (int)e;
+    update<true>(x, w, labels, n, dim, sums, counts, s);
   }
   return (int)cudaGetLastError();
 }
 
 // The cuts, by cut: 0 mm, 1 mmmin, 2 mmargmin, 3 uw, 4 mxuonly (see the
 // note above).  sums (k, dim) and counts (k,) are zeroed first; aux:
-// mm's checksums (ceil(n / 128) * 8 floats); label_sum: one zeroed 64-bit
+// mm's checksums (ceil(n / 256) * 16 floats); label_sum: one zeroed 64-bit
 // scratch word for mmargmin.  labels (n,) is written by mmargmin and uw.
 extern "C" int raft_kmeans_pass_cut(const void* x, const void* c,
                                     const void* c_sq, int n, int k, int dim,
                                     int cut, void* labels, void* sums,
                                     void* counts, void* dmin, void* aux,
                                     void* label_sum, void* stream) {
+  using namespace raft_mma;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cut < 0 || cut > 4 || k < 1 || (cut == 0 && aux == nullptr)
       || (cut == 2 && label_sum == nullptr))
@@ -146,37 +139,33 @@ extern "C" int raft_kmeans_pass_cut(const void* x, const void* c,
   cudaMemsetAsync(sums, 0, sizeof(float) * (size_t)k * dim, s);
   cudaMemsetAsync(counts, 0, sizeof(float) * (size_t)k, s);
   if (cut == 2) cudaMemsetAsync(label_sum, 0, sizeof(unsigned long long), s);
+  cudaError_t e = cudaSuccess;
   if (n > 0) {
     switch (cut) {
       case 0:
-        nn_cut<raft_nn::kCutMm>(x, c, c_sq, n, k, dim, labels, dmin, aux,
-                                label_sum, s);
+        e = launch_assign<kCutMm>(x, c, c_sq, n, k, dim, labels, dmin, aux,
+                                  label_sum, s);
         break;
       case 1:
-        nn_cut<raft_nn::kCutMmMin>(x, c, c_sq, n, k, dim, labels, dmin, aux,
-                                   label_sum, s);
+        e = launch_assign<kCutMmMin>(x, c, c_sq, n, k, dim, labels, dmin,
+                                     aux, label_sum, s);
         break;
       case 2:
-        nn_cut<raft_nn::kCutMmArgmin>(x, c, c_sq, n, k, dim, labels, dmin,
+        e = launch_assign<kCutMmArgmin>(x, c, c_sq, n, k, dim, labels, dmin,
+                                        aux, label_sum, s);
+        break;
+      case 3:
+        e = launch_assign<kCutAssign>(x, c, c_sq, n, k, dim, labels, dmin,
                                       aux, label_sum, s);
+        if (e == cudaSuccess)
+          update<false>(x, nullptr, labels, n, dim, sums, counts, s);
         break;
-      case 3: {
-        nn_cut<raft_nn::kCutAssign>(x, c, c_sq, n, k, dim, labels, dmin, aux,
-                                    label_sum, s);
-        const size_t warps_per_block = kThreads / 32;
-        update_kernel<false>
-            <<<(unsigned)((n + warps_per_block - 1) / warps_per_block),
-               kThreads, 0, s>>>(
-                static_cast<const __nv_bfloat16*>(x), nullptr,
-                static_cast<const int*>(labels), n, dim,
-                static_cast<float*>(sums), static_cast<float*>(counts));
-        break;
-      }
       default:
-        nn_cut<raft_nn::kCutMxuOnly>(x, c, c_sq, n, k, dim, labels, dmin,
-                                     counts, label_sum, s);
+        e = launch_assign<kCutMxuOnly>(x, c, c_sq, n, k, dim, labels, dmin,
+                                       counts, label_sum, s);
     }
   }
+  if (e != cudaSuccess) return (int)e;
   if (cut == 2)
     fill_label_sum<<<(k + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         static_cast<const unsigned long long*>(label_sum), k,

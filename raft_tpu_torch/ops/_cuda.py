@@ -57,6 +57,8 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _P, _P, _P),
     "raft_row_gather": (_P, _P, _I, _I, _I, _P, _P),
     "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "raft_fused_l2_nn_small_dim": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                   _P),
     "raft_cagra_hop": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P, _P, _P),
 }

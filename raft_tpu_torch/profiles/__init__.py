@@ -10,10 +10,18 @@ JAX package's round-5 profile scripts that runs a Pallas kernel:
 - :mod:`.kmeans_kernel_r5` (``profiles/kmeans_kernel_r5.py``): Kernel A,
   its unit-weight pass and its product-plus-min cut.
 
+and one of the port's own design, with no JAX script behind it:
+
+- :mod:`.kmeans_tile_decomp`: Kernel A's tensor-core tile rebuilt with one
+  part taken out at a time (the products, the centroid reloads, the
+  256-row blocks).
+
 Each runs on the card as ``python3 -m raft_tpu_torch.profiles.<name>``
-and prints one JSON line per measurement.  Each also has a function with
-explicit sizes and a device; on the CPU it runs the plain versions and
-reports no time (``"ms": null``): a CPU run measures no device time.
+and prints one JSON line per measurement.  Each of the four ports also has
+a function with explicit sizes and a device; on the CPU it runs the plain
+versions and reports no time (``"ms": null``): a CPU run measures no
+device time.  ``kmeans_tile_decomp`` builds kernel variants and runs on
+the card only.
 """
 
 from __future__ import annotations

@@ -12,11 +12,12 @@ at 1M × 128 → 1,024 on normal data (numpy seed 0):
   ``uw``).
 
 Beside ``mm``, the yardstick: one bf16 ``torch.matmul(x, c.T)`` of the
-same product (a library call, used nowhere in the port), to show what the
-tensor cores would win.  The JAX script sweeps its tile (2,048 / 4,096
-rows), a VMEM knob with no counterpart here: every cut runs at
-``nn_tile.cuh``'s 128 × 128 tile, and each line says so.  One JSON line
-per cut: ``variant``, ``tile``, ``ms``; then the yardstick's.
+same product (a library call, used nowhere in the port), which writes the
+(n, k) matrix the cuts never write.  The JAX script sweeps its tile
+(2,048 / 4,096 rows), a VMEM knob with no counterpart here: every cut
+runs on ``nn_tile_mma.cuh``'s tensor-core tile, 256 rows (four
+warpgroups) × 128 centroids at this size, and each line says so.  One
+JSON line per cut: ``variant``, ``tile``, ``ms``; then the yardstick's.
 
     python3 -m raft_tpu_torch.profiles.kmeans_decomp_r5
 """
@@ -34,7 +35,7 @@ from raft_tpu_torch.profiles import device_ms, require_cuda
 
 N, DIM, K = 1_000_000, 128, 1024
 CUTS = ("mm", "mmmin", "mmargmin", "full")
-TILE = "128x128"        # nn_tile.cuh's BM x BN
+TILE = "256x128"        # nn_tile_mma.cuh's rows x centroids at 1M rows
 
 
 def inputs(n: int = N, dim: int = DIM, k: int = K, seed: int = 0,

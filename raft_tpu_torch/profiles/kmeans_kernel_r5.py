@@ -16,7 +16,8 @@ variant (``variant``, ``tile``, ``ms``), then the JAX script's spot check
 of ``uw`` against ``base`` on the first 65,536 rows: ``uw_sums_close``
 (rtol 1e-3, atol 1e-2), ``uw_counts_equal``, ``uw_dmin_close``.  The JAX
 script sweeps tiles (512 to 2,048 rows), a VMEM knob with no counterpart
-here: one 128 × 128 tile, printed in each line.
+here: ``nn_tile_mma.cuh``'s 256 × 128 tensor-core tile, printed in each
+line.
 
     python3 -m raft_tpu_torch.profiles.kmeans_kernel_r5
 """

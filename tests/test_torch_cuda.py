@@ -33,23 +33,39 @@ def dev():
 
 @pytest.mark.parametrize("n,dim,k", [(1000, 50, 37), (4096, 128, 300),
                                      (333, 32, 1), (2912, 96, 91),
-                                     (20000, 96, 8192)])
-def test_kmeans_assign_update_kernel_matches_plain(dev, n, dim, k):
-    """Counts exact (dyadic weights sum exactly in any order), dmin equal
-    (same products in the same order), sums to fp32 summation order."""
+                                     (20000, 96, 8192), (129, 100, 91),
+                                     (1, 96, 4097), (3000, 100, 4097),
+                                     (129, 128, 1), (5000, 200, 300)])
+@pytest.mark.parametrize("duplicates", [False, True])
+def test_kmeans_assign_update_kernel_matches_plain(dev, n, dim, k,
+                                                   duplicates):
+    """Tie-aware (the tensor core sums the exact bf16 products in its own
+    order): dmin within τ, each label the plain one or at a tie; counts
+    exact and sums to fp32 summation order against the plain update from
+    the kernel's own labels.  A duplicated centroid (the same bf16 row,
+    so the same d to the bit) resolves to its first copy."""
     rng = np.random.default_rng(n + dim + k)
     x = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32)).to(dev)
     w = torch.from_numpy(rng.choice([0.0, 0.25, 0.5, 1.0, 2.0], n).astype(
         np.float32)).to(dev)
     c = torch.from_numpy(rng.normal(size=(k, dim)).astype(np.float32)).to(dev)
+    if duplicates and k > 2:
+        c[k - 1] = c[1]                # a later copy, in another tile at 4097
+        c[2] = c[1]
+        x[0] = c[1] + 1e-3
     before = ku.kmeans_assign_update.launches
-    sums, counts, dmin = ku.kmeans_assign_update(x, w, c)
+    sums, counts, dmin, labels = ku.kmeans_assign_update_labelled(x, w, c)
     torch.cuda.synchronize()
     assert ku.kmeans_assign_update.launches == before + 1
-    p_sums, p_counts, p_dmin = ku.kmeans_assign_update_plain(x, w, c)
+    _, _, p_dmin, p_labels = ku.kmeans_assign_update_labelled_plain(x, w, c)
+    check = ku.check_assignment(x, c, dmin, labels, p_dmin, p_labels)
+    assert check.ok, check
+    p_sums, p_counts = ku.update_plain(x, w, labels, k)
     assert torch.equal(counts, p_counts)
-    torch.testing.assert_close(dmin, p_dmin, rtol=0, atol=1e-5)
     torch.testing.assert_close(sums, p_sums, rtol=1e-5, atol=1e-4)
+    if duplicates and k > 2:
+        assert int(labels[0]) == 1
+        assert not bool(((labels == 2) | (labels == k - 1)).any())
 
 
 def _random_index(dev, n_lists, cap, rot, seed):
@@ -350,6 +366,33 @@ def test_fused_l2_nn_kernel_matches_plain(dev, m, n, k, sqrt):
         assert int(ik[0]) == 1
 
 
+@pytest.mark.parametrize("dim", [1, 2, 3, 16, 17])
+@pytest.mark.parametrize("n", [256, 1000])
+def test_fused_l2_nn_small_dim_kernel_is_bit_equal_to_plain(dev, dim, n):
+    """Kernel H on both sides of its small-dim threshold: the same fp32
+    expression in the same order as the plain version, so dmin and the
+    indices are equal to the bit; a duplicated y row resolves to its
+    first copy."""
+    m = 3000
+    rng = np.random.default_rng(m + n + dim)
+    x = torch.from_numpy(rng.normal(size=(m, dim)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32)).to(dev)
+    y[n - 1] = y[5]
+    y[300 % n] = y[5]
+    x[0] = y[5] + 1e-3
+    before = fnn.fused_l2_nn.launches
+    small = fnn.fused_l2_nn.small_dim_launches
+    dk, ik = fnn.fused_l2_nn(x, y)
+    torch.cuda.synchronize()
+    assert fnn.fused_l2_nn.launches == before + 1
+    assert fnn.fused_l2_nn.small_dim_launches == small + (
+        dim <= fnn.SMALL_DIM)
+    dp, ip = fnn.fused_l2_nn_plain(x, y)
+    assert torch.equal(dk, dp)
+    assert torch.equal(ik, ip)
+    assert int(ik[0]) == 5
+
+
 def test_pair_scans_and_fused_l2_nn_reject_what_they_cannot_hold(dev):
     data, dsq, ids = _flat_lists(dev, 4, 32, 10, 0)
     q = torch.zeros(2, 10, device=dev)
@@ -527,9 +570,10 @@ def test_row_gather_rejects_what_it_cannot_hold(dev):
 @pytest.mark.parametrize("n,dim,k", [(1000, 50, 37), (4096, 128, 300),
                                      (333, 32, 1), (20000, 96, 1024)])
 def test_kmeans_pass_cut_kernel_matches_plain(dev, cut, n, dim, k):
-    """Each cut: dmin and the labels bit for bit (the same products in the
-    same order), label sums and row counts exact, sums and column sums to
-    the order of their fp32 additions."""
+    """Each cut, tie-aware as Kernel A: dmin within τ, each label the
+    plain one or at a tie; label sums and row counts exact and sums to
+    fp32 summation order from the kernel's own labels; column sums to the
+    order of their fp32 additions."""
     rng = np.random.default_rng(n + dim + k)
     x = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32)).to(dev)
     c = torch.from_numpy(rng.normal(size=(k, dim)).astype(np.float32)).to(dev)
@@ -538,10 +582,11 @@ def test_kmeans_pass_cut_kernel_matches_plain(dev, cut, n, dim, k):
     torch.cuda.synchronize()
     assert ku.kmeans_pass_cut.launches == before + 1
     p_sums, p_counts, p_dmin, p_labels = ku.kmeans_pass_cut_plain(x, c, cut)
-    assert torch.equal(dmin, p_dmin)
     assert (labels is None) == (p_labels is None)
+    check = ku.check_assignment(x, c, dmin, labels, p_dmin, p_labels)
+    assert check.ok, check
     if labels is not None:
-        assert torch.equal(labels, p_labels)
+        p_sums, p_counts = ku.pass_cut_update_plain(x, cut, labels, k)
     if cut == "mxuonly":
         torch.testing.assert_close(counts, p_counts, rtol=1e-4,
                                    atol=1e-4 * float(p_counts.abs().max()))

@@ -16,8 +16,10 @@ from raft_tpu_torch import DeviceResources
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.distance.types import DistanceType
-from raft_tpu_torch.ops.kmeans_update import (kmeans_assign_update,
-                                              kmeans_assign_update_plain)
+from raft_tpu_torch.ops.kmeans_update import (
+    check_assignment, kmeans_assign_update,
+    kmeans_assign_update_labelled_plain, kmeans_assign_update_plain,
+    tie_tolerance)
 
 
 def _bf16(a):
@@ -80,6 +82,52 @@ def test_kernel_a_plain_is_the_exact_bf16_contract():
                                atol=1e-5)
     np.testing.assert_allclose(counts.numpy(), ref_counts, rtol=1e-6,
                                atol=1e-6)
+
+
+def _tie_case():
+    """Unit steps, exact in bf16 and in every fp32 sum: row 0 sits at
+    the same d = 1 from centroids 0 (+e0) and 1 (-e0), a constructed
+    tie; row 1 (= e0) is nearest centroid 0 by d -1 against 3 and 8."""
+    dim = 8
+    eye = np.eye(dim, dtype=np.float32)
+    x = torch.from_numpy(np.stack([eye[1], eye[0]]))
+    c = torch.from_numpy(np.stack([eye[0], -eye[0], 4 * eye[0]]))
+    _, _, dmin, labels = kmeans_assign_update_labelled_plain(
+        x, torch.ones(2), c)
+    assert labels.tolist() == [0, 0] and dmin.tolist() == [1.0, -1.0]
+    return x, c, dmin, labels
+
+
+def test_check_assignment_accepts_a_flip_at_a_tie():
+    """A kernel may sum in another order and land on the other centroid
+    of a tie: the label flips, the check holds."""
+    x, c, dmin, labels = _tie_case()
+    tau = tie_tolerance(x, c)
+    assert tau == 4 * 8 * 2.0 ** -24 * (1 + 16)
+    flipped = torch.tensor([1, 0], dtype=torch.int32)
+    check = check_assignment(x, c, dmin + tau / 2, flipped, dmin, labels)
+    assert check.ok and check.flips == 1 and check.off_tie == 0
+    assert check.dmin_err == pytest.approx(tau / 2)
+
+
+def test_check_assignment_rejects_a_flip_off_a_tie():
+    """Row 1's second centroid is 4 further than its first, far past 2τ:
+    a kernel label there is wrong, whatever its dmin."""
+    x, c, dmin, labels = _tie_case()
+    flipped = torch.tensor([0, 1], dtype=torch.int32)
+    check = check_assignment(x, c, dmin, flipped, dmin, labels)
+    assert not check.ok and check.flips == 1 and check.off_tie == 1
+
+
+def test_check_assignment_rejects_a_dmin_beyond_tau():
+    """Equal labels do not excuse a distance off by more than τ; dmin
+    alone (no labels) is held the same way."""
+    x, c, dmin, labels = _tie_case()
+    tau = tie_tolerance(x, c)
+    check = check_assignment(x, c, dmin + 2 * tau, labels, dmin, labels)
+    assert not check.ok and check.flips == 0
+    assert not check_assignment(x, c, dmin - 2 * tau, None, dmin, None).ok
+    assert check_assignment(x, c, dmin, None, dmin, None).ok
 
 
 def _blobs(n, dim, k, seed):

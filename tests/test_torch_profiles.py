@@ -44,6 +44,7 @@ from raft_tpu_torch.ops import pair_scan as ps
 from raft_tpu_torch.ops import row_gather as rg
 from raft_tpu_torch.profiles import gather_bench, group_kernel_decomp_r5
 from raft_tpu_torch.profiles import kmeans_decomp_r5, kmeans_kernel_r5
+from raft_tpu_torch.profiles import kmeans_tile_decomp
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 _CONFIG_KEYS = ("jax_compilation_cache_dir",
@@ -302,7 +303,8 @@ def test_kmeans_profiles_run_on_the_cpu(capsys):
     lines, spot = kmeans_kernel_r5.profile(512, 32, 40, reps=1,
                                            device="cpu")
     assert [ln["variant"] for ln in lines] == ["base", "uw", "mxuonly"]
-    assert all(ln["tile"] == "128x128" and ln["ms"] is None for ln in lines)
+    assert all(ln["tile"] == kmeans_decomp_r5.TILE == "256x128"
+               and ln["ms"] is None for ln in lines)
     assert spot == {"uw_sums_close": True, "uw_counts_equal": True,
                     "uw_dmin_close": True}
     assert len(_json_lines(capsys.readouterr().out)) == 5 + 4
@@ -316,3 +318,26 @@ def test_profile_mains_need_the_card(monkeypatch):
                 kmeans_kernel_r5):
         with pytest.raises(SystemExit):
             mod.main()
+
+
+@pytest.mark.parametrize("name", list(kmeans_tile_decomp.VARIANTS))
+def test_kmeans_tile_decomp_variants_apply_to_the_tile_source(name):
+    """Each variant of Kernel A's tile is one exact substitution in the
+    committed source: the profile breaks loudly, not silently, if the tile
+    changes under it."""
+    base = (kmeans_tile_decomp._cuda.SRC_DIR
+            / kmeans_tile_decomp.TILE_SOURCE).read_text()
+    text = kmeans_tile_decomp.variant_source(name)
+    assert (text == base) == (name == "as built")
+    for old, new in kmeans_tile_decomp.VARIANTS[name]:
+        assert old not in text and new in text
+
+
+def test_kmeans_tile_decomp_needs_the_card(monkeypatch):
+    """The variants are CUDA builds timed on the card: without one, main()
+    stops before building anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(kmeans_tile_decomp, "build", lambda *a: pytest.fail(
+        "built without a card"))
+    with pytest.raises(SystemExit):
+        kmeans_tile_decomp.main([])
