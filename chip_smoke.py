@@ -24,13 +24,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``IndexParams(n_lists=4096, pq_dim=64)``, then batches of 5,000 queries
    searched at n_probes 96, k 20 and refined to k 10, recall@10 against
    ``brute_force.knn``.  Launch counts are zeroed just before and read
-   just after; Kernels A, B and H (the build's balanced k-means
-   assignments) must each be > 0.  Then the ``raise`` validation policy's
-   cost: the batch's median ms under ``off`` and under ``raise``, in
+   just after; Kernel A, both passes of Kernel B (``list_scan`` and
+   ``merge_pairs``, ``csrc/pq_list_scan.cu``) and Kernel H (the build's
+   balanced k-means assignments) must each be > 0, and Kernel B's gate
+   must refuse no search (``search.fused_fallbacks`` unchanged).  Then
+   the ``raise`` validation policy's cost: the batch's median ms under
+   ``off`` and under ``raise``, in
    turns, and the difference as a share of the batch (the search alone
    too; and CAGRA's itopk-64 batch in phase 11).
-5. Kernel B (``ivf_pq_scan_fused``) against its plain version on the
-   flagship's batch: 5000 queries of the built index at n_probes 96, k 20;
+5. Kernel B (``ivf_pq_scan_fused``, list-major) against its plain version
+   on the flagship's batch: 5000 queries of the built index at n_probes
+   96, k 20, with the batch's group count and the call's device time split
+   into grouping, pass 1 and pass 2, and the pair buffer's bytes; its
+   query-major route (``scan_query_major``, k = kt = 256) against plain on
+   the batch's first 1,000 queries; the batch's recall@10 on the one
+   build through each route (the query-major kernel swapped in for the
+   search's scan);
    Kernel H (``fused_l2_nn``) against its plain version at the shapes the
    build gave it (the extend's assignment, 1,000,000 x 128 -> 4,096, and a
    codebook fit's, 65,536 x 2 -> 256, its small-dim kernel, a row of its
@@ -39,8 +48,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.matmul`` of the same product as ``library_ms``).
 6. IVF-PQ recon mode on the flagship index: ``scan_mode="recon"`` at
    n_probes 96, k 20, refined to k 10 (Kernel G, launches zeroed before,
-   read after), and Kernel G (``ivf_pq_scan_recon``) against its plain
-   version on that batch.
+   read after; pass 1 must be > 0), and Kernel G (``ivf_pq_scan_recon``,
+   list-major pass 1) against its plain version on that batch, with its
+   split (grouping, pass 1); its query-major route
+   (``recon_scan_query_major``, kt 128) against plain on 1,000 queries;
+   the recon batch's recall@10 through each route, as for B.
 7. Where the flagship's time goes: one more build and one search+refine
    batch under ``torch.profiler`` — device busy time, idle share, heaviest
    kernels.
@@ -102,9 +114,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     (Kernel G), and ``auto`` on the index with its recon cache dropped
     (Kernel C at kt 20) — search at n_probes 96, k 20, refine to k 10: ms
     per batch, QPS and recall@10, each mode's launch counts zeroed before
-    it and read after.  Kernels B, C, D, E and G against their plain
-    versions on the full batch at each mode's shape, and each mode's batch
-    under the profiler.
+    it and read after (``auto`` must launch both passes of Kernel B with
+    no fallback), ``auto`` and ``recon`` kt 4 also through each route of
+    B and G on the one build.  Kernels B, C, D, E and G against their
+    plain versions
+    on the full batch at each mode's shape (B and G with their device
+    splits), and each mode's batch under the profiler.
 13. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path, and
@@ -137,6 +152,9 @@ DEEP_DB, DEEP_DIM, DEEP_LISTS, DEEP_PQ_DIM = 10_000_000, 96, 8192, 48
 DEEP_TRAIN_FRACTION, DEEP_KT = 0.1, 4
 SEARCH_REPS = 3
 KERNEL_REPS = 5
+# queries of the flagship batch at which the large-kt (query-major) routes
+# of Kernels B and G are held to their plain versions
+LARGE_KT_QUERIES = 1_000
 # IVF-Flat (conf/sift-like-1m.json raft_ivf_flat.nlist4096 / .nlist16384)
 FLAT_LISTS, FLAT_PROBES, FLAT_CHECK_PROBES = 4096, (32, 64, 128), 64
 FLAT_FINE_LISTS, FLAT_FINE_PROBES = 16384, 128
@@ -175,12 +193,14 @@ def counters():
     from raft_tpu_torch.ops import row_gather as rg
 
     return {"kmeans_assign_update": ku.kmeans_assign_update,
-            "ivf_pq_scan_fused": pgs.ivf_pq_scan_fused,
+            "list_scan": pgs.list_scan,
+            "merge_pairs": pgs.merge_pairs,
+            "scan_query_major": pgs.scan_query_major,
+            "recon_scan_query_major": ps.recon_scan_query_major,
             "ivf_pq_scan_codes_fused": pcs.ivf_pq_scan_codes_fused,
             "ivf_pq_scan_codes": pcs.ivf_pq_scan_codes,
             "ivf_pq_scan_recon8": pcs.ivf_pq_scan_recon8,
             "ivf_flat_scan": ps.ivf_flat_scan,
-            "ivf_pq_scan_recon": ps.ivf_pq_scan_recon,
             "fused_l2_nn": fnn.fused_l2_nn,
             "cagra_hop": chop.cagra_hop,
             "pair_scan_variant": ps.pair_scan_variant,
@@ -255,6 +275,13 @@ def device_ms(fn, reps, kernel=""):
     ``kernel`` (all of a call's kernels when empty), over ``reps`` calls
     after one warm-up, from torch.profiler: CUDA events around a run of
     ~30 us launches time the host's gaps between them, not the kernel."""
+    return device_split(fn, reps, (kernel,))[1][kernel]
+
+
+def device_split(fn, reps, names):
+    """``(total, {name: ms})``: mean device ms per call of all of a call's
+    CUDA kernels, and of those whose name contains each of ``names``, over
+    ``reps`` calls after one warm-up, from one torch.profiler window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -265,9 +292,36 @@ def device_ms(fn, reps, kernel=""):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and kernel in e.key
-               ) / 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    return total, {name: sum(e.self_device_time_total for e in events
+                             if name in e.key) / 1e3 / reps
+                   for name in names}
+
+
+def list_major_split(label, run, probes, n_lists, pair_bytes, merged):
+    """The list-major route's device time over one call of ``run``, split
+    into the grouping (every kernel but the two passes), pass 1 and pass 2
+    (``merged``: Kernel B; else Kernel G, no pass 2); the batch's groups
+    and touched lists, and the pair buffer's bytes (not in the bound)."""
+    from raft_tpu_torch.neighbors import grouped
+
+    total, split = device_split(run, KERNEL_REPS,
+                                ("list_scan_kernel", "merge_kernel"))
+    p1, p2 = split["list_scan_kernel"], split["merge_kernel"]
+    n_groups = int(grouped.num_groups(probes, n_lists))
+    touched = int(grouped.touched_lists(probes, n_lists))
+    print(f"{label}: {n_groups:,} groups over {touched:,} touched lists "
+          f"({probes.numel() / max(n_groups, 1):.1f} pairs a group); device "
+          f"{total:.3f} ms = grouping {total - p1 - p2:.3f} + pass 1 "
+          f"{p1:.3f}" + (f" + pass 2 {p2:.3f}" if merged else "")
+          + f"; pair buffer {pair_bytes / 1e6:.1f} MB", flush=True)
+    assert p1 > 0 and (p2 > 0) == merged, f"{label}: pass split {split}"
+    return {"device_ms": total, "grouping_device_ms": total - p1 - p2,
+            "pass1_device_ms": p1, "pass2_device_ms": p2,
+            "n_groups": n_groups, "touched_lists": touched,
+            "pair_buffer_bytes": pair_bytes}
 
 
 def timed_once(fn):
@@ -289,7 +343,9 @@ MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 # measured too where a kernel's check has them
 EXTRA = ("tau", "label_flips", "device_ms", "assign_device_ms",
-         "update_device_ms")
+         "update_device_ms", "grouping_device_ms", "pass1_device_ms",
+         "pass2_device_ms", "n_groups", "touched_lists", "pair_buffer_bytes",
+         "source", "check_launches")
 
 
 def at_shape(row, shape, launches):
@@ -559,9 +615,19 @@ def check_scans(index, qrot, probes, specs):
     return rows
 
 
+def recon_rows_of(index):
+    """The bf16 recon row of each flat slot, as fp32 (``recompute``)."""
+    rot = index.rot_dim
+
+    def rows(slot):
+        return index.list_recon.reshape(-1, rot)[slot].float()
+    return rows
+
+
 def check_kernel_b(index, queries):
     """Kernel B vs plain on a path's batch of its built index (5000
-    queries, n_probes 96, k 20, kt 20, as ``auto`` runs it)."""
+    queries, n_probes 96, k 20, kt 20, as ``auto`` runs it): the
+    list-major route, with its device time split and group count."""
     from raft_tpu_torch.ops import pq_group_scan as pgs
 
     qrot, probes = probe(index, queries)
@@ -569,16 +635,58 @@ def check_kernel_b(index, queries):
     kt = min(K_SEARCH, index.capacity)
     args = (qrot, index.centers, probes, index.list_recon,
             index.list_recon_sq, index.list_indices, K_SEARCH, kt)
-
-    def recon_rows(slot):
-        return index.list_recon.reshape(-1, rot)[slot].float()
-
-    return check_scans(index, qrot, probes, [
-        ("ivf_pq_scan_fused", "pq_group_scan.cu",
+    row = check_scans(index, qrot, probes, [
+        ("ivf_pq_scan_fused", "pq_list_scan.cu",
          "raft_tpu/ops/pq_group_scan_pallas.py:410", pgs.ivf_pq_scan_fused,
-         pgs.ivf_pq_scan_fused_plain, args, recon_rows,
+         pgs.ivf_pq_scan_fused_plain, args, recon_rows_of(index),
          index.list_recon_sq, None, rot * 2 + 8, 0, nq * K_SEARCH * 8,
          rot)])[0]
+    row.update(list_major_split(
+        "kernel B", lambda: pgs.ivf_pq_scan_fused(*args), probes,
+        index.n_lists, probes.numel() * min(kt, K_SEARCH) * 8, True))
+    return row
+
+
+def check_query_major(index, queries, nq, fused):
+    """The large-kt route of Kernel B (``fused``: k = kt = 256, the
+    query-major ``scan_query_major``) or G (kt 128,
+    ``recon_scan_query_major``) against its plain version on the first
+    ``nq`` queries of a path's batch, its launch counted; an
+    ``also_checked`` entry of its kernel's row."""
+    from raft_tpu_torch.ops import pair_scan as ps
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    qrot, probes = probe(index, queries[:nq])
+    rot = qrot.shape[1]
+    if fused:
+        k = kt = min(pgs.K_MAX, index.capacity)
+        wrapper, src = pgs.scan_query_major, "pq_group_scan.cu"
+        spec = ("scan_query_major (B, query-major)", src,
+                "raft_tpu/ops/pq_group_scan_pallas.py:410", wrapper,
+                pgs.ivf_pq_scan_fused_plain,
+                (qrot, index.centers, probes, index.list_recon,
+                 index.list_recon_sq, index.list_indices, k, kt),
+                recon_rows_of(index), index.list_recon_sq, None,
+                rot * 2 + 8, 0, nq * k * 8, rot)
+    else:
+        k = kt = min(2 * pgs.KT_LIST_MAX, index.capacity)
+        wrapper, src = ps.recon_scan_query_major, "pair_scan.cu"
+        spec = ("recon_scan_query_major (G, query-major)", src,
+                "raft_tpu/ops/pq_group_scan_pallas.py:566", wrapper,
+                ps.ivf_pq_scan_recon_plain,
+                (qrot, index.centers, probes, index.list_recon,
+                 index.list_recon_sq, index.list_indices, kt),
+                recon_rows_of(index), index.list_recon_sq, None,
+                rot * 2 + 8, 0, probes.numel() * kt * 8, rot)
+    assert kt > pgs.KT_LIST_MAX, "the large-kt route needs kt past 64"
+    before = wrapper.launches
+    row = check_scans(index, qrot, probes, [spec])[0]
+    launched = wrapper.launches - before
+    assert launched > 0, f"{spec[0]} never launched"
+    return at_shape(dict(row, source=f"raft_tpu_torch/csrc/{src}",
+                         check_launches=launched),
+                    f"{nq:,} queries x {probes.shape[1]} probes, k {k}, kt "
+                    f"{kt}, capacity {index.capacity:,}, rot {rot}", 0)
 
 
 def check_code_kernels(index, queries, kt, kernels=("C", "D", "E")):
@@ -629,7 +737,8 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E")):
 
 def check_kernel_g(index, queries, kt):
     """Kernel G vs plain on a path's batch (5000 queries, n_probes 96) at
-    per-pair ``kt``, as ``scan_mode="recon"`` runs it."""
+    per-pair ``kt``, as ``scan_mode="recon"`` runs it: list-major pass 1,
+    with its device time split and group count."""
     from raft_tpu_torch.ops import pair_scan as ps
 
     qrot, probes = probe(index, queries)
@@ -638,15 +747,16 @@ def check_kernel_g(index, queries, kt):
     kt = min(kt, index.capacity)
     args = (qrot, index.centers, probes, index.list_recon,
             index.list_recon_sq, index.list_indices, kt)
-
-    def recon_rows(slot):
-        return index.list_recon.reshape(-1, rot)[slot].float()
-
-    return check_scans(index, qrot, probes, [
-        ("ivf_pq_scan_recon", "pair_scan.cu",
+    row = check_scans(index, qrot, probes, [
+        ("ivf_pq_scan_recon", "pq_list_scan.cu",
          "raft_tpu/ops/pq_group_scan_pallas.py:566", ps.ivf_pq_scan_recon,
-         ps.ivf_pq_scan_recon_plain, args, recon_rows, index.list_recon_sq,
-         None, rot * 2 + 8, 0, nq * n_probes * kt * 8, rot)])[0]
+         ps.ivf_pq_scan_recon_plain, args, recon_rows_of(index),
+         index.list_recon_sq, None, rot * 2 + 8, 0, nq * n_probes * kt * 8,
+         rot)])[0]
+    row.update(list_major_split(
+        "kernel G", lambda: ps.ivf_pq_scan_recon(*args), probes,
+        index.n_lists, nq * n_probes * kt * 8, False))
+    return row
 
 
 def flat_scan_args(index, queries, n_probes, k):
@@ -1371,11 +1481,43 @@ def search_mode(res, index, db, queries, truth, label, sp, kernel):
           f"ms; search+refine {', '.join(f'{m:.2f}' for m in batch_ms)} ms "
           f"per batch of {queries.shape[0]}; QPS "
           f"{queries.shape[0] / (med / 1e3):.0f} (median); recall@10 "
-          f"{recall:.4f}; launches {json.dumps(launches)}; fused codes "
+          f"{recall:.4f}; launches {json.dumps(launches)}; fused "
           f"fallbacks {fallbacks}", flush=True)
     assert launches[kernel] > 0, f"{label}: {kernel} never launched"
     return {"label": label, "recall": recall, "launches": launches,
-            "batch_ms": med, "cand": cand}
+            "batch_ms": med, "cand": cand, "fallbacks": fallbacks}
+
+
+def same_build_routes(res, index, db, queries, truth, label, sp, fused):
+    """Recall@10 of one search + refine batch on one build through the
+    list-major route and through the query-major kernel swapped in for
+    the search's scan (Kernel B's ``scan_query_major`` when ``fused``,
+    else G's ``recon_scan_query_major``): what the routes' own rounding
+    does to recall, with the build held fixed."""
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.ops import pair_scan as ps
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    name, walked = (("ivf_pq_scan_fused", pgs.scan_query_major) if fused
+                    else ("ivf_pq_scan_recon", ps.recon_scan_query_major))
+    listed = getattr(ivf_pq, name)
+    recall = {}
+    for route in ("list-major", "query-major"):
+        before = walked.launches
+        if route == "query-major":
+            setattr(ivf_pq, name, walked)
+        try:
+            _, cand = ivf_pq.search(res, sp, index, queries, K_SEARCH)
+            _, found = refine.refine(res, db, queries, cand, K)
+        finally:
+            setattr(ivf_pq, name, listed)
+        assert (walked.launches > before) == (route == "query-major"), (
+            f"{label}: the {route} route did not run")
+        hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
+        recall[route] = float(hits) / truth.numel()
+    print(f"{label}, one build, recall@10 by route: "
+          f"{json.dumps(recall)}", flush=True)
+    return recall
 
 
 def deep_path(dev):
@@ -1448,12 +1590,12 @@ def deep_path(dev):
     kt4 = dict(per_probe_topk=DEEP_KT)
     runs = {}
     for label, params_, kernel in (
-            ("auto", sp(), "ivf_pq_scan_fused"),
+            ("auto", sp(), "merge_pairs"),
             ("fused", sp(scan_mode="fused", **kt4), "ivf_pq_scan_codes_fused"),
             ("codes", sp(scan_mode="codes", **kt4), "ivf_pq_scan_codes"),
             ("recon8", sp(scan_mode="recon8", **kt4),
              "ivf_pq_scan_recon8"),
-            ("recon", sp(scan_mode="recon", **kt4), "ivf_pq_scan_recon")):
+            ("recon", sp(scan_mode="recon", **kt4), "list_scan")):
         runs[label] = search_mode(res, index, db, queries, truth,
                                   f"deep {label}", params_, kernel)
         runs[label]["params"] = params_
@@ -1463,6 +1605,13 @@ def deep_path(dev):
           f"ranks", flush=True)
     assert runs["auto"]["recall"] >= 0.90, (
         f"deep auto recall@10 {runs['auto']['recall']} below 0.90")
+    assert runs["auto"]["fallbacks"] == 0, "deep auto: Kernel B refused"
+    assert runs["auto"]["launches"]["list_scan"] > 0, (
+        "deep auto: pass 1 never launched")
+    same_build_routes(res, index, db, queries, truth, "deep auto", sp(),
+                      True)
+    same_build_routes(res, index, db, queries, truth, "deep recon kt 4",
+                      runs["recon"]["params"], False)
     for label in ("fused", "codes", "recon8", "recon"):
         assert runs[label]["recall"] >= 0.80, (
             f"deep {label} recall@10 {runs[label]['recall']} below 0.80")
@@ -1478,12 +1627,12 @@ def deep_path(dev):
         check_kernel_b(index, queries),
         f"deep: {N_QUERIES:,} queries x {N_PROBES} probes, k {K_SEARCH}, kt "
         f"{K_SEARCH}, capacity {index.capacity:,}, rot {index.rot_dim}",
-        runs["auto"]["launches"]["ivf_pq_scan_fused"])
+        runs["auto"]["launches"]["merge_pairs"])
     g_deep = at_shape(
         check_kernel_g(index, queries, DEEP_KT),
         f"deep recon: {N_QUERIES:,} queries x {N_PROBES} probes, kt "
         f"{DEEP_KT}, capacity {index.capacity:,}, rot {index.rot_dim}",
-        runs["recon"]["launches"]["ivf_pq_scan_recon"])
+        runs["recon"]["launches"]["list_scan"])
 
     for label, run in runs.items():
         device_breakdown(f"deep {label} search+refine batch",
@@ -1784,6 +1933,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
+    fallbacks = ivf_pq.search.fused_fallbacks
     t0 = time.perf_counter()
     index = ivf_pq.build(res, params, db)
     torch.cuda.synchronize()
@@ -1800,6 +1950,7 @@ def main() -> int:
         search_ms.append(1e3 * (t1 - t0))
         batch_ms.append(1e3 * (time.perf_counter() - t0))
     launches = read_launches()
+    fallbacks = ivf_pq.search.fused_fallbacks - fallbacks
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _, truth = brute_force.knn(res, db, queries, K)
     hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
@@ -1817,9 +1968,11 @@ def main() -> int:
     print(f"recall@10: {recall:.4f}", flush=True)
     print(f"peak device memory: {peak_gb:.2f} GB", flush=True)
     print(f"launches on the main path: {json.dumps(launches)}", flush=True)
-    for name in ("kmeans_assign_update", "ivf_pq_scan_fused", "fused_l2_nn"):
+    for name in ("kmeans_assign_update", "list_scan", "merge_pairs",
+                 "fused_l2_nn"):
         assert launches[name] > 0, (
             f"{name} was never launched on the main path")
+    assert fallbacks == 0, "Kernel B's gate refused the main path's search"
     assert recall >= 0.90, f"recall@10 {recall} below the 0.90 floor"
     # the search alone tells its validation from refine's, whose host
     # sync waits for the search's kernels before refine's work is queued
@@ -1831,6 +1984,9 @@ def main() -> int:
 
     phase("kernel B vs plain (the main path's batch on the built index)")
     row_b = check_kernel_b(index, queries)
+    same_build_routes(res, index, db, queries, truth, "flagship auto", sp,
+                      True)
+    b_query_major = check_query_major(index, queries, LARGE_KT_QUERIES, True)
 
     phase("kernel H vs plain at the flagship build's shapes")
     h_more = [h_check(db @ index.rotation, index.centers,
@@ -1842,14 +1998,17 @@ def main() -> int:
         "the small-dim kernel was never launched on the main path")
 
     phase("IVF-PQ recon mode: scan_mode='recon', n_probes 96, k 20 -> 10")
+    sp_recon = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode="recon")
     recon = search_mode(res, index, db, queries, truth, "flagship recon",
-                        ivf_pq.SearchParams(n_probes=N_PROBES,
-                                            scan_mode="recon"),
-                        "ivf_pq_scan_recon")
+                        sp_recon, "list_scan")
+    same_build_routes(res, index, db, queries, truth, "flagship recon",
+                      sp_recon, False)
     assert recon["recall"] >= 0.90, (
         f"flagship recon recall@10 {recon['recall']} below 0.90")
     row_g = dict(check_kernel_g(index, queries, K_SEARCH),
-                 launches=recon["launches"]["ivf_pq_scan_recon"])
+                 launches=recon["launches"]["list_scan"])
+    g_query_major = check_query_major(index, queries, LARGE_KT_QUERIES,
+                                      False)
 
     phase("where the time goes (one build, one batch, under the profiler)")
     del index
@@ -1882,13 +2041,14 @@ def main() -> int:
     rows_cde, a_deep, b_deep, g_deep, h_deep, hs_deep = deep_path(dev)
 
     phase("result")
-    row_g["also_checked"] = [g_deep]
+    row_g["also_checked"] = [g_deep, g_query_major]
     row_h["also_checked"] += h_more + h_flat + h_deep
     row_hs["also_checked"] = [hs_deep]
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),
-            dict(row_b, launches=launches["ivf_pq_scan_fused"],
-                 also_checked=[b_deep])] + rows_cde + [
+            dict(row_b, launches=launches["merge_pairs"],
+                 pass1_launches=launches["list_scan"],
+                 also_checked=[b_deep, b_query_major])] + rows_cde + [
                      row_f, row_g, row_h, row_hs, row_i] + rows_profiles
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)

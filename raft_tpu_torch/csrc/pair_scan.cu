@@ -1,4 +1,5 @@
-// Kernels F and G: per-(query, probe) top-kt scans over full-width rows.
+// Kernel F and Kernel G's large-kt route: per-(query, probe) top-kt scans
+// over full-width rows, query-major.
 //
 // Kernel F replaces raft_tpu/ops/pq_group_scan_pallas.py:637
 // grouped_flat_l2_scan (body _kernel_flat), the IVF-Flat scan over raw
@@ -7,9 +8,11 @@
 //        q_sq = sum(q^2), the dot product summed in fp32
 //   IP:  d = -(q . x[list, row])   (the wrapper negates the kept values
 //        back; an exhausted slot leaves as (-inf, -1))
-// Kernel G replaces raft_tpu/ops/pq_group_scan_pallas.py:566
-// grouped_l2_scan (body _kernel), the IVF-PQ scan over the bf16
-// reconstruction cache, with Kernel B's row arithmetic:
+// Kernel G's query-major route replaces raft_tpu/ops/pq_group_scan_pallas.py
+// :566 grouped_l2_scan (body _kernel), the IVF-PQ scan over the bf16
+// reconstruction cache, at per-pair kt past KT_LIST_MAX (64): below it
+// Kernel G is pq_list_scan.cu's list-major pass 1.  The profile variants
+// below run here at every kt.  Kernel B's row arithmetic:
 //   sub = qrot[q] - centers[list] (fp32), sub_sq = sum(sub^2),
 //   d = max(sub_sq + rsq[list, row] - 2 bf16(sub) . recon[list, row], 0)
 //   (the residual rounded to bf16 once, the products summed in fp32).

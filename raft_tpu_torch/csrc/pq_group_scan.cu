@@ -1,5 +1,8 @@
-// Kernel B: the fused IVF-PQ reconstruction-cache scan with the
-// per-query top-k kept on chip.
+// Kernel B's query-major route: the fused IVF-PQ reconstruction-cache
+// scan with the per-query top-k kept on chip.  Kernel B runs the
+// list-major kernels of pq_list_scan.cu where each pair keeps at most
+// KT_LIST_MAX (64) candidates; this kernel serves the larger per-pair kt
+// (up to K_MAX = 256), ops/pq_group_scan.py's scan_query_major.
 //
 // Replaces raft_tpu/ops/pq_group_scan_pallas.py:410 grouped_l2_scan_fused
 // (body _kernel_fused :370, with _fused_step / _merge_cols / _merge_topk
@@ -25,9 +28,8 @@
 // k-th distance; the buffer is bitonic-sorted by (distance, row), its
 // first min(kt, k) merge into the running top k by rank (older entries
 // win ties, as the TPU accumulator does).  The cost of this design is
-// that a list is read once per query probing it, not once per batch:
-// the gap to the bound is recorded beside the kernel's time, and closing
-// it (list-major pair groups, TMA, wgmma) is later work.
+// that a list is read once per query probing it, not once per batch;
+// pq_list_scan.cu's pair groups read it once per group.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -17,13 +17,14 @@ reconstruction cache (``list_recon``, residual space) and its row norms
 are attached.
 
 Search: rotate the queries, rank coarse probes exactly
-(:func:`raft_tpu_torch.neighbors.ivf_flat._select_clusters`), then ONE
-kernel launch chosen by ``scan_mode`` as the JAX package resolves it
+(:func:`raft_tpu_torch.neighbors.ivf_flat._select_clusters`), then the
+scan kernel chosen by ``scan_mode`` as the JAX package resolves it
 (:func:`_resolve_mode`):
 
 - fused recon (``"auto"`` / ``"fused"`` with a recon cache and codes not
-  eligible): Kernel B, :mod:`raft_tpu_torch.ops.pq_group_scan` (Kernel G
-  + finalize where Kernel B's gate refuses the shape);
+  eligible): Kernel B, :mod:`raft_tpu_torch.ops.pq_group_scan` (the pairs
+  grouped by list, then its two list-major passes; Kernel G + finalize
+  where Kernel B's gate refuses the shape);
 - fused codes (``"fused"``, and ``"auto"`` without a recon cache): Kernel
   C, :func:`raft_tpu_torch.ops.pq_code_scan.ivf_pq_scan_codes_fused`;
 - ``"recon"`` / ``use_reconstruction=True``: Kernel G
@@ -862,9 +863,10 @@ def compact(res, index: Index) -> Index:
 def calibrate_group_capacity(res, index: Index, queries,
                              n_probes: int) -> float:
     """The JAX package sizes its grouped scans' static pair-group count
-    from a query batch; the port's query-major kernels have no groups, so
-    whether ``Index.group_est`` keeps a meaning is decided with the LUT
-    scan (ROADMAP.md §1 item 4)."""
+    from a query batch; the port's list-major scans size their grids from
+    each batch's exact group count (``neighbors/grouped.build_groups``),
+    so whether ``Index.group_est`` keeps a meaning is decided with the
+    LUT scan (ROADMAP.md §1 item 4)."""
     raise _not_ported("calibrate_group_capacity", "LUT scan")
 
 

@@ -42,6 +42,9 @@ SIGNATURES = {
                              _P, _P),
     "raft_ivf_pq_scan_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P, _P, _P),
+    "raft_ivf_pq_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P, _P, _P),
+    "raft_ivf_pq_merge_pairs": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "raft_ivf_pq_scan_codes_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                                      _P, _P),

@@ -6,11 +6,14 @@
   the dot product in fp32, or the InnerProduct form).
 - Kernel G, :func:`ivf_pq_scan_recon`: replaces ``:566 grouped_l2_scan``,
   the IVF-PQ scan over the bf16 reconstruction cache (Kernel B's row
-  arithmetic with a per-pair output).
+  arithmetic with a per-pair output).  Up to kt ``KT_LIST_MAX`` it is
+  Kernel B's list-major pass 1 (``csrc/pq_list_scan.cu``, pairs grouped by
+  list, bf16 ``wgmma``); above it, :func:`recon_scan_query_major`.
 
-Both are ``csrc/pair_scan.cu``; its source note says what bounds them on an
-H100 (bytes) and what the query-major design does about it.  No TPU layout
-comes over: no pair groups, no one-hot query gathers, no f32 id lanes.
+Kernel F and G's large-kt route are ``csrc/pair_scan.cu``; its source note
+says what bounds them on an H100 (bytes) and what the query-major design
+does about it.  No TPU layout comes over: no one-hot query gathers, no f32
+id lanes.
 
 - :func:`pair_scan_variant`: the profile variants of F and G (the
   switches of ``profiles/group_kernel_decomp_r5.py:50 run_var``): the raw
@@ -37,10 +40,12 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
-from raft_tpu_torch.ops.pq_group_scan import (_PLAIN_CHUNK, _SMEM_LIMIT,
-                                              _check, cat_parts, pair_topk,
-                                              plain_chunks, probe_distances)
+from raft_tpu_torch.ops.pq_group_scan import (
+    _PLAIN_CHUNK, _SMEM_LIMIT, _check, cat_parts, cuda_operands, list_scan,
+    list_scan_reject_reason, pair_topk, plain_chunks, probe_distances,
+    recon_dot)
 
 _MAX_WIDTH = 1024                # 32 lanes * the chunks a lane holds
 
@@ -188,39 +193,32 @@ def ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon, list_recon_sq,
                                list_recon_sq, list_indices,
                                "ivf_pq_scan_recon")
     kt = min(kt, cap)
-
-    def dot(subb, pr):
-        return torch.matmul(list_recon[pr].float(), subb[..., None])[..., 0]
-
+    dot = recon_dot(list_recon)
     parts = [pair_topk(*probe_distances(q, centers, p, list_indices,
                                         list_recon_sq, dot), kt)
              for q, p in plain_chunks(qrot, probes)]
     return cat_parts(parts, (probes.shape[1], kt), qrot.device)
 
 
-def ivf_pq_scan_recon(qrot, centers, probes, list_recon, list_recon_sq,
-                      list_indices, kt: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
-    pair's top kt over the bf16 reconstruction cache.  CUDA tensors launch
-    Kernel G; CPU tensors run the plain version."""
+def recon_scan_query_major(qrot, centers, probes, list_recon, list_recon_sq,
+                           list_indices, kt: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G's query-major route (``csrc/pair_scan.cu`` ``Bf16Rows``):
+    one block per query walks its probes; :func:`ivf_pq_scan_recon` takes
+    it where kt exceeds ``KT_LIST_MAX``.  CUDA tensors launch it; CPU
+    tensors run the plain version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon,
                                        list_recon_sq, list_indices, kt)
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices,
-                               "ivf_pq_scan_recon")
+                               "recon_scan_query_major")
     kt = min(kt, cap)
     reason = pair_scan_reject_reason(cap, rot, kt, 8)
-    expects(not reason, f"ivf_pq_scan_recon: {reason}")
-    expects(qrot.dtype == centers.dtype == list_recon_sq.dtype
-            == torch.float32 and list_indices.dtype == torch.int32,
-            "ivf_pq_scan_recon: qrot/centers/list_recon_sq float32 and "
-            "list_indices int32 required")
-    recon = _aligned(list_recon, "ivf_pq_scan_recon: list_recon")
-    probes = probes.to(torch.int32).contiguous()
-    qrot, centers = qrot.contiguous(), centers.contiguous()
-    rsq, ids = list_recon_sq.contiguous(), list_indices.contiguous()
+    expects(not reason, f"recon_scan_query_major: {reason}")
+    qrot, centers, probes, recon, rsq, ids = cuda_operands(
+        qrot, centers, probes, list_recon, list_recon_sq, list_indices,
+        "recon_scan_query_major")
     nq, n_probes = probes.shape
     vals, out_ids = _outputs(nq, n_probes, kt, qrot.device)
     status = _cuda.library().raft_ivf_pq_scan_recon(
@@ -229,12 +227,37 @@ def ivf_pq_scan_recon(qrot, centers, probes, list_recon, list_recon_sq,
         n_lists, cap, rot, kt, pair_scan_smem_bytes(cap, rot),
         vals.data_ptr(), out_ids.data_ptr(),
         torch.cuda.current_stream(qrot.device).cuda_stream)
-    _cuda.check(status, "ivf_pq_scan_recon")
-    ivf_pq_scan_recon.launches += 1
+    _cuda.check(status, "recon_scan_query_major")
+    recon_scan_query_major.launches += 1
     return vals, out_ids
 
 
-ivf_pq_scan_recon.launches = 0
+recon_scan_query_major.launches = 0
+
+
+def ivf_pq_scan_recon(qrot, centers, probes, list_recon, list_recon_sq,
+                      list_indices, kt: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
+    pair's top kt over the bf16 reconstruction cache.  CUDA tensors run
+    Kernel G: at kt <= ``KT_LIST_MAX`` the pairs grouped by list and
+    :func:`raft_tpu_torch.ops.pq_group_scan.list_scan`
+    (``csrc/pq_list_scan.cu``), else :func:`recon_scan_query_major` (a
+    dispatch by shape between two kernels, each counted on its own
+    ``launches``).  CPU tensors run the plain version."""
+    if not qrot.is_cuda:
+        return ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon,
+                                       list_recon_sq, list_indices, kt)
+    n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
+                               list_recon_sq, list_indices,
+                               "ivf_pq_scan_recon")
+    kt = min(kt, cap)
+    if list_scan_reject_reason(rot, kt):
+        return recon_scan_query_major(qrot, centers, probes, list_recon,
+                                      list_recon_sq, list_indices, kt)
+    return list_scan(qrot, centers, probes,
+                     *grouped.build_groups(probes, n_lists), list_recon,
+                     list_recon_sq, list_indices, kt)
 
 
 # ---------------------------------------------------------------------------

@@ -2,17 +2,26 @@
 per-query top-k.
 
 Replaces ``raft_tpu/ops/pq_group_scan_pallas.py:410 grouped_l2_scan_fused``
-(body ``_kernel_fused``).  The CUDA kernel is ``csrc/pq_group_scan.cu``;
-its source note says what bounds it on an H100 (bytes) and what the
-query-major design does about it.  None of the TPU layout comes over: no
-pair groups, no one-hot gathers, no finite worst-distance sentinel, no
-merge window — exhausted ranks are ``(+inf, -1)`` straight from the
-kernel.
+(body ``_kernel_fused``).  Two routes, chosen by shape:
 
-:func:`ivf_pq_scan_fused` launches the kernel for CUDA tensors and runs
-:func:`ivf_pq_scan_fused_plain` for CPU tensors — nothing else picks
-between them, and a failed build or launch raises.
-``ivf_pq_scan_fused.launches`` counts kernel launches.
+- **list-major** (``min(kt, k) <= KT_LIST_MAX``): the pairs grouped by
+  list (:func:`raft_tpu_torch.neighbors.grouped.build_groups`), then two
+  kernels of ``csrc/pq_list_scan.cu`` — :func:`list_scan` (pass 1, each
+  pair's top kt on bf16 ``wgmma``, one read of a list per group; alone it
+  is Kernel G) and :func:`merge_pairs` (pass 2, each query's top k of its
+  pairs, in probe order);
+- **query-major** (larger kt, up to ``K_MAX``): :func:`scan_query_major`,
+  ``csrc/pq_group_scan.cu``, one block per query walking its probes.
+
+The source notes say what bounds each on an H100 (bytes) and what the
+design does about it.  None of the TPU layout comes over: no one-hot
+gathers, no finite worst-distance sentinel, no merge window — exhausted
+ranks are ``(+inf, -1)`` straight from the kernels.
+
+Each kernel wrapper launches its kernel for CUDA tensors and runs its
+plain version for CPU tensors — nothing else picks between them, and a
+failed build or launch raises.  ``<wrapper>.launches`` counts each
+kernel's launches.
 
 Contract: ``sub = qrot[q] − centers[list]`` and ``sub_sq = Σ sub²`` in
 fp32; ``ip = bf16(sub)·recon`` accumulated in fp32;
@@ -29,11 +38,16 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
 
 K_MAX = 256                      # kMaxK in csrc/pq_group_scan.cu
 _MAX_ROT = 1024                  # 32 lanes * kMaxChunksPerLane * 8
 _SMEM_LIMIT = 232_448            # an H100 block's dynamic shared memory
+KT_LIST_MAX = 64                 # kKtMax in csrc/pq_list_scan.cu
+# the most bytes Kernel B's (queries, n_probes, kt) pair buffer may take;
+# a larger batch goes through the list-major route in query chunks
+PAIR_BUFFER_BYTES = 512 << 20
 # queries per chunk of the plain version's (chunk, n_probes, cap, rot)
 # fp32 transient
 _PLAIN_CHUNK = 16
@@ -47,15 +61,48 @@ def _next_pow2(v: int) -> int:
 
 
 def scan_smem_bytes(cap: int, rot: int) -> int:
-    """Dynamic shared memory of one block: top-k, the next_pow2(cap)
-    candidate buffer and the residual, as ``scan_kernel`` lays them out.
-    The one copy of the formula: the gate tests it and the launch passes
-    it."""
+    """Dynamic shared memory of one block of the query-major kernel:
+    top-k, the next_pow2(cap) candidate buffer and the residual, as
+    ``scan_kernel`` lays them out.  The one copy of the formula: the gate
+    tests it and the launch passes it."""
     return 4 * (4 * K_MAX + 3 * _next_pow2(cap) + rot)
 
 
-def scan_reject_reason(cap: int, rot: int, k: int, kt: int) -> str:
-    """Why the kernel cannot take this shape ('' when it can)."""
+def list_scan_smem_bytes(rot: int) -> int:
+    """Dynamic shared memory of one block of :func:`list_scan`, as
+    ``csrc/pq_list_scan.cu``'s ``scan_layout`` lays it out: the group's
+    bf16 residuals (resident up to 128 dims, else two 128-dim stages), two
+    stages of 128 list rows (at least the 32 KB distance half each), their
+    norms and ids, the top ``KT_LIST_MAX`` of 128 pairs, ``sub_sq``, the pair
+    indices, and 1 KB to align the swizzle atoms.  The gate tests it and
+    the launch passes it; it mirrors ``scan_layout``, and the entry point
+    refuses a size below what ``scan_layout`` needs."""
+    def align(b):
+        return -(-b // 1024) * 1024
+
+    kp = -(-rot // 16) * 16
+    kc = min(kp, 128)
+    a = align(-(-kc // 64) * 128 * 128)
+    b = align(max(-(-kc // 64) * 128 * 128, 128 * 64 * 4))
+    return ((a if kp <= 128 else 2 * a) + 2 * b + 2 * 128 * 8
+            + 2 * 128 * KT_LIST_MAX * 4 + 2 * 128 * 4 + 1024)
+
+
+def list_scan_reject_reason(rot: int, kt: int) -> str:
+    """Why the list-major kernel cannot take this shape ('' when it can)."""
+    if not 0 < kt <= KT_LIST_MAX:
+        return f"kt={kt} outside 1..{KT_LIST_MAX} (the list-major route)"
+    if rot % 8:
+        return f"rot_dim={rot} must be a multiple of 8 (16-byte bf16 rows)"
+    if list_scan_smem_bytes(rot) > _SMEM_LIMIT:
+        return (f"the list-major route needs {list_scan_smem_bytes(rot)} B "
+                f"of shared memory (limit {_SMEM_LIMIT})")
+    return ""
+
+
+def query_major_reject_reason(cap: int, rot: int, k: int, kt: int) -> str:
+    """Why the query-major kernel cannot take this shape ('' when it
+    can)."""
     if not 0 < k <= K_MAX:
         return f"k={k} outside 1..{K_MAX}"
     if kt < 1:
@@ -68,6 +115,19 @@ def scan_reject_reason(cap: int, rot: int, k: int, kt: int) -> str:
                 f"of shared memory for its candidate buffer (limit "
                 f"{_SMEM_LIMIT})")
     return ""
+
+
+def scan_reject_reason(cap: int, rot: int, k: int, kt: int) -> str:
+    """Why Kernel B cannot take this shape ('' when it can): the
+    list-major route takes ``min(kt, k) <= KT_LIST_MAX``, the query-major
+    route the rest of what its gate admits."""
+    if not 0 < k <= K_MAX:       # the merge's bound, which pass 1 lacks
+        return f"k={k} outside 1..{K_MAX}"
+    listed = list_scan_reject_reason(rot, min(kt, k))
+    if not listed:
+        return ""
+    walked = query_major_reject_reason(cap, rot, k, kt)
+    return walked and f"{listed}; query-major route: {walked}"
 
 
 def _check(qrot, centers, probes, list_recon, list_recon_sq, list_indices,
@@ -111,6 +171,14 @@ def probe_distances(qrot, centers, probes, list_indices, list_rsq, dot):
     return d, cid
 
 
+def recon_dot(list_recon):
+    """:func:`probe_distances`'s ``dot`` over bf16 recon rows: the fp32
+    products of the probed rows with ``bf16(sub)``."""
+    def dot(subb, pr):
+        return torch.matmul(list_recon[pr].float(), subb[..., None])[..., 0]
+    return dot
+
+
 def pair_topk(d, cid, kt: int):
     """Each (query, probe) pair's top kt by (distance, slot) — a stable
     sort, so ties go to the lowest slot — with (+inf, −1) past its live
@@ -150,6 +218,8 @@ def cat_parts(parts, tail, device):
     if not parts:
         return (torch.empty(0, *tail, dtype=torch.float32, device=device),
                 torch.empty(0, *tail, dtype=torch.int32, device=device))
+    if len(parts) == 1:
+        return parts[0]
     return (torch.cat([v for v, _ in parts]),
             torch.cat([i for _, i in parts]))
 
@@ -164,21 +234,188 @@ def ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices)
     kt = min(kt, cap)
 
-    def dot(subb, pr):
-        return torch.matmul(list_recon[pr].float(), subb[..., None])[..., 0]
-
+    dot = recon_dot(list_recon)
     parts = [query_topk(*pair_topk(*probe_distances(
         q, centers, p, list_indices, list_recon_sq, dot), kt), k)
         for q, p in plain_chunks(qrot, probes)]
     return cat_parts(parts, (k,), qrot.device)
 
 
+def cuda_operands(qrot, centers, probes, list_recon, list_recon_sq,
+                  list_indices, what: str):
+    """A recon scan's operands for a kernel launch: dtypes checked,
+    contiguous, the recon rows 16-byte aligned, the probes int32."""
+    expects(qrot.dtype == centers.dtype == list_recon_sq.dtype
+            == torch.float32 and list_indices.dtype == torch.int32,
+            f"{what}: qrot/centers/list_recon_sq float32 and list_indices "
+            f"int32 required")
+    list_recon = list_recon.contiguous()
+    expects(list_recon.data_ptr() % 16 == 0,
+            f"{what}: list_recon must be 16-byte aligned")
+    return (qrot.contiguous(), centers.contiguous(),
+            probes.to(torch.int32).contiguous(), list_recon,
+            list_recon_sq.contiguous(), list_indices.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the list-major route: pass 1 (each pair's top kt) and pass 2 (the merge)
+# ---------------------------------------------------------------------------
+
+def list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
+                    list_recon, list_recon_sq, list_indices, kt: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`list_scan`: the list-major schedule
+    emulated.  For each group's live slot, its pair's distances to the
+    group's list (:func:`probe_distances`) and the pair's top kt
+    (:func:`pair_topk`), scattered to the pair's place; a pair no group
+    holds (its probe outside ``[0, n_lists)``) stays ``(+inf, −1)``."""
+    _, cap, _ = _check(qrot, centers, probes, list_recon, list_recon_sq,
+                       list_indices, "list_scan")
+    nq, n_probes = probes.shape
+    P, kt = nq * n_probes, min(kt, cap)
+    vals = torch.full((P, kt), float("inf"), dtype=torch.float32,
+                      device=qrot.device)
+    ids = torch.full((P, kt), -1, dtype=torch.int32, device=qrot.device)
+
+    dot = recon_dot(list_recon)
+    for lst, slots in zip(group_list.long(), slot_pairs.long()):
+        p = slots[slots < P]
+        v, i = pair_topk(*probe_distances(
+            qrot[p // n_probes], centers, lst.expand(p.numel(), 1),
+            list_indices, list_recon_sq, dot), kt)
+        vals[p], ids[p] = v[:, 0], i[:, 0]
+    return vals.reshape(nq, n_probes, kt), ids.reshape(nq, n_probes, kt)
+
+
+def list_scan(qrot, centers, probes, group_list, slot_pairs, list_recon,
+              list_recon_sq, list_indices, kt: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the list-major route, and Kernel G's kernel: ``(vals,
+    ids)``, each (nq, n_probes, kt), every (query, probe) pair's top kt by
+    (distance, slot), ``(+inf, −1)`` past its live rows and on a probe
+    outside ``[0, n_lists)``.  ``group_list`` / ``slot_pairs`` are
+    :func:`raft_tpu_torch.neighbors.grouped.build_groups` of ``probes``;
+    one block scans one group's list once for its pairs.  CUDA tensors
+    launch ``csrc/pq_list_scan.cu``'s pass 1 (kt up to ``KT_LIST_MAX``);
+    CPU tensors run :func:`list_scan_plain`."""
+    if not qrot.is_cuda:
+        return list_scan_plain(qrot, centers, probes, group_list,
+                               slot_pairs, list_recon, list_recon_sq,
+                               list_indices, kt)
+    n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
+                               list_recon_sq, list_indices, "list_scan")
+    kt = min(kt, cap)
+    reason = list_scan_reject_reason(rot, kt)
+    expects(not reason, f"list_scan: {reason}")
+    expects(slot_pairs.ndim == 2 and slot_pairs.shape[1] == grouped.GROUP
+            and group_list.shape == (slot_pairs.shape[0],)
+            and group_list.device == slot_pairs.device == qrot.device,
+            f"list_scan: group_list (n_groups,) and slot_pairs (n_groups, "
+            f"{grouped.GROUP}) on the queries' device required")
+    qrot, centers, probes, recon, rsq, ids = cuda_operands(
+        qrot, centers, probes, list_recon, list_recon_sq, list_indices,
+        "list_scan")
+    group_list = group_list.to(torch.int32).contiguous()
+    slot_pairs = slot_pairs.to(torch.int32).contiguous()
+    nq, n_probes = probes.shape
+    vals = torch.empty(nq, n_probes, kt, dtype=torch.float32,
+                       device=qrot.device)
+    out_ids = torch.empty(nq, n_probes, kt, dtype=torch.int32,
+                          device=qrot.device)
+    status = _cuda.library().raft_ivf_pq_list_scan(
+        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
+        group_list.data_ptr(), slot_pairs.data_ptr(), recon.data_ptr(),
+        rsq.data_ptr(), ids.data_ptr(), group_list.shape[0], nq, n_probes,
+        n_lists, cap, rot, kt, list_scan_smem_bytes(rot),
+        vals.data_ptr(), out_ids.data_ptr(),
+        torch.cuda.current_stream(qrot.device).cuda_stream)
+    _cuda.check(status, "list_scan")
+    list_scan.launches += 1
+    return vals, out_ids
+
+
+list_scan.launches = 0
+
+
+def merge_pairs(vals, ids, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 of the list-major route: each query's top k of its pairs'
+    sorted top kt (``vals`` / ``ids`` (nq, n_probes, kt), as
+    :func:`list_scan` gives them), ascending, ties to the earlier probe and
+    then to the pair's own rank, ``(+inf, −1)`` on exhausted ranks: (nq, k)
+    each.  CUDA tensors launch ``csrc/pq_list_scan.cu``'s pass 2 (kt <= k
+    <= ``K_MAX``); CPU tensors run :func:`query_topk`."""
+    expects(vals.ndim == 3 and ids.shape == vals.shape,
+            "merge_pairs: vals and ids (nq, n_probes, kt) required")
+    if not vals.is_cuda:
+        return query_topk(vals, ids, k)
+    nq, n_probes, kt = vals.shape
+    expects(0 < kt <= k <= K_MAX and vals.dtype == torch.float32
+            and ids.dtype == torch.int32 and ids.device == vals.device,
+            f"merge_pairs: float32 / int32 pair lists with 0 < kt <= k <= "
+            f"{K_MAX} required (kt {kt}, k {k})")
+    vals, ids = vals.contiguous(), ids.contiguous()
+    out_v = torch.empty(nq, k, dtype=torch.float32, device=vals.device)
+    out_i = torch.empty(nq, k, dtype=torch.int32, device=vals.device)
+    status = _cuda.library().raft_ivf_pq_merge_pairs(
+        vals.data_ptr(), ids.data_ptr(), nq, n_probes, kt, k,
+        out_v.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(vals.device).cuda_stream)
+    _cuda.check(status, "merge_pairs")
+    merge_pairs.launches += 1
+    return out_v, out_i
+
+
+merge_pairs.launches = 0
+
+
+def scan_query_major(qrot, centers, probes, list_recon, list_recon_sq,
+                     list_indices, k: int, kt: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B's query-major route (``csrc/pq_group_scan.cu``): one block
+    per query walks its probes with the query's top k in shared memory;
+    :func:`ivf_pq_scan_fused` takes it where ``min(kt, k)`` exceeds
+    ``KT_LIST_MAX``.  CUDA tensors launch it; CPU tensors run the plain
+    version."""
+    if not qrot.is_cuda:
+        return ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
+                                       list_recon_sq, list_indices, k, kt)
+    n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
+                               list_recon_sq, list_indices)
+    kt = min(kt, cap)
+    reason = query_major_reject_reason(cap, rot, k, kt)
+    expects(not reason, f"scan_query_major: {reason}")
+    qrot, centers, probes, recon, rsq, ids = cuda_operands(
+        qrot, centers, probes, list_recon, list_recon_sq, list_indices,
+        "scan_query_major")
+    nq, n_probes = probes.shape
+    dev = qrot.device
+    vals = torch.empty(nq, k, dtype=torch.float32, device=dev)
+    out_ids = torch.empty(nq, k, dtype=torch.int32, device=dev)
+    status = _cuda.library().raft_ivf_pq_scan_fused(
+        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
+        recon.data_ptr(), rsq.data_ptr(), ids.data_ptr(), nq, n_probes,
+        n_lists, cap, rot, k, kt, scan_smem_bytes(cap, rot),
+        vals.data_ptr(), out_ids.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(status, "scan_query_major")
+    scan_query_major.launches += 1
+    return vals, out_ids
+
+
+scan_query_major.launches = 0
+
+
 def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
                       list_indices, k: int, kt: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals (nq, k) f32, ids (nq, k) i32)``: each query's top-k over its
-    probed lists.  CUDA tensors launch Kernel B; CPU tensors run the plain
-    version.  A shape the kernel cannot hold raises with its reason."""
+    probed lists.  CUDA tensors run Kernel B: at ``min(kt, k) <=
+    KT_LIST_MAX`` the list-major route — the pairs grouped by list, then
+    :func:`list_scan` and :func:`merge_pairs`, in query chunks whose pair
+    buffer stays within ``PAIR_BUFFER_BYTES`` — else
+    :func:`scan_query_major` (a dispatch by shape between two kernels, each
+    counted on its own ``launches``).  CPU tensors run the plain version.
+    A shape neither route can hold raises with its reason."""
     if not qrot.is_cuda:
         return ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
                                        list_recon_sq, list_indices, k, kt)
@@ -187,31 +424,17 @@ def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
     kt = min(kt, cap)
     reason = scan_reject_reason(cap, rot, k, kt)
     expects(not reason, f"ivf_pq_scan_fused: {reason}")
-    expects(qrot.dtype == centers.dtype == list_recon_sq.dtype
-            == torch.float32 and list_indices.dtype == torch.int32,
-            "ivf_pq_scan_fused: qrot/centers/list_recon_sq float32 and "
-            "list_indices int32 required")
-    probes = probes.to(torch.int32).contiguous()
-    qrot, centers = qrot.contiguous(), centers.contiguous()
-    list_recon = list_recon.contiguous()
-    list_recon_sq = list_recon_sq.contiguous()
-    list_indices = list_indices.contiguous()
-    expects(list_recon.data_ptr() % 16 == 0,
-            "ivf_pq_scan_fused: list_recon must be 16-byte aligned")
+    pair_kt = min(kt, k)
+    if list_scan_reject_reason(rot, pair_kt):
+        return scan_query_major(qrot, centers, probes, list_recon,
+                                list_recon_sq, list_indices, k, kt)
     nq, n_probes = probes.shape
-    dev = qrot.device
-    vals = torch.empty(nq, k, dtype=torch.float32, device=dev)
-    ids = torch.empty(nq, k, dtype=torch.int32, device=dev)
-    lib = _cuda.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.raft_ivf_pq_scan_fused(
-        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
-        list_recon.data_ptr(), list_recon_sq.data_ptr(),
-        list_indices.data_ptr(), nq, n_probes, n_lists, cap, rot, k, kt,
-        scan_smem_bytes(cap, rot), vals.data_ptr(), ids.data_ptr(), stream)
-    _cuda.check(status, "ivf_pq_scan_fused")
-    ivf_pq_scan_fused.launches += 1
-    return vals, ids
-
-
-ivf_pq_scan_fused.launches = 0
+    step = max(1, PAIR_BUFFER_BYTES // max(1, n_probes * pair_kt * 8))
+    parts = []
+    for s in range(0, nq, step):
+        p = probes[s:s + step]
+        pair_v, pair_i = list_scan(
+            qrot[s:s + step], centers, p, *grouped.build_groups(p, n_lists),
+            list_recon, list_recon_sq, list_indices, pair_kt)
+        parts.append(merge_pairs(pair_v, pair_i, k))
+    return cat_parts(parts, (k,), qrot.device)

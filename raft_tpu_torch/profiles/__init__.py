@@ -14,14 +14,17 @@ and one of the port's own design, with no JAX script behind it:
 
 - :mod:`.kmeans_tile_decomp`: Kernel A's tensor-core tile rebuilt with one
   part taken out at a time (the products, the centroid reloads, the
-  256-row blocks).
+  256-row blocks);
+- :mod:`.list_scan_decomp`: Kernels B and G's list-major pass 1 rebuilt
+  with one part taken out at a time (the top-kt insertions, the fold, the
+  epilogue, the products) and with other row counts in its fold.
 
 Each runs on the card as ``python3 -m raft_tpu_torch.profiles.<name>``
 and prints one JSON line per measurement.  Each of the four ports also has
 a function with explicit sizes and a device; on the CPU it runs the plain
 versions and reports no time (``"ms": null``): a CPU run measures no
-device time.  ``kmeans_tile_decomp`` builds kernel variants and runs on
-the card only.
+device time.  ``kmeans_tile_decomp`` and ``list_scan_decomp`` build
+kernel variants and run on the card only.
 """
 
 from __future__ import annotations

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from raft_tpu_torch import LogicError
+from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import cagra_hop as chop
 from raft_tpu_torch.ops import fused_l2_nn as fnn
 from raft_tpu_torch.ops import kmeans_update as ku
@@ -85,14 +86,40 @@ def _random_index(dev, n_lists, cap, rot, seed):
     return centers, recon, rsq, torch.from_numpy(ids).to(dev)
 
 
+def _route_launches():
+    """Launches of Kernel B's list-major passes 1 and 2 and of its
+    query-major route."""
+    return np.array([pgs.list_scan.launches, pgs.merge_pairs.launches,
+                     pgs.scan_query_major.launches])
+
+
 @pytest.mark.parametrize("cap,rot,k,kt", [(96, 128, 10, 10), (96, 128, 10, 4),
                                           (700, 128, 20, 20),
                                           (2368, 96, 20, 20),
-                                          (64, 32, 256, 256), (40, 24, 5, 3)])
+                                          (64, 32, 256, 256), (40, 24, 5, 3),
+                                          (300, 1024, 64, 64),
+                                          (200, 64, 100, 100)])
 def test_ivf_pq_scan_kernel_matches_plain(dev, cap, rot, k, kt):
     """Distances within 1e-4 at every rank, the same exhausted ranks, no
-    padding or tombstone id, ids consistent with their distances."""
-    n_lists, nq, n_probes = 64, 40, 12
+    padding or tombstone id, ids consistent with their distances.  kt' =
+    min(kt, k) up to KT_LIST_MAX runs the list-major passes, above it the
+    query-major kernel: each route's counter moves, the other's not."""
+    _check_scan_fused(dev, cap, rot, k, kt, 64, 12)
+
+
+@pytest.mark.parametrize("cap,rot,k,kt,n_lists,n_probes", [
+    (300, 128, 100, 20, 256, 128), (64, 32, 40, 10, 256, 204),
+    (40, 24, 224, 7, 300, 289)])
+def test_ivf_pq_scan_kernel_chunked_merge_matches_plain(dev, cap, rot, k, kt,
+                                                        n_lists, n_probes):
+    """As above where pass 2 merges more than one chunk of n_probes x kt
+    candidates and its tree has levels of an odd list count with kt < k /
+    2, so a level writes more entries than the chunk read."""
+    _check_scan_fused(dev, cap, rot, k, kt, n_lists, n_probes)
+
+
+def _check_scan_fused(dev, cap, rot, k, kt, n_lists, n_probes):
+    nq = 40
     centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, cap + k)
     rng = np.random.default_rng(7)
     qrot = torch.from_numpy(rng.normal(size=(nq, rot)).astype(
@@ -101,11 +128,13 @@ def test_ivf_pq_scan_kernel_matches_plain(dev, cap, rot, k, kt):
                        for _ in range(nq)]).astype(np.int32)
     probes[0, -1] = -1                 # skipped by both versions
     probes = torch.from_numpy(probes).to(dev)
-    before = pgs.ivf_pq_scan_fused.launches
+    before = _route_launches()
     vk, ik = pgs.ivf_pq_scan_fused(qrot, centers, probes, recon, rsq, ids,
                                    k, kt)
     torch.cuda.synchronize()
-    assert pgs.ivf_pq_scan_fused.launches == before + 1
+    listed = min(kt, cap, k) <= pgs.KT_LIST_MAX
+    assert tuple(_route_launches() - before) == (
+        (1, 1, 0) if listed else (0, 0, 1))
     vp, ip = pgs.ivf_pq_scan_fused_plain(qrot, centers, probes, recon, rsq,
                                          ids, k, kt)
     fin = torch.isfinite(vp)
@@ -119,6 +148,40 @@ def test_ivf_pq_scan_kernel_matches_plain(dev, cap, rot, k, kt):
                                rtol=1e-4, atol=1e-4)
     same = float((ik == ip).float().mean())
     assert same >= 0.99, same
+
+
+@pytest.mark.parametrize("n_probes,kt,k", [
+    (128, 20, 100), (204, 10, 40), (170, 12, 48), (700, 3, 12),
+    (289, 7, 224), (2100, 1, 256), (100, 64, 256), (96, 20, 20), (1, 5, 5)])
+def test_merge_pairs_kernel_is_bit_equal_to_a_stable_sort(dev, n_probes, kt,
+                                                          k):
+    """Pass 2 alone on sorted pair lists with ties across probes and
+    exhausted tails: each query's top k equals a stable sort of its
+    candidates in probe order (ties to the earlier probe, then the pair's
+    own rank), (+inf, -1) on exhausted ranks, to the bit.  The shapes take
+    one and several chunks and tree levels of an odd list count."""
+    nq = 6
+    rng = np.random.default_rng(n_probes * kt + k)
+    v = np.sort(rng.integers(0, 40, (nq, n_probes, kt)).astype(np.float32)
+                / 4, axis=-1)
+    live = rng.integers(0, kt + 1, (nq, n_probes))
+    dead = np.arange(kt)[None, None, :] >= live[..., None]
+    v[dead] = np.inf
+    i = rng.permutation(nq * n_probes * kt).reshape(v.shape).astype(np.int32)
+    i[dead] = -1
+    vals, ids = torch.from_numpy(v).to(dev), torch.from_numpy(i).to(dev)
+    before = pgs.merge_pairs.launches
+    mv, mi = pgs.merge_pairs(vals, ids, k)
+    torch.cuda.synchronize()
+    assert pgs.merge_pairs.launches == before + 1
+    flat_v, pos = torch.sort(vals.reshape(nq, -1), dim=1, stable=True)
+    flat_i = torch.gather(ids.reshape(nq, -1), 1, pos)
+    rv = torch.full((nq, k), float("inf"), device=dev)
+    ri = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    kk = min(k, flat_v.shape[1])
+    rv[:, :kk], ri[:, :kk] = flat_v[:, :kk], flat_i[:, :kk]
+    ri[torch.isinf(rv)] = -1
+    assert torch.equal(mv, rv) and torch.equal(mi, ri)
 
 
 def _distance_of(qrot, centers, recon, rsq, ids, found, fin):
@@ -319,19 +382,53 @@ def test_ivf_flat_scan_kernel_matches_plain(dev, cap, dim, kt, ip):
 
 @pytest.mark.parametrize("cap,rot,kt", [(96, 128, 10), (416, 128, 20),
                                         (2368, 96, 4), (40, 24, 40),
-                                        (64, 1024, 64)])
+                                        (64, 1024, 64), (300, 96, 100)])
 def test_ivf_pq_scan_recon_kernel_matches_plain(dev, cap, rot, kt):
-    """Kernel G: Kernel B's distances with each pair's top kt."""
+    """Kernel G: Kernel B's distances with each pair's top kt; kt up to
+    KT_LIST_MAX on the list-major pass 1, above it the query-major
+    kernel."""
     n_lists, nq, n_probes = 64, 40, 12
     centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, cap + kt)
     qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
-    before = ps.ivf_pq_scan_recon.launches
+    before = (pgs.list_scan.launches, ps.recon_scan_query_major.launches)
     vk, ik = ps.ivf_pq_scan_recon(qrot, centers, probes, recon, rsq, ids, kt)
     torch.cuda.synchronize()
-    assert ps.ivf_pq_scan_recon.launches == before + 1
+    listed = min(kt, cap) <= pgs.KT_LIST_MAX
+    assert (pgs.list_scan.launches - before[0],
+            ps.recon_scan_query_major.launches - before[1]) == (
+                (1, 0) if listed else (0, 1))
     assert vk.shape == (nq, n_probes, min(kt, cap))
     vp, ip = ps.ivf_pq_scan_recon_plain(qrot, centers, probes, recon, rsq,
                                         ids, kt)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["B", "G"])
+def test_list_major_scans_split_a_hot_list_across_groups(dev, fused):
+    """300 queries all probe list 5 (three groups of one list) besides
+    their own probes, one probe is negative and one a sentinel past the
+    lists: Kernels B and G against their plain versions."""
+    n_lists, nq, n_probes, cap, rot, k, kt = 32, 300, 6, 416, 128, 20, 20
+    centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, 3)
+    qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
+    probes[:, 1] = torch.where(probes[:, 0] == 5, probes[:, 1],
+                               torch.full_like(probes[:, 1], 5))
+    probes[probes[:, 0] == 5, 0] = (5 + 1) % n_lists
+    probes[3, 2] = n_lists
+    groups = grouped.build_groups(probes, n_lists)
+    assert int((groups[0] == 5).sum()) >= 3
+    if fused:
+        vk, ik = pgs.ivf_pq_scan_fused(qrot, centers, probes, recon, rsq, ids,
+                                       k, kt)
+        vp, ip = pgs.ivf_pq_scan_fused_plain(qrot, centers, probes, recon,
+                                             rsq, ids, k, kt)
+    else:
+        vk, ik = ps.ivf_pq_scan_recon(qrot, centers, probes, recon, rsq, ids,
+                                      kt)
+        vp, ip = ps.ivf_pq_scan_recon_plain(qrot, centers, probes, recon, rsq,
+                                            ids, kt)
+        assert bool(torch.isinf(vk[3, 2]).all() and (ik[3, 2] == -1).all())
+    torch.cuda.synchronize()
     _assert_kernel_matches_plain(vk, ik, vp, ip)
 
 
