@@ -60,11 +60,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    entries ``raft_ivf_flat.nlist4096`` and ``.nlist16384``):
    ``ivf_flat.build`` at n_lists 4096 (seconds, stages, capacity), search
    at n_probes 32 / 64 / 128, k 10 (ms, QPS, recall@10, the super-tile
-   factor F, Kernel F launches), Kernel F (``ivf_flat_scan``) against its
-   plain version at n_probes 64, one batch under the profiler; then n_lists
-   16384 (the hierarchical fit) at n_probes 128 with Kernel F against plain
-   there, and Kernels A and H against plain at its fit's and extend's
-   shapes.
+   factor F, the launches of Kernel F's two routes: the list-major pass
+   must run, the query-major kernel not), the same build's recall@10 at
+   each n_probes through each route (within 0.0004), Kernel F
+   (``ivf_flat_scan``, list-major, ``csrc/flat_list_scan.cu``) against
+   its plain version at n_probes 64 with its device split (grouping, pass
+   1), groups and the bytes it streams against the probed live bytes, its
+   query-major route (``flat_scan_query_major``, k 100) against plain on
+   the first 1,000 queries, one batch under the profiler; then n_lists
+   16384 (the hierarchical fit) at n_probes 128 with Kernel F against
+   plain there, and Kernels A and H against plain at its fit's and
+   extend's shapes.
 9. k-means at full width (BASELINE.md config 3): ``kmeans.fit`` on the
    1,000,000 x 128 rows at ``KMeansParams(n_clusters=1024)`` (k-means++,
    max_iter 300, tol 1e-4) and ``predict`` — seconds, iterations, inertia,
@@ -129,9 +135,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Bounds use the H100 SXM peaks: 3.35 TB/s of device memory, 989 TFLOP/s
 for bf16 products (Kernels A-E and G multiply bf16 values, the int8 scan
-by way of bf16) and 67 TFLOP/s of fp32 FFMA for Kernels F, H and I (F and
-H: their contract fixes fp32 products, which TF32 tensor cores would
-round to ten mantissa bits; I: its bf16 products are summed one by one in
+by way of bf16), 495 TFLOP/s of TF32 for Kernel F's list-major pass (its
+fp32 products as 3xTF32: three TF32 products of the hi / lo split, so
+three times the operations; the fp32 FFMA time of one product is printed
+beside it, the yardstick of the earlier query-major times) and 67 TFLOP/s of fp32 FFMA for F's query-major route, H and I
+(H: its contract fixes fp32 products, which one TF32 product would round
+to ten mantissa bits; I: its bf16 products are summed one by one in
 dimension order, as its plain version sums them).
 """
 
@@ -144,6 +153,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
 
 N_DB, N_QUERIES, DIM, LATENT, NOISE = 1_000_000, 5_000, 128, 16, 0.05
@@ -158,6 +168,11 @@ LARGE_KT_QUERIES = 1_000
 # IVF-Flat (conf/sift-like-1m.json raft_ivf_flat.nlist4096 / .nlist16384)
 FLAT_LISTS, FLAT_PROBES, FLAT_CHECK_PROBES = 4096, (32, 64, 128), 64
 FLAT_FINE_LISTS, FLAT_FINE_PROBES = 16384, 128
+# k of the check of Kernel F's query-major route (kt past KT_LIST_MAX) on
+# the first LARGE_KT_QUERIES queries
+FLAT_LARGE_K = 100
+# the most two routes' recall@10 may differ by on one build
+ROUTE_RECALL_GAP = 0.0004
 # k-means (BASELINE config 3) and fusedL2NN (BASELINE config 2)
 KMEANS_CLUSTERS, NN_ROWS = 1024, 100_000
 
@@ -200,7 +215,8 @@ def counters():
             "ivf_pq_scan_codes_fused": pcs.ivf_pq_scan_codes_fused,
             "ivf_pq_scan_codes": pcs.ivf_pq_scan_codes,
             "ivf_pq_scan_recon8": pcs.ivf_pq_scan_recon8,
-            "ivf_flat_scan": ps.ivf_flat_scan,
+            "flat_list_scan": ps.flat_list_scan,
+            "flat_scan_query_major": ps.flat_scan_query_major,
             "fused_l2_nn": fnn.fused_l2_nn,
             "cagra_hop": chop.cagra_hop,
             "pair_scan_variant": ps.pair_scan_variant,
@@ -235,7 +251,8 @@ def h_tile_launches(launches):
 def bound(nbytes, flops, peak=BF16_FLOP_PER_S):
     """(ms, "bytes" | "operations"): the larger of the bytes over the
     memory rate and the operations over their peak (bf16 products by
-    default; the fp32 FFMA peak for Kernels F and H)."""
+    default; TF32 for Kernel F's list-major pass, fp32 FFMA for its
+    query-major route and Kernel H)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                         else "operations")
@@ -300,16 +317,17 @@ def device_split(fn, reps, names):
                    for name in names}
 
 
-def list_major_split(label, run, probes, n_lists, pair_bytes, merged):
+def list_major_split(label, run, probes, n_lists, pair_bytes, merged,
+                     pass1="list_scan_kernel"):
     """The list-major route's device time over one call of ``run``, split
-    into the grouping (every kernel but the two passes), pass 1 and pass 2
-    (``merged``: Kernel B; else Kernel G, no pass 2); the batch's groups
-    and touched lists, and the pair buffer's bytes (not in the bound)."""
+    into the grouping (every kernel but the two passes), pass 1 (the
+    kernels whose name holds ``pass1``) and pass 2 (``merged``: Kernel B;
+    else Kernel F or G, no pass 2); the batch's groups and touched lists,
+    and the pair buffer's bytes (not in the bound)."""
     from raft_tpu_torch.neighbors import grouped
 
-    total, split = device_split(run, KERNEL_REPS,
-                                ("list_scan_kernel", "merge_kernel"))
-    p1, p2 = split["list_scan_kernel"], split["merge_kernel"]
+    total, split = device_split(run, KERNEL_REPS, (pass1, "merge_kernel"))
+    p1, p2 = split[pass1], split["merge_kernel"]
     n_groups = int(grouped.num_groups(probes, n_lists))
     touched = int(grouped.touched_lists(probes, n_lists))
     print(f"{label}: {n_groups:,} groups over {touched:,} touched lists "
@@ -761,7 +779,8 @@ def check_kernel_g(index, queries, kt):
 
 def flat_scan_args(index, queries, n_probes, k):
     """What ``ivf_flat.search`` hands Kernel F: the queries, the
-    (super-tile) probes, the (L/F, F·cap) views of the lists, kt; and F."""
+    (super-tile) probes, the (L/F, F·cap) views of the lists, kt; and F
+    (passed as ``sub_lists``)."""
     from raft_tpu_torch.neighbors import ivf_flat
 
     probes = ivf_flat._select_clusters(index.centers, queries, n_probes,
@@ -776,24 +795,56 @@ def flat_scan_args(index, queries, n_probes, k):
             min(k, F * cap)), F
 
 
-def check_kernel_f(index, queries, n_probes, k):
-    """Kernel F vs plain on an IVF-Flat batch at ``n_probes``: values
-    within 1e-5 of the scale ‖q‖² + max ‖x‖² that fp32 cancellation moves
-    them by, ids equal but at ties, every returned id found in its pair's
-    tile with its distance recomputed; then its CUDA-event time, the plain
-    version's and the bound (each probed tile's live rows read once, 2·dim
-    fp32 operations per (query, probed live row))."""
+def flat_stream_bytes(probes, ids, F, row_bytes):
+    """``(read, multiplied, live)``, a model of Kernel F's list-major
+    schedule worked out from the batch's groups, not a counter: the bytes
+    of rows the schedule streams (each group its tile's sub-lists, each up
+    to its last live row), the bytes of the rows it multiplies (those rows
+    padded to 128-row windows with zeros it does not read), and the probed
+    tiles' live rows read once."""
+    import torch
+    from raft_tpu_torch.neighbors import grouped
+
+    n_tiles, rows = ids.shape
+    live = ids.reshape(n_tiles, F, rows // F) >= 0
+    slot = torch.arange(1, rows // F + 1, device=live.device)
+    end = (live * slot).amax(-1)                      # (n_tiles, F)
+    gl = grouped.build_groups(probes, n_tiles)[0].long()
+    read = int(end.sum(1)[gl].sum()) * row_bytes
+    multiplied = int(((end + 127) // 128).sum(1)[gl].sum()) * 128 * row_bytes
+    return read, multiplied, int(live[torch.unique(gl)].sum()) * row_bytes
+
+
+def check_kernel_f(index, queries, n_probes, k, label):
+    """Kernel F vs plain on an IVF-Flat batch at ``n_probes`` and ``k``
+    through ``ivf_flat_scan`` (k <= 64: the list-major pass; else the
+    query-major kernel; the route's launch counter must move): values
+    within 1e-5 of the scale ‖q‖² + max ‖x‖² that fp32 cancellation
+    moves them by, ids equal but at ties, every returned id found in its
+    pair's tile with its distance recomputed; then its CUDA-event time,
+    the plain version's and the bound.  The list-major bound is the larger
+    of the bytes (each probed tile's live rows read once) and 3xTF32's
+    three TF32 products of 2·dim operations per (query, probed live row)
+    at the TF32 peak, the fp32 FFMA time of one product beside it (the
+    yardstick of the earlier query-major times, printed only); the
+    query-major route's is bytes against fp32 FFMA.  The list-major route
+    adds its device split and groups to the row, and prints the bytes its
+    schedule streams by flat_stream_bytes' model."""
     import torch
     from raft_tpu_torch.ops import pair_scan as ps
 
     args, F = flat_scan_args(index, queries, n_probes, k)
     q, probes, data, dsq, ids, kt = args
-    vk, ik = ps.ivf_flat_scan(*args)
+    listed = not ps.flat_list_scan_reject_reason(data.shape[1], index.dim,
+                                                 kt, F)
+    wrapper = ps.flat_list_scan if listed else ps.flat_scan_query_major
+    before = wrapper.launches
+    vk, ik = ps.ivf_flat_scan(*args, sub_lists=F)
+    assert wrapper.launches == before + 1, f"{label}: route not taken"
     (vp, ip), plain_ms = timed_once(lambda: ps.ivf_flat_scan_plain(*args))
     q_sq = (q * q).sum(1)
     scale = float(q_sq.max() + dsq.max())
-    err = compare_with_plain("ivf_flat_scan", vk, ik, vp, ip,
-                             atol=1e-5 * scale)
+    err = compare_with_plain(label, vk, ik, vp, ip, atol=1e-5 * scale)
     fin = torch.isfinite(vk)
     flat = ids.reshape(-1)
     slot_of = torch.full((int(flat.max()) + 1,), -1, dtype=torch.int64,
@@ -805,37 +856,63 @@ def check_kernel_f(index, queries, n_probes, k):
         nq, n_pr, kt)[fin]
     pair_tile = probes.long()[:, :, None].expand(nq, n_pr, kt)[fin]
     assert bool((slot // data.shape[1] == pair_tile).all()), (
-        "ivf_flat_scan: an id outside its pair's tile")
+        f"{label}: an id outside its pair's tile")
     rows = data.reshape(-1, index.dim)[slot]
     d = torch.clamp_min(q_sq[pair_q] + dsq.reshape(-1)[slot]
                         - 2.0 * (q[pair_q] * rows).sum(1), 0.0)
     assert torch.allclose(d, vk[fin], rtol=0, atol=1e-5 * scale), (
-        "ivf_flat_scan: returned ids do not match their distances")
+        f"{label}: returned ids do not match their distances")
     del rows, d
-    ms = cuda_ms(lambda: ps.ivf_flat_scan(*args), KERNEL_REPS)
+    ms = cuda_ms(lambda: ps.ivf_flat_scan(*args, sub_lists=F), KERNEL_REPS)
     live = (ids >= 0).sum(1)
     pr = probes.long()
     pr = pr[pr < data.shape[0]]
-    nbytes = (int(live[torch.unique(pr)].sum()) * (index.dim * 4 + 8)
+    row_bytes = index.dim * 4 + 8
+    nbytes = (int(live[torch.unique(pr)].sum()) * row_bytes
               + q.numel() * 4 + probes.numel() * 4 + vk.numel() * 8)
     flops = 2.0 * index.dim * int(live[pr].sum())
-    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
-    print(f"ivf_flat_scan at n_probes {n_probes} (F {F}, tile {data.shape[1]} "
-          f"slots): {ms:.3f} ms/batch of {nq}, plain {plain_ms:.1f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.1f} GFLOP)", flush=True)
-    return {"name": "ivf_flat_scan", "route": "cuda",
-            "source": "raft_tpu_torch/csrc/pair_scan.cu",
-            "replaces": "raft_tpu/ops/pq_group_scan_pallas.py:637",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "F": F}
+    ffma_ms = 1e3 * flops / FP32_FLOP_PER_S
+    row = {"name": "ivf_flat_scan", "route": "cuda",
+           "source": "raft_tpu_torch/csrc/" + (
+               "flat_list_scan.cu" if listed else "pair_scan.cu"),
+           "replaces": "raft_tpu/ops/pq_group_scan_pallas.py:637",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": None, "F": F}
+    ops_ms = 1e3 * (3 * flops / TF32_FLOP_PER_S if listed
+                    else flops / FP32_FLOP_PER_S)
+    if listed:
+        bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+        streamed, multiplied, live_bytes = flat_stream_bytes(
+            probes, ids, F, row_bytes)
+        row.update(list_major_split(
+            f"{label} split", lambda: ps.ivf_flat_scan(*args, sub_lists=F),
+            probes, data.shape[0], vk.numel() * 8, False,
+            "flat_list_scan_kernel"))
+        print(f"{label}, schedule model (flat_stream_bytes, not measured): "
+              f"streams {streamed / 1e6:.1f} MB for {live_bytes / 1e6:.1f} "
+              f"MB of probed live rows ({streamed / max(live_bytes, 1):.3f} "
+              f"per live byte); rows multiplied, padded to 128-row "
+              f"windows: {multiplied / max(live_bytes, 1):.3f} per live "
+              f"byte", flush=True)
+    else:
+        bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+    row.update(bound_ms=bound_ms, bound_by=bound_by)
+    print(f"{label} ({'list-major' if listed else 'query-major'}, n_probes "
+          f"{n_probes}, k {k}, F {F}, tile {data.shape[1]} slots): {ms:.3f} "
+          f"ms/batch of {nq}, plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB = "
+          f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms of bytes, "
+          f"{flops / 1e9:.1f} GFLOP = "
+          f"{'3xTF32' if listed else 'fp32 FFMA'} {ops_ms:.4f} ms"
+          + (f"; fp32 FFMA yardstick {ffma_ms:.4f} ms" if listed else "")
+          + ")", flush=True)
+    return row
 
 
 def flat_searches(res, index, queries, truth, probes_list, label):
     """ivf_flat.search at each n_probes, k 10: a first search, then
-    SEARCH_REPS timed batches; ms, QPS, recall@10, F and Kernel F
-    launches per setting."""
+    SEARCH_REPS timed batches; ms, QPS, recall@10, F and the launches of
+    Kernel F's two routes per setting."""
     import torch
     from raft_tpu_torch.neighbors import ivf_flat
     from raft_tpu_torch.ops import pair_scan as ps
@@ -845,7 +922,8 @@ def flat_searches(res, index, queries, truth, probes_list, label):
         sp = ivf_flat.SearchParams(n_probes=n_probes)
         F, _ = ivf_flat.super_tile_factor(index.capacity, index.n_lists,
                                           n_probes)
-        before = ps.ivf_flat_scan.launches
+        before = (ps.flat_list_scan.launches,
+                  ps.flat_scan_query_major.launches)
         ivf_flat.search(res, sp, index, queries, K)
         ms = []
         for _ in range(SEARCH_REPS):
@@ -861,8 +939,10 @@ def flat_searches(res, index, queries, truth, probes_list, label):
         print(f"{label} n_probes {n_probes} (F {F}): search "
               f"{', '.join(f'{m:.2f}' for m in ms)} ms per batch of "
               f"{queries.shape[0]}; QPS {queries.shape[0] / (med / 1e3):.0f} "
-              f"(median); recall@10 {recall:.4f}; Kernel F launches "
-              f"{ps.ivf_flat_scan.launches - before}", flush=True)
+              f"(median); recall@10 {recall:.4f}; Kernel F launches: "
+              f"list-major {ps.flat_list_scan.launches - before[0]}, "
+              f"query-major {ps.flat_scan_query_major.launches - before[1]}",
+              flush=True)
     return out
 
 
@@ -887,16 +967,20 @@ def build_flat(res, db, n_lists, label):
 def ivf_flat_path(db, queries, truth):
     """The IVF-Flat phases: ``raft_ivf_flat.nlist4096`` built and searched
     at n_probes 32 / 64 / 128 (launches zeroed before the build, read
-    after the searches), Kernel F vs plain at n_probes 64, one batch under
-    the profiler; then ``raft_ivf_flat.nlist16384`` (the hierarchical fit)
-    at n_probes 128 with Kernel F vs plain there, and Kernels A and H vs
-    plain at the shapes its hierarchical fit and its extend give them, on a
+    after the searches; Kernel F's list-major pass must run and its
+    query-major kernel not), the same build through each route of Kernel
+    F, Kernel F vs plain at n_probes 64 (list-major, and query-major at k
+    100 on the first LARGE_KT_QUERIES queries), one batch under the
+    profiler; then ``raft_ivf_flat.nlist16384`` (the hierarchical fit) at
+    n_probes 128 with Kernel F vs plain there, and Kernels A and H vs plain
+    at the shapes its hierarchical fit and its extend give them, on a
     trainset of the build's size (``also_checked``).  Returns F's kernels
     row, the A and H ``also_checked`` entries and the two indexes (nlist
     16384, then 4096) for the profile phase."""
     import torch
     from raft_tpu_torch import DeviceResources
     from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import pair_scan as ps
 
     res = DeviceResources(seed=0)
     torch.cuda.reset_peak_memory_stats()
@@ -908,13 +992,27 @@ def ivf_flat_path(db, queries, truth):
     print(f"IVF-Flat nlist 4096 launches (build + searches): "
           f"{json.dumps(launches)}; peak device memory {peak_gb():.2f} GB",
           flush=True)
-    for name in ("ivf_flat_scan", "fused_l2_nn", "kmeans_assign_update"):
+    for name in ("flat_list_scan", "fused_l2_nn", "kmeans_assign_update"):
         assert launches[name] > 0, f"IVF-Flat: {name} never launched"
+    assert launches["flat_scan_query_major"] == 0, (
+        "IVF-Flat: the k-10 searches left the list-major route")
     assert results[FLAT_PROBES[-1]]["recall"] >= 0.90, (
         f"IVF-Flat recall@10 {results[FLAT_PROBES[-1]]['recall']} below "
         f"0.90 at n_probes {FLAT_PROBES[-1]}")
-    row = check_kernel_f(index, queries, FLAT_CHECK_PROBES, K)
-    row["launches"] = launches["ivf_flat_scan"]
+    for n_probes in FLAT_PROBES:
+        sp = ivf_flat.SearchParams(n_probes=n_probes)
+        same_build_routes(
+            f"IVF-Flat nlist 4096 n_probes {n_probes}", ivf_flat,
+            "ivf_flat_scan",
+            lambda *a, sub_lists=1: ps.flat_scan_query_major(*a),
+            (ps.flat_list_scan, ps.flat_scan_query_major),
+            lambda: ivf_flat.search(res, sp, index, queries, K)[1], truth)
+    row = check_kernel_f(index, queries, FLAT_CHECK_PROBES, K,
+                         "ivf_flat_scan")
+    row["launches"] = launches["flat_list_scan"]
+    query_major = check_kernel_f(
+        index, queries[:LARGE_KT_QUERIES], FLAT_CHECK_PROBES, FLAT_LARGE_K,
+        "flat_scan_query_major (F, query-major)")
     sp = ivf_flat.SearchParams(n_probes=FLAT_CHECK_PROBES)
     device_breakdown(f"IVF-Flat search batch (n_probes {FLAT_CHECK_PROBES})",
                      lambda: ivf_flat.search(res, sp, index, queries, K))
@@ -924,13 +1022,20 @@ def ivf_flat_path(db, queries, truth):
     flat_searches(res, fine, queries, truth, (FLAT_FINE_PROBES,),
                   "IVF-Flat nlist 16384")
     fine_launches = read_launches()
-    for name in ("ivf_flat_scan", "fused_l2_nn", "kmeans_assign_update"):
+    for name in ("flat_list_scan", "fused_l2_nn", "kmeans_assign_update"):
         assert fine_launches[name] > 0, f"IVF-Flat 16384: {name} never launched"
-    row_fine = check_kernel_f(fine, queries, FLAT_FINE_PROBES, K)
-    row["also_checked"] = [at_shape(
-        row_fine, f"nlist 16384: {N_QUERIES:,} queries x {FLAT_FINE_PROBES} "
-        f"probes, k {K}, F {row_fine['F']}, capacity {fine.capacity}",
-        fine_launches["ivf_flat_scan"])]
+    row_fine = check_kernel_f(fine, queries, FLAT_FINE_PROBES, K,
+                              "ivf_flat_scan nlist 16384")
+    row["also_checked"] = [
+        at_shape(row_fine, f"nlist 16384: {N_QUERIES:,} queries x "
+                 f"{FLAT_FINE_PROBES} probes, k {K}, F {row_fine['F']}, "
+                 f"capacity {fine.capacity}",
+                 fine_launches["flat_list_scan"]),
+        at_shape(query_major, f"query-major (csrc/pair_scan.cu Fp32Rows): "
+                 f"nlist 4096, {LARGE_KT_QUERIES:,} queries x "
+                 f"{FLAT_CHECK_PROBES} probes, k {FLAT_LARGE_K}, F "
+                 f"{query_major['F']}, capacity {index.capacity} (1 launch "
+                 f"in the check)", launches["flat_scan_query_major"])]
     n_train = int(N_DB * ivf_flat.IndexParams().kmeans_trainset_fraction)
     sel = torch.randperm(N_DB, generator=DeviceResources(seed=0).generator,
                          device=db.device)[:n_train]
@@ -1488,36 +1593,53 @@ def search_mode(res, index, db, queries, truth, label, sp, kernel):
             "batch_ms": med, "cand": cand, "fallbacks": fallbacks}
 
 
-def same_build_routes(res, index, db, queries, truth, label, sp, fused):
-    """Recall@10 of one search + refine batch on one build through the
-    list-major route and through the query-major kernel swapped in for
-    the search's scan (Kernel B's ``scan_query_major`` when ``fused``,
-    else G's ``recon_scan_query_major``): what the routes' own rounding
-    does to recall, with the build held fixed."""
+def same_build_routes(label, module, name, walked, kernels, search,
+                      truth):
+    """Recall@10 of one batch on one build (``search()`` gives its found
+    ids) through the list-major route and through the query-major scan
+    ``walked`` swapped in for ``module.name``, the search's scan: what
+    the routes' own rounding does to recall, with the build held fixed.
+    ``kernels`` (list-major wrapper, query-major wrapper): their launches
+    say that each route ran alone.  The two must agree within
+    ROUTE_RECALL_GAP."""
+    listed = getattr(module, name)
+    recall = {}
+    for route in ("list-major", "query-major"):
+        before = [k.launches for k in kernels]
+        if route == "query-major":
+            setattr(module, name, walked)
+        try:
+            found = search()
+        finally:
+            setattr(module, name, listed)
+        ran = tuple(k.launches > b for k, b in zip(kernels, before))
+        assert ran == (route == "list-major", route == "query-major"), (
+            f"{label}: the {route} route did not run alone")
+        hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
+        recall[route] = float(hits) / truth.numel()
+    print(f"{label}, one build, recall@10 by route: "
+          f"{json.dumps(recall)}", flush=True)
+    gap = abs(recall["list-major"] - recall["query-major"])
+    assert gap <= ROUTE_RECALL_GAP, (
+        f"{label}: the routes' recall@10 differ by {gap}")
+    return recall
+
+
+def pq_same_build_routes(res, index, db, queries, truth, label, sp, fused):
+    """:func:`same_build_routes` for one IVF-PQ search + refine batch:
+    Kernel B's ``scan_query_major`` swapped in for the search's fused scan
+    when ``fused``, else G's ``recon_scan_query_major`` for its recon
+    scan; pass 1 (``list_scan``) is the list-major route of both."""
     from raft_tpu_torch.neighbors import ivf_pq, refine
     from raft_tpu_torch.ops import pair_scan as ps
     from raft_tpu_torch.ops import pq_group_scan as pgs
 
     name, walked = (("ivf_pq_scan_fused", pgs.scan_query_major) if fused
                     else ("ivf_pq_scan_recon", ps.recon_scan_query_major))
-    listed = getattr(ivf_pq, name)
-    recall = {}
-    for route in ("list-major", "query-major"):
-        before = walked.launches
-        if route == "query-major":
-            setattr(ivf_pq, name, walked)
-        try:
-            _, cand = ivf_pq.search(res, sp, index, queries, K_SEARCH)
-            _, found = refine.refine(res, db, queries, cand, K)
-        finally:
-            setattr(ivf_pq, name, listed)
-        assert (walked.launches > before) == (route == "query-major"), (
-            f"{label}: the {route} route did not run")
-        hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
-        recall[route] = float(hits) / truth.numel()
-    print(f"{label}, one build, recall@10 by route: "
-          f"{json.dumps(recall)}", flush=True)
-    return recall
+    return same_build_routes(
+        label, ivf_pq, name, walked, (pgs.list_scan, walked),
+        lambda: refine.refine(res, db, queries, ivf_pq.search(
+            res, sp, index, queries, K_SEARCH)[1], K)[1], truth)
 
 
 def deep_path(dev):
@@ -1608,10 +1730,10 @@ def deep_path(dev):
     assert runs["auto"]["fallbacks"] == 0, "deep auto: Kernel B refused"
     assert runs["auto"]["launches"]["list_scan"] > 0, (
         "deep auto: pass 1 never launched")
-    same_build_routes(res, index, db, queries, truth, "deep auto", sp(),
-                      True)
-    same_build_routes(res, index, db, queries, truth, "deep recon kt 4",
-                      runs["recon"]["params"], False)
+    pq_same_build_routes(res, index, db, queries, truth, "deep auto", sp(),
+                         True)
+    pq_same_build_routes(res, index, db, queries, truth, "deep recon kt 4",
+                         runs["recon"]["params"], False)
     for label in ("fused", "codes", "recon8", "recon"):
         assert runs[label]["recall"] >= 0.80, (
             f"deep {label} recall@10 {runs[label]['recall']} below 0.80")
@@ -1984,8 +2106,8 @@ def main() -> int:
 
     phase("kernel B vs plain (the main path's batch on the built index)")
     row_b = check_kernel_b(index, queries)
-    same_build_routes(res, index, db, queries, truth, "flagship auto", sp,
-                      True)
+    pq_same_build_routes(res, index, db, queries, truth, "flagship auto",
+                         sp, True)
     b_query_major = check_query_major(index, queries, LARGE_KT_QUERIES, True)
 
     phase("kernel H vs plain at the flagship build's shapes")
@@ -2001,8 +2123,8 @@ def main() -> int:
     sp_recon = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode="recon")
     recon = search_mode(res, index, db, queries, truth, "flagship recon",
                         sp_recon, "list_scan")
-    same_build_routes(res, index, db, queries, truth, "flagship recon",
-                      sp_recon, False)
+    pq_same_build_routes(res, index, db, queries, truth, "flagship recon",
+                         sp_recon, False)
     assert recon["recall"] >= 0.90, (
         f"flagship recon recall@10 {recon['recall']} below 0.90")
     row_g = dict(check_kernel_g(index, queries, K_SEARCH),

@@ -35,9 +35,10 @@
 //     per chunk), so neither rot nor the capacity sizes shared memory;
 //   - each stage's 128 x 128 distances go, 64 columns at a time, into the
 //     stage just consumed, and each warp folds 16 pairs' rows into their
-//     running top kt (a ballot finds a 32-column chunk's candidates below
-//     the kt-th value; each is inserted in slot order by shuffles, so
-//     ties keep the lowest slot), held in shared memory: kt <= kKtMax;
+//     running top kt (list_fold.cuh's fold_rows, shared with Kernel F:
+//     a ballot finds a 32-column chunk's candidates below the kt-th
+//     value; each is inserted in slot order by shuffles, so ties keep the
+//     lowest slot), held in shared memory: kt <= kKtMax;
 //   - the pairs' top kt leave coalesced, at the pair index the group's
 //     slot holds.  Extra blocks past the groups write the empty pairs.
 // A list is read once per group of its pairs (~1.4 times a batch at the
@@ -57,16 +58,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "list_fold.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
+using namespace raft_list;
 using namespace raft_mma;
 
-constexpr int kGroup = 128;          // pairs a group (grouped.GROUP)
-constexpr int kThreads = 256;        // two warpgroups, 64 pairs each
 constexpr int kKtMax = 64;           // KT_LIST_MAX, ops/pq_group_scan.py
-constexpr int kHalf = 64;            // distance columns a fold takes
 constexpr int kRowsAtOnce = 4;       // pair rows a warp folds side by side
 constexpr int kMaxK = 256;           // K_MAX, ops/pq_group_scan.py
 constexpr int kMergeEntries = 2048;  // candidates a merge chunk reads
@@ -160,122 +160,6 @@ __device__ __forceinline__ void stage_key(uint32_t dst,
                : "memory");
 }
 
-// a staged tile's keys in place of its norms: the norm, or +inf past the
-// capacity and on a row with a negative id, so its distance is +inf and
-// never kept
-__device__ __forceinline__ void key_rows(float* key, int r0, int cap,
-                                         int tid) {
-  if (tid >= BN) return;
-  const int id = reinterpret_cast<const int*>(key + BN)[tid];
-  if (r0 + tid >= cap || id < 0) key[tid] = INFINITY;
-}
-
-// the kt-th entry of a row whose lane l holds entries l (+ 32), to every
-// lane
-template <int E>
-__device__ __forceinline__ float kth_entry(const float (&v)[E], int kt) {
-  if constexpr (E == 1) return __shfl_sync(0xffffffffu, v[0], kt - 1);
-  return kt <= 32 ? __shfl_sync(0xffffffffu, v[0], kt - 1)
-                  : __shfl_sync(0xffffffffu, v[E - 1], kt - 33);
-}
-
-// Fold distance columns [0, 64) (slots slot0 + c) of the group's pair
-// rows into their sorted top kt.  Warp w takes rows 16 w .. 16 w + 15,
-// kRowsAtOnce at a time; while it works on a row, lane l holds the row's
-// entries l (and l + 32: E = 2, kt <= 64).  A 32-column chunk's candidates
-// below a row's kt-th value are found by one ballot and inserted in slot
-// order, each after every equal entry (its place: the entries at or below
-// it, counted by ballot; the rest shift up one lane), so ties keep the
-// lowest slot; after each insertion a ballot against the new kt-th value
-// drops the chunk's candidates that no longer qualify.  The rows'
-// insertions are independent, so the warp issues them side by side
-// (straight-line code over the rows, predicated where a row has no
-// candidate left) and their shuffle latencies overlap.
-template <int E>
-__device__ __forceinline__ void fold_rows(float* top_v, int* top_s,
-                                         const float* dist,
-                                         const int* s_pair, int n_pairs,
-                                         int kt, int slot0, int warp,
-                                         int lane) {
-  constexpr unsigned kAll = 0xffffffffu;
-  constexpr int kRows = kGroup / (kThreads / 32);
-  constexpr int R = kRowsAtOnce;
-  for (int r0 = warp * kRows; r0 < (warp + 1) * kRows; r0 += R) {
-    float v[R][E], thr[R], d[R];
-    int s[R][E];
-    unsigned mask[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        v[j][e] = top_v[(r0 + j) * kKtMax + 32 * e + lane];
-        s[j][e] = top_s[(r0 + j) * kKtMax + 32 * e + lane];
-      }
-      thr[j] = kth_entry<E>(v[j], kt);
-    }
-    for (int c0 = 0; c0 < kHalf; c0 += 32) {
-      unsigned any = 0;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int r = r0 + j;
-        d[j] = dist[r * kHalf + ((c0 + lane) ^ (r & 31))];
-        mask[j] = s_pair[r] < n_pairs ? __ballot_sync(kAll, d[j] < thr[j])
-                                      : 0u;
-        any |= mask[j];
-      }
-      while (any) {
-        any = 0;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const unsigned m = mask[j];
-          const int b = __ffs(m) - 1;             // -1: no candidate left
-          const float x = __shfl_sync(kAll, d[j], b & 31);
-          const bool ins = m != 0 && x < thr[j];
-          int pos = 0;
-#pragma unroll
-          for (int e = 0; e < E; ++e)
-            pos += __popc(__ballot_sync(kAll, v[j][e] <= x));
-          float up[E];
-          int us[E];
-#pragma unroll
-          for (int e = 0; e < E; ++e) {
-            up[e] = __shfl_up_sync(kAll, v[j][e], 1);
-            us[e] = __shfl_up_sync(kAll, s[j][e], 1);
-          }
-          if constexpr (E == 2) {
-            const float w = __shfl_sync(kAll, v[j][0], 31);
-            const int ws = __shfl_sync(kAll, s[j][0], 31);
-            if (lane == 0) {
-              up[1] = w;
-              us[1] = ws;
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < E; ++e) {
-            const int idx = 32 * e + lane;
-            if (ins && idx >= pos) {
-              v[j][e] = idx == pos ? x : up[e];
-              s[j][e] = idx == pos ? slot0 + c0 + b : us[e];
-            }
-          }
-          thr[j] = kth_entry<E>(v[j], kt);
-          // the chunk's later candidates still below the new kt-th value
-          mask[j] = m & (m - 1) & __ballot_sync(kAll, d[j] < thr[j]);
-          any |= mask[j];
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        top_v[(r0 + j) * kKtMax + 32 * e + lane] = v[j][e];
-        top_s[(r0 + j) * kKtMax + 32 * e + lane] = s[j][e];
-      }
-    }
-  }
-}
-
 // E: a row's top-kt entries a lane holds while it is folded, 1 for kt <=
 // 32, else 2
 template <int E>
@@ -294,14 +178,8 @@ list_scan_kernel(const float* __restrict__ qrot,
   __shared__ int s_extent;
   const int tid = threadIdx.x;
   if (blockIdx.x >= n_groups) {
-    // no group holds a pair whose probe lies outside [0, n_lists)
-    const int p = (blockIdx.x - n_groups) * kThreads + tid;
-    if (p < n_pairs && (probes[p] < 0 || probes[p] >= n_lists)) {
-      for (int t = 0; t < kt; ++t) {
-        out_v[(size_t)p * kt + t] = INFINITY;
-        out_i[(size_t)p * kt + t] = -1;
-      }
-    }
+    write_empty_pairs(blockIdx.x - n_groups, probes, n_pairs, n_lists, kt,
+                      out_v, out_i);
     return;
   }
 
@@ -326,11 +204,7 @@ list_scan_kernel(const float* __restrict__ qrot,
 
   const int lane = tid & 31, warp = tid >> 5;
   if (tid == 0) s_extent = 0;
-  if (tid < kGroup) s_pair[tid] = slot_pairs[(size_t)g * kGroup + tid];
-  for (int i = tid; i < kGroup * kKtMax; i += kThreads) {
-    top_v[i] = INFINITY;
-    top_s[i] = INT_MAX;
-  }
+  start_group(slot_pairs, g, s_pair, top_v, top_s, kKtMax, tid);
   __syncthreads();
   // rows past the list's last live one are padding and never streamed
   int last = 0;
@@ -376,9 +250,6 @@ list_scan_kernel(const float* __restrict__ qrot,
   cp_async_commit();
 
   const int wg = tid >> 7;
-  const int quad = lane & 3;
-  // this thread's two pair rows in the group (fragment rows r and r + 8)
-  const int rloc = wg * kRowsWg + (warp & 3) * 16 + (lane >> 2);
   float acc[kAccs];
 #pragma unroll
   for (int i = 0; i < kAccs; ++i) acc[i] = 0.f;
@@ -411,46 +282,20 @@ list_scan_kernel(const float* __restrict__ qrot,
     if (q != nchunks - 1) continue;
 
     // epilogue of row tile t: both warpgroups' products are done before
-    // the stage's rows are overwritten by distances
-    float* key = reinterpret_cast<float*>(base + L.key + stage * BN * 8);
-    key_rows(key, t * BN, cap, tid);
-    __syncthreads();
-    float* dist = reinterpret_cast<float*>(base + L.b + stage * L.b_step);
-    const float ss[2] = {ssq[rloc], ssq[rloc + 8]};
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int jj = 8 * h + j;
-        const int c = 8 * j + 2 * quad;
-        const float2 kv = *reinterpret_cast<const float2*>(key + 64 * h + c);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = rloc + 8 * hh;
-          float* drow = dist + row * kHalf;
-          drow[c ^ (row & 31)] =
-              fmaxf(ss[hh] + kv.x - 2.f * acc[4 * jj + 2 * hh], 0.f);
-          drow[(c + 1) ^ (row & 31)] =
-              fmaxf(ss[hh] + kv.y - 2.f * acc[4 * jj + 2 * hh + 1], 0.f);
-        }
-      }
-      __syncthreads();
-      fold_rows<E>(top_v, top_s, dist, s_pair, n_pairs, kt,
-                   t * BN + 64 * h, warp, lane);
-      __syncthreads();
-    }
+    // the stage's rows are overwritten by distances (rows at or past the
+    // extent, padding or past the capacity, are dead)
+    fold_window<E, kRowsAtOnce>(
+        acc, reinterpret_cast<float*>(base + L.key + stage * BN * 8), ssq,
+        reinterpret_cast<float*>(base + L.b + stage * L.b_step), top_v,
+        top_s, kKtMax, s_pair, n_pairs, kt, t * BN, extent,
+        [](float dot, float key, float ss) {
+          return fmaxf(ss + key - 2.f * dot, 0.f);
+        });
   }
 
-  // each pair's top kt, coalesced: consecutive threads, consecutive ranks
   __syncthreads();
-  for (int e = tid; e < kGroup * kt; e += kThreads) {
-    const int r = e / kt, i = e - r * kt;
-    const int p = s_pair[r];
-    if (p >= n_pairs) continue;
-    const float v = top_v[r * kKtMax + i];
-    out_v[(size_t)p * kt + i] = v;
-    out_i[(size_t)p * kt + i] =
-        v < INFINITY ? ids[lbase + top_s[r * kKtMax + i]] : -1;
-  }
+  write_top(top_v, top_s, kKtMax, s_pair, n_pairs, kt, ids, lbase, out_v,
+            out_i);
 }
 
 // entries of the sorted list v[0, n) below x (or_equal: at or below x)

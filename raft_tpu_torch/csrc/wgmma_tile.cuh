@@ -1,9 +1,12 @@
-// The Hopper tensor-core pieces Kernels A, B and G share: the wgmma
-// m64n128k16 bf16 -> fp32 product with its accumulator fragment, the
-// shared-memory descriptor of a K-major operand in 128-byte swizzle atoms,
-// the swizzled staging of bf16 rows by cp.async, and the fences between
-// the generic and the async proxy.  Descriptors and swizzle are built by
-// hand (no CUTLASS).
+// The Hopper tensor-core pieces Kernels A, B, F and G share: the wgmma
+// m64n128k16 bf16 -> fp32 product (A, B, G) and the m64n128k8 TF32 one
+// with the hi / lo split of 3xTF32 (F) with their accumulator fragment,
+// the shared-memory descriptor of a K-major operand in 128-byte swizzle
+// atoms, the swizzled staging of bf16 rows by cp.async, and the fences
+// between the generic and the async proxy.  Descriptors and swizzle are
+// built by hand (no CUTLASS).  The byte layout is the same for both
+// types: an atom is 8 rows of 128 bytes (64 bf16 or 32 fp32 dims), and a
+// k-step (k16 bf16, k8 TF32) is 32 bytes of it.
 //
 // Fragment of one warpgroup's 64 x 128 fp32 accumulator (kAccs = 64 a
 // thread): warp w of the warpgroup holds rows 16 (w % 4) + lane / 4 and
@@ -117,6 +120,62 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[kAccs],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A (64 x 8, K-major) . B (128 x 8, K-major)^T in TF32 (each
+// operand's low 13 mantissa bits ignored), fp32 accumulation; scale_d ==
+// 0 ignores d's old value.  TF32 takes both operands K-major only.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[kAccs],
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// x rounded to TF32 (nearest, ties away; the low 13 bits zero)
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// 3xTF32's split of x: hi = tf32(x) and lo = tf32(x - hi) (x - hi is
+// exact in fp32), so x = hi + lo within 2^-22 |x|
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
 }
 
 // byte offset of 16-byte chunk kg (dims 8 kg .. 8 kg + 7) of row r in a

@@ -22,9 +22,10 @@ super-tiles of F adjacent lists (:func:`super_tile_factor`; a probed list
 scans its whole tile, and a query's duplicate tiles are dropped by
 :func:`dedup_super_probes`) — part of the result, as in the JAX package:
 its search equals brute force over the union of the probed tiles.  Kernel
-F (:func:`raft_tpu_torch.ops.pair_scan.ivf_flat_scan`) writes each pair's
-top k, :func:`_finalize_topk` takes each query's top k, and the sqrt
-metrics their sqrt.
+F (:func:`raft_tpu_torch.ops.pair_scan.ivf_flat_scan`; at k <= 64 the
+pairs grouped by tile and scanned list-major, each tile's sub-lists up to
+their last live row) writes each pair's top k, :func:`_finalize_topk`
+takes each query's top k, and the sqrt metrics their sqrt.
 
 ``_select_clusters`` ranks coarse probes with an exact ``torch.topk``.  The
 JAX package ranks them with ``approx_max_k`` on a TPU (exact on the CPU,
@@ -494,7 +495,7 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
             ids = ids.reshape(n_eff, F * cap)
             dsq = None if ip else dsq.reshape(n_eff, F * cap)
         vals, found = ivf_flat_scan(queries, probes, data, dsq, ids,
-                                    min(k, F * cap), ip)
+                                    min(k, F * cap), ip, sub_lists=F)
         return _finalize_topk(vals, found, k, index.metric)
 
 

@@ -54,6 +54,8 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _P, _P, _P),
     "raft_ivf_flat_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _P),
+    "raft_ivf_flat_list_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "raft_ivf_pq_scan_recon": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P, _P, _P),
     "raft_pair_scan_variant": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -3,27 +3,32 @@
 - Kernel F, :func:`ivf_flat_scan`: replaces
   ``raft_tpu/ops/pq_group_scan_pallas.py:637 grouped_flat_l2_scan``, the
   IVF-Flat scan over raw fp32 list rows (exact ``‖q‖² + ‖x‖² − 2q·x`` with
-  the dot product in fp32, or the InnerProduct form).
+  the dot product in fp32, or the InnerProduct form).  Up to kt
+  ``KT_LIST_MAX`` it is list-major: the pairs grouped by (super-)tile,
+  then :func:`flat_list_scan` (``csrc/flat_list_scan.cu``, 3xTF32
+  ``wgmma``); above it, :func:`flat_scan_query_major`.
 - Kernel G, :func:`ivf_pq_scan_recon`: replaces ``:566 grouped_l2_scan``,
   the IVF-PQ scan over the bf16 reconstruction cache (Kernel B's row
   arithmetic with a per-pair output).  Up to kt ``KT_LIST_MAX`` it is
   Kernel B's list-major pass 1 (``csrc/pq_list_scan.cu``, pairs grouped by
   list, bf16 ``wgmma``); above it, :func:`recon_scan_query_major`.
 
-Kernel F and G's large-kt route are ``csrc/pair_scan.cu``; its source note
-says what bounds them on an H100 (bytes) and what the query-major design
-does about it.  No TPU layout comes over: no one-hot query gathers, no f32
-id lanes.
+The large-kt routes of F and G are ``csrc/pair_scan.cu``; each source
+note says what bounds its kernel on an H100 and what the design does
+about it.  No TPU layout comes over: no one-hot query gathers, no f32 id
+lanes.
 
 - :func:`pair_scan_variant`: the profile variants of F and G (the
   switches of ``profiles/group_kernel_decomp_r5.py:50 run_var``): the raw
   per-slot distance block with no selection, and queries pre-gathered per
-  pair; ``raft_tpu_torch.profiles.group_kernel_decomp_r5`` times them.
+  pair, on the query-major kernel; ``raft_tpu_torch.profiles.
+  group_kernel_decomp_r5`` times them.
 
-Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
-version for CPU tensors — nothing else picks between them, and a failed
-build or launch raises.  ``<wrapper>.launches`` counts kernel launches;
-:func:`pair_scan_reject_reason` says why a kernel cannot take a shape.
+Each kernel wrapper launches its kernel for CUDA tensors and runs its
+``_plain`` version for CPU tensors — nothing else picks between them, and
+a failed build or launch raises.  ``<wrapper>.launches`` counts kernel
+launches; the ``*_reject_reason`` functions say why a kernel cannot take a
+shape.
 
 Contract (per pair, out ``(nq, n_probes, kt)`` f32 / i32 each): rows with
 a negative id never enter, a probe outside ``[0, n_lists)`` is an empty
@@ -35,7 +40,8 @@ descending order.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,11 +49,12 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops.pq_group_scan import (
-    _PLAIN_CHUNK, _SMEM_LIMIT, _check, cat_parts, cuda_operands, list_scan,
-    list_scan_reject_reason, pair_topk, plain_chunks, probe_distances,
-    recon_dot)
+    _PLAIN_CHUNK, _SMEM_LIMIT, KT_LIST_MAX, _check, cat_parts, cuda_operands,
+    list_scan, list_scan_reject_reason, pair_topk, plain_chunks,
+    probe_distances, recon_dot)
 
 _MAX_WIDTH = 1024                # 32 lanes * the chunks a lane holds
+MAX_SUB_LISTS = 8                # kMaxSub in csrc/flat_list_scan.cu
 
 
 def pair_scan_smem_bytes(cap: int, width: int) -> int:
@@ -138,14 +145,14 @@ def ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
     return cat_parts(parts, (probes.shape[1], kt), queries.device)
 
 
-def ivf_flat_scan(queries, probes, list_data, list_data_sq: Optional[
-        torch.Tensor], list_indices, kt: int, ip: bool = False
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
-    pair's top kt over raw fp32 list rows.  ``list_data_sq`` (L, cap) holds
-    the rows' squared norms (unused for InnerProduct).  A super-tiled index
-    passes its (L/F, F·cap, dim) view and super-probes.  CUDA tensors
-    launch Kernel F; CPU tensors run the plain version."""
+def flat_scan_query_major(queries, probes, list_data, list_data_sq,
+                          list_indices, kt: int, ip: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel F's query-major route (``csrc/pair_scan.cu`` ``Fp32Rows``):
+    one block per query walks its probes, the products in fp32 FFMA;
+    :func:`ivf_flat_scan` takes it where kt exceeds ``KT_LIST_MAX`` or the
+    list-major gate refuses the shape.  CUDA tensors launch it; CPU tensors
+    run the plain version."""
     if not queries.is_cuda:
         return ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
                                    list_indices, kt, ip)
@@ -153,17 +160,10 @@ def ivf_flat_scan(queries, probes, list_data, list_data_sq: Optional[
                                     list_data_sq, list_indices, ip)
     kt = min(kt, cap)
     reason = pair_scan_reject_reason(cap, dim, kt, 4)
-    expects(not reason, f"ivf_flat_scan: {reason}")
-    expects(queries.dtype == list_data.dtype == torch.float32
-            and list_indices.dtype == torch.int32
-            and (ip or list_data_sq.dtype == torch.float32),
-            "ivf_flat_scan: queries / list_data / list_data_sq float32 and "
-            "list_indices int32 required")
-    queries = queries.contiguous()
-    probes = probes.to(torch.int32).contiguous()
-    data = _aligned(list_data, "ivf_flat_scan: list_data")
-    norms = None if ip else list_data_sq.contiguous()
-    ids = list_indices.contiguous()
+    expects(not reason, f"flat_scan_query_major: {reason}")
+    queries, probes, data, norms, ids = _flat_operands(
+        queries, probes, list_data, list_data_sq, list_indices, ip,
+        "flat_scan_query_major")
     nq, n_probes = probes.shape
     vals, out_ids = _outputs(nq, n_probes, kt, queries.device)
     status = _cuda.library().raft_ivf_flat_scan(
@@ -172,12 +172,211 @@ def ivf_flat_scan(queries, probes, list_data, list_data_sq: Optional[
         n_probes, n_lists, cap, dim, kt, int(ip),
         pair_scan_smem_bytes(cap, dim), vals.data_ptr(), out_ids.data_ptr(),
         torch.cuda.current_stream(queries.device).cuda_stream)
-    _cuda.check(status, "ivf_flat_scan")
-    ivf_flat_scan.launches += 1
+    _cuda.check(status, "flat_scan_query_major")
+    flat_scan_query_major.launches += 1
     return (-vals if ip else vals), out_ids
 
 
-ivf_flat_scan.launches = 0
+flat_scan_query_major.launches = 0
+
+
+def _flat_operands(queries, probes, list_data, list_data_sq, list_indices,
+                   ip: bool, what: str, aligned: bool = True):
+    """A flat scan's operands for a kernel launch: dtypes checked,
+    contiguous, the queries and rows 16-byte aligned where ``aligned``,
+    the probes int32 (the norms None for InnerProduct)."""
+    expects(queries.dtype == list_data.dtype == torch.float32
+            and list_indices.dtype == torch.int32
+            and (ip or list_data_sq.dtype == torch.float32),
+            f"{what}: queries / list_data / list_data_sq float32 and "
+            f"list_indices int32 required")
+    if aligned:
+        queries = _aligned(queries, f"{what}: queries")
+        list_data = _aligned(list_data, f"{what}: list_data")
+    return (queries.contiguous(), probes.to(torch.int32).contiguous(),
+            list_data.contiguous(),
+            None if ip else list_data_sq.contiguous(),
+            list_indices.contiguous())
+
+
+class FlatLayout(NamedTuple):
+    """The dynamic shared memory of one block of :func:`flat_list_scan`,
+    in the field order of ``csrc/flat_list_scan.cu``'s ``FlatLayout``:
+    the one copy of the formula (the gate tests it, the launch passes it
+    and the kernel reads it).  ``resident``: the group's queries keep every
+    dim in shared memory; ``stride``: the entries of a pair's top-kt row;
+    then byte offsets from the 1024-byte aligned base (the queries' hi
+    parts at 0 and their lo parts at ``a_lo``, atom columns or stages
+    ``a_step`` apart), ending with ``total``, the bytes a block requests."""
+    resident: int
+    stride: int
+    a_step: int
+    a_lo: int
+    b: int
+    key: int
+    top_v: int
+    top_s: int
+    ssq: int
+    pair: int
+    sub: int
+    total: int
+
+    def as_c(self):
+        """The layout as the C entry point reads it: a ctypes array of
+        ints in field order."""
+        return (ctypes.c_int * len(self))(*self)
+
+
+def flat_list_scan_layout(dim: int, kt: int) -> FlatLayout:
+    """:class:`FlatLayout` of a ``dim``-wide scan keeping ``kt``: the
+    group's 128 queries as TF32 hi and lo parts (16 KB each per 32 dims:
+    resident when everything fits the card's limit, else two 32-dim
+    stages), two stages of 128 tile rows x 32 dims, hi and lo (each also
+    holds a 32 KB distance half), two windows' row norms and ids, the top
+    kt of 128 pairs in rows of ``round8(kt)`` entries, ``q_sq``, the pair
+    indices, the sub-lists' ends and windows (128 B), and 1 KB to align the
+    base for the swizzle atoms."""
+    op = 128 * 128                       # 128 rows x 32 fp32 dims
+    atoms = -(-dim // 32)
+    stride = -(-kt // 8) * 8
+    rest = (2 * 2 * op + 2 * 128 * 8 + 2 * 128 * stride * 4 + 2 * 128 * 4
+            + 128 + 1024)
+    resident = 2 * atoms * op + rest <= _SMEM_LIMIT
+    b = 2 * atoms * op if resident else 2 * 2 * op
+    key = b + 2 * 2 * op
+    top_v = key + 2 * 128 * 8
+    top_s = top_v + 128 * stride * 4
+    ssq = top_s + 128 * stride * 4
+    return FlatLayout(int(resident), stride, op if resident else 2 * op,
+                      atoms * op if resident else op, b, key, top_v, top_s,
+                      ssq, ssq + 128 * 4, ssq + 2 * 128 * 4,
+                      ssq + 2 * 128 * 4 + 128 + 1024)
+
+
+def flat_list_scan_smem_bytes(dim: int, kt: int) -> int:
+    """Dynamic shared memory of one block of :func:`flat_list_scan`:
+    :func:`flat_list_scan_layout`'s ``total``."""
+    return flat_list_scan_layout(dim, kt).total
+
+
+def flat_list_scan_reject_reason(rows: int, dim: int, kt: int,
+                                 sub_lists: int = 1) -> str:
+    """Why Kernel F's list-major pass cannot take this shape ('' when it
+    can): a tile of ``rows`` slots made of ``sub_lists`` sub-lists.  Any
+    row width from 1 is taken."""
+    if not 0 < kt <= KT_LIST_MAX:
+        return f"kt={kt} outside 1..{KT_LIST_MAX} (the list-major route)"
+    if dim < 1:
+        return f"row width {dim} < 1"
+    if not 0 < sub_lists <= MAX_SUB_LISTS or rows % sub_lists:
+        return (f"a tile of {rows} slots cannot hold {sub_lists} equal "
+                f"sub-lists (1..{MAX_SUB_LISTS})")
+    need = flat_list_scan_smem_bytes(dim, kt)
+    if need > _SMEM_LIMIT:
+        return (f"the list-major route needs {need} B of shared memory "
+                f"(limit {_SMEM_LIMIT})")
+    return ""
+
+
+def flat_list_scan_plain(queries, probes, group_list, slot_pairs,
+                         list_data, list_data_sq, list_indices, kt: int,
+                         ip: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`flat_list_scan`: the list-major
+    schedule emulated.  For each group's live slot, its pair's top kt over
+    the group's tile (:func:`ivf_flat_scan_plain` with that one probe),
+    scattered to the pair's place; a pair no group holds (its probe outside
+    ``[0, n_lists)``) stays empty.  It takes no ``sub_lists``: they change
+    which slots the kernel streams, never the result."""
+    _, cap, _ = _check_flat(queries, probes, list_data, list_data_sq,
+                            list_indices, ip)
+    nq, n_probes = probes.shape
+    P, kt = nq * n_probes, min(kt, cap)
+    worst = float("-inf") if ip else float("inf")
+    vals = torch.full((P, kt), worst, dtype=torch.float32,
+                      device=queries.device)
+    ids = torch.full((P, kt), -1, dtype=torch.int32, device=queries.device)
+    for lst, slots in zip(group_list.long(), slot_pairs.long()):
+        p = slots[slots < P]
+        v, i = ivf_flat_scan_plain(
+            queries[p // n_probes], lst.expand(p.numel(), 1), list_data,
+            list_data_sq, list_indices, kt, ip)
+        vals[p], ids[p] = v[:, 0], i[:, 0]
+    return vals.reshape(nq, n_probes, kt), ids.reshape(nq, n_probes, kt)
+
+
+def flat_list_scan(queries, probes, group_list, slot_pairs, list_data,
+                   list_data_sq, list_indices, kt: int, ip: bool = False,
+                   sub_lists: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel F's list-major pass: ``(vals, ids)``, each (nq, n_probes,
+    kt), as :func:`ivf_flat_scan` returns them.  ``group_list`` /
+    ``slot_pairs`` are :func:`raft_tpu_torch.neighbors.grouped.
+    build_groups` of ``probes``; one block scans one group's tile once for
+    its pairs, each of the tile's ``sub_lists`` sub-lists up to its last
+    live row.  CUDA tensors launch ``csrc/flat_list_scan.cu`` (kt up to
+    ``KT_LIST_MAX``); CPU tensors run :func:`flat_list_scan_plain`."""
+    if not queries.is_cuda:
+        return flat_list_scan_plain(queries, probes, group_list, slot_pairs,
+                                    list_data, list_data_sq, list_indices,
+                                    kt, ip)
+    n_lists, cap, dim = _check_flat(queries, probes, list_data,
+                                    list_data_sq, list_indices, ip)
+    kt = min(kt, cap)
+    reason = flat_list_scan_reject_reason(cap, dim, kt, sub_lists)
+    expects(not reason, f"flat_list_scan: {reason}")
+    expects(slot_pairs.ndim == 2 and slot_pairs.shape[1] == grouped.GROUP
+            and group_list.shape == (slot_pairs.shape[0],)
+            and group_list.device == slot_pairs.device == queries.device,
+            f"flat_list_scan: group_list (n_groups,) and slot_pairs "
+            f"(n_groups, {grouped.GROUP}) on the queries' device required")
+    queries, probes, data, norms, ids = _flat_operands(
+        queries, probes, list_data, list_data_sq, list_indices, ip,
+        "flat_list_scan", aligned=False)
+    group_list = group_list.to(torch.int32).contiguous()
+    slot_pairs = slot_pairs.to(torch.int32).contiguous()
+    nq, n_probes = probes.shape
+    vals, out_ids = _outputs(nq, n_probes, kt, queries.device)
+    layout = flat_list_scan_layout(dim, kt).as_c()
+    status = _cuda.library().raft_ivf_flat_list_scan(
+        queries.data_ptr(), probes.data_ptr(), group_list.data_ptr(),
+        slot_pairs.data_ptr(), data.data_ptr(),
+        None if norms is None else norms.data_ptr(), ids.data_ptr(),
+        group_list.shape[0], nq, n_probes, n_lists, cap, sub_lists, dim, kt,
+        int(ip), ctypes.addressof(layout), vals.data_ptr(),
+        out_ids.data_ptr(),
+        torch.cuda.current_stream(queries.device).cuda_stream)
+    _cuda.check(status, "flat_list_scan")
+    flat_list_scan.launches += 1
+    return (-vals if ip else vals), out_ids
+
+
+flat_list_scan.launches = 0
+
+
+def ivf_flat_scan(queries, probes, list_data, list_data_sq: Optional[
+        torch.Tensor], list_indices, kt: int, ip: bool = False,
+        sub_lists: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
+    pair's top kt over raw fp32 list rows.  ``list_data_sq`` (L, cap) holds
+    the rows' squared norms (unused for InnerProduct).  A super-tiled index
+    passes its (L/F, F·cap, dim) view, super-probes and ``sub_lists`` = F.
+    CUDA tensors run Kernel F: where :func:`flat_list_scan_reject_reason`
+    admits the shape (kt up to ``KT_LIST_MAX``) the pairs grouped by tile
+    and :func:`flat_list_scan`, else :func:`flat_scan_query_major` (a
+    dispatch by shape between two kernels, each counted on its own
+    ``launches``).  CPU tensors run the plain version."""
+    if not queries.is_cuda:
+        return ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
+                                   list_indices, kt, ip)
+    n_lists, cap, dim = _check_flat(queries, probes, list_data,
+                                    list_data_sq, list_indices, ip)
+    kt = min(kt, cap)
+    if flat_list_scan_reject_reason(cap, dim, kt, sub_lists):
+        return flat_scan_query_major(queries, probes, list_data,
+                                     list_data_sq, list_indices, kt, ip)
+    return flat_list_scan(queries, probes,
+                          *grouped.build_groups(probes, n_lists), list_data,
+                          list_data_sq, list_indices, kt, ip, sub_lists)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ where its time goes.  A profile of the port's own design
 (``csrc/pq_list_scan.cu``), with no JAX script behind it.
 
 Each variant is ``csrc/pq_list_scan.cu`` rebuilt with text substitutions
-(:data:`VARIANTS`) under ``build/raft_tpu_torch/list_scan_decomp/``, all
+(:data:`VARIANTS`) in it and in the fold it includes
+(``csrc/list_fold.cuh``) under ``build/raft_tpu_torch/list_scan_decomp/``, all
 loaded in one process:
 
 - ``as built``: pass 1 as Kernels B and G run it;
@@ -42,8 +43,11 @@ from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.profiles import device_ms, require_cuda
 
 SCAN_SOURCE = "pq_list_scan.cu"
-_FOLD = ("      fold_rows<E>(top_v, top_s, dist, s_pair, n_pairs, kt,\n"
-         "                   t * BN + 64 * h, warp, lane);")
+# the files a variant may change: the scan, and the fold it includes
+SCAN_SOURCES = (SCAN_SOURCE, "list_fold.cuh")
+# the fold call in list_fold.cuh's window epilogue, which B, G and F share
+FOLD = ("    fold_rows<E, R>(top_v, top_s, stride, dist, s_pair, n_pairs, kt,\n"
+        "                    row0 + kHalf * h, warp, lane);")
 _EPILOGUE = "    if (q != nchunks - 1) continue;"
 _PRODUCTS = ("      wgmma_m64n128k16(acc, da, db, (q == 0 && ks == 0) ? 0 "
              ": 1);")
@@ -52,7 +56,7 @@ VARIANTS: Dict[str, Tuple[Tuple[str, str], ...]] = {
     "as built": (),
     "no insertions": (("      while (any) {",
                        "      while (false && any) {"),),
-    "no fold": ((_FOLD, ""),),
+    "no fold": ((FOLD, ""),),
     "no epilogue": ((_EPILOGUE, "    continue;"),),
     "no products": ((_EPILOGUE, "    continue;"),
                     (_PRODUCTS, "(void)da, (void)db;")),
@@ -65,46 +69,57 @@ INDEXES = (("flagship", 1_000_000, 128, 4096, 64, 0.5),
 N_QUERIES, N_PROBES, KTS = 5_000, 96, (20, 4)
 
 
-def variant_source(name: str) -> str:
-    """``pq_list_scan.cu`` with variant ``name``'s substitutions; each must
-    match the source exactly once."""
-    text = (_cuda.SRC_DIR / SCAN_SOURCE).read_text()
-    for old, new in VARIANTS[name]:
-        if text.count(old) != 1:
-            raise RuntimeError(f"list_scan_decomp {name!r}: {old!r} is "
-                               f"not in {SCAN_SOURCE} exactly once")
-        text = text.replace(old, new)
-    return text
+def variant_sources(name: str, variants=None, sources=SCAN_SOURCES
+                    ) -> Dict[str, str]:
+    """``sources`` (by default :data:`SCAN_SOURCES`) by file name, with
+    variant ``name``'s substitutions from ``variants`` (by default
+    :data:`VARIANTS`); each must match exactly once in all of them."""
+    variants = VARIANTS if variants is None else variants
+    texts = {f: (_cuda.SRC_DIR / f).read_text() for f in sources}
+    for old, new in variants[name]:
+        where = [f for f, text in texts.items() if old in text]
+        if len(where) != 1 or texts[where[0]].count(old) != 1:
+            raise RuntimeError(f"decomposition variant {name!r}: {old!r} "
+                               f"is not in {sources} exactly once")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    return texts
 
 
-def build(names=tuple(VARIANTS)) -> Dict[str, ctypes.CDLL]:
-    """Each variant's library, compiled in parallel (one nvcc each) and
-    loaded."""
-    root = _cuda.BUILD_DIR / "list_scan_decomp"
+def build_variants(names, variants, sources, entry: str, subdir: str):
+    """Each variant's entry point ``entry``: ``sources[0]`` rebuilt with
+    the variant's substitutions under ``build/raft_tpu_torch/<subdir>/``,
+    compiled in parallel (one nvcc each) and loaded."""
+    root = _cuda.BUILD_DIR / subdir
     procs = {}
     for i, name in enumerate(names):
         d = root / f"v{i}"
         d.mkdir(parents=True, exist_ok=True)
         for src in _cuda.SRC_DIR.glob("*.cu*"):
             (d / src.name).write_text(src.read_text())
-        (d / SCAN_SOURCE).write_text(variant_source(name))
-        so = d / "liblist_scan.so"
+        for f, text in variant_sources(name, variants, sources).items():
+            (d / f).write_text(text)
+        so = d / "libvariant.so"
         procs[name] = (so, subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared",
-             str(d / SCAN_SOURCE), "-o", str(so)],
+             str(d / sources[0]), "-o", str(so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    libs = {}
+    fns = {}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name!r}:\n"
                                + log.decode(errors="replace"))
-        lib = ctypes.CDLL(str(so))
-        lib.raft_ivf_pq_list_scan.argtypes = _cuda.SIGNATURES[
-            "raft_ivf_pq_list_scan"]
-        lib.raft_ivf_pq_list_scan.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = _cuda.SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def build(names=tuple(VARIANTS)):
+    """Each variant's pass-1 entry point, ``raft_ivf_pq_list_scan``."""
+    return build_variants(names, VARIANTS, SCAN_SOURCES,
+                          "raft_ivf_pq_list_scan", "list_scan_decomp")
 
 
 def sift_like(n: int, dim: int, device, seed: int = 0,
@@ -147,7 +162,7 @@ def index_inputs(rows: int, dim: int, n_lists: int, pq_dim: int,
             index.list_indices.contiguous())
 
 
-def run(libs: Dict[str, ctypes.CDLL], device, reps: int = 10
+def run(libs, device, reps: int = 10
         ) -> List[Dict]:
     """Time pass 1 of each loaded variant on each index at each kt."""
     from raft_tpu_torch.ops.pq_group_scan import list_scan_smem_bytes
@@ -165,7 +180,7 @@ def run(libs: Dict[str, ctypes.CDLL], device, reps: int = 10
                               device=device)
 
             def launch(lib):
-                return lambda: _cuda.check(lib.raft_ivf_pq_list_scan(
+                return lambda: _cuda.check(lib(
                     *(t.data_ptr() for t in ops), group_list.shape[0], nq,
                     n_probes, n_lists, cap, rot, kt,
                     list_scan_smem_bytes(rot), vals.data_ptr(),

@@ -353,6 +353,51 @@ def _flat_lists(dev, n_lists, cap, dim, seed):
     return data, (data * data).sum(-1), ids
 
 
+def _flat_routes():
+    """Launches of Kernel F's list-major pass and of its query-major
+    route."""
+    return np.array([ps.flat_list_scan.launches,
+                     ps.flat_scan_query_major.launches])
+
+
+def _check_flat_scan(q, probes, data, dsq, ids, kt, ip, sub_lists=1):
+    """Kernel F through ``ivf_flat_scan`` against its plain version: the
+    route its gate picks launched once (kt' = min(kt, tile) up to
+    KT_LIST_MAX: list-major, else query-major); values within 1e-5 of the scale ‖q‖² + max ‖x‖² that
+    fp32 cancellation (and 3xTF32's dropped terms, ~1.5·2⁻²⁰ of it) moves
+    them by; ids equal but at ties; every returned id in its pair's tile,
+    its distance recomputed within the same tolerance."""
+    rows = data.shape[1]
+    before = _flat_routes()
+    vk, ik = ps.ivf_flat_scan(q, probes, data, dsq, ids, kt, ip,
+                              sub_lists=sub_lists)
+    torch.cuda.synchronize()
+    listed = not ps.flat_list_scan_reject_reason(rows, data.shape[2],
+                                                 min(kt, rows), sub_lists)
+    assert tuple(_flat_routes() - before) == ((1, 0) if listed else (0, 1))
+    assert vk.shape == (*probes.shape, min(kt, rows))
+    vp, ip_ = ps.ivf_flat_scan_plain(q, probes, data, dsq, ids, kt, ip)
+    fin = torch.isfinite(vp)
+    assert torch.equal(fin, torch.isfinite(vk)) and torch.equal(ik < 0, ~fin)
+    scale = float((q * q).sum(1).max() + dsq.max())
+    torch.testing.assert_close(vk[fin], vp[fin], rtol=0, atol=1e-5 * scale)
+    assert float((ik == ip_).float().mean()) >= 0.99
+    flat = ids.reshape(-1)
+    slot_of = torch.full((int(flat.max()) + 1,), -1, dtype=torch.int64,
+                         device=flat.device)
+    slot_of[flat[flat >= 0].long()] = torch.nonzero(flat >= 0)[:, 0]
+    slot = slot_of[ik[fin].long()]
+    pair = torch.nonzero(fin)
+    assert bool((slot // rows == probes.long()[pair[:, 0], pair[:, 1]]).all())
+    qv = q[pair[:, 0]]
+    dot = (qv * data.reshape(-1, data.shape[2])[slot]).sum(1)
+    d = -dot if ip else torch.clamp_min(
+        (qv * qv).sum(1) + dsq.reshape(-1)[slot] - 2.0 * dot, 0.0)
+    torch.testing.assert_close(-d if ip else d, vk[fin], rtol=0,
+                               atol=1e-5 * scale)
+    return vk, ik
+
+
 @pytest.mark.parametrize("cap,dim,kt,ip", [
     (96, 128, 10, False), (96, 128, 10, True), (832, 128, 10, False),
     (768, 128, 10, False), (300, 96, 40, False), (64, 1024, 64, True),
@@ -361,23 +406,123 @@ def test_ivf_flat_scan_kernel_matches_plain(dev, cap, dim, kt, ip):
     """Kernel F: each pair's top kt, (+inf, -1) -- (-inf, -1) for
     InnerProduct -- past its live rows and on the skipped probes; values
     within 1e-5 of the scale ‖q‖² + max ‖x‖² that fp32 cancellation moves
-    them by; ids equal but at ties."""
+    them by; ids equal but at ties.  Every shape here runs the list-major
+    pass (the launch counters say so)."""
     n_lists, nq, n_probes = 64, 40, 12
     data, dsq, ids = _flat_lists(dev, n_lists, cap, dim, cap + dim)
     q, probes = _queries(dev, nq, dim, n_lists, n_probes)
     probes[1, 2] = n_lists             # a super-tile dedupe sentinel
-    before = ps.ivf_flat_scan.launches
-    vk, ik = ps.ivf_flat_scan(q, probes, data, dsq, ids, kt, ip)
-    torch.cuda.synchronize()
-    assert ps.ivf_flat_scan.launches == before + 1
+    before = _flat_routes()
+    vk, _ = _check_flat_scan(q, probes, data, dsq, ids, kt, ip)
+    assert tuple(_flat_routes() - before) == (1, 0)
     assert vk.shape == (nq, n_probes, min(kt, cap))
     assert bool(torch.isinf(vk[0, -1]).all() and torch.isinf(vk[1, 2]).all())
-    vp, ip_ = ps.ivf_flat_scan_plain(q, probes, data, dsq, ids, kt, ip)
-    fin = torch.isfinite(vp)
-    assert torch.equal(fin, torch.isfinite(vk)) and torch.equal(ik < 0, ~fin)
-    scale = float((q * q).sum(1).max() + dsq.max())
-    torch.testing.assert_close(vk[fin], vp[fin], rtol=0, atol=1e-5 * scale)
-    assert float((ik == ip_).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("cap,dim,kt,ip", [
+    (300, 128, 64, False), (300, 128, 65, False), (300, 128, 64, True),
+    (300, 128, 65, True), (200, 1024, 10, True), (200, 1024, 33, True),
+    (416, 128, 20, False), (96, 20, 5, False), (2368, 96, 10, False),
+    (200, 1, 10, False), (200, 3, 10, True), (200, 25, 10, False),
+    (200, 50, 64, True), (200, 97, 33, False)],
+    ids=["kt64-list", "kt65-query", "ip-kt64-list", "ip-kt65-query",
+         "ip-dim1024", "ip-dim1024-kt33", "kt20", "dim20", "cap2368",
+         "dim1", "ip-dim3", "dim25", "ip-dim50-kt64", "dim97-kt33"])
+def test_ivf_flat_scan_routes_by_kt(dev, cap, dim, kt, ip):
+    """Kt 64 takes the list-major pass, kt 65 the query-major kernel, each
+    held to the plain version (``_check_flat_scan`` asserts the route by
+    the launch counters); dim 1024 streams the queries with the rows (the
+    layout cannot keep them resident), dim 20 pads its last k-step with
+    zeros, a capacity of 2,368 takes 19 row windows; a row width off a
+    multiple of 4 (GloVe's 25 and 50 among them) takes the list-major
+    pass too, its rows loaded a value at a time."""
+    data, dsq, ids = _flat_lists(dev, 48, cap, dim, cap + dim + kt)
+    q, probes = _queries(dev, 40, dim, 48, 10)
+    _check_flat_scan(q, probes, data, dsq, ids, kt, ip)
+
+
+@pytest.mark.parametrize("F", [2, 4, 8])
+@pytest.mark.parametrize("ip", [False, True])
+def test_ivf_flat_scan_super_tiles_skip_dead_slots(dev, F, ip):
+    """A super-tile of F lists (the (L/F, F·cap, dim) view with dedupe
+    sentinels, as ivf_flat.search gives it): each sub-list streamed up to
+    its last live row, the padding between sub-lists never entering; a
+    list with no live row, and a tile with none."""
+    n_lists, cap, dim, nq, n_probes = 64, 96, 128, 60, 16
+    data, dsq, ids = _flat_lists(dev, n_lists, cap, dim, 7 * F)
+    ids[3] = -1                        # a dead sub-list
+    ids[2 * F:3 * F] = -1              # a dead tile
+    q, probes = _queries(dev, nq, dim, n_lists, n_probes)
+    n_eff = n_lists // F
+    sp = probes // F
+    dup = torch.zeros_like(sp, dtype=torch.bool)
+    for j in range(1, n_probes):
+        dup[:, j] = (sp[:, j:j + 1] == sp[:, :j]).any(1)
+    sp = torch.where(dup | (probes < 0), torch.full_like(sp, n_eff), sp)
+    _check_flat_scan(q, sp, data.reshape(n_eff, F * cap, dim),
+                     dsq.reshape(n_eff, F * cap), ids.reshape(n_eff, F * cap),
+                     10, ip, sub_lists=F)
+
+
+@pytest.mark.parametrize("ip", [False, True])
+def test_ivf_flat_scan_splits_a_hot_tile_across_groups(dev, ip):
+    """300 queries all probe list 5 (three groups of one tile) besides
+    their own probes; one probe negative, one a sentinel past the lists."""
+    n_lists, nq, n_probes, cap, dim = 32, 300, 6, 416, 128
+    data, dsq, ids = _flat_lists(dev, n_lists, cap, dim, 3)
+    q, probes = _queries(dev, nq, dim, n_lists, n_probes)
+    probes[:, 1] = torch.where(probes[:, 0] == 5, probes[:, 1],
+                               torch.full_like(probes[:, 1], 5))
+    probes[probes[:, 0] == 5, 0] = (5 + 1) % n_lists
+    probes[3, 2] = n_lists
+    assert int((grouped.build_groups(probes, n_lists)[0] == 5).sum()) >= 3
+    vk, ik = _check_flat_scan(q, probes, data, dsq, ids, 20, ip)
+    worst = float("-inf") if ip else float("inf")
+    assert bool((vk[3, 2] == worst).all() and (ik[3, 2] == -1).all())
+
+
+def test_ivf_flat_scan_misaligned_operands_load_a_value_at_a_time(dev):
+    """Queries and rows that start off a 16-byte boundary (views one float
+    into their storage) at dim 128 take the one-value loads: same result
+    as the plain version, list-major."""
+    cap, n_lists, dim, nq = 96, 32, 128, 40
+    data, dsq, ids = _flat_lists(dev, n_lists, cap, dim, 5)
+    q, probes = _queries(dev, nq, dim, n_lists, 8)
+    qs = torch.empty(nq * dim + 1, device=dev)[1:].view(nq, dim)
+    qs.copy_(q)
+    ds = torch.empty(data.numel() + 1, device=dev)[1:].view(data.shape)
+    ds.copy_(data)
+    assert qs.data_ptr() % 16 and ds.data_ptr() % 16
+    before = _flat_routes()
+    _check_flat_scan(qs, probes, ds, dsq, ids, 10, False)
+    assert tuple(_flat_routes() - before) == (1, 0)
+
+
+def test_ivf_flat_search_at_dim_25_is_exact_with_every_list_probed(dev):
+    """``ivf_flat.search`` on a dim-25 index at k 10 runs the list-major
+    pass; with every list probed its distances are brute force's, within
+    1e-5 of ‖q‖² + max ‖x‖²."""
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    rng = np.random.default_rng(25)
+    db = torch.from_numpy(rng.normal(size=(3000, 25)).astype(
+        np.float32)).to(dev)
+    q = torch.from_numpy(rng.normal(size=(50, 25)).astype(np.float32)).to(
+        dev)
+    res = DeviceResources(seed=0, device=dev)
+    index = ivf_flat.build(res, ivf_flat.IndexParams(n_lists=16), db)
+    before = _flat_routes()
+    dist, found = ivf_flat.search(res, ivf_flat.SearchParams(n_probes=16),
+                                  index, q, 10)
+    torch.cuda.synchronize()
+    assert tuple(_flat_routes() - before) == (1, 0)
+    ref = torch.cdist(q.double(), db.double()).square().float()
+    ref_d = torch.topk(ref, 10, largest=False).values
+    scale = float((q * q).sum(1).max() + (db * db).sum(1).max())
+    torch.testing.assert_close(dist, ref_d, rtol=0, atol=1e-5 * scale)
+    got = ref.gather(1, found.long())
+    torch.testing.assert_close(got, dist, rtol=0, atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("cap,rot,kt", [(96, 128, 10), (416, 128, 20),
@@ -491,11 +636,16 @@ def test_fused_l2_nn_small_dim_kernel_is_bit_equal_to_plain(dev, dim, n):
 
 
 def test_pair_scans_and_fused_l2_nn_reject_what_they_cannot_hold(dev):
-    data, dsq, ids = _flat_lists(dev, 4, 32, 10, 0)
+    """Kernel F's query-major route (kt past KT_LIST_MAX) needs a row
+    width that is a multiple of 4, and raises; the list-major pass takes
+    any width."""
+    data, dsq, ids = _flat_lists(dev, 4, 96, 10, 0)
     q = torch.zeros(2, 10, device=dev)
     probes = torch.zeros(2, 1, dtype=torch.int32, device=dev)
     with pytest.raises(LogicError, match="multiple of 4"):
-        ps.ivf_flat_scan(q, probes, data, dsq, ids, 4)
+        ps.ivf_flat_scan(q, probes, data, dsq, ids, 65)
+    with pytest.raises(LogicError, match="multiple of 4"):
+        ps.flat_scan_query_major(q, probes, data, dsq, ids, 4)
     with pytest.raises(LogicError, match="fused_l2_nn"):
         fnn.fused_l2_nn(q, torch.zeros(0, 10, device=dev))
 
@@ -628,11 +778,11 @@ def test_pair_scan_variant_kernel_matches_plain(dev, bf16, cap, width, kt,
 
 
 def test_pair_scan_variant_gather_extract_is_kernel_f(dev):
-    """The (gather, extract) variant is Kernel F's instantiation: the
-    same values and ids bit for bit."""
+    """The (gather, extract) variant is the instantiation of Kernel F's
+    query-major route: the same values and ids bit for bit."""
     data, dsq, ids = _flat_lists(dev, 64, 160, 128, 3)
     q, probes = _queries(dev, 40, 128, 64, 12)
-    vk, ik = ps.ivf_flat_scan(q, probes, data, dsq, ids, 10)
+    vk, ik = ps.flat_scan_query_major(q, probes, data, dsq, ids, 10)
     vv, iv = ps.pair_scan_variant(q, probes, data, dsq, ids, 10)
     assert torch.equal(vk, vv) and torch.equal(ik, iv)
 

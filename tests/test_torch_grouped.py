@@ -271,10 +271,10 @@ def test_gate_routes_by_kt_and_names_its_reason():
 
 @pytest.mark.parametrize("name", list(list_scan_decomp.VARIANTS))
 def test_list_scan_decomp_variants_apply_to_the_scan_source(name):
-    """Each profile variant's substitutions match ``pq_list_scan.cu``
-    exactly once (the profile raises otherwise), and only ``as built``
-    leaves the source as it is."""
-    base = (list_scan_decomp._cuda.SRC_DIR
-            / list_scan_decomp.SCAN_SOURCE).read_text()
-    text = list_scan_decomp.variant_source(name)
-    assert (text == base) == (name == "as built")
+    """Each profile variant's substitutions match ``pq_list_scan.cu`` and
+    the fold header it includes exactly once in all (the profile raises
+    otherwise), and only ``as built`` leaves the sources as they are."""
+    base = {f: (list_scan_decomp._cuda.SRC_DIR / f).read_text()
+            for f in list_scan_decomp.SCAN_SOURCES}
+    texts = list_scan_decomp.variant_sources(name)
+    assert (texts == base) == (name == "as built")
