@@ -52,7 +52,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    list-major pass 1) against its plain version on that batch, with its
    split (grouping, pass 1); its query-major route
    (``recon_scan_query_major``, kt 128) against plain on 1,000 queries;
-   the recon batch's recall@10 through each route, as for B.
+   the recon batch's recall@10 through each route, as for B.  Then
+   Kernels C (kt 20 and 4, k 20) and D (kt 4) on the index's codes (rot
+   128, 8 bits: the list-major codes pass's tightest shared memory)
+   against their plain versions on the batch.
 7. Where the flagship's time goes: one more build and one search+refine
    batch under ``torch.profiler`` — device busy time, idle share, heaviest
    kernels.
@@ -67,7 +70,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    its plain version at n_probes 64 with its device split (grouping, pass
    1), groups and the bytes it streams against the probed live bytes, its
    query-major route (``flat_scan_query_major``, k 100) against plain on
-   the first 1,000 queries, one batch under the profiler; then n_lists
+   the first 1,000 queries and on a 200,000 x 25 index (GloVe-25's width:
+   one-value row loads), one batch under the profiler; then n_lists
    16384 (the hierarchical fit) at n_probes 128 with Kernel F against
    plain there, and Kernels A and H against plain at its fit's and
    extend's shapes.
@@ -121,11 +125,16 @@ Phases, in order; any failure raises and the script exits non-zero:
     (Kernel C at kt 20) — search at n_probes 96, k 20, refine to k 10: ms
     per batch, QPS and recall@10, each mode's launch counts zeroed before
     it and read after (``auto`` must launch both passes of Kernel B with
-    no fallback), ``auto`` and ``recon`` kt 4 also through each route of
-    B and G on the one build.  Kernels B, C, D, E and G against their
-    plain versions
-    on the full batch at each mode's shape (B and G with their device
-    splits), and each mode's batch under the profiler.
+    no fallback; ``fused``, ``codes`` and the lean ``auto`` the
+    list-major codes pass ``code_list_scan``, C with pass 2, and no
+    query-major codes kernel), ``auto`` and ``recon`` kt 4 also through
+    each route of B and G on the one build, ``fused`` and ``codes``
+    through each route of C and D (printed only).  Kernels B, C, D, E and
+    G against their plain versions on the full batch at each mode's shape
+    (B, C, D and G with their device splits); the codes pass against
+    Kernel G's pass 1 over the recon cache on the codes' norms, bit for
+    bit; C and D's query-major routes at k = kt = 128 on 1,000 queries;
+    and each mode's batch under the profiler.
 13. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path, and
@@ -135,7 +144,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Bounds use the H100 SXM peaks: 3.35 TB/s of device memory, 989 TFLOP/s
 for bf16 products (Kernels A-E and G multiply bf16 values, the int8 scan
-by way of bf16), 495 TFLOP/s of TF32 for Kernel F's list-major pass (its
+by way of bf16; C and D's bytes are each probed list's live rows once at
+their packed width + 8), 495 TFLOP/s of TF32 for Kernel F's list-major pass (its
 fp32 products as 3xTF32: three TF32 products of the hi / lo split, so
 three times the operations; the fp32 FFMA time of one product is printed
 beside it, the yardstick of the earlier query-major times) and 67 TFLOP/s of fp32 FFMA for F's query-major route, H and I
@@ -171,6 +181,9 @@ FLAT_FINE_LISTS, FLAT_FINE_PROBES = 16384, 128
 # k of the check of Kernel F's query-major route (kt past KT_LIST_MAX) on
 # the first LARGE_KT_QUERIES queries
 FLAT_LARGE_K = 100
+# that route on a row width off a multiple of 4 (GloVe-25's): an IVF-Flat
+# index of the generator's rows at this width
+FLAT_ODD_ROWS, FLAT_ODD_DIM, FLAT_ODD_LISTS = 200_000, 25, 1024
 # the most two routes' recall@10 may differ by on one build
 ROUTE_RECALL_GAP = 0.0004
 # k-means (BASELINE config 3) and fusedL2NN (BASELINE config 2)
@@ -212,8 +225,9 @@ def counters():
             "merge_pairs": pgs.merge_pairs,
             "scan_query_major": pgs.scan_query_major,
             "recon_scan_query_major": ps.recon_scan_query_major,
-            "ivf_pq_scan_codes_fused": pcs.ivf_pq_scan_codes_fused,
-            "ivf_pq_scan_codes": pcs.ivf_pq_scan_codes,
+            "code_list_scan": pcs.code_list_scan,
+            "codes_fused_query_major": pcs.codes_fused_query_major,
+            "codes_scan_query_major": pcs.codes_scan_query_major,
             "ivf_pq_scan_recon8": pcs.ivf_pq_scan_recon8,
             "flat_list_scan": ps.flat_list_scan,
             "flat_scan_query_major": ps.flat_scan_query_major,
@@ -707,10 +721,15 @@ def check_query_major(index, queries, nq, fused):
                     f"{kt}, capacity {index.capacity:,}, rot {rot}", 0)
 
 
-def check_code_kernels(index, queries, kt, kernels=("C", "D", "E")):
+def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
+                       k=K_SEARCH):
     """Kernels C, D and E (those named in ``kernels``) against their plain
-    versions on the deep batch (5000 queries, n_probes 96, k 20) at
-    per-pair ``kt``."""
+    versions on a path's batch (n_probes 96) at per-pair ``kt`` and C's
+    ``k``.  C and D run the route their gates pick (list-major where a
+    pair keeps at most 64 candidates: ``csrc/pq_code_list_scan.cu``, with
+    the device split and the group count; else the query-major
+    ``pq_code_scan.cu``), E its query-major kernel; each route's launch
+    counter must move."""
     from raft_tpu_torch.ops import pq_code_scan as pcs
 
     qrot, probes = probe(index, queries)
@@ -724,21 +743,35 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E")):
         return pcs.decode_codes(index.list_codes.reshape(-1, W)[slot], books,
                                 index.pq_bits).float()
 
+    def listed(pair_kt):
+        return not pcs.code_list_scan_reject_reason(
+            rot, index.pq_dim, index.pq_bits, min(pair_kt, index.capacity))
+
     pair_out = nq * n_probes * kt * 8
     codes_src = "raft_tpu/ops/pq_code_scan_pallas.py:"
-    specs = []
+    specs, routes = [], []
     if "C" in kernels:
+        on_list = listed(min(kt, k))
         specs.append((
-            "ivf_pq_scan_codes_fused", "pq_code_scan.cu", codes_src + "282",
-            pcs.ivf_pq_scan_codes_fused, pcs.ivf_pq_scan_codes_fused_plain,
-            codes_args + (K_SEARCH, kt), decoded, index.list_code_rsq,
-            None, W + 8, 2 * books.numel(), nq * K_SEARCH * 8, rot))
+            "ivf_pq_scan_codes_fused",
+            "pq_code_list_scan.cu" if on_list else "pq_code_scan.cu",
+            codes_src + "282", pcs.ivf_pq_scan_codes_fused,
+            pcs.ivf_pq_scan_codes_fused_plain, codes_args + (k, kt), decoded,
+            index.list_code_rsq, None, W + 8, 2 * books.numel(), nq * k * 8,
+            rot))
+        routes.append(pcs.code_list_scan if on_list
+                      else pcs.codes_fused_query_major)
     if "D" in kernels:
+        on_list = listed(kt)
         specs.append((
-            "ivf_pq_scan_codes", "pq_code_scan.cu", codes_src + "367",
-            pcs.ivf_pq_scan_codes, pcs.ivf_pq_scan_codes_plain,
-            codes_args + (kt,), decoded, index.list_code_rsq, None,
-            W + 8, 2 * books.numel(), pair_out, rot))
+            "ivf_pq_scan_codes",
+            "pq_code_list_scan.cu" if on_list else "pq_code_scan.cu",
+            codes_src + "367", pcs.ivf_pq_scan_codes,
+            pcs.ivf_pq_scan_codes_plain, codes_args + (kt,), decoded,
+            index.list_code_rsq, None, W + 8, 2 * books.numel(), pair_out,
+            rot))
+        routes.append(pcs.code_list_scan if on_list
+                      else pcs.codes_scan_query_major)
     if "E" in kernels:
         i8 = index.list_recon_i8
         rot_pad = i8.shape[2]
@@ -750,7 +783,67 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E")):
             lambda slot: i8.reshape(-1, rot_pad)[slot].float(),
             index.list_recon_i8_sq, index.list_recon_scale, rot_pad + 8,
             4 * index.n_lists, pair_out, rot_pad))
-    return check_scans(index, qrot, probes, specs)
+        routes.append(pcs.ivf_pq_scan_recon8)
+    before = [r.launches for r in routes]
+    rows = check_scans(index, qrot, probes, specs)
+    for row, spec, route, b in zip(rows, specs, routes, before):
+        assert route.launches > b, f"{row['name']}: its route never ran"
+        if route is pcs.code_list_scan:
+            merged = row["name"] == "ivf_pq_scan_codes_fused"
+            pair_kt = min(kt, k) if merged else kt
+            row.update(list_major_split(
+                f"{row['name']} (list-major, kt {kt})",
+                lambda spec=spec: spec[3](*spec[5]), probes, index.n_lists,
+                nq * n_probes * pair_kt * 8, merged,
+                "code_list_scan_kernel"))
+    return rows
+
+
+def check_codes_query_major(index, queries, nq):
+    """Kernels C and D's query-major routes (``csrc/pq_code_scan.cu``) at
+    a pair kt past 64 (k = kt = 128) on the first ``nq`` queries of the
+    batch, each against its plain version, its launch counted; two
+    ``also_checked`` entries."""
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+
+    kt = min(2 * 64, index.capacity)
+    before = (pcs.codes_fused_query_major.launches,
+              pcs.codes_scan_query_major.launches)
+    rows = check_code_kernels(index, queries[:nq], kt, ("C", "D"), kt)
+    ran = (pcs.codes_fused_query_major.launches - before[0],
+           pcs.codes_scan_query_major.launches - before[1])
+    assert min(ran) > 0, f"codes query-major routes launched {ran}"
+    return [at_shape(dict(row, check_launches=n),
+                     f"query-major (csrc/pq_code_scan.cu): {nq:,} queries x "
+                     f"{N_PROBES} probes, k {kt}, kt {kt}, capacity "
+                     f"{index.capacity:,}, rot {index.rot_dim}", 0)
+            for row, n in zip(rows, ran)]
+
+
+def codes_bit_equal(index, queries, kt):
+    """The list-major codes pass against Kernel G's pass 1 over the
+    index's recon cache, both on the codes' norms (``list_code_rsq``), at
+    per-pair ``kt`` on the batch: the decoded rows are the cache's bits
+    and the tiling is the same, so values and ids must be equal."""
+    import torch
+    from raft_tpu_torch.neighbors import grouped
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    qrot, probes = probe(index, queries)
+    groups = grouped.build_groups(probes, index.n_lists)
+    cv, ci = pcs.code_list_scan(qrot, index.centers, probes, *groups,
+                                index.list_codes, index.codebooks,
+                                index.list_code_rsq, index.list_indices,
+                                index.pq_bits, kt)
+    rv, ri = pgs.list_scan(qrot, index.centers, probes, *groups,
+                           index.list_recon, index.list_code_rsq,
+                           index.list_indices, kt)
+    torch.cuda.synchronize()
+    same = torch.equal(cv, rv) and torch.equal(ci, ri)
+    print(f"code_list_scan vs list_scan over the recon cache (kt {kt}, "
+          f"{probes.numel():,} pairs): bit-equal {same}", flush=True)
+    assert same, "the codes pass differs from pass 1 over the recon cache"
 
 
 def check_kernel_g(index, queries, kt):
@@ -964,6 +1057,41 @@ def build_flat(res, db, n_lists, label):
     return index
 
 
+def odd_width_check(res, dev):
+    """Kernel F's query-major route at a row width off a multiple of 4
+    (its one-value row loads): an IVF-Flat index of FLAT_ODD_ROWS x 25
+    rows (GloVe-25's width; the generator, numpy seed 25) at
+    FLAT_ODD_LISTS lists, its first LARGE_KT_QUERIES queries at n_probes
+    FLAT_CHECK_PROBES and k FLAT_LARGE_K against the plain version; an
+    ``also_checked`` entry of F's row (0 launches on the main path)."""
+    import torch
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import pair_scan as ps
+
+    db, queries = sift_like(FLAT_ODD_ROWS, LARGE_KT_QUERIES, FLAT_ODD_DIM,
+                            LATENT, NOISE, dev, seed=FLAT_ODD_DIM)
+    index = ivf_flat.build(res, ivf_flat.IndexParams(
+        n_lists=FLAT_ODD_LISTS), db)
+    # the public search at k 100, which refused this width before (its
+    # first search also attaches the rows' norms)
+    before = ps.flat_scan_query_major.launches
+    dist, _ = ivf_flat.search(res, ivf_flat.SearchParams(
+        n_probes=FLAT_CHECK_PROBES), index, queries, FLAT_LARGE_K)
+    assert ps.flat_scan_query_major.launches > before and bool(
+        torch.isfinite(dist[:, 0]).all()), "dim-25 search at k 100"
+    row = check_kernel_f(index, queries, FLAT_CHECK_PROBES, FLAT_LARGE_K,
+                         f"flat_scan_query_major (F, dim {FLAT_ODD_DIM})")
+    entry = at_shape(
+        row, f"query-major, one-value row loads (csrc/pair_scan.cu "
+        f"Fp32Rows): {FLAT_ODD_ROWS:,} x {FLAT_ODD_DIM}, nlist "
+        f"{FLAT_ODD_LISTS}, {LARGE_KT_QUERIES:,} queries x "
+        f"{FLAT_CHECK_PROBES} probes, k {FLAT_LARGE_K}, F {row['F']}, "
+        f"capacity {index.capacity} (1 launch in the check)", 0)
+    del db, queries, index
+    torch.cuda.empty_cache()
+    return entry
+
+
 def ivf_flat_path(db, queries, truth):
     """The IVF-Flat phases: ``raft_ivf_flat.nlist4096`` built and searched
     at n_probes 32 / 64 / 128 (launches zeroed before the build, read
@@ -1013,6 +1141,7 @@ def ivf_flat_path(db, queries, truth):
     query_major = check_kernel_f(
         index, queries[:LARGE_KT_QUERIES], FLAT_CHECK_PROBES, FLAT_LARGE_K,
         "flat_scan_query_major (F, query-major)")
+    odd = odd_width_check(res, db.device)
     sp = ivf_flat.SearchParams(n_probes=FLAT_CHECK_PROBES)
     device_breakdown(f"IVF-Flat search batch (n_probes {FLAT_CHECK_PROBES})",
                      lambda: ivf_flat.search(res, sp, index, queries, K))
@@ -1035,7 +1164,7 @@ def ivf_flat_path(db, queries, truth):
                  f"nlist 4096, {LARGE_KT_QUERIES:,} queries x "
                  f"{FLAT_CHECK_PROBES} probes, k {FLAT_LARGE_K}, F "
                  f"{query_major['F']}, capacity {index.capacity} (1 launch "
-                 f"in the check)", launches["flat_scan_query_major"])]
+                 f"in the check)", launches["flat_scan_query_major"]), odd]
     n_train = int(N_DB * ivf_flat.IndexParams().kmeans_trainset_fraction)
     sel = torch.randperm(N_DB, generator=DeviceResources(seed=0).generator,
                          device=db.device)[:n_train]
@@ -1594,14 +1723,14 @@ def search_mode(res, index, db, queries, truth, label, sp, kernel):
 
 
 def same_build_routes(label, module, name, walked, kernels, search,
-                      truth):
+                      truth, gate=True):
     """Recall@10 of one batch on one build (``search()`` gives its found
     ids) through the list-major route and through the query-major scan
     ``walked`` swapped in for ``module.name``, the search's scan: what
     the routes' own rounding does to recall, with the build held fixed.
     ``kernels`` (list-major wrapper, query-major wrapper): their launches
-    say that each route ran alone.  The two must agree within
-    ROUTE_RECALL_GAP."""
+    say that each route ran alone.  Where ``gate``, the two must agree
+    within ROUTE_RECALL_GAP; else the comparison is printed only."""
     listed = getattr(module, name)
     recall = {}
     for route in ("list-major", "query-major"):
@@ -1620,7 +1749,7 @@ def same_build_routes(label, module, name, walked, kernels, search,
     print(f"{label}, one build, recall@10 by route: "
           f"{json.dumps(recall)}", flush=True)
     gap = abs(recall["list-major"] - recall["query-major"])
-    assert gap <= ROUTE_RECALL_GAP, (
+    assert gap <= ROUTE_RECALL_GAP or not gate, (
         f"{label}: the routes' recall@10 differ by {gap}")
     return recall
 
@@ -1640,6 +1769,45 @@ def pq_same_build_routes(res, index, db, queries, truth, label, sp, fused):
         label, ivf_pq, name, walked, (pgs.list_scan, walked),
         lambda: refine.refine(res, db, queries, ivf_pq.search(
             res, sp, index, queries, K_SEARCH)[1], K)[1], truth)
+
+
+def codes_same_build_routes(res, index, db, queries, truth, label, sp,
+                            fused):
+    """:func:`same_build_routes` for one IVF-PQ search + refine batch over
+    the codes: Kernel C's ``codes_fused_query_major`` swapped in for the
+    search's fused codes scan when ``fused``, else D's
+    ``codes_scan_query_major``; ``code_list_scan`` is the list-major route
+    of both.  Printed only, gated on nothing."""
+    from raft_tpu_torch.neighbors import refine
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+
+    name, walked = (("ivf_pq_scan_codes_fused", pcs.codes_fused_query_major)
+                    if fused else ("ivf_pq_scan_codes",
+                                   pcs.codes_scan_query_major))
+    return same_build_routes(
+        label, pcs, name, walked, (pcs.code_list_scan, walked),
+        lambda: refine.refine(res, db, queries, ivf_pq.search(
+            res, sp, index, queries, K_SEARCH)[1], K)[1], truth, gate=False)
+
+
+def flagship_code_checks(index, queries):
+    """Kernels C (kt 20 and kt 4, k 20) and D (kt 4) on the flagship
+    index's codes (rot 128, pq_dim 64, 8 bits: the list-major codes
+    pass's tightest shared-memory shape) against their plain versions on
+    its batch (5000 queries x 96 probes).  Returns C's and D's
+    ``also_checked`` entries (the main path runs neither: 0 launches)."""
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    ivf_pq._with_code_rsq(index)
+    c20 = check_code_kernels(index, queries, K_SEARCH, ("C",))[0]
+    c4, d4 = check_code_kernels(index, queries, DEEP_KT, ("C", "D"))
+    shape = (f"flagship codes (list-major): {N_QUERIES:,} queries x "
+             f"{N_PROBES} probes, capacity {index.capacity:,}, rot "
+             f"{index.rot_dim}, pq_dim {index.pq_dim}, {index.pq_bits} bits")
+    return ([at_shape(c20, f"{shape}, k {K_SEARCH}, kt {K_SEARCH}", 0),
+             at_shape(c4, f"{shape}, k {K_SEARCH}, kt {DEEP_KT}", 0)],
+            [at_shape(d4, f"{shape}, kt {DEEP_KT}", 0)])
 
 
 def deep_path(dev):
@@ -1713,14 +1881,24 @@ def deep_path(dev):
     runs = {}
     for label, params_, kernel in (
             ("auto", sp(), "merge_pairs"),
-            ("fused", sp(scan_mode="fused", **kt4), "ivf_pq_scan_codes_fused"),
-            ("codes", sp(scan_mode="codes", **kt4), "ivf_pq_scan_codes"),
+            ("fused", sp(scan_mode="fused", **kt4), "code_list_scan"),
+            ("codes", sp(scan_mode="codes", **kt4), "code_list_scan"),
             ("recon8", sp(scan_mode="recon8", **kt4),
              "ivf_pq_scan_recon8"),
             ("recon", sp(scan_mode="recon", **kt4), "list_scan")):
         runs[label] = search_mode(res, index, db, queries, truth,
                                   f"deep {label}", params_, kernel)
         runs[label]["params"] = params_
+    # C and D at kt 4 run the list-major codes pass (C with pass 2), never
+    # the query-major kernels
+    assert runs["fused"]["launches"]["merge_pairs"] > 0, (
+        "deep fused: pass 2 never launched")
+    for label in ("fused", "codes"):
+        got = runs[label]["launches"]
+        assert got["codes_fused_query_major"] == got[
+            "codes_scan_query_major"] == 0, (
+            f"deep {label}: a query-major codes kernel ran")
+        assert runs[label]["fallbacks"] == 0, f"deep {label}: C refused"
     agree = float((runs["fused"]["cand"] == runs["codes"]["cand"]).float()
                   .mean())
     print(f"deep fused vs codes: candidate ids equal at {agree:.5f} of "
@@ -1734,6 +1912,10 @@ def deep_path(dev):
                          True)
     pq_same_build_routes(res, index, db, queries, truth, "deep recon kt 4",
                          runs["recon"]["params"], False)
+    for label in ("fused", "codes"):
+        codes_same_build_routes(res, index, db, queries, truth,
+                                f"deep {label} kt 4", runs[label]["params"],
+                                label == "fused")
     for label in ("fused", "codes", "recon8", "recon"):
         assert runs[label]["recall"] >= 0.80, (
             f"deep {label} recall@10 {runs[label]['recall']} below 0.80")
@@ -1742,9 +1924,17 @@ def deep_path(dev):
           f"GB", flush=True)
 
     rows = check_code_kernels(index, queries, DEEP_KT)
-    for row, label in zip(rows, ("fused", "codes", "recon8")):
-        row["launches"] = runs[label]["launches"][row["name"]]
+    rows[0]["launches"] = runs["fused"]["launches"]["merge_pairs"]
+    rows[0]["pass1_launches"] = runs["fused"]["launches"]["code_list_scan"]
+    rows[1]["launches"] = runs["codes"]["launches"]["code_list_scan"]
+    rows[2]["launches"] = runs["recon8"]["launches"]["ivf_pq_scan_recon8"]
+    for row in rows:
         row["also_checked"] = []
+    codes_bit_equal(index, queries, DEEP_KT)
+    c_walked, d_walked = check_codes_query_major(index, queries,
+                                                 LARGE_KT_QUERIES)
+    rows[0]["also_checked"].append(c_walked)
+    rows[1]["also_checked"].append(d_walked)
     b_deep = at_shape(
         check_kernel_b(index, queries),
         f"deep: {N_QUERIES:,} queries x {N_PROBES} probes, k {K_SEARCH}, kt "
@@ -1767,14 +1957,16 @@ def deep_path(dev):
     index.list_recon = index.list_recon_sq = index.list_code_rsq = None
     torch.cuda.empty_cache()
     lean = search_mode(res, index, db, queries, truth, "deep auto without a "
-                       "recon cache", sp(), "ivf_pq_scan_codes_fused")
+                       "recon cache", sp(), "code_list_scan")
     assert lean["recall"] >= 0.90, (
         f"deep auto (no recon cache) recall@10 {lean['recall']} below 0.90")
+    assert lean["launches"]["merge_pairs"] > 0 and lean["fallbacks"] == 0, (
+        "deep auto without a recon cache: not the list-major C")
     row_c = check_code_kernels(index, queries, K_SEARCH, ("C",))[0]
     rows[0]["also_checked"].append(at_shape(
         row_c, f"deep, no recon cache: {N_QUERIES:,} queries x {N_PROBES} "
         f"probes, k {K_SEARCH}, kt {K_SEARCH}, capacity {index.capacity:,}",
-        lean["launches"]["ivf_pq_scan_codes_fused"]))
+        lean["launches"]["merge_pairs"]))
     print(f"deep peak device memory, plain versions included: "
           f"{peak_gb():.2f} GB", flush=True)
     return rows, a_deep, b_deep, g_deep, h_deep, hs_deep
@@ -2132,6 +2324,9 @@ def main() -> int:
     g_query_major = check_query_major(index, queries, LARGE_KT_QUERIES,
                                       False)
 
+    phase("kernels C and D on the flagship's codes (rot 128, 8 bits)")
+    c_flag, d_flag = flagship_code_checks(index, queries)
+
     phase("where the time goes (one build, one batch, under the profiler)")
     del index
     device_breakdown("build", lambda: ivf_pq.build(
@@ -2163,6 +2358,8 @@ def main() -> int:
     rows_cde, a_deep, b_deep, g_deep, h_deep, hs_deep = deep_path(dev)
 
     phase("result")
+    rows_cde[0]["also_checked"] += c_flag
+    rows_cde[1]["also_checked"] += d_flag
     row_g["also_checked"] = [g_deep, g_query_major]
     row_h["also_checked"] += h_more + h_flat + h_deep
     row_hs["also_checked"] = [hs_deep]

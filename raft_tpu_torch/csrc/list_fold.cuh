@@ -1,6 +1,9 @@
 // The block skeleton that the list-major scans share: Kernels B and G's
-// pass 1 (pq_list_scan.cu) and Kernel F's (flat_list_scan.cu); each scan
-// keeps only its operand staging and products.  A block of kThreads
+// pass 1 (pq_list_scan.cu), its twin over the PQ codes for Kernels C and
+// D (pq_code_list_scan.cu) and Kernel F's (flat_list_scan.cu); each scan
+// keeps only its operand staging and products.  The two PQ passes also
+// share the residual staging (stage_residuals) and the group's prologue
+// (norms_and_extent).  A block of kThreads
 // threads owns one group of kGroup (query, probe) pairs of one list
 // (start_group); each 128-row window of the list multiplies into 128 x
 // 128 products, which fold_window turns into distances in shared memory,
@@ -16,6 +19,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -167,6 +171,76 @@ __device__ __forceinline__ void write_empty_pairs(int b, const int* probes,
       out_v[(size_t)p * kt + t] = INFINITY;
       out_i[(size_t)p * kt + t] = -1;
     }
+  }
+}
+
+// Dims [k0, k0 + kc) of the group's residuals bf16(qrot[q] - cen), row r
+// the group's slot r (zeros for an empty slot and past rot), as the wgmma
+// A operand at shared address dst (128-byte swizzle atoms, the layout of
+// raft_mma::stage_rows).  kWhole: rot % 8 == 0, so a 16-byte chunk is all
+// in or all out (Kernels B and G); else each value is tested (the codes
+// pass takes any rot).
+template <bool kWhole>
+__device__ __forceinline__ void stage_residuals(
+    uint32_t dst, const float* __restrict__ qrot,
+    const float* __restrict__ cen, const int* s_pair, int n_pairs,
+    int n_probes, int rot, int k0, int kc, int tid) {
+  const int nkg = kc >> 3;
+  for (int e = tid; e < kGroup * nkg; e += kThreads) {
+    const int r = e / nkg, kg = e - r * nkg;
+    const int gcol = k0 + kg * 8;
+    const int p = s_pair[r];
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (p < n_pairs && gcol < rot) {
+      const float* qv = qrot + (size_t)(p / n_probes) * rot + gcol;
+      const float* cv = cen + gcol;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = 0.f, b = 0.f;
+        if (kWhole || gcol + 2 * i < rot) a = qv[2 * i] - cv[2 * i];
+        if (kWhole || gcol + 2 * i + 1 < rot)
+          b = qv[2 * i + 1] - cv[2 * i + 1];
+        const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(a));
+        const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(b));
+        w[i] = lo | (hi << 16);
+      }
+    }
+    raft_mma::st_shared16(dst + raft_mma::sw128_offset(kGroup, r, kg),
+                          make_uint4(w[0], w[1], w[2], w[3]));
+  }
+}
+
+// A group block's prologue over its list (rows lbase .. lbase + cap):
+// one past the list's last row with an id >= 0, max-reduced into
+// *s_extent (0 before; rows past it are padding and never streamed), and
+// each slot's sub_sq = sum((qrot[q] - cen)^2) from the fp32 residuals
+// into ssq (0 on an empty slot; warp w takes rows w, w + 8, ...).  The
+// caller synchronises after.
+__device__ __forceinline__ void norms_and_extent(
+    const float* __restrict__ qrot, const float* __restrict__ cen,
+    const int* s_pair, int n_pairs, int n_probes, int rot,
+    const int* __restrict__ ids, size_t lbase, int cap, float* ssq,
+    int* s_extent, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  int last = 0;
+  for (int r = tid; r < cap; r += kThreads)
+    if (ids[lbase + r] >= 0) last = r + 1;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (lane == 0) atomicMax(s_extent, last);
+  for (int r = warp; r < kGroup; r += kThreads / 32) {
+    const int p = s_pair[r];
+    float acc = 0.f;
+    if (p < n_pairs) {
+      const float* qv = qrot + (size_t)(p / n_probes) * rot;
+      for (int e = lane; e < rot; e += 32) {
+        const float s = qv[e] - cen[e];
+        acc = fmaf(s, s, acc);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) ssq[r] = acc;
   }
 }
 

@@ -30,7 +30,11 @@
 // vector in registers (up to four 16-byte chunks a lane, so a 512-byte
 // fp32 row takes eight lanes and three shuffle steps), the row's distance
 // goes to shared memory and the pair's top kt comes out of kt block-wide
-// argmin rounds (scan_common.cuh).  The per-pair output goes to device
+// argmin rounds (scan_common.cuh).  fp32 rows of a width off a multiple
+// of 4, or not 16-byte aligned, load one value at a time, zeros past the
+// width (the template switch kVec, as flat_list_scan.cu's); bf16 rows
+// always load 16 bytes (the recon cache is a multiple of 8 wide).  The
+// per-pair output goes to device
 // memory, so kt needs no cap below the capacity; shared memory holds the
 // pair's distances and the staged vector, sized at the real capacity by
 // ops/pair_scan.py's pair_scan_smem_bytes.  A list is read once per query
@@ -68,6 +72,7 @@ using namespace raft_scan;
 struct Fp32Rows {
   static constexpr int kPerChunk = 4;
   static constexpr int kMaxChunksPerLane = 8;   // dim <= 32 * 8 * 4
+  static constexpr bool kScalar = true;         // one-value loads exist
   __device__ static __forceinline__ float dot(const float* s, uint4 u,
                                               float acc) {
     acc = fmaf(s[0], __uint_as_float(u.x), acc);
@@ -76,11 +81,24 @@ struct Fp32Rows {
     acc = fmaf(s[3], __uint_as_float(u.w), acc);
     return acc;
   }
+  // chunk ch (dims 4 ch .. 4 ch + 3 < dim + 3) of a row one value at a
+  // time, zeros past dim
+  __device__ static __forceinline__ uint4 partial(const void* data,
+                                                  size_t row, int ch,
+                                                  int dim) {
+    const float* v = static_cast<const float*>(data) + row * dim + 4 * ch;
+    const int left = dim - 4 * ch;
+    return make_uint4(__float_as_uint(__ldg(v)),
+                      left > 1 ? __float_as_uint(__ldg(v + 1)) : 0u,
+                      left > 2 ? __float_as_uint(__ldg(v + 2)) : 0u,
+                      left > 3 ? __float_as_uint(__ldg(v + 3)) : 0u);
+  }
 };
 
 // bf16 rows: eight values per 16-byte chunk
 struct Bf16Rows {
   static constexpr int kPerChunk = 8;
+  static constexpr bool kScalar = false;        // 16-byte loads only
   static constexpr int kMaxChunksPerLane = 4;   // rot <= 32 * 4 * 8
   __device__ static __forceinline__ float dot(const float* s, uint4 u,
                                               float acc) {
@@ -98,13 +116,15 @@ struct Bf16Rows {
 
 // centers == nullptr: Kernel F (stage the query as it is); else Kernel G
 // (stage bf16(query - center)).  ip: InnerProduct form of Kernel F.
-// kExtract / kGather: the profile variants (see the note above).
-template <class Rows, bool kExtract, bool kGather>
+// kVec: rows load 16 bytes at a time (dim % kPerChunk == 0, data 16-byte
+// aligned), else one value at a time (Rows::partial).  kExtract /
+// kGather: the profile variants (see the note above).
+template <class Rows, bool kVec, bool kExtract, bool kGather>
 __global__ void __launch_bounds__(kThreads)
 pair_scan_kernel(const float* __restrict__ queries,
                  const float* __restrict__ centers,
                  const int* __restrict__ probes,
-                 const uint4* __restrict__ data,
+                 const void* __restrict__ data,
                  const float* __restrict__ norms,
                  const int* __restrict__ ids, int n_probes, int n_lists,
                  int cap, int dim, int kt, int lpr, int ip,
@@ -121,7 +141,7 @@ pair_scan_kernel(const float* __restrict__ queries,
 
   const int q = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nch = dim / kPer;              // 16-byte chunks per row
+  const int nch = (dim + kPer - 1) / kPer; // 16-byte chunks per row
   const int rows_per_warp = 32 / lpr;
   const int lig = lane % lpr;              // lane within its row group
   const int grp = warp * rows_per_warp + lane / lpr;
@@ -165,7 +185,8 @@ pair_scan_kernel(const float* __restrict__ queries,
       const int ch = lig + j * lpr;
 #pragma unroll
       for (int e = 0; e < kPer; ++e)
-        sreg[j][e] = ch < nch ? s_vec[ch * kPer + e] : 0.f;
+        sreg[j][e] = ch < nch && (kVec || ch * kPer + e < dim)
+                         ? s_vec[ch * kPer + e] : 0.f;
     }
     const size_t base = (size_t)l * cap;
     // every lane runs every iteration, so the shuffles stay convergent
@@ -175,11 +196,17 @@ pair_scan_kernel(const float* __restrict__ queries,
       const int id = r < cap ? (kExtract ? ids[base + r] : 0) : -1;
       float part = 0.f;
       if (id >= 0) {
-        const uint4* row = data + (base + r) * nch;
+        const uint4* row =
+            static_cast<const uint4*>(data) + (base + r) * nch;
 #pragma unroll
         for (int j = 0; j < kMaxCh; ++j) {
           const int ch = lig + j * lpr;
-          if (ch < nch) part = Rows::dot(sreg[j], __ldg(row + ch), part);
+          if (ch >= nch) continue;
+          if constexpr (kVec)
+            part = Rows::dot(sreg[j], __ldg(row + ch), part);
+          else
+            part = Rows::dot(sreg[j], Rows::partial(data, base + r, ch, dim),
+                             part);
         }
       }
       for (int off = lpr >> 1; off; off >>= 1)
@@ -209,29 +236,49 @@ inline int lanes_per_row(int nch) {
   return lpr;
 }
 
+template <class Rows, bool kVec, bool kExtract, bool kGather>
+int run(const void* queries, const void* centers, const void* probes,
+        const void* data, const void* norms, const void* ids, int nq,
+        int n_probes, int n_lists, int cap, int dim, int kt, int lpr, int ip,
+        int smem, void* out_v, void* out_i, cudaStream_t s) {
+  const auto kernel = pair_scan_kernel<Rows, kVec, kExtract, kGather>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (nq > 0 && n_probes > 0)
+    kernel<<<nq, kThreads, smem, s>>>(
+        static_cast<const float*>(queries),
+        static_cast<const float*>(centers), static_cast<const int*>(probes),
+        data, static_cast<const float*>(norms),
+        static_cast<const int*>(ids), n_probes, n_lists, cap, dim, kt, lpr,
+        ip, static_cast<float*>(out_v), static_cast<int*>(out_i));
+  return (int)cudaGetLastError();
+}
+
+// rows of a width off a multiple of kPerChunk, or not 16-byte aligned,
+// take the one-value loads where Rows has them, else are refused
 template <class Rows, bool kExtract = true, bool kGather = true>
 int launch(const void* queries, const void* centers, const void* probes,
            const void* data, const void* norms, const void* ids, int nq,
            int n_probes, int n_lists, int cap, int dim, int kt, int ip,
            int smem, void* out_v, void* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nch = dim / Rows::kPerChunk;
+  const int nch = (dim + Rows::kPerChunk - 1) / Rows::kPerChunk;
   const int lpr = lanes_per_row(nch);
-  if ((kExtract && kt < 1) || cap < 1 || dim % Rows::kPerChunk != 0
+  const bool vec = dim % Rows::kPerChunk == 0
+                   && ((uintptr_t)data & 15) == 0;
+  if ((kExtract && kt < 1) || cap < 1 || dim < 1 || (!vec && !Rows::kScalar)
       || nch > lpr * Rows::kMaxChunksPerLane || smem < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_scan_kernel<Rows, kExtract, kGather>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (nq > 0 && n_probes > 0)
-    pair_scan_kernel<Rows, kExtract, kGather><<<nq, kThreads, smem, s>>>(
-        static_cast<const float*>(queries),
-        static_cast<const float*>(centers), static_cast<const int*>(probes),
-        static_cast<const uint4*>(data), static_cast<const float*>(norms),
-        static_cast<const int*>(ids), n_probes, n_lists, cap, dim, kt, lpr,
-        ip, static_cast<float*>(out_v), static_cast<int*>(out_i));
-  return (int)cudaGetLastError();
+  if (vec)
+    return run<Rows, true, kExtract, kGather>(
+        queries, centers, probes, data, norms, ids, nq, n_probes, n_lists,
+        cap, dim, kt, lpr, ip, smem, out_v, out_i, s);
+  if constexpr (Rows::kScalar)
+    return run<Rows, false, kExtract, kGather>(
+        queries, centers, probes, data, norms, ids, nq, n_probes, n_lists,
+        cap, dim, kt, lpr, ip, smem, out_v, out_i, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

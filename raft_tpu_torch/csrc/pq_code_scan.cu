@@ -1,4 +1,7 @@
-// Kernels C and D: IVF-PQ scans over the bit-packed PQ codes.
+// Kernels C and D's query-major routes: IVF-PQ scans over the bit-packed
+// PQ codes where a pair keeps more than 64 candidates (min(kt, k) for C,
+// kt for D) or the list-major pass's books do not fit; below that C and D
+// are pq_code_list_scan.cu's list-major pass.
 //
 // Kernel C replaces raft_tpu/ops/pq_code_scan_pallas.py:282
 // grouped_code_scan_fused (body _kernel_codes_fused): each query's top k

@@ -109,36 +109,6 @@ __host__ __device__ inline ScanLayout scan_layout(int rot) {
   return L;
 }
 
-// dims [k0, k0 + kc) of the group's residuals bf16(qrot[q] - cen), row r
-// the group's slot r (zeros for an empty slot), at shared address dst in
-// stage_rows's layout; rot % 8 == 0, so a 16-byte chunk is all in or out
-__device__ __forceinline__ void stage_residuals(
-    uint32_t dst, const float* __restrict__ qrot, const float* __restrict__ cen,
-    const int* s_pair, int n_pairs, int n_probes, int rot, int k0, int kc,
-    int tid) {
-  const int nkg = kc >> 3;
-  for (int e = tid; e < kGroup * nkg; e += kThreads) {
-    const int r = e / nkg, kg = e - r * nkg;
-    const int gcol = k0 + kg * 8;
-    const int p = s_pair[r];
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (p < n_pairs && gcol < rot) {
-      const float* qv = qrot + (size_t)(p / n_probes) * rot + gcol;
-      const float* cv = cen + gcol;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t lo = __bfloat16_as_ushort(
-            __float2bfloat16_rn(qv[2 * i] - cv[2 * i]));
-        const uint32_t hi = __bfloat16_as_ushort(
-            __float2bfloat16_rn(qv[2 * i + 1] - cv[2 * i + 1]));
-        w[i] = lo | (hi << 16);
-      }
-    }
-    st_shared16(dst + sw128_offset(kGroup, r, kg),
-                make_uint4(w[0], w[1], w[2], w[3]));
-  }
-}
-
 // the norms and ids of list rows [r0, r0 + 128) into a stage's key
 // arrays (BN floats, then BN ints) by cp.async, zeros past the capacity;
 // the epilogue turns them into the rows' keys (key_rows)
@@ -202,32 +172,11 @@ list_scan_kernel(const float* __restrict__ qrot,
   const __nv_bfloat16* rows = recon + lbase * rot;
   const bool vec = rot % 8 == 0 && ((uintptr_t)recon & 15) == 0;
 
-  const int lane = tid & 31, warp = tid >> 5;
   if (tid == 0) s_extent = 0;
   start_group(slot_pairs, g, s_pair, top_v, top_s, kKtMax, tid);
   __syncthreads();
-  // rows past the list's last live one are padding and never streamed
-  int last = 0;
-  for (int r = tid; r < cap; r += kThreads)
-    if (ids[lbase + r] >= 0) last = r + 1;
-  last = __reduce_max_sync(0xffffffffu, last);
-  if (lane == 0) atomicMax(&s_extent, last);
-  // sub_sq from the fp32 residuals: warp w takes rows w, w + 8, ...
-  for (int r = warp; r < kGroup; r += kThreads / 32) {
-    const int p = s_pair[r];
-    float acc = 0.f;
-    if (p < n_pairs) {
-      const float* qv = qrot + (size_t)(p / n_probes) * rot;
-      for (int e = lane; e < rot; e += 32) {
-        const float s = qv[e] - cen[e];
-        acc = fmaf(s, s, acc);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) ssq[r] = acc;
-  }
+  norms_and_extent(qrot, cen, s_pair, n_pairs, n_probes, rot, ids, lbase,
+                   cap, ssq, &s_extent, tid);
   __syncthreads();
   const int extent = s_extent;
   const int nsteps = ((extent + BN - 1) / BN) * nchunks;
@@ -235,8 +184,8 @@ list_scan_kernel(const float* __restrict__ qrot,
   auto load_step = [&](int s, int stage) {
     const int t = s / nchunks, q = s - t * nchunks;
     if (!resident)
-      stage_residuals(sbase + L.a + stage * L.a_step, qrot, cen, s_pair,
-                      n_pairs, n_probes, rot, q * kc, kc, tid);
+      stage_residuals<true>(sbase + L.a + stage * L.a_step, qrot, cen,
+                            s_pair, n_pairs, n_probes, rot, q * kc, kc, tid);
     stage_rows(sbase + L.b + stage * L.b_step, rows, BN, t * BN, extent, rot,
                q * kc, kc, vec, tid, kThreads);
     stage_key(sbase + L.key + stage * BN * 8, rsq, ids, lbase, t * BN, cap,
@@ -244,8 +193,8 @@ list_scan_kernel(const float* __restrict__ qrot,
   };
 
   if (resident)
-    stage_residuals(sbase + L.a, qrot, cen, s_pair, n_pairs, n_probes, rot,
-                    0, kc, tid);
+    stage_residuals<true>(sbase + L.a, qrot, cen, s_pair, n_pairs, n_probes,
+                          rot, 0, kc, tid);
   if (nsteps > 0) load_step(0, 0);
   cp_async_commit();
 

@@ -60,6 +60,10 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // make this thread's shared-memory writes (cp.async and st.shared, the
 // generic proxy) visible to wgmma's reads (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() {

@@ -26,11 +26,14 @@ scan kernel chosen by ``scan_mode`` as the JAX package resolves it
   grouped by list, then its two list-major passes; Kernel G + finalize
   where Kernel B's gate refuses the shape);
 - fused codes (``"fused"``, and ``"auto"`` without a recon cache): Kernel
-  C, :func:`raft_tpu_torch.ops.pq_code_scan.ivf_pq_scan_codes_fused`;
+  C, :func:`raft_tpu_torch.ops.pq_code_scan.ivf_pq_scan_codes_fused` (the
+  pairs grouped by list, the list-major pass over the codes and the merge
+  where a pair keeps at most 64 candidates; else the query-major kernel);
 - ``"recon"`` / ``use_reconstruction=True``: Kernel G
   (:func:`raft_tpu_torch.ops.pair_scan.ivf_pq_scan_recon`), each (query,
   probe) pair's top kt, then each query's top k (:func:`_finalize_topk`);
-- ``"codes"``: Kernel D, each pair's top kt, then the same finalize;
+- ``"codes"``: Kernel D, each pair's top kt (list-major up to kt 64, as
+  C's pass 1), then the same finalize;
 - ``"recon8"``: Kernel E over the int8 cache, then the same finalize.
 
 The code and int8 caches are derived lazily by the first search that
@@ -686,7 +689,8 @@ def _search_fused_codes(index, qrot, probes, k, kt):
 
 
 def _search_codes(index, qrot, probes, k, kt):
-    """Kernel D over the packed codes, then each query's top k."""
+    """Kernel D over the packed codes, then each query's top k; a shape
+    both of D's routes refuse needs the LUT scan, not ported."""
     reason = pcs.codes_reject_reason(index.capacity, index.rot_dim,
                                      index.pq_dim, index.pq_bits, kt)
     if reason:

@@ -50,6 +50,9 @@ SIGNATURES = {
                                      _P, _P),
     "raft_ivf_pq_scan_codes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "raft_ivf_pq_code_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                   _P, _P),
     "raft_ivf_pq_scan_recon8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _P, _P, _P),
     "raft_ivf_flat_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -68,12 +68,16 @@ def pair_scan_smem_bytes(cap: int, width: int) -> int:
 def pair_scan_reject_reason(cap: int, width: int, kt: int,
                             per_chunk: int) -> str:
     """Why Kernel F (``per_chunk`` 4 fp32 values a 16-byte load) or G (8
-    bf16 values) cannot take this shape ('' when it can)."""
+    bf16 values) cannot take this shape ('' when it can).  fp32 rows of
+    any width from 1 are taken (off a multiple of 4 the kernel loads one
+    value at a time); bf16 rows need a multiple of 8."""
     if kt < 1:
         return f"kt={kt} < 1"
-    if width % per_chunk or width > _MAX_WIDTH:
-        return (f"row width {width} must be a multiple of {per_chunk} and "
-                f"at most {_MAX_WIDTH} (16-byte row loads)")
+    if width < 1 or width > _MAX_WIDTH:
+        return f"row width {width} outside 1..{_MAX_WIDTH}"
+    if per_chunk == 8 and width % 8:
+        return (f"row width {width} must be a multiple of 8 (16-byte bf16 "
+                f"row loads)")
     need = pair_scan_smem_bytes(cap, width)
     if need > _SMEM_LIMIT:
         return (f"list capacity {cap} needs {need} B of shared memory "
@@ -149,7 +153,9 @@ def flat_scan_query_major(queries, probes, list_data, list_data_sq,
                           list_indices, kt: int, ip: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel F's query-major route (``csrc/pair_scan.cu`` ``Fp32Rows``):
-    one block per query walks its probes, the products in fp32 FFMA;
+    one block per query walks its probes, the products in fp32 FFMA, rows
+    of any width (16-byte loads where the width is a multiple of 4 and the
+    rows are 16-byte aligned, else one value at a time);
     :func:`ivf_flat_scan` takes it where kt exceeds ``KT_LIST_MAX`` or the
     list-major gate refuses the shape.  CUDA tensors launch it; CPU tensors
     run the plain version."""
@@ -181,18 +187,15 @@ flat_scan_query_major.launches = 0
 
 
 def _flat_operands(queries, probes, list_data, list_data_sq, list_indices,
-                   ip: bool, what: str, aligned: bool = True):
+                   ip: bool, what: str):
     """A flat scan's operands for a kernel launch: dtypes checked,
-    contiguous, the queries and rows 16-byte aligned where ``aligned``,
-    the probes int32 (the norms None for InnerProduct)."""
+    contiguous, the probes int32 (the norms None for InnerProduct).  Both
+    routes take rows at any alignment."""
     expects(queries.dtype == list_data.dtype == torch.float32
             and list_indices.dtype == torch.int32
             and (ip or list_data_sq.dtype == torch.float32),
             f"{what}: queries / list_data / list_data_sq float32 and "
             f"list_indices int32 required")
-    if aligned:
-        queries = _aligned(queries, f"{what}: queries")
-        list_data = _aligned(list_data, f"{what}: list_data")
     return (queries.contiguous(), probes.to(torch.int32).contiguous(),
             list_data.contiguous(),
             None if ip else list_data_sq.contiguous(),
@@ -331,7 +334,7 @@ def flat_list_scan(queries, probes, group_list, slot_pairs, list_data,
             f"(n_groups, {grouped.GROUP}) on the queries' device required")
     queries, probes, data, norms, ids = _flat_operands(
         queries, probes, list_data, list_data_sq, list_indices, ip,
-        "flat_list_scan", aligned=False)
+        "flat_list_scan")
     group_list = group_list.to(torch.int32).contiguous()
     slot_pairs = slot_pairs.to(torch.int32).contiguous()
     nq, n_probes = probes.shape

@@ -4,23 +4,39 @@ int8 reconstruction cache.
 They replace the three kernels of ``raft_tpu/ops/pq_code_scan_pallas.py``:
 
 - Kernel C, :func:`ivf_pq_scan_codes_fused`: ``:282
-  grouped_code_scan_fused``, each query's top k kept in the kernel;
+  grouped_code_scan_fused``, each query's top k;
 - Kernel D, :func:`ivf_pq_scan_codes`: ``:367 grouped_code_scan``, each
   (query, probe) pair's top kt;
 - Kernel E, :func:`ivf_pq_scan_recon8`: ``:441 grouped_recon8_scan``, each
   pair's top kt over the int8 cache.
 
-The CUDA kernels are ``csrc/pq_code_scan.cu`` (C, D) and
-``csrc/pq_recon8_scan.cu`` (E); their source notes say what bounds them on
-an H100 (bytes) and what the query-major designs do about it.  C and D
-read ``list_codes`` (n_lists, cap, W) uint8 as the index holds it: the
-TPU's lane-major (n_lists, Wi, cap) int32 words, its one-hot decode and
-its pair groups do not come over.
+C and D have two routes each, chosen by shape and counted apart, as
+Kernels B and G have:
 
-Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
-version for CPU tensors — nothing else picks between them, and a failed
-build or launch raises.  ``<wrapper>.launches`` counts kernel launches;
-``*_reject_reason`` says why a kernel cannot take a shape ('' when it can).
+- **list-major** (a pair keeps at most ``KT_LIST_MAX`` candidates:
+  ``min(kt, k)`` for C, kt for D): the pairs grouped by list
+  (:func:`raft_tpu_torch.neighbors.grouped.build_groups`), then
+  :func:`code_list_scan` (``csrc/pq_code_list_scan.cu``: pass 1 of
+  Kernels B and G with each list's codes decoded in shared memory into
+  its bf16 ``wgmma`` operand, one read of a list per group; alone it is
+  D), and for C :func:`raft_tpu_torch.ops.pq_group_scan.merge_pairs`
+  (pass 2), in query chunks within ``PAIR_BUFFER_BYTES``;
+- **query-major** (larger kt): :func:`codes_fused_query_major` (C) and
+  :func:`codes_scan_query_major` (D), ``csrc/pq_code_scan.cu``, one block
+  per query walking its probes through a per-pair LUT.
+
+Kernel E (``csrc/pq_recon8_scan.cu``) is query-major.  The source notes
+say what bounds each kernel on an H100 (bytes) and what its design does
+about it.  C and D read ``list_codes`` (n_lists, cap, W) uint8 as the
+index holds it: the TPU's lane-major (n_lists, Wi, cap) int32 words and
+its one-hot decode do not come over.
+
+Each kernel wrapper launches its kernel for CUDA tensors and runs its
+plain version for CPU tensors — nothing else picks between them, and a
+failed build or launch raises.  ``<wrapper>.launches`` counts kernel
+launches (the dispatchers C and D launch nothing themselves);
+``*_reject_reason`` says why a kernel cannot take a shape ('' when it
+can).
 
 Contracts (``_kernel_codes`` / ``_kernel_recon8``,
 ``pq_code_scan_pallas.py:195-233``): ``sub = qrot[q] − centers[list]`` and
@@ -42,9 +58,12 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
-from raft_tpu_torch.ops.pq_group_scan import (K_MAX, _SMEM_LIMIT,
-                                              _next_pow2, cat_parts,
+from raft_tpu_torch.ops.pq_group_scan import (K_MAX, KT_LIST_MAX,
+                                              _SMEM_LIMIT, _next_pow2,
+                                              cat_parts, grouped_pair_topk,
+                                              list_major_topk, merge_pairs,
                                               pair_topk, plain_chunks,
                                               probe_distances, query_topk)
 
@@ -86,17 +105,45 @@ def _books_bytes(rot: int, pq_bits: int) -> int:
     return 2 * (rot << pq_bits)            # bf16 (pq_dim, book, pq_len)
 
 
+def code_list_scan_smem_bytes(rot: int, pq_dim: int, pq_bits: int,
+                              kt: int) -> int:
+    """Dynamic shared memory of one block of :func:`code_list_scan`, as
+    ``csrc/pq_code_list_scan.cu``'s ``code_layout`` lays it out: the
+    group's bf16 residuals (resident up to 128 dims, else two 128-dim
+    stages), two stages of 128 decoded rows (at least the 32 KB distance
+    half each), their norms and ids, the top kt of 128 pairs in rows of
+    round8(kt) entries, ``sub_sq``, the pair indices, the bf16 books, two
+    raw stages of 128 rows' packed codes (+ a 16-byte head each), and 1 KB
+    to align the swizzle atoms.  The gate tests it and the launch passes
+    it; it mirrors ``code_layout``, and the entry point refuses a size
+    below what ``code_layout`` needs."""
+    def align(b):
+        return -(-b // 1024) * 1024
+
+    kp = -(-rot // 16) * 16
+    kc = min(kp, 128)
+    a = align(-(-kc // 64) * 128 * 128)
+    b = align(max(-(-kc // 64) * 128 * 128, 128 * 64 * 4))
+    stride = -(-kt // 8) * 8
+    W = -(-pq_dim * pq_bits // 8)
+    raw_step = -(-128 * W // 16) * 16 + 16
+    return ((a if kp <= 128 else 2 * a) + 2 * b + 2 * 128 * 8
+            + 2 * 128 * stride * 4 + 2 * 128 * 4 + _books_bytes(rot, pq_bits)
+            + 2 * raw_step + 1024)
+
+
 def codes_fused_smem_bytes(cap: int, rot: int, pq_dim: int,
                            pq_bits: int) -> int:
-    """Kernel C: top-k, the next_pow2(cap) candidate buffer, LUT, residual
-    and bf16 books, as ``codes_fused_kernel`` lays them out."""
+    """Kernel C's query-major route: top-k, the next_pow2(cap) candidate
+    buffer, LUT, residual and bf16 books, as ``codes_fused_kernel`` lays
+    them out."""
     return (4 * (4 * K_MAX + 3 * _next_pow2(cap) + (pq_dim << pq_bits)
                  + rot) + _books_bytes(rot, pq_bits))
 
 
 def codes_smem_bytes(cap: int, rot: int, pq_dim: int, pq_bits: int) -> int:
-    """Kernel D: the pair's distances, LUT, residual and bf16 books, as
-    ``codes_pair_kernel`` lays them out."""
+    """Kernel D's query-major route: the pair's distances, LUT, residual
+    and bf16 books, as ``codes_pair_kernel`` lays them out."""
     return (4 * (cap + (pq_dim << pq_bits) + rot)
             + _books_bytes(rot, pq_bits))
 
@@ -123,9 +170,25 @@ def _smem_reason(need: int, what: str) -> str:
     return ""
 
 
-def codes_fused_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
-                              k: int, kt: int) -> str:
-    """Why Kernel C cannot take this shape ('' when it can)."""
+def code_list_scan_reject_reason(rot: int, pq_dim: int, pq_bits: int,
+                                 kt: int) -> str:
+    """Why the list-major codes pass (:func:`code_list_scan`) cannot take
+    this shape ('' when it can).  Any rot that pq_dim divides is taken."""
+    reason = _codes_layout_reason(rot, pq_dim, pq_bits)
+    if reason:
+        return reason
+    if not 0 < kt <= KT_LIST_MAX:
+        return f"kt={kt} outside 1..{KT_LIST_MAX} (the list-major route)"
+    return _smem_reason(code_list_scan_smem_bytes(rot, pq_dim, pq_bits, kt),
+                        f"the list-major route at kt {kt} with a {pq_dim}x"
+                        f"{1 << pq_bits} codebook")
+
+
+def codes_fused_query_major_reject_reason(cap: int, rot: int, pq_dim: int,
+                                          pq_bits: int, k: int,
+                                          kt: int) -> str:
+    """Why Kernel C's query-major route cannot take this shape ('' when
+    it can)."""
     reason = _codes_layout_reason(rot, pq_dim, pq_bits)
     if reason:
         return reason
@@ -138,9 +201,10 @@ def codes_fused_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
                         f"LUT")
 
 
-def codes_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
-                        kt: int) -> str:
-    """Why Kernel D cannot take this shape ('' when it can)."""
+def codes_query_major_reject_reason(cap: int, rot: int, pq_dim: int,
+                                    pq_bits: int, kt: int) -> str:
+    """Why Kernel D's query-major route cannot take this shape ('' when
+    it can)."""
     reason = _codes_layout_reason(rot, pq_dim, pq_bits)
     if reason:
         return reason
@@ -149,6 +213,43 @@ def codes_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
     return _smem_reason(codes_smem_bytes(cap, rot, pq_dim, pq_bits),
                         f"list capacity {cap} with a {pq_dim}x{1 << pq_bits} "
                         f"LUT")
+
+
+def _either_route(listed: str, walked: str) -> str:
+    """A two-route gate's reason: '' when either route takes the shape,
+    else both routes' reasons."""
+    if not listed or not walked:
+        return ""
+    return f"{listed}; query-major route: {walked}"
+
+
+def codes_fused_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
+                              k: int, kt: int) -> str:
+    """Why Kernel C cannot take this shape ('' when it can): the
+    list-major route takes ``min(kt, k) <= KT_LIST_MAX``, the query-major
+    route what its gate admits."""
+    reason = _codes_layout_reason(rot, pq_dim, pq_bits)
+    if reason:
+        return reason
+    if not 0 < k <= K_MAX:       # the merge's bound, which pass 1 lacks
+        return f"k={k} outside 1..{K_MAX}"
+    return _either_route(
+        code_list_scan_reject_reason(rot, pq_dim, pq_bits, min(kt, k)),
+        codes_fused_query_major_reject_reason(cap, rot, pq_dim, pq_bits, k,
+                                              kt))
+
+
+def codes_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
+                        kt: int) -> str:
+    """Why Kernel D cannot take this shape ('' when it can): the
+    list-major route takes ``kt <= KT_LIST_MAX``, the query-major route
+    what its gate admits."""
+    reason = _codes_layout_reason(rot, pq_dim, pq_bits)
+    if reason:
+        return reason
+    return _either_route(
+        code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt),
+        codes_query_major_reject_reason(cap, rot, pq_dim, pq_bits, kt))
 
 
 def recon8_reject_reason(cap: int, rot_pad: int, kt: int) -> str:
@@ -219,6 +320,17 @@ def _launch_args(qrot, centers, probes, list_rsq, list_indices):
             list_indices.contiguous())
 
 
+def _codes_operands(list_codes, codebooks):
+    """The packed codes and the bf16 books for a launch, contiguous and
+    16-byte aligned (copied where they are not), and the code width W."""
+    def aligned(t):
+        t = t.contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    codes = aligned(list_codes)
+    return codes, aligned(codebooks.to(torch.bfloat16)), codes.shape[2]
+
+
 def _outputs(shape, device):
     return (torch.empty(shape, dtype=torch.float32, device=device),
             torch.empty(shape, dtype=torch.int32, device=device))
@@ -226,6 +338,75 @@ def _outputs(shape, device):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# the list-major pass over the codes (Kernel D; with merge_pairs, Kernel C)
+# ---------------------------------------------------------------------------
+
+def code_list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
+                         list_codes, codebooks, list_rsq, list_indices,
+                         pq_bits: int, kt: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`code_list_scan`: the list-major
+    schedule emulated (``pq_group_scan.grouped_pair_topk``), each group's
+    list decoded through :func:`decode_codes`."""
+    cap, _, _ = _check_codes("code_list_scan", qrot, centers, probes,
+                             list_codes, codebooks, list_rsq, list_indices,
+                             pq_bits)
+    return grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
+                             list_rsq, list_indices, min(kt, cap),
+                             _codes_dot(list_codes, codebooks, pq_bits))
+
+
+def code_list_scan(qrot, centers, probes, group_list, slot_pairs,
+                   list_codes, codebooks, list_rsq, list_indices,
+                   pq_bits: int, kt: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The list-major pass over the packed codes: ``(vals, ids)``, each
+    (nq, n_probes, kt), every (query, probe) pair's top kt by (distance,
+    slot), ``(+inf, −1)`` past its live rows and on a probe outside ``[0,
+    n_lists)``.  ``group_list`` / ``slot_pairs`` are
+    :func:`raft_tpu_torch.neighbors.grouped.build_groups` of ``probes``;
+    one block decodes one group's list once for its pairs.  CUDA tensors
+    launch ``csrc/pq_code_list_scan.cu`` (kt up to ``KT_LIST_MAX``); CPU
+    tensors run :func:`code_list_scan_plain`."""
+    if not qrot.is_cuda:
+        return code_list_scan_plain(qrot, centers, probes, group_list,
+                                    slot_pairs, list_codes, codebooks,
+                                    list_rsq, list_indices, pq_bits, kt)
+    cap, rot, pq_dim = _check_codes(
+        "code_list_scan", qrot, centers, probes, list_codes, codebooks,
+        list_rsq, list_indices, pq_bits)
+    kt = min(kt, cap)
+    reason = code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt)
+    expects(not reason, f"code_list_scan: {reason}")
+    expects(slot_pairs.ndim == 2 and slot_pairs.shape[1] == grouped.GROUP
+            and group_list.shape == (slot_pairs.shape[0],)
+            and group_list.device == slot_pairs.device == qrot.device,
+            f"code_list_scan: group_list (n_groups,) and slot_pairs "
+            f"(n_groups, {grouped.GROUP}) on the queries' device required")
+    qrot, centers, probes, list_rsq, list_indices = _launch_args(
+        qrot, centers, probes, list_rsq, list_indices)
+    codes, books, _ = _codes_operands(list_codes, codebooks)
+    group_list = group_list.to(torch.int32).contiguous()
+    slot_pairs = slot_pairs.to(torch.int32).contiguous()
+    nq, n_probes = probes.shape
+    vals, ids = _outputs((nq, n_probes, kt), qrot.device)
+    status = _cuda.library().raft_ivf_pq_code_list_scan(
+        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
+        group_list.data_ptr(), slot_pairs.data_ptr(), codes.data_ptr(),
+        books.data_ptr(), list_rsq.data_ptr(), list_indices.data_ptr(),
+        group_list.shape[0], nq, n_probes, centers.shape[0], cap, rot,
+        pq_dim, pq_bits, kt,
+        code_list_scan_smem_bytes(rot, pq_dim, pq_bits, kt),
+        vals.data_ptr(), ids.data_ptr(), _stream(qrot.device))
+    _cuda.check(status, "code_list_scan")
+    code_list_scan.launches += 1
+    return vals, ids
+
+
+code_list_scan.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +419,7 @@ def ivf_pq_scan_codes_fused_plain(qrot, centers, probes, list_codes,
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of Kernel C: decode the probed lists, every
     (query, probe, row) distance, each pair's top kt, the query's top k.
-    The kernel sums the same exact products through its LUT, in another
-    order."""
+    The kernels sum the same exact products in another order."""
     cap, _, _ = _check_codes("ivf_pq_scan_codes_fused", qrot, centers,
                              probes, list_codes, codebooks, list_rsq,
                              list_indices, pq_bits)
@@ -250,13 +430,58 @@ def ivf_pq_scan_codes_fused_plain(qrot, centers, probes, list_codes,
     return cat_parts(parts, (k,), qrot.device)
 
 
+def codes_fused_query_major(qrot, centers, probes, list_codes, codebooks,
+                            list_rsq, list_indices, pq_bits: int, k: int,
+                            kt: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C's query-major route (``csrc/pq_code_scan.cu``
+    ``codes_fused_kernel``): one block per query walks its probes with the
+    query's top k in shared memory; :func:`ivf_pq_scan_codes_fused` takes
+    it where ``min(kt, k)`` exceeds ``KT_LIST_MAX`` or the list-major gate
+    refuses the shape.  CUDA tensors launch it; CPU tensors run the plain
+    version."""
+    if not qrot.is_cuda:
+        return ivf_pq_scan_codes_fused_plain(
+            qrot, centers, probes, list_codes, codebooks, list_rsq,
+            list_indices, pq_bits, k, kt)
+    cap, rot, pq_dim = _check_codes(
+        "codes_fused_query_major", qrot, centers, probes, list_codes,
+        codebooks, list_rsq, list_indices, pq_bits)
+    kt = min(kt, cap)
+    reason = codes_fused_query_major_reject_reason(cap, rot, pq_dim,
+                                                   pq_bits, k, kt)
+    expects(not reason, f"codes_fused_query_major: {reason}")
+    qrot, centers, probes, list_rsq, list_indices = _launch_args(
+        qrot, centers, probes, list_rsq, list_indices)
+    codes, books, W = _codes_operands(list_codes, codebooks)
+    nq, n_probes = probes.shape
+    vals, ids = _outputs((nq, k), qrot.device)
+    status = _cuda.library().raft_ivf_pq_scan_codes_fused(
+        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
+        codes.data_ptr(), books.data_ptr(), list_rsq.data_ptr(),
+        list_indices.data_ptr(), nq, n_probes, centers.shape[0], cap, rot,
+        pq_dim, pq_bits, W, int(W % 16 == 0), k, kt,
+        codes_fused_smem_bytes(cap, rot, pq_dim, pq_bits), vals.data_ptr(),
+        ids.data_ptr(), _stream(qrot.device))
+    _cuda.check(status, "codes_fused_query_major")
+    codes_fused_query_major.launches += 1
+    return vals, ids
+
+
+codes_fused_query_major.launches = 0
+
+
 def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
                             list_rsq, list_indices, pq_bits: int, k: int,
                             kt: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals (nq, k) f32, ids (nq, k) i32)``: each query's top k over its
-    probed lists, scanned from the packed codes.  CUDA tensors launch
-    Kernel C; CPU tensors run the plain version.  A shape the kernel
-    cannot hold raises with its reason."""
+    probed lists, scanned from the packed codes.  CUDA tensors run Kernel
+    C: at ``min(kt, k) <= KT_LIST_MAX`` the list-major route — the pairs
+    grouped by list, :func:`code_list_scan` and ``merge_pairs``, in query
+    chunks within ``PAIR_BUFFER_BYTES`` — else
+    :func:`codes_fused_query_major` (a dispatch by shape between two
+    kernels, each counted on its own ``launches``).  CPU tensors run the
+    plain version.  A shape neither route can hold raises with its
+    reason."""
     if not qrot.is_cuda:
         return ivf_pq_scan_codes_fused_plain(
             qrot, centers, probes, list_codes, codebooks, list_rsq,
@@ -267,27 +492,16 @@ def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
     kt = min(kt, cap)
     reason = codes_fused_reject_reason(cap, rot, pq_dim, pq_bits, k, kt)
     expects(not reason, f"ivf_pq_scan_codes_fused: {reason}")
-    qrot, centers, probes, list_rsq, list_indices = _launch_args(
-        qrot, centers, probes, list_rsq, list_indices)
-    codes = list_codes.contiguous()
-    books = codebooks.to(torch.bfloat16).contiguous()
-    W = codes.shape[2]
-    vec16 = int(W % 16 == 0 and codes.data_ptr() % 16 == 0)
-    nq, n_probes = probes.shape
-    vals, ids = _outputs((nq, k), qrot.device)
-    status = _cuda.library().raft_ivf_pq_scan_codes_fused(
-        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
-        codes.data_ptr(), books.data_ptr(), list_rsq.data_ptr(),
-        list_indices.data_ptr(), nq, n_probes, centers.shape[0], cap, rot,
-        pq_dim, pq_bits, W, vec16, k, kt,
-        codes_fused_smem_bytes(cap, rot, pq_dim, pq_bits), vals.data_ptr(),
-        ids.data_ptr(), _stream(qrot.device))
-    _cuda.check(status, "ivf_pq_scan_codes_fused")
-    ivf_pq_scan_codes_fused.launches += 1
-    return vals, ids
-
-
-ivf_pq_scan_codes_fused.launches = 0
+    pair_kt = min(kt, k)
+    if code_list_scan_reject_reason(rot, pq_dim, pq_bits, pair_kt):
+        return codes_fused_query_major(qrot, centers, probes, list_codes,
+                                       codebooks, list_rsq, list_indices,
+                                       pq_bits, k, kt)
+    return list_major_topk(
+        probes, centers.shape[0], pair_kt, k,
+        lambda rows, p, gl, sp: code_list_scan(
+            qrot[rows], centers, p, gl, sp, list_codes, codebooks, list_rsq,
+            list_indices, pq_bits, pair_kt))
 
 
 # ---------------------------------------------------------------------------
@@ -310,12 +524,54 @@ def ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes, codebooks,
     return cat_parts(parts, (probes.shape[1], kt), qrot.device)
 
 
+def codes_scan_query_major(qrot, centers, probes, list_codes, codebooks,
+                           list_rsq, list_indices, pq_bits: int, kt: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D's query-major route (``csrc/pq_code_scan.cu``
+    ``codes_pair_kernel``): one block per query walks its probes;
+    :func:`ivf_pq_scan_codes` takes it where kt exceeds ``KT_LIST_MAX`` or
+    the list-major gate refuses the shape.  CUDA tensors launch it; CPU
+    tensors run the plain version."""
+    if not qrot.is_cuda:
+        return ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes,
+                                       codebooks, list_rsq, list_indices,
+                                       pq_bits, kt)
+    cap, rot, pq_dim = _check_codes(
+        "codes_scan_query_major", qrot, centers, probes, list_codes,
+        codebooks, list_rsq, list_indices, pq_bits)
+    kt = min(kt, cap)
+    reason = codes_query_major_reject_reason(cap, rot, pq_dim, pq_bits, kt)
+    expects(not reason, f"codes_scan_query_major: {reason}")
+    qrot, centers, probes, list_rsq, list_indices = _launch_args(
+        qrot, centers, probes, list_rsq, list_indices)
+    codes, books, W = _codes_operands(list_codes, codebooks)
+    nq, n_probes = probes.shape
+    vals, ids = _outputs((nq, n_probes, kt), qrot.device)
+    status = _cuda.library().raft_ivf_pq_scan_codes(
+        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
+        codes.data_ptr(), books.data_ptr(), list_rsq.data_ptr(),
+        list_indices.data_ptr(), nq, n_probes, centers.shape[0], cap, rot,
+        pq_dim, pq_bits, W, int(W % 16 == 0), kt,
+        codes_smem_bytes(cap, rot, pq_dim, pq_bits), vals.data_ptr(),
+        ids.data_ptr(), _stream(qrot.device))
+    _cuda.check(status, "codes_scan_query_major")
+    codes_scan_query_major.launches += 1
+    return vals, ids
+
+
+codes_scan_query_major.launches = 0
+
+
 def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
                       list_rsq, list_indices, pq_bits: int, kt: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
-    pair's top kt, scanned from the packed codes.  CUDA tensors launch
-    Kernel D; CPU tensors run the plain version."""
+    pair's top kt, scanned from the packed codes.  CUDA tensors run Kernel
+    D: at kt <= ``KT_LIST_MAX`` the pairs grouped by list and
+    :func:`code_list_scan`, else :func:`codes_scan_query_major` (a
+    dispatch by shape between two kernels, each counted on its own
+    ``launches``).  CPU tensors run the plain version.  A shape neither
+    route can hold raises with its reason."""
     if not qrot.is_cuda:
         return ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes,
                                        codebooks, list_rsq, list_indices,
@@ -326,27 +582,14 @@ def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
     kt = min(kt, cap)
     reason = codes_reject_reason(cap, rot, pq_dim, pq_bits, kt)
     expects(not reason, f"ivf_pq_scan_codes: {reason}")
-    qrot, centers, probes, list_rsq, list_indices = _launch_args(
-        qrot, centers, probes, list_rsq, list_indices)
-    codes = list_codes.contiguous()
-    books = codebooks.to(torch.bfloat16).contiguous()
-    W = codes.shape[2]
-    vec16 = int(W % 16 == 0 and codes.data_ptr() % 16 == 0)
-    nq, n_probes = probes.shape
-    vals, ids = _outputs((nq, n_probes, kt), qrot.device)
-    status = _cuda.library().raft_ivf_pq_scan_codes(
-        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
-        codes.data_ptr(), books.data_ptr(), list_rsq.data_ptr(),
-        list_indices.data_ptr(), nq, n_probes, centers.shape[0], cap, rot,
-        pq_dim, pq_bits, W, vec16, kt,
-        codes_smem_bytes(cap, rot, pq_dim, pq_bits), vals.data_ptr(),
-        ids.data_ptr(), _stream(qrot.device))
-    _cuda.check(status, "ivf_pq_scan_codes")
-    ivf_pq_scan_codes.launches += 1
-    return vals, ids
-
-
-ivf_pq_scan_codes.launches = 0
+    if code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt):
+        return codes_scan_query_major(qrot, centers, probes, list_codes,
+                                      codebooks, list_rsq, list_indices,
+                                      pq_bits, kt)
+    return code_list_scan(qrot, centers, probes,
+                          *grouped.build_groups(probes, centers.shape[0]),
+                          list_codes, codebooks, list_rsq, list_indices,
+                          pq_bits, kt)
 
 
 # ---------------------------------------------------------------------------

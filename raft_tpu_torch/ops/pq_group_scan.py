@@ -261,30 +261,38 @@ def cuda_operands(qrot, centers, probes, list_recon, list_recon_sq,
 # the list-major route: pass 1 (each pair's top kt) and pass 2 (the merge)
 # ---------------------------------------------------------------------------
 
-def list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
-                    list_recon, list_recon_sq, list_indices, kt: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`list_scan`: the list-major schedule
-    emulated.  For each group's live slot, its pair's distances to the
-    group's list (:func:`probe_distances`) and the pair's top kt
-    (:func:`pair_topk`), scattered to the pair's place; a pair no group
-    holds (its probe outside ``[0, n_lists)``) stays ``(+inf, −1)``."""
-    _, cap, _ = _check(qrot, centers, probes, list_recon, list_recon_sq,
-                       list_indices, "list_scan")
+def grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
+                      list_rsq, list_indices, kt: int, dot
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The list-major schedule of pass 1, emulated: for each group's live
+    slot, its pair's distances to the group's list (:func:`probe_distances`
+    with ``dot``) and the pair's top kt (:func:`pair_topk`), scattered to
+    the pair's place; a pair no group holds (its probe outside ``[0,
+    n_lists)``) stays ``(+inf, −1)``.  (nq, n_probes, kt) each."""
     nq, n_probes = probes.shape
-    P, kt = nq * n_probes, min(kt, cap)
+    P = nq * n_probes
     vals = torch.full((P, kt), float("inf"), dtype=torch.float32,
                       device=qrot.device)
     ids = torch.full((P, kt), -1, dtype=torch.int32, device=qrot.device)
-
-    dot = recon_dot(list_recon)
     for lst, slots in zip(group_list.long(), slot_pairs.long()):
         p = slots[slots < P]
         v, i = pair_topk(*probe_distances(
             qrot[p // n_probes], centers, lst.expand(p.numel(), 1),
-            list_indices, list_recon_sq, dot), kt)
+            list_indices, list_rsq, dot), kt)
         vals[p], ids[p] = v[:, 0], i[:, 0]
     return vals.reshape(nq, n_probes, kt), ids.reshape(nq, n_probes, kt)
+
+
+def list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
+                    list_recon, list_recon_sq, list_indices, kt: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`list_scan`: the list-major schedule
+    emulated over the recon rows (:func:`grouped_pair_topk`)."""
+    _, cap, _ = _check(qrot, centers, probes, list_recon, list_recon_sq,
+                       list_indices, "list_scan")
+    return grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
+                             list_recon_sq, list_indices, min(kt, cap),
+                             recon_dot(list_recon))
 
 
 def list_scan(qrot, centers, probes, group_list, slot_pairs, list_recon,
@@ -428,13 +436,27 @@ def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
     if list_scan_reject_reason(rot, pair_kt):
         return scan_query_major(qrot, centers, probes, list_recon,
                                 list_recon_sq, list_indices, k, kt)
+    return list_major_topk(
+        probes, n_lists, pair_kt, k,
+        lambda rows, p, gl, sp: list_scan(
+            qrot[rows], centers, p, gl, sp, list_recon, list_recon_sq,
+            list_indices, pair_kt))
+
+
+def list_major_topk(probes, n_lists: int, pair_kt: int, k: int, pass1
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each query's top k through a list-major route (Kernels B and C):
+    per chunk of queries whose (chunk, n_probes, pair_kt) pair buffer stays
+    within ``PAIR_BUFFER_BYTES``, the chunk's pairs grouped by list
+    (:func:`raft_tpu_torch.neighbors.grouped.build_groups`), ``pass1(rows,
+    probes, group_list, slot_pairs)`` — ``rows`` the chunk's slice of the
+    queries — for the pairs' top ``pair_kt``, then :func:`merge_pairs`."""
     nq, n_probes = probes.shape
     step = max(1, PAIR_BUFFER_BYTES // max(1, n_probes * pair_kt * 8))
     parts = []
     for s in range(0, nq, step):
         p = probes[s:s + step]
-        pair_v, pair_i = list_scan(
-            qrot[s:s + step], centers, p, *grouped.build_groups(p, n_lists),
-            list_recon, list_recon_sq, list_indices, pair_kt)
+        pair_v, pair_i = pass1(slice(s, s + step), p,
+                               *grouped.build_groups(p, n_lists))
         parts.append(merge_pairs(pair_v, pair_i, k))
-    return cat_parts(parts, (k,), qrot.device)
+    return cat_parts(parts, (k,), probes.device)

@@ -20,13 +20,17 @@ and one of the port's own design, with no JAX script behind it:
   epilogue, the products) and with other row counts in its fold.
 - :mod:`.flat_scan_decomp`: Kernel F's list-major pass rebuilt likewise
   (and with one TF32 product for 3xTF32's three).
+- :mod:`.code_scan_decomp`: Kernels C and D's list-major pass over the
+  PQ codes with its decode run after the products or taken out, beside
+  Kernel G's pass 1 over the recon cache.
 
 Each runs on the card as ``python3 -m raft_tpu_torch.profiles.<name>``
 and prints one JSON line per measurement.  Each of the four ports also has
 a function with explicit sizes and a device; on the CPU it runs the plain
 versions and reports no time (``"ms": null``): a CPU run measures no
-device time.  ``kmeans_tile_decomp``, ``list_scan_decomp`` and
-``flat_scan_decomp`` build kernel variants and run on the card only.
+device time.  ``kmeans_tile_decomp``, ``list_scan_decomp``,
+``flat_scan_decomp`` and ``code_scan_decomp`` build kernel variants and
+run on the card only.
 """
 
 from __future__ import annotations

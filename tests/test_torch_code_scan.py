@@ -388,11 +388,19 @@ def test_recon8_serves_an_index_the_code_scans_cannot(odd_bits_index):
     (dict(cap=64, rot=32, pq_dim=8, pq_bits=5, k=10, kt=4), "pq_bits=5"),
     (dict(cap=64, rot=30, pq_dim=8, pq_bits=8, k=10, kt=4), "multiple"),
     (dict(cap=64, rot=32, pq_dim=8, pq_bits=8, k=300, kt=4), "k=300"),
-    (dict(cap=40_000, rot=96, pq_dim=48, pq_bits=8, k=10, kt=4),
+    (dict(cap=40_000, rot=96, pq_dim=48, pq_bits=8, k=100, kt=100),
      "shared memory"),
 ])
 def test_code_scan_gates_name_their_reason(shape, reason):
-    assert reason in pcs.codes_fused_reject_reason(**shape)
+    """Kernels C and D's gates refuse only where both routes do, and then
+    name both reasons: a capacity past the query-major kernel's shared
+    memory is refused only where a pair keeps more than 64 candidates
+    (the list-major route takes any capacity)."""
+    got = pcs.codes_fused_reject_reason(**shape)
+    assert reason in got
+    if reason == "shared memory":
+        assert "list-major" in got and "query-major route" in got
+        assert not pcs.codes_fused_reject_reason(**dict(shape, k=10))
     assert not pcs.codes_fused_reject_reason(
         cap=2048, rot=96, pq_dim=48, pq_bits=8, k=20, kt=4)
     assert "kt=129" in pcs.codes_reject_reason(64, 32, 8, 8, 129)
@@ -410,9 +418,12 @@ def test_fused_codes_fallback_is_counted_with_its_reason(carried, monkeypatch,
     _, q, built = carried
     port = _carry(built[8][0])
     k, word = K, "shared memory"
-    if refused == "capacity":
-        monkeypatch.setattr(pcs, "_SMEM_LIMIT", pcs.codes_fused_smem_bytes(
-            port.capacity, port.rot_dim, port.pq_dim, 8) - 1)
+    if refused == "capacity":          # below both of Kernel C's routes
+        monkeypatch.setattr(pcs, "_SMEM_LIMIT", min(
+            pcs.codes_fused_smem_bytes(port.capacity, port.rot_dim,
+                                       port.pq_dim, 8),
+            pcs.code_list_scan_smem_bytes(port.rot_dim, port.pq_dim, 8,
+                                          4)) - 1)
     else:
         k, word = 300, "k=300"
     res = DeviceResources(device="cpu")

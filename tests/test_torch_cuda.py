@@ -255,24 +255,51 @@ def _assert_kernel_matches_plain(vk, ik, vp, ip):
 CODE_SHAPES = [  # cap, pq_dim, pq_len, pq_bits, k, kt
     (96, 16, 8, 8, 10, 10), (700, 48, 2, 8, 20, 4), (300, 32, 2, 4, 10, 3),
     (64, 7, 4, 4, 256, 256), (40, 24, 1, 8, 5, 40),
-    (2368, 48, 2, 8, 20, 20), (2368, 48, 2, 8, 20, 4)]
+    (2368, 48, 2, 8, 20, 20), (2368, 48, 2, 8, 20, 4),
+    # the list-major pass: rot 36 (off a multiple of 8) at pq_len 1 and 3,
+    # kt 1 / 64, the flagship's rot 128 at 8 bits, rot 256 at 4 bits (its
+    # residuals in two 128-dim stages) and at 8 bits (the books do not
+    # fit: query-major), k up to 256
+    (96, 36, 1, 8, 10, 1), (300, 12, 3, 4, 20, 20), (200, 12, 3, 8, 64, 64),
+    (416, 64, 2, 8, 20, 20), (416, 64, 2, 8, 20, 4), (200, 32, 4, 4, 256, 64),
+    (160, 128, 2, 4, 100, 64), (160, 64, 4, 8, 20, 20),
+    (500, 24, 4, 8, 256, 100)]
+
+
+def _code_routes():
+    """Launches of the list-major codes pass, pass 2, and Kernels C's and
+    D's query-major routes."""
+    return np.array([pcs.code_list_scan.launches, pgs.merge_pairs.launches,
+                     pcs.codes_fused_query_major.launches,
+                     pcs.codes_scan_query_major.launches])
+
+
+def _code_listed(rot, pq_dim, pq_bits, kt):
+    """Whether the list-major codes pass takes a pair kt at this shape."""
+    return not pcs.code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt)
 
 
 @pytest.mark.parametrize("cap,pq_dim,pq_len,pq_bits,k,kt", CODE_SHAPES)
 def test_codes_fused_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
                                           k, kt):
-    """Kernel C: distances within 1e-4 at every rank (the LUT sums the
-    plain version's exact products in another order), the same exhausted
-    ranks, no padding or tombstone id, ids equal but at ties."""
+    """Kernel C: distances within 1e-4 at every rank (the tensor core or
+    the LUT sums the plain version's exact products in another order), the
+    same exhausted ranks, no padding or tombstone id, ids equal but at
+    ties.  min(kt, k) up to 64 runs the list-major pass and the merge,
+    above it (or where the books do not fit) the query-major kernel: the
+    launch counters say which."""
     n_lists, nq, n_probes = 64, 40, 12
     centers, codes, books, rsq, ids, *_ = _random_code_index(
         dev, n_lists, cap, pq_dim, pq_len, pq_bits, cap + k)
     qrot, probes = _queries(dev, nq, pq_dim * pq_len, n_lists, n_probes)
-    before = pcs.ivf_pq_scan_codes_fused.launches
+    before = _code_routes()
     vk, ik = pcs.ivf_pq_scan_codes_fused(qrot, centers, probes, codes,
                                          books, rsq, ids, pq_bits, k, kt)
     torch.cuda.synchronize()
-    assert pcs.ivf_pq_scan_codes_fused.launches == before + 1
+    listed = _code_listed(pq_dim * pq_len, pq_dim, pq_bits,
+                          min(kt, cap, k))
+    assert tuple(_code_routes() - before) == (
+        (1, 1, 0, 0) if listed else (0, 0, 1, 0))
     vp, ip = pcs.ivf_pq_scan_codes_fused_plain(qrot, centers, probes, codes,
                                                books, rsq, ids, pq_bits, k,
                                                kt)
@@ -283,22 +310,85 @@ def test_codes_fused_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
 def test_codes_pair_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
                                          k, kt):
     """Kernel D: each pair's top kt, (+inf, -1) past its live rows and on
-    the skipped probe."""
+    the skipped probe; kt up to 64 on the list-major pass, above it the
+    query-major kernel."""
     n_lists, nq, n_probes = 64, 40, 12
     centers, codes, books, rsq, ids, *_ = _random_code_index(
         dev, n_lists, cap, pq_dim, pq_len, pq_bits, cap + kt)
     qrot, probes = _queries(dev, nq, pq_dim * pq_len, n_lists, n_probes)
     kt = min(kt, 128)
-    before = pcs.ivf_pq_scan_codes.launches
+    before = _code_routes()
     vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books, rsq,
                                    ids, pq_bits, kt)
     torch.cuda.synchronize()
-    assert pcs.ivf_pq_scan_codes.launches == before + 1
+    listed = _code_listed(pq_dim * pq_len, pq_dim, pq_bits, min(kt, cap))
+    assert tuple(_code_routes() - before) == (
+        (1, 0, 0, 0) if listed else (0, 0, 0, 1))
     assert vk.shape == (nq, n_probes, min(kt, cap))
     assert bool(torch.isinf(vk[0, -1]).all())
     vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes, books,
                                          rsq, ids, pq_bits, kt)
     _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+@pytest.mark.parametrize("kt", [64, 65])
+@pytest.mark.parametrize("fused", [True, False], ids=["C", "D"])
+def test_code_scans_route_by_kt(dev, kt, fused):
+    """A pair kt of 64 takes the list-major codes pass, 65 the query-major
+    kernel (C at k = kt; D), each held to its plain version."""
+    n_lists, cap, pq_dim, pq_len, pq_bits = 32, 300, 48, 2, 8
+    centers, codes, books, rsq, ids, *_ = _random_code_index(
+        dev, n_lists, cap, pq_dim, pq_len, pq_bits, kt)
+    qrot, probes = _queries(dev, 30, pq_dim * pq_len, n_lists, 6)
+    before = _code_routes()
+    if fused:
+        vk, ik = pcs.ivf_pq_scan_codes_fused(qrot, centers, probes, codes,
+                                             books, rsq, ids, pq_bits, kt,
+                                             kt)
+        vp, ip = pcs.ivf_pq_scan_codes_fused_plain(
+            qrot, centers, probes, codes, books, rsq, ids, pq_bits, kt, kt)
+        want = (1, 1, 0, 0) if kt <= 64 else (0, 0, 1, 0)
+    else:
+        vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books,
+                                       rsq, ids, pq_bits, kt)
+        vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes,
+                                             books, rsq, ids, pq_bits, kt)
+        want = (1, 0, 0, 0) if kt <= 64 else (0, 0, 0, 1)
+    torch.cuda.synchronize()
+    assert tuple(_code_routes() - before) == want
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+# (rot, pq_dim, pq_bits, kt) the list-major codes pass takes (the
+# flagship's 8-bit books do not fit beside kt 64's top rows)
+BIT_EQUAL_SHAPES = [
+    (rot, pq_dim, bits, kt)
+    for rot, pq_dim, bits in ((96, 48, 8), (128, 64, 8), (128, 32, 4),
+                              (256, 128, 4), (48, 48, 8))
+    for kt in (1, 4, 20, 64)
+    if not pcs.code_list_scan_reject_reason(rot, pq_dim, bits, kt)]
+
+
+@pytest.mark.parametrize("rot,pq_dim,pq_bits,kt", BIT_EQUAL_SHAPES)
+def test_code_list_scan_is_bit_equal_to_list_scan_on_the_decoded_cache(
+        dev, rot, pq_dim, pq_bits, kt):
+    """The codes pass decodes each row to the bf16 recon cache's bits and
+    multiplies them on the same tiles in the same order as the recon pass
+    1, so on the same norms the two give the same values and ids
+    (``torch.equal``), empty pairs included."""
+    n_lists, cap = 40, 700
+    centers, codes, books, rsq, ids, *_ = _random_code_index(
+        dev, n_lists, cap, pq_dim, rot // pq_dim, pq_bits, rot + kt)
+    qrot, probes = _queries(dev, 200, rot, n_lists, 10)
+    groups = grouped.build_groups(probes, n_lists)
+    cv, ci = pcs.code_list_scan(qrot, centers, probes, *groups, codes, books,
+                                rsq, ids, pq_bits, kt)
+    recon = pcs.decode_codes(codes, books, pq_bits)
+    rv, ri = pgs.list_scan(qrot, centers, probes, *groups, recon, rsq, ids,
+                           kt)
+    torch.cuda.synchronize()
+    assert torch.equal(cv, rv) and torch.equal(ci, ri)
+    assert bool(torch.isinf(cv[0, -1]).all() and (ci[0, -1] == -1).all())
 
 
 @pytest.mark.parametrize("cap,rot,kt", [(96, 128, 10), (700, 96, 4),
@@ -424,18 +514,20 @@ def test_ivf_flat_scan_kernel_matches_plain(dev, cap, dim, kt, ip):
     (300, 128, 65, True), (200, 1024, 10, True), (200, 1024, 33, True),
     (416, 128, 20, False), (96, 20, 5, False), (2368, 96, 10, False),
     (200, 1, 10, False), (200, 3, 10, True), (200, 25, 10, False),
-    (200, 50, 64, True), (200, 97, 33, False)],
+    (200, 50, 64, True), (200, 97, 33, False), (200, 25, 100, False),
+    (200, 50, 100, True), (200, 3, 65, False)],
     ids=["kt64-list", "kt65-query", "ip-kt64-list", "ip-kt65-query",
          "ip-dim1024", "ip-dim1024-kt33", "kt20", "dim20", "cap2368",
-         "dim1", "ip-dim3", "dim25", "ip-dim50-kt64", "dim97-kt33"])
+         "dim1", "ip-dim3", "dim25", "ip-dim50-kt64", "dim97-kt33",
+         "dim25-kt100-query", "ip-dim50-kt100-query", "dim3-kt65-query"])
 def test_ivf_flat_scan_routes_by_kt(dev, cap, dim, kt, ip):
     """Kt 64 takes the list-major pass, kt 65 the query-major kernel, each
     held to the plain version (``_check_flat_scan`` asserts the route by
     the launch counters); dim 1024 streams the queries with the rows (the
     layout cannot keep them resident), dim 20 pads its last k-step with
     zeros, a capacity of 2,368 takes 19 row windows; a row width off a
-    multiple of 4 (GloVe's 25 and 50 among them) takes the list-major
-    pass too, its rows loaded a value at a time."""
+    multiple of 4 (GloVe's 25 and 50 among them) takes either route, its
+    rows loaded a value at a time."""
     data, dsq, ids = _flat_lists(dev, 48, cap, dim, cap + dim + kt)
     q, probes = _queries(dev, 40, dim, 48, 10)
     _check_flat_scan(q, probes, data, dsq, ids, kt, ip)
@@ -484,7 +576,7 @@ def test_ivf_flat_scan_splits_a_hot_tile_across_groups(dev, ip):
 def test_ivf_flat_scan_misaligned_operands_load_a_value_at_a_time(dev):
     """Queries and rows that start off a 16-byte boundary (views one float
     into their storage) at dim 128 take the one-value loads: same result
-    as the plain version, list-major."""
+    as the plain version, list-major (kt 10) and query-major (kt 80)."""
     cap, n_lists, dim, nq = 96, 32, 128, 40
     data, dsq, ids = _flat_lists(dev, n_lists, cap, dim, 5)
     q, probes = _queries(dev, nq, dim, n_lists, 8)
@@ -496,12 +588,16 @@ def test_ivf_flat_scan_misaligned_operands_load_a_value_at_a_time(dev):
     before = _flat_routes()
     _check_flat_scan(qs, probes, ds, dsq, ids, 10, False)
     assert tuple(_flat_routes() - before) == (1, 0)
+    _check_flat_scan(qs, probes, ds, dsq, ids, 80, False)
+    assert tuple(_flat_routes() - before) == (1, 1)
 
 
-def test_ivf_flat_search_at_dim_25_is_exact_with_every_list_probed(dev):
-    """``ivf_flat.search`` on a dim-25 index at k 10 runs the list-major
-    pass; with every list probed its distances are brute force's, within
-    1e-5 of ‖q‖² + max ‖x‖²."""
+@pytest.mark.parametrize("k", [10, 100])
+def test_ivf_flat_search_at_dim_25_is_exact_with_every_list_probed(dev, k):
+    """``ivf_flat.search`` on a dim-25 index runs the list-major pass at k
+    10 and the query-major kernel at k 100 (before, that route refused a
+    width off a multiple of 4); with every list probed its distances are
+    brute force's, within 1e-5 of ‖q‖² + max ‖x‖²."""
     from raft_tpu_torch import DeviceResources
     from raft_tpu_torch.neighbors import ivf_flat
 
@@ -514,11 +610,11 @@ def test_ivf_flat_search_at_dim_25_is_exact_with_every_list_probed(dev):
     index = ivf_flat.build(res, ivf_flat.IndexParams(n_lists=16), db)
     before = _flat_routes()
     dist, found = ivf_flat.search(res, ivf_flat.SearchParams(n_probes=16),
-                                  index, q, 10)
+                                  index, q, k)
     torch.cuda.synchronize()
-    assert tuple(_flat_routes() - before) == (1, 0)
+    assert tuple(_flat_routes() - before) == ((1, 0) if k <= 64 else (0, 1))
     ref = torch.cdist(q.double(), db.double()).square().float()
-    ref_d = torch.topk(ref, 10, largest=False).values
+    ref_d = torch.topk(ref, k, largest=False).values
     scale = float((q * q).sum(1).max() + (db * db).sum(1).max())
     torch.testing.assert_close(dist, ref_d, rtol=0, atol=1e-5 * scale)
     got = ref.gather(1, found.long())
@@ -548,13 +644,18 @@ def test_ivf_pq_scan_recon_kernel_matches_plain(dev, cap, rot, kt):
     _assert_kernel_matches_plain(vk, ik, vp, ip)
 
 
-@pytest.mark.parametrize("fused", [True, False], ids=["B", "G"])
-def test_list_major_scans_split_a_hot_list_across_groups(dev, fused):
+@pytest.mark.parametrize("kernel", ["B", "G", "C", "D"])
+def test_list_major_scans_split_a_hot_list_across_groups(dev, kernel):
     """300 queries all probe list 5 (three groups of one list) besides
     their own probes, one probe is negative and one a sentinel past the
-    lists: Kernels B and G against their plain versions."""
+    lists: Kernels B and G, and C and D over the codes, against their
+    plain versions."""
     n_lists, nq, n_probes, cap, rot, k, kt = 32, 300, 6, 416, 128, 20, 20
-    centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, 3)
+    if kernel in "CD":
+        centers, codes, books, rsq, ids, *_ = _random_code_index(
+            dev, n_lists, cap, 64, 2, 8, 3)
+    else:
+        centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, 3)
     qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
     probes[:, 1] = torch.where(probes[:, 0] == 5, probes[:, 1],
                                torch.full_like(probes[:, 1], 5))
@@ -562,11 +663,22 @@ def test_list_major_scans_split_a_hot_list_across_groups(dev, fused):
     probes[3, 2] = n_lists
     groups = grouped.build_groups(probes, n_lists)
     assert int((groups[0] == 5).sum()) >= 3
-    if fused:
+    if kernel == "B":
         vk, ik = pgs.ivf_pq_scan_fused(qrot, centers, probes, recon, rsq, ids,
                                        k, kt)
         vp, ip = pgs.ivf_pq_scan_fused_plain(qrot, centers, probes, recon,
                                              rsq, ids, k, kt)
+    elif kernel == "C":
+        vk, ik = pcs.ivf_pq_scan_codes_fused(qrot, centers, probes, codes,
+                                             books, rsq, ids, 8, k, kt)
+        vp, ip = pcs.ivf_pq_scan_codes_fused_plain(
+            qrot, centers, probes, codes, books, rsq, ids, 8, k, kt)
+    elif kernel == "D":
+        vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books,
+                                       rsq, ids, 8, kt)
+        vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes,
+                                             books, rsq, ids, 8, kt)
+        assert bool(torch.isinf(vk[3, 2]).all() and (ik[3, 2] == -1).all())
     else:
         vk, ik = ps.ivf_pq_scan_recon(qrot, centers, probes, recon, rsq, ids,
                                       kt)
@@ -636,16 +748,23 @@ def test_fused_l2_nn_small_dim_kernel_is_bit_equal_to_plain(dev, dim, n):
 
 
 def test_pair_scans_and_fused_l2_nn_reject_what_they_cannot_hold(dev):
-    """Kernel F's query-major route (kt past KT_LIST_MAX) needs a row
-    width that is a multiple of 4, and raises; the list-major pass takes
-    any width."""
+    """Both of Kernel F's routes take a row width off a multiple of 4 (kt
+    65 at dim 10 runs the query-major kernel; its plain version agrees);
+    Kernel G's query-major route still needs bf16 rows a multiple of 8
+    wide, and fused_l2_nn an empty y, raise."""
     data, dsq, ids = _flat_lists(dev, 4, 96, 10, 0)
     q = torch.zeros(2, 10, device=dev)
     probes = torch.zeros(2, 1, dtype=torch.int32, device=dev)
-    with pytest.raises(LogicError, match="multiple of 4"):
-        ps.ivf_flat_scan(q, probes, data, dsq, ids, 65)
-    with pytest.raises(LogicError, match="multiple of 4"):
-        ps.flat_scan_query_major(q, probes, data, dsq, ids, 4)
+    before = _flat_routes()
+    vk, ik = ps.ivf_flat_scan(q, probes, data, dsq, ids, 65)
+    torch.cuda.synchronize()
+    assert tuple(_flat_routes() - before) == (0, 1)
+    vp, ip = ps.ivf_flat_scan_plain(q, probes, data, dsq, ids, 65)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+    centers, recon, rsq, rids = _random_index(dev, 4, 32, 12, 0)
+    with pytest.raises(LogicError, match="multiple of 8"):
+        ps.recon_scan_query_major(torch.zeros(2, 12, device=dev), centers,
+                                  probes, recon, rsq, rids, 100)
     with pytest.raises(LogicError, match="fused_l2_nn"):
         fnn.fused_l2_nn(q, torch.zeros(0, 10, device=dev))
 

@@ -461,7 +461,13 @@ def test_super_tile_factor_matches_jax():
 
 
 def test_pair_scan_gates_name_their_reason():
-    assert "multiple of 4" in ps.pair_scan_reject_reason(64, 10, 4, 4)
+    """fp32 rows (Kernel F's query-major route) of any width from 1 to
+    1024 are taken, off a multiple of 4 a value at a time; bf16 rows
+    (Kernel G's) need a multiple of 8; each refusal names its reason."""
+    for width in (1, 3, 10, 25, 50, 1024):
+        assert not ps.pair_scan_reject_reason(64, width, 4, 4)
+    assert "outside 1..1024" in ps.pair_scan_reject_reason(64, 0, 4, 4)
+    assert "outside 1..1024" in ps.pair_scan_reject_reason(64, 1025, 4, 4)
     assert "multiple of 8" in ps.pair_scan_reject_reason(64, 100, 4, 8)
     assert "shared memory" in ps.pair_scan_reject_reason(60_000, 128, 4, 4)
     assert "kt=0" in ps.pair_scan_reject_reason(64, 128, 0, 4)
