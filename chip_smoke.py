@@ -127,14 +127,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     it and read after (``auto`` must launch both passes of Kernel B with
     no fallback; ``fused``, ``codes`` and the lean ``auto`` the
     list-major codes pass ``code_list_scan``, C with pass 2, and no
-    query-major codes kernel), ``auto`` and ``recon`` kt 4 also through
-    each route of B and G on the one build, ``fused`` and ``codes``
+    query-major codes kernel; ``recon8`` E's list-major pass
+    ``recon8_list_scan`` and never its query-major kernel), ``auto``,
+    ``recon`` kt 4 and ``recon8`` kt 4 also through each route of B, G
+    and E on the one build (within 0.0004), ``fused`` and ``codes``
     through each route of C and D (printed only).  Kernels B, C, D, E and
     G against their plain versions on the full batch at each mode's shape
-    (B, C, D and G with their device splits); the codes pass against
-    Kernel G's pass 1 over the recon cache on the codes' norms, bit for
-    bit; C and D's query-major routes at k = kt = 128 on 1,000 queries;
-    and each mode's batch under the profiler.
+    (with their device splits; E's time beside G's); the codes pass
+    against Kernel G's pass 1 over the recon cache on the codes' norms,
+    and E's pass with every scale 1 against G's pass 1 over the int8
+    rows as bf16, each bit for bit; C, D and E's query-major routes at k
+    = kt = 128 on 1,000 queries; and each mode's batch under the
+    profiler.
 13. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path, and
@@ -228,7 +232,8 @@ def counters():
             "code_list_scan": pcs.code_list_scan,
             "codes_fused_query_major": pcs.codes_fused_query_major,
             "codes_scan_query_major": pcs.codes_scan_query_major,
-            "ivf_pq_scan_recon8": pcs.ivf_pq_scan_recon8,
+            "recon8_list_scan": pcs.recon8_list_scan,
+            "recon8_scan_query_major": pcs.recon8_scan_query_major,
             "flat_list_scan": ps.flat_list_scan,
             "flat_scan_query_major": ps.flat_scan_query_major,
             "fused_l2_nn": fnn.fused_l2_nn,
@@ -725,11 +730,11 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
                        k=K_SEARCH):
     """Kernels C, D and E (those named in ``kernels``) against their plain
     versions on a path's batch (n_probes 96) at per-pair ``kt`` and C's
-    ``k``.  C and D run the route their gates pick (list-major where a
-    pair keeps at most 64 candidates: ``csrc/pq_code_list_scan.cu``, with
-    the device split and the group count; else the query-major
-    ``pq_code_scan.cu``), E its query-major kernel; each route's launch
-    counter must move."""
+    ``k``.  Each runs the route its gate picks (list-major where a pair
+    keeps at most 64 candidates: ``csrc/pq_code_list_scan.cu``, over the
+    codes or, for E, the int8 rows, with the device split and the group
+    count; else the query-major ``pq_code_scan.cu`` / ``pq_recon8_scan.
+    cu``); each route's launch counter must move."""
     from raft_tpu_torch.ops import pq_code_scan as pcs
 
     qrot, probes = probe(index, queries)
@@ -775,20 +780,25 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
     if "E" in kernels:
         i8 = index.list_recon_i8
         rot_pad = i8.shape[2]
+        on_list = not pcs.recon8_list_scan_reject_reason(
+            rot_pad, min(kt, index.capacity))
         specs.append((
-            "ivf_pq_scan_recon8", "pq_recon8_scan.cu", codes_src + "441",
-            pcs.ivf_pq_scan_recon8, pcs.ivf_pq_scan_recon8_plain,
+            "ivf_pq_scan_recon8",
+            "pq_code_list_scan.cu" if on_list else "pq_recon8_scan.cu",
+            codes_src + "441", pcs.ivf_pq_scan_recon8,
+            pcs.ivf_pq_scan_recon8_plain,
             (qrot, index.centers, probes, i8, index.list_recon_scale,
              index.list_recon_i8_sq, index.list_indices, kt),
             lambda slot: i8.reshape(-1, rot_pad)[slot].float(),
             index.list_recon_i8_sq, index.list_recon_scale, rot_pad + 8,
             4 * index.n_lists, pair_out, rot_pad))
-        routes.append(pcs.ivf_pq_scan_recon8)
+        routes.append(pcs.recon8_list_scan if on_list
+                      else pcs.recon8_scan_query_major)
     before = [r.launches for r in routes]
     rows = check_scans(index, qrot, probes, specs)
     for row, spec, route, b in zip(rows, specs, routes, before):
         assert route.launches > b, f"{row['name']}: its route never ran"
-        if route is pcs.code_list_scan:
+        if route in (pcs.code_list_scan, pcs.recon8_list_scan):
             merged = row["name"] == "ivf_pq_scan_codes_fused"
             pair_kt = min(kt, k) if merged else kt
             row.update(list_major_split(
@@ -800,23 +810,23 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
 
 
 def check_codes_query_major(index, queries, nq):
-    """Kernels C and D's query-major routes (``csrc/pq_code_scan.cu``) at
-    a pair kt past 64 (k = kt = 128) on the first ``nq`` queries of the
-    batch, each against its plain version, its launch counted; two
-    ``also_checked`` entries."""
+    """Kernels C, D and E's query-major routes (``csrc/pq_code_scan.cu``,
+    ``csrc/pq_recon8_scan.cu``) at a pair kt past 64 (k = kt = 128) on
+    the first ``nq`` queries of the batch, each against its plain version,
+    its launch counted; three ``also_checked`` entries."""
     from raft_tpu_torch.ops import pq_code_scan as pcs
 
     kt = min(2 * 64, index.capacity)
-    before = (pcs.codes_fused_query_major.launches,
-              pcs.codes_scan_query_major.launches)
-    rows = check_code_kernels(index, queries[:nq], kt, ("C", "D"), kt)
-    ran = (pcs.codes_fused_query_major.launches - before[0],
-           pcs.codes_scan_query_major.launches - before[1])
-    assert min(ran) > 0, f"codes query-major routes launched {ran}"
+    walked = (pcs.codes_fused_query_major, pcs.codes_scan_query_major,
+              pcs.recon8_scan_query_major)
+    before = [w.launches for w in walked]
+    rows = check_code_kernels(index, queries[:nq], kt, ("C", "D", "E"), kt)
+    ran = [w.launches - b for w, b in zip(walked, before)]
+    assert min(ran) > 0, f"query-major routes launched {ran}"
     return [at_shape(dict(row, check_launches=n),
-                     f"query-major (csrc/pq_code_scan.cu): {nq:,} queries x "
-                     f"{N_PROBES} probes, k {kt}, kt {kt}, capacity "
-                     f"{index.capacity:,}, rot {index.rot_dim}", 0)
+                     f"query-major (csrc/{row['source'].split('/')[-1]}): "
+                     f"{nq:,} queries x {N_PROBES} probes, k {kt}, kt {kt}, "
+                     f"capacity {index.capacity:,}, rot {index.rot_dim}", 0)
             for row, n in zip(rows, ran)]
 
 
@@ -844,6 +854,36 @@ def codes_bit_equal(index, queries, kt):
     print(f"code_list_scan vs list_scan over the recon cache (kt {kt}, "
           f"{probes.numel():,} pairs): bit-equal {same}", flush=True)
     assert same, "the codes pass differs from pass 1 over the recon cache"
+
+
+def recon8_bit_equal(index, queries, kt):
+    """Kernel E's list-major pass with every scale 1 against Kernel G's
+    pass 1 over the int8 rows as bf16 (``q8[..., :rot]``, exact), both on
+    the int8 norms, at per-pair ``kt`` on the batch: the same tiles, exact
+    products, summation order and fold, so values and ids must be
+    equal."""
+    import torch
+    from raft_tpu_torch.neighbors import grouped
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    qrot, probes = probe(index, queries)
+    groups = grouped.build_groups(probes, index.n_lists)
+    i8, rsq8 = index.list_recon_i8, index.list_recon_i8_sq
+    ones = torch.ones_like(index.list_recon_scale)
+    ev, ei = pcs.recon8_list_scan(qrot, index.centers, probes, *groups, i8,
+                                  ones, rsq8, index.list_indices, kt)
+    rows = i8[..., :index.rot_dim].to(torch.bfloat16)
+    gv, gi = pgs.list_scan(qrot, index.centers, probes, *groups, rows, rsq8,
+                           index.list_indices, kt)
+    torch.cuda.synchronize()
+    same = torch.equal(ev, gv) and torch.equal(ei, gi)
+    del rows
+    torch.cuda.empty_cache()
+    print(f"recon8_list_scan at scale 1 vs list_scan over the int8 rows as "
+          f"bf16 (kt {kt}, {probes.numel():,} pairs): bit-equal {same}",
+          flush=True)
+    assert same, "the int8 pass differs from pass 1 over its rows as bf16"
 
 
 def check_kernel_g(index, queries, kt):
@@ -1701,7 +1741,7 @@ def search_mode(res, index, db, queries, truth, label, sp, kernel):
         _, cand = ivf_pq.search(res, sp, index, queries, K_SEARCH)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        _, found = refine.refine(res, db, queries, cand, K)
+        _, found = refine(res, db, queries, cand, K)
         torch.cuda.synchronize()
         search_ms.append(1e3 * (t1 - t0))
         batch_ms.append(1e3 * (time.perf_counter() - t0))
@@ -1767,7 +1807,7 @@ def pq_same_build_routes(res, index, db, queries, truth, label, sp, fused):
                     else ("ivf_pq_scan_recon", ps.recon_scan_query_major))
     return same_build_routes(
         label, ivf_pq, name, walked, (pgs.list_scan, walked),
-        lambda: refine.refine(res, db, queries, ivf_pq.search(
+        lambda: refine(res, db, queries, ivf_pq.search(
             res, sp, index, queries, K_SEARCH)[1], K)[1], truth)
 
 
@@ -1787,8 +1827,24 @@ def codes_same_build_routes(res, index, db, queries, truth, label, sp,
                                    pcs.codes_scan_query_major))
     return same_build_routes(
         label, pcs, name, walked, (pcs.code_list_scan, walked),
-        lambda: refine.refine(res, db, queries, ivf_pq.search(
+        lambda: refine(res, db, queries, ivf_pq.search(
             res, sp, index, queries, K_SEARCH)[1], K)[1], truth, gate=False)
+
+
+def recon8_same_build_routes(res, index, db, queries, truth, label, sp):
+    """:func:`same_build_routes` for one IVF-PQ recon8 search + refine
+    batch: Kernel E's ``recon8_scan_query_major`` swapped in for the
+    search's int8 scan, ``recon8_list_scan`` its list-major route; the
+    two must agree within ROUTE_RECALL_GAP."""
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+
+    walked = pcs.recon8_scan_query_major
+    return same_build_routes(
+        label, pcs, "ivf_pq_scan_recon8", walked,
+        (pcs.recon8_list_scan, walked),
+        lambda: refine(res, db, queries, ivf_pq.search(
+            res, sp, index, queries, K_SEARCH)[1], K)[1], truth)
 
 
 def flagship_code_checks(index, queries):
@@ -1883,8 +1939,7 @@ def deep_path(dev):
             ("auto", sp(), "merge_pairs"),
             ("fused", sp(scan_mode="fused", **kt4), "code_list_scan"),
             ("codes", sp(scan_mode="codes", **kt4), "code_list_scan"),
-            ("recon8", sp(scan_mode="recon8", **kt4),
-             "ivf_pq_scan_recon8"),
+            ("recon8", sp(scan_mode="recon8", **kt4), "recon8_list_scan"),
             ("recon", sp(scan_mode="recon", **kt4), "list_scan")):
         runs[label] = search_mode(res, index, db, queries, truth,
                                   f"deep {label}", params_, kernel)
@@ -1899,6 +1954,9 @@ def deep_path(dev):
             "codes_scan_query_major"] == 0, (
             f"deep {label}: a query-major codes kernel ran")
         assert runs[label]["fallbacks"] == 0, f"deep {label}: C refused"
+    # E at kt 4 runs its list-major pass, never the query-major kernel
+    assert runs["recon8"]["launches"]["recon8_scan_query_major"] == 0, (
+        "deep recon8: the query-major kernel ran")
     agree = float((runs["fused"]["cand"] == runs["codes"]["cand"]).float()
                   .mean())
     print(f"deep fused vs codes: candidate ids equal at {agree:.5f} of "
@@ -1916,6 +1974,8 @@ def deep_path(dev):
         codes_same_build_routes(res, index, db, queries, truth,
                                 f"deep {label} kt 4", runs[label]["params"],
                                 label == "fused")
+    recon8_same_build_routes(res, index, db, queries, truth,
+                             "deep recon8 kt 4", runs["recon8"]["params"])
     for label in ("fused", "codes", "recon8", "recon"):
         assert runs[label]["recall"] >= 0.80, (
             f"deep {label} recall@10 {runs[label]['recall']} below 0.80")
@@ -1927,14 +1987,14 @@ def deep_path(dev):
     rows[0]["launches"] = runs["fused"]["launches"]["merge_pairs"]
     rows[0]["pass1_launches"] = runs["fused"]["launches"]["code_list_scan"]
     rows[1]["launches"] = runs["codes"]["launches"]["code_list_scan"]
-    rows[2]["launches"] = runs["recon8"]["launches"]["ivf_pq_scan_recon8"]
+    rows[2]["launches"] = runs["recon8"]["launches"]["recon8_list_scan"]
     for row in rows:
         row["also_checked"] = []
     codes_bit_equal(index, queries, DEEP_KT)
-    c_walked, d_walked = check_codes_query_major(index, queries,
-                                                 LARGE_KT_QUERIES)
-    rows[0]["also_checked"].append(c_walked)
-    rows[1]["also_checked"].append(d_walked)
+    recon8_bit_equal(index, queries, DEEP_KT)
+    walked = check_codes_query_major(index, queries, LARGE_KT_QUERIES)
+    for row, entry in zip(rows, walked):
+        row["also_checked"].append(entry)
     b_deep = at_shape(
         check_kernel_b(index, queries),
         f"deep: {N_QUERIES:,} queries x {N_PROBES} probes, k {K_SEARCH}, kt "
@@ -1945,10 +2005,13 @@ def deep_path(dev):
         f"deep recon: {N_QUERIES:,} queries x {N_PROBES} probes, kt "
         f"{DEEP_KT}, capacity {index.capacity:,}, rot {index.rot_dim}",
         runs["recon"]["launches"]["list_scan"])
+    ratio = rows[2]["ms"] / g_deep["ms"]
+    print(f"deep kt {DEEP_KT}: E {rows[2]['ms']:.3f} ms against G "
+          f"{g_deep['ms']:.3f} ms in this run ({ratio:.2f}x)", flush=True)
 
     for label, run in runs.items():
         device_breakdown(f"deep {label} search+refine batch",
-                         lambda: refine.refine(res, db, queries, ivf_pq.search(
+                         lambda: refine(res, db, queries, ivf_pq.search(
                              res, run["params"], index, queries,
                              K_SEARCH)[1], K))
 
@@ -2259,7 +2322,7 @@ def main() -> int:
         _, cand = ivf_pq.search(res, sp, index, queries, K_SEARCH)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        _, found = refine.refine(res, db, queries, cand, K)
+        _, found = refine(res, db, queries, cand, K)
         torch.cuda.synchronize()
         search_ms.append(1e3 * (t1 - t0))
         batch_ms.append(1e3 * (time.perf_counter() - t0))
@@ -2291,7 +2354,7 @@ def main() -> int:
     # the search alone tells its validation from refine's, whose host
     # sync waits for the search's kernels before refine's work is queued
     policy_cost(f"search + refine (batch of {N_QUERIES})", lambda:
-                refine.refine(res, db, queries, ivf_pq.search(
+                refine(res, db, queries, ivf_pq.search(
                     res, sp, index, queries, K_SEARCH)[1], K))
     policy_cost(f"search alone (batch of {N_QUERIES})", lambda:
                 ivf_pq.search(res, sp, index, queries, K_SEARCH))
@@ -2332,7 +2395,7 @@ def main() -> int:
     device_breakdown("build", lambda: ivf_pq.build(
         DeviceResources(seed=0), params, db))
     index = ivf_pq.build(DeviceResources(seed=0), params, db)
-    device_breakdown("search+refine batch", lambda: refine.refine(
+    device_breakdown("search+refine batch", lambda: refine(
         res, db, queries, ivf_pq.search(res, sp, index, queries,
                                         K_SEARCH)[1], K))
     del cand, found

@@ -24,7 +24,14 @@ validator of every entry point (:mod:`raft_tpu_torch.integrity.boundary`,
 policy in :mod:`raft_tpu_torch.config`).
 """
 
-from raft_tpu_torch.core.error import LogicError, expects  # noqa: F401
-from raft_tpu_torch.core.resources import DeviceResources  # noqa: F401
+from raft_tpu_torch import config  # noqa: F401
+from raft_tpu_torch import observability  # noqa: F401
+from raft_tpu_torch import integrity  # noqa: F401
+from raft_tpu_torch.core import (DeviceResources, LogicError,  # noqa: F401
+                                 RaftError, Resources, expects)
+from raft_tpu_torch.core.error import not_ported_stub as _stub
+
+auto_convert_output = _stub("raft_tpu_torch", "auto_convert_output",
+                                      "serialization")
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
 """Input-validation policy of the public entry points (port of the
-validation-policy part of ``raft_tpu.config``; ``output_as`` is not
-ported).
+validation-policy part of ``raft_tpu.config``).  The output-type part
+(``SUPPORTED_OUTPUT_TYPES``, ``set_output_as``, ``get_output_as``) is not
+ported: each raises ``NotImplementedError`` naming ROADMAP.md §1's
+*serialization*.
 
 - ``"raise"`` (the default): a non-finite input row raises
   :class:`raft_tpu_torch.integrity.errors.ValidationError` at the public
@@ -15,6 +17,18 @@ ported).
 """
 
 from __future__ import annotations
+
+from raft_tpu_torch.core.error import not_ported, not_ported_stub
+
+set_output_as = not_ported_stub("config", "set_output_as", "serialization")
+get_output_as = not_ported_stub("config", "get_output_as", "serialization")
+
+
+def __getattr__(name: str):
+    if name in ("SUPPORTED_OUTPUT_TYPES", "output_as_"):
+        raise not_ported("config", name, "serialization")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 SUPPORTED_VALIDATION_POLICIES = ("raise", "mask", "off")
 

@@ -1,7 +1,9 @@
-// Kernels C and D, list-major: the IVF-PQ scans over the bit-packed PQ
-// codes as pass 1 of Kernels B and G's list-major route (pq_list_scan.cu),
-// each list's codes decoded in shared memory into the bf16 rows that pass
-// multiplies on Hopper's tensor cores.
+// Kernels C, D and E, list-major: the IVF-PQ scans over the bit-packed PQ
+// codes and over the int8 recon cache as pass 1 of Kernels B and G's
+// list-major route (pq_list_scan.cu), each list's rows turned in shared
+// memory into the bf16 rows that pass multiplies on Hopper's tensor cores.
+// The row source is a template switch (kBits: 4 or 8, the codes' field
+// width; kInt8, Kernel E's int8 rows); everything else is one pass.
 //
 // code_list_scan_kernel is pass 1 on the codes.  Alone it is Kernel D and
 // replaces raft_tpu/ops/pq_code_scan_pallas.py:367 grouped_code_scan (body
@@ -52,6 +54,24 @@
 // code_list_scan_smem_bytes mirrors code_layout; its gate holds it to the
 // card's limit (the query-major kernels take what it refuses), the launch
 // passes it, and the entry point refuses less than code_layout needs.
+//
+// Kernel E (kBits = kInt8) replaces raft_tpu/ops/pq_code_scan_pallas.py
+// :441 grouped_recon8_scan (body _kernel_recon8, group-major as here) and
+// keeps pq_recon8_scan.cu's contract:
+//   ip = bf16(sub) . q8[list, row]                  (fp32 accumulation)
+//   d  = max(sub_sq + rsq8[list, row] - (2 scale[list]) ip, 0)
+// q8 is exact in bf16 (|q| <= 127), so its rows are converted, not
+// dequantized: the list's scale multiplies the summed dot in the fold
+// (scale2 = 2 scale[list], loaded once a group), as the JAX kernel
+// applies it.  Its bytes are rot_pad int8 values, a 4-byte id and a
+// 4-byte norm a live row (104 B at rot 96).  A step's rows come in by
+// cp.async one step ahead, 16 bytes at a time, into a raw stage of rows
+// padded to an odd number of 16-byte chunks; the block converts each
+// 16-byte chunk (16 dims) into two 16-byte bf16 chunks of the B stage.
+// The products run over rot_pad dims (zeros past rot in the residuals):
+// on the same norms, with every scale 1 and rot_pad = round16(rot) (the
+// port's cache), the pass gives pass 1 over q8[..., :rot] as bf16 rows
+// bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,11 +89,27 @@ using namespace raft_mma;
 
 constexpr int kKtMax = 64;           // KT_LIST_MAX, ops/pq_group_scan.py
 constexpr int kRowsAtOnce = 4;       // pair rows a warp folds side by side
+constexpr int kInt8 = 0;             // the row source kBits of Kernel E
+
+// the dims the products run over: round16(rot) for the codes, the int8
+// rows' width W = rot_pad (a multiple of 16) for Kernel E
+__host__ __device__ inline int pass_dims(int rot, int pq_bits, int W) {
+  return pq_bits == kInt8 ? W : (rot + 15) & ~15;
+}
+
+// bytes a row takes in an int8 raw stage holding kc dims of each: an odd
+// number of 16-byte chunks, so 8 consecutive rows' chunks lie in 8
+// distinct bank groups
+__host__ __device__ inline int int8_row_stride(int kc) {
+  return ((kc >> 4) & 1) ? kc : kc + 16;
+}
 
 // byte offsets into the dynamic shared memory: pq_list_scan.cu's
 // ScanLayout (residuals at a, list rows at b, keys, top kt, sub_sq, pair
 // indices) with top-kt rows of `stride` = round8(kt) entries, then the
-// bf16 books and the two raw stages of a step's packed codes
+// bf16 books (none for int8 rows) and the two raw stages of a step's rows
+// (packed codes: one run of 128 W bytes and its 16-byte head; int8: 128
+// rows of int8_row_stride(kc) bytes)
 struct CodeLayout {
   int a, a_step, b, b_step, key, top_v, top_s, ssq, pair, books, raw,
       raw_step, stride, total;
@@ -81,7 +117,7 @@ struct CodeLayout {
 
 __host__ __device__ inline CodeLayout code_layout(int rot, int pq_bits,
                                                   int W, int kt) {
-  const int kp = (rot + 15) & ~15;
+  const int kp = pass_dims(rot, pq_bits, W);
   const bool resident = kp <= kKc;
   const int kc = resident ? kp : kKc;
   const int ab = align1024(operand_bytes(kGroup, kc));
@@ -98,8 +134,13 @@ __host__ __device__ inline CodeLayout code_layout(int rot, int pq_bits,
   L.ssq = L.top_s + kGroup * L.stride * 4;
   L.pair = L.ssq + kGroup * 4;
   L.books = L.pair + kGroup * 4;
-  L.raw = L.books + 2 * (rot << pq_bits);      // 32 rot B at least
-  L.raw_step = ((BN * W + 15) & ~15) + 16;     // + the 16-byte head
+  if (pq_bits == kInt8) {
+    L.raw = L.books;
+    L.raw_step = BN * int8_row_stride(kc);
+  } else {
+    L.raw = L.books + 2 * (rot << pq_bits);    // 32 rot B at least
+    L.raw_step = ((BN * W + 15) & ~15) + 16;   // + the 16-byte head
+  }
   L.total = L.raw + 2 * L.raw_step + 1024;     // + alignment
   return L;
 }
@@ -163,8 +204,52 @@ __device__ __forceinline__ void decode_rows(uint32_t dst, const uint8_t* raw,
   }
 }
 
+// bytes 2h and 2h + 1 of four int8 values w as a bf16 pair (byte 2h the
+// low half): each byte x is exact in fp32 as float(0x4B000000 | (x ^
+// 0x80)) - (2^23 + 128), an integer whose bf16 is its upper 16 bits (the
+// low 16 are zero), so a byte permute, an add and one permute of the pair
+template <int h>
+__device__ __forceinline__ uint32_t int8_pair_bf16(uint32_t w) {
+  const uint32_t x = w ^ 0x80808080u;
+  const float a = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440 + 2 * h))
+                  - 8388736.f;
+  const float b = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7441 + 2 * h))
+                  - 8388736.f;
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// Rows [0, n) of a step's int8 rows at raw (rs bytes a row, the step's
+// dims [k0, k0 + kw) of each) converted to bf16 at shared address dst,
+// kc dims in stage_rows's layout; zeros on rows at or past n and past kw.
+// Thread t takes row r = 8 ((t / 8) % 16) + t % 8 at 16-byte raw chunks
+// (16 dims) t / 128, t / 128 + 2, ...: one 16-byte load (8 consecutive
+// rows in distinct bank groups, rs / 16 being odd) and two 16-byte stores
+// a chunk, the 8 lanes of a store phase on 8 consecutive rows of one chunk
+// column, distinct banks after the swizzle.
+__device__ __forceinline__ void convert_int8_rows(uint32_t dst,
+                                                  const uint8_t* raw, int n,
+                                                  int rs, int kw, int kc,
+                                                  int tid) {
+  const int r = ((tid >> 3) & 15) * 8 + (tid & 7);
+  const bool live = r < n;
+  for (int c = tid >> 7; c < (kc >> 4); c += 2) {
+    uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+    if (live && 16 * c < kw) {
+      const uint4 u = *reinterpret_cast<const uint4*>(raw + r * rs + 16 * c);
+      lo = make_uint4(int8_pair_bf16<0>(u.x), int8_pair_bf16<1>(u.x),
+                      int8_pair_bf16<0>(u.y), int8_pair_bf16<1>(u.y));
+      hi = make_uint4(int8_pair_bf16<0>(u.z), int8_pair_bf16<1>(u.z),
+                      int8_pair_bf16<0>(u.w), int8_pair_bf16<1>(u.w));
+    }
+    st_shared16(dst + sw128_offset(BN, r, 2 * c), lo);
+    st_shared16(dst + sw128_offset(BN, r, 2 * c + 1), hi);
+  }
+}
+
 // E: a row's top-kt entries a lane holds while it is folded, 1 for kt <=
-// 32, else 2
+// 32, else 2.  kBits: 4 or 8, the rows are packed codes of that field
+// width (books, W the code width, pq_len); kInt8, the rows are int8 of W
+// = rot_pad bytes with a scale a list (scales; books and pq_len unused).
 template <int kBits, int E>
 __global__ void __launch_bounds__(kThreads, 1)
 code_list_scan_kernel(const float* __restrict__ qrot,
@@ -174,6 +259,7 @@ code_list_scan_kernel(const float* __restrict__ qrot,
                       const int* __restrict__ slot_pairs,
                       const uint8_t* __restrict__ codes,
                       const uint4* __restrict__ books,
+                      const float* __restrict__ scales,
                       const float* __restrict__ rsq,
                       const int* __restrict__ ids, int n_groups,
                       int n_pairs, int n_probes, int n_lists, int cap,
@@ -190,7 +276,7 @@ code_list_scan_kernel(const float* __restrict__ qrot,
 
   const int g = blockIdx.x;
   const int l = group_list[g];
-  const int kp = (rot + 15) & ~15;
+  const int kp = pass_dims(rot, kBits, W);
   const bool resident = kp <= kKc;
   const int kc = resident ? kp : kKc;
   const int nchunks = (kp + kc - 1) / kc;
@@ -207,13 +293,18 @@ code_list_scan_kernel(const float* __restrict__ qrot,
   const size_t lbase = (size_t)l * cap;
   const float* cen = centers + (size_t)l * rot;
   const uint8_t* lcodes = codes + lbase * W;
+  // the dot's factor in the distance: 2, or 2 scale[list] for int8 rows
+  const float scale2 = kBits == kInt8 ? 2.f * scales[l] : 2.f;
+  const int rs = int8_row_stride(kc);
 
   if (tid == 0) s_extent = 0;
   start_group(slot_pairs, g, s_pair, top_v, top_s, L.stride, tid);
-  // the books, 16 bytes at a time (2 (rot << kBits) bytes in all)
-  uint4* books_dst = reinterpret_cast<uint4*>(base + L.books);
-  for (int i = tid; i < (rot << kBits) / 8; i += kThreads)
-    books_dst[i] = __ldg(books + i);
+  if constexpr (kBits != kInt8) {
+    // the books, 16 bytes at a time (2 (rot << kBits) bytes in all)
+    uint4* books_dst = reinterpret_cast<uint4*>(base + L.books);
+    for (int i = tid; i < (rot << kBits) / 8; i += kThreads)
+      books_dst[i] = __ldg(books + i);
+  }
   __syncthreads();
   norms_and_extent(qrot, cen, s_pair, n_pairs, n_probes, rot, ids, lbase,
                    cap, ssq, &s_extent, tid);
@@ -221,36 +312,53 @@ code_list_scan_kernel(const float* __restrict__ qrot,
   const int extent = s_extent;
   const int nsteps = ((extent + BN - 1) / BN) * nchunks;
 
-  // the packed codes of step s's rows (list rows from t BN up to the live
-  // extent) into raw stage s & 1, in 16-byte cp.async chunks from the
-  // 16-byte boundary at or below the run's first byte (the codes are
-  // 16-byte aligned, so it lies inside them); the last chunk stops at the
-  // run's end
+  // step s's rows (list rows from t BN up to the live extent) into raw
+  // stage s & 1.  Codes: in 16-byte cp.async chunks from the 16-byte
+  // boundary at or below the run's first byte (the codes are 16-byte
+  // aligned, so it lies inside them); the last chunk stops at the run's
+  // end.  int8: the chunk's dims of each row, 16 bytes a cp.async,
+  // consecutive threads on consecutive chunks of a row
   auto load_raw = [&](int s) {
-    const int r0 = (s / nchunks) * BN;
-    const uint8_t* src = lcodes + (size_t)r0 * W;
-    const uint8_t* from = src - ((uintptr_t)src & 15);
-    const int nbytes = (int)(src - from) + min(BN, extent - r0) * W;
+    const int t = s / nchunks;
+    const int r0 = t * BN;
     const uint32_t dst = sbase + L.raw + (s & 1) * L.raw_step;
-    for (int c = tid; 16 * c < nbytes; c += kThreads)
-      cp_async16(dst + 16 * c, from + 16 * c, min(16, nbytes - 16 * c));
+    if constexpr (kBits == kInt8) {
+      const int k0 = (s - t * nchunks) * kc;
+      const int nc = min(kc, kp - k0) >> 4;
+      const uint8_t* src = lcodes + (size_t)r0 * W + k0;
+      for (int e = tid; e < min(BN, extent - r0) * nc; e += kThreads) {
+        const int r = e / nc, c = e - r * nc;
+        cp_async16(dst + r * rs + 16 * c, src + (size_t)r * W + 16 * c, 16);
+      }
+    } else {
+      const uint8_t* src = lcodes + (size_t)r0 * W;
+      const uint8_t* from = src - ((uintptr_t)src & 15);
+      const int nbytes = (int)(src - from) + min(BN, extent - r0) * W;
+      for (int c = tid; 16 * c < nbytes; c += kThreads)
+        cp_async16(dst + 16 * c, from + 16 * c, min(16, nbytes - 16 * c));
+    }
   };
   // step s's operands into stage s & 1: where the residuals stream, their
-  // dims of the step's chunk; its rows decoded from raw stage s & 1; their
-  // norms and ids (0 and -1 past the extent) in its key stage
+  // dims of the step's chunk; its rows decoded (converted) from raw stage
+  // s & 1; their norms and ids (0 and -1 past the extent) in its key stage
   auto decode_step = [&](int s) {
     const int stage = s & 1;
     const int t = s / nchunks, q = s - t * nchunks;
     const int r0 = t * BN;
-    const uintptr_t head = (uintptr_t)(lcodes + (size_t)r0 * W) & 15;
     if (!resident)
       stage_residuals<false>(sbase + L.a + stage * L.a_step, qrot, cen,
                              s_pair, n_pairs, n_probes, rot, q * kc, kc,
                              tid);
-    decode_rows<kBits>(sbase + L.b + stage * L.b_step,
-                       base + L.raw + stage * L.raw_step + head, s_books,
-                       min(BN, extent - r0), W, rot, pq_len, q * kc, kc,
-                       tid);
+    const uint32_t dst = sbase + L.b + stage * L.b_step;
+    const unsigned char* raw = base + L.raw + stage * L.raw_step;
+    if constexpr (kBits == kInt8) {
+      convert_int8_rows(dst, raw, min(BN, extent - r0), rs,
+                        min(kc, kp - q * kc), kc, tid);
+    } else {
+      const uintptr_t head = (uintptr_t)(lcodes + (size_t)r0 * W) & 15;
+      decode_rows<kBits>(dst, raw + head, s_books, min(BN, extent - r0), W,
+                         rot, pq_len, q * kc, kc, tid);
+    }
     if (tid < BN) {
       float* key = reinterpret_cast<float*>(base + L.key + stage * BN * 8);
       const int r = r0 + tid;
@@ -298,7 +406,7 @@ code_list_scan_kernel(const float* __restrict__ qrot,
       wgmma_m64n128k16(acc, da, db, (q == 0 && ks == 0) ? 0 : 1);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    // meanwhile step s + 1's codes (arrived) are decoded into the other
+    // meanwhile step s + 1's rows (arrived) are decoded into the other
     // stage, and step s + 2's start coming in
     if (s + 1 < nsteps) {
       cp_async_wait0();
@@ -312,13 +420,17 @@ code_list_scan_kernel(const float* __restrict__ qrot,
     if (q != nchunks - 1) continue;
 
     // epilogue of row tile t: both warpgroups' products are done before
-    // the stage's rows are overwritten by distances
+    // the stage's rows are overwritten by distances; int8 rows take their
+    // list's scale after the dot is summed, as the JAX kernel does
     fold_window<E, kRowsAtOnce>(
         acc, reinterpret_cast<float*>(base + L.key + stage * BN * 8), ssq,
         reinterpret_cast<float*>(base + L.b + stage * L.b_step), top_v,
         top_s, L.stride, s_pair, n_pairs, kt, t * BN, extent,
-        [](float dot, float key, float ss) {
-          return fmaxf(ss + key - 2.f * dot, 0.f);
+        [scale2](float dot, float key, float ss) {
+          if constexpr (kBits == kInt8)
+            return fmaxf(ss + key - __fmul_rn(scale2, dot), 0.f);
+          else
+            return fmaxf(ss + key - 2.f * dot, 0.f);
         });
   }
 
@@ -331,9 +443,9 @@ template <int kBits, int E>
 int launch(int blocks, int smem, cudaStream_t s, const void* qrot,
            const void* centers, const void* probes, const void* group_list,
            const void* slot_pairs, const void* codes, const void* books,
-           const void* rsq, const void* ids, int n_groups, int n_pairs,
-           int n_probes, int n_lists, int cap, int rot, int pq_len, int W,
-           int kt, void* out_v, void* out_i) {
+           const void* scales, const void* rsq, const void* ids,
+           int n_groups, int n_pairs, int n_probes, int n_lists, int cap,
+           int rot, int pq_len, int W, int kt, void* out_v, void* out_i) {
   const auto kernel = code_list_scan_kernel<kBits, E>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -344,9 +456,10 @@ int launch(int blocks, int smem, cudaStream_t s, const void* qrot,
         static_cast<const int*>(probes), static_cast<const int*>(group_list),
         static_cast<const int*>(slot_pairs),
         static_cast<const uint8_t*>(codes), static_cast<const uint4*>(books),
-        static_cast<const float*>(rsq), static_cast<const int*>(ids),
-        n_groups, n_pairs, n_probes, n_lists, cap, rot, pq_len, W, kt,
-        static_cast<float*>(out_v), static_cast<int*>(out_i));
+        static_cast<const float*>(scales), static_cast<const float*>(rsq),
+        static_cast<const int*>(ids), n_groups, n_pairs, n_probes, n_lists,
+        cap, rot, pq_len, W, kt, static_cast<float*>(out_v),
+        static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
 
@@ -382,6 +495,32 @@ extern "C" int raft_ivf_pq_code_list_scan(
   const auto run = pq_bits == 8 ? (kt <= 32 ? launch<8, 1> : launch<8, 2>)
                                 : (kt <= 32 ? launch<4, 1> : launch<4, 2>);
   return run(blocks, smem, s, qrot, centers, probes, group_list, slot_pairs,
-             codes, books, rsq, ids, n_groups, n_pairs, n_probes, n_lists,
-             cap, rot, pq_len, W, kt, out_v, out_i);
+             codes, books, nullptr, rsq, ids, n_groups, n_pairs, n_probes,
+             n_lists, cap, rot, pq_len, W, kt, out_v, out_i);
+}
+
+// Pass 1 over the int8 recon cache (Kernel E, list-major): every (query,
+// probe) pair's top kt (1 <= kt <= 64), out (nq, n_probes, kt).  data
+// (n_lists, cap, rot_pad) int8, 16-byte aligned, rot_pad a multiple of 16
+// at least rot, zeros past rot; scales (n_lists,) the lists' scales;
+// rsq8 the rows' dequantized norms; groups and probes as above.  smem as
+// ops/pq_code_scan.py's recon8_list_scan_smem_bytes sizes it (the entry
+// point refuses less than code_layout needs).
+extern "C" int raft_ivf_pq_recon8_list_scan(
+    const void* qrot, const void* centers, const void* probes,
+    const void* group_list, const void* slot_pairs, const void* data,
+    const void* scales, const void* rsq8, const void* ids, int n_groups,
+    int nq, int n_probes, int n_lists, int cap, int rot, int rot_pad, int kt,
+    int smem, void* out_v, void* out_i, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kt < 1 || kt > kKtMax || rot < 1 || rot_pad < rot || rot_pad % 16 != 0
+      || cap < 1 || n_groups < 0 || ((uintptr_t)data & 15) != 0
+      || smem < code_layout(rot, kInt8, rot_pad, kt).total)
+    return (int)cudaErrorInvalidValue;
+  const int n_pairs = nq * n_probes;
+  const int blocks = n_groups + (n_pairs + kThreads - 1) / kThreads;
+  const auto run = kt <= 32 ? launch<kInt8, 1> : launch<kInt8, 2>;
+  return run(blocks, smem, s, qrot, centers, probes, group_list, slot_pairs,
+             data, nullptr, scales, rsq8, ids, n_groups, n_pairs, n_probes,
+             n_lists, cap, rot, 0, rot_pad, kt, out_v, out_i);
 }

@@ -34,7 +34,9 @@ scan kernel chosen by ``scan_mode`` as the JAX package resolves it
   probe) pair's top kt, then each query's top k (:func:`_finalize_topk`);
 - ``"codes"``: Kernel D, each pair's top kt (list-major up to kt 64, as
   C's pass 1), then the same finalize;
-- ``"recon8"``: Kernel E over the int8 cache, then the same finalize.
+- ``"recon8"``: Kernel E over the int8 cache (list-major up to kt 64, the
+  codes pass with int8 rows; above, the query-major kernel), then the same
+  finalize.
 
 The code and int8 caches are derived lazily by the first search that
 needs them (the recon cache too, with a warning, for ``"recon"`` on an
@@ -43,7 +45,8 @@ index built without it); sqrt metrics get their sqrt afterwards.
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
 item: every search that resolves to the LUT scan (pq_bits outside {4, 8}
 without a recon cache, per-pair code scans at kt > 128), recon8 scans at
-kt > 128, InnerProduct search, ``filter=``, ``canary_queries > 0``,
+kt > 128 or, past kt 64, at a capacity the query-major kernel cannot hold,
+InnerProduct search, ``filter=``, ``canary_queries > 0``,
 ``CodebookKind.PER_CLUSTER``, checkpoint / resume, ``serialize`` /
 ``load``, ``delete`` / ``upsert`` / ``compact`` and
 ``calibrate_group_capacity``.
@@ -704,7 +707,9 @@ def _search_codes(index, qrot, probes, k, kt):
 
 
 def _search_recon8(index, qrot, probes, k, kt):
-    """Kernel E over the int8 recon cache, then each query's top k."""
+    """Kernel E over the int8 recon cache, then each query's top k; a
+    shape both of E's routes refuse (kt > 128, or kt > 64 at a capacity
+    past the query-major kernel's shared memory) is a deferred item."""
     if index.list_recon_i8 is None:
         _with_recon8(index)
     reason = pcs.recon8_reject_reason(index.capacity,

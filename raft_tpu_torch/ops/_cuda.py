@@ -53,6 +53,9 @@ SIGNATURES = {
     "raft_ivf_pq_code_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                                    _P, _P),
+    "raft_ivf_pq_recon8_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                     _P),
     "raft_ivf_pq_scan_recon8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _P, _P, _P),
     "raft_ivf_flat_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -11,7 +11,7 @@ They replace the three kernels of ``raft_tpu/ops/pq_code_scan_pallas.py``:
   pair's top kt over the int8 cache.
 
 C and D have two routes each, chosen by shape and counted apart, as
-Kernels B and G have:
+Kernels B and G have (E's below):
 
 - **list-major** (a pair keeps at most ``KT_LIST_MAX`` candidates:
   ``min(kt, k)`` for C, kt for D): the pairs grouped by list
@@ -25,9 +25,13 @@ Kernels B and G have:
   :func:`codes_scan_query_major` (D), ``csrc/pq_code_scan.cu``, one block
   per query walking its probes through a per-pair LUT.
 
-Kernel E (``csrc/pq_recon8_scan.cu``) is query-major.  The source notes
-say what bounds each kernel on an H100 (bytes) and what its design does
-about it.  C and D read ``list_codes`` (n_lists, cap, W) uint8 as the
+Kernel E, :func:`ivf_pq_scan_recon8`, has the same two routes: at kt <=
+``KT_LIST_MAX`` the pairs grouped by list and :func:`recon8_list_scan`
+(the same pass as :func:`code_list_scan` with the int8 rows converted to
+bf16 in shared memory and the list's scale applied in the fold), else
+:func:`recon8_scan_query_major` (``csrc/pq_recon8_scan.cu``).  The source
+notes say what bounds each kernel on an H100 (bytes) and what its design
+does about it.  C and D read ``list_codes`` (n_lists, cap, W) uint8 as the
 index holds it: the TPU's lane-major (n_lists, Wi, cap) int32 words and
 its one-hot decode do not come over.
 
@@ -148,9 +152,27 @@ def codes_smem_bytes(cap: int, rot: int, pq_dim: int, pq_bits: int) -> int:
             + _books_bytes(rot, pq_bits))
 
 
+def recon8_list_scan_smem_bytes(rot_pad: int, kt: int) -> int:
+    """Dynamic shared memory of one block of :func:`recon8_list_scan`, as
+    ``code_layout`` lays it out for int8 rows: the layout of
+    :func:`code_list_scan_smem_bytes` over ``rot_pad`` dims with no books,
+    and raw stages of 128 rows of ``kc`` int8 dims each (``kc`` = min(
+    rot_pad, 128)), a row padded to an odd number of 16-byte chunks."""
+    def align(b):
+        return -(-b // 1024) * 1024
+
+    kc = min(rot_pad, 128)
+    a = align(-(-kc // 64) * 128 * 128)
+    b = align(max(-(-kc // 64) * 128 * 128, 128 * 64 * 4))
+    stride = -(-kt // 8) * 8
+    row = kc if (kc // 16) % 2 else kc + 16
+    return ((a if rot_pad <= 128 else 2 * a) + 2 * b + 2 * 128 * 8
+            + 2 * 128 * stride * 4 + 2 * 128 * 4 + 2 * 128 * row + 1024)
+
+
 def recon8_smem_bytes(cap: int, rot_pad: int) -> int:
-    """Kernel E: the pair's distances and residual, as ``recon8_kernel``
-    lays them out."""
+    """Kernel E's query-major route: the pair's distances and residual, as
+    ``recon8_kernel`` lays them out."""
     return 4 * (cap + rot_pad)
 
 
@@ -252,15 +274,50 @@ def codes_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
         codes_query_major_reject_reason(cap, rot, pq_dim, pq_bits, kt))
 
 
-def recon8_reject_reason(cap: int, rot_pad: int, kt: int) -> str:
-    """Why Kernel E cannot take this shape ('' when it can)."""
-    if rot_pad % 16 or rot_pad > _MAX_ROT_PAD8:
-        return (f"int8 row width {rot_pad} must be a multiple of 16 and at "
-                f"most {_MAX_ROT_PAD8} (16-byte row loads)")
+def _recon8_width_reason(rot_pad: int) -> str:
+    if rot_pad < 16 or rot_pad % 16:
+        return (f"int8 row width {rot_pad} must be a positive multiple of "
+                f"16 (16-byte row loads)")
+    return ""
+
+
+def recon8_list_scan_reject_reason(rot_pad: int, kt: int) -> str:
+    """Why Kernel E's list-major pass (:func:`recon8_list_scan`) cannot
+    take this shape ('' when it can).  Any capacity is taken."""
+    reason = _recon8_width_reason(rot_pad)
+    if reason:
+        return reason
+    if not 0 < kt <= KT_LIST_MAX:
+        return f"kt={kt} outside 1..{KT_LIST_MAX} (the list-major route)"
+    return _smem_reason(recon8_list_scan_smem_bytes(rot_pad, kt),
+                        f"the list-major route at kt {kt} with int8 rows "
+                        f"of {rot_pad} B")
+
+
+def recon8_query_major_reject_reason(cap: int, rot_pad: int, kt: int) -> str:
+    """Why Kernel E's query-major route cannot take this shape ('' when it
+    can)."""
+    reason = _recon8_width_reason(rot_pad)
+    if reason:
+        return reason
+    if rot_pad > _MAX_ROT_PAD8:
+        return (f"int8 row width {rot_pad} above {_MAX_ROT_PAD8} (the "
+                f"query-major route's 16-byte row loads)")
     if not 0 < kt <= KT_MAX:
         return f"kt={kt} outside 1..{KT_MAX}"
     return _smem_reason(recon8_smem_bytes(cap, rot_pad),
                         f"list capacity {cap}")
+
+
+def recon8_reject_reason(cap: int, rot_pad: int, kt: int) -> str:
+    """Why Kernel E cannot take this shape ('' when it can): the
+    list-major route takes kt <= ``KT_LIST_MAX`` at any capacity, the
+    query-major route what its gate admits."""
+    reason = _recon8_width_reason(rot_pad)
+    if reason:
+        return reason
+    return _either_route(recon8_list_scan_reject_reason(rot_pad, kt),
+                         recon8_query_major_reject_reason(cap, rot_pad, kt))
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +365,16 @@ def _codes_dot(list_codes, codebooks, pq_bits):
         rows = decode_codes(list_codes[pr], codebooks, pq_bits).float()
         return torch.matmul(rows, subb[..., None])[..., 0]
     return dot
+
+
+def _check_groups(what, group_list, slot_pairs, qrot):
+    expects(slot_pairs.ndim == 2 and slot_pairs.shape[1] == grouped.GROUP
+            and group_list.shape == (slot_pairs.shape[0],)
+            and group_list.device == slot_pairs.device == qrot.device,
+            f"{what}: group_list (n_groups,) and slot_pairs (n_groups, "
+            f"{grouped.GROUP}) on the queries' device required")
+    return (group_list.to(torch.int32).contiguous(),
+            slot_pairs.to(torch.int32).contiguous())
 
 
 def _launch_args(qrot, centers, probes, list_rsq, list_indices):
@@ -381,16 +448,11 @@ def code_list_scan(qrot, centers, probes, group_list, slot_pairs,
     kt = min(kt, cap)
     reason = code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt)
     expects(not reason, f"code_list_scan: {reason}")
-    expects(slot_pairs.ndim == 2 and slot_pairs.shape[1] == grouped.GROUP
-            and group_list.shape == (slot_pairs.shape[0],)
-            and group_list.device == slot_pairs.device == qrot.device,
-            f"code_list_scan: group_list (n_groups,) and slot_pairs "
-            f"(n_groups, {grouped.GROUP}) on the queries' device required")
+    group_list, slot_pairs = _check_groups("code_list_scan", group_list,
+                                           slot_pairs, qrot)
     qrot, centers, probes, list_rsq, list_indices = _launch_args(
         qrot, centers, probes, list_rsq, list_indices)
     codes, books, _ = _codes_operands(list_codes, codebooks)
-    group_list = group_list.to(torch.int32).contiguous()
-    slot_pairs = slot_pairs.to(torch.int32).contiguous()
     nq, n_probes = probes.shape
     vals, ids = _outputs((nq, n_probes, kt), qrot.device)
     status = _cuda.library().raft_ivf_pq_code_list_scan(
@@ -596,20 +658,39 @@ def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
 # Kernel E: int8 recon scan, per-pair top kt
 # ---------------------------------------------------------------------------
 
-def _check_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
+def _check_recon8(what, qrot, centers, probes, recon_i8, scales, rsq8,
                   list_indices):
-    n_lists, cap = _check_common("ivf_pq_scan_recon8", qrot, centers,
-                                 probes, rsq8, list_indices)
+    n_lists, cap = _check_common(what, qrot, centers, probes, rsq8,
+                                 list_indices)
     expects(recon_i8.ndim == 3 and recon_i8.shape[:2] == (n_lists, cap)
             and recon_i8.dtype == torch.int8
             and recon_i8.shape[2] >= qrot.shape[1],
-            "ivf_pq_scan_recon8: recon_i8 (L, cap, rot_pad >= rot) int8 "
-            "required")
-    expects(scales.shape == (n_lists,),
-            "ivf_pq_scan_recon8: scales (L,) required")
+            f"{what}: recon_i8 (L, cap, rot_pad >= rot) int8 required")
+    expects(scales.shape == (n_lists,), f"{what}: scales (L,) required")
     expects(recon_i8.device == scales.device == qrot.device,
-            "ivf_pq_scan_recon8: tensors on different devices")
+            f"{what}: tensors on different devices")
     return cap, recon_i8.shape[2]
+
+
+def _recon8_plain_args(qrot, centers, recon_i8, scales):
+    """The plain versions' queries and centers zero-padded to the cache's
+    row width, and their ``dot``: the fp32 dot of the int8 rows with
+    ``bf16(sub)``, scaled by the list's scale after it is summed."""
+    pad = recon_i8.shape[2] - qrot.shape[1]
+
+    def dot(subb, pr):
+        ip = torch.matmul(recon_i8[pr].float(), subb[..., None])[..., 0]
+        return scales[pr][..., None] * ip
+
+    return (torch.nn.functional.pad(qrot.float(), (0, pad)),
+            torch.nn.functional.pad(centers.float(), (0, pad)), dot)
+
+
+def _recon8_operands(recon_i8, scales, what):
+    data = recon_i8.contiguous()
+    expects(data.data_ptr() % 16 == 0,
+            f"{what}: recon_i8 must be 16-byte aligned")
+    return data, scales.float().contiguous()
 
 
 def ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8, scales, rsq8,
@@ -618,44 +699,94 @@ def ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8, scales, rsq8,
     """Plain PyTorch version of Kernel E: queries and centers zero-padded
     to the cache's row width, every (query, probe, row) distance with the
     dot scaled after it is summed, each pair's top kt."""
-    cap, rot_pad = _check_recon8(qrot, centers, probes, recon_i8, scales,
-                                 rsq8, list_indices)
-    pad = rot_pad - qrot.shape[1]
-    qrot = torch.nn.functional.pad(qrot.float(), (0, pad))
-    centers = torch.nn.functional.pad(centers.float(), (0, pad))
+    cap, _ = _check_recon8("ivf_pq_scan_recon8", qrot, centers, probes,
+                           recon_i8, scales, rsq8, list_indices)
+    qrot, centers, dot = _recon8_plain_args(qrot, centers, recon_i8, scales)
     kt = min(kt, cap)
-
-    def dot(subb, pr):
-        ip = torch.matmul(recon_i8[pr].float(), subb[..., None])[..., 0]
-        return scales[pr][..., None] * ip
-
     parts = [pair_topk(*probe_distances(q, centers, p, list_indices, rsq8,
                                         dot), kt)
              for q, p in plain_chunks(qrot, probes)]
     return cat_parts(parts, (probes.shape[1], kt), qrot.device)
 
 
-def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
-                       list_indices, kt: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
-    pair's top kt over the int8 cache ``recon_i8`` (L, cap, rot_pad) with
-    per-list ``scales`` (L,) and dequantized row norms ``rsq8`` (L, cap).
-    CUDA tensors launch Kernel E; CPU tensors run the plain version."""
+def recon8_list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
+                           recon_i8, scales, rsq8, list_indices, kt: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`recon8_list_scan`: the list-major
+    schedule emulated (``pq_group_scan.grouped_pair_topk``) with the plain
+    version's padded queries and scaled int8 dot."""
+    cap, _ = _check_recon8("recon8_list_scan", qrot, centers, probes,
+                           recon_i8, scales, rsq8, list_indices)
+    qrot, centers, dot = _recon8_plain_args(qrot, centers, recon_i8, scales)
+    return grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
+                             rsq8, list_indices, min(kt, cap), dot)
+
+
+def recon8_list_scan(qrot, centers, probes, group_list, slot_pairs,
+                     recon_i8, scales, rsq8, list_indices, kt: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E's list-major pass: ``(vals, ids)``, each (nq, n_probes,
+    kt), every (query, probe) pair's top kt by (distance, slot) over the
+    int8 cache ``recon_i8`` (L, cap, rot_pad) with per-list ``scales`` and
+    dequantized row norms ``rsq8``, ``(+inf, −1)`` past its live rows and
+    on a probe outside ``[0, n_lists)``.  ``group_list`` / ``slot_pairs``
+    are :func:`raft_tpu_torch.neighbors.grouped.build_groups` of
+    ``probes``; one block reads one group's list once for its pairs,
+    converting its int8 rows to bf16 in shared memory.  CUDA tensors
+    launch ``csrc/pq_code_list_scan.cu``'s int8 row source (kt up to
+    ``KT_LIST_MAX``); CPU tensors run :func:`recon8_list_scan_plain`."""
+    if not qrot.is_cuda:
+        return recon8_list_scan_plain(qrot, centers, probes, group_list,
+                                      slot_pairs, recon_i8, scales, rsq8,
+                                      list_indices, kt)
+    what = "recon8_list_scan"
+    cap, rot_pad = _check_recon8(what, qrot, centers, probes, recon_i8,
+                                 scales, rsq8, list_indices)
+    kt = min(kt, cap)
+    reason = recon8_list_scan_reject_reason(rot_pad, kt)
+    expects(not reason, f"{what}: {reason}")
+    group_list, slot_pairs = _check_groups(what, group_list, slot_pairs,
+                                           qrot)
+    qrot, centers, probes, rsq8, list_indices = _launch_args(
+        qrot, centers, probes, rsq8, list_indices)
+    data, scales = _recon8_operands(recon_i8, scales, what)
+    nq, n_probes = probes.shape
+    vals, ids = _outputs((nq, n_probes, kt), qrot.device)
+    status = _cuda.library().raft_ivf_pq_recon8_list_scan(
+        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
+        group_list.data_ptr(), slot_pairs.data_ptr(), data.data_ptr(),
+        scales.data_ptr(), rsq8.data_ptr(), list_indices.data_ptr(),
+        group_list.shape[0], nq, n_probes, centers.shape[0], cap,
+        qrot.shape[1], rot_pad, kt, recon8_list_scan_smem_bytes(rot_pad, kt),
+        vals.data_ptr(), ids.data_ptr(), _stream(qrot.device))
+    _cuda.check(status, what)
+    recon8_list_scan.launches += 1
+    return vals, ids
+
+
+recon8_list_scan.launches = 0
+
+
+def recon8_scan_query_major(qrot, centers, probes, recon_i8, scales, rsq8,
+                            list_indices, kt: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E's query-major route (``csrc/pq_recon8_scan.cu``): one block
+    per query walks its probes, re-reading each list it probes;
+    :func:`ivf_pq_scan_recon8` takes it where kt exceeds ``KT_LIST_MAX``
+    or the list-major gate refuses the shape.  CUDA tensors launch it; CPU
+    tensors run the plain version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8,
                                         scales, rsq8, list_indices, kt)
-    cap, rot_pad = _check_recon8(qrot, centers, probes, recon_i8, scales,
-                                 rsq8, list_indices)
+    what = "recon8_scan_query_major"
+    cap, rot_pad = _check_recon8(what, qrot, centers, probes, recon_i8,
+                                 scales, rsq8, list_indices)
     kt = min(kt, cap)
-    reason = recon8_reject_reason(cap, rot_pad, kt)
-    expects(not reason, f"ivf_pq_scan_recon8: {reason}")
+    reason = recon8_query_major_reject_reason(cap, rot_pad, kt)
+    expects(not reason, f"{what}: {reason}")
     qrot, centers, probes, rsq8, list_indices = _launch_args(
         qrot, centers, probes, rsq8, list_indices)
-    data = recon_i8.contiguous()
-    expects(data.data_ptr() % 16 == 0,
-            "ivf_pq_scan_recon8: recon_i8 must be 16-byte aligned")
-    scales = scales.float().contiguous()
+    data, scales = _recon8_operands(recon_i8, scales, what)
     nq, n_probes = probes.shape
     vals, ids = _outputs((nq, n_probes, kt), qrot.device)
     status = _cuda.library().raft_ivf_pq_scan_recon8(
@@ -664,9 +795,38 @@ def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
         list_indices.data_ptr(), nq, n_probes, centers.shape[0], cap,
         qrot.shape[1], rot_pad, kt, recon8_smem_bytes(cap, rot_pad),
         vals.data_ptr(), ids.data_ptr(), _stream(qrot.device))
-    _cuda.check(status, "ivf_pq_scan_recon8")
-    ivf_pq_scan_recon8.launches += 1
+    _cuda.check(status, what)
+    recon8_scan_query_major.launches += 1
     return vals, ids
 
 
-ivf_pq_scan_recon8.launches = 0
+recon8_scan_query_major.launches = 0
+
+
+def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
+                       list_indices, kt: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
+    pair's top kt over the int8 cache ``recon_i8`` (L, cap, rot_pad) with
+    per-list ``scales`` (L,) and dequantized row norms ``rsq8`` (L, cap).
+    CUDA tensors run Kernel E: at kt <= ``KT_LIST_MAX`` the pairs grouped
+    by list and :func:`recon8_list_scan`, else
+    :func:`recon8_scan_query_major` (a dispatch by shape between two
+    kernels, each counted on its own ``launches``).  CPU tensors run the
+    plain version.  A shape neither route can hold raises with its
+    reason."""
+    if not qrot.is_cuda:
+        return ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8,
+                                        scales, rsq8, list_indices, kt)
+    cap, rot_pad = _check_recon8("ivf_pq_scan_recon8", qrot, centers,
+                                 probes, recon_i8, scales, rsq8,
+                                 list_indices)
+    kt = min(kt, cap)
+    reason = recon8_reject_reason(cap, rot_pad, kt)
+    expects(not reason, f"ivf_pq_scan_recon8: {reason}")
+    if recon8_list_scan_reject_reason(rot_pad, kt):
+        return recon8_scan_query_major(qrot, centers, probes, recon_i8,
+                                       scales, rsq8, list_indices, kt)
+    return recon8_list_scan(qrot, centers, probes,
+                            *grouped.build_groups(probes, centers.shape[0]),
+                            recon_i8, scales, rsq8, list_indices, kt)

@@ -37,7 +37,7 @@ from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.profiles import device_ms, list_scan_decomp, require_cuda
 
 SCAN_SOURCES = ("pq_code_list_scan.cu",)
-_OVERLAP = ("    // meanwhile step s + 1's codes (arrived) are decoded into the "
+_OVERLAP = ("    // meanwhile step s + 1's rows (arrived) are decoded into the "
             "other\n"
             "    // stage, and step s + 2's start coming in\n")
 VARIANTS: Dict[str, Tuple[Tuple[str, str], ...]] = {

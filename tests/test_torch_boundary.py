@@ -42,7 +42,7 @@ from raft_tpu_torch.cluster.kmeans_types import (KMeansBalancedParams,
                                                  KMeansParams)
 from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.integrity.errors import IntegrityError, ValidationError
-from raft_tpu_torch.matrix import select_k
+from raft_tpu_torch.matrix import merge_topk
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       refine)
 
@@ -270,8 +270,8 @@ RAISE_CASES = {
     "refine": (
         lambda d, b: jax_refine(_jr(), d["x"], d["qbad"],
                                        np.zeros((8, 20), np.int32), K),
-        lambda d, b: refine.refine(CPU, d["x"], d["qbad"],
-                                   np.zeros((8, 20), np.int32), K)),
+        lambda d, b: refine(CPU, d["x"], d["qbad"],
+                            np.zeros((8, 20), np.int32), K)),
     "kmeans.fit": (
         lambda d, b: jax_kmeans.fit(_jr(), JaxKMParams(n_clusters=8),
                                     d["bad"]),
@@ -397,7 +397,7 @@ def test_mask_brute_force_and_refine(data):
     _assert_flagged_and_close(ours, ref, 1e-3)
     cand = np.asarray(brute_force.knn(CPU, x, data["qzero"], 20)[1])
     ref = _masked(lambda: jax_refine(_jr(), x, qbad, cand, K))
-    ours = _masked(lambda: refine.refine(CPU, x, qbad, cand, K))
+    ours = _masked(lambda: refine(CPU, x, qbad, cand, K))
     _assert_flagged_and_close(ours, ref, 1e-3)
 
 
@@ -567,9 +567,8 @@ def test_merge_topk_matches_the_reference_with_ties_and_infinities(
     ref = jax_merge_topk(jnp.asarray(best), jnp.asarray(bi),
                                   jnp.asarray(new), jnp.asarray(ni),
                                   select_min=select_min)
-    ours = select_k.merge_topk(*(torch.from_numpy(a) for a in
-                                 (best, bi, new, ni)),
-                               select_min=select_min)
+    ours = merge_topk(*(torch.from_numpy(a) for a in (best, bi, new, ni)),
+                      select_min=select_min)
     np.testing.assert_array_equal(ours[0].numpy(), np.asarray(ref[0]))
     np.testing.assert_array_equal(ours[1].numpy(), np.asarray(ref[1]))
 

@@ -295,6 +295,23 @@ def test_public_search_matches_the_jax_function_it_resolves_to(
                          np.asarray(ri))
 
 
+@pytest.mark.parametrize("kt", [2, 64])
+def test_recon8_search_matches_the_jax_grouped_recon8(carried, kt):
+    """``ivf_pq.search(scan_mode="recon8")`` on the carried 8-bit index
+    against the JAX package's ``_search_impl_recon8_grouped`` (its Pallas
+    scan interpreted) at a small kt and at 64, the list-major route's
+    largest (kt 4: the test above)."""
+    _, q, built = carried
+    index, port, _, probes, ng = built[8]
+    pd, pi = ivf_pq.search(
+        DeviceResources(device="cpu"),
+        ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode="recon8",
+                            per_probe_topk=kt), port, q, K)
+    rd, ri = _jax_reference(index, q, probes, ng, "recon8", kt)
+    _assert_same_results(pd.numpy(), pi.numpy(), np.asarray(rd),
+                         np.asarray(ri))
+
+
 @pytest.mark.parametrize("scan_mode", ["auto", "fused", "codes", "recon8"])
 def test_public_search_agrees_with_jax_search(carried, scan_mode):
     """Against the JAX public search at exact_coarse=True, by id overlap
@@ -406,6 +423,11 @@ def test_code_scan_gates_name_their_reason(shape, reason):
     assert "kt=129" in pcs.codes_reject_reason(64, 32, 8, 8, 129)
     assert "16" in pcs.recon8_reject_reason(64, 24, 4)
     assert not pcs.recon8_reject_reason(4096, 96, 4)
+    # a capacity past Kernel E's query-major shared memory: the
+    # list-major route takes it up to kt 64, and above both are named
+    assert pcs.recon8_query_major_reject_reason(100_000, 96, 4)
+    assert not pcs.recon8_reject_reason(100_000, 96, 64)
+    assert "query-major route" in pcs.recon8_reject_reason(100_000, 96, 65)
 
 
 @pytest.mark.parametrize("refused", ["capacity", "k"])
@@ -455,13 +477,28 @@ def test_build_records_its_stage_seconds():
     assert all(s >= 0.0 for s in stages.values())
 
 
-def test_recon8_beyond_its_kernel_raises(carried):
+def test_recon8_beyond_its_kernel_raises(carried, monkeypatch):
     """kt above 128 is past Kernel E (the JAX package runs an XLA twin
-    there): the search names the deferred item instead of detouring."""
+    there): the search names the deferred item instead of detouring.  A
+    capacity only the query-major kernel refuses (its shared memory made
+    to exceed the card here) is served by the list-major route at kt <=
+    64 and deferred above."""
     _, q, built = carried
     port = _carry(built[8][0])
     assert port.capacity > 129
-    with pytest.raises(NotImplementedError, match="wide recon8 scans"):
-        ivf_pq.search(DeviceResources(device="cpu"), ivf_pq.SearchParams(
-            n_probes=N_PROBES, scan_mode="recon8", per_probe_topk=129),
+    res = DeviceResources(device="cpu")
+
+    def search(kt):
+        return ivf_pq.search(res, ivf_pq.SearchParams(
+            n_probes=N_PROBES, scan_mode="recon8", per_probe_topk=kt),
             port, q[:2], K)
+
+    with pytest.raises(NotImplementedError, match="wide recon8 scans"):
+        search(129)
+    want = search(64)
+    monkeypatch.setattr(pcs, "recon8_smem_bytes",
+                        lambda cap, rot_pad: pcs._SMEM_LIMIT + 1)
+    got = search(64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(NotImplementedError, match="wide recon8 scans"):
+        search(65)

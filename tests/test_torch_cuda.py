@@ -391,28 +391,123 @@ def test_code_list_scan_is_bit_equal_to_list_scan_on_the_decoded_cache(
     assert bool(torch.isinf(cv[0, -1]).all() and (ci[0, -1] == -1).all())
 
 
-@pytest.mark.parametrize("cap,rot,kt", [(96, 128, 10), (700, 96, 4),
-                                        (2368, 96, 4), (300, 24, 3),
-                                        (64, 1000, 64)])
-def test_recon8_kernel_matches_plain(dev, cap, rot, kt):
-    """Kernel E: the dot scaled after it is summed, as the plain version
-    does; each pair's top kt."""
-    n_lists, nq, n_probes = 64, 40, 12
-    rng = np.random.default_rng(cap + rot)
+def _int8_index(dev, n_lists, cap, rot, seed, scale=None):
+    """An int8 cache (zeros past rot in rows of round16(rot) bytes), the
+    lists' scales (``scale`` for all of them where given), the dequantized
+    row norms, centers and ids with padding (-1) and tombstones (<= -2)."""
+    rng = np.random.default_rng(seed)
     rot_pad = -(-rot // 16) * 16
     i8 = torch.from_numpy(rng.integers(-127, 128, (n_lists, cap, rot_pad))
                           .astype(np.int8)).to(dev)
     i8[:, :, rot:] = 0
     scales = torch.from_numpy(rng.uniform(0.01, 0.1, n_lists).astype(
         np.float32)).to(dev)
+    if scale is not None:
+        scales.fill_(scale)
     rsq8 = scales[:, None] ** 2 * (i8.float() ** 2).sum(-1)
     centers, _, _, ids = _random_index(dev, n_lists, cap, rot, cap)
+    ids[:, 1::9] = torch.where(ids[:, 1::9] >= 0, -(ids[:, 1::9] + 2), -1)
+    return i8, scales, rsq8, centers, ids
+
+
+def _recon8_routes():
+    """Launches of Kernel E's list-major pass and of its query-major
+    kernel."""
+    return (pcs.recon8_list_scan.launches,
+            pcs.recon8_scan_query_major.launches)
+
+
+@pytest.mark.parametrize("cap,rot,kt", [(96, 128, 10), (700, 96, 4),
+                                        (2368, 96, 4), (300, 24, 3),
+                                        (64, 1000, 64)])
+def test_recon8_kernel_matches_plain(dev, cap, rot, kt):
+    """Kernel E through its dispatch, on the route its gate picks (its
+    counter moves, the other's does not): the list-major pass
+    (``recon8_list_scan``) at kt <= 64 where its shared memory holds the
+    shape, else the query-major kernel (rot 1000 at kt 64); the dot
+    scaled after it is summed, as the plain version does; each pair's top
+    kt."""
+    n_lists, nq, n_probes = 64, 40, 12
+    i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, rot,
+                                                 cap + rot)
     qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
-    before = pcs.ivf_pq_scan_recon8.launches
+    before = _recon8_routes()
     vk, ik = pcs.ivf_pq_scan_recon8(qrot, centers, probes, i8, scales, rsq8,
                                     ids, kt)
     torch.cuda.synchronize()
-    assert pcs.ivf_pq_scan_recon8.launches == before + 1
+    listed = not pcs.recon8_list_scan_reject_reason(i8.shape[2], kt)
+    assert listed == (rot <= 128)
+    assert tuple(np.subtract(_recon8_routes(), before)) == (
+        (1, 0) if listed else (0, 1))
+    vp, ip = pcs.ivf_pq_scan_recon8_plain(qrot, centers, probes, i8, scales,
+                                          rsq8, ids, kt)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+RECON8_LIST_SHAPES = [  # cap, rot, kt
+    (300, 24, 1), (300, 24, 4), (300, 24, 64), (2100, 96, 4),
+    (2100, 96, 64), (129, 96, 1), (416, 128, 20), (200, 256, 56),
+    (1000, 1000, 8), (40, 96, 64)]
+
+
+@pytest.mark.parametrize("cap,rot,kt", RECON8_LIST_SHAPES)
+def test_recon8_list_scan_matches_its_plain_twin(dev, cap, rot, kt):
+    """The list-major pass over the int8 rows against its plain twin on
+    the same groups: capacities off a multiple of 128, rot 24 (rows of
+    32 bytes), rot 256 and 1000 (residuals in 128-dim stages), kt 1 to
+    64; values within 1e-4, ids but at ties, the skipped probe empty."""
+    n_lists, nq, n_probes = 48, 60, 10
+    i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, rot,
+                                                 cap + kt)
+    qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
+    groups = grouped.build_groups(probes, n_lists)
+    before = _recon8_routes()
+    vk, ik = pcs.recon8_list_scan(qrot, centers, probes, *groups, i8, scales,
+                                  rsq8, ids, kt)
+    torch.cuda.synchronize()
+    assert tuple(np.subtract(_recon8_routes(), before)) == (1, 0)
+    assert vk.shape == (nq, n_probes, min(kt, cap))
+    assert bool(torch.isinf(vk[0, -1]).all() and (ik[0, -1] == -1).all())
+    vp, ip = pcs.recon8_list_scan_plain(qrot, centers, probes, *groups, i8,
+                                        scales, rsq8, ids, kt)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+@pytest.mark.parametrize("rot,kt", [(24, 1), (24, 64), (96, 4), (96, 20),
+                                    (96, 64), (128, 4), (256, 20)])
+def test_recon8_list_scan_at_scale_one_is_bit_equal_to_list_scan(dev, rot,
+                                                                 kt):
+    """With every scale 1 the int8 pass is Kernel G's pass 1 over the
+    same rows as bf16 (``q8[..., :rot]``, exact in bf16) on the same
+    norms: the same tiles, exact products, the same summation order and
+    fold, so the same values and ids (``torch.equal``)."""
+    n_lists, cap = 40, 700
+    i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, rot,
+                                                 rot + kt, scale=1.0)
+    qrot, probes = _queries(dev, 200, rot, n_lists, 10)
+    groups = grouped.build_groups(probes, n_lists)
+    ev, ei = pcs.recon8_list_scan(qrot, centers, probes, *groups, i8, scales,
+                                  rsq8, ids, kt)
+    recon = i8[..., :rot].to(torch.bfloat16)
+    gv, gi = pgs.list_scan(qrot, centers, probes, *groups, recon, rsq8, ids,
+                           kt)
+    torch.cuda.synchronize()
+    assert torch.equal(ev, gv) and torch.equal(ei, gi)
+
+
+@pytest.mark.parametrize("kt", [64, 65])
+def test_recon8_scan_routes_by_kt(dev, kt):
+    """A pair kt of 64 takes E's list-major pass, 65 its query-major
+    kernel, each held to the plain version."""
+    n_lists, cap, rot = 32, 300, 96
+    i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, rot, kt)
+    qrot, probes = _queries(dev, 30, rot, n_lists, 6)
+    before = _recon8_routes()
+    vk, ik = pcs.ivf_pq_scan_recon8(qrot, centers, probes, i8, scales, rsq8,
+                                    ids, kt)
+    torch.cuda.synchronize()
+    assert tuple(np.subtract(_recon8_routes(), before)) == (
+        (1, 0) if kt <= 64 else (0, 1))
     vp, ip = pcs.ivf_pq_scan_recon8_plain(qrot, centers, probes, i8, scales,
                                           rsq8, ids, kt)
     _assert_kernel_matches_plain(vk, ik, vp, ip)
@@ -644,16 +739,16 @@ def test_ivf_pq_scan_recon_kernel_matches_plain(dev, cap, rot, kt):
     _assert_kernel_matches_plain(vk, ik, vp, ip)
 
 
-@pytest.mark.parametrize("kernel", ["B", "G", "C", "D"])
+@pytest.mark.parametrize("kernel", ["B", "G", "C", "D", "E"])
 def test_list_major_scans_split_a_hot_list_across_groups(dev, kernel):
     """300 queries all probe list 5 (three groups of one list) besides
     their own probes, one probe is negative and one a sentinel past the
-    lists: Kernels B and G, and C and D over the codes, against their
-    plain versions."""
+    lists: Kernels B and G, C and D over the codes, and E over the int8
+    rows, against their plain versions."""
     n_lists, nq, n_probes, cap, rot, k, kt = 32, 300, 6, 416, 128, 20, 20
-    if kernel in "CD":
-        centers, codes, books, rsq, ids, *_ = _random_code_index(
-            dev, n_lists, cap, 64, 2, 8, 3)
+    if kernel in "CDE":
+        centers, codes, books, rsq, ids, i8, scales, rsq8 = \
+            _random_code_index(dev, n_lists, cap, 64, 2, 8, 3)
     else:
         centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, 3)
     qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
@@ -678,6 +773,12 @@ def test_list_major_scans_split_a_hot_list_across_groups(dev, kernel):
                                        rsq, ids, 8, kt)
         vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes,
                                              books, rsq, ids, 8, kt)
+        assert bool(torch.isinf(vk[3, 2]).all() and (ik[3, 2] == -1).all())
+    elif kernel == "E":
+        vk, ik = pcs.ivf_pq_scan_recon8(qrot, centers, probes, i8, scales,
+                                        rsq8, ids, kt)
+        vp, ip = pcs.ivf_pq_scan_recon8_plain(qrot, centers, probes, i8,
+                                              scales, rsq8, ids, kt)
         assert bool(torch.isinf(vk[3, 2]).all() and (ik[3, 2] == -1).all())
     else:
         vk, ik = ps.ivf_pq_scan_recon(qrot, centers, probes, recon, rsq, ids,

@@ -199,7 +199,7 @@ def test_port_build_recall_matches_jax_build():
     res = DeviceResources(seed=0, device="cpu")
     pidx = ivf_pq.build(res, ivf_pq.IndexParams(**params), db)
     _, pc = ivf_pq.search(res, ivf_pq.SearchParams(n_probes=8), pidx, q, 20)
-    _, pi = refine.refine(res, db, q, pc, 10)
+    _, pi = refine(res, db, q, pc, 10)
     _, bf = brute_force.knn(res, db, q, 10)
 
     assert _recall(bf.numpy(), truth) >= 0.99

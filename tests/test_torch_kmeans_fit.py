@@ -28,7 +28,7 @@ from raft_tpu.distance.pairwise import pairwise_distance as jax_pairwise
 from raft_tpu_torch import DeviceResources
 from raft_tpu_torch.cluster import kmeans, kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
-from raft_tpu_torch.distance import fused_l2_nn as dist_fnn
+from raft_tpu_torch.distance import fused_l2_nn, fused_l2_nn_min_reduce
 from raft_tpu_torch.distance.pairwise import distance, pairwise_distance
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.ops import fused_l2_nn as fnn
@@ -106,10 +106,9 @@ def test_distance_fused_l2_nn_matches_jax(use_pallas):
     y = _sift_like(90, 32, 2)
     rd, ri = jax_fused_l2_nn(jnp.asarray(x), jnp.asarray(y),
                              use_pallas=use_pallas)
-    d, i = dist_fnn.fused_l2_nn(x, y, use_pallas=use_pallas, device="cpu")
+    d, i = fused_l2_nn(x, y, use_pallas=use_pallas, device="cpu")
     _assert_nn_match(d.numpy(), i.numpy(), rd, ri, x, y)
-    d2, i2 = dist_fnn.fused_l2_nn_min_reduce(torch.from_numpy(x),
-                                             torch.from_numpy(y))
+    d2, i2 = fused_l2_nn_min_reduce(torch.from_numpy(x), torch.from_numpy(y))
     assert torch.equal(d, d2) and torch.equal(i, i2)
 
 
@@ -120,7 +119,7 @@ def test_balanced_assign_is_fused_l2_nn_exactly():
     x = torch.from_numpy(_sift_like(700, 24, 3))
     c = torch.from_numpy(_sift_like(37, 24, 4))
     lab, d = kmeans_balanced._assign(x, c, L2)
-    rd, ri = dist_fnn.fused_l2_nn(x, c)
+    rd, ri = fused_l2_nn(x, c)
     assert lab.dtype == torch.int64
     assert torch.equal(lab, ri.long()) and torch.equal(d, rd)
     lab, d = kmeans_balanced._assign(x, c, DistanceType.InnerProduct)
