@@ -102,15 +102,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. CAGRA at full width (``conf/sift-like-1m.json`` entry
     ``raft_cagra.deg32``) on the same rows: ``cagra.build`` at
     ``IndexParams(graph_degree=32, intermediate_graph_degree=64)`` (seconds,
-    stage seconds, the build's projected dimension, Kernel I / H / A
-    launches zeroed before the build; I and H must be > 0), the conf's four
-    search points (itopk 24, 32, 64 width 2, 128 width 2) at batch 5,000
-    and k 10 (first batch, warm ms, QPS, recall@10 — at least 0.90 at
-    itopk 64 and 128 — walk format, Kernel I launches), serving buckets of
-    1 / 8 / 64 queries at itopk 32 and 64, one batch under the profiler,
-    and Kernel I (``cagra_hop``) against its plain version on hops captured
-    from the run: the search's 5,000 / itopk 64 / wd 64, a bucket's 64 /
-    32 / 32, the build's self-walk 8,192 / 96 / 64 and its exact merge,
+    stage seconds, the build's projected dimension, launches zeroed before
+    the build: the walk kernel ``cagra_walk`` (the self-walk, one launch a
+    chunk), Kernel I's hop kernel ``cagra_hop`` (the exact merge) and H
+    must be > 0), the conf's four search points (itopk 24, 32, 64 width 2,
+    128 width 2) at batch 5,000 and k 10 (first batch, warm ms, QPS,
+    recall@10 — at least 0.90 at itopk 64 and 128 — walk format; exactly
+    one walk launch and no hop launch a search), serving buckets of 1 / 8 /
+    64 queries at itopk 32 and 64; then the yardstick, the per-hop loop the
+    walk kernel replaced (``hop_loop``: per hop ``select_parents``,
+    ``expand`` and the hop kernel, swapped in for the walk), against the
+    walk kernel in turns at each point and bucket (equal results, medians,
+    QPS), the build's self-walk chunks through both, one batch under the
+    profiler through each route (idle share); the walk kernel against the
+    plain walk (``torch.equal`` on keys, ids, visited flags and hop counts)
+    on walks captured from the run: the search's 5,000 / itopk 64 / width
+    2, a bucket's 64 / 32 / 1 and a build self-walk chunk's 8,192 / 96 / 1
+    (CUDA-event and device ms, plain ms, the byte bound over the hops run,
+    the yardstick's ms); and the hop kernel against its plain version at
+    the build's exact merge and on the plain walk's fourth search hop,
     with ``torch.topk`` over the [buffer | candidate] keys timed as a
     yardstick (it does no dedupe).
 12. Deep path at full width (``conf/deep-like-10m.json`` entry
@@ -155,7 +165,8 @@ three times the operations; the fp32 FFMA time of one product is printed
 beside it, the yardstick of the earlier query-major times) and 67 TFLOP/s of fp32 FFMA for F's query-major route, H and I
 (H: its contract fixes fp32 products, which one TF32 product would round
 to ten mantissa bits; I: its bf16 products are summed one by one in
-dimension order, as its plain version sums them).
+dimension order, as its plain version sums them; the walk's bytes are
+each run hop's fat rows once, over the hops its queries ran).
 """
 
 from __future__ import annotations
@@ -217,6 +228,7 @@ def sift_like(n, n_queries, dim, latent, noise, device, seed=0,
 def counters():
     """Every kernel wrapper, by kernel name."""
     from raft_tpu_torch.ops import cagra_hop as chop
+    from raft_tpu_torch.ops import cagra_walk as cw
     from raft_tpu_torch.ops import fused_l2_nn as fnn
     from raft_tpu_torch.ops import kmeans_update as ku
     from raft_tpu_torch.ops import pair_scan as ps
@@ -238,6 +250,7 @@ def counters():
             "flat_scan_query_major": ps.flat_scan_query_major,
             "fused_l2_nn": fnn.fused_l2_nn,
             "cagra_hop": chop.cagra_hop,
+            "cagra_walk": cw.cagra_walk,
             "pair_scan_variant": ps.pair_scan_variant,
             "row_gather": rg.row_gather,
             "kmeans_pass_cut": ku.kmeans_pass_cut}
@@ -382,7 +395,7 @@ MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 EXTRA = ("tau", "label_flips", "device_ms", "assign_device_ms",
          "update_device_ms", "grouping_device_ms", "pass1_device_ms",
          "pass2_device_ms", "n_groups", "touched_lists", "pair_buffer_bytes",
-         "source", "check_launches")
+         "source", "check_launches", "yardstick_loop_ms", "walk_hops")
 
 
 def at_shape(row, shape, launches):
@@ -2040,23 +2053,55 @@ CAGRA_DEGREE, CAGRA_INTERMEDIATE = 32, 64
 CAGRA_POINTS = ((24, 1), (32, 1), (64, 2), (128, 2))
 CAGRA_BUCKETS, CAGRA_BUCKET_POINTS, BUCKET_REPS = (1, 8, 64), ((32, 1),
                                                                 (64, 2)), 20
-# the hop call whose inputs are kept for the kernel check, per shape (a
-# middle hop: some of the buffer visited, some not)
+# the exact-merge hop call whose inputs are kept for Kernel I's hop check
+# (a middle chunk)
 CAPTURE_CALL = 4
+# the hop of the plain walk whose inputs hold Kernel I's hop kernel at the
+# search shape (a middle hop: some of the buffer visited, some not)
+CHECK_HOP = 4
+# the walk's shapes held to the plain walk, (nq, itopk, search_width, deg)
+# at most: the search batch, a serving bucket, a build self-walk chunk
+WALK_CHECKS = (((N_QUERIES, 64, 2, CAGRA_DEGREE), "search"),
+               ((64, 32, 1, CAGRA_DEGREE), "serving bucket"),
+               ((8192, 96, 1, CAGRA_INTERMEDIATE), "build self-walk"))
 
 
-class HopCapture:
-    """Stands in for ``neighbors.cagra``'s handle on ``ops.cagra_hop`` while
-    a CAGRA run goes on: every hop goes to the real wrapper (which counts
-    its launches as always), and the inputs of the ``CAPTURE_CALL``-th hop
-    of each (nq, itopk, wd, pdim) shape are kept for the kernel check."""
+class _Swap:
+    """Stands in for one of ``neighbors.cagra``'s handles on an ops module
+    (``attr``) inside a ``with`` block; other names pass through."""
+
+    attr = ""
+
+    def __init__(self, real):
+        from raft_tpu_torch.neighbors import cagra
+
+        self.cagra, self.real = cagra, real
+        self.calls, self.kept = {}, {}
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def __enter__(self):
+        setattr(self.cagra, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cagra, self.attr, self.real)
+
+
+class HopCapture(_Swap):
+    """``neighbors.cagra``'s hop handle while a CAGRA run goes on (only the
+    build's exact merge calls it): every hop goes to the real wrapper
+    (which counts its launches as always), and the inputs of the
+    ``CAPTURE_CALL``-th hop of each (nq, itopk, wd, pdim) shape are kept
+    for the kernel check."""
+
+    attr = "_hop"
 
     def __init__(self):
-        from raft_tpu_torch.neighbors import cagra
         from raft_tpu_torch.ops import cagra_hop as chop
 
-        self.cagra, self.real = cagra, chop
-        self.calls, self.kept = {}, {}
+        super().__init__(chop)
 
     def cagra_hop(self, *args, ip_metric):
         nq, wd, pdim = args[2].shape
@@ -2066,21 +2111,134 @@ class HopCapture:
             self.kept[key] = (args, ip_metric)
         return self.real.cagra_hop(*args, ip_metric=ip_metric)
 
-    def __getattr__(self, name):
-        return getattr(self.real, name)
 
-    def __enter__(self):
-        self.cagra._hop = self
-        return self
+class WalkCapture(_Swap):
+    """``neighbors.cagra``'s walk handle while a CAGRA run goes on: every
+    walk goes to the real wrapper (one launch each, counted as always), and
+    the first walk's inputs of each (nq, itopk, search_width, deg) shape
+    are kept for the walk check."""
 
-    def __exit__(self, *exc):
-        self.cagra._hop = self.real
+    attr = "_walk"
+
+    def __init__(self):
+        from raft_tpu_torch.ops import cagra_walk as cw
+
+        super().__init__(cw)
+
+    def cagra_walk(self, *args, **kw):
+        key = (args[3].shape[0], args[3].shape[1], kw["search_width"],
+               kw["deg"])
+        self.calls[key] = self.calls.get(key, 0) + 1
+        self.kept.setdefault(key, (args, dict(kw)))
+        return self.real.cagra_walk(*args, **kw)
+
+
+def hop_loop(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg,
+             search_width, max_iterations, ip_metric, quant=False,
+             scales=None, exit_every=8, return_hops=False):
+    """The yardstick: the per-hop loop the walk kernel replaced, kept here
+    only — per hop ``select_parents`` → ``expand`` → Kernel I's hop kernel
+    (``cagra_hop``), the all(visited) exit checked every ``exit_every``
+    hops (a host sync).  It returns what the walk returns."""
+    from raft_tpu_torch.ops import cagra_hop as chop
+    from raft_tpu_torch.ops import cagra_walk as cw
+
+    assert not return_hops
+    pdim = qp_t.shape[1]
+    for it in range(max_iterations):
+        if exit_every and it % exit_every == 0 and it and bool(visited.all()):
+            break
+        sel, ok, visited = cw.select_parents(buf_d, buf_i, visited,
+                                             search_width)
+        nb_p, nb_sq, nb_id = cw.expand(table, sel, ok, deg, pdim, quant,
+                                       scales)
+        buf_d, buf_i, visited = chop.cagra_hop(
+            qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i, visited,
+            ip_metric=ip_metric)
+    return buf_d, buf_i, visited
+
+
+class LoopWalk(_Swap):
+    """``neighbors.cagra``'s walk handle routed to :func:`hop_loop`, so
+    ``cagra.search`` runs as it did before the walk kernel (the yardstick
+    of the search points and the serving buckets)."""
+
+    attr = "_walk"
+
+    def __init__(self):
+        from raft_tpu_torch.ops import cagra_walk as cw
+
+        super().__init__(cw)
+
+    def cagra_walk(self, *args, **kw):
+        return hop_loop(*args, **kw)
+
+
+def walk_bound(args, kw, hops):
+    """(ms, by, bytes) of a walk: the query side and the buffer read once,
+    the buffer written once, each run hop's fat rows read once (``hops``:
+    the hops the queries ran); 2·pdim fp32 operations per candidate."""
+    from raft_tpu_torch.ops import cagra_walk as cw
+
+    qp_t, buf_d = args[0], args[3]
+    nq, itopk = buf_d.shape
+    pdim = qp_t.shape[1]
+    rows = kw["search_width"] * kw["deg"]
+    nbytes = (nq * (pdim * 2 + 4) + 2 * nq * itopk * 9
+              + hops * rows * cw.walk_unit(pdim, kw["quant"]) * 2)
+    ms, by = bound(nbytes, 2.0 * hops * rows * pdim, FP32_FLOP_PER_S)
+    return ms, by, nbytes
+
+
+def check_kernel_walk(args, kw, shape):
+    """The walk kernel vs the plain walk on one captured walk: keys, ids,
+    visited flags and each query's hop count equal (``torch.equal``); its
+    CUDA-event ms and device ms (profiler), the plain walk's ms, the bound
+    (walk_bound over the hops the queries ran) and the yardstick, the
+    per-hop loop of Kernel I's hop kernel (:func:`hop_loop`) on the same
+    inputs.  No single PyTorch call walks a graph."""
+    import torch
+    from raft_tpu_torch.ops import cagra_walk as cw
+
+    kd, ki, kv, kh = cw.cagra_walk(*args, return_hops=True, **kw)
+    (pd, pi, pv, ph), plain_ms = timed_once(
+        lambda: cw.cagra_walk_plain(*args, return_hops=True, **kw))
+    for what, a, b in (("keys", kd, pd), ("ids", ki, pi),
+                       ("visited flags", kv, pv), ("hop counts", kh, ph)):
+        assert torch.equal(a, b), f"cagra_walk at {shape}: {what} differ"
+    fin = torch.isfinite(pd)
+    err = float((kd[fin] - pd[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+    def walk():
+        return cw.cagra_walk(*args, **kw)
+
+    ms = cuda_ms(walk, KERNEL_REPS * 4)
+    dev_ms = device_ms(walk, KERNEL_REPS * 4, "walk_kernel")
+    loop_ms = cuda_ms(lambda: hop_loop(*args, **kw), KERNEL_REPS)
+    hops = int(kh.sum())
+    bound_ms, bound_by, nbytes = walk_bound(args, kw, hops)
+    print(f"cagra_walk at {shape}: keys, ids, visited flags and hop counts "
+          f"equal to the plain walk; {hops:,} hops run "
+          f"({hops / kh.numel():.2f} a query, at most {int(kh.max())} of "
+          f"{kw['max_iterations']}); "
+          f"{ms:.4f} ms (CUDA events; device {dev_ms:.4f}), plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.2f} MB); yardstick (per-hop loop on Kernel I's "
+          f"hop kernel) {loop_ms:.3f} ms = {loop_ms / ms:.1f}x the walk",
+          flush=True)
+    return {"name": "cagra_walk", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/cagra_walk.cu",
+            "replaces": "raft_tpu/ops/cagra_hop_pallas.py:257",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": dev_ms, "yardstick_loop_ms": loop_ms,
+            "walk_hops": hops}
 
 
 def check_kernel_i(args, ip_metric, shape):
-    """Kernel I vs plain on one captured hop: the same finite slots, keys
-    within 1e-5 relative, ids equal except at key ties, visited flags equal
-    where ids are; its device time (profiler; the CUDA-event time of
+    """Kernel I's hop kernel vs plain on one hop: the same finite slots,
+    keys within 1e-5 relative, ids equal except at key ties, visited flags
+    equal where ids are; its device time (profiler; the CUDA-event time of
     back-to-back calls printed beside it), the plain version's, the bound
     (every input read once, the buffer written once; 2·pdim fp32 operations
     per candidate) and ``torch.topk`` over the [buffer | candidate] keys as
@@ -2134,18 +2292,82 @@ def check_kernel_i(args, ip_metric, shape):
             "event_ms": event_ms, "yardstick_topk_ms": topk_ms}
 
 
+def plain_hop_inputs(args, kw, hop):
+    """The inputs of the plain walk's ``hop``-th hop on a captured walk:
+    ``hop`` - 1 hops of the plain walk, then that hop's parents and their
+    decoded rows (so the hop check's buffer keeps the walk's history)."""
+    from raft_tpu_torch.ops import cagra_walk as cw
+
+    kw = dict(kw, max_iterations=hop - 1, exit_every=0)
+    buf_d, buf_i, vis = cw.cagra_walk_plain(*args, **kw)
+    sel, ok, vis = cw.select_parents(buf_d, buf_i, vis, kw["search_width"])
+    nb_p, nb_sq, nb_id = cw.expand(args[2], sel, ok, kw["deg"],
+                                   args[0].shape[1], kw["quant"],
+                                   kw["scales"])
+    return (args[0], args[1], nb_p, nb_sq, nb_id, buf_d, buf_i, vis)
+
+
 def walk_format(index):
     (pdim, quant), = list(index._walk_tables)
     return f"pdim {pdim}, {'int8' if quant else 'bf16'} table"
 
 
+def timed_searches(fn, reps):
+    """``reps`` calls of ``fn``, each ending in a synchronise: their wall
+    ms and the last result."""
+    import torch
+
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms, out
+
+
+def median(ms):
+    return sorted(ms)[len(ms) // 2]
+
+
+def walk_against_loop(label, fn, reps):
+    """``fn`` (a search) with the walk kernel and with the yardstick loop
+    (:class:`LoopWalk`), in turns, ``reps`` times each: both routes give
+    the same ids and distances bit for bit; returns the medians."""
+    import torch
+
+    ms = {"walk": [], "loop": []}
+    outs = {}
+    for _ in range(reps):
+        for route in ("walk", "loop"):
+            if route == "loop":
+                with LoopWalk():
+                    t, outs[route] = timed_searches(fn, 1)
+            else:
+                t, outs[route] = timed_searches(fn, 1)
+            ms[route] += t
+    for a, b in zip(outs["walk"], outs["loop"]):
+        assert torch.equal(a, b), f"{label}: walk kernel and loop differ"
+    med = {route: median(v) for route, v in ms.items()}
+    print(f"{label}: walk kernel {', '.join(f'{m:.2f}' for m in ms['walk'])}"
+          f" ms, yardstick loop {', '.join(f'{m:.2f}' for m in ms['loop'])}"
+          f" ms; medians {med['walk']:.3f} / {med['loop']:.3f} ms = "
+          f"{med['loop'] / med['walk']:.2f}x; results equal", flush=True)
+    return med
+
+
 def cagra_path(db, queries, truth):
-    """``raft_cagra.deg32`` on the flagship's rows: ``cagra.build`` (seconds,
-    stages, build pdim, Kernel I / H / A launches), the conf's four search
-    points at batch 5000, k 10 (first batch, warm ms, QPS, recall@10, walk
-    format, Kernel I launches), serving buckets of 1 / 8 / 64 queries, one
-    batch under the profiler, and Kernel I vs plain on hops captured from
-    the run.  Returns I's kernels row."""
+    """``raft_cagra.deg32`` on the flagship's rows: ``cagra.build``
+    (seconds, stages, build pdim, walk / hop / H / A launches), the conf's
+    four search points at batch 5000, k 10 (first batch, warm ms, QPS,
+    recall@10, walk format, walk launches: one per search), serving
+    buckets of 1 / 8 / 64 queries; then each point and bucket against the
+    yardstick loop in turns, the build's self-walk against the loop's
+    prediction, one batch under the profiler through each route, the walk
+    kernel vs the plain walk on walks captured from the run, and Kernel
+    I's hop kernel vs plain at the exact merge and at the search's fourth
+    hop.  Returns the walk's and the hop kernel's kernels rows."""
     import torch
     from raft_tpu_torch import DeviceResources
     from raft_tpu_torch.neighbors import cagra
@@ -2156,23 +2378,27 @@ def cagra_path(db, queries, truth):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    with HopCapture() as cap:
+    with HopCapture() as cap, WalkCapture() as wcap:
         t0 = time.perf_counter()
         index = cagra.build(res, params, db)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         build_launches = read_launches()
+        stages = dict(cagra.build.stage_seconds)
         print(f"CAGRA build (graph_degree {CAGRA_DEGREE}, intermediate "
               f"{CAGRA_INTERMEDIATE}): {build_s:.2f} s; stages (s): "
-              f"{json.dumps(cagra.build.stage_seconds)}; build pdim "
-              f"{cagra.build.build_pdim}; launches: Kernel I "
+              f"{json.dumps(stages)}; build pdim "
+              f"{cagra.build.build_pdim}; launches: walk "
+              f"{build_launches['cagra_walk']}, hop "
               f"{build_launches['cagra_hop']}, H "
               f"{build_launches['fused_l2_nn']}, A "
-              f"{build_launches['kmeans_assign_update']}; hop shapes "
+              f"{build_launches['kmeans_assign_update']}; walk shapes (nq, "
+              f"itopk, width, deg) x calls: "
+              f"{ {str(k): v for k, v in wcap.calls.items()} }; hop shapes "
               f"(nq, itopk, wd, pdim) x calls: "
               f"{ {str(k): v for k, v in cap.calls.items()} }; peak device "
               f"memory {peak_gb():.2f} GB", flush=True)
-        for name in ("cagra_hop", "fused_l2_nn"):
+        for name in ("cagra_walk", "cagra_hop", "fused_l2_nn"):
             assert build_launches[name] > 0, f"CAGRA build: {name} never " \
                 "launched"
         g = index.graph
@@ -2182,87 +2408,128 @@ def cagra_path(db, queries, truth):
         results = {}
         for itopk, width in CAGRA_POINTS:
             sp = cagra.SearchParams(itopk_size=itopk, search_width=width)
-            before = read_launches()["cagra_hop"]
+            before = read_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cagra.search(res, sp, index, queries, K)
             torch.cuda.synchronize()
             first_ms = 1e3 * (time.perf_counter() - t0)
-            ms = []
-            for _ in range(SEARCH_REPS):
-                t0 = time.perf_counter()
-                _, found = cagra.search(res, sp, index, queries, K)
-                torch.cuda.synchronize()
-                ms.append(1e3 * (time.perf_counter() - t0))
+            ms, (_, found) = timed_searches(
+                lambda: cagra.search(res, sp, index, queries, K),
+                SEARCH_REPS)
+            after = read_launches()
+            walks = after["cagra_walk"] - before["cagra_walk"]
+            assert walks == 1 + SEARCH_REPS and \
+                after["cagra_hop"] == before["cagra_hop"], (
+                    f"CAGRA itopk {itopk}: {walks} walk launches, "
+                    f"{after['cagra_hop'] - before['cagra_hop']} hop "
+                    f"launches in {1 + SEARCH_REPS} searches")
             hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
             recall = float(hits) / truth.numel()
-            med = sorted(ms)[len(ms) // 2]
             results[(itopk, width)] = recall
             print(f"CAGRA itopk {itopk} width {width}: first batch "
                   f"{first_ms:.2f} ms (walk cache included on the first "
                   f"point); {', '.join(f'{m:.2f}' for m in ms)} ms per batch "
-                  f"of {N_QUERIES}; QPS {N_QUERIES / (med / 1e3):.0f} "
+                  f"of {N_QUERIES}; QPS {N_QUERIES / (median(ms) / 1e3):.0f} "
                   f"(median); recall@10 {recall:.4f}; {walk_format(index)}; "
-                  f"Kernel I launches {read_launches()['cagra_hop'] - before}",
-                  flush=True)
-        launches = read_launches()
-        print(f"CAGRA launches (build + searches): {json.dumps(launches)}; "
-              f"peak device memory {peak_gb():.2f} GB", flush=True)
+                  f"walk launches {walks / (1 + SEARCH_REPS):.0f} a search, "
+                  f"hop launches 0", flush=True)
         for point in ((64, 2), (128, 2)):
             assert results[point] >= 0.90, (
                 f"CAGRA recall@10 {results[point]} below 0.90 at itopk "
                 f"{point[0]}, width {point[1]}")
 
-        bucket_before = read_launches()["cagra_hop"]
+        bucket_before = read_launches()["cagra_walk"]
         for itopk, width in CAGRA_BUCKET_POINTS:
             sp = cagra.SearchParams(itopk_size=itopk, search_width=width)
             for nq in CAGRA_BUCKETS:
                 q = queries[:nq]
                 cagra.search(res, sp, index, q, K)
-                ms = []
-                for _ in range(BUCKET_REPS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    cagra.search(res, sp, index, q, K)
-                    torch.cuda.synchronize()
-                    ms.append(1e3 * (time.perf_counter() - t0))
+                ms, _ = timed_searches(
+                    lambda: cagra.search(res, sp, index, q, K), BUCKET_REPS)
                 print(f"CAGRA bucket of {nq} at itopk {itopk} width {width}: "
-                      f"median {sorted(ms)[len(ms) // 2]:.2f} ms per batch "
-                      f"(min {min(ms):.2f}, max {max(ms):.2f})", flush=True)
-        bucket_launches = read_launches()["cagra_hop"] - bucket_before
+                      f"median {median(ms):.3f} ms per batch (min "
+                      f"{min(ms):.3f}, max {max(ms):.3f})", flush=True)
+        bucket_launches = read_launches()["cagra_walk"] - bucket_before
+    launches = read_launches()
+    print(f"CAGRA launches (build + searches + buckets): "
+          f"{json.dumps(launches)}; peak device memory {peak_gb():.2f} GB",
+          flush=True)
+
+    # the yardstick: the per-hop loop on Kernel I's hop kernel, in turns
+    for itopk, width in CAGRA_POINTS:
+        sp = cagra.SearchParams(itopk_size=itopk, search_width=width)
+        med = walk_against_loop(
+            f"CAGRA itopk {itopk} width {width}, batch of {N_QUERIES}",
+            lambda: cagra.search(res, sp, index, queries, K), SEARCH_REPS)
+        print(f"CAGRA itopk {itopk} width {width}: QPS walk kernel "
+              f"{N_QUERIES / (med['walk'] / 1e3):.0f}, yardstick loop "
+              f"{N_QUERIES / (med['loop'] / 1e3):.0f}", flush=True)
+    for itopk, width in CAGRA_BUCKET_POINTS:
+        sp = cagra.SearchParams(itopk_size=itopk, search_width=width)
+        for nq in CAGRA_BUCKETS:
+            q = queries[:nq]
+            walk_against_loop(f"CAGRA bucket of {nq} at itopk {itopk} width "
+                              f"{width}",
+                              lambda: cagra.search(res, sp, index, q, K),
+                              BUCKET_REPS)
+
+    # the build's self-walk: its chunks' walks against the loop's time
+    sw = [k for k in wcap.calls if k[1:] == WALK_CHECKS[2][0][1:]]
+    n_walks = sum(wcap.calls[k] for k in sw)
+    sw_args, sw_kw = wcap.kept[max(sw)]
+    walk_ms = cuda_ms(lambda: cagra._walk.cagra_walk(*sw_args, **sw_kw),
+                      KERNEL_REPS)
+    loop_ms = cuda_ms(lambda: hop_loop(*sw_args, **sw_kw), KERNEL_REPS)
+    walk_stage_s = sum(v for k, v in stages.items()
+                       if k.startswith("walk_refine"))
+    print(f"CAGRA build self-walk: {n_walks} chunk walks (chunk "
+          f"{max(sw)[0]:,}); a chunk {walk_ms:.3f} ms through the walk "
+          f"kernel, {loop_ms:.3f} ms through the yardstick loop; predicted "
+          f"self-walk seconds {n_walks * walk_ms / 1e3:.3f} (kernel) / "
+          f"{n_walks * loop_ms / 1e3:.3f} (loop); the walk_refine stages "
+          f"took {walk_stage_s:.3f} s", flush=True)
 
     sp = cagra.SearchParams(itopk_size=64, search_width=2)
     device_breakdown("CAGRA search batch (itopk 64, width 2)",
                      lambda: cagra.search(res, sp, index, queries, K))
+    with LoopWalk():
+        device_breakdown("CAGRA search batch (itopk 64, width 2) through "
+                         "the yardstick loop",
+                         lambda: cagra.search(res, sp, index, queries, K))
     policy_cost(f"CAGRA search, itopk 64 width 2 (batch of {N_QUERIES})",
                 lambda: cagra.search(res, sp, index, queries, K))
 
-    def kept(nq, itopk, wd):
-        """The captured hop of the largest batch up to ``nq`` at (itopk,
-        wd): the build's self-walk chunks and exact-merge chunks are
-        sized by the port, the search batches by this script."""
-        keys = [k for k in cap.kept if k[1] == itopk and k[2] == wd
+    rows = []
+    for (nq, itopk, width, deg), what in WALK_CHECKS:
+        keys = [k for k in wcap.kept if k[1:] == (itopk, width, deg)
                 and k[0] <= nq]
         key = max(keys)
-        return key, cap.kept[key]
+        args, kw = wcap.kept[key]
+        rows.append(check_kernel_walk(
+            args, kw, f"{what}: {key} (nq, itopk, width, deg)"))
+    row_walk = dict(rows[0], launches=launches["cagra_walk"])
+    row_walk["also_checked"] = [
+        at_shape(rows[1], "serving bucket: 64 queries, itopk 32, width 1",
+                 bucket_launches),
+        at_shape(rows[2], "build self-walk chunk: 8,192 nodes, itopk 96, "
+                 "width 1, deg 64", build_launches["cagra_walk"])]
 
-    key, (args, ipm) = kept(N_QUERIES, 64, 2 * CAGRA_DEGREE)
-    row = check_kernel_i(args, ipm, f"search: {key} (nq, itopk, wd, pdim)")
-    row["launches"] = launches["cagra_hop"]
-    row["also_checked"] = []
-    for (nq, itopk, wd), what, n_launch in (
-            ((64, 32, CAGRA_DEGREE), "serving bucket", bucket_launches),
-            ((8192, 96, CAGRA_INTERMEDIATE), "build self-walk",
-             build_launches["cagra_hop"]),
-            ((N_DB, CAGRA_INTERMEDIATE + 1, 96), "build exact merge",
-             build_launches["cagra_hop"])):
-        key, (args, ipm) = kept(nq, itopk, wd)
-        shape = f"{what}: {key} (nq, itopk, wd, pdim)"
-        row["also_checked"].append(at_shape(check_kernel_i(args, ipm, shape),
-                                            shape, n_launch))
-    del index, cap
+    merge = [k for k in cap.kept if k[1] == CAGRA_INTERMEDIATE + 1]
+    key = max(merge)
+    args, ipm = cap.kept[key]
+    row_i = check_kernel_i(args, ipm, f"build exact merge: {key} (nq, "
+                           f"itopk, wd, pdim)")
+    row_i["launches"] = launches["cagra_hop"]
+    s_args, s_kw = wcap.kept[WALK_CHECKS[0][0]]
+    shape = (f"search hop {CHECK_HOP} of the plain walk: {N_QUERIES:,} "
+             f"queries, itopk 64, wd {2 * CAGRA_DEGREE}")
+    row_i["also_checked"] = [at_shape(check_kernel_i(
+        plain_hop_inputs(s_args, s_kw, CHECK_HOP), s_kw["ip_metric"], shape),
+        shape, 0)]
+    del index, cap, wcap
     torch.cuda.empty_cache()
-    return row
+    return row_walk, row_i
 
 
 def main() -> int:
@@ -2413,7 +2680,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("CAGRA at full width: sift-like-1m, raft_cagra.deg32")
-    row_i = cagra_path(db, queries, truth)
+    row_walk, row_i = cagra_path(db, queries, truth)
     del db, queries, truth
     torch.cuda.empty_cache()
 
@@ -2431,7 +2698,8 @@ def main() -> int:
             dict(row_b, launches=launches["merge_pairs"],
                  pass1_launches=launches["list_scan"],
                  also_checked=[b_deep, b_query_major])] + rows_cde + [
-                     row_f, row_g, row_h, row_hs, row_i] + rows_profiles
+                     row_f, row_g, row_h, row_hs, row_i, row_walk] + \
+        rows_profiles
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,25 +29,23 @@
 // candidates (O(wd * (itopk + wd)) shared-memory compares a query); the
 // candidates are ranked by counting (a rank sort over wd <= 256 keys
 // needs no passes), written straight to their reversed merge slots, and
-// the merge runs in shared memory with one thread per compare-exchange.
-// The gather and decode of the neighbor rows stay in PyTorch, as the JAX
-// package keeps them in XLA: fusing them in, so a hop reads the packed
-// table once, is later work.
+// the merge runs in shared memory with one thread per compare-exchange
+// (the dedupe, rank and merge are csrc/hop_merge.cuh, shared with the
+// walk).  The walk's hops run in csrc/cagra_walk.cu, which gathers and
+// decodes the packed table itself; this kernel serves the build's exact
+// merge, whose full-width rows have no table.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hop_merge.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 256;
-
-__host__ __device__ inline int pow2_at_least(int v) {
-  int p = 1;
-  while (p < v) p <<= 1;
-  return p;
-}
+using hop_merge::kMaxThreads;
+using hop_merge::pow2_at_least;
 
 __device__ __forceinline__ float bf_lo(uint32_t u) {
   return __uint_as_float(u << 16);
@@ -136,67 +134,18 @@ hop_kernel(const __nv_bfloat16* __restrict__ qp,
 
   // dedupe against the buffer and the earlier candidates (decided on the
   // scored ids, applied after every thread has decided)
-  bool kill[kMaxThreads / 32 + 1];
-  {
-    int n = 0;
-    for (int j = tid; j < wd; j += T, ++n) {
-      const int id = ci[j];
-      bool dup = id < 0;
-      for (int t = 0; t < itopk && !dup; ++t) dup = mi[t] == id;
-      for (int i = 0; i < j && !dup; ++i) dup = ci[i] == id;
-      kill[n] = dup;
-    }
-  }
+  bool kill = false;
+  if (tid < wd) kill = hop_merge::duplicate(ci[tid], tid, mi, itopk, ci);
   __syncthreads();
-  {
-    int n = 0;
-    for (int j = tid; j < wd; j += T, ++n)
-      if (kill[n]) {
-        ck[j] = INFINITY;
-        ci[j] = -1;
-      }
+  if (kill) {
+    ck[tid] = INFINITY;
+    ci[tid] = -1;
   }
-  // pad between the buffer and the candidates
-  for (int p = itopk + tid; p < S - wd; p += T) {
-    mk[p] = INFINITY;
-    mi[p] = -1;
-    mv[p] = 0;
-  }
+  hop_merge::pad(itopk, wd, S, mk, mi, mv);
   __syncthreads();
-
-  // rank by (key, position); rank r goes to merge slot S - 1 - r
-  for (int j = tid; j < wd; j += T) {
-    const float kj = ck[j];
-    int r = 0;
-    for (int i = 0; i < wd; ++i) {
-      const float ki = ck[i];
-      r += (ki < kj) || (ki == kj && i < j);
-    }
-    mk[S - 1 - r] = kj;
-    mi[S - 1 - r] = ci[j];
-    mv[S - 1 - r] = 0;
-  }
+  if (tid < wd) hop_merge::place(tid, wd, S, ck, ci, mk, mi, mv);
   __syncthreads();
-
-  // bitonic merge: _bitonic_merge's passes, strict '>'
-  for (int stride = S >> 1; stride > 0; stride >>= 1) {
-    for (int t = tid; t < (S >> 1); t += T) {
-      const int lo = 2 * stride * (t / stride) + (t % stride);
-      const int hi = lo + stride;
-      const float a = mk[lo], b = mk[hi];
-      if (a > b) {
-        mk[lo] = b;
-        mk[hi] = a;
-        const int ii = mi[lo];
-        mi[lo] = mi[hi];
-        mi[hi] = ii;
-        const int vv = mv[lo];
-        mv[lo] = mv[hi];
-        mv[hi] = vv;
-      }
-    }
-    __syncthreads();
-  }
+  hop_merge::bitonic(S, mk, mi, mv);
 
   for (int t = tid; t < itopk; t += T) {
     out_d[row * itopk + t] = mk[t];
@@ -221,9 +170,7 @@ extern "C" int raft_cagra_hop(const void* qp, const void* q_sq,
   const int S = pow2_at_least(itopk + wd);
   if (smem_bytes != 4 * (pdim + 2 * wd + 3 * S) || smem_bytes > 48 * 1024)
     return (int)cudaErrorInvalidValue;
-  int threads = pow2_at_least(wd > S / 2 ? wd : S / 2);
-  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads
-                                                        : threads);
+  const int threads = hop_merge::block_threads(wd, S);
   const bool vec = pdim % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(nb_p) % 16 == 0;
 #define RAFT_HOP_ARGS                                                        \

@@ -1,0 +1,326 @@
+// Kernel I, the walk route: a whole CAGRA graph walk in one launch.
+//
+// Replaces raft_tpu/ops/cagra_hop_pallas.py:257 fused_hop together with the
+// loop that drives it, raft_tpu/neighbors/cagra.py's _search_impl_walk
+// while_loop (parent selection, the fat-row gather and decode, the hop).
+// Contract, per query (one block each), from a seeded sorted buffer
+// (keys, ids, visited flags; itopk each), for at most max_iter hops:
+//   1. parents: search_width times, the first slot that is unvisited, has
+//      an id >= 0 and a finite key; if none, the first unvisited slot
+//      (clamped to itopk - 1) with parent id -1; the slot is marked
+//      visited (ops/cagra_walk.select_parents);
+//   2. each live parent's fat row, deg neighbors of `unit` int16 lanes in
+//      the packed table: bf16 (unit pdim + 4: pdim bf16, the f32 squared
+//      norm, the int32 id) or int8 (unit pdim / 2 + 3: two int8 a lane,
+//      low byte first, a uint16 norm code dequantized as scales[1] +
+//      scales[2] * code with the product and the sum each rounded, the
+//      int32 id); a dead parent's deg candidates are (+inf, -1);
+//   3. keys as Kernel I's hop (csrc/cagra_hop.cu): exact bf16 products
+//      summed in fp32 in dimension order, (q_sq + nb_sq) - 2 ip (L2) or
+//      -ip (InnerProduct); then the hop's dedupe, rank and bitonic merge
+//      (csrc/hop_merge.cuh);
+//   4. a query whose buffer is all visited stops: such a buffer is a fixed
+//      point of the hop, so the result is the fixed hop count's.
+// The result equals ops/cagra_walk.cagra_walk_plain (select_parents ->
+// expand -> cagra_hop_plain per hop) bit for bit.
+//
+// What bounds it on an H100: bytes, and the latency of a chain of
+// dependent hops.  A hop reads each parent's fat row once (at the search
+// shape, 2 x 32 x 40 B) and does 2 pdim operations per candidate; the next
+// parents are known only after the merge, so nothing can be prefetched.
+// Design: QUERY-MAJOR and persistent, one block per query for the whole
+// walk.  The query (fp32) and the merge network (buffer, padding,
+// candidates) stay in shared memory across hops, read from and written to
+// device memory once.  A hop is: warp 0 picks the parents by ballots; the
+// block copies their fat rows into shared memory with 16-byte loads (each
+// table row starts 256-byte aligned: W is a multiple of 128 lanes; one
+// neighbor's slice is not 16-byte aligned, so the decode reads the staged
+// copy lane by lane) and reads the candidates' ids; one thread scores and
+// dedupes one candidate; a counting rank places them; the merge runs
+// with one thread per compare-exchange, block barriers only at strides
+// above 32.  Six block barriers a hop at the search shape (itopk 64, wd
+// 64).  Where the staged rows would not fit in shared memory (wide
+// wd x pdim), the kStaged = false variant scores straight from the table.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hop_merge.cuh"
+
+namespace {
+
+using hop_merge::kMaxThreads;
+using hop_merge::pow2_at_least;
+
+constexpr int kSmemMax = 232448;          // an H100 block's opt-in maximum
+constexpr int kSmemStatic = 48 * 1024;    // above this, opt in
+
+__host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
+
+__host__ __device__ inline int walk_unit(int pdim, int quant) {
+  return quant ? pdim / 2 + 3 : pdim + 4;
+}
+
+// Dynamic shared memory of one block; the Python twin is
+// ops/cagra_walk.walk_smem_bytes (the gate tests it, the launch passes it).
+//   [stage: width x round8(deg unit) int16, staged only]
+//   [q: pdim f32] [mk, mi, mv: S each] [ck, ci, cj: wd each]
+//   [par_id, par_ok: width each] [done: 1]
+__host__ inline int walk_smem(int itopk, int width, int deg, int pdim,
+                              int quant, int staged) {
+  const int wd = width * deg;
+  const int S = pow2_at_least(itopk + wd);
+  const int stage = staged ? width * round8(deg * walk_unit(pdim, quant)) * 2
+                           : 0;
+  return stage + 4 * (pdim + 3 * S + 3 * wd + 2 * width + 1);
+}
+
+// 32 bits from two int16 lanes, low half first
+__device__ __forceinline__ uint32_t lanes32(const int16_t* p) {
+  return static_cast<uint32_t>(static_cast<uint16_t>(p[0])) |
+         (static_cast<uint32_t>(static_cast<uint16_t>(p[1])) << 16);
+}
+
+// one neighbor's key from its `unit` lanes (shared or device memory)
+template <bool kQuant>
+__device__ __forceinline__ float neighbor_key(const float* q,
+                                              const int16_t* nb, int pdim,
+                                              float qsq, float s1, float s2,
+                                              int ip_metric) {
+  float acc = 0.0f;
+  float nsq;
+  if (kQuant) {
+    const int h = pdim >> 1;
+    for (int c = 0; c < h; ++c) {
+      const int u = static_cast<uint16_t>(nb[c]);
+      const int lo = ((u & 0xff) ^ 0x80) - 0x80;       // sign-extended
+      const int hi = (((u >> 8) & 0xff) ^ 0x80) - 0x80;
+      acc = fmaf(q[2 * c], static_cast<float>(lo), acc);
+      acc = fmaf(q[2 * c + 1], static_cast<float>(hi), acc);
+    }
+    // the plain version rounds the product, then the sum: no contraction
+    nsq = __fadd_rn(s1, __fmul_rn(s2, static_cast<float>(
+                                          static_cast<uint16_t>(nb[h]))));
+  } else {
+    for (int d = 0; d < pdim; ++d)
+      acc = fmaf(q[d],
+                 __uint_as_float(static_cast<uint32_t>(
+                                     static_cast<uint16_t>(nb[d])) << 16),
+                 acc);
+    nsq = __uint_as_float(lanes32(nb + pdim));
+  }
+  return ip_metric ? -acc : (qsq + nsq) - 2.0f * acc;
+}
+
+template <bool kStaged, bool kQuant>
+__global__ void __launch_bounds__(kMaxThreads)
+walk_kernel(const __nv_bfloat16* __restrict__ qp,
+            const float* __restrict__ q_sq,
+            const int16_t* __restrict__ table, int table_w, int vec,
+            const float* __restrict__ scales,
+            const float* __restrict__ buf_d,
+            const int* __restrict__ buf_i,
+            const uint8_t* __restrict__ visited,
+            int itopk, int width, int deg, int pdim, int max_iter,
+            int ip_metric, float* __restrict__ out_d,
+            int* __restrict__ out_i, uint8_t* __restrict__ out_v,
+            int* __restrict__ out_hops) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int A = itopk;
+  const int wd = width * deg;
+  const int S = pow2_at_least(itopk + wd);
+  const int unit = walk_unit(pdim, kQuant);
+  const int du = deg * unit;              // lanes of one fat row
+  const int stride = round8(du);          // a staged row, 16-byte multiple
+  int16_t* stage = reinterpret_cast<int16_t*>(smem_raw);
+  float* q = reinterpret_cast<float*>(
+      smem_raw + (kStaged ? static_cast<size_t>(width) * stride * 2 : 0));
+  float* mk = q + pdim;                              // S merge keys
+  int* mi = reinterpret_cast<int*>(mk + S);          // S merge ids
+  int* mv = mi + S;                                  // S visited flags
+  float* ck = reinterpret_cast<float*>(mv + S);      // wd deduped keys
+  int* ci = reinterpret_cast<int*>(ck + wd);         // wd candidate ids
+  int* cj = ci + wd;                                 // wd deduped ids
+  int* par_id = cj + wd;                             // width parent ids
+  int* par_ok = par_id + width;                      // width live flags
+  int* done = par_ok + width;
+
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int lane = tid & 31;
+  const size_t row = blockIdx.x;
+  const int id_off = kQuant ? pdim / 2 + 1 : pdim + 2;
+  const float s1 = kQuant ? scales[1] : 0.0f;
+  const float s2 = kQuant ? scales[2] : 0.0f;
+
+  for (int d = tid; d < pdim; d += T)
+    q[d] = __bfloat162float(qp[row * pdim + d]);
+  for (int t = tid; t < itopk; t += T) {
+    mk[t] = buf_d[row * itopk + t];
+    mi[t] = buf_i[row * itopk + t];
+    mv[t] = visited[row * itopk + t];
+  }
+  __syncthreads();
+  const float qsq = q_sq[row];
+
+  int hops = 0;
+  for (int it = 0; it < max_iter; ++it) {
+    // 1. parents, by warp 0; an all-visited buffer ends the walk
+    if (tid < 32) {
+      bool any_unvisited = false;
+      for (int s = 0; s < width; ++s) {
+        int first_good = A, first_unv = A;
+        for (int c = 0; c < A; c += 32) {
+          const int t = c + lane;
+          const bool unv = t < A && mv[t] == 0;
+          const bool good = unv && mi[t] >= 0 && !isinf(mk[t]);
+          const unsigned bu = __ballot_sync(0xffffffffu, unv);
+          const unsigned bg = __ballot_sync(0xffffffffu, good);
+          if (first_unv == A && bu) first_unv = c + __ffs(bu) - 1;
+          if (bg) {
+            first_good = c + __ffs(bg) - 1;
+            break;
+          }
+        }
+        if (s == 0) any_unvisited = first_unv < A;
+        const bool ok = first_good < A;
+        int pc = ok ? first_good : first_unv;
+        pc = pc < A - 1 ? pc : A - 1;
+        if (lane == 0) {
+          par_id[s] = ok ? mi[pc] : -1;
+          par_ok[s] = ok;
+          mv[pc] = 1;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) *done = !any_unvisited;
+    }
+    __syncthreads();
+    if (*done) break;
+    ++hops;
+
+    // 2. the candidates' ids, and the parents' fat rows into shared memory
+    if (tid < wd) {
+      const int s = tid / deg, r = tid - s * deg;
+      ci[tid] = par_ok[s]
+          ? static_cast<int>(lanes32(table + static_cast<size_t>(par_id[s]) *
+                                                 table_w + r * unit + id_off))
+          : -1;
+    }
+    if (kStaged) {
+      if (vec) {
+        const int n16 = stride >> 3;
+        uint4* st4 = reinterpret_cast<uint4*>(stage);
+        for (int x = tid; x < width * n16; x += T) {
+          const int s = x / n16, v = x - s * n16;
+          if (par_ok[s])
+            st4[x] = __ldg(reinterpret_cast<const uint4*>(
+                               table + static_cast<size_t>(par_id[s]) *
+                                           table_w) + v);
+        }
+      } else {
+        for (int x = tid; x < width * du; x += T) {
+          const int s = x / du, v = x - s * du;
+          if (par_ok[s])
+            stage[s * stride + v] =
+                table[static_cast<size_t>(par_id[s]) * table_w + v];
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. score and dedupe, one thread per candidate
+    if (tid < wd) {
+      const int s = tid / deg, r = tid - s * deg;
+      const int id = ci[tid];
+      float key = INFINITY;
+      if (id >= 0) {
+        const int16_t* nb =
+            kStaged ? stage + s * stride + r * unit
+                    : table + static_cast<size_t>(par_id[s]) * table_w +
+                          r * unit;
+        key = neighbor_key<kQuant>(q, nb, pdim, qsq, s1, s2, ip_metric);
+      }
+      const bool dup = hop_merge::duplicate(id, tid, mi, itopk, ci);
+      ck[tid] = dup ? INFINITY : key;
+      cj[tid] = dup ? -1 : id;
+    }
+    hop_merge::pad(itopk, wd, S, mk, mi, mv);
+    __syncthreads();
+
+    // 4. rank into the merge slots, 5. merge
+    if (tid < wd) hop_merge::place(tid, wd, S, ck, cj, mk, mi, mv);
+    __syncthreads();
+    hop_merge::bitonic(S, mk, mi, mv);
+  }
+
+  for (int t = tid; t < itopk; t += T) {
+    out_d[row * itopk + t] = mk[t];
+    out_i[row * itopk + t] = mi[t];
+    out_v[row * itopk + t] = static_cast<uint8_t>(mv[t] != 0);
+  }
+  if (tid == 0 && out_hops != nullptr) out_hops[row] = hops;
+}
+
+template <bool kStaged, bool kQuant>
+int launch(int nq, int threads, int smem_bytes, cudaStream_t s,
+           const void* qp, const void* q_sq, const void* table, int table_w,
+           int vec, const void* scales, const void* buf_d, const void* buf_i,
+           const void* visited, int itopk, int width, int deg, int pdim,
+           int max_iter, int ip_metric, void* out_d, void* out_i,
+           void* out_v, void* hops) {
+  auto* kernel = walk_kernel<kStaged, kQuant>;
+  if (smem_bytes > kSmemStatic) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<nq, threads, smem_bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(qp), static_cast<const float*>(q_sq),
+      static_cast<const int16_t*>(table), table_w, vec,
+      static_cast<const float*>(scales), static_cast<const float*>(buf_d),
+      static_cast<const int*>(buf_i), static_cast<const uint8_t*>(visited),
+      itopk, width, deg, pdim, max_iter, ip_metric,
+      static_cast<float*>(out_d), static_cast<int*>(out_i),
+      static_cast<uint8_t*>(out_v), static_cast<int*>(hops));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int raft_cagra_walk(const void* qp, const void* q_sq,
+                               const void* table, int table_w,
+                               const void* scales, const void* buf_d,
+                               const void* buf_i, const void* visited, int nq,
+                               int itopk, int width, int deg, int pdim,
+                               int quant, int max_iter, int ip_metric,
+                               int staged, int smem_bytes, void* out_d,
+                               void* out_i, void* out_v, void* hops,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int wd = width * deg;
+  if (nq < 1 || itopk < 1 || width < 1 || deg < 1 || pdim < 1 ||
+      itopk > 256 || wd > 256 || pdim > 4096 || max_iter < 0 ||
+      (quant && (pdim % 2 != 0 || scales == nullptr)) ||
+      table_w < deg * walk_unit(pdim, quant))
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes != walk_smem(itopk, width, deg, pdim, quant, staged) ||
+      smem_bytes > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  const int threads =
+      hop_merge::block_threads(wd, pow2_at_least(itopk + wd));
+  const int vec = table_w % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(table) % 16 == 0;
+#define RAFT_WALK_ARGS                                                       \
+  nq, threads, smem_bytes, s, qp, q_sq, table, table_w, vec, scales, buf_d,  \
+      buf_i, visited, itopk, width, deg, pdim, max_iter, ip_metric, out_d,   \
+      out_i, out_v, hops
+  if (staged)
+    return quant ? launch<true, true>(RAFT_WALK_ARGS)
+                 : launch<true, false>(RAFT_WALK_ARGS);
+  return quant ? launch<false, true>(RAFT_WALK_ARGS)
+               : launch<false, false>(RAFT_WALK_ARGS);
+#undef RAFT_WALK_ARGS
+}

@@ -14,29 +14,32 @@ calibrated PCA projection, balanced k-means lists in that space
 (:mod:`raft_tpu_torch.cluster.kmeans_balanced`: Kernel H, and Kernel A
 from pdim 32), a projected scan of each list block's neighbor-list tile,
 reverse edges, then graph-walk refinement rounds: pack the current graph
-into a walk table, self-walk every node (every hop on Kernel I), and
-exact-rerank.  ``prune`` orders edges by detour count and fills half the
-degree with reverse edges.
+into a walk table, self-walk every node (one launch of Kernel I's walk
+kernel per chunk of nodes), and exact-rerank.  ``prune`` orders edges by
+detour count and fills half the degree with reverse edges.
 
 Search: a dense entry-set scoring seeds each query's sorted buffer, then
 greedy hops over the packed-neighborhood table (one fat row per parent:
-projected bf16 vectors, norms and ids in int16 lanes), each hop's score +
-dedupe + merge on Kernel I (:mod:`raft_tpu_torch.ops.cagra_hop`), and an
-exact rerank of the buffer's best ``rerank`` entries.
+projected bf16 vectors, norms and ids in int16 lanes) — the whole walk,
+every hop's parent choice, fat-row gather, score, dedupe and merge, in one
+launch of Kernel I's walk kernel (:mod:`raft_tpu_torch.ops.cagra_walk`) —
+and an exact rerank of the buffer's best ``rerank`` entries.
 
 Where the port differs from the JAX package, by design:
 
-- every hop goes through Kernel I on the card, at any batch size; the JAX
-  package sends a hop through its Pallas kernel only on a TPU for batches
-  of <= 64 and otherwise runs the kernel's XLA twin (``_merge_candidates``),
-  which is the plain version here.  The exact merge of the build's
-  refinement rounds is the same hop with the full rows as its "projected"
-  vectors and a zero query norm, so it runs on Kernel I too;
+- every walk is one launch of Kernel I's walk kernel on the card, at any
+  batch size; the JAX package sends a hop through its Pallas kernel only
+  on a TPU for batches of <= 64 and otherwise runs the kernel's XLA twin
+  (``_merge_candidates``), which with the walk's other pieces is the plain
+  version here.  The exact merge of the build's refinement rounds is a
+  hop with the full rows as its "projected" vectors and a zero query norm,
+  on Kernel I's hop kernel;
 - ``approx_max_k`` (the build scan and its calibration) is an exact top-k:
   on the TPU it is approximate, on the CPU exact;
-- the walk's ``all(visited)`` exit is checked every ``_EXIT_CHECK_EVERY``
-  hops, not every hop (one host sync each): a fully visited buffer is a
-  fixed point of the hop, so the result is the same;
+- the walk's ``all(visited)`` exit is per query, before every hop, in the
+  walk kernel (no host sync), and every ``_EXIT_CHECK_EVERY`` hops over
+  the whole batch in its plain version: a fully visited buffer is a fixed
+  point of the hop, so the result is the same;
 - chunks are sized by device memory (``_hbm_bytes``), not by the TPU
   watchdog's dispatch limits; every chunked result is row-wise, so the
   result does not change;
@@ -77,12 +80,17 @@ from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.matrix.ops import row_duplicate_mask
 from raft_tpu_torch.neighbors.ivf_flat import _stage
 from raft_tpu_torch.ops import cagra_hop as _hop
+from raft_tpu_torch.ops import cagra_walk as _walk
 from raft_tpu_torch.ops.vmem_budget import merge_window_request
 from raft_tpu_torch.utils import precision
 
 # the walk primitives, under the JAX package's names
 _merge_candidates = _hop.merge_candidates
 _bitonic_merge = _hop.bitonic_merge
+_select_parents = _walk.select_parents
+_expand = _walk.expand
+_decode_neighborhood = _walk.decode_neighborhood
+_quant_unit = _walk.quant_unit
 
 
 def _not_ported(what: str, item: str):
@@ -184,10 +192,15 @@ _DEBUG_CHECKS = os.environ.get("RAFT_TPU_DEBUG_CHECKS", "0").lower() \
     not in ("0", "", "false")
 
 
-def _require_hop(nq: int, itopk: int, wd: int, pdim: int) -> None:
-    """Raise before a walk whose hops Kernel I's gate refuses (the JAX
-    package runs its XLA twin there)."""
+def _require_hop(nq: int, itopk: int, wd: int, pdim: int, *,
+                 deg: int = 0, quant: bool = False) -> None:
+    """Raise before a walk or merge whose hops Kernel I's gate refuses (the
+    JAX package runs its XLA twin there); with ``deg`` (wd = search_width
+    * deg) the walk kernel's gate as well."""
     why = _hop.hop_reject_reason(nq, itopk, wd, pdim)
+    if not why and deg:
+        why = _walk.walk_reject_reason(nq, itopk, wd // deg, deg, pdim,
+                                       quant)
     if why:
         raise _not_ported(f"a walk hop beyond Kernel I's gate ({why})",
                           "CAGRA wide hops")
@@ -431,13 +444,8 @@ def _walk_proj(dataset, pdim: int, vecs=None) -> torch.Tensor:
     return torch.eye(dim, dtype=torch.float32, device=dataset.device)
 
 
-def _quant_unit(pdim: int) -> int:
-    """int16 lanes per neighbor in the int8 format: pdim/2 + norm + 2 id."""
-    return pdim // 2 + 3
-
-
 def _table_bytes(n: int, deg: int, pdim: int, quant: bool) -> int:
-    unit = _quant_unit(pdim) if quant else pdim + 4
+    unit = _walk.walk_unit(pdim, quant)
     return n * (-(-(deg * unit) // 128) * 128) * 2
 
 
@@ -540,29 +548,6 @@ def _build_walk_table_q(dataset, graph, pdim: int, deg: int = 0, vecs=None,
         table[s:s + rows, :deg * unit] = packed.reshape(nb.shape[0], -1)
     scales = torch.stack([a, sq_min, sq_scale * 1.0]).float()
     return table, proj, scales
-
-
-def _decode_neighborhood(rows, pdim: int, deg: int, quant: bool, scales):
-    """(..., deg, unit) int16 rows -> (nb_p bf16 (..., deg, pdim), nb_sq f32,
-    nb_id int32).  int8 lanes decode exactly into bf16; the query side
-    carries the a/127 scale."""
-    if not quant:
-        nb_p = rows[..., :pdim].contiguous().view(torch.bfloat16)
-        nb_sq = rows[..., pdim:pdim + 2].contiguous().view(
-            torch.float32)[..., 0]
-        nb_id = rows[..., pdim + 2:pdim + 4].contiguous().view(
-            torch.int32)[..., 0]
-        return nb_p, nb_sq, nb_id
-    h = pdim // 2
-    v = rows[..., :h].int()
-    lo = ((v & 0xFF) ^ 0x80) - 0x80                    # sign-extended bytes
-    hi = (((v >> 8) & 0xFF) ^ 0x80) - 0x80
-    nb_p = torch.stack([lo, hi], -1).reshape(*rows.shape[:-1], pdim).to(
-        torch.bfloat16)
-    uq = rows[..., h].int() & 0xFFFF
-    nb_sq = scales[1] + scales[2] * uq.float()
-    nb_id = rows[..., h + 1:h + 3].contiguous().view(torch.int32)[..., 0]
-    return nb_p, nb_sq, nb_id
 
 
 def _build_refine_table(dataset, knn, plan, vecs):
@@ -675,46 +660,6 @@ def attach_walk_cache(index: Index, proj, entry_ids, *,
 # the walk
 # ---------------------------------------------------------------------------
 
-def _select_parents(buf_d, buf_i, visited, search_width: int):
-    """Best ``search_width`` unvisited buffer entries, marked visited:
-    (sel_ids, parent_ok, visited).  With no valid unvisited entry left, an
-    arbitrary unvisited slot is consumed (dead slots fill up, so the
-    all(visited) exit fires)."""
-    nq, A = buf_d.shape
-    iota = torch.arange(A, device=buf_d.device).expand(nq, A)
-    full = torch.full_like(iota, A)
-    rows = torch.arange(nq, device=buf_d.device)
-    visited = visited.clone()
-    ids, oks = [], []
-    for _ in range(search_width):
-        pos = torch.where(visited | (buf_i < 0) | torch.isinf(buf_d), full,
-                          iota).min(1).values
-        ok = pos < A
-        pos_any = torch.where(visited, full, iota).min(1).values
-        pc = torch.clamp_max(torch.where(ok, pos, pos_any), A - 1)
-        sel = torch.gather(buf_i, 1, pc[:, None])[:, 0]
-        ids.append(torch.where(ok, sel, torch.full_like(sel, -1)))
-        oks.append(ok)
-        visited[rows, pc] = True
-    return torch.stack(ids, 1), torch.stack(oks, 1), visited
-
-
-def _expand(table, sel_ids, parent_ok, deg: int, pdim: int, quant: bool,
-            scales):
-    """The parents' packed rows, decoded: (nb_p (nq, w*deg, pdim) bf16,
-    nb_sq (nq, w*deg) f32, nb_id (nq, w*deg) int32, masked parents -1) —
-    one fat row per parent."""
-    nq, w = sel_ids.shape
-    unit = _quant_unit(pdim) if quant else pdim + 4
-    safe = torch.where(parent_ok, sel_ids, torch.zeros_like(sel_ids))
-    rows = table[safe.long()][..., :deg * unit].reshape(nq, w, deg, unit)
-    nb_p, nb_sq, nb_id = _decode_neighborhood(rows, pdim, deg, quant, scales)
-    nb_id = torch.where(parent_ok[:, :, None], nb_id,
-                        torch.full_like(nb_id, -1))
-    return (nb_p.reshape(nq, w * deg, pdim), nb_sq.reshape(nq, w * deg),
-            nb_id.reshape(nq, w * deg))
-
-
 def _query_side(qf, proj, quant: bool, scales):
     """(q_sq, qp entry-side bf16, qp_t table-side bf16): the int8 table's
     a/127 scale folds into the query side of table rows only."""
@@ -725,26 +670,12 @@ def _query_side(qf, proj, quant: bool, scales):
     return q_sq, qp, qp_t
 
 
-def _search_impl_walk(dataset, table, entry_proj, entry_sq, entry_ids, proj,
-                      queries, k: int, itopk: int, search_width: int,
-                      max_iterations: int, metric: int, rerank: int,
-                      deg: int, quant: bool = False, scales=None,
-                      exit_every: int = _EXIT_CHECK_EVERY):
-    """Greedy walk over the packed table (``raft_tpu/neighbors/cagra.py``
-    :1707):
-    dense entry scoring seeds the sorted buffer, every hop runs
-    :func:`raft_tpu_torch.ops.cagra_hop.cagra_hop` (Kernel I on the card),
-    and the best ``rerank`` entries are re-scored exactly.  The
-    all(visited) exit is checked every ``exit_every`` hops (0: never — the
-    fixed hop count, the same result)."""
-    nq = queries.shape[0]
-    n = dataset.shape[0]
-    pdim = proj.shape[1]
-    _require_hop(nq, itopk, search_width * deg, pdim)
-    ip_metric = metric == DistanceType.InnerProduct
-    qf = queries.float()
-    q_sq, qp, qp_t = _query_side(qf, proj, quant, scales)
-
+def _seed_walk(qp, q_sq, entry_proj, entry_sq, entry_ids, itopk: int,
+               ip_metric: bool):
+    """The walk's seeded buffer (buf_d, buf_i, visited), each (nq, itopk):
+    the best ``itopk`` of a dense scoring of the entry set, sorted, dead
+    (+inf) slots id -1, nothing visited."""
+    nq = qp.shape[0]
     ip_e = _f32_bf16(qp) @ _f32_bf16(entry_proj).T
     d_e = -ip_e if ip_metric else (q_sq[:, None] + entry_sq[None, :]) \
         - 2.0 * ip_e
@@ -761,17 +692,36 @@ def _search_impl_walk(dataset, table, entry_proj, entry_sq, entry_ids, proj,
     buf_i = torch.where(torch.isinf(buf_d), torch.full_like(buf_i, -1),
                         buf_i)
     visited = torch.zeros(nq, itopk, dtype=torch.bool, device=d_e.device)
+    return buf_d, buf_i, visited
 
-    for it in range(max_iterations):
-        if exit_every and it % exit_every == 0 and it and bool(visited.all()):
-            break
-        sel_ids, parent_ok, visited = _select_parents(buf_d, buf_i, visited,
-                                                      search_width)
-        nb_p, nb_sq, nb_id = _expand(table, sel_ids, parent_ok, deg, pdim,
-                                     quant, scales)
-        buf_d, buf_i, visited = _hop.cagra_hop(
-            qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i, visited,
-            ip_metric=ip_metric)
+
+def _search_impl_walk(dataset, table, entry_proj, entry_sq, entry_ids, proj,
+                      queries, k: int, itopk: int, search_width: int,
+                      max_iterations: int, metric: int, rerank: int,
+                      deg: int, quant: bool = False, scales=None,
+                      exit_every: int = _EXIT_CHECK_EVERY):
+    """Greedy walk over the packed table (``raft_tpu/neighbors/cagra.py``
+    :1707):
+    dense entry scoring seeds the sorted buffer, the walk runs in one
+    :func:`raft_tpu_torch.ops.cagra_walk.cagra_walk` (Kernel I's walk
+    kernel on the card), and the best ``rerank`` entries are re-scored
+    exactly.  The plain walk checks the all(visited) exit every
+    ``exit_every`` hops (0: never — the fixed hop count, the same
+    result)."""
+    nq = queries.shape[0]
+    n = dataset.shape[0]
+    pdim = proj.shape[1]
+    _require_hop(nq, itopk, search_width * deg, pdim, deg=deg, quant=quant)
+    ip_metric = metric == DistanceType.InnerProduct
+    qf = queries.float()
+    q_sq, qp, qp_t = _query_side(qf, proj, quant, scales)
+    buf_d, buf_i, visited = _seed_walk(qp, q_sq, entry_proj, entry_sq,
+                                       entry_ids, itopk, ip_metric)
+    buf_d, buf_i, visited = _walk.cagra_walk(
+        qp_t, q_sq, table, buf_d, buf_i, visited, deg=deg,
+        search_width=search_width, max_iterations=max_iterations,
+        ip_metric=ip_metric, quant=quant, scales=scales,
+        exit_every=exit_every)
 
     # exact rerank of the best `rerank` buffer entries (a sorted slice)
     r_ids = buf_i[:, :rerank]
@@ -927,7 +877,8 @@ def _build_knn_graph_clustered(res, dataset, kg: int, p: IndexParams,
     build.build_pdim = pdim
     walk = pdim < dim and p.build_walk_rounds > 0
     if walk:      # the rounds' self-walk hops and their sorted merge
-        _require_hop(1, _refine_itopk(kg), min(kg, 64), pdim)
+        _require_hop(1, _refine_itopk(kg), min(kg, 64), pdim,
+                     deg=min(kg, 64))
         _require_hop(1, kg, _refine_itopk(kg), dim)
     elif p.build_reverse_rounds > 1:
         _require_hop(1, kg, min(kg, 64), dim)
@@ -1111,9 +1062,10 @@ def _walk_chunk_body(qf, ids_c, table, proj, scales, itopk: int, iters: int,
                      search_width: int, ip_metric: bool, deg: int,
                      quant: bool):
     """Warm-seeded walk for a chunk of self-queries: the buffer seeded from
-    each node's OWN packed row (the node pre-marked visited), then
-    ``iters`` hops, each on :func:`raft_tpu_torch.ops.cagra_hop.cagra_hop`.
-    (chunk, itopk) candidate ids, best first by the projected key."""
+    each node's OWN packed row (the node pre-marked visited), then a walk
+    of ``iters`` hops in one :func:`raft_tpu_torch.ops.cagra_walk.
+    cagra_walk`.  (chunk, itopk) candidate ids, best first by the
+    projected key."""
     chunk = qf.shape[0]
     pdim = proj.shape[1]
     q_sq, _, qp = _query_side(qf, proj, quant, scales)
@@ -1135,14 +1087,10 @@ def _walk_chunk_body(qf, ids_c, table, proj, scales, itopk: int, iters: int,
     buf_i = torch.where(torch.isinf(buf_d), torch.full_like(buf_i, -1),
                         buf_i)
     visited = buf_i == ids_c[:, None]
-    for _ in range(iters):
-        sel_ids, parent_ok, visited = _select_parents(buf_d, buf_i, visited,
-                                                      search_width)
-        nb_p, nb_sq, nb_id = _expand(table, sel_ids, parent_ok, deg, pdim,
-                                     quant, scales)
-        buf_d, buf_i, visited = _hop.cagra_hop(
-            qp, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i, visited,
-            ip_metric=ip_metric)
+    _, buf_i, _ = _walk.cagra_walk(
+        qp, q_sq, table, buf_d, buf_i, visited, deg=deg,
+        search_width=search_width, max_iterations=iters,
+        ip_metric=ip_metric, quant=quant, scales=scales)
     return buf_i
 
 
@@ -1152,7 +1100,8 @@ def _self_walk_chunked(dataset, table, proj, itopk: int, iters: int,
     """:func:`_walk_chunk_body` with queries = the dataset itself, over
     node chunks: (n, itopk) candidate ids."""
     n = dataset.shape[0]
-    _require_hop(min(chunk, n), itopk, search_width * deg, proj.shape[1])
+    _require_hop(min(chunk, n), itopk, search_width * deg, proj.shape[1],
+                 deg=deg, quant=quant)
     ip_metric = metric == DistanceType.InnerProduct
     out = torch.empty(n, itopk, dtype=torch.int32, device=dataset.device)
     for s in range(0, n, chunk):

@@ -72,6 +72,8 @@ SIGNATURES = {
                                    _P),
     "raft_cagra_hop": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P, _P, _P),
+    "raft_cagra_walk": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -28,6 +28,11 @@ Contract, per query (inputs in the walk's natural layout):
   ties keep their places), and the best ``itopk`` come out — the result
   of ``raft_tpu.neighbors.cagra._merge_candidates``.
 
+Walks run on Kernel I's walk route (:mod:`raft_tpu_torch.ops.cagra_walk`,
+``csrc/cagra_walk.cu``, the same merge through ``csrc/hop_merge.cuh``);
+this hop kernel serves the build's exact merge, whose full-width rows have
+no packed table.
+
 The merge helpers (:func:`merge_candidates`, :func:`bitonic_merge`) live
 here so the plain version can use them; ``neighbors/cagra`` re-exports
 them under the JAX package's private names.

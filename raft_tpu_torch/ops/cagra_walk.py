@@ -1,0 +1,290 @@
+"""Kernel I, the walk route: a whole CAGRA graph walk in one launch.
+
+Replaces ``raft_tpu/ops/cagra_hop_pallas.py:257 fused_hop`` together with
+the loop around it, ``raft_tpu/neighbors/cagra.py``'s ``_search_impl_walk``
+``while_loop`` (1775-1828): the JAX package runs a walk as one device
+program, and so does this kernel, ``csrc/cagra_walk.cu`` — one block per
+query for the whole walk, the buffer in shared memory across hops, each
+hop's parents chosen, fat rows fetched and decoded, candidates scored,
+deduplicated and merged inside the kernel.  Its source note says what
+bounds it on an H100 and how the hops are laid out.  Kernel I's hop
+kernel (:mod:`raft_tpu_torch.ops.cagra_hop`) keeps the build's exact
+merge, whose full-width rows have no table.
+
+:func:`cagra_walk` launches the kernel for CUDA tensors and runs
+:func:`cagra_walk_plain` for CPU tensors — nothing else picks between
+them, and a gate miss, a failed build or a failed launch raises.
+``cagra_walk.launches`` counts kernel launches (one per walk).
+
+Contract, per query, from the seeded sorted buffer ``buf_d`` / ``buf_i`` /
+``visited`` (nq, itopk), for at most ``max_iterations`` hops, each hop
+:func:`select_parents` → :func:`expand` → ``cagra_hop_plain``; the plain
+version checks the all-visited exit every ``exit_every`` hops (0: never),
+the kernel before every hop of each query.  A fully visited buffer is a
+fixed point of the hop, so both give the fixed hop count's result, and
+the kernel equals the plain version bit for bit.
+
+The walk helpers (:func:`select_parents`, :func:`expand`,
+:func:`decode_neighborhood`) live here so the plain version can use them;
+``neighbors/cagra`` re-exports them under the JAX package's private names.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.ops import _cuda
+from raft_tpu_torch.ops import cagra_hop as _hop
+
+EXIT_CHECK_EVERY = 8             # the plain walk's all(visited) check
+SMEM_MAX = 232_448               # an H100 block's opt-in shared memory
+
+
+def quant_unit(pdim: int) -> int:
+    """int16 lanes per neighbor in the int8 format: pdim/2 + norm + 2 id."""
+    return pdim // 2 + 3
+
+
+def walk_unit(pdim: int, quant: bool) -> int:
+    """int16 lanes per neighbor: pdim bf16 + 2 norm + 2 id, or the int8
+    format's :func:`quant_unit`."""
+    return quant_unit(pdim) if quant else pdim + 4
+
+
+def walk_smem_bytes(itopk: int, width: int, deg: int, pdim: int,
+                    quant: bool = False, staged: bool = True) -> int:
+    """Dynamic shared memory of one block, as ``walk_kernel`` lays it out:
+    the staged fat rows (``width`` rows of deg·unit lanes, each rounded up
+    to 16 bytes; none when ``staged`` is off), the query (pdim f32), the
+    merge network (keys, ids, visited flags), the candidates (keys, ids,
+    deduplicated ids), the parents (ids, live flags) and an exit flag.
+    The one copy of the formula: the gate tests it and the launch passes
+    it."""
+    wd = width * deg
+    rows = 0
+    if staged:
+        rows = width * (-(-(deg * walk_unit(pdim, quant)) // 8) * 8) * 2
+    return rows + 4 * (pdim + 3 * _hop.hop_merge_rows(itopk, wd) + 3 * wd
+                       + 2 * width + 1)
+
+
+def walk_staged(itopk: int, width: int, deg: int, pdim: int,
+                quant: bool = False) -> bool:
+    """Whether the kernel stages the parents' fat rows in shared memory
+    (else it scores straight from the table)."""
+    return walk_smem_bytes(itopk, width, deg, pdim, quant) <= SMEM_MAX
+
+
+def walk_reject_reason(nq: int, itopk: int, width: int, deg: int, pdim: int,
+                       quant: bool = False) -> str:
+    """Why the walk kernel cannot take this walk ('' when it can).  It
+    admits every hop shape Kernel I's hop gate admits."""
+    if width < 1:
+        return f"search_width={width} < 1"
+    if deg < 1:
+        return f"degree={deg} < 1"
+    why = _hop.hop_reject_reason(nq, itopk, width * deg, pdim)
+    if why:
+        return why
+    if quant and pdim % 2:
+        return f"pdim={pdim} odd in the int8 table format"
+    need = walk_smem_bytes(itopk, width, deg, pdim, quant,
+                           walk_staged(itopk, width, deg, pdim, quant))
+    if need > SMEM_MAX:
+        return f"shared memory {need} B above {SMEM_MAX}"
+    return ""
+
+
+def supported_walk(nq: int, itopk: int, width: int, deg: int, pdim: int,
+                   quant: bool = False) -> bool:
+    """Static shape gate of the walk kernel."""
+    return not walk_reject_reason(nq, itopk, width, deg, pdim, quant)
+
+
+# ---------------------------------------------------------------------------
+# the walk's pieces (raft_tpu/neighbors/cagra.py's, same names less "_")
+# ---------------------------------------------------------------------------
+
+def decode_neighborhood(rows, pdim: int, deg: int, quant: bool, scales):
+    """(..., deg, unit) int16 rows -> (nb_p bf16 (..., deg, pdim), nb_sq f32,
+    nb_id int32).  int8 lanes decode exactly into bf16; the query side
+    carries the a/127 scale."""
+    if not quant:
+        nb_p = rows[..., :pdim].contiguous().view(torch.bfloat16)
+        nb_sq = rows[..., pdim:pdim + 2].contiguous().view(
+            torch.float32)[..., 0]
+        nb_id = rows[..., pdim + 2:pdim + 4].contiguous().view(
+            torch.int32)[..., 0]
+        return nb_p, nb_sq, nb_id
+    h = pdim // 2
+    v = rows[..., :h].int()
+    lo = ((v & 0xFF) ^ 0x80) - 0x80                    # sign-extended bytes
+    hi = (((v >> 8) & 0xFF) ^ 0x80) - 0x80
+    nb_p = torch.stack([lo, hi], -1).reshape(*rows.shape[:-1], pdim).to(
+        torch.bfloat16)
+    uq = rows[..., h].int() & 0xFFFF
+    nb_sq = scales[1] + scales[2] * uq.float()
+    nb_id = rows[..., h + 1:h + 3].contiguous().view(torch.int32)[..., 0]
+    return nb_p, nb_sq, nb_id
+
+
+def select_parents(buf_d, buf_i, visited, search_width: int):
+    """Best ``search_width`` unvisited buffer entries, marked visited:
+    (sel_ids, parent_ok, visited).  With no valid unvisited entry left, an
+    arbitrary unvisited slot is consumed (dead slots fill up, so the
+    all(visited) exit fires)."""
+    nq, A = buf_d.shape
+    iota = torch.arange(A, device=buf_d.device).expand(nq, A)
+    full = torch.full_like(iota, A)
+    rows = torch.arange(nq, device=buf_d.device)
+    visited = visited.clone()
+    ids, oks = [], []
+    for _ in range(search_width):
+        pos = torch.where(visited | (buf_i < 0) | torch.isinf(buf_d), full,
+                          iota).min(1).values
+        ok = pos < A
+        pos_any = torch.where(visited, full, iota).min(1).values
+        pc = torch.clamp_max(torch.where(ok, pos, pos_any), A - 1)
+        sel = torch.gather(buf_i, 1, pc[:, None])[:, 0]
+        ids.append(torch.where(ok, sel, torch.full_like(sel, -1)))
+        oks.append(ok)
+        visited[rows, pc] = True
+    return torch.stack(ids, 1), torch.stack(oks, 1), visited
+
+
+def expand(table, sel_ids, parent_ok, deg: int, pdim: int, quant: bool,
+           scales):
+    """The parents' packed rows, decoded: (nb_p (nq, w*deg, pdim) bf16,
+    nb_sq (nq, w*deg) f32, nb_id (nq, w*deg) int32, masked parents -1) —
+    one fat row per parent."""
+    nq, w = sel_ids.shape
+    unit = walk_unit(pdim, quant)
+    safe = torch.where(parent_ok, sel_ids, torch.zeros_like(sel_ids))
+    rows = table[safe.long()][..., :deg * unit].reshape(nq, w, deg, unit)
+    nb_p, nb_sq, nb_id = decode_neighborhood(rows, pdim, deg, quant, scales)
+    nb_id = torch.where(parent_ok[:, :, None], nb_id,
+                        torch.full_like(nb_id, -1))
+    return (nb_p.reshape(nq, w * deg, pdim), nb_sq.reshape(nq, w * deg),
+            nb_id.reshape(nq, w * deg))
+
+
+# ---------------------------------------------------------------------------
+# plain version (today's loop of the pieces, the JAX while_loop's twin)
+# ---------------------------------------------------------------------------
+
+def _check(qp_t, q_sq, table, buf_d, buf_i, visited, deg, pdim, quant,
+           scales, max_iterations):
+    expects(qp_t.ndim == 2 and table.ndim == 2 and buf_d.ndim == 2,
+            "cagra_walk: qp_t (nq, pdim), table (n, W), buffers (nq, itopk) "
+            "required")
+    nq, itopk = buf_d.shape
+    expects(qp_t.shape == (nq, pdim) and q_sq.shape == (nq,)
+            and buf_i.shape == (nq, itopk) and visited.shape == (nq, itopk),
+            "cagra_walk: shape mismatch")
+    expects(table.dtype == torch.int16, "cagra_walk: table must be int16")
+    expects(table.shape[1] >= deg * walk_unit(pdim, quant),
+            "cagra_walk: table rows narrower than deg * unit")
+    expects(not quant or (scales is not None and scales.numel() == 3),
+            "cagra_walk: the int8 format needs its 3 scales")
+    expects(max_iterations >= 0, "cagra_walk: max_iterations < 0")
+    tensors = [qp_t, q_sq, table, buf_d, buf_i, visited]
+    if quant:
+        tensors.append(scales)
+    expects(len({x.device for x in tensors}) == 1,
+            "cagra_walk: tensors on different devices")
+    return nq, itopk
+
+
+def cagra_walk_plain(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
+                     search_width: int, max_iterations: int, ip_metric: bool,
+                     quant: bool = False, scales=None,
+                     exit_every: int = EXIT_CHECK_EVERY,
+                     return_hops: bool = False):
+    """Plain PyTorch version: per hop :func:`select_parents`,
+    :func:`expand` and ``cagra_hop_plain``; the all(visited) exit checked
+    every ``exit_every`` hops (0: never — the same result).  With
+    ``return_hops``, also each query's hops before its buffer was all
+    visited (int32)."""
+    pdim = qp_t.shape[1]
+    nq, _ = _check(qp_t, q_sq, table, buf_d, buf_i, visited, deg, pdim,
+                   quant, scales, max_iterations)
+    hops = torch.zeros(nq, dtype=torch.int32, device=buf_d.device)
+    for it in range(max_iterations):
+        if exit_every and it % exit_every == 0 and it and bool(visited.all()):
+            break
+        if return_hops:
+            hops += (~visited.all(1)).int()
+        sel_ids, parent_ok, visited = select_parents(buf_d, buf_i, visited,
+                                                     search_width)
+        nb_p, nb_sq, nb_id = expand(table, sel_ids, parent_ok, deg, pdim,
+                                    quant, scales)
+        buf_d, buf_i, visited = _hop.cagra_hop_plain(
+            qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i, visited,
+            ip_metric=ip_metric)
+    out = (buf_d.float(), buf_i.int(), visited.bool())
+    return out + (hops,) if return_hops else out
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+def cagra_walk(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
+               search_width: int, max_iterations: int, ip_metric: bool,
+               quant: bool = False, scales=None,
+               exit_every: int = EXIT_CHECK_EVERY, return_hops: bool = False
+               ) -> Tuple[torch.Tensor, ...]:
+    """A whole walk: ``(buf_d f32, buf_i int32, visited bool)``, each
+    (nq, itopk), sorted ascending-better (+ the hops of each query with
+    ``return_hops``).
+
+    Args (nq queries): ``qp_t`` (nq, pdim) bf16 table-side query
+    projections (the int8 format's a/127 folded in), ``q_sq`` (nq,) f32,
+    ``table`` (n, W) int16 packed neighborhoods (bf16 format, or int8 with
+    ``quant`` and its ``scales`` (3,) f32), ``deg`` neighbors a row, and
+    the seeded sorted buffer ``buf_d`` / ``buf_i`` / ``visited`` (nq,
+    itopk).  CUDA tensors launch the walk kernel (``exit_every`` does not
+    apply: each query exits when its buffer is all visited); CPU tensors
+    run :func:`cagra_walk_plain`."""
+    kw = dict(deg=deg, search_width=search_width,
+              max_iterations=max_iterations, ip_metric=ip_metric,
+              quant=quant, scales=scales)
+    if not table.is_cuda:
+        return cagra_walk_plain(qp_t, q_sq, table, buf_d, buf_i, visited,
+                                exit_every=exit_every,
+                                return_hops=return_hops, **kw)
+    pdim = qp_t.shape[1]
+    nq, itopk = _check(qp_t, q_sq, table, buf_d, buf_i, visited, deg, pdim,
+                       quant, scales, max_iterations)
+    why = walk_reject_reason(nq, itopk, search_width, deg, pdim, quant)
+    expects(not why, f"cagra_walk: {why}")
+    staged = walk_staged(itopk, search_width, deg, pdim, quant)
+    qp_t = qp_t.to(torch.bfloat16).contiguous()
+    q_sq = q_sq.float().contiguous()
+    table = table.contiguous()
+    buf_d = buf_d.float().contiguous()
+    buf_i = buf_i.int().contiguous()
+    visited = visited.bool().contiguous()
+    sc = scales.float().contiguous() if quant else None
+    out_d = torch.empty_like(buf_d)
+    out_i = torch.empty_like(buf_i)
+    out_v = torch.empty_like(visited)
+    hops = torch.empty(nq, dtype=torch.int32, device=buf_d.device)
+    status = _cuda.library().raft_cagra_walk(
+        qp_t.data_ptr(), q_sq.data_ptr(), table.data_ptr(), table.shape[1],
+        sc.data_ptr() if quant else None, buf_d.data_ptr(), buf_i.data_ptr(),
+        visited.data_ptr(), nq, itopk, search_width, deg, pdim, int(quant),
+        max_iterations, int(ip_metric), int(staged),
+        walk_smem_bytes(itopk, search_width, deg, pdim, quant, staged),
+        out_d.data_ptr(), out_i.data_ptr(), out_v.data_ptr(),
+        hops.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream)
+    _cuda.check(status, "cagra_walk")
+    cagra_walk.launches += 1
+    out = (out_d, out_i, out_v)
+    return out + (hops,) if return_hops else out
+
+
+cagra_walk.launches = 0

@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch import LogicError
-from raft_tpu_torch.neighbors import grouped
+from raft_tpu_torch import DeviceResources, LogicError
+from raft_tpu_torch.neighbors import cagra, grouped
 from raft_tpu_torch.ops import cagra_hop as chop
+from raft_tpu_torch.ops import cagra_walk as cw
 from raft_tpu_torch.ops import fused_l2_nn as fnn
 from raft_tpu_torch.ops import kmeans_update as ku
 from raft_tpu_torch.ops import pair_scan as ps
@@ -946,6 +947,124 @@ def test_cagra_hop_rejects_what_it_cannot_hold(dev):
     args = _hop_inputs(dev, 2, 300, 16, 16, 0)
     with pytest.raises(LogicError, match="itopk=300"):
         chop.cagra_hop(*args, ip_metric=False)
+
+
+def _walk_inputs(dev, nq, itopk, width, deg, pdim, quant, ip, seed,
+                 n=4096, all_visited=False):
+    """A seeded walk over a random graph: the packed table (bf16 or int8)
+    of n random rows, some graph edges masked (-1), the queries' table-side
+    projections and the buffer seeded from 512 random entry points, as
+    ``cagra._search_impl_walk`` seeds it.  (args, keyword args) of
+    ``cagra_walk``."""
+    rng = np.random.default_rng(seed)
+    dim = max(pdim, 16)
+    x = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32)).to(dev)
+    graph = rng.integers(0, n, size=(n, deg)).astype(np.int32)
+    graph[rng.random((n, deg)) < 0.02] = -1
+    graph = torch.from_numpy(graph).to(dev)
+    proj = torch.from_numpy((rng.normal(size=(dim, pdim)) / np.sqrt(dim))
+                            .astype(np.float32)).to(dev)
+    scales = None
+    if quant:
+        table, _, scales = cagra._build_walk_table_q(x, graph, pdim,
+                                                     proj=proj)
+    else:
+        table, _ = cagra._build_walk_table(x, graph, pdim, proj=proj)
+    q = torch.from_numpy(rng.normal(size=(nq, dim)).astype(np.float32)).to(
+        dev)
+    q_sq, qp, qp_t = cagra._query_side(q, proj, quant, scales)
+    eids = torch.from_numpy(rng.permutation(n)[:512].astype(np.int32)).to(dev)
+    eproj, esq, eids = cagra._entry_set_of(x, proj, eids)
+    buf_d, buf_i, vis = cagra._seed_walk(qp, q_sq, eproj, esq, eids, itopk,
+                                         ip)
+    if all_visited:
+        vis[:] = True
+    kw = dict(deg=deg, search_width=width,
+              max_iterations=10 + itopk // width, ip_metric=ip, quant=quant,
+              scales=scales)
+    return (qp_t, q_sq, table, buf_d, buf_i, vis), kw
+
+
+@pytest.mark.parametrize("nq,itopk,width,deg,pdim,quant,ip", [
+    (5000, 64, 2, 32, 16, False, False),    # search, itopk 64, width 2
+    (1, 32, 1, 32, 16, False, False),       # a serving bucket of 1
+    (64, 32, 1, 32, 16, False, False),      # a serving bucket of 64
+    (8192, 96, 1, 64, 16, False, False),    # the build's self-walk chunk
+    (500, 64, 2, 32, 16, True, False),      # the int8 format
+    (300, 64, 2, 32, 16, False, True),      # InnerProduct
+    (300, 32, 1, 32, 16, True, True),       # int8, InnerProduct
+    (77, 24, 1, 32, 13, False, False),      # pdim 13: unaligned neighbors
+    (40, 256, 4, 64, 24, False, False),     # itopk 256 with wd 256
+    (30, 128, 4, 64, 128, False, False),    # staged rows above 48 KB
+    (20, 64, 4, 64, 1024, False, False)])   # rows scored from the table
+def test_cagra_walk_kernel_matches_plain(dev, nq, itopk, width, deg, pdim,
+                                         quant, ip):
+    """The walk kernel: the plain walk's parents, decode, keys, dedupe and
+    merge hop for hop, so keys, ids, visited flags and each query's hop
+    count are equal bit for bit, in one launch."""
+    args, kw = _walk_inputs(dev, nq, itopk, width, deg, pdim, quant, ip,
+                            nq + itopk + pdim)
+    assert cw.walk_staged(itopk, width, deg, pdim, quant) == (pdim < 1024)
+    before = cw.cagra_walk.launches
+    kd, ki, kv, kh = cw.cagra_walk(*args, return_hops=True, **kw)
+    torch.cuda.synchronize()
+    assert cw.cagra_walk.launches == before + 1
+    pd, pi, pv, ph = cw.cagra_walk_plain(*args, return_hops=True, **kw)
+    assert torch.equal(kd, pd)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
+    assert torch.equal(kh, ph)
+    assert bool((kh > 0).all()) and int(kh.max()) <= kw["max_iterations"]
+    fin = torch.isfinite(kd)
+    assert bool((torch.diff(kd, dim=1)[fin[:, 1:]] >= 0).all())
+
+
+def test_cagra_walk_reads_a_table_of_any_width(dev):
+    """Rows of a width off a multiple of 8 lanes have no 16-byte loads: the
+    kernel stages them lane by lane, with the same result."""
+    args, kw = _walk_inputs(dev, 100, 32, 1, 32, 13, False, False, 11)
+    table = args[2][:, :32 * cw.walk_unit(13, False) + 3].contiguous()
+    assert table.shape[1] % 8
+    args = args[:2] + (table,) + args[3:]
+    ours = cw.cagra_walk(*args, return_hops=True, **kw)
+    ref = cw.cagra_walk_plain(*args, return_hops=True, **kw)
+    for a, b in zip(ours, ref):
+        assert torch.equal(a, b)
+
+
+def test_cagra_walk_all_visited_is_a_fixed_point(dev):
+    """A fully visited buffer comes back as it went in, after 0 hops."""
+    args, kw = _walk_inputs(dev, 200, 64, 2, 32, 16, False, False, 3,
+                            all_visited=True)
+    kd, ki, kv, kh = cw.cagra_walk(*args, return_hops=True, **kw)
+    assert torch.equal(kd, args[3]) and torch.equal(ki, args[4])
+    assert torch.equal(kv, args[5]) and int(kh.abs().sum()) == 0
+
+
+def test_cagra_search_is_one_walk_launch(dev):
+    """``cagra.search`` launches the walk kernel once and no hop kernel."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(3000, 32)).astype(np.float32)
+    graph = rng.integers(0, 3000, size=(3000, 16)).astype(np.int32)
+    idx = cagra.index_from_numpy(x, graph, device=dev)
+    sp = cagra.SearchParams(itopk_size=32, search_width=2, walk_pdim=16,
+                            entry_points=256)
+    res = DeviceResources(seed=0)
+    walks, hops = cw.cagra_walk.launches, chop.cagra_hop.launches
+    d, i = cagra.search(res, sp, idx, x[:100], 10)
+    torch.cuda.synchronize()
+    assert cw.cagra_walk.launches == walks + 1
+    assert chop.cagra_hop.launches == hops
+    assert d.shape == (100, 10) and bool((i >= 0).all())
+
+
+def test_cagra_walk_rejects_what_it_cannot_hold(dev):
+    args, kw = _walk_inputs(dev, 2, 300, 1, 16, 16, False, False, 0)
+    with pytest.raises(LogicError, match="itopk=300"):
+        cw.cagra_walk(*args, **kw)
+    args, kw = _walk_inputs(dev, 2, 32, 1, 16, 14, True, False, 0)
+    with pytest.raises(LogicError, match="search_width\\*degree=512"):
+        cw.cagra_walk(*args, **dict(kw, search_width=32))
 
 
 # ---------------------------------------------------------------------------
