@@ -45,7 +45,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    codebook fit's, 65,536 x 2 -> 256, its small-dim kernel, a row of its
    own in the kernels line with the small-dim kernel's launches; each H
    check times a call, the kernel's device time and a TF32-off fp32
-   ``torch.matmul`` of the same product as ``library_ms``).
+   ``torch.matmul`` of the same product as ``library_ms``, a TF32-on one
+   beside it; above dim 16 also the SIMT tile the tensor-core pass
+   replaced, in the same run, and the share of labels equal to its; at
+   the extend's shape and at the hierarchical fits' pass shapes the pass
+   at two and four warpgroups a block, in turns).
 6. IVF-PQ recon mode on the flagship index: ``scan_mode="recon"`` at
    n_probes 96, k 20, refined to k 10 (Kernel G, launches zeroed before,
    read after; pass 1 must be > 0), and Kernel G (``ivf_pq_scan_recon``,
@@ -159,14 +163,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 Bounds use the H100 SXM peaks: 3.35 TB/s of device memory, 989 TFLOP/s
 for bf16 products (Kernels A-E and G multiply bf16 values, the int8 scan
 by way of bf16; C and D's bytes are each probed list's live rows once at
-their packed width + 8), 495 TFLOP/s of TF32 for Kernel F's list-major pass (its
-fp32 products as 3xTF32: three TF32 products of the hi / lo split, so
-three times the operations; the fp32 FFMA time of one product is printed
-beside it, the yardstick of the earlier query-major times) and 67 TFLOP/s of fp32 FFMA for F's query-major route, H and I
-(H: its contract fixes fp32 products, which one TF32 product would round
-to ten mantissa bits; I: its bf16 products are summed one by one in
-dimension order, as its plain version sums them; the walk's bytes are
-each run hop's fat rows once, over the hops its queries ran).
+their packed width + 8), 495 TFLOP/s of TF32 for Kernel F's list-major
+pass and Kernel H above dim 16 (their fp32 products as 3xTF32: three TF32
+products of the hi / lo split, so three times the operations; the fp32
+FFMA time of one product is printed beside it, the yardstick of the
+earlier SIMT and query-major times) and 67 TFLOP/s of fp32 FFMA for F's
+query-major route, H's small-dim kernel and I (I: its bf16 products are
+summed one by one in dimension order, as its plain version sums them; the
+walk's bytes are each run hop's fat rows once, over the hops its queries
+ran).
 """
 
 from __future__ import annotations
@@ -274,8 +279,8 @@ def read_launches():
     return out
 
 
-def h_tile_launches(launches):
-    """Kernel H's SIMT-tile launches in a run: its launches less the
+def h_tf32_launches(launches):
+    """Kernel H's tensor-core launches in a run: its launches less the
     small-dim kernel's."""
     return launches["fused_l2_nn"] - launches["fused_l2_nn_small_dim"]
 
@@ -283,8 +288,8 @@ def h_tile_launches(launches):
 def bound(nbytes, flops, peak=BF16_FLOP_PER_S):
     """(ms, "bytes" | "operations"): the larger of the bytes over the
     memory rate and the operations over their peak (bf16 products by
-    default; TF32 for Kernel F's list-major pass, fp32 FFMA for its
-    query-major route and Kernel H)."""
+    default; TF32 for Kernel F's list-major pass and H's tensor-core pass,
+    fp32 FFMA for F's query-major route and H's small-dim kernel)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                         else "operations")
@@ -392,7 +397,9 @@ def timed_once(fn):
 MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 # measured too where a kernel's check has them
-EXTRA = ("tau", "label_flips", "device_ms", "assign_device_ms",
+EXTRA = ("library_tf32_ms", "yardstick_simt_ms", "yardstick_simt_device_ms",
+         "simt_label_agreement", "block_size_device_ms",
+         "tau", "label_flips", "device_ms", "assign_device_ms",
          "update_device_ms", "grouping_device_ms", "pass1_device_ms",
          "pass2_device_ms", "n_groups", "touched_lists", "pair_buffer_bytes",
          "source", "check_launches", "yardstick_loop_ms", "walk_hops")
@@ -444,16 +451,17 @@ def device_breakdown(label, fn, top=6):
 LIBRARY_OUT_BYTES = 8e9     # largest product a yardstick matmul may write
 
 
-def matmul_ms(a, b):
-    """CUDA-event ms of ``torch.matmul(a, b.T)`` (TF32 off for fp32), the
-    yardstick of a kernel whose product it computes; None when its output
-    would pass ``LIBRARY_OUT_BYTES``."""
+def matmul_ms(a, b, tf32=False):
+    """CUDA-event ms of ``torch.matmul(a, b.T)`` (for fp32: TF32 off, or on
+    with ``tf32``), the yardstick of a kernel whose product it computes;
+    None when its output would pass ``LIBRARY_OUT_BYTES``."""
     import torch
     from raft_tpu_torch.utils import precision
 
     if a.shape[0] * b.shape[0] * a.element_size() > LIBRARY_OUT_BYTES:
         return None
-    with precision.highest():
+    with precision.highest():         # which restores the flag after
+        torch.backends.cuda.matmul.allow_tf32 = tf32
         ms = cuda_ms(lambda: torch.matmul(a, b.T), KERNEL_REPS)
     torch.cuda.empty_cache()
     return ms
@@ -1223,25 +1231,33 @@ def ivf_flat_path(db, queries, truth):
                          device=db.device)[:n_train]
     a_rows, h_rows = hierarchical_checks(
         db[sel], FLAT_FINE_LISTS, "IVF-Flat nlist 16384",
-        fine_launches["kmeans_assign_update"], h_tile_launches(fine_launches))
+        fine_launches["kmeans_assign_update"], h_tf32_launches(fine_launches))
     h_rows.append(h_check(db, fine.centers, f"IVF-Flat nlist 16384 extend: "
                           f"{N_DB:,} x {DIM} -> {FLAT_FINE_LISTS:,}",
-                          h_tile_launches(fine_launches)))
+                          h_tf32_launches(fine_launches)))
     del sel
     torch.cuda.empty_cache()
     return row, a_rows, h_rows, (fine, index)
 
 
-def check_kernel_h(x, y, shape, yardstick):
+def check_kernel_h(x, y, shape, yardstick, block_sizes=False):
     """Kernel H vs plain at one shape: dmin within 1e-5 of the scale ‖x‖²
     + max ‖y‖², each index equal to the plain version's or at a distance
     tie with it (both recomputed directly); its CUDA-event time (wrapper
     included), the device time of the kernel it launched, the plain
-    version's time, the bound (x and y read once, 2·m·n·k fp32
-    operations), a TF32-off fp32 ``torch.matmul`` of the same product as
-    ``library_ms`` (a yardstick: no single call computes min + first
-    argmin) and, with ``yardstick``, the two-call ``torch.cdist(x,
-    y).min(1)``.  At k <= SMALL_DIM the row is the small-dim kernel's."""
+    version's time, the bound (x and y read once; at k > SMALL_DIM the
+    tensor-core pass's 3 · 2·m·n·k TF32 operations, the fp32 FFMA time of
+    one product and the byte time printed beside it; at k <= SMALL_DIM
+    2·m·n·k fp32 operations), a TF32-off fp32 ``torch.matmul`` of the same
+    product as ``library_ms`` (a yardstick: no single call computes min +
+    first argmin) with a TF32-on one (one TF32 product) beside it and,
+    with ``yardstick``, the two-call ``torch.cdist(x, y).min(1)``.  At k >
+    SMALL_DIM the SIMT tile (the k > 16 kernel before the tensor-core
+    pass, ``fused_l2_nn_variant(..., "simt")``) is timed in the same run,
+    and the share of the pass's labels equal to the SIMT tile's printed
+    with the distance gap of the others; with ``block_sizes``, the pass at
+    two and at four warpgroups a block, in turns.  At k <= SMALL_DIM the
+    row is the small-dim kernel's."""
     import torch
     from raft_tpu_torch.ops import fused_l2_nn as fnn
     from raft_tpu_torch.utils import precision
@@ -1251,46 +1267,92 @@ def check_kernel_h(x, y, shape, yardstick):
     scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
     err = float((dk - dp).abs().max())
     assert err <= 1e-5 * scale, f"fused_l2_nn at {shape}: dmin off by {err}"
-    gap = (((x - y[ik.long()]) ** 2).sum(1)
-           - ((x - y[ip.long()]) ** 2).sum(1)).abs()
+
+    def dist(i):
+        return ((x - y[i.long()]) ** 2).sum(1)
+
+    gap = (dist(ik) - dist(ip)).abs()
     assert bool(((ik == ip) | (gap <= 1e-5 * scale)).all()), (
         f"fused_l2_nn at {shape}: an index off a distance tie")
     same = float((ik == ip).float().mean())
     (m, k), n = x.shape, y.shape[0]
     small = k <= fnn.SMALL_DIM
+    kernel = "small_dim_kernel" if small else "nn_tf32_kernel"
     ms = cuda_ms(lambda: fnn.fused_l2_nn(x, y), KERNEL_REPS)
-    dev_ms = device_ms(lambda: fnn.fused_l2_nn(x, y), KERNEL_REPS,
-                       "small_dim_kernel" if small else "nn_kernel")
+    dev_ms = device_ms(lambda: fnn.fused_l2_nn(x, y), KERNEL_REPS, kernel)
     flops = 2.0 * m * n * k
-    bound_ms, bound_by = bound((m + n) * k * 4 + m * 8, flops,
-                               FP32_FLOP_PER_S)
+    nbytes = (m + n) * k * 4 + m * 8
+    if small:
+        bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+    else:
+        bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
     lib_ms = matmul_ms(x, y)
+    lib_tf32_ms = matmul_ms(x, y, tf32=True)
     yard_ms = None
     if yardstick:
         with precision.highest():
             yard_ms = cuda_ms(lambda: torch.cdist(x, y).min(1), KERNEL_REPS)
+    row = {"name": "fused_l2_nn_small_dim" if small else "fused_l2_nn",
+           "route": "cuda", "source": "raft_tpu_torch/csrc/fused_l2_nn.cu",
+           "replaces": "raft_tpu/ops/fused_l2_nn_pallas.py:65",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+           "library_tf32_ms": lib_tf32_ms, "device_ms": dev_ms,
+           "yardstick_cdist_min_ms": yard_ms, "shape": shape}
     print(f"fused_l2_nn{' small-dim' if small else ''} at {shape}: max "
           f"|dmin err| {err} (scale {scale:.1f}), indices equal at "
           f"{same:.6f} (others at ties); {ms:.3f} ms a call, kernel "
           f"{dev_ms:.4f} ms on the device ({flops / dev_ms / 1e9:.1f} "
-          f"TFLOP/s), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}); fp32 matmul "
-          f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}; cdist+min "
-          f"yardstick {yard_ms if yard_ms is None else round(yard_ms, 3)} ms",
+          f"TFLOP/s of one product), plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}"
+          + ("" if small else
+             f"; 3xTF32 {3e3 * flops / TF32_FLOP_PER_S:.4f} ms, fp32 FFMA "
+             f"{1e3 * flops / FP32_FLOP_PER_S:.4f} ms, bytes "
+             f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms")
+          + f"); fp32 matmul "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'} (TF32 on: "
+          f"{'n/a' if lib_tf32_ms is None else f'{lib_tf32_ms:.3f} ms'}); "
+          f"cdist+min yardstick "
+          f"{yard_ms if yard_ms is None else round(yard_ms, 3)} ms",
           flush=True)
-    return {"name": "fused_l2_nn_small_dim" if small else "fused_l2_nn",
-            "route": "cuda", "source": "raft_tpu_torch/csrc/fused_l2_nn.cu",
-            "replaces": "raft_tpu/ops/fused_l2_nn_pallas.py:65",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "device_ms": dev_ms, "yardstick_cdist_min_ms": yard_ms,
-            "shape": shape}
+    if small:
+        return row
+    # the same-run yardstick: the SIMT tile the tensor-core pass replaced
+    _, i_simt = fnn.fused_l2_nn_variant(x, y, "simt")
+    simt_ms = cuda_ms(lambda: fnn.fused_l2_nn_variant(x, y, "simt"),
+                      KERNEL_REPS)
+    simt_dev = device_ms(lambda: fnn.fused_l2_nn_variant(x, y, "simt"),
+                         KERNEL_REPS, "nn_kernel")
+    differ = ik != i_simt
+    gaps = ((dist(ik) - dist(i_simt)).abs() / scale)[differ]
+    agree = 1.0 - float(differ.double().mean())
+    row.update(yardstick_simt_ms=simt_ms, yardstick_simt_device_ms=simt_dev,
+               simt_label_agreement=agree)
+    listed = sorted(gaps.tolist(), reverse=True)[:20]
+    print(f"  SIMT tile yardstick: {simt_ms:.3f} ms a call, "
+          f"{simt_dev:.4f} ms on the device (the pass {simt_dev / dev_ms:.2f}x"
+          f" faster); labels equal to the SIMT tile's at {agree:.7f} "
+          f"({int(differ.sum())} differ; their distance gap / scale, "
+          f"largest first: {', '.join(f'{g:.2e}' for g in listed) or '-'})",
+          flush=True)
+    if block_sizes:
+        times = {}
+        for variant in ("tf32 2 warpgroups", "tf32 4 warpgroups",
+                        "tf32 4 warpgroups", "tf32 2 warpgroups"):
+            times.setdefault(variant, []).append(device_ms(
+                lambda: fnn.fused_l2_nn_variant(x, y, variant), KERNEL_REPS,
+                kernel))
+        row["block_size_device_ms"] = times
+        print(f"  block sizes in turns (device ms): {json.dumps(times)}",
+              flush=True)
+    return row
 
 
-def h_check(x, y, shape, launches):
+def h_check(x, y, shape, launches, block_sizes=False):
     """Kernel H vs plain at one more shape a path gives it, as an
     ``also_checked`` entry."""
-    return at_shape(check_kernel_h(x, y, shape, False), shape, launches)
+    return at_shape(check_kernel_h(x, y, shape, False, block_sizes), shape,
+                    launches)
 
 
 def hierarchical_checks(train, n_clusters, label, a_launches, h_launches):
@@ -1314,7 +1376,8 @@ def hierarchical_checks(train, n_clusters, label, a_launches, h_launches):
         c0 = _strided_init(rows, k)
         a_rows.append(at_shape(check_kernel_a(rows, c0, shape), shape,
                                a_launches))
-        h_rows.append(h_check(rows, c0, shape, h_launches))
+        h_rows.append(h_check(rows, c0, shape, h_launches,
+                              block_sizes=True))
     return a_rows, h_rows
 
 
@@ -1386,7 +1449,7 @@ def kmeans_path(db):
         1e-5 * inertia), "k-means: predict's inertia is not the fit's"
     row = check_kernel_h(db, centroids,
                          f"1,000,000 x 128 -> {KMEANS_CLUSTERS:,}", True)
-    row["launches"] = h_tile_launches(launches)
+    row["launches"] = h_tf32_launches(launches)
     row["also_checked"] = [h_check(
         db[:NN_ROWS], db[NN_ROWS:2 * NN_ROWS],
         f"{NN_ROWS:,} x 128 -> {NN_ROWS:,} (BASELINE config 2)", 0)]
@@ -1936,7 +1999,7 @@ def deep_path(dev):
     del sel
     a_deep, h_deep = hierarchical_checks(
         train, DEEP_LISTS, "deep", build_launches["kmeans_assign_update"],
-        h_tile_launches(build_launches))
+        h_tf32_launches(build_launches))
     del train
     book = codebook_h_check(index, db, "deep")
     hs_deep = at_shape(book, book["shape"],
@@ -2553,6 +2616,16 @@ def main() -> int:
     phase("build kernels")
     _cuda.library()
     print(f"build: {_cuda.build_seconds:.1f} s", flush=True)
+    for kernel, regs, stores, loads in _cuda.ptxas_usage(
+            "fused_l2_nn.cu", "nn_tf32_kernel"):
+        print(f"ptxas: {kernel}: {regs} registers, spill stores {stores} "
+              f"B, spill loads {loads} B", flush=True)
+    # C7519: ptxas fenced a wgmma's accumulators to let other code use
+    # their registers (it serializes the products)
+    print("ptxas C7519 remarks: " + ", ".join(
+        f"{src} {_cuda.build_logs.get(src, '').count('C7519')}"
+        for src in ("fused_l2_nn.cu", "kmeans_update.cu",
+                    "flat_list_scan.cu")), flush=True)
     validator_first_call(torch.device("cuda", 0))
 
     dev = torch.device("cuda", 0)
@@ -2635,7 +2708,7 @@ def main() -> int:
     phase("kernel H vs plain at the flagship build's shapes")
     h_more = [h_check(db @ index.rotation, index.centers,
                       f"flagship extend: {N_DB:,} x {DIM} -> {N_LISTS:,}",
-                      h_tile_launches(launches))]
+                      h_tf32_launches(launches), block_sizes=True)]
     row_hs = dict(codebook_h_check(index, db, "flagship"),
                   launches=launches["fused_l2_nn_small_dim"])
     assert row_hs["launches"] > 0, (

@@ -97,31 +97,6 @@ struct FlatLayout {
       total;
 };
 
-// fp32 dims [d, d + 4) of a row, zeros when !ok and past dim: one 16-byte
-// load where kVec (dim % 4 == 0 and the row 16-byte aligned), else one
-// load a value
-template <bool kVec>
-__device__ __forceinline__ float4 row_chunk(const float* row, int d, int dim,
-                                            bool ok) {
-  if (!ok || d >= dim) return make_float4(0.f, 0.f, 0.f, 0.f);
-  if constexpr (kVec) return __ldg(reinterpret_cast<const float4*>(row + d));
-  return make_float4(__ldg(row + d), d + 1 < dim ? __ldg(row + d + 1) : 0.f,
-                     d + 2 < dim ? __ldg(row + d + 2) : 0.f,
-                     d + 3 < dim ? __ldg(row + d + 3) : 0.f);
-}
-
-// a chunk's TF32 hi parts at shared address hi, its lo parts at lo
-__device__ __forceinline__ void store_split(uint32_t hi, uint32_t lo,
-                                            float4 v) {
-  uint4 h, l;
-  tf32_split(v.x, h.x, l.x);
-  tf32_split(v.y, h.y, l.y);
-  tf32_split(v.z, h.z, l.z);
-  tf32_split(v.w, h.w, l.w);
-  st_shared16(hi, h);
-  st_shared16(lo, l);
-}
-
 // a row's distance from its product and key (+inf: never kept)
 __device__ __forceinline__ float row_distance(float dot, float key,
                                               float q_sq, int ip) {
@@ -131,7 +106,7 @@ __device__ __forceinline__ float row_distance(float dot, float key,
 
 // E: a row's top-kt entries a lane holds while it is folded, 1 for kt <=
 // 32, else 2; kResident: the layout keeps the queries resident; kVec: the
-// operands load 16 bytes at a time (row_chunk)
+// operands load 16 bytes at a time (wgmma_tile.cuh's row_chunk)
 template <int E, bool kResident, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
 flat_list_scan_kernel(const float* __restrict__ queries,

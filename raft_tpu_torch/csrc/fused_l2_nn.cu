@@ -3,38 +3,49 @@
 // Replaces raft_tpu/ops/fused_l2_nn_pallas.py:65 fused_l2_nn_pallas (body
 // _kernel), the reference's fusedL2NN.  Contract, for x (m, k) and y
 // (n, k) fp32:
-//   d[i, j] = max(x_sq[i] + y_sq[j] - 2 x[i] . y[j], 0)   fp32 products
+//   d[i, j] = max(x_sq[i] + y_sq[j] - 2 x[i] . y[j], 0)
 //   dmin[i] = min_j d[i, j]   (sqrt(dmin) when asked)
 //   idx[i]  = the FIRST j reaching that minimum
-// The (m, n) matrix is never written.  The TPU kernel pads y to its tile
-// with +3.0e38 norms; here every edge is bounds-checked instead.
+// with x_sq and y_sq fp32 sums.  The (m, n) matrix is never written.  The
+// TPU kernel pads y to its tile with +3.0e38 norms; here every edge is
+// bounds-checked instead.  The TPU kernel's product is a dot at the
+// library's precision, Precision.HIGHEST by default: an fp32-accurate
+// multi-pass product summed in the MXU's own order, not a sequential fp32
+// sum.
 //
-// What bounds it on an H100: operations — 2*m*n*k fp32 multiply-adds
-// (0.27 TFLOP at 1,000,000 x 1,024 x 128) against (m + n)*k*4 bytes.
-// Plain fp32 FMAs, not TF32 tensor cores: TF32 keeps ten mantissa bits of
-// each factor and would change the rounding of every distance, so the
-// bound is the fp32 peak (67 TFLOP/s).  Two kernels, which the wrapper
-// (ops/fused_l2_nn.py, SMALL_DIM) picks by k alone:
-//   k > kSmallDim: csrc/nn_tile.cuh's register-tiled SIMT pass: 128 x 128
-//     tiles, 8 x 8 accumulators a thread summed in dimension order, y
-//     streamed through shared memory 32 dimensions a stage, a running
-//     (min, first index) per row in registers, a lexicographic (distance,
-//     index) reduce across the 16 threads of a row;
+// What bounds it on an H100: operations — 2*m*n*k fp32-accurate
+// multiply-adds (1.05 TFLOP at 1,000,000 x 4,096 x 128) against
+// (m + n)*k*4 bytes.  Two kernels, which the wrapper (ops/fused_l2_nn.py,
+// SMALL_DIM) picks by k alone:
+//   k > kSmallDim: csrc/nn_tile_tf32.cuh's pass on the TF32 tensor cores
+//     as 3xTF32 (three TF32 products of a hi / lo split, 495 TFLOP/s
+//     each): 128 or 256 rows of x a block split once into hi and lo
+//     (kept in shared memory where they fit), y streamed 128 rows x 32
+//     dims a step, the (min, first index) folded on the wgmma
+//     accumulator fragment.  It agrees with the plain
+//     version within ~1.5 2^-20 (|x|^2 + |y|^2), an index at a near-tie;
 //   k <= kSmallDim (the IVF-PQ codebook fits: 65,536 x 2 -> 256): a
 //     32-dimension stage would be mostly zeros, so one thread holds one
 //     x row in registers, y streams through shared memory as whole rows
 //     (read by every thread at once, a broadcast), and the thread sweeps
-//     the rows of y in increasing order.  The bound there is under 2 us;
-//     the launch is the floor.
-// Both compute the same expression in the same order — acc = fmaf(x_j,
-// y_j, acc) for j = 0..k-1 from 0, d = fmaxf(x_sq + y_sq - 2 acc, 0), a
-// strict < for the first index — so both agree with the plain version,
-// whose fp32 product sums in dimension order too, bit for bit.
+//     the rows of y in increasing order in plain fp32 FMAs.  The bound
+//     there is under 2 us; the launch is the floor.
+// csrc/nn_tile.cuh's register-tiled SIMT pass, the k > kSmallDim kernel
+// before the tensor-core one, stays as a C entry point that no wrapper
+// takes: the same-run yardstick (raft_fused_l2_nn_simt).  The small-dim
+// kernel and the SIMT pass compute the same expression in the same order
+// — acc = fmaf(x_j, y_j, acc) for j = 0..k-1 from 0, d = fmaxf(x_sq +
+// y_sq - 2 acc, 0), a strict < for the first index — so both agree with
+// the plain version, whose fp32 product sums in dimension order too, bit
+// for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+#include <string.h>
 
 #include "nn_tile.cuh"
+#include "nn_tile_tf32.cuh"
 
 namespace {
 
@@ -105,11 +116,49 @@ constexpr SmallLaunch kSmall[kSmallDim] = {
 
 }  // namespace
 
-// the SIMT tile, any k
+// the tensor-core pass (3xTF32), any k >= 1: warpgroups (2 or 4) a
+// block of 64 rows each; layout: the block's shared-memory layout for (k,
+// warpgroups), 6 host ints in NnLayout's order, from ops/fused_l2_nn.py's
+// nn_tf32_layout
 extern "C" int raft_fused_l2_nn(const void* x, const void* y,
                                 const void* x_sq, const void* y_sq, int m,
-                                int n, int k, int take_sqrt, void* dmin,
-                                void* idx, void* stream) {
+                                int n, int k, int take_sqrt, int warpgroups,
+                                const void* layout, void* dmin, void* idx,
+                                void* stream) {
+  using raft_mma::NnLayout;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  NnLayout L;
+  memcpy(&L, layout, sizeof L);
+  if (n < 1 || k < 1 || (warpgroups != 2 && warpgroups != 4)
+      || !raft_mma::nn_layout_ok(L, warpgroups, k))
+    return (int)cudaErrorInvalidValue;
+  if (m == 0) return (int)cudaGetLastError();
+  auto xf = static_cast<const float*>(x);
+  auto yf = static_cast<const float*>(y);
+  auto xq = static_cast<const float*>(x_sq);
+  auto yq = static_cast<const float*>(y_sq);
+  auto dm = static_cast<float*>(dmin);
+  auto ix = static_cast<int*>(idx);
+  const bool vec = k % 4 == 0 && ((uintptr_t)x & 15) == 0
+                   && ((uintptr_t)y & 15) == 0;
+#define RAFT_NN_LAUNCH(WG, RES, VEC)                                         \
+  raft_mma::launch_nn_tf32<WG, RES, VEC>(xf, yf, xq, yq, m, n, k, take_sqrt, \
+                                         L, dm, ix, s)
+#define RAFT_NN_LAUNCH_WG(WG)                                                \
+  (L.resident ? (vec ? RAFT_NN_LAUNCH(WG, true, true)                       \
+                     : RAFT_NN_LAUNCH(WG, true, false))                     \
+              : (vec ? RAFT_NN_LAUNCH(WG, false, true)                      \
+                     : RAFT_NN_LAUNCH(WG, false, false)))
+  return (int)(warpgroups == 2 ? RAFT_NN_LAUNCH_WG(2) : RAFT_NN_LAUNCH_WG(4));
+#undef RAFT_NN_LAUNCH_WG
+#undef RAFT_NN_LAUNCH
+}
+
+// the SIMT pass, any k: the yardstick no wrapper takes
+extern "C" int raft_fused_l2_nn_simt(const void* x, const void* y,
+                                     const void* x_sq, const void* y_sq,
+                                     int m, int n, int k, int take_sqrt,
+                                     void* dmin, void* idx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1 || k < 1) return (int)cudaErrorInvalidValue;
   if (m > 0)

@@ -1,5 +1,7 @@
-// Kernel H's register-tiled SIMT pass (fused_l2_nn.cu, dim > 16): for
-// each row of x, the minimum over the rows of y of
+// Kernel H's register-tiled SIMT pass, the k > 16 kernel before the
+// tensor-core one (nn_tile_tf32.cuh): no wrapper takes it any more; it
+// stays as fused_l2_nn.cu's raft_fused_l2_nn_simt, the same-run yardstick.
+// For each row of x, the minimum over the rows of y of
 // d = max(x_sq[r] + y_sq[c] - 2 x . y, 0) and the FIRST index reaching
 // it, without ever writing the (m, n) matrix.
 //
@@ -7,16 +9,15 @@
 // BN rows through shared memory, BK dimensions a stage; each thread keeps
 // TM x TN accumulators (rows ty + 16 i, columns tx + 16 j) in registers.
 // Each accumulator sums its products in dimension order 0..dim-1 in plain
-// fp32 FMAs, not TF32 tensor cores (the contract fixes fp32 products), so
-// a plain version that accumulates in the same order reproduces it bit
-// for bit.  After each y tile a thread folds its columns into a running
-// (min, first index) per row with a strict < in increasing column order;
-// the 16 threads sharing a row then reduce by (distance, index)
-// lexicographically.  Rows and columns past the edges are bounds-checked:
-// staged as zeros (adding 0*0 leaves a sum unchanged) and never folded
-// in.  What bounds it: fp32 FMAs at 67 TFLOP/s.  At dim <= 16 a BK = 32
-// stage is mostly zeros, so fused_l2_nn.cu sends those shapes to its
-// small-dim kernel instead.
+// fp32 FMAs, so a plain version that accumulates in the same order
+// reproduces it bit for bit (the contract does not ask for that: the
+// reference's product is a dot at Precision.HIGHEST).  After each y
+// tile a thread folds its columns into a running (min, first index) per
+// row with a strict < in increasing column order; the 16 threads sharing
+// a row then reduce by (distance, index) lexicographically.  Rows and
+// columns past the edges are bounds-checked: staged as zeros (adding 0*0
+// leaves a sum unchanged) and never folded in.  What bounds it: fp32 FMAs
+// at 67 TFLOP/s.
 
 #pragma once
 

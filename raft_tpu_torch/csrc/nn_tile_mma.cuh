@@ -96,22 +96,72 @@ __host__ __device__ inline Layout layout(int wg, int kc, bool resident,
   return L;
 }
 
+// c_sq of centroids [col, col + 4) as the bits st_shared16 stores; +inf
+// past k
+__device__ __forceinline__ uint4 csq_quad(const float* __restrict__ c_sq,
+                                          int col, int k) {
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = col + i < k ? c_sq[col + i] : INFINITY;
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+
 // c_sq of centroids [c0, c0 + 128) at dst; +inf past k
 __device__ __forceinline__ void stage_csq(uint32_t dst,
                                           const float* __restrict__ c_sq,
                                           int c0, int k, bool vec, int tid) {
   if (tid >= BN / 4) return;
   const int col = c0 + 4 * tid;
-  if (vec && col + 3 < k) {
+  if (vec && col + 3 < k)
     cp_async16(dst + 16 * tid, c_sq + col, 16);
-  } else {
-    float v[4];
+  else
+    st_shared16(dst + 16 * tid, csq_quad(c_sq, col, k));
+}
+
+// The epilogue of one centroid tile [c0, c0 + 128) on a warpgroup's
+// accumulator fragment: this thread's rows r and r + 8 (h = 0, 1) take
+// d = dist(cs[col - c0], acc, h) at its columns 8 j + 2 (lane % 4) + {0,
+// 1}, in increasing order, into a running (min, first index) with a
+// strict <; cs holds the tile's c_sq (+inf past the edge, never kept).
+// kArg: keep the index too.
+template <bool kArg, class Dist>
+__device__ __forceinline__ void fold_fragment(const float (&acc)[kAccs],
+                                              const float* cs, int c0,
+                                              int quad, float (&best)[2],
+                                              int (&best_idx)[2], Dist dist) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = col + i < k ? c_sq[col + i] : INFINITY;
-    st_shared16(dst + 16 * tid, make_uint4(__float_as_uint(v[0]),
-                                           __float_as_uint(v[1]),
-                                           __float_as_uint(v[2]),
-                                           __float_as_uint(v[3])));
+  for (int j = 0; j < 16; ++j) {
+    const float2 q2 =
+        *reinterpret_cast<const float2*>(cs + 8 * j + 2 * quad);
+    const int col = c0 + 8 * j + 2 * quad;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float d0 = dist(q2.x, acc[4 * j + 2 * h], h);
+      const float d1 = dist(q2.y, acc[4 * j + 2 * h + 1], h);
+      if (d0 < best[h]) {
+        best[h] = d0;
+        if constexpr (kArg) best_idx[h] = col;
+      }
+      if (d1 < best[h]) {
+        best[h] = d1;
+        if constexpr (kArg) best_idx[h] = col + 1;
+      }
+    }
+  }
+}
+
+// merge the 4 threads sharing a fragment row: smaller value wins, equal
+// values go to the smaller index
+__device__ __forceinline__ void reduce_quad(float& v, int& id) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, id, off);
+    if (ov < v || (ov == v && oi < id)) {
+      v = ov;
+      id = oi;
+    }
   }
 }
 
@@ -219,34 +269,23 @@ assign_kernel(const __nv_bfloat16* __restrict__ x,
       }
       continue;
     } else {
-      float colsum[32];   // kCutMxuOnly: this thread's rows, per column
+      fold_fragment<kArg>(acc, cs, c0, quad, best, best_idx,
+                          [](float q, float a, int) { return q - 2.f * a; });
+      if constexpr (kCut == kCutMxuOnly) {
+        float colsum[32];   // this thread's rows, per column
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float2 q2 = *reinterpret_cast<const float2*>(cs + 8 * j
-                                                           + 2 * quad);
-        const int col = c0 + 8 * j + 2 * quad;
-        colsum[2 * j] = colsum[2 * j + 1] = 0.f;
+        for (int j = 0; j < 16; ++j) {
+          const float2 q2 = *reinterpret_cast<const float2*>(cs + 8 * j
+                                                             + 2 * quad);
+          colsum[2 * j] = colsum[2 * j + 1] = 0.f;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float d0 = q2.x - 2.f * acc[4 * j + 2 * h];
-          const float d1 = q2.y - 2.f * acc[4 * j + 2 * h + 1];
-          if constexpr (kCut == kCutMxuOnly) {
+          for (int h = 0; h < 2; ++h) {
             if (row_ok[h]) {
-              colsum[2 * j] += d0;
-              colsum[2 * j + 1] += d1;
+              colsum[2 * j] += q2.x - 2.f * acc[4 * j + 2 * h];
+              colsum[2 * j + 1] += q2.y - 2.f * acc[4 * j + 2 * h + 1];
             }
           }
-          if (d0 < best[h]) {
-            best[h] = d0;
-            if constexpr (kArg) best_idx[h] = col;
-          }
-          if (d1 < best[h]) {
-            best[h] = d1;
-            if constexpr (kArg) best_idx[h] = col + 1;
-          }
         }
-      }
-      if constexpr (kCut == kCutMxuOnly) {
         // the 8 row lanes of each column in the warp, then the block's
         // warps through shared memory (free until the next step's loads)
         float* red = reinterpret_cast<float*>(base + L.red);
@@ -282,23 +321,12 @@ assign_kernel(const __nv_bfloat16* __restrict__ x,
     if (lane == 0) aux[blockIdx.x * (4 * WG) + warp] = chk;
   }
   unsigned long long lsum = 0;   // kCutMmArgmin: this lane's labels
-  // merge the 4 threads sharing each row: smaller value wins, equal
-  // values go to the smaller index
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float v = best[h];
     int id = best_idx[h];
-    if constexpr (kCut != kCutMm) {      // kCutMm: d[r, 0] is in quad 0
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, id, off);
-        if (ov < v || (ov == v && oi < id)) {
-          v = ov;
-          id = oi;
-        }
-      }
-    }
+    // kCutMm: d[r, 0] is in quad 0
+    if constexpr (kCut != kCutMm) reduce_quad(v, id);
     const int r = row0 + rloc + 8 * h;
     if (quad == 0 && r < n) {
       if constexpr (kArg) labels[r] = id;

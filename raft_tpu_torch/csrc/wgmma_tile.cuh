@@ -1,12 +1,12 @@
-// The Hopper tensor-core pieces Kernels A, B, F and G share: the wgmma
-// m64n128k16 bf16 -> fp32 product (A, B, G) and the m64n128k8 TF32 one
-// with the hi / lo split of 3xTF32 (F) with their accumulator fragment,
-// the shared-memory descriptor of a K-major operand in 128-byte swizzle
-// atoms, the swizzled staging of bf16 rows by cp.async, and the fences
-// between the generic and the async proxy.  Descriptors and swizzle are
-// built by hand (no CUTLASS).  The byte layout is the same for both
-// types: an atom is 8 rows of 128 bytes (64 bf16 or 32 fp32 dims), and a
-// k-step (k16 bf16, k8 TF32) is 32 bytes of it.
+// The Hopper tensor-core pieces Kernels A-H share: the wgmma m64n128k16
+// bf16 -> fp32 product (A-E, G) and the m64n128k8 TF32 one with the hi /
+// lo split of 3xTF32 and its fp32 row loads (F, H) with their accumulator
+// fragment, the shared-memory descriptor of a K-major operand in 128-byte
+// swizzle atoms, the swizzled staging of bf16 rows by cp.async, and the
+// fences between the generic and the async proxy.  Descriptors and
+// swizzle are built by hand (no CUTLASS).  The byte layout is the same
+// for both types: an atom is 8 rows of 128 bytes (64 bf16 or 32 fp32
+// dims), and a k-step (k16 bf16, k8 TF32) is 32 bytes of it.
 //
 // Fragment of one warpgroup's 64 x 128 fp32 accumulator (kAccs = 64 a
 // thread): warp w of the warpgroup holds rows 16 (w % 4) + lane / 4 and
@@ -180,6 +180,31 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_bits(x);
   lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+// fp32 dims [d, d + 4) of a row, zeros when !ok and past dim: one 16-byte
+// load where kVec (dim % 4 == 0 and the row 16-byte aligned), else one
+// load a value
+template <bool kVec>
+__device__ __forceinline__ float4 row_chunk(const float* row, int d, int dim,
+                                            bool ok) {
+  if (!ok || d >= dim) return make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kVec) return __ldg(reinterpret_cast<const float4*>(row + d));
+  return make_float4(__ldg(row + d), d + 1 < dim ? __ldg(row + d + 1) : 0.f,
+                     d + 2 < dim ? __ldg(row + d + 2) : 0.f,
+                     d + 3 < dim ? __ldg(row + d + 3) : 0.f);
+}
+
+// a chunk's TF32 hi parts at shared address hi, its lo parts at lo
+__device__ __forceinline__ void store_split(uint32_t hi, uint32_t lo,
+                                            float4 v) {
+  uint4 h, l;
+  tf32_split(v.x, h.x, l.x);
+  tf32_split(v.y, h.y, l.y);
+  tf32_split(v.z, h.z, l.z);
+  tf32_split(v.w, h.w, l.w);
+  st_shared16(hi, h);
+  st_shared16(lo, l);
 }
 
 // byte offset of 16-byte chunk kg (dims 8 kg .. 8 kg + 7) of row r in a

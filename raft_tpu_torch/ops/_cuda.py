@@ -7,6 +7,9 @@ objects into ONE shared library under ``build/raft_tpu_torch/`` (listed in
 carries a hash of the sources and flags, so a changed source builds anew
 and an unchanged one loads the library already built.
 
+Each source's compiler output is kept in :data:`build_logs`; ``-Xptxas
+-v`` puts every kernel's registers and spills there (:func:`ptxas_usage`).
+
 The sources expose a plain C interface (no PyTorch headers, which would
 take minutes to compile): pointers, ints and the CUDA stream go in as
 ``ctypes`` arguments, and every entry point returns ``cudaGetLastError()``,
@@ -19,17 +22,18 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
 import time
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "raft_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,7 +71,9 @@ SIGNATURES = {
     "raft_pair_scan_variant": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _I, _P, _P, _P),
     "raft_row_gather": (_P, _P, _I, _I, _I, _P, _P),
-    "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                         _P),
+    "raft_fused_l2_nn_simt": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "raft_fused_l2_nn_small_dim": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                                    _P),
     "raft_cagra_hop": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -78,6 +84,8 @@ SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
+# source file name -> nvcc's output, for the sources this process built
+build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -121,6 +129,7 @@ def _build(out: pathlib.Path, sources) -> None:
         failed = []
         for src, proc in procs:
             log, _ = proc.communicate()
+            build_logs[src.name] = log.decode(errors="replace")
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{log.decode(errors='replace')}")
         if failed:
@@ -162,3 +171,27 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = library().raft_cuda_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status}: {msg}")
+
+
+def ptxas_usage(source: str, name: str) -> List[Tuple[str, int, int, int]]:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of each
+    kernel of ``source`` whose mangled name holds ``name``, from ptxas's
+    report in :data:`build_logs`; empty where this process loaded a
+    library built before."""
+    out, kernel, spills = [], None, (0, 0)
+    for line in build_logs.get(source, "").splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            kernel = found.group(1)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found:
+            spills = (int(found.group(1)), int(found.group(2)))
+            continue
+        found = re.search(r"Used (\d+) registers", line)
+        if found and kernel is not None:
+            if name in kernel:
+                out.append((kernel, int(found.group(1)), *spills))
+            kernel, spills = None, (0, 0)
+    return out

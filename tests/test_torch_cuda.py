@@ -791,44 +791,121 @@ def test_list_major_scans_split_a_hot_list_across_groups(dev, kernel):
     _assert_kernel_matches_plain(vk, ik, vp, ip)
 
 
-@pytest.mark.parametrize("m,n,k,sqrt", [(1000, 1024, 128, False),
-                                        (333, 37, 50, True),
-                                        (4096, 8192, 96, False),
-                                        (70, 3, 2, False), (5, 300, 1000, True)])
-def test_fused_l2_nn_kernel_matches_plain(dev, m, n, k, sqrt):
-    """Kernel H: dmin within 1e-5 of ‖x‖² + max ‖y‖²; the index equal to
-    the plain version's or at a distance tie with it; a duplicated y row
-    resolves to its first copy."""
-    rng = np.random.default_rng(m + n + k)
-    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
-    y = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(dev)
-    if n > 5:
-        y[n - 1] = y[1]                # two equal rows: index 1 must win
-        x[0] = y[1] + 1e-3
-    before = fnn.fused_l2_nn.launches
-    dk, ik = fnn.fused_l2_nn(x, y, sqrt)
-    torch.cuda.synchronize()
-    assert fnn.fused_l2_nn.launches == before + 1
+def _assert_nn_matches_plain(x, y, dk, ik, sqrt=False):
+    """Kernel H's tensor-core pass against the plain version: dmin within
+    1e-5 of ‖x‖² + max ‖y‖² (3xTF32 products summed in the tensor core's
+    order), each index equal to the plain version's or at a distance tie
+    with it (both recomputed directly)."""
     dp, ip = fnn.fused_l2_nn_plain(x, y, sqrt)
     d2k, d2p = (dk ** 2, dp ** 2) if sqrt else (dk, dp)
+    if x.shape[0] == 0:
+        assert dk.shape == ik.shape == (0,)
+        return
     scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
     torch.testing.assert_close(d2k, d2p, rtol=0, atol=1e-5 * scale)
-    yk = y[ik.long()]
-    dist_k = ((x - yk) ** 2).sum(1)
+    dist_k = ((x - y[ik.long()]) ** 2).sum(1)
     dist_p = ((x - y[ip.long()]) ** 2).sum(1)
     assert bool(((ik == ip) | ((dist_k - dist_p).abs() <= 1e-5 * scale))
                 .all())
-    if n > 5:
+
+
+def _nn_inputs(dev, m, n, k, dup):
+    """x (m, k), y (n, k) from a seed; with ``dup``, y[1] repeated as the
+    last row and x[0] = y[1] + 1e-3, so index 1 must win."""
+    rng = np.random.default_rng(m + n + k)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(dev)
+    if dup and n > 5 and m > 0:
+        y[n - 1] = y[1]
+        x[0] = y[1] + 1e-3
+    return x, y
+
+
+@pytest.mark.parametrize("m,n,k,sqrt", [(1000, 1024, 128, False),
+                                        (333, 37, 50, True),
+                                        (4096, 8192, 96, False),
+                                        (70, 3, 2, False), (5, 300, 1000, True),
+                                        (257, 129, 17, False),
+                                        (129, 200, 25, True),
+                                        (1000, 130, 129, True),
+                                        (300, 1, 129, False),
+                                        (0, 50, 128, False),
+                                        (3001, 4095, 128, False),
+                                        (200, 300, 1000, False)])
+def test_fused_l2_nn_kernel_matches_plain(dev, m, n, k, sqrt):
+    """Kernel H: at k > 16 the tensor-core pass (and not the small-dim
+    kernel) launches once, dmin within 1e-5 of ‖x‖² + max ‖y‖², the index
+    equal to the plain version's or at a distance tie with it; a
+    duplicated y row resolves to its first copy.  Dims 17-1000 (x resident
+    up to 160, streamed above), m and n off multiples of 128, n = 1 and m
+    = 0."""
+    x, y = _nn_inputs(dev, m, n, k, True)
+    before = fnn.fused_l2_nn.launches
+    small = fnn.fused_l2_nn.small_dim_launches
+    dk, ik = fnn.fused_l2_nn(x, y, sqrt)
+    torch.cuda.synchronize()
+    assert fnn.fused_l2_nn.launches == before + 1
+    assert fnn.fused_l2_nn.small_dim_launches == small + (
+        k <= fnn.SMALL_DIM)
+    _assert_nn_matches_plain(x, y, dk, ik, sqrt)
+    if n > 5 and m > 0:
         assert int(ik[0]) == 1
+    if n == 1:
+        assert bool((ik == 0).all())
+
+
+@pytest.mark.parametrize("variant", ["tf32 2 warpgroups",
+                                     "tf32 4 warpgroups"])
+@pytest.mark.parametrize("m,n,k", [(1000, 1024, 128), (333, 37, 50),
+                                   (700, 300, 161), (129, 7, 17)])
+def test_fused_l2_nn_tf32_block_sizes_match_plain(dev, variant, m, n, k):
+    """The tensor-core pass at both block sizes (64 rows a warpgroup; at
+    4 warpgroups x streams past dim 32) against the plain version, as the
+    entry point's pass; its launches count apart."""
+    x, y = _nn_inputs(dev, m, n, k, True)
+    before, main = fnn.fused_l2_nn_variant.launches, fnn.fused_l2_nn.launches
+    dk, ik = fnn.fused_l2_nn_variant(x, y, variant)
+    torch.cuda.synchronize()
+    assert fnn.fused_l2_nn_variant.launches == before + 1
+    assert fnn.fused_l2_nn.launches == main
+    _assert_nn_matches_plain(x, y, dk, ik)
+    assert int(ik[0]) == 1
+
+
+@pytest.mark.parametrize("m,n,k,exact", [(3000, 1000, 17, True),
+                                         (3000, 256, 17, True),
+                                         (1000, 1024, 128, True),
+                                         (333, 37, 50, False),
+                                         (5, 300, 1000, False)])
+def test_fused_l2_nn_simt_yardstick_is_bit_equal_to_plain(dev, m, n, k,
+                                                          exact):
+    """The SIMT tile (raft_fused_l2_nn_simt, the yardstick no entry point
+    takes) sums in dimension order.  Where the plain version's fp32
+    ``matmul`` does too (the shapes marked exact: dim 17, and dim 128 at
+    1,000 x 1,024 as at chip_smoke's shapes) dmin and the indices are
+    equal to the bit; where cuBLAS splits the sum another way (333 x 37 x
+    50, 5 x 300 x 1000) they agree tie-aware."""
+    x, y = _nn_inputs(dev, m, n, k, True)
+    dk, ik = fnn.fused_l2_nn_variant(x, y, "simt")
+    torch.cuda.synchronize()
+    if exact:
+        dp, ip = fnn.fused_l2_nn_plain(x, y)
+        assert torch.equal(dk, dp)
+        assert torch.equal(ik, ip)
+    else:
+        _assert_nn_matches_plain(x, y, dk, ik)
+    assert int(ik[0]) == 1
 
 
 @pytest.mark.parametrize("dim", [1, 2, 3, 16, 17])
 @pytest.mark.parametrize("n", [256, 1000])
 def test_fused_l2_nn_small_dim_kernel_is_bit_equal_to_plain(dev, dim, n):
-    """Kernel H on both sides of its small-dim threshold: the same fp32
-    expression in the same order as the plain version, so dmin and the
-    indices are equal to the bit; a duplicated y row resolves to its
-    first copy."""
+    """Kernel H on both sides of its small-dim threshold: at k <= 16 the
+    small-dim kernel computes the same fp32 expression in the same order
+    as the plain version, so dmin and the indices are equal to the bit;
+    at 17 the tensor-core pass launches, held tie-aware
+    (``_assert_nn_matches_plain``).  A duplicated y row resolves to its
+    first copy on both sides."""
     m = 3000
     rng = np.random.default_rng(m + n + dim)
     x = torch.from_numpy(rng.normal(size=(m, dim)).astype(np.float32)).to(dev)
@@ -843,9 +920,12 @@ def test_fused_l2_nn_small_dim_kernel_is_bit_equal_to_plain(dev, dim, n):
     assert fnn.fused_l2_nn.launches == before + 1
     assert fnn.fused_l2_nn.small_dim_launches == small + (
         dim <= fnn.SMALL_DIM)
-    dp, ip = fnn.fused_l2_nn_plain(x, y)
-    assert torch.equal(dk, dp)
-    assert torch.equal(ik, ip)
+    if dim <= fnn.SMALL_DIM:
+        dp, ip = fnn.fused_l2_nn_plain(x, y)
+        assert torch.equal(dk, dp)
+        assert torch.equal(ik, ip)
+    else:
+        _assert_nn_matches_plain(x, y, dk, ik)
     assert int(ik[0]) == 5
 
 

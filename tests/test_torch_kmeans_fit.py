@@ -80,11 +80,16 @@ def _assert_nn_match(d, i, rd, ri, x, y, sqrt=False):
 
 @pytest.mark.parametrize("m,n,k,sqrt", [(300, 700, 64, False),
                                         (257, 513, 128, True),
-                                        (100, 37, 5, False)])
+                                        (100, 37, 5, False),
+                                        (300, 130, 17, False),
+                                        (129, 257, 25, True),
+                                        (200, 300, 129, False)])
 def test_kernel_h_plain_matches_jax_pallas(m, n, k, sqrt):
     """Kernel H's plain version against ``fused_l2_nn_pallas`` (interpreted)
-    at shapes that leave ragged tiles on both sides; a duplicated y row
-    resolves to its first copy in both."""
+    at shapes that leave ragged tiles on both sides, and at the card's
+    tensor-core pass's edge widths (17: its first; 25: one-value loads;
+    129: past a multiple of 32); a duplicated y row resolves to its first
+    copy in both."""
     rng = np.random.default_rng(m + n)
     x = rng.normal(size=(m, k)).astype(np.float32)
     y = rng.normal(size=(n, k)).astype(np.float32)
