@@ -103,7 +103,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     bit-equal, the cuts tie-aware as Kernel A (dmin within τ, labels the
     plain ones or at ties), counts exact from their own labels (mxuonly's
     column sums within 1e-4 relative), sums as Kernel A's.
-11. CAGRA at full width (``conf/sift-like-1m.json`` entry
+11. Persistence at full width, on the indexes the script built, files
+    under a ``tempfile.mkdtemp()`` it deletes: the flagship IVF-PQ
+    ``ivf_pq.save`` then ``ivf_pq.load`` on the card (file bytes, save
+    and load seconds, the recon cache's re-decode timed apart), the
+    phase-4 batch searched and refined on the loaded index against the
+    in-memory one (ids equal, distances bit-equal; two searches of the
+    in-memory index are compared first, and were they to differ, the
+    loaded one would be held to the ids), Kernel B's two passes launched
+    on the loaded index; the flagship file with one byte flipped, then
+    cut to half, makes ``load`` raise ``CorruptIndexError``; IVF-Flat
+    nlist 4096 the same at n_probes 64, k 10, with Kernel F's list-major
+    pass launched; then the checkpointed flagship build: ``build(...,
+    checkpoint=dir)`` interrupted at its first ``interruptible.
+    synchronize`` by ``faults.inject(..., exc=InterruptedException)``
+    (the manifest must read ``["kmeans"]``), ``resume=True`` (the
+    checkpoint loaded once and saved once, the centers bit-equal to the
+    stage file, recall@10 against the flagship's recorded 0.9769-0.9786,
+    printed with the gap when outside), then a resume from the complete
+    checkpoint, bit-equal in every leaf to the build that wrote it; the
+    seconds of each build.  The phase's CAGRA part closes phase 12.
+12. CAGRA at full width (``conf/sift-like-1m.json`` entry
     ``raft_cagra.deg32``) on the same rows: ``cagra.build`` at
     ``IndexParams(graph_degree=32, intermediate_graph_degree=64)`` (seconds,
     stage seconds, the build's projected dimension, launches zeroed before
@@ -126,8 +146,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     the yardstick's ms); and the hop kernel against its plain version at
     the build's exact merge and on the plain walk's fourth search hop,
     with ``torch.topk`` over the [buffer | candidate] keys timed as a
-    yardstick (it does no dedupe).
-12. Deep path at full width (``conf/deep-like-10m.json`` entry
+    yardstick (it does no dedupe).  Then the persistence phase's CAGRA
+    part: ``cagra.save`` / ``cagra.load`` (bytes, seconds), the loaded
+    index and a fresh index object of the same dataset and graph each
+    searched first on a handle of one seed (the entry set is drawn there)
+    at itopk 64 width 2: equal results and exactly one walk launch; a
+    checkpointed build and a resume from its complete checkpoint, the
+    graph bit-equal; the phase's seconds and numbers on one line with the
+    card's name and power limit.
+13. Deep path at full width (``conf/deep-like-10m.json`` entry
     ``raft_ivf_pq.dim48``): a 10,000,000 x 96 database + 5,000 queries
     from the same generator, ``ivf_pq.build`` at ``IndexParams(
     n_lists=8192, pq_dim=48, kmeans_trainset_fraction=0.1)`` (the
@@ -153,7 +180,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     rows as bf16, each bit for bit; C, D and E's query-major routes at k
     = kt = 128 on 1,000 queries; and each mode's batch under the
     profiler.
-13. A JSON line with each kernel's route, source, launches, error, time
+14. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path, and
     under ``also_checked`` the same measurements at the other shapes its
@@ -540,25 +567,27 @@ def ties_only(v, i, ref_i, atol=1e-4):
     """True when every id that differs from the reference sits at a
     distance tie (within ``atol`` + 1e-4 relative): next to an equal
     distance in its sorted row, or on the row's last finite rank (whose tie
-    partner may lie past the row)."""
-    import torch
+    partner may lie past the row; ``profiles.pair_cut_ties.tie_mask``)."""
+    from raft_tpu_torch.profiles.pair_cut_ties import tie_mask
 
-    tol = atol + 1e-4 * v.abs()
-    tie = torch.zeros_like(v, dtype=torch.bool)
-    near = (v[..., 1:] - v[..., :-1]).abs() <= tol[..., 1:]
-    tie[..., 1:] |= near
-    tie[..., :-1] |= near
-    last = torch.isfinite(v) & ~torch.isfinite(
-        torch.cat([v[..., 1:], torch.full_like(v[..., :1], float("inf"))],
-                  -1))
-    return bool(((i == ref_i) | tie | last).all())
+    return bool(((i == ref_i) | tie_mask(v, atol)).all())
 
 
-def compare_with_plain(name, vk, ik, vp, ip, atol=1e-4):
+def compare_with_plain(name, vk, ik, vp, ip, atol=1e-4, dist_of=None):
     """Distances within 1e-4 relative + ``atol`` at every rank, the same
-    exhausted ranks, -1 exactly there, ids equal except at distance
-    ties."""
+    exhausted ranks, -1 exactly there, ids equal except at distance ties.
+
+    A tie is one of ``ties_only``'s, or, where ``dist_of(q, ids)`` recomputes
+    the distance of each (query, id) from the index in one arithmetic, a
+    rank whose two ids recompute to distances within the same tolerance of
+    each other.  A row merged from each pair's top kt needs the second
+    kind: when two rows of one list tie at the pair's cut, the kernel and
+    the plain version may keep different ones, and each then stands in its
+    merged row with its partner nowhere beside it.  Ranks that are neither
+    are printed, both ids with their recomputed distances, before the
+    check fails."""
     import torch
+    from raft_tpu_torch.profiles.pair_cut_ties import tie_mask
 
     fin = torch.isfinite(vp)
     assert torch.equal(fin, torch.isfinite(vk)), f"{name}: exhausted ranks"
@@ -566,19 +595,40 @@ def compare_with_plain(name, vk, ik, vp, ip, atol=1e-4):
     err = float((vk[fin] - vp[fin]).abs().max()) if bool(fin.any()) else 0.0
     assert torch.allclose(vk[fin], vp[fin], rtol=1e-4, atol=atol), (
         f"{name} distances differ by {err}")
-    assert ties_only(vk, ik, ip, atol), (
-        f"{name}: ids differ off distance ties")
+    off = (ik != ip) & ~tie_mask(vk, atol)
+    at = torch.nonzero(off, as_tuple=True)
+    cut = 0
+    if dist_of is not None and bool(off.any()):
+        dk, dp = dist_of(at[0], ik[at]), dist_of(at[0], ip[at])
+        partner = (dk - dp).abs() <= atol + 1e-4 * vk[at].abs()
+        cut = int(partner.sum())
+        off[tuple(a[partner] for a in at)] = False
+        at = torch.nonzero(off, as_tuple=True)
+    for j in range(min(int(off.sum()), 8)):
+        pos = tuple(int(a[j]) for a in at)
+        line = (f"{name}: rank {pos}: kernel id {int(ik[pos])} at "
+                f"{float(vk[pos])!r}, plain id {int(ip[pos])} at "
+                f"{float(vp[pos])!r}")
+        if dist_of is not None:
+            q = at[0][j:j + 1]
+            dk = float(dist_of(q, ik[pos].reshape(1))[0])
+            dp = float(dist_of(q, ip[pos].reshape(1))[0])
+            line += f"; recomputed {dk!r} / {dp!r}"
+        print(line, flush=True)
+    assert not bool(off.any()), (
+        f"{name}: ids differ off distance ties at {int(off.sum())} ranks")
     same = float((ik == ip).float().mean())
     print(f"{name} vs plain: max |dist err| {err}, ids equal at {same:.5f} "
-          f"of ranks (others are distance ties)", flush=True)
+          f"of ranks (others are distance ties"
+          + (f"; {cut} at a tie cut by a pair's top kt" if cut else "")
+          + ")", flush=True)
     return err
 
 
-def recompute(index, qrot, q_of, lists_of, vals, ids, rows_of, rsq,
-              scales=None):
-    """Every returned (query, id) distance recomputed from the index: the
-    id's slot must lie in the list its query probed (``lists_of``: the
-    lists allowed for each entry, (m, n)), and the distance must match."""
+def id_distances(index, qrot, q_of, ids, rows_of, rsq, scales=None):
+    """Each (query ``q_of``, id ``ids``) distance recomputed from the index
+    as the kernels compute it (the bf16 residual times the stored row,
+    summed in fp32), and the list that holds each id."""
     import torch
 
     flat = index.list_indices.reshape(-1)
@@ -588,8 +638,6 @@ def recompute(index, qrot, q_of, lists_of, vals, ids, rows_of, rsq,
     slot_of[flat[live].long()] = torch.nonzero(live)[:, 0]
     slot = slot_of[ids.long()]
     lst = slot // index.capacity
-    assert bool((lists_of == lst[:, None]).any(1).all()), (
-        "an id outside the lists its query probed")
     rows = rows_of(slot)
     sub = qrot[q_of] - index.centers[lst]
     sub = torch.nn.functional.pad(sub, (0, rows.shape[1] - sub.shape[1]))
@@ -598,6 +646,20 @@ def recompute(index, qrot, q_of, lists_of, vals, ids, rows_of, rsq,
         ip = scales[lst] * ip
     d = torch.clamp_min((sub * sub).sum(1) + rsq.reshape(-1)[slot]
                         - 2.0 * ip, 0.0)
+    return d, lst
+
+
+def recompute(index, qrot, q_of, lists_of, vals, ids, rows_of, rsq,
+              scales=None):
+    """Every returned (query, id) distance recomputed from the index
+    (``id_distances``): the id's slot must lie in the list its query
+    probed (``lists_of``: the lists allowed for each entry, (m, n)), and
+    the distance must match."""
+    import torch
+
+    d, lst = id_distances(index, qrot, q_of, ids, rows_of, rsq, scales)
+    assert bool((lists_of == lst[:, None]).any(1).all()), (
+        "an id outside the lists its query probed")
     assert torch.allclose(d, vals, rtol=1e-4, atol=1e-4), (
         "returned ids do not match their distances")
 
@@ -646,7 +708,10 @@ def check_scans(index, qrot, probes, specs):
          row_bytes, extra, out_bytes, ops_rot) in specs:
         vk, ik = kernel(*args)
         (vp, ip), plain_ms = timed_once(lambda: plain(*args))
-        err = compare_with_plain(name, vk, ik, vp, ip)
+        err = compare_with_plain(
+            name, vk, ik, vp, ip,
+            dist_of=lambda q, ids: id_distances(
+                index, qrot, q, ids, rows_of, rsq, scales)[0])
         fin = torch.isfinite(vk)
         if vk.ndim == 2:       # per query: any of its probed lists
             q_of = torch.nonzero(fin)[:, 0]
@@ -2430,7 +2495,8 @@ def cagra_path(db, queries, truth):
     prediction, one batch under the profiler through each route, the walk
     kernel vs the plain walk on walks captured from the run, and Kernel
     I's hop kernel vs plain at the exact merge and at the search's fourth
-    hop.  Returns the walk's and the hop kernel's kernels rows."""
+    hop.  Returns the walk's and the hop kernel's kernels rows, and the
+    index (for the persistence checks)."""
     import torch
     from raft_tpu_torch import DeviceResources
     from raft_tpu_torch.neighbors import cagra
@@ -2590,9 +2656,292 @@ def cagra_path(db, queries, truth):
     row_i["also_checked"] = [at_shape(check_kernel_i(
         plain_hop_inputs(s_args, s_kw, CHECK_HOP), s_kw["ip_metric"], shape),
         shape, 0)]
-    del index, cap, wcap
+    del cap, wcap
     torch.cuda.empty_cache()
-    return row_walk, row_i
+    return row_walk, row_i, index
+
+
+# ---------------------------------------------------------------------------
+# persistence at full width
+# ---------------------------------------------------------------------------
+
+# the flagship's recall@10 over the recorded builds (PERF.md §7)
+FLAGSHIP_RECALL = (0.9769, 0.9786)
+CAGRA_PERSIST_POINT = (64, 2)
+# the seed of the fresh handles whose first search draws a CAGRA entry set
+CAGRA_ENTRY_SEED = 11
+
+
+class CheckpointCalls:
+    """Counts ``CheckpointManager.load`` / ``.save`` calls while active
+    (the port has no observability registry to count them)."""
+
+    def __enter__(self):
+        from raft_tpu_torch.resilience import CheckpointManager
+
+        self.calls = {"load": 0, "save": 0}
+        self._orig = {n: getattr(CheckpointManager, n) for n in self.calls}
+        for name, orig in self._orig.items():
+            def spy(mgr, *a, _orig=orig, _name=name, **kw):
+                self.calls[_name] += 1
+                return _orig(mgr, *a, **kw)
+            setattr(CheckpointManager, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        from raft_tpu_torch.resilience import CheckpointManager
+
+        for name, orig in self._orig.items():
+            setattr(CheckpointManager, name, orig)
+
+
+def timed_s(fn):
+    """``(fn(), s)``: one call's wall seconds, its CUDA work included."""
+    (ms,), out = timed_searches(fn, 1)
+    return out, ms / 1e3
+
+
+def save_and_load(module, res, index, path, label, **load_kw):
+    """``module.save`` then ``module.load`` of ``index`` through ``path``:
+    prints the file's bytes and both times; returns the loaded index and
+    the numbers."""
+    import os
+
+    _, save_s = timed_s(lambda: module.save(res, path, index))
+    loaded, load_s = timed_s(lambda: module.load(res, path, **load_kw))
+    nbytes = os.path.getsize(path)
+    print(f"{label}: file {nbytes:,} bytes; save {save_s:.3f} s "
+          f"({nbytes / save_s / 1e9:.2f} GB/s); load {load_s:.3f} s "
+          f"({nbytes / load_s / 1e9:.2f} GB/s)", flush=True)
+    return loaded, {"bytes": nbytes, "save_s": save_s, "load_s": load_s}
+
+
+def same_results(label, ref, ours, ref_again=None):
+    """Ids equal and distances bit-equal; where two searches of the
+    in-memory index already differ (``ref_again``), print that and hold
+    the loaded index's result to the ids only."""
+    import torch
+
+    stable = ref_again is None or (torch.equal(ref[0], ref_again[0])
+                                   and torch.equal(ref[1], ref_again[1]))
+    ids = torch.equal(ours[1], ref[1])
+    dist = torch.equal(ours[0], ref[0])
+    repeat = ("" if ref_again is None else "two searches of the in-memory "
+              f"index {'agree bit for bit' if stable else 'DIFFER'}; ")
+    print(f"{label}: {repeat}loaded index against the in-memory one: ids "
+          f"{'equal' if ids else 'DIFFER'}, distances "
+          f"{'bit-equal' if dist else 'differ'}", flush=True)
+    assert ids and (dist or not stable), f"{label}: loaded index differs"
+
+
+def recall_at(found, truth):
+    hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
+    return float(hits) / truth.numel()
+
+
+def persistence_path(res, index, flat, db, queries, truth, params, sp):
+    """Phase 11 on the indexes the script built: the flagship IVF-PQ and
+    IVF-Flat 4096 saved, loaded on the card and searched against the
+    in-memory index (Kernel B's passes / Kernel F's list-major pass
+    launched on the loaded index), a flipped byte and a truncated copy of
+    the flagship file refused, and the checkpointed flagship build
+    (interrupted at its first sync point, resumed from ``kmeans``, then
+    from the complete checkpoint).  Returns the numbers."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.core.interruptible import InterruptedException
+    from raft_tpu_torch.core.serialize import CorruptIndexError
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq, refine
+    from raft_tpu_torch.resilience import CheckpointManager, faults
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    try:
+        # flagship: save -> load -> the phase-4 batch
+        path = os.path.join(tmp, "flagship.ivf_pq")
+        loaded, out["flagship"] = save_and_load(
+            ivf_pq, res, index, path, "flagship IVF-PQ")
+        _, recon_s = timed_s(lambda: ivf_pq._with_recon(dataclasses.replace(
+            loaded, list_recon=None, list_recon_sq=None)))
+        out["flagship"]["recon_s"] = recon_s
+        print(f"flagship IVF-PQ: of the load, the recon cache's re-decode "
+              f"takes {recon_s:.3f} s (timed apart)", flush=True)
+        batch = lambda ix: refine(res, db, queries, ivf_pq.search(  # noqa
+            res, sp, ix, queries, K_SEARCH)[1], K)
+        ref, ref_again = batch(index), batch(index)
+        zero_launches()
+        ours = batch(loaded)
+        launches = read_launches()
+        same_results("flagship IVF-PQ search+refine", ref, ours, ref_again)
+        print(f"flagship IVF-PQ loaded-index launches: list_scan "
+              f"{launches['list_scan']}, merge_pairs "
+              f"{launches['merge_pairs']}", flush=True)
+        assert launches["list_scan"] > 0 and launches["merge_pairs"] > 0, \
+            "Kernel B never launched on the loaded flagship index"
+        del loaded
+
+        # corruption: one flipped byte, then a truncated copy
+        with open(path, "rb") as f:
+            raw = f.read()
+        flipped = bytearray(raw)
+        flipped[len(raw) // 2] ^= 0x5A
+        for label, data in (("one byte flipped", bytes(flipped)),
+                            ("truncated to half", raw[:len(raw) // 2])):
+            bad = os.path.join(tmp, "bad.ivf_pq")
+            with open(bad, "wb") as f:
+                f.write(data)
+            try:
+                ivf_pq.load(res, bad)
+            except CorruptIndexError as e:
+                print(f"corruption ({label}): load raised "
+                      f"CorruptIndexError: {str(e)[:100]}", flush=True)
+            else:
+                raise AssertionError(f"corruption ({label}) loaded")
+        del raw, flipped, data
+        os.remove(path)
+
+        # IVF-Flat nlist 4096: save -> load -> n_probes 64, k 10
+        path = os.path.join(tmp, "flat4096.ivf_flat")
+        loaded, out["ivf_flat"] = save_and_load(
+            ivf_flat, res, flat, path, "IVF-Flat nlist 4096")
+        fsp = ivf_flat.SearchParams(n_probes=FLAT_CHECK_PROBES)
+        fsearch = lambda ix: ivf_flat.search(res, fsp, ix, queries, K)  # noqa
+        ref, ref_again = fsearch(flat), fsearch(flat)
+        zero_launches()
+        ours = fsearch(loaded)
+        launches = read_launches()
+        same_results(f"IVF-Flat nlist 4096 n_probes {FLAT_CHECK_PROBES}",
+                     ref, ours, ref_again)
+        print(f"IVF-Flat loaded-index launches: flat_list_scan "
+              f"{launches['flat_list_scan']}", flush=True)
+        assert launches["flat_list_scan"] > 0, \
+            "Kernel F never launched on the loaded IVF-Flat index"
+        del loaded
+        os.remove(path)
+
+        # the checkpointed flagship build
+        ck = os.path.join(tmp, "ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with faults.inject("interruptible.synchronize", times=1,
+                           exc=InterruptedException):
+            try:
+                ivf_pq.build(DeviceResources(seed=0), params, db,
+                             checkpoint=ck)
+            except InterruptedException:
+                torch.cuda.synchronize()
+                cut_s = time.perf_counter() - t0
+            else:
+                raise AssertionError("the injected interruption never came")
+        stages = CheckpointManager(ck).completed
+        assert stages == ["kmeans"], f"manifest after the cut: {stages}"
+        with CheckpointCalls() as calls:
+            resumed, resume_s = timed_s(lambda: ivf_pq.build(
+                DeviceResources(seed=0), params, db, checkpoint=ck,
+                resume=True))
+        assert calls.calls == {"load": 1, "save": 1}, calls.calls
+        saved = CheckpointManager(ck).load("kmeans")["centers"]
+        assert np.array_equal(resumed.centers.cpu().numpy(), saved), \
+            "resumed centers differ from the kmeans stage file"
+        recall = recall_at(batch(resumed)[1], truth)
+        lo, hi = FLAGSHIP_RECALL
+        gap = 0.0 if lo <= recall <= hi else min(abs(recall - lo),
+                                                 abs(recall - hi))
+        print(f"checkpointed flagship build: interrupted at its first "
+              f"synchronize after {cut_s:.2f} s (manifest {stages}); "
+              f"resumed from kmeans in "
+              f"{resume_s:.2f} s (checkpoint loads {calls.calls['load']}, "
+              f"saves {calls.calls['save']}; stages (s) "
+              f"{json.dumps(ivf_pq.build.stage_seconds)}); centers "
+              f"bit-equal to the stage file; recall@10 {recall:.4f} "
+              + ("within" if gap == 0.0 else f"off by {gap:.4f} from")
+              + f" the recorded {lo}-{hi}", flush=True)
+        with CheckpointCalls() as calls:
+            again, full_s = timed_s(lambda: ivf_pq.build(
+                DeviceResources(seed=0), params, db, checkpoint=ck,
+                resume=True))
+        assert calls.calls == {"load": 2, "save": 0}, calls.calls
+        equal = {leaf: torch.equal(getattr(again, leaf),
+                                   getattr(resumed, leaf))
+                 for leaf in ("centers", "codebooks", "list_codes",
+                              "list_indices", "list_sizes", "list_recon",
+                              "list_recon_sq")}
+        print(f"resume from the complete checkpoint: {full_s:.2f} s (loads "
+              f"{calls.calls['load']}); against the build that wrote it, "
+              f"bit-equal: {json.dumps(equal)}", flush=True)
+        assert all(equal.values()), f"complete resume differs: {equal}"
+        out["checkpointed_build"] = {
+            "interrupted_s": cut_s, "resume_s": resume_s,
+            "full_resume_s": full_s,
+            "recall": recall, "recall_gap": gap}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def cagra_persistence(db, queries, index):
+    """The CAGRA part of the persistence phase on the ``deg32`` index:
+    save -> load -> itopk 64 width 2 on fresh seeded handles (the loaded
+    index and a fresh index object of the same dataset and graph: equal
+    results, exactly one walk launch a search), then a checkpointed build
+    and a resume from its complete checkpoint (the graph bit-equal)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops import cagra_walk as cw
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    try:
+        res = DeviceResources(seed=0)
+        path = os.path.join(tmp, "deg32.cagra")
+        loaded, out["cagra"] = save_and_load(cagra, res, index, path,
+                                             "CAGRA deg32")
+        os.remove(path)
+        itopk, width = CAGRA_PERSIST_POINT
+        sp = cagra.SearchParams(itopk_size=itopk, search_width=width)
+        fresh = cagra.Index(dataset=index.dataset, graph=index.graph,
+                            metric=index.metric)
+        ref = cagra.search(DeviceResources(seed=CAGRA_ENTRY_SEED), sp,
+                           fresh, queries, K)
+        before = cw.cagra_walk.launches
+        ours = cagra.search(DeviceResources(seed=CAGRA_ENTRY_SEED), sp,
+                            loaded, queries, K)
+        walks = cw.cagra_walk.launches - before
+        same_results(f"CAGRA itopk {itopk} width {width}, fresh handles of "
+                     f"seed {CAGRA_ENTRY_SEED}", ref, ours)
+        print(f"CAGRA loaded-index search: {walks} cagra_walk launch(es)",
+              flush=True)
+        assert walks == 1, f"CAGRA: {walks} walk launches in one search"
+        del loaded, fresh
+
+        params = cagra.IndexParams(graph_degree=CAGRA_DEGREE,
+                                   intermediate_graph_degree=CAGRA_INTERMEDIATE)
+        ck = os.path.join(tmp, "ckpt")
+        built, build_s = timed_s(lambda: cagra.build(
+            DeviceResources(seed=0), params, db, checkpoint=ck))
+        resumed, resume_s = timed_s(lambda: cagra.build(
+            DeviceResources(seed=0), params, db, checkpoint=ck,
+            resume=True))
+        equal = torch.equal(built.graph, resumed.graph)
+        print(f"CAGRA checkpointed build {build_s:.2f} s; resume from the "
+              f"complete checkpoint {resume_s:.2f} s; graph "
+              f"{'bit-equal' if equal else 'DIFFERS'}", flush=True)
+        assert equal, "CAGRA resume: graph differs"
+        out["cagra_resume"] = {"build_s": build_s, "resume_s": resume_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -2749,12 +3098,26 @@ def main() -> int:
 
     phase("profiles: the round-5 decompositions (kernel table rows 10-13)")
     rows_profiles = profiles_path(dev, index, queries, flat_indexes)
+
+    phase("persistence at full width: save / load / search, corruption, "
+          "checkpointed flagship build")
+    t0 = time.perf_counter()
+    persisted = persistence_path(res, index, flat_indexes[1], db, queries,
+                                 truth, params, sp)
+    persist_s = time.perf_counter() - t0
     del index, flat_indexes
     torch.cuda.empty_cache()
 
     phase("CAGRA at full width: sift-like-1m, raft_cagra.deg32")
-    row_walk, row_i = cagra_path(db, queries, truth)
-    del db, queries, truth
+    row_walk, row_i, cagra_index = cagra_path(db, queries, truth)
+
+    phase("persistence at full width: CAGRA deg32")
+    t0 = time.perf_counter()
+    persisted.update(cagra_persistence(db, queries, cagra_index))
+    persist_s += time.perf_counter() - t0
+    print(f"persistence phase: {persist_s:.1f} s; {json.dumps(persisted)}; "
+          f"nvidia-smi: {smi_line}", flush=True)
+    del cagra_index, db, queries, truth
     torch.cuda.empty_cache()
 
     phase("deep path at full width: 10M x 96, n_lists 8192, pq_dim 48")

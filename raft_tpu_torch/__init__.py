@@ -21,7 +21,12 @@ cache (``scan_mode`` "auto", "fused", "codes", "recon8", "recon") —
 (:mod:`raft_tpu_torch.neighbors.cagra`); :mod:`raft_tpu_torch.neighbors.refine`
 and :mod:`raft_tpu_torch.neighbors.brute_force` (``knn``); the boundary
 validator of every entry point (:mod:`raft_tpu_torch.integrity.boundary`,
-policy in :mod:`raft_tpu_torch.config`).
+policy in :mod:`raft_tpu_torch.config`); persistence — ``serialize`` /
+``deserialize`` / ``save`` / ``load`` of the three index kinds in the JAX
+package's byte format (:mod:`raft_tpu_torch.core.serialize`), checkpointed
+builds, fault injection and retries (:mod:`raft_tpu_torch.resilience`),
+recall canaries (:mod:`raft_tpu_torch.integrity.canary`), and the
+``config.set_output_as`` output types.
 """
 
 from raft_tpu_torch import config  # noqa: F401
@@ -29,9 +34,6 @@ from raft_tpu_torch import observability  # noqa: F401
 from raft_tpu_torch import integrity  # noqa: F401
 from raft_tpu_torch.core import (DeviceResources, LogicError,  # noqa: F401
                                  RaftError, Resources, expects)
-from raft_tpu_torch.core.error import not_ported_stub as _stub
-
-auto_convert_output = _stub("raft_tpu_torch", "auto_convert_output",
-                                      "serialization")
+from raft_tpu_torch.core.outputs import auto_convert_output  # noqa: F401
 
 __version__ = "0.1.0"

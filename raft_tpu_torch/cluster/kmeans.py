@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
+from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
@@ -66,9 +67,9 @@ def min_cluster_and_distance(X: torch.Tensor, centroids: torch.Tensor, *,
     value otherwise."""
     with precision.highest():
         if metric in L2_METRICS:
-            d, i = fused_l2_nn(X, centroids, sqrt=metric in SQRT_METRICS)
+            d, i = raw(fused_l2_nn)(X, centroids, sqrt=metric in SQRT_METRICS)
             return i, d
-        dmat = pairwise_distance(X, centroids, metric)
+        dmat = raw(pairwise_distance)(X, centroids, metric)
         d, i = torch.min(dmat, dim=1)
         return i.int(), d
 
@@ -239,6 +240,7 @@ def _weights(sample_weight, X) -> torch.Tensor:
     return torch.as_tensor(sample_weight, dtype=torch.float32).to(X.device)
 
 
+@auto_convert_output
 def fit(res, params: KMeansParams, X, sample_weight=None, centroids=None
         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Fit k-means: ``(centroids (k, dim) f32, inertia (0-d f32), n_iter)``
@@ -279,6 +281,7 @@ def fit(res, params: KMeansParams, X, sample_weight=None, centroids=None
         return best
 
 
+@auto_convert_output
 def predict(res, params: KMeansParams, X, centroids, *, sample_weight=None,
             normalize_weight: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -291,23 +294,26 @@ def predict(res, params: KMeansParams, X, centroids, *, sample_weight=None,
     return labels, (d * _weights(sample_weight, X)).sum()
 
 
+@auto_convert_output
 def fit_predict(res, params: KMeansParams, X, sample_weight=None,
                 centroids=None):
     """Reference: kmeans.cuh:214.  Returns (labels, centroids, inertia,
     n_iter)."""
-    centroids, _, n_iter = fit(res, params, X, sample_weight, centroids)
-    labels, inertia = predict(res, params, X, centroids,
+    centroids, _, n_iter = raw(fit)(res, params, X, sample_weight,
+                                    centroids)
+    labels, inertia = raw(predict)(res, params, X, centroids,
                               sample_weight=sample_weight)
     return labels, centroids, inertia, n_iter
 
 
+@auto_convert_output
 def transform(res, params: KMeansParams, X, centroids) -> torch.Tensor:
     """Distance from every sample to every centroid (reference:
     kmeans.cuh:243)."""
     X, _ = boundary.check_matrix(ensure_tensor(X, res, "X"), "X",
                                  site="kmeans.transform")
-    return pairwise_distance(X, ensure_tensor(centroids, res, "centroids"),
-                             params.metric)
+    return raw(pairwise_distance)(
+        X, ensure_tensor(centroids, res, "centroids"), params.metric)
 
 
 def find_k(res, X, *, k_max: int = 20, k_min: int = 2, max_iter: int = 100,
@@ -321,8 +327,8 @@ def find_k(res, X, *, k_max: int = 20, k_min: int = 2, max_iter: int = 100,
     k = k_min
     while k <= k_max:
         ks.append(k)
-        c, inertia, _ = fit(res, KMeansParams(n_clusters=k,
-                                              max_iter=max_iter, tol=tol), X)
+        c, inertia, _ = raw(fit)(res, KMeansParams(
+            n_clusters=k, max_iter=max_iter, tol=tol), X)
         results[k] = (c, float(inertia))
         k = max(k + 1, int(k * 1.5))
     if len(ks) >= 3:

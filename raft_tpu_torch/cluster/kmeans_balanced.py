@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+from raft_tpu_torch.core.outputs import raw
 from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
@@ -62,7 +63,7 @@ def _assign(X: torch.Tensor, centroids: torch.Tensor, metric: int
     as the JAX ``_assign`` calls ``fused_l2_nn``; InnerProduct an argmax
     with the negated product, fp32 products, chunked over rows."""
     if metric != DistanceType.InnerProduct:
-        d, lab = fused_l2_nn(X, centroids)
+        d, lab = raw(fused_l2_nn)(X, centroids)
         return lab.long(), d
     cf = centroids.float()
     labels = torch.empty(X.shape[0], dtype=torch.int64, device=X.device)

@@ -1,8 +1,14 @@
-"""Input-validation policy of the public entry points (port of the
-validation-policy part of ``raft_tpu.config``).  The output-type part
-(``SUPPORTED_OUTPUT_TYPES``, ``set_output_as``, ``get_output_as``) is not
-ported: each raises ``NotImplementedError`` naming ROADMAP.md §1's
-*serialization*.
+"""Global configuration of the public entry points (port of
+``raft_tpu.config``): the output type and the input-validation policy.
+
+Output type (parity with ``pylibraft.config``): the port's public
+functions return ``torch.Tensor``s by default; ``set_output_as`` switches
+them to numpy arrays or to the result of any callable applied to each
+tensor (:func:`raft_tpu_torch.core.outputs.auto_convert_output`).  The
+JAX package's default, ``"jax"``, cannot be honoured without importing
+jax, so ``set_output_as("jax")`` raises ``ValueError`` here.
+
+Validation policy:
 
 - ``"raise"`` (the default): a non-finite input row raises
   :class:`raft_tpu_torch.integrity.errors.ValidationError` at the public
@@ -18,16 +24,25 @@ ported: each raises ``NotImplementedError`` naming ROADMAP.md §1's
 
 from __future__ import annotations
 
-from raft_tpu_torch.core.error import not_ported, not_ported_stub
+from typing import Callable, Union
 
-set_output_as = not_ported_stub("config", "set_output_as", "serialization")
-get_output_as = not_ported_stub("config", "get_output_as", "serialization")
+SUPPORTED_OUTPUT_TYPES = ["torch", "numpy"]
+
+output_as_: Union[str, Callable] = "torch"
 
 
-def __getattr__(name: str):
-    if name in ("SUPPORTED_OUTPUT_TYPES", "output_as_"):
-        raise not_ported("config", name, "serialization")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def set_output_as(output: Union[str, Callable]) -> None:
+    """Set the output format of the port's public functions: ``"torch"``
+    (tensors, the default), ``"numpy"``, or a callable applied to each
+    returned tensor."""
+    if output not in SUPPORTED_OUTPUT_TYPES and not callable(output):
+        raise ValueError(f"Unsupported output option {output!r}")
+    global output_as_
+    output_as_ = output
+
+
+def get_output_as() -> Union[str, Callable]:
+    return output_as_
 
 
 SUPPORTED_VALIDATION_POLICIES = ("raise", "mask", "off")

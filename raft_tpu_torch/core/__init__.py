@@ -1,6 +1,6 @@
-"""Core: resource handle, errors, array contracts (port of
-``raft_tpu.core``).  The reference's serialization, cancellation, logger
-and tracing names are stand-ins naming their ROADMAP item."""
+"""Core: resource handle, errors, array contracts, serialization,
+cooperative cancellation (port of ``raft_tpu.core``).  The reference's
+logger and tracing are stand-ins naming their ROADMAP item."""
 
 from raft_tpu_torch.core.error import (LogicError, RaftError,  # noqa: F401
                                        expects, fail)

@@ -19,11 +19,13 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import as_tensor
 from raft_tpu_torch.ops import fused_l2_nn as _kernel
 
 
+@auto_convert_output
 def fused_l2_nn(x, y, *, sqrt: bool = False, tile_n: int = 2048,
                 use_pallas: bool = False, device=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -38,7 +40,8 @@ def fused_l2_nn(x, y, *, sqrt: bool = False, tile_n: int = 2048,
     return _kernel.fused_l2_nn(x, y, sqrt)
 
 
+@auto_convert_output
 def fused_l2_nn_min_reduce(x, y, *, sqrt: bool = False, device=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Alias matching fused_l2_nn.cuh:205 ``fusedL2NNMinReduce``."""
-    return fused_l2_nn(x, y, sqrt=sqrt, device=device)
+    return raw(fused_l2_nn)(x, y, sqrt=sqrt, device=device)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import as_tensor
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
@@ -48,6 +49,7 @@ def _cosine(x, y):
     return 1.0 - (x @ y.T) / torch.clamp_min(xn * yn, 1e-30)
 
 
+@auto_convert_output
 def pairwise_distance(x, y, metric=DistanceType.L2Unexpanded, *,
                       metric_arg: float = 2.0, device=None) -> torch.Tensor:
     """All-pairs distance matrix (m, n) f32 between rows of x (m, k) and y
@@ -78,9 +80,10 @@ def pairwise_distance(x, y, metric=DistanceType.L2Unexpanded, *,
                      "the other pairwise metrics (item 15)")
 
 
+@auto_convert_output
 def distance(x, y, metric=DistanceType.L2Unexpanded, *,
              metric_arg: float = 2.0, device=None) -> torch.Tensor:
     """The compile-time-metric flavour (reference: distance.cuh:70
     ``distance<T>``); identical here."""
-    return pairwise_distance(x, y, metric, metric_arg=metric_arg,
+    return raw(pairwise_distance)(x, y, metric, metric_arg=metric_arg,
                              device=device)

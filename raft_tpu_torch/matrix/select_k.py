@@ -12,9 +12,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core.outputs import auto_convert_output
 from raft_tpu_torch.core.error import expects
 
 
+@auto_convert_output
 def select_k(in_val: torch.Tensor, k: int, *,
              in_idx: Optional[torch.Tensor] = None,
              select_min: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -36,6 +38,7 @@ def select_k(in_val: torch.Tensor, k: int, *,
     return vals, idx
 
 
+@auto_convert_output
 def merge_topk(best_val: torch.Tensor, best_idx: torch.Tensor,
                new_val: torch.Tensor, new_idx: torch.Tensor, *,
                select_min: bool = True

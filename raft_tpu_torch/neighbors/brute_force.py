@@ -18,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, SQRT_METRICS
@@ -28,6 +29,7 @@ from raft_tpu_torch.utils import precision
 _TILE_N = 65536
 
 
+@auto_convert_output
 def knn(res, database, queries, k: int, *,
         metric: int = DistanceType.L2Unexpanded, global_id_offset: int = 0,
         tile_n: int = _TILE_N) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,13 +61,13 @@ def knn(res, database, queries, k: int, *,
                                     - 2.0 * ip, 0.0)
             else:
                 d = ip
-            td, ti = select_k(d, min(k, tile.shape[0]),
+            td, ti = raw(select_k)(d, min(k, tile.shape[0]),
                               select_min=select_min)
             ti = ti + s
             if best_d is not None:
                 td = torch.cat([best_d, td], 1)
                 ti = torch.cat([best_i, ti], 1)
-                td, pos = select_k(td, k, select_min=select_min)
+                td, pos = raw(select_k)(td, k, select_min=select_min)
                 ti = torch.gather(ti, 1, pos)
             best_d, best_i = td, ti
         if metric in SQRT_METRICS:

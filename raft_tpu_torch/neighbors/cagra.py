@@ -48,11 +48,20 @@ Where the port differs from the JAX package, by design:
   across with :func:`index_from_numpy` and :func:`attach_walk_cache` to
   compare searches draw for draw.
 
+Persistence: :func:`serialize` / :func:`deserialize` / :func:`save` /
+:func:`load` write and read the JAX package's stream (version 2, the
+reader takes 1..2) byte for byte: the dataset (in ``Index.data_dtype``,
+the build's input dtype; an fp16 / int8 / uint8 file loads as float32
+rows, an exact upcast) and the graph.  The walk caches are not written:
+the first search of a loaded index draws its entry set again.
+``build(..., checkpoint=dir)`` saves the ``knn_graph`` and ``graph``
+stages, each before its ``interruptible.synchronize``; ``resume=True``
+loads the stages a checkpoint holds.  ``canary_queries > 0`` stores
+recall canaries (:mod:`raft_tpu_torch.integrity.canary`), checked after
+``load`` and a resumed build.
+
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``filter=`` (filters), ``serialize`` / ``deserialize`` / ``save`` /
-``load`` (serialization), ``canary_queries > 0`` (canaries),
-``checkpoint=`` / ``resume=`` (checkpointing), ``delete`` (mutation), the
-deep-scale build from ``_DEEP_SCALE_ROWS`` rows (CAGRA deep regime), the
+item: ``filter=`` (filters), ``delete`` (mutation), the deep-scale build from ``_DEEP_SCALE_ROWS`` rows (CAGRA deep regime), the
 direct exact walk (``walk_pdim=0``, or no walk-table format fits: CAGRA
 direct walk) and hops beyond Kernel I's gate — itopk or search_width x
 degree above 256 (CAGRA wide hops).
@@ -66,17 +75,21 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Optional, Tuple
+from typing import BinaryIO, Optional, Tuple
 
 import numpy as np
 import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.core.interruptible import interruptible
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
+from raft_tpu_torch.core.outputs import auto_convert_output
 from raft_tpu_torch.distance.types import DistanceType, SQRT_METRICS
 from raft_tpu_torch.integrity import boundary
+from raft_tpu_torch.integrity import canary as _canary
 from raft_tpu_torch.matrix.ops import row_duplicate_mask
 from raft_tpu_torch.neighbors.ivf_flat import _stage
 from raft_tpu_torch.ops import cagra_hop as _hop
@@ -146,13 +159,16 @@ class Index:
     """Reference: cagra_types.hpp:114 ``index`` — dataset + fixed-degree
     graph (row i holds the neighbor ids of node i).  The first search
     attaches its walk caches as attributes (``_walk_tables``,
-    ``_walk_entries``, ``_walk_auto_pdim``, ...), as the JAX index does."""
+    ``_walk_entries``, ``_walk_auto_pdim``, ...), as the JAX index does.
+    ``data_dtype`` is the dtype the dataset is serialized in, the build's
+    input dtype (None: the dataset's own)."""
 
     dataset: torch.Tensor
     graph: torch.Tensor
     metric: int = DistanceType.L2Expanded
     canaries: Optional[object] = None
     generation: int = 0
+    data_dtype: Optional[torch.dtype] = None
 
     @property
     def size(self) -> int:
@@ -742,6 +758,7 @@ def _search_impl_walk(dataset, table, entry_proj, entry_sq, entry_ids, proj,
     return out_d, out_i
 
 
+@auto_convert_output
 def search(res, params: SearchParams, index: Index, queries, k: int, *,
            filter=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy graph-walk search (reference: cagra.cuh:205): (distances
@@ -1234,24 +1251,49 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
           resume: bool = False) -> Index:
     """Full CAGRA build (reference: cagra.cuh ``build`` = build_knn_graph +
     prune).  Stage seconds land in ``build.stage_seconds`` and the scan's
-    projected dimension in ``build.build_pdim`` (None on the exact
-    path)."""
-    if checkpoint is not None or resume:
-        raise _not_ported("checkpoint= / resume=", "checkpointing")
-    if params.canary_queries > 0:
-        raise _not_ported("canary_queries > 0", "canaries")
+    projected dimension in ``build.build_pdim`` (None on the exact path or
+    when the kNN graph came from a checkpoint).
+
+    ``checkpoint`` (a directory or a :class:`~raft_tpu_torch.resilience.
+    CheckpointManager`) saves the ``knn_graph`` and ``graph`` stages
+    atomically, each before its ``interruptible.synchronize``; with
+    ``resume=True`` the stages it holds are loaded instead of computed,
+    and the handle's generator is set to the state saved with them."""
+    from raft_tpu_torch.resilience import checkpoint as _ckpt
+    ckpt = _ckpt.as_manager(checkpoint)
     with precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
         dataset, _ = boundary.check_matrix(dataset, "dataset",
                                            site="cagra.build",
                                            allow_empty=False)
-        knn = build_knn_graph(res, dataset, params.intermediate_graph_degree,
-                              params=params)
+        dev = dataset.device
+        build.stage_seconds, build.build_pdim = {}, None
+        knn = _ckpt.run_stage(
+            ckpt, "knn_graph", resume, res.generator, dev,
+            lambda: {"knn": build_knn_graph(
+                res, dataset, params.intermediate_graph_degree,
+                params=params)})["knn"]
+        # cancellation point: the stage above is durable before a pending
+        # cancel() can raise
+        interruptible.synchronize(knn)
         stages = build.stage_seconds
-        t0 = _stage(stages, None, time.perf_counter(), dataset.device)
-        graph = prune(res, knn, params.graph_degree)
-        _stage(stages, "prune", t0, dataset.device)
-        return Index(dataset=dataset, graph=graph, metric=params.metric)
+        t0 = _stage(stages, None, time.perf_counter(), dev)
+        graph = _ckpt.run_stage(
+            ckpt, "graph", resume, res.generator, dev,
+            lambda: {"graph": prune(res, knn, params.graph_degree)})["graph"]
+        interruptible.synchronize(graph)
+        _stage(stages, "prune", t0, dev)
+        index = Index(dataset=dataset, graph=graph, metric=params.metric,
+                      data_dtype=dataset.dtype)
+        if params.canary_queries > 0:
+            cs = _canary.make(res, dataset, metric=params.metric,
+                              n_queries=params.canary_queries,
+                              k=params.canary_k, floor=params.canary_floor)
+            index.canaries = cs
+            cs.build_recall = _canary.measure(res, index, cs)
+            if resume:
+                _canary.auto_check(res, index, site="resume")
+        return index
 
 
 # wall seconds of the latest build's stages (each ends with a device
@@ -1261,36 +1303,81 @@ build.build_pdim = None
 
 
 # ---------------------------------------------------------------------------
-# carrying an index across; paths not ported yet
+# carrying an index across, serialization; paths not ported yet
 # ---------------------------------------------------------------------------
 
 def index_from_numpy(dataset, graph, metric: int = DistanceType.L2Expanded,
                      *, device="cuda") -> Index:
     """The port's :class:`Index` from numpy arrays, e.g. ``np.asarray`` of
     a ``raft_tpu`` index's ``dataset`` and ``graph``; see
-    :func:`attach_walk_cache` to carry its walk cache too."""
+    :func:`attach_walk_cache` to carry its walk cache too.  The rows are
+    held as float32 and ``data_dtype`` keeps the dataset's dtype."""
     def tensor(a):
         return torch.from_numpy(_writable(np.asarray(a))).to(device)
 
-    return Index(dataset=tensor(dataset).float(), graph=tensor(graph).int(),
-                 metric=metric)
+    rows = tensor(dataset)
+    return Index(dataset=rows.float(), graph=tensor(graph).int(),
+                 metric=metric, data_dtype=rows.dtype)
 
 
 def delete(res, index: Index, ids) -> Index:
     raise _not_ported("delete", "mutation")
 
 
-def serialize(res, stream, index: Index) -> None:
-    raise _not_ported("serialize", "serialization")
+# v2: trailing recall-canary block (nested envelope, may be absent)
+_SERIALIZATION_VERSION = 2
+_MIN_READ_VERSION = 1
 
 
-def deserialize(res, stream) -> Index:
-    raise _not_ported("deserialize", "serialization")
+def serialize(res, stream: BinaryIO, index: Index) -> None:
+    """CRC32-enveloped versioned dump (reference: cagra_serialize.cuh),
+    byte-equal to the JAX package's: the dataset in ``data_dtype`` and the
+    graph; the walk caches are not written."""
+    dataset = index.dataset
+    if index.data_dtype not in (None, dataset.dtype):
+        dataset = dataset.to(index.data_dtype)
+    with ser.enveloped_writer(stream) as body:
+        ser.serialize_scalar(res, body, np.int32(_SERIALIZATION_VERSION))
+        ser.serialize_scalar(res, body, np.int32(index.metric))
+        ser.serialize_mdspan(res, body, dataset)
+        ser.serialize_mdspan(res, body, index.graph)
+        _canary.to_stream(res, body, index.canaries)
 
 
-def save(res, filename: str, index: Index, **kwargs) -> None:
-    raise _not_ported("save", "serialization")
+def deserialize(res, stream: BinaryIO) -> Index:
+    """Read a stream either package wrote, onto ``res.device``; truncated
+    or bit-flipped streams raise :class:`~raft_tpu_torch.core.serialize.
+    CorruptIndexError`."""
+    body = ser.open_envelope(stream)
+    version = int(ser.deserialize_scalar(res, body))
+    if not _MIN_READ_VERSION <= version <= _SERIALIZATION_VERSION:
+        raise ValueError(
+            f"cagra serialization version mismatch: got {version}, "
+            f"expected {_MIN_READ_VERSION}..{_SERIALIZATION_VERSION}")
+    metric = int(ser.deserialize_scalar(res, body))
+    dataset = ser.deserialize_mdspan(res, body)
+    graph = ser.deserialize_mdspan(res, body)
+    index = index_from_numpy(dataset, graph, metric, device=res.device)
+    if version >= 2:
+        index.canaries = _canary.from_stream(res, body)
+    return index
 
 
-def load(res, filename: str, **kwargs) -> Index:
-    raise _not_ported("load", "serialization")
+def save(res, filename: str, index: Index, *, retry_policy=None,
+         deadline=None) -> None:
+    """Atomic file dump (tmp + fsync + rename) with transient-IO retry."""
+    from raft_tpu_torch.resilience import save_index
+    save_index("cagra.save", lambda b: serialize(res, b, index),
+               filename, retry_policy, deadline)
+
+
+def load(res, filename: str, *, retry_policy=None, deadline=None) -> Index:
+    """File-load overload: transient IO errors retry, corruption raises
+    :class:`~raft_tpu_torch.core.serialize.CorruptIndexError` at once; an
+    index carrying recall canaries is health-checked before it is
+    returned."""
+    from raft_tpu_torch.resilience import load_index
+    index = load_index("cagra.load", lambda b: deserialize(res, b),
+                       filename, retry_policy, deadline)
+    _canary.auto_check(res, index, site="load")
+    return index

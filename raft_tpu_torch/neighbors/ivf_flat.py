@@ -34,11 +34,21 @@ within 1/8 of ``n_lists``), so on the card the port's probe sets can
 differ from a TPU run's in the marginal probes; ``coarse_recall_target``
 has no effect here.
 
+Persistence: :func:`serialize` / :func:`deserialize` / :func:`save` /
+:func:`load` write and read the JAX package's stream (version 2, the
+reader takes 1..2) byte for byte.  Lists hold float32 rows whatever the
+dataset's dtype; ``Index.data_dtype`` keeps the build's input dtype, and
+the stream carries the rows in it (the cast back is exact), so a file is
+byte-equal to the JAX package's at every dtype and an fp16 / int8 / uint8
+file loads with an exact upcast.  ``list_data_sq`` is derived and never
+written: the first search of a loaded index attaches it again.  With
+``canary_queries > 0`` the build stores recall canaries
+(:mod:`raft_tpu_torch.integrity.canary`), which ``extend`` and ``load``
+health-check.
+
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``delete`` / ``upsert`` / ``compact`` (mutation), ``serialize`` /
-``deserialize`` / ``save`` / ``load`` (serialization), ``filter=``
-(filters) and ``canary_queries > 0`` (canaries).  Lists hold float32 rows
-whatever the dataset's dtype.  Inputs pass the boundary validator
+item: ``delete`` / ``upsert`` / ``compact`` (mutation) and ``filter=``
+(filters).  Inputs pass the boundary validator
 (:mod:`raft_tpu_torch.integrity.boundary`) at the JAX package's sites:
 under ``mask`` a build or extend keeps the zeroed rows and a search flags
 masked query rows as ``(+inf, -1)`` (``(-inf, -1)`` for InnerProduct).
@@ -48,17 +58,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import BinaryIO, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
+from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.distance.types import DistanceType, SQRT_METRICS
 from raft_tpu_torch.integrity import boundary
+from raft_tpu_torch.integrity import canary as _canary
 from raft_tpu_torch.matrix.ops import row_duplicate_mask
 from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.ops.pair_scan import ivf_flat_scan
@@ -105,7 +118,9 @@ class Index:
     fields.  ``list_data`` (n_lists, capacity, dim) float32 with zero rows
     in empty slots; ``list_indices`` (n_lists, capacity) int32 with -1
     there; ``list_data_sq`` the rows' squared norms (n_lists, capacity)
-    f32, attached by the first L2 search (extend keeps it current)."""
+    f32, attached by the first L2 search (extend keeps it current).
+    ``data_dtype`` is the dtype the rows are serialized in, the build's
+    input dtype (None: float32)."""
 
     centers: torch.Tensor
     list_data: torch.Tensor
@@ -116,6 +131,7 @@ class Index:
     list_data_sq: Optional[torch.Tensor] = None
     canaries: Optional[object] = None
     generation: int = 0
+    data_dtype: Optional[torch.dtype] = None
 
     @property
     def n_lists(self) -> int:
@@ -231,7 +247,8 @@ def _finalize_topk(vals: torch.Tensor, ids: torch.Tensor, k: int,
                         device=vals.device)
     best_i = torch.full((nq, k), -1, dtype=torch.int32, device=vals.device)
     if kf > 0:
-        d, i = select_k(alld, kf, in_idx=alli, select_min=select_min)
+        d, i = raw(select_k)(alld, kf, in_idx=alli,
+                             select_min=select_min)
         best_d[:, :kf] = d
         best_i[:, :kf] = torch.where(torch.isinf(d), torch.full_like(i, -1),
                                      torch.clamp_min(i, -1))
@@ -272,9 +289,8 @@ def _balanced_params(metric: int, n_iters: int = 20) -> KMeansBalancedParams:
 def build(res, params: IndexParams, dataset) -> Index:
     """Build an IVF-Flat index (reference: ivf_flat.cuh:65).  The wall
     seconds of its stages (trainset, coarse_fit, extend) land in
-    ``build.stage_seconds``."""
-    if params.canary_queries > 0:
-        raise _not_ported("canary_queries > 0", "canaries")
+    ``build.stage_seconds``; with ``canary_queries > 0`` (and the data
+    added) the index carries recall canaries."""
     with precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
         expects(dataset.ndim == 2, "ivf_flat.build: 2-D dataset required")
@@ -316,10 +332,18 @@ def build(res, params: IndexParams, dataset) -> Index:
                                     dtype=torch.int32, device=dev),
             list_sizes=torch.zeros(params.n_lists, dtype=torch.int32,
                                    device=dev),
-            metric=params.metric, adaptive_centers=params.adaptive_centers)
+            metric=params.metric, adaptive_centers=params.adaptive_centers,
+            data_dtype=dataset.dtype)
         if params.add_data_on_build:
             index = extend(res, index, dataset,
                            torch.arange(n, dtype=torch.int32, device=dev))
+            if params.canary_queries > 0:
+                cs = _canary.make(res, dataset, metric=params.metric,
+                                  n_queries=params.canary_queries,
+                                  k=params.canary_k,
+                                  floor=params.canary_floor)
+                index.canaries = cs
+                cs.build_recall = _canary.measure(res, index, cs)
         _stage(stages, "extend", t, dev)
         return index
 
@@ -342,7 +366,16 @@ def extend(res, index: Index, new_vectors, new_indices=None) -> Index:
     ``list_data_sq``); otherwise all rows are repacked at a capacity that
     leaves the fullest list room for one more.  With ``adaptive_centers``
     the centers drift to their lists' means (unit norm for
-    InnerProduct)."""
+    InnerProduct).  The new index keeps the canaries and health-checks
+    them."""
+    out = _extend(res, index, new_vectors, new_indices)
+    if index.canaries is not None:
+        out.canaries = index.canaries
+        _canary.auto_check(res, out, site="extend")
+    return out
+
+
+def _extend(res, index: Index, new_vectors, new_indices) -> Index:
     with precision.highest():
         new_vectors = ensure_tensor(new_vectors, res, "new_vectors").float()
         expects(new_vectors.ndim == 2 and new_vectors.shape[1] == index.dim,
@@ -368,7 +401,8 @@ def extend(res, index: Index, new_vectors, new_indices=None) -> Index:
         ip = index.metric == DistanceType.InnerProduct
         common = dict(metric=index.metric,
                       adaptive_centers=index.adaptive_centers,
-                      generation=index.generation + 1)
+                      generation=index.generation + 1,
+                      data_dtype=index.data_dtype)
         centers = index.centers
 
         if max_needed <= index.capacity:
@@ -449,6 +483,7 @@ def dedup_super_probes(probes: torch.Tensor, factor: int, n_super: int
                        sp)
 
 
+@auto_convert_output
 def search(res, params: SearchParams, index: Index, queries, k: int, *,
            filter=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search (reference: ivf_flat.cuh:389).  Returns (distances (nq, k)
@@ -500,7 +535,7 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
 
 
 # ---------------------------------------------------------------------------
-# carrying an index across; paths not ported yet
+# carrying an index across, serialization; paths not ported yet
 # ---------------------------------------------------------------------------
 
 def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
@@ -508,7 +543,8 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
     """Build the port's :class:`Index` from numpy arrays keyed by the JAX
     ``Index`` leaf names (``centers``, ``list_data``, ``list_indices``,
     ``list_sizes`` and, when present, ``list_data_sq``), e.g.
-    ``np.asarray`` of a ``raft_tpu``-built index's leaves."""
+    ``np.asarray`` of a ``raft_tpu``-built index's leaves.  The rows are
+    held as float32 and ``data_dtype`` keeps ``list_data``'s dtype."""
     missing = [n for n in ("centers", "list_data", "list_indices",
                            "list_sizes") if arrays.get(n) is None]
     expects(not missing, f"index_from_numpy: missing arrays {missing}")
@@ -518,12 +554,13 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
         return None if a is None else torch.from_numpy(
             _writable(np.asarray(a))).to(device)
 
-    return Index(centers=tensor("centers").float(),
-                 list_data=tensor("list_data").float(),
+    rows = tensor("list_data")
+    return Index(centers=tensor("centers").float(), list_data=rows.float(),
                  list_indices=tensor("list_indices").int(),
                  list_sizes=tensor("list_sizes").int(),
                  list_data_sq=tensor("list_data_sq"), metric=metric,
-                 adaptive_centers=adaptive_centers)
+                 adaptive_centers=adaptive_centers,
+                 data_dtype=rows.dtype)
 
 
 def delete(res, index: Index, ids) -> Index:
@@ -538,17 +575,69 @@ def compact(res, index: Index) -> Index:
     raise _not_ported("compact", "mutation")
 
 
-def serialize(res, stream, index: Index) -> None:
-    raise _not_ported("serialize", "serialization")
+# v2: trailing recall-canary block (nested envelope, may be absent)
+_SERIALIZATION_VERSION = 2
+_MIN_READ_VERSION = 1
 
 
-def deserialize(res, stream) -> Index:
-    raise _not_ported("deserialize", "serialization")
+def _stored_rows(index: Index) -> torch.Tensor:
+    """``list_data`` in the dtype the stream carries (exact: the float32
+    rows hold values of ``data_dtype``)."""
+    if index.data_dtype in (None, index.list_data.dtype):
+        return index.list_data
+    return index.list_data.to(index.data_dtype)
 
 
-def save(res, filename: str, index: Index, **kwargs) -> None:
-    raise _not_ported("save", "serialization")
+def serialize(res, stream: BinaryIO, index: Index) -> None:
+    """Versioned index dump in the CRC32 envelope (reference:
+    detail/ivf_flat_serialize.cuh), byte-equal to the JAX package's."""
+    with ser.enveloped_writer(stream) as body:
+        ser.serialize_scalar(res, body, np.int32(_SERIALIZATION_VERSION))
+        ser.serialize_scalar(res, body, np.int32(index.metric))
+        ser.serialize_scalar(res, body, np.int32(index.adaptive_centers))
+        for arr in (index.centers, _stored_rows(index), index.list_indices,
+                    index.list_sizes):
+            ser.serialize_mdspan(res, body, arr)
+        _canary.to_stream(res, body, index.canaries)
 
 
-def load(res, filename: str, **kwargs) -> Index:
-    raise _not_ported("load", "serialization")
+def deserialize(res, stream: BinaryIO) -> Index:
+    """Read a stream either package wrote, onto ``res.device``; truncated
+    or bit-flipped streams raise :class:`~raft_tpu_torch.core.serialize.
+    CorruptIndexError`."""
+    body = ser.open_envelope(stream)
+    version = int(ser.deserialize_scalar(res, body))
+    if not _MIN_READ_VERSION <= version <= _SERIALIZATION_VERSION:
+        raise ValueError(
+            f"ivf_flat serialization version mismatch: got {version}, "
+            f"expected {_MIN_READ_VERSION}..{_SERIALIZATION_VERSION}")
+    metric = int(ser.deserialize_scalar(res, body))
+    adaptive = bool(ser.deserialize_scalar(res, body))
+    arrays = {name: ser.deserialize_mdspan(res, body)
+              for name in ("centers", "list_data", "list_indices",
+                           "list_sizes")}
+    index = index_from_numpy(arrays, metric=metric,
+                             adaptive_centers=adaptive, device=res.device)
+    if version >= 2:
+        index.canaries = _canary.from_stream(res, body)
+    return index
+
+
+def save(res, filename: str, index: Index, *, retry_policy=None,
+         deadline=None) -> None:
+    """Atomic file dump (tmp + fsync + rename) with transient-IO retry."""
+    from raft_tpu_torch.resilience import _save_index
+    _save_index("ivf_flat.save", lambda b: serialize(res, b, index),
+                filename, retry_policy, deadline)
+
+
+def load(res, filename: str, *, retry_policy=None, deadline=None) -> Index:
+    """File-load overload: transient IO errors retry, corruption raises
+    :class:`~raft_tpu_torch.core.serialize.CorruptIndexError` at once; an
+    index carrying recall canaries is health-checked before it is
+    returned."""
+    from raft_tpu_torch.resilience import _load_index
+    index = _load_index("ivf_flat.load", lambda b: deserialize(res, b),
+                        filename, retry_policy, deadline)
+    _canary.auto_check(res, index, site="load")
+    return index

@@ -46,10 +46,22 @@ Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
 item: every search that resolves to the LUT scan (pq_bits outside {4, 8}
 without a recon cache, per-pair code scans at kt > 128), recon8 scans at
 kt > 128 or, past kt 64, at a capacity the query-major kernel cannot hold,
-InnerProduct search, ``filter=``, ``canary_queries > 0``,
-``CodebookKind.PER_CLUSTER``, checkpoint / resume, ``serialize`` /
-``load``, ``delete`` / ``upsert`` / ``compact`` and
-``calibrate_group_capacity``.
+InnerProduct search, ``filter=``, ``CodebookKind.PER_CLUSTER`` (a
+build, or a file holding per-cluster books), ``delete`` / ``upsert`` /
+``compact`` and ``calibrate_group_capacity``.
+
+Persistence: :func:`serialize` / :func:`deserialize` / :func:`save` /
+:func:`load` write and read the JAX package's stream (version 4, the
+reader takes 2..4) byte for byte; the caches are derived and never
+written (``cache_reconstructions=True``, the default, decodes the recon
+cache again at load).  ``build(..., checkpoint=dir)`` saves the
+``kmeans`` and ``codebooks`` stages, each before its
+``interruptible.synchronize``, and ``resume=True`` loads the stages a
+checkpoint holds instead of computing them; each stage also keeps the
+handle generator's state, so on the CPU a resumed build is bit-identical
+to an uninterrupted one.  ``canary_queries > 0`` stores recall canaries
+(:mod:`raft_tpu_torch.integrity.canary`), checked after ``extend``,
+``load`` and a resumed build.
 
 Inputs pass the boundary validator (:mod:`raft_tpu_torch.integrity.
 boundary`) at the JAX package's sites and with its site strings: under
@@ -68,17 +80,21 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Mapping, Optional, Tuple
+from typing import BinaryIO, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.core.interruptible import interruptible
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
+from raft_tpu_torch.core.outputs import auto_convert_output
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS
 from raft_tpu_torch.integrity import boundary
+from raft_tpu_torch.integrity import canary as _canary
 from raft_tpu_torch.neighbors import ivf_flat
 from raft_tpu_torch.neighbors.ivf_flat import (_LIST_ALIGN,
                                                _append_lists_multi,
@@ -341,14 +357,17 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
           resume: bool = False) -> Index:
     """Build an IVF-PQ index (reference: ivf_pq.cuh:224).  The wall
     seconds of its stages (trainset, coarse_fit, codebooks,
-    encode_and_pack, recon_cache) land in ``build.stage_seconds``."""
-    if checkpoint is not None or resume:
-        raise _not_ported("build checkpoint / resume",
-                          "checkpointing")
+    encode_and_pack, recon_cache) land in ``build.stage_seconds``.
+
+    ``checkpoint`` (a directory or a :class:`~raft_tpu_torch.resilience.
+    CheckpointManager`) saves the ``kmeans`` and ``codebooks`` stages
+    atomically, each before its ``interruptible.synchronize``; with
+    ``resume=True`` the stages it holds are loaded instead of computed,
+    and the handle's generator is set to the state saved with them."""
+    from raft_tpu_torch.resilience import checkpoint as _ckpt
     if params.codebook_kind != CodebookKind.PER_SUBSPACE:
         raise _not_ported("CodebookKind.PER_CLUSTER", "per-cluster books")
-    if params.canary_queries > 0:
-        raise _not_ported("canary_queries > 0", "canaries")
+    ckpt = _ckpt.as_manager(checkpoint)
     with precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
         expects(dataset.ndim == 2, "ivf_pq.build: 2-D dataset required")
@@ -383,16 +402,28 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
         train_rot = trainset.float() @ rotation
         t = _stage(stages, "trainset", t, dev)
         bal = KMeansBalancedParams(n_iters=params.kmeans_n_iters)
-        centers = kmeans_balanced.fit(res, bal, train_rot, params.n_lists)
+        centers = _ckpt.run_stage(
+            ckpt, "kmeans", resume, res.generator, dev,
+            lambda: {"centers": kmeans_balanced.fit(
+                res, bal, train_rot, params.n_lists)})["centers"]
+        # cancellation point: the stage above is durable before a pending
+        # cancel() can raise
+        interruptible.synchronize(centers)
         t = _stage(stages, "coarse_fit", t, dev)
 
-        # per-subspace codebooks over the trainset's residuals
-        labels_t = kmeans_balanced.predict(res, bal, train_rot, centers)
-        resid = _subspace_split(train_rot - centers[labels_t], pq_dim)
-        codebooks = _train_books_per_subspace(
-            resid.transpose(0, 1), res.generator, 1 << params.pq_bits,
-            params.kmeans_n_iters)
-        del train_rot, resid, labels_t
+        def fit_books():
+            """Per-subspace codebooks over the trainset's residuals."""
+            labels_t = kmeans_balanced.predict(res, bal, train_rot, centers)
+            resid = _subspace_split(train_rot - centers[labels_t], pq_dim)
+            return {"codebooks": _train_books_per_subspace(
+                resid.transpose(0, 1), res.generator, 1 << params.pq_bits,
+                params.kmeans_n_iters)}
+
+        codebooks = _ckpt.run_stage(ckpt, "codebooks", resume,
+                                    res.generator, dev,
+                                    fit_books)["codebooks"]
+        del train_rot
+        interruptible.synchronize(codebooks)
         t = _stage(stages, "codebooks", t, dev)
 
         index = Index(
@@ -415,6 +446,14 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
         if params.cache_reconstructions and index.list_recon is None:
             index = _with_recon(index)
         _stage(stages, "recon_cache", t, dev)
+        if params.canary_queries > 0 and params.add_data_on_build:
+            cs = _canary.make(res, dataset, metric=params.metric,
+                              n_queries=params.canary_queries,
+                              k=params.canary_k, floor=params.canary_floor)
+            index.canaries = cs
+            cs.build_recall = _canary.measure(res, index, cs)
+            if resume:
+                _canary.auto_check(res, index, site="resume")
         return index
 
 
@@ -428,7 +467,16 @@ def extend(res, index: Index, new_vectors, new_indices=None) -> Index:
     index, the next generation.  Lists with headroom for every new row take
     a scatter-append (recon cache rows appended alongside); otherwise all
     rows are repacked at a capacity that leaves the fullest list room for
-    one more, and the recon cache is rebuilt if the index had one."""
+    one more, and the recon cache is rebuilt if the index had one.  The
+    new index keeps the canaries and health-checks them."""
+    out = _extend(res, index, new_vectors, new_indices)
+    if index.canaries is not None:
+        out.canaries = index.canaries
+        _canary.auto_check(res, out, site="extend")
+    return out
+
+
+def _extend(res, index: Index, new_vectors, new_indices) -> Index:
     with precision.highest():
         new_vectors = ensure_tensor(new_vectors, res, "new_vectors")
         new_vectors, _ = boundary.check_matrix(
@@ -724,6 +772,7 @@ def _search_recon8(index, qrot, probes, k, kt):
     return _finalize_topk(vals, ids, k, index.metric)
 
 
+@auto_convert_output
 def search(res, params: SearchParams, index: Index, queries, k: int, *,
            filter=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search (reference: ivf_pq.cuh:342).  Returns (distances (nq, k)
@@ -817,7 +866,7 @@ search.last_fallback_reason = ""
 
 
 # ---------------------------------------------------------------------------
-# carrying an index across, storage
+# carrying an index across, serialization, storage
 # ---------------------------------------------------------------------------
 
 _LEAVES = ("centers", "codebooks", "list_codes", "list_indices",
@@ -828,6 +877,7 @@ _LEAVES = ("centers", "codebooks", "list_codes", "list_indices",
 
 def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
                      pq_bits: int, codebook_kind: int = CodebookKind.PER_SUBSPACE,
+                     pq_dim: int = 0, group_est: float = 0.0,
                      device="cuda") -> Index:
     """Build the port's :class:`Index` from numpy arrays keyed by the JAX
     ``Index`` leaf names (``centers``, ``codebooks``, ``list_codes``,
@@ -838,7 +888,9 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
     index's leaves.  The int8 rows may carry any zero padding that keeps
     them a multiple of 16 bytes (the JAX package pads them to 128).  bf16
     arrays (the ml_dtypes bfloat16 numpy dtype, which ``torch.from_numpy``
-    rejects) go through float32 to ``torch.bfloat16``, which is exact."""
+    rejects) go through float32 to ``torch.bfloat16``, which is exact.
+    ``pq_dim`` and ``group_est`` are the index's scalars of those names
+    (0: ``pq_dim`` from the shapes, uncalibrated)."""
     if codebook_kind != CodebookKind.PER_SUBSPACE:
         raise _not_ported("CodebookKind.PER_CLUSTER", "per-cluster books")
     missing = [n for n in _LEAVES[:6] if arrays.get(n) is None]
@@ -854,7 +906,7 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
     leaves = {n: tensor(arrays[n]) if arrays.get(n) is not None else None
               for n in _LEAVES}
     return Index(**leaves, metric=metric, codebook_kind=codebook_kind,
-                 pq_bits=pq_bits)
+                 pq_bits=pq_bits, pq_dim_=pq_dim, group_est=group_est)
 
 
 def delete(res, index: Index, ids) -> Index:
@@ -879,17 +931,85 @@ def calibrate_group_capacity(res, index: Index, queries,
     raise _not_ported("calibrate_group_capacity", "LUT scan")
 
 
-def serialize(res, stream, index: Index) -> None:
-    raise _not_ported("serialize", "serialization")
+# v2: list_codes are bit-packed; pq_dim is stored explicitly
+# v3: trailing recall-canary block (nested envelope, may be absent)
+# v4: calibrated group-capacity estimate (group_est float64 scalar)
+#     between the fixed header and the mdspans
+_SERIALIZATION_VERSION = 4
+_MIN_READ_VERSION = 2
 
 
-def deserialize(res, stream, **kwargs) -> Index:
-    raise _not_ported("deserialize", "serialization")
+def serialize(res, stream: BinaryIO, index: Index) -> None:
+    """CRC32-enveloped versioned dump (reference: ivf_pq_serialize.cuh),
+    byte-equal to the JAX package's.  The caches are not written."""
+    with ser.enveloped_writer(stream) as body:
+        ser.serialize_scalar(res, body, np.int32(_SERIALIZATION_VERSION))
+        ser.serialize_scalar(res, body, np.int32(index.metric))
+        ser.serialize_scalar(res, body, np.int32(index.codebook_kind))
+        ser.serialize_scalar(res, body, np.int32(index.pq_bits))
+        ser.serialize_scalar(res, body, np.int32(index.pq_dim))
+        ser.serialize_scalar(res, body, np.float64(index.group_est))
+        for arr in (index.centers, index.codebooks, index.list_codes,
+                    index.list_indices, index.list_sizes, index.rotation):
+            ser.serialize_mdspan(res, body, arr)
+        _canary.to_stream(res, body, index.canaries)
 
 
-def save(res, filename: str, index: Index, **kwargs) -> None:
-    raise _not_ported("save", "serialization")
+def deserialize(res, stream: BinaryIO, *,
+                cache_reconstructions: bool = True) -> Index:
+    """Read a stream either package wrote, onto ``res.device``; truncated
+    or bit-flipped streams raise :class:`~raft_tpu_torch.core.serialize.
+    CorruptIndexError`.  ``cache_reconstructions`` decodes the recon cache
+    again (:func:`_with_recon`).  A file holding per-cluster books raises
+    ``NotImplementedError`` (not ported yet)."""
+    body = ser.open_envelope(stream)
+    version = int(ser.deserialize_scalar(res, body))
+    if not _MIN_READ_VERSION <= version <= _SERIALIZATION_VERSION:
+        raise ValueError(
+            f"ivf_pq serialization version mismatch: got {version}, "
+            f"expected {_MIN_READ_VERSION}..{_SERIALIZATION_VERSION}")
+    metric = int(ser.deserialize_scalar(res, body))
+    kind = int(ser.deserialize_scalar(res, body))
+    if kind != CodebookKind.PER_SUBSPACE:
+        raise _not_ported("loading CodebookKind.PER_CLUSTER",
+                          "per-cluster books")
+    pq_bits = int(ser.deserialize_scalar(res, body))
+    pq_dim = int(ser.deserialize_scalar(res, body))
+    # pre-v4 streams carry no capacity estimate: the index loads
+    # uncalibrated
+    group_est = (float(ser.deserialize_scalar(res, body))
+                 if version >= 4 else 0.0)
+    arrays = {name: ser.deserialize_mdspan(res, body)
+              for name in _LEAVES[:6]}
+    index = index_from_numpy(arrays, metric=metric, pq_bits=pq_bits,
+                             pq_dim=pq_dim, group_est=group_est,
+                             device=res.device)
+    if version >= 3:
+        index.canaries = _canary.from_stream(res, body)
+    if cache_reconstructions:
+        index = _with_recon(index)
+    return index
 
 
-def load(res, filename: str, **kwargs) -> Index:
-    raise _not_ported("load", "serialization")
+def save(res, filename: str, index: Index, *, retry_policy=None,
+         deadline=None) -> None:
+    """Atomic file dump (tmp + fsync + rename) with transient-IO retry."""
+    from raft_tpu_torch.resilience import save_index
+    save_index("ivf_pq.save", lambda b: serialize(res, b, index),
+               filename, retry_policy, deadline)
+
+
+def load(res, filename: str, *, cache_reconstructions: bool = True,
+         retry_policy=None, deadline=None) -> Index:
+    """File-load overload: transient IO errors retry, corruption raises
+    :class:`~raft_tpu_torch.core.serialize.CorruptIndexError` at once; an
+    index carrying recall canaries is health-checked before it is
+    returned."""
+    from raft_tpu_torch.resilience import load_index
+    index = load_index(
+        "ivf_pq.load",
+        lambda b: deserialize(
+            res, b, cache_reconstructions=cache_reconstructions),
+        filename, retry_policy, deadline)
+    _canary.auto_check(res, index, site="load")
+    return index

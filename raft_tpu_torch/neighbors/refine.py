@@ -15,6 +15,7 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, SQRT_METRICS
@@ -23,6 +24,7 @@ from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.utils import precision
 
 
+@auto_convert_output
 def refine(res, dataset, queries, candidates, k: int, *,
            metric: int = DistanceType.L2Unexpanded
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -48,14 +50,14 @@ def refine(res, dataset, queries, candidates, k: int, *,
         ip = torch.einsum("qd,qcd->qc", qf, cand)
         if metric == DistanceType.InnerProduct:
             d = torch.where(valid, ip, torch.full_like(ip, -float("inf")))
-            vals, pos = select_k(d, k, select_min=False)
+            vals, pos = raw(select_k)(d, k, select_min=False)
         else:
             d = torch.clamp_min((cand * cand).sum(-1) - 2.0 * ip
                                 + (qf * qf).sum(-1, keepdim=True), 0.0)
             if metric in SQRT_METRICS:
                 d = torch.sqrt(d)
             d = torch.where(valid, d, torch.full_like(d, float("inf")))
-            vals, pos = select_k(d, k, select_min=True)
+            vals, pos = raw(select_k)(d, k, select_min=True)
         return boundary.mask_search_outputs(
             vals, torch.gather(candidates, 1, pos).int(), ok_rows,
             select_min=metric != DistanceType.InnerProduct)

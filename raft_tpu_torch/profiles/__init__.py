@@ -22,7 +22,10 @@ and one of the port's own design, with no JAX script behind it:
   (and with one TF32 product for 3xTF32's three).
 - :mod:`.code_scan_decomp`: Kernels C and D's list-major pass over the
   PQ codes with its decode run after the products or taken out, beside
-  Kernel G's pass 1 over the recon cache.
+  Kernel G's pass 1 over the recon cache;
+- :mod:`.pair_cut_ties`: how often a tie at a pair's top-kt cut leaves
+  Kernel C's merged rows and its plain version's with different ids and
+  no equal distance beside them (a count, not a time).
 
 Each runs on the card as ``python3 -m raft_tpu_torch.profiles.<name>``
 and prints one JSON line per measurement.  Each of the four ports also has

@@ -2,9 +2,12 @@
 
 Each name a ``raft_tpu`` package ``__init__`` exports (the top level and
 ``core``, ``distance``, ``cluster``, ``matrix``, ``neighbors``,
-``integrity``) and each public name of the reference modules the port has
-shipped (``core.error``, ``core.resources``, ``core.mdarray``,
-``utils.precision``, ``matrix.ops``) resolves in ``raft_tpu_torch`` to the
+``integrity``, ``resilience``) and each public name of the reference
+modules the port has shipped (``core.error``, ``core.resources``,
+``core.mdarray``, ``utils.precision``, ``matrix.ops``, and the
+persistence slice's ``core.serialize``, ``core.interruptible``,
+``core.outputs``, ``config``, ``integrity.canary`` and the four
+``resilience`` modules) resolves in ``raft_tpu_torch`` to the
 same kind of object (module, class, function, or a constant of the same
 type), or to a stand-in that raises ``NotImplementedError`` naming an
 item of ROADMAP.md §1's deferred list.  The ported small names (``fail``,
@@ -37,9 +40,13 @@ from raft_tpu_torch.utils import precision
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGES = ["", ".core", ".distance", ".cluster", ".matrix", ".neighbors",
-            ".integrity"]
+            ".integrity", ".resilience"]
 SHIPPED_MODULES = [".core.error", ".core.resources", ".core.mdarray",
-                   ".utils.precision", ".matrix.ops"]
+                   ".utils.precision", ".matrix.ops", ".core.serialize",
+                   ".core.interruptible", ".core.outputs", ".config",
+                   ".integrity.canary", ".resilience.faults",
+                   ".resilience.retry", ".resilience.checkpoint",
+                   ".resilience.io"]
 
 
 def _deferred_items():
@@ -133,8 +140,40 @@ def _assert_counterpart(ref, port_module, name, where):
 
 
 def test_the_deferred_list_is_read():
-    assert {"serialization", "primitives", "canaries", "the tail",
+    assert {"primitives", "mutation", "filters", "the tail",
             "host-side subsystems"} <= DEFERRED
+    # shipped with the persistence slice: no stand-in may name them
+    assert not {"serialization", "canaries", "checkpointing"} & DEFERRED
+
+
+def test_persistence_names_are_the_ported_objects():
+    """The names that were stand-ins before the persistence slice are the
+    real objects now: none carries a deferred item, and each does what
+    its reference does on a small case."""
+    import io
+
+    import raft_tpu_torch
+    from raft_tpu_torch import config, integrity
+    from raft_tpu_torch.core import serialize
+    from raft_tpu_torch.core.interruptible import interruptible
+
+    for obj in (raft_tpu_torch.auto_convert_output, integrity.CanarySet,
+                integrity.CanaryReport, integrity.health_check,
+                config.set_output_as, config.get_output_as,
+                serialize.serialize_mdspan, serialize.deserialize_scalar,
+                interruptible):
+        assert getattr(obj, "not_ported_item", None) is None, obj
+    buf = io.BytesIO()
+    serialize.serialize_scalar(None, buf, np.int32(7))
+    serialize.serialize_mdspan(None, buf, torch.arange(3))
+    buf.seek(0)
+    assert serialize.deserialize_scalar(None, buf) == 7
+    np.testing.assert_array_equal(serialize.deserialize_mdspan(None, buf),
+                                  np.arange(3))
+    assert config.get_output_as() == "torch"
+    assert integrity.health_check(None, object()) is None
+    report = integrity.CanaryReport(recall=0.5, floor=0.6, n_queries=2, k=1)
+    assert not report.ok
 
 
 @pytest.mark.parametrize("package", PACKAGES,
@@ -199,6 +238,14 @@ assert ivf_pq.search
 """,
     # a kernel wrapper first: its `from raft_tpu_torch.neighbors import
     # grouped` runs the package __init__ before the wrapper is complete
+    "persistence": """
+from raft_tpu_torch.resilience import CheckpointManager, inject
+from raft_tpu_torch.core.serialize import CorruptIndexError
+from raft_tpu_torch.integrity import canary
+from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+from raft_tpu_torch import auto_convert_output, config
+assert ivf_pq.save and ivf_flat.load and cagra.deserialize
+""",
     "ops-first": """
 import raft_tpu_torch.ops.pq_group_scan
 import raft_tpu_torch.ops.pq_code_scan

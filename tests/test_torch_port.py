@@ -3,6 +3,7 @@ paths this slice leaves for later (each must raise NotImplementedError
 naming its ROADMAP item rather than take another route)."""
 
 import ast
+import io
 import pathlib
 
 import numpy as np
@@ -258,28 +259,46 @@ def test_filtered_and_ip_search_raise(tiny_index):
 @pytest.mark.parametrize("change,item", [
     (dict(codebook_kind=ivf_pq.CodebookKind.PER_CLUSTER),
      "per-cluster books"),
-    (dict(canary_queries=4), "canaries"),
+    (dict(canary_queries=4), None),
 ])
 def test_build_options_off_the_path_raise(change, item):
+    """An option the port has not reached raises NotImplementedError
+    naming its ROADMAP item; canaries (item None, deferred before the
+    persistence slice) build and are stored."""
     res = DeviceResources(device="cpu")
+    build = lambda: ivf_pq.build(res, ivf_pq.IndexParams(  # noqa: E731
+        n_lists=2, **change), np.random.default_rng(0).normal(
+            size=(64, 4)).astype(np.float32))
+    if item is None:
+        assert build().canaries.n_queries == change["canary_queries"]
+        return
     with pytest.raises(NotImplementedError, match=item):
-        ivf_pq.build(res, ivf_pq.IndexParams(n_lists=2, **change),
-                     np.zeros((8, 4), np.float32))
+        build()
 
 
-def test_checkpoint_serialization_and_hierarchical_raise(tiny_index):
+def test_checkpoint_serialization_and_hierarchical_raise(tiny_index,
+                                                         tmp_path):
+    """Checkpointing and serialization (deferred before the persistence
+    slice) work: a checkpointed build lists its two stages, and a saved
+    index loads with the same arrays; the hierarchical fit raises only on
+    what fit refuses."""
     from raft_tpu_torch.cluster import kmeans_balanced
     from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
+    from raft_tpu_torch.resilience import CheckpointManager
 
     res, index, db = tiny_index
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        ivf_pq.build(res, ivf_pq.IndexParams(n_lists=2), db,
-                     checkpoint="ckpt")
-    for fn, args in ((ivf_pq.save, ("f", index)), (ivf_pq.load, ("f",)),
-                     (ivf_pq.serialize, (None, index)),
-                     (ivf_pq.deserialize, (None,))):
-        with pytest.raises(NotImplementedError, match="serialization"):
-            fn(res, *args)
+    ckpt = str(tmp_path / "ckpt")
+    ivf_pq.build(res, ivf_pq.IndexParams(n_lists=2), db, checkpoint=ckpt)
+    assert CheckpointManager(ckpt).completed == ["kmeans", "codebooks"]
+    path = str(tmp_path / "f")
+    ivf_pq.save(res, path, index)
+    buf = io.BytesIO()
+    ivf_pq.serialize(res, buf, index)
+    buf.seek(0)
+    for loaded in (ivf_pq.load(res, path), ivf_pq.deserialize(res, buf)):
+        for leaf in ("centers", "codebooks", "list_codes", "list_indices",
+                     "list_recon"):
+            assert torch.equal(getattr(loaded, leaf), getattr(index, leaf))
     # the hierarchical build is ported; it raises only on what fit refuses
     with pytest.raises(LogicError, match="n_clusters > n_samples"):
         kmeans_balanced.fit(res, KMeansBalancedParams(), db[:40], 41,
@@ -315,27 +334,44 @@ def tiny_flat():
         n_lists=8, kmeans_n_iters=3), db), db
 
 
+def _flat_reloaded(res, index):
+    buf = io.BytesIO()
+    ivf_flat.serialize(res, buf, index)
+    buf.seek(0)
+    return ivf_flat.deserialize(res, buf)
+
+
+def _flat_saved(res, index, path):
+    ivf_flat.save(res, path, index)
+    return path
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda res, index, db: ivf_flat.delete(res, index, [1]), "mutation"),
-    (lambda res, index, db: ivf_flat.upsert(res, index, [1], db[:1]),
+    (lambda res, index, db, d: ivf_flat.delete(res, index, [1]), "mutation"),
+    (lambda res, index, db, d: ivf_flat.upsert(res, index, [1], db[:1]),
      "mutation"),
-    (lambda res, index, db: ivf_flat.compact(res, index), "mutation"),
-    (lambda res, index, db: ivf_flat.serialize(res, None, index),
-     "serialization"),
-    (lambda res, index, db: ivf_flat.deserialize(res, None),
-     "serialization"),
-    (lambda res, index, db: ivf_flat.save(res, "f", index), "serialization"),
-    (lambda res, index, db: ivf_flat.load(res, "f"), "serialization"),
-    (lambda res, index, db: ivf_flat.search(
+    (lambda res, index, db, d: ivf_flat.compact(res, index), "mutation"),
+    (lambda res, index, db, d: ivf_flat.serialize(res, io.BytesIO(), index),
+     None),
+    (lambda res, index, db, d: _flat_reloaded(res, index), None),
+    (lambda res, index, db, d: ivf_flat.save(res, str(d / "f"), index),
+     None),
+    (lambda res, index, db, d: ivf_flat.load(
+        res, _flat_saved(res, index, str(d / "f"))), None),
+    (lambda res, index, db, d: ivf_flat.search(
         res, ivf_flat.SearchParams(), index, db[:2], 5,
         filter=np.ones((2, 600), bool)), "filters"),
-    (lambda res, index, db: ivf_flat.build(
-        res, ivf_flat.IndexParams(n_lists=2, canary_queries=4), db),
-     "canaries"),
+    (lambda res, index, db, d: ivf_flat.build(
+        res, ivf_flat.IndexParams(n_lists=2, canary_queries=4), db), None),
 ], ids=["delete", "upsert", "compact", "serialize", "deserialize", "save",
         "load", "filter", "canaries"])
-def test_ivf_flat_paths_off_the_path_raise(tiny_flat, call, item):
+def test_ivf_flat_paths_off_the_path_raise(tiny_flat, tmp_path, call, item):
     """Each IVF-Flat path this port has not reached raises
-    NotImplementedError naming its ROADMAP item."""
+    NotImplementedError naming its ROADMAP item; the persistence paths
+    (item None: serialization and canaries, deferred before) complete."""
+    if item is None:
+        out = call(*tiny_flat, tmp_path)
+        assert out is None or isinstance(out, ivf_flat.Index)
+        return
     with pytest.raises(NotImplementedError, match=item):
-        call(*tiny_flat)
+        call(*tiny_flat, tmp_path)
