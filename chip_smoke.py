@@ -122,8 +122,38 @@ Phases, in order; any failure raises and the script exits non-zero:
     stage file, recall@10 against the flagship's recorded 0.9769-0.9786,
     printed with the gap when outside), then a resume from the complete
     checkpoint, bit-equal in every leaf to the build that wrote it; the
-    seconds of each build.  The phase's CAGRA part closes phase 12.
-12. CAGRA at full width (``conf/sift-like-1m.json`` entry
+    seconds of each build.  The phase's CAGRA part closes phase 13.
+12. Filtered and mutable indexes at full width, on the indexes built
+    above, with three filters over the 1M ids: 50% per query (random
+    words, seed FILTER_SEED), a ``TenantFilter`` of 16 contiguous ranges
+    of 62,500 ids (query q in tenant q mod 16) and the 50% filter's
+    first row broadcast (an ``expand``, query stride 0).  The flagship
+    (n_probes 96, k 20 -> 10) and IVF-Flat nlist 4096 (n_probes 64, k
+    10): ms per batch of 5,000 with each filter beside the unfiltered ms,
+    recall@10 against the filtered ``brute_force.knn`` (>= 0.90 at 50%
+    on the flagship), every returned id admitted, the list-major passes
+    launched and no query-major kernel; the full-probe contract on 64
+    queries (n_probes 4096: the filtered top 10 equals the unfiltered top
+    64 with the rejected rows dropped, bit for bit, each query keeping at
+    least 10 admitted rows); Kernels B and G (flagship) and F (IVF-Flat)
+    with the 50% filter against their plain versions, B's pass-1 device
+    ms with each filter beside the unfiltered pass in turn.  Mutation on
+    the flagship: 10,000 random ids deleted (none surfaces; recall over
+    the live rows), 5,000 of them upserted with their rows, ``compact``
+    (capacity, each rebuilt cache's seconds; the search after equals the
+    search before up to ties), the mutated index saved and loaded
+    (searches bit-equal); on IVF-Flat 4096 delete and compact.  After the
+    CAGRA phase: ``deg32`` at itopk 64 width 2 with the 50% filter
+    (recall printed, one walk launch a search, every id admitted), the
+    filtered walk captured and held to the plain walk bit for bit, and
+    the delete shim (no deleted id).  In the deep phase: filtered
+    ``fused`` / ``codes`` / ``recon8`` searches at kt 4 on 1,000 queries
+    with one 50% row broadcast, and Kernels C, D and E with it against
+    their plain versions.  Each filtered kernel check is an
+    ``also_checked`` row of its kernel (its bytes count the admission
+    bits: one a query and probed live row, one a probed live row for a
+    broadcast row).
+13. CAGRA at full width (``conf/sift-like-1m.json`` entry
     ``raft_cagra.deg32``) on the same rows: ``cagra.build`` at
     ``IndexParams(graph_degree=32, intermediate_graph_degree=64)`` (seconds,
     stage seconds, the build's projected dimension, launches zeroed before
@@ -154,7 +184,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     checkpointed build and a resume from its complete checkpoint, the
     graph bit-equal; the phase's seconds and numbers on one line with the
     card's name and power limit.
-13. Deep path at full width (``conf/deep-like-10m.json`` entry
+14. Deep path at full width (``conf/deep-like-10m.json`` entry
     ``raft_ivf_pq.dim48``): a 10,000,000 x 96 database + 5,000 queries
     from the same generator, ``ivf_pq.build`` at ``IndexParams(
     n_lists=8192, pq_dim=48, kmeans_trainset_fraction=0.1)`` (the
@@ -180,7 +210,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     rows as bf16, each bit for bit; C, D and E's query-major routes at k
     = kt = 128 on 1,000 queries; and each mode's batch under the
     profiler.
-14. A JSON line with each kernel's route, source, launches, error, time
+15. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path, and
     under ``also_checked`` the same measurements at the other shapes its
@@ -429,7 +459,9 @@ EXTRA = ("library_tf32_ms", "yardstick_simt_ms", "yardstick_simt_device_ms",
          "tau", "label_flips", "device_ms", "assign_device_ms",
          "update_device_ms", "grouping_device_ms", "pass1_device_ms",
          "pass2_device_ms", "n_groups", "touched_lists", "pair_buffer_bytes",
-         "source", "check_launches", "yardstick_loop_ms", "walk_hops")
+         "source", "check_launches", "yardstick_loop_ms", "walk_hops",
+         "unfiltered_pass1_device_ms", "tenant_pass1_device_ms",
+         "broadcast_pass1_device_ms", "filter_bytes")
 
 
 def at_shape(row, shape, launches):
@@ -813,14 +845,17 @@ def check_query_major(index, queries, nq, fused):
 
 
 def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
-                       k=K_SEARCH):
+                       k=K_SEARCH, filter_words=None):
     """Kernels C, D and E (those named in ``kernels``) against their plain
     versions on a path's batch (n_probes 96) at per-pair ``kt`` and C's
     ``k``.  Each runs the route its gate picks (list-major where a pair
     keeps at most 64 candidates: ``csrc/pq_code_list_scan.cu``, over the
     codes or, for E, the int8 rows, with the device split and the group
     count; else the query-major ``pq_code_scan.cu`` / ``pq_recon8_scan.
-    cu``); each route's launch counter must move."""
+    cu``); each route's launch counter must move.  With ``filter_words``
+    every kernel and plain version runs filtered (names marked), every
+    returned id must be admitted, and the bytes count the admission bits
+    (one a probed live row for a broadcast row)."""
     from raft_tpu_torch.ops import pq_code_scan as pcs
 
     qrot, probes = probe(index, queries)
@@ -829,6 +864,11 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
     books = index.codebooks
     codes_args = (qrot, index.centers, probes, index.list_codes, books,
                   index.list_code_rsq, index.list_indices, index.pq_bits)
+    fw, tag, adm = (), "", 0
+    if filter_words is not None:
+        fw, tag = (filter_words,), " (filtered)"
+        adm = admission_bytes(index.list_sizes, probes,
+                              filter_words.stride(0) == 0)
 
     def decoded(slot):
         return pcs.decode_codes(index.list_codes.reshape(-1, W)[slot], books,
@@ -844,23 +884,23 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
     if "C" in kernels:
         on_list = listed(min(kt, k))
         specs.append((
-            "ivf_pq_scan_codes_fused",
+            "ivf_pq_scan_codes_fused" + tag,
             "pq_code_list_scan.cu" if on_list else "pq_code_scan.cu",
             codes_src + "282", pcs.ivf_pq_scan_codes_fused,
-            pcs.ivf_pq_scan_codes_fused_plain, codes_args + (k, kt), decoded,
-            index.list_code_rsq, None, W + 8, 2 * books.numel(), nq * k * 8,
-            rot))
+            pcs.ivf_pq_scan_codes_fused_plain, codes_args + (k, kt) + fw,
+            decoded, index.list_code_rsq, None, W + 8,
+            2 * books.numel() + adm, nq * k * 8, rot))
         routes.append(pcs.code_list_scan if on_list
                       else pcs.codes_fused_query_major)
     if "D" in kernels:
         on_list = listed(kt)
         specs.append((
-            "ivf_pq_scan_codes",
+            "ivf_pq_scan_codes" + tag,
             "pq_code_list_scan.cu" if on_list else "pq_code_scan.cu",
             codes_src + "367", pcs.ivf_pq_scan_codes,
-            pcs.ivf_pq_scan_codes_plain, codes_args + (kt,), decoded,
-            index.list_code_rsq, None, W + 8, 2 * books.numel(), pair_out,
-            rot))
+            pcs.ivf_pq_scan_codes_plain, codes_args + (kt,) + fw, decoded,
+            index.list_code_rsq, None, W + 8, 2 * books.numel() + adm,
+            pair_out, rot))
         routes.append(pcs.code_list_scan if on_list
                       else pcs.codes_scan_query_major)
     if "E" in kernels:
@@ -869,23 +909,25 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
         on_list = not pcs.recon8_list_scan_reject_reason(
             rot_pad, min(kt, index.capacity))
         specs.append((
-            "ivf_pq_scan_recon8",
+            "ivf_pq_scan_recon8" + tag,
             "pq_code_list_scan.cu" if on_list else "pq_recon8_scan.cu",
             codes_src + "441", pcs.ivf_pq_scan_recon8,
             pcs.ivf_pq_scan_recon8_plain,
             (qrot, index.centers, probes, i8, index.list_recon_scale,
-             index.list_recon_i8_sq, index.list_indices, kt),
+             index.list_recon_i8_sq, index.list_indices, kt) + fw,
             lambda slot: i8.reshape(-1, rot_pad)[slot].float(),
             index.list_recon_i8_sq, index.list_recon_scale, rot_pad + 8,
-            4 * index.n_lists, pair_out, rot_pad))
+            4 * index.n_lists + adm, pair_out, rot_pad))
         routes.append(pcs.recon8_list_scan if on_list
                       else pcs.recon8_scan_query_major)
     before = [r.launches for r in routes]
     rows = check_scans(index, qrot, probes, specs)
     for row, spec, route, b in zip(rows, specs, routes, before):
         assert route.launches > b, f"{row['name']}: its route never ran"
+        if filter_words is not None:
+            assert_admitted(row["name"], spec[3](*spec[5])[1], filter_words)
         if route in (pcs.code_list_scan, pcs.recon8_list_scan):
-            merged = row["name"] == "ivf_pq_scan_codes_fused"
+            merged = row["name"].startswith("ivf_pq_scan_codes_fused")
             pair_kt = min(kt, k) if merged else kt
             row.update(list_major_split(
                 f"{row['name']} (list-major, kt {kt})",
@@ -1034,7 +1076,7 @@ def flat_stream_bytes(probes, ids, F, row_bytes):
     return read, multiplied, int(live[torch.unique(gl)].sum()) * row_bytes
 
 
-def check_kernel_f(index, queries, n_probes, k, label):
+def check_kernel_f(index, queries, n_probes, k, label, filter_words=None):
     """Kernel F vs plain on an IVF-Flat batch at ``n_probes`` and ``k``
     through ``ivf_flat_scan`` (k <= 64: the list-major pass; else the
     query-major kernel; the route's launch counter must move): values
@@ -1048,19 +1090,25 @@ def check_kernel_f(index, queries, n_probes, k, label):
     yardstick of the earlier query-major times, printed only); the
     query-major route's is bytes against fp32 FFMA.  The list-major route
     adds its device split and groups to the row, and prints the bytes its
-    schedule streams by flat_stream_bytes' model."""
+    schedule streams by flat_stream_bytes' model.  With ``filter_words``
+    both run filtered, every returned id must be admitted, and the bytes
+    count the admission bits (one a query and probed live row)."""
     import torch
     from raft_tpu_torch.ops import pair_scan as ps
 
     args, F = flat_scan_args(index, queries, n_probes, k)
     q, probes, data, dsq, ids, kt = args
+    fw = dict(filter_words=filter_words)
     listed = not ps.flat_list_scan_reject_reason(data.shape[1], index.dim,
                                                  kt, F)
     wrapper = ps.flat_list_scan if listed else ps.flat_scan_query_major
     before = wrapper.launches
-    vk, ik = ps.ivf_flat_scan(*args, sub_lists=F)
+    vk, ik = ps.ivf_flat_scan(*args, sub_lists=F, **fw)
     assert wrapper.launches == before + 1, f"{label}: route not taken"
-    (vp, ip), plain_ms = timed_once(lambda: ps.ivf_flat_scan_plain(*args))
+    if filter_words is not None:
+        assert_admitted(label, ik, filter_words)
+    (vp, ip), plain_ms = timed_once(
+        lambda: ps.ivf_flat_scan_plain(*args, **fw))
     q_sq = (q * q).sum(1)
     scale = float(q_sq.max() + dsq.max())
     err = compare_with_plain(label, vk, ik, vp, ip, atol=1e-5 * scale)
@@ -1082,13 +1130,17 @@ def check_kernel_f(index, queries, n_probes, k, label):
     assert torch.allclose(d, vk[fin], rtol=0, atol=1e-5 * scale), (
         f"{label}: returned ids do not match their distances")
     del rows, d
-    ms = cuda_ms(lambda: ps.ivf_flat_scan(*args, sub_lists=F), KERNEL_REPS)
+    ms = cuda_ms(lambda: ps.ivf_flat_scan(*args, sub_lists=F, **fw),
+                 KERNEL_REPS)
     live = (ids >= 0).sum(1)
     pr = probes.long()
     pr = pr[pr < data.shape[0]]
     row_bytes = index.dim * 4 + 8
     nbytes = (int(live[torch.unique(pr)].sum()) * row_bytes
               + q.numel() * 4 + probes.numel() * 4 + vk.numel() * 8)
+    if filter_words is not None:
+        nbytes += admission_bytes(live, probes,
+                                  filter_words.stride(0) == 0)
     flops = 2.0 * index.dim * int(live[pr].sum())
     ffma_ms = 1e3 * flops / FP32_FLOP_PER_S
     row = {"name": "ivf_flat_scan", "route": "cuda",
@@ -1104,7 +1156,8 @@ def check_kernel_f(index, queries, n_probes, k, label):
         streamed, multiplied, live_bytes = flat_stream_bytes(
             probes, ids, F, row_bytes)
         row.update(list_major_split(
-            f"{label} split", lambda: ps.ivf_flat_scan(*args, sub_lists=F),
+            f"{label} split",
+            lambda: ps.ivf_flat_scan(*args, sub_lists=F, **fw),
             probes, data.shape[0], vk.numel() * 8, False,
             "flat_list_scan_kernel"))
         print(f"{label}, schedule model (flat_stream_bytes, not measured): "
@@ -1914,10 +1967,17 @@ def same_build_routes(label, module, name, walked, kernels, search,
     within ROUTE_RECALL_GAP; else the comparison is printed only."""
     listed = getattr(module, name)
     recall = {}
+
+    def walked_scan(*args, filter_words=None, **kw):
+        # the search's scan is called with its filter (None: unfiltered);
+        # the query-major kernels take none
+        assert filter_words is None, f"{label}: a filtered search"
+        return walked(*args, **kw)
+
     for route in ("list-major", "query-major"):
         before = [k.launches for k in kernels]
         if route == "query-major":
-            setattr(module, name, walked)
+            setattr(module, name, walked_scan)
         try:
             found = search()
         finally:
@@ -2131,10 +2191,13 @@ def deep_path(dev):
     rows[2]["launches"] = runs["recon8"]["launches"]["recon8_list_scan"]
     for row in rows:
         row["also_checked"] = []
+    rows_f = deep_filtered(res, index, queries)
     codes_bit_equal(index, queries, DEEP_KT)
     recon8_bit_equal(index, queries, DEEP_KT)
     walked = check_codes_query_major(index, queries, LARGE_KT_QUERIES)
     for row, entry in zip(rows, walked):
+        row["also_checked"].append(entry)
+    for row, entry in zip(rows, rows_f):
         row["also_checked"].append(entry)
     b_deep = at_shape(
         check_kernel_b(index, queries),
@@ -2174,6 +2237,73 @@ def deep_path(dev):
     print(f"deep peak device memory, plain versions included: "
           f"{peak_gb():.2f} GB", flush=True)
     return rows, a_deep, b_deep, g_deep, h_deep, hs_deep
+
+
+def deep_filtered(res, index, queries):
+    """The deep index's first DEEP_FILTER_QUERIES queries with one row of
+    the 50% filter broadcast (1.25 MB of words for its 10M ids): a filtered
+    search in each compact-code mode at kt 4 (its list-major kernel
+    launched, no query-major one; every id admitted), then Kernels C, D
+    and E against their plain versions with the filter at that shape.
+    Returns three ``also_checked`` entries (C, D, E)."""
+    from raft_tpu_torch.filters import SampleFilter
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    nq = DEEP_FILTER_QUERIES
+    q = queries[:nq]
+    words = half_words(1, DEEP_DB, FILTER_SEED, q.device).expand(nq, -1)
+    f = SampleFilter(words=words, n_rows=DEEP_DB)
+    launched = {}
+    for mode, kernel in (("fused", "code_list_scan"),
+                         ("codes", "code_list_scan"),
+                         ("recon8", "recon8_list_scan")):
+        sp = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode=mode,
+                                 per_probe_topk=DEEP_KT)
+        zero_launches()
+        (_, ids), ms = timed_once(
+            lambda: ivf_pq.search(res, sp, index, q, K_SEARCH, filter=f))
+        launches = read_launches()
+        assert_admitted(f"deep filtered {mode}", ids, words)
+        assert launches[kernel] > 0 and launches[
+            "codes_fused_query_major"] == launches[
+            "codes_scan_query_major"] == launches[
+            "recon8_scan_query_major"] == 0, (
+            f"deep filtered {mode}: launches {launches}")
+        launched[mode] = launches[kernel]
+        print(f"deep filtered {mode} kt {DEEP_KT} (50% row broadcast, "
+              f"{nq:,} queries): {ms:.2f} ms; launches "
+              f"{json.dumps(launches)}", flush=True)
+    rows = check_code_kernels(index, q, DEEP_KT, filter_words=words)
+    # each pass's device ms unfiltered and filtered, in turns, at this shape
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+
+    qrot, probes = probe(index, q)
+    common = (qrot, index.centers, probes)
+    codes = common + (index.list_codes, index.codebooks, index.list_code_rsq,
+                      index.list_indices, index.pq_bits)
+    for row, (fn, args) in zip(rows, (
+            (pcs.ivf_pq_scan_codes_fused, codes + (K_SEARCH, DEEP_KT)),
+            (pcs.ivf_pq_scan_codes, codes + (DEEP_KT,)),
+            (pcs.ivf_pq_scan_recon8, common + (
+                index.list_recon_i8, index.list_recon_scale,
+                index.list_recon_i8_sq, index.list_indices, DEEP_KT)))):
+        split = {}
+        for turn in ("unfiltered", "filtered", "filtered", "unfiltered"):
+            fw = dict(filter_words=words) if turn == "filtered" else {}
+            _, got = device_split(lambda: fn(*args, **fw), KERNEL_REPS,
+                                  ("code_list_scan_kernel",))
+            split.setdefault(turn, []).append(got["code_list_scan_kernel"])
+        row["unfiltered_pass1_device_ms"] = min(split["unfiltered"])
+        print(f"{row['name']}: pass 1 device ms in turns, unfiltered "
+              f"{split['unfiltered']}, filtered {split['filtered']}",
+              flush=True)
+    return [at_shape(dict(row, filter_bytes=words.shape[1] * 4),
+                     f"filtered, 50% row broadcast: deep, {nq:,} queries x "
+                     f"{N_PROBES} probes, kt {DEEP_KT}" + (
+                         f", k {K_SEARCH}" if i == 0 else "")
+                     + f", capacity {index.capacity:,}", launched[mode])
+            for i, (row, mode) in enumerate(zip(
+                rows, ("fused", "codes", "recon8")))]
 
 
 # CAGRA (conf/sift-like-1m.json raft_cagra.deg32)
@@ -2263,7 +2393,8 @@ class WalkCapture(_Swap):
 
 def hop_loop(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg,
              search_width, max_iterations, ip_metric, quant=False,
-             scales=None, exit_every=8, return_hops=False):
+             scales=None, exit_every=8, return_hops=False,
+             filter_words=None):
     """The yardstick: the per-hop loop the walk kernel replaced, kept here
     only — per hop ``select_parents`` → ``expand`` → Kernel I's hop kernel
     (``cagra_hop``), the all(visited) exit checked every ``exit_every``
@@ -2279,7 +2410,7 @@ def hop_loop(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg,
         sel, ok, visited = cw.select_parents(buf_d, buf_i, visited,
                                              search_width)
         nb_p, nb_sq, nb_id = cw.expand(table, sel, ok, deg, pdim, quant,
-                                       scales)
+                                       scales, filter_words)
         buf_d, buf_i, visited = chop.cagra_hop(
             qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i, visited,
             ip_metric=ip_metric)
@@ -2944,6 +3075,407 @@ def cagra_persistence(db, queries, index):
     return out
 
 
+# ---------------------------------------------------------------------------
+# filtered and mutable indexes at full width
+# ---------------------------------------------------------------------------
+
+# the 50% filter's seed, the tenants (contiguous id ranges; query q in
+# tenant q mod N_TENANTS), the queries and the unfiltered k of the
+# full-probe contract, the ids deleted and re-inserted, the deep filter's
+# queries
+FILTER_SEED, N_TENANTS = 15, 16
+FULL_PROBE_QUERIES, FULL_PROBE_K = 64, 64
+N_DELETE, N_UPSERT = 10_000, 5_000
+DEEP_FILTER_QUERIES = 1_000
+
+
+def half_words(nq, n_rows, seed, device):
+    """(nq, ceil(n_rows / 32)) int32 words of uniform random bits: a
+    per-query filter admitting each id with probability 1/2."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, (nq, -(-n_rows // 32)),
+                         generator=g, dtype=torch.int64,
+                         device=device).to(torch.int32)
+
+
+def test_filters(nq, n_rows, device):
+    """The phase's three filters by name: 50% per query, a tenant filter
+    (N_TENANTS contiguous ranges, query q in tenant q mod N_TENANTS, its
+    rows gathered per query) and the 50% filter's first row broadcast (an
+    ``expand``, query stride 0)."""
+    import torch
+    from raft_tpu_torch.filters import SampleFilter, TenantFilter
+
+    half = SampleFilter(words=half_words(nq, n_rows, FILTER_SEED, device),
+                        n_rows=n_rows)
+    per = n_rows // N_TENANTS
+    tenants = TenantFilter({f"t{i}": (i * per, (i + 1) * per)
+                            for i in range(N_TENANTS)}, n_rows)
+    rows = torch.stack([torch.from_numpy(tenants.words_for(t))
+                        for t in tenants.tenants]).to(device)
+    pick = torch.arange(nq, device=device) % N_TENANTS
+    return {"50% per query": half,
+            f"tenant (1/{N_TENANTS}, ranges of {per:,})":
+                SampleFilter(words=rows[pick], n_rows=n_rows),
+            "50% one row broadcast":
+                SampleFilter(words=half.words[:1].expand(nq, -1),
+                             n_rows=n_rows)}
+
+
+def filter_bytes(f):
+    """The filter's words as the kernels read them: one row where it is
+    broadcast."""
+    w = f.words
+    return (1 if w.stride(0) == 0 else w.shape[0]) * w.shape[1] * 4
+
+
+def assert_admitted(label, ids, words):
+    """Every id >= 0 of each query's row admitted by its filter row."""
+    import torch
+    from raft_tpu_torch.filters import query_bits
+
+    flat = ids.reshape(ids.shape[0], -1)
+    bits = query_bits(words, torch.arange(flat.shape[0],
+                                          device=flat.device), flat)
+    bad = int(((flat >= 0) & (bits == 0)).sum())
+    assert bad == 0, f"{label}: {bad} returned ids the filter rejects"
+
+
+def live_recall(found, truth):
+    """recall@10 over the truth's ids >= 0."""
+    hit = ((found[:, :, None] == truth[:, None, :])
+           & (truth[:, None, :] >= 0)).any(2).sum()
+    return float(hit) / max(int((truth >= 0).sum()), 1)
+
+
+def admission_bytes(sizes, probes, broadcast):
+    """The admission bits a scan must read, in bytes: one a (query,
+    probed live row) — one a probed live row for a broadcast row."""
+    import torch
+
+    pr = probes.long()
+    pr = pr[(pr >= 0) & (pr < sizes.shape[0])]
+    rows = sizes.long()[torch.unique(pr) if broadcast else pr].sum()
+    return int(rows) / 8
+
+
+def posthoc_top(d_u, i_u, words, k):
+    """The unfiltered result (sorted, a large k) with the rows each
+    query's filter rejects dropped, its first ``k``; and the fewest
+    admitted rows a query kept (must be >= k)."""
+    import torch
+    from raft_tpu_torch.filters import query_bits
+
+    adm = (query_bits(words, torch.arange(i_u.shape[0],
+                                          device=i_u.device), i_u) > 0) \
+        & (i_u >= 0)
+    order = torch.argsort((~adm).int(), dim=1, stable=True)[:, :k]
+    return (torch.gather(d_u, 1, order), torch.gather(i_u, 1, order),
+            int(adm.sum(1).min()))
+
+
+def full_probe_contract(label, search, queries, words, n_rows):
+    """At full probe a filtered search equals the unfiltered result at
+    FULL_PROBE_K filtered afterwards, bit for bit, on FULL_PROBE_QUERIES
+    queries."""
+    import torch
+    from raft_tpu_torch.filters import SampleFilter
+
+    q = queries[:FULL_PROBE_QUERIES]
+    w = words[:FULL_PROBE_QUERIES]
+    d_u, i_u = search(q, FULL_PROBE_K, None)
+    ref_d, ref_i, kept = posthoc_top(d_u, i_u, w, K)
+    assert kept >= K, (f"{label}: a query kept {kept} admitted rows in its "
+                       f"unfiltered top {FULL_PROBE_K}")
+    d_f, i_f = search(q, K, SampleFilter(words=w, n_rows=n_rows))
+    same = torch.equal(i_f, ref_i) and torch.equal(d_f, ref_d)
+    print(f"{label} full-probe contract ({FULL_PROBE_QUERIES} queries, "
+          f"unfiltered k {FULL_PROBE_K}, at least {kept} admitted kept): "
+          f"filtered == unfiltered filtered afterwards: {same}", flush=True)
+    assert same, f"{label}: the full-probe contract fails"
+
+
+def filtered_searches(label, search, queries, filters, truths):
+    """``search(q, k, filter)`` (a batch ending in its ids) unfiltered,
+    then with each filter, SEARCH_REPS batches each: ms, recall@10 against
+    the filtered ground truth, the launches of the filtered runs; every
+    returned id admitted.  Returns {filter: (median ms, recall,
+    launches)}."""
+    ms, _ = timed_searches(lambda: search(queries, K, None), SEARCH_REPS)
+    print(f"{label} unfiltered: {', '.join(f'{m:.2f}' for m in ms)} ms per "
+          f"batch of {queries.shape[0]}", flush=True)
+    out = {None: (median(ms), None, None)}
+    for name, f in filters.items():
+        zero_launches()
+        ms, ids = timed_searches(lambda: search(queries, K, f), SEARCH_REPS)
+        launches = read_launches()
+        assert_admitted(f"{label} {name}", ids, f.words)
+        r = live_recall(ids, truths[name])
+        print(f"{label} filter {name} ({filter_bytes(f):,} bytes of words): "
+              f"{', '.join(f'{m:.2f}' for m in ms)} ms per batch (median "
+              f"{median(ms):.2f}, unfiltered {out[None][0]:.2f}); recall@10 "
+              f"{r:.4f} against the filtered brute_force.knn; every id "
+              f"admitted; launches {json.dumps(launches)}", flush=True)
+        out[name] = (median(ms), r, launches)
+    return out
+
+
+def filtered_ivf_pq(res, index, db, queries, filters, truths):
+    """The flagship IVF-PQ with each filter (search + refine, n_probes 96,
+    k 20 -> 10), the full-probe contract at n_probes 4096 (``auto``), and
+    Kernels B and G with the 50% filter against their plain versions at
+    the batch's shape.  Returns the two filtered kernel rows and the
+    launches of the filtered searches."""
+    import torch
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.ops import pair_scan as ps
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES)
+
+    def batch(q, k, f):
+        _, cand = ivf_pq.search(res, sp, index, q, K_SEARCH, filter=f)
+        if f is not None:
+            assert_admitted("flagship candidates", cand, f.words)
+        return refine(res, db, q, cand, k)[1]
+
+    runs = filtered_searches("flagship IVF-PQ search+refine", batch, queries,
+                             filters, truths)
+    for name, (_, r, launches) in runs.items():
+        if name is None:
+            continue
+        assert launches["list_scan"] > 0 and launches["merge_pairs"] > 0, (
+            f"flagship {name}: Kernel B's passes not launched")
+        assert launches["scan_query_major"] == 0
+        if name.startswith("50%"):
+            assert r >= 0.90, f"flagship {name}: recall@10 {r} below 0.90"
+    full = ivf_pq.SearchParams(n_probes=index.n_lists)
+    full_probe_contract(
+        "flagship IVF-PQ auto",
+        lambda q, k, f: ivf_pq.search(res, full, index, q, k, filter=f),
+        queries, filters["50% per query"].words, N_DB)
+
+    half = filters["50% per query"]
+    qrot, probes = probe(index, queries)
+    nq, rot = qrot.shape
+    kt = min(K_SEARCH, index.capacity)
+    adm = admission_bytes(index.list_sizes, probes, False)
+    common = (qrot, index.centers, probes, index.list_recon,
+              index.list_recon_sq, index.list_indices)
+    rows = check_scans(index, qrot, probes, [
+        ("ivf_pq_scan_fused (50% filter)", "pq_list_scan.cu",
+         "raft_tpu/ops/pq_group_scan_pallas.py:410", pgs.ivf_pq_scan_fused,
+         pgs.ivf_pq_scan_fused_plain, common + (K_SEARCH, kt, half.words),
+         recon_rows_of(index), index.list_recon_sq, None, rot * 2 + 8, adm,
+         nq * K_SEARCH * 8, rot),
+        ("ivf_pq_scan_recon (50% filter)", "pq_list_scan.cu",
+         "raft_tpu/ops/pq_group_scan_pallas.py:566", ps.ivf_pq_scan_recon,
+         ps.ivf_pq_scan_recon_plain, common + (kt, half.words),
+         recon_rows_of(index), index.list_recon_sq, None, rot * 2 + 8, adm,
+         probes.numel() * kt * 8, rot)])
+    for row, fn in zip(rows, (pgs.ivf_pq_scan_fused, ps.ivf_pq_scan_recon)):
+        args = common + ((K_SEARCH, kt) if fn is pgs.ivf_pq_scan_fused
+                         else (kt,))
+        assert_admitted(row["name"], fn(*args, half.words)[1], half.words)
+        _, split = device_split(lambda: fn(*args, half.words), KERNEL_REPS,
+                                ("list_scan_kernel",))
+        _, plain_split = device_split(lambda: fn(*args), KERNEL_REPS,
+                                      ("list_scan_kernel",))
+        row["pass1_device_ms"] = split["list_scan_kernel"]
+        row["unfiltered_pass1_device_ms"] = plain_split["list_scan_kernel"]
+        print(f"{row['name']}: pass 1 device {split['list_scan_kernel']:.3f} "
+              f"ms, unfiltered {plain_split['list_scan_kernel']:.3f} ms in "
+              f"turn; admission bits {adm / 1e6:.2f} MB in the bound",
+              flush=True)
+    # the tenant filter's pass 1 (1/16 admitted, 16 distinct rows)
+    tenant = [f for n, f in filters.items() if n.startswith("tenant")][0]
+    bcast = filters["50% one row broadcast"]
+    for name, f in (("tenant", tenant), ("50% broadcast", bcast)):
+        _, split = device_split(
+            lambda: pgs.ivf_pq_scan_fused(*common, K_SEARCH, kt, f.words),
+            KERNEL_REPS, ("list_scan_kernel",))
+        print(f"ivf_pq_scan_fused ({name} filter): pass 1 device "
+              f"{split['list_scan_kernel']:.3f} ms", flush=True)
+        rows[0][f"{name.split()[-1]}_pass1_device_ms"] = \
+            split["list_scan_kernel"]
+    return rows, runs
+
+
+def mutate_ivf_pq(res, index, db, queries, tmp):
+    """Delete N_DELETE random ids of the flagship (none may surface;
+    recall over the live rows), upsert N_UPSERT of them with their rows,
+    compact (capacity, each rebuilt cache's seconds; the search after
+    equals the search before up to ties), then save and load the mutated
+    index (the loaded index searches bit-equal).  Returns the numbers."""
+    import os
+
+    import torch
+    from raft_tpu_torch.filters import SampleFilter
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES)
+    g = torch.Generator()
+    g.manual_seed(FILTER_SEED)
+    dead = torch.randperm(N_DB, generator=g)[:N_DELETE].to(db.device)
+
+    def batch(idx):
+        d, cand = ivf_pq.search(res, sp, idx, queries, K_SEARCH)
+        return d, cand, refine(res, db, queries, cand, K)[1]
+
+    def truth_without(gone):
+        keep = torch.ones(N_DB, dtype=torch.bool, device=db.device)
+        keep[gone.long()] = False
+        f = SampleFilter.from_mask(keep[None])
+        return brute_force.knn(res, db, queries, K, filter=f)[1]
+
+    deleted, del_s = timed_s(lambda: ivf_pq.delete(res, index, dead))
+    _, cand, found = batch(deleted)
+    assert not bool(torch.isin(cand, dead).any()), "a deleted id surfaced"
+    r_del = live_recall(found, truth_without(dead))
+    back = dead[:N_UPSERT]
+    upserted, up_s = timed_s(lambda: ivf_pq.upsert(res, deleted, back,
+                                                   db[back.long()]))
+    d_u, cand_u, found_u = batch(upserted)
+    assert not bool(torch.isin(cand_u, dead[N_UPSERT:]).any()), (
+        "a deleted id surfaced after the upsert")
+    r_up = live_recall(found_u, truth_without(dead[N_UPSERT:]))
+    compacted, comp_s = timed_s(lambda: ivf_pq.compact(res, upserted))
+    d_c, cand_c = ivf_pq.search(res, sp, compacted, queries, K_SEARCH)
+    compare_with_plain("flagship search after compact (before: the reference)", d_c,
+                       cand_c, d_u, cand_u)
+    path = os.path.join(tmp, "flagship_mutated.ivfpq")
+    loaded, numbers = save_and_load(ivf_pq, res, compacted, path,
+                                    "flagship mutated")
+    same_results("flagship mutated", (d_c, cand_c),
+                 ivf_pq.search(res, sp, loaded, queries, K_SEARCH))
+    print(f"flagship mutation: delete {N_DELETE:,} ids {del_s * 1e3:.2f} ms "
+          f"(recall@10 over the live rows {r_del:.4f}, no deleted id "
+          f"returned); upsert {N_UPSERT:,} {up_s:.3f} s (recall {r_up:.4f}, "
+          f"capacity {upserted.capacity}); compact {comp_s:.3f} s, capacity "
+          f"{index.capacity} -> {compacted.capacity}, caches rebuilt (s) "
+          f"{json.dumps(ivf_pq.compact.cache_seconds)}; generation "
+          f"{index.generation} -> {compacted.generation}", flush=True)
+    return dict(numbers, delete_ms=del_s * 1e3, upsert_s=up_s,
+                compact_s=comp_s, recall_live=r_del, recall_upserted=r_up,
+                capacity=compacted.capacity,
+                cache_s=dict(ivf_pq.compact.cache_seconds))
+
+
+def filtered_ivf_flat(res, index, db, queries, filters, truths):
+    """IVF-Flat nlist 4096 (n_probes 64, k 10) with each filter, the
+    full-probe contract, Kernel F with the 50% filter against its plain
+    version, then delete N_DELETE ids and compact (no deleted id; the
+    search after equals the search before up to ties).  Returns F's
+    filtered row and the filtered searches' launches."""
+    import torch
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    sp = ivf_flat.SearchParams(n_probes=FLAT_CHECK_PROBES)
+    runs = filtered_searches(
+        "IVF-Flat nlist 4096", lambda q, k, f: ivf_flat.search(
+            res, sp, index, q, k, filter=f)[1], queries, filters, truths)
+    for name, (_, _, launches) in runs.items():
+        if name is not None:
+            assert launches["flat_list_scan"] > 0 and \
+                launches["flat_scan_query_major"] == 0, (
+                    f"IVF-Flat {name}: not Kernel F's list-major pass")
+    full = ivf_flat.SearchParams(n_probes=index.n_lists)
+    full_probe_contract(
+        "IVF-Flat nlist 4096",
+        lambda q, k, f: ivf_flat.search(res, full, index, q, k, filter=f),
+        queries, filters["50% per query"].words, N_DB)
+    row = check_kernel_f(index, queries, FLAT_CHECK_PROBES, K,
+                         "ivf_flat_scan (50% filter)",
+                         filter_words=filters["50% per query"].words)
+    g = torch.Generator()
+    g.manual_seed(FILTER_SEED + 1)
+    dead = torch.randperm(N_DB, generator=g)[:N_DELETE].to(db.device)
+    deleted, del_s = timed_s(lambda: ivf_flat.delete(res, index, dead))
+    d_b, i_b = ivf_flat.search(res, sp, deleted, queries, K)
+    assert not bool(torch.isin(i_b, dead).any()), "a deleted id surfaced"
+    compacted, comp_s = timed_s(lambda: ivf_flat.compact(res, deleted))
+    d_a, i_a = ivf_flat.search(res, sp, compacted, queries, K)
+    scale = float((queries * queries).sum(1).max()
+                  + index.list_data_sq.max())
+    compare_with_plain("IVF-Flat search after compact (before: the reference)",
+                       d_a, i_a,
+                       d_b, i_b, atol=1e-5 * scale)
+    print(f"IVF-Flat nlist 4096 mutation: delete {N_DELETE:,} ids "
+          f"{del_s * 1e3:.2f} ms, no deleted id returned; compact "
+          f"{comp_s:.3f} s, capacity {index.capacity} -> "
+          f"{compacted.capacity}", flush=True)
+    return row, runs
+
+
+def filtered_cagra(res, index, queries, filters, truths):
+    """CAGRA deg32 at itopk 64 width 2 with the 50% filter (recall@10
+    printed, no floor; one walk launch a search; every id admitted), the
+    filtered walk captured and held to the plain walk, and the delete
+    shim (N_DELETE ids: none surfaces).  Returns the walk's filtered
+    row."""
+    import torch
+    from raft_tpu_torch.neighbors import cagra
+
+    sp = cagra.SearchParams(itopk_size=64, search_width=2)
+    half = {n: f for n, f in filters.items() if n == "50% per query"}
+    runs = filtered_searches(
+        "CAGRA itopk 64 width 2", lambda q, k, f: cagra.search(
+            res, sp, index, q, k, filter=f)[1], queries, half, truths)
+    _, r, launches = runs["50% per query"]
+    assert launches["cagra_walk"] == SEARCH_REPS and \
+        launches["cagra_hop"] == 0, "CAGRA filtered: not one walk a search"
+    with WalkCapture() as wcap:
+        cagra.search(res, sp, index, queries, K,
+                     filter=half["50% per query"])
+    key = (N_QUERIES, 64, 2, CAGRA_DEGREE)
+    args, kw = wcap.kept[key]
+    assert kw.get("filter_words") is not None, "the captured walk is "\
+        "unfiltered"
+    row = check_kernel_walk(args, kw, f"filtered (50%): {key} (nq, itopk, "
+                            f"width, deg)")
+    g = torch.Generator()
+    g.manual_seed(FILTER_SEED + 2)
+    dead = torch.randperm(N_DB, generator=g)[:N_DELETE].to(queries.device)
+    deleted = cagra.delete(res, index, dead)
+    _, ids = cagra.search(res, sp, deleted, queries, K)
+    assert not bool(torch.isin(ids, dead).any()), "a deleted id surfaced"
+    print(f"CAGRA delete shim: {N_DELETE:,} ids, none returned; "
+          f"generation {index.generation} -> {deleted.generation}",
+          flush=True)
+    return row, launches
+
+
+def filtered_phase(res, index, flat, db, queries):
+    """The flagship IVF-PQ and IVF-Flat 4096 with the phase's filters,
+    their full-probe contracts, their filtered kernels against plain, and
+    their mutations.  Returns the filters, their ground truths, the
+    filtered kernel rows and the numbers."""
+    import shutil
+    import tempfile
+
+    from raft_tpu_torch.neighbors import brute_force
+
+    filters = test_filters(N_QUERIES, N_DB, db.device)
+    truths = {}
+    for name, f in filters.items():
+        (_, truths[name]), s = timed_s(
+            lambda: brute_force.knn(res, db, queries, K, filter=f))
+        print(f"filtered ground truth ({name}): {s:.2f} s", flush=True)
+    pq_rows, pq_runs = filtered_ivf_pq(res, index, db, queries, filters,
+                                       truths)
+    tmp = tempfile.mkdtemp(prefix="raft_tpu_torch_mutation_")
+    try:
+        numbers = mutate_ivf_pq(res, index, db, queries, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    f_row, flat_runs = filtered_ivf_flat(res, flat, db, queries, filters,
+                                         truths)
+    return filters, truths, pq_rows, f_row, pq_runs, flat_runs, numbers
+
+
 def main() -> int:
     import torch
 
@@ -3105,11 +3637,29 @@ def main() -> int:
     persisted = persistence_path(res, index, flat_indexes[1], db, queries,
                                  truth, params, sp)
     persist_s = time.perf_counter() - t0
+
+    phase("filtered and mutable indexes at full width: the flagship and "
+          "IVF-Flat nlist 4096")
+    t0 = time.perf_counter()
+    filters, truths, pq_rows, f_row, pq_runs, flat_runs, mutated = \
+        filtered_phase(res, index, flat_indexes[1], db, queries)
+    filtered_s = time.perf_counter() - t0
     del index, flat_indexes
     torch.cuda.empty_cache()
 
     phase("CAGRA at full width: sift-like-1m, raft_cagra.deg32")
     row_walk, row_i, cagra_index = cagra_path(db, queries, truth)
+
+    phase("filtered and mutable indexes at full width: CAGRA deg32")
+    t0 = time.perf_counter()
+    walk_f, walk_launches = filtered_cagra(
+        DeviceResources(seed=0), cagra_index, queries, filters, truths)
+    filtered_s += time.perf_counter() - t0
+    print(f"filtered and mutable phase: {filtered_s:.1f} s; flagship "
+          f"mutation {json.dumps(mutated)}; nvidia-smi: {smi_line}",
+          flush=True)
+    del filters, truths
+    torch.cuda.empty_cache()
 
     phase("persistence at full width: CAGRA deg32")
     t0 = time.perf_counter()
@@ -3126,14 +3676,32 @@ def main() -> int:
     phase("result")
     rows_cde[0]["also_checked"] += c_flag
     rows_cde[1]["also_checked"] += d_flag
-    row_g["also_checked"] = [g_deep, g_query_major]
+    half_launches = pq_runs["50% per query"][2]
+    b_f, g_f = pq_rows
+    b_filtered = at_shape(
+        b_f, f"filtered, 50% per query ({N_QUERIES * -(-N_DB // 32) * 4:,} "
+        f"bytes of words): flagship, {N_QUERIES:,} queries x {N_PROBES} "
+        f"probes, k {K_SEARCH}, kt {K_SEARCH}", half_launches["merge_pairs"])
+    g_filtered = at_shape(
+        g_f, f"filtered, 50% per query: flagship recon, {N_QUERIES:,} "
+        f"queries x {N_PROBES} probes, kt {K_SEARCH} (no filtered recon "
+        f"search on the path)", 0)
+    row_f["also_checked"].append(at_shape(
+        f_row, f"filtered, 50% per query: nlist 4096, {N_QUERIES:,} queries "
+        f"x {FLAT_CHECK_PROBES} probes, k {K}, F {f_row['F']}",
+        flat_runs["50% per query"][2]["flat_list_scan"]))
+    row_walk["also_checked"].append(at_shape(
+        walk_f, f"filtered, 50% per query: {N_QUERIES:,} queries, itopk 64, "
+        f"width 2, deg {CAGRA_DEGREE}", walk_launches["cagra_walk"]))
+    row_g["also_checked"] = [g_deep, g_query_major, g_filtered]
     row_h["also_checked"] += h_more + h_flat + h_deep
     row_hs["also_checked"] = [hs_deep]
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["merge_pairs"],
                  pass1_launches=launches["list_scan"],
-                 also_checked=[b_deep, b_query_major])] + rows_cde + [
+                 also_checked=[b_deep, b_query_major, b_filtered])] + \
+        rows_cde + [
                      row_f, row_g, row_h, row_hs, row_i, row_walk] + \
         rows_profiles
     print(json.dumps({"kernels": rows}), flush=True)

@@ -21,6 +21,12 @@
 //      (csrc/hop_merge.cuh);
 //   4. a query whose buffer is all visited stops: such a buffer is a fixed
 //      point of the hop, so the result is the fixed hop count's.
+// With a filter (kFilter; filters/bitset.py's packed words, the query's
+// row filter_stride words from the last, 0 for one row broadcast), a
+// candidate whose id the query rejects becomes id -1 where step 2 reads
+// the ids, exactly like a dead parent's: neither kept nor expanded (the
+// JAX walk's per-hop admission, raft_tpu/neighbors/cagra.py:1792).  One
+// word load (L2-resident) per candidate.
 // The result equals ops/cagra_walk.cagra_walk_plain (select_parents ->
 // expand -> cagra_hop_plain per hop) bit for bit.
 //
@@ -114,7 +120,15 @@ __device__ __forceinline__ float neighbor_key(const float* q,
   return ip_metric ? -acc : (qsq + nsq) - 2.0f * acc;
 }
 
-template <bool kStaged, bool kQuant>
+// whether the query whose packed admission row is `words` (n_words
+// words) admits id (an id past the row, or negative, is not admitted)
+__device__ __forceinline__ bool admitted(const int* words, int n_words,
+                                         int id) {
+  const int w = id >> 5;
+  return id >= 0 && w < n_words && ((__ldg(words + w) >> (id & 31)) & 1);
+}
+
+template <bool kStaged, bool kQuant, bool kFilter>
 __global__ void __launch_bounds__(kMaxThreads)
 walk_kernel(const __nv_bfloat16* __restrict__ qp,
             const float* __restrict__ q_sq,
@@ -124,7 +138,8 @@ walk_kernel(const __nv_bfloat16* __restrict__ qp,
             const int* __restrict__ buf_i,
             const uint8_t* __restrict__ visited,
             int itopk, int width, int deg, int pdim, int max_iter,
-            int ip_metric, float* __restrict__ out_d,
+            int ip_metric, const int* __restrict__ filter_words,
+            long long filter_stride, int n_words, float* __restrict__ out_d,
             int* __restrict__ out_i, uint8_t* __restrict__ out_v,
             int* __restrict__ out_hops) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -154,6 +169,7 @@ walk_kernel(const __nv_bfloat16* __restrict__ qp,
   const int id_off = kQuant ? pdim / 2 + 1 : pdim + 2;
   const float s1 = kQuant ? scales[1] : 0.0f;
   const float s2 = kQuant ? scales[2] : 0.0f;
+  const int* fw = kFilter ? filter_words + row * filter_stride : nullptr;
 
   for (int d = tid; d < pdim; d += T)
     q[d] = __bfloat162float(qp[row * pdim + d]);
@@ -201,13 +217,17 @@ walk_kernel(const __nv_bfloat16* __restrict__ qp,
     if (*done) break;
     ++hops;
 
-    // 2. the candidates' ids, and the parents' fat rows into shared memory
+    // 2. the candidates' ids (-1 under a dead parent, or rejected by the
+    // filter), and the parents' fat rows into shared memory
     if (tid < wd) {
       const int s = tid / deg, r = tid - s * deg;
-      ci[tid] = par_ok[s]
+      int id = par_ok[s]
           ? static_cast<int>(lanes32(table + static_cast<size_t>(par_id[s]) *
                                                  table_w + r * unit + id_off))
           : -1;
+      if constexpr (kFilter)
+        if (id >= 0 && !admitted(fw, n_words, id)) id = -1;
+      ci[tid] = id;
     }
     if (kStaged) {
       if (vec) {
@@ -264,14 +284,15 @@ walk_kernel(const __nv_bfloat16* __restrict__ qp,
   if (tid == 0 && out_hops != nullptr) out_hops[row] = hops;
 }
 
-template <bool kStaged, bool kQuant>
+template <bool kStaged, bool kQuant, bool kFilter>
 int launch(int nq, int threads, int smem_bytes, cudaStream_t s,
            const void* qp, const void* q_sq, const void* table, int table_w,
            int vec, const void* scales, const void* buf_d, const void* buf_i,
            const void* visited, int itopk, int width, int deg, int pdim,
-           int max_iter, int ip_metric, void* out_d, void* out_i,
+           int max_iter, int ip_metric, const void* filter_words,
+           int filter_stride, int n_words, void* out_d, void* out_i,
            void* out_v, void* hops) {
-  auto* kernel = walk_kernel<kStaged, kQuant>;
+  auto* kernel = walk_kernel<kStaged, kQuant, kFilter>;
   if (smem_bytes > kSmemStatic) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -283,6 +304,7 @@ int launch(int nq, int threads, int smem_bytes, cudaStream_t s,
       static_cast<const float*>(scales), static_cast<const float*>(buf_d),
       static_cast<const int*>(buf_i), static_cast<const uint8_t*>(visited),
       itopk, width, deg, pdim, max_iter, ip_metric,
+      static_cast<const int*>(filter_words), filter_stride, n_words,
       static_cast<float*>(out_d), static_cast<int*>(out_i),
       static_cast<uint8_t*>(out_v), static_cast<int*>(hops));
   return (int)cudaGetLastError();
@@ -290,6 +312,9 @@ int launch(int nq, int threads, int smem_bytes, cudaStream_t s,
 
 }  // namespace
 
+// filter_words: null, or the queries' packed admission words (n_words int32
+// a row, filter_stride words between two queries' rows, 0 for one row
+// broadcast to the batch).
 extern "C" int raft_cagra_walk(const void* qp, const void* q_sq,
                                const void* table, int table_w,
                                const void* scales, const void* buf_d,
@@ -298,13 +323,15 @@ extern "C" int raft_cagra_walk(const void* qp, const void* q_sq,
                                int quant, int max_iter, int ip_metric,
                                int staged, int smem_bytes, void* out_d,
                                void* out_i, void* out_v, void* hops,
-                               void* stream) {
+                               const void* filter_words, int filter_stride,
+                               int n_words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int wd = width * deg;
   if (nq < 1 || itopk < 1 || width < 1 || deg < 1 || pdim < 1 ||
       itopk > 256 || wd > 256 || pdim > 4096 || max_iter < 0 ||
       (quant && (pdim % 2 != 0 || scales == nullptr)) ||
-      table_w < deg * walk_unit(pdim, quant))
+      table_w < deg * walk_unit(pdim, quant) ||
+      (filter_words != nullptr && (n_words < 1 || filter_stride < 0)))
     return (int)cudaErrorInvalidValue;
   if (smem_bytes != walk_smem(itopk, width, deg, pdim, quant, staged) ||
       smem_bytes > kSmemMax)
@@ -315,12 +342,15 @@ extern "C" int raft_cagra_walk(const void* qp, const void* q_sq,
                   reinterpret_cast<uintptr_t>(table) % 16 == 0;
 #define RAFT_WALK_ARGS                                                       \
   nq, threads, smem_bytes, s, qp, q_sq, table, table_w, vec, scales, buf_d,  \
-      buf_i, visited, itopk, width, deg, pdim, max_iter, ip_metric, out_d,   \
-      out_i, out_v, hops
-  if (staged)
-    return quant ? launch<true, true>(RAFT_WALK_ARGS)
-                 : launch<true, false>(RAFT_WALK_ARGS);
-  return quant ? launch<false, true>(RAFT_WALK_ARGS)
-               : launch<false, false>(RAFT_WALK_ARGS);
+      buf_i, visited, itopk, width, deg, pdim, max_iter, ip_metric,          \
+      filter_words, filter_stride, n_words, out_d, out_i, out_v, hops
+#define RAFT_WALK_LAUNCH(FILT)                                               \
+  (staged ? (quant ? launch<true, true, FILT>(RAFT_WALK_ARGS)               \
+                   : launch<true, false, FILT>(RAFT_WALK_ARGS))             \
+          : (quant ? launch<false, true, FILT>(RAFT_WALK_ARGS)              \
+                   : launch<false, false, FILT>(RAFT_WALK_ARGS)))
+  return filter_words != nullptr ? RAFT_WALK_LAUNCH(true)
+                                 : RAFT_WALK_LAUNCH(false);
+#undef RAFT_WALK_LAUNCH
 #undef RAFT_WALK_ARGS
 }

@@ -15,7 +15,9 @@
 // sentinel among them), and each (query, probe) pair keeps its top kt by
 // (distance, slot), ties to the lowest slot, (+inf, -1) past its live
 // rows: out (nq, n_probes, kt).  A tile is a list, or a super-tile of
-// n_sub adjacent lists of rows / n_sub slots each (ivf_flat's F).
+// n_sub adjacent lists of rows / n_sub slots each (ivf_flat's F).  With a
+// filter (filter_words, as pq_list_scan.cu's pass 1 takes it) a pair keeps
+// only the rows its query admits (list_fold.cuh's admission test).
 //
 // What bounds it on an H100: operations, barely.  The function needs each
 // probed tile's live rows once (dim * 4 + 8 bytes a row) and 2 * dim
@@ -106,8 +108,9 @@ __device__ __forceinline__ float row_distance(float dot, float key,
 
 // E: a row's top-kt entries a lane holds while it is folded, 1 for kt <=
 // 32, else 2; kResident: the layout keeps the queries resident; kVec: the
-// operands load 16 bytes at a time (wgmma_tile.cuh's row_chunk)
-template <int E, bool kResident, bool kVec>
+// operands load 16 bytes at a time (wgmma_tile.cuh's row_chunk); kFilter:
+// each pair keeps only the rows its query admits (adm, list_fold.cuh)
+template <int E, bool kResident, bool kVec, bool kFilter>
 __global__ void __launch_bounds__(kThreads, 1)
 flat_list_scan_kernel(const float* __restrict__ queries,
                       const int* __restrict__ probes,
@@ -118,8 +121,8 @@ flat_list_scan_kernel(const float* __restrict__ queries,
                       const int* __restrict__ ids, int n_groups,
                       int n_pairs, int n_probes, int n_tiles, int rows,
                       int n_sub, int dim, int kt, int ip,
-                      const FlatLayout L, float* __restrict__ out_v,
-                      int* __restrict__ out_i) {
+                      const FlatLayout L, const Admit adm,
+                      float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   if (blockIdx.x >= n_groups) {
@@ -311,10 +314,10 @@ flat_list_scan_kernel(const float* __restrict__ queries,
     // stage's rows are overwritten by distances
     int row0, end;
     window(w, row0, end);
-    fold_window<E, kRowsAtOnce>(
+    fold_window<E, kRowsAtOnce, kFilter>(
         acc, reinterpret_cast<float*>(base + L.key + (w & 1) * BN * 8), ssq,
         reinterpret_cast<float*>(base + L.b + stage * 2 * kOp), top_v, top_s,
-        stride, s_pair, n_pairs, kt, row0, end,
+        stride, s_pair, n_pairs, kt, row0, end, adm,
         [ip](float dot, float key, float ss) {
           return row_distance(dot, key, ss, ip);
         });
@@ -325,26 +328,27 @@ flat_list_scan_kernel(const float* __restrict__ queries,
             out_i);
 }
 
-template <int E, bool kResident, bool kVec>
+template <int E, bool kResident, bool kVec, bool kFilter>
 int launch(int blocks, cudaStream_t s, const void* queries,
            const void* probes, const void* group_list,
            const void* slot_pairs, const void* data, const void* norms,
            const void* ids, int n_groups, int n_pairs, int n_probes,
            int n_tiles, int rows, int n_sub, int dim, int kt, int ip,
-           const FlatLayout& L, void* out_v, void* out_i) {
+           const FlatLayout& L, const Admit& adm, void* out_v,
+           void* out_i) {
   cudaError_t err = cudaFuncSetAttribute(
-      flat_list_scan_kernel<E, kResident, kVec>,
+      flat_list_scan_kernel<E, kResident, kVec, kFilter>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return (int)err;
   if (blocks > 0)
-    flat_list_scan_kernel<E, kResident, kVec>
+    flat_list_scan_kernel<E, kResident, kVec, kFilter>
         <<<blocks, kThreads, L.total, s>>>(
         static_cast<const float*>(queries), static_cast<const int*>(probes),
         static_cast<const int*>(group_list),
         static_cast<const int*>(slot_pairs), static_cast<const float*>(data),
         static_cast<const float*>(norms), static_cast<const int*>(ids),
         n_groups, n_pairs, n_probes, n_tiles, rows, n_sub, dim, kt, ip, L,
-        static_cast<float*>(out_v), static_cast<int*>(out_i));
+        adm, static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
 
@@ -370,33 +374,43 @@ bool layout_ok(const FlatLayout& L, int kt) {
 // empty slot); probes (nq, n_probes) say which pairs no group holds.
 // layout: the block's shared-memory layout for (dim, kt), 12 host ints in
 // FlatLayout's order, from ops/pair_scan.py's flat_list_scan_layout.
+// filter_words / filter_stride / n_words: a filter's packed admission
+// words as pq_list_scan.cu's pass 1 takes them (null: unfiltered).
 extern "C" int raft_ivf_flat_list_scan(
     const void* queries, const void* probes, const void* group_list,
     const void* slot_pairs, const void* data, const void* norms,
     const void* ids, int n_groups, int nq, int n_probes, int n_tiles,
     int rows, int n_sub, int dim, int kt, int ip, const void* layout,
-    void* out_v, void* out_i, void* stream) {
+    void* out_v, void* out_i, const void* filter_words, int filter_stride,
+    int n_words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FlatLayout L;
   memcpy(&L, layout, sizeof L);
   if (kt < 1 || kt > kKtMax || dim < 1 || rows < 1 || n_sub < 1
       || n_sub > kMaxSub || rows % n_sub != 0 || n_groups < 0
-      || (!ip && norms == nullptr) || !layout_ok(L, kt))
+      || (!ip && norms == nullptr) || !layout_ok(L, kt)
+      || (filter_words != nullptr && (n_words < 1 || filter_stride < 0)))
     return (int)cudaErrorInvalidValue;
   const int n_pairs = nq * n_probes;
   const int blocks = n_groups + (n_pairs + kThreads - 1) / kThreads;
   const bool vec = dim % 4 == 0 && ((uintptr_t)queries & 15) == 0
                    && ((uintptr_t)data & 15) == 0;
-#define RAFT_FLAT_LAUNCH(E, RES, VEC)                                        \
-  launch<E, RES, VEC>(blocks, s, queries, probes, group_list, slot_pairs,   \
-                      data, norms, ids, n_groups, n_pairs, n_probes,        \
-                      n_tiles, rows, n_sub, dim, kt, ip, L, out_v, out_i)
-#define RAFT_FLAT_LAUNCH_E(E)                                                \
-  (L.resident ? (vec ? RAFT_FLAT_LAUNCH(E, true, true)                      \
-                     : RAFT_FLAT_LAUNCH(E, true, false))                    \
-              : (vec ? RAFT_FLAT_LAUNCH(E, false, true)                     \
-                     : RAFT_FLAT_LAUNCH(E, false, false)))
-  return kt <= 32 ? RAFT_FLAT_LAUNCH_E(1) : RAFT_FLAT_LAUNCH_E(2);
+  const Admit adm{static_cast<const int*>(filter_words), filter_stride,
+                  n_words, n_probes};
+#define RAFT_FLAT_LAUNCH(E, RES, VEC, FILT)                                  \
+  launch<E, RES, VEC, FILT>(blocks, s, queries, probes, group_list,         \
+                            slot_pairs, data, norms, ids, n_groups, n_pairs,\
+                            n_probes, n_tiles, rows, n_sub, dim, kt, ip, L, \
+                            adm, out_v, out_i)
+#define RAFT_FLAT_LAUNCH_E(E, FILT)                                          \
+  (L.resident ? (vec ? RAFT_FLAT_LAUNCH(E, true, true, FILT)                \
+                     : RAFT_FLAT_LAUNCH(E, true, false, FILT))              \
+              : (vec ? RAFT_FLAT_LAUNCH(E, false, true, FILT)               \
+                     : RAFT_FLAT_LAUNCH(E, false, false, FILT)))
+  if (filter_words != nullptr)
+    return kt <= 32 ? RAFT_FLAT_LAUNCH_E(1, true) : RAFT_FLAT_LAUNCH_E(2, true);
+  return kt <= 32 ? RAFT_FLAT_LAUNCH_E(1, false)
+                  : RAFT_FLAT_LAUNCH_E(2, false);
 #undef RAFT_FLAT_LAUNCH_E
 #undef RAFT_FLAT_LAUNCH
 }

@@ -16,6 +16,16 @@
 // BN ints), and key_rows turns them into the rows' keys, +inf on a row
 // past the tile's live end or with a negative id, so its distance is +inf
 // and never kept.
+//
+// Filters (kFilter): a pair's query may reject a row's id
+// (filters/bitset.py: bit id & 31 of word id >> 5 of the query's row of
+// packed words).  That is per (pair, row), so no row key can carry it;
+// fold_rows tests the bit only for a column whose distance is below the
+// pair's kt-th entry, before the ballot that would insert it, so a
+// rejected row never enters the pair's top kt and admission costs one
+// word load (L2-resident: a query's row is n_rows / 8 bytes) per
+// candidate that would be inserted, not one per product.  The unfiltered
+// instantiation is the code without the test.
 
 #pragma once
 
@@ -34,6 +44,25 @@ using raft_mma::BN;
 constexpr int kGroup = 128;          // pairs a group (grouped.GROUP)
 constexpr int kThreads = 256;        // two warpgroups, 64 pairs each
 constexpr int kHalf = 64;            // distance columns a fold takes
+
+// A filter's admission operand: the rows of packed words, q_stride words
+// apart (0: one row broadcast to the batch), n_words words a row; pair p
+// is query p / n_probes.
+struct Admit {
+  const int* words;
+  long long q_stride;
+  int n_words;
+  int n_probes;
+};
+
+// whether pair p's query admits id (an id past the row's words, or
+// negative, is not admitted)
+__device__ __forceinline__ bool admitted(const Admit& adm, int p, int id) {
+  const int w = id >> 5;
+  if (id < 0 || w >= adm.n_words) return false;
+  const long long q = p / adm.n_probes;
+  return (__ldg(adm.words + q * adm.q_stride + w) >> (id & 31)) & 1;
+}
 
 // a staged tile's keys in place of its norms: the norm, or +inf at or past
 // `end` and on a row with a negative id
@@ -66,13 +95,15 @@ __device__ __forceinline__ float kth_entry(const float (&v)[E], int kt) {
 // The rows' insertions are independent, so the warp runs them side by
 // side (straight-line code over the rows, predicated where a row has no
 // candidate left) and their shuffle latencies overlap.  dist holds row r's
-// column c at r * kHalf + (c ^ (r & 31)).
-template <int E, int R>
+// column c at r * kHalf + (c ^ (r & 31)).  kFilter: a candidate also needs
+// its pair's query to admit its id (col_ids: the 64 columns' row ids).
+template <int E, int R, bool kFilter>
 __device__ __forceinline__ void fold_rows(float* top_v, int* top_s,
                                          int stride, const float* dist,
                                          const int* s_pair, int n_pairs,
                                          int kt, int slot0, int warp,
-                                         int lane) {
+                                         int lane, const int* col_ids,
+                                         const Admit& adm) {
   constexpr unsigned kAll = 0xffffffffu;
   constexpr int kRows = kGroup / (kThreads / 32);
   // every lane's entries are stored (a constant where stride is)
@@ -98,8 +129,11 @@ __device__ __forceinline__ void fold_rows(float* top_v, int* top_s,
       for (int j = 0; j < R; ++j) {
         const int r = r0 + j;
         d[j] = dist[r * kHalf + ((c0 + lane) ^ (r & 31))];
-        mask[j] = s_pair[r] < n_pairs ? __ballot_sync(kAll, d[j] < thr[j])
-                                      : 0u;
+        const int p = s_pair[r];
+        bool cand = d[j] < thr[j];
+        if constexpr (kFilter)
+          cand = cand && p < n_pairs && admitted(adm, p, col_ids[c0 + lane]);
+        mask[j] = p < n_pairs ? __ballot_sync(kAll, cand) : 0u;
         any |= mask[j];
       }
       while (any) {
@@ -263,19 +297,21 @@ __device__ __forceinline__ void start_group(const int* slot_pairs, int g,
 // ^ (r & 31))), and each half folds into the pairs' top kt (fold_rows, R
 // rows at once); a half at or past the list's live end holds no row that
 // can be kept and is skipped.  key: the window's staged norms and ids
-// (key_rows makes them keys here; rows at or past end are +inf).  Called
-// by every thread once the products are done; ends synchronised.
-template <int E, int R, class Dist>
+// (key_rows makes them keys here; rows at or past end are +inf).  kFilter:
+// each pair keeps only the rows its query admits (adm).  Called by every
+// thread once the products are done; ends synchronised.
+template <int E, int R, bool kFilter, class Dist>
 __device__ __forceinline__ void fold_window(
     const float (&acc)[raft_mma::kAccs], float* key, const float* ssq,
     float* dist, float* top_v, int* top_s, int stride, const int* s_pair,
-    int n_pairs, int kt, int row0, int end, Dist dist_of) {
+    int n_pairs, int kt, int row0, int end, const Admit& adm, Dist dist_of) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int quad = lane & 3;
   // this thread's two pair rows in the group (fragment rows r and r + 8)
   const int rloc = (tid >> 7) * raft_mma::kRowsWg + (warp & 3) * 16
                    + (lane >> 2);
   key_rows(key, row0, end, tid);
+  const int* ids = reinterpret_cast<const int*>(key + BN);
   __syncthreads();
   const float ss[2] = {ssq[rloc], ssq[rloc + 8]};
 #pragma unroll
@@ -296,8 +332,9 @@ __device__ __forceinline__ void fold_window(
       }
     }
     __syncthreads();
-    fold_rows<E, R>(top_v, top_s, stride, dist, s_pair, n_pairs, kt,
-                    row0 + kHalf * h, warp, lane);
+    fold_rows<E, R, kFilter>(top_v, top_s, stride, dist, s_pair, n_pairs,
+                             kt, row0 + kHalf * h, warp, lane, ids + kHalf * h,
+                             adm);
     __syncthreads();
   }
 }

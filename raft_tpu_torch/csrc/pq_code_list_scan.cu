@@ -21,7 +21,9 @@
 // pq_list_scan.cu's pass 1 over the cache bit for bit.  Rows whose id is
 // negative never enter a result; each (query, probe) pair keeps its top kt
 // by (distance, slot), ties to the lowest slot, (+inf, -1) past its live
-// rows and on a probe outside [0, n_lists): out (nq, n_probes, kt).
+// rows and on a probe outside [0, n_lists): out (nq, n_probes, kt).  With
+// a filter (filter_words, as pq_list_scan.cu's pass 1 takes it) a pair
+// keeps only the rows its query admits (list_fold.cuh's admission test).
 //
 // What bounds it on an H100: bytes.  The function needs each probed
 // list's live rows once, W = ceil(pq_dim pq_bits / 8) bytes of codes plus
@@ -250,7 +252,9 @@ __device__ __forceinline__ void convert_int8_rows(uint32_t dst,
 // 32, else 2.  kBits: 4 or 8, the rows are packed codes of that field
 // width (books, W the code width, pq_len); kInt8, the rows are int8 of W
 // = rot_pad bytes with a scale a list (scales; books and pq_len unused).
-template <int kBits, int E>
+// kFilter: each pair keeps only the rows its query admits (adm,
+// list_fold.cuh).
+template <int kBits, int E, bool kFilter>
 __global__ void __launch_bounds__(kThreads, 1)
 code_list_scan_kernel(const float* __restrict__ qrot,
                       const float* __restrict__ centers,
@@ -263,7 +267,7 @@ code_list_scan_kernel(const float* __restrict__ qrot,
                       const float* __restrict__ rsq,
                       const int* __restrict__ ids, int n_groups,
                       int n_pairs, int n_probes, int n_lists, int cap,
-                      int rot, int pq_len, int W, int kt,
+                      int rot, int pq_len, int W, int kt, const Admit adm,
                       float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int s_extent;
@@ -422,10 +426,10 @@ code_list_scan_kernel(const float* __restrict__ qrot,
     // epilogue of row tile t: both warpgroups' products are done before
     // the stage's rows are overwritten by distances; int8 rows take their
     // list's scale after the dot is summed, as the JAX kernel does
-    fold_window<E, kRowsAtOnce>(
+    fold_window<E, kRowsAtOnce, kFilter>(
         acc, reinterpret_cast<float*>(base + L.key + stage * BN * 8), ssq,
         reinterpret_cast<float*>(base + L.b + stage * L.b_step), top_v,
-        top_s, L.stride, s_pair, n_pairs, kt, t * BN, extent,
+        top_s, L.stride, s_pair, n_pairs, kt, t * BN, extent, adm,
         [scale2](float dot, float key, float ss) {
           if constexpr (kBits == kInt8)
             return fmaxf(ss + key - __fmul_rn(scale2, dot), 0.f);
@@ -439,14 +443,15 @@ code_list_scan_kernel(const float* __restrict__ qrot,
             out_i);
 }
 
-template <int kBits, int E>
+template <int kBits, int E, bool kFilter>
 int launch(int blocks, int smem, cudaStream_t s, const void* qrot,
            const void* centers, const void* probes, const void* group_list,
            const void* slot_pairs, const void* codes, const void* books,
            const void* scales, const void* rsq, const void* ids,
            int n_groups, int n_pairs, int n_probes, int n_lists, int cap,
-           int rot, int pq_len, int W, int kt, void* out_v, void* out_i) {
-  const auto kernel = code_list_scan_kernel<kBits, E>;
+           int rot, int pq_len, int W, int kt, const Admit& adm, void* out_v,
+           void* out_i) {
+  const auto kernel = code_list_scan_kernel<kBits, E, kFilter>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -458,9 +463,17 @@ int launch(int blocks, int smem, cudaStream_t s, const void* qrot,
         static_cast<const uint8_t*>(codes), static_cast<const uint4*>(books),
         static_cast<const float*>(scales), static_cast<const float*>(rsq),
         static_cast<const int*>(ids), n_groups, n_pairs, n_probes, n_lists,
-        cap, rot, pq_len, W, kt, static_cast<float*>(out_v),
+        cap, rot, pq_len, W, kt, adm, static_cast<float*>(out_v),
         static_cast<int*>(out_i));
   return (int)cudaGetLastError();
+}
+
+// the launch of row source kBits for kt and a filter (or none)
+template <int kBits>
+auto launcher(int kt, bool filtered) {
+  return filtered ? (kt <= 32 ? launch<kBits, 1, true> : launch<kBits, 2, true>)
+                  : (kt <= 32 ? launch<kBits, 1, false>
+                              : launch<kBits, 2, false>);
 }
 
 }  // namespace
@@ -474,17 +487,21 @@ int launch(int blocks, int smem, cudaStream_t s, const void* qrot,
 // say which pairs no group holds.  smem: the block's dynamic shared
 // memory, as ops/pq_code_scan.py's code_list_scan_smem_bytes sizes it (a
 // Python copy of code_layout; the entry point refuses less than
-// code_layout needs).
+// code_layout needs).  filter_words / filter_stride / n_words: a filter's
+// packed admission words as pq_list_scan.cu's pass 1 takes them (null:
+// unfiltered).
 extern "C" int raft_ivf_pq_code_list_scan(
     const void* qrot, const void* centers, const void* probes,
     const void* group_list, const void* slot_pairs, const void* codes,
     const void* books, const void* rsq, const void* ids, int n_groups,
     int nq, int n_probes, int n_lists, int cap, int rot, int pq_dim,
-    int pq_bits, int kt, int smem, void* out_v, void* out_i, void* stream) {
+    int pq_bits, int kt, int smem, void* out_v, void* out_i,
+    const void* filter_words, int filter_stride, int n_words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kt < 1 || kt > kKtMax || (pq_bits != 4 && pq_bits != 8) || pq_dim < 1
       || rot < 1 || rot % pq_dim != 0 || cap < 1 || n_groups < 0
-      || ((uintptr_t)codes & 15) != 0 || ((uintptr_t)books & 15) != 0)
+      || ((uintptr_t)codes & 15) != 0 || ((uintptr_t)books & 15) != 0
+      || (filter_words != nullptr && (n_words < 1 || filter_stride < 0)))
     return (int)cudaErrorInvalidValue;
   const int W = (pq_dim * pq_bits + 7) / 8;
   if (smem < code_layout(rot, pq_bits, W, kt).total)
@@ -492,11 +509,14 @@ extern "C" int raft_ivf_pq_code_list_scan(
   const int n_pairs = nq * n_probes;
   const int blocks = n_groups + (n_pairs + kThreads - 1) / kThreads;
   const int pq_len = rot / pq_dim;
-  const auto run = pq_bits == 8 ? (kt <= 32 ? launch<8, 1> : launch<8, 2>)
-                                : (kt <= 32 ? launch<4, 1> : launch<4, 2>);
+  const Admit adm{static_cast<const int*>(filter_words), filter_stride,
+                  n_words, n_probes};
+  const bool filtered = filter_words != nullptr;
+  const auto run = pq_bits == 8 ? launcher<8>(kt, filtered)
+                                : launcher<4>(kt, filtered);
   return run(blocks, smem, s, qrot, centers, probes, group_list, slot_pairs,
              codes, books, nullptr, rsq, ids, n_groups, n_pairs, n_probes,
-             n_lists, cap, rot, pq_len, W, kt, out_v, out_i);
+             n_lists, cap, rot, pq_len, W, kt, adm, out_v, out_i);
 }
 
 // Pass 1 over the int8 recon cache (Kernel E, list-major): every (query,
@@ -505,22 +525,26 @@ extern "C" int raft_ivf_pq_code_list_scan(
 // at least rot, zeros past rot; scales (n_lists,) the lists' scales;
 // rsq8 the rows' dequantized norms; groups and probes as above.  smem as
 // ops/pq_code_scan.py's recon8_list_scan_smem_bytes sizes it (the entry
-// point refuses less than code_layout needs).
+// point refuses less than code_layout needs); a filter as above.
 extern "C" int raft_ivf_pq_recon8_list_scan(
     const void* qrot, const void* centers, const void* probes,
     const void* group_list, const void* slot_pairs, const void* data,
     const void* scales, const void* rsq8, const void* ids, int n_groups,
     int nq, int n_probes, int n_lists, int cap, int rot, int rot_pad, int kt,
-    int smem, void* out_v, void* out_i, void* stream) {
+    int smem, void* out_v, void* out_i, const void* filter_words,
+    int filter_stride, int n_words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kt < 1 || kt > kKtMax || rot < 1 || rot_pad < rot || rot_pad % 16 != 0
       || cap < 1 || n_groups < 0 || ((uintptr_t)data & 15) != 0
-      || smem < code_layout(rot, kInt8, rot_pad, kt).total)
+      || smem < code_layout(rot, kInt8, rot_pad, kt).total
+      || (filter_words != nullptr && (n_words < 1 || filter_stride < 0)))
     return (int)cudaErrorInvalidValue;
   const int n_pairs = nq * n_probes;
   const int blocks = n_groups + (n_pairs + kThreads - 1) / kThreads;
-  const auto run = kt <= 32 ? launch<kInt8, 1> : launch<kInt8, 2>;
+  const Admit adm{static_cast<const int*>(filter_words), filter_stride,
+                  n_words, n_probes};
+  const auto run = launcher<kInt8>(kt, filter_words != nullptr);
   return run(blocks, smem, s, qrot, centers, probes, group_list, slot_pairs,
              data, nullptr, scales, rsq8, ids, n_groups, n_pairs, n_probes,
-             n_lists, cap, rot, 0, rot_pad, kt, out_v, out_i);
+             n_lists, cap, rot, 0, rot_pad, kt, adm, out_v, out_i);
 }

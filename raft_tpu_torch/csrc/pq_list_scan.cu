@@ -16,6 +16,10 @@
 // rows (pass 1's output, (nq, n_probes, kt)); each query keeps the top k
 // of its pairs' candidates taken in probe order, ties to the earlier probe
 // and then to the pair's own rank, (+inf, -1) on exhausted ranks (pass 2).
+// With a filter (the TPU kernels' admission operand adm_words, here the
+// queries' rows of packed words: filter_words), a row whose id the pair's
+// query rejects never enters the pair's top kt (pass 1 only: list_fold.cuh
+// tests the bit; pass 2 never sees a rejected row).
 //
 // What bounds it on an H100: bytes.  The function needs each distinct
 // probed list's live rows once (rot * 2 + 8 bytes a row) and 2 * rot
@@ -131,8 +135,9 @@ __device__ __forceinline__ void stage_key(uint32_t dst,
 }
 
 // E: a row's top-kt entries a lane holds while it is folded, 1 for kt <=
-// 32, else 2
-template <int E>
+// 32, else 2; kFilter: each pair keeps only the rows its query admits
+// (adm, list_fold.cuh)
+template <int E, bool kFilter>
 __global__ void __launch_bounds__(kThreads, 1)
 list_scan_kernel(const float* __restrict__ qrot,
                  const float* __restrict__ centers,
@@ -142,8 +147,8 @@ list_scan_kernel(const float* __restrict__ qrot,
                  const __nv_bfloat16* __restrict__ recon,
                  const float* __restrict__ rsq, const int* __restrict__ ids,
                  int n_groups, int n_pairs, int n_probes, int n_lists,
-                 int cap, int rot, int kt, float* __restrict__ out_v,
-                 int* __restrict__ out_i) {
+                 int cap, int rot, int kt, const Admit adm,
+                 float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int s_extent;
   const int tid = threadIdx.x;
@@ -233,10 +238,10 @@ list_scan_kernel(const float* __restrict__ qrot,
     // epilogue of row tile t: both warpgroups' products are done before
     // the stage's rows are overwritten by distances (rows at or past the
     // extent, padding or past the capacity, are dead)
-    fold_window<E, kRowsAtOnce>(
+    fold_window<E, kRowsAtOnce, kFilter>(
         acc, reinterpret_cast<float*>(base + L.key + stage * BN * 8), ssq,
         reinterpret_cast<float*>(base + L.b + stage * L.b_step), top_v,
-        top_s, kKtMax, s_pair, n_pairs, kt, t * BN, extent,
+        top_s, kKtMax, s_pair, n_pairs, kt, t * BN, extent, adm,
         [](float dot, float key, float ss) {
           return fmaxf(ss + key - 2.f * dot, 0.f);
         });
@@ -346,25 +351,26 @@ merge_kernel(const float* __restrict__ pv, const int* __restrict__ pi,
 
 namespace {
 
-template <int E>
+template <int E, bool kFilter>
 int launch_list_scan(int blocks, int smem, cudaStream_t s, const void* qrot,
                      const void* centers, const void* probes,
                      const void* group_list, const void* slot_pairs,
                      const void* recon, const void* rsq, const void* ids,
                      int n_groups, int n_pairs, int n_probes, int n_lists,
-                     int cap, int rot, int kt, void* out_v, void* out_i) {
+                     int cap, int rot, int kt, const Admit& adm, void* out_v,
+                     void* out_i) {
   cudaError_t err = cudaFuncSetAttribute(
-      list_scan_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      list_scan_kernel<E, kFilter>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (blocks > 0)
-    list_scan_kernel<E><<<blocks, kThreads, smem, s>>>(
+    list_scan_kernel<E, kFilter><<<blocks, kThreads, smem, s>>>(
         static_cast<const float*>(qrot), static_cast<const float*>(centers),
         static_cast<const int*>(probes), static_cast<const int*>(group_list),
         static_cast<const int*>(slot_pairs),
         static_cast<const __nv_bfloat16*>(recon),
         static_cast<const float*>(rsq), static_cast<const int*>(ids),
-        n_groups, n_pairs, n_probes, n_lists, cap, rot, kt,
+        n_groups, n_pairs, n_probes, n_lists, cap, rot, kt, adm,
         static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
@@ -378,7 +384,10 @@ int launch_list_scan(int blocks, int smem, cudaStream_t s, const void* qrot,
 // probes (nq, n_probes) say which pairs no group holds.  smem: the
 // block's dynamic shared memory, as ops/pq_group_scan.py's
 // list_scan_smem_bytes sizes it (a Python copy of scan_layout; the entry
-// point refuses less than scan_layout needs).
+// point refuses less than scan_layout needs).  filter_words: null, or the
+// queries' packed admission words (n_words int32 a row, filter_stride
+// words between two queries' rows, 0 for one row broadcast); a pair then
+// keeps only the rows its query admits.
 extern "C" int raft_ivf_pq_list_scan(const void* qrot, const void* centers,
                                      const void* probes,
                                      const void* group_list,
@@ -387,22 +396,26 @@ extern "C" int raft_ivf_pq_list_scan(const void* qrot, const void* centers,
                                      const void* ids, int n_groups, int nq,
                                      int n_probes, int n_lists, int cap,
                                      int rot, int kt, int smem, void* out_v,
-                                     void* out_i, void* stream) {
+                                     void* out_i, const void* filter_words,
+                                     int filter_stride, int n_words,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kt < 1 || kt > kKtMax || rot < 8 || rot % 8 != 0 || cap < 1
-      || n_groups < 0 || smem < scan_layout(rot).total)
+      || n_groups < 0 || smem < scan_layout(rot).total
+      || (filter_words != nullptr && (n_words < 1 || filter_stride < 0)))
     return (int)cudaErrorInvalidValue;
   const int n_pairs = nq * n_probes;
   const int blocks = n_groups + (n_pairs + kThreads - 1) / kThreads;
-  return kt <= 32
-             ? launch_list_scan<1>(blocks, smem, s, qrot, centers, probes,
-                                   group_list, slot_pairs, recon, rsq, ids,
-                                   n_groups, n_pairs, n_probes, n_lists, cap,
-                                   rot, kt, out_v, out_i)
-             : launch_list_scan<2>(blocks, smem, s, qrot, centers, probes,
-                                   group_list, slot_pairs, recon, rsq, ids,
-                                   n_groups, n_pairs, n_probes, n_lists, cap,
-                                   rot, kt, out_v, out_i);
+  const Admit adm{static_cast<const int*>(filter_words), filter_stride,
+                  n_words, n_probes};
+  const auto run =
+      filter_words != nullptr
+          ? (kt <= 32 ? launch_list_scan<1, true> : launch_list_scan<2, true>)
+          : (kt <= 32 ? launch_list_scan<1, false>
+                      : launch_list_scan<2, false>);
+  return run(blocks, smem, s, qrot, centers, probes, group_list, slot_pairs,
+             recon, rsq, ids, n_groups, n_pairs, n_probes, n_lists, cap, rot,
+             kt, adm, out_v, out_i);
 }
 
 // Pass 2 (with pass 1, Kernel B): each query's top k (kt <= k <= 256) of

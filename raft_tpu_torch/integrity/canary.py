@@ -112,21 +112,12 @@ def _search_canaries(res, index, cs: CanarySet, filter=None) -> np.ndarray:
 
 
 def _deleted_ids(index) -> frozenset:
-    """Deleted source ids: a graph index's ``deleted_ids``, else the
-    tombstones ``-(id + 2)`` of ``list_indices`` (an index loaded from a
-    file the JAX package wrote after a delete) whose id has no live copy
-    in another slot."""
-    ext = getattr(index, "deleted_ids", None)
-    if ext is not None:
-        return frozenset(int(v) for v in ext)
-    li = getattr(index, "list_indices", None)
-    if li is None:
-        return frozenset()
-    a = li.reshape(-1).cpu().numpy()
-    dead = frozenset(int(-v - 2) for v in a[a <= -2])
-    if not dead:
-        return dead
-    return dead - frozenset(int(v) for v in a[a >= 0])
+    """Deleted source ids (:func:`raft_tpu_torch.neighbors.mutate.
+    deleted_ids`: a graph index's ``deleted_ids``, else the tombstones of
+    ``list_indices`` whose id has no live copy in another slot)."""
+    from raft_tpu_torch.neighbors.mutate import deleted_ids
+
+    return deleted_ids(index)
 
 
 def measure(res, index, cs: CanarySet, *, filter=None) -> float:
@@ -135,8 +126,7 @@ def measure(res, index, cs: CanarySet, *, filter=None) -> float:
     Deleted rows are excluded from both the per-query ground-truth sets
     and the denominator (a delete legitimately removes stored neighbors);
     an index whose every ground-truth id was deleted measures 1.0.
-    ``filter`` goes to the sentinel search (filtered search is not ported
-    yet, so it raises there)."""
+    ``filter`` goes to the sentinel search."""
     found = _search_canaries(res, index, cs, filter=filter)
     dropped = _deleted_ids(index)
     hits = total = 0

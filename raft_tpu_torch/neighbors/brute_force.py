@@ -8,8 +8,10 @@ O(n_queries · tile_n).  Plain PyTorch; the JAX version has no Pallas
 kernel.  Metrics of this slice: the L2 family and InnerProduct.  The
 queries pass the boundary validator (:mod:`raft_tpu_torch.integrity.
 boundary`): under ``mask`` a non-finite query row returns the worst
-distance and id -1.  ``knn_merge_parts`` is not ported yet (ROADMAP.md
-§1 item 5).
+distance and id -1.  ``filter=`` admits rows by GLOBAL id (after the
+``global_id_offset`` shift, so one filter covers a row-partitioned id
+space); a query with fewer admitted rows than k gets ``(worst, -1)`` on
+the rest.  ``knn_merge_parts`` is not ported yet (ROADMAP.md §1 item 5).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, SQRT_METRICS
+from raft_tpu_torch.filters.bitset import (BITS_PER_WORD, query_filter_words,
+                                           words_on_device)
 from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.utils import precision
@@ -29,13 +33,28 @@ from raft_tpu_torch.utils import precision
 _TILE_N = 65536
 
 
+def _tile_admission(fw: torch.Tensor, gid0: int, n: int) -> torch.Tensor:
+    """The admission bits (nq, n) — (1, n) for a broadcast row — of global
+    ids ``gid0 .. gid0 + n`` under the packed words ``fw``; ids past the
+    words' coverage are not admitted."""
+    if fw.shape[0] > 1 and fw.stride(0) == 0:
+        fw = fw[:1]
+    gids = gid0 + torch.arange(n, device=fw.device)
+    col = torch.clamp_max(gids >> 5, fw.shape[1] - 1)
+    bits = (fw.index_select(1, col) >> (gids & 31).to(torch.int32)) & 1
+    return (bits > 0) & (gids < fw.shape[1] * BITS_PER_WORD)[None, :]
+
+
 @auto_convert_output
 def knn(res, database, queries, k: int, *,
         metric: int = DistanceType.L2Unexpanded, global_id_offset: int = 0,
-        tile_n: int = _TILE_N) -> Tuple[torch.Tensor, torch.Tensor]:
+        tile_n: int = _TILE_N, filter=None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN of ``queries`` (q, d) in ``database`` (n, d): (distances
     (q, k) f32, indices (q, k) int32), best first; ``global_id_offset``
-    shifts the returned ids."""
+    shifts the returned ids.  ``filter`` (a :class:`~raft_tpu_torch.
+    filters.SampleFilter` or (q, n) bool mask) admits rows by global id;
+    slots with no admitted row left are ``(worst, -1)``."""
     with precision.highest():
         database = ensure_tensor(database, res, "database")
         queries = ensure_tensor(queries, res, "queries")
@@ -50,6 +69,10 @@ def knn(res, database, queries, k: int, *,
             queries, "queries", site="brute_force.knn",
             dim=database.shape[1])
         select_min = metric != DistanceType.InnerProduct
+        worst = float("inf") if select_min else float("-inf")
+        fw = query_filter_words(filter, queries.shape[0], "brute_force.knn")
+        if fw is not None:
+            fw = words_on_device(fw, queries.device)
         qf = queries.float()
         q_sq = (qf * qf).sum(1, keepdim=True)
         best_d = best_i = None
@@ -61,6 +84,10 @@ def knn(res, database, queries, k: int, *,
                                     - 2.0 * ip, 0.0)
             else:
                 d = ip
+            if fw is not None:
+                d = torch.where(_tile_admission(fw, global_id_offset + s,
+                                                tile.shape[0]),
+                                d, torch.full_like(d, worst))
             td, ti = raw(select_k)(d, min(k, tile.shape[0]),
                               select_min=select_min)
             ti = ti + s
@@ -70,11 +97,16 @@ def knn(res, database, queries, k: int, *,
                 td, pos = raw(select_k)(td, k, select_min=select_min)
                 ti = torch.gather(ti, 1, pos)
             best_d, best_i = td, ti
+        best_i = best_i + global_id_offset
+        if fw is not None:
+            # a query can run out of admitted rows: the (worst, -1)
+            # sentinel, never a positional id
+            best_i = torch.where(best_d == worst, torch.full_like(best_i, -1),
+                                 best_i)
         if metric in SQRT_METRICS:
             best_d = torch.sqrt(best_d)
         return boundary.mask_search_outputs(
-            best_d, (best_i + global_id_offset).int(), ok_rows,
-            select_min=select_min)
+            best_d, best_i.int(), ok_rows, select_min=select_min)
 
 
 def knn_merge_parts(in_keys, in_values, *, n_samples=None,

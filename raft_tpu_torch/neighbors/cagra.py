@@ -60,8 +60,17 @@ loads the stages a checkpoint holds.  ``canary_queries > 0`` stores
 recall canaries (:mod:`raft_tpu_torch.integrity.canary`), checked after
 ``load`` and a resumed build.
 
+Filters and deletes: ``filter=`` keeps each query to the ids it admits —
+rejected entry seeds never seed the buffer, and Kernel I's walk turns a
+hop's rejected candidate into id -1, so it is neither kept nor expanded
+(approximate, like any walk: raise ``itopk_size`` / ``search_width``
+under selective filters).  :func:`delete` is the reference's shim: the
+rows stay in the dataset and graph (the walk may pass through them), a
+host-side ``deleted_ids`` set drops them from every result
+(:func:`_mask_deleted`), and the set is not serialized.
+
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``filter=`` (filters), ``delete`` (mutation), the deep-scale build from ``_DEEP_SCALE_ROWS`` rows (CAGRA deep regime), the
+item: the deep-scale build from ``_DEEP_SCALE_ROWS`` rows (CAGRA deep regime), the
 direct exact walk (``walk_pdim=0``, or no walk-table format fits: CAGRA
 direct walk) and hops beyond Kernel I's gate — itopk or search_width x
 degree above 256 (CAGRA wide hops).
@@ -88,8 +97,11 @@ from raft_tpu_torch.core.interruptible import interruptible
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.core.outputs import auto_convert_output
 from raft_tpu_torch.distance.types import DistanceType, SQRT_METRICS
+from raft_tpu_torch.filters.bitset import (query_bits, query_filter_words,
+                                           words_on_device)
 from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.integrity import canary as _canary
+from raft_tpu_torch.neighbors import mutate as _mutate
 from raft_tpu_torch.matrix.ops import row_duplicate_mask
 from raft_tpu_torch.neighbors.ivf_flat import _stage
 from raft_tpu_torch.ops import cagra_hop as _hop
@@ -687,15 +699,21 @@ def _query_side(qf, proj, quant: bool, scales):
 
 
 def _seed_walk(qp, q_sq, entry_proj, entry_sq, entry_ids, itopk: int,
-               ip_metric: bool):
+               ip_metric: bool, filter_words=None):
     """The walk's seeded buffer (buf_d, buf_i, visited), each (nq, itopk):
     the best ``itopk`` of a dense scoring of the entry set, sorted, dead
-    (+inf) slots id -1, nothing visited."""
+    (+inf) slots id -1, nothing visited.  An entry the query's filter
+    rejects scores +inf, so it cannot seed the buffer (and reach the
+    rerank)."""
     nq = qp.shape[0]
     ip_e = _f32_bf16(qp) @ _f32_bf16(entry_proj).T
     d_e = -ip_e if ip_metric else (q_sq[:, None] + entry_sq[None, :]) \
         - 2.0 * ip_e
     ids_e = entry_ids.int()[None, :].expand(nq, -1)
+    if filter_words is not None:
+        adm = query_bits(filter_words, torch.arange(nq, device=d_e.device),
+                         ids_e)
+        d_e = torch.where(adm > 0, d_e, torch.full_like(d_e, float("inf")))
     S = d_e.shape[1]
     if S < itopk:
         d_e = torch.cat([d_e, torch.full((nq, itopk - S), float("inf"),
@@ -715,7 +733,8 @@ def _search_impl_walk(dataset, table, entry_proj, entry_sq, entry_ids, proj,
                       queries, k: int, itopk: int, search_width: int,
                       max_iterations: int, metric: int, rerank: int,
                       deg: int, quant: bool = False, scales=None,
-                      exit_every: int = _EXIT_CHECK_EVERY):
+                      exit_every: int = _EXIT_CHECK_EVERY,
+                      filter_words=None):
     """Greedy walk over the packed table (``raft_tpu/neighbors/cagra.py``
     :1707):
     dense entry scoring seeds the sorted buffer, the walk runs in one
@@ -723,7 +742,8 @@ def _search_impl_walk(dataset, table, entry_proj, entry_sq, entry_ids, proj,
     kernel on the card), and the best ``rerank`` entries are re-scored
     exactly.  The plain walk checks the all(visited) exit every
     ``exit_every`` hops (0: never — the fixed hop count, the same
-    result)."""
+    result).  ``filter_words``: the queries' packed admission words, or
+    None."""
     nq = queries.shape[0]
     n = dataset.shape[0]
     pdim = proj.shape[1]
@@ -732,12 +752,13 @@ def _search_impl_walk(dataset, table, entry_proj, entry_sq, entry_ids, proj,
     qf = queries.float()
     q_sq, qp, qp_t = _query_side(qf, proj, quant, scales)
     buf_d, buf_i, visited = _seed_walk(qp, q_sq, entry_proj, entry_sq,
-                                       entry_ids, itopk, ip_metric)
+                                       entry_ids, itopk, ip_metric,
+                                       filter_words)
     buf_d, buf_i, visited = _walk.cagra_walk(
         qp_t, q_sq, table, buf_d, buf_i, visited, deg=deg,
         search_width=search_width, max_iterations=max_iterations,
         ip_metric=ip_metric, quant=quant, scales=scales,
-        exit_every=exit_every)
+        exit_every=exit_every, filter_words=filter_words)
 
     # exact rerank of the best `rerank` buffer entries (a sorted slice)
     r_ids = buf_i[:, :rerank]
@@ -767,6 +788,12 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
     .. note:: like the JAX package's, the first search builds and attaches
        the packed walk table and the entry set to ``index`` in place.
 
+    ``filter`` (a :class:`~raft_tpu_torch.filters.SampleFilter` or (nq, n)
+    bool mask): rejected candidates never enter the walk buffer, so they
+    are neither returned nor expanded.  The walk is approximate: filtered
+    recall is not the post-hoc-filtered exact scan's.  Ids in the index's
+    ``deleted_ids`` (:func:`delete`) are dropped from every result.
+
     Queries pass the boundary validator: under policy ``mask`` a
     non-finite query row returns the worst distance and id -1."""
     queries = ensure_tensor(queries, res, "queries")
@@ -774,17 +801,20 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
         queries, "queries", site="cagra.search", dim=index.dim)
     expects(queries.ndim == 2 and queries.shape[1] == index.dim,
             "cagra.search: query dim mismatch")
-    if filter is not None:
-        raise _not_ported("filtered search (filter=)", "filters")
     with precision.highest():
-        dist, ids = _search_checked(res, params, index, queries.float(), k)
+        dist, ids = _search_checked(res, params, index, queries.float(), k,
+                                    filter=filter)
     return boundary.mask_search_outputs(
         dist, ids, ok_rows,
         select_min=index.metric != DistanceType.InnerProduct)
 
 
 def _search_checked(res, params: SearchParams, index: Index, queries,
-                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    k: int, *, filter=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    fw = query_filter_words(filter, queries.shape[0], "cagra.search")
+    if fw is not None:
+        fw = words_on_device(fw, queries.device)
     expects(0 < k <= index.size, "cagra.search: need 0 < k <= n")
     merge_window_request(params.merge_window)
     itopk = max(params.itopk_size, k)
@@ -802,11 +832,32 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
     cache = _walk_cache(res, index, pdim, max(params.entry_points, itopk),
                         quant=quant)
     rerank = max(min(itopk, params.rerank_topk or max(32, 2 * k)), k)
-    return _search_impl_walk(
+    out = _search_impl_walk(
         index.dataset, cache.table, cache.entry_proj, cache.entry_sq,
         cache.entry_ids, cache.proj, queries, k, itopk, params.search_width,
         max_iter, index.metric, rerank, index.graph_degree,
-        quant=cache.quant, scales=cache.scales)
+        quant=cache.quant, scales=cache.scales, filter_words=fw)
+    return _mask_deleted(index, *out)
+
+
+def _mask_deleted(index: Index, dist, ids
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The delete shim's post-filter: results whose id is in the index's
+    ``deleted_ids`` take the worst distance and id -1 and sink to the end
+    of their row (a stable re-sort); nothing for an index with no
+    deletions."""
+    dropped = getattr(index, "deleted_ids", None)
+    if not dropped:
+        return dist, ids
+    gone = torch.tensor(sorted(dropped), dtype=ids.dtype, device=ids.device)
+    select_min = index.metric != DistanceType.InnerProduct
+    worst = float("inf") if select_min else float("-inf")
+    hit = torch.isin(ids, gone) & (ids >= 0)
+    dist = torch.where(hit, torch.full_like(dist, worst), dist)
+    ids = torch.where(hit, torch.full_like(ids, -1), ids)
+    order = torch.sort(dist, dim=1, descending=not select_min,
+                       stable=True).indices
+    return torch.gather(dist, 1, order), torch.gather(ids, 1, order)
 
 
 # ---------------------------------------------------------------------------
@@ -1321,7 +1372,28 @@ def index_from_numpy(dataset, graph, metric: int = DistanceType.L2Expanded,
 
 
 def delete(res, index: Index, ids) -> Index:
-    raise _not_ported("delete", "mutation")
+    """The delete-mask shim (the IVF ``delete``'s counterpart): rows stay
+    in the dataset and graph — the walk may still pass through them — but
+    every search drops them (:func:`_mask_deleted`), and the canaries'
+    ground truth excludes them.  Returns a new generation sharing the
+    dataset, graph and walk caches; ``deleted_ids`` is a host-side
+    frozenset, not serialized.  Reclaiming the rows takes a rebuild."""
+    ids = ensure_tensor(ids, res, "ids")
+    expects(ids.ndim == 1, "cagra.delete: 1-D ids required")
+    prior = getattr(index, "deleted_ids", None) or frozenset()
+    dropped = frozenset(prior) | {int(v) for v in ids.cpu().tolist()}
+    out = Index(dataset=index.dataset, graph=index.graph,
+                metric=index.metric, canaries=index.canaries,
+                data_dtype=index.data_dtype)
+    out.deleted_ids = dropped
+    # the walk caches depend only on the dataset and graph (both shared)
+    for attr in ("_walk_auto_pdim", "_walk_calib_vecs", "_walk_quant_ok",
+                 "_walk_tables", "_walk_entries"):
+        if hasattr(index, attr):
+            setattr(out, attr, getattr(index, attr))
+    _mutate.next_generation(index, out)
+    _canary.auto_check(res, out, site="delete")
+    return out
 
 
 # v2: trailing recall-canary block (nested envelope, may be absent)

@@ -46,9 +46,14 @@ written: the first search of a loaded index attaches it again.  With
 (:mod:`raft_tpu_torch.integrity.canary`), which ``extend`` and ``load``
 health-check.
 
-Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``delete`` / ``upsert`` / ``compact`` (mutation) and ``filter=``
-(filters).  Inputs pass the boundary validator
+Filters and mutation: ``filter=`` (a :class:`~raft_tpu_torch.filters.
+SampleFilter` or an (nq, n_rows) bool mask) restricts each query's
+candidates by source id inside Kernel F's list-major pass, at L2 and at
+InnerProduct (at k > 64, the query-major route, it raises *filters on the
+query-major routes*); :func:`delete` tombstones rows, :func:`upsert`
+deletes and re-inserts in one generation, :func:`compact` drops the
+tombstones and shrinks the capacity (:mod:`raft_tpu_torch.neighbors.
+mutate`).  Inputs pass the boundary validator
 (:mod:`raft_tpu_torch.integrity.boundary`) at the JAX package's sites:
 under ``mask`` a build or extend keeps the zeroed rows and a search flags
 masked query rows as ``(+inf, -1)`` (``(-inf, -1)`` for InnerProduct).
@@ -66,22 +71,20 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core import serialize as ser
-from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.distance.types import DistanceType, SQRT_METRICS
+from raft_tpu_torch.filters.bitset import query_filter_words, words_on_device
 from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.integrity import canary as _canary
+from raft_tpu_torch.neighbors import mutate as _mutate
 from raft_tpu_torch.matrix.ops import row_duplicate_mask
 from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.ops.pair_scan import ivf_flat_scan
 from raft_tpu_torch.utils import precision
 
 _LIST_ALIGN = 32  # list capacities are rounded to warp multiples
-
-
-def _not_ported(what: str, item: str):
-    return not_ported("ivf_flat", what, item)
 
 
 @dataclasses.dataclass
@@ -488,7 +491,9 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
            filter=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search (reference: ivf_flat.cuh:389).  Returns (distances (nq, k)
     f32, ids (nq, k) int32) on the handle's device; unfilled ranks carry
-    id -1 and +inf (-inf for InnerProduct).
+    id -1 and +inf (-inf for InnerProduct).  ``filter`` (a
+    :class:`~raft_tpu_torch.filters.SampleFilter` or an (nq, n_rows) bool
+    mask) keeps each query to the ids it admits, inside the scan.
 
     .. note:: like the JAX package's, the first L2 search attaches the
        ``list_data_sq`` row-norm cache to ``index`` in place.
@@ -510,8 +515,9 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
 def _search_checked(res, params: SearchParams, index: Index, queries,
                     k: int, *, filter=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if filter is not None:
-        raise _not_ported("filtered search (filter=)", "filters")
+    fw = query_filter_words(filter, queries.shape[0], "ivf_flat.search")
+    if fw is not None:
+        fw = words_on_device(fw, queries.device)
     with precision.highest():
         expects(0 < k, "ivf_flat.search: k must be positive")
         n_probes = min(params.n_probes, index.n_lists)
@@ -530,7 +536,8 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
             ids = ids.reshape(n_eff, F * cap)
             dsq = None if ip else dsq.reshape(n_eff, F * cap)
         vals, found = ivf_flat_scan(queries, probes, data, dsq, ids,
-                                    min(k, F * cap), ip, sub_lists=F)
+                                    min(k, F * cap), ip, sub_lists=F,
+                                    filter_words=fw)
         return _finalize_topk(vals, found, k, index.metric)
 
 
@@ -563,16 +570,69 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
                  data_dtype=rows.dtype)
 
 
+# ---------------------------------------------------------------------------
+# mutation (reference: raft_tpu/neighbors/ivf_flat.py delete / upsert /
+# compact; the encoding in neighbors/mutate)
+# ---------------------------------------------------------------------------
+
 def delete(res, index: Index, ids) -> Index:
-    raise _not_ported("delete", "mutation")
+    """Tombstone-delete rows by source id: every ``list_indices`` slot
+    holding one of ``ids`` becomes ``-(id + 2)``; every scan masks
+    negative ids, so the rows leave results at once, at no cost per
+    search.  Storage comes back with :func:`compact`.  Ids not present
+    match nothing.  Returns a new index, the next generation, sharing
+    every tensor but ``list_indices``; its canaries are health-checked."""
+    ids = ensure_tensor(ids, res, "ids")
+    expects(ids.ndim == 1, "ivf_flat.delete: 1-D ids required")
+    new_li, _ = _mutate.tombstone(index.list_indices, ids)
+    out = dataclasses.replace(index, list_indices=new_li)
+    _mutate.next_generation(index, out)
+    _canary.auto_check(res, out, site="delete")
+    return out
 
 
 def upsert(res, index: Index, ids, vectors) -> Index:
-    raise _not_ported("upsert", "mutation")
+    """Replace-or-insert rows under explicit source ids: tombstone any
+    rows with these ids, then append ``vectors`` under them — one
+    mutation, ONE generation bump.  Ids not present simply insert."""
+    ids = ensure_tensor(ids, res, "ids")
+    vectors = ensure_tensor(vectors, res, "vectors")
+    expects(ids.ndim == 1 and ids.shape[0] == vectors.shape[0],
+            "ivf_flat.upsert: ids must be 1-D, one per vector")
+    parent_gen = _mutate.generation(index)
+    out = extend(res, delete(res, index, ids), vectors, new_indices=ids)
+    out.generation = parent_gen + 1
+    return out
 
 
 def compact(res, index: Index) -> Index:
-    raise _not_ported("compact", "mutation")
+    """Reclaim tombstoned slots: each list's live rows stably to the
+    front, every tombstone dropped, the shared capacity shrunk to fit the
+    fullest list with one row of headroom (32-aligned, never above the
+    parent's); ``list_data_sq`` is carried along where the parent has it.
+    Returns a new generation sharing ``centers`` with its parent."""
+    order, sizes = _mutate.compaction_order(index.list_indices)
+    max_size = int(sizes.max()) if index.n_lists else 0
+    capacity = _round_up(max(max_size + 1, _LIST_ALIGN), _LIST_ALIGN)
+    capacity = min(capacity, max(index.capacity, _LIST_ALIGN))
+    order = order[:, :capacity]
+    live = (torch.arange(capacity, device=order.device)[None, :]
+            < sizes[:, None])
+    li = torch.where(live, torch.gather(index.list_indices, 1, order),
+                     torch.full_like(order, -1, dtype=torch.int32))
+    data = torch.gather(index.list_data, 1,
+                        order[:, :, None].expand(-1, -1, index.dim))
+    data = torch.where(live[:, :, None], data, torch.zeros_like(data))
+    data_sq = None
+    if index.list_data_sq is not None:
+        data_sq = torch.where(live, torch.gather(index.list_data_sq, 1,
+                                                 order),
+                              torch.zeros_like(live, dtype=torch.float32))
+    out = dataclasses.replace(index, list_data=data, list_indices=li,
+                              list_sizes=sizes, list_data_sq=data_sq)
+    _mutate.next_generation(index, out)
+    _canary.auto_check(res, out, site="compact")
+    return out
 
 
 # v2: trailing recall-canary block (nested envelope, may be absent)

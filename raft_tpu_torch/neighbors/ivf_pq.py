@@ -42,13 +42,27 @@ The code and int8 caches are derived lazily by the first search that
 needs them (the recon cache too, with a warning, for ``"recon"`` on an
 index built without it); sqrt metrics get their sqrt afterwards.
 
+Filters: ``filter=`` (a :class:`~raft_tpu_torch.filters.SampleFilter` or
+an (nq, n_rows) bool mask) restricts each query's candidates by source id
+inside the list-major passes of every scan mode (the kernels test the
+query's bit before a row can enter a pair's top kt); a rejected or
+exhausted slot is ``(+inf, -1)``.  At the shapes only a query-major
+kernel holds (a pair keeping more than 64 rows, the codes pass at rot 256
+with 8 bits or past kt 40 at rot 128, the int8 pass at rot_pad > 128 past
+kt 56) a filtered search raises *filters on the query-major routes*.
+
+Mutation (:mod:`raft_tpu_torch.neighbors.mutate`): :func:`delete`
+tombstones rows (every scan masks them), :func:`upsert` deletes and
+re-inserts under the same ids in one generation, :func:`compact` drops
+the tombstones, shrinks the capacity and rebuilds the derived caches the
+parent carried.  Each returns a new index, the next generation.
+
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
 item: every search that resolves to the LUT scan (pq_bits outside {4, 8}
 without a recon cache, per-pair code scans at kt > 128), recon8 scans at
 kt > 128 or, past kt 64, at a capacity the query-major kernel cannot hold,
-InnerProduct search, ``filter=``, ``CodebookKind.PER_CLUSTER`` (a
-build, or a file holding per-cluster books), ``delete`` / ``upsert`` /
-``compact`` and ``calibrate_group_capacity``.
+InnerProduct search, ``CodebookKind.PER_CLUSTER`` (a build, or a file
+holding per-cluster books) and ``calibrate_group_capacity``.
 
 Persistence: :func:`serialize` / :func:`deserialize` / :func:`save` /
 :func:`load` write and read the JAX package's stream (version 4, the
@@ -93,9 +107,11 @@ from raft_tpu_torch.core.interruptible import interruptible
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.core.outputs import auto_convert_output
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS
+from raft_tpu_torch.filters.bitset import query_filter_words, words_on_device
 from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.integrity import canary as _canary
 from raft_tpu_torch.neighbors import ivf_flat
+from raft_tpu_torch.neighbors import mutate as _mutate
 from raft_tpu_torch.neighbors.ivf_flat import (_LIST_ALIGN,
                                                _append_lists_multi,
                                                _finalize_topk, _pack_lists,
@@ -702,44 +718,44 @@ def _resolve_mode(params: SearchParams, index: Index) -> Tuple[str, bool]:
     return mode, want_fused
 
 
-def _search_fused_recon(index, qrot, probes, k, kt):
+def _search_fused_recon(index, qrot, probes, k, kt, fw=None):
     """Kernel B over the bf16 recon cache, each query's top k in kernel;
     where Kernel B's gate refuses the shape, Kernel G + finalize, counted
     in ``search.fused_fallbacks`` with the gate's reason (the JAX
-    package's fused_fallback)."""
+    package's fused_fallback).  ``fw``: the filter's words, or None."""
     reason = scan_reject_reason(index.capacity, index.rot_dim, k, kt)
     if reason:
         search.fused_fallbacks += 1
         search.last_fallback_reason = reason
-        return _search_recon(index, qrot, probes, k, kt)
+        return _search_recon(index, qrot, probes, k, kt, fw)
     if index.list_recon_sq is None:
         index.list_recon_sq = _recon_sq(index.list_recon)
     vals, ids = ivf_pq_scan_fused(
         qrot, index.centers.float(), probes, index.list_recon,
-        index.list_recon_sq, index.list_indices, k, kt)
+        index.list_recon_sq, index.list_indices, k, kt, filter_words=fw)
     return _sqrt_epilogue(vals, index.metric), ids
 
 
-def _search_recon(index, qrot, probes, k, kt):
+def _search_recon(index, qrot, probes, k, kt, fw=None):
     """Kernel G over the bf16 recon cache, then each query's top k."""
     if index.list_recon_sq is None:
         index.list_recon_sq = _recon_sq(index.list_recon)
     vals, ids = ivf_pq_scan_recon(
         qrot, index.centers.float(), probes, index.list_recon,
-        index.list_recon_sq, index.list_indices, kt)
+        index.list_recon_sq, index.list_indices, kt, filter_words=fw)
     return _finalize_topk(vals, ids, k, index.metric)
 
 
-def _search_fused_codes(index, qrot, probes, k, kt):
+def _search_fused_codes(index, qrot, probes, k, kt, fw=None):
     """Kernel C over the packed codes, each query's top k in kernel."""
     vals, ids = pcs.ivf_pq_scan_codes_fused(
         qrot, index.centers.float(), probes, index.list_codes,
         index.codebooks, index.list_code_rsq, index.list_indices,
-        index.pq_bits, k, kt)
+        index.pq_bits, k, kt, filter_words=fw)
     return _sqrt_epilogue(vals, index.metric), ids
 
 
-def _search_codes(index, qrot, probes, k, kt):
+def _search_codes(index, qrot, probes, k, kt, fw=None):
     """Kernel D over the packed codes, then each query's top k; a shape
     both of D's routes refuse needs the LUT scan, not ported."""
     reason = pcs.codes_reject_reason(index.capacity, index.rot_dim,
@@ -750,11 +766,11 @@ def _search_codes(index, qrot, probes, k, kt):
     vals, ids = pcs.ivf_pq_scan_codes(
         qrot, index.centers.float(), probes, index.list_codes,
         index.codebooks, index.list_code_rsq, index.list_indices,
-        index.pq_bits, kt)
+        index.pq_bits, kt, filter_words=fw)
     return _finalize_topk(vals, ids, k, index.metric)
 
 
-def _search_recon8(index, qrot, probes, k, kt):
+def _search_recon8(index, qrot, probes, k, kt, fw=None):
     """Kernel E over the int8 recon cache, then each query's top k; a
     shape both of E's routes refuse (kt > 128, or kt > 64 at a capacity
     past the query-major kernel's shared memory) is a deferred item."""
@@ -768,7 +784,7 @@ def _search_recon8(index, qrot, probes, k, kt):
     vals, ids = pcs.ivf_pq_scan_recon8(
         qrot, index.centers.float(), probes, index.list_recon_i8,
         index.list_recon_scale, index.list_recon_i8_sq, index.list_indices,
-        kt)
+        kt, filter_words=fw)
     return _finalize_topk(vals, ids, k, index.metric)
 
 
@@ -785,6 +801,13 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
     with the gate's reason in ``search.last_fallback_reason``; recon ->
     Kernel G (building the recon cache first, with a warning, on an index
     without one); codes -> Kernel D; recon8 -> Kernel E.
+
+    ``filter`` (a :class:`~raft_tpu_torch.filters.SampleFilter`, one row
+    broadcast to the batch, or an (nq, n_rows) bool mask) restricts each
+    query's candidates by source id inside the scan, on every mode: at
+    full probe the result equals the unfiltered result filtered
+    afterwards.  A query with fewer admitted candidates than k gets
+    ``(+inf, -1)`` on the rest.
 
     .. note:: like the JAX package's, the first search of an index may
        attach derived caches in place (``list_recon_sq``,
@@ -807,8 +830,9 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
 def _search_checked(res, params: SearchParams, index: Index, queries,
                     k: int, *, filter=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if filter is not None:
-        raise _not_ported("filtered search (filter=)", "filters")
+    fw = query_filter_words(filter, queries.shape[0], "ivf_pq.search")
+    if fw is not None:
+        fw = words_on_device(fw, queries.device)
     mode, want_fused = _resolve_mode(params, index)
     if index.metric == DistanceType.InnerProduct:
         raise _not_ported("InnerProduct search", "InnerProduct search")
@@ -841,9 +865,9 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
                                   index.metric)
         if mode == "recon":
             return (_search_fused_recon if want_fused else _search_recon)(
-                index, qrot, probes, k, kt)
+                index, qrot, probes, k, kt, fw)
         if mode == "recon8":
-            return _search_recon8(index, qrot, probes, k, kt)
+            return _search_recon8(index, qrot, probes, k, kt, fw)
         if index.list_code_rsq is None:
             _with_code_rsq(index)
         if want_fused:
@@ -851,10 +875,10 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
                 index.capacity, index.rot_dim, index.pq_dim, index.pq_bits,
                 k, kt)
             if not reason:
-                return _search_fused_codes(index, qrot, probes, k, kt)
+                return _search_fused_codes(index, qrot, probes, k, kt, fw)
             search.fused_fallbacks += 1
             search.last_fallback_reason = reason
-        return _search_codes(index, qrot, probes, k, kt)
+        return _search_codes(index, qrot, probes, k, kt, fw)
 
 
 # fused searches a gate sent to the per-pair scan + finalize (Kernel B ->
@@ -909,16 +933,99 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
                  pq_bits=pq_bits, pq_dim_=pq_dim, group_est=group_est)
 
 
+# ---------------------------------------------------------------------------
+# mutation (reference: raft_tpu/neighbors/ivf_pq.py delete / upsert /
+# compact; the encoding in neighbors/mutate)
+# ---------------------------------------------------------------------------
+
 def delete(res, index: Index, ids) -> Index:
-    raise _not_ported("delete", "mutation")
+    """Tombstone-delete rows by source id: every ``list_indices`` slot
+    holding one of ``ids`` becomes ``-(id + 2)``; every scan masks negative
+    ids, so the rows leave search results at once, and the codes and
+    every derived cache stay as they are (shared with the parent).
+    Storage comes back with :func:`compact`.  Ids not present match
+    nothing.  Returns a new index, the next generation; its canaries are
+    health-checked."""
+    ids = ensure_tensor(ids, res, "ids")
+    expects(ids.ndim == 1, "ivf_pq.delete: 1-D ids required")
+    new_li, _ = _mutate.tombstone(index.list_indices, ids)
+    out = Index(
+        centers=index.centers, codebooks=index.codebooks,
+        list_codes=index.list_codes, list_indices=new_li,
+        list_sizes=index.list_sizes, rotation=index.rotation,
+        metric=index.metric, codebook_kind=index.codebook_kind,
+        pq_bits=index.pq_bits, pq_dim_=index.pq_dim,
+        list_recon=index.list_recon, list_recon_sq=index.list_recon_sq,
+        list_code_lanes=index.list_code_lanes,
+        list_code_rsq=index.list_code_rsq,
+        list_recon_i8=index.list_recon_i8,
+        list_recon_scale=index.list_recon_scale,
+        list_recon_i8_sq=index.list_recon_i8_sq, canaries=index.canaries)
+    _mutate.next_generation(index, out)
+    _canary.auto_check(res, out, site="delete")
+    return out
 
 
 def upsert(res, index: Index, ids, vectors) -> Index:
-    raise _not_ported("upsert", "mutation")
+    """Replace-or-insert rows under explicit source ids: tombstone any
+    rows with these ids, then encode and append ``vectors`` under them —
+    one mutation, ONE generation bump.  Ids not present simply insert."""
+    ids = ensure_tensor(ids, res, "ids")
+    vectors = ensure_tensor(vectors, res, "vectors")
+    expects(ids.ndim == 1 and ids.shape[0] == vectors.shape[0],
+            "ivf_pq.upsert: ids must be 1-D, one per vector")
+    parent_gen = _mutate.generation(index)
+    out = extend(res, delete(res, index, ids), vectors, new_indices=ids)
+    out.generation = parent_gen + 1
+    return out
 
 
 def compact(res, index: Index) -> Index:
-    raise _not_ported("compact", "mutation")
+    """Reclaim tombstoned slots: each list's live rows stably to the
+    front, every tombstone dropped, the shared capacity shrunk to fit the
+    fullest list with one row of headroom (32-aligned, never above the
+    parent's), and the derived caches the parent carried (recon, the code
+    scans' row norms, int8) rebuilt from the moved codes; the seconds of
+    each rebuild are in ``compact.cache_seconds``.  Returns a new
+    generation sharing ``centers`` / ``codebooks`` / ``rotation``."""
+    with precision.highest():
+        order, sizes = _mutate.compaction_order(index.list_indices)
+        max_size = int(sizes.max()) if index.n_lists else 0
+        capacity = _round_up(max(max_size + 1, _LIST_ALIGN), _LIST_ALIGN)
+        capacity = min(capacity, max(index.capacity, _LIST_ALIGN))
+        order = order[:, :capacity]
+        live = (torch.arange(capacity, device=order.device)[None, :]
+                < sizes[:, None])
+        li = torch.where(live, torch.gather(index.list_indices, 1, order),
+                         torch.full_like(order, -1, dtype=torch.int32))
+        codes = torch.gather(
+            index.list_codes, 1,
+            order[:, :, None].expand(-1, -1, index.code_width))
+        codes = torch.where(live[:, :, None], codes, torch.zeros_like(codes))
+        out = Index(
+            centers=index.centers, codebooks=index.codebooks,
+            list_codes=codes, list_indices=li, list_sizes=sizes,
+            rotation=index.rotation, metric=index.metric,
+            codebook_kind=index.codebook_kind, pq_bits=index.pq_bits,
+            pq_dim_=index.pq_dim, canaries=index.canaries)
+        compact.cache_seconds = {}
+        dev = codes.device
+        t0 = _stage(None, None, time.perf_counter(), dev)
+        for name, carried, attach in (
+                ("recon", index.list_recon, _with_recon),
+                ("code_rsq", index.list_code_rsq, _with_code_rsq),
+                ("recon8", index.list_recon_i8, _with_recon8)):
+            if carried is not None:
+                attach(out)
+                t0 = _stage(compact.cache_seconds, name, t0, dev)
+    _mutate.next_generation(index, out)
+    _canary.auto_check(res, out, site="compact")
+    return out
+
+
+# seconds of each derived cache the latest compact rebuilt, device work
+# included
+compact.cache_seconds = {}
 
 
 def calibrate_group_capacity(res, index: Index, queries,

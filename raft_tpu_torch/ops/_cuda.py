@@ -40,46 +40,44 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (every pointer and the stream as
 # c_void_p, so ctypes never truncates an address to a 32-bit int)
 SIGNATURES = {
-    "raft_kmeans_assign_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                                  _P, _P),
+    "raft_kmeans_assign_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                  _P),
     "raft_kmeans_pass_cut": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                              _P, _P),
-    "raft_ivf_pq_scan_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _P, _P, _P),
+    "raft_ivf_pq_scan_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P, _P, _P),
     "raft_ivf_pq_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _P, _P, _P),
+                              _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
     "raft_ivf_pq_merge_pairs": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "raft_ivf_pq_scan_codes_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                                      _P, _P),
-    "raft_ivf_pq_scan_codes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "raft_ivf_pq_code_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                                   _P, _P),
+    "raft_ivf_pq_scan_codes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "raft_ivf_pq_code_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                   _I, _I, _P),
     "raft_ivf_pq_recon8_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                                     _P),
-    "raft_ivf_pq_scan_recon8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _P, _P, _P),
-    "raft_ivf_flat_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P, _P, _P),
-    "raft_ivf_flat_list_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    "raft_ivf_pq_scan_recon": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _P, _P, _P),
-    "raft_pair_scan_variant": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _I, _P, _P, _P),
+                                     _P, _I, _I, _P),
+    "raft_ivf_pq_scan_recon8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P, _P, _P),
+    "raft_ivf_flat_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P),
+    "raft_ivf_flat_list_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P),
+    "raft_ivf_pq_scan_recon": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _P, _P, _P),
+    "raft_pair_scan_variant": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _P, _P, _P),
     "raft_row_gather": (_P, _P, _I, _I, _I, _P, _P),
-    "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                         _P),
+    "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "raft_fused_l2_nn_simt": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "raft_fused_l2_nn_small_dim": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                   _P),
-    "raft_cagra_hop": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _P, _P, _P, _P),
-    "raft_cagra_walk": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "raft_fused_l2_nn_small_dim": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "raft_cagra_hop": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P),
+    "raft_cagra_walk": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

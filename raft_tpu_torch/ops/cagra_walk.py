@@ -22,7 +22,12 @@ Contract, per query, from the seeded sorted buffer ``buf_d`` / ``buf_i`` /
 version checks the all-visited exit every ``exit_every`` hops (0: never),
 the kernel before every hop of each query.  A fully visited buffer is a
 fixed point of the hop, so both give the fixed hop count's result, and
-the kernel equals the plain version bit for bit.
+the kernel equals the plain version bit for bit.  With ``filter_words``
+(nq, n_words) int32, the packed admission words of
+:mod:`raft_tpu_torch.filters` (query stride 0 for one row broadcast), a
+hop's candidate whose id the query rejects becomes id −1, as under a
+dead parent (:func:`expand`; the kernel where it reads the ids): it is
+neither kept nor expanded.
 
 The walk helpers (:func:`select_parents`, :func:`expand`,
 :func:`decode_neighborhood`) live here so the plain version can use them;
@@ -36,8 +41,10 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.filters.bitset import query_bits
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops import cagra_hop as _hop
+from raft_tpu_torch.ops.pq_group_scan import filter_operand
 
 EXIT_CHECK_EVERY = 8             # the plain walk's all(visited) check
 SMEM_MAX = 232_448               # an H100 block's opt-in shared memory
@@ -156,19 +163,24 @@ def select_parents(buf_d, buf_i, visited, search_width: int):
 
 
 def expand(table, sel_ids, parent_ok, deg: int, pdim: int, quant: bool,
-           scales):
+           scales, filter_words=None):
     """The parents' packed rows, decoded: (nb_p (nq, w*deg, pdim) bf16,
-    nb_sq (nq, w*deg) f32, nb_id (nq, w*deg) int32, masked parents -1) —
-    one fat row per parent."""
+    nb_sq (nq, w*deg) f32, nb_id (nq, w*deg) int32, masked parents -1, and
+    with ``filter_words`` each id the query rejects -1) — one fat row per
+    parent."""
     nq, w = sel_ids.shape
     unit = walk_unit(pdim, quant)
     safe = torch.where(parent_ok, sel_ids, torch.zeros_like(sel_ids))
     rows = table[safe.long()][..., :deg * unit].reshape(nq, w, deg, unit)
     nb_p, nb_sq, nb_id = decode_neighborhood(rows, pdim, deg, quant, scales)
     nb_id = torch.where(parent_ok[:, :, None], nb_id,
-                        torch.full_like(nb_id, -1))
+                        torch.full_like(nb_id, -1)).reshape(nq, w * deg)
+    if filter_words is not None:
+        rows = torch.arange(nq, device=nb_id.device)
+        nb_id = torch.where(query_bits(filter_words, rows, nb_id) > 0,
+                            nb_id, torch.full_like(nb_id, -1))
     return (nb_p.reshape(nq, w * deg, pdim), nb_sq.reshape(nq, w * deg),
-            nb_id.reshape(nq, w * deg))
+            nb_id)
 
 
 # ---------------------------------------------------------------------------
@@ -202,12 +214,12 @@ def cagra_walk_plain(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
                      search_width: int, max_iterations: int, ip_metric: bool,
                      quant: bool = False, scales=None,
                      exit_every: int = EXIT_CHECK_EVERY,
-                     return_hops: bool = False):
+                     return_hops: bool = False, filter_words=None):
     """Plain PyTorch version: per hop :func:`select_parents`,
-    :func:`expand` and ``cagra_hop_plain``; the all(visited) exit checked
-    every ``exit_every`` hops (0: never — the same result).  With
-    ``return_hops``, also each query's hops before its buffer was all
-    visited (int32)."""
+    :func:`expand` (with ``filter_words``) and ``cagra_hop_plain``; the
+    all(visited) exit checked every ``exit_every`` hops (0: never — the
+    same result).  With ``return_hops``, also each query's hops before its
+    buffer was all visited (int32)."""
     pdim = qp_t.shape[1]
     nq, _ = _check(qp_t, q_sq, table, buf_d, buf_i, visited, deg, pdim,
                    quant, scales, max_iterations)
@@ -220,7 +232,7 @@ def cagra_walk_plain(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
         sel_ids, parent_ok, visited = select_parents(buf_d, buf_i, visited,
                                                      search_width)
         nb_p, nb_sq, nb_id = expand(table, sel_ids, parent_ok, deg, pdim,
-                                    quant, scales)
+                                    quant, scales, filter_words)
         buf_d, buf_i, visited = _hop.cagra_hop_plain(
             qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i, visited,
             ip_metric=ip_metric)
@@ -235,8 +247,8 @@ def cagra_walk_plain(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
 def cagra_walk(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
                search_width: int, max_iterations: int, ip_metric: bool,
                quant: bool = False, scales=None,
-               exit_every: int = EXIT_CHECK_EVERY, return_hops: bool = False
-               ) -> Tuple[torch.Tensor, ...]:
+               exit_every: int = EXIT_CHECK_EVERY, return_hops: bool = False,
+               filter_words=None) -> Tuple[torch.Tensor, ...]:
     """A whole walk: ``(buf_d f32, buf_i int32, visited bool)``, each
     (nq, itopk), sorted ascending-better (+ the hops of each query with
     ``return_hops``).
@@ -246,12 +258,13 @@ def cagra_walk(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
     ``table`` (n, W) int16 packed neighborhoods (bf16 format, or int8 with
     ``quant`` and its ``scales`` (3,) f32), ``deg`` neighbors a row, and
     the seeded sorted buffer ``buf_d`` / ``buf_i`` / ``visited`` (nq,
-    itopk).  CUDA tensors launch the walk kernel (``exit_every`` does not
-    apply: each query exits when its buffer is all visited); CPU tensors
-    run :func:`cagra_walk_plain`."""
+    itopk); ``filter_words`` (nq, n_words) int32 or None.  CUDA tensors
+    launch the walk kernel (``exit_every`` does not apply: each query
+    exits when its buffer is all visited); CPU tensors run
+    :func:`cagra_walk_plain`."""
     kw = dict(deg=deg, search_width=search_width,
               max_iterations=max_iterations, ip_metric=ip_metric,
-              quant=quant, scales=scales)
+              quant=quant, scales=scales, filter_words=filter_words)
     if not table.is_cuda:
         return cagra_walk_plain(qp_t, q_sq, table, buf_d, buf_i, visited,
                                 exit_every=exit_every,
@@ -273,6 +286,8 @@ def cagra_walk(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
     out_i = torch.empty_like(buf_i)
     out_v = torch.empty_like(visited)
     hops = torch.empty(nq, dtype=torch.int32, device=buf_d.device)
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, table.device, "cagra_walk")
     status = _cuda.library().raft_cagra_walk(
         qp_t.data_ptr(), q_sq.data_ptr(), table.data_ptr(), table.shape[1],
         sc.data_ptr() if quant else None, buf_d.data_ptr(), buf_i.data_ptr(),
@@ -280,7 +295,8 @@ def cagra_walk(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
         max_iterations, int(ip_metric), int(staged),
         walk_smem_bytes(itopk, search_width, deg, pdim, quant, staged),
         out_d.data_ptr(), out_i.data_ptr(), out_v.data_ptr(),
-        hops.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream)
+        hops.data_ptr(), *fargs,
+        torch.cuda.current_stream(table.device).cuda_stream)
     _cuda.check(status, "cagra_walk")
     cagra_walk.launches += 1
     out = (out_d, out_i, out_v)

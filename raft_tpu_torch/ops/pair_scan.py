@@ -35,7 +35,9 @@ a negative id never enter, a probe outside ``[0, n_lists)`` is an empty
 pair, each pair keeps its top kt by (distance, slot), ties to the lowest
 slot, and exhausted slots are ``(+inf, −1)`` — ``(−inf, −1)`` in Kernel
 F's InnerProduct form, whose kept values are the largest dot products in
-descending order.
+descending order.  With ``filter_words`` (the list-major routes only; see
+:mod:`raft_tpu_torch.ops.pq_group_scan`), a pair keeps only the rows its
+query admits.
 """
 
 from __future__ import annotations
@@ -49,9 +51,10 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops.pq_group_scan import (
-    _PLAIN_CHUNK, _SMEM_LIMIT, KT_LIST_MAX, _check, cat_parts, cuda_operands,
-    list_scan, list_scan_reject_reason, pair_topk, plain_chunks,
-    probe_distances, recon_dot)
+    _PLAIN_CHUNK, _SMEM_LIMIT, KT_LIST_MAX, _check, admit, cat_parts,
+    cuda_operands, filter_operand, filtered_route, list_scan,
+    list_scan_reject_reason, pair_topk, plain_chunks, probe_distances,
+    recon_dot)
 
 _MAX_WIDTH = 1024                # 32 lanes * the chunks a lane holds
 MAX_SUB_LISTS = 8                # kMaxSub in csrc/flat_list_scan.cu
@@ -118,19 +121,20 @@ def _check_flat(queries, probes, list_data, list_data_sq, list_indices,
 
 
 def ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
-                        list_indices, kt: int, ip: bool = False
+                        list_indices, kt: int, ip: bool = False,
+                        filter_words=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of Kernel F: every (query, probe, row) value
-    (``max(q_sq + d_sq − 2·q·x, 0)``, or ``−q·x`` for InnerProduct), each
-    pair's top kt (:func:`pair_topk`), the InnerProduct values negated
-    back.  Same arithmetic as the kernel except the order of the fp32
-    sums."""
+    (``max(q_sq + d_sq − 2·q·x, 0)``, or ``−q·x`` for InnerProduct; +inf
+    where ``filter_words`` rejects the row), each pair's top kt
+    (:func:`pair_topk`), the InnerProduct values negated back.  Same
+    arithmetic as the kernel except the order of the fp32 sums."""
     n_lists, cap, _ = _check_flat(queries, probes, list_data, list_data_sq,
                                   list_indices, ip)
     kt = min(kt, cap)
     qf = queries.float()
     parts = []
-    for q, p in plain_chunks(qf, probes):
+    for q, p, f in plain_chunks(qf, probes, filter_words):
         pr = p.long()
         ok = (pr >= 0) & (pr < n_lists)
         pr = torch.where(ok, pr, torch.zeros_like(pr))
@@ -144,7 +148,7 @@ def ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
         cid = list_indices[pr]
         d = torch.where((cid >= 0) & ok[..., None], d,
                         torch.full_like(d, float("inf")))
-        v, i = pair_topk(d, cid, kt)
+        v, i = pair_topk(admit(d, cid, f), cid, kt)
         parts.append((-v if ip else v, i))
     return cat_parts(parts, (probes.shape[1], kt), queries.device)
 
@@ -283,7 +287,7 @@ def flat_list_scan_reject_reason(rows: int, dim: int, kt: int,
 
 def flat_list_scan_plain(queries, probes, group_list, slot_pairs,
                          list_data, list_data_sq, list_indices, kt: int,
-                         ip: bool = False
+                         ip: bool = False, filter_words=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`flat_list_scan`: the list-major
     schedule emulated.  For each group's live slot, its pair's top kt over
@@ -301,18 +305,22 @@ def flat_list_scan_plain(queries, probes, group_list, slot_pairs,
     ids = torch.full((P, kt), -1, dtype=torch.int32, device=queries.device)
     for lst, slots in zip(group_list.long(), slot_pairs.long()):
         p = slots[slots < P]
+        q = p // n_probes
         v, i = ivf_flat_scan_plain(
-            queries[p // n_probes], lst.expand(p.numel(), 1), list_data,
-            list_data_sq, list_indices, kt, ip)
+            queries[q], lst.expand(p.numel(), 1), list_data, list_data_sq,
+            list_indices, kt, ip,
+            None if filter_words is None else filter_words[q])
         vals[p], ids[p] = v[:, 0], i[:, 0]
     return vals.reshape(nq, n_probes, kt), ids.reshape(nq, n_probes, kt)
 
 
 def flat_list_scan(queries, probes, group_list, slot_pairs, list_data,
                    list_data_sq, list_indices, kt: int, ip: bool = False,
-                   sub_lists: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                   sub_lists: int = 1, filter_words=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel F's list-major pass: ``(vals, ids)``, each (nq, n_probes,
-    kt), as :func:`ivf_flat_scan` returns them.  ``group_list`` /
+    kt), as :func:`ivf_flat_scan` returns them (with ``filter_words``,
+    only the rows each pair's query admits).  ``group_list`` /
     ``slot_pairs`` are :func:`raft_tpu_torch.neighbors.grouped.
     build_groups` of ``probes``; one block scans one group's tile once for
     its pairs, each of the tile's ``sub_lists`` sub-lists up to its last
@@ -321,7 +329,7 @@ def flat_list_scan(queries, probes, group_list, slot_pairs, list_data,
     if not queries.is_cuda:
         return flat_list_scan_plain(queries, probes, group_list, slot_pairs,
                                     list_data, list_data_sq, list_indices,
-                                    kt, ip)
+                                    kt, ip, filter_words)
     n_lists, cap, dim = _check_flat(queries, probes, list_data,
                                     list_data_sq, list_indices, ip)
     kt = min(kt, cap)
@@ -338,6 +346,9 @@ def flat_list_scan(queries, probes, group_list, slot_pairs, list_data,
     group_list = group_list.to(torch.int32).contiguous()
     slot_pairs = slot_pairs.to(torch.int32).contiguous()
     nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, queries.device,
+                               "flat_list_scan")
     vals, out_ids = _outputs(nq, n_probes, kt, queries.device)
     layout = flat_list_scan_layout(dim, kt).as_c()
     status = _cuda.library().raft_ivf_flat_list_scan(
@@ -346,7 +357,7 @@ def flat_list_scan(queries, probes, group_list, slot_pairs, list_data,
         None if norms is None else norms.data_ptr(), ids.data_ptr(),
         group_list.shape[0], nq, n_probes, n_lists, cap, sub_lists, dim, kt,
         int(ip), ctypes.addressof(layout), vals.data_ptr(),
-        out_ids.data_ptr(),
+        out_ids.data_ptr(), *fargs,
         torch.cuda.current_stream(queries.device).cuda_stream)
     _cuda.check(status, "flat_list_scan")
     flat_list_scan.launches += 1
@@ -358,7 +369,8 @@ flat_list_scan.launches = 0
 
 def ivf_flat_scan(queries, probes, list_data, list_data_sq: Optional[
         torch.Tensor], list_indices, kt: int, ip: bool = False,
-        sub_lists: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+        sub_lists: int = 1, filter_words=None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
     pair's top kt over raw fp32 list rows.  ``list_data_sq`` (L, cap) holds
     the rows' squared norms (unused for InnerProduct).  A super-tiled index
@@ -367,19 +379,25 @@ def ivf_flat_scan(queries, probes, list_data, list_data_sq: Optional[
     admits the shape (kt up to ``KT_LIST_MAX``) the pairs grouped by tile
     and :func:`flat_list_scan`, else :func:`flat_scan_query_major` (a
     dispatch by shape between two kernels, each counted on its own
-    ``launches``).  CPU tensors run the plain version."""
-    if not queries.is_cuda:
-        return ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
-                                   list_indices, kt, ip)
+    ``launches``).  CPU tensors run the plain version.  With
+    ``filter_words``, each pair keeps only the rows its query admits; a
+    shape only the query-major route holds raises
+    ``NotImplementedError`` on either device."""
     n_lists, cap, dim = _check_flat(queries, probes, list_data,
                                     list_data_sq, list_indices, ip)
     kt = min(kt, cap)
+    filtered_route("ivf_flat_scan", filter_words,
+                   flat_list_scan_reject_reason(cap, dim, kt, sub_lists))
+    if not queries.is_cuda:
+        return ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
+                                   list_indices, kt, ip, filter_words)
     if flat_list_scan_reject_reason(cap, dim, kt, sub_lists):
         return flat_scan_query_major(queries, probes, list_data,
                                      list_data_sq, list_indices, kt, ip)
     return flat_list_scan(queries, probes,
                           *grouped.build_groups(probes, n_lists), list_data,
-                          list_data_sq, list_indices, kt, ip, sub_lists)
+                          list_data_sq, list_indices, kt, ip, sub_lists,
+                          filter_words)
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +405,7 @@ def ivf_flat_scan(queries, probes, list_data, list_data_sq: Optional[
 # ---------------------------------------------------------------------------
 
 def ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon, list_recon_sq,
-                            list_indices, kt: int
+                            list_indices, kt: int, filter_words=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of Kernel G: Kernel B's distances
     (:func:`probe_distances` over the bf16 rows), each pair's top kt."""
@@ -397,8 +415,8 @@ def ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon, list_recon_sq,
     kt = min(kt, cap)
     dot = recon_dot(list_recon)
     parts = [pair_topk(*probe_distances(q, centers, p, list_indices,
-                                        list_recon_sq, dot), kt)
-             for q, p in plain_chunks(qrot, probes)]
+                                        list_recon_sq, dot, f), kt)
+             for q, p, f in plain_chunks(qrot, probes, filter_words)]
     return cat_parts(parts, (probes.shape[1], kt), qrot.device)
 
 
@@ -438,7 +456,7 @@ recon_scan_query_major.launches = 0
 
 
 def ivf_pq_scan_recon(qrot, centers, probes, list_recon, list_recon_sq,
-                      list_indices, kt: int
+                      list_indices, kt: int, filter_words=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
     pair's top kt over the bf16 reconstruction cache.  CUDA tensors run
@@ -446,20 +464,24 @@ def ivf_pq_scan_recon(qrot, centers, probes, list_recon, list_recon_sq,
     :func:`raft_tpu_torch.ops.pq_group_scan.list_scan`
     (``csrc/pq_list_scan.cu``), else :func:`recon_scan_query_major` (a
     dispatch by shape between two kernels, each counted on its own
-    ``launches``).  CPU tensors run the plain version."""
-    if not qrot.is_cuda:
-        return ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon,
-                                       list_recon_sq, list_indices, kt)
+    ``launches``).  CPU tensors run the plain version.  ``filter_words``
+    as in :func:`ivf_flat_scan`."""
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices,
                                "ivf_pq_scan_recon")
     kt = min(kt, cap)
+    filtered_route("ivf_pq_scan_recon", filter_words,
+                   list_scan_reject_reason(rot, kt))
+    if not qrot.is_cuda:
+        return ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon,
+                                       list_recon_sq, list_indices, kt,
+                                       filter_words)
     if list_scan_reject_reason(rot, kt):
         return recon_scan_query_major(qrot, centers, probes, list_recon,
                                       list_recon_sq, list_indices, kt)
     return list_scan(qrot, centers, probes,
                      *grouped.build_groups(probes, n_lists), list_recon,
-                     list_recon_sq, list_indices, kt)
+                     list_recon_sq, list_indices, kt, filter_words)
 
 
 # ---------------------------------------------------------------------------

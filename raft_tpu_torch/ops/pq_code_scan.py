@@ -40,7 +40,9 @@ plain version for CPU tensors — nothing else picks between them, and a
 failed build or launch raises.  ``<wrapper>.launches`` counts kernel
 launches (the dispatchers C and D launch nothing themselves);
 ``*_reject_reason`` says why a kernel cannot take a shape ('' when it
-can).
+can).  ``filter_words`` (the admission operand, as
+:mod:`raft_tpu_torch.ops.pq_group_scan` describes it) reaches the
+list-major pass only; a filtered call at a query-major shape raises.
 
 Contracts (``_kernel_codes`` / ``_kernel_recon8``,
 ``pq_code_scan_pallas.py:195-233``): ``sub = qrot[q] − centers[list]`` and
@@ -66,7 +68,9 @@ from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops.pq_group_scan import (K_MAX, KT_LIST_MAX,
                                               _SMEM_LIMIT, _next_pow2,
-                                              cat_parts, grouped_pair_topk,
+                                              cat_parts, filter_operand,
+                                              filtered_route,
+                                              grouped_pair_topk,
                                               list_major_topk, merge_pairs,
                                               pair_topk, plain_chunks,
                                               probe_distances, query_topk)
@@ -413,7 +417,7 @@ def _stream(device):
 
 def code_list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
                          list_codes, codebooks, list_rsq, list_indices,
-                         pq_bits: int, kt: int
+                         pq_bits: int, kt: int, filter_words=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`code_list_scan`: the list-major
     schedule emulated (``pq_group_scan.grouped_pair_topk``), each group's
@@ -423,17 +427,19 @@ def code_list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
                              pq_bits)
     return grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
                              list_rsq, list_indices, min(kt, cap),
-                             _codes_dot(list_codes, codebooks, pq_bits))
+                             _codes_dot(list_codes, codebooks, pq_bits),
+                             filter_words)
 
 
 def code_list_scan(qrot, centers, probes, group_list, slot_pairs,
                    list_codes, codebooks, list_rsq, list_indices,
-                   pq_bits: int, kt: int
+                   pq_bits: int, kt: int, filter_words=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The list-major pass over the packed codes: ``(vals, ids)``, each
     (nq, n_probes, kt), every (query, probe) pair's top kt by (distance,
     slot), ``(+inf, −1)`` past its live rows and on a probe outside ``[0,
-    n_lists)``.  ``group_list`` / ``slot_pairs`` are
+    n_lists)``; with ``filter_words`` only the rows each pair's query
+    admits.  ``group_list`` / ``slot_pairs`` are
     :func:`raft_tpu_torch.neighbors.grouped.build_groups` of ``probes``;
     one block decodes one group's list once for its pairs.  CUDA tensors
     launch ``csrc/pq_code_list_scan.cu`` (kt up to ``KT_LIST_MAX``); CPU
@@ -441,7 +447,8 @@ def code_list_scan(qrot, centers, probes, group_list, slot_pairs,
     if not qrot.is_cuda:
         return code_list_scan_plain(qrot, centers, probes, group_list,
                                     slot_pairs, list_codes, codebooks,
-                                    list_rsq, list_indices, pq_bits, kt)
+                                    list_rsq, list_indices, pq_bits, kt,
+                                    filter_words)
     cap, rot, pq_dim = _check_codes(
         "code_list_scan", qrot, centers, probes, list_codes, codebooks,
         list_rsq, list_indices, pq_bits)
@@ -454,6 +461,9 @@ def code_list_scan(qrot, centers, probes, group_list, slot_pairs,
         qrot, centers, probes, list_rsq, list_indices)
     codes, books, _ = _codes_operands(list_codes, codebooks)
     nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, qrot.device,
+                               "code_list_scan")
     vals, ids = _outputs((nq, n_probes, kt), qrot.device)
     status = _cuda.library().raft_ivf_pq_code_list_scan(
         qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
@@ -462,7 +472,7 @@ def code_list_scan(qrot, centers, probes, group_list, slot_pairs,
         group_list.shape[0], nq, n_probes, centers.shape[0], cap, rot,
         pq_dim, pq_bits, kt,
         code_list_scan_smem_bytes(rot, pq_dim, pq_bits, kt),
-        vals.data_ptr(), ids.data_ptr(), _stream(qrot.device))
+        vals.data_ptr(), ids.data_ptr(), *fargs, _stream(qrot.device))
     _cuda.check(status, "code_list_scan")
     code_list_scan.launches += 1
     return vals, ids
@@ -477,7 +487,8 @@ code_list_scan.launches = 0
 
 def ivf_pq_scan_codes_fused_plain(qrot, centers, probes, list_codes,
                                   codebooks, list_rsq, list_indices,
-                                  pq_bits: int, k: int, kt: int
+                                  pq_bits: int, k: int, kt: int,
+                                  filter_words=None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of Kernel C: decode the probed lists, every
     (query, probe, row) distance, each pair's top kt, the query's top k.
@@ -487,8 +498,8 @@ def ivf_pq_scan_codes_fused_plain(qrot, centers, probes, list_codes,
                              list_indices, pq_bits)
     dot = _codes_dot(list_codes, codebooks, pq_bits)
     parts = [query_topk(*pair_topk(*probe_distances(
-        q, centers, p, list_indices, list_rsq, dot), min(kt, cap)), k)
-        for q, p in plain_chunks(qrot, probes)]
+        q, centers, p, list_indices, list_rsq, dot, f), min(kt, cap)), k)
+        for q, p, f in plain_chunks(qrot, probes, filter_words)]
     return cat_parts(parts, (k,), qrot.device)
 
 
@@ -534,7 +545,8 @@ codes_fused_query_major.launches = 0
 
 def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
                             list_rsq, list_indices, pq_bits: int, k: int,
-                            kt: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                            kt: int, filter_words=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals (nq, k) f32, ids (nq, k) i32)``: each query's top k over its
     probed lists, scanned from the packed codes.  CUDA tensors run Kernel
     C: at ``min(kt, k) <= KT_LIST_MAX`` the list-major route — the pairs
@@ -543,18 +555,23 @@ def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
     :func:`codes_fused_query_major` (a dispatch by shape between two
     kernels, each counted on its own ``launches``).  CPU tensors run the
     plain version.  A shape neither route can hold raises with its
-    reason."""
-    if not qrot.is_cuda:
-        return ivf_pq_scan_codes_fused_plain(
-            qrot, centers, probes, list_codes, codebooks, list_rsq,
-            list_indices, pq_bits, k, kt)
+    reason; with ``filter_words``, each query's top k over the rows it
+    admits, and a shape only the query-major route holds raises
+    ``NotImplementedError`` on either device."""
     cap, rot, pq_dim = _check_codes(
         "ivf_pq_scan_codes_fused", qrot, centers, probes, list_codes,
         codebooks, list_rsq, list_indices, pq_bits)
+    pair_kt = min(kt, cap, k)
+    filtered_route("ivf_pq_scan_codes_fused", filter_words,
+                   code_list_scan_reject_reason(rot, pq_dim, pq_bits,
+                                                pair_kt))
+    if not qrot.is_cuda:
+        return ivf_pq_scan_codes_fused_plain(
+            qrot, centers, probes, list_codes, codebooks, list_rsq,
+            list_indices, pq_bits, k, kt, filter_words)
     kt = min(kt, cap)
     reason = codes_fused_reject_reason(cap, rot, pq_dim, pq_bits, k, kt)
     expects(not reason, f"ivf_pq_scan_codes_fused: {reason}")
-    pair_kt = min(kt, k)
     if code_list_scan_reject_reason(rot, pq_dim, pq_bits, pair_kt):
         return codes_fused_query_major(qrot, centers, probes, list_codes,
                                        codebooks, list_rsq, list_indices,
@@ -563,7 +580,8 @@ def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
         probes, centers.shape[0], pair_kt, k,
         lambda rows, p, gl, sp: code_list_scan(
             qrot[rows], centers, p, gl, sp, list_codes, codebooks, list_rsq,
-            list_indices, pq_bits, pair_kt))
+            list_indices, pq_bits, pair_kt,
+            None if filter_words is None else filter_words[rows]))
 
 
 # ---------------------------------------------------------------------------
@@ -571,7 +589,8 @@ def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
 # ---------------------------------------------------------------------------
 
 def ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes, codebooks,
-                            list_rsq, list_indices, pq_bits: int, kt: int
+                            list_rsq, list_indices, pq_bits: int, kt: int,
+                            filter_words=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of Kernel D: decode the probed lists, every
     (query, probe, row) distance, each pair's top kt."""
@@ -581,8 +600,8 @@ def ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes, codebooks,
     kt = min(kt, cap)
     dot = _codes_dot(list_codes, codebooks, pq_bits)
     parts = [pair_topk(*probe_distances(q, centers, p, list_indices,
-                                        list_rsq, dot), kt)
-             for q, p in plain_chunks(qrot, probes)]
+                                        list_rsq, dot, f), kt)
+             for q, p, f in plain_chunks(qrot, probes, filter_words)]
     return cat_parts(parts, (probes.shape[1], kt), qrot.device)
 
 
@@ -625,7 +644,8 @@ codes_scan_query_major.launches = 0
 
 
 def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
-                      list_rsq, list_indices, pq_bits: int, kt: int
+                      list_rsq, list_indices, pq_bits: int, kt: int,
+                      filter_words=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
     pair's top kt, scanned from the packed codes.  CUDA tensors run Kernel
@@ -633,15 +653,18 @@ def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
     :func:`code_list_scan`, else :func:`codes_scan_query_major` (a
     dispatch by shape between two kernels, each counted on its own
     ``launches``).  CPU tensors run the plain version.  A shape neither
-    route can hold raises with its reason."""
-    if not qrot.is_cuda:
-        return ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes,
-                                       codebooks, list_rsq, list_indices,
-                                       pq_bits, kt)
+    route can hold raises with its reason; ``filter_words`` as in
+    :func:`ivf_pq_scan_codes_fused`."""
     cap, rot, pq_dim = _check_codes(
         "ivf_pq_scan_codes", qrot, centers, probes, list_codes, codebooks,
         list_rsq, list_indices, pq_bits)
     kt = min(kt, cap)
+    filtered_route("ivf_pq_scan_codes", filter_words,
+                   code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt))
+    if not qrot.is_cuda:
+        return ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes,
+                                       codebooks, list_rsq, list_indices,
+                                       pq_bits, kt, filter_words)
     reason = codes_reject_reason(cap, rot, pq_dim, pq_bits, kt)
     expects(not reason, f"ivf_pq_scan_codes: {reason}")
     if code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt):
@@ -651,7 +674,7 @@ def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
     return code_list_scan(qrot, centers, probes,
                           *grouped.build_groups(probes, centers.shape[0]),
                           list_codes, codebooks, list_rsq, list_indices,
-                          pq_bits, kt)
+                          pq_bits, kt, filter_words)
 
 
 # ---------------------------------------------------------------------------
@@ -694,7 +717,7 @@ def _recon8_operands(recon_i8, scales, what):
 
 
 def ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8, scales, rsq8,
-                             list_indices, kt: int
+                             list_indices, kt: int, filter_words=None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of Kernel E: queries and centers zero-padded
     to the cache's row width, every (query, probe, row) distance with the
@@ -704,13 +727,14 @@ def ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8, scales, rsq8,
     qrot, centers, dot = _recon8_plain_args(qrot, centers, recon_i8, scales)
     kt = min(kt, cap)
     parts = [pair_topk(*probe_distances(q, centers, p, list_indices, rsq8,
-                                        dot), kt)
-             for q, p in plain_chunks(qrot, probes)]
+                                        dot, f), kt)
+             for q, p, f in plain_chunks(qrot, probes, filter_words)]
     return cat_parts(parts, (probes.shape[1], kt), qrot.device)
 
 
 def recon8_list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
-                           recon_i8, scales, rsq8, list_indices, kt: int
+                           recon_i8, scales, rsq8, list_indices, kt: int,
+                           filter_words=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`recon8_list_scan`: the list-major
     schedule emulated (``pq_group_scan.grouped_pair_topk``) with the plain
@@ -719,17 +743,20 @@ def recon8_list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
                            recon_i8, scales, rsq8, list_indices)
     qrot, centers, dot = _recon8_plain_args(qrot, centers, recon_i8, scales)
     return grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
-                             rsq8, list_indices, min(kt, cap), dot)
+                             rsq8, list_indices, min(kt, cap), dot,
+                             filter_words)
 
 
 def recon8_list_scan(qrot, centers, probes, group_list, slot_pairs,
-                     recon_i8, scales, rsq8, list_indices, kt: int
+                     recon_i8, scales, rsq8, list_indices, kt: int,
+                     filter_words=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel E's list-major pass: ``(vals, ids)``, each (nq, n_probes,
     kt), every (query, probe) pair's top kt by (distance, slot) over the
     int8 cache ``recon_i8`` (L, cap, rot_pad) with per-list ``scales`` and
     dequantized row norms ``rsq8``, ``(+inf, −1)`` past its live rows and
-    on a probe outside ``[0, n_lists)``.  ``group_list`` / ``slot_pairs``
+    on a probe outside ``[0, n_lists)``; with ``filter_words`` only the
+    rows each pair's query admits.  ``group_list`` / ``slot_pairs``
     are :func:`raft_tpu_torch.neighbors.grouped.build_groups` of
     ``probes``; one block reads one group's list once for its pairs,
     converting its int8 rows to bf16 in shared memory.  CUDA tensors
@@ -738,7 +765,7 @@ def recon8_list_scan(qrot, centers, probes, group_list, slot_pairs,
     if not qrot.is_cuda:
         return recon8_list_scan_plain(qrot, centers, probes, group_list,
                                       slot_pairs, recon_i8, scales, rsq8,
-                                      list_indices, kt)
+                                      list_indices, kt, filter_words)
     what = "recon8_list_scan"
     cap, rot_pad = _check_recon8(what, qrot, centers, probes, recon_i8,
                                  scales, rsq8, list_indices)
@@ -751,6 +778,8 @@ def recon8_list_scan(qrot, centers, probes, group_list, slot_pairs,
         qrot, centers, probes, rsq8, list_indices)
     data, scales = _recon8_operands(recon_i8, scales, what)
     nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, qrot.device, what)
     vals, ids = _outputs((nq, n_probes, kt), qrot.device)
     status = _cuda.library().raft_ivf_pq_recon8_list_scan(
         qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
@@ -758,7 +787,7 @@ def recon8_list_scan(qrot, centers, probes, group_list, slot_pairs,
         scales.data_ptr(), rsq8.data_ptr(), list_indices.data_ptr(),
         group_list.shape[0], nq, n_probes, centers.shape[0], cap,
         qrot.shape[1], rot_pad, kt, recon8_list_scan_smem_bytes(rot_pad, kt),
-        vals.data_ptr(), ids.data_ptr(), _stream(qrot.device))
+        vals.data_ptr(), ids.data_ptr(), *fargs, _stream(qrot.device))
     _cuda.check(status, what)
     recon8_list_scan.launches += 1
     return vals, ids
@@ -804,7 +833,7 @@ recon8_scan_query_major.launches = 0
 
 
 def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
-                       list_indices, kt: int
+                       list_indices, kt: int, filter_words=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
     pair's top kt over the int8 cache ``recon_i8`` (L, cap, rot_pad) with
@@ -814,14 +843,17 @@ def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
     :func:`recon8_scan_query_major` (a dispatch by shape between two
     kernels, each counted on its own ``launches``).  CPU tensors run the
     plain version.  A shape neither route can hold raises with its
-    reason."""
-    if not qrot.is_cuda:
-        return ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8,
-                                        scales, rsq8, list_indices, kt)
+    reason; ``filter_words`` as in :func:`ivf_pq_scan_codes_fused`."""
     cap, rot_pad = _check_recon8("ivf_pq_scan_recon8", qrot, centers,
                                  probes, recon_i8, scales, rsq8,
                                  list_indices)
     kt = min(kt, cap)
+    filtered_route("ivf_pq_scan_recon8", filter_words,
+                   recon8_list_scan_reject_reason(rot_pad, kt))
+    if not qrot.is_cuda:
+        return ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8,
+                                        scales, rsq8, list_indices, kt,
+                                        filter_words)
     reason = recon8_reject_reason(cap, rot_pad, kt)
     expects(not reason, f"ivf_pq_scan_recon8: {reason}")
     if recon8_list_scan_reject_reason(rot_pad, kt):
@@ -829,4 +861,5 @@ def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
                                        scales, rsq8, list_indices, kt)
     return recon8_list_scan(qrot, centers, probes,
                             *grouped.build_groups(probes, centers.shape[0]),
-                            recon_i8, scales, rsq8, list_indices, kt)
+                            recon_i8, scales, rsq8, list_indices, kt,
+                            filter_words)

@@ -29,6 +29,16 @@ fp32; ``ip = bf16(sub)·recon`` accumulated in fp32;
 enter the result, nor do probes outside ``[0, n_lists)``.  Each (query,
 probe) pair contributes at most its own top ``kt`` rows; the output is each
 query's top ``k`` ascending, ``(+inf, −1)`` on exhausted ranks.
+
+Filters (the TPU kernels' admission operand ``adm_words``): the
+list-major pass takes ``filter_words`` (nq, n_words) int32, the packed
+admission words of :mod:`raft_tpu_torch.filters` (a row's query stride
+may be 0: one row broadcast); a row whose id the pair's query rejects
+never enters the pair's top kt (the kernel tests the bit in its fold,
+``csrc/list_fold.cuh``; the plain versions give the row +inf before the
+top kt, :func:`admit`).  The query-major route takes no filter: a
+filtered call at a shape only it can hold raises ``NotImplementedError``
+naming *filters on the query-major routes*.
 """
 
 from __future__ import annotations
@@ -37,7 +47,8 @@ from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.filters.bitset import query_bits, words_on_device
 from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
 
@@ -150,13 +161,54 @@ def _check(qrot, centers, probes, list_recon, list_recon_sq, list_indices,
     return n_lists, cap, rot
 
 
-def probe_distances(qrot, centers, probes, list_indices, list_rsq, dot):
+def filtered_route(what: str, filter_words, route_reason: str) -> None:
+    """Raise where a filtered call (``filter_words`` not None) needs the
+    query-major route (``route_reason``: why the list-major pass refuses
+    the shape), on any device: that route takes no filter yet."""
+    if filter_words is not None and route_reason:
+        raise not_ported(
+            what, f"a filtered scan at this shape ({route_reason})",
+            "filters on the query-major routes")
+
+
+def filter_operand(filter_words, nq: int, device, what: str):
+    """A filter's kernel operands: ``(words, (pointer, query stride,
+    words a row))`` — ``words`` (nq, n_words) int32 on ``device`` with
+    contiguous rows (a broadcast row stays one row, query stride 0),
+    which the caller keeps alive over the launch — or ``(None, (None, 0,
+    0))`` when unfiltered."""
+    if filter_words is None:
+        return None, (None, 0, 0)
+    expects(filter_words.ndim == 2 and filter_words.shape[0] == nq
+            and filter_words.shape[1] >= 1,
+            f"{what}: filter_words (nq, n_words) required")
+    w = words_on_device(filter_words, device)
+    return w, (w.data_ptr(), w.stride(0) if w.shape[0] > 1 else 0,
+               w.shape[1])
+
+
+def admit(d, cid, fw):
+    """``d`` with +inf where the query of each row of a chunk rejects the
+    candidate id ``cid`` (``fw`` the chunk's (chunk, n_words) rows, query
+    i for row i; None: ``d`` unchanged).  The plain versions' admission,
+    before any top kt, as the JAX package applies ``query_bits``."""
+    if fw is None:
+        return d
+    q = torch.arange(cid.shape[0], device=cid.device).reshape(
+        -1, *([1] * (cid.ndim - 2)))
+    return torch.where(query_bits(fw, q, cid) > 0, d,
+                       torch.full_like(d, float("inf")))
+
+
+def probe_distances(qrot, centers, probes, list_indices, list_rsq, dot,
+                    fw=None):
     """Every (query, probe, slot) distance of a chunk of queries: ``(d,
     ids)``, each (chunk, n_probes, cap).  ``d = max(sub_sq + rsq −
     2·dot(bf16(sub), lists), 0)`` with ``sub = qrot − centers[list]``;
     ``dot(subb (chunk, n_probes, rot) f32, lists (chunk, n_probes))``
     returns the (chunk, n_probes, cap) products of the probed rows.  Rows
-    with a negative id and probes outside ``[0, n_lists)`` are +inf."""
+    with a negative id, probes outside ``[0, n_lists)`` and, with ``fw``
+    (the chunk's filter rows), rows the query rejects are +inf."""
     n_lists = centers.shape[0]
     pr = probes.long()
     ok = (pr >= 0) & (pr < n_lists)       # the kernels skip the rest
@@ -168,7 +220,7 @@ def probe_distances(qrot, centers, probes, list_indices, list_rsq, dot):
     cid = list_indices[pr]
     d = torch.where((cid >= 0) & ok[..., None], d,
                     torch.full_like(d, float("inf")))
-    return d, cid
+    return admit(d, cid, fw), cid
 
 
 def recon_dot(list_recon):
@@ -205,11 +257,13 @@ def query_topk(d, cid, k: int):
     return vals, ids
 
 
-def plain_chunks(qrot, probes):
-    """The plain versions' query chunks: ``(qrot, probes)`` slices of
-    _PLAIN_CHUNK queries."""
+def plain_chunks(qrot, probes, filter_words=None):
+    """The plain versions' query chunks: ``(qrot, probes, filter rows)``
+    slices of _PLAIN_CHUNK queries (filter rows None when unfiltered)."""
     for s in range(0, probes.shape[0], _PLAIN_CHUNK):
-        yield qrot[s:s + _PLAIN_CHUNK], probes[s:s + _PLAIN_CHUNK]
+        f = (None if filter_words is None
+             else filter_words[s:s + _PLAIN_CHUNK])
+        yield qrot[s:s + _PLAIN_CHUNK], probes[s:s + _PLAIN_CHUNK], f
 
 
 def cat_parts(parts, tail, device):
@@ -225,19 +279,21 @@ def cat_parts(parts, tail, device):
 
 
 def ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
-                            list_recon_sq, list_indices, k: int, kt: int
+                            list_recon_sq, list_indices, k: int, kt: int,
+                            filter_words=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: every (query, probe, row) distance, a
-    per-probe top-kt, then the query's top-k of the kept candidates.  Same
-    arithmetic as the kernel except the order of the fp32 sums."""
+    """Plain PyTorch version: every (query, probe, row) distance (+inf
+    where ``filter_words`` rejects the row), a per-probe top-kt, then the
+    query's top-k of the kept candidates.  Same arithmetic as the kernel
+    except the order of the fp32 sums."""
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices)
     kt = min(kt, cap)
 
     dot = recon_dot(list_recon)
     parts = [query_topk(*pair_topk(*probe_distances(
-        q, centers, p, list_indices, list_recon_sq, dot), kt), k)
-        for q, p in plain_chunks(qrot, probes)]
+        q, centers, p, list_indices, list_recon_sq, dot, f), kt), k)
+        for q, p, f in plain_chunks(qrot, probes, filter_words)]
     return cat_parts(parts, (k,), qrot.device)
 
 
@@ -262,13 +318,15 @@ def cuda_operands(qrot, centers, probes, list_recon, list_recon_sq,
 # ---------------------------------------------------------------------------
 
 def grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
-                      list_rsq, list_indices, kt: int, dot
+                      list_rsq, list_indices, kt: int, dot,
+                      filter_words=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The list-major schedule of pass 1, emulated: for each group's live
     slot, its pair's distances to the group's list (:func:`probe_distances`
-    with ``dot``) and the pair's top kt (:func:`pair_topk`), scattered to
-    the pair's place; a pair no group holds (its probe outside ``[0,
-    n_lists)``) stays ``(+inf, −1)``.  (nq, n_probes, kt) each."""
+    with ``dot``, the rows its query rejects +inf) and the pair's top kt
+    (:func:`pair_topk`), scattered to the pair's place; a pair no group
+    holds (its probe outside ``[0, n_lists)``) stays ``(+inf, −1)``.
+    (nq, n_probes, kt) each."""
     nq, n_probes = probes.shape
     P = nq * n_probes
     vals = torch.full((P, kt), float("inf"), dtype=torch.float32,
@@ -276,15 +334,18 @@ def grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
     ids = torch.full((P, kt), -1, dtype=torch.int32, device=qrot.device)
     for lst, slots in zip(group_list.long(), slot_pairs.long()):
         p = slots[slots < P]
+        q = p // n_probes
         v, i = pair_topk(*probe_distances(
-            qrot[p // n_probes], centers, lst.expand(p.numel(), 1),
-            list_indices, list_rsq, dot), kt)
+            qrot[q], centers, lst.expand(p.numel(), 1), list_indices,
+            list_rsq, dot, None if filter_words is None
+            else filter_words[q]), kt)
         vals[p], ids[p] = v[:, 0], i[:, 0]
     return vals.reshape(nq, n_probes, kt), ids.reshape(nq, n_probes, kt)
 
 
 def list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
-                    list_recon, list_recon_sq, list_indices, kt: int
+                    list_recon, list_recon_sq, list_indices, kt: int,
+                    filter_words=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`list_scan`: the list-major schedule
     emulated over the recon rows (:func:`grouped_pair_topk`)."""
@@ -292,24 +353,25 @@ def list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
                        list_indices, "list_scan")
     return grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
                              list_recon_sq, list_indices, min(kt, cap),
-                             recon_dot(list_recon))
+                             recon_dot(list_recon), filter_words)
 
 
 def list_scan(qrot, centers, probes, group_list, slot_pairs, list_recon,
-              list_recon_sq, list_indices, kt: int
+              list_recon_sq, list_indices, kt: int, filter_words=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 of the list-major route, and Kernel G's kernel: ``(vals,
     ids)``, each (nq, n_probes, kt), every (query, probe) pair's top kt by
     (distance, slot), ``(+inf, −1)`` past its live rows and on a probe
-    outside ``[0, n_lists)``.  ``group_list`` / ``slot_pairs`` are
-    :func:`raft_tpu_torch.neighbors.grouped.build_groups` of ``probes``;
-    one block scans one group's list once for its pairs.  CUDA tensors
-    launch ``csrc/pq_list_scan.cu``'s pass 1 (kt up to ``KT_LIST_MAX``);
-    CPU tensors run :func:`list_scan_plain`."""
+    outside ``[0, n_lists)``; with ``filter_words`` (nq, n_words) int32
+    only the rows each pair's query admits.  ``group_list`` /
+    ``slot_pairs`` are :func:`raft_tpu_torch.neighbors.grouped.
+    build_groups` of ``probes``; one block scans one group's list once for
+    its pairs.  CUDA tensors launch ``csrc/pq_list_scan.cu``'s pass 1 (kt
+    up to ``KT_LIST_MAX``); CPU tensors run :func:`list_scan_plain`."""
     if not qrot.is_cuda:
         return list_scan_plain(qrot, centers, probes, group_list,
                                slot_pairs, list_recon, list_recon_sq,
-                               list_indices, kt)
+                               list_indices, kt, filter_words)
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices, "list_scan")
     kt = min(kt, cap)
@@ -326,6 +388,8 @@ def list_scan(qrot, centers, probes, group_list, slot_pairs, list_recon,
     group_list = group_list.to(torch.int32).contiguous()
     slot_pairs = slot_pairs.to(torch.int32).contiguous()
     nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, qrot.device, "list_scan")
     vals = torch.empty(nq, n_probes, kt, dtype=torch.float32,
                        device=qrot.device)
     out_ids = torch.empty(nq, n_probes, kt, dtype=torch.int32,
@@ -335,7 +399,7 @@ def list_scan(qrot, centers, probes, group_list, slot_pairs, list_recon,
         group_list.data_ptr(), slot_pairs.data_ptr(), recon.data_ptr(),
         rsq.data_ptr(), ids.data_ptr(), group_list.shape[0], nq, n_probes,
         n_lists, cap, rot, kt, list_scan_smem_bytes(rot),
-        vals.data_ptr(), out_ids.data_ptr(),
+        vals.data_ptr(), out_ids.data_ptr(), *fargs,
         torch.cuda.current_stream(qrot.device).cuda_stream)
     _cuda.check(status, "list_scan")
     list_scan.launches += 1
@@ -414,25 +478,30 @@ scan_query_major.launches = 0
 
 
 def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
-                      list_indices, k: int, kt: int
+                      list_indices, k: int, kt: int, filter_words=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals (nq, k) f32, ids (nq, k) i32)``: each query's top-k over its
-    probed lists.  CUDA tensors run Kernel B: at ``min(kt, k) <=
-    KT_LIST_MAX`` the list-major route — the pairs grouped by list, then
-    :func:`list_scan` and :func:`merge_pairs`, in query chunks whose pair
-    buffer stays within ``PAIR_BUFFER_BYTES`` — else
-    :func:`scan_query_major` (a dispatch by shape between two kernels, each
-    counted on its own ``launches``).  CPU tensors run the plain version.
-    A shape neither route can hold raises with its reason."""
-    if not qrot.is_cuda:
-        return ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
-                                       list_recon_sq, list_indices, k, kt)
+    probed lists (with ``filter_words``, over the rows it admits).  CUDA
+    tensors run Kernel B: at ``min(kt, k) <= KT_LIST_MAX`` the list-major
+    route — the pairs grouped by list, then :func:`list_scan` and
+    :func:`merge_pairs`, in query chunks whose pair buffer stays within
+    ``PAIR_BUFFER_BYTES`` — else :func:`scan_query_major` (a dispatch by
+    shape between two kernels, each counted on its own ``launches``).  CPU
+    tensors run the plain version.  A shape neither route can hold raises
+    with its reason; a filtered call at a query-major shape raises
+    ``NotImplementedError`` on either device."""
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices)
+    pair_kt = min(kt, cap, k)
+    filtered_route("ivf_pq_scan_fused", filter_words,
+                   list_scan_reject_reason(rot, pair_kt))
+    if not qrot.is_cuda:
+        return ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
+                                       list_recon_sq, list_indices, k, kt,
+                                       filter_words)
     kt = min(kt, cap)
     reason = scan_reject_reason(cap, rot, k, kt)
     expects(not reason, f"ivf_pq_scan_fused: {reason}")
-    pair_kt = min(kt, k)
     if list_scan_reject_reason(rot, pair_kt):
         return scan_query_major(qrot, centers, probes, list_recon,
                                 list_recon_sq, list_indices, k, kt)
@@ -440,7 +509,8 @@ def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
         probes, n_lists, pair_kt, k,
         lambda rows, p, gl, sp: list_scan(
             qrot[rows], centers, p, gl, sp, list_recon, list_recon_sq,
-            list_indices, pair_kt))
+            list_indices, pair_kt,
+            None if filter_words is None else filter_words[rows]))
 
 
 def list_major_topk(probes, n_lists: int, pair_kt: int, k: int, pass1

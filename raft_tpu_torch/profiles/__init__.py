@@ -25,7 +25,10 @@ and one of the port's own design, with no JAX script behind it:
   Kernel G's pass 1 over the recon cache;
 - :mod:`.pair_cut_ties`: how often a tie at a pair's top-kt cut leaves
   Kernel C's merged rows and its plain version's with different ids and
-  no equal distance beside them (a count, not a time).
+  no equal distance beside them (a count, not a time);
+- ``flagship_turns.py`` (run by path, with a checkout's root): the
+  unfiltered flagship batch and Kernel B's pass 1 of that checkout, for
+  parent and change in turns on one card.
 
 Each runs on the card as ``python3 -m raft_tpu_torch.profiles.<name>``
 and prints one JSON line per measurement.  Each of the four ports also has

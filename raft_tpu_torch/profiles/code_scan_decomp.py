@@ -108,7 +108,8 @@ def run(libs, device, reps: int = 10) -> List[Dict]:
             vals = torch.empty(nq, n_probes, kt, device=device)
             ids = torch.empty(nq, n_probes, kt, dtype=torch.int32,
                               device=device)
-            out = (vals.data_ptr(), ids.data_ptr(), stream)
+            out = (vals.data_ptr(), ids.data_ptr(),
+                   *list_scan_decomp.NO_FILTER, stream)
 
             def codes(lib):
                 return lambda: _cuda.check(lib(

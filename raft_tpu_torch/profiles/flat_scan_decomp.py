@@ -125,7 +125,8 @@ def run(fns, device, reps: int = 10) -> List[Dict]:
                                          data, dsq, ids)),
                 group_list.shape[0], nq, npb, data.shape[0], data.shape[1],
                 F, DIM, kt, 0, ctypes.addressof(layout),
-                vals.data_ptr(), out_ids.data_ptr(), stream),
+                vals.data_ptr(), out_ids.data_ptr(),
+                *list_scan_decomp.NO_FILTER, stream),
                 "flat_scan_decomp")
 
         for variant, fn in fns.items():

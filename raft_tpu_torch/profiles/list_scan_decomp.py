@@ -46,12 +46,17 @@ SCAN_SOURCE = "pq_list_scan.cu"
 # the files a variant may change: the scan, and the fold it includes
 SCAN_SOURCES = (SCAN_SOURCE, "list_fold.cuh")
 # the fold call in list_fold.cuh's window epilogue, which B, G and F share
-FOLD = ("    fold_rows<E, R>(top_v, top_s, stride, dist, s_pair, n_pairs, kt,\n"
-        "                    row0 + kHalf * h, warp, lane);")
+FOLD = ("    fold_rows<E, R, kFilter>(top_v, top_s, stride, dist, s_pair, "
+        "n_pairs,\n"
+        "                             kt, row0 + kHalf * h, warp, lane, "
+        "ids + kHalf * h,\n"
+        "                             adm);")
 _EPILOGUE = "    if (q != nchunks - 1) continue;"
 _PRODUCTS = ("      wgmma_m64n128k16(acc, da, db, (q == 0 && ks == 0) ? 0 "
              ": 1);")
 _ROWS = "constexpr int kRowsAtOnce = 4;"
+# an entry point's filter arguments when unfiltered (words, stride, width)
+NO_FILTER = (None, 0, 0)
 VARIANTS: Dict[str, Tuple[Tuple[str, str], ...]] = {
     "as built": (),
     "no insertions": (("      while (any) {",
@@ -184,7 +189,7 @@ def run(libs, device, reps: int = 10
                     *(t.data_ptr() for t in ops), group_list.shape[0], nq,
                     n_probes, n_lists, cap, rot, kt,
                     list_scan_smem_bytes(rot), vals.data_ptr(),
-                    ids.data_ptr(), stream), "list_scan_decomp")
+                    ids.data_ptr(), *NO_FILTER, stream), "list_scan_decomp")
 
             for variant, lib in libs.items():
                 lines.append({"index": name, "kt": kt, "variant": variant,

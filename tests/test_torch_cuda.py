@@ -1259,3 +1259,186 @@ def test_kmeans_pass_cut_kernel_matches_plain(dev, cut, n, dim, k):
     else:
         assert torch.equal(counts, p_counts)
     torch.testing.assert_close(sums, p_sums, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# filters: the admission test of the list-major passes and of the walk
+
+
+def _filter_words(dev, nq, n_ids, selectivity, broadcast, seed):
+    """Packed admission words (nq, ceil(n_ids / 32)) int32 admitting each
+    id with probability ``selectivity``; ``broadcast``: one row expanded
+    to nq (query stride 0), as a one-row filter reaches the kernels."""
+    from raft_tpu_torch.filters import bitset
+
+    rng = np.random.default_rng(seed)
+    rows = 1 if broadcast else nq
+    mask = torch.from_numpy(rng.random((rows, n_ids)) < selectivity)
+    words = bitset.pack_mask(mask).to(dev)
+    return words.expand(nq, -1) if broadcast else words
+
+
+def _assert_admitted(ids, words):
+    from raft_tpu_torch.filters import bitset
+
+    flat = ids.reshape(ids.shape[0], -1)
+    keep = flat >= 0
+    bits = bitset.query_bits(words, torch.arange(flat.shape[0],
+                                                 device=flat.device), flat)
+    assert bool((bits[keep] == 1).all())
+
+
+FILTERED_SCANS = ["B", "G", "C", "D", "E", "F", "F-IP"]
+
+
+def _filtered_scan(dev, kernel, fw_of, seed):
+    """(kernel result, plain result, filter words, value tolerance) of one
+    list-major scan (through its dispatcher) on a random index with
+    padding and tombstones, 40 queries of 12 probes over 64 lists; the
+    tolerance is the unfiltered check's (1e-4; F: 1e-5 of ‖q‖² + max
+    ‖x‖²)."""
+    atol = 1e-4
+    n_lists, nq, n_probes, cap, k, kt = 64, 40, 12, 300, 20, 16
+    if kernel in ("B", "G"):
+        centers, recon, rsq, ids = _random_index(dev, n_lists, cap, 128,
+                                                 seed)
+        qrot, probes = _queries(dev, nq, 128, n_lists, n_probes)
+        fw = fw_of(nq, int(ids.max()) + 1)
+        if kernel == "B":
+            args = (qrot, centers, probes, recon, rsq, ids, k, kt)
+            fns = (pgs.ivf_pq_scan_fused, pgs.ivf_pq_scan_fused_plain)
+        else:
+            args = (qrot, centers, probes, recon, rsq, ids, kt)
+            fns = (ps.ivf_pq_scan_recon, ps.ivf_pq_scan_recon_plain)
+    elif kernel in ("C", "D", "E"):
+        pq_dim, pq_len, bits = 64, 2, 8
+        centers, codes, books, rsq, ids, i8, scales, rsq8 = \
+            _random_code_index(dev, n_lists, cap, pq_dim, pq_len, bits, seed)
+        qrot, probes = _queries(dev, nq, pq_dim * pq_len, n_lists, n_probes)
+        fw = fw_of(nq, int(ids.max()) + 1)
+        if kernel == "C":
+            args = (qrot, centers, probes, codes, books, rsq, ids, bits, k,
+                    kt)
+            fns = (pcs.ivf_pq_scan_codes_fused,
+                   pcs.ivf_pq_scan_codes_fused_plain)
+        elif kernel == "D":
+            args = (qrot, centers, probes, codes, books, rsq, ids, bits, kt)
+            fns = (pcs.ivf_pq_scan_codes, pcs.ivf_pq_scan_codes_plain)
+        else:
+            args = (qrot, centers, probes, i8, scales, rsq8, ids, kt)
+            fns = (pcs.ivf_pq_scan_recon8, pcs.ivf_pq_scan_recon8_plain)
+    else:
+        data, dsq, ids = _flat_lists(dev, n_lists, cap, 128, seed)
+        q, probes = _queries(dev, nq, 128, n_lists, n_probes)
+        fw = fw_of(nq, int(ids.max()) + 1)
+        args = (q, probes, data, dsq, ids, kt, kernel == "F-IP")
+        fns = (ps.ivf_flat_scan, ps.ivf_flat_scan_plain)
+        atol = 1e-5 * float((q * q).sum(1).max() + dsq.max())
+    out = fns[0](*args, filter_words=fw)
+    torch.cuda.synchronize()
+    return out, fns[1](*args, filter_words=fw), fw, atol
+
+
+@pytest.mark.parametrize("kernel", FILTERED_SCANS)
+def test_filtered_list_major_scans_match_plain(dev, kernel):
+    """Each list-major pass with a filter, drawn by hypothesis (selectivity
+    0 to 1, a per-query filter or one row broadcast at query stride 0),
+    against its plain version at the unfiltered check's tolerance (values
+    within 1e-4, F within 1e-5 of ‖q‖² + max ‖x‖²; the same exhausted
+    ranks; ids but at ties), and every returned id admitted by its
+    query."""
+    from hypothesis import HealthCheck, given, settings
+    from hypothesis import strategies as st
+
+    @settings(max_examples=6, deadline=None, derandomize=True,
+              suppress_health_check=[HealthCheck.function_scoped_fixture])
+    @given(selectivity=st.sampled_from([0.0, 0.001, 0.1, 0.5, 0.9, 1.0]),
+           broadcast=st.booleans(), seed=st.integers(0, 1000))
+    def check(selectivity, broadcast, seed):
+        (vk, ik), (vp, ip), fw, atol = _filtered_scan(
+            dev, kernel,
+            lambda nq, n: _filter_words(dev, nq, n, selectivity, broadcast,
+                                        seed), seed)
+        fin = torch.isfinite(vp)
+        assert torch.equal(fin, torch.isfinite(vk))
+        assert torch.equal(ik < 0, ~fin)
+        torch.testing.assert_close(vk[fin], vp[fin], rtol=1e-4, atol=atol)
+        assert float((ik == ip).float().mean()) >= 0.99
+        _assert_admitted(ik, fw)
+        if selectivity == 0.0:
+            assert bool((ik == -1).all())
+
+    check()
+
+
+@pytest.mark.parametrize("kernel", ["B", "G", "F"])
+def test_filtered_query_major_shapes_raise(dev, kernel):
+    """Past kt 64 the query-major kernels take no filter: the dispatchers
+    raise NotImplementedError naming the deferred item, and launch
+    nothing."""
+    fw_of = (lambda nq, n: _filter_words(dev, nq, n, 0.5, False, 1))
+    before = (pgs.scan_query_major.launches, pgs.list_scan.launches,
+              ps.flat_list_scan.launches, ps.flat_scan_query_major.launches,
+              ps.recon_scan_query_major.launches)
+    with pytest.raises(NotImplementedError,
+                       match="filters on the query-major routes"):
+        n_lists, cap = 16, 200
+        if kernel in ("B", "G"):
+            centers, recon, rsq, ids = _random_index(dev, n_lists, cap, 64,
+                                                     3)
+            qrot, probes = _queries(dev, 8, 64, n_lists, 4)
+            fw = fw_of(8, int(ids.max()) + 1)
+            if kernel == "B":
+                pgs.ivf_pq_scan_fused(qrot, centers, probes, recon, rsq, ids,
+                                      100, 100, fw)
+            else:
+                ps.ivf_pq_scan_recon(qrot, centers, probes, recon, rsq, ids,
+                                     100, fw)
+        else:
+            data, dsq, ids = _flat_lists(dev, n_lists, cap, 32, 3)
+            q, probes = _queries(dev, 8, 32, n_lists, 4)
+            ps.ivf_flat_scan(q, probes, data, dsq, ids, 100,
+                             filter_words=fw_of(8, int(ids.max()) + 1))
+    assert before == (pgs.scan_query_major.launches, pgs.list_scan.launches,
+                      ps.flat_list_scan.launches,
+                      ps.flat_scan_query_major.launches,
+                      ps.recon_scan_query_major.launches)
+
+
+@pytest.mark.parametrize("nq,itopk,width,deg,pdim,quant,ip", [
+    (500, 64, 2, 32, 16, False, False), (300, 64, 2, 32, 16, True, False),
+    (200, 32, 1, 32, 16, False, True), (20, 64, 4, 64, 1024, False, False)])
+def test_filtered_walk_matches_plain(dev, nq, itopk, width, deg, pdim,
+                                     quant, ip):
+    """Kernel I's walk with a filter (hypothesis: selectivity 0 to 1,
+    per-query or one broadcast row): keys, ids, visited flags and hop
+    counts equal to the plain walk's bit for bit, one launch, and no
+    rejected id kept by a hop."""
+    from hypothesis import HealthCheck, given, settings
+    from hypothesis import strategies as st
+
+    args, kw = _walk_inputs(dev, nq, itopk, width, deg, pdim, quant, ip,
+                            nq + itopk + pdim)
+
+    @settings(max_examples=4, deadline=None, derandomize=True,
+              suppress_health_check=[HealthCheck.function_scoped_fixture])
+    @given(selectivity=st.sampled_from([0.0, 0.05, 0.5, 1.0]),
+           broadcast=st.booleans(), seed=st.integers(0, 1000))
+    def check(selectivity, broadcast, seed):
+        fw = _filter_words(dev, nq, 4096, selectivity, broadcast, seed)
+        before = cw.cagra_walk.launches
+        kd, ki, kv, kh = cw.cagra_walk(*args, return_hops=True,
+                                       filter_words=fw, **kw)
+        torch.cuda.synchronize()
+        assert cw.cagra_walk.launches == before + 1
+        pd, pi, pv, ph = cw.cagra_walk_plain(*args, return_hops=True,
+                                             filter_words=fw, **kw)
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+        assert torch.equal(kv, pv) and torch.equal(kh, ph)
+        # a seed the filter rejects may stay in the buffer (the search
+        # scores such seeds +inf before the walk); no hop adds one
+        seeds = args[4]
+        added = (ki >= 0) & ~torch.isin(ki, seeds)
+        _assert_admitted(torch.where(added, ki, torch.full_like(ki, -1)), fw)
+
+    check()

@@ -7,7 +7,9 @@ modules the port has shipped (``core.error``, ``core.resources``,
 ``core.mdarray``, ``utils.precision``, ``matrix.ops``, and the
 persistence slice's ``core.serialize``, ``core.interruptible``,
 ``core.outputs``, ``config``, ``integrity.canary`` and the four
-``resilience`` modules) resolves in ``raft_tpu_torch`` to the
+``resilience`` modules; the filters slice's ``filters`` package and its
+``bitset``, ``tenant`` and ``hybrid`` modules, and ``neighbors.mutate``)
+resolves in ``raft_tpu_torch`` to the
 same kind of object (module, class, function, or a constant of the same
 type), or to a stand-in that raises ``NotImplementedError`` naming an
 item of ROADMAP.md §1's deferred list.  The ported small names (``fail``,
@@ -40,13 +42,14 @@ from raft_tpu_torch.utils import precision
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGES = ["", ".core", ".distance", ".cluster", ".matrix", ".neighbors",
-            ".integrity", ".resilience"]
+            ".integrity", ".resilience", ".filters"]
 SHIPPED_MODULES = [".core.error", ".core.resources", ".core.mdarray",
                    ".utils.precision", ".matrix.ops", ".core.serialize",
                    ".core.interruptible", ".core.outputs", ".config",
                    ".integrity.canary", ".resilience.faults",
                    ".resilience.retry", ".resilience.checkpoint",
-                   ".resilience.io"]
+                   ".resilience.io", ".filters.bitset", ".filters.tenant",
+                   ".filters.hybrid", ".neighbors.mutate"]
 
 
 def _deferred_items():
@@ -140,10 +143,12 @@ def _assert_counterpart(ref, port_module, name, where):
 
 
 def test_the_deferred_list_is_read():
-    assert {"primitives", "mutation", "filters", "the tail",
+    assert {"primitives", "filters on the query-major routes", "the tail",
             "host-side subsystems"} <= DEFERRED
-    # shipped with the persistence slice: no stand-in may name them
-    assert not {"serialization", "canaries", "checkpointing"} & DEFERRED
+    # shipped with the persistence slice, and with the filters and
+    # mutation slice: no stand-in may name them
+    assert not {"serialization", "canaries", "checkpointing", "filters",
+                "mutation"} & DEFERRED
 
 
 def test_persistence_names_are_the_ported_objects():
@@ -235,6 +240,9 @@ raft_tpu_torch.RaftError, raft_tpu_torch.config
 raft_tpu_torch.integrity.check_matrix
 assert callable(refine) and callable(select_k)
 assert ivf_pq.search
+from raft_tpu_torch.filters import SampleFilter, TenantFilter, hybrid
+from raft_tpu_torch.neighbors import mutate
+assert SampleFilter.all_rows(5).words.shape == (1, 1) and mutate.tombstone
 """,
     # a kernel wrapper first: its `from raft_tpu_torch.neighbors import
     # grouped` runs the package __init__ before the wrapper is complete

@@ -246,10 +246,14 @@ def test_search_modes_off_the_path_raise(tiny_index, change, item):
 
 
 def test_filtered_and_ip_search_raise(tiny_index):
+    """A filtered search runs (filters shipped): an all-admitting mask
+    gives the unfiltered result; InnerProduct IVF-PQ still raises."""
     res, index, db = tiny_index
-    with pytest.raises(NotImplementedError, match="filters"):
-        ivf_pq.search(res, ivf_pq.SearchParams(), index, db[:2], 5,
-                      filter=np.ones((2, 600), bool))
+    sp = ivf_pq.SearchParams()
+    d, i = ivf_pq.search(res, sp, index, db[:2], 5,
+                         filter=np.ones((2, 600), bool))
+    d0, i0 = ivf_pq.search(res, sp, index, db[:2], 5)
+    assert torch.equal(i, i0) and torch.equal(d, d0)
     ip = ivf_pq.Index(**{**index.__dict__,
                          "metric": DistanceType.InnerProduct})
     with pytest.raises(NotImplementedError, match="InnerProduct"):
@@ -347,10 +351,10 @@ def _flat_saved(res, index, path):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda res, index, db, d: ivf_flat.delete(res, index, [1]), "mutation"),
+    (lambda res, index, db, d: ivf_flat.delete(res, index, [1]), None),
     (lambda res, index, db, d: ivf_flat.upsert(res, index, [1], db[:1]),
-     "mutation"),
-    (lambda res, index, db, d: ivf_flat.compact(res, index), "mutation"),
+     None),
+    (lambda res, index, db, d: ivf_flat.compact(res, index), None),
     (lambda res, index, db, d: ivf_flat.serialize(res, io.BytesIO(), index),
      None),
     (lambda res, index, db, d: _flat_reloaded(res, index), None),
@@ -360,7 +364,7 @@ def _flat_saved(res, index, path):
         res, _flat_saved(res, index, str(d / "f"))), None),
     (lambda res, index, db, d: ivf_flat.search(
         res, ivf_flat.SearchParams(), index, db[:2], 5,
-        filter=np.ones((2, 600), bool)), "filters"),
+        filter=np.ones((2, 600), bool)), None),
     (lambda res, index, db, d: ivf_flat.build(
         res, ivf_flat.IndexParams(n_lists=2, canary_queries=4), db), None),
 ], ids=["delete", "upsert", "compact", "serialize", "deserialize", "save",
@@ -368,10 +372,11 @@ def _flat_saved(res, index, path):
 def test_ivf_flat_paths_off_the_path_raise(tiny_flat, tmp_path, call, item):
     """Each IVF-Flat path this port has not reached raises
     NotImplementedError naming its ROADMAP item; the persistence paths
-    (item None: serialization and canaries, deferred before) complete."""
+    (item None: serialization and canaries, and the filter and mutation
+    paths, deferred before) complete."""
     if item is None:
         out = call(*tiny_flat, tmp_path)
-        assert out is None or isinstance(out, ivf_flat.Index)
+        assert out is None or isinstance(out, (ivf_flat.Index, tuple))
         return
     with pytest.raises(NotImplementedError, match=item):
         call(*tiny_flat, tmp_path)
