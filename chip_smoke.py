@@ -152,7 +152,22 @@ Phases, in order; any failure raises and the script exits non-zero:
     their plain versions.  Each filtered kernel check is an
     ``also_checked`` row of its kernel (its bytes count the admission
     bits: one a query and probed live row, one a probed live row for a
-    broadcast row).
+    broadcast row).  Then filtered search at k 100, where every scan keeps
+    more than 64 rows a pair and so runs a query-major kernel: the
+    flagship searched at k 200 and refined to 100 in ``auto`` (Kernel B's
+    query-major kernel at kt 200) and in ``recon`` at kt 128 (Kernel
+    G's), and IVF-Flat nlist 4096 at n_probes 64, k 100 (Kernel F's), each
+    unfiltered and with each filter: ms per batch of 5,000, recall@100
+    against ``brute_force.knn`` at k 100 (filtered as the search; at 50%
+    per query at least the unfiltered recall@100 less 0.05, the tenant
+    filter's printed only), every id admitted, the query-major kernel
+    launched and no list-major pass; the full-probe contract at k 100
+    (against the unfiltered k 256) on 64 queries for both indexes; B, G
+    and F with the 50% filter against their plain versions on 1,000
+    queries at those shapes.  In the deep phase the same at k = kt = 128
+    refined to 100, on 1,000 queries with the three filters over the 10M
+    ids: ``fused``, ``codes`` and ``recon8`` (Kernels C, D and E
+    query-major), and C, D and E with the 50% filter against plain.
 13. CAGRA at full width (``conf/sift-like-1m.json`` entry
     ``raft_cagra.deg32``) on the same rows: ``cagra.build`` at
     ``IndexParams(graph_degree=32, intermediate_graph_degree=64)`` (seconds,
@@ -208,8 +223,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     against Kernel G's pass 1 over the recon cache on the codes' norms,
     and E's pass with every scale 1 against G's pass 1 over the int8
     rows as bf16, each bit for bit; C, D and E's query-major routes at k
-    = kt = 128 on 1,000 queries; and each mode's batch under the
-    profiler.
+    = kt = 128 on 1,000 queries, unfiltered and (phase 12) filtered; and
+    each mode's batch under the profiler.
 15. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path, and
@@ -802,46 +817,59 @@ def check_kernel_b(index, queries):
     return row
 
 
-def check_query_major(index, queries, nq, fused):
-    """The large-kt route of Kernel B (``fused``: k = kt = 256, the
-    query-major ``scan_query_major``) or G (kt 128,
-    ``recon_scan_query_major``) against its plain version on the first
-    ``nq`` queries of a path's batch, its launch counted; an
-    ``also_checked`` entry of its kernel's row."""
+def check_query_major(index, queries, nq, fused, k=None, filter_words=None,
+                      launches=0):
+    """The large-kt route of Kernel B (``fused``: k = kt = ``k``, 256 by
+    default, the query-major ``scan_query_major``) or G (kt ``k``, 128 by
+    default, ``recon_scan_query_major``) against its plain version on the
+    first ``nq`` queries of a path's batch, its launch counted; an
+    ``also_checked`` entry of its kernel's row, with ``launches`` (that
+    path's).  With ``filter_words`` (``nq`` rows) both run filtered, every
+    returned id must be admitted, and the bytes count the admission bits
+    (one a query and probed live row)."""
     from raft_tpu_torch.ops import pair_scan as ps
     from raft_tpu_torch.ops import pq_group_scan as pgs
 
     qrot, probes = probe(index, queries[:nq])
     rot = qrot.shape[1]
+    fw, tag, adm = (), "", 0
+    if filter_words is not None:
+        fw, tag = (filter_words,), ", filtered"
+        adm = admission_bytes(index.list_sizes, probes,
+                              filter_words.stride(0) == 0)
     if fused:
-        k = kt = min(pgs.K_MAX, index.capacity)
+        k = kt = min(k or pgs.K_MAX, index.capacity)
         wrapper, src = pgs.scan_query_major, "pq_group_scan.cu"
-        spec = ("scan_query_major (B, query-major)", src,
+        spec = (f"scan_query_major (B, query-major{tag})", src,
                 "raft_tpu/ops/pq_group_scan_pallas.py:410", wrapper,
                 pgs.ivf_pq_scan_fused_plain,
                 (qrot, index.centers, probes, index.list_recon,
-                 index.list_recon_sq, index.list_indices, k, kt),
+                 index.list_recon_sq, index.list_indices, k, kt) + fw,
                 recon_rows_of(index), index.list_recon_sq, None,
-                rot * 2 + 8, 0, nq * k * 8, rot)
+                rot * 2 + 8, adm, nq * k * 8, rot)
     else:
-        k = kt = min(2 * pgs.KT_LIST_MAX, index.capacity)
+        k = kt = min(k or 2 * pgs.KT_LIST_MAX, index.capacity)
         wrapper, src = ps.recon_scan_query_major, "pair_scan.cu"
-        spec = ("recon_scan_query_major (G, query-major)", src,
+        spec = (f"recon_scan_query_major (G, query-major{tag})", src,
                 "raft_tpu/ops/pq_group_scan_pallas.py:566", wrapper,
                 ps.ivf_pq_scan_recon_plain,
                 (qrot, index.centers, probes, index.list_recon,
-                 index.list_recon_sq, index.list_indices, kt),
+                 index.list_recon_sq, index.list_indices, kt) + fw,
                 recon_rows_of(index), index.list_recon_sq, None,
-                rot * 2 + 8, 0, probes.numel() * kt * 8, rot)
+                rot * 2 + 8, adm, probes.numel() * kt * 8, rot)
     assert kt > pgs.KT_LIST_MAX, "the large-kt route needs kt past 64"
     before = wrapper.launches
     row = check_scans(index, qrot, probes, [spec])[0]
     launched = wrapper.launches - before
     assert launched > 0, f"{spec[0]} never launched"
+    if filter_words is not None:
+        assert_admitted(spec[0], wrapper(*spec[5])[1], filter_words)
     return at_shape(dict(row, source=f"raft_tpu_torch/csrc/{src}",
                          check_launches=launched),
-                    f"{nq:,} queries x {probes.shape[1]} probes, k {k}, kt "
-                    f"{kt}, capacity {index.capacity:,}, rot {rot}", 0)
+                    ("filtered, 50% per query: " if fw else "")
+                    + f"{nq:,} queries x {probes.shape[1]} probes, k {k}, kt "
+                    f"{kt}, capacity {index.capacity:,}, rot {rot}",
+                    launches)
 
 
 def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
@@ -2195,10 +2223,12 @@ def deep_path(dev):
     codes_bit_equal(index, queries, DEEP_KT)
     recon8_bit_equal(index, queries, DEEP_KT)
     walked = check_codes_query_major(index, queries, LARGE_KT_QUERIES)
-    for row, entry in zip(rows, walked):
-        row["also_checked"].append(entry)
-    for row, entry in zip(rows, rows_f):
-        row["also_checked"].append(entry)
+    t0 = time.perf_counter()
+    walked_f = deep_wide_filtered(res, index, db, queries)
+    print(f"deep filtered k {WIDE_K} (query-major kernels C, D, E): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for row, *entries in zip(rows, walked, rows_f, walked_f):
+        row["also_checked"] += entries
     b_deep = at_shape(
         check_kernel_b(index, queries),
         f"deep: {N_QUERIES:,} queries x {N_PROBES} probes, k {K_SEARCH}, kt "
@@ -3087,6 +3117,16 @@ FILTER_SEED, N_TENANTS = 15, 16
 FULL_PROBE_QUERIES, FULL_PROBE_K = 64, 64
 N_DELETE, N_UPSERT = 10_000, 5_000
 DEEP_FILTER_QUERIES = 1_000
+# filtered search at k 100, where every scan keeps more than 64 rows a
+# pair and so runs a query-major kernel: the flagship searches k 200 and
+# refines to 100 (``auto``: Kernel B at kt 200; ``recon`` at kt 128:
+# Kernel G), IVF-Flat searches k 100 (Kernel F), the deep index k = kt =
+# 128 refined to 100 on DEEP_FILTER_QUERIES queries (Kernels C, D, E)
+WIDE_K, WIDE_K_SEARCH, WIDE_RECON_KT, WIDE_DEEP_KT = 100, 200, 128, 128
+# the full-probe contract at k 100: the unfiltered search's k
+WIDE_FULL_PROBE_K = 256
+# the most a 50% per-query filter may take off recall@100
+WIDE_RECALL_GAP = 0.05
 
 
 def half_words(nq, n_rows, seed, device):
@@ -3177,48 +3217,55 @@ def posthoc_top(d_u, i_u, words, k):
             int(adm.sum(1).min()))
 
 
-def full_probe_contract(label, search, queries, words, n_rows):
-    """At full probe a filtered search equals the unfiltered result at
-    FULL_PROBE_K filtered afterwards, bit for bit, on FULL_PROBE_QUERIES
-    queries."""
+def full_probe_contract(label, search, queries, words, n_rows, k=K,
+                        wide=FULL_PROBE_K):
+    """At full probe a filtered search at ``k`` equals the unfiltered
+    result at ``wide`` filtered afterwards, bit for bit, on
+    FULL_PROBE_QUERIES queries."""
     import torch
     from raft_tpu_torch.filters import SampleFilter
 
     q = queries[:FULL_PROBE_QUERIES]
     w = words[:FULL_PROBE_QUERIES]
-    d_u, i_u = search(q, FULL_PROBE_K, None)
-    ref_d, ref_i, kept = posthoc_top(d_u, i_u, w, K)
-    assert kept >= K, (f"{label}: a query kept {kept} admitted rows in its "
-                       f"unfiltered top {FULL_PROBE_K}")
-    d_f, i_f = search(q, K, SampleFilter(words=w, n_rows=n_rows))
+    d_u, i_u = search(q, wide, None)
+    ref_d, ref_i, kept = posthoc_top(d_u, i_u, w, k)
+    assert kept >= k, (f"{label}: a query kept {kept} admitted rows in its "
+                       f"unfiltered top {wide}")
+    d_f, i_f = search(q, k, SampleFilter(words=w, n_rows=n_rows))
     same = torch.equal(i_f, ref_i) and torch.equal(d_f, ref_d)
-    print(f"{label} full-probe contract ({FULL_PROBE_QUERIES} queries, "
-          f"unfiltered k {FULL_PROBE_K}, at least {kept} admitted kept): "
+    print(f"{label} full-probe contract ({FULL_PROBE_QUERIES} queries, k "
+          f"{k}, unfiltered k {wide}, at least {kept} admitted kept): "
           f"filtered == unfiltered filtered afterwards: {same}", flush=True)
     assert same, f"{label}: the full-probe contract fails"
 
 
-def filtered_searches(label, search, queries, filters, truths):
+def filtered_searches(label, search, queries, filters, truths, k=K):
     """``search(q, k, filter)`` (a batch ending in its ids) unfiltered,
-    then with each filter, SEARCH_REPS batches each: ms, recall@10 against
-    the filtered ground truth, the launches of the filtered runs; every
-    returned id admitted.  Returns {filter: (median ms, recall,
-    launches)}."""
-    ms, _ = timed_searches(lambda: search(queries, K, None), SEARCH_REPS)
+    then with each filter, SEARCH_REPS batches each: ms, recall@k against
+    the filtered ground truth (and the unfiltered recall@k where
+    ``truths`` holds the unfiltered truth under None), the launches of each
+    run; every returned id admitted.  Returns {filter: (median ms, recall,
+    launches)}, the unfiltered run under None."""
+    zero_launches()
+    ms, ids = timed_searches(lambda: search(queries, k, None), SEARCH_REPS)
+    launches = read_launches()
+    r = live_recall(ids, truths[None]) if None in truths else None
     print(f"{label} unfiltered: {', '.join(f'{m:.2f}' for m in ms)} ms per "
-          f"batch of {queries.shape[0]}", flush=True)
-    out = {None: (median(ms), None, None)}
+          f"batch of {queries.shape[0]}" + (
+              "" if r is None else f"; recall@{k} {r:.4f}"), flush=True)
+    out = {None: (median(ms), r, launches)}
     for name, f in filters.items():
         zero_launches()
-        ms, ids = timed_searches(lambda: search(queries, K, f), SEARCH_REPS)
+        ms, ids = timed_searches(lambda: search(queries, k, f), SEARCH_REPS)
         launches = read_launches()
         assert_admitted(f"{label} {name}", ids, f.words)
         r = live_recall(ids, truths[name])
         print(f"{label} filter {name} ({filter_bytes(f):,} bytes of words): "
               f"{', '.join(f'{m:.2f}' for m in ms)} ms per batch (median "
-              f"{median(ms):.2f}, unfiltered {out[None][0]:.2f}); recall@10 "
-              f"{r:.4f} against the filtered brute_force.knn; every id "
-              f"admitted; launches {json.dumps(launches)}", flush=True)
+              f"{median(ms):.2f}, unfiltered {out[None][0]:.2f}); "
+              f"recall@{k} {r:.4f} against the filtered brute_force.knn; "
+              f"every id admitted; launches {json.dumps(launches)}",
+              flush=True)
         out[name] = (median(ms), r, launches)
     return out
 
@@ -3448,6 +3495,148 @@ def filtered_cagra(res, index, queries, filters, truths):
     return row, launches
 
 
+def ground_truths(res, db, queries, filters, k):
+    """brute_force.knn at ``k``: unfiltered (under None) and with each
+    filter."""
+    from raft_tpu_torch.neighbors import brute_force
+
+    truths = {}
+    for name, f in [(None, None)] + list(filters.items()):
+        (_, truths[name]), s = timed_s(
+            lambda: brute_force.knn(res, db, queries, k, filter=f))
+        print(f"ground truth at k {k} ({name or 'unfiltered'}): {s:.2f} s",
+              flush=True)
+    return truths
+
+
+def wide_searches(label, search, queries, filters, truths, route, others):
+    """``filtered_searches`` at WIDE_K: every run launches the query-major
+    wrapper ``route`` and none of ``others`` (the list-major passes), and
+    the 50% per-query filter's recall@100 is at least the unfiltered
+    recall@100 less WIDE_RECALL_GAP (the tenant filter's is printed
+    only).  Returns the runs."""
+    runs = filtered_searches(label, search, queries, filters, truths, WIDE_K)
+    for name, (_, r, launches) in runs.items():
+        assert launches[route] > 0 and not any(
+            launches[o] for o in others), (
+            f"{label} {name}: launches {json.dumps(launches)}")
+        if name == "50% per query":
+            assert r >= runs[None][1] - WIDE_RECALL_GAP, (
+                f"{label} {name}: recall@{WIDE_K} {r} against "
+                f"{runs[None][1]} unfiltered")
+    return runs
+
+
+def wide_filtered_ivf_pq(res, index, db, queries, filters, truths):
+    """The flagship at k 100 with each filter: ``auto`` (Kernel B's
+    query-major kernel at kt 200) and ``recon`` at kt WIDE_RECON_KT
+    (Kernel G's), search k 200 refined to 100; the full-probe contract at
+    k 100 (``auto``); B and G filtered against their plain versions on
+    the first LARGE_KT_QUERIES queries at the searches' shapes.  Returns
+    the two ``also_checked`` entries, launches from the 50% runs."""
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+
+    half = filters["50% per query"]
+    out = []
+    for mode, kt, route in (("auto", 0, "scan_query_major"),
+                            ("recon", WIDE_RECON_KT,
+                             "recon_scan_query_major")):
+        sp = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode=mode,
+                                 per_probe_topk=kt)
+
+        def batch(q, k, f, sp=sp):
+            _, cand = ivf_pq.search(res, sp, index, q, WIDE_K_SEARCH,
+                                    filter=f)
+            if f is not None:
+                assert_admitted("flagship candidates", cand, f.words)
+            return refine(res, db, q, cand, k)[1]
+
+        runs = wide_searches(
+            f"flagship IVF-PQ {mode} k {WIDE_K_SEARCH} -> {WIDE_K}"
+            + (f", kt {kt}" if kt else ""), batch, queries, filters, truths,
+            route, ("list_scan",))
+        launched = runs["50% per query"][2][route]
+        out.append(check_query_major(
+            index, queries, LARGE_KT_QUERIES, mode == "auto",
+            kt or WIDE_K_SEARCH, half.words[:LARGE_KT_QUERIES], launched))
+    full = ivf_pq.SearchParams(n_probes=index.n_lists)
+    full_probe_contract(
+        "flagship IVF-PQ auto",
+        lambda q, k, f: ivf_pq.search(res, full, index, q, k, filter=f),
+        queries, half.words, N_DB, WIDE_K, WIDE_FULL_PROBE_K)
+    return out
+
+
+def wide_filtered_ivf_flat(res, index, queries, filters, truths):
+    """IVF-Flat nlist 4096 at k 100 (n_probes 64: Kernel F's query-major
+    kernel) with each filter; the full-probe contract at k 100; F filtered
+    against its plain version on the first LARGE_KT_QUERIES queries.
+    Returns F's ``also_checked`` entry, launches from the 50% run."""
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    half = filters["50% per query"]
+    sp = ivf_flat.SearchParams(n_probes=FLAT_CHECK_PROBES)
+    runs = wide_searches(
+        f"IVF-Flat nlist 4096 k {WIDE_K}", lambda q, k, f: ivf_flat.search(
+            res, sp, index, q, k, filter=f)[1], queries, filters, truths,
+        "flat_scan_query_major", ("flat_list_scan",))
+    full = ivf_flat.SearchParams(n_probes=index.n_lists)
+    full_probe_contract(
+        "IVF-Flat nlist 4096",
+        lambda q, k, f: ivf_flat.search(res, full, index, q, k, filter=f),
+        queries, half.words, N_DB, WIDE_K, WIDE_FULL_PROBE_K)
+    nq = LARGE_KT_QUERIES
+    row = check_kernel_f(index, queries[:nq], FLAT_CHECK_PROBES, WIDE_K,
+                         "ivf_flat_scan (query-major, 50% filter)",
+                         filter_words=half.words[:nq])
+    return at_shape(
+        row, f"filtered, 50% per query: query-major (csrc/pair_scan.cu), "
+        f"nlist 4096, {nq:,} queries x {FLAT_CHECK_PROBES} probes, k "
+        f"{WIDE_K}, F {row['F']}",
+        runs["50% per query"][2]["flat_scan_query_major"])
+
+
+def deep_wide_filtered(res, index, db, queries):
+    """The deep index's first DEEP_FILTER_QUERIES queries at k = kt =
+    WIDE_DEEP_KT, refined to WIDE_K, with the phase's three filters over
+    its 10M ids: ``fused`` (Kernel C's query-major kernel), ``codes`` (D)
+    and ``recon8`` (E), ms beside unfiltered, recall@100 against the
+    filtered brute_force.knn; then C, D and E filtered (50% per query)
+    against their plain versions at that shape.  Returns three
+    ``also_checked`` entries, launches from the 50% runs."""
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+
+    nq = DEEP_FILTER_QUERIES
+    q = queries[:nq]
+    filters = test_filters(nq, DEEP_DB, q.device)
+    truths = ground_truths(res, db, q, filters, WIDE_K)
+    launched = {}
+    for mode, route, listed in (
+            ("fused", "codes_fused_query_major", "code_list_scan"),
+            ("codes", "codes_scan_query_major", "code_list_scan"),
+            ("recon8", "recon8_scan_query_major", "recon8_list_scan")):
+        sp = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode=mode,
+                                 per_probe_topk=WIDE_DEEP_KT)
+
+        def batch(qq, k, f, sp=sp):
+            _, cand = ivf_pq.search(res, sp, index, qq, WIDE_DEEP_KT,
+                                    filter=f)
+            return refine(res, db, qq, cand, k)[1]
+
+        runs = wide_searches(
+            f"deep {mode} k = kt = {WIDE_DEEP_KT} -> {WIDE_K}", batch, q,
+            filters, truths, route, (listed,))
+        launched[mode] = runs["50% per query"][2][route]
+    rows = check_code_kernels(index, q, WIDE_DEEP_KT, k=WIDE_DEEP_KT,
+                              filter_words=filters["50% per query"].words)
+    return [at_shape(row, f"filtered, 50% per query: query-major "
+                     f"(csrc/{row['source'].split('/')[-1]}): deep, {nq:,} "
+                     f"queries x {N_PROBES} probes, k {WIDE_DEEP_KT}, kt "
+                     f"{WIDE_DEEP_KT}, capacity {index.capacity:,}",
+                     launched[mode])
+            for row, mode in zip(rows, ("fused", "codes", "recon8"))]
+
+
 def filtered_phase(res, index, flat, db, queries):
     """The flagship IVF-PQ and IVF-Flat 4096 with the phase's filters,
     their full-probe contracts, their filtered kernels against plain, and
@@ -3456,14 +3645,8 @@ def filtered_phase(res, index, flat, db, queries):
     import shutil
     import tempfile
 
-    from raft_tpu_torch.neighbors import brute_force
-
     filters = test_filters(N_QUERIES, N_DB, db.device)
-    truths = {}
-    for name, f in filters.items():
-        (_, truths[name]), s = timed_s(
-            lambda: brute_force.knn(res, db, queries, K, filter=f))
-        print(f"filtered ground truth ({name}): {s:.2f} s", flush=True)
+    truths = ground_truths(res, db, queries, filters, K)
     pq_rows, pq_runs = filtered_ivf_pq(res, index, db, queries, filters,
                                        truths)
     tmp = tempfile.mkdtemp(prefix="raft_tpu_torch_mutation_")
@@ -3473,7 +3656,15 @@ def filtered_phase(res, index, flat, db, queries):
         shutil.rmtree(tmp, ignore_errors=True)
     f_row, flat_runs = filtered_ivf_flat(res, flat, db, queries, filters,
                                          truths)
-    return filters, truths, pq_rows, f_row, pq_runs, flat_runs, numbers
+    t0 = time.perf_counter()
+    wide = ground_truths(res, db, queries, filters, WIDE_K)
+    b_wide, g_wide = wide_filtered_ivf_pq(res, index, db, queries, filters,
+                                          wide)
+    f_wide = wide_filtered_ivf_flat(res, flat, queries, filters, wide)
+    print(f"filtered k {WIDE_K} (query-major kernels B, G, F): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return (filters, truths, pq_rows, f_row, pq_runs, flat_runs, numbers,
+            {"B": b_wide, "G": g_wide, "F": f_wide})
 
 
 def main() -> int:
@@ -3641,7 +3832,7 @@ def main() -> int:
     phase("filtered and mutable indexes at full width: the flagship and "
           "IVF-Flat nlist 4096")
     t0 = time.perf_counter()
-    filters, truths, pq_rows, f_row, pq_runs, flat_runs, mutated = \
+    filters, truths, pq_rows, f_row, pq_runs, flat_runs, mutated, wide = \
         filtered_phase(res, index, flat_indexes[1], db, queries)
     filtered_s = time.perf_counter() - t0
     del index, flat_indexes
@@ -3690,17 +3881,19 @@ def main() -> int:
         f_row, f"filtered, 50% per query: nlist 4096, {N_QUERIES:,} queries "
         f"x {FLAT_CHECK_PROBES} probes, k {K}, F {f_row['F']}",
         flat_runs["50% per query"][2]["flat_list_scan"]))
+    row_f["also_checked"].append(wide["F"])
     row_walk["also_checked"].append(at_shape(
         walk_f, f"filtered, 50% per query: {N_QUERIES:,} queries, itopk 64, "
         f"width 2, deg {CAGRA_DEGREE}", walk_launches["cagra_walk"]))
-    row_g["also_checked"] = [g_deep, g_query_major, g_filtered]
+    row_g["also_checked"] = [g_deep, g_query_major, g_filtered, wide["G"]]
     row_h["also_checked"] += h_more + h_flat + h_deep
     row_hs["also_checked"] = [hs_deep]
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["merge_pairs"],
                  pass1_launches=launches["list_scan"],
-                 also_checked=[b_deep, b_query_major, b_filtered])] + \
+                 also_checked=[b_deep, b_query_major, b_filtered,
+                               wide["B"]])] + \
         rows_cde + [
                      row_f, row_g, row_h, row_hs, row_i, row_walk] + \
         rows_profiles

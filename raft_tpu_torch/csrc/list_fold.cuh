@@ -35,6 +35,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "scan_common.cuh"
 #include "wgmma_tile.cuh"
 
 namespace raft_list {
@@ -55,13 +56,10 @@ struct Admit {
   int n_probes;
 };
 
-// whether pair p's query admits id (an id past the row's words, or
-// negative, is not admitted)
+// whether pair p's query admits id (scan_common.cuh's bit rule)
 __device__ __forceinline__ bool admitted(const Admit& adm, int p, int id) {
-  const int w = id >> 5;
-  if (id < 0 || w >= adm.n_words) return false;
   const long long q = p / adm.n_probes;
-  return (__ldg(adm.words + q * adm.q_stride + w) >> (id & 31)) & 1;
+  return raft_scan::admits(adm.words + q * adm.q_stride, adm.n_words, id);
 }
 
 // a staged tile's keys in place of its norms: the norm, or +inf at or past

@@ -41,6 +41,12 @@
 // that probes it; IVF-Flat's super-tiles (F adjacent lists scanned as one
 // tile) arrive here as lists of F * cap rows.
 //
+// Filters (kFilter; the TPU kernels' admission operand adm_words): the
+// block's query has one row of packed words; a row whose id it rejects is
+// treated as a dead row (negative id): not read, distance +inf, so it is
+// never selected and the pair's slots past its admitted rows are (+inf,
+// -1).  The unfiltered instantiation is the code without the test.
+//
 // Profile variants (template switches kExtract / kGather; the two library
 // entry points above are <true, true>).  They replace the switches of
 // profiles/group_kernel_decomp_r5.py:50 run_var (body _kernel_var :28),
@@ -52,6 +58,7 @@
 //     (G, cap) block; an out-of-range probe's row is +inf.
 //   kGather == false: the pair's query row comes from a pre-gathered
 //     (nq * n_probes, dim) tensor by pair index, not from queries[q].
+// The variants take no filter.
 // The one-hot query gather of the TPU kernel has no counterpart: the
 // kernel is query-major, so kGather == true reads queries[pair / n_probes]
 // directly, as Kernels F and G do.
@@ -118,8 +125,9 @@ struct Bf16Rows {
 // (stage bf16(query - center)).  ip: InnerProduct form of Kernel F.
 // kVec: rows load 16 bytes at a time (dim % kPerChunk == 0, data 16-byte
 // aligned), else one value at a time (Rows::partial).  kExtract /
-// kGather: the profile variants (see the note above).
-template <class Rows, bool kVec, bool kExtract, bool kGather>
+// kGather: the profile variants (see the note above).  kFilter: only the
+// rows the query's row of fw admits (kExtract and kGather only).
+template <class Rows, bool kVec, bool kExtract, bool kGather, bool kFilter>
 __global__ void __launch_bounds__(kThreads)
 pair_scan_kernel(const float* __restrict__ queries,
                  const float* __restrict__ centers,
@@ -128,7 +136,8 @@ pair_scan_kernel(const float* __restrict__ queries,
                  const float* __restrict__ norms,
                  const int* __restrict__ ids, int n_probes, int n_lists,
                  int cap, int dim, int kt, int lpr, int ip,
-                 float* __restrict__ out_v, int* __restrict__ out_i) {
+                 const QueryWords fw, float* __restrict__ out_v,
+                 int* __restrict__ out_i) {
   constexpr int kPer = Rows::kPerChunk;
   constexpr int kMaxCh = Rows::kMaxChunksPerLane;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -146,6 +155,7 @@ pair_scan_kernel(const float* __restrict__ queries,
   const int lig = lane % lpr;              // lane within its row group
   const int grp = warp * rows_per_warp + lane / lpr;
   const int row_groups = kWarps * rows_per_warp;
+  const int* frow = kFilter ? words_row(fw, q) : nullptr;
 
   for (int p = 0; p < n_probes; ++p) {
     const size_t pair = (size_t)q * n_probes + p;
@@ -193,7 +203,9 @@ pair_scan_kernel(const float* __restrict__ queries,
     for (int r0 = 0; r0 < cap; r0 += row_groups) {
       const int r = r0 + grp;
       // raw: every slot of the list enters, empty ones too
-      const int id = r < cap ? (kExtract ? ids[base + r] : 0) : -1;
+      int id = r < cap ? (kExtract ? ids[base + r] : 0) : -1;
+      // a row the query rejects is a dead row: not read, +inf
+      if (kFilter && id >= 0 && !admits(frow, fw.n_words, id)) id = -1;
       float part = 0.f;
       if (id >= 0) {
         const uint4* row =
@@ -236,12 +248,14 @@ inline int lanes_per_row(int nch) {
   return lpr;
 }
 
-template <class Rows, bool kVec, bool kExtract, bool kGather>
+template <class Rows, bool kVec, bool kExtract, bool kGather, bool kFilter>
 int run(const void* queries, const void* centers, const void* probes,
         const void* data, const void* norms, const void* ids, int nq,
         int n_probes, int n_lists, int cap, int dim, int kt, int lpr, int ip,
-        int smem, void* out_v, void* out_i, cudaStream_t s) {
-  const auto kernel = pair_scan_kernel<Rows, kVec, kExtract, kGather>;
+        int smem, const QueryWords& fw, void* out_v, void* out_i,
+        cudaStream_t s) {
+  const auto kernel =
+      pair_scan_kernel<Rows, kVec, kExtract, kGather, kFilter>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -251,34 +265,57 @@ int run(const void* queries, const void* centers, const void* probes,
         static_cast<const float*>(centers), static_cast<const int*>(probes),
         data, static_cast<const float*>(norms),
         static_cast<const int*>(ids), n_probes, n_lists, cap, dim, kt, lpr,
-        ip, static_cast<float*>(out_v), static_cast<int*>(out_i));
+        ip, fw, static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
 
-// rows of a width off a multiple of kPerChunk, or not 16-byte aligned,
-// take the one-value loads where Rows has them, else are refused
+// rows of a width off a multiple of kPerChunk, or not 16-byte aligned
+// (vec false), take the one-value loads where Rows has them, else are
+// refused
+template <class Rows, bool kExtract, bool kGather, bool kFilter>
+int run_rows(bool vec, const void* queries, const void* centers,
+             const void* probes, const void* data, const void* norms,
+             const void* ids, int nq, int n_probes, int n_lists, int cap,
+             int dim, int kt, int lpr, int ip, int smem,
+             const QueryWords& fw, void* out_v, void* out_i,
+             cudaStream_t s) {
+  if (vec)
+    return run<Rows, true, kExtract, kGather, kFilter>(
+        queries, centers, probes, data, norms, ids, nq, n_probes, n_lists,
+        cap, dim, kt, lpr, ip, smem, fw, out_v, out_i, s);
+  if constexpr (Rows::kScalar)
+    return run<Rows, false, kExtract, kGather, kFilter>(
+        queries, centers, probes, data, norms, ids, nq, n_probes, n_lists,
+        cap, dim, kt, lpr, ip, smem, fw, out_v, out_i, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// fw.words == nullptr: unfiltered (the only form of the profile variants)
 template <class Rows, bool kExtract = true, bool kGather = true>
 int launch(const void* queries, const void* centers, const void* probes,
            const void* data, const void* norms, const void* ids, int nq,
            int n_probes, int n_lists, int cap, int dim, int kt, int ip,
-           int smem, void* out_v, void* out_i, void* stream) {
+           int smem, const QueryWords& fw, void* out_v, void* out_i,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nch = (dim + Rows::kPerChunk - 1) / Rows::kPerChunk;
   const int lpr = lanes_per_row(nch);
   const bool vec = dim % Rows::kPerChunk == 0
                    && ((uintptr_t)data & 15) == 0;
+  const bool filtered = fw.words != nullptr;
   if ((kExtract && kt < 1) || cap < 1 || dim < 1 || (!vec && !Rows::kScalar)
-      || nch > lpr * Rows::kMaxChunksPerLane || smem < 1)
+      || nch > lpr * Rows::kMaxChunksPerLane || smem < 1 || bad_words(fw)
+      || (filtered && !(kExtract && kGather)))
     return (int)cudaErrorInvalidValue;
-  if (vec)
-    return run<Rows, true, kExtract, kGather>(
-        queries, centers, probes, data, norms, ids, nq, n_probes, n_lists,
-        cap, dim, kt, lpr, ip, smem, out_v, out_i, s);
-  if constexpr (Rows::kScalar)
-    return run<Rows, false, kExtract, kGather>(
-        queries, centers, probes, data, norms, ids, nq, n_probes, n_lists,
-        cap, dim, kt, lpr, ip, smem, out_v, out_i, s);
-  return (int)cudaErrorInvalidValue;
+  if constexpr (kExtract && kGather) {
+    if (filtered)
+      return run_rows<Rows, kExtract, kGather, true>(
+          vec, queries, centers, probes, data, norms, ids, nq, n_probes,
+          n_lists, cap, dim, kt, lpr, ip, smem, fw, out_v, out_i, s);
+  }
+  return run_rows<Rows, kExtract, kGather, false>(
+      vec, queries, centers, probes, data, norms, ids, nq, n_probes, n_lists,
+      cap, dim, kt, lpr, ip, smem, fw, out_v, out_i, s);
 }
 
 }  // namespace
@@ -287,15 +324,21 @@ int launch(const void* queries, const void* centers, const void* probes,
 // and the staged vector), as ops/pair_scan.py's pair_scan_smem_bytes sizes
 // it (the one copy of the formula; its gate holds it to the card's limit).
 // norms: the rows' squared norms (unused, and may be null, when ip != 0).
+// filter_words: null, or the queries' packed admission words (n_words
+// int32 a row, filter_stride words between two queries' rows, 0 for one
+// row broadcast); a pair then keeps only the rows its query admits.
 extern "C" int raft_ivf_flat_scan(const void* queries, const void* probes,
                                   const void* data, const void* norms,
                                   const void* ids, int nq, int n_probes,
                                   int n_lists, int cap, int dim, int kt,
                                   int ip, int smem, void* out_v,
-                                  void* out_i, void* stream) {
+                                  void* out_i, const void* filter_words,
+                                  int filter_stride, int n_words,
+                                  void* stream) {
   return launch<Fp32Rows>(queries, nullptr, probes, data, norms, ids, nq,
-                          n_probes, n_lists, cap, dim, kt, ip, smem, out_v,
-                          out_i, stream);
+                          n_probes, n_lists, cap, dim, kt, ip, smem,
+                          query_words(filter_words, filter_stride, n_words),
+                          out_v, out_i, stream);
 }
 
 extern "C" int raft_ivf_pq_scan_recon(const void* qrot, const void* centers,
@@ -304,11 +347,14 @@ extern "C" int raft_ivf_pq_scan_recon(const void* qrot, const void* centers,
                                       int nq, int n_probes, int n_lists,
                                       int cap, int rot, int kt, int smem,
                                       void* out_v, void* out_i,
+                                      const void* filter_words,
+                                      int filter_stride, int n_words,
                                       void* stream) {
   if (centers == nullptr) return (int)cudaErrorInvalidValue;
   return launch<Bf16Rows>(qrot, centers, probes, recon, rsq, ids, nq,
-                          n_probes, n_lists, cap, rot, kt, 0, smem, out_v,
-                          out_i, stream);
+                          n_probes, n_lists, cap, rot, kt, 0, smem,
+                          query_words(filter_words, filter_stride, n_words),
+                          out_v, out_i, stream);
 }
 
 namespace {
@@ -320,21 +366,26 @@ int launch_variant(int gather, int extract, const void* queries,
                    int n_lists, int cap, int dim, int kt, int smem,
                    void* out_v, void* out_i, void* stream) {
   constexpr int ip = 0;
+  const QueryWords none = query_words(nullptr, 0, 0);
   if (gather && extract)
     return launch<Rows, true, true>(queries, centers, probes, data, norms,
                                     ids, nq, n_probes, n_lists, cap, dim,
-                                    kt, ip, smem, out_v, out_i, stream);
+                                    kt, ip, smem, none, out_v, out_i,
+                                    stream);
   if (extract)
     return launch<Rows, true, false>(queries, centers, probes, data, norms,
                                      ids, nq, n_probes, n_lists, cap, dim,
-                                     kt, ip, smem, out_v, out_i, stream);
+                                     kt, ip, smem, none, out_v, out_i,
+                                     stream);
   if (gather)
     return launch<Rows, false, true>(queries, centers, probes, data, norms,
                                      ids, nq, n_probes, n_lists, cap, dim,
-                                     kt, ip, smem, out_v, out_i, stream);
+                                     kt, ip, smem, none, out_v, out_i,
+                                     stream);
   return launch<Rows, false, false>(queries, centers, probes, data, norms,
                                     ids, nq, n_probes, n_lists, cap, dim,
-                                    kt, ip, smem, out_v, out_i, stream);
+                                    kt, ip, smem, none, out_v, out_i,
+                                    stream);
 }
 
 }  // namespace

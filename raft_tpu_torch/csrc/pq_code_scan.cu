@@ -37,6 +37,14 @@
 // block-wide argmin rounds over the pair's distances in shared memory.
 // The cost of this design, as Kernel B's: a list is read once per query
 // that probes it, not once per batch.
+//
+// Filters (kFilter; the TPU kernels' admission operand adm_words): the
+// block's query has one row of packed words.  Kernel C tests a row's bit
+// only where its distance beats the query's k-th (a rejected row never
+// enters the candidate buffer, so it takes none of the pair's min(kt, k)
+// merge slots); Kernel D tests it before the row's codes are read, and a
+// rejected row takes the dead row's +inf.  The unfiltered instantiations
+// are the code without the test.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,7 +147,7 @@ __device__ void stage_books(const unsigned short* __restrict__ cb, int n,
   __syncthreads();
 }
 
-template <int kBits>
+template <int kBits, bool kFilter>
 __global__ void __launch_bounds__(kThreads)
 codes_fused_kernel(const float* __restrict__ qrot,
                    const float* __restrict__ centers,
@@ -149,7 +157,8 @@ codes_fused_kernel(const float* __restrict__ qrot,
                    const float* __restrict__ rsq, const int* __restrict__ ids,
                    int n_probes, int n_lists, int cap, int rot, int pq_dim,
                    int pq_len, int W, int vec16, int k, int kt, int sort_cap,
-                   float* __restrict__ out_v, int* __restrict__ out_i) {
+                   const QueryWords fw, float* __restrict__ out_v,
+                   int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_topv = reinterpret_cast<float*>(smem);           // kMaxK
   int* s_topi = reinterpret_cast<int*>(s_topv + kMaxK);
@@ -167,6 +176,7 @@ codes_fused_kernel(const float* __restrict__ qrot,
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
   const float* qv = qrot + (size_t)q * rot;
+  const int* frow = kFilter ? words_row(fw, q) : nullptr;
 
   for (int i = tid; i < k; i += kThreads) {
     s_topv[i] = INFINITY;
@@ -189,7 +199,7 @@ codes_fused_kernel(const float* __restrict__ qrot,
       const float ip = row_ip<kBits>(codes + (base + r) * W, W, pq_dim,
                                      vec16 != 0, s_lut);
       const float d = fmaxf(ssq + rsq[base + r] - 2.f * ip, 0.f);
-      if (d < thr) {
+      if (d < thr && (!kFilter || admits(frow, fw.n_words, id))) {
         const int pos = atomicAdd(&s_cnt, 1);
         s_cv[pos] = d;
         s_ci[pos] = id;
@@ -212,7 +222,7 @@ codes_fused_kernel(const float* __restrict__ qrot,
   }
 }
 
-template <int kBits>
+template <int kBits, bool kFilter>
 __global__ void __launch_bounds__(kThreads)
 codes_pair_kernel(const float* __restrict__ qrot,
                   const float* __restrict__ centers,
@@ -221,7 +231,7 @@ codes_pair_kernel(const float* __restrict__ qrot,
                   const unsigned short* __restrict__ books,
                   const float* __restrict__ rsq, const int* __restrict__ ids,
                   int n_probes, int n_lists, int cap, int rot, int pq_dim,
-                  int pq_len, int W, int vec16, int kt,
+                  int pq_len, int W, int vec16, int kt, const QueryWords fw,
                   float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_dist = reinterpret_cast<float*>(smem);            // cap
@@ -236,6 +246,7 @@ codes_pair_kernel(const float* __restrict__ qrot,
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
   const float* qv = qrot + (size_t)q * rot;
+  const int* frow = kFilter ? words_row(fw, q) : nullptr;
   stage_books(books, (pq_dim << kBits) * pq_len, s_cb);
 
   for (int p = 0; p < n_probes; ++p) {
@@ -254,7 +265,7 @@ codes_pair_kernel(const float* __restrict__ qrot,
     for (int r = tid; r < cap; r += kThreads) {
       const int id = ids[base + r];
       float d = INFINITY;
-      if (id >= 0) {
+      if (id >= 0 && (!kFilter || admits(frow, fw.n_words, id))) {
         const float ip = row_ip<kBits>(codes + (base + r) * W, W, pq_dim,
                                        vec16 != 0, s_lut);
         d = fmaxf(ssq + rsq[base + r] - 2.f * ip, 0.f);
@@ -278,25 +289,43 @@ bool bad_shape(int rot, int pq_dim, int pq_bits, int W, int smem) {
          || W != (pq_dim * pq_bits + 7) / 8 || smem < 1;
 }
 
+// Kernel C's and D's instantiation at pq_bits
+template <bool kFilter>
+auto fused_kernel(int pq_bits) {
+  return pq_bits == 8 ? codes_fused_kernel<8, kFilter>
+                      : codes_fused_kernel<4, kFilter>;
+}
+
+template <bool kFilter>
+auto pair_kernel(int pq_bits) {
+  return pq_bits == 8 ? codes_pair_kernel<8, kFilter>
+                      : codes_pair_kernel<4, kFilter>;
+}
+
 }  // namespace
 
 // smem: the block's dynamic shared memory in bytes, the layout of the
 // kernel it launches, as ops/pq_code_scan.py's codes_fused_smem_bytes /
 // codes_smem_bytes size it (the one copy of the formulas; the gates hold
 // them to the card's limit and choose between C and D by them).
+// filter_words: null, or the queries' packed admission words (n_words
+// int32 a row, filter_stride words between two queries' rows, 0 for one
+// row broadcast); a query then keeps only the rows it admits.
 extern "C" int raft_ivf_pq_scan_codes_fused(
     const void* qrot, const void* centers, const void* probes,
     const void* codes, const void* books, const void* rsq, const void* ids,
     int nq, int n_probes, int n_lists, int cap, int rot, int pq_dim,
     int pq_bits, int W, int vec16, int k, int kt, int smem, void* out_v,
-    void* out_i, void* stream) {
+    void* out_i, const void* filter_words, int filter_stride, int n_words,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const QueryWords fw = query_words(filter_words, filter_stride, n_words);
   if (k < 1 || k > kMaxK || kt < 1
-      || bad_shape(rot, pq_dim, pq_bits, W, smem))
+      || bad_shape(rot, pq_dim, pq_bits, W, smem) || bad_words(fw))
     return (int)cudaErrorInvalidValue;
   const int pq_len = rot / pq_dim;
-  const auto kernel = pq_bits == 8 ? codes_fused_kernel<8>
-                                   : codes_fused_kernel<4>;
+  const auto kernel = fw.words != nullptr ? fused_kernel<true>(pq_bits)
+                                          : fused_kernel<false>(pq_bits);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (nq > 0)
@@ -306,7 +335,7 @@ extern "C" int raft_ivf_pq_scan_codes_fused(
         static_cast<const unsigned short*>(books),
         static_cast<const float*>(rsq), static_cast<const int*>(ids),
         n_probes, n_lists, cap, rot, pq_dim, pq_len, W, vec16, k, kt,
-        next_pow2(cap), static_cast<float*>(out_v),
+        next_pow2(cap), fw, static_cast<float*>(out_v),
         static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }
@@ -316,13 +345,15 @@ extern "C" int raft_ivf_pq_scan_codes(
     const void* codes, const void* books, const void* rsq, const void* ids,
     int nq, int n_probes, int n_lists, int cap, int rot, int pq_dim,
     int pq_bits, int W, int vec16, int kt, int smem, void* out_v,
-    void* out_i, void* stream) {
+    void* out_i, const void* filter_words, int filter_stride, int n_words,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kt < 1 || bad_shape(rot, pq_dim, pq_bits, W, smem))
+  const QueryWords fw = query_words(filter_words, filter_stride, n_words);
+  if (kt < 1 || bad_shape(rot, pq_dim, pq_bits, W, smem) || bad_words(fw))
     return (int)cudaErrorInvalidValue;
   const int pq_len = rot / pq_dim;
-  const auto kernel = pq_bits == 8 ? codes_pair_kernel<8>
-                                   : codes_pair_kernel<4>;
+  const auto kernel = fw.words != nullptr ? pair_kernel<true>(pq_bits)
+                                          : pair_kernel<false>(pq_bits);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (nq > 0 && n_probes > 0)
@@ -331,7 +362,7 @@ extern "C" int raft_ivf_pq_scan_codes(
         static_cast<const int*>(probes), static_cast<const uint8_t*>(codes),
         static_cast<const unsigned short*>(books),
         static_cast<const float*>(rsq), static_cast<const int*>(ids),
-        n_probes, n_lists, cap, rot, pq_dim, pq_len, W, vec16, kt,
+        n_probes, n_lists, cap, rot, pq_dim, pq_len, W, vec16, kt, fw,
         static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,14 @@
 // win ties, as the TPU accumulator does).  The cost of this design is
 // that a list is read once per query probing it, not once per batch;
 // pq_list_scan.cu's pair groups read it once per group.
+//
+// Filters (kFilter; the TPU kernel's admission operand adm_words): a row
+// whose id the query's row of words rejects never enters the candidate
+// buffer, so it takes none of the pair's min(kt, k) merge slots.  The bit
+// is tested only for a live row below the query's k-th distance, so it
+// costs one word load per would-be candidate (the block's query is fixed:
+// one row of words a block).  The unfiltered instantiation is the code
+// without the test.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,14 +65,15 @@ __device__ __forceinline__ float dot8(const float* s, uint4 u, float acc) {
   return acc;
 }
 
+template <bool kFilter>
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(const float* __restrict__ qrot,
             const float* __restrict__ centers,
             const int* __restrict__ probes, const uint4* __restrict__ recon,
             const float* __restrict__ rsq, const int* __restrict__ ids,
             int n_probes, int n_lists, int cap, int rot, int k, int kt,
-            int sort_cap, int lpr, float* __restrict__ out_v,
-            int* __restrict__ out_i) {
+            int sort_cap, int lpr, const QueryWords fw,
+            float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_topv = reinterpret_cast<float*>(smem);      // kMaxK
   int* s_topi = reinterpret_cast<int*>(s_topv + kMaxK);
@@ -85,6 +94,7 @@ scan_kernel(const float* __restrict__ qrot,
   const int grp = warp * rows_per_warp + lane / lpr;
   const int row_groups = kWarps * rows_per_warp;
   const float* qv = qrot + (size_t)q * rot;
+  const int* frow = kFilter ? words_row(fw, q) : nullptr;
 
   for (int i = tid; i < k; i += kThreads) {
     s_topv[i] = INFINITY;
@@ -139,7 +149,7 @@ scan_kernel(const float* __restrict__ qrot,
         part += __shfl_xor_sync(0xffffffffu, part, off);
       if (lig == 0 && id >= 0) {
         const float d = fmaxf(ssq + rsq[base + r] - 2.f * part, 0.f);
-        if (d < thr) {
+        if (d < thr && (!kFilter || admits(frow, fw.n_words, id))) {
           const int pos = atomicAdd(&s_cnt, 1);
           s_cv[pos] = d;
           s_ci[pos] = id;
@@ -167,30 +177,38 @@ scan_kernel(const float* __restrict__ qrot,
 
 // smem: the block's dynamic shared memory in bytes, the layout above, as
 // ops/pq_group_scan.py's scan_smem_bytes sizes it (the one copy of the
-// formula; its gate holds it to the card's limit).
+// formula; its gate holds it to the card's limit).  filter_words: null,
+// or the queries' packed admission words (n_words int32 a row,
+// filter_stride words between two queries' rows, 0 for one row
+// broadcast); a query then keeps only the rows it admits.
 extern "C" int raft_ivf_pq_scan_fused(const void* qrot, const void* centers,
                                       const void* probes, const void* recon,
                                       const void* rsq, const void* ids,
                                       int nq, int n_probes, int n_lists,
                                       int cap, int rot, int k, int kt,
                                       int smem, void* out_v, void* out_i,
+                                      const void* filter_words,
+                                      int filter_stride, int n_words,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const QueryWords fw = query_words(filter_words, filter_stride, n_words);
   if (k < 1 || k > kMaxK || rot % 8 != 0 || rot / 8 > 32 * kMaxChunksPerLane
-      || smem < 1)
+      || smem < 1 || bad_words(fw))
     return (int)cudaErrorInvalidValue;
   const int nch = rot / 8;
   int lpr = 1;
   while (lpr < nch && lpr < 32) lpr <<= 1;
+  const auto kernel = fw.words != nullptr ? scan_kernel<true>
+                                          : scan_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (nq > 0)
-    scan_kernel<<<nq, kThreads, smem, s>>>(
+    kernel<<<nq, kThreads, smem, s>>>(
         static_cast<const float*>(qrot), static_cast<const float*>(centers),
         static_cast<const int*>(probes), static_cast<const uint4*>(recon),
         static_cast<const float*>(rsq), static_cast<const int*>(ids),
-        n_probes, n_lists, cap, rot, k, kt, next_pow2(cap), lpr,
+        n_probes, n_lists, cap, rot, k, kt, next_pow2(cap), lpr, fw,
         static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }

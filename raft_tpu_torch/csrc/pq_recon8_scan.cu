@@ -21,6 +21,11 @@
 // registers and reduce the dot by shuffles; distances go to shared memory
 // and the pair's top kt comes out of kt block-wide argmin rounds
 // (scan_common.cuh).  A list is read once per query that probes it.
+//
+// Filters (kFilter; the TPU kernel's admission operand adm_words): the
+// block's query has one row of packed words; a row whose id it rejects is
+// not read and takes the dead row's +inf.  The unfiltered instantiation is
+// the code without the test.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +62,7 @@ __device__ __forceinline__ float dot16(const float* s, uint4 u, float acc) {
   return acc;
 }
 
+template <bool kFilter>
 __global__ void __launch_bounds__(kThreads)
 recon8_kernel(const float* __restrict__ qrot,
               const float* __restrict__ centers,
@@ -64,8 +70,8 @@ recon8_kernel(const float* __restrict__ qrot,
               const float* __restrict__ scales,
               const float* __restrict__ rsq8, const int* __restrict__ ids,
               int n_probes, int n_lists, int cap, int rot, int rot_pad,
-              int kt, int lpr, float* __restrict__ out_v,
-              int* __restrict__ out_i) {
+              int kt, int lpr, const QueryWords fw,
+              float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_dist = reinterpret_cast<float*>(smem);     // cap
   float* s_sub = s_dist + cap;                        // rot_pad
@@ -82,6 +88,7 @@ recon8_kernel(const float* __restrict__ qrot,
   const int grp = warp * rows_per_warp + lane / lpr;
   const int row_groups = kWarps * rows_per_warp;
   const float* qv = qrot + (size_t)q * rot;
+  const int* frow = kFilter ? words_row(fw, q) : nullptr;
 
   for (int p = 0; p < n_probes; ++p) {
     const size_t pair = (size_t)q * n_probes + p;
@@ -119,7 +126,8 @@ recon8_kernel(const float* __restrict__ qrot,
     // every lane runs every iteration, so the shuffles stay convergent
     for (int r0 = 0; r0 < cap; r0 += row_groups) {
       const int r = r0 + grp;
-      const int id = r < cap ? ids[base + r] : -1;
+      int id = r < cap ? ids[base + r] : -1;
+      if (kFilter && id >= 0 && !admits(frow, fw.n_words, id)) id = -1;
       float part = 0.f;
       if (id >= 0) {
         const uint4* row = data + (base + r) * nch;
@@ -147,27 +155,34 @@ recon8_kernel(const float* __restrict__ qrot,
 // smem: the block's dynamic shared memory in bytes, the layout of
 // recon8_kernel, as ops/pq_code_scan.py's recon8_smem_bytes sizes it (the
 // one copy of the formula; its gate holds it to the card's limit).
+// filter_words: null, or the queries' packed admission words (n_words
+// int32 a row, filter_stride words between two queries' rows, 0 for one
+// row broadcast); a pair then keeps only the rows its query admits.
 extern "C" int raft_ivf_pq_scan_recon8(
     const void* qrot, const void* centers, const void* probes,
     const void* data, const void* scales, const void* rsq8, const void* ids,
     int nq, int n_probes, int n_lists, int cap, int rot, int rot_pad, int kt,
-    int smem, void* out_v, void* out_i, void* stream) {
+    int smem, void* out_v, void* out_i, const void* filter_words,
+    int filter_stride, int n_words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const QueryWords fw = query_words(filter_words, filter_stride, n_words);
   if (kt < 1 || rot_pad % 16 != 0 || rot_pad < rot
-      || rot_pad / 16 > 32 * kMaxChunksPerLane || smem < 1)
+      || rot_pad / 16 > 32 * kMaxChunksPerLane || smem < 1 || bad_words(fw))
     return (int)cudaErrorInvalidValue;
   const int nch = rot_pad / 16;
   int lpr = 1;
   while (lpr < nch && lpr < 32) lpr <<= 1;
+  const auto kernel = fw.words != nullptr ? recon8_kernel<true>
+                                          : recon8_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      recon8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (nq > 0 && n_probes > 0)
-    recon8_kernel<<<nq, kThreads, smem, s>>>(
+    kernel<<<nq, kThreads, smem, s>>>(
         static_cast<const float*>(qrot), static_cast<const float*>(centers),
         static_cast<const int*>(probes), static_cast<const uint4*>(data),
         static_cast<const float*>(scales), static_cast<const float*>(rsq8),
         static_cast<const int*>(ids), n_probes, n_lists, cap, rot, rot_pad,
-        kt, lpr, static_cast<float*>(out_v), static_cast<int*>(out_i));
+        kt, lpr, fw, static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }

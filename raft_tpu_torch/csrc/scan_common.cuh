@@ -1,10 +1,12 @@
 // Block-level pieces shared by the IVF-PQ scan kernels (Kernels B-E):
 // bf16 unpacking, the candidate buffer's bitonic sort and its rank merge
 // into a query's running top k (Kernels B and C), and the per-(query,
-// probe) top-kt selection (Kernels D and E).
+// probe) top-kt selection (Kernels D and E).  Also the filters' bit rule
+// (admits), which every filtered scan tests, the list-major fold
+// (list_fold.cuh) included.
 //
-// Every function here is called by ALL threads of a block of kThreads
-// threads and ends with the block synchronised.
+// Every block-level function here is called by ALL threads of a block of
+// kThreads threads and ends with the block synchronised.
 
 #pragma once
 
@@ -30,6 +32,40 @@ __device__ __forceinline__ float bf_lo(uint32_t u) {
 }
 __device__ __forceinline__ float bf_hi(uint32_t u) {
   return __uint_as_float(u & 0xffff0000u);
+}
+
+// A filter's admission operand as the query-major kernels take it (the
+// TPU kernels' adm_words): the queries' rows of packed words, q_stride
+// words apart (0: one row broadcast to the batch), n_words words a row.
+// words == nullptr: no filter.
+struct QueryWords {
+  const int* words;
+  long long q_stride;
+  int n_words;
+};
+
+// query q's row of words
+__device__ __forceinline__ const int* words_row(const QueryWords& f, int q) {
+  return f.words + q * f.q_stride;
+}
+
+// An entry point's (filter_words, filter_stride, n_words) as the kernels
+// take them, and whether they fit no layout (words but none a row, or a
+// negative stride).
+inline QueryWords query_words(const void* words, int stride, int n_words) {
+  return {static_cast<const int*>(words), stride, n_words};
+}
+inline bool bad_words(const QueryWords& f) {
+  return f.words != nullptr && (f.n_words < 1 || f.q_stride < 0);
+}
+
+// The bit rule of filters/bitset.py: whether a row of n_words packed words
+// admits id, bit id & 31 of word id >> 5; a negative id, or one past the
+// row's words, is not admitted.
+__device__ __forceinline__ bool admits(const int* row, int n_words, int id) {
+  const int w = id >> 5;
+  if (id < 0 || w >= n_words) return false;
+  return (__ldg(row + w) >> (id & 31)) & 1;
 }
 
 __device__ __forceinline__ bool key_greater(float va, int ra, float vb,

@@ -48,9 +48,9 @@ health-check.
 
 Filters and mutation: ``filter=`` (a :class:`~raft_tpu_torch.filters.
 SampleFilter` or an (nq, n_rows) bool mask) restricts each query's
-candidates by source id inside Kernel F's list-major pass, at L2 and at
-InnerProduct (at k > 64, the query-major route, it raises *filters on the
-query-major routes*); :func:`delete` tombstones rows, :func:`upsert`
+candidates by source id inside Kernel F, on both routes (the list-major
+pass, and the query-major kernel at k > 64), at L2 and at InnerProduct;
+:func:`delete` tombstones rows, :func:`upsert`
 deletes and re-inserts in one generation, :func:`compact` drops the
 tombstones and shrinks the capacity (:mod:`raft_tpu_torch.neighbors.
 mutate`).  Inputs pass the boundary validator

@@ -44,12 +44,12 @@ index built without it); sqrt metrics get their sqrt afterwards.
 
 Filters: ``filter=`` (a :class:`~raft_tpu_torch.filters.SampleFilter` or
 an (nq, n_rows) bool mask) restricts each query's candidates by source id
-inside the list-major passes of every scan mode (the kernels test the
-query's bit before a row can enter a pair's top kt); a rejected or
-exhausted slot is ``(+inf, -1)``.  At the shapes only a query-major
-kernel holds (a pair keeping more than 64 rows, the codes pass at rot 256
-with 8 bits or past kt 40 at rot 128, the int8 pass at rot_pad > 128 past
-kt 56) a filtered search raises *filters on the query-major routes*.
+inside the scan kernels of every scan mode, on both routes: the
+list-major passes and the query-major kernels (a pair keeping more than
+64 rows, the codes pass at rot 256 with 8 bits or past kt 40 at rot 128,
+the int8 pass at rot_pad > 128 past kt 56) test the query's bit before a
+row can enter a pair's top kt; a rejected or exhausted slot is ``(+inf,
+-1)``.
 
 Mutation (:mod:`raft_tpu_torch.neighbors.mutate`): :func:`delete`
 tombstones rows (every scan masks them), :func:`upsert` deletes and

@@ -45,15 +45,16 @@ SIGNATURES = {
     "raft_kmeans_pass_cut": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                              _P, _P),
     "raft_ivf_pq_scan_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P, _P, _P),
+                               _I, _I, _P, _P, _P, _I, _I, _P),
     "raft_ivf_pq_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
     "raft_ivf_pq_merge_pairs": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "raft_ivf_pq_scan_codes_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                                     _P, _P),
+                                     _P, _P, _I, _I, _P),
     "raft_ivf_pq_scan_codes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _P, _P, _P),
+                               _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I,
+                               _P),
     "raft_ivf_pq_code_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                                    _I, _I, _P),
@@ -61,13 +62,13 @@ SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                      _P, _I, _I, _P),
     "raft_ivf_pq_scan_recon8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _P, _P, _P),
+                                _I, _I, _I, _P, _P, _P, _I, _I, _P),
     "raft_ivf_flat_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P),
+                           _P, _P, _P, _I, _I, _P),
     "raft_ivf_flat_list_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P),
     "raft_ivf_pq_scan_recon": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _P, _P, _P),
+                               _I, _P, _P, _P, _I, _I, _P),
     "raft_pair_scan_variant": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _P, _P, _P),
     "raft_row_gather": (_P, _P, _I, _I, _I, _P, _P),

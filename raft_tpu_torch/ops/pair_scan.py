@@ -35,9 +35,9 @@ a negative id never enter, a probe outside ``[0, n_lists)`` is an empty
 pair, each pair keeps its top kt by (distance, slot), ties to the lowest
 slot, and exhausted slots are ``(+inf, −1)`` — ``(−inf, −1)`` in Kernel
 F's InnerProduct form, whose kept values are the largest dot products in
-descending order.  With ``filter_words`` (the list-major routes only; see
+descending order.  With ``filter_words`` (both routes; see
 :mod:`raft_tpu_torch.ops.pq_group_scan`), a pair keeps only the rows its
-query admits.
+query admits; the profile variants take no filter.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops.pq_group_scan import (
     _PLAIN_CHUNK, _SMEM_LIMIT, KT_LIST_MAX, _check, admit, cat_parts,
-    cuda_operands, filter_operand, filtered_route, list_scan,
+    cuda_operands, filter_operand, list_scan,
     list_scan_reject_reason, pair_topk, plain_chunks, probe_distances,
     recon_dot)
 
@@ -154,18 +154,20 @@ def ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
 
 
 def flat_scan_query_major(queries, probes, list_data, list_data_sq,
-                          list_indices, kt: int, ip: bool = False
+                          list_indices, kt: int, ip: bool = False,
+                          filter_words=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel F's query-major route (``csrc/pair_scan.cu`` ``Fp32Rows``):
     one block per query walks its probes, the products in fp32 FFMA, rows
     of any width (16-byte loads where the width is a multiple of 4 and the
-    rows are 16-byte aligned, else one value at a time);
-    :func:`ivf_flat_scan` takes it where kt exceeds ``KT_LIST_MAX`` or the
-    list-major gate refuses the shape.  CUDA tensors launch it; CPU tensors
-    run the plain version."""
+    rows are 16-byte aligned, else one value at a time), with
+    ``filter_words`` only the rows the query admits; :func:`ivf_flat_scan`
+    takes it where kt exceeds ``KT_LIST_MAX`` or the list-major gate
+    refuses the shape.  CUDA tensors launch it; CPU tensors run the plain
+    version."""
     if not queries.is_cuda:
         return ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
-                                   list_indices, kt, ip)
+                                   list_indices, kt, ip, filter_words)
     n_lists, cap, dim = _check_flat(queries, probes, list_data,
                                     list_data_sq, list_indices, ip)
     kt = min(kt, cap)
@@ -175,13 +177,16 @@ def flat_scan_query_major(queries, probes, list_data, list_data_sq,
         queries, probes, list_data, list_data_sq, list_indices, ip,
         "flat_scan_query_major")
     nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, queries.device,
+                               "flat_scan_query_major")
     vals, out_ids = _outputs(nq, n_probes, kt, queries.device)
     status = _cuda.library().raft_ivf_flat_scan(
         queries.data_ptr(), probes.data_ptr(), data.data_ptr(),
         None if norms is None else norms.data_ptr(), ids.data_ptr(), nq,
         n_probes, n_lists, cap, dim, kt, int(ip),
         pair_scan_smem_bytes(cap, dim), vals.data_ptr(), out_ids.data_ptr(),
-        torch.cuda.current_stream(queries.device).cuda_stream)
+        *fargs, torch.cuda.current_stream(queries.device).cuda_stream)
     _cuda.check(status, "flat_scan_query_major")
     flat_scan_query_major.launches += 1
     return (-vals if ip else vals), out_ids
@@ -380,20 +385,18 @@ def ivf_flat_scan(queries, probes, list_data, list_data_sq: Optional[
     and :func:`flat_list_scan`, else :func:`flat_scan_query_major` (a
     dispatch by shape between two kernels, each counted on its own
     ``launches``).  CPU tensors run the plain version.  With
-    ``filter_words``, each pair keeps only the rows its query admits; a
-    shape only the query-major route holds raises
-    ``NotImplementedError`` on either device."""
+    ``filter_words``, each pair keeps only the rows its query admits, on
+    either route."""
     n_lists, cap, dim = _check_flat(queries, probes, list_data,
                                     list_data_sq, list_indices, ip)
     kt = min(kt, cap)
-    filtered_route("ivf_flat_scan", filter_words,
-                   flat_list_scan_reject_reason(cap, dim, kt, sub_lists))
     if not queries.is_cuda:
         return ivf_flat_scan_plain(queries, probes, list_data, list_data_sq,
                                    list_indices, kt, ip, filter_words)
     if flat_list_scan_reject_reason(cap, dim, kt, sub_lists):
         return flat_scan_query_major(queries, probes, list_data,
-                                     list_data_sq, list_indices, kt, ip)
+                                     list_data_sq, list_indices, kt, ip,
+                                     filter_words)
     return flat_list_scan(queries, probes,
                           *grouped.build_groups(probes, n_lists), list_data,
                           list_data_sq, list_indices, kt, ip, sub_lists,
@@ -421,15 +424,17 @@ def ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon, list_recon_sq,
 
 
 def recon_scan_query_major(qrot, centers, probes, list_recon, list_recon_sq,
-                           list_indices, kt: int
+                           list_indices, kt: int, filter_words=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel G's query-major route (``csrc/pair_scan.cu`` ``Bf16Rows``):
-    one block per query walks its probes; :func:`ivf_pq_scan_recon` takes
-    it where kt exceeds ``KT_LIST_MAX``.  CUDA tensors launch it; CPU
-    tensors run the plain version."""
+    one block per query walks its probes (with ``filter_words``, over the
+    rows it admits); :func:`ivf_pq_scan_recon` takes it where kt exceeds
+    ``KT_LIST_MAX``.  CUDA tensors launch it; CPU tensors run the plain
+    version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon,
-                                       list_recon_sq, list_indices, kt)
+                                       list_recon_sq, list_indices, kt,
+                                       filter_words)
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices,
                                "recon_scan_query_major")
@@ -440,12 +445,15 @@ def recon_scan_query_major(qrot, centers, probes, list_recon, list_recon_sq,
         qrot, centers, probes, list_recon, list_recon_sq, list_indices,
         "recon_scan_query_major")
     nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, qrot.device,
+                               "recon_scan_query_major")
     vals, out_ids = _outputs(nq, n_probes, kt, qrot.device)
     status = _cuda.library().raft_ivf_pq_scan_recon(
         qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
         recon.data_ptr(), rsq.data_ptr(), ids.data_ptr(), nq, n_probes,
         n_lists, cap, rot, kt, pair_scan_smem_bytes(cap, rot),
-        vals.data_ptr(), out_ids.data_ptr(),
+        vals.data_ptr(), out_ids.data_ptr(), *fargs,
         torch.cuda.current_stream(qrot.device).cuda_stream)
     _cuda.check(status, "recon_scan_query_major")
     recon_scan_query_major.launches += 1
@@ -470,15 +478,14 @@ def ivf_pq_scan_recon(qrot, centers, probes, list_recon, list_recon_sq,
                                list_recon_sq, list_indices,
                                "ivf_pq_scan_recon")
     kt = min(kt, cap)
-    filtered_route("ivf_pq_scan_recon", filter_words,
-                   list_scan_reject_reason(rot, kt))
     if not qrot.is_cuda:
         return ivf_pq_scan_recon_plain(qrot, centers, probes, list_recon,
                                        list_recon_sq, list_indices, kt,
                                        filter_words)
     if list_scan_reject_reason(rot, kt):
         return recon_scan_query_major(qrot, centers, probes, list_recon,
-                                      list_recon_sq, list_indices, kt)
+                                      list_recon_sq, list_indices, kt,
+                                      filter_words)
     return list_scan(qrot, centers, probes,
                      *grouped.build_groups(probes, n_lists), list_recon,
                      list_recon_sq, list_indices, kt, filter_words)

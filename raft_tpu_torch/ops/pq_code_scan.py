@@ -41,8 +41,10 @@ failed build or launch raises.  ``<wrapper>.launches`` counts kernel
 launches (the dispatchers C and D launch nothing themselves);
 ``*_reject_reason`` says why a kernel cannot take a shape ('' when it
 can).  ``filter_words`` (the admission operand, as
-:mod:`raft_tpu_torch.ops.pq_group_scan` describes it) reaches the
-list-major pass only; a filtered call at a query-major shape raises.
+:mod:`raft_tpu_torch.ops.pq_group_scan` describes it) reaches both
+routes: the list-major pass tests the bit in its fold, the query-major
+kernels where a row would become a candidate (C) or before its codes
+are read (D, E).
 
 Contracts (``_kernel_codes`` / ``_kernel_recon8``,
 ``pq_code_scan_pallas.py:195-233``): ``sub = qrot[q] − centers[list]`` and
@@ -69,7 +71,6 @@ from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops.pq_group_scan import (K_MAX, KT_LIST_MAX,
                                               _SMEM_LIMIT, _next_pow2,
                                               cat_parts, filter_operand,
-                                              filtered_route,
                                               grouped_pair_topk,
                                               list_major_topk, merge_pairs,
                                               pair_topk, plain_chunks,
@@ -505,17 +506,18 @@ def ivf_pq_scan_codes_fused_plain(qrot, centers, probes, list_codes,
 
 def codes_fused_query_major(qrot, centers, probes, list_codes, codebooks,
                             list_rsq, list_indices, pq_bits: int, k: int,
-                            kt: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                            kt: int, filter_words=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel C's query-major route (``csrc/pq_code_scan.cu``
     ``codes_fused_kernel``): one block per query walks its probes with the
-    query's top k in shared memory; :func:`ivf_pq_scan_codes_fused` takes
-    it where ``min(kt, k)`` exceeds ``KT_LIST_MAX`` or the list-major gate
-    refuses the shape.  CUDA tensors launch it; CPU tensors run the plain
-    version."""
+    query's top k in shared memory (with ``filter_words``, over the rows
+    it admits); :func:`ivf_pq_scan_codes_fused` takes it where ``min(kt,
+    k)`` exceeds ``KT_LIST_MAX`` or the list-major gate refuses the shape.
+    CUDA tensors launch it; CPU tensors run the plain version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_codes_fused_plain(
             qrot, centers, probes, list_codes, codebooks, list_rsq,
-            list_indices, pq_bits, k, kt)
+            list_indices, pq_bits, k, kt, filter_words)
     cap, rot, pq_dim = _check_codes(
         "codes_fused_query_major", qrot, centers, probes, list_codes,
         codebooks, list_rsq, list_indices, pq_bits)
@@ -527,6 +529,9 @@ def codes_fused_query_major(qrot, centers, probes, list_codes, codebooks,
         qrot, centers, probes, list_rsq, list_indices)
     codes, books, W = _codes_operands(list_codes, codebooks)
     nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, qrot.device,
+                               "codes_fused_query_major")
     vals, ids = _outputs((nq, k), qrot.device)
     status = _cuda.library().raft_ivf_pq_scan_codes_fused(
         qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
@@ -534,7 +539,7 @@ def codes_fused_query_major(qrot, centers, probes, list_codes, codebooks,
         list_indices.data_ptr(), nq, n_probes, centers.shape[0], cap, rot,
         pq_dim, pq_bits, W, int(W % 16 == 0), k, kt,
         codes_fused_smem_bytes(cap, rot, pq_dim, pq_bits), vals.data_ptr(),
-        ids.data_ptr(), _stream(qrot.device))
+        ids.data_ptr(), *fargs, _stream(qrot.device))
     _cuda.check(status, "codes_fused_query_major")
     codes_fused_query_major.launches += 1
     return vals, ids
@@ -556,15 +561,11 @@ def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
     kernels, each counted on its own ``launches``).  CPU tensors run the
     plain version.  A shape neither route can hold raises with its
     reason; with ``filter_words``, each query's top k over the rows it
-    admits, and a shape only the query-major route holds raises
-    ``NotImplementedError`` on either device."""
+    admits, on either route."""
     cap, rot, pq_dim = _check_codes(
         "ivf_pq_scan_codes_fused", qrot, centers, probes, list_codes,
         codebooks, list_rsq, list_indices, pq_bits)
     pair_kt = min(kt, cap, k)
-    filtered_route("ivf_pq_scan_codes_fused", filter_words,
-                   code_list_scan_reject_reason(rot, pq_dim, pq_bits,
-                                                pair_kt))
     if not qrot.is_cuda:
         return ivf_pq_scan_codes_fused_plain(
             qrot, centers, probes, list_codes, codebooks, list_rsq,
@@ -575,7 +576,7 @@ def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
     if code_list_scan_reject_reason(rot, pq_dim, pq_bits, pair_kt):
         return codes_fused_query_major(qrot, centers, probes, list_codes,
                                        codebooks, list_rsq, list_indices,
-                                       pq_bits, k, kt)
+                                       pq_bits, k, kt, filter_words)
     return list_major_topk(
         probes, centers.shape[0], pair_kt, k,
         lambda rows, p, gl, sp: code_list_scan(
@@ -606,17 +607,19 @@ def ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes, codebooks,
 
 
 def codes_scan_query_major(qrot, centers, probes, list_codes, codebooks,
-                           list_rsq, list_indices, pq_bits: int, kt: int
+                           list_rsq, list_indices, pq_bits: int, kt: int,
+                           filter_words=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel D's query-major route (``csrc/pq_code_scan.cu``
-    ``codes_pair_kernel``): one block per query walks its probes;
-    :func:`ivf_pq_scan_codes` takes it where kt exceeds ``KT_LIST_MAX`` or
-    the list-major gate refuses the shape.  CUDA tensors launch it; CPU
-    tensors run the plain version."""
+    ``codes_pair_kernel``): one block per query walks its probes (with
+    ``filter_words``, over the rows it admits); :func:`ivf_pq_scan_codes`
+    takes it where kt exceeds ``KT_LIST_MAX`` or the list-major gate
+    refuses the shape.  CUDA tensors launch it; CPU tensors run the plain
+    version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes,
                                        codebooks, list_rsq, list_indices,
-                                       pq_bits, kt)
+                                       pq_bits, kt, filter_words)
     cap, rot, pq_dim = _check_codes(
         "codes_scan_query_major", qrot, centers, probes, list_codes,
         codebooks, list_rsq, list_indices, pq_bits)
@@ -627,6 +630,9 @@ def codes_scan_query_major(qrot, centers, probes, list_codes, codebooks,
         qrot, centers, probes, list_rsq, list_indices)
     codes, books, W = _codes_operands(list_codes, codebooks)
     nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, qrot.device,
+                               "codes_scan_query_major")
     vals, ids = _outputs((nq, n_probes, kt), qrot.device)
     status = _cuda.library().raft_ivf_pq_scan_codes(
         qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
@@ -634,7 +640,7 @@ def codes_scan_query_major(qrot, centers, probes, list_codes, codebooks,
         list_indices.data_ptr(), nq, n_probes, centers.shape[0], cap, rot,
         pq_dim, pq_bits, W, int(W % 16 == 0), kt,
         codes_smem_bytes(cap, rot, pq_dim, pq_bits), vals.data_ptr(),
-        ids.data_ptr(), _stream(qrot.device))
+        ids.data_ptr(), *fargs, _stream(qrot.device))
     _cuda.check(status, "codes_scan_query_major")
     codes_scan_query_major.launches += 1
     return vals, ids
@@ -659,8 +665,6 @@ def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
         "ivf_pq_scan_codes", qrot, centers, probes, list_codes, codebooks,
         list_rsq, list_indices, pq_bits)
     kt = min(kt, cap)
-    filtered_route("ivf_pq_scan_codes", filter_words,
-                   code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt))
     if not qrot.is_cuda:
         return ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes,
                                        codebooks, list_rsq, list_indices,
@@ -670,7 +674,7 @@ def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
     if code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt):
         return codes_scan_query_major(qrot, centers, probes, list_codes,
                                       codebooks, list_rsq, list_indices,
-                                      pq_bits, kt)
+                                      pq_bits, kt, filter_words)
     return code_list_scan(qrot, centers, probes,
                           *grouped.build_groups(probes, centers.shape[0]),
                           list_codes, codebooks, list_rsq, list_indices,
@@ -797,16 +801,18 @@ recon8_list_scan.launches = 0
 
 
 def recon8_scan_query_major(qrot, centers, probes, recon_i8, scales, rsq8,
-                            list_indices, kt: int
+                            list_indices, kt: int, filter_words=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel E's query-major route (``csrc/pq_recon8_scan.cu``): one block
-    per query walks its probes, re-reading each list it probes;
+    per query walks its probes, re-reading each list it probes (with
+    ``filter_words``, only the rows it admits);
     :func:`ivf_pq_scan_recon8` takes it where kt exceeds ``KT_LIST_MAX``
     or the list-major gate refuses the shape.  CUDA tensors launch it; CPU
     tensors run the plain version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8,
-                                        scales, rsq8, list_indices, kt)
+                                        scales, rsq8, list_indices, kt,
+                                        filter_words)
     what = "recon8_scan_query_major"
     cap, rot_pad = _check_recon8(what, qrot, centers, probes, recon_i8,
                                  scales, rsq8, list_indices)
@@ -817,13 +823,15 @@ def recon8_scan_query_major(qrot, centers, probes, recon_i8, scales, rsq8,
         qrot, centers, probes, rsq8, list_indices)
     data, scales = _recon8_operands(recon_i8, scales, what)
     nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, qrot.device, what)
     vals, ids = _outputs((nq, n_probes, kt), qrot.device)
     status = _cuda.library().raft_ivf_pq_scan_recon8(
         qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
         data.data_ptr(), scales.data_ptr(), rsq8.data_ptr(),
         list_indices.data_ptr(), nq, n_probes, centers.shape[0], cap,
         qrot.shape[1], rot_pad, kt, recon8_smem_bytes(cap, rot_pad),
-        vals.data_ptr(), ids.data_ptr(), _stream(qrot.device))
+        vals.data_ptr(), ids.data_ptr(), *fargs, _stream(qrot.device))
     _cuda.check(status, what)
     recon8_scan_query_major.launches += 1
     return vals, ids
@@ -848,8 +856,6 @@ def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
                                  probes, recon_i8, scales, rsq8,
                                  list_indices)
     kt = min(kt, cap)
-    filtered_route("ivf_pq_scan_recon8", filter_words,
-                   recon8_list_scan_reject_reason(rot_pad, kt))
     if not qrot.is_cuda:
         return ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8,
                                         scales, rsq8, list_indices, kt,
@@ -858,7 +864,8 @@ def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
     expects(not reason, f"ivf_pq_scan_recon8: {reason}")
     if recon8_list_scan_reject_reason(rot_pad, kt):
         return recon8_scan_query_major(qrot, centers, probes, recon_i8,
-                                       scales, rsq8, list_indices, kt)
+                                       scales, rsq8, list_indices, kt,
+                                       filter_words)
     return recon8_list_scan(qrot, centers, probes,
                             *grouped.build_groups(probes, centers.shape[0]),
                             recon_i8, scales, rsq8, list_indices, kt,

@@ -30,15 +30,15 @@ enter the result, nor do probes outside ``[0, n_lists)``.  Each (query,
 probe) pair contributes at most its own top ``kt`` rows; the output is each
 query's top ``k`` ascending, ``(+inf, −1)`` on exhausted ranks.
 
-Filters (the TPU kernels' admission operand ``adm_words``): the
-list-major pass takes ``filter_words`` (nq, n_words) int32, the packed
-admission words of :mod:`raft_tpu_torch.filters` (a row's query stride
-may be 0: one row broadcast); a row whose id the pair's query rejects
-never enters the pair's top kt (the kernel tests the bit in its fold,
-``csrc/list_fold.cuh``; the plain versions give the row +inf before the
-top kt, :func:`admit`).  The query-major route takes no filter: a
-filtered call at a shape only it can hold raises ``NotImplementedError``
-naming *filters on the query-major routes*.
+Filters (the TPU kernels' admission operand ``adm_words``): both routes
+take ``filter_words`` (nq, n_words) int32, the packed admission words of
+:mod:`raft_tpu_torch.filters` (a row's query stride may be 0: one row
+broadcast); a row whose id the pair's query rejects never enters the
+pair's top kt.  The list-major pass tests the bit in its fold
+(``csrc/list_fold.cuh``), the query-major kernel at its candidate gate
+(``csrc/pq_group_scan.cu``), both by ``csrc/scan_common.cuh``'s
+``admits``; the plain versions give the row +inf before the top kt
+(:func:`admit`).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.filters.bitset import query_bits, words_on_device
 from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
@@ -159,16 +159,6 @@ def _check(qrot, centers, probes, list_recon, list_recon_sq, list_indices,
                                list_recon_sq, list_indices)}
     expects(len(devs) == 1, f"{what}: tensors on different devices")
     return n_lists, cap, rot
-
-
-def filtered_route(what: str, filter_words, route_reason: str) -> None:
-    """Raise where a filtered call (``filter_words`` not None) needs the
-    query-major route (``route_reason``: why the list-major pass refuses
-    the shape), on any device: that route takes no filter yet."""
-    if filter_words is not None and route_reason:
-        raise not_ported(
-            what, f"a filtered scan at this shape ({route_reason})",
-            "filters on the query-major routes")
 
 
 def filter_operand(filter_words, nq: int, device, what: str):
@@ -441,16 +431,18 @@ merge_pairs.launches = 0
 
 
 def scan_query_major(qrot, centers, probes, list_recon, list_recon_sq,
-                     list_indices, k: int, kt: int
+                     list_indices, k: int, kt: int, filter_words=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B's query-major route (``csrc/pq_group_scan.cu``): one block
-    per query walks its probes with the query's top k in shared memory;
+    per query walks its probes with the query's top k in shared memory
+    (with ``filter_words``, over the rows it admits);
     :func:`ivf_pq_scan_fused` takes it where ``min(kt, k)`` exceeds
     ``KT_LIST_MAX``.  CUDA tensors launch it; CPU tensors run the plain
     version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
-                                       list_recon_sq, list_indices, k, kt)
+                                       list_recon_sq, list_indices, k, kt,
+                                       filter_words)
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices)
     kt = min(kt, cap)
@@ -461,13 +453,15 @@ def scan_query_major(qrot, centers, probes, list_recon, list_recon_sq,
         "scan_query_major")
     nq, n_probes = probes.shape
     dev = qrot.device
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, dev, "scan_query_major")
     vals = torch.empty(nq, k, dtype=torch.float32, device=dev)
     out_ids = torch.empty(nq, k, dtype=torch.int32, device=dev)
     status = _cuda.library().raft_ivf_pq_scan_fused(
         qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
         recon.data_ptr(), rsq.data_ptr(), ids.data_ptr(), nq, n_probes,
         n_lists, cap, rot, k, kt, scan_smem_bytes(cap, rot),
-        vals.data_ptr(), out_ids.data_ptr(),
+        vals.data_ptr(), out_ids.data_ptr(), *fargs,
         torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(status, "scan_query_major")
     scan_query_major.launches += 1
@@ -486,15 +480,12 @@ def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
     route — the pairs grouped by list, then :func:`list_scan` and
     :func:`merge_pairs`, in query chunks whose pair buffer stays within
     ``PAIR_BUFFER_BYTES`` — else :func:`scan_query_major` (a dispatch by
-    shape between two kernels, each counted on its own ``launches``).  CPU
-    tensors run the plain version.  A shape neither route can hold raises
-    with its reason; a filtered call at a query-major shape raises
-    ``NotImplementedError`` on either device."""
+    shape between two kernels, each counted on its own ``launches``; both
+    take the filter).  CPU tensors run the plain version.  A shape neither
+    route can hold raises with its reason."""
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices)
     pair_kt = min(kt, cap, k)
-    filtered_route("ivf_pq_scan_fused", filter_words,
-                   list_scan_reject_reason(rot, pair_kt))
     if not qrot.is_cuda:
         return ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
                                        list_recon_sq, list_indices, k, kt,
@@ -504,7 +495,8 @@ def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
     expects(not reason, f"ivf_pq_scan_fused: {reason}")
     if list_scan_reject_reason(rot, pair_kt):
         return scan_query_major(qrot, centers, probes, list_recon,
-                                list_recon_sq, list_indices, k, kt)
+                                list_recon_sq, list_indices, k, kt,
+                                filter_words)
     return list_major_topk(
         probes, n_lists, pair_kt, k,
         lambda rows, p, gl, sp: list_scan(

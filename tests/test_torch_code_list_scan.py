@@ -8,8 +8,11 @@ package's grouped code scans (Pallas, interpreted) on the same groups:
 ``grouped_code_scan`` per pair (Kernel D) and, followed by the merge,
 ``grouped_code_scan_fused`` per query (Kernel C), within 1e-4 of max
 sub_sq + max rsq, ids equal but at distance ties; and to Kernel G's
-list-major plain pass over the decoded rows bit for bit.  Then the
-two-route gates and the shared-memory formula.  Inputs are numpy draws
+list-major plain pass over the decoded rows bit for bit.  With a filter,
+the port's filtered plain passes of C and D (the list-major pass at kt
+10, the query-major routes at kt 80) are held to the same Pallas kernels
+run with ``adm_words``.  Then the two-route gates and the shared-memory
+formula.  Inputs are numpy draws
 from a seed: random codes and codebooks, ids with padding (-1) and
 tombstones (<= -2), probes with a hot list past one group, probes >=
 n_lists (the JAX sentinels) and, for the port alone, a negative probe."""
@@ -19,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu.filters import bitset as jax_bitset
 from raft_tpu.ops import pq_code_scan_pallas as pcp
 from raft_tpu.ops.pq_group_scan_pallas import _ACC_WORST
+from raft_tpu_torch.filters import bitset
 from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import pq_code_scan as pcs
 from raft_tpu_torch.ops import pq_group_scan as pgs
@@ -192,6 +197,78 @@ def test_kernel_c_schedule_matches_the_jax_fused_code_scan(case, k):
     ref_i = np.where(worst, -1, ref_i)
     _assert_close_but_ties(mv.numpy(), mi.numpy(), ref_v, ref_i,
                            1e-4 * _scale(qrot, centers, probes, rsq))
+
+
+@pytest.mark.parametrize("selectivity", [0.05, 0.5])
+@pytest.mark.parametrize("kt", [10, 80])
+@pytest.mark.parametrize("kernel", ["C", "D"])
+def test_filtered_passes_match_the_pallas_code_scans_with_adm_words(
+        kernel, kt, selectivity):
+    """The port's filtered plain passes against the Pallas code scans run
+    with ``adm_words`` (the JAX package's ``group_admission_words`` of the
+    same groups; interpreted), at a list-major kt (10: ``code_list_scan``,
+    for C followed by ``merge_pairs``) and past ``KT_LIST_MAX`` (80:
+    ``codes_scan_query_major`` for D, ``codes_fused_query_major`` for C, k
+    100): D per pair, C per query (the finite worst sentinel read as
+    (+inf, -1)), within 1e-4 of max sub_sq + max rsq, ids equal but at
+    ties; every id admitted by its query."""
+    n_lists, cap, pq_dim, pq_len, bits, nq, n_probes, k = \
+        6, 112, 16, 2, 8, 40, 3, 100
+    centers, codes, books, rsq, ids = _code_index(n_lists, cap, pq_dim,
+                                                  pq_len, bits, 21)
+    rng = np.random.default_rng(22)
+    qrot = torch.from_numpy(rng.normal(size=(nq, pq_dim * pq_len)).astype(
+        np.float32))
+    p = _probes(23, nq, n_probes, n_lists, 0, 0.1)
+    probes = torch.from_numpy(p)
+    gl, sp = grouped.build_groups(probes, n_lists)
+    mask = np.random.default_rng(kt).random((nq, int(ids.max()) + 1)) \
+        < selectivity
+    fw = bitset.pack_mask(torch.from_numpy(mask))
+    adm = jax_bitset.group_admission_words(
+        jnp.asarray(fw.numpy()), jnp.asarray(gl.numpy()),
+        jnp.asarray(sp.numpy()), jnp.asarray(ids.numpy()), n_probes, p.size)
+    jargs = _jax_args(qrot, centers, codes, books, rsq, ids, gl, sp)
+    args = (qrot, centers, probes, codes, books, rsq, ids, bits)
+    tol = 1e-4 * _scale(qrot, centers, probes, rsq)
+    listed = kt <= pgs.KT_LIST_MAX
+    if kernel == "D":
+        pv, pi = (pcs.code_list_scan(qrot, centers, probes, gl, sp,
+                                     *args[3:], kt, filter_words=fw)
+                  if listed else
+                  pcs.codes_scan_query_major(*args, kt, filter_words=fw))
+        jv, ji = pcp.grouped_code_scan(*jargs, kt, n_probes, bits,
+                                       interpret=True, adm_words=adm)
+        jv, ji = np.asarray(jv), np.asarray(ji)
+        slots = sp.numpy().reshape(-1)
+        live = slots < p.size
+        ref_v = jv.reshape(-1, kt)[live]
+        ref_i = np.where(np.isfinite(ref_v), ji.reshape(-1, kt)[live], -1)
+        got_v = pv.reshape(-1, kt).numpy()[slots[live]]
+        got_i = pi.reshape(-1, kt).numpy()[slots[live]]
+    else:
+        if listed:
+            pair_v, pair_i = pcs.code_list_scan(
+                qrot, centers, probes, gl, sp, *args[3:], kt,
+                filter_words=fw)
+            mv, mi = pgs.merge_pairs(pair_v, pair_i, k)
+        else:
+            mv, mi = pcs.codes_fused_query_major(*args, k, kt,
+                                                 filter_words=fw)
+        jv, ji = pcp.grouped_code_scan_fused(*jargs, kt, k, n_probes, bits,
+                                             interpret=True, merge_window=2,
+                                             adm_words=adm)
+        ref_v = np.asarray(jv)[:, :nq].T
+        worst = ref_v >= _ACC_WORST
+        ref_v = np.where(worst, np.inf, ref_v)
+        ref_i = np.where(worst, -1, np.asarray(ji)[:, :nq].T)
+        got_v, got_i, pi = mv.numpy(), mi.numpy(), mi
+    _assert_close_but_ties(got_v, got_i, ref_v, ref_i, tol)
+    if selectivity < 0.5:                      # exhausted slots occur
+        assert not np.isfinite(ref_v).all()
+    flat = pi.reshape(nq, -1)
+    got = flat[flat >= 0].long().numpy()
+    assert mask[np.nonzero(flat.numpy() >= 0)[0], got].all()
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -1262,7 +1262,8 @@ def test_kmeans_pass_cut_kernel_matches_plain(dev, cut, n, dim, k):
 
 
 # ---------------------------------------------------------------------------
-# filters: the admission test of the list-major passes and of the walk
+# filters: the admission test of the list-major passes, of the query-major
+# kernels and of the walk
 
 
 def _filter_words(dev, nq, n_ids, selectivity, broadcast, seed):
@@ -1291,14 +1292,24 @@ def _assert_admitted(ids, words):
 FILTERED_SCANS = ["B", "G", "C", "D", "E", "F", "F-IP"]
 
 
-def _filtered_scan(dev, kernel, fw_of, seed):
+# each scan's query-major wrapper (the route past kt 64)
+QUERY_MAJOR = {"B": pgs.scan_query_major, "G": ps.recon_scan_query_major,
+               "C": pcs.codes_fused_query_major,
+               "D": pcs.codes_scan_query_major,
+               "E": pcs.recon8_scan_query_major,
+               "F": ps.flat_scan_query_major,
+               "F-IP": ps.flat_scan_query_major}
+
+
+def _filtered_scan(dev, kernel, fw_of, seed, k=20, kt=16):
     """(kernel result, plain result, filter words, value tolerance) of one
-    list-major scan (through its dispatcher) on a random index with
+    scan (through its dispatcher: list-major at the default k 20, kt 16,
+    query-major where min(kt, k) passes 64) on a random index with
     padding and tombstones, 40 queries of 12 probes over 64 lists; the
     tolerance is the unfiltered check's (1e-4; F: 1e-5 of ‖q‖² + max
     ‖x‖²)."""
     atol = 1e-4
-    n_lists, nq, n_probes, cap, k, kt = 64, 40, 12, 300, 20, 16
+    n_lists, nq, n_probes, cap = 64, 40, 12, 300
     if kernel in ("B", "G"):
         centers, recon, rsq, ids = _random_index(dev, n_lists, cap, 128,
                                                  seed)
@@ -1339,14 +1350,14 @@ def _filtered_scan(dev, kernel, fw_of, seed):
     return out, fns[1](*args, filter_words=fw), fw, atol
 
 
-@pytest.mark.parametrize("kernel", FILTERED_SCANS)
-def test_filtered_list_major_scans_match_plain(dev, kernel):
-    """Each list-major pass with a filter, drawn by hypothesis (selectivity
-    0 to 1, a per-query filter or one row broadcast at query stride 0),
-    against its plain version at the unfiltered check's tolerance (values
-    within 1e-4, F within 1e-5 of ‖q‖² + max ‖x‖²; the same exhausted
-    ranks; ids but at ties), and every returned id admitted by its
-    query."""
+def _check_filtered_scans(dev, kernel, k, kt, route=None):
+    """Hypothesis draws a filter (selectivity 0 to 1, a per-query filter
+    or one row broadcast at query stride 0) for the scan at (k, kt) and
+    holds it to its plain version at the unfiltered check's tolerance
+    (values within 1e-4, F within 1e-5 of ‖q‖² + max ‖x‖²; the same
+    exhausted ranks, -1 exactly there; ids but at ties); every returned id
+    admitted by its query; at selectivity 0 every slot exhausted; with
+    ``route``, that wrapper launched once a scan."""
     from hypothesis import HealthCheck, given, settings
     from hypothesis import strategies as st
 
@@ -1355,10 +1366,13 @@ def test_filtered_list_major_scans_match_plain(dev, kernel):
     @given(selectivity=st.sampled_from([0.0, 0.001, 0.1, 0.5, 0.9, 1.0]),
            broadcast=st.booleans(), seed=st.integers(0, 1000))
     def check(selectivity, broadcast, seed):
+        before = None if route is None else route.launches
         (vk, ik), (vp, ip), fw, atol = _filtered_scan(
             dev, kernel,
             lambda nq, n: _filter_words(dev, nq, n, selectivity, broadcast,
-                                        seed), seed)
+                                        seed), seed, k, kt)
+        if route is not None:
+            assert route.launches == before + 1
         fin = torch.isfinite(vp)
         assert torch.equal(fin, torch.isfinite(vk))
         assert torch.equal(ik < 0, ~fin)
@@ -1366,43 +1380,25 @@ def test_filtered_list_major_scans_match_plain(dev, kernel):
         assert float((ik == ip).float().mean()) >= 0.99
         _assert_admitted(ik, fw)
         if selectivity == 0.0:
-            assert bool((ik == -1).all())
+            assert bool((ik == -1).all()) and not bool(fin.any())
 
     check()
 
 
-@pytest.mark.parametrize("kernel", ["B", "G", "F"])
-def test_filtered_query_major_shapes_raise(dev, kernel):
-    """Past kt 64 the query-major kernels take no filter: the dispatchers
-    raise NotImplementedError naming the deferred item, and launch
-    nothing."""
-    fw_of = (lambda nq, n: _filter_words(dev, nq, n, 0.5, False, 1))
-    before = (pgs.scan_query_major.launches, pgs.list_scan.launches,
-              ps.flat_list_scan.launches, ps.flat_scan_query_major.launches,
-              ps.recon_scan_query_major.launches)
-    with pytest.raises(NotImplementedError,
-                       match="filters on the query-major routes"):
-        n_lists, cap = 16, 200
-        if kernel in ("B", "G"):
-            centers, recon, rsq, ids = _random_index(dev, n_lists, cap, 64,
-                                                     3)
-            qrot, probes = _queries(dev, 8, 64, n_lists, 4)
-            fw = fw_of(8, int(ids.max()) + 1)
-            if kernel == "B":
-                pgs.ivf_pq_scan_fused(qrot, centers, probes, recon, rsq, ids,
-                                      100, 100, fw)
-            else:
-                ps.ivf_pq_scan_recon(qrot, centers, probes, recon, rsq, ids,
-                                     100, fw)
-        else:
-            data, dsq, ids = _flat_lists(dev, n_lists, cap, 32, 3)
-            q, probes = _queries(dev, 8, 32, n_lists, 4)
-            ps.ivf_flat_scan(q, probes, data, dsq, ids, 100,
-                             filter_words=fw_of(8, int(ids.max()) + 1))
-    assert before == (pgs.scan_query_major.launches, pgs.list_scan.launches,
-                      ps.flat_list_scan.launches,
-                      ps.flat_scan_query_major.launches,
-                      ps.recon_scan_query_major.launches)
+@pytest.mark.parametrize("kernel", FILTERED_SCANS)
+def test_filtered_list_major_scans_match_plain(dev, kernel):
+    """Each list-major pass with a filter (k 20, kt 16) against its plain
+    version (``_check_filtered_scans``)."""
+    _check_filtered_scans(dev, kernel, 20, 16)
+
+
+@pytest.mark.parametrize("kernel", FILTERED_SCANS)
+def test_filtered_query_major_scans_match_plain(dev, kernel):
+    """Each query-major kernel with a filter, at kt past 64 (k = kt = 100;
+    G at kt 80), against its plain version (``_check_filtered_scans``),
+    its route's launch counter moving once a scan."""
+    kt = 80 if kernel == "G" else 100
+    _check_filtered_scans(dev, kernel, 100, kt, QUERY_MAJOR[kernel])
 
 
 @pytest.mark.parametrize("nq,itopk,width,deg,pdim,quant,ip", [

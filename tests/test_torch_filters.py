@@ -9,7 +9,11 @@ helpers, and the ``expects`` messages.
 Search: an index ``raft_tpu`` builds on the CPU is serialized and loaded by
 the port (the two streams are byte-compatible), then one mask goes through
 both packages' filtered searches — IVF-PQ in each of the five scan modes,
-IVF-Flat at L2 and at InnerProduct, ``brute_force.knn`` and CAGRA's walk.
+IVF-Flat at L2 and at InnerProduct, ``brute_force.knn`` and CAGRA's walk —
+at k 10 and, through the query-major kernels' plain versions, at k 100
+(IVF-PQ ``recon`` at kt 65, ``auto`` at kt 80, ``recon8`` / ``codes`` /
+``fused`` at kt 100; IVF-Flat at kt 100), with a 50% and a 5% mask (the
+5% mask leaves exhausted slots).
 Every returned id is admitted; ids and distances agree at the tolerances
 the unfiltered comparisons of the same paths state (IVF-PQ recon / auto:
 ids on >= 0.99 of the slots, distances within 1e-4; fused / codes /
@@ -24,8 +28,8 @@ Inside the port, the reference's own contracts (``tests/test_filters.py``
 unfiltered result at a large k filtered afterwards, bit for bit, in every
 mode and at selectivities 0.001, 0.5 and 1.0; an all-rejecting filter
 gives ``(+inf, -1)`` everywhere; a one-row broadcast equals the
-materialized mask; a filter composes with tombstones.  A filtered search
-at a shape only a query-major kernel holds raises.
+materialized mask; a filter composes with tombstones.  The full-probe
+contract holds at k 100 too, where every mode runs a query-major kernel.
 """
 
 import io
@@ -111,6 +115,15 @@ def _admitted(ids, mask):
 
 def _overlap(a, b):
     return np.mean([len(set(x) & set(y)) / K for x, y in zip(a, b)])
+
+
+def _live_overlap(a, b):
+    """The share of the reference's returned ids (>= 0) that the port
+    returns too, per row (exhausted slots are compared apart)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return np.mean([len(set(x[x >= 0]) & set(y[y >= 0]))
+                    / max(1, int((y >= 0).sum()))
+                    for x, y in zip(a, b)])
 
 
 def _exhausted_rule(d, i):
@@ -539,26 +552,105 @@ def test_a_tenant_filter_keeps_each_query_in_its_range(dataset, pq):
         assert ((got >= lo) & (got < hi)).all()
 
 
-@pytest.mark.parametrize("mode,kt", [("recon", 65), ("auto", 80)])
-def test_a_query_major_shape_raises_on_the_cpu_too(dataset, pq, mode, kt):
+K_WIDE = 100
+WIDE_MODES = (("recon", 65), ("auto", 80), ("recon8", 100), ("codes", 100),
+              ("fused", 100))
+
+
+@pytest.fixture(scope="module")
+def sparse_mask():
+    """A 5% per-query mask: at 4 of 16 lists a query sees ~25 admitted
+    rows, fewer than k 100, so its last slots are exhausted."""
+    return np.random.default_rng(5).random((NQ, N)) < 0.05
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["50%", "5%"])
+@pytest.mark.parametrize("mode,kt", WIDE_MODES)
+def test_ivf_pq_filtered_search_at_k_100_matches_raft_tpu(
+        dataset, pq, sparse_mask, mode, kt, dense):
+    """k 100 with a per-pair kt past 64: each mode's query-major kernel
+    (its plain version here) against the JAX package's filtered search on
+    the same loaded index, at the k-10 test's tolerances; every id
+    admitted, exhausted slots (+inf, -1)."""
     _, q, mask = dataset
-    with pytest.raises(NotImplementedError,
-                       match="filters on the query-major routes"):
-        ivf_pq.search(CPU, ivf_pq.SearchParams(
-            n_probes=4, scan_mode=mode, per_probe_topk=kt), pq[1], q, 100,
-            filter=SampleFilter.from_mask(mask))
-    with pytest.raises(NotImplementedError,
-                       match="filters on the query-major routes"):
-        ivf_flat.search(CPU, ivf_flat.SearchParams(n_probes=4),
-                        ivf_flat.deserialize(CPU, io.BytesIO(_flat_bytes(
-                            dataset))), q, 100,
-                        filter=SampleFilter.from_mask(mask))
+    mask = mask if dense else sparse_mask
+    jidx, port = pq
+    sp = dict(n_probes=4, exact_coarse=True, scan_mode=mode,
+              per_probe_topk=kt)
+    rd, ri = jp.search(JaxResources(seed=0), jp.SearchParams(**sp), jidx,
+                       jnp.asarray(q), K_WIDE,
+                       filter=jb.SampleFilter.from_mask(jnp.asarray(mask)))
+    pd, pi = ivf_pq.search(CPU, ivf_pq.SearchParams(**sp), port, q, K_WIDE,
+                           filter=SampleFilter.from_mask(mask))
+    pd, pi, rd, ri = pd.numpy(), pi.numpy(), np.asarray(rd), np.asarray(ri)
+    assert _admitted(pi, mask)
+    _exhausted_rule(pd, pi)
+    np.testing.assert_array_equal(np.isfinite(pd), np.isfinite(rd))
+    assert dense or not np.isfinite(pd).all()
+    if mode in ("auto", "recon"):
+        assert _live_overlap(pi, ri) >= 0.99
+        np.testing.assert_allclose(pd, rd, rtol=1e-4, atol=1e-4)
+    else:
+        assert _live_overlap(pi, ri) >= 0.95
 
 
-def _flat_bytes(dataset):
-    db, _, _ = dataset
-    index = jf.build(JaxResources(seed=1), jf.IndexParams(
-        n_lists=4, kmeans_n_iters=2), jnp.asarray(db))
-    buf = io.BytesIO()
-    jf.serialize(None, buf, index)
-    return buf.getvalue()
+@pytest.mark.parametrize("dense", [True, False], ids=["50%", "5%"])
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.InnerProduct],
+                         ids=["L2", "IP"])
+def test_ivf_flat_filtered_search_at_k_100_matches_raft_tpu(
+        dataset, flat, sparse_mask, metric, dense):
+    """k 100 (Kernel F's query-major route, its plain version here)
+    against the JAX package, at the k-10 test's tolerances; every id
+    admitted, exhausted slots (±inf, -1)."""
+    db, q, mask = dataset
+    mask = mask if dense else sparse_mask
+    jidx, port = flat[metric]
+    rd, ri = jf.search(JaxResources(seed=0),
+                       jf.SearchParams(n_probes=4, exact_coarse=True), jidx,
+                       jnp.asarray(q), K_WIDE,
+                       filter=jb.SampleFilter.from_mask(jnp.asarray(mask)))
+    pd, pi = ivf_flat.search(CPU, ivf_flat.SearchParams(n_probes=4), port,
+                             q, K_WIDE, filter=SampleFilter.from_mask(mask))
+    assert _admitted(pi, mask)
+    _exhausted_rule(pd, pi)
+    assert dense or not torch.isfinite(pd).all()
+    scale = float((q * q).sum(1).max() + (db * db).sum(1).max())
+    _flat_same(pd.numpy(), pi.numpy(), np.asarray(rd), np.asarray(ri),
+               scale)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ivf_pq_full_probe_at_k_100_equals_the_unfiltered_result_filtered(
+        dataset, pq, mode):
+    """The full-probe contract at k 100 (per-pair kt 100: every mode's
+    query-major kernel): the filtered result equals the unfiltered one
+    (kt 128, k 512) with the rejected rows dropped, bit for bit."""
+    _, q, mask = dataset
+    port = pq[1]
+    d_u, i_u = ivf_pq.search(CPU, _pq_full(mode, 128), port, q, 512)
+    ref_d, ref_i = _posthoc(d_u, i_u, mask, K_WIDE)
+    assert (ref_i >= 0).all()
+    d_f, i_f = ivf_pq.search(CPU, _pq_full(mode), port, q, K_WIDE,
+                             filter=SampleFilter.from_mask(mask))
+    np.testing.assert_array_equal(i_f.numpy(), ref_i)
+    np.testing.assert_array_equal(d_f.numpy(), ref_d)
+
+
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.InnerProduct],
+                         ids=["L2", "IP"])
+def test_ivf_flat_full_probe_at_k_100_equals_the_unfiltered_result_filtered(
+        dataset, flat, metric):
+    """IVF-Flat's full-probe contract at k 100 (Kernel F's query-major
+    route): bit for bit against the unfiltered search at k = N filtered
+    afterwards."""
+    _, q, mask = dataset
+    index = flat[metric][1]
+    params = ivf_flat.SearchParams(n_probes=16)
+    d_u, i_u = ivf_flat.search(CPU, params, index, q, N)
+    ref_d, ref_i = _posthoc(d_u, i_u, mask, K_WIDE)
+    d_f, i_f = ivf_flat.search(CPU, params, index, q, K_WIDE,
+                               filter=SampleFilter.from_mask(mask))
+    np.testing.assert_array_equal(i_f.numpy(), ref_i)
+    np.testing.assert_array_equal(d_f.numpy(), ref_d)

@@ -8,8 +8,11 @@ each pair group's pairs against its tile, their top kt scattered by
 equal but at distance ties; and to the query-major plain version of
 Kernel F, L2 and InnerProduct: the same ids, values within 1e-6 of that
 scale (the two batch the same fp32 products differently, which moves the
-last bit of a sum).  Inputs are numpy draws from a
-seed: random fp32 rows with padding (-1) and tombstones (<= -2), probes
+last bit of a sum).  With a filter, the port's filtered plain passes
+(the list-major pass at kt 10, the query-major route at kt 80) are held
+to ``grouped_flat_l2_scan`` run with ``adm_words``.  Inputs are numpy
+draws from a seed: random fp32 rows with padding (-1) and tombstones
+(<= -2), probes
 with a hot list past one group, super-tiled views of F adjacent lists
 with their dedupe sentinels, probes past the lists and negative probes.
 The dispatch gate and the shared-memory formula are checked at the
@@ -20,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu.filters import bitset as jax_bitset
 from raft_tpu.ops import pq_group_scan_pallas as pqp
+from raft_tpu_torch.filters import bitset
 from raft_tpu_torch.neighbors import grouped, ivf_flat
 from raft_tpu_torch.ops import pair_scan as ps
 from raft_tpu_torch.ops import pq_group_scan as pgs
@@ -148,6 +153,65 @@ def test_list_major_schedule_matches_the_jax_grouped_flat_scan(case):
     assert out.any()
     assert np.isinf(pv.reshape(-1, kt).numpy()[out]).all()
     assert (pi.reshape(-1, kt).numpy()[out] == -1).all()
+
+
+@pytest.mark.parametrize("selectivity", [0.05, 0.5])
+@pytest.mark.parametrize("kt", [10, 80])
+def test_filtered_passes_match_the_pallas_flat_scan_with_adm_words(
+        kt, selectivity):
+    """The port's filtered plain passes against ``grouped_flat_l2_scan``
+    run with ``adm_words`` (the JAX package's ``group_admission_words`` of
+    the same groups; interpreted), at a list-major kt (10:
+    ``flat_list_scan``) and past ``KT_LIST_MAX`` (80:
+    ``flat_scan_query_major``): per pair, distances within 1e-5 of ‖q‖² +
+    max ‖x‖², the same exhausted slots (-1 exactly there), ids equal but
+    at ties; every id admitted by its query."""
+    n_lists, cap, dim, nq, n_probes = 6, 112, 32, 40, 3
+    data, dsq, ids = _lists(n_lists, cap, dim, 41)
+    rng = np.random.default_rng(42)
+    q = torch.from_numpy(rng.normal(size=(nq, dim)).astype(np.float32))
+    probes = _probes(43, nq, n_probes, n_lists, 0, 0.1)
+    gl, sp = grouped.build_groups(probes, n_lists)
+    mask = np.random.default_rng(kt).random((nq, int(ids.max()) + 1)) \
+        < selectivity
+    fw = bitset.pack_mask(torch.from_numpy(mask))
+    adm = jax_bitset.group_admission_words(
+        jnp.asarray(fw.numpy()), jnp.asarray(gl.numpy()),
+        jnp.asarray(sp.numpy()), jnp.asarray(ids.numpy()), n_probes,
+        probes.numel())
+    if kt <= pgs.KT_LIST_MAX:
+        pv, pi = ps.flat_list_scan(q, probes, gl, sp, data, dsq, ids, kt,
+                                   filter_words=fw)
+    else:
+        pv, pi = ps.flat_scan_query_major(q, probes, data, dsq, ids, kt,
+                                          filter_words=fw)
+    jv, ji = pqp.grouped_flat_l2_scan(
+        jnp.asarray(gl.numpy()), jnp.asarray(sp.numpy()),
+        jnp.asarray(q.numpy()), jnp.asarray(data.numpy()),
+        jnp.asarray(dsq.numpy()), jnp.asarray(ids.numpy()), kt, n_probes,
+        interpret=True, adm_words=adm)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    slots = sp.numpy().reshape(-1)
+    live = slots < probes.numel()
+    ref_v = jv.reshape(-1, kt)[live]
+    ref_i = np.where(np.isfinite(ref_v), ji.reshape(-1, kt)[live], -1)
+    got_v = pv.reshape(-1, kt).numpy()[slots[live]]
+    got_i = pi.reshape(-1, kt).numpy()[slots[live]]
+    fin = np.isfinite(ref_v)
+    np.testing.assert_array_equal(np.isfinite(got_v), fin)
+    np.testing.assert_array_equal(got_i < 0, ~fin)
+    tol = 1e-5 * _scale(q, dsq)
+    np.testing.assert_allclose(got_v[fin], ref_v[fin], rtol=0, atol=tol)
+    tie = np.zeros(got_v.shape, bool)
+    with np.errstate(invalid="ignore"):          # inf - inf past the live
+        near = np.abs(np.diff(got_v, axis=1)) <= 2 * tol
+    tie[:, 1:] |= near
+    tie[:, :-1] |= near
+    assert not ((got_i != ref_i) & ~tie).any()
+    if selectivity < 0.5:                      # exhausted slots occur
+        assert not fin.all()
+    flat = pi.reshape(nq, -1).numpy()
+    assert mask[np.nonzero(flat >= 0)[0], flat[flat >= 0]].all()
 
 
 @pytest.mark.parametrize("ip", [False, True], ids=["l2", "ip"])

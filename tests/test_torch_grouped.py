@@ -6,18 +6,23 @@ package's rounded count); the list-major schedule, emulated by
 ``list_scan``'s plain version, is held to the query-major plain version of
 Kernel G bit for bit, and to the JAX package's grouped Pallas scan
 (interpreted, on the same groups) at the recon scans' 1e-4; the merge of
-its output to Kernel B's plain version bit for bit.  Inputs are numpy
-draws from a seed: random recon rows with padding (-1) and tombstones
-(<= -2), probes with a hot list past one group, probes ``>= n_lists``
-(the JAX sentinels) and, for the port, negative probes."""
+its output to Kernel B's plain version bit for bit.  With a filter, the
+port's filtered plain passes of Kernels B and G (the list-major pass at
+kt 10, the query-major route at kt 80) are held to the Pallas kernels run
+with ``adm_words`` (interpreted).  Inputs are numpy draws from a seed:
+random recon rows with padding (-1) and tombstones (<= -2), probes with a
+hot list past one group, probes ``>= n_lists`` (the JAX sentinels) and,
+for the port, negative probes."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from raft_tpu.filters import bitset as jax_bitset
 from raft_tpu.neighbors import grouped as jax_grouped
 from raft_tpu.ops import pq_group_scan_pallas as pqp
+from raft_tpu_torch.filters import bitset
 from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import pair_scan as ps
 from raft_tpu_torch.ops import pq_group_scan as pgs
@@ -247,6 +252,109 @@ def test_list_scan_matches_the_jax_grouped_scan_on_the_same_groups(kt):
     # the pairs no group holds are empty
     out = ~np.isin(np.arange(p.size), slots[live])
     assert np.isinf(pv.reshape(-1, kt).numpy()[out]).all()
+
+
+def _filter_words(nq, n_ids, selectivity, seed):
+    """A per-query filter admitting each id with probability
+    ``selectivity``: the port's packed words (nq, n_words) int32."""
+    mask = np.random.default_rng(seed).random((nq, n_ids)) < selectivity
+    return bitset.pack_mask(torch.from_numpy(mask))
+
+
+def _admission(words, gl, sp, ids, n_probes, n_pairs):
+    """The Pallas kernels' ``adm_words`` for the same groups: the JAX
+    package's ``group_admission_words``."""
+    return jax_bitset.group_admission_words(
+        jnp.asarray(words.numpy()), jnp.asarray(gl.numpy()),
+        jnp.asarray(sp.numpy()), jnp.asarray(ids.numpy()), n_probes,
+        n_pairs)
+
+
+def _assert_close_but_ties(got_v, got_i, ref_v, ref_i):
+    """The recon scans' tolerance: the same exhausted ranks (-1 exactly
+    there), values within 1e-4, ids equal but at distance ties (a
+    neighbouring value within 1e-4 relative, or the row's last finite
+    rank)."""
+    fin = np.isfinite(ref_v)
+    np.testing.assert_array_equal(np.isfinite(got_v), fin)
+    np.testing.assert_array_equal(got_i < 0, ~fin)
+    np.testing.assert_allclose(got_v[fin], ref_v[fin], rtol=1e-4, atol=1e-4)
+    tie = np.zeros(got_v.shape, bool)
+    with np.errstate(invalid="ignore"):
+        near = np.abs(np.diff(got_v, axis=1)) <= 1e-4 * (
+            1 + np.abs(got_v[:, 1:]))
+    tie[:, 1:] |= near
+    tie[:, :-1] |= near
+    last = fin & ~np.concatenate([fin[:, 1:], np.zeros_like(fin[:, :1])], 1)
+    assert not ((got_i != ref_i) & ~tie & ~last).any()
+
+
+@pytest.mark.parametrize("selectivity", [0.05, 0.5])
+@pytest.mark.parametrize("kt", [10, 80])
+@pytest.mark.parametrize("kernel", ["B", "G"])
+def test_filtered_passes_match_the_pallas_scans_with_adm_words(
+        kernel, kt, selectivity):
+    """The port's filtered plain passes against the Pallas kernels run with
+    ``adm_words`` (interpreted) on the same groups, at a list-major kt (10:
+    ``list_scan``, for B followed by ``merge_pairs``) and past
+    ``KT_LIST_MAX`` (80: ``recon_scan_query_major`` for G,
+    ``scan_query_major`` for B, k 100): G per pair, B per query (the
+    finite worst sentinel read as (+inf, -1)), at the recon scans'
+    tolerance; every id admitted by its query."""
+    n_lists, cap, rot, nq, n_probes, k = 6, 112, 128, 40, 3, 100
+    centers, recon, rsq, ids = _recon_index(n_lists, cap, rot, 11)
+    rng = np.random.default_rng(12)
+    qrot = torch.from_numpy(rng.normal(size=(nq, rot)).astype(np.float32))
+    p = _probes(13, nq, n_probes, n_lists, sentinels=0.1)
+    probes = torch.from_numpy(p)
+    gl, sp = grouped.build_groups(probes, n_lists)
+    fw = _filter_words(nq, int(ids.max()) + 1, selectivity, kt)
+    adm = _admission(fw, gl, sp, ids, n_probes, p.size)
+    jargs = (jnp.asarray(gl.numpy()), jnp.asarray(sp.numpy()),
+             jnp.asarray(qrot.numpy()), jnp.asarray(centers.numpy()),
+             jnp.asarray(recon.float().numpy()).astype(jnp.bfloat16),
+             jnp.asarray(rsq.numpy()), jnp.asarray(ids.numpy()))
+    listed = kt <= pgs.KT_LIST_MAX
+    common = (qrot, centers, probes)
+    lists = (recon, rsq, ids)
+    if kernel == "G":
+        if listed:
+            pv, pi = pgs.list_scan(*common, gl, sp, *lists, kt,
+                                   filter_words=fw)
+        else:
+            pv, pi = ps.recon_scan_query_major(*common, *lists, kt,
+                                               filter_words=fw)
+        jv, ji = pqp.grouped_l2_scan(*jargs, kt, n_probes, interpret=True,
+                                     adm_words=adm)
+        jv, ji = np.asarray(jv), np.asarray(ji)
+        slots = sp.numpy().reshape(-1)
+        live = slots < p.size
+        ref_v = jv.reshape(-1, kt)[live]
+        ref_i = np.where(np.isfinite(ref_v), ji.reshape(-1, kt)[live], -1)
+        got_v = pv.reshape(-1, kt).numpy()[slots[live]]
+        got_i = pi.reshape(-1, kt).numpy()[slots[live]]
+    else:
+        if listed:
+            mv, mi = pgs.merge_pairs(*pgs.list_scan(
+                *common, gl, sp, *lists, kt, filter_words=fw), k)
+        else:
+            mv, mi = pgs.scan_query_major(*common, *lists, k, kt,
+                                          filter_words=fw)
+        jv, ji = pqp.grouped_l2_scan_fused(*jargs, kt, k, n_probes,
+                                           interpret=True, merge_window=2,
+                                           adm_words=adm)
+        ref_v = np.asarray(jv)[:, :nq].T
+        worst = ref_v >= pqp._ACC_WORST
+        ref_v = np.where(worst, np.inf, ref_v)
+        ref_i = np.where(worst, -1, np.asarray(ji)[:, :nq].T)
+        got_v, got_i = mv.numpy(), mi.numpy()
+        pi = mi
+    _assert_close_but_ties(got_v, got_i, ref_v, ref_i)
+    if selectivity < 0.5:                      # exhausted slots occur
+        assert not np.isfinite(ref_v).all()
+    flat = pi.reshape(nq, -1)
+    bits = bitset.query_bits(fw, torch.arange(nq), flat)
+    assert bool((bits[flat >= 0] == 1).all())
 
 
 def test_gate_routes_by_kt_and_names_its_reason():

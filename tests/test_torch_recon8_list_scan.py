@@ -12,7 +12,10 @@ ids equal but at distance ties.  Inputs are numpy draws from a seed:
 int8 rows zero past rot (rot 24 in rows of 32 bytes, rot 96), per-list
 scales, ids with padding (-1) and tombstones (<= -2), probes with JAX's
 sentinels (>= n_lists) and, for the port alone, a negative probe; kt 1,
-4 and 64.  Then the route's gate and shared-memory formula.
+4 and 64.  With a filter, the port's filtered plain passes (the
+list-major pass at kt 10, the query-major route at kt 80) are held to
+``grouped_recon8_scan`` run with ``adm_words``.  Then the route's gate and
+shared-memory formula.
 """
 
 import jax.numpy as jnp
@@ -20,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu.filters import bitset as jax_bitset
 from raft_tpu.ops import pq_code_scan_pallas as pcp
+from raft_tpu_torch.filters import bitset
 from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import pq_code_scan as pcs
 from raft_tpu_torch.ops import pq_group_scan as pgs
@@ -147,6 +152,62 @@ def test_list_scan_plain_matches_the_jax_grouped_recon8_scan(case):
     assert np.isinf(pv.reshape(-1, kt).numpy()[out]).all()
     assert (pi.reshape(-1, kt).numpy()[out] == -1).all()
     assert not np.isin(pi.numpy(), -(ids[ids <= -2] + 2)).any()
+
+
+@pytest.mark.parametrize("selectivity", [0.05, 0.5])
+@pytest.mark.parametrize("kt", [10, 80])
+def test_filtered_passes_match_the_pallas_recon8_scan_with_adm_words(
+        kt, selectivity):
+    """The port's filtered plain passes against ``grouped_recon8_scan`` run
+    with ``adm_words`` (the JAX package's ``group_admission_words`` of the
+    same groups; interpreted; the int8 rows padded to its 128 lanes), at a
+    list-major kt (10: ``recon8_list_scan``) and past ``KT_LIST_MAX`` (80:
+    ``recon8_scan_query_major``): per live slot, values within 1e-4 of max
+    sub_sq + max rsq8, ids equal but at ties; every id admitted by its
+    query."""
+    n_lists, cap, rot, nq, n_probes = 6, 112, 96, 40, 3
+    q8, scales, rsq8, centers, ids = _int8_index(n_lists, cap, rot, 31)
+    rng = np.random.default_rng(32)
+    qrot = rng.normal(size=(nq, rot)).astype(np.float32)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(nq)]).astype(np.int32)
+    off = rng.random(probes.shape) < 0.1
+    probes[off] = n_lists + rng.integers(0, 3, int(off.sum()))
+    tq, tc, tp, tq8, ts, tr, ti = _torch(qrot, centers, probes, q8, scales,
+                                         rsq8, ids)
+    gl, sp = grouped.build_groups(tp, n_lists)
+    mask = np.random.default_rng(kt).random((nq, int(ids.max()) + 1)) \
+        < selectivity
+    fw = bitset.pack_mask(torch.from_numpy(mask))
+    adm = jax_bitset.group_admission_words(
+        jnp.asarray(fw.numpy()), jnp.asarray(gl.numpy()),
+        jnp.asarray(sp.numpy()), jnp.asarray(ids), n_probes, probes.size)
+    if kt <= pgs.KT_LIST_MAX:
+        pv, pi = pcs.recon8_list_scan(tq, tc, tp, gl, sp, tq8, ts, tr, ti,
+                                      kt, filter_words=fw)
+    else:
+        pv, pi = pcs.recon8_scan_query_major(tq, tc, tp, tq8, ts, tr, ti,
+                                             kt, filter_words=fw)
+    lanes = np.zeros((n_lists, cap, 128), np.int8)
+    lanes[..., :q8.shape[2]] = q8
+    jv, ji = pcp.grouped_recon8_scan(
+        jnp.asarray(gl.numpy()), jnp.asarray(sp.numpy()), jnp.asarray(qrot),
+        jnp.asarray(centers), jnp.asarray(lanes), jnp.asarray(scales),
+        jnp.asarray(rsq8), jnp.asarray(ids), kt, n_probes, interpret=True,
+        adm_words=adm)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    slots = sp.numpy().reshape(-1)
+    live = slots < probes.size
+    ref_v = jv.reshape(-1, kt)[live]
+    ref_i = np.where(np.isfinite(ref_v), ji.reshape(-1, kt)[live], -1)
+    got_v = pv.reshape(-1, kt).numpy()[slots[live]]
+    got_i = pi.reshape(-1, kt).numpy()[slots[live]]
+    _assert_close_but_ties(got_v, got_i, ref_v, ref_i,
+                           1e-4 * _scale(qrot, centers, probes, rsq8))
+    if selectivity < 0.5:                      # exhausted slots occur
+        assert not np.isfinite(ref_v).all()
+    flat = pi.reshape(nq, -1).numpy()
+    assert mask[np.nonzero(flat >= 0)[0], flat[flat >= 0]].all()
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
