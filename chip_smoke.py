@@ -43,7 +43,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    Kernel H (``fused_l2_nn``) against its plain version at the shapes the
    build gave it (the extend's assignment, 1,000,000 x 128 -> 4,096, and a
    codebook fit's, 65,536 x 2 -> 256, its small-dim kernel, a row of its
-   own in the kernels line with the small-dim kernel's launches; each H
+   own in the kernels line: the codebook loop's batched launch, 64
+   subspaces x 65,536 x 2 -> 256 in one launch (``fused_l2_nn_batched``,
+   labels equal to the plain loop over the members), with the
+   one-member call beside it; each H
    check times a call, the kernel's device time and a TF32-off fp32
    ``torch.matmul`` of the same product as ``library_ms``, a TF32-on one
    beside it; above dim 16 also the SIMT tile the tensor-core pass
@@ -60,6 +63,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    Kernels C (kt 20 and 4, k 20) and D (kt 4) on the index's codes (rot
    128, 8 bits: the list-major codes pass's tightest shared memory)
    against their plain versions on the batch.
+6b. The rest of IVF-PQ on the flagship index: the LUT scan
+   (``scan_mode="lut"``, a composition: no kernel) with an fp32 and a
+   bf16 LUT on the 5,000 queries (ms, recall@10), and held to the codes
+   scan (Kernel D) at kt = k on 1,000 queries within the bf16 rounding's
+   bound; ``ivf_pq_helpers`` (a list unpacked and packed back leaves the
+   search bit-equal; ``reconstruct_list_data`` equals the recon cache plus
+   the centre); then the flagship configuration with
+   ``CodebookKind.PER_CLUSTER``: the build (seconds, stages, the batched
+   small-dim launches), ``auto`` (B), ``recon`` (G), ``recon8`` (E) and
+   ``lut`` at n_probes 96, k 20 -> 10, the batched kernel against plain at
+   the per-cluster loop's 4,096 x 1,024 x 2 -> 256, and the per-subspace
+   build's codebooks stage beside its figures before the batched loop.
 7. Where the flagship's time goes: one more build and one search+refine
    batch under ``torch.profiler`` — device busy time, idle share, heaviest
    kernels.
@@ -224,7 +239,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     and E's pass with every scale 1 against G's pass 1 over the int8
     rows as bf16, each bit for bit; C, D and E's query-major routes at k
     = kt = 128 on 1,000 queries, unfiltered and (phase 12) filtered; and
-    each mode's batch under the profiler.
+    each mode's batch under the profiler.  Then the rest of IVF-PQ on the
+    deep index: ``lut`` on 1,000 queries; ``recon8`` at k = kt = 256 (the
+    composition past Kernel E's gates) on 1,000 queries, the composition
+    held to E at kt 128, and E's query-major kernel at a row width past
+    1,024 bytes against plain; then InnerProduct (raft-ann-bench's
+    ``deep-image-96-inner`` analogue): the deep rows unit-normalised,
+    ``IndexParams(metric=InnerProduct, n_lists=8192, pq_dim=48,
+    kmeans_trainset_fraction=0.1)``, ``auto`` / ``recon`` (the
+    composition; auto counts a fallback, reason "dtype") on 5,000 queries
+    and ``lut`` on 1,000, refined by inner product, recall@10 against the
+    inner-product ``brute_force.knn`` (>= 0.80), the 50% per-query filter,
+    and the full-probe filter contract on 64 queries, bit for bit.
 15. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path, and
@@ -326,6 +352,7 @@ def counters():
             "flat_list_scan": ps.flat_list_scan,
             "flat_scan_query_major": ps.flat_scan_query_major,
             "fused_l2_nn": fnn.fused_l2_nn,
+            "fused_l2_nn_batched": fnn.fused_l2_nn_batched,
             "cagra_hop": chop.cagra_hop,
             "cagra_walk": cw.cagra_walk,
             "pair_scan_variant": ps.pair_scan_variant,
@@ -1943,12 +1970,22 @@ def profiles_path(dev, flagship, queries, flat_indexes):
                     launches["kmeans_pass_cut"], a_checks)]
 
 
-def search_mode(res, index, db, queries, truth, label, sp, kernel):
+def search_mode(res, index, db, queries, truth, label, sp, kernel,
+                reps=SEARCH_REPS):
     """One IVF-PQ scan mode on a built index: launch counts zeroed before
     and read after; a first search (which attaches the mode's lazy cache),
-    then SEARCH_REPS batches of search + refine."""
+    then ``reps`` batches of search + refine (refined by the index's
+    metric).  ``kernel``: the wrapper that must have launched, or None for
+    a composition, which must launch no scan kernel."""
     import torch
-    from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors import refine as refine_
+
+    def refine(res, db, queries, cand, k):
+        if index.metric == DistanceType.InnerProduct:
+            return refine_(res, db, queries, cand, k, metric=index.metric)
+        return refine_(res, db, queries, cand, k)
 
     torch.cuda.synchronize()
     zero_launches()
@@ -1958,7 +1995,7 @@ def search_mode(res, index, db, queries, truth, label, sp, kernel):
     torch.cuda.synchronize()
     first_ms = 1e3 * (time.perf_counter() - t0)
     search_ms, batch_ms = [], []
-    for _ in range(SEARCH_REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         _, cand = ivf_pq.search(res, sp, index, queries, K_SEARCH)
         torch.cuda.synchronize()
@@ -1979,7 +2016,12 @@ def search_mode(res, index, db, queries, truth, label, sp, kernel):
           f"{queries.shape[0] / (med / 1e3):.0f} (median); recall@10 "
           f"{recall:.4f}; launches {json.dumps(launches)}; fused "
           f"fallbacks {fallbacks}", flush=True)
-    assert launches[kernel] > 0, f"{label}: {kernel} never launched"
+    if kernel is None:
+        scans = {n: c for n, c in launches.items()
+                 if n not in ("fused_l2_nn", "fused_l2_nn_small_dim") and c}
+        assert not scans, f"{label}: the composition launched {scans}"
+    else:
+        assert launches[kernel] > 0, f"{label}: {kernel} never launched"
     return {"label": label, "recall": recall, "launches": launches,
             "batch_ms": med, "cand": cand, "fallbacks": fallbacks}
 
@@ -2095,6 +2137,59 @@ def flagship_code_checks(index, queries):
             [at_shape(d4, f"{shape}, kt {DEEP_KT}", 0)])
 
 
+def codes_past_smem_checks(dev):
+    """Kernel D's query-major route at shapes whose books and whole LUT
+    do not fit in its shared memory together, both admitted by the Pallas
+    codes gate: rot 256, pq_dim 128, 8 bits (the books read from global
+    memory) and pq_dim 256 (the LUT summed in chunks), each against its
+    plain version on random lists.  Returns D's ``also_checked`` entries
+    (no path of this script gives D these shapes: 0 launches)."""
+    import torch
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    L, cap, rot, bits, nq, P, kt = 64, 416, 256, 8, 256, 8, 100
+    entries = []
+    for pq_dim in (128, 256):
+        pq_len, W = rot // pq_dim, pq_dim * bits // 8
+        _, lut_sub, staged = pcs.codes_layout(cap, rot, pq_dim, bits)
+        assert not staged, f"Kernel D at pq_dim {pq_dim}: books staged"
+        codes = torch.randint(0, 256, (L, cap, W), device=dev, generator=g,
+                              dtype=torch.uint8)
+        books = torch.randn(pq_dim, 1 << bits, pq_len, device=dev,
+                            generator=g) * 0.1
+        rsq = (pcs.decode_codes(codes, books, bits).float() ** 2).sum(-1)
+        ids = torch.arange(L * cap, device=dev, dtype=torch.int32).reshape(
+            L, cap)
+        ids[:, 1::7] = -1
+        qq = torch.randn(nq, rot, device=dev, generator=g) * 0.1
+        cc = torch.randn(L, rot, device=dev, generator=g) * 0.1
+        pr = torch.randint(0, L, (nq, P), device=dev, generator=g,
+                           dtype=torch.int32)
+        args = (qq, cc, pr, codes, books, rsq, ids, bits, kt)
+        vk, ik = pcs.codes_scan_query_major(*args)
+        (vp, ip), plain_ms = timed_once(
+            lambda: pcs.ivf_pq_scan_codes_plain(*args))
+        shape = (f"rot {rot}, pq_dim {pq_dim}, {bits} bits (books in "
+                 f"global memory, LUT chunks of {lut_sub} subspaces), {nq} "
+                 f"queries x {P} probes of {L} random lists of {cap}, kt "
+                 f"{kt}")
+        err = compare_with_plain(f"Kernel D query-major at {shape}", vk, ik,
+                                 vp, ip)
+        ms_k = cuda_ms(lambda: pcs.codes_scan_query_major(*args),
+                       KERNEL_REPS)
+        nbytes = nq * P * cap * (W + 8) + 2 * books.numel() + nq * P * kt * 8
+        bound_ms, bound_by = bound(nbytes, 2.0 * nq * P * cap * rot)
+        print(f"Kernel D at {shape}: {ms_k:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        entries.append(at_shape(
+            {"max_abs_err": err, "ms": ms_k, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
+            shape, 0))
+    return entries
+
+
 def deep_path(dev):
     """Phase 10: the deep-like-10m / raft_ivf_pq.dim48 index at full width,
     every compact-code scan mode through ``ivf_pq.search``, then every
@@ -2154,9 +2249,9 @@ def deep_path(dev):
         train, DEEP_LISTS, "deep", build_launches["kmeans_assign_update"],
         h_tf32_launches(build_launches))
     del train
-    book = codebook_h_check(index, db, "deep")
+    book = batched_h_check(index, db, "subspace", "deep")
     hs_deep = at_shape(book, book["shape"],
-                       build_launches["fused_l2_nn_small_dim"])
+                       build_launches["fused_l2_nn_batched"])
     torch.cuda.empty_cache()
 
     def sp(**kw):
@@ -2266,7 +2361,19 @@ def deep_path(dev):
         lean["launches"]["merge_pairs"]))
     print(f"deep peak device memory, plain versions included: "
           f"{peak_gb():.2f} GB", flush=True)
-    return rows, a_deep, b_deep, g_deep, h_deep, hs_deep
+
+    # the LUT scan and recon8 past Kernel E's gates on the same index
+    lut = search_mode(res, index, db, queries[:DEEP_LUT_QUERIES],
+                      truth[:DEEP_LUT_QUERIES], "deep lut",
+                      sp(scan_mode="lut"), None, 1)
+    e_wide, wide8 = recon8_wide_checks(res, index, db, queries, truth)
+    rows[2]["also_checked"].append(e_wide)
+    del index
+    torch.cuda.empty_cache()
+    rest = {"deep lut": (lut["batch_ms"], lut["recall"]),
+            "deep recon8 k = kt = 256": wide8,
+            "InnerProduct": ip_path(dev, db, queries)}
+    return rows, a_deep, b_deep, g_deep, h_deep, hs_deep, rest
 
 
 def deep_filtered(res, index, queries):
@@ -3666,6 +3773,425 @@ def filtered_phase(res, index, flat, db, queries):
     return (filters, truths, pq_rows, f_row, pq_runs, flat_runs, numbers,
             {"B": b_wide, "G": g_wide, "F": f_wide})
 
+# ---------------------------------------------------------------------------
+# the rest of IVF-PQ: the small-dim kernel's batch axis, per-cluster books,
+# the LUT scan, InnerProduct, wide recon8 scans and the list-data helpers
+# ---------------------------------------------------------------------------
+
+# the per-subspace flagship codebooks stage before the batched loop (PERF.md
+# §5: chip_smoke PR 8 runs 3 / 5; the small-dim launches of the flagship
+# build, PERF.md kernel table row 8)
+FLAGSHIP_BOOKS_S, FLAGSHIP_BOOK_LAUNCHES = (0.72, 1.03), 1344
+# the LUT scan's queries on the deep index, and InnerProduct's
+DEEP_LUT_QUERIES = 1_000
+# the LUT scan against the codes scan: the largest relative gap allowed
+LUT_CODES_REL_GAP = 0.01
+# the deep recon8 search past Kernel E's gates: k = kt
+WIDE_RECON8_K = 256
+# recall@10 sanity floor of the per-cluster and InnerProduct searches
+NEW_RECALL_FLOOR = 0.80
+
+
+def check_kernel_h_batched(x, y, shape):
+    """Kernel H's small-dim kernel with a batch axis
+    (``fused_l2_nn_batched``, one launch for all B members) against its
+    plain version (a loop of ``fused_l2_nn_plain`` over the members):
+    labels equal and dmin within H's tolerance (1e-5 of the scale ‖x‖² +
+    max ‖y‖²); its CUDA-event time, device time, plain time, the bound
+    (x and y read once, dmin and labels written once; 2·B·m·n·k fp32
+    operations at the FFMA rate) and a TF32-off batched ``torch.bmm`` of
+    the same products as ``library_ms`` (a yardstick: no call computes
+    the argmin)."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_nn as fnn
+    from raft_tpu_torch.utils import precision
+
+    dk, ik = fnn.fused_l2_nn_batched(x, y)
+    (dp, ip), plain_ms = timed_once(lambda: fnn.fused_l2_nn_batched_plain(
+        x, y))
+    scale = float((x * x).sum(2).max() + (y * y).sum(2).max())
+    err = float((dk - dp).abs().max())
+    same = float((ik == ip).float().mean())
+    assert err <= 1e-5 * scale, f"batched H at {shape}: dmin off by {err}"
+    assert same == 1.0, f"batched H at {shape}: labels equal at {same}"
+    ms = cuda_ms(lambda: fnn.fused_l2_nn_batched(x, y), KERNEL_REPS)
+    dev_ms = device_ms(lambda: fnn.fused_l2_nn_batched(x, y), KERNEL_REPS,
+                       "small_dim_kernel")
+    B, m, k = x.shape
+    n = y.shape[1]
+    flops = 2.0 * B * m * n * k
+    nbytes = B * ((m + n) * k * 4 + m * 8)
+    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+    with precision.highest():
+        lib_ms = cuda_ms(lambda: torch.bmm(x, y.transpose(1, 2)),
+                         KERNEL_REPS)
+    print(f"small-dim H batched at {shape}: labels equal, max |dmin err| "
+          f"{err} (scale {scale:.3f}); {ms:.4f} ms a launch, kernel "
+          f"{dev_ms:.4f} ms on the device, plain {plain_ms:.1f} ms ({B} "
+          f"calls), bound {bound_ms:.4f} ms ({bound_by}), fp32 bmm "
+          f"{lib_ms:.4f} ms", flush=True)
+    return {"name": "fused_l2_nn_small_dim", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/fused_l2_nn.cu",
+            "replaces": "raft_tpu/ops/fused_l2_nn_pallas.py:65",
+            "wrapper": "fused_l2_nn_batched", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "device_ms": dev_ms, "shape": shape}
+
+
+def book_inputs(index, rows, kind):
+    """The batched codebook loop's first turn at the shape ``index``'s
+    build gives it: ``_BOOK_TRAIN_ROWS`` rotated rows' residuals split
+    into subspaces (B = pq_dim) or sampled per coarse list (B = n_lists,
+    ``per`` sub-rows each), with their strided initial books."""
+    import torch
+    from raft_tpu_torch.cluster.kmeans_balanced import _strided_init
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import fused_l2_nn as fnn
+
+    rot = rows[:ivf_pq._BOOK_TRAIN_ROWS].float() @ index.rotation
+    lab = fnn.fused_l2_nn_plain(rot, index.centers)[1].long()
+    resid = ivf_pq._subspace_split(rot - index.centers[lab], index.pq_dim)
+    book = index.pq_book_size
+    if kind == "subspace":
+        sub = resid.transpose(0, 1).contiguous()
+    else:
+        per = max(book * 4, 256)
+        gen = torch.Generator(device=rows.device)
+        gen.manual_seed(0)
+        idx = ivf_pq._sample_per_cluster(
+            lab.repeat_interleave(index.pq_dim), gen, index.n_lists, per)
+        sub = resid.reshape(-1, resid.shape[2])[idx].contiguous()
+    return sub, _strided_init(sub, book).contiguous()
+
+
+def batched_h_check(index, rows, kind, label):
+    sub, c0 = book_inputs(index, rows, kind)
+    shape = (f"{label} {kind} codebook loop: {sub.shape[0]:,} x "
+             f"{sub.shape[1]:,} x {sub.shape[2]} -> {c0.shape[1]}")
+    return check_kernel_h_batched(sub, c0, shape)
+
+
+def per_cluster_path(db, queries, truth, main_stages, main_launches):
+    """The flagship configuration with ``CodebookKind.PER_CLUSTER``: the
+    build (seconds, stages, the batched loop's launches), searches in
+    ``auto`` (Kernel B), ``recon`` (G), ``recon8`` (E) and ``lut`` (the
+    composition) at n_probes 96, k 20 -> 10, and the per-subspace build's
+    codebooks stage beside its figures before the batched loop.  Returns
+    the batched kernel's check at the per-cluster loop's shape."""
+    import torch
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    books = main_stages["codebooks"]
+    print(f"per-subspace flagship codebooks stage: {books:.3f} s in "
+          f"{main_launches['fused_l2_nn_batched']} batched small-dim "
+          f"launches and {main_launches['fused_l2_nn_small_dim']} unbatched "
+          f"(before the batched loop: {FLAGSHIP_BOOKS_S[0]}-"
+          f"{FLAGSHIP_BOOKS_S[1]} s in {FLAGSHIP_BOOK_LAUNCHES:,} launches, "
+          f"PERF.md)", flush=True)
+    assert main_launches["fused_l2_nn_batched"] > 0, (
+        "the batched small-dim kernel was never launched on the main path")
+    res = DeviceResources(seed=0)
+    params = ivf_pq.IndexParams(n_lists=N_LISTS, pq_dim=PQ_DIM,
+                                codebook_kind=ivf_pq.CodebookKind.PER_CLUSTER)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    index = ivf_pq.build(res, params, db)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"per-cluster build: {build_s:.2f} s; stages (s): "
+          f"{json.dumps(ivf_pq.build.stage_seconds)}; codebooks "
+          f"{tuple(index.codebooks.shape)}, capacity {index.capacity}; "
+          f"launches {json.dumps(launches)}", flush=True)
+    assert launches["fused_l2_nn_batched"] > 0, (
+        "per-cluster build: the batched small-dim kernel never launched")
+    runs = {}
+    for label, sp, kernel, reps in (
+            ("auto", ivf_pq.SearchParams(n_probes=N_PROBES), "merge_pairs",
+             SEARCH_REPS),
+            ("recon", ivf_pq.SearchParams(n_probes=N_PROBES,
+                                          scan_mode="recon"), "list_scan",
+             SEARCH_REPS),
+            ("recon8", ivf_pq.SearchParams(n_probes=N_PROBES,
+                                           scan_mode="recon8"),
+             "recon8_list_scan", SEARCH_REPS),
+            ("lut", ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode="lut"),
+             None, 1)):
+        runs[label] = search_mode(res, index, db, queries, truth,
+                                  f"per-cluster flagship {label}", sp,
+                                  kernel, reps)
+        assert runs[label]["recall"] >= NEW_RECALL_FLOOR, (
+            f"per-cluster {label} recall@10 {runs[label]['recall']}")
+    row = batched_h_check(index, db, "per-cluster", "flagship")
+    entry = at_shape(row, row["shape"], launches["fused_l2_nn_batched"])
+    del index
+    torch.cuda.empty_cache()
+    return entry, {k: (v["batch_ms"], v["recall"]) for k, v in runs.items()}
+
+
+def lut_path(res, index, db, queries, truth):
+    """The LUT scan on the flagship index: fp32 and bf16 LUT, 5,000
+    queries, search + refine (ms, recall@10); then the LUT held to the
+    codes scan (Kernel D) at kt = k on the same index."""
+    import torch
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    out = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        run = search_mode(res, index, db, queries, truth,
+                          f"flagship lut {name}", ivf_pq.SearchParams(
+                              n_probes=N_PROBES, scan_mode="lut",
+                              lut_dtype=dtype), None)
+        assert run["recall"] >= 0.90, f"flagship lut {name}: {run['recall']}"
+        out[name] = (run["batch_ms"], run["recall"])
+    q = queries[:LARGE_KT_QUERIES]
+    d_l, i_l = ivf_pq.search(res, ivf_pq.SearchParams(
+        n_probes=N_PROBES, scan_mode="lut"), index, q, K_SEARCH)
+    d_c, i_c = ivf_pq.search(res, ivf_pq.SearchParams(
+        n_probes=N_PROBES, scan_mode="codes", per_probe_topk=K_SEARCH),
+        index, q, K_SEARCH)
+    lut_against_codes(index, q, d_l, i_l, d_c, i_c)
+    return out
+
+
+def lut_against_codes(index, q, d_l, i_l, d_c, i_c):
+    """The fp32 LUT scan against the codes scan (Kernel D) at kt = k: D
+    rounds the residual and the codebook to bf16 (unit roundoff u =
+    2^-8), so for a row of squared norm ‖c‖², a residual of ‖r‖² and a
+    distance d the two differ by at most u·(d + 2‖c‖² + ‖r‖²) (the cross
+    terms bounded by 2ab <= a² + b²; plus 1e-5 of it for the fp32 sums).
+    Each rank's distance is held to its row's largest bound (a sorted
+    row's j-th value moves by no more), and every id more than two of the
+    row's largest bounds inside its last distance in one scan is in the
+    other's top k.  The bound reaches a few percent of a distance, so the
+    largest relative gap is held to ``LUT_CODES_REL_GAP`` as well (ROADMAP
+    §3 recorded 0.2% on a small CPU index)."""
+    import torch
+
+    u = 2.0 ** -8
+    fin = torch.isfinite(d_c)
+    assert torch.equal(fin, torch.isfinite(d_l)), "lut vs codes: exhausted"
+    rows = index.list_indices.reshape(-1)
+    slot = torch.full((int(rows.max()) + 1,), -1, dtype=torch.long,
+                      device=rows.device)
+    live = torch.nonzero(rows >= 0)[:, 0]
+    slot[rows[live].long()] = live
+    pos = slot[i_c.clamp_min(0).long()]
+    lists = pos // index.capacity
+    rsq = index.list_code_rsq.reshape(-1)[pos]
+    qrot = q.float() @ index.rotation
+    r = qrot[:, None, :] - index.centers[lists]
+    tol = (u * (d_c + 2.0 * rsq + (r * r).sum(-1))) * (1.0 + 1e-5) + 1e-6
+    gap = (d_l - d_c).abs()
+    edge = torch.where(fin, d_c, torch.zeros_like(d_c)).amax(1,
+                                                              keepdim=True)
+    band = torch.where(fin, tol, torch.zeros_like(tol)).amax(1, keepdim=True)
+    # a sorted row's j-th value moves by at most the row's largest bound
+    assert bool((gap <= band)[fin].all()), (
+        f"lut vs codes: a rank off its row's bound by "
+        f"{float((gap - band)[fin].max())}")
+    # a row more than two bands inside a row's last distance in one scan
+    # is in the other scan's top k
+    cut = edge - 2.0 * band
+    for qi in range(d_c.shape[0]):
+        assert set(i_l[qi][d_l[qi] < cut[qi]].tolist()) <= set(
+            i_c[qi].tolist()), f"lut vs codes: query {qi}, a LUT id missing"
+        assert set(i_c[qi][d_c[qi] < cut[qi]].tolist()) <= set(
+            i_l[qi].tolist()), f"lut vs codes: query {qi}, a codes id missing"
+    rel = float((gap[fin] / d_c[fin].abs().clamp_min(1e-12)).max())
+    # the largest relative gap, besides the derived bound, which reaches
+    # a few percent of a distance: two runs on the H100 read 0.376% and
+    # 0.564%, past the 0.2% a small CPU index gave
+    assert rel <= LUT_CODES_REL_GAP, (
+        f"lut vs codes: relative gap {rel} past {LUT_CODES_REL_GAP}")
+    same = float((i_l == i_c).float().mean())
+    print(f"flagship lut vs codes (kt {d_c.shape[1]}, {q.shape[0]:,} "
+          f"queries): every rank within its row's bf16 bound (largest "
+          f"relative gap {rel:.5f} (limit {LUT_CODES_REL_GAP}; 0.2% not "
+          f"met where it is above 0.002), largest bound/distance "
+          f"{float((tol[fin] / d_c[fin].clamp_min(1e-12)).max()):.4f}); ids "
+          f"equal at {same:.5f} of ranks, the rest inside a row's band",
+          flush=True)
+
+
+def recon8_wide_checks(res, index, db, queries, truth):
+    """recon8 past Kernel E's gates on the deep index: k = kt =
+    WIDE_RECON8_K on DEEP_LUT_QUERIES queries (the composition of the XLA
+    twin), refined to 10; the composition held to Kernel E (query-major)
+    at kt 128 on the same pairs; and E's query-major kernel at a row
+    width past 1,024 bytes (its shared-memory residual) against its plain
+    version.  Returns E's ``also_checked`` entry of the wide kernel."""
+    import torch
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.neighbors.ivf_flat import (_finalize_topk,
+                                                   _select_clusters)
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+
+    q = queries[:DEEP_LUT_QUERIES]
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode="recon8",
+                             per_probe_topk=WIDE_RECON8_K)
+    zero_launches()
+    ms, (_, cand) = timed_searches(
+        lambda: ivf_pq.search(res, sp, index, q, WIDE_RECON8_K), SEARCH_REPS)
+    launches = read_launches()
+    assert launches["recon8_list_scan"] == launches[
+        "recon8_scan_query_major"] == 0, "wide recon8: a kernel ran"
+    _, found = refine(res, db, q, cand, K)
+    r = live_recall(found, truth[:q.shape[0]])
+    print(f"deep recon8 k = kt = {WIDE_RECON8_K} (the composition), "
+          f"{q.shape[0]:,} queries: {', '.join(f'{m:.2f}' for m in ms)} ms; "
+          f"recall@10 after refine {r:.4f}", flush=True)
+    qrot = q.float() @ index.rotation
+    probes = _select_clusters(index.centers, qrot, N_PROBES, index.metric)
+    kt = pcs.KT_MAX
+    d_w, i_w = ivf_pq._search_recon8_wide(index, qrot, probes, kt, kt)
+    vals, ids = pcs.ivf_pq_scan_recon8(
+        qrot, index.centers.float(), probes, index.list_recon_i8,
+        index.list_recon_scale, index.list_recon_i8_sq, index.list_indices,
+        kt)
+    d_e, i_e = _finalize_topk(vals, ids, kt, index.metric)
+    compare_with_plain(f"deep recon8 composition vs Kernel E at kt {kt}",
+                       d_w, i_w, d_e, i_e)
+    # E's query-major kernel at rot_pad 1,104 (the residual in shared
+    # memory) against its plain version
+    dev = q.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    L, cap, rot, rot_pad, nq, P = 64, 512, 1100, 1104, 256, 8
+    i8 = torch.randint(-127, 128, (L, cap, rot_pad), device=dev,
+                       generator=g).to(torch.int8)
+    i8[..., rot:] = 0
+    sc = torch.rand(L, device=dev, generator=g) * 0.01 + 1e-3
+    rsq = sc[:, None] ** 2 * (i8.float() ** 2).sum(-1)
+    ids = torch.arange(L * cap, device=dev, dtype=torch.int32).reshape(L, cap)
+    qq = torch.randn(nq, rot, device=dev, generator=g) * 0.1
+    cc = torch.randn(L, rot, device=dev, generator=g) * 0.1
+    pr = torch.randint(0, L, (nq, P), device=dev, generator=g,
+                       dtype=torch.int32)
+    kt = 100
+    vk, ik = pcs.recon8_scan_query_major(qq, cc, pr, i8, sc, rsq, ids, kt)
+    (vp, ip), plain_ms = timed_once(lambda: pcs.ivf_pq_scan_recon8_plain(
+        qq, cc, pr, i8, sc, rsq, ids, kt))
+    err = compare_with_plain("Kernel E query-major, rot_pad 1,104", vk, ik,
+                             vp, ip)
+    ms_k = cuda_ms(lambda: pcs.recon8_scan_query_major(
+        qq, cc, pr, i8, sc, rsq, ids, kt), KERNEL_REPS)
+    nbytes = nq * P * cap * (rot_pad + 8) + nq * P * kt * 8
+    bound_ms, bound_by = bound(nbytes, 2.0 * nq * P * cap * rot_pad)
+    shape = (f"rot_pad {rot_pad} (past 1,024 bytes: the residual in shared "
+             f"memory), {nq} queries x {P} probes of {L} random lists of "
+             f"{cap}, kt {kt}")
+    print(f"Kernel E at {shape}: {ms_k:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return at_shape({"max_abs_err": err, "ms": ms_k, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}, shape, 0), (median(ms), r)
+
+
+def helpers_check(res, index, queries):
+    """``ivf_pq_helpers`` on the flagship index: list 0 unpacked and
+    packed back leaves the search bit-equal; ``reconstruct_list_data``
+    equals the recon cache plus the list's centre, rotated back."""
+    import torch
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors import ivf_pq_helpers as helpers
+
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES)
+    q = queries[:LARGE_KT_QUERIES]
+    before = ivf_pq.search(res, sp, index, q, K_SEARCH)
+    label = int(torch.argmax(index.list_sizes))
+    codes = helpers.unpack_list_data(res, index, label)
+    packed = helpers.pack_list_data(res, index, label, codes)
+    after = ivf_pq.search(res, sp, packed, q, K_SEARCH)
+    same = torch.equal(before[0], after[0]) and torch.equal(before[1],
+                                                             after[1])
+    n = int(index.list_sizes[label])
+    rec = helpers.reconstruct_list_data(res, index, label)
+    want = (index.list_recon[label, :n].float()
+            + index.centers[label].float()) @ index.rotation.T
+    err = float((rec - want).abs().max())
+    print(f"helpers on list {label} ({n} rows, {tuple(codes.shape)} codes): "
+          f"unpack + pack leaves the search bit-equal: {same}; "
+          f"reconstruct_list_data against recon + centre: max err {err}",
+          flush=True)
+    assert same, "pack_list_data(unpack_list_data) changed the search"
+    assert err <= 1e-5, f"reconstruct_list_data off by {err}"
+
+
+def ip_path(dev, db, queries):
+    """InnerProduct at the deep configuration's width (raft-ann-bench's
+    ``deep-image-96-inner`` analogue): the deep rows and queries
+    unit-normalised, ``IndexParams(metric=InnerProduct, n_lists=8192,
+    pq_dim=48, kmeans_trainset_fraction=0.1)``; ``auto`` and ``recon``
+    (the composition of the XLA twin) on 5,000 queries and ``lut`` on
+    DEEP_LUT_QUERIES, n_probes 96, k 20 -> refine 10 by inner product,
+    recall@10 against the inner-product ``brute_force.knn``; the 50%
+    per-query filter; the full-probe filter contract on 64 queries."""
+    import torch
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.filters import SampleFilter
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+
+    ip = DistanceType.InnerProduct
+    db = db / db.norm(dim=1, keepdim=True)
+    queries = queries / queries.norm(dim=1, keepdim=True)
+    res = DeviceResources(seed=0)
+    _, truth = brute_force.knn(res, db, queries, K, metric=ip)
+    params = ivf_pq.IndexParams(metric=ip, n_lists=DEEP_LISTS,
+                                pq_dim=DEEP_PQ_DIM,
+                                kmeans_trainset_fraction=DEEP_TRAIN_FRACTION)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = ivf_pq.build(res, params, db)
+    torch.cuda.synchronize()
+    print(f"InnerProduct build: {time.perf_counter() - t0:.2f} s; stages "
+          f"(s): {json.dumps(ivf_pq.build.stage_seconds)}; capacity "
+          f"{index.capacity}", flush=True)
+    out = {}
+    for label, mode, q, t in (
+            ("auto", "auto", queries, truth),
+            ("recon", "recon", queries, truth),
+            ("lut", "lut", queries[:DEEP_LUT_QUERIES],
+             truth[:DEEP_LUT_QUERIES])):
+        before = ivf_pq.search.fused_fallbacks
+        run = search_mode(res, index, db, q, t, f"InnerProduct {label}",
+                          ivf_pq.SearchParams(n_probes=N_PROBES,
+                                              scan_mode=mode), None,
+                          1 if mode == "lut" else SEARCH_REPS)
+        fell = ivf_pq.search.fused_fallbacks - before
+        if mode == "auto":
+            assert fell > 0 and ivf_pq.search.last_fallback_reason == \
+                "dtype", "InnerProduct auto: no fallback counted"
+        assert run["recall"] >= NEW_RECALL_FLOOR, (
+            f"InnerProduct {label} recall@10 {run['recall']}")
+        out[label] = (run["batch_ms"], run["recall"])
+    words = half_words(queries.shape[0], db.shape[0], FILTER_SEED, dev)
+    half = SampleFilter(words=words, n_rows=db.shape[0])
+    _, t_f = brute_force.knn(res, db, queries, K, metric=ip, filter=half)
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES)
+    ms, (_, cand) = timed_searches(lambda: refine(
+        res, db, queries, ivf_pq.search(res, sp, index, queries, K_SEARCH,
+                                        filter=half)[1], K, metric=ip),
+        SEARCH_REPS)
+    assert_admitted("InnerProduct 50% per query", cand, words)
+    r = live_recall(cand, t_f)
+    print(f"InnerProduct auto with the 50% per-query filter, k "
+          f"{K_SEARCH} -> refine {K}: {', '.join(f'{m:.2f}' for m in ms)} "
+          f"ms per batch of {queries.shape[0]:,}; recall@10 {r:.4f} against "
+          f"the filtered inner-product brute_force.knn; every id admitted",
+          flush=True)
+    out["auto 50% filter"] = (median(ms), r)
+    full = ivf_pq.SearchParams(n_probes=DEEP_LISTS)
+    full_probe_contract("InnerProduct deep", lambda q, k, f: ivf_pq.search(
+        res, full, index, q, k, filter=f), queries, words, db.shape[0])
+    print(f"InnerProduct phase: {json.dumps(out)}", flush=True)
+    del index
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     import torch
@@ -3758,7 +4284,7 @@ def main() -> int:
     print(f"peak device memory: {peak_gb:.2f} GB", flush=True)
     print(f"launches on the main path: {json.dumps(launches)}", flush=True)
     for name in ("kmeans_assign_update", "list_scan", "merge_pairs",
-                 "fused_l2_nn"):
+                 "fused_l2_nn", "fused_l2_nn_batched"):
         assert launches[name] > 0, (
             f"{name} was never launched on the main path")
     assert fallbacks == 0, "Kernel B's gate refused the main path's search"
@@ -3781,10 +4307,15 @@ def main() -> int:
     h_more = [h_check(db @ index.rotation, index.centers,
                       f"flagship extend: {N_DB:,} x {DIM} -> {N_LISTS:,}",
                       h_tf32_launches(launches), block_sizes=True)]
-    row_hs = dict(codebook_h_check(index, db, "flagship"),
-                  launches=launches["fused_l2_nn_small_dim"])
+    # the small-dim kernel on the main path: the codebook loop's batched
+    # launch (B = pq_dim); the one-member call beside it
+    row_hs = dict(batched_h_check(index, db, "subspace", "flagship"),
+                  launches=launches["fused_l2_nn_batched"])
     assert row_hs["launches"] > 0, (
         "the small-dim kernel was never launched on the main path")
+    one = codebook_h_check(index, db, "flagship")
+    hs_one = at_shape(one, one["shape"] + " (one member, fused_l2_nn)",
+                      launches["fused_l2_nn_small_dim"])
 
     phase("IVF-PQ recon mode: scan_mode='recon', n_probes 96, k 20 -> 10")
     sp_recon = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode="recon")
@@ -3801,6 +4332,16 @@ def main() -> int:
 
     phase("kernels C and D on the flagship's codes (rot 128, 8 bits)")
     c_flag, d_flag = flagship_code_checks(index, queries)
+    d_flag += codes_past_smem_checks(dev)
+
+    phase("the rest of IVF-PQ on the flagship index: the LUT scan and the "
+          "list-data helpers")
+    lut_runs = lut_path(res, index, db, queries, truth)
+    helpers_check(res, index, queries)
+
+    phase("per-cluster codebooks at the flagship's width")
+    hs_cluster, pc_runs = per_cluster_path(db, queries, truth, build_stages,
+                                           launches)
 
     phase("where the time goes (one build, one batch, under the profiler)")
     del index
@@ -3862,7 +4403,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("deep path at full width: 10M x 96, n_lists 8192, pq_dim 48")
-    rows_cde, a_deep, b_deep, g_deep, h_deep, hs_deep = deep_path(dev)
+    rows_cde, a_deep, b_deep, g_deep, h_deep, hs_deep, rest = deep_path(dev)
+    rest.update({"flagship lut": lut_runs, "per-cluster flagship": pc_runs})
+    print(f"the rest of IVF-PQ (ms a batch, recall@10): {json.dumps(rest)}; "
+          f"nvidia-smi: {smi_line}", flush=True)
 
     phase("result")
     rows_cde[0]["also_checked"] += c_flag
@@ -3887,7 +4431,7 @@ def main() -> int:
         f"width 2, deg {CAGRA_DEGREE}", walk_launches["cagra_walk"]))
     row_g["also_checked"] = [g_deep, g_query_major, g_filtered, wide["G"]]
     row_h["also_checked"] += h_more + h_flat + h_deep
-    row_hs["also_checked"] = [hs_deep]
+    row_hs["also_checked"] = [hs_cluster, hs_one, hs_deep]
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["merge_pairs"],

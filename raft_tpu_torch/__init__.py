@@ -12,9 +12,12 @@ caller's :class:`DeviceResources` asks for the CPU, where each kernel
 wrapper runs its plain PyTorch version instead.
 
 Ported so far (see ROADMAP.md): IVF-PQ build (two-level k-means from 8192
-lists) and search over the recon cache, the packed codes and the int8
-cache (``scan_mode`` "auto", "fused", "codes", "recon8", "recon") —
-:mod:`raft_tpu_torch.neighbors.ivf_pq`; IVF-Flat
+lists, per-subspace or per-cluster codebooks) and search over the recon
+cache, the packed codes, the int8 cache and a per-probe lookup table
+(every ``scan_mode``, L2 and InnerProduct) —
+:mod:`raft_tpu_torch.neighbors.ivf_pq`, with
+:mod:`raft_tpu_torch.neighbors.ivf_pq_helpers`; the matrix and random helpers
+(:mod:`raft_tpu_torch.matrix.ops`, :mod:`raft_tpu_torch.random`); IVF-Flat
 (:mod:`raft_tpu_torch.neighbors.ivf_flat`); k-means
 (:mod:`raft_tpu_torch.cluster.kmeans`,
 :mod:`raft_tpu_torch.cluster.kmeans_balanced`); CAGRA build and walk search

@@ -12,10 +12,13 @@ For L2Expanded with dim >= 32 — exactly where the JAX package's
 ``_fused_ok`` routes to its Pallas pass on a TPU — each iteration is one
 call of Kernel A (:func:`raft_tpu_torch.ops.kmeans_update.kmeans_assign_update`:
 bf16 assignment, weighted sums and counts, per-row min distance).  Other
-cases (the dim-2 codebook subspaces, InnerProduct) assign with
-:func:`_assign` — Kernel H (``fused_l2_nn``) for L2, as the JAX package's
-``_assign`` calls ``fused_l2_nn``, and a plain product for InnerProduct —
-and update in plain PyTorch; ``predict`` is :func:`_assign` too.  From
+cases (L2 below dim 32, InnerProduct) assign with :func:`_assign` —
+Kernel H (``fused_l2_nn``) for L2, as the JAX package's ``_assign`` calls
+``fused_l2_nn``, and a plain product for InnerProduct — and update in
+plain PyTorch; ``predict`` is :func:`_assign` too.  The IVF-PQ codebooks
+(dim <= 16, many independent fits of one shape) run
+:func:`_balanced_loop_batched`: one launch of Kernel H's small-dim kernel
+a turn for every member.  From
 ``_MESO_THRESHOLD`` (8192) clusters ``fit`` takes the two-level
 mesocluster build (:func:`_fit_hierarchical`,
 reference: detail/kmeans_balanced.cuh build_hierarchical): ~sqrt(K)
@@ -28,8 +31,9 @@ Random draws come from the handle's ``torch.Generator``, so a fit is
 reproducible from its seed but draws differently from the JAX package's
 threefry keys.  ``fit`` and ``predict`` pass their rows through the
 boundary validator (:mod:`raft_tpu_torch.integrity.boundary`) at the JAX
-package's sites; ``build_clusters`` is not ported yet (ROADMAP.md §1
-item 5).
+package's sites; ``build_clusters`` trains, assigns and counts in one
+call.  :func:`_balanced_loop_batched` runs the loop over a batch of
+independent problems of one shape at once (the IVF-PQ codebooks).
 """
 
 from __future__ import annotations
@@ -40,11 +44,12 @@ import torch
 
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.outputs import raw
-from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.integrity import boundary
+from raft_tpu_torch.ops.fused_l2_nn import fused_l2_nn_batched
 from raft_tpu_torch.ops.kmeans_update import kmeans_assign_update
 from raft_tpu_torch.utils import precision
 
@@ -75,22 +80,61 @@ def _assign(X: torch.Tensor, centroids: torch.Tensor, metric: int
     return labels, dists
 
 
+def _segment_sums(xf: torch.Tensor, seg: torch.Tensor, n_seg: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sums (n_seg, d) f32, sizes (n_seg,) int64) of the rows of xf (n,
+    d) by their segment ``seg`` (n,): one ``index_add_`` and one
+    ``bincount``."""
+    sums = torch.zeros(n_seg, xf.shape[1], dtype=torch.float32,
+                       device=xf.device)
+    sums.index_add_(0, seg, xf)
+    return sums, torch.bincount(seg, minlength=n_seg)
+
+
+def _means(sums: torch.Tensor, sizes: torch.Tensor,
+           old: Optional[torch.Tensor]) -> torch.Tensor:
+    """Each cluster's mean, ``sums / sizes`` over any leading axes; an
+    empty cluster keeps its ``old`` centre where one is given."""
+    sizes = sizes.float()
+    centers = sums / torch.clamp_min(sizes, 1.0)[..., None]
+    if old is None:
+        return centers
+    return torch.where((sizes > 0)[..., None], centers, old.float())
+
+
 def calc_centers_and_sizes(X: torch.Tensor, labels: torch.Tensor,
                            n_clusters: int, *,
                            old_centroids: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-cluster mean + population (reference:
     kmeans_balanced.cuh:336); empty clusters keep ``old_centroids``."""
-    xf = X.float()
-    sums = torch.zeros(n_clusters, xf.shape[1], dtype=torch.float32,
-                       device=X.device)
-    sums.index_add_(0, labels, xf)
-    sizes = torch.bincount(labels, minlength=n_clusters).float()
-    centers = sums / torch.clamp_min(sizes, 1.0)[:, None]
-    if old_centroids is not None:
-        centers = torch.where((sizes > 0)[:, None], centers,
-                              old_centroids.float())
-    return centers, sizes.int()
+    sums, sizes = _segment_sums(X.float(), labels, n_clusters)
+    return _means(sums, sizes, old_centroids), sizes.int()
+
+
+def _update_and_rebalance(xf: torch.Tensor, dists: torch.Tensor,
+                          sums: torch.Tensor, sizes: torch.Tensor,
+                          centroids: torch.Tensor,
+                          generator: torch.Generator) -> torch.Tensor:
+    """One turn's update and balancing over a leading batch axis: xf (B,
+    n, d) rows, dists (B, n) their assignment distances, sums (B, K, d)
+    and sizes (B, K) per cluster, centroids (B, K, d) the turn's centres
+    -> the next centres.  Each cluster moves to its mean (an empty one
+    keeps its centre); each member's clusters smaller than ``avg /
+    _BALANCE_RATIO`` re-seed at rows drawn proportional to their
+    assignment distance (inverse CDF over a cumulative sum), from one
+    ``torch.rand((B, K))`` draw."""
+    B, n, d = xf.shape
+    K = sums.shape[1]
+    centers = _means(sums, sizes, centroids)
+    small = sizes.float() < (n / K) / _BALANCE_RATIO
+    w = torch.clamp_min(dists - dists.amin(1, keepdim=True), 0.0) + 1e-6
+    cdf = torch.cumsum(w, 1)
+    u = torch.rand((B, K), generator=generator,
+                   device=xf.device) * cdf[:, -1:]
+    cand = torch.clamp(torch.searchsorted(cdf, u), 0, n - 1)
+    picked = torch.gather(xf, 1, cand[..., None].expand(-1, -1, d))
+    return torch.where(small[..., None], picked, centers)
 
 
 def _balanced_loop(X: torch.Tensor, centroids0: torch.Tensor,
@@ -110,30 +154,51 @@ def _balanced_loop(X: torch.Tensor, centroids0: torch.Tensor,
     centroids = centroids0.float()
     for _ in range(n_iters):
         if use_fused:
-            sums, counts, dmin = kmeans_assign_update(xb, ones, centroids)
-            centers = sums / torch.clamp_min(counts, 1.0)[:, None]
-            centers = torch.where((counts > 0)[:, None], centers, centroids)
-            sizes = counts
+            sums, sizes, dmin = kmeans_assign_update(xb, ones, centroids)
             dists = torch.clamp_min(x_sq + dmin, 0.0)
         else:
             labels, dists = _assign(xf, centroids, metric)
-            centers, sizes = calc_centers_and_sizes(
-                xf, labels, n_clusters, old_centroids=centroids)
-        # balancing: re-seed under-populated clusters at rows drawn
-        # proportional to their assignment distance (inverse CDF)
-        small = sizes.float() < (n / n_clusters) / _BALANCE_RATIO
-        w = torch.clamp_min(dists - dists.min(), 0.0) + 1e-6
-        cdf = torch.cumsum(w, 0)
-        u = torch.rand(n_clusters, generator=generator,
-                       device=X.device) * cdf[-1]
-        cand = torch.clamp(torch.searchsorted(cdf, u), 0, n - 1)
-        centers = torch.where(small[:, None], xf[cand], centers)
+            sums, sizes = _segment_sums(xf, labels, n_clusters)
+        centers = _update_and_rebalance(xf[None], dists[None], sums[None],
+                                        sizes[None], centroids[None],
+                                        generator)[0]
         if metric == DistanceType.InnerProduct:
             centers = centers / torch.clamp_min(
                 torch.linalg.norm(centers, dim=1, keepdim=True), 1e-12)
         centroids = centers
     labels, _ = _assign(xf, centroids, metric)
     return centroids, labels
+
+
+def _balanced_loop_batched(X: torch.Tensor, centroids0: torch.Tensor,
+                           generator: torch.Generator, n_clusters: int,
+                           n_iters: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_balanced_loop` (L2Expanded) over a batch of independent
+    problems at once: X (B, n, d), centroids0 (B, K, d) -> (centroids (B,
+    K, d), labels (B, n) int64).  Each turn: the assignment of every
+    member in ONE launch of Kernel H's small-dim kernel
+    (:func:`raft_tpu_torch.ops.fused_l2_nn.fused_l2_nn_batched`, d <= 16),
+    sums and sizes through one ``index_add_`` over B·K segments, then
+    :func:`_update_and_rebalance`, the loops' one update and balancing
+    step — no Python loop over members.  At B = 1 it is
+    :func:`_balanced_loop` draw for draw (bit for bit on the CPU)."""
+    xf = X.float()
+    B, n, d = xf.shape
+    K = n_clusters
+    dev = xf.device
+    flat_x = xf.reshape(B * n, d)
+    seg0 = (torch.arange(B, device=dev) * K)[:, None]          # (B, 1)
+    centroids = centroids0.float()
+    for _ in range(n_iters):
+        dists, lab = fused_l2_nn_batched(xf, centroids)
+        sums, sizes = _segment_sums(flat_x, (lab.long() + seg0).reshape(-1),
+                                    B * K)
+        centroids = _update_and_rebalance(xf, dists, sums.reshape(B, K, d),
+                                          sizes.reshape(B, K), centroids,
+                                          generator)
+    _, labels = fused_l2_nn_batched(xf, centroids)
+    return centroids, labels.long()
 
 
 def _fused_ok(dim: int, metric: int) -> bool:
@@ -163,10 +228,12 @@ def _meso_partition_sample(meso_labels: torch.Tensor,
 
 
 def _strided_init(X: torch.Tensor, k: int) -> torch.Tensor:
-    """k evenly strided rows of X, the last repeated if X is short."""
-    c0 = X[::max(X.shape[0] // k, 1)][:k].float()
-    if c0.shape[0] < k:
-        c0 = torch.cat([c0, c0[-1:].expand(k - c0.shape[0], -1)])
+    """k evenly strided rows of X (n, d), the last repeated if X is short;
+    of each member of a batch (B, n, d)."""
+    c0 = X[..., ::max(X.shape[-2] // k, 1), :][..., :k, :].float()
+    if c0.shape[-2] < k:
+        c0 = torch.cat([c0, c0[..., -1:, :].expand(
+            *c0.shape[:-2], k - c0.shape[-2], -1)], -2)
     return c0
 
 
@@ -256,5 +323,11 @@ def fit_predict(res, params: KMeansBalancedParams, X, n_clusters: int
     return centroids, predict(res, params, X, centroids)
 
 
-def build_clusters(res, params: KMeansBalancedParams, X, n_clusters: int):
-    raise not_ported("kmeans_balanced", "build_clusters", "primitives")
+def build_clusters(res, params: KMeansBalancedParams, X, n_clusters: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(centroids, labels, sizes)``: train, assign and count in one call
+    (reference: kmeans_balanced.cuh:257 ``helpers::build_clusters``)."""
+    centroids, labels = fit_predict(res, params, X, n_clusters)
+    _, sizes = calc_centers_and_sizes(ensure_tensor(X, res, "X").float(),
+                                      labels, n_clusters)
+    return centroids, labels, sizes

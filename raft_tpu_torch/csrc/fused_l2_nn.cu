@@ -29,7 +29,11 @@
 //     x row in registers, y streams through shared memory as whole rows
 //     (read by every thread at once, a broadcast), and the thread sweeps
 //     the rows of y in increasing order in plain fp32 FMAs.  The bound
-//     there is under 2 us; the launch is the floor.
+//     there is under 2 us; the launch is the floor.  So the kernel takes
+//     a batch axis: a grid of (row blocks, members) runs many independent
+//     problems of one shape in one launch (the IVF-PQ codebook loops run
+//     every subspace, or every coarse list, in one launch a turn; the
+//     TPU package vmaps or lax.maps them).
 // csrc/nn_tile.cuh's register-tiled SIMT pass, the k > kSmallDim kernel
 // before the tensor-core one, stays as a C entry point that no wrapper
 // takes: the same-run yardstick (raft_fused_l2_nn_simt).  The small-dim
@@ -62,6 +66,14 @@ small_dim_kernel(const float* __restrict__ x, const float* __restrict__ y,
                  int* __restrict__ idx) {
   __shared__ float ys[kSmallTile * D];
   __shared__ float yq[kSmallTile];
+  // member b of a batch: its own m rows of x against its own n rows of y
+  const size_t b = blockIdx.y;
+  x += b * m * D;
+  x_sq += b * m;
+  y += b * n * D;
+  y_sq += b * n;
+  dmin += b * m;
+  idx += b * m;
   const int r = blockIdx.x * kSmallThreads + threadIdx.x;
   const bool live = r < m;
   float xr[D];
@@ -95,18 +107,19 @@ small_dim_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// grid (row blocks, members): one launch for a whole batch
 template <int D>
 void launch_small(const float* x, const float* y, const float* x_sq,
-                  const float* y_sq, int m, int n, int take_sqrt,
+                  const float* y_sq, int batch, int m, int n, int take_sqrt,
                   float* dmin, int* idx, cudaStream_t s) {
-  small_dim_kernel<D><<<(m + kSmallThreads - 1) / kSmallThreads,
-                        kSmallThreads, 0, s>>>(x, y, x_sq, y_sq, m, n,
-                                               take_sqrt, dmin, idx);
+  const dim3 grid((m + kSmallThreads - 1) / kSmallThreads, batch);
+  small_dim_kernel<D><<<grid, kSmallThreads, 0, s>>>(
+      x, y, x_sq, y_sq, m, n, take_sqrt, dmin, idx);
 }
 
 // the small-dim kernel unrolled for k = 1..kSmallDim
 using SmallLaunch = void (*)(const float*, const float*, const float*,
-                             const float*, int, int, int, float*, int*,
+                             const float*, int, int, int, int, float*, int*,
                              cudaStream_t);
 constexpr SmallLaunch kSmall[kSmallDim] = {
     launch_small<1>,  launch_small<2>,  launch_small<3>,  launch_small<4>,
@@ -170,18 +183,22 @@ extern "C" int raft_fused_l2_nn_simt(const void* x, const void* y,
   return (int)cudaGetLastError();
 }
 
-// the small-dim kernel, 1 <= k <= kSmallDim
+// the small-dim kernel, 1 <= k <= kSmallDim, over a batch of `batch`
+// independent problems laid out member after member: x (batch, m, k), y
+// (batch, n, k), their norms (batch, m) and (batch, n), outputs (batch, m);
+// member b's rows see only member b's rows of y.  batch 1 is one problem.
 extern "C" int raft_fused_l2_nn_small_dim(const void* x, const void* y,
                                           const void* x_sq, const void* y_sq,
-                                          int m, int n, int k, int take_sqrt,
-                                          void* dmin, void* idx,
-                                          void* stream) {
+                                          int batch, int m, int n, int k,
+                                          int take_sqrt, void* dmin,
+                                          void* idx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || k < 1 || k > kSmallDim) return (int)cudaErrorInvalidValue;
-  if (m > 0)
+  if (n < 1 || k < 1 || k > kSmallDim || batch < 0 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (m > 0 && batch > 0)
     kSmall[k - 1](static_cast<const float*>(x), static_cast<const float*>(y),
                   static_cast<const float*>(x_sq),
-                  static_cast<const float*>(y_sq), m, n, take_sqrt,
+                  static_cast<const float*>(y_sq), batch, m, n, take_sqrt,
                   static_cast<float*>(dmin), static_cast<int*>(idx), s);
   return (int)cudaGetLastError();
 }

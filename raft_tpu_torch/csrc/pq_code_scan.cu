@@ -35,6 +35,13 @@
 // current k-th distance and merges them with Kernel B's sort and rank
 // merge (scan_common.cuh); Kernel D selects each pair's top kt by kt
 // block-wide argmin rounds over the pair's distances in shared memory.
+// Where D's books and whole LUT do not fit in shared memory together
+// (rot 256, pq_dim 128, 8 bits is one shape the Pallas gate admits), it
+// reads the books from global memory (L2) and, where the LUT alone does
+// not fit either, builds and sums it in chunks of a multiple of 32
+// subspaces, each row's partial sum waiting in its distance slot: the sum
+// goes on in subspace order, so the chunks give the one-LUT result bit
+// for bit.
 // The cost of this design, as Kernel B's: a list is read once per query
 // that probes it, not once per batch.
 //
@@ -58,15 +65,11 @@ namespace {
 
 using namespace raft_scan;
 
-// Per probe: the bf16-rounded residual sub (s_sub), its fp32 squared
-// norm (*s_ssq) and the LUT (s_lut, pq_dim << kBits entries); ends with
-// the block synchronised.
-template <int kBits>
-__device__ void probe_lut(const float* __restrict__ qv,
+// Per probe: the bf16-rounded residual sub (s_sub) and its fp32 squared
+// norm (*s_ssq); ends with the block synchronised.
+__device__ void probe_sub(const float* __restrict__ qv,
                           const float* __restrict__ center, int rot,
-                          int pq_dim, int pq_len,
-                          const unsigned short* s_cb, float* s_sub,
-                          float* s_lut, float* s_ssq) {
+                          float* s_sub, float* s_ssq) {
   const int tid = threadIdx.x, lane = tid & 31;
   if (tid < 32) {
     float acc = 0.f;
@@ -81,61 +84,78 @@ __device__ void probe_lut(const float* __restrict__ qv,
     if (lane == 0) *s_ssq = acc;
   }
   __syncthreads();
-  const int n = pq_dim << kBits;
-  for (int idx = tid; idx < n; idx += kThreads) {
-    const int j = idx >> kBits;
-    const unsigned short* cb = s_cb + (size_t)idx * pq_len;
+}
+
+// The LUT of subspaces j_lo .. j_hi - 1 (s_lut, (j_hi - j_lo) << kBits
+// entries) from the bf16 books cb, staged in shared memory or read from
+// global memory (L2); ends with the block synchronised.
+template <int kBits>
+__device__ void chunk_lut(const unsigned short* cb, const float* s_sub,
+                          int pq_len, int j_lo, int j_hi, float* s_lut) {
+  const int n = (j_hi - j_lo) << kBits;
+  const int base = j_lo << kBits;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int j = j_lo + (idx >> kBits);
+    const unsigned short* c = cb + (size_t)(base + idx) * pq_len;
     const float* sj = s_sub + j * pq_len;
     float acc = 0.f;
     for (int l = 0; l < pq_len; ++l)
-      acc = fmaf(sj[l], bf_lo(cb[l]), acc);
+      acc = fmaf(sj[l], bf_lo(c[l]), acc);
     s_lut[idx] = acc;
   }
   __syncthreads();
 }
 
 // The LUT sum of the codes held in one little-endian word (its 4 bytes
-// carry codes j0 .. j0 + 32/kBits - 1), in subspace order.
+// carry codes j0 .. j0 + 32/kBits - 1) that fall below j_hi, in subspace
+// order; s_lut holds the subspaces from j_lo.
 template <int kBits>
-__device__ __forceinline__ float add_word(uint32_t w, int j0, int pq_dim,
-                                          const float* s_lut, float acc) {
+__device__ __forceinline__ float add_word(uint32_t w, int j0, int j_lo,
+                                          int j_hi, const float* s_lut,
+                                          float acc) {
   constexpr int kPer = 32 / kBits;
   constexpr uint32_t kMask = (1u << kBits) - 1u;
 #pragma unroll
   for (int f = 0; f < kPer; ++f) {
     const int j = j0 + f;
-    if (j < pq_dim) acc += s_lut[(j << kBits) + ((w >> (f * kBits)) & kMask)];
+    if (j < j_hi)
+      acc += s_lut[((j - j_lo) << kBits) + ((w >> (f * kBits)) & kMask)];
   }
   return acc;
 }
 
-// ip of one row of W code bytes: 16-byte loads when vec16 (W % 16 == 0
-// and the codes 16-byte aligned), else byte loads.
+// acc plus the LUT sum of subspaces j_lo .. j_hi - 1 of one row of W code
+// bytes: 16-byte loads when vec16 (W % 16 == 0 and the codes 16-byte
+// aligned), else byte loads.  j_lo * kBits is a multiple of 128 (a
+// chunk's codes start on a 16-byte boundary); over 0 .. pq_dim from 0 it
+// is the row's ip.
 template <int kBits>
 __device__ __forceinline__ float row_ip(const uint8_t* __restrict__ row,
-                                        int W, int pq_dim, bool vec16,
-                                        const float* s_lut) {
+                                        int W, int j_lo, int j_hi,
+                                        bool vec16, const float* s_lut,
+                                        float acc) {
   constexpr int kPer = 32 / kBits;
-  float acc = 0.f;
+  const int b_lo = j_lo * kBits / 8;
+  const int b_hi = min(W, (j_hi * kBits + 7) / 8);
   if (vec16) {
     const uint4* rv = reinterpret_cast<const uint4*>(row);
-    for (int ch = 0; ch < W / 16; ++ch) {
+    for (int ch = b_lo / 16; ch * 16 < b_hi; ++ch) {
       const uint4 u = __ldg(rv + ch);
       const int j0 = ch * 4 * kPer;
-      acc = add_word<kBits>(u.x, j0, pq_dim, s_lut, acc);
-      acc = add_word<kBits>(u.y, j0 + kPer, pq_dim, s_lut, acc);
-      acc = add_word<kBits>(u.z, j0 + 2 * kPer, pq_dim, s_lut, acc);
-      acc = add_word<kBits>(u.w, j0 + 3 * kPer, pq_dim, s_lut, acc);
+      acc = add_word<kBits>(u.x, j0, j_lo, j_hi, s_lut, acc);
+      acc = add_word<kBits>(u.y, j0 + kPer, j_lo, j_hi, s_lut, acc);
+      acc = add_word<kBits>(u.z, j0 + 2 * kPer, j_lo, j_hi, s_lut, acc);
+      acc = add_word<kBits>(u.w, j0 + 3 * kPer, j_lo, j_hi, s_lut, acc);
     }
   } else {
-    for (int wi = 0; wi * 4 < W; ++wi) {
+    for (int wi = b_lo / 4; wi * 4 < b_hi; ++wi) {
       uint32_t w = 0;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int bi = wi * 4 + b;
         if (bi < W) w |= static_cast<uint32_t>(__ldg(row + bi)) << (8 * b);
       }
-      acc = add_word<kBits>(w, wi * kPer, pq_dim, s_lut, acc);
+      acc = add_word<kBits>(w, wi * kPer, j_lo, j_hi, s_lut, acc);
     }
   }
   return acc;
@@ -187,17 +207,17 @@ codes_fused_kernel(const float* __restrict__ qrot,
   for (int p = 0; p < n_probes; ++p) {
     const int l = probes[(size_t)q * n_probes + p];
     if (l < 0 || l >= n_lists) continue;    // uniform across the block
-    if (tid == 0) s_cnt = 0;    // probe_lut synchronises before the rows
-    probe_lut<kBits>(qv, centers + (size_t)l * rot, rot, pq_dim, pq_len,
-                     s_cb, s_sub, s_lut, &s_ssq);
+    if (tid == 0) s_cnt = 0;    // probe_sub synchronises before the rows
+    probe_sub(qv, centers + (size_t)l * rot, rot, s_sub, &s_ssq);
+    chunk_lut<kBits>(s_cb, s_sub, pq_len, 0, pq_dim, s_lut);
     const float thr = s_topv[k - 1];        // current k-th best
     const float ssq = s_ssq;
     const size_t base = (size_t)l * cap;
     for (int r = tid; r < cap; r += kThreads) {
       const int id = ids[base + r];
       if (id < 0) continue;
-      const float ip = row_ip<kBits>(codes + (base + r) * W, W, pq_dim,
-                                     vec16 != 0, s_lut);
+      const float ip = row_ip<kBits>(codes + (base + r) * W, W, 0, pq_dim,
+                                     vec16 != 0, s_lut, 0.f);
       const float d = fmaxf(ssq + rsq[base + r] - 2.f * ip, 0.f);
       if (d < thr && (!kFilter || admits(frow, fw.n_words, id))) {
         const int pos = atomicAdd(&s_cnt, 1);
@@ -231,12 +251,13 @@ codes_pair_kernel(const float* __restrict__ qrot,
                   const unsigned short* __restrict__ books,
                   const float* __restrict__ rsq, const int* __restrict__ ids,
                   int n_probes, int n_lists, int cap, int rot, int pq_dim,
-                  int pq_len, int W, int vec16, int kt, const QueryWords fw,
+                  int pq_len, int W, int vec16, int kt, int lut_sub,
+                  int staged, const QueryWords fw,
                   float* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_dist = reinterpret_cast<float*>(smem);            // cap
-  float* s_lut = s_dist + cap;                               // pq_dim<<kBits
-  float* s_sub = s_lut + (pq_dim << kBits);                  // rot
+  float* s_lut = s_dist + cap;                               // lut_sub<<kBits
+  float* s_sub = s_lut + (lut_sub << kBits);                 // rot
   unsigned short* s_cb = reinterpret_cast<unsigned short*>(s_sub + rot);
   __shared__ float s_ssq;
   __shared__ float s_red_v[kWarps];
@@ -247,7 +268,11 @@ codes_pair_kernel(const float* __restrict__ qrot,
   const int tid = threadIdx.x;
   const float* qv = qrot + (size_t)q * rot;
   const int* frow = kFilter ? words_row(fw, q) : nullptr;
-  stage_books(books, (pq_dim << kBits) * pq_len, s_cb);
+  const unsigned short* cb = books;
+  if (staged) {
+    stage_books(books, (pq_dim << kBits) * pq_len, s_cb);
+    cb = s_cb;
+  }
 
   for (int p = 0; p < n_probes; ++p) {
     const size_t pair = (size_t)q * n_probes + p;
@@ -258,21 +283,29 @@ codes_pair_kernel(const float* __restrict__ qrot,
       write_empty_pair(kt, ov, oi);
       continue;
     }
-    probe_lut<kBits>(qv, centers + (size_t)l * rot, rot, pq_dim, pq_len,
-                     s_cb, s_sub, s_lut, &s_ssq);
+    probe_sub(qv, centers + (size_t)l * rot, rot, s_sub, &s_ssq);
     const float ssq = s_ssq;
     const size_t base = (size_t)l * cap;
-    for (int r = tid; r < cap; r += kThreads) {
-      const int id = ids[base + r];
-      float d = INFINITY;
-      if (id >= 0 && (!kFilter || admits(frow, fw.n_words, id))) {
-        const float ip = row_ip<kBits>(codes + (base + r) * W, W, pq_dim,
-                                       vec16 != 0, s_lut);
-        d = fmaxf(ssq + rsq[base + r] - 2.f * ip, 0.f);
+    // lut_sub subspaces at a time: a row's partial sum waits in s_dist
+    // and goes on in subspace order, so the chunks add up to the one-LUT
+    // value bit for bit
+    for (int j0 = 0; j0 < pq_dim; j0 += lut_sub) {
+      const int j1 = min(pq_dim, j0 + lut_sub);
+      const bool last = j1 == pq_dim;
+      chunk_lut<kBits>(cb, s_sub, pq_len, j0, j1, s_lut);
+      for (int r = tid; r < cap; r += kThreads) {
+        const int id = ids[base + r];
+        if (id < 0 || (kFilter && !admits(frow, fw.n_words, id))) {
+          if (last) s_dist[r] = INFINITY;
+          continue;
+        }
+        const float ip = row_ip<kBits>(codes + (base + r) * W, W, j0, j1,
+                                       vec16 != 0, s_lut,
+                                       j0 == 0 ? 0.f : s_dist[r]);
+        s_dist[r] = last ? fmaxf(ssq + rsq[base + r] - 2.f * ip, 0.f) : ip;
       }
-      s_dist[r] = d;
+      __syncthreads();
     }
-    __syncthreads();
     select_pair_topk(s_dist, ids + base, cap, kt, ov, oi, s_red_v, s_red_s,
                      &s_done);
   }
@@ -283,6 +316,10 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
+
+// Kernel D's LUT chunks hold a multiple of kLutStep subspaces, so each
+// chunk's codes start on a 16-byte boundary at 4 and 8 bits
+constexpr int kLutStep = 32;
 
 bool bad_shape(int rot, int pq_dim, int pq_bits, int W, int smem) {
   return (pq_bits != 4 && pq_bits != 8) || pq_dim < 1 || rot % pq_dim != 0
@@ -306,7 +343,7 @@ auto pair_kernel(int pq_bits) {
 
 // smem: the block's dynamic shared memory in bytes, the layout of the
 // kernel it launches, as ops/pq_code_scan.py's codes_fused_smem_bytes /
-// codes_smem_bytes size it (the one copy of the formulas; the gates hold
+// codes_layout size it (the one copy of the formulas; the gates hold
 // them to the card's limit and choose between C and D by them).
 // filter_words: null, or the queries' packed admission words (n_words
 // int32 a row, filter_stride words between two queries' rows, 0 for one
@@ -344,12 +381,14 @@ extern "C" int raft_ivf_pq_scan_codes(
     const void* qrot, const void* centers, const void* probes,
     const void* codes, const void* books, const void* rsq, const void* ids,
     int nq, int n_probes, int n_lists, int cap, int rot, int pq_dim,
-    int pq_bits, int W, int vec16, int kt, int smem, void* out_v,
-    void* out_i, const void* filter_words, int filter_stride, int n_words,
-    void* stream) {
+    int pq_bits, int W, int vec16, int kt, int smem, int lut_sub, int staged,
+    void* out_v, void* out_i, const void* filter_words, int filter_stride,
+    int n_words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const QueryWords fw = query_words(filter_words, filter_stride, n_words);
-  if (kt < 1 || bad_shape(rot, pq_dim, pq_bits, W, smem) || bad_words(fw))
+  if (kt < 1 || bad_shape(rot, pq_dim, pq_bits, W, smem) || bad_words(fw)
+      || lut_sub < 1 || (lut_sub < pq_dim && lut_sub % kLutStep != 0)
+      || (staged && lut_sub < pq_dim))
     return (int)cudaErrorInvalidValue;
   const int pq_len = rot / pq_dim;
   const auto kernel = fw.words != nullptr ? pair_kernel<true>(pq_bits)
@@ -362,7 +401,7 @@ extern "C" int raft_ivf_pq_scan_codes(
         static_cast<const int*>(probes), static_cast<const uint8_t*>(codes),
         static_cast<const unsigned short*>(books),
         static_cast<const float*>(rsq), static_cast<const int*>(ids),
-        n_probes, n_lists, cap, rot, pq_dim, pq_len, W, vec16, kt, fw,
-        static_cast<float*>(out_v), static_cast<int*>(out_i));
+        n_probes, n_lists, cap, rot, pq_dim, pq_len, W, vec16, kt, lut_sub,
+        staged, fw, static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,10 @@
 // and the pair's top kt comes out of kt block-wide argmin rounds
 // (scan_common.cuh).  A list is read once per query that probes it.
 //
+// Rows wider than 1,024 bytes (kWide) read the residual from shared
+// memory instead of registers, so every width the TPU kernel's gate takes
+// has a route here.
+//
 // Filters (kFilter; the TPU kernel's admission operand adm_words): the
 // block's query has one row of packed words; a row whose id it rejects is
 // not read and takes the dead row's +inf.  The unfiltered instantiation is
@@ -39,7 +43,9 @@ namespace {
 
 using namespace raft_scan;
 
-constexpr int kMaxChunksPerLane = 2;   // rot_pad <= 32 lanes * 2 * 16 = 1024
+// the residual in registers up to rot_pad 32 lanes * 2 * 16 = 1024; wider
+// rows (kWide) read it from shared memory
+constexpr int kMaxChunksPerLane = 2;
 
 __device__ __forceinline__ float i8(uint32_t w, int b) {
   return static_cast<float>(static_cast<int>(w << (24 - 8 * b)) >> 24);
@@ -62,7 +68,7 @@ __device__ __forceinline__ float dot16(const float* s, uint4 u, float acc) {
   return acc;
 }
 
-template <bool kFilter>
+template <bool kFilter, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 recon8_kernel(const float* __restrict__ qrot,
               const float* __restrict__ centers,
@@ -114,13 +120,15 @@ recon8_kernel(const float* __restrict__ qrot,
     __syncthreads();
     const float ssq = s_ssq;
     const float scale = scales[l];
-    float sreg[kMaxChunksPerLane][16];
+    float sreg[kWide ? 1 : kMaxChunksPerLane][16];
+    if (!kWide) {
 #pragma unroll
-    for (int j = 0; j < kMaxChunksPerLane; ++j) {
-      const int ch = lig + j * lpr;
+      for (int j = 0; j < kMaxChunksPerLane; ++j) {
+        const int ch = lig + j * lpr;
 #pragma unroll
-      for (int e = 0; e < 16; ++e)
-        sreg[j][e] = ch < nch ? s_sub[ch * 16 + e] : 0.f;
+        for (int e = 0; e < 16; ++e)
+          sreg[j][e] = ch < nch ? s_sub[ch * 16 + e] : 0.f;
+      }
     }
     const size_t base = (size_t)l * cap;
     // every lane runs every iteration, so the shuffles stay convergent
@@ -131,10 +139,17 @@ recon8_kernel(const float* __restrict__ qrot,
       float part = 0.f;
       if (id >= 0) {
         const uint4* row = data + (base + r) * nch;
+        if (kWide) {
+          // rows past the registers' 1,024 bytes: the residual is read
+          // from shared memory, chunk by chunk
+          for (int ch = lig; ch < nch; ch += lpr)
+            part = dot16(s_sub + ch * 16, __ldg(row + ch), part);
+        } else {
 #pragma unroll
-        for (int j = 0; j < kMaxChunksPerLane; ++j) {
-          const int ch = lig + j * lpr;
-          if (ch < nch) part = dot16(sreg[j], __ldg(row + ch), part);
+          for (int j = 0; j < kMaxChunksPerLane; ++j) {
+            const int ch = lig + j * lpr;
+            if (ch < nch) part = dot16(sreg[j], __ldg(row + ch), part);
+          }
         }
       }
       for (int off = lpr >> 1; off; off >>= 1)
@@ -166,14 +181,18 @@ extern "C" int raft_ivf_pq_scan_recon8(
     int filter_stride, int n_words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const QueryWords fw = query_words(filter_words, filter_stride, n_words);
-  if (kt < 1 || rot_pad % 16 != 0 || rot_pad < rot
-      || rot_pad / 16 > 32 * kMaxChunksPerLane || smem < 1 || bad_words(fw))
+  if (kt < 1 || rot_pad % 16 != 0 || rot_pad < rot || smem < 1
+      || bad_words(fw))
     return (int)cudaErrorInvalidValue;
   const int nch = rot_pad / 16;
   int lpr = 1;
   while (lpr < nch && lpr < 32) lpr <<= 1;
-  const auto kernel = fw.words != nullptr ? recon8_kernel<true>
-                                          : recon8_kernel<false>;
+  const bool wide = nch > 32 * kMaxChunksPerLane;
+  const auto kernel =
+      fw.words != nullptr ? (wide ? recon8_kernel<true, true>
+                                  : recon8_kernel<true, false>)
+                          : (wide ? recon8_kernel<false, true>
+                                  : recon8_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

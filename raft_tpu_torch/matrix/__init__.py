@@ -1,6 +1,5 @@
-"""Matrix primitives (port of ``raft_tpu.matrix``): ``select_k`` and
-``merge_topk``, ``row_duplicate_mask``, and the reference's other
-``matrix.ops`` names as stand-ins naming their ROADMAP item."""
+"""Matrix helpers (port of ``raft_tpu.matrix``): ``select_k`` and
+``merge_topk``, and the ``matrix.ops`` helpers."""
 
 from raft_tpu_torch.matrix.select_k import merge_topk, select_k  # noqa: F401
 from raft_tpu_torch.matrix.ops import (  # noqa: F401

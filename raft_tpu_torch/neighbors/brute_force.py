@@ -11,7 +11,8 @@ boundary`): under ``mask`` a non-finite query row returns the worst
 distance and id -1.  ``filter=`` admits rows by GLOBAL id (after the
 ``global_id_offset`` shift, so one filter covers a row-partitioned id
 space); a query with fewer admitted rows than k gets ``(worst, -1)`` on
-the rest.  ``knn_merge_parts`` is not ported yet (ROADMAP.md §1 item 5).
+the rest.  ``knn_merge_parts`` merges the results of row-partitioned
+parts.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.outputs import auto_convert_output, raw
-from raft_tpu_torch.core.error import expects, not_ported
-from raft_tpu_torch.core.mdarray import ensure_tensor
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.mdarray import as_tensor, ensure_tensor
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, SQRT_METRICS
 from raft_tpu_torch.filters.bitset import (BITS_PER_WORD, query_filter_words,
                                            words_on_device)
@@ -109,9 +110,44 @@ def knn(res, database, queries, k: int, *,
             best_d, best_i.int(), ok_rows, select_min=select_min)
 
 
+@auto_convert_output
 def knn_merge_parts(in_keys, in_values, *, n_samples=None,
-                    translations=None, select_min: bool = True):
-    raise not_ported("brute_force", "knn_merge_parts", "primitives")
+                    translations=None, select_min: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge kNN results of row-partitioned database parts (reference:
+    neighbors/brute_force.cuh:80 ``knn_merge_parts``): ``in_keys`` /
+    ``in_values`` (n_parts, q, k) distances / part-local ids; part p's ids
+    are shifted by ``translations[p]`` (default ``p * n_samples``, the
+    reference's uniform partition), then each query keeps the top k of the
+    union.  Ids keep ``in_values``' dtype.  Tensors stay where they are;
+    numpy inputs go to a tensor input's device, else to the card."""
+    dev = next((t.device for t in (in_keys, in_values)
+                if isinstance(t, torch.Tensor)), None)
+    in_keys, in_values = as_tensor(in_keys, dev), as_tensor(in_values, dev)
+    expects(in_keys.ndim == 3 and in_values.shape == in_keys.shape,
+            "knn_merge_parts: (n_parts, q, k) inputs required")
+    n_parts, nq, k = in_keys.shape
+    idx_t = in_values.dtype
+    if idx_t.is_floating_point or idx_t == torch.bool:
+        # the JAX package's np.iinfo refuses a non-integer id dtype
+        raise ValueError(f"knn_merge_parts: integer ids required, got "
+                         f"{idx_t}")
+    if translations is None:
+        expects(n_samples is not None,
+                "knn_merge_parts: need n_samples or translations")
+        expects((n_parts - 1) * int(n_samples)
+                <= torch.iinfo(idx_t).max,
+                "knn_merge_parts: global ids overflow the index dtype; pass "
+                "int64 in_values or explicit translations")
+        translations = torch.arange(n_parts, dtype=idx_t,
+                                    device=in_values.device) * n_samples
+    else:
+        translations = torch.as_tensor(translations).to(
+            device=in_values.device, dtype=idx_t)
+    ids = in_values + translations[:, None, None]
+    keys = in_keys.permute(1, 0, 2).reshape(nq, n_parts * k)
+    vals = ids.permute(1, 0, 2).reshape(nq, n_parts * k)
+    return raw(select_k)(keys, k, in_idx=vals, select_min=select_min)
 
 
 def tiled_brute_force_knn(res, database, queries, k: int, **kw

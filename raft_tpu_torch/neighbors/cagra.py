@@ -109,7 +109,7 @@ from raft_tpu_torch.ops import cagra_walk as _walk
 from raft_tpu_torch.ops.vmem_budget import merge_window_request
 from raft_tpu_torch.utils import precision
 
-# the walk primitives, under the JAX package's names
+# the walk building blocks, under the JAX package's names
 _merge_candidates = _hop.merge_candidates
 _bitonic_merge = _hop.bitonic_merge
 _select_parents = _walk.select_parents

@@ -10,15 +10,17 @@ JAX package, the same ``(distances, ids)`` contract (exhausted slots are
 
 Build: a random subsample trains the balanced coarse quantizer
 (:func:`raft_tpu_torch.cluster.kmeans_balanced.fit`, whose Lloyd passes
-are Kernel A, two-level from 8192 lists); per-subspace codebooks train
-with the same loop in plain PyTorch; every row is encoded, bit-packed and
-packed into padded lists; with ``cache_reconstructions`` the bf16
-reconstruction cache (``list_recon``, residual space) and its row norms
-are attached.
+are Kernel A, two-level from 8192 lists); the codebooks train with one
+batched balanced loop (one launch of Kernel H's small-dim kernel a turn
+over every subspace, or, with ``CodebookKind.PER_CLUSTER``, over every
+coarse list's sampled residual sub-rows); every row is encoded,
+bit-packed and packed into padded lists; with ``cache_reconstructions``
+the bf16 reconstruction cache (``list_recon``, residual space) and its row
+norms are attached.
 
 Search: rotate the queries, rank coarse probes exactly
 (:func:`raft_tpu_torch.neighbors.ivf_flat._select_clusters`), then the
-scan kernel chosen by ``scan_mode`` as the JAX package resolves it
+scan chosen by ``scan_mode`` as the JAX package resolves it
 (:func:`_resolve_mode`):
 
 - fused recon (``"auto"`` / ``"fused"`` with a recon cache and codes not
@@ -33,10 +35,24 @@ scan kernel chosen by ``scan_mode`` as the JAX package resolves it
   (:func:`raft_tpu_torch.ops.pair_scan.ivf_pq_scan_recon`), each (query,
   probe) pair's top kt, then each query's top k (:func:`_finalize_topk`);
 - ``"codes"``: Kernel D, each pair's top kt (list-major up to kt 64, as
-  C's pass 1), then the same finalize;
+  C's pass 1), then the same finalize; a shape both of D's routes refuse
+  (one the Pallas codes gate refuses too: D takes every shape that gate
+  admits) runs the lookup-table scan, as in the JAX package;
 - ``"recon8"``: Kernel E over the int8 cache (list-major up to kt 64, the
   codes pass with int8 rows; above, the query-major kernel), then the same
-  finalize.
+  finalize; past kt 128 the composition of the JAX package's XLA twin
+  (:func:`_search_recon8_wide`);
+- ``"lut"`` / ``use_reconstruction=False``, and fused / auto on an index
+  with no recon cache whose codes are not eligible (pq_bits outside {4,
+  8}, per-cluster codebooks): the lookup-table scan (:func:`_search_lut`), a
+  composition of the JAX package's ``_search_impl``, which runs no Pallas
+  kernel.
+
+InnerProduct: codes and recon8 resolve to recon, or to the lookup-table scan
+without a recon cache, as in the JAX package; recon is the composition of
+the JAX package's XLA twin (:func:`_search_recon_ip`; Kernels B and G,
+like their Pallas kernels, are L2 only, and a fused request counts a
+fallback with reason ``"dtype"``).
 
 The code and int8 caches are derived lazily by the first search that
 needs them (the recon cache too, with a warning, for ``"recon"`` on an
@@ -48,21 +64,17 @@ inside the scan kernels of every scan mode, on both routes: the
 list-major passes and the query-major kernels (a pair keeping more than
 64 rows, the codes pass at rot 256 with 8 bits or past kt 40 at rot 128,
 the int8 pass at rot_pad > 128 past kt 56) test the query's bit before a
-row can enter a pair's top kt; a rejected or exhausted slot is ``(+inf,
--1)``.
+row can enter a pair's top kt; the compositions (LUT, InnerProduct recon,
+wide recon8) fold it in before each pair's top kt too; a rejected or
+exhausted slot is ``(+inf, -1)`` (``(-inf, -1)`` at InnerProduct).
 
 Mutation (:mod:`raft_tpu_torch.neighbors.mutate`): :func:`delete`
 tombstones rows (every scan masks them), :func:`upsert` deletes and
 re-inserts under the same ids in one generation, :func:`compact` drops
 the tombstones, shrinks the capacity and rebuilds the derived caches the
 parent carried.  Each returns a new index, the next generation.
-
-Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
-item: every search that resolves to the LUT scan (pq_bits outside {4, 8}
-without a recon cache, per-pair code scans at kt > 128), recon8 scans at
-kt > 128 or, past kt 64, at a capacity the query-major kernel cannot hold,
-InnerProduct search, ``CodebookKind.PER_CLUSTER`` (a build, or a file
-holding per-cluster books) and ``calibrate_group_capacity``.
+:func:`calibrate_group_capacity` measures and stores ``group_est``, which
+the port's dispatch does not read.
 
 Persistence: :func:`serialize` / :func:`deserialize` / :func:`save` /
 :func:`load` write and read the JAX package's stream (version 4, the
@@ -102,12 +114,13 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core import serialize as ser
-from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.interruptible import interruptible
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.core.outputs import auto_convert_output
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS
-from raft_tpu_torch.filters.bitset import query_filter_words, words_on_device
+from raft_tpu_torch.filters.bitset import (query_bits, query_filter_words,
+                                           words_on_device)
 from raft_tpu_torch.integrity import boundary
 from raft_tpu_torch.integrity import canary as _canary
 from raft_tpu_torch.neighbors import ivf_flat
@@ -120,14 +133,11 @@ from raft_tpu_torch.neighbors.ivf_flat import (_LIST_ALIGN,
 from raft_tpu_torch.ops import pq_code_scan as pcs
 from raft_tpu_torch.ops.pair_scan import ivf_pq_scan_recon
 from raft_tpu_torch.ops.pq_code_scan import code_field as _code_field
-from raft_tpu_torch.ops.pq_group_scan import (ivf_pq_scan_fused,
+from raft_tpu_torch.ops.pq_group_scan import (ivf_pq_scan_fused, pair_topk,
+                                              probe_distances,
                                               scan_reject_reason)
 from raft_tpu_torch.ops.vmem_budget import merge_window_request
 from raft_tpu_torch.utils import precision
-
-
-def _not_ported(what: str, item: str):
-    return not_ported("ivf_pq", what, item)
 
 
 class CodebookKind:
@@ -163,21 +173,25 @@ class IndexParams:
 class SearchParams(ivf_flat.SearchParams):
     """Reference: ivf_pq_types.hpp:110 ``search_params`` (the JAX package's
     fields and defaults; ``n_probes``, ``coarse_recall_target`` and
-    ``exact_coarse`` from :class:`ivf_flat.SearchParams`).  On the ported
-    paths: ``n_probes``, ``scan_mode`` ("auto", "fused", "codes", "recon",
-    "recon8"; every resolution to the LUT scan raises),
+    ``exact_coarse`` from :class:`ivf_flat.SearchParams`).  ``n_probes``;
+    ``scan_mode`` ("auto", "fused", "codes", "recon", "recon8", "lut");
     ``use_reconstruction`` (the old override: True -> "recon", False ->
-    "lut") and ``per_probe_topk`` (each (query, probe) pair's kt; 0 -> k).
-    ``coarse_recall_target`` and ``exact_coarse`` have no effect: the
-    coarse ranking is always exact here.  ``merge_window`` sizes the TPU's
-    VMEM merge window: it is validated as the JAX package validates it
-    (:func:`raft_tpu_torch.ops.vmem_budget.merge_window_request`: "auto"
-    or an int >= 0, else ``ValueError``) on every search that does not
-    resolve to the LUT scan, and selects nothing.  ``packed_extract``
+    "lut"); ``per_probe_topk`` (each (query, probe) pair's kt; 0 -> k) on
+    the per-pair scans — the probe-order lookup-table scan keeps min(k, capacity) a
+    probe whatever it says, as the JAX package's does, so a fallback to it
+    errs toward more candidates; ``lut_dtype`` (float32, bfloat16 or
+    float16, a torch dtype or its name) rounds the lookup-table scan's table, whose
+    entries are summed in fp32.  ``internal_distance_dtype`` is accepted
+    and ignored, as the JAX package's lookup-table scan ignores it (the sums are
+    fp32).  ``coarse_recall_target`` and ``exact_coarse`` have no effect:
+    the coarse ranking is always exact here.  ``merge_window`` sizes the
+    TPU's VMEM merge window: it is validated as the JAX package validates
+    it (:func:`raft_tpu_torch.ops.vmem_budget.merge_window_request`:
+    "auto" or an int >= 0, else ``ValueError``) on every search that does
+    not resolve to the lookup-table scan, and selects nothing.  ``packed_extract``
     sizes a TPU-only mechanism and is accepted and ignored — the port's
     selection never truncates mantissa bits as the TPU's packed extraction
-    does; ``lut_dtype`` / ``internal_distance_dtype`` belong to the LUT
-    mode, not ported yet."""
+    does."""
 
     lut_dtype: object = torch.float32
     internal_distance_dtype: object = torch.float32
@@ -192,7 +206,8 @@ class SearchParams(ivf_flat.SearchParams):
 class Index:
     """Reference: ivf_pq_types.hpp:264 ``index``; the JAX package's fields.
 
-    ``codebooks``: (pq_dim, book, pq_len) f32; ``list_codes``: (n_lists,
+    ``codebooks``: (pq_dim, book, pq_len) f32 per-subspace, (n_lists,
+    book, pq_len) per-cluster; ``list_codes``: (n_lists,
     capacity, W) uint8 bit-packed codes, W = ceil(pq_dim*pq_bits/8);
     ``list_indices`` (n_lists, capacity) int32 with -1 padding;
     ``rotation`` (dim, rot_dim) orthonormal; ``list_recon`` (n_lists,
@@ -323,8 +338,9 @@ def _unpack_codes(packed: torch.Tensor, pq_dim: int, pq_bits: int
 
 # codebook k-means needs ~book_size * a-few-hundred rows
 _BOOK_TRAIN_ROWS = 65_536
-# rows per chunk of the (chunk, pq_dim, book) encode distances
-_ENCODE_CHUNK = 8192
+# bytes of one chunk's transients in the encode, the lookup-table scan and the
+# wide compositions: a few 2 GB steps, never a whole-batch tensor
+_CHUNK_BYTES = 2 << 30
 # rows per chunk of extend's rotate -> assign -> encode pipeline
 _EXTEND_CHUNK = 1 << 20
 
@@ -332,40 +348,109 @@ _EXTEND_CHUNK = 1 << 20
 def _train_books_per_subspace(resid_sub: torch.Tensor,
                               generator: torch.Generator, book_size: int,
                               n_iters: int) -> torch.Tensor:
-    """Balanced k-means per subspace, one after another (reference:
+    """Balanced k-means of every subspace at once (reference:
     train_per_subset, ivf_pq_build.cuh:337): (pq_dim, n, pq_len) ->
-    codebooks (pq_dim, book, pq_len).  Rows are subsampled to
-    _BOOK_TRAIN_ROWS by stride (the trainset is already shuffled)."""
+    codebooks (pq_dim, book, pq_len), one batched loop with B = pq_dim
+    (:func:`raft_tpu_torch.cluster.kmeans_balanced._balanced_loop_batched`:
+    one launch of Kernel H's small-dim kernel a turn; the JAX package
+    ``lax.map``s the subspaces, since its vmapped loop would materialise
+    the (pq_dim, n, book) distances, which Kernel H never does).  Rows are
+    subsampled to _BOOK_TRAIN_ROWS by stride (the trainset is already
+    shuffled)."""
     n = resid_sub.shape[1]
     if n > _BOOK_TRAIN_ROWS:
         stride = n // _BOOK_TRAIN_ROWS
         resid_sub = resid_sub[:, ::stride][:, :_BOOK_TRAIN_ROWS]
-    books = []
-    for sub in resid_sub:
-        stride = max(sub.shape[0] // book_size, 1)
-        c0 = sub[::stride][:book_size]
-        if c0.shape[0] < book_size:
-            c0 = torch.cat([c0, c0[-1:].expand(book_size - c0.shape[0],
-                                                -1)])
-        centers, _ = kmeans_balanced._balanced_loop(
-            sub, c0, generator, book_size, n_iters,
-            DistanceType.L2Expanded)
-        books.append(centers)
-    return torch.stack(books)
+    resid_sub = resid_sub.float().contiguous()
+    centers, _ = kmeans_balanced._balanced_loop_batched(
+        resid_sub, kmeans_balanced._strided_init(resid_sub, book_size),
+        generator,
+        book_size, n_iters)
+    return centers
 
 
-def _encode(codebooks: torch.Tensor, resid: torch.Tensor) -> torch.Tensor:
+# the flat sub-row an empty cluster trains on: the JAX package's top_k
+# over an all -inf row picks rows 0, 1, ..., and ``j mod 1`` keeps the
+# first
+_EMPTY_CLUSTER_ROW = 0
+
+
+def _sample_per_cluster(flat_labels: torch.Tensor,
+                        generator: torch.Generator, n_lists: int,
+                        per: int) -> torch.Tensor:
+    """(n_lists, per) flat sub-row indices, the JAX package's sampling
+    contract (``raft_tpu/neighbors/ivf_pq.py:584-598``) without its
+    (n_lists, n) gumbel matrix: each cluster takes a uniform sample of
+    ``per`` of its own sub-rows without replacement, cycles its members
+    as ``j mod n_valid`` when it has fewer, and an empty cluster takes
+    row :data:`_EMPTY_CLUSTER_ROW`.  One random permutation, then a
+    stable sort by label: each cluster's segment is its members in random
+    order, and it takes the segment's first ``per``."""
+    n = flat_labels.shape[0]
+    dev = flat_labels.device
+    perm = torch.randperm(n, generator=generator, device=dev)
+    sorted_lab, order = torch.sort(flat_labels[perm].long(), stable=True)
+    order = perm[order]
+    seg = torch.arange(n_lists, device=dev)
+    starts = torch.searchsorted(sorted_lab, seg)
+    counts = torch.searchsorted(sorted_lab, seg, right=True) - starts
+    j = torch.arange(per, device=dev)[None, :] % torch.clamp_min(
+        counts, 1)[:, None]
+    idx = order[torch.clamp(starts[:, None] + j, max=n - 1)]
+    return torch.where(counts[:, None] > 0, idx,
+                       torch.full_like(idx, _EMPTY_CLUSTER_ROW))
+
+
+def _train_books_per_cluster(flat: torch.Tensor, flat_labels: torch.Tensor,
+                             generator: torch.Generator, n_lists: int,
+                             book: int, n_iters: int) -> torch.Tensor:
+    """Per-cluster codebooks (reference: train_per_cluster,
+    ivf_pq_build.cuh:417; the JAX package's ``_train_books_per_cluster``):
+    ``per = max(book·4, 256)`` sampled residual sub-rows a coarse list
+    (:func:`_sample_per_cluster`), then ONE batched balanced loop over
+    every list, B = n_lists (one launch of Kernel H's small-dim kernel a
+    turn): flat (n, pq_len) -> codebooks (n_lists, book, pq_len)."""
+    per = max(book * 4, 256)
+    idx = _sample_per_cluster(flat_labels, generator, n_lists, per)
+    subsets = flat.float()[idx]                      # (n_lists, per, len)
+    centers, _ = kmeans_balanced._balanced_loop_batched(
+        subsets, kmeans_balanced._strided_init(subsets, book), generator,
+        book, n_iters)
+    return centers
+
+
+def _encode_chunk_rows(pq_dim: int, book: int, pq_len: int) -> int:
+    """Rows a chunk of :func:`_encode` takes so that its (rows, pq_dim,
+    book) products and distances (and per-cluster codebooks) stay near
+    :data:`_CHUNK_BYTES`."""
+    per_row = 4 * (2 * pq_dim * book + book * (pq_len + 1))
+    return max(1, _CHUNK_BYTES // per_row)
+
+
+def _encode(codebooks: torch.Tensor, resid: torch.Tensor,
+            codebook_kind: int = CodebookKind.PER_SUBSPACE,
+            labels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """PQ-encode residuals (n, pq_dim, pq_len) -> (n, pq_dim) uint8: the
-    per-subspace argmin over the codebook (reference:
-    process_and_fill_codes_kernel, ivf_pq_build.cuh:944), chunked."""
-    n, pq_dim, _ = resid.shape
-    cb_sq = (codebooks * codebooks).sum(-1)                 # (pq_dim, book)
+    argmin over the codebook of each subspace (reference:
+    process_and_fill_codes_kernel, ivf_pq_build.cuh:944), chunked; a
+    per-cluster index encodes each row against its list's book
+    (``labels``)."""
+    n, pq_dim, pq_len = resid.shape
+    book = codebooks.shape[1]
     out = torch.empty(n, pq_dim, dtype=torch.uint8, device=resid.device)
-    for s in range(0, n, _ENCODE_CHUNK):
-        ip = torch.einsum("njl,jkl->njk", resid[s:s + _ENCODE_CHUNK],
-                          codebooks)
-        d = cb_sq[None, :, :] - 2.0 * ip
-        out[s:s + ip.shape[0]] = torch.argmin(d, dim=-1).to(torch.uint8)
+    chunk = _encode_chunk_rows(pq_dim, book, pq_len)
+    if codebook_kind == CodebookKind.PER_SUBSPACE:
+        cb_sq = (codebooks * codebooks).sum(-1)             # (pq_dim, book)
+    for s in range(0, n, chunk):
+        r = resid[s:s + chunk]
+        if codebook_kind == CodebookKind.PER_SUBSPACE:
+            d = cb_sq[None, :, :] - 2.0 * torch.einsum("njl,jkl->njk", r,
+                                                       codebooks)
+        else:
+            cb = codebooks[labels[s:s + chunk].long()]      # (c, book, l)
+            d = (cb * cb).sum(-1)[:, None, :] - 2.0 * torch.einsum(
+                "njl,nkl->njk", r, cb)
+        out[s:s + r.shape[0]] = torch.argmin(d, dim=-1).to(torch.uint8)
     return out
 
 
@@ -381,8 +466,9 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
     ``resume=True`` the stages it holds are loaded instead of computed,
     and the handle's generator is set to the state saved with them."""
     from raft_tpu_torch.resilience import checkpoint as _ckpt
-    if params.codebook_kind != CodebookKind.PER_SUBSPACE:
-        raise _not_ported("CodebookKind.PER_CLUSTER", "per-cluster books")
+    expects(params.codebook_kind in (CodebookKind.PER_SUBSPACE,
+                                     CodebookKind.PER_CLUSTER),
+            f"ivf_pq.build: unknown codebook_kind {params.codebook_kind}")
     ckpt = _ckpt.as_manager(checkpoint)
     with precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
@@ -428,12 +514,21 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
         t = _stage(stages, "coarse_fit", t, dev)
 
         def fit_books():
-            """Per-subspace codebooks over the trainset's residuals."""
+            """Per-subspace or per-cluster codebooks over the trainset's
+            residuals."""
             labels_t = kmeans_balanced.predict(res, bal, train_rot, centers)
             resid = _subspace_split(train_rot - centers[labels_t], pq_dim)
-            return {"codebooks": _train_books_per_subspace(
-                resid.transpose(0, 1), res.generator, 1 << params.pq_bits,
-                params.kmeans_n_iters)}
+            book = 1 << params.pq_bits
+            if params.codebook_kind == CodebookKind.PER_SUBSPACE:
+                return {"codebooks": _train_books_per_subspace(
+                    resid.transpose(0, 1), res.generator, book,
+                    params.kmeans_n_iters)}
+            # one book per coarse list over its residual sub-rows; sub-row
+            # i belongs to trainset row i // pq_dim
+            return {"codebooks": _train_books_per_cluster(
+                resid.reshape(-1, resid.shape[2]),
+                labels_t.repeat_interleave(pq_dim), res.generator,
+                params.n_lists, book, params.kmeans_n_iters)}
 
         codebooks = _ckpt.run_stage(ckpt, "codebooks", resume,
                                     res.generator, dev,
@@ -517,9 +612,11 @@ def _extend(res, index: Index, new_vectors, new_indices) -> Index:
             lab_c = kmeans_balanced.predict(res, bal, rot_c, index.centers)
             cu = _encode(index.codebooks,
                          _subspace_split(rot_c - index.centers[lab_c],
-                                         index.pq_dim))
+                                         index.pq_dim),
+                         index.codebook_kind, lab_c)
             if want_recon_rows:
-                recon_parts.append(_decode_rows(index.codebooks, cu))
+                recon_parts.append(_decode_rows(index.codebooks, cu, lab_c,
+                                                index.codebook_kind))
             codes_parts.append(_pack_codes(cu, index.pq_bits))
             label_parts.append(lab_c)
         codes = torch.cat(codes_parts)
@@ -574,21 +671,46 @@ def _extend(res, index: Index, new_vectors, new_indices) -> Index:
 # ---------------------------------------------------------------------------
 
 def _decode_lists(codebooks: torch.Tensor, list_codes: torch.Tensor,
-                  pq_dim: int, pq_bits: int) -> torch.Tensor:
+                  pq_dim: int, pq_bits: int,
+                  codebook_kind: int = CodebookKind.PER_SUBSPACE
+                  ) -> torch.Tensor:
     """Every list's codes decoded to bf16 RESIDUAL reconstructions
-    (n_lists, capacity, rot_dim) = concat_j codebook_j[code_j], one
-    subspace at a time.  Padded slots decode code 0 to a real-looking row;
-    only their id (-1) masks them."""
-    expects(codebooks.shape[0] == pq_dim, "_decode_lists: pq_dim mismatch")
-    return pcs.decode_codes(list_codes, codebooks, pq_bits)
+    (n_lists, capacity, rot_dim) = concat_j codebook[code_j], one
+    subspace at a time: codebook_j's for per-subspace books, the list's
+    own book (``codebooks`` (n_lists, book, pq_len), one per list of
+    ``list_codes``) for per-cluster codebooks.  Padded slots decode code 0 to
+    a real-looking row; only their id (-1) masks them."""
+    if codebook_kind == CodebookKind.PER_SUBSPACE:
+        expects(codebooks.shape[0] == pq_dim,
+                "_decode_lists: pq_dim mismatch")
+        return pcs.decode_codes(list_codes, codebooks, pq_bits)
+    L, cap, _ = list_codes.shape
+    expects(codebooks.shape[0] == L, "_decode_lists: one book a list")
+    pq_len = codebooks.shape[2]
+    books = codebooks.to(torch.bfloat16)
+    lists = torch.arange(L, device=list_codes.device)[:, None]
+    out = torch.empty(L, cap, pq_dim * pq_len, dtype=torch.bfloat16,
+                      device=list_codes.device)
+    for j in range(pq_dim):
+        out[..., j * pq_len:(j + 1) * pq_len] = books[
+            lists, _code_field(list_codes, j, pq_bits)]
+    return out
 
 
-def _decode_rows(codebooks: torch.Tensor, codes: torch.Tensor
+def _decode_rows(codebooks: torch.Tensor, codes: torch.Tensor,
+                 labels: Optional[torch.Tensor] = None,
+                 codebook_kind: int = CodebookKind.PER_SUBSPACE
                  ) -> torch.Tensor:
-    """(n, pq_dim) codes -> (n, rot_dim) bf16 residual reconstructions."""
+    """(n, pq_dim) codes -> (n, rot_dim) bf16 residual reconstructions;
+    a per-cluster index decodes row i with the book of list
+    ``labels[i]``."""
     n, pq_dim = codes.shape
-    j = torch.arange(pq_dim, device=codes.device)[None, :]
-    return codebooks[j, codes.long()].reshape(n, -1).to(torch.bfloat16)
+    if codebook_kind == CodebookKind.PER_SUBSPACE:
+        j = torch.arange(pq_dim, device=codes.device)[None, :]
+        rows = codebooks[j, codes.long()]
+    else:
+        rows = codebooks[labels.long()[:, None], codes.long()]
+    return rows.reshape(n, -1).to(torch.bfloat16)
 
 
 def _recon_sq(list_recon: torch.Tensor) -> torch.Tensor:
@@ -604,7 +726,8 @@ def _recon_sq(list_recon: torch.Tensor) -> torch.Tensor:
 def _with_recon(index: Index) -> Index:
     """Attach the reconstruction cache and its squared norms."""
     index.list_recon = _decode_lists(index.codebooks, index.list_codes,
-                                     index.pq_dim, index.pq_bits)
+                                     index.pq_dim, index.pq_bits,
+                                     index.codebook_kind)
     index.list_recon_sq = _recon_sq(index.list_recon)
     return index
 
@@ -663,13 +786,16 @@ def _with_recon8(index: Index) -> Index:
     none, and only the int8 copy is kept.  Rows are padded to a multiple
     of 16 bytes for the kernel's 16-byte loads (the TPU pads to 128)."""
     rot_pad = _round_up(index.rot_dim, 16)
+    per_cluster = index.codebook_kind == CodebookKind.PER_CLUSTER
     parts = []
     for s in range(0, index.n_lists, _QUANT_LISTS):
         recon = (index.list_recon[s:s + _QUANT_LISTS]
                  if index.list_recon is not None else
-                 _decode_lists(index.codebooks,
+                 _decode_lists(index.codebooks[s:s + _QUANT_LISTS]
+                               if per_cluster else index.codebooks,
                                index.list_codes[s:s + _QUANT_LISTS],
-                               index.pq_dim, index.pq_bits))
+                               index.pq_dim, index.pq_bits,
+                               index.codebook_kind))
         parts.append(_quantize_recon(recon, rot_pad))
     index.list_recon_i8 = torch.cat([p[0] for p in parts])
     index.list_recon_scale = torch.cat([p[1] for p in parts])
@@ -718,6 +844,11 @@ def _resolve_mode(params: SearchParams, index: Index) -> Tuple[str, bool]:
     return mode, want_fused
 
 
+def _note_fused_fallback(reason: str) -> None:
+    search.fused_fallbacks += 1
+    search.last_fallback_reason = reason
+
+
 def _search_fused_recon(index, qrot, probes, k, kt, fw=None):
     """Kernel B over the bf16 recon cache, each query's top k in kernel;
     where Kernel B's gate refuses the shape, Kernel G + finalize, counted
@@ -725,8 +856,7 @@ def _search_fused_recon(index, qrot, probes, k, kt, fw=None):
     package's fused_fallback).  ``fw``: the filter's words, or None."""
     reason = scan_reject_reason(index.capacity, index.rot_dim, k, kt)
     if reason:
-        search.fused_fallbacks += 1
-        search.last_fallback_reason = reason
+        _note_fused_fallback(reason)
         return _search_recon(index, qrot, probes, k, kt, fw)
     if index.list_recon_sq is None:
         index.list_recon_sq = _recon_sq(index.list_recon)
@@ -756,13 +886,7 @@ def _search_fused_codes(index, qrot, probes, k, kt, fw=None):
 
 
 def _search_codes(index, qrot, probes, k, kt, fw=None):
-    """Kernel D over the packed codes, then each query's top k; a shape
-    both of D's routes refuse needs the LUT scan, not ported."""
-    reason = pcs.codes_reject_reason(index.capacity, index.rot_dim,
-                                     index.pq_dim, index.pq_bits, kt)
-    if reason:
-        raise _not_ported(f"the codes scan at this shape ({reason}), "
-                          "which needs the LUT scan", "LUT scan")
+    """Kernel D over the packed codes, then each query's top k."""
     vals, ids = pcs.ivf_pq_scan_codes(
         qrot, index.centers.float(), probes, index.list_codes,
         index.codebooks, index.list_code_rsq, index.list_indices,
@@ -772,20 +896,177 @@ def _search_codes(index, qrot, probes, k, kt, fw=None):
 
 def _search_recon8(index, qrot, probes, k, kt, fw=None):
     """Kernel E over the int8 recon cache, then each query's top k; a
-    shape both of E's routes refuse (kt > 128, or kt > 64 at a capacity
-    past the query-major kernel's shared memory) is a deferred item."""
+    shape both of E's routes refuse (kt > 128) runs the composition of the
+    JAX package's XLA twin (:func:`_search_recon8_wide`), as the JAX
+    package does past its kernel's gate."""
     if index.list_recon_i8 is None:
         _with_recon8(index)
-    reason = pcs.recon8_reject_reason(index.capacity,
-                                      index.list_recon_i8.shape[2], kt)
-    if reason:
-        raise _not_ported(f"the recon8 scan at this shape ({reason})",
-                          "wide recon8 scans")
+    if pcs.recon8_reject_reason(index.capacity,
+                                index.list_recon_i8.shape[2], kt):
+        return _search_recon8_wide(index, qrot, probes, k, kt, fw)
     vals, ids = pcs.ivf_pq_scan_recon8(
         qrot, index.centers.float(), probes, index.list_recon_i8,
         index.list_recon_scale, index.list_recon_i8_sq, index.list_indices,
         kt, filter_words=fw)
     return _finalize_topk(vals, ids, k, index.metric)
+
+
+def _query_chunk(bytes_per_query: int) -> int:
+    """Queries a step of a composition takes so that its transients stay
+    near :data:`_CHUNK_BYTES`."""
+    return max(1, _CHUNK_BYTES // max(1, bytes_per_query))
+
+
+def _search_recon8_wide(index, qrot, probes, k, kt, fw=None):
+    """The int8 scan past Kernel E's gates (kt > 128): a composition of
+    the JAX package's XLA twin (``raft_tpu/neighbors/ivf_pq.py:1333-1364``)
+    — ``d = max(‖sub‖² + rsq8 − 2·scale·(bf16(sub) · q8), 0)``, the dot
+    accumulated in fp32 and scaled after, each pair's top kt by (distance,
+    slot), then each query's top k — over chunks of queries."""
+    cap, rot_pad = index.list_recon_i8.shape[1:]
+    kt = min(kt, cap)
+    qp, cp, dot = pcs.recon8_plain_args(qrot, index.centers,
+                                        index.list_recon_i8,
+                                        index.list_recon_scale)
+    step = _query_chunk(probes.shape[1] * cap * (rot_pad + 16) * 4)
+    vals, ids = [], []
+    for s0 in range(0, qp.shape[0], step):
+        f = None if fw is None else fw[s0:s0 + step]
+        v, i = pair_topk(*probe_distances(
+            qp[s0:s0 + step], cp, probes[s0:s0 + step], index.list_indices,
+            index.list_recon_i8_sq, dot, f), kt)
+        vals.append(v)
+        ids.append(i)
+    return _finalize_topk(torch.cat(vals), torch.cat(ids), k, index.metric)
+
+
+def _search_recon_ip(index, qrot, probes, k, kt, fw=None):
+    """InnerProduct over the bf16 recon cache: a list-major composition of
+    the JAX package's XLA twin (``raft_tpu/neighbors/ivf_pq.py:1212-1218``;
+    its Pallas kernels, like Kernels B and G, are L2 only).  The (query,
+    probe) pairs grouped by list; per group ``d = bf16(q) · recon`` (fp32
+    accumulation) ``+ q · c`` (fp32), ``-inf`` on padding, tombstones and
+    rejected rows; each pair's top kt (the largest); then each query's top
+    k."""
+    from raft_tpu_torch.neighbors import grouped
+    nq, n_probes = probes.shape
+    P = nq * n_probes
+    recon = index.list_recon
+    n_lists, cap, rot = recon.shape
+    kt = min(kt, cap)
+    cf = index.centers.float()
+    qf = qrot.float()
+    group_list, slot_pairs = grouped.build_groups(probes, n_lists)
+    out_v = torch.full((P + 1, kt), float("-inf"), dtype=torch.float32,
+                       device=qf.device)
+    out_i = torch.full((P + 1, kt), -1, dtype=torch.int32, device=qf.device)
+    G = slot_pairs.shape[1]
+    step = max(1, _CHUNK_BYTES // (4 * cap * rot + 32 * G * cap
+                                    + 8 * G * rot))
+    for g0 in range(0, group_list.shape[0], step):
+        gl = group_list[g0:g0 + step].long()
+        slot = slot_pairs[g0:g0 + step].long()
+        qid = torch.where(slot < P, slot // n_probes,
+                          torch.zeros_like(slot))
+        qv = qf[qid]                                         # (B, G, rot)
+        ip = torch.matmul(qv.to(torch.bfloat16).float(),
+                          recon[gl].float().transpose(1, 2))  # (B, G, cap)
+        d = ip + (qv * cf[gl][:, None, :]).sum(-1)[..., None]
+        ids = index.list_indices[gl][:, None, :].expand(-1, G, -1)
+        keep = ids >= 0
+        if fw is not None:
+            keep = keep & (query_bits(fw, qid, ids) > 0)
+        d = torch.where(keep, d, torch.full_like(d, float("-inf")))
+        d, pos = torch.topk(d, kt, dim=-1, largest=True, sorted=True)
+        i = torch.gather(ids, -1, pos)
+        i = torch.where(torch.isinf(d), torch.full_like(i, -1), i)
+        out_v[slot.reshape(-1)] = d.reshape(-1, kt)
+        out_i[slot.reshape(-1)] = i.reshape(-1, kt).int()
+    return _finalize_topk(out_v[:P].reshape(nq, n_probes, kt),
+                          out_i[:P].reshape(nq, n_probes, kt), k,
+                          index.metric)
+
+
+def _lut_dtype(dtype) -> torch.dtype:
+    """``SearchParams.lut_dtype`` as a torch dtype: a torch dtype, or a
+    name or numpy / ml_dtypes dtype of float32, bfloat16 or float16."""
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        name = getattr(dtype, "name", None) or getattr(
+            dtype, "__name__", None) or str(dtype)
+        out = getattr(torch, str(name).split(".")[-1], None)
+    expects(out in (torch.float32, torch.bfloat16, torch.float16),
+            f"ivf_pq.search: lut_dtype {dtype!r} is not float32, bfloat16 "
+            f"or float16")
+    return out
+
+
+def _search_lut(index, qrot, probes, k, lut_dtype, fw=None):
+    """The lookup-table scan: a composition of the JAX package's ``_search_impl``
+    (``raft_tpu/neighbors/ivf_pq.py:1475-1558``), probe order, one probe
+    a step.  Per probe, each query's LUT (pq_dim, book): for L2 ``‖cb‖² −
+    2·r_j·cb`` over its residual subvectors ``r_j``, for InnerProduct
+    ``q_j·cb`` over its query subvectors, from the per-subspace books or
+    the probed list's own book (per-cluster), at fp32 (TF32 off), rounded
+    to ``lut_dtype``; a row's distance is its codes' LUT entries summed in
+    fp32, plus ``‖r‖²`` (L2) or ``q·c`` (InnerProduct).  Each probe keeps
+    kt = min(k, capacity) rows whatever ``per_probe_topk`` says (as the
+    JAX package does), then each query's top k.  Queries are chunked so
+    that a step's gather stays near :data:`_CHUNK_BYTES`."""
+    ip_metric = index.metric == DistanceType.InnerProduct
+    worst = float("-inf") if ip_metric else float("inf")
+    nq, n_probes = probes.shape
+    cap, pq_dim, pq_bits = index.capacity, index.pq_dim, index.pq_bits
+    book = index.pq_book_size
+    kt = min(k, cap)
+    per_cluster = index.codebook_kind == CodebookKind.PER_CLUSTER
+    cb = index.codebooks.float()
+    cb_sq = (cb * cb).sum(-1)                   # (pq_dim | n_lists, book)
+    cf = index.centers.float()
+    qf = qrot.float()
+    offs = (torch.arange(pq_dim, device=qf.device) * book)[None, None, :]
+    step = _query_chunk(cap * pq_dim * 40 + pq_dim * book * 12)
+    vals = torch.empty(nq, n_probes, kt, dtype=torch.float32,
+                       device=qf.device)
+    ids_out = torch.empty(nq, n_probes, kt, dtype=torch.int32,
+                          device=qf.device)
+    for s0 in range(0, nq, step):
+        q = qf[s0:s0 + step]
+        c = q.shape[0]
+        f = None if fw is None else fw[s0:s0 + step]
+        for p in range(n_probes):
+            lists = probes[s0:s0 + step, p].long()
+            sub = (q if ip_metric else q - cf[lists]).reshape(
+                c, pq_dim, -1)
+            if per_cluster:
+                ipj = torch.matmul(sub, cb[lists].transpose(1, 2))
+                bsq = cb_sq[lists][:, None, :]
+            else:
+                ipj = torch.einsum("qjl,jkl->qjk", sub, cb)
+                bsq = cb_sq[None]
+            lut = (ipj if ip_metric else bsq - 2.0 * ipj).to(lut_dtype)
+            codes = _unpack_codes(index.list_codes[lists], pq_dim, pq_bits)
+            flat = (codes.long() + offs).reshape(c, -1)
+            d = torch.gather(lut.reshape(c, -1), 1, flat).reshape(
+                c, cap, pq_dim).float().sum(-1)
+            if ip_metric:
+                d = d + (q * cf[lists]).sum(-1)[:, None]
+            else:
+                d = d + (sub * sub).sum((1, 2))[:, None]
+            ids = index.list_indices[lists]
+            keep = ids >= 0
+            if f is not None:
+                keep = keep & (query_bits(
+                    f, torch.arange(c, device=qf.device), ids) > 0)
+            d = torch.where(keep, d, torch.full_like(d, worst))
+            d, pos = torch.topk(d, kt, dim=1, largest=ip_metric,
+                                sorted=True)
+            i = torch.gather(ids, 1, pos)
+            vals[s0:s0 + c, p] = d
+            ids_out[s0:s0 + c, p] = torch.where(
+                torch.isinf(d), torch.full_like(i, -1), i)
+    return _finalize_topk(vals, ids_out, k, index.metric)
 
 
 @auto_convert_output
@@ -800,7 +1081,11 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
     gate refuses it); each fallback is counted in ``search.fused_fallbacks``
     with the gate's reason in ``search.last_fallback_reason``; recon ->
     Kernel G (building the recon cache first, with a warning, on an index
-    without one); codes -> Kernel D; recon8 -> Kernel E.
+    without one); codes -> Kernel D (the lookup-table scan where both of D's routes
+    refuse the shape, as the Pallas gate does); recon8 -> Kernel E (past kt 128 the composition of
+    the XLA twin); lut -> the lookup-table scan (a fused request counts reason
+    "mode").  InnerProduct: recon -> the composition of the XLA twin (a
+    fused request counts reason "dtype"), lut -> the lookup-table scan.
 
     ``filter`` (a :class:`~raft_tpu_torch.filters.SampleFilter`, one row
     broadcast to the batch, or an (nq, n_rows) bool mask) restricts each
@@ -834,17 +1119,16 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
     if fw is not None:
         fw = words_on_device(fw, queries.device)
     mode, want_fused = _resolve_mode(params, index)
-    if index.metric == DistanceType.InnerProduct:
-        raise _not_ported("InnerProduct search", "InnerProduct search")
-    expects(index.metric in L2_METRICS,
+    ip_metric = index.metric == DistanceType.InnerProduct
+    expects(index.metric in L2_METRICS or ip_metric,
             f"ivf_pq.search: metric {index.metric} not supported")
-    if mode == "lut" or (mode == "codes" and not _codes_mode_eligible(index)):
-        raise _not_ported(
-            f"a search resolving to the LUT scan (scan_mode="
-            f"{params.scan_mode!r}, use_reconstruction="
-            f"{params.use_reconstruction}, pq_bits {index.pq_bits})",
-            "LUT scan")
-    merge_window_request(params.merge_window)
+    if mode == "codes" and not _codes_mode_eligible(index):
+        mode = "lut"
+    if mode == "lut":
+        if want_fused:
+            _note_fused_fallback("mode")
+    else:
+        merge_window_request(params.merge_window)
     if mode == "recon" and index.list_recon is None:
         # scan_mode="recon" / use_reconstruction=True without a cache
         warnings.warn(
@@ -863,6 +1147,15 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
         qrot = queries.float() @ index.rotation
         probes = _select_clusters(index.centers, qrot, n_probes,
                                   index.metric)
+        if mode == "lut":
+            return _search_lut(index, qrot, probes, k,
+                               _lut_dtype(params.lut_dtype), fw)
+        if mode == "recon" and ip_metric:
+            if want_fused:
+                # Kernel B's gate refuses the metric, as the Pallas one
+                # does (reason "dtype")
+                _note_fused_fallback("dtype")
+            return _search_recon_ip(index, qrot, probes, k, kt, fw)
         if mode == "recon":
             return (_search_fused_recon if want_fused else _search_recon)(
                 index, qrot, probes, k, kt, fw)
@@ -876,8 +1169,15 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
                 k, kt)
             if not reason:
                 return _search_fused_codes(index, qrot, probes, k, kt, fw)
-            search.fused_fallbacks += 1
-            search.last_fallback_reason = reason
+            _note_fused_fallback(reason)
+        if pcs.codes_reject_reason(index.capacity, index.rot_dim,
+                                   index.pq_dim, index.pq_bits, kt):
+            # both of Kernel D's routes refuse the shape, and so does the
+            # Pallas gate (D takes every shape it admits): the lookup-table
+            # scan computes the same quantized distance (the JAX package's
+            # route past its codes kernel's gate)
+            return _search_lut(index, qrot, probes, k,
+                               _lut_dtype(params.lut_dtype), fw)
         return _search_codes(index, qrot, probes, k, kt, fw)
 
 
@@ -915,8 +1215,9 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray], *, metric: int,
     rejects) go through float32 to ``torch.bfloat16``, which is exact.
     ``pq_dim`` and ``group_est`` are the index's scalars of those names
     (0: ``pq_dim`` from the shapes, uncalibrated)."""
-    if codebook_kind != CodebookKind.PER_SUBSPACE:
-        raise _not_ported("CodebookKind.PER_CLUSTER", "per-cluster books")
+    expects(codebook_kind in (CodebookKind.PER_SUBSPACE,
+                              CodebookKind.PER_CLUSTER),
+            f"index_from_numpy: unknown codebook_kind {codebook_kind}")
     missing = [n for n in _LEAVES[:6] if arrays.get(n) is None]
     expects(not missing, f"index_from_numpy: missing arrays {missing}")
 
@@ -1030,12 +1331,36 @@ compact.cache_seconds = {}
 
 def calibrate_group_capacity(res, index: Index, queries,
                              n_probes: int) -> float:
-    """The JAX package sizes its grouped scans' static pair-group count
-    from a query batch; the port's list-major scans size their grids from
-    each batch's exact group count (``neighbors/grouped.build_groups``),
-    so whether ``Index.group_est`` keeps a meaning is decided with the
-    LUT scan (ROADMAP.md §1 item 4)."""
-    raise _not_ported("calibrate_group_capacity", "LUT scan")
+    """Measure the touched-list fraction of a representative batch and
+    store it as ``index.group_est`` (the JAX package's
+    ``calibrate_group_capacity``): touched lists / min(n_lists, P) under
+    the index's own coarse ranking, P = nq · n_probes; repeated calls
+    ratchet it up (max); it is serialized (v4).  Returns the stored
+    estimate.
+
+    It does not change the port's dispatch: the list-major kernels size
+    their grids from each batch's exact group count
+    (``neighbors/grouped.build_groups``), where the JAX package needs a
+    static capacity.  The value is kept, carried and written so that
+    files round-trip between the packages and a port-calibrated index
+    loads calibrated in ``raft_tpu``."""
+    from raft_tpu_torch.neighbors import grouped
+    queries = ensure_tensor(queries, res, "queries")
+    expects(queries.ndim == 2 and queries.shape[1] == index.dim,
+            "ivf_pq.calibrate_group_capacity: queries must be "
+            f"(n, {index.dim})")
+    n_probes = min(int(n_probes), index.n_lists)
+    expects(n_probes >= 1,
+            "ivf_pq.calibrate_group_capacity: n_probes must be >= 1")
+    with precision.highest():
+        qrot = queries.float() @ index.rotation
+        probes = _select_clusters(index.centers, qrot, n_probes,
+                                  index.metric)
+    P = int(queries.shape[0]) * n_probes
+    touched = int(grouped.touched_lists(probes, index.n_lists))
+    est = touched / max(min(index.n_lists, P), 1)
+    index.group_est = max(float(index.group_est), est)
+    return index.group_est
 
 
 # v2: list_codes are bit-packed; pq_dim is stored explicitly
@@ -1067,8 +1392,8 @@ def deserialize(res, stream: BinaryIO, *,
     """Read a stream either package wrote, onto ``res.device``; truncated
     or bit-flipped streams raise :class:`~raft_tpu_torch.core.serialize.
     CorruptIndexError`.  ``cache_reconstructions`` decodes the recon cache
-    again (:func:`_with_recon`).  A file holding per-cluster books raises
-    ``NotImplementedError`` (not ported yet)."""
+    again (:func:`_with_recon`).  Per-subspace and per-cluster codebooks
+    both load."""
     body = ser.open_envelope(stream)
     version = int(ser.deserialize_scalar(res, body))
     if not _MIN_READ_VERSION <= version <= _SERIALIZATION_VERSION:
@@ -1077,9 +1402,6 @@ def deserialize(res, stream: BinaryIO, *,
             f"expected {_MIN_READ_VERSION}..{_SERIALIZATION_VERSION}")
     metric = int(ser.deserialize_scalar(res, body))
     kind = int(ser.deserialize_scalar(res, body))
-    if kind != CodebookKind.PER_SUBSPACE:
-        raise _not_ported("loading CodebookKind.PER_CLUSTER",
-                          "per-cluster books")
     pq_bits = int(ser.deserialize_scalar(res, body))
     pq_dim = int(ser.deserialize_scalar(res, body))
     # pre-v4 streams carry no capacity estimate: the index loads
@@ -1089,8 +1411,8 @@ def deserialize(res, stream: BinaryIO, *,
     arrays = {name: ser.deserialize_mdspan(res, body)
               for name in _LEAVES[:6]}
     index = index_from_numpy(arrays, metric=metric, pq_bits=pq_bits,
-                             pq_dim=pq_dim, group_est=group_est,
-                             device=res.device)
+                             codebook_kind=kind, pq_dim=pq_dim,
+                             group_est=group_est, device=res.device)
     if version >= 3:
         index.canaries = _canary.from_stream(res, body)
     if cache_reconstructions:

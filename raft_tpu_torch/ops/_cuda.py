@@ -53,8 +53,8 @@ SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                                      _P, _P, _I, _I, _P),
     "raft_ivf_pq_scan_codes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I,
-                               _P),
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                               _I, _I, _P),
     "raft_ivf_pq_code_list_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                                    _I, _I, _P),
@@ -74,7 +74,8 @@ SIGNATURES = {
     "raft_row_gather": (_P, _P, _I, _I, _I, _P, _P),
     "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "raft_fused_l2_nn_simt": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "raft_fused_l2_nn_small_dim": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "raft_fused_l2_nn_small_dim": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                   _P),
     "raft_cagra_hop": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P),
     "raft_cagra_walk": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

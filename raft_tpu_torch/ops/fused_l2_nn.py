@@ -17,6 +17,9 @@ alone (:func:`route`), and runs :func:`fused_l2_nn_plain` for CPU tensors
 — nothing else picks between them, and a failed build or launch raises.
 ``fused_l2_nn.launches`` counts kernel launches, of either kernel;
 ``fused_l2_nn.small_dim_launches`` the small-dim kernel's among them.
+:func:`fused_l2_nn_batched` runs the small-dim kernel over a batch of
+independent problems of one shape in one launch (its own count,
+``fused_l2_nn_batched.launches``).
 :func:`fused_l2_nn_variant` reaches the kernels no entry point takes (the
 SIMT tile of ``csrc/nn_tile.cuh``, the k > 16 kernel before the
 tensor-core one, and the tensor-core pass at a fixed block size), for
@@ -176,7 +179,8 @@ def _launch(kernel: str, x, y, sqrt: bool, warpgroups: int = 0):
         status = lib.raft_fused_l2_nn(
             *head, warpgroups, nn_tf32_layout(k, warpgroups).as_c(), *tail)
     elif kernel == "small_dim":
-        status = lib.raft_fused_l2_nn_small_dim(*head, *tail)
+        status = lib.raft_fused_l2_nn_small_dim(*head[:4], 1, *head[4:],
+                                                *tail)
     else:
         status = lib.raft_fused_l2_nn_simt(*head, *tail)
     _cuda.check(status, f"fused_l2_nn ({kernel})")
@@ -201,6 +205,61 @@ def fused_l2_nn(x, y, sqrt: bool = False
 
 fused_l2_nn.launches = 0
 fused_l2_nn.small_dim_launches = 0
+
+
+def _check_batched(x, y):
+    expects(x.ndim == 3 and y.ndim == 3 and x.shape[0] == y.shape[0]
+            and x.shape[2] == y.shape[2],
+            "fused_l2_nn_batched: x (B, m, k) and y (B, n, k) required")
+    expects(y.shape[1] > 0 and 1 <= x.shape[2] <= SMALL_DIM,
+            f"fused_l2_nn_batched: y needs a row and 1 <= k <= {SMALL_DIM}")
+    expects(x.device == y.device,
+            "fused_l2_nn_batched: tensors on different devices")
+    return x.float(), y.float()
+
+
+def fused_l2_nn_batched_plain(x, y) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_l2_nn_batched`: a loop of
+    :func:`fused_l2_nn_plain` over the members."""
+    xf, yf = _check_batched(x, y)
+    B, m = xf.shape[:2]
+    dmin = torch.empty(B, m, dtype=torch.float32, device=xf.device)
+    idx = torch.empty(B, m, dtype=torch.int32, device=xf.device)
+    for b in range(B):
+        dmin[b], idx[b] = fused_l2_nn_plain(xf[b], yf[b])
+    return dmin, idx
+
+
+def fused_l2_nn_batched(x, y) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dmin (B, m) f32, idx (B, m) i32)``: :func:`fused_l2_nn` of each
+    member ``x[b]`` (m, k) against ``y[b]`` (n, k), ``1 <= k <=
+    SMALL_DIM``, member b's rows seeing only member b's centres.  CUDA
+    tensors launch the small-dim kernel ONCE for the whole batch (a grid
+    of row blocks by members; ``fused_l2_nn_batched.launches`` counts the
+    launches); CPU tensors run the plain version.  The IVF-PQ codebook
+    loops run every subspace (or every coarse list) through it a turn."""
+    if not x.is_cuda:
+        return fused_l2_nn_batched_plain(x, y)
+    xf, yf = _check_batched(x, y)
+    B, m, k = xf.shape
+    n = yf.shape[1]
+    expects(B <= 65535 and B * max(m, n) < 2 ** 31,
+            "fused_l2_nn_batched: at most 65535 members, sizes within int32")
+    xf, yf = xf.contiguous(), yf.contiguous()
+    x_sq = (xf * xf).sum(2)
+    y_sq = (yf * yf).sum(2)
+    dmin = torch.empty(B, m, dtype=torch.float32, device=xf.device)
+    idx = torch.empty(B, m, dtype=torch.int32, device=xf.device)
+    status = _cuda.library().raft_fused_l2_nn_small_dim(
+        xf.data_ptr(), yf.data_ptr(), x_sq.data_ptr(), y_sq.data_ptr(), B, m,
+        n, k, 0, dmin.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(xf.device).cuda_stream)
+    _cuda.check(status, "fused_l2_nn_batched")
+    fused_l2_nn_batched.launches += 1
+    return dmin, idx
+
+
+fused_l2_nn_batched.launches = 0
 
 # the kernels no entry point takes: name -> (kernel, warpgroups)
 VARIANTS = {"simt": ("simt", 0),

@@ -23,7 +23,10 @@ Kernels B and G have (E's below):
   (pass 2), in query chunks within ``PAIR_BUFFER_BYTES``;
 - **query-major** (larger kt): :func:`codes_fused_query_major` (C) and
   :func:`codes_scan_query_major` (D), ``csrc/pq_code_scan.cu``, one block
-  per query walking its probes through a per-pair LUT.
+  per query walking its probes through a per-pair LUT.  Where D's LUT and
+  books do not fit in shared memory together, it reads the books from
+  global memory and sums the LUT in chunks (:func:`codes_layout`), so D
+  takes every shape the Pallas ``supported_codes`` gate admits.
 
 Kernel E, :func:`ivf_pq_scan_recon8`, has the same two routes: at kt <=
 ``KT_LIST_MAX`` the pairs grouped by list and :func:`recon8_list_scan`
@@ -77,7 +80,7 @@ from raft_tpu_torch.ops.pq_group_scan import (K_MAX, KT_LIST_MAX,
                                               probe_distances, query_topk)
 
 KT_MAX = 128                     # per-pair kt, as the JAX package's _KT_MAX
-_MAX_ROT_PAD8 = 1024             # 32 lanes * kMaxChunksPerLane * 16
+LUT_STEP = 32                    # kLutStep in csrc/pq_code_scan.cu
 
 
 def code_field(packed: torch.Tensor, j: int, pq_bits: int) -> torch.Tensor:
@@ -150,11 +153,20 @@ def codes_fused_smem_bytes(cap: int, rot: int, pq_dim: int,
                  + rot) + _books_bytes(rot, pq_bits))
 
 
-def codes_smem_bytes(cap: int, rot: int, pq_dim: int, pq_bits: int) -> int:
-    """Kernel D's query-major route: the pair's distances, LUT, residual
-    and bf16 books, as ``codes_pair_kernel`` lays them out."""
-    return (4 * (cap + (pq_dim << pq_bits) + rot)
-            + _books_bytes(rot, pq_bits))
+def codes_layout(cap: int, rot: int, pq_dim: int, pq_bits: int
+                 ) -> Tuple[int, int, bool]:
+    """Kernel D's query-major route, as ``codes_pair_kernel`` lays it out:
+    ``(shared-memory bytes, subspaces a LUT chunk holds, books staged)``.
+    The pair's distances, the LUT, the residual and, where they fit, the
+    bf16 books (``(smem, pq_dim, True)``); else the books stay in global
+    memory and the LUT is built and summed in chunks of a multiple of
+    ``LUT_STEP`` subspaces, as many as fit (0 when not even one does)."""
+    full = 4 * (cap + (pq_dim << pq_bits) + rot) + _books_bytes(rot, pq_bits)
+    if full <= _SMEM_LIMIT:
+        return full, pq_dim, True
+    fit = (_SMEM_LIMIT - 4 * (cap + rot)) // (4 * (LUT_STEP << pq_bits))
+    lut_sub = min(pq_dim, max(fit, 0) * LUT_STEP)
+    return 4 * (cap + (lut_sub << pq_bits) + rot), lut_sub, False
 
 
 def recon8_list_scan_smem_bytes(rot_pad: int, kt: int) -> int:
@@ -237,9 +249,10 @@ def codes_query_major_reject_reason(cap: int, rot: int, pq_dim: int,
         return reason
     if not 0 < kt <= KT_MAX:
         return f"kt={kt} outside 1..{KT_MAX}"
-    return _smem_reason(codes_smem_bytes(cap, rot, pq_dim, pq_bits),
-                        f"list capacity {cap} with a {pq_dim}x{1 << pq_bits} "
-                        f"LUT")
+    if not codes_layout(cap, rot, pq_dim, pq_bits)[1]:
+        return (f"list capacity {cap} leaves no room in shared memory (limit "
+                f"{_SMEM_LIMIT}) for a LUT of {LUT_STEP} subspaces")
+    return ""
 
 
 def _either_route(listed: str, walked: str) -> str:
@@ -305,9 +318,6 @@ def recon8_query_major_reject_reason(cap: int, rot_pad: int, kt: int) -> str:
     reason = _recon8_width_reason(rot_pad)
     if reason:
         return reason
-    if rot_pad > _MAX_ROT_PAD8:
-        return (f"int8 row width {rot_pad} above {_MAX_ROT_PAD8} (the "
-                f"query-major route's 16-byte row loads)")
     if not 0 < kt <= KT_MAX:
         return f"kt={kt} outside 1..{KT_MAX}"
     return _smem_reason(recon8_smem_bytes(cap, rot_pad),
@@ -639,7 +649,7 @@ def codes_scan_query_major(qrot, centers, probes, list_codes, codebooks,
         codes.data_ptr(), books.data_ptr(), list_rsq.data_ptr(),
         list_indices.data_ptr(), nq, n_probes, centers.shape[0], cap, rot,
         pq_dim, pq_bits, W, int(W % 16 == 0), kt,
-        codes_smem_bytes(cap, rot, pq_dim, pq_bits), vals.data_ptr(),
+        *codes_layout(cap, rot, pq_dim, pq_bits), vals.data_ptr(),
         ids.data_ptr(), *fargs, _stream(qrot.device))
     _cuda.check(status, "codes_scan_query_major")
     codes_scan_query_major.launches += 1
@@ -699,9 +709,9 @@ def _check_recon8(what, qrot, centers, probes, recon_i8, scales, rsq8,
     return cap, recon_i8.shape[2]
 
 
-def _recon8_plain_args(qrot, centers, recon_i8, scales):
-    """The plain versions' queries and centers zero-padded to the cache's
-    row width, and their ``dot``: the fp32 dot of the int8 rows with
+def recon8_plain_args(qrot, centers, recon_i8, scales):
+    """The plain versions' (and the wide recon8 composition's) queries and
+    centers zero-padded to the cache's row width, and their ``dot``: the fp32 dot of the int8 rows with
     ``bf16(sub)``, scaled by the list's scale after it is summed."""
     pad = recon_i8.shape[2] - qrot.shape[1]
 
@@ -728,7 +738,7 @@ def ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8, scales, rsq8,
     dot scaled after it is summed, each pair's top kt."""
     cap, _ = _check_recon8("ivf_pq_scan_recon8", qrot, centers, probes,
                            recon_i8, scales, rsq8, list_indices)
-    qrot, centers, dot = _recon8_plain_args(qrot, centers, recon_i8, scales)
+    qrot, centers, dot = recon8_plain_args(qrot, centers, recon_i8, scales)
     kt = min(kt, cap)
     parts = [pair_topk(*probe_distances(q, centers, p, list_indices, rsq8,
                                         dot, f), kt)
@@ -745,7 +755,7 @@ def recon8_list_scan_plain(qrot, centers, probes, group_list, slot_pairs,
     version's padded queries and scaled int8 dot."""
     cap, _ = _check_recon8("recon8_list_scan", qrot, centers, probes,
                            recon_i8, scales, rsq8, list_indices)
-    qrot, centers, dot = _recon8_plain_args(qrot, centers, recon_i8, scales)
+    qrot, centers, dot = recon8_plain_args(qrot, centers, recon_i8, scales)
     return grouped_pair_topk(qrot, centers, probes, group_list, slot_pairs,
                              rsq8, list_indices, min(kt, cap), dot,
                              filter_words)

@@ -384,9 +384,29 @@ def odd_bits_index():
     dict(scan_mode="codes"), dict(use_reconstruction=False)],
     ids=["auto", "fused", "codes", "use_reconstruction_false"])
 def test_searches_resolving_to_lut_raise(odd_bits_index, change):
+    """Each search the JAX package sends to the LUT scan runs the port's
+    (shipped): the JAX package's ``_search_impl`` on the same arrays and
+    probes gives the same result (fp32 LUT: distances within 1e-5
+    relative, ids tie-aware), and a fused or auto request counts one
+    fallback, reason "mode"."""
     res, index, db = odd_bits_index
-    with pytest.raises(NotImplementedError, match="LUT scan"):
-        ivf_pq.search(res, ivf_pq.SearchParams(**change), index, db[:2], 5)
+    before = ivf_pq.search.fused_fallbacks
+    d, i = ivf_pq.search(res, ivf_pq.SearchParams(n_probes=8, **change),
+                         index, db[:6], 5)
+    fused = change.get("scan_mode") in ("auto", "fused")
+    assert ivf_pq.search.fused_fallbacks == before + int(fused)
+    if fused:
+        assert ivf_pq.search.last_fallback_reason == "mode"
+    rd, ri = jax_ivf_pq._search_impl(
+        index.centers.numpy(), index.codebooks.numpy(),
+        index.list_codes.numpy(), index.list_indices.numpy(),
+        index.rotation.numpy(), jnp.asarray(db[:6]), 5, 8, index.metric,
+        index.codebook_kind, "float32", pq_bits=5, exact_coarse=True)
+    rd, ri = np.asarray(rd), np.asarray(ri)
+    np.testing.assert_allclose(d.numpy(), rd, rtol=1e-5, atol=1e-5)
+    for prow, pids, rrow, rids in zip(d.numpy(), i.numpy(), rd, ri):
+        inner = rrow < rrow[-1] - 1e-4 * (1 + rrow[-1])
+        assert set(pids[inner]) == set(rids[inner])
 
 
 def test_recon8_serves_an_index_the_code_scans_cannot(odd_bits_index):
@@ -478,11 +498,13 @@ def test_build_records_its_stage_seconds():
 
 
 def test_recon8_beyond_its_kernel_raises(carried, monkeypatch):
-    """kt above 128 is past Kernel E (the JAX package runs an XLA twin
-    there): the search names the deferred item instead of detouring.  A
-    capacity only the query-major kernel refuses (its shared memory made
-    to exceed the card here) is served by the list-major route at kt <=
-    64 and deferred above."""
+    """kt above 128 is past Kernel E, where the JAX package runs its XLA
+    twin: the port runs the twin's composition (shipped), and the JAX
+    package's recon8 search at kt 129 gives the same result (within
+    1e-4, ids tie-aware).  A capacity only the query-major kernel refuses
+    (its shared memory made to exceed the card here) is served by the
+    list-major route at kt <= 64 and by the composition above, equal to
+    the kernel's plain version bit for bit."""
     _, q, built = carried
     port = _carry(built[8][0])
     assert port.capacity > 129
@@ -493,12 +515,16 @@ def test_recon8_beyond_its_kernel_raises(carried, monkeypatch):
             n_probes=N_PROBES, scan_mode="recon8", per_probe_topk=kt),
             port, q[:2], K)
 
-    with pytest.raises(NotImplementedError, match="wide recon8 scans"):
-        search(129)
-    want = search(64)
+    got = search(129)
+    rd, ri = jax_ivf_pq.search(JaxResources(seed=0), jax_ivf_pq.SearchParams(
+        n_probes=N_PROBES, scan_mode="recon8", per_probe_topk=129,
+        exact_coarse=True), built[8][0], q[:2], K)
+    _assert_same_results(got[0].numpy(), got[1].numpy(), np.asarray(rd),
+                         np.asarray(ri))
+    want, want65 = search(64), search(65)
     monkeypatch.setattr(pcs, "recon8_smem_bytes",
                         lambda cap, rot_pad: pcs._SMEM_LIMIT + 1)
     got = search(64)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    with pytest.raises(NotImplementedError, match="wide recon8 scans"):
-        search(65)
+    got = search(65)
+    assert torch.equal(got[0], want65[0]) and torch.equal(got[1], want65[1])

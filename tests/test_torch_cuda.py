@@ -360,6 +360,40 @@ def test_code_scans_route_by_kt(dev, kt, fused):
     _assert_kernel_matches_plain(vk, ik, vp, ip)
 
 
+@pytest.mark.parametrize("cap,pq_dim,pq_len,pq_bits,kt,chunks,filtered", [
+    (416, 128, 2, 8, 100, 1, False),    # the books read from L2
+    (416, 128, 2, 8, 128, 1, True),
+    (416, 256, 1, 8, 100, 2, False),    # the LUT in chunks of 224 + 32
+    (416, 232, 1, 8, 100, 2, True),     # byte loads (W 232): 224 + 8
+    (64, 4096, 1, 4, 100, 2, False)])   # 4 bits, chunks of 3,360 + 736
+def test_codes_pair_kernel_past_its_shared_memory_matches_plain(
+        dev, cap, pq_dim, pq_len, pq_bits, kt, chunks, filtered):
+    """Kernel D's query-major route where its books and whole LUT do not
+    fit in shared memory together (shapes the Pallas codes gate admits):
+    the books read from global memory, the LUT summed in chunks of
+    ``LUT_STEP`` subspaces, held to the plain version as at the other
+    shapes; with a filter, every id admitted."""
+    smem, lut_sub, staged = pcs.codes_layout(cap, pq_dim * pq_len, pq_dim,
+                                             pq_bits)
+    assert not staged and -(-pq_dim // lut_sub) == chunks
+    n_lists, nq, n_probes = 16, 40, 8
+    centers, codes, books, rsq, ids, *_ = _random_code_index(
+        dev, n_lists, cap, pq_dim, pq_len, pq_bits, pq_dim + kt)
+    qrot, probes = _queries(dev, nq, pq_dim * pq_len, n_lists, n_probes)
+    fw = (_filter_words(dev, nq, n_lists * cap, 0.5, False, kt)
+          if filtered else None)
+    before = _code_routes()
+    vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books, rsq,
+                                   ids, pq_bits, kt, fw)
+    torch.cuda.synchronize()
+    assert tuple(_code_routes() - before) == (0, 0, 0, 1)
+    vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes, books,
+                                         rsq, ids, pq_bits, kt, fw)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+    if filtered:
+        _assert_admitted(ik, fw)
+
+
 # (rot, pq_dim, pq_bits, kt) the list-major codes pass takes (the
 # flagship's 8-bit books do not fit beside kt 64's top rows)
 BIT_EQUAL_SHAPES = [
@@ -927,6 +961,68 @@ def test_fused_l2_nn_small_dim_kernel_is_bit_equal_to_plain(dev, dim, n):
     else:
         _assert_nn_matches_plain(x, y, dk, ik)
     assert int(ik[0]) == 5
+
+
+@pytest.mark.parametrize("B,m,n,dim", [(1, 3000, 256, 2), (64, 4096, 256, 2),
+                                       (300, 1024, 256, 2), (7, 999, 33, 5),
+                                       (3, 100, 1000, 16)])
+def test_fused_l2_nn_batched_kernel_matches_plain(dev, B, m, n,
+                                                   dim):
+    """Kernel H's small-dim kernel with a batch axis: ONE launch for all
+    members, each member's rows seeing only its own centres.  Each member
+    equals the one-member kernel (``fused_l2_nn`` on that member) bit for
+    bit, so no member reads another's offsets; against the plain loop
+    over the members it is held tie-aware, within 1e-5 of ‖x‖² + max
+    ‖y‖² (the plain version's fp32 product is cuBLAS's, whose summation
+    order need not be the kernel's dimension order); a duplicated centre
+    resolves to its first copy."""
+    rng = np.random.default_rng(B + m + n + dim)
+    x = torch.from_numpy(rng.normal(size=(B, m, dim)).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(B, n, dim)).astype(
+        np.float32)).to(dev)
+    y[:, n - 1] = y[:, 5]
+    x[:, 0] = y[:, 5] + 1e-3
+    before = fnn.fused_l2_nn_batched.launches
+    dk, ik = fnn.fused_l2_nn_batched(x, y)
+    torch.cuda.synchronize()
+    assert fnn.fused_l2_nn_batched.launches == before + 1
+    small = fnn.fused_l2_nn.small_dim_launches
+    for b in range(B):
+        d1, i1 = fnn.fused_l2_nn(x[b], y[b])
+        assert torch.equal(dk[b], d1) and torch.equal(ik[b], i1), b
+        _assert_nn_matches_plain(x[b], y[b], dk[b], ik[b])
+    assert fnn.fused_l2_nn.small_dim_launches == small + B
+    assert bool((ik[:, 0] == 5).all())
+
+
+def test_numpy_input_lands_on_the_card(dev):
+    """The entry points without a handle (``matrix.ops``,
+    ``knn_merge_parts``, ``random.permute``) put numpy input on the card,
+    and compute what they compute on the CPU."""
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch.matrix import ops
+    from raft_tpu_torch.neighbors import brute_force
+
+    rng = np.random.default_rng(0)
+    m = rng.normal(size=(7, 5)).astype(np.float32)
+    idx = np.array([4, 0, 4, 6], np.int32)
+    for got, want in (
+            (ops.argmax(m), ops.argmax(torch.from_numpy(m))),
+            (ops.gather(m, idx), ops.gather(torch.from_numpy(m), idx)),
+            (ops.reverse(m), ops.reverse(torch.from_numpy(m)))):
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), want)
+    keys = np.sort(rng.normal(size=(3, 6, 4)).astype(np.float32), axis=2)
+    vals = rng.integers(0, 50, size=(3, 6, 4)).astype(np.int32)
+    d, i = brute_force.knn_merge_parts(keys, vals, n_samples=50)
+    dc, ic = brute_force.knn_merge_parts(torch.from_numpy(keys),
+                                         torch.from_numpy(vals), n_samples=50)
+    assert d.is_cuda and i.is_cuda
+    assert torch.equal(d.cpu(), dc) and torch.equal(i.cpu(), ic)
+    out, perm = rnd.permute(5, m)
+    assert out.is_cuda and perm.is_cuda
+    assert torch.equal(out.cpu(), torch.from_numpy(m)[perm.cpu().long()])
 
 
 def test_pair_scans_and_fused_l2_nn_reject_what_they_cannot_hold(dev):

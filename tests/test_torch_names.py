@@ -8,7 +8,9 @@ modules the port has shipped (``core.error``, ``core.resources``,
 persistence slice's ``core.serialize``, ``core.interruptible``,
 ``core.outputs``, ``config``, ``integrity.canary`` and the four
 ``resilience`` modules; the filters slice's ``filters`` package and its
-``bitset``, ``tenant`` and ``hybrid`` modules, and ``neighbors.mutate``)
+``bitset``, ``tenant`` and ``hybrid`` modules, and ``neighbors.mutate``;
+the rest of IVF-PQ's ``neighbors.ivf_pq_helpers`` and the primitives'
+``random`` package and its ``rng`` and ``generators`` modules)
 resolves in ``raft_tpu_torch`` to the
 same kind of object (module, class, function, or a constant of the same
 type), or to a stand-in that raises ``NotImplementedError`` naming an
@@ -42,14 +44,16 @@ from raft_tpu_torch.utils import precision
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGES = ["", ".core", ".distance", ".cluster", ".matrix", ".neighbors",
-            ".integrity", ".resilience", ".filters"]
+            ".integrity", ".resilience", ".filters", ".random"]
 SHIPPED_MODULES = [".core.error", ".core.resources", ".core.mdarray",
                    ".utils.precision", ".matrix.ops", ".core.serialize",
                    ".core.interruptible", ".core.outputs", ".config",
                    ".integrity.canary", ".resilience.faults",
                    ".resilience.retry", ".resilience.checkpoint",
                    ".resilience.io", ".filters.bitset", ".filters.tenant",
-                   ".filters.hybrid", ".neighbors.mutate"]
+                   ".filters.hybrid", ".neighbors.mutate",
+                   ".neighbors.ivf_pq_helpers", ".random.rng",
+                   ".random.generators"]
 
 
 def _deferred_items():
@@ -143,12 +147,14 @@ def _assert_counterpart(ref, port_module, name, where):
 
 
 def test_the_deferred_list_is_read():
-    assert {"primitives", "the tail", "host-side subsystems"} <= DEFERRED
+    assert {"the tail", "host-side subsystems"} <= DEFERRED
     # shipped with the persistence slice, with the filters and mutation
-    # slice, and with the filters of the query-major routes: no stand-in
-    # may name them
+    # slice, with the filters of the query-major routes, and with the rest
+    # of IVF-PQ and the primitives: no stand-in may name them
     assert not {"serialization", "canaries", "checkpointing", "filters",
-                "mutation", "filters on the query-major routes"} & DEFERRED
+                "mutation", "filters on the query-major routes",
+                "primitives", "LUT scan", "InnerProduct search",
+                "per-cluster books", "wide recon8 scans"} & DEFERRED
 
 
 def test_persistence_names_are_the_ported_objects():

@@ -196,6 +196,39 @@ def test_extend_fast_path_appends_with_the_recon_cache(tiny_index):
                                ivf_pq._recon_sq(out.list_recon))
 
 
+def _jax_lut(index, q, k, n_probes, filter_words=None):
+    """The JAX package's LUT scan (``_search_impl``) on the port's index
+    arrays, at the exact coarse ranking."""
+    import jax.numpy as jnp
+    from raft_tpu.neighbors import ivf_pq as jax_ivf_pq
+
+    rd, ri = jax_ivf_pq._search_impl(
+        index.centers.numpy(), index.codebooks.numpy(),
+        index.list_codes.numpy(), index.list_indices.numpy(),
+        index.rotation.numpy(), jnp.asarray(q), k, n_probes, index.metric,
+        index.codebook_kind, "float32", pq_bits=index.pq_bits,
+        exact_coarse=True, filter_words=filter_words)
+    return np.asarray(rd), np.asarray(ri)
+
+
+def _assert_tie_aware(d, i, rd, ri, rtol=1e-5):
+    """Distances within ``rtol`` relative at every rank, the same
+    exhausted ranks, and the same ids strictly inside each row's last
+    kept distance (ids may differ only among ties at the edge)."""
+    d, i = np.asarray(d), np.asarray(i)
+    fin = np.isfinite(rd)
+    np.testing.assert_array_equal(np.isfinite(d), fin)
+    np.testing.assert_array_equal(i == -1, ~fin)
+    np.testing.assert_allclose(d[fin], rd[fin], rtol=rtol, atol=rtol)
+    for prow, pids, rrow, rids in zip(d, i, rd, ri):
+        f = np.isfinite(rrow)
+        if f.any():
+            edge = rrow[f][-1]
+            margin = 1e-4 * (1.0 + abs(edge))
+            assert (set(pids[np.isfinite(prow) & (prow < edge - margin)])
+                    == set(rids[f & (rrow < edge - margin)]))
+
+
 @pytest.mark.parametrize("change,item", [
     (dict(scan_mode="recon"), None),
     (dict(scan_mode="lut"), "LUT scan"),
@@ -205,16 +238,20 @@ def test_extend_fast_path_appends_with_the_recon_cache(tiny_index):
     # the ids the cases had when every non-fused mode was one deferred item
 ], ids=[f"change{i}-non-fused scan modes" for i in range(5)])
 def test_search_modes_off_the_path_raise(tiny_index, change, item):
-    """The LUT scan is not ported; a codes search at kt > 128, which the
-    JAX package sends to the LUT scan, raises with it.  The per-pair recon
-    scan is (Kernel G): ``scan_mode="recon"`` and
-    ``use_reconstruction=True`` return what the JAX function they resolve
-    to returns on the same lists and probes."""
+    """Each non-fused mode returns what the JAX function it resolves to
+    returns on the same lists and probes: the LUT scan (``"lut"``,
+    ``use_reconstruction=False``, and a codes search at kt > 128, which
+    both of Kernel D's routes refuse) the JAX package's ``_search_impl``
+    (fp32 LUT: distances within 1e-5 relative, ids tie-aware); the
+    per-pair recon scan (Kernel G, ``scan_mode="recon"`` and
+    ``use_reconstruction=True``) its recon twin."""
     res, index, db = tiny_index
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            ivf_pq.search(res, ivf_pq.SearchParams(**change), index, db[:2],
-                          200)
+        q, k = db[:2], 200
+        d, i = ivf_pq.search(res, ivf_pq.SearchParams(**change), index, q,
+                             k)
+        rd, ri = _jax_lut(index, q, k, index.n_lists)
+        _assert_tie_aware(d.numpy(), i.numpy(), rd, ri)
         return
     import jax.numpy as jnp
     from raft_tpu.neighbors import grouped
@@ -247,7 +284,13 @@ def test_search_modes_off_the_path_raise(tiny_index, change, item):
 
 def test_filtered_and_ip_search_raise(tiny_index):
     """A filtered search runs (filters shipped): an all-admitting mask
-    gives the unfiltered result; InnerProduct IVF-PQ still raises."""
+    gives the unfiltered result.  InnerProduct IVF-PQ runs (shipped): the
+    recon search returns what the JAX package's XLA twin returns on the
+    same lists and probes, within 1e-4, ids tie-aware."""
+    import jax.numpy as jnp
+    from raft_tpu.neighbors import grouped
+    from raft_tpu.neighbors import ivf_pq as jax_ivf_pq
+
     res, index, db = tiny_index
     sp = ivf_pq.SearchParams()
     d, i = ivf_pq.search(res, sp, index, db[:2], 5,
@@ -256,8 +299,24 @@ def test_filtered_and_ip_search_raise(tiny_index):
     assert torch.equal(i, i0) and torch.equal(d, d0)
     ip = ivf_pq.Index(**{**index.__dict__,
                          "metric": DistanceType.InnerProduct})
-    with pytest.raises(NotImplementedError, match="InnerProduct"):
-        ivf_pq.search(res, ivf_pq.SearchParams(), ip, db[:2], 5)
+    q, k = db[:2], 5
+    d, i = ivf_pq.search(res, ivf_pq.SearchParams(scan_mode="recon"), ip,
+                         q, k)
+    probes = ivf_flat._select_clusters(
+        ip.centers, torch.from_numpy(q) @ ip.rotation, 8, ip.metric)
+    ng, _ = grouped.group_capacity(2, 8, ip.n_lists)
+    cap, rot = ip.capacity, ip.rot_dim
+    block = grouped.block_size(ng, grouped.GROUP * cap * 8, cap * rot * 2,
+                               grouped.GROUP * rot * 4)
+    rd, ri = jax_ivf_pq._search_impl_recon_grouped(
+        ip.centers.numpy(),
+        jnp.asarray(ip.list_recon.float().numpy()).astype(jnp.bfloat16),
+        ip.list_recon_sq.numpy(), ip.list_indices.numpy(),
+        ip.rotation.numpy(), jnp.asarray(q), jnp.asarray(probes.numpy()),
+        k, ip.metric, ng, block, use_pallas=False, kt=k)
+    rd, ri = np.asarray(rd), np.asarray(ri)
+    assert np.all(np.diff(rd, axis=1) <= 0)        # largest first
+    _assert_tie_aware(-d.numpy(), i.numpy(), -rd, ri, rtol=1e-4)
 
 
 @pytest.mark.parametrize("change,item", [
@@ -266,18 +325,24 @@ def test_filtered_and_ip_search_raise(tiny_index):
     (dict(canary_queries=4), None),
 ])
 def test_build_options_off_the_path_raise(change, item):
-    """An option the port has not reached raises NotImplementedError
-    naming its ROADMAP item; canaries (item None, deferred before the
-    persistence slice) build and are stored."""
+    """Options deferred before build and are stored: canaries (item None,
+    deferred before the persistence slice) and per-cluster books (shipped
+    since), one (book, pq_len) book a coarse list, which the JAX
+    package's LUT scan reads as the port's does (fp32: within 1e-5, ids
+    tie-aware)."""
     res = DeviceResources(device="cpu")
-    build = lambda: ivf_pq.build(res, ivf_pq.IndexParams(  # noqa: E731
-        n_lists=2, **change), np.random.default_rng(0).normal(
-            size=(64, 4)).astype(np.float32))
+    db = np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32)
+    index = ivf_pq.build(res, ivf_pq.IndexParams(n_lists=2, **change), db)
     if item is None:
-        assert build().canaries.n_queries == change["canary_queries"]
+        assert index.canaries.n_queries == change["canary_queries"]
         return
-    with pytest.raises(NotImplementedError, match=item):
-        build()
+    assert index.codebook_kind == ivf_pq.CodebookKind.PER_CLUSTER
+    assert index.codebooks.shape == (2, 256, 4)
+    d, i = ivf_pq.search(res, ivf_pq.SearchParams(n_probes=2,
+                                                  scan_mode="lut"),
+                         index, db[:5], 4)
+    rd, ri = _jax_lut(index, db[:5], 4, 2)
+    _assert_tie_aware(d.numpy(), i.numpy(), rd, ri)
 
 
 def test_checkpoint_serialization_and_hierarchical_raise(tiny_index,

@@ -278,7 +278,8 @@ def test_recon8_list_scan_smem_bytes_mirrors_the_layout(rot_pad):
 def test_recon8_gates_route_by_kt_and_name_their_reason():
     """The list-major pass takes kt up to 64 at any capacity; the
     two-route gate refuses only where both routes do, naming both; no
-    shape the query-major kernel took is refused."""
+    shape the query-major kernel took is refused, and rows past 1,024
+    bytes are taken."""
     big = 200_000
     assert pcs.recon8_query_major_reject_reason(big, 96, 4)
     assert not pcs.recon8_list_scan_reject_reason(96, 64)
@@ -287,8 +288,11 @@ def test_recon8_gates_route_by_kt_and_name_their_reason():
     assert "list-major" in reason and "query-major route" in reason
     assert "outside 1..64" in pcs.recon8_list_scan_reject_reason(96, 65)
     assert "multiple of 16" in pcs.recon8_reject_reason(64, 24, 4)
-    assert "above 1024" in pcs.recon8_query_major_reject_reason(64, 1040, 4)
+    # rows past 1,024 bytes read the residual from shared memory: the
+    # query-major route takes every width the Pallas gate takes
+    assert not pcs.recon8_query_major_reject_reason(64, 1040, 100)
     assert not pcs.recon8_reject_reason(64, 1040, 4)      # list-major
+    assert not pcs.recon8_reject_reason(64, 1040, 100)    # query-major
     for cap in (40, 416, 2368, 20_000, big):
         for rot_pad in (16, 96, 128, 1024):
             for kt in (1, 4, 64, 100, 128, 129):

@@ -353,11 +353,29 @@ def test_version_window_matches_the_reference(f32, kind, version):
 
 
 def test_per_cluster_file_raises_not_ported(f32):
-    """A file holding per-cluster books is refused, never loaded half
-    right."""
-    raw = _stream("ivf_pq", f32["ivf_pq"], 4, codebook_kind=1)
-    with pytest.raises(NotImplementedError, match="per-cluster books"):
-        ivf_pq.deserialize(CPU, io.BytesIO(raw))
+    """A file holding per-cluster books (shipped) loads whole: a
+    ``raft_tpu``-built per-cluster index's stream gives the JAX index's
+    arrays and recon cache bit for bit, and the port writes the same
+    bytes back."""
+    X = np.random.default_rng(9).normal(size=(700, 16)).astype(np.float32)
+    built = jp.build(JaxResources(seed=3), jp.IndexParams(
+        n_lists=8, pq_dim=4, pq_bits=5, kmeans_n_iters=3,
+        codebook_kind=jp.CodebookKind.PER_CLUSTER), X)
+    buf = io.BytesIO()
+    jp.serialize(JaxResources(seed=0), buf, built)
+    ours = ivf_pq.deserialize(CPU, io.BytesIO(buf.getvalue()))
+    assert ours.codebook_kind == ivf_pq.CodebookKind.PER_CLUSTER
+    assert ours.codebooks.shape == (8, 32, 4)
+    for name in PQ_LEAVES:
+        np.testing.assert_array_equal(getattr(ours, name).numpy(),
+                                      np.asarray(getattr(built, name)),
+                                      err_msg=name)
+    np.testing.assert_array_equal(
+        ours.list_recon.float().numpy(),
+        np.asarray(built.list_recon).astype(np.float32))
+    back = io.BytesIO()
+    ivf_pq.serialize(CPU, back, ours)
+    assert back.getvalue() == buf.getvalue()
 
 
 @pytest.mark.parametrize("cache", [True, False])
