@@ -355,6 +355,7 @@ def counters():
             "fused_l2_nn_batched": fnn.fused_l2_nn_batched,
             "cagra_hop": chop.cagra_hop,
             "cagra_walk": cw.cagra_walk,
+            "cagra_walk_exact": cw.cagra_walk_exact,
             "pair_scan_variant": ps.pair_scan_variant,
             "row_gather": rg.row_gather,
             "kmeans_pass_cut": ku.kmeans_pass_cut}
@@ -2196,7 +2197,8 @@ def deep_path(dev):
     kernel of the path against its plain version at the shapes the path
     gives it.  Returns the kernel rows of C, D and E with the launches of
     their modes' runs, and the deep-shape checks of Kernels A, B, G and H
-    (``at_shape`` entries)."""
+    (``at_shape`` entries); the rest of IVF-PQ's runs; and the rows, the
+    queries and their exact top-10 for the deep CAGRA phase."""
     import torch
     from raft_tpu_torch import DeviceResources
     from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
@@ -2373,7 +2375,8 @@ def deep_path(dev):
     rest = {"deep lut": (lut["batch_ms"], lut["recall"]),
             "deep recon8 k = kt = 256": wide8,
             "InnerProduct": ip_path(dev, db, queries)}
-    return rows, a_deep, b_deep, g_deep, h_deep, hs_deep, rest
+    return (rows, a_deep, b_deep, g_deep, h_deep, hs_deep, rest,
+            (db, queries, truth))
 
 
 def deep_filtered(res, index, queries):
@@ -2526,6 +2529,15 @@ class WalkCapture(_Swap):
         self.calls[key] = self.calls.get(key, 0) + 1
         self.kept.setdefault(key, (args, dict(kw)))
         return self.real.cagra_walk(*args, **kw)
+
+    def cagra_walk_exact(self, *args, **kw):
+        """The direct walk's exact-row source, kept under ("exact", nq,
+        itopk, search_width, deg)."""
+        key = ("exact", args[5].shape[0], args[5].shape[1],
+               kw["search_width"], args[2].shape[1])
+        self.calls[key] = self.calls.get(key, 0) + 1
+        self.kept.setdefault(key, (args, dict(kw)))
+        return self.real.cagra_walk_exact(*args, **kw)
 
 
 def hop_loop(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg,
@@ -2926,7 +2938,323 @@ def cagra_path(db, queries, truth):
         shape, 0)]
     del cap, wcap
     torch.cuda.empty_cache()
-    return row_walk, row_i, index
+    assert cagra.search.plain_walks == 0 and cagra.build.plain_walks == 0, (
+        "CAGRA deg32: a walk or hop ran its plain version")
+    return row_walk, row_i, index, results
+
+
+# ---------------------------------------------------------------------------
+# the rest of CAGRA: the direct walk, hops past 256, the deep-scale build
+# ---------------------------------------------------------------------------
+
+# the direct walk on the deg32 index (walk_pdim=0) and its kernel check's
+# queries (the plain direct walk on the first EXACT_CHECK_QUERIES)
+DIRECT_POINT, EXACT_CHECK_QUERIES = (64, 2), 256
+# hops past 256 on the deg32 index: itopk 512 width 1, and itopk 256 width
+# 16 (wd 512); the walk and hop kernels held to plain on the first
+# WIDE_CHECK_QUERIES queries of walks captured at those shapes
+WIDE_POINTS, WIDE_CHECK_QUERIES = ((512, 1), (256, 16)), 1_000
+# conf/deep-cagra-10m.json raft_cagra.deg32 on the deep phase's rows
+DEEP_CAGRA = dict(graph_degree=32, intermediate_graph_degree=64,
+                  build_n_probes=12)
+DEEP_CAGRA_POINTS = ((32, 1), (48, 1), (64, 1), (96, 2))
+GRAPH_RECALL_NODES = 1_000
+
+
+def head(args, m, shared):
+    """The first ``m`` queries of a captured walk's per-query operands
+    (the positions in ``shared`` — table, graph, rows — whole)."""
+    return tuple(a if i in shared else a[:m] for i, a in enumerate(args))
+
+
+def exact_walk_bound(args, kw, hops):
+    """(ms, by, bytes) of a direct walk: the queries and the buffer read
+    once, the buffer written once, and for each run hop its parents' graph
+    rows and each candidate's fp32 row and norm read once; 2·dim fp32
+    operations per candidate."""
+    graph, rows, buf_d = args[2], args[3], args[5]
+    nq, itopk = buf_d.shape
+    dim, deg = rows.shape[1], graph.shape[1]
+    wd = kw["search_width"] * deg
+    nbytes = (nq * (dim * 4 + 4) + 2 * nq * itopk * 9
+              + hops * wd * (4 + dim * 4 + 4))
+    ms, by = bound(nbytes, 2.0 * hops * wd * dim, FP32_FLOP_PER_S)
+    return ms, by, nbytes
+
+
+def check_kernel_walk_exact(args, kw, shape, m=EXACT_CHECK_QUERIES):
+    """The walk kernel's exact-row source vs the plain direct walk on the
+    first ``m`` queries of a captured walk: keys, ids, visited flags and
+    hop counts equal (``torch.equal``); the kernel's ms (CUDA events and
+    device) on the whole captured walk, the plain walk's ms on the ``m``
+    queries, the bound over the hops the whole walk ran.  No single
+    PyTorch call walks a graph."""
+    import torch
+    from raft_tpu_torch.ops import cagra_walk as cw
+
+    few = head(args, m, (2, 3, 4))
+    kd, ki, kv, kh = cw.cagra_walk_exact(*few, return_hops=True, **kw)
+    (pd, pi, pv, ph), plain_ms = timed_once(
+        lambda: cw.cagra_walk_exact_plain(*few, return_hops=True, **kw))
+    for what, a, b in (("keys", kd, pd), ("ids", ki, pi),
+                       ("visited flags", kv, pv), ("hop counts", kh, ph)):
+        assert torch.equal(a, b), f"cagra_walk_exact at {shape}: {what} differ"
+    fin = torch.isfinite(pd)
+    err = float((kd[fin] - pd[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+    def walk():
+        return cw.cagra_walk_exact(*args, **kw)
+
+    ms = cuda_ms(walk, KERNEL_REPS)
+    dev_ms = device_ms(walk, KERNEL_REPS, "walk_kernel")
+    hops = int(cw.cagra_walk_exact(*args, return_hops=True, **kw)[3].sum())
+    bound_ms, bound_by, nbytes = exact_walk_bound(args, kw, hops)
+    nq = args[5].shape[0]
+    print(f"cagra_walk_exact at {shape}: keys, ids, visited flags and hop "
+          f"counts equal to the plain direct walk on {few[5].shape[0]} "
+          f"queries (plain "
+          f"{plain_ms:.2f} ms); {nq:,} queries: {hops:,} hops run "
+          f"({hops / nq:.2f} a query), {ms:.4f} ms (CUDA events; device "
+          f"{dev_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.2f} MB)", flush=True)
+    return {"name": "cagra_walk_exact", "route": "cuda",
+            "source": "raft_tpu_torch/csrc/cagra_walk.cu",
+            "replaces": "raft_tpu/neighbors/cagra.py:1857",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": dev_ms, "walk_hops": hops,
+            "check_queries": few[5].shape[0]}
+
+
+def search_point(res, index, sp, queries, truth, label):
+    """One search point: the first batch, SEARCH_REPS warm batches (ms,
+    QPS at the median), recall@10, the route (table format or direct
+    walk) and the walk launches of each kind a search."""
+    import torch
+    from raft_tpu_torch.neighbors import cagra
+
+    before = read_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cagra.search(res, sp, index, queries, K)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    ms, (_, found) = timed_searches(
+        lambda: cagra.search(res, sp, index, queries, K), SEARCH_REPS)
+    after = read_launches()
+    per = {name: (after[name] - before[name]) / (1 + SEARCH_REPS)
+           for name in ("cagra_walk", "cagra_walk_exact", "cagra_hop")}
+    hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
+    recall = float(hits) / truth.numel()
+    route = ("direct walk (exact rows)" if per["cagra_walk_exact"]
+             else walk_format(index))
+    n = queries.shape[0]
+    qps = n / (median(ms) / 1e3)
+    print(f"{label}: first batch {first_ms:.2f} ms; "
+          f"{', '.join(f'{m:.2f}' for m in ms)} ms per batch of {n}; QPS "
+          f"{qps:.0f} (median); recall@10 {recall:.4f}; route {route}; "
+          f"launches a search: walk {per['cagra_walk']:.0f}, exact walk "
+          f"{per['cagra_walk_exact']:.0f}, hop {per['cagra_hop']:.0f}; plain "
+          f"walks {cagra.search.plain_walks}", flush=True)
+    assert sum(per.values()) == 1, f"{label}: launches {per}"
+    return {"first_ms": first_ms, "ms": ms, "qps": qps, "recall": recall,
+            "route": route, "launches": per}
+
+
+def cagra_rest_path(index, queries, truth, recall_128):
+    """The direct walk and hops past 256 on the deg32 index: the direct
+    walk (``walk_pdim=0``) at itopk 64 width 2, then itopk 512 width 1 and
+    itopk 256 width 16 (wd 512) through the packed table, each with ms,
+    QPS and recall@10; then the exact-row source against the plain direct
+    walk, and the walk and hop kernels against plain on walks captured at
+    the wide shapes.  Returns the walk rows and the hop rows (``at_shape``
+    entries) for the kernels line."""
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.neighbors import cagra
+
+    res = DeviceResources(seed=0)
+    runs = {}
+    with WalkCapture() as wcap:
+        itopk, width = DIRECT_POINT
+        runs["direct"] = search_point(
+            res, index, cagra.SearchParams(itopk_size=itopk,
+                                           search_width=width, walk_pdim=0),
+            queries, truth, f"CAGRA direct walk (walk_pdim=0) itopk {itopk} "
+            f"width {width}")
+        assert runs["direct"]["launches"]["cagra_walk_exact"] == 1
+        assert runs["direct"]["recall"] >= 0.90, (
+            f"direct walk recall@10 {runs['direct']['recall']} below 0.90")
+        for itopk, width in WIDE_POINTS:
+            runs[(itopk, width)] = search_point(
+                res, index, cagra.SearchParams(itopk_size=itopk,
+                                               search_width=width),
+                queries, truth, f"CAGRA wide itopk {itopk} width {width} "
+                f"(wd {width * CAGRA_DEGREE})")
+            assert runs[(itopk, width)]["launches"]["cagra_walk"] == 1
+    r512 = runs[(512, 1)]["recall"]
+    print(f"CAGRA itopk 512 width 1 recall@10 {r512:.4f} against itopk 128 "
+          f"width 2 {recall_128:.4f}", flush=True)
+    assert r512 >= recall_128 - 0.01, (r512, recall_128)
+
+    itopk, width = DIRECT_POINT
+    key = ("exact", N_QUERIES, itopk, width, CAGRA_DEGREE)
+    args, kw = wcap.kept[key]
+    exact = check_kernel_walk_exact(
+        args, kw, f"direct walk: {N_QUERIES:,} queries, itopk {itopk}, width "
+        f"{width}, deg {CAGRA_DEGREE}, dim {DIM}")
+    walks = [at_shape(exact, f"exact rows (the direct walk), {N_QUERIES:,} "
+                      f"queries, itopk {itopk}, width {width}, deg "
+                      f"{CAGRA_DEGREE}, dim {DIM}; plain on the first "
+                      f"{EXACT_CHECK_QUERIES}",
+                      wcap.calls[key])]
+    hops = []
+    for itopk, width in WIDE_POINTS:
+        key = (N_QUERIES, itopk, width, CAGRA_DEGREE)
+        args, kw = wcap.kept[key]
+        few = head(args, WIDE_CHECK_QUERIES, (2,))
+        shape = (f"itopk {itopk}, width {width} (wd {width * CAGRA_DEGREE}), "
+                 f"deg {CAGRA_DEGREE}: the first {WIDE_CHECK_QUERIES:,} "
+                 f"queries of the search's walk")
+        walks.append(at_shape(check_kernel_walk(few, kw, shape), shape,
+                              wcap.calls[key]))
+        hop_shape = (f"hop {CHECK_HOP} of the plain walk at {shape}")
+        hops.append(at_shape(check_kernel_i(
+            plain_hop_inputs(few, kw, CHECK_HOP), kw["ip_metric"], hop_shape),
+            hop_shape, 0))
+    assert cagra.search.plain_walks == 0, "a CAGRA search ran its plain walk"
+    return walks, hops, runs
+
+
+def graph_recall(res, db, knn, n_nodes):
+    """recall@deg of the kNN graph ``knn`` (self-edges removed) on
+    ``n_nodes`` strided nodes against ``brute_force.knn`` (self dropped)."""
+    import torch
+    from raft_tpu_torch.neighbors import brute_force
+
+    n, deg = knn.shape
+    nodes = torch.arange(0, n, n // n_nodes, device=db.device)[:n_nodes]
+    _, gt = brute_force.knn(res, db, db[nodes], deg + 1)
+    not_self = gt != nodes[:, None]
+    gt = torch.stack([row[keep][:deg] for row, keep in zip(gt, not_self)])
+    got = knn[nodes.long()]
+    hits = (got[:, :, None] == gt[:, None, :]).any(2).sum()
+    return float(hits) / gt.numel()
+
+
+def deep_cagra_path(db, queries, truth):
+    """conf/deep-cagra-10m.json ``raft_cagra.deg32`` on the deep phase's
+    10M x 96 rows: the deep-regime build (seconds and stage seconds, walk /
+    hop / A / H launches, the rounds' table plans, peak memory, the
+    intermediate graph's recall@64 on GRAPH_RECALL_NODES nodes), the
+    conf's four search points at batch 5000, k 10 (route, ms, QPS,
+    recall@10), and the walk kernel against plain at the build's
+    self-walk chunk and at the search's walk.  Returns ``at_shape``
+    entries for the walk's row, and the runs."""
+    import torch
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.neighbors import cagra
+
+    res = DeviceResources(seed=0)
+    params = cagra.IndexParams(**DEEP_CAGRA)
+    kept = {}
+    real_prune = cagra.prune
+
+    def keep_prune(r, knn, degree):
+        kept["knn"] = knn
+        return real_prune(r, knn, degree)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    cagra.prune = keep_prune
+    try:
+        with WalkCapture() as wcap:
+            t0 = time.perf_counter()
+            index = cagra.build(res, params, db)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            build_launches = read_launches()
+            stages = dict(cagra.build.stage_seconds)
+            plans = list(cagra.build.deep_plans)
+            build_peak = peak_gb()
+            n_rows = db.shape[0]
+            rec64 = graph_recall(res, db, kept["knn"], GRAPH_RECALL_NODES)
+            print(f"deep-cagra-10m build ({json.dumps(DEEP_CAGRA)}): "
+                  f"{build_s:.2f} s; stages (s): {json.dumps(stages)}; build "
+                  f"pdim {cagra.build.build_pdim}; deep plans (deg_t, pdim, "
+                  f"quant) a round: {plans}; launches: walk "
+                  f"{build_launches['cagra_walk']}, hop "
+                  f"{build_launches['cagra_hop']}, H "
+                  f"{build_launches['fused_l2_nn']} (small-dim "
+                  f"{build_launches['fused_l2_nn_small_dim']}), A "
+                  f"{build_launches['kmeans_assign_update']}; walk shapes "
+                  f"x calls: { {str(k): v for k, v in wcap.calls.items()} }; "
+                  f"plain walks {cagra.build.plain_walks}; peak device "
+                  f"memory {build_peak:.2f} GB; intermediate graph "
+                  f"recall@{kept['knn'].shape[1]} on {GRAPH_RECALL_NODES:,} "
+                  f"nodes {rec64:.4f}", flush=True)
+            assert index.graph.shape == (n_rows, DEEP_CAGRA["graph_degree"])
+            assert int(index.graph.min()) >= 0 and \
+                int(index.graph.max()) < n_rows, "deep CAGRA: bad graph"
+            assert "reverse_merge" in stages, "deep CAGRA: not the deep regime"
+            assert build_launches["cagra_walk"] > 0 and plans and \
+                all(p is not None for p in plans), (
+                    f"deep CAGRA: walk rounds {plans}")
+            del kept["knn"]
+            runs = {}
+            for itopk, width in DEEP_CAGRA_POINTS:
+                runs[(itopk, width)] = search_point(
+                    res, index, cagra.SearchParams(itopk_size=itopk,
+                                                   search_width=width),
+                    queries, truth, f"deep-cagra-10m itopk {itopk} width "
+                    f"{width}")
+    finally:
+        cagra.prune = real_prune
+    print(f"deep-cagra-10m peak device memory (build + searches): "
+          f"{peak_gb():.2f} GB", flush=True)
+    last = DEEP_CAGRA_POINTS[-1]
+    assert runs[last]["recall"] >= 0.80, (
+        f"deep-cagra-10m recall@10 {runs[last]['recall']} below 0.80 at "
+        f"itopk {last[0]} width {last[1]}")
+    assert cagra.search.plain_walks == 0 and cagra.build.plain_walks == 0, (
+        "deep-cagra-10m: a walk or hop ran its plain version")
+
+    rows = []
+    sw = [k for k in wcap.kept if k[0] == min(8192, n_rows)]
+    args, kw = wcap.kept[max(sw)]
+    shape = (f"deep-cagra-10m build self-walk chunk: {max(sw)} (nq, itopk, "
+             f"width, deg), {'int8' if kw['quant'] else 'bf16'} table, pdim "
+             f"{args[0].shape[1]}")
+    rows.append(at_shape(check_kernel_walk(args, kw, shape), shape,
+                         build_launches["cagra_walk"]))
+    itopk, width = DEEP_CAGRA_POINTS[-1]
+    key = ("exact", N_QUERIES, itopk, width, DEEP_CAGRA["graph_degree"])
+    search_launches = sum(r["launches"]["cagra_walk_exact"]
+                          + r["launches"]["cagra_walk"]
+                          for r in runs.values()) * (1 + SEARCH_REPS)
+    if key in wcap.kept:
+        args, kw = wcap.kept[key]
+        shape = (f"deep-cagra-10m search, direct walk: {N_QUERIES:,} "
+                 f"queries, itopk {itopk}, width {width}, deg "
+                 f"{DEEP_CAGRA['graph_degree']}, dim {DEEP_DIM}")
+        rows.append(at_shape(check_kernel_walk_exact(args, kw, shape), shape,
+                             search_launches))
+    else:
+        key = (N_QUERIES, itopk, width, DEEP_CAGRA["graph_degree"])
+        args, kw = wcap.kept[key]
+        few = head(args, WIDE_CHECK_QUERIES, (2,))
+        shape = (f"deep-cagra-10m search, {walk_format(index)}: the first "
+                 f"{WIDE_CHECK_QUERIES:,} queries, itopk {itopk}, width "
+                 f"{width}")
+        rows.append(at_shape(check_kernel_walk(few, kw, shape), shape,
+                             search_launches))
+    del index, wcap
+    torch.cuda.empty_cache()
+    return rows, {"build_s": build_s, "stages": stages, "plans": plans,
+                  "graph_recall@64": rec64, "peak_gb": build_peak,
+                  "points": {f"{i} w{w}": (r["ms"], r["qps"], r["recall"],
+                                           r["route"])
+                             for (i, w), r in runs.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -4380,7 +4708,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("CAGRA at full width: sift-like-1m, raft_cagra.deg32")
-    row_walk, row_i, cagra_index = cagra_path(db, queries, truth)
+    row_walk, row_i, cagra_index, cagra_recall = cagra_path(db, queries,
+                                                            truth)
+
+    phase("CAGRA deg32: the direct walk (walk_pdim=0) and hops past 256")
+    t0 = time.perf_counter()
+    rest_walks, rest_hops, rest_runs = cagra_rest_path(
+        cagra_index, queries, truth, cagra_recall[(128, 2)])
+    print(f"CAGRA direct walk and wide hops: {time.perf_counter() - t0:.1f} "
+          f"s; nvidia-smi: {smi_line}", flush=True)
 
     phase("filtered and mutable indexes at full width: CAGRA deg32")
     t0 = time.perf_counter()
@@ -4403,9 +4739,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("deep path at full width: 10M x 96, n_lists 8192, pq_dim 48")
-    rows_cde, a_deep, b_deep, g_deep, h_deep, hs_deep, rest = deep_path(dev)
+    rows_cde, a_deep, b_deep, g_deep, h_deep, hs_deep, rest, deep_data = \
+        deep_path(dev)
     rest.update({"flagship lut": lut_runs, "per-cluster flagship": pc_runs})
     print(f"the rest of IVF-PQ (ms a batch, recall@10): {json.dumps(rest)}; "
+          f"nvidia-smi: {smi_line}", flush=True)
+    torch.cuda.empty_cache()
+
+    phase("deep-cagra-10m at full width: 10M x 96, raft_cagra.deg32 "
+          "(the deep-regime build, the conf's four search points)")
+    t0 = time.perf_counter()
+    deep_walks, deep_cagra = deep_cagra_path(*deep_data)
+    del deep_data
+    torch.cuda.empty_cache()
+    from raft_tpu_torch.neighbors import cagra
+    print(f"deep-cagra-10m: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(deep_cagra)}; plain walks: search "
+          f"{cagra.search.plain_walks}, build {cagra.build.plain_walks}; "
           f"nvidia-smi: {smi_line}", flush=True)
 
     phase("result")
@@ -4429,6 +4779,11 @@ def main() -> int:
     row_walk["also_checked"].append(at_shape(
         walk_f, f"filtered, 50% per query: {N_QUERIES:,} queries, itopk 64, "
         f"width 2, deg {CAGRA_DEGREE}", walk_launches["cagra_walk"]))
+    row_walk["also_checked"] += rest_walks + deep_walks
+    row_i["also_checked"] += rest_hops
+    print(f"CAGRA runs past the walk table and past 256: "
+          f"{json.dumps({str(k): v for k, v in rest_runs.items()})}",
+          flush=True)
     row_g["also_checked"] = [g_deep, g_query_major, g_filtered, wide["G"]]
     row_h["also_checked"] += h_more + h_flat + h_deep
     row_hs["also_checked"] = [hs_cluster, hs_one, hs_deep]

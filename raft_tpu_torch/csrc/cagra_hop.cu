@@ -27,11 +27,13 @@
 // candidate with 16-byte row loads against the query staged in shared
 // memory, then checks its id against the buffer and the earlier
 // candidates (O(wd * (itopk + wd)) shared-memory compares a query); the
-// candidates are ranked by counting (a rank sort over wd <= 256 keys
-// needs no passes), written straight to their reversed merge slots, and
-// the merge runs in shared memory with one thread per compare-exchange
-// (the dedupe, rank and merge are csrc/hop_merge.cuh, shared with the
-// walk).  The walk's hops run in csrc/cagra_walk.cu, which gathers and
+// candidates are ranked by counting (a rank sort needs no passes),
+// written straight to their reversed merge slots, and the merge runs in
+// shared memory with one thread per compare-exchange (the dedupe, rank
+// and merge are csrc/hop_merge.cuh, shared with the walk).  Up to 1,024
+// threads a block; past that each thread takes every blockDim.x-th
+// candidate and pair, so only shared memory bounds itopk, wd and pdim
+// (opted in past 48 KB).  The walk's hops run in csrc/cagra_walk.cu, which gathers and
 // decodes the packed table itself; this kernel serves the build's exact
 // merge, whose full-width rows have no table.
 
@@ -45,7 +47,11 @@
 namespace {
 
 using hop_merge::kMaxThreads;
+using hop_merge::kNarrowThreads;
 using hop_merge::pow2_at_least;
+
+constexpr int kSmemMax = 232448;          // an H100 block's opt-in maximum
+constexpr int kSmemStatic = 48 * 1024;    // above this, opt in
 
 __device__ __forceinline__ float bf_lo(uint32_t u) {
   return __uint_as_float(u << 16);
@@ -82,8 +88,8 @@ __device__ __forceinline__ float row_dot(const float* q,
   return acc;
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int kThreads, bool kVec>
+__global__ void __launch_bounds__(kThreads)
 hop_kernel(const __nv_bfloat16* __restrict__ qp,
            const float* __restrict__ q_sq,
            const __nv_bfloat16* __restrict__ nb_p,
@@ -95,6 +101,7 @@ hop_kernel(const __nv_bfloat16* __restrict__ qp,
            int itopk, int wd, int pdim, int ip_metric,
            float* __restrict__ out_d, int* __restrict__ out_i,
            uint8_t* __restrict__ out_v) {
+  constexpr bool kOnePass = kThreads <= kNarrowThreads;
   extern __shared__ float smem[];
   const int S = pow2_at_least(itopk + wd);
   float* q = smem;                                   // pdim
@@ -133,19 +140,27 @@ hop_kernel(const __nv_bfloat16* __restrict__ qp,
   __syncthreads();
 
   // dedupe against the buffer and the earlier candidates (decided on the
-  // scored ids, applied after every thread has decided)
-  bool kill = false;
-  if (tid < wd) kill = hop_merge::duplicate(ci[tid], tid, mi, itopk, ci);
-  __syncthreads();
-  if (kill) {
-    ck[tid] = INFINITY;
-    ci[tid] = -1;
+  // scored ids, applied after every thread has decided; bit b of `kill`
+  // is the thread's b-th candidate, and the shared-memory gate keeps wd
+  // below 32 * blockDim.x)
+  unsigned kill = 0;
+  for (int j = tid, b = 0; j < wd; j += T, ++b) {
+    if (hop_merge::duplicate(ci[j], j, mi, itopk, ci)) kill |= 1u << b;
+    if (kOnePass) break;
   }
-  hop_merge::pad(itopk, wd, S, mk, mi, mv);
   __syncthreads();
-  if (tid < wd) hop_merge::place(tid, wd, S, ck, ci, mk, mi, mv);
+  for (int j = tid, b = 0; j < wd; j += T, ++b) {
+    if ((kill >> b) & 1u) {
+      ck[j] = INFINITY;
+      ci[j] = -1;
+    }
+    if (kOnePass) break;
+  }
+  hop_merge::pad<kOnePass>(itopk, wd, S, mk, mi, mv);
   __syncthreads();
-  hop_merge::bitonic(S, mk, mi, mv);
+  hop_merge::place<kOnePass>(wd, S, ck, ci, mk, mi, mv);
+  __syncthreads();
+  hop_merge::bitonic<kOnePass>(S, mk, mi, mv);
 
   for (int t = tid; t < itopk; t += T) {
     out_d[row * itopk + t] = mk[t];
@@ -164,15 +179,26 @@ extern "C" int raft_cagra_hop(const void* qp, const void* q_sq,
                               int smem_bytes, void* out_d, void* out_i,
                               void* out_v, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nq < 1 || itopk < 1 || wd < 1 || pdim < 1 || itopk > 256 ||
-      wd > 256 || pdim > 4096)
+  if (nq < 1 || itopk < 1 || wd < 1 || pdim < 1)
     return (int)cudaErrorInvalidValue;
   const int S = pow2_at_least(itopk + wd);
-  if (smem_bytes != 4 * (pdim + 2 * wd + 3 * S) || smem_bytes > 48 * 1024)
+  if (smem_bytes != 4 * (pdim + 2 * wd + 3 * S) || smem_bytes > kSmemMax)
     return (int)cudaErrorInvalidValue;
   const int threads = hop_merge::block_threads(wd, S);
   const bool vec = pdim % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(nb_p) % 16 == 0;
+  // blocks of up to 256 threads run the instantiation bounded at 256
+  auto* kernel =
+      threads <= kNarrowThreads
+          ? (vec ? hop_kernel<kNarrowThreads, true>
+                 : hop_kernel<kNarrowThreads, false>)
+          : (vec ? hop_kernel<kMaxThreads, true>
+                 : hop_kernel<kMaxThreads, false>);
+  if (smem_bytes > kSmemStatic) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
 #define RAFT_HOP_ARGS                                                        \
   static_cast<const __nv_bfloat16*>(qp), static_cast<const float*>(q_sq),    \
       static_cast<const __nv_bfloat16*>(nb_p),                               \
@@ -181,10 +207,7 @@ extern "C" int raft_cagra_hop(const void* qp, const void* q_sq,
       static_cast<const uint8_t*>(visited), itopk, wd, pdim, ip_metric,      \
       static_cast<float*>(out_d), static_cast<int*>(out_i),                  \
       static_cast<uint8_t*>(out_v)
-  if (vec)
-    hop_kernel<true><<<nq, threads, smem_bytes, s>>>(RAFT_HOP_ARGS);
-  else
-    hop_kernel<false><<<nq, threads, smem_bytes, s>>>(RAFT_HOP_ARGS);
+  kernel<<<nq, threads, smem_bytes, s>>>(RAFT_HOP_ARGS);
 #undef RAFT_HOP_ARGS
   return (int)cudaGetLastError();
 }

@@ -2,23 +2,30 @@
 //
 // Replaces raft_tpu/ops/cagra_hop_pallas.py:257 fused_hop together with the
 // loop that drives it, raft_tpu/neighbors/cagra.py's _search_impl_walk
-// while_loop (parent selection, the fat-row gather and decode, the hop).
+// while_loop (parent selection, the fat-row gather and decode, the hop),
+// and, with the exact-row source, the direct walk _search_impl (:1857, XLA
+// in the JAX package).
 // Contract, per query (one block each), from a seeded sorted buffer
 // (keys, ids, visited flags; itopk each), for at most max_iter hops:
 //   1. parents: search_width times, the first slot that is unvisited, has
 //      an id >= 0 and a finite key; if none, the first unvisited slot
 //      (clamped to itopk - 1) with parent id -1; the slot is marked
 //      visited (ops/cagra_walk.select_parents);
-//   2. each live parent's fat row, deg neighbors of `unit` int16 lanes in
-//      the packed table: bf16 (unit pdim + 4: pdim bf16, the f32 squared
-//      norm, the int32 id) or int8 (unit pdim / 2 + 3: two int8 a lane,
-//      low byte first, a uint16 norm code dequantized as scales[1] +
-//      scales[2] * code with the product and the sum each rounded, the
-//      int32 id); a dead parent's deg candidates are (+inf, -1);
-//   3. keys as Kernel I's hop (csrc/cagra_hop.cu): exact bf16 products
-//      summed in fp32 in dimension order, (q_sq + nb_sq) - 2 ip (L2) or
-//      -ip (InnerProduct); then the hop's dedupe, rank and bitonic merge
-//      (csrc/hop_merge.cuh);
+//   2. each live parent's deg candidates from one of three row sources:
+//      - the packed table's fat row, deg neighbors of `unit` int16 lanes:
+//        bf16 (unit pdim + 4: pdim bf16, the f32 squared norm, the int32
+//        id) or int8 (unit pdim / 2 + 3: two int8 a lane, low byte first,
+//        a uint16 norm code dequantized as scales[1] + scales[2] * code
+//        with the product and the sum each rounded, the int32 id);
+//      - exact rows (kExact): the parent's graph row, deg int32 ids, each
+//        candidate scored on its fp32 dataset row;
+//      a dead parent's deg candidates are (+inf, -1);
+//   3. keys: for a table, as Kernel I's hop (csrc/cagra_hop.cu): exact
+//      bf16 products summed in fp32 in dimension order, (q_sq + nb_sq) -
+//      2 ip (L2) or -ip (InnerProduct); for exact rows, fp32 products and
+//      sums each rounded, in dimension order (no contraction), then
+//      max((q_sq + x_sq) - 2 ip, 0) (L2) or -ip (the JAX dists_to); then
+//      the hop's dedupe, rank and bitonic merge (csrc/hop_merge.cuh);
 //   4. a query whose buffer is all visited stops: such a buffer is a fixed
 //      point of the hop, so the result is the fixed hop count's.
 // With a filter (kFilter; filters/bitset.py's packed words, the query's
@@ -28,12 +35,15 @@
 // JAX walk's per-hop admission, raft_tpu/neighbors/cagra.py:1792).  One
 // word load (L2-resident) per candidate.
 // The result equals ops/cagra_walk.cagra_walk_plain (select_parents ->
-// expand -> cagra_hop_plain per hop) bit for bit.
+// expand -> cagra_hop_plain per hop) and, for exact rows,
+// ops/cagra_walk.cagra_walk_exact_plain, bit for bit.
 //
 // What bounds it on an H100: bytes, and the latency of a chain of
 // dependent hops.  A hop reads each parent's fat row once (at the search
 // shape, 2 x 32 x 40 B) and does 2 pdim operations per candidate; the next
 // parents are known only after the merge, so nothing can be prefetched.
+// Exact rows read dim fp32 values per candidate (64 x 384 B a hop at dim
+// 96, width 2, degree 32) from rows scattered over the dataset.
 // Design: QUERY-MAJOR and persistent, one block per query for the whole
 // walk.  The query (fp32) and the merge network (buffer, padding,
 // candidates) stay in shared memory across hops, read from and written to
@@ -47,6 +57,11 @@
 // above 32.  Six block barriers a hop at the search shape (itopk 64, wd
 // 64).  Where the staged rows would not fit in shared memory (wide
 // wd x pdim), the kStaged = false variant scores straight from the table.
+// Exact rows are never staged: one thread reads its candidate's row from
+// device memory (16-byte loads where dim % 4 == 0 and the rows are
+// aligned) — a simple kernel, not yet a fast one.  Up to 1,024 threads a
+// block; past that each thread takes every blockDim.x-th candidate and
+// compare-exchange pair, so only shared memory bounds itopk and wd.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +73,7 @@
 namespace {
 
 using hop_merge::kMaxThreads;
+using hop_merge::kNarrowThreads;
 using hop_merge::pow2_at_least;
 
 constexpr int kSmemMax = 232448;          // an H100 block's opt-in maximum
@@ -74,6 +90,7 @@ __host__ __device__ inline int walk_unit(int pdim, int quant) {
 //   [stage: width x round8(deg unit) int16, staged only]
 //   [q: pdim f32] [mk, mi, mv: S each] [ck, ci, cj: wd each]
 //   [par_id, par_ok: width each] [done: 1]
+// Exact rows: no stage, and pdim is the dataset's dim.
 __host__ inline int walk_smem(int itopk, int width, int deg, int pdim,
                               int quant, int staged) {
   const int wd = width * deg;
@@ -82,6 +99,30 @@ __host__ inline int walk_smem(int itopk, int width, int deg, int pdim,
                            : 0;
   return stage + 4 * (pdim + 3 * S + 3 * wd + 2 * width + 1);
 }
+
+// the operands of one walk launch
+struct WalkArgs {
+  const void* q;                 // (nq, pdim) bf16, or (nq, dim) f32 exact
+  const float* q_sq;             // (nq,)
+  const int16_t* table;          // (n, table_w) packed rows; null if exact
+  int table_w;
+  int vec;                       // 16-byte loads of table or exact rows
+  const float* scales;           // int8 table: [a, sq_min, sq_scale]
+  const int* graph;              // exact: (n, deg) int32
+  const float* rows;             // exact: (n, dim) f32 dataset
+  const float* rows_sq;          // exact: (n,) f32 squared norms
+  const float* buf_d;
+  const int* buf_i;
+  const uint8_t* visited;
+  int itopk, width, deg, pdim, max_iter, ip_metric;
+  const int* filter_words;
+  long long filter_stride;
+  int n_words;
+  float* out_d;
+  int* out_i;
+  uint8_t* out_v;
+  int* out_hops;
+};
 
 // 32 bits from two int16 lanes, low half first
 __device__ __forceinline__ uint32_t lanes32(const int16_t* p) {
@@ -120,6 +161,30 @@ __device__ __forceinline__ float neighbor_key(const float* q,
   return ip_metric ? -acc : (qsq + nsq) - 2.0f * acc;
 }
 
+// one candidate's key from its fp32 dataset row: the product and the sum
+// each rounded, in dimension order (the plain loop's arithmetic)
+__device__ __forceinline__ float exact_key(const float* q, const float* x,
+                                           int dim, int vec, float qsq,
+                                           float xsq, int ip_metric) {
+  float acc = 0.0f;
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    for (int c = 0; c < (dim >> 2); ++c) {
+      const float4 v = __ldg(x4 + c);
+      const float* s = q + 4 * c;
+      acc = __fadd_rn(acc, __fmul_rn(s[0], v.x));
+      acc = __fadd_rn(acc, __fmul_rn(s[1], v.y));
+      acc = __fadd_rn(acc, __fmul_rn(s[2], v.z));
+      acc = __fadd_rn(acc, __fmul_rn(s[3], v.w));
+    }
+  } else {
+    for (int d = 0; d < dim; ++d)
+      acc = __fadd_rn(acc, __fmul_rn(q[d], __ldg(x + d)));
+  }
+  if (ip_metric) return -acc;
+  return fmaxf(__fsub_rn(__fadd_rn(qsq, xsq), __fmul_rn(2.0f, acc)), 0.0f);
+}
+
 // whether the query whose packed admission row is `words` (n_words
 // words) admits id (an id past the row, or negative, is not admitted)
 __device__ __forceinline__ bool admitted(const int* words, int n_words,
@@ -128,21 +193,11 @@ __device__ __forceinline__ bool admitted(const int* words, int n_words,
   return id >= 0 && w < n_words && ((__ldg(words + w) >> (id & 31)) & 1);
 }
 
-template <bool kStaged, bool kQuant, bool kFilter>
-__global__ void __launch_bounds__(kMaxThreads)
-walk_kernel(const __nv_bfloat16* __restrict__ qp,
-            const float* __restrict__ q_sq,
-            const int16_t* __restrict__ table, int table_w, int vec,
-            const float* __restrict__ scales,
-            const float* __restrict__ buf_d,
-            const int* __restrict__ buf_i,
-            const uint8_t* __restrict__ visited,
-            int itopk, int width, int deg, int pdim, int max_iter,
-            int ip_metric, const int* __restrict__ filter_words,
-            long long filter_stride, int n_words, float* __restrict__ out_d,
-            int* __restrict__ out_i, uint8_t* __restrict__ out_v,
-            int* __restrict__ out_hops) {
+template <int kThreads, bool kStaged, bool kQuant, bool kFilter, bool kExact>
+__global__ void __launch_bounds__(kThreads) walk_kernel(WalkArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool kOnePass = kThreads <= kNarrowThreads;
+  const int itopk = a.itopk, width = a.width, deg = a.deg, pdim = a.pdim;
   const int A = itopk;
   const int wd = width * deg;
   const int S = pow2_at_least(itopk + wd);
@@ -167,22 +222,26 @@ walk_kernel(const __nv_bfloat16* __restrict__ qp,
   const int lane = tid & 31;
   const size_t row = blockIdx.x;
   const int id_off = kQuant ? pdim / 2 + 1 : pdim + 2;
-  const float s1 = kQuant ? scales[1] : 0.0f;
-  const float s2 = kQuant ? scales[2] : 0.0f;
-  const int* fw = kFilter ? filter_words + row * filter_stride : nullptr;
+  const float s1 = kQuant ? a.scales[1] : 0.0f;
+  const float s2 = kQuant ? a.scales[2] : 0.0f;
+  const int* fw = kFilter ? a.filter_words + row * a.filter_stride : nullptr;
+  const int16_t* table = a.table;
+  const int table_w = a.table_w;
 
   for (int d = tid; d < pdim; d += T)
-    q[d] = __bfloat162float(qp[row * pdim + d]);
+    q[d] = kExact ? static_cast<const float*>(a.q)[row * pdim + d]
+                  : __bfloat162float(static_cast<const __nv_bfloat16*>(
+                        a.q)[row * pdim + d]);
   for (int t = tid; t < itopk; t += T) {
-    mk[t] = buf_d[row * itopk + t];
-    mi[t] = buf_i[row * itopk + t];
-    mv[t] = visited[row * itopk + t];
+    mk[t] = a.buf_d[row * itopk + t];
+    mi[t] = a.buf_i[row * itopk + t];
+    mv[t] = a.visited[row * itopk + t];
   }
   __syncthreads();
-  const float qsq = q_sq[row];
+  const float qsq = a.q_sq[row];
 
   int hops = 0;
-  for (int it = 0; it < max_iter; ++it) {
+  for (int it = 0; it < a.max_iter; ++it) {
     // 1. parents, by warp 0; an all-visited buffer ends the walk
     if (tid < 32) {
       bool any_unvisited = false;
@@ -219,18 +278,21 @@ walk_kernel(const __nv_bfloat16* __restrict__ qp,
 
     // 2. the candidates' ids (-1 under a dead parent, or rejected by the
     // filter), and the parents' fat rows into shared memory
-    if (tid < wd) {
-      const int s = tid / deg, r = tid - s * deg;
-      int id = par_ok[s]
-          ? static_cast<int>(lanes32(table + static_cast<size_t>(par_id[s]) *
-                                                 table_w + r * unit + id_off))
-          : -1;
+    for (int j = tid; j < wd; j += T) {
+      const int s = j / deg, r = j - s * deg;
+      int id = -1;
+      if (par_ok[s])
+        id = kExact ? __ldg(a.graph + static_cast<size_t>(par_id[s]) * deg + r)
+                    : static_cast<int>(lanes32(
+                          table + static_cast<size_t>(par_id[s]) * table_w +
+                          r * unit + id_off));
       if constexpr (kFilter)
-        if (id >= 0 && !admitted(fw, n_words, id)) id = -1;
-      ci[tid] = id;
+        if (id >= 0 && !admitted(fw, a.n_words, id)) id = -1;
+      ci[j] = id;
+      if (kOnePass) break;
     }
     if (kStaged) {
-      if (vec) {
+      if (a.vec) {
         const int n16 = stride >> 3;
         uint4* st4 = reinterpret_cast<uint4*>(stage);
         for (int x = tid; x < width * n16; x += T) {
@@ -252,62 +314,104 @@ walk_kernel(const __nv_bfloat16* __restrict__ qp,
     __syncthreads();
 
     // 3. score and dedupe, one thread per candidate
-    if (tid < wd) {
-      const int s = tid / deg, r = tid - s * deg;
-      const int id = ci[tid];
+    for (int j = tid; j < wd; j += T) {
+      const int s = j / deg, r = j - s * deg;
+      const int id = ci[j];
       float key = INFINITY;
       if (id >= 0) {
-        const int16_t* nb =
-            kStaged ? stage + s * stride + r * unit
-                    : table + static_cast<size_t>(par_id[s]) * table_w +
-                          r * unit;
-        key = neighbor_key<kQuant>(q, nb, pdim, qsq, s1, s2, ip_metric);
+        if constexpr (kExact) {
+          key = exact_key(q, a.rows + static_cast<size_t>(id) * pdim, pdim,
+                          a.vec, qsq, __ldg(a.rows_sq + id), a.ip_metric);
+        } else {
+          const int16_t* nb =
+              kStaged ? stage + s * stride + r * unit
+                      : table + static_cast<size_t>(par_id[s]) * table_w +
+                            r * unit;
+          key = neighbor_key<kQuant>(q, nb, pdim, qsq, s1, s2, a.ip_metric);
+        }
       }
-      const bool dup = hop_merge::duplicate(id, tid, mi, itopk, ci);
-      ck[tid] = dup ? INFINITY : key;
-      cj[tid] = dup ? -1 : id;
+      const bool dup = hop_merge::duplicate(id, j, mi, itopk, ci);
+      ck[j] = dup ? INFINITY : key;
+      cj[j] = dup ? -1 : id;
+      if (kOnePass) break;
     }
-    hop_merge::pad(itopk, wd, S, mk, mi, mv);
+    hop_merge::pad<kOnePass>(itopk, wd, S, mk, mi, mv);
     __syncthreads();
 
     // 4. rank into the merge slots, 5. merge
-    if (tid < wd) hop_merge::place(tid, wd, S, ck, cj, mk, mi, mv);
+    hop_merge::place<kOnePass>(wd, S, ck, cj, mk, mi, mv);
     __syncthreads();
-    hop_merge::bitonic(S, mk, mi, mv);
+    hop_merge::bitonic<kOnePass>(S, mk, mi, mv);
   }
 
   for (int t = tid; t < itopk; t += T) {
-    out_d[row * itopk + t] = mk[t];
-    out_i[row * itopk + t] = mi[t];
-    out_v[row * itopk + t] = static_cast<uint8_t>(mv[t] != 0);
+    a.out_d[row * itopk + t] = mk[t];
+    a.out_i[row * itopk + t] = mi[t];
+    a.out_v[row * itopk + t] = static_cast<uint8_t>(mv[t] != 0);
   }
-  if (tid == 0 && out_hops != nullptr) out_hops[row] = hops;
+  if (tid == 0 && a.out_hops != nullptr) a.out_hops[row] = hops;
 }
 
-template <bool kStaged, bool kQuant, bool kFilter>
-int launch(int nq, int threads, int smem_bytes, cudaStream_t s,
-           const void* qp, const void* q_sq, const void* table, int table_w,
-           int vec, const void* scales, const void* buf_d, const void* buf_i,
-           const void* visited, int itopk, int width, int deg, int pdim,
-           int max_iter, int ip_metric, const void* filter_words,
-           int filter_stride, int n_words, void* out_d, void* out_i,
-           void* out_v, void* hops) {
-  auto* kernel = walk_kernel<kStaged, kQuant, kFilter>;
+template <int kThreads, bool kStaged, bool kQuant, bool kFilter,
+          bool kExact>
+int launch_bounded(int nq, int threads, int smem_bytes, cudaStream_t s,
+                   const WalkArgs& args) {
+  auto* kernel = walk_kernel<kThreads, kStaged, kQuant, kFilter, kExact>;
   if (smem_bytes > kSmemStatic) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<nq, threads, smem_bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(qp), static_cast<const float*>(q_sq),
-      static_cast<const int16_t*>(table), table_w, vec,
-      static_cast<const float*>(scales), static_cast<const float*>(buf_d),
-      static_cast<const int*>(buf_i), static_cast<const uint8_t*>(visited),
-      itopk, width, deg, pdim, max_iter, ip_metric,
-      static_cast<const int*>(filter_words), filter_stride, n_words,
-      static_cast<float*>(out_d), static_cast<int*>(out_i),
-      static_cast<uint8_t*>(out_v), static_cast<int*>(hops));
+  kernel<<<nq, threads, smem_bytes, s>>>(args);
   return (int)cudaGetLastError();
+}
+
+// blocks of up to 256 threads (every walk of itopk + wd <= 512 and wd <=
+// 256) keep the instantiation bounded at 256 threads, wider ones 1,024
+template <bool kStaged, bool kQuant, bool kFilter, bool kExact>
+int launch(int nq, int threads, int smem_bytes, cudaStream_t s,
+           const WalkArgs& args) {
+  return threads <= kNarrowThreads
+             ? launch_bounded<kNarrowThreads, kStaged, kQuant, kFilter,
+                              kExact>(nq, threads, smem_bytes, s, args)
+             : launch_bounded<kMaxThreads, kStaged, kQuant, kFilter, kExact>(
+                   nq, threads, smem_bytes, s, args);
+}
+
+WalkArgs common_args(const void* q, const void* q_sq, const void* buf_d,
+                     const void* buf_i, const void* visited, int itopk,
+                     int width, int deg, int pdim, int max_iter,
+                     int ip_metric, const void* filter_words,
+                     int filter_stride, int n_words, void* out_d,
+                     void* out_i, void* out_v, void* hops) {
+  WalkArgs a = {};
+  a.q = q;
+  a.q_sq = static_cast<const float*>(q_sq);
+  a.buf_d = static_cast<const float*>(buf_d);
+  a.buf_i = static_cast<const int*>(buf_i);
+  a.visited = static_cast<const uint8_t*>(visited);
+  a.itopk = itopk;
+  a.width = width;
+  a.deg = deg;
+  a.pdim = pdim;
+  a.max_iter = max_iter;
+  a.ip_metric = ip_metric;
+  a.filter_words = static_cast<const int*>(filter_words);
+  a.filter_stride = filter_stride;
+  a.n_words = n_words;
+  a.out_d = static_cast<float*>(out_d);
+  a.out_i = static_cast<int*>(out_i);
+  a.out_v = static_cast<uint8_t*>(out_v);
+  a.out_hops = static_cast<int*>(hops);
+  return a;
+}
+
+bool bad_common(int nq, int itopk, int width, int deg, int pdim,
+                int max_iter, const void* filter_words, int filter_stride,
+                int n_words) {
+  return nq < 1 || itopk < 1 || width < 1 || deg < 1 || pdim < 1 ||
+         max_iter < 0 ||
+         (filter_words != nullptr && (n_words < 1 || filter_stride < 0));
 }
 
 }  // namespace
@@ -326,31 +430,69 @@ extern "C" int raft_cagra_walk(const void* qp, const void* q_sq,
                                const void* filter_words, int filter_stride,
                                int n_words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int wd = width * deg;
-  if (nq < 1 || itopk < 1 || width < 1 || deg < 1 || pdim < 1 ||
-      itopk > 256 || wd > 256 || pdim > 4096 || max_iter < 0 ||
+  if (bad_common(nq, itopk, width, deg, pdim, max_iter, filter_words,
+                 filter_stride, n_words) ||
       (quant && (pdim % 2 != 0 || scales == nullptr)) ||
-      table_w < deg * walk_unit(pdim, quant) ||
-      (filter_words != nullptr && (n_words < 1 || filter_stride < 0)))
+      table_w < deg * walk_unit(pdim, quant))
     return (int)cudaErrorInvalidValue;
   if (smem_bytes != walk_smem(itopk, width, deg, pdim, quant, staged) ||
       smem_bytes > kSmemMax)
     return (int)cudaErrorInvalidValue;
   const int threads =
-      hop_merge::block_threads(wd, pow2_at_least(itopk + wd));
-  const int vec = table_w % 8 == 0 &&
-                  reinterpret_cast<uintptr_t>(table) % 16 == 0;
-#define RAFT_WALK_ARGS                                                       \
-  nq, threads, smem_bytes, s, qp, q_sq, table, table_w, vec, scales, buf_d,  \
-      buf_i, visited, itopk, width, deg, pdim, max_iter, ip_metric,          \
-      filter_words, filter_stride, n_words, out_d, out_i, out_v, hops
-#define RAFT_WALK_LAUNCH(FILT)                                               \
-  (staged ? (quant ? launch<true, true, FILT>(RAFT_WALK_ARGS)               \
-                   : launch<true, false, FILT>(RAFT_WALK_ARGS))             \
-          : (quant ? launch<false, true, FILT>(RAFT_WALK_ARGS)              \
-                   : launch<false, false, FILT>(RAFT_WALK_ARGS)))
+      hop_merge::block_threads(width * deg, pow2_at_least(itopk + width * deg));
+  WalkArgs a = common_args(qp, q_sq, buf_d, buf_i, visited, itopk, width,
+                           deg, pdim, max_iter, ip_metric, filter_words,
+                           filter_stride, n_words, out_d, out_i, out_v, hops);
+  a.table = static_cast<const int16_t*>(table);
+  a.table_w = table_w;
+  a.vec = table_w % 8 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  a.scales = static_cast<const float*>(scales);
+#define RAFT_WALK_LAUNCH(FILT)                                              \
+  (staged ? (quant ? launch<true, true, FILT, false>(nq, threads, smem_bytes, \
+                                                     s, a)                  \
+                   : launch<true, false, FILT, false>(nq, threads,          \
+                                                      smem_bytes, s, a))    \
+          : (quant ? launch<false, true, FILT, false>(nq, threads,          \
+                                                      smem_bytes, s, a)     \
+                   : launch<false, false, FILT, false>(nq, threads,         \
+                                                       smem_bytes, s, a)))
   return filter_words != nullptr ? RAFT_WALK_LAUNCH(true)
                                  : RAFT_WALK_LAUNCH(false);
 #undef RAFT_WALK_LAUNCH
-#undef RAFT_WALK_ARGS
+}
+
+// The exact-row source: q (nq, dim) f32, graph (n, deg) int32, rows (n, dim)
+// f32 and rows_sq (n,) f32 in device memory.
+extern "C" int raft_cagra_walk_exact(const void* q, const void* q_sq,
+                                     const void* graph, const void* rows,
+                                     const void* rows_sq, const void* buf_d,
+                                     const void* buf_i, const void* visited,
+                                     int nq, int itopk, int width, int deg,
+                                     int dim, int max_iter, int ip_metric,
+                                     int smem_bytes, void* out_d, void* out_i,
+                                     void* out_v, void* hops,
+                                     const void* filter_words,
+                                     int filter_stride, int n_words,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_common(nq, itopk, width, deg, dim, max_iter, filter_words,
+                 filter_stride, n_words) ||
+      graph == nullptr || rows == nullptr || rows_sq == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes != walk_smem(itopk, width, deg, dim, 0, 0) ||
+      smem_bytes > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  const int threads =
+      hop_merge::block_threads(width * deg, pow2_at_least(itopk + width * deg));
+  WalkArgs a = common_args(q, q_sq, buf_d, buf_i, visited, itopk, width, deg,
+                           dim, max_iter, ip_metric, filter_words,
+                           filter_stride, n_words, out_d, out_i, out_v, hops);
+  a.graph = static_cast<const int*>(graph);
+  a.rows = static_cast<const float*>(rows);
+  a.rows_sq = static_cast<const float*>(rows_sq);
+  a.vec = dim % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0;
+  return filter_words != nullptr
+             ? launch<false, false, true, true>(nq, threads, smem_bytes, s, a)
+             : launch<false, false, false, true>(nq, threads, smem_bytes, s,
+                                                 a);
 }

@@ -12,8 +12,10 @@
 //     strict-'>' compare-exchange passes (ties keep their places) sort it.
 // The network lives in shared memory: keys mk, ids mi, visited flags mv,
 // S entries each, the buffer in the first itopk.  A block runs
-// block_threads(wd, S) threads, so one thread holds at most one candidate
-// and one compare-exchange pair of a pass.
+// block_threads(wd, S) threads, at most kMaxThreads: where the candidates
+// or the compare-exchange pairs of a pass outnumber them, each thread
+// takes every blockDim.x-th one, so any itopk and wd run the same network
+// (only shared memory bounds them).
 
 #pragma once
 
@@ -22,7 +24,13 @@
 
 namespace hop_merge {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 1024;
+// blocks of at most this many threads run an instantiation bounded at it
+// (the register budget the kernels had before they widened past 256); in
+// such a block each thread holds at most one candidate, one padding slot
+// and one compare-exchange pair of a pass (block_threads), so the loops
+// below stop after one pass (kOnePass)
+constexpr int kNarrowThreads = 256;
 
 __host__ __device__ inline int pow2_at_least(int v) {
   int p = 1;
@@ -30,7 +38,8 @@ __host__ __device__ inline int pow2_at_least(int v) {
   return p;
 }
 
-// threads of a block: >= wd and >= S / 2, a power of two in [32, 256]
+// threads of a block: a power of two in [32, kMaxThreads], >= wd and
+// >= S / 2 where that fits
 __host__ inline int block_threads(int wd, int S) {
   const int t = pow2_at_least(wd > S / 2 ? wd : S / 2);
   return t < 32 ? 32 : (t > kMaxThreads ? kMaxThreads : t);
@@ -47,40 +56,49 @@ __device__ __forceinline__ bool duplicate(int id, int j, const int* buf_i,
 }
 
 // (+inf, -1, unvisited) between the buffer and the candidates
+template <bool kOnePass>
 __device__ __forceinline__ void pad(int itopk, int wd, int S, float* mk,
                                     int* mi, int* mv) {
   for (int p = itopk + threadIdx.x; p < S - wd; p += blockDim.x) {
     mk[p] = INFINITY;
     mi[p] = -1;
     mv[p] = 0;
+    if (kOnePass) break;
   }
 }
 
-// candidate j, ranked by (key, position) among the wd (deduplicated)
-// candidates, into merge slot S - 1 - rank, unvisited
-__device__ __forceinline__ void place(int j, int wd, int S, const float* ck,
+// every candidate j, ranked by (key, position) among the wd (deduplicated)
+// candidates, into merge slot S - 1 - rank, unvisited (each thread takes
+// every blockDim.x-th candidate)
+template <bool kOnePass>
+__device__ __forceinline__ void place(int wd, int S, const float* ck,
                                       const int* ci, float* mk, int* mi,
                                       int* mv) {
-  const float kj = ck[j];
-  int r = 0;
-  for (int i = 0; i < wd; ++i) {
-    const float ki = ck[i];
-    r += (ki < kj) || (ki == kj && i < j);
+  for (int j = threadIdx.x; j < wd; j += blockDim.x) {
+    const float kj = ck[j];
+    int r = 0;
+    for (int i = 0; i < wd; ++i) {
+      const float ki = ck[i];
+      r += (ki < kj) || (ki == kj && i < j);
+    }
+    mk[S - 1 - r] = kj;
+    mi[S - 1 - r] = ci[j];
+    mv[S - 1 - r] = 0;
+    if (kOnePass) break;
   }
-  mk[S - 1 - r] = kj;
-  mi[S - 1 - r] = ci[j];
-  mv[S - 1 - r] = 0;
 }
 
 // _bitonic_merge's passes, strict '>'.  The caller has synchronised the
 // block after writing the network; it is synchronised again on return.
-// A pass of stride <= 32 keeps each warp inside its own 64 entries (thread
-// t's pair lies in [64 (t / 32), 64 (t / 32) + 64)), so those passes need
+// Pair p of a pass of stride <= 32 lies in [64 (p / 32), 64 (p / 32) + 64),
+// and thread t takes the pairs t + k blockDim.x (blockDim.x a multiple of
+// 32): so a warp keeps to its own entries through those passes, which need
 // only the warp's barrier.
+template <bool kOnePass>
 __device__ __forceinline__ void bitonic(int S, float* mk, int* mi, int* mv) {
-  const int t = threadIdx.x;
-  for (int stride = S >> 1; stride > 0; stride >>= 1) {
-    if (t < (S >> 1)) {
+  const int half = S >> 1;
+  for (int stride = half; stride > 0; stride >>= 1) {
+    for (int t = threadIdx.x; t < half; t += blockDim.x) {
       const int lo = 2 * stride * (t / stride) + (t % stride);
       const int hi = lo + stride;
       const float a = mk[lo], b = mk[hi];
@@ -94,6 +112,7 @@ __device__ __forceinline__ void bitonic(int S, float* mk, int* mi, int* mv) {
         mv[lo] = mv[hi];
         mv[hi] = vv;
       }
+      if (kOnePass) break;
     }
     if (stride > 32)
       __syncthreads();

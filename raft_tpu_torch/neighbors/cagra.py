@@ -8,22 +8,31 @@ index.  Same ``IndexParams`` / ``SearchParams`` fields and defaults as the
 JAX package, the same ``(distances, ids)`` contract, tensors on the
 handle's device (the card unless the handle asks for the CPU).
 
-Build (n < ``_DEEP_SCALE_ROWS``): the exact all-pairs graph up to
-``_BRUTE_BUILD_MAX`` rows, else the list-major clustered pass — a
-calibrated PCA projection, balanced k-means lists in that space
-(:mod:`raft_tpu_torch.cluster.kmeans_balanced`: Kernel H, and Kernel A
-from pdim 32), a projected scan of each list block's neighbor-list tile,
-reverse edges, then graph-walk refinement rounds: pack the current graph
-into a walk table, self-walk every node (one launch of Kernel I's walk
-kernel per chunk of nodes), and exact-rerank.  ``prune`` orders edges by
-detour count and fills half the degree with reverse edges.
+Build: the exact all-pairs graph up to ``_BRUTE_BUILD_MAX`` rows, else
+the list-major clustered pass — a calibrated PCA projection, balanced
+k-means lists in that space (:mod:`raft_tpu_torch.cluster.kmeans_balanced`:
+Kernel H, and Kernel A from pdim 32), a projected scan of each list
+block's neighbor-list tile, reverse edges, then graph-walk refinement
+rounds: pack the current graph into a walk table, self-walk every node
+(one launch of Kernel I's walk kernel per chunk of nodes), and
+exact-rerank.  From ``_DEEP_SCALE_ROWS`` rows (the deep regime, the JAX
+package's memory regime for 10M rows) the reverse edges are merged first
+and dropped (:func:`_merge_refine_inplace`), and each round's walk and
+rerank run per chunk of nodes, written back into the graph in place
+(:func:`_deep_walk_round`).  ``prune`` orders edges by detour count and
+fills half the degree with reverse edges.
 
 Search: a dense entry-set scoring seeds each query's sorted buffer, then
 greedy hops over the packed-neighborhood table (one fat row per parent:
 projected bf16 vectors, norms and ids in int16 lanes) — the whole walk,
 every hop's parent choice, fat-row gather, score, dedupe and merge, in one
 launch of Kernel I's walk kernel (:mod:`raft_tpu_torch.ops.cagra_walk`) —
-and an exact rerank of the buffer's best ``rerank`` entries.
+and an exact rerank of the buffer's best ``rerank`` entries.  With
+``walk_pdim=0``, or where no walk-table format fits ``_WALK_TABLE_MAX_BYTES``
+or passes calibration, the direct walk (:func:`_search_impl`): random
+seeds scored exactly, then the walk over the graph itself, each candidate
+scored on its fp32 row, in one launch of the walk kernel's exact-row
+source.
 
 Where the port differs from the JAX package, by design:
 
@@ -33,7 +42,9 @@ Where the port differs from the JAX package, by design:
   (``_merge_candidates``), which with the walk's other pieces is the plain
   version here.  The exact merge of the build's refinement rounds is a
   hop with the full rows as its "projected" vectors and a zero query norm,
-  on Kernel I's hop kernel;
+  on Kernel I's hop kernel.  Only shared memory bounds the two kernels'
+  shapes; a walk or hop past it runs its plain version, chosen before any
+  launch and counted (``search.plain_walks``, ``build.plain_walks``);
 - ``approx_max_k`` (the build scan and its calibration) is an exact top-k:
   on the TPU it is approximate, on the CPU exact;
 - the walk's ``all(visited)`` exit is per query, before every hop, in the
@@ -42,11 +53,15 @@ Where the port differs from the JAX package, by design:
   point of the hop, so the result is the same;
 - chunks are sized by device memory (``_hbm_bytes``), not by the TPU
   watchdog's dispatch limits; every chunked result is row-wise, so the
-  result does not change;
-- the entry set is drawn with ``torch.randperm`` on the handle's generator
-  (Philox, not threefry): carry a ``raft_tpu`` index and its walk cache
-  across with :func:`index_from_numpy` and :func:`attach_walk_cache` to
-  compare searches draw for draw.
+  result does not change.  The deep regime's table budget is the card's
+  memory less the dataset, the graph and 3 GiB, so its plan may differ
+  from the TPU's; the reverse edges go to the host only past a quarter of
+  device memory (the TPU's limit was lane padding);
+- the entry set is drawn with ``torch.randperm`` and the direct walk's
+  seeds with ``torch.randint`` on the handle's generator (Philox, not
+  threefry): carry a ``raft_tpu`` index and its walk cache across with
+  :func:`index_from_numpy` and :func:`attach_walk_cache` to compare
+  searches draw for draw, and hand :func:`_search_impl` the seeds.
 
 Persistence: :func:`serialize` / :func:`deserialize` / :func:`save` /
 :func:`load` write and read the JAX package's stream (version 2, the
@@ -69,12 +84,6 @@ rows stay in the dataset and graph (the walk may pass through them), a
 host-side ``deleted_ids`` set drops them from every result
 (:func:`_mask_deleted`), and the set is not serialized.
 
-Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP.md
-item: the deep-scale build from ``_DEEP_SCALE_ROWS`` rows (CAGRA deep regime), the
-direct exact walk (``walk_pdim=0``, or no walk-table format fits: CAGRA
-direct walk) and hops beyond Kernel I's gate — itopk or search_width x
-degree above 256 (CAGRA wide hops).
-
 The dataset and the queries pass the boundary validator
 (:mod:`raft_tpu_torch.integrity.boundary`) at the JAX package's sites.
 """
@@ -92,7 +101,7 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core import serialize as ser
-from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.interruptible import interruptible
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.core.outputs import auto_convert_output
@@ -116,10 +125,6 @@ _select_parents = _walk.select_parents
 _expand = _walk.expand
 _decode_neighborhood = _walk.decode_neighborhood
 _quant_unit = _walk.quant_unit
-
-
-def _not_ported(what: str, item: str):
-    return not_ported("cagra", what, item)
 
 
 @dataclasses.dataclass
@@ -152,8 +157,8 @@ class SearchParams:
     package's walk knobs (``walk_pdim`` None = calibrated, >0 forced;
     ``entry_points``; ``rerank_topk`` 0 = max(32, 2k)).  ``merge_window``
     is validated and selects nothing: Kernel I has one merge.
-    ``num_random_samplings`` and ``rand_xor_mask`` belong to the direct
-    walk, which is not ported."""
+    ``num_random_samplings`` sizes the direct walk's random seeds;
+    ``rand_xor_mask`` selects nothing, as in the JAX package."""
 
     max_iterations: int = 0
     itopk_size: int = 64
@@ -203,8 +208,10 @@ _BRUTE_BUILD_MAX = 32768
 _BUILD_FIDELITY = 0.95
 _CALIB_RT = 0.99
 _BUILD_FIDELITY_GATE = min(_BUILD_FIDELITY + 2 * (1 - _CALIB_RT), 1.0)
-_REV_HOST_EDGES = 200_000_000
 _DEEP_SCALE_ROWS = 4_000_000
+# device bytes one reverse edge's sort takes at its peak (the int32
+# destination and its sorted copy, the int64 order, the int32 sources)
+_REV_EDGE_BYTES = 32
 _REV_SRC_CAP = 48
 _WALK_FIDELITY = 0.9
 _WALK_CALIB_QUERIES = 256
@@ -220,18 +227,46 @@ _DEBUG_CHECKS = os.environ.get("RAFT_TPU_DEBUG_CHECKS", "0").lower() \
     not in ("0", "", "false")
 
 
-def _require_hop(nq: int, itopk: int, wd: int, pdim: int, *,
-                 deg: int = 0, quant: bool = False) -> None:
-    """Raise before a walk or merge whose hops Kernel I's gate refuses (the
-    JAX package runs its XLA twin there); with ``deg`` (wd = search_width
-    * deg) the walk kernel's gate as well."""
-    why = _hop.hop_reject_reason(nq, itopk, wd, pdim)
-    if not why and deg:
-        why = _walk.walk_reject_reason(nq, itopk, wd // deg, deg, pdim,
-                                       quant)
-    if why:
-        raise _not_ported(f"a walk hop beyond Kernel I's gate ({why})",
-                          "CAGRA wide hops")
+def _run_walk(counted, qp_t, q_sq, table, buf_d, buf_i, visited, **kw):
+    """One walk over a packed table: Kernel I's walk kernel where its gate
+    takes the shape (the plain walk for CPU tensors), else — past the
+    kernel's shared memory — the plain walk, the JAX package's XLA loop,
+    chosen before any launch and counted in ``counted.plain_walks``."""
+    nq, itopk = buf_d.shape
+    if _walk.walk_reject_reason(nq, itopk, kw["search_width"], kw["deg"],
+                                qp_t.shape[1], kw.get("quant", False)):
+        counted.plain_walks += 1
+        return _walk.cagra_walk_plain(qp_t, q_sq, table, buf_d, buf_i,
+                                      visited, **kw)
+    return _walk.cagra_walk(qp_t, q_sq, table, buf_d, buf_i, visited, **kw)
+
+
+def _run_walk_exact(counted, qf, q_sq, graph, rows, rows_sq, buf_d, buf_i,
+                    visited, **kw):
+    """One direct walk: the walk kernel's exact-row source where its gate
+    takes the shape, else its plain version (counted as
+    :func:`_run_walk`)."""
+    nq, itopk = buf_d.shape
+    if _walk.walk_exact_reject_reason(nq, itopk, kw["search_width"],
+                                      graph.shape[1], rows.shape[1]):
+        counted.plain_walks += 1
+        return _walk.cagra_walk_exact_plain(qf, q_sq, graph, rows, rows_sq,
+                                            buf_d, buf_i, visited, **kw)
+    return _walk.cagra_walk_exact(qf, q_sq, graph, rows, rows_sq, buf_d,
+                                  buf_i, visited, **kw)
+
+
+def _run_hop(counted, qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i, visited,
+             *, ip_metric: bool):
+    """One hop: Kernel I's hop kernel where its gate takes the shape, else
+    its plain version (counted as :func:`_run_walk`)."""
+    nq, wd, pdim = nb_p.shape
+    if _hop.hop_reject_reason(nq, buf_d.shape[1], wd, pdim):
+        counted.plain_walks += 1
+        return _hop.cagra_hop_plain(qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d,
+                                    buf_i, visited, ip_metric=ip_metric)
+    return _hop.cagra_hop(qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i,
+                          visited, ip_metric=ip_metric)
 
 
 def _hbm_bytes(device) -> int:
@@ -744,18 +779,15 @@ def _search_impl_walk(dataset, table, entry_proj, entry_sq, entry_ids, proj,
     ``exit_every`` hops (0: never — the fixed hop count, the same
     result).  ``filter_words``: the queries' packed admission words, or
     None."""
-    nq = queries.shape[0]
     n = dataset.shape[0]
-    pdim = proj.shape[1]
-    _require_hop(nq, itopk, search_width * deg, pdim, deg=deg, quant=quant)
     ip_metric = metric == DistanceType.InnerProduct
     qf = queries.float()
     q_sq, qp, qp_t = _query_side(qf, proj, quant, scales)
     buf_d, buf_i, visited = _seed_walk(qp, q_sq, entry_proj, entry_sq,
                                        entry_ids, itopk, ip_metric,
                                        filter_words)
-    buf_d, buf_i, visited = _walk.cagra_walk(
-        qp_t, q_sq, table, buf_d, buf_i, visited, deg=deg,
+    buf_d, buf_i, visited = _run_walk(
+        search, qp_t, q_sq, table, buf_d, buf_i, visited, deg=deg,
         search_width=search_width, max_iterations=max_iterations,
         ip_metric=ip_metric, quant=quant, scales=scales,
         exit_every=exit_every, filter_words=filter_words)
@@ -820,14 +852,24 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
     itopk = max(params.itopk_size, k)
     max_iter = params.max_iterations or (
         10 + itopk // max(params.search_width, 1))
-    if params.walk_pdim == 0:
-        raise _not_ported("the direct exact walk (walk_pdim=0)",
-                          "CAGRA direct walk")
-    pdim = min(params.walk_pdim or _auto_pdim(index), index.dim)
+    pdim = 0
+    if params.walk_pdim != 0:
+        pdim = min(params.walk_pdim or _auto_pdim(index), index.dim)
     fmt = _search_table_format(index, pdim) if pdim > 0 else None
     if fmt is None:
-        raise _not_ported("the direct exact walk (no walk-table projection "
-                          "or format fits this index)", "CAGRA direct walk")
+        # the direct exact walk: 4 x itopk random seeds (at least 128), the
+        # reference's random-sampling buffer fill scaled as the JAX
+        # package scales it
+        n_seeds = max(itopk, min(index.size, max(
+            params.num_random_samplings * 4 * itopk, 128)))
+        seed_ids = torch.randint(0, index.size, (queries.shape[0], n_seeds),
+                                 generator=res.generator,
+                                 device=queries.device, dtype=torch.int32)
+        out = _search_impl(index.dataset, index.graph, queries, seed_ids, k,
+                           itopk, params.search_width, max_iter,
+                           index.metric, filter_words=fw,
+                           rows_sq=_rows_sq(index))
+        return _mask_deleted(index, *out)
     pdim, quant = fmt
     cache = _walk_cache(res, index, pdim, max(params.entry_points, itopk),
                         quant=quant)
@@ -838,6 +880,83 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
         max_iter, index.metric, rerank, index.graph_degree,
         quant=cache.quant, scales=cache.scales, filter_words=fw)
     return _mask_deleted(index, *out)
+
+
+# walks and hops that ran their plain version past the kernels' shared
+# memory (the static gates chose it before any launch)
+search.plain_walks = 0
+
+
+def _rows_sq(index: Index) -> torch.Tensor:
+    """The dataset's fp32 squared norms, cached on the index (the direct
+    walk's ‖x‖²)."""
+    sq = getattr(index, "_walk_rows_sq", None)
+    if sq is None:
+        xf = index.dataset.float()
+        sq = index._walk_rows_sq = (xf * xf).sum(1)
+    return sq
+
+
+def _seed_direct(qf, q_sq, rows, rows_sq, seed_ids, itopk: int,
+                 ip_metric: bool, filter_words=None):
+    """The direct walk's seeded buffer (buf_d, buf_i, visited), each (nq,
+    itopk): the random ``seed_ids`` scored exactly, a node drawn twice
+    kept at its first draw (the later ones +inf: the JAX sorted-duplicate
+    rule), a seed the query's filter rejects +inf, the best ``itopk``
+    sorted, dead slots id -1, nothing visited."""
+    nq = qf.shape[0]
+    seed_ids = seed_ids.int()
+    seed_d = _walk.exact_keys(qf, q_sq, rows, rows_sq, seed_ids, ip_metric)
+    srt, _ = torch.sort(seed_ids, dim=1)
+    dup_sorted = torch.cat([torch.zeros(nq, 1, dtype=torch.bool,
+                                        device=srt.device),
+                            srt[:, 1:] == srt[:, :-1]], 1)
+    rank = torch.argsort(torch.argsort(seed_ids, dim=1, stable=True), dim=1,
+                         stable=True)
+    inf = torch.full_like(seed_d, float("inf"))
+    seed_d = torch.where(torch.gather(dup_sorted, 1, rank), inf, seed_d)
+    if filter_words is not None:
+        adm = query_bits(filter_words, torch.arange(nq, device=qf.device),
+                         seed_ids)
+        seed_d = torch.where(adm > 0, seed_d, inf)
+    buf_d, pos = _topk_smallest(seed_d, itopk)
+    buf_i = torch.gather(seed_ids, 1, pos)
+    buf_i = torch.where(torch.isinf(buf_d), torch.full_like(buf_i, -1),
+                        buf_i)
+    visited = torch.zeros(nq, itopk, dtype=torch.bool, device=qf.device)
+    return buf_d, buf_i, visited
+
+
+def _search_impl(dataset, graph, queries, seed_ids, k: int, itopk: int,
+                 search_width: int, max_iterations: int, metric: int, *,
+                 filter_words=None, rows_sq=None,
+                 exit_every: int = _EXIT_CHECK_EVERY):
+    """The direct exact walk (``raft_tpu/neighbors/cagra.py:1857``): the
+    random ``seed_ids`` (nq, n_seeds) seed the buffer
+    (:func:`_seed_direct`); then the walk over ``graph``, each
+    candidate scored on its fp32 dataset row, in one launch of the walk
+    kernel's exact-row source (its plain version on the CPU, or past its
+    shared memory).  The buffer's first ``k`` are the result: no rerank,
+    the square root for the Sqrt metrics."""
+    ip_metric = metric == DistanceType.InnerProduct
+    qf = queries.float()
+    rows = dataset.float()
+    if rows_sq is None:
+        rows_sq = (rows * rows).sum(1)
+    q_sq = (qf * qf).sum(1)
+    buf_d, buf_i, visited = _seed_direct(qf, q_sq, rows, rows_sq, seed_ids,
+                                         itopk, ip_metric, filter_words)
+    buf_d, buf_i, _ = _run_walk_exact(
+        search, qf, q_sq, graph.int(), rows, rows_sq, buf_d, buf_i, visited,
+        search_width=search_width, max_iterations=max_iterations,
+        ip_metric=ip_metric, exit_every=exit_every,
+        filter_words=filter_words)
+    out_d, out_i = buf_d[:, :k], buf_i[:, :k]
+    if ip_metric:
+        out_d = -out_d
+    if metric in SQRT_METRICS:
+        out_d = torch.sqrt(torch.clamp_min(out_d, 0.0))
+    return out_d, out_i
 
 
 def _mask_deleted(index: Index, dist, ids
@@ -921,11 +1040,12 @@ def _scan_chunk(P_proj, P_sq, P_id, center_nbrs, list_ids, cap: int,
 def _build_knn_graph_clustered(res, dataset, kg: int, p: IndexParams,
                                stages: dict):
     """The cluster-blocked kNN-graph pass: (n, kg) int32 ranked ids (self
-    included).  Stage seconds land in ``stages``."""
+    included).  Stage seconds land in ``stages``.  From
+    ``_DEEP_SCALE_ROWS`` rows, the deep regime
+    (``raft_tpu/neighbors/cagra.py:662-678``): the reverse edges merged
+    first and dropped, then ``build_walk_rounds`` rounds of
+    :func:`_deep_walk_round`, each written into the graph in place."""
     n, dim = dataset.shape
-    if n >= _DEEP_SCALE_ROWS:
-        raise _not_ported(f"the deep-scale build (n >= {_DEEP_SCALE_ROWS:,} "
-                          f"rows)", "CAGRA deep regime")
     dev = dataset.device
     xf = dataset.float()
     ip_metric = p.metric == DistanceType.InnerProduct
@@ -944,12 +1064,6 @@ def _build_knn_graph_clustered(res, dataset, kg: int, p: IndexParams,
     xp32 = xf @ proj
     build.build_pdim = pdim
     walk = pdim < dim and p.build_walk_rounds > 0
-    if walk:      # the rounds' self-walk hops and their sorted merge
-        _require_hop(1, _refine_itopk(kg), min(kg, 64), pdim,
-                     deg=min(kg, 64))
-        _require_hop(1, kg, _refine_itopk(kg), dim)
-    elif p.build_reverse_rounds > 1:
-        _require_hop(1, kg, min(kg, 64), dim)
     t0 = _stage(stages, "calibration", t0, dev)
 
     n_train = min(n, max(n_lists * 8, max(65536, n // 10)))
@@ -987,6 +1101,16 @@ def _build_knn_graph_clustered(res, dataset, kg: int, p: IndexParams,
 
     rev = _reverse_edges_auto(knn, n, min(kg, 64))
     t0 = _stage(stages, "reverse_edges", t0, dev)
+    if n >= _DEEP_SCALE_ROWS:
+        knn = _merge_refine_inplace(dataset, knn, rev, kg, ip_metric)
+        del rev
+        t0 = _stage(stages, "reverse_merge", t0, dev)
+        if pdim < dim:
+            for r in range(p.build_walk_rounds):
+                knn = _deep_walk_round(dataset, knn, kg, p.metric, pdim,
+                                       p.build_walk_iters, vecs=vecs)
+                t0 = _stage(stages, f"walk_refine_{r}", t0, dev)
+        return knn
     knn_d = None
     if walk:
         for r in range(p.build_walk_rounds):
@@ -1007,15 +1131,17 @@ def _build_knn_graph_clustered(res, dataset, kg: int, p: IndexParams,
 def _reverse_edges(fwd, n: int, rev_cap: int):
     """Reverse-edge lists: node j collects every i with an edge i -> j into
     up to ``rev_cap`` slots, strongest (lowest rank) first, -1 beyond — one
-    stable sort of the rank-major edge list by destination."""
-    half = fwd.shape[1]
+    stable sort of the rank-major edge list by destination (edge e's
+    source is e mod n, so only the int32 destinations and the sort's order
+    are held: ``_REV_EDGE_BYTES`` an edge)."""
     dev = fwd.device
-    dst = fwd.T.reshape(-1).long()
-    src = torch.arange(n, device=dev).repeat(half)
+    dst = fwd.T.reshape(-1).int()
     dsts, order = torch.sort(dst, stable=True)
-    srcs = src[order]
+    del dst
+    srcs = (order % n).int()
+    del order
     e = dsts.shape[0]
-    nodes = torch.arange(n, device=dev)
+    nodes = torch.arange(n, device=dev, dtype=dsts.dtype)
     starts = torch.searchsorted(dsts, nodes)
     counts = torch.searchsorted(dsts, nodes, right=True) - starts
     slot = torch.arange(rev_cap, device=dev)
@@ -1041,9 +1167,11 @@ def _reverse_edges_host(fwd: np.ndarray, n: int, rev_cap: int) -> np.ndarray:
 
 def _reverse_edges_auto(knn, n: int, rev_cap: int):
     """Reverse edges from the top-``_REV_SRC_CAP`` forward columns, on the
-    device or, past ``_REV_HOST_EDGES`` edges, on the host."""
+    device where the sort's ``_REV_EDGE_BYTES`` an edge fit a quarter of
+    its memory (16 chunk budgets: 20 GB on an 80 GB card, 480M edges at
+    10M rows), else on the host (the same result)."""
     kg = min(knn.shape[1], _REV_SRC_CAP)
-    if n * kg <= _REV_HOST_EDGES:
+    if n * kg * _REV_EDGE_BYTES <= 16 * _chunk_budget(knn.device):
         return _reverse_edges(knn[:, :kg], n, rev_cap)
     return torch.from_numpy(_reverse_edges_host(
         knn[:, :kg].cpu().numpy(), n, rev_cap)).to(knn.device)
@@ -1087,8 +1215,6 @@ def _merge_refine_chunked_impl(xf, first, second, kg: int, ip_metric: bool,
     x_sq = (xf * xf).sum(1)
     m = first.shape[1] + second.shape[1]
     chunk = chunk or _rows_per_chunk(dev, m * dim * 12)
-    if first_d is not None:
-        _require_hop(min(chunk, n), kg, second.shape[1], dim)
     out = torch.empty(n, kg, dtype=torch.int32, device=dev)
     outd = torch.empty(n, kg, dtype=torch.float32, device=dev)
     for s in range(0, n, chunk):
@@ -1100,8 +1226,9 @@ def _merge_refine_chunked_impl(xf, first, second, kg: int, ip_metric: bool,
         sec = second[s:e].int()
         valid = sec >= 0
         safe = torch.where(valid, sec, torch.zeros_like(sec)).long()
-        bd, bi, _ = _hop.cagra_hop(
-            xb[s:e], torch.zeros(e - s, device=dev), xb[safe], x_sq[safe],
+        bd, bi, _ = _run_hop(
+            build, xb[s:e], torch.zeros(e - s, device=dev), xb[safe],
+            x_sq[safe],
             torch.where(valid, sec, torch.full_like(sec, -1)),
             first_d[s:e], first[s:e].int(),
             torch.zeros(e - s, first.shape[1], dtype=torch.bool, device=dev),
@@ -1155,8 +1282,8 @@ def _walk_chunk_body(qf, ids_c, table, proj, scales, itopk: int, iters: int,
     buf_i = torch.where(torch.isinf(buf_d), torch.full_like(buf_i, -1),
                         buf_i)
     visited = buf_i == ids_c[:, None]
-    _, buf_i, _ = _walk.cagra_walk(
-        qp, q_sq, table, buf_d, buf_i, visited, deg=deg,
+    _, buf_i, _ = _run_walk(
+        build, qp, q_sq, table, buf_d, buf_i, visited, deg=deg,
         search_width=search_width, max_iterations=iters,
         ip_metric=ip_metric, quant=quant, scales=scales)
     return buf_i
@@ -1168,8 +1295,6 @@ def _self_walk_chunked(dataset, table, proj, itopk: int, iters: int,
     """:func:`_walk_chunk_body` with queries = the dataset itself, over
     node chunks: (n, itopk) candidate ids."""
     n = dataset.shape[0]
-    _require_hop(min(chunk, n), itopk, search_width * deg, proj.shape[1],
-                 deg=deg, quant=quant)
     ip_metric = metric == DistanceType.InnerProduct
     out = torch.empty(n, itopk, dtype=torch.int32, device=dataset.device)
     for s in range(0, n, chunk):
@@ -1178,6 +1303,86 @@ def _self_walk_chunked(dataset, table, proj, itopk: int, iters: int,
             dataset[ids_c].float(), ids_c, table, proj, scales, itopk, iters,
             search_width, ip_metric, deg, quant)
     return out
+
+
+def _merge_refine_inplace(dataset, knn, second, kg: int, ip_metric: bool,
+                          chunk: int = 8192):
+    """The deep regime's reverse merge (``raft_tpu/neighbors/cagra.py:849``):
+    per chunk of ``chunk`` nodes, :func:`_rerank_rows` of [knn | second],
+    written back into ``knn`` in place (and returned).  Chunk ``ci``
+    starts at min(ci·chunk, n − chunk), as the JAX loop's, so when n %
+    chunk ≠ 0 the last chunk reranks rows an earlier chunk has already
+    rewritten, with the new row as ``old``."""
+    n = dataset.shape[0]
+    chunk = min(chunk, n)
+    xf = dataset.float()
+    xf_sq = (xf * xf).sum(1)
+    for ci in range(-(-n // chunk)):
+        start = min(ci * chunk, n - chunk)
+        rows = slice(start, start + chunk)
+        knn[rows] = _rerank_rows(dataset, xf_sq, xf[rows],
+                                 knn[rows], second[rows], kg, ip_metric)[0]
+    return knn
+
+
+def _walk_refine_fused(dataset, knn, table, proj, scales, kg: int,
+                       itopk: int, iters: int, metric: int, deg: int,
+                       chunk: int = 8192, quant: bool = False):
+    """The deep regime's walk-refinement round
+    (``raft_tpu/neighbors/cagra.py:796``): per chunk of ``chunk`` nodes,
+    the warm-seeded self-walk (:func:`_walk_chunk_body`, one walk launch,
+    search_width 1), then :func:`_rerank_rows` of [knn | walk buffer],
+    written back into ``knn`` in place (and returned).  The walk reads
+    the packed table, a snapshot, never ``knn``; chunks start as in
+    :func:`_merge_refine_inplace` (the last one overlaps)."""
+    n = dataset.shape[0]
+    chunk = min(chunk, n)
+    ip_metric = metric == DistanceType.InnerProduct
+    xf = dataset.float()
+    xf_sq = (xf * xf).sum(1)
+    for ci in range(-(-n // chunk)):
+        start = min(ci * chunk, n - chunk)
+        rows = slice(start, start + chunk)
+        ids_c = torch.arange(start, start + chunk, device=dataset.device)
+        qf = xf[rows]
+        cand = _walk_chunk_body(qf, ids_c, table, proj, scales, itopk, iters,
+                                1, ip_metric, deg, quant)
+        knn[rows] = _rerank_rows(dataset, xf_sq, qf, knn[rows], cand, kg,
+                                 ip_metric)[0]
+    return knn
+
+
+def _deep_table_plan(n: int, dim: int, kg: int, pdim: int, hbm: int):
+    """(budget, plan) of a deep round's walk table: the budget is
+    min(``_WALK_TABLE_MAX_BYTES``, hbm − the fp32 dataset − the graph
+    padded to 128 columns − 3 GiB), and the plan :func:`_table_plan`'s
+    deep ladder (no bf16 rung), None when no rung fits."""
+    budget = min(_WALK_TABLE_MAX_BYTES,
+                 hbm - n * dim * 4 - n * (-(-kg // 128) * 128) * 4
+                 - (3 << 30))
+    return budget, _table_plan(n, kg, pdim, budget, deep=True)
+
+
+def _deep_walk_round(dataset, knn, kg: int, metric: int, pdim: int,
+                     iters: int, vecs=None, chunk: int = 8192):
+    """One deep-regime walk-refinement round
+    (``raft_tpu/neighbors/cagra.py:419``): the walk table sized by
+    :func:`_deep_table_plan` and walked by :func:`_walk_refine_fused`; the
+    round is skipped (``knn`` returned as it is) when no rung fits.  The
+    port's ``_hbm_bytes`` is the card's memory (80 GB on an H100, against
+    the 16 GB of the TPU the JAX package was tuned on), so the budget, and
+    with it the plan, may differ from the TPU's: 10M x 96 rows at
+    ``intermediate_graph_degree`` 64 get the 6 GiB cap and the plan (32,
+    8, int8) on the card, ~5 GB and (16, 8, int8) at 16 GB."""
+    n, dim = dataset.shape
+    _, plan = _deep_table_plan(n, dim, kg, pdim, _hbm_bytes(dataset.device))
+    build.deep_plans.append(plan)
+    if plan is None:
+        return knn
+    table, proj, scales, q = _build_refine_table(dataset, knn, plan, vecs)
+    return _walk_refine_fused(dataset, knn, table, proj, scales, kg,
+                              _refine_itopk(kg), iters, metric, plan[0],
+                              chunk=chunk, quant=q)
 
 
 def _refine_itopk(kg: int) -> int:
@@ -1227,6 +1432,7 @@ def build_knn_graph(res, dataset, intermediate_degree: int, *,
         kg = min(intermediate_degree + 1, n)
         stages = build.stage_seconds = {}
         build.build_pdim = None
+        build.deep_plans = []
         if n <= _BRUTE_BUILD_MAX:
             t0 = _stage(stages, None, time.perf_counter(), dataset.device)
             knn = _knn_graph_exact(dataset, kg, p.metric,
@@ -1319,6 +1525,7 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
                                            allow_empty=False)
         dev = dataset.device
         build.stage_seconds, build.build_pdim = {}, None
+        build.deep_plans = []
         knn = _ckpt.run_stage(
             ckpt, "knn_graph", resume, res.generator, dev,
             lambda: {"knn": build_knn_graph(
@@ -1348,9 +1555,14 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
 
 
 # wall seconds of the latest build's stages (each ends with a device
-# synchronisation) and the clustered pass's projected dimension
+# synchronisation), the clustered pass's projected dimension, the deep
+# regime's table plan of each round ((deg_t, pdim, quant), None: skipped)
+# and the walks and hops that ran their plain version past the kernels'
+# shared memory
 build.stage_seconds = {}
 build.build_pdim = None
+build.deep_plans = []
+build.plain_walks = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1388,7 +1600,7 @@ def delete(res, index: Index, ids) -> Index:
     out.deleted_ids = dropped
     # the walk caches depend only on the dataset and graph (both shared)
     for attr in ("_walk_auto_pdim", "_walk_calib_vecs", "_walk_quant_ok",
-                 "_walk_tables", "_walk_entries"):
+                 "_walk_tables", "_walk_entries", "_walk_rows_sq"):
         if hasattr(index, attr):
             setattr(out, attr, getattr(index, attr))
     _mutate.next_generation(index, out)

@@ -80,6 +80,9 @@ SIGNATURES = {
                        _P, _P, _P, _P),
     "raft_cagra_walk": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    "raft_cagra_walk_exact": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                              _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -7,7 +7,10 @@ bounds it on an H100 (bytes) and how the query-major design lays the hop
 out.  None of the TPU layout comes over: no 128-lane query padding, no
 f32 id lanes (ids stay int32, so there is no 2^24 cap), no batch cap of
 64 and no VMEM-sized variant choice — one merge serves every shape the
-gate admits.
+gate admits, and only shared memory bounds it (``SMEM_MAX``, opted in
+past 48 KB): the block's threads (at most 1,024) take every
+``blockDim``-th candidate and compare-exchange pair where they are
+outnumbered.
 
 :func:`cagra_hop` launches the kernel for CUDA tensors and runs
 :func:`cagra_hop_plain` for CPU tensors — nothing else picks between them,
@@ -47,10 +50,7 @@ import torch
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.ops import _cuda
 
-ITOPK_MAX = 256                  # buffer width the gate admits
-WD_MAX = 256                     # candidates per hop (search_width * degree)
-PDIM_MAX = 4096                  # projected width (the build merge: dim)
-_SMEM_LIMIT = 48 * 1024          # static-launch shared memory, no opt-in
+SMEM_MAX = 232_448               # an H100 block's opt-in shared memory
 
 
 def hop_pow2(n: int) -> int:
@@ -81,15 +81,15 @@ def hop_reject_reason(nq: int, itopk: int, wd: int, pdim: int,
         return f"merge_window={merge_window} < 0"
     if not 0 < nq < 2 ** 31:
         return f"nq={nq} outside 1..2^31-1"
-    if not 0 < itopk <= ITOPK_MAX:
-        return f"itopk={itopk} outside 1..{ITOPK_MAX}"
-    if not 0 < wd <= WD_MAX:
-        return f"search_width*degree={wd} outside 1..{WD_MAX}"
-    if not 0 < pdim <= PDIM_MAX:
-        return f"pdim={pdim} outside 1..{PDIM_MAX}"
-    if hop_smem_bytes(itopk, wd, pdim) > _SMEM_LIMIT:
+    if itopk < 1:
+        return f"itopk={itopk} < 1"
+    if wd < 1:
+        return f"search_width*degree={wd} < 1"
+    if pdim < 1:
+        return f"pdim={pdim} < 1"
+    if hop_smem_bytes(itopk, wd, pdim) > SMEM_MAX:
         return (f"shared memory {hop_smem_bytes(itopk, wd, pdim)} B above "
-                f"{_SMEM_LIMIT}")
+                f"{SMEM_MAX}")
     return ""
 
 

@@ -16,6 +16,17 @@ merge, whose full-width rows have no table.
 them, and a gate miss, a failed build or a failed launch raises.
 ``cagra_walk.launches`` counts kernel launches (one per walk).
 
+The exact-row source (:func:`cagra_walk_exact`, ``raft_cagra_walk_exact``:
+the same kernel's ``kExact`` instantiation) walks the graph itself, each
+candidate scored on its fp32 dataset row — the direct walk of
+``raft_tpu/neighbors/cagra.py:1857 _search_impl``, which the JAX package
+runs in XLA.  Its plain version :func:`cagra_walk_exact_plain` is that
+loop in torch (TF32 off: a sequential dimension loop, each product and
+sum rounded, as the kernel does), and ``cagra_walk_exact.launches``
+counts its launches.  Both routes refuse a shape only for shared memory
+(:func:`walk_reject_reason`, :func:`walk_exact_reject_reason`); the
+caller runs a refused shape's plain version (``neighbors/cagra``).
+
 Contract, per query, from the seeded sorted buffer ``buf_d`` / ``buf_i`` /
 ``visited`` (nq, itopk), for at most ``max_iterations`` hops, each hop
 :func:`select_parents` → :func:`expand` → ``cagra_hop_plain``; the plain
@@ -85,15 +96,27 @@ def walk_staged(itopk: int, width: int, deg: int, pdim: int,
     return walk_smem_bytes(itopk, width, deg, pdim, quant) <= SMEM_MAX
 
 
-def walk_reject_reason(nq: int, itopk: int, width: int, deg: int, pdim: int,
-                       quant: bool = False) -> str:
-    """Why the walk kernel cannot take this walk ('' when it can).  It
-    admits every hop shape Kernel I's hop gate admits."""
+def _shape_reason(nq: int, itopk: int, width: int, deg: int,
+                  pdim: int) -> str:
+    if not 0 < nq < 2 ** 31:
+        return f"nq={nq} outside 1..2^31-1"
+    if itopk < 1:
+        return f"itopk={itopk} < 1"
     if width < 1:
         return f"search_width={width} < 1"
     if deg < 1:
         return f"degree={deg} < 1"
-    why = _hop.hop_reject_reason(nq, itopk, width * deg, pdim)
+    if pdim < 1:
+        return f"pdim={pdim} < 1"
+    return ""
+
+
+def walk_reject_reason(nq: int, itopk: int, width: int, deg: int, pdim: int,
+                       quant: bool = False) -> str:
+    """Why the walk kernel cannot take this walk ('' when it can): only
+    shared memory (with the fat rows scored from the table where staging
+    them does not fit) and, in the int8 format, an odd pdim."""
+    why = _shape_reason(nq, itopk, width, deg, pdim)
     if why:
         return why
     if quant and pdim % 2:
@@ -109,6 +132,25 @@ def supported_walk(nq: int, itopk: int, width: int, deg: int, pdim: int,
                    quant: bool = False) -> bool:
     """Static shape gate of the walk kernel."""
     return not walk_reject_reason(nq, itopk, width, deg, pdim, quant)
+
+
+def walk_exact_smem_bytes(itopk: int, width: int, deg: int, dim: int) -> int:
+    """Dynamic shared memory of the exact-row source: the query's fp32 row
+    and the merge network (no stage)."""
+    return walk_smem_bytes(itopk, width, deg, dim, staged=False)
+
+
+def walk_exact_reject_reason(nq: int, itopk: int, width: int, deg: int,
+                             dim: int) -> str:
+    """Why the exact-row source cannot take this walk ('' when it can): the
+    query's fp32 row and the merge network must fit shared memory."""
+    why = _shape_reason(nq, itopk, width, deg, dim)
+    if why:
+        return why
+    need = walk_exact_smem_bytes(itopk, width, deg, dim)
+    if need > SMEM_MAX:
+        return f"shared memory {need} B above {SMEM_MAX}"
+    return ""
 
 
 # ---------------------------------------------------------------------------
@@ -304,3 +346,161 @@ def cagra_walk(qp_t, q_sq, table, buf_d, buf_i, visited, *, deg: int,
 
 
 cagra_walk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the exact-row source: the direct walk (raft_tpu/neighbors/cagra.py:1857)
+# ---------------------------------------------------------------------------
+
+# bytes of gathered rows one chunk of exact_keys may hold
+_EXACT_CHUNK_BYTES = 1 << 28
+
+
+def exact_keys(qf, q_sq, rows, rows_sq, ids, ip_metric: bool):
+    """Keys of candidates ``ids`` (nq, m) against the fp32 queries ``qf``
+    (nq, dim): max((q_sq + rows_sq[id]) − 2⟨q, x⟩, 0) (L2) or −⟨q, x⟩
+    (InnerProduct), ⟨q, x⟩ summed in dimension order with each product
+    and sum rounded (the exact-row kernel's arithmetic, so the two agree
+    bit for bit); id < 0 scores +inf.  Chunked over queries."""
+    nq, m = ids.shape
+    dim = qf.shape[1]
+    ok = ids >= 0
+    safe = torch.where(ok, ids, torch.zeros_like(ids)).long()
+    step = max(1, _EXACT_CHUNK_BYTES // max(m * dim * 4, 1))
+    out = torch.empty(nq, m, dtype=torch.float32, device=qf.device)
+    for s in range(0, nq, step):
+        x = rows[safe[s:s + step]].float()             # (c, m, dim)
+        q = qf[s:s + step].float()
+        acc = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
+        for d in range(dim):
+            acc = acc + q[:, None, d] * x[:, :, d]
+        if ip_metric:
+            out[s:s + step] = -acc
+        else:
+            key = (q_sq[s:s + step].float()[:, None]
+                   + rows_sq[safe[s:s + step]].float()) - 2.0 * acc
+            out[s:s + step] = torch.clamp_min(key, 0.0)
+    return torch.where(ok, out, torch.full_like(out, float("inf")))
+
+
+def expand_exact(graph, sel_ids, parent_ok, filter_words=None):
+    """The parents' graph rows: (nq, w * deg) candidate ids, -1 under a
+    dead parent and, with ``filter_words``, where the query rejects the
+    id."""
+    nq, w = sel_ids.shape
+    deg = graph.shape[1]
+    safe = torch.where(parent_ok, sel_ids, torch.zeros_like(sel_ids))
+    nb = graph[safe.long()].int()                        # (nq, w, deg)
+    nb = torch.where(parent_ok[:, :, None], nb,
+                     torch.full_like(nb, -1)).reshape(nq, w * deg)
+    if filter_words is not None:
+        rows = torch.arange(nq, device=nb.device)
+        nb = torch.where(query_bits(filter_words, rows, nb) > 0, nb,
+                         torch.full_like(nb, -1))
+    return nb
+
+
+def _check_exact(qf, q_sq, graph, rows, rows_sq, buf_d, buf_i, visited,
+                 max_iterations):
+    expects(qf.ndim == 2 and graph.ndim == 2 and rows.ndim == 2
+            and buf_d.ndim == 2, "cagra_walk_exact: q (nq, dim), graph "
+            "(n, deg), rows (n, dim), buffers (nq, itopk) required")
+    nq, itopk = buf_d.shape
+    n, dim = rows.shape
+    expects(qf.shape == (nq, dim) and q_sq.shape == (nq,)
+            and rows_sq.shape == (n,) and graph.shape[0] == n
+            and buf_i.shape == (nq, itopk) and visited.shape == (nq, itopk),
+            "cagra_walk_exact: shape mismatch")
+    expects(max_iterations >= 0, "cagra_walk_exact: max_iterations < 0")
+    expects(len({x.device for x in (qf, q_sq, graph, rows, rows_sq, buf_d,
+                                    buf_i, visited)}) == 1,
+            "cagra_walk_exact: tensors on different devices")
+    return nq, itopk, graph.shape[1], dim
+
+
+def cagra_walk_exact_plain(qf, q_sq, graph, rows, rows_sq, buf_d, buf_i,
+                           visited, *, search_width: int,
+                           max_iterations: int, ip_metric: bool,
+                           exit_every: int = EXIT_CHECK_EVERY,
+                           return_hops: bool = False, filter_words=None):
+    """Plain PyTorch version of the direct walk (``_search_impl``'s loop):
+    per hop :func:`select_parents`, :func:`expand_exact` (with
+    ``filter_words``), :func:`exact_keys` and ``merge_candidates``; the
+    all(visited) exit checked every ``exit_every`` hops (0: never — the
+    same result).  With ``return_hops``, also each query's hops before its
+    buffer was all visited (int32)."""
+    nq, itopk, _, _ = _check_exact(qf, q_sq, graph, rows, rows_sq, buf_d,
+                                   buf_i, visited, max_iterations)
+    buf_d, buf_i, visited = buf_d.float(), buf_i.int(), visited.bool()
+    hops = torch.zeros(nq, dtype=torch.int32, device=buf_d.device)
+    for it in range(max_iterations):
+        if exit_every and it % exit_every == 0 and it and bool(visited.all()):
+            break
+        if return_hops:
+            hops += (~visited.all(1)).int()
+        sel_ids, parent_ok, visited = select_parents(buf_d, buf_i, visited,
+                                                     search_width)
+        nb = expand_exact(graph, sel_ids, parent_ok, filter_words)
+        key = exact_keys(qf, q_sq, rows, rows_sq, nb, ip_metric)
+        buf_d, buf_i, visited = _hop.merge_candidates(buf_d, buf_i, visited,
+                                                      key, nb, itopk)
+    out = (buf_d.float(), buf_i.int(), visited.bool())
+    return out + (hops,) if return_hops else out
+
+
+def cagra_walk_exact(qf, q_sq, graph, rows, rows_sq, buf_d, buf_i, visited,
+                     *, search_width: int, max_iterations: int,
+                     ip_metric: bool, exit_every: int = EXIT_CHECK_EVERY,
+                     return_hops: bool = False, filter_words=None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """A whole direct walk over the graph: ``(buf_d f32, buf_i int32,
+    visited bool)``, each (nq, itopk), sorted ascending by key (+ the hops
+    of each query with ``return_hops``).
+
+    Args (nq queries): ``qf`` (nq, dim) f32 queries, ``q_sq`` (nq,) f32,
+    ``graph`` (n, deg) int32, ``rows`` (n, dim) f32 dataset rows and
+    ``rows_sq`` (n,) f32 their squared norms, the seeded sorted buffer
+    ``buf_d`` / ``buf_i`` / ``visited`` (nq, itopk); ``filter_words``
+    (nq, n_words) int32 or None.  CUDA tensors launch the walk kernel's
+    exact-row instantiation (``exit_every`` does not apply); CPU tensors
+    run :func:`cagra_walk_exact_plain`."""
+    kw = dict(search_width=search_width, max_iterations=max_iterations,
+              ip_metric=ip_metric, filter_words=filter_words)
+    if not rows.is_cuda:
+        return cagra_walk_exact_plain(qf, q_sq, graph, rows, rows_sq, buf_d,
+                                      buf_i, visited, exit_every=exit_every,
+                                      return_hops=return_hops, **kw)
+    nq, itopk, deg, dim = _check_exact(qf, q_sq, graph, rows, rows_sq, buf_d,
+                                       buf_i, visited, max_iterations)
+    why = walk_exact_reject_reason(nq, itopk, search_width, deg, dim)
+    expects(not why, f"cagra_walk_exact: {why}")
+    qf = qf.float().contiguous()
+    q_sq = q_sq.float().contiguous()
+    graph = graph.int().contiguous()
+    rows = rows.float().contiguous()
+    rows_sq = rows_sq.float().contiguous()
+    buf_d = buf_d.float().contiguous()
+    buf_i = buf_i.int().contiguous()
+    visited = visited.bool().contiguous()
+    out_d = torch.empty_like(buf_d)
+    out_i = torch.empty_like(buf_i)
+    out_v = torch.empty_like(visited)
+    hops = torch.empty(nq, dtype=torch.int32, device=buf_d.device)
+    fw, fargs = filter_operand(filter_words, nq, rows.device,
+                               "cagra_walk_exact")
+    status = _cuda.library().raft_cagra_walk_exact(
+        qf.data_ptr(), q_sq.data_ptr(), graph.data_ptr(), rows.data_ptr(),
+        rows_sq.data_ptr(), buf_d.data_ptr(), buf_i.data_ptr(),
+        visited.data_ptr(), nq, itopk, search_width, deg, dim,
+        max_iterations, int(ip_metric),
+        walk_exact_smem_bytes(itopk, search_width, deg, dim),
+        out_d.data_ptr(), out_i.data_ptr(), out_v.data_ptr(),
+        hops.data_ptr(), *fargs,
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    _cuda.check(status, "cagra_walk_exact")
+    cagra_walk_exact.launches += 1
+    out = (out_d, out_i, out_v)
+    return out + (hops,) if return_hops else out
+
+
+cagra_walk_exact.launches = 0

@@ -28,7 +28,9 @@ and one of the port's own design, with no JAX script behind it:
   no equal distance beside them (a count, not a time);
 - ``flagship_turns.py`` (run by path, with a checkout's root): the
   unfiltered flagship batch and Kernel B's pass 1 of that checkout, for
-  parent and change in turns on one card.
+  parent and change in turns on one card; ``query_major_turns.py`` and
+  ``cagra_walk_turns.py`` likewise for B-G's query-major kernels and for
+  Kernel I's walk and hop kernels at chip_smoke's shapes.
 
 Each runs on the card as ``python3 -m raft_tpu_torch.profiles.<name>``
 and prints one JSON line per measurement.  Each of the four ports also has

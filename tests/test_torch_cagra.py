@@ -251,15 +251,24 @@ def test_select_parents_is_bit_exact(width):
 
 def test_hop_gate_and_merge_window():
     """The gate admits every shape of the conf's search points and the
-    build's rounds; merge_window keeps its accepted values."""
+    build's rounds, and past 256 (itopk 300 and 512, wd 512, the kg-291
+    merge, pdim 5000): it refuses only for shared memory, past the opt-in
+    maximum; merge_window keeps its accepted values."""
     assert chop.supported_hop(5000, 128, 64, 16)
     assert chop.supported_hop(8192, 96, 64, 16)
     assert chop.supported_hop(1, 24, 32, 16, merge_window=2)
-    assert chop.hop_reject_reason(64, 300, 64, 16).startswith("itopk=300")
-    assert chop.hop_reject_reason(64, 64, 512, 16).startswith(
-        "search_width*degree=512")
-    assert chop.hop_reject_reason(64, 64, 64, 5000).startswith("pdim=5000")
+    assert chop.supported_hop(64, 300, 64, 16)
+    assert chop.supported_hop(64, 512, 512, 16)
+    assert chop.supported_hop(4096, 291, 320, 128)
+    assert chop.supported_hop(64, 64, 64, 5000)
     assert chop.hop_smem_bytes(64, 64, 16) == 4 * (16 + 128 + 3 * 128)
+    assert chop.hop_smem_bytes(512, 512, 16) == 4 * (16 + 1024 + 3 * 1024)
+    assert chop.hop_reject_reason(64, 8192, 8192, 16).startswith(
+        "shared memory 262208 B above 232448")
+    assert chop.hop_reject_reason(64, 64, 64, 60000).startswith(
+        "shared memory")
+    assert chop.hop_reject_reason(64, 0, 64, 16).startswith("itopk=0")
+    assert chop.hop_reject_reason(0, 64, 64, 16).startswith("nq=0")
     assert merge_window_request("auto") == 0
     assert merge_window_request(2) == 2
     with pytest.raises(ValueError, match="merge_window"):
@@ -581,7 +590,7 @@ def test_params_match_the_reference_fields_and_defaults():
 
 
 # ---------------------------------------------------------------------------
-# paths not ported yet
+# paths deferred by earlier slices, now run
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -627,42 +636,58 @@ def _saved(r, i, path):
     (lambda r, i, X, d: cagra.search(r, cagra.SearchParams(itopk_size=300),
                                      i, X[:2], 5), "CAGRA wide hops")])
 def test_deferred_paths_raise(tiny, tmp_path, call, item):
-    """A path the port has not reached raises NotImplementedError naming
-    its ROADMAP item; the persistence, filter and delete paths (item None:
-    serialization, canaries, checkpointing, filters, mutation, deferred
-    before) complete."""
+    """Every path an earlier slice deferred completes: persistence,
+    filters and delete (item None), the direct walk and hops past 256
+    (``item`` names the ROADMAP label they shipped under).  A search
+    returns (distances, ids) of (2, 5), and the plain route past the
+    kernels' shared memory was never taken."""
     res, idx, X = tiny
-    if item is None:
-        out = call(res, idx, X, tmp_path)
-        assert out is None or isinstance(out, (cagra.Index, tuple))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        call(res, idx, X, tmp_path)
+    before = cagra.search.plain_walks
+    out = call(res, idx, X, tmp_path)
+    assert out is None or isinstance(out, (cagra.Index, tuple))
+    if item is not None:
+        d, i = out
+        assert d.shape == i.shape == (2, 5)
+        assert bool(torch.isfinite(d).all()) and bool((i >= 0).all())
+        assert cagra.search.plain_walks == before
 
 
 def test_wide_build_hops_raise_before_the_walk(monkeypatch):
-    """A clustered build whose refinement merge would run at itopk = degree
-    + 1 > 256 raises right after calibration, before any scan or walk."""
+    """A clustered build whose refinement merge runs at itopk = degree + 1
+    = 291 > 256 completes through every stage, the walk rounds included,
+    with no plain route taken."""
     monkeypatch.setattr(cagra, "_BRUTE_BUILD_MAX", 100)
     X = _manifold(400, 32, 4, seed=6)
-    with pytest.raises(NotImplementedError, match="CAGRA wide hops"):
-        cagra.build(DeviceResources(device="cpu"), cagra.IndexParams(
-            intermediate_graph_degree=290, graph_degree=8,
-            build_proj_dim=8), X)
-    assert "kmeans" not in cagra.build.stage_seconds
+    before = cagra.build.plain_walks
+    idx = cagra.build(DeviceResources(device="cpu"), cagra.IndexParams(
+        intermediate_graph_degree=290, graph_degree=8,
+        build_proj_dim=8), X)
+    assert idx.graph.shape == (400, 8) and int(idx.graph.min()) >= 0
+    stages = cagra.build.stage_seconds
+    assert "kmeans" in stages and "walk_refine_1" in stages
+    assert cagra.build.plain_walks == before
 
 
 def test_deep_regime_and_no_table_raise(tiny, monkeypatch):
+    """The deep regime builds (its stages: the reverse merge, then the
+    walk rounds), and a search with no table format that fits takes the
+    direct walk, each query's own row first at distance 0."""
     res, idx, X = tiny
     monkeypatch.setattr(cagra, "_BRUTE_BUILD_MAX", 100)
     monkeypatch.setattr(cagra, "_DEEP_SCALE_ROWS", 200)
-    with pytest.raises(NotImplementedError, match="CAGRA deep regime"):
-        cagra.build(res, cagra.IndexParams(intermediate_graph_degree=16,
-                                           graph_degree=8), X)
+    deep = cagra.build(res, cagra.IndexParams(intermediate_graph_degree=16,
+                                              graph_degree=8,
+                                              build_proj_dim=8), X)
+    assert deep.graph.shape == (300, 8)
+    assert "reverse_merge" in cagra.build.stage_seconds
+    assert "walk_refine_1" in cagra.build.stage_seconds
+    assert cagra.build.deep_plans == [(17, 8, True)] * 2
     monkeypatch.setattr(cagra, "_WALK_TABLE_MAX_BYTES", 1)
     fresh = cagra.Index(dataset=idx.dataset, graph=idx.graph)
-    with pytest.raises(NotImplementedError, match="CAGRA direct walk"):
-        cagra.search(res, cagra.SearchParams(), fresh, X[:2], 5)
+    d, i = cagra.search(res, cagra.SearchParams(), fresh, X[:2], 5)
+    assert not getattr(fresh, "_walk_tables", {})
+    np.testing.assert_array_equal(i[:, 0].numpy(), [0, 1])
+    assert float(d[:, 0].abs().max()) < 1e-4
 
 
 def test_merge_refine_debug_checks(monkeypatch):

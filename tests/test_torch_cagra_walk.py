@@ -234,20 +234,24 @@ def test_walk_smem_formula_and_refusals():
         4 * (16 + 3 * 128 + 3 * 64 + 2 * 2 + 1)
     assert cw.walk_staged(96, 1, 64, 16)
     assert not cw.walk_staged(256, 4, 64, 4096)
-    assert cw.walk_reject_reason(64, 300, 1, 32, 16).startswith("itopk=300")
-    assert cw.walk_reject_reason(64, 64, 8, 64, 16).startswith(
-        "search_width*degree=512")
-    assert cw.walk_reject_reason(64, 64, 1, 32, 5000).startswith("pdim=5000")
+    # past 256: the walk gate refuses only for shared memory
+    for itopk, width, deg in ((300, 1, 32), (512, 1, 32), (256, 8, 64),
+                              (1024, 16, 64)):
+        assert cw.walk_reject_reason(64, itopk, width, deg, 16) == ""
+        assert cw.walk_exact_reject_reason(64, itopk, width, deg, 96) == ""
+    assert cw.walk_reject_reason(64, 64, 1, 32, 5000) == ""
+    assert cw.walk_reject_reason(64, 8192, 16, 512, 16).startswith(
+        "shared memory")
+    assert cw.walk_exact_reject_reason(64, 64, 1, 32, 60000).startswith(
+        "shared memory")
+    # the exact source: the query's fp32 row and the merge network
+    assert cw.walk_exact_smem_bytes(64, 2, 32, 96) == \
+        4 * (96 + 3 * 128 + 3 * 64 + 2 * 2 + 1)
     assert cw.walk_reject_reason(64, 64, 1, 32, 13, quant=True).startswith(
         "pdim=13 odd")
     assert cw.walk_reject_reason(64, 64, 0, 32, 16).startswith(
         "search_width=0")
     assert cw.walk_reject_reason(0, 64, 1, 32, 16).startswith("nq=0")
-    with pytest.raises(NotImplementedError, match="CAGRA wide hops"):
-        cagra._require_hop(8, 64, 32, 13, deg=32, quant=True)
-    with pytest.raises(NotImplementedError, match="CAGRA wide hops"):
-        cagra._require_hop(8, 64, 512, 16, deg=64)
-    cagra._require_hop(8, 64, 64, 13, deg=32)
 
 
 def test_plain_walk_checks_its_inputs(blobs, caches):

@@ -1120,9 +1120,35 @@ def test_cagra_hop_all_visited_is_a_fixed_point(dev):
 
 
 def test_cagra_hop_rejects_what_it_cannot_hold(dev):
-    args = _hop_inputs(dev, 2, 300, 16, 16, 0)
-    with pytest.raises(LogicError, match="itopk=300"):
+    """Past its opt-in shared memory (itopk 8,192 with wd 8,192) the hop
+    kernel refuses before any launch; the caller runs the plain hop."""
+    args = _hop_inputs(dev, 2, 8192, 8192, 16, 0)
+    assert chop.hop_smem_bytes(8192, 8192, 16) > chop.SMEM_MAX
+    before = chop.cagra_hop.launches
+    with pytest.raises(LogicError, match="shared memory"):
         chop.cagra_hop(*args, ip_metric=False)
+    assert chop.cagra_hop.launches == before
+
+
+@pytest.mark.parametrize("nq,itopk,wd,pdim,ip", [
+    (300, 291, 320, 96, False),     # the kg-291 build merge (wd 256 + 64)
+    (100, 512, 512, 16, False),     # itopk 512 / wd 512
+    (60, 512, 512, 24, True),       # InnerProduct, pdim off 16-byte loads
+    (40, 1024, 1024, 16, False),    # 1,024 threads, S 2,048
+    (20, 300, 2048, 16, False)])    # two candidates and pairs a thread
+def test_cagra_hop_kernel_past_256_matches_plain(dev, nq, itopk, wd, pdim,
+                                                 ip):
+    """Kernel I's hop past 256: the network loops over its slots where they
+    outnumber the block's threads (at most 1,024), and the block opts in
+    past 48 KB, bit for bit the plain hop."""
+    args = _hop_inputs(dev, nq, itopk, wd, pdim, nq + itopk + wd)
+    before = chop.cagra_hop.launches
+    kd, ki, kv = chop.cagra_hop(*args, ip_metric=ip)
+    torch.cuda.synchronize()
+    assert chop.cagra_hop.launches == before + 1
+    pd, pi, pv = chop.cagra_hop_plain(*args, ip_metric=ip)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
 
 
 def _walk_inputs(dev, nq, itopk, width, deg, pdim, quant, ip, seed,
@@ -1235,12 +1261,132 @@ def test_cagra_search_is_one_walk_launch(dev):
 
 
 def test_cagra_walk_rejects_what_it_cannot_hold(dev):
-    args, kw = _walk_inputs(dev, 2, 300, 1, 16, 16, False, False, 0)
-    with pytest.raises(LogicError, match="itopk=300"):
+    """Past its opt-in shared memory the walk kernel (and its exact-row
+    source) refuses before any launch; the caller runs the plain walk."""
+    args, kw = _walk_inputs(dev, 2, 8192, 16, 512, 16, False, False, 0)
+    assert cw.walk_reject_reason(2, 8192, 16, 512, 16).startswith(
+        "shared memory")
+    before = cw.cagra_walk.launches
+    with pytest.raises(LogicError, match="shared memory"):
         cw.cagra_walk(*args, **kw)
-    args, kw = _walk_inputs(dev, 2, 32, 1, 16, 14, True, False, 0)
-    with pytest.raises(LogicError, match="search_width\\*degree=512"):
-        cw.cagra_walk(*args, **dict(kw, search_width=32))
+    assert cw.cagra_walk.launches == before
+    args, kw = _exact_walk_inputs(dev, 2, 64, 1, 16, 60000, False, 0, n=64)
+    with pytest.raises(LogicError, match="shared memory"):
+        cw.cagra_walk_exact(*args, **kw)
+
+
+@pytest.mark.parametrize("nq,itopk,width,deg", [
+    (60, 512, 1, 32),       # itopk 512 w1 on a degree-32 graph
+    (40, 256, 8, 64),       # search_width 8 on a degree-64 graph
+    (20, 1024, 16, 64)])    # wd 1,024: 1,024 threads, S 2,048
+@pytest.mark.parametrize("filtered", [False, True])
+def test_cagra_walk_kernel_past_256_matches_plain(dev, nq, itopk, width, deg,
+                                                  filtered):
+    """The walk kernel past 256 (itopk or search_width x degree), with and
+    without a 50% filter: bit for bit the plain walk, one launch."""
+    args, kw = _walk_inputs(dev, nq, itopk, width, deg, 16, False, False,
+                            nq + itopk + deg)
+    fw = (_filter_words(dev, nq, 4096, 0.5, False, itopk) if filtered
+          else None)
+    before = cw.cagra_walk.launches
+    kd, ki, kv, kh = cw.cagra_walk(*args, return_hops=True, filter_words=fw,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert cw.cagra_walk.launches == before + 1
+    pd, pi, pv, ph = cw.cagra_walk_plain(*args, return_hops=True,
+                                         filter_words=fw, **kw)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert torch.equal(kv, pv) and torch.equal(kh, ph)
+    assert bool((kh > 0).all())
+
+
+def _exact_walk_inputs(dev, nq, itopk, width, deg, dim, ip, seed, n=4096,
+                       filter_words=None):
+    """A direct walk over a random graph (some edges -1) of n random fp32
+    rows, the buffer seeded from 4 x itopk random draws as
+    ``cagra._search_impl`` seeds it.  (args, keyword args) of
+    ``cagra_walk_exact``."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32)).to(dev)
+    graph = rng.integers(0, n, size=(n, deg)).astype(np.int32)
+    graph[rng.random((n, deg)) < 0.02] = -1
+    graph = torch.from_numpy(graph).to(dev)
+    q = torch.from_numpy(rng.normal(size=(nq, dim)).astype(np.float32)).to(
+        dev)
+    q_sq = (q * q).sum(1)
+    x_sq = (x * x).sum(1)
+    seeds = torch.from_numpy(rng.integers(0, n, size=(nq, 4 * itopk)).astype(
+        np.int32)).to(dev)
+    buf_d, buf_i, vis = cagra._seed_direct(q, q_sq, x, x_sq, seeds, itopk, ip,
+                                           filter_words)
+    kw = dict(search_width=width, max_iterations=10 + itopk // width,
+              ip_metric=ip, filter_words=filter_words)
+    return (q, q_sq, graph, x, x_sq, buf_d, buf_i, vis), kw
+
+
+@pytest.mark.parametrize("nq,itopk,width,dim,ip", [
+    (500, 64, 2, 96, False),    # the 1M search's shape, deep-like width
+    (300, 64, 1, 96, True),     # InnerProduct, width 1
+    (200, 32, 2, 128, False),   # dim 128 (sift-like)
+    (200, 48, 2, 128, True),
+    (150, 32, 1, 13, False),    # dim 13: one-value row loads
+    (100, 512, 1, 96, False)])  # itopk 512
+@pytest.mark.parametrize("filtered", [False, True])
+def test_cagra_walk_exact_kernel_matches_plain(dev, nq, itopk, width, dim,
+                                               ip, filtered):
+    """The walk kernel's exact-row source against the plain direct walk:
+    the same fp32 products and sums, rounded one by one in dimension
+    order, so keys, ids, visited flags and hop counts are equal bit for
+    bit, in one launch; a hop adds no id the filter rejects."""
+    fw = (_filter_words(dev, nq, 4096, 0.5, False, dim) if filtered
+          else None)
+    args, kw = _exact_walk_inputs(dev, nq, itopk, width, 32, dim, ip,
+                                  nq + itopk + dim, filter_words=fw)
+    before = cw.cagra_walk_exact.launches
+    kd, ki, kv, kh = cw.cagra_walk_exact(*args, return_hops=True, **kw)
+    torch.cuda.synchronize()
+    assert cw.cagra_walk_exact.launches == before + 1
+    pd, pi, pv, ph = cw.cagra_walk_exact_plain(*args, return_hops=True, **kw)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert torch.equal(kv, pv) and torch.equal(kh, ph)
+    fin = torch.isfinite(kd)
+    assert bool((torch.diff(kd, dim=1)[fin[:, 1:]] >= 0).all())
+    if filtered:
+        _assert_admitted(ki, fw)
+
+
+def test_cagra_search_direct_walk_is_one_launch(dev):
+    """``cagra.search(walk_pdim=0)`` and a search with no table format that
+    fits run the direct walk: one launch of the exact-row source, no
+    table built, no plain route, sorted exact distances of the ids
+    returned."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(3000, 32)).astype(np.float32)
+    graph = rng.integers(0, 3000, size=(3000, 16)).astype(np.int32)
+    idx = cagra.index_from_numpy(x, graph, device=dev)
+    res = DeviceResources(seed=0)
+    plain = cagra.search.plain_walks
+    for sp in (cagra.SearchParams(itopk_size=32, search_width=2, walk_pdim=0),
+               cagra.SearchParams(itopk_size=512)):
+        before = cw.cagra_walk_exact.launches, cw.cagra_walk.launches
+        if sp.walk_pdim is None:
+            old = cagra._WALK_TABLE_MAX_BYTES
+            cagra._WALK_TABLE_MAX_BYTES = 1
+        try:
+            d, i = cagra.search(res, sp, idx, x[:100], 10)
+        finally:
+            if sp.walk_pdim is None:
+                cagra._WALK_TABLE_MAX_BYTES = old
+        torch.cuda.synchronize()
+        assert (cw.cagra_walk_exact.launches, cw.cagra_walk.launches) == (
+            before[0] + 1, before[1])
+        assert d.shape == i.shape == (100, 10) and bool((i >= 0).all())
+        assert bool((torch.diff(d, dim=1) >= 0).all())
+        xd = idx.dataset[i.long()] - idx.dataset[:100, None, :]
+        torch.testing.assert_close(d, (xd * xd).sum(-1), rtol=1e-5,
+                                   atol=1e-4)
+    assert cagra.search.plain_walks == plain
+    assert not getattr(idx, "_walk_tables", {})
 
 
 # ---------------------------------------------------------------------------
