@@ -43,8 +43,10 @@ Where the port differs from the JAX package, by design:
   version here.  The exact merge of the build's refinement rounds is a
   hop with the full rows as its "projected" vectors and a zero query norm,
   on Kernel I's hop kernel.  Only shared memory bounds the two kernels'
-  shapes; a walk or hop past it runs its plain version, chosen before any
-  launch and counted (``search.plain_walks``, ``build.plain_walks``);
+  shapes (a merge network of at most 16,384 rows: itopk + search_width ·
+  degree, rounded up to a power of two); on the card a walk or hop past
+  it raises, naming shared memory, where the JAX package's XLA loop has
+  no limit;
 - ``approx_max_k`` (the build scan and its calibration) is an exact top-k:
   on the TPU it is approximate, on the CPU exact;
 - the walk's ``all(visited)`` exit is per query, before every hop, in the
@@ -218,6 +220,8 @@ _WALK_CALIB_QUERIES = 256
 _WALK_CALIB_POOL = 131072
 _WALK_CALIB_K = 10
 _WALK_TABLE_MAX_BYTES = 6 << 30
+# bytes of gathered rows one chunk of the direct walk's seed scoring holds
+_SEED_CHUNK_BYTES = 1 << 28
 # hops between two checks of the walk's all(visited) exit (a host sync)
 _EXIT_CHECK_EVERY = 8
 # device memory the CPU reports as its "HBM" for chunk sizing
@@ -225,48 +229,6 @@ _CPU_MEMORY_BYTES = 16 << 30
 
 _DEBUG_CHECKS = os.environ.get("RAFT_TPU_DEBUG_CHECKS", "0").lower() \
     not in ("0", "", "false")
-
-
-def _run_walk(counted, qp_t, q_sq, table, buf_d, buf_i, visited, **kw):
-    """One walk over a packed table: Kernel I's walk kernel where its gate
-    takes the shape (the plain walk for CPU tensors), else — past the
-    kernel's shared memory — the plain walk, the JAX package's XLA loop,
-    chosen before any launch and counted in ``counted.plain_walks``."""
-    nq, itopk = buf_d.shape
-    if _walk.walk_reject_reason(nq, itopk, kw["search_width"], kw["deg"],
-                                qp_t.shape[1], kw.get("quant", False)):
-        counted.plain_walks += 1
-        return _walk.cagra_walk_plain(qp_t, q_sq, table, buf_d, buf_i,
-                                      visited, **kw)
-    return _walk.cagra_walk(qp_t, q_sq, table, buf_d, buf_i, visited, **kw)
-
-
-def _run_walk_exact(counted, qf, q_sq, graph, rows, rows_sq, buf_d, buf_i,
-                    visited, **kw):
-    """One direct walk: the walk kernel's exact-row source where its gate
-    takes the shape, else its plain version (counted as
-    :func:`_run_walk`)."""
-    nq, itopk = buf_d.shape
-    if _walk.walk_exact_reject_reason(nq, itopk, kw["search_width"],
-                                      graph.shape[1], rows.shape[1]):
-        counted.plain_walks += 1
-        return _walk.cagra_walk_exact_plain(qf, q_sq, graph, rows, rows_sq,
-                                            buf_d, buf_i, visited, **kw)
-    return _walk.cagra_walk_exact(qf, q_sq, graph, rows, rows_sq, buf_d,
-                                  buf_i, visited, **kw)
-
-
-def _run_hop(counted, qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i, visited,
-             *, ip_metric: bool):
-    """One hop: Kernel I's hop kernel where its gate takes the shape, else
-    its plain version (counted as :func:`_run_walk`)."""
-    nq, wd, pdim = nb_p.shape
-    if _hop.hop_reject_reason(nq, buf_d.shape[1], wd, pdim):
-        counted.plain_walks += 1
-        return _hop.cagra_hop_plain(qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d,
-                                    buf_i, visited, ip_metric=ip_metric)
-    return _hop.cagra_hop(qp_t, q_sq, nb_p, nb_sq, nb_id, buf_d, buf_i,
-                          visited, ip_metric=ip_metric)
 
 
 def _hbm_bytes(device) -> int:
@@ -786,8 +748,8 @@ def _search_impl_walk(dataset, table, entry_proj, entry_sq, entry_ids, proj,
     buf_d, buf_i, visited = _seed_walk(qp, q_sq, entry_proj, entry_sq,
                                        entry_ids, itopk, ip_metric,
                                        filter_words)
-    buf_d, buf_i, visited = _run_walk(
-        search, qp_t, q_sq, table, buf_d, buf_i, visited, deg=deg,
+    buf_d, buf_i, visited = _walk.cagra_walk(
+        qp_t, q_sq, table, buf_d, buf_i, visited, deg=deg,
         search_width=search_width, max_iterations=max_iterations,
         ip_metric=ip_metric, quant=quant, scales=scales,
         exit_every=exit_every, filter_words=filter_words)
@@ -882,11 +844,6 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
     return _mask_deleted(index, *out)
 
 
-# walks and hops that ran their plain version past the kernels' shared
-# memory (the static gates chose it before any launch)
-search.plain_walks = 0
-
-
 def _rows_sq(index: Index) -> torch.Tensor:
     """The dataset's fp32 squared norms, cached on the index (the direct
     walk's ‖x‖²)."""
@@ -895,6 +852,24 @@ def _rows_sq(index: Index) -> torch.Tensor:
         xf = index.dataset.float()
         sq = index._walk_rows_sq = (xf * xf).sum(1)
     return sq
+
+
+def _seed_keys(qf, q_sq, rows, rows_sq, ids, ip_metric: bool):
+    """Keys of the seeds ``ids`` (nq, m), each >= 0, as ``dists_to``
+    computes them: one fp32 batched product a chunk of queries (TF32 off),
+    then max(‖q‖² + ‖x‖² − 2⟨q, x⟩, 0) (L2) or −⟨q, x⟩ (InnerProduct).
+    A seed is never scored again (the walk drops a candidate already in
+    the buffer), so its key need not be the walk's, bit for bit."""
+    nq, m = ids.shape
+    step = max(1, _SEED_CHUNK_BYTES // max(m * rows.shape[1] * 4, 1))
+    out = torch.empty(nq, m, dtype=torch.float32, device=qf.device)
+    with precision.highest():
+        for s in range(0, nq, step):
+            ic = ids[s:s + step].long()
+            ip = torch.bmm(rows[ic], qf[s:s + step, :, None])[:, :, 0]
+            out[s:s + step] = -ip if ip_metric else torch.clamp_min(
+                (q_sq[s:s + step, None] + rows_sq[ic]) - 2.0 * ip, 0.0)
+    return out
 
 
 def _seed_direct(qf, q_sq, rows, rows_sq, seed_ids, itopk: int,
@@ -906,7 +881,7 @@ def _seed_direct(qf, q_sq, rows, rows_sq, seed_ids, itopk: int,
     sorted, dead slots id -1, nothing visited."""
     nq = qf.shape[0]
     seed_ids = seed_ids.int()
-    seed_d = _walk.exact_keys(qf, q_sq, rows, rows_sq, seed_ids, ip_metric)
+    seed_d = _seed_keys(qf, q_sq, rows, rows_sq, seed_ids, ip_metric)
     srt, _ = torch.sort(seed_ids, dim=1)
     dup_sorted = torch.cat([torch.zeros(nq, 1, dtype=torch.bool,
                                         device=srt.device),
@@ -935,8 +910,8 @@ def _search_impl(dataset, graph, queries, seed_ids, k: int, itopk: int,
     random ``seed_ids`` (nq, n_seeds) seed the buffer
     (:func:`_seed_direct`); then the walk over ``graph``, each
     candidate scored on its fp32 dataset row, in one launch of the walk
-    kernel's exact-row source (its plain version on the CPU, or past its
-    shared memory).  The buffer's first ``k`` are the result: no rerank,
+    kernel's exact-row source (its plain version on the CPU).  The
+    buffer's first ``k`` are the result: no rerank,
     the square root for the Sqrt metrics."""
     ip_metric = metric == DistanceType.InnerProduct
     qf = queries.float()
@@ -946,8 +921,8 @@ def _search_impl(dataset, graph, queries, seed_ids, k: int, itopk: int,
     q_sq = (qf * qf).sum(1)
     buf_d, buf_i, visited = _seed_direct(qf, q_sq, rows, rows_sq, seed_ids,
                                          itopk, ip_metric, filter_words)
-    buf_d, buf_i, _ = _run_walk_exact(
-        search, qf, q_sq, graph.int(), rows, rows_sq, buf_d, buf_i, visited,
+    buf_d, buf_i, _ = _walk.cagra_walk_exact(
+        qf, q_sq, graph.int(), rows, rows_sq, buf_d, buf_i, visited,
         search_width=search_width, max_iterations=max_iterations,
         ip_metric=ip_metric, exit_every=exit_every,
         filter_words=filter_words)
@@ -1226,8 +1201,8 @@ def _merge_refine_chunked_impl(xf, first, second, kg: int, ip_metric: bool,
         sec = second[s:e].int()
         valid = sec >= 0
         safe = torch.where(valid, sec, torch.zeros_like(sec)).long()
-        bd, bi, _ = _run_hop(
-            build, xb[s:e], torch.zeros(e - s, device=dev), xb[safe],
+        bd, bi, _ = _hop.cagra_hop(
+            xb[s:e], torch.zeros(e - s, device=dev), xb[safe],
             x_sq[safe],
             torch.where(valid, sec, torch.full_like(sec, -1)),
             first_d[s:e], first[s:e].int(),
@@ -1282,8 +1257,8 @@ def _walk_chunk_body(qf, ids_c, table, proj, scales, itopk: int, iters: int,
     buf_i = torch.where(torch.isinf(buf_d), torch.full_like(buf_i, -1),
                         buf_i)
     visited = buf_i == ids_c[:, None]
-    _, buf_i, _ = _run_walk(
-        build, qp, q_sq, table, buf_d, buf_i, visited, deg=deg,
+    _, buf_i, _ = _walk.cagra_walk(
+        qp, q_sq, table, buf_d, buf_i, visited, deg=deg,
         search_width=search_width, max_iterations=iters,
         ip_metric=ip_metric, quant=quant, scales=scales)
     return buf_i
@@ -1557,12 +1532,9 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
 # wall seconds of the latest build's stages (each ends with a device
 # synchronisation), the clustered pass's projected dimension, the deep
 # regime's table plan of each round ((deg_t, pdim, quant), None: skipped)
-# and the walks and hops that ran their plain version past the kernels'
-# shared memory
 build.stage_seconds = {}
 build.build_pdim = None
 build.deep_plans = []
-build.plain_walks = 0
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,8 @@ runs in XLA.  Its plain version :func:`cagra_walk_exact_plain` is that
 loop in torch (TF32 off: a sequential dimension loop, each product and
 sum rounded, as the kernel does), and ``cagra_walk_exact.launches``
 counts its launches.  Both routes refuse a shape only for shared memory
-(:func:`walk_reject_reason`, :func:`walk_exact_reject_reason`); the
-caller runs a refused shape's plain version (``neighbors/cagra``).
+(:func:`walk_reject_reason`, :func:`walk_exact_reject_reason`), and a
+refused CUDA call raises.
 
 Contract, per query, from the seeded sorted buffer ``buf_d`` / ``buf_i`` /
 ``visited`` (nq, itopk), for at most ``max_iterations`` hops, each hop

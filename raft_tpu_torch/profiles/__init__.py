@@ -30,7 +30,11 @@ and one of the port's own design, with no JAX script behind it:
   unfiltered flagship batch and Kernel B's pass 1 of that checkout, for
   parent and change in turns on one card; ``query_major_turns.py`` and
   ``cagra_walk_turns.py`` likewise for B-G's query-major kernels and for
-  Kernel I's walk and hop kernels at chip_smoke's shapes.
+  Kernel I's walk and hop kernels at chip_smoke's shapes;
+  ``cagra_deep_witness.py`` (run by path from a checkout's root): the
+  CAGRA deep regime's intermediate graph recall stage by stage, at 1M
+  rows against the default regime and at 10M under three walk-table
+  plans.
 
 Each runs on the card as ``python3 -m raft_tpu_torch.profiles.<name>``
 and prints one JSON line per measurement.  Each of the four ports also has

@@ -390,9 +390,7 @@ def test_public_direct_search_recall_matches_jax(walk_index, monkeypatch,
                       jnp.asarray(q), 10)
     idx = cagra.index_from_numpy(db, np.asarray(jidx.graph), device="cpu")
     res = DeviceResources(seed=3, device="cpu")
-    before = cagra.search.plain_walks
     _, oi = cagra.search(res, cagra.SearchParams(**sp), idx, q, 10)
-    assert cagra.search.plain_walks == before
     assert not getattr(idx, "_walk_tables", {})
     gt = naive_knn(db, q, 10)
     r_ref, r_ours = recall(np.asarray(ri), gt), recall(oi.numpy(), gt)
@@ -481,12 +479,10 @@ def test_plain_walk_past_256_matches_jax(walk_index, walk_cache, itopk,
         jidx.dataset, c.table, c.entry_proj, c.entry_sq, c.entry_ids,
         c.proj, jnp.asarray(q), k, itopk, width, max_iter, jidx.metric,
         rerank, jidx.graph_degree, fused_hop=False)
-    before = cagra.search.plain_walks
     ours = cagra._search_impl_walk(
         t(db), t(c.table), t(np.asarray(c.entry_proj).astype(np.float32)).to(
             torch.bfloat16), t(c.entry_sq), t(c.entry_ids), t(c.proj), t(q),
         k, itopk, width, max_iter, L2, rerank, jidx.graph_degree)
-    assert cagra.search.plain_walks == before
     od, oi = (x.numpy() for x in ours)
     rd, ri = (np.asarray(x) for x in ref)
     assert (oi == ri).mean() >= 0.99
@@ -495,23 +491,31 @@ def test_plain_walk_past_256_matches_jax(walk_index, walk_cache, itopk,
 
 def test_walks_past_shared_memory_run_the_plain_walk_and_count(walk_index,
                                                                monkeypatch):
-    """A shape past the kernels' shared memory (the limit lowered here) runs
-    the plain composition, chosen by the static gate before any launch and
-    counted in ``search.plain_walks``; its result is the kernel route's."""
+    """No gate picks the plain versions: CPU tensors run them because they
+    lie on the CPU.  With both kernels' shared memory lowered (1,024 B) the
+    gates refuse every shape of the search, naming shared memory (on the
+    card the wrappers raise with that reason), and the table walk and the
+    direct walk on the CPU return what they return at the real limit."""
     jidx, db, q = walk_index
     idx = cagra.index_from_numpy(db, np.asarray(jidx.graph), device="cpu")
-    sp = cagra.SearchParams(itopk_size=64, search_width=2)
+    deg = idx.graph_degree
     out = {}
     for limit in (cw.SMEM_MAX, 1024):
-        monkeypatch.setattr(cw, "SMEM_MAX", limit)
+        for mod in (cw, chop):
+            monkeypatch.setattr(mod, "SMEM_MAX", limit)
+        refused = limit == 1024
+        assert bool(cw.walk_reject_reason(40, 64, 2, deg, 16)) == refused
+        assert bool(cw.walk_exact_reject_reason(40, 64, 1, deg, 32)) == \
+            refused
+        assert bool(chop.hop_reject_reason(40, 65, 96, 32)) == refused
+        if refused:
+            assert cw.walk_reject_reason(40, 64, 2, deg, 16).startswith(
+                "shared memory")
         res = DeviceResources(seed=5, device="cpu")
-        before = cagra.search.plain_walks
-        out[limit] = cagra.search(res, sp, idx, q, 10)
-        direct = cagra.search(res, cagra.SearchParams(walk_pdim=0), idx, q,
-                              10)
-        assert direct[0].shape == (40, 10)
-        assert cagra.search.plain_walks - before == (2 if limit == 1024
-                                                     else 0)
+        out[limit] = (cagra.search(res, cagra.SearchParams(
+            itopk_size=64, search_width=2), idx, q, 10) + cagra.search(
+                res, cagra.SearchParams(walk_pdim=0), idx, q, 10))
+        assert out[limit][2].shape == (40, 10)
     for a, b in zip(out[cw.SMEM_MAX], out[1024]):
         assert torch.equal(a, b)
 
@@ -530,9 +534,7 @@ def test_build_at_intermediate_degree_290_matches_jax(wide_rows,
     for mod in (cagra, jc):
         monkeypatch.setattr(mod, "_BRUTE_BUILD_MAX", 1000)
     res = DeviceResources(seed=0, device="cpu")
-    before = cagra.build.plain_walks
     ours = cagra.build_knn_graph(res, X, 290).numpy()
-    assert cagra.build.plain_walks == before
     assert "walk_refine_1" in cagra.build.stage_seconds
     ref = np.asarray(jc.build_knn_graph(JaxResources(seed=0), X, 290))
     sample = np.arange(0, X.shape[0], 37)

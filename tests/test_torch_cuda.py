@@ -1121,7 +1121,8 @@ def test_cagra_hop_all_visited_is_a_fixed_point(dev):
 
 def test_cagra_hop_rejects_what_it_cannot_hold(dev):
     """Past its opt-in shared memory (itopk 8,192 with wd 8,192) the hop
-    kernel refuses before any launch; the caller runs the plain hop."""
+    kernel refuses before any launch: the call raises, naming shared
+    memory."""
     args = _hop_inputs(dev, 2, 8192, 8192, 16, 0)
     assert chop.hop_smem_bytes(8192, 8192, 16) > chop.SMEM_MAX
     before = chop.cagra_hop.launches
@@ -1262,7 +1263,8 @@ def test_cagra_search_is_one_walk_launch(dev):
 
 def test_cagra_walk_rejects_what_it_cannot_hold(dev):
     """Past its opt-in shared memory the walk kernel (and its exact-row
-    source) refuses before any launch; the caller runs the plain walk."""
+    source) refuses before any launch: the call raises, naming shared
+    memory."""
     args, kw = _walk_inputs(dev, 2, 8192, 16, 512, 16, False, False, 0)
     assert cw.walk_reject_reason(2, 8192, 16, 512, 16).startswith(
         "shared memory")
@@ -1357,23 +1359,36 @@ def test_cagra_walk_exact_kernel_matches_plain(dev, nq, itopk, width, dim,
 
 def test_cagra_search_direct_walk_is_one_launch(dev):
     """``cagra.search(walk_pdim=0)`` and a search with no table format that
-    fits run the direct walk: one launch of the exact-row source, no
-    table built, no plain route, sorted exact distances of the ids
-    returned."""
+    fits run the direct walk on an exact 16-NN graph of low-rank rows: one
+    launch of the exact-row source, no table built, sorted exact
+    distances of the ids returned, and recall@10 against brute force of
+    at least 0.95 at itopk 32 width 2 and 0.99 at itopk 512 (0.981-0.987
+    and 0.999-1.0 on the CPU over three data and three search seeds);
+    past shared memory the search raises."""
     rng = np.random.default_rng(9)
-    x = rng.normal(size=(3000, 32)).astype(np.float32)
-    graph = rng.integers(0, 3000, size=(3000, 16)).astype(np.int32)
-    idx = cagra.index_from_numpy(x, graph, device=dev)
+    z = rng.normal(size=(3100, 8)).astype(np.float32)
+    a = rng.normal(size=(8, 32)).astype(np.float32) / np.sqrt(8)
+    x = (z @ a + 0.05 * rng.normal(size=(3100, 32))).astype(np.float32)
+    x, q = x[:3000], x[3000:]
+
+    def knn(a, b, k):
+        d = (a * a).sum(1)[:, None] + (b * b).sum(1)[None] - 2 * a @ b.T
+        return np.argsort(d, axis=1, kind="stable")[:, :k]
+
+    idx = cagra.index_from_numpy(x, knn(x, x, 17)[:, 1:].astype(np.int32),
+                                 device=dev)
+    gt = torch.from_numpy(knn(q, x, 10)).to(dev)
     res = DeviceResources(seed=0)
-    plain = cagra.search.plain_walks
-    for sp in (cagra.SearchParams(itopk_size=32, search_width=2, walk_pdim=0),
-               cagra.SearchParams(itopk_size=512)):
+    for sp, floor in (
+            (cagra.SearchParams(itopk_size=32, search_width=2, walk_pdim=0),
+             0.95),
+            (cagra.SearchParams(itopk_size=512), 0.99)):
         before = cw.cagra_walk_exact.launches, cw.cagra_walk.launches
         if sp.walk_pdim is None:
             old = cagra._WALK_TABLE_MAX_BYTES
             cagra._WALK_TABLE_MAX_BYTES = 1
         try:
-            d, i = cagra.search(res, sp, idx, x[:100], 10)
+            d, i = cagra.search(res, sp, idx, q, 10)
         finally:
             if sp.walk_pdim is None:
                 cagra._WALK_TABLE_MAX_BYTES = old
@@ -1382,11 +1397,20 @@ def test_cagra_search_direct_walk_is_one_launch(dev):
             before[0] + 1, before[1])
         assert d.shape == i.shape == (100, 10) and bool((i >= 0).all())
         assert bool((torch.diff(d, dim=1) >= 0).all())
-        xd = idx.dataset[i.long()] - idx.dataset[:100, None, :]
+        xd = idx.dataset[i.long()] - torch.from_numpy(q).to(dev)[:, None, :]
         torch.testing.assert_close(d, (xd * xd).sum(-1), rtol=1e-5,
                                    atol=1e-4)
-    assert cagra.search.plain_walks == plain
+        hits = (i[:, :, None].long() == gt[:, None, :]).any(2).float()
+        assert float(hits.mean()) >= floor, (sp.itopk_size,
+                                             float(hits.mean()))
     assert not getattr(idx, "_walk_tables", {})
+    # past the exact-row source's shared memory (a 32,768-row merge) the
+    # search raises on the card, before any launch
+    before = cw.cagra_walk_exact.launches
+    with pytest.raises(LogicError, match="shared memory"):
+        cagra.search(res, cagra.SearchParams(itopk_size=16384, walk_pdim=0),
+                     idx, q[:2], 10)
+    assert cw.cagra_walk_exact.launches == before
 
 
 # ---------------------------------------------------------------------------
