@@ -57,9 +57,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    n_probes 96, k 20, refined to k 10 (Kernel G, launches zeroed before,
    read after; pass 1 must be > 0), and Kernel G (``ivf_pq_scan_recon``,
    list-major pass 1) against its plain version on that batch, with its
-   split (grouping, pass 1); its query-major route
-   (``recon_scan_query_major``, kt 128) against plain on 1,000 queries;
-   the recon batch's recall@10 through each route, as for B.  Then
+   split (grouping, pass 1); past kt 64 its pair-group pass
+   (``csrc/pair_list_scan.cu``, kt 128) against plain on 1,000 queries,
+   with its split and the query-major kernel it replaced
+   (``recon_scan_query_major``) in turns; the recon batch's recall@10
+   through each route, as for B.  Then
    Kernels C (kt 20 and 4, k 20) and D (kt 4) on the index's codes (rot
    128, 8 bits: the list-major codes pass's tightest shared memory)
    against their plain versions on the batch.
@@ -87,10 +89,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    each n_probes through each route (within 0.0004), Kernel F
    (``ivf_flat_scan``, list-major, ``csrc/flat_list_scan.cu``) against
    its plain version at n_probes 64 with its device split (grouping, pass
-   1), groups and the bytes it streams against the probed live bytes, its
-   query-major route (``flat_scan_query_major``, k 100) against plain on
-   the first 1,000 queries and on a 200,000 x 25 index (GloVe-25's width:
-   one-value row loads), one batch under the profiler; then n_lists
+   1), groups and the bytes it streams against the probed live bytes;
+   at k 100 the search on the first 1,000 queries (one launch of the
+   pair-group pass ``flat_pair_list_scan``, no other scan) and the pass
+   against plain there and on a 200,000 x 25 index (GloVe-25's width:
+   one-value row loads), each with its split and the query-major kernel
+   it replaced (``flat_scan_query_major``) held to the same plain result
+   and timed in turns; one batch under the profiler; then n_lists
    16384 (the hierarchical fit) at n_probes 128 with Kernel F against
    plain there, and Kernels A and H against plain at its fit's and
    extend's shapes.
@@ -105,8 +110,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. The round-5 profile decompositions (PERF.md kernel table rows 10-13),
     through the port's profile modules at the JAX scripts' sizes, launch
     counts zeroed before and read after: Kernel F's four (gather, extract)
-    variants on phase 8's two indexes at (n_lists, n_probes) (16384, 256)
-    and (4096, 128), kt 10, and the pre-gather's time; the raw variant of
+    variants (the pair-group pass, each beside the same variant on the
+    query-major kernel, held to the same plain result and timed in turns)
+    on phase 8's two indexes at (n_lists, n_probes) (16384, 256) and
+    (4096, 128), kt 10, and the pre-gather's time; the raw variant of
     Kernel G's rows on the flagship index (n_probes 96); Kernel J against
     ``torch.index_select`` on 320,000 random rows of a 1,000,000 x 128
     table, f32 and bf16, 1,024 and 2,048 rows a block; Kernel A's cuts
@@ -168,18 +175,21 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``also_checked`` row of its kernel (its bytes count the admission
     bits: one a query and probed live row, one a probed live row for a
     broadcast row).  Then filtered search at k 100, where every scan keeps
-    more than 64 rows a pair and so runs a query-major kernel: the
-    flagship searched at k 200 and refined to 100 in ``auto`` (Kernel B's
-    query-major kernel at kt 200) and in ``recon`` at kt 128 (Kernel
-    G's), and IVF-Flat nlist 4096 at n_probes 64, k 100 (Kernel F's), each
+    more than 64 rows a pair: the flagship searched at k 200 and refined
+    to 100 in ``auto`` (Kernel B's query-major kernel at kt 200) and in
+    ``recon`` at kt 128 (Kernel G's pair-group pass), and IVF-Flat nlist
+    4096 at n_probes 64, k 100 (Kernel F's pair-group pass), each
     unfiltered and with each filter: ms per batch of 5,000, recall@100
     against ``brute_force.knn`` at k 100 (filtered as the search; at 50%
     per query at least the unfiltered recall@100 less 0.05, the tenant
-    filter's printed only), every id admitted, the query-major kernel
-    launched and no list-major pass; the full-probe contract at k 100
-    (against the unfiltered k 256) on 64 queries for both indexes; B, G
-    and F with the 50% filter against their plain versions on 1,000
-    queries at those shapes.  In the deep phase the same at k = kt = 128
+    filter's printed only), every id admitted, the route launched and no
+    other (no list-major pass; for F and G no query-major kernel); the
+    full-probe contract at k 100 (against the unfiltered k 256) on 64
+    queries for both indexes (IVF-Flat's two searches on the pair-group
+    pass); B, G and F with the 50% filter against their plain versions on
+    1,000 queries at those shapes, and G and F unfiltered on the whole
+    batch of 5,000 (the main entries of the pair-group pass's rows).  In
+    the deep phase the same at k = kt = 128
     refined to 100, on 1,000 queries with the three filters over the 10M
     ids: ``fused``, ``codes`` and ``recon8`` (Kernels C, D and E
     query-major), and C, D and E with the 50% filter against plain.
@@ -253,7 +263,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     and the full-probe filter contract on 64 queries, bit for bit.
 15. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
-    (null where none computes the product) on its main path, and
+    (null where none computes the product) on its main path (the
+    pair-group pass's two rows, ``flat_pair_list_scan`` and
+    ``recon_pair_list_scan``: launches from the unfiltered k-100 batches
+    and the pass held to plain on those batches' own scan inputs, the
+    query-major kernel's error against the same plain result and its ms
+    in turns as ``yardstick_query_major_max_abs_err`` and
+    ``yardstick_query_major_ms``; the 1,000-query checks under
+    ``also_checked``), and
     under ``also_checked`` the same measurements at the other shapes its
     paths give it; the ``nvidia-smi`` line; the result line ``{"ok":
     true, "device": {...}}`` last.
@@ -262,7 +279,7 @@ Bounds use the H100 SXM peaks: 3.35 TB/s of device memory, 989 TFLOP/s
 for bf16 products (Kernels A-E and G multiply bf16 values, the int8 scan
 by way of bf16; C and D's bytes are each probed list's live rows once at
 their packed width + 8), 495 TFLOP/s of TF32 for Kernel F's list-major
-pass and Kernel H above dim 16 (their fp32 products as 3xTF32: three TF32
+and pair-group passes and Kernel H above dim 16 (their fp32 products as 3xTF32: three TF32
 products of the hi / lo split, so three times the operations; the fp32
 FFMA time of one product is printed beside it, the yardstick of the
 earlier SIMT and query-major times) and 67 TFLOP/s of fp32 FFMA for F's
@@ -275,6 +292,7 @@ ran).
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -344,6 +362,7 @@ def counters():
             "merge_pairs": pgs.merge_pairs,
             "scan_query_major": pgs.scan_query_major,
             "recon_scan_query_major": ps.recon_scan_query_major,
+            "recon_pair_list_scan": ps.recon_pair_list_scan,
             "code_list_scan": pcs.code_list_scan,
             "codes_fused_query_major": pcs.codes_fused_query_major,
             "codes_scan_query_major": pcs.codes_scan_query_major,
@@ -351,12 +370,14 @@ def counters():
             "recon8_scan_query_major": pcs.recon8_scan_query_major,
             "flat_list_scan": ps.flat_list_scan,
             "flat_scan_query_major": ps.flat_scan_query_major,
+            "flat_pair_list_scan": ps.flat_pair_list_scan,
             "fused_l2_nn": fnn.fused_l2_nn,
             "fused_l2_nn_batched": fnn.fused_l2_nn_batched,
             "cagra_hop": chop.cagra_hop,
             "cagra_walk": cw.cagra_walk,
             "cagra_walk_exact": cw.cagra_walk_exact,
             "pair_scan_variant": ps.pair_scan_variant,
+            "pair_scan_variant_query_major": ps.pair_scan_variant_query_major,
             "row_gather": rg.row_gather,
             "kmeans_pass_cut": ku.kmeans_pass_cut}
 
@@ -476,18 +497,20 @@ def device_split(fn, reps, names, may_be_absent=()):
 
 
 def list_major_split(label, run, probes, n_lists, pair_bytes, merged,
-                     pass1="list_scan_kernel"):
+                     pass1="list_scan_kernel", group=None):
     """The list-major route's device time over one call of ``run``, split
     into the grouping (every kernel but the two passes), pass 1 (the
     kernels whose name holds ``pass1``) and pass 2 (``merged``: Kernel B;
-    else Kernel F or G, no pass 2); the batch's groups and touched lists,
-    and the pair buffer's bytes (not in the bound)."""
+    else Kernel F or G, no pass 2); the batch's groups (of ``group``
+    pairs, the list-major passes' 128 by default) and touched lists, and
+    the pair buffer's bytes (not in the bound)."""
     from raft_tpu_torch.neighbors import grouped
 
+    group = group or grouped.GROUP
     total, split = device_split(run, KERNEL_REPS, (pass1, "merge_kernel"),
                                 () if merged else ("merge_kernel",))
     p1, p2 = split[pass1], split["merge_kernel"]
-    n_groups = int(grouped.num_groups(probes, n_lists))
+    n_groups = int(grouped.num_groups(probes, n_lists, group))
     touched = int(grouped.touched_lists(probes, n_lists))
     print(f"{label}: {n_groups:,} groups over {touched:,} touched lists "
           f"({probes.numel() / max(n_groups, 1):.1f} pairs a group); device "
@@ -526,7 +549,9 @@ EXTRA = ("library_tf32_ms", "yardstick_simt_ms", "yardstick_simt_device_ms",
          "pass2_device_ms", "n_groups", "touched_lists", "pair_buffer_bytes",
          "source", "check_launches", "yardstick_loop_ms", "walk_hops",
          "unfiltered_pass1_device_ms", "tenant_pass1_device_ms",
-         "broadcast_pass1_device_ms", "filter_bytes")
+         "broadcast_pass1_device_ms", "filter_bytes",
+         "yardstick_query_major_ms", "yardstick_query_major_max_abs_err",
+         "ffma_bound_ms", "group")
 
 
 def at_shape(row, shape, launches):
@@ -746,19 +771,27 @@ def id_distances(index, qrot, q_of, ids, rows_of, rsq, scales=None):
     return d, lst
 
 
+# returned (query, id) entries recomputed at a time: 2 GB of fp32 rows of
+# 128 dims, so a 5,000-query batch at kt 128 never holds them all at once
+RECOMPUTE_CHUNK = 1 << 22
+
+
 def recompute(index, qrot, q_of, lists_of, vals, ids, rows_of, rsq,
               scales=None):
     """Every returned (query, id) distance recomputed from the index
-    (``id_distances``): the id's slot must lie in the list its query
-    probed (``lists_of``: the lists allowed for each entry, (m, n)), and
-    the distance must match."""
+    (``id_distances``, RECOMPUTE_CHUNK entries at a time): the id's slot
+    must lie in the list its query probed (``lists_of``: the lists allowed
+    for each entry, (m, n)), and the distance must match."""
     import torch
 
-    d, lst = id_distances(index, qrot, q_of, ids, rows_of, rsq, scales)
-    assert bool((lists_of == lst[:, None]).any(1).all()), (
-        "an id outside the lists its query probed")
-    assert torch.allclose(d, vals, rtol=1e-4, atol=1e-4), (
-        "returned ids do not match their distances")
+    for s in range(0, ids.numel(), RECOMPUTE_CHUNK):
+        e = slice(s, s + RECOMPUTE_CHUNK)
+        d, lst = id_distances(index, qrot, q_of[e], ids[e], rows_of, rsq,
+                              scales)
+        assert bool((lists_of[e] == lst[:, None]).any(1).all()), (
+            "an id outside the lists its query probed")
+        assert torch.allclose(d, vals[e], rtol=1e-4, atol=1e-4), (
+            "returned ids do not match their distances")
 
 
 def scan_bound(index, probes, row_bytes, extra_bytes, out_bytes, rot):
@@ -788,7 +821,7 @@ def probe(index, queries):
                                   index.metric)
 
 
-def check_scans(index, qrot, probes, specs):
+def check_scans(index, qrot, probes, specs, yardsticks=None):
     """Each scan kernel against its plain version on the same batch
     (``compare_with_plain``), every returned id recomputed from the index
     (``recompute``), then its CUDA-event time, its plain version's time
@@ -796,7 +829,10 @@ def check_scans(index, qrot, probes, specs):
     name, source, the TPU kernel it replaces, wrapper, plain version,
     arguments, the rows and norms its distances read (with per-list
     scales for int8), bytes per live row, other input bytes, output
-    bytes and the row width its products run over."""
+    bytes and the row width its products run over.  ``yardsticks`` maps a
+    spec's name to the kernel it replaced (called with the same
+    arguments), held to the same plain result: its error goes into the
+    row as ``yardstick_query_major_max_abs_err``."""
     import torch
 
     nq, n_probes = probes.shape
@@ -805,10 +841,18 @@ def check_scans(index, qrot, probes, specs):
          row_bytes, extra, out_bytes, ops_rot) in specs:
         vk, ik = kernel(*args)
         (vp, ip), plain_ms = timed_once(lambda: plain(*args))
-        err = compare_with_plain(
-            name, vk, ik, vp, ip,
-            dist_of=lambda q, ids: id_distances(
-                index, qrot, q, ids, rows_of, rsq, scales)[0])
+
+        def dist_of(q, ids):
+            return id_distances(index, qrot, q, ids, rows_of, rsq,
+                                scales)[0]
+        err = compare_with_plain(name, vk, ik, vp, ip, dist_of=dist_of)
+        yard = {}
+        if name in (yardsticks or {}):
+            vy, iy = yardsticks[name](*args)
+            yard["yardstick_query_major_max_abs_err"] = compare_with_plain(
+                name + " [query-major kernel]", vy, iy, vp, ip,
+                dist_of=dist_of)
+            del vy, iy
         fin = torch.isfinite(vk)
         if vk.ndim == 2:       # per query: any of its probed lists
             q_of = torch.nonzero(fin)[:, 0]
@@ -831,7 +875,7 @@ def check_scans(index, qrot, probes, specs):
                      "source": f"raft_tpu_torch/csrc/{src}",
                      "replaces": replaces, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None})
+                     "bound_by": bound_by, "library_ms": None, **yard})
     return rows
 
 
@@ -867,16 +911,32 @@ def check_kernel_b(index, queries):
     return row
 
 
+def in_turns(kernel, yardstick, reps=KERNEL_REPS):
+    """CUDA-event ms of ``kernel`` and of ``yardstick`` in turns (kernel,
+    yardstick, yardstick, kernel): ``([kernel ms], [yardstick ms])``."""
+    k1 = cuda_ms(kernel, reps)
+    y1 = cuda_ms(yardstick, reps)
+    y2 = cuda_ms(yardstick, reps)
+    k2 = cuda_ms(kernel, reps)
+    return [k1, k2], [y1, y2]
+
+
 def check_query_major(index, queries, nq, fused, k=None, filter_words=None,
                       launches=0):
-    """The large-kt route of Kernel B (``fused``: k = kt = ``k``, 256 by
-    default, the query-major ``scan_query_major``) or G (kt ``k``, 128 by
-    default, ``recon_scan_query_major``) against its plain version on the
+    """Kernel B's or G's route past kt 64 against its plain version on the
     first ``nq`` queries of a path's batch, its launch counted; an
     ``also_checked`` entry of its kernel's row, with ``launches`` (that
-    path's).  With ``filter_words`` (``nq`` rows) both run filtered, every
-    returned id must be admitted, and the bytes count the admission bits
-    (one a query and probed live row)."""
+    path's).  ``fused``: B's query-major ``scan_query_major`` at k = kt =
+    ``k``, 256 by default.  Else G at kt ``k`` (128 by default) through
+    ``ivf_pq_scan_recon``, which runs the pair-group pass
+    (``csrc/pair_list_scan.cu``, ``recon_pair_list_scan``): its device
+    split (grouping, pass), its bound (each probed list's live rows once
+    against bf16 operations), and the query-major kernel it replaced
+    (``recon_scan_query_major``, which must not launch on the route)
+    held to the same plain result and timed in turns with it.  With
+    ``filter_words`` (``nq`` rows) both run filtered, every returned id
+    must be admitted, and the bytes count the admission bits (one a query
+    and probed live row)."""
     from raft_tpu_torch.ops import pair_scan as ps
     from raft_tpu_torch.ops import pq_group_scan as pgs
 
@@ -899,21 +959,42 @@ def check_query_major(index, queries, nq, fused, k=None, filter_words=None,
                 rot * 2 + 8, adm, nq * k * 8, rot)
     else:
         k = kt = min(k or 2 * pgs.KT_LIST_MAX, index.capacity)
-        wrapper, src = ps.recon_scan_query_major, "pair_scan.cu"
-        spec = (f"recon_scan_query_major (G, query-major{tag})", src,
-                "raft_tpu/ops/pq_group_scan_pallas.py:566", wrapper,
-                ps.ivf_pq_scan_recon_plain,
+        wrapper, src = ps.recon_pair_list_scan, "pair_list_scan.cu"
+        assert ps.recon_scan_route(rot, kt)[0] == "pair"
+        spec = (f"ivf_pq_scan_recon (G, pair-group pass{tag})", src,
+                "raft_tpu/ops/pq_group_scan_pallas.py:566",
+                ps.ivf_pq_scan_recon, ps.ivf_pq_scan_recon_plain,
                 (qrot, index.centers, probes, index.list_recon,
                  index.list_recon_sq, index.list_indices, kt) + fw,
                 recon_rows_of(index), index.list_recon_sq, None,
                 rot * 2 + 8, adm, probes.numel() * kt * 8, rot)
     assert kt > pgs.KT_LIST_MAX, "the large-kt route needs kt past 64"
     before = wrapper.launches
-    row = check_scans(index, qrot, probes, [spec])[0]
+    walked = ps.recon_scan_query_major.launches
+    # G's query-major kernel is held to the same plain result as the pass
+    yardsticks = None if fused else {spec[0]: ps.recon_scan_query_major}
+    row = check_scans(index, qrot, probes, [spec], yardsticks)[0]
     launched = wrapper.launches - before
     assert launched > 0, f"{spec[0]} never launched"
+    if not fused:
+        assert ps.recon_scan_query_major.launches == walked + 1, (
+            f"{spec[0]}: the query-major kernel ran on the route")
+        args = spec[5]
+        group = ps.pair_list_layout(rot, kt, False).group
+        row.update(list_major_split(
+            f"{spec[0]} split", lambda: ps.ivf_pq_scan_recon(*args),
+            probes, index.n_lists, probes.numel() * kt * 8, False,
+            "recon_pair_kernel", group))
+        ms, yard = in_turns(
+            lambda: ps.ivf_pq_scan_recon(*args),
+            lambda: ps.recon_scan_query_major(*args))
+        row.update(ms=ms[0], yardstick_query_major_ms=yard, group=group)
+        print(f"{spec[0]}: in turns with the query-major kernel "
+              f"(csrc/pair_scan.cu): pass {ms[0]:.3f} / {ms[1]:.3f} ms, "
+              f"query-major {yard[0]:.3f} / {yard[1]:.3f} ms; {group} pairs "
+              f"a group", flush=True)
     if filter_words is not None:
-        assert_admitted(spec[0], wrapper(*spec[5])[1], filter_words)
+        assert_admitted(spec[0], spec[3](*spec[5])[1], filter_words)
     return at_shape(dict(row, source=f"raft_tpu_torch/csrc/{src}",
                          check_launches=launched),
                     ("filtered, 50% per query: " if fw else "")
@@ -1134,13 +1215,14 @@ def flat_scan_args(index, queries, n_probes, k):
             min(k, F * cap)), F
 
 
-def flat_stream_bytes(probes, ids, F, row_bytes):
+def flat_stream_bytes(probes, ids, F, row_bytes, group=None):
     """``(read, multiplied, live)``, a model of Kernel F's list-major
     schedule worked out from the batch's groups, not a counter: the bytes
     of rows the schedule streams (each group its tile's sub-lists, each up
     to its last live row), the bytes of the rows it multiplies (those rows
     padded to 128-row windows with zeros it does not read), and the probed
-    tiles' live rows read once."""
+    tiles' live rows read once.  ``group``: the schedule's pairs a group
+    (the list-major pass's 128 by default)."""
     import torch
     from raft_tpu_torch.neighbors import grouped
 
@@ -1148,7 +1230,8 @@ def flat_stream_bytes(probes, ids, F, row_bytes):
     live = ids.reshape(n_tiles, F, rows // F) >= 0
     slot = torch.arange(1, rows // F + 1, device=live.device)
     end = (live * slot).amax(-1)                      # (n_tiles, F)
-    gl = grouped.build_groups(probes, n_tiles)[0].long()
+    gl = grouped.build_groups(probes, n_tiles,
+                              group or grouped.GROUP)[0].long()
     read = int(end.sum(1)[gl].sum()) * row_bytes
     multiplied = int(((end + 127) // 128).sum(1)[gl].sum()) * 128 * row_bytes
     return read, multiplied, int(live[torch.unique(gl)].sum()) * row_bytes
@@ -1156,8 +1239,11 @@ def flat_stream_bytes(probes, ids, F, row_bytes):
 
 def check_kernel_f(index, queries, n_probes, k, label, filter_words=None):
     """Kernel F vs plain on an IVF-Flat batch at ``n_probes`` and ``k``
-    through ``ivf_flat_scan`` (k <= 64: the list-major pass; else the
-    query-major kernel; the route's launch counter must move): values
+    through ``ivf_flat_scan`` (k <= 64: the list-major pass; up to 256
+    the pair-group pass, with the query-major kernel it replaced held to
+    the same plain result and timed in turns beside it; the route's
+    launch counter must move, and the query-major kernel's must not
+    unless it is the route): values
     within 1e-5 of the scale ‖q‖² + max ‖x‖² that fp32 cancellation
     moves them by, ids equal but at ties, every returned id found in its
     pair's tile with its distance recomputed; then its CUDA-event time,
@@ -1165,10 +1251,11 @@ def check_kernel_f(index, queries, n_probes, k, label, filter_words=None):
     of the bytes (each probed tile's live rows read once) and 3xTF32's
     three TF32 products of 2·dim operations per (query, probed live row)
     at the TF32 peak, the fp32 FFMA time of one product beside it (the
-    yardstick of the earlier query-major times, printed only); the
-    query-major route's is bytes against fp32 FFMA.  The list-major route
-    adds its device split and groups to the row, and prints the bytes its
-    schedule streams by flat_stream_bytes' model.  With ``filter_words``
+    yardstick of the earlier query-major times, printed, and kept as
+    ``ffma_bound_ms`` on the pair-group pass); the query-major route's is
+    bytes against fp32 FFMA.  The grouped routes add their device split
+    and groups to the row, and print the bytes their schedule streams by
+    flat_stream_bytes' model.  With ``filter_words``
     both run filtered, every returned id must be admitted, and the bytes
     count the admission bits (one a query and probed live row)."""
     import torch
@@ -1177,12 +1264,16 @@ def check_kernel_f(index, queries, n_probes, k, label, filter_words=None):
     args, F = flat_scan_args(index, queries, n_probes, k)
     q, probes, data, dsq, ids, kt = args
     fw = dict(filter_words=filter_words)
-    listed = not ps.flat_list_scan_reject_reason(data.shape[1], index.dim,
-                                                 kt, F)
-    wrapper = ps.flat_list_scan if listed else ps.flat_scan_query_major
+    route = ps.flat_scan_route(data.shape[1], index.dim, kt, F)[0]
+    listed = route != "query"               # a grouped route
+    wrapper = {"list": ps.flat_list_scan, "pair": ps.flat_pair_list_scan,
+               "query": ps.flat_scan_query_major}[route]
     before = wrapper.launches
+    walked = ps.flat_scan_query_major.launches
     vk, ik = ps.ivf_flat_scan(*args, sub_lists=F, **fw)
     assert wrapper.launches == before + 1, f"{label}: route not taken"
+    assert route == "query" or ps.flat_scan_query_major.launches == walked, (
+        f"{label}: the query-major kernel ran on the {route} route")
     if filter_words is not None:
         assert_admitted(label, ik, filter_words)
     (vp, ip), plain_ms = timed_once(
@@ -1202,12 +1293,15 @@ def check_kernel_f(index, queries, n_probes, k, label, filter_words=None):
     pair_tile = probes.long()[:, :, None].expand(nq, n_pr, kt)[fin]
     assert bool((slot // data.shape[1] == pair_tile).all()), (
         f"{label}: an id outside its pair's tile")
-    rows = data.reshape(-1, index.dim)[slot]
-    d = torch.clamp_min(q_sq[pair_q] + dsq.reshape(-1)[slot]
-                        - 2.0 * (q[pair_q] * rows).sum(1), 0.0)
-    assert torch.allclose(d, vk[fin], rtol=0, atol=1e-5 * scale), (
-        f"{label}: returned ids do not match their distances")
-    del rows, d
+    got = vk[fin]
+    for s in range(0, slot.numel(), RECOMPUTE_CHUNK):
+        e = slice(s, s + RECOMPUTE_CHUNK)
+        rows = data.reshape(-1, index.dim)[slot[e]]
+        d = torch.clamp_min(q_sq[pair_q[e]] + dsq.reshape(-1)[slot[e]]
+                            - 2.0 * (q[pair_q[e]] * rows).sum(1), 0.0)
+        assert torch.allclose(d, got[e], rtol=0, atol=1e-5 * scale), (
+            f"{label}: returned ids do not match their distances")
+    del got
     ms = cuda_ms(lambda: ps.ivf_flat_scan(*args, sub_lists=F, **fw),
                  KERNEL_REPS)
     live = (ids >= 0).sum(1)
@@ -1222,22 +1316,26 @@ def check_kernel_f(index, queries, n_probes, k, label, filter_words=None):
     flops = 2.0 * index.dim * int(live[pr].sum())
     ffma_ms = 1e3 * flops / FP32_FLOP_PER_S
     row = {"name": "ivf_flat_scan", "route": "cuda",
-           "source": "raft_tpu_torch/csrc/" + (
-               "flat_list_scan.cu" if listed else "pair_scan.cu"),
+           "source": "raft_tpu_torch/csrc/" + {
+               "list": "flat_list_scan.cu", "pair": "pair_list_scan.cu",
+               "query": "pair_scan.cu"}[route],
            "replaces": "raft_tpu/ops/pq_group_scan_pallas.py:637",
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "library_ms": None, "F": F}
     ops_ms = 1e3 * (3 * flops / TF32_FLOP_PER_S if listed
                     else flops / FP32_FLOP_PER_S)
     if listed:
+        group = (ps.pair_list_layout(index.dim, kt, True).group
+                 if route == "pair" else None)
         bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
         streamed, multiplied, live_bytes = flat_stream_bytes(
-            probes, ids, F, row_bytes)
+            probes, ids, F, row_bytes, group)
         row.update(list_major_split(
             f"{label} split",
             lambda: ps.ivf_flat_scan(*args, sub_lists=F, **fw),
             probes, data.shape[0], vk.numel() * 8, False,
-            "flat_list_scan_kernel"))
+            "flat_list_scan_kernel" if route == "list"
+            else "flat_pair_kernel", group))
         print(f"{label}, schedule model (flat_stream_bytes, not measured): "
               f"streams {streamed / 1e6:.1f} MB for {live_bytes / 1e6:.1f} "
               f"MB of probed live rows ({streamed / max(live_bytes, 1):.3f} "
@@ -1247,7 +1345,33 @@ def check_kernel_f(index, queries, n_probes, k, label, filter_words=None):
     else:
         bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
     row.update(bound_ms=bound_ms, bound_by=bound_by)
-    print(f"{label} ({'list-major' if listed else 'query-major'}, n_probes "
+    if route == "pair":
+        # the query-major kernel it replaced: held to the same plain
+        # result, then timed in turns with the pass
+        walked = ps.flat_scan_query_major.launches
+        vy, iy = ps.flat_scan_query_major(*args, **fw)
+        assert ps.flat_scan_query_major.launches == walked + 1
+        if filter_words is not None:
+            assert_admitted(label + " [query-major]", iy, filter_words)
+        yard_err = compare_with_plain(label + " [query-major kernel]", vy,
+                                      iy, vp, ip, atol=1e-5 * scale)
+        del vy, iy
+        ms_turns, yard = in_turns(
+            lambda: ps.ivf_flat_scan(*args, sub_lists=F, **fw),
+            lambda: ps.flat_scan_query_major(*args, **fw))
+        row.update(ms=ms_turns[0], yardstick_query_major_ms=yard,
+                   yardstick_query_major_max_abs_err=yard_err,
+                   ffma_bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                           flops / FP32_FLOP_PER_S),
+                   group=group)
+        ms = ms_turns[0]
+        print(f"{label}: in turns with the query-major kernel "
+              f"(csrc/pair_scan.cu): pass {ms_turns[0]:.3f} / "
+              f"{ms_turns[1]:.3f} ms, query-major {yard[0]:.3f} / "
+              f"{yard[1]:.3f} ms; {group} pairs a group", flush=True)
+    name = {"list": "list-major", "pair": "pair-group",
+            "query": "query-major"}[route]
+    print(f"{label} ({name}, n_probes "
           f"{n_probes}, k {k}, F {F}, tile {data.shape[1]} slots): {ms:.3f} "
           f"ms/batch of {nq}, plain {plain_ms:.1f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB = "
@@ -1315,12 +1439,13 @@ def build_flat(res, db, n_lists, label):
 
 
 def odd_width_check(res, dev):
-    """Kernel F's query-major route at a row width off a multiple of 4
-    (its one-value row loads): an IVF-Flat index of FLAT_ODD_ROWS x 25
-    rows (GloVe-25's width; the generator, numpy seed 25) at
-    FLAT_ODD_LISTS lists, its first LARGE_KT_QUERIES queries at n_probes
-    FLAT_CHECK_PROBES and k FLAT_LARGE_K against the plain version; an
-    ``also_checked`` entry of F's row (0 launches on the main path)."""
+    """Kernel F's pair-group pass at a row width off a multiple of 4 (its
+    one-value row loads): an IVF-Flat index of FLAT_ODD_ROWS x 25 rows
+    (GloVe-25's width; the generator, numpy seed 25) at FLAT_ODD_LISTS
+    lists, its first LARGE_KT_QUERIES queries at n_probes
+    FLAT_CHECK_PROBES and k FLAT_LARGE_K against the plain version, the
+    query-major kernel in turns beside it; an ``also_checked`` entry of
+    the pass's row (its search's launch)."""
     import torch
     from raft_tpu_torch.neighbors import ivf_flat
     from raft_tpu_torch.ops import pair_scan as ps
@@ -1329,21 +1454,23 @@ def odd_width_check(res, dev):
                             LATENT, NOISE, dev, seed=FLAT_ODD_DIM)
     index = ivf_flat.build(res, ivf_flat.IndexParams(
         n_lists=FLAT_ODD_LISTS), db)
-    # the public search at k 100, which refused this width before (its
-    # first search also attaches the rows' norms)
-    before = ps.flat_scan_query_major.launches
+    # the public search at k 100 (its first search also attaches the
+    # rows' norms)
+    zero_launches()
     dist, _ = ivf_flat.search(res, ivf_flat.SearchParams(
         n_probes=FLAT_CHECK_PROBES), index, queries, FLAT_LARGE_K)
-    assert ps.flat_scan_query_major.launches > before and bool(
+    launches = read_launches()
+    assert launches["flat_pair_list_scan"] == 1 and launches[
+        "flat_scan_query_major"] == 0 and bool(
         torch.isfinite(dist[:, 0]).all()), "dim-25 search at k 100"
     row = check_kernel_f(index, queries, FLAT_CHECK_PROBES, FLAT_LARGE_K,
-                         f"flat_scan_query_major (F, dim {FLAT_ODD_DIM})")
+                         f"ivf_flat_scan (F pair-group pass, dim "
+                         f"{FLAT_ODD_DIM})")
     entry = at_shape(
-        row, f"query-major, one-value row loads (csrc/pair_scan.cu "
-        f"Fp32Rows): {FLAT_ODD_ROWS:,} x {FLAT_ODD_DIM}, nlist "
-        f"{FLAT_ODD_LISTS}, {LARGE_KT_QUERIES:,} queries x "
+        row, f"one-value row loads: {FLAT_ODD_ROWS:,} x {FLAT_ODD_DIM}, "
+        f"nlist {FLAT_ODD_LISTS}, {LARGE_KT_QUERIES:,} queries x "
         f"{FLAT_CHECK_PROBES} probes, k {FLAT_LARGE_K}, F {row['F']}, "
-        f"capacity {index.capacity} (1 launch in the check)", 0)
+        f"capacity {index.capacity}", launches["flat_pair_list_scan"])
     del db, queries, index
     torch.cuda.empty_cache()
     return entry
@@ -1354,14 +1481,16 @@ def ivf_flat_path(db, queries, truth):
     at n_probes 32 / 64 / 128 (launches zeroed before the build, read
     after the searches; Kernel F's list-major pass must run and its
     query-major kernel not), the same build through each route of Kernel
-    F, Kernel F vs plain at n_probes 64 (list-major, and query-major at k
-    100 on the first LARGE_KT_QUERIES queries), one batch under the
-    profiler; then ``raft_ivf_flat.nlist16384`` (the hierarchical fit) at
-    n_probes 128 with Kernel F vs plain there, and Kernels A and H vs plain
-    at the shapes its hierarchical fit and its extend give them, on a
-    trainset of the build's size (``also_checked``).  Returns F's kernels
-    row, the A and H ``also_checked`` entries and the two indexes (nlist
-    16384, then 4096) for the profile phase."""
+    F, Kernel F vs plain at n_probes 64 (list-major; and at k 100 on the
+    first LARGE_KT_QUERIES queries the search, which must launch the
+    pair-group pass once and no other scan, then the pass against plain
+    with the query-major kernel in turns), one batch under the profiler;
+    then ``raft_ivf_flat.nlist16384`` (the hierarchical fit) at n_probes
+    128 with Kernel F vs plain there, and Kernels A and H vs plain at the
+    shapes its hierarchical fit and its extend give them, on a trainset of
+    the build's size (``also_checked``).  Returns F's kernels row, the
+    pair-group pass's row, the A and H ``also_checked`` entries and the
+    two indexes (nlist 16384, then 4096) for the profile phase."""
     import torch
     from raft_tpu_torch import DeviceResources
     from raft_tpu_torch.neighbors import ivf_flat
@@ -1395,11 +1524,25 @@ def ivf_flat_path(db, queries, truth):
     row = check_kernel_f(index, queries, FLAT_CHECK_PROBES, K,
                          "ivf_flat_scan")
     row["launches"] = launches["flat_list_scan"]
-    query_major = check_kernel_f(
-        index, queries[:LARGE_KT_QUERIES], FLAT_CHECK_PROBES, FLAT_LARGE_K,
-        "flat_scan_query_major (F, query-major)")
-    odd = odd_width_check(res, db.device)
+    # past kt 64: the public search at k 100 on LARGE_KT_QUERIES queries
+    # (the pair-group pass, counted), then the pass against plain with the
+    # query-major kernel it replaced in turns
     sp = ivf_flat.SearchParams(n_probes=FLAT_CHECK_PROBES)
+    zero_launches()
+    ivf_flat.search(res, sp, index, queries[:LARGE_KT_QUERIES], FLAT_LARGE_K)
+    wide = read_launches()
+    assert wide["flat_pair_list_scan"] == 1 and wide[
+        "flat_scan_query_major"] == wide["flat_list_scan"] == 0, (
+            f"IVF-Flat k {FLAT_LARGE_K}: {json.dumps(wide)}")
+    pair = check_kernel_f(
+        index, queries[:LARGE_KT_QUERIES], FLAT_CHECK_PROBES, FLAT_LARGE_K,
+        "ivf_flat_scan (F, pair-group pass, k 100)")
+    pair.update(name="flat_pair_list_scan",
+                launches=wide["flat_pair_list_scan"],
+                shape=f"nlist 4096, {LARGE_KT_QUERIES:,} queries x "
+                f"{FLAT_CHECK_PROBES} probes, k {FLAT_LARGE_K}, F "
+                f"{pair['F']}, capacity {index.capacity}")
+    odd = odd_width_check(res, db.device)
     device_breakdown(f"IVF-Flat search batch (n_probes {FLAT_CHECK_PROBES})",
                      lambda: ivf_flat.search(res, sp, index, queries, K))
 
@@ -1416,12 +1559,8 @@ def ivf_flat_path(db, queries, truth):
         at_shape(row_fine, f"nlist 16384: {N_QUERIES:,} queries x "
                  f"{FLAT_FINE_PROBES} probes, k {K}, F {row_fine['F']}, "
                  f"capacity {fine.capacity}",
-                 fine_launches["flat_list_scan"]),
-        at_shape(query_major, f"query-major (csrc/pair_scan.cu Fp32Rows): "
-                 f"nlist 4096, {LARGE_KT_QUERIES:,} queries x "
-                 f"{FLAT_CHECK_PROBES} probes, k {FLAT_LARGE_K}, F "
-                 f"{query_major['F']}, capacity {index.capacity} (1 launch "
-                 f"in the check)", launches["flat_scan_query_major"]), odd]
+                 fine_launches["flat_list_scan"])]
+    pair["also_checked"] = [odd]
     n_train = int(N_DB * ivf_flat.IndexParams().kmeans_trainset_fraction)
     sel = torch.randperm(N_DB, generator=DeviceResources(seed=0).generator,
                          device=db.device)[:n_train]
@@ -1433,7 +1572,7 @@ def ivf_flat_path(db, queries, truth):
                           h_tf32_launches(fine_launches)))
     del sel
     torch.cuda.empty_cache()
-    return row, a_rows, h_rows, (fine, index)
+    return row, pair, a_rows, h_rows, (fine, index)
 
 
 def check_kernel_h(x, y, shape, yardstick, block_sizes=False):
@@ -1715,7 +1854,7 @@ def variant_row(name, src, replaces, launches, checks):
     first = checks[0]
     row = {"name": name, "route": "cuda", "source": src,
            "replaces": replaces, "launches": launches,
-           **{key: first[key] for key in MEASURED}}
+           **{key: first[key] for key in MEASURED + EXTRA if key in first}}
     row["shape"] = first["shape"]
     row["also_checked"] = [at_shape(c, c["shape"], launches)
                            for c in checks[1:]]
@@ -1724,11 +1863,15 @@ def variant_row(name, src, replaces, launches, checks):
 
 def check_scan_variant(label, args, kw, ms, scale, row_bytes, n_rows,
                        flops):
-    """One F / G variant against its plain version: raw blocks within
-    1e-5 · ``scale`` (F) or 1e-4 (G) at every slot with the same +inf,
-    selections as ``compare_with_plain`` holds Kernels F and G; the bound
-    from ``n_rows`` rows of ``row_bytes`` read once, the queries, the
-    probes and the output."""
+    """One F / G variant of the pair-group pass against its plain
+    version: raw blocks within 1e-5 · ``scale`` (F) or 1e-4 (G) at every
+    slot with the same +inf, selections as ``compare_with_plain`` holds
+    Kernels F and G; the bound from ``n_rows`` rows of ``row_bytes`` read
+    once, the queries, the probes and the output against the products as
+    3xTF32 (F) or bf16 (G), F's fp32 FFMA bound beside it; and the same
+    variant on the query-major kernel it replaced
+    (``pair_scan_variant_query_major``), held to the same plain result and
+    timed in turns with the pass."""
     import torch
     from raft_tpu_torch.ops import pair_scan as ps
 
@@ -1737,28 +1880,45 @@ def check_scan_variant(label, args, kw, ms, scale, row_bytes, n_rows,
                                                                   **kw))
     atol = 1e-5 * scale if kw.get("centers") is None else 1e-4 * max(
         scale, 1.0)
-    if kw["extract"]:
-        err = compare_with_plain(label, *out, *ref, atol=atol)
-        out_bytes = out[0].numel() * 8
-    else:
+
+    def held(name, got):
+        if kw["extract"]:
+            return compare_with_plain(name, *got, *ref, atol=atol)
         fin = torch.isfinite(ref)
-        assert torch.equal(fin, torch.isfinite(out)), f"{label}: +inf slots"
-        err = float((out[fin] - ref[fin]).abs().max())
-        assert err <= atol, f"{label}: raw distances differ by {err}"
-        out_bytes = out.numel() * 4
+        assert torch.equal(fin, torch.isfinite(got)), f"{name}: +inf slots"
+        worst = float((got[fin] - ref[fin]).abs().max())
+        assert worst <= atol, f"{name}: raw distances differ by {worst}"
+        return worst
+    err = held(label, out)
+    out_bytes = out[0].numel() * 8 if kw["extract"] else out.numel() * 4
+    # the query-major kernel it replaced, held to the same plain result
+    yard_err = held(label + " [query-major kernel]",
+                    ps.pair_scan_variant_query_major(*args, **kw))
     q, probes = args[0], args[1]
     nbytes = n_rows * row_bytes + q.numel() * 4 + probes.numel() * 4 \
         + out_bytes
-    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S
-                               if kw.get("centers") is None
-                               else BF16_FLOP_PER_S)
-    print(f"{label}: {ms:.3f} ms, plain {plain_ms:.1f} ms, max |err| {err} "
-          f"(tol {atol:.3g}), bound {bound_ms:.4f} ms ({bound_by}; "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)", flush=True)
+    fp32 = kw.get("centers") is None
+    bound_ms, bound_by = (bound(nbytes, 3 * flops, TF32_FLOP_PER_S) if fp32
+                          else bound(nbytes, flops))
+    ffma_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
     del out, ref
+    ms_turns, yard = in_turns(lambda: ps.pair_scan_variant(*args, **kw),
+                              lambda: ps.pair_scan_variant_query_major(
+                                  *args, **kw))
+    print(f"{label}: {ms:.3f} ms (in turns {ms_turns[0]:.3f} / "
+          f"{ms_turns[1]:.3f}, the query-major kernel {yard[0]:.3f} / "
+          f"{yard[1]:.3f}), plain {plain_ms:.1f} ms, max |err| {err} (the "
+          f"query-major kernel {yard_err}; tol {atol:.3g}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
+          + (f"; fp32 FFMA {ffma_ms:.4f} ms" if fp32 else "") + ")",
+          flush=True)
     return {"shape": label, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "yardstick_query_major_ms": yard,
+            "yardstick_query_major_max_abs_err": yard_err,
+            **({"ffma_bound_ms": ffma_ms} if fp32 else {})}
 
 
 def flat_variant_checks(index, queries, n_probes, lines):
@@ -1982,7 +2142,8 @@ def profiles_path(dev, flagship, queries, flat_indexes):
     del x, c
     torch.cuda.empty_cache()
     return [
-        variant_row("pair_scan_variant", "raft_tpu_torch/csrc/pair_scan.cu",
+        variant_row("pair_scan_variant",
+                    "raft_tpu_torch/csrc/pair_list_scan.cu",
                     "profiles/group_kernel_decomp_r5.py:50",
                     launches["pair_scan_variant"], f_checks + [g_check]),
         variant_row("row_gather", "raft_tpu_torch/csrc/row_gather.cu",
@@ -3670,13 +3831,15 @@ def posthoc_top(d_u, i_u, words, k):
 
 
 def full_probe_contract(label, search, queries, words, n_rows, k=K,
-                        wide=FULL_PROBE_K):
+                        wide=FULL_PROBE_K, route=None, others=()):
     """At full probe a filtered search at ``k`` equals the unfiltered
     result at ``wide`` filtered afterwards, bit for bit, on
-    FULL_PROBE_QUERIES queries."""
+    FULL_PROBE_QUERIES queries; with ``route``, both searches launch that
+    wrapper and none of ``others``."""
     import torch
     from raft_tpu_torch.filters import SampleFilter
 
+    before = read_launches()
     q = queries[:FULL_PROBE_QUERIES]
     w = words[:FULL_PROBE_QUERIES]
     d_u, i_u = search(q, wide, None)
@@ -3684,6 +3847,10 @@ def full_probe_contract(label, search, queries, words, n_rows, k=K,
     assert kept >= k, (f"{label}: a query kept {kept} admitted rows in its "
                        f"unfiltered top {wide}")
     d_f, i_f = search(q, k, SampleFilter(words=w, n_rows=n_rows))
+    launches = {n: c - before[n] for n, c in read_launches().items()}
+    assert route is None or (launches[route] >= 2 and not any(
+        launches[o] for o in others)), (
+            f"{label} full-probe contract: launches {json.dumps(launches)}")
     same = torch.equal(i_f, ref_i) and torch.equal(d_f, ref_d)
     print(f"{label} full-probe contract ({FULL_PROBE_QUERIES} queries, k "
           f"{k}, unfiltered k {wide}, at least {kept} admitted kept): "
@@ -3982,17 +4149,21 @@ def wide_searches(label, search, queries, filters, truths, route, others):
 def wide_filtered_ivf_pq(res, index, db, queries, filters, truths):
     """The flagship at k 100 with each filter: ``auto`` (Kernel B's
     query-major kernel at kt 200) and ``recon`` at kt WIDE_RECON_KT
-    (Kernel G's), search k 200 refined to 100; the full-probe contract at
-    k 100 (``auto``); B and G filtered against their plain versions on
-    the first LARGE_KT_QUERIES queries at the searches' shapes.  Returns
-    the two ``also_checked`` entries, launches from the 50% runs."""
+    (Kernel G's pair-group pass; its query-major kernel must not run),
+    search k 200 refined to 100; the full-probe contract at k 100
+    (``auto``); B and G filtered against their plain versions on the
+    first LARGE_KT_QUERIES queries at the searches' shapes, and G
+    unfiltered on the whole batch.  Returns the two filtered
+    ``also_checked`` entries (launches from the 50% runs), G's runs and
+    G's whole-batch entry (launches from the unfiltered run)."""
     from raft_tpu_torch.neighbors import ivf_pq, refine
 
     half = filters["50% per query"]
     out = []
-    for mode, kt, route in (("auto", 0, "scan_query_major"),
-                            ("recon", WIDE_RECON_KT,
-                             "recon_scan_query_major")):
+    for mode, kt, route, others in (
+            ("auto", 0, "scan_query_major", ("list_scan",)),
+            ("recon", WIDE_RECON_KT, "recon_pair_list_scan",
+             ("list_scan", "recon_scan_query_major"))):
         sp = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode=mode,
                                  per_probe_topk=kt)
 
@@ -4006,8 +4177,15 @@ def wide_filtered_ivf_pq(res, index, db, queries, filters, truths):
         runs = wide_searches(
             f"flagship IVF-PQ {mode} k {WIDE_K_SEARCH} -> {WIDE_K}"
             + (f", kt {kt}" if kt else ""), batch, queries, filters, truths,
-            route, ("list_scan",))
+            route, others)
         launched = runs["50% per query"][2][route]
+        if mode == "recon":
+            recon_runs = runs
+            # the pass at the unfiltered batch's own shape (all its
+            # queries), held to plain: the main entry of its row
+            recon_full = check_query_major(
+                index, queries, queries.shape[0], False, kt, None,
+                runs[None][2][route])
         out.append(check_query_major(
             index, queries, LARGE_KT_QUERIES, mode == "auto",
             kt or WIDE_K_SEARCH, half.words[:LARGE_KT_QUERIES], launched))
@@ -4016,14 +4194,19 @@ def wide_filtered_ivf_pq(res, index, db, queries, filters, truths):
         "flagship IVF-PQ auto",
         lambda q, k, f: ivf_pq.search(res, full, index, q, k, filter=f),
         queries, half.words, N_DB, WIDE_K, WIDE_FULL_PROBE_K)
-    return out
+    return out, recon_runs, recon_full
 
 
 def wide_filtered_ivf_flat(res, index, queries, filters, truths):
-    """IVF-Flat nlist 4096 at k 100 (n_probes 64: Kernel F's query-major
-    kernel) with each filter; the full-probe contract at k 100; F filtered
-    against its plain version on the first LARGE_KT_QUERIES queries.
-    Returns F's ``also_checked`` entry, launches from the 50% run."""
+    """IVF-Flat nlist 4096 at k 100 (n_probes 64: Kernel F's pair-group
+    pass, its query-major kernel and list-major pass not launched) with
+    each filter; the full-probe contract at k 100 (both of its searches on
+    the pair-group pass); F against its plain version on the whole
+    unfiltered batch and filtered on the first LARGE_KT_QUERIES queries,
+    the query-major kernel held to the same plain result and timed in
+    turns each time.  Returns the filtered ``also_checked`` entry
+    (launches from the 50% run), the runs, and the whole-batch row (its
+    launches the unfiltered run's)."""
     from raft_tpu_torch.neighbors import ivf_flat
 
     half = filters["50% per query"]
@@ -4031,21 +4214,29 @@ def wide_filtered_ivf_flat(res, index, queries, filters, truths):
     runs = wide_searches(
         f"IVF-Flat nlist 4096 k {WIDE_K}", lambda q, k, f: ivf_flat.search(
             res, sp, index, q, k, filter=f)[1], queries, filters, truths,
-        "flat_scan_query_major", ("flat_list_scan",))
+        "flat_pair_list_scan", ("flat_list_scan", "flat_scan_query_major"))
     full = ivf_flat.SearchParams(n_probes=index.n_lists)
     full_probe_contract(
         "IVF-Flat nlist 4096",
         lambda q, k, f: ivf_flat.search(res, full, index, q, k, filter=f),
-        queries, half.words, N_DB, WIDE_K, WIDE_FULL_PROBE_K)
+        queries, half.words, N_DB, WIDE_K, WIDE_FULL_PROBE_K,
+        "flat_pair_list_scan", ("flat_list_scan", "flat_scan_query_major"))
+    nall = queries.shape[0]
+    full = check_kernel_f(index, queries, FLAT_CHECK_PROBES, WIDE_K,
+                          f"ivf_flat_scan (pair-group pass, k {WIDE_K}, "
+                          f"{nall:,} queries)")
+    full.update(launches=runs[None][2]["flat_pair_list_scan"],
+                shape=f"nlist 4096, {nall:,} queries x {FLAT_CHECK_PROBES} "
+                f"probes, k {WIDE_K}, F {full['F']}, capacity "
+                f"{index.capacity} (the unfiltered k-{WIDE_K} batch)")
     nq = LARGE_KT_QUERIES
     row = check_kernel_f(index, queries[:nq], FLAT_CHECK_PROBES, WIDE_K,
-                         "ivf_flat_scan (query-major, 50% filter)",
+                         "ivf_flat_scan (pair-group pass, 50% filter)",
                          filter_words=half.words[:nq])
     return at_shape(
-        row, f"filtered, 50% per query: query-major (csrc/pair_scan.cu), "
-        f"nlist 4096, {nq:,} queries x {FLAT_CHECK_PROBES} probes, k "
-        f"{WIDE_K}, F {row['F']}",
-        runs["50% per query"][2]["flat_scan_query_major"])
+        row, f"filtered, 50% per query: nlist 4096, {nq:,} queries x "
+        f"{FLAT_CHECK_PROBES} probes, k {WIDE_K}, F {row['F']}",
+        runs["50% per query"][2]["flat_pair_list_scan"]), runs, full
 
 
 def deep_wide_filtered(res, index, db, queries):
@@ -4110,13 +4301,16 @@ def filtered_phase(res, index, flat, db, queries):
                                          truths)
     t0 = time.perf_counter()
     wide = ground_truths(res, db, queries, filters, WIDE_K)
-    b_wide, g_wide = wide_filtered_ivf_pq(res, index, db, queries, filters,
-                                          wide)
-    f_wide = wide_filtered_ivf_flat(res, flat, queries, filters, wide)
-    print(f"filtered k {WIDE_K} (query-major kernels B, G, F): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    (b_wide, g_wide), g_runs, g_full = wide_filtered_ivf_pq(
+        res, index, db, queries, filters, wide)
+    f_wide, f_runs, f_full = wide_filtered_ivf_flat(res, flat, queries,
+                                                    filters, wide)
+    print(f"filtered k {WIDE_K} (B's query-major kernel, the pair-group "
+          f"passes of G and F): {time.perf_counter() - t0:.1f} s", flush=True)
     return (filters, truths, pq_rows, f_row, pq_runs, flat_runs, numbers,
-            {"B": b_wide, "G": g_wide, "F": f_wide})
+            {"B": b_wide, "G": g_wide, "F": f_wide,
+             "G_runs": g_runs, "F_runs": f_runs, "G_full": g_full,
+             "F_full": f_full})
 
 # ---------------------------------------------------------------------------
 # the rest of IVF-PQ: the small-dim kernel's batch axis, per-cluster books,
@@ -4568,7 +4762,17 @@ def main() -> int:
     print("ptxas C7519 remarks: " + ", ".join(
         f"{src} {_cuda.build_logs.get(src, '').count('C7519')}"
         for src in ("fused_l2_nn.cu", "kmeans_update.cu",
-                    "flat_list_scan.cu")), flush=True)
+                    "flat_list_scan.cu", "pair_list_scan.cu")), flush=True)
+    # the pair-group pass's instantiations: <resident, extract, filter>
+    for kernel, regs, stores, loads in _cuda.ptxas_usage(
+            "pair_list_scan.cu", "pair_kernel"):
+        found = re.search(r"((?:flat|recon)_pair_kernel)I((?:Lb[01]E)+)E",
+                          kernel)
+        flags = "" if found is None else ",".join(
+            re.findall("[01]", found.group(2)))
+        name = kernel if found is None else f"{found.group(1)}<{flags}>"
+        print(f"ptxas: {name}: {regs} registers, spill stores {stores} B, "
+              f"spill loads {loads} B", flush=True)
     validator_first_call(torch.device("cuda", 0))
 
     dev = torch.device("cuda", 0)
@@ -4700,7 +4904,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("IVF-Flat at full width: sift-like-1m, nlist 4096 and 16384")
-    row_f, a_flat, h_flat, flat_indexes = ivf_flat_path(db, queries, truth)
+    row_f, row_fp, a_flat, h_flat, flat_indexes = ivf_flat_path(db, queries,
+                                                                truth)
 
     phase("k-means at full width: 1M x 128 -> 1024 (BASELINE config 3)")
     row_h, a_kmeans = kmeans_path(db)
@@ -4789,7 +4994,19 @@ def main() -> int:
         f_row, f"filtered, 50% per query: nlist 4096, {N_QUERIES:,} queries "
         f"x {FLAT_CHECK_PROBES} probes, k {K}, F {f_row['F']}",
         flat_runs["50% per query"][2]["flat_list_scan"]))
-    row_f["also_checked"].append(wide["F"])
+    # the pair-group pass's rows: their main entry the unfiltered k-100
+    # batch (a path of its own: launches zeroed before it and read after),
+    # its launches and the check on that batch's own scan inputs; the
+    # 1,000-query checks under also_checked, each with its own launches
+    row_fp = dict(wide["F_full"], name="flat_pair_list_scan",
+                  also_checked=[at_shape(row_fp, row_fp["shape"],
+                                         row_fp["launches"])]
+                  + row_fp["also_checked"] + [wide["F"]])
+    row_gp = dict(wide["G_full"], name="recon_pair_list_scan", route="cuda",
+                  replaces="raft_tpu/ops/pq_group_scan_pallas.py:566",
+                  also_checked=[g_query_major, wide["G"]])
+    for row in (row_fp, row_gp):
+        assert row["launches"] > 0, f"{row['name']}: never launched"
     row_walk["also_checked"].append(at_shape(
         walk_f, f"filtered, 50% per query: {N_QUERIES:,} queries, itopk 64, "
         f"width 2, deg {CAGRA_DEGREE}", walk_launches["cagra_walk"]))
@@ -4798,7 +5015,7 @@ def main() -> int:
     print(f"CAGRA runs past the walk table and past 256: "
           f"{json.dumps({str(k): v for k, v in rest_runs.items()})}",
           flush=True)
-    row_g["also_checked"] = [g_deep, g_query_major, g_filtered, wide["G"]]
+    row_g["also_checked"] = [g_deep, g_filtered]
     row_h["also_checked"] += h_more + h_flat + h_deep
     row_hs["also_checked"] = [hs_cluster, hs_one, hs_deep]
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
@@ -4808,7 +5025,8 @@ def main() -> int:
                  also_checked=[b_deep, b_query_major, b_filtered,
                                wide["B"]])] + \
         rows_cde + [
-                     row_f, row_g, row_h, row_hs, row_i, row_walk] + \
+                     row_f, row_g, row_fp, row_gp, row_h, row_hs, row_i,
+                     row_walk] + \
         rows_profiles
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)

@@ -1,5 +1,11 @@
-// Kernel F and Kernel G's large-kt route: per-(query, probe) top-kt scans
-// over full-width rows, query-major.
+// Kernels F and G's query-major route: per-(query, probe) top-kt scans
+// over full-width rows, one block per query.  Since the pair-group pass
+// (pair_list_scan.cu: the pairs grouped by list, each probed list read
+// once per group on tensor cores) took F and G's large kt (65-256) and the
+// profile variants, ops/pair_scan.py runs this kernel only for shapes that
+// pass's gate refuses (kt past 256, a row width past 1,024), and chip_smoke
+// times it in turns beside the pass as the yardstick it replaced
+// (pair_scan_variant_query_major for the variants).
 //
 // Kernel F replaces raft_tpu/ops/pq_group_scan_pallas.py:637
 // grouped_flat_l2_scan (body _kernel_flat), the IVF-Flat scan over raw
@@ -10,9 +16,9 @@
 //        back; an exhausted slot leaves as (-inf, -1))
 // Kernel G's query-major route replaces raft_tpu/ops/pq_group_scan_pallas.py
 // :566 grouped_l2_scan (body _kernel), the IVF-PQ scan over the bf16
-// reconstruction cache, at per-pair kt past KT_LIST_MAX (64): below it
-// Kernel G is pq_list_scan.cu's list-major pass 1.  The profile variants
-// below run here at every kt.  Kernel B's row arithmetic:
+// reconstruction cache, where neither pq_list_scan.cu's list-major pass 1
+// (kt <= 64) nor the pair-group pass takes the shape.  Kernel B's row
+// arithmetic:
 //   sub = qrot[q] - centers[list] (fp32), sub_sq = sum(sub^2),
 //   d = max(sub_sq + rsq[list, row] - 2 bf16(sub) . recon[list, row], 0)
 //   (the residual rounded to bf16 once, the products summed in fp32).

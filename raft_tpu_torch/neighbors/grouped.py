@@ -39,10 +39,11 @@ def _list_counts(probes: torch.Tensor, n_lists: int
     return pl, counts.scatter_add_(0, pl, torch.ones_like(pl))[:n_lists]
 
 
-def num_groups(probes: torch.Tensor, n_lists: int) -> torch.Tensor:
-    """Groups the batch needs: the sum over lists of ceil(count / GROUP),
+def num_groups(probes: torch.Tensor, n_lists: int, group: int = GROUP
+               ) -> torch.Tensor:
+    """Groups the batch needs: the sum over lists of ceil(count / group),
     a 0-d tensor on the probes' device."""
-    return ((_list_counts(probes, n_lists)[1] + GROUP - 1) // GROUP).sum()
+    return ((_list_counts(probes, n_lists)[1] + group - 1) // group).sum()
 
 
 def touched_lists(probes: torch.Tensor, n_lists: int) -> torch.Tensor:
@@ -50,17 +51,19 @@ def touched_lists(probes: torch.Tensor, n_lists: int) -> torch.Tensor:
     return (_list_counts(probes, n_lists)[1] > 0).sum()
 
 
-def build_groups(probes: torch.Tensor, n_lists: int
+def build_groups(probes: torch.Tensor, n_lists: int, group: int = GROUP
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bucket the (query, probe) pairs of ``probes`` (nq, n_probes) into
-    fixed-size per-list groups, on the probes' device.
+    per-list groups of ``group`` pairs (``GROUP`` for the list-major
+    passes; the pair-group pass of ``csrc/pair_list_scan.cu`` takes 64 or
+    fewer), on the probes' device.
 
-    Returns ``(group_list (n_groups,) int32, slot_pairs (n_groups, GROUP)
+    Returns ``(group_list (n_groups,) int32, slot_pairs (n_groups, group)
     int32)``: the list each group scans, and per slot the flattened pair
     index ``q * n_probes + rank``, ``P = probes.numel()`` on an empty slot.
     The pairs are sorted by list with a stable sort, so a list's pairs keep
     their order; the pair of in-list rank r of list l lands in group
-    ``group_start[l] + r // GROUP``, slot ``r % GROUP``.  Probes outside
+    ``group_start[l] + r // group``, slot ``r % group``.  Probes outside
     ``[0, n_lists)`` (the JAX package's ``>= n_lists`` sentinels, and
     negative probes) are in no group.  ``n_groups`` is exact, so reading it
     waits for the probes.
@@ -70,7 +73,7 @@ def build_groups(probes: torch.Tensor, n_lists: int
     pl, counts = _list_counts(probes, n_lists)
     order = torch.sort(pl, stable=True).indices
     pl_s = pl[order]
-    per_list = (counts + GROUP - 1) // GROUP
+    per_list = (counts + group - 1) // group
     # one wait: the exact group count, and the valid pairs (sorted first)
     n_groups, n_valid = torch.stack([per_list.sum(), counts.sum()]).tolist()
     group_start = torch.cumsum(per_list, 0) - per_list
@@ -80,8 +83,8 @@ def build_groups(probes: torch.Tensor, n_lists: int
     starts = torch.cumsum(counts, 0) - counts
     pls = pl_s[:n_valid]
     rank = torch.arange(n_valid, device=dev) - starts[pls]
-    slot_pairs = torch.full((n_groups, GROUP), P, dtype=torch.int32,
+    slot_pairs = torch.full((n_groups, group), P, dtype=torch.int32,
                             device=dev)
-    slot_pairs[group_start[pls] + rank // GROUP, rank % GROUP] = (
+    slot_pairs[group_start[pls] + rank // group, rank % group] = (
         order[:n_valid].to(torch.int32))
     return group_list, slot_pairs

@@ -71,6 +71,12 @@ SIGNATURES = {
                                _I, _P, _P, _P, _I, _I, _P),
     "raft_pair_scan_variant": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _P, _P, _P),
+    "raft_pair_list_scan_flat": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _I, _I, _P),
+    "raft_pair_list_scan_recon": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                                  _I, _P),
     "raft_row_gather": (_P, _P, _I, _I, _I, _P, _P),
     "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "raft_fused_l2_nn_simt": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),

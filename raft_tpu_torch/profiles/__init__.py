@@ -20,6 +20,10 @@ and one of the port's own design, with no JAX script behind it:
   epilogue, the products) and with other row counts in its fold.
 - :mod:`.flat_scan_decomp`: Kernel F's list-major pass rebuilt likewise
   (and with one TF32 product for 3xTF32's three).
+- :mod:`.pair_list_decomp`: Kernels F and G's pair-group pass (their
+  route past kt 64) rebuilt with one part taken out at a time (the keep's
+  merges, the keep, the epilogue, the products) and with its merge in
+  shared memory;
 - :mod:`.code_scan_decomp`: Kernels C and D's list-major pass over the
   PQ codes with its decode run after the products or taken out, beside
   Kernel G's pass 1 over the recon cache;
@@ -31,6 +35,9 @@ and one of the port's own design, with no JAX script behind it:
   parent and change in turns on one card; ``query_major_turns.py`` and
   ``cagra_walk_turns.py`` likewise for B-G's query-major kernels and for
   Kernel I's walk and hop kernels at chip_smoke's shapes;
+  ``pair_list_turns.py`` (run by path from the root): F and G's
+  pair-group pass at each group size beside the query-major kernel it
+  replaced, in turns;
   ``cagra_deep_witness.py`` (run by path from a checkout's root): the
   CAGRA deep regime's intermediate graph recall stage by stage, at 1M
   rows against the default regime and at 10M under three walk-table
@@ -41,8 +48,8 @@ and prints one JSON line per measurement.  Each of the four ports also has
 a function with explicit sizes and a device; on the CPU it runs the plain
 versions and reports no time (``"ms": null``): a CPU run measures no
 device time.  ``kmeans_tile_decomp``, ``list_scan_decomp``,
-``flat_scan_decomp`` and ``code_scan_decomp`` build kernel variants and
-run on the card only.
+``flat_scan_decomp``, ``code_scan_decomp`` and ``pair_list_decomp`` build
+kernel variants and run on the card only.
 """
 
 from __future__ import annotations

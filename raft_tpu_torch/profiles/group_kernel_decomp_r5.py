@@ -4,8 +4,10 @@ Pallas kernel this times the counterpart of).
 
 The JAX script splits its grouped scan's flat per-group cost into the
 one-hot query gather and the in-VMEM top-kt extraction.  The port's scan
-is query-major, so its four variants
-(:func:`raft_tpu_torch.ops.pair_scan.pair_scan_variant`) are:
+is Kernels F and G's pair-group pass (``csrc/pair_list_scan.cu``: the
+pairs grouped by list, a list read once per group), so its four variants
+(:func:`raft_tpu_torch.ops.pair_scan.pair_scan_variant`, grouping
+included) are:
 
 - ``gather`` True: the kernel reads ``queries[pair // n_probes]``, as
   Kernel F does; False: each pair's query from a pre-gathered
@@ -16,9 +18,10 @@ is query-major, so its four variants
 
 Lists are scanned one by one (super-tile factor 1), as the JAX script
 scans ``index.list_data``.  One JSON line per variant: ``nlist``,
-``n_pairs``, ``gather``, ``extract``, ``ms`` and ``us_per_pair`` (where
-the JAX script has ``n_groups`` and ``us_per_group``: the port has pairs,
-not groups), then ``query_gather_ms``.
+``n_pairs``, ``gather``, ``extract``, ``ms`` and ``us_per_pair`` (the
+JAX script has ``us_per_group`` over its groups of 128; the port's groups
+hold up to 64 pairs, so a time per pair compares), then
+``query_gather_ms``.
 
     python3 -m raft_tpu_torch.profiles.group_kernel_decomp_r5
 """

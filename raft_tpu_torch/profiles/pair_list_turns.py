@@ -1,0 +1,161 @@
+"""Kernel F and G's pair-group pass (``csrc/pair_list_scan.cu``) in turns
+with the kernels beside it on one card: at chip_smoke's k-100 shapes with
+the query-major kernel it replaced (``csrc/pair_scan.cu``), at each group
+size the pass takes, and at Kernel F's k-10 shapes with the list-major
+pass (``csrc/flat_list_scan.cu``) that keeps kt up to 64.
+
+Run by path from the root of a checkout::
+
+    python3 raft_tpu_torch/profiles/pair_list_turns.py
+
+It draws random lists on the card from a fixed seed at the shapes
+chip_smoke holds these routes at — IVF-Flat nlist 4096's 2,048 super-tiles
+of up to 832 fp32 rows of dim 128 (F at kt 100, 64 probes, 1,000 and 5,000
+queries; kt 256; kt 10 on 5,000 queries), IVF-Flat nlist 16384's 4,096
+super-tiles of up to 640 rows (F 4; kt 10, 128 probes, 5,000 queries) and
+the flagship's 4,096 lists of up to 416 bf16 rows of rot 128 (G at kt
+128, 96 probes, 1,000 queries) — and prints one JSON line a shape: the
+CUDA-event ms (grouping included) of the pair-group pass at each group
+size (``group`` given explicitly) and of the other kernel, in turns
+(pass, other, other, pass) at each group size, and the card's name and
+power limit first.  The group size ``pair_list_layout`` picks first is
+the one the k-100 turns justify; the k-10 turns say what the list-major
+pass is worth beside the pass.  It runs on the card only.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+NQ = 1_000
+
+
+def lists(g, n_lists, cap, dev):
+    """ids (n_lists, cap) int32: each list's first size slots hold fresh
+    ids, size uniform in [cap / 3, cap], the rest -1."""
+    import torch
+
+    sizes = torch.randint(cap // 3, cap + 1, (n_lists, 1), generator=g,
+                          device=dev)
+    slot = torch.arange(cap, device=dev)[None, :]
+    live = slot < sizes
+    ids = torch.cumsum(live.reshape(-1).int(), 0).reshape(n_lists, cap) - 1
+    return torch.where(live, ids, torch.full_like(ids, -1)).int()
+
+
+def probes_of(g, nq, n_lists, n_probes, dev):
+    """(nq, n_probes) int32: distinct lists for each query."""
+    import torch
+
+    keys = torch.rand(nq, n_lists, generator=g, device=dev)
+    return keys.topk(n_probes, dim=1).indices.int()
+
+
+def turns(label, pair, other, other_name, width, kt, fp32, groups):
+    """The pair-group pass (``pair(group)``) at each of ``groups`` the
+    shape takes and ``other`` in turns; one JSON line."""
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from raft_tpu_torch.core.error import LogicError
+    from raft_tpu_torch.ops import pair_scan as ps
+
+    out = {"shape": label}
+    for group in groups:
+        try:
+            ps.pair_list_layout(width, kt, fp32, group=group)
+        except LogicError:         # past shared memory at this size
+            continue
+        # pass, other, other, pass
+        p1 = cs.cuda_ms(lambda: pair(group), cs.KERNEL_REPS)
+        o1 = cs.cuda_ms(other, cs.KERNEL_REPS)
+        o2 = cs.cuda_ms(other, cs.KERNEL_REPS)
+        p2 = cs.cuda_ms(lambda: pair(group), cs.KERNEL_REPS)
+        out[f"pair_group{group}_ms"] = [p1, p2]
+        out[other_name] = out.get(other_name, []) + [o1, o2]
+    out["group_picked"] = ps.pair_list_layout(width, kt, fp32).group
+    print(json.dumps(out), flush=True)
+
+
+def flat_turns(g, n_tiles, rows, F, shapes, dev):
+    """Kernel F on ``n_tiles`` super-tiles of ``rows`` slots (``F``
+    sub-lists each): each (nq, n_probes, kt) of ``shapes``, the pass
+    beside the query-major kernel past kt 64, else beside the list-major
+    pass."""
+    import torch
+    from raft_tpu_torch.neighbors import grouped
+    from raft_tpu_torch.ops import pair_scan as ps
+
+    dim = 128
+    data = torch.randn(n_tiles, rows, dim, generator=g, device=dev)
+    ids = lists(g, n_tiles, rows, dev)
+    dsq = (data * data).sum(-1)
+    for nq, n_probes, kt in shapes:
+        q = torch.randn(nq, dim, generator=g, device=dev)
+        probes = probes_of(g, nq, n_tiles, n_probes, dev)
+
+        def pair(group, q=q, probes=probes, kt=kt):
+            return ps.flat_pair_list_scan(
+                q, probes, *grouped.build_groups(probes, n_tiles, group),
+                data, dsq, ids, kt, sub_lists=F, group=group)
+        label = (f"F {nq:,} q x {n_probes} probes, {n_tiles} tiles of "
+                 f"{rows} (F {F}), kt {kt}")
+        if kt > ps.KT_LIST_MAX:
+            turns(label, pair, lambda q=q, probes=probes, kt=kt:
+                  ps.flat_scan_query_major(q, probes, data, dsq, ids, kt),
+                  "query_major_ms", dim, kt, True, (64, 32, 16))
+        else:
+            turns(label, pair, lambda q=q, probes=probes, kt=kt:
+                  ps.flat_list_scan(
+                      q, probes, *grouped.build_groups(probes, n_tiles),
+                      data, dsq, ids, kt, sub_lists=F),
+                  "list_major_ms", dim, kt, True, (64, 32))
+
+
+def main() -> None:
+    import torch
+
+    sys.path.insert(0, os.getcwd())
+    from raft_tpu_torch.neighbors import grouped
+    from raft_tpu_torch.ops import pair_scan as ps
+    from raft_tpu_torch.profiles import require_cuda
+
+    dev = require_cuda()
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(json.dumps({"card": smi}), flush=True)
+
+    # IVF-Flat nlist 4096's super-tiles (F 2): kt 100 and 256, then k 10
+    flat_turns(g, 2048, 832, 2, ((NQ, 64, 100), (5 * NQ, 64, 100),
+                                 (NQ, 64, 256), (5 * NQ, 64, 10)), dev)
+    torch.cuda.empty_cache()
+    # IVF-Flat nlist 16384's super-tiles (F 4) at k 10
+    flat_turns(g, 4096, 640, 4, ((5 * NQ, 128, 10),), dev)
+    torch.cuda.empty_cache()
+
+    # the flagship's lists: G at kt 128
+    n_lists, cap, rot = 4096, 416, 128
+    recon = torch.randn(n_lists, cap, rot, generator=g,
+                        device=dev).to(torch.bfloat16)
+    rsq = (recon.float() ** 2).sum(-1)
+    ids = lists(g, n_lists, cap, dev)
+    centers = torch.randn(n_lists, rot, generator=g, device=dev)
+    qrot = torch.randn(NQ, rot, generator=g, device=dev)
+    probes = probes_of(g, NQ, n_lists, 96, dev)
+    common = (qrot, centers, probes, recon, rsq, ids)
+
+    def pair(group):
+        return ps.recon_pair_list_scan(
+            qrot, centers, probes,
+            *grouped.build_groups(probes, n_lists, group), recon, rsq, ids,
+            128, group=group)
+    turns(f"G {NQ:,} q x 96 probes, {n_lists} lists of {cap}, kt 128",
+          pair, lambda: ps.recon_scan_query_major(*common, 128),
+          "query_major_ms", rot, 128, False, (64, 32, 16))
+
+
+if __name__ == "__main__":
+    main()

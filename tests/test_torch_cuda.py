@@ -574,16 +574,22 @@ def _flat_lists(dev, n_lists, cap, dim, seed):
 
 
 def _flat_routes():
-    """Launches of Kernel F's list-major pass and of its query-major
-    route."""
+    """Launches of Kernel F's list-major pass, of its pair-group pass and
+    of its query-major route."""
     return np.array([ps.flat_list_scan.launches,
+                     ps.flat_pair_list_scan.launches,
                      ps.flat_scan_query_major.launches])
+
+
+# each route's launch vector, as _flat_routes and _recon_routes count them
+ROUTE = {"list": (1, 0, 0), "pair": (0, 1, 0), "query": (0, 0, 1)}
 
 
 def _check_flat_scan(q, probes, data, dsq, ids, kt, ip, sub_lists=1):
     """Kernel F through ``ivf_flat_scan`` against its plain version: the
-    route its gate picks launched once (kt' = min(kt, tile) up to
-    KT_LIST_MAX: list-major, else query-major); values within 1e-5 of the scale ‖q‖² + max ‖x‖² that
+    route ``flat_scan_route`` picks launched once (kt' = min(kt, tile) up
+    to KT_LIST_MAX: list-major; up to PAIR_KT_MAX: the pair-group pass;
+    else query-major); values within 1e-5 of the scale ‖q‖² + max ‖x‖² that
     fp32 cancellation (and 3xTF32's dropped terms, ~1.5·2⁻²⁰ of it) moves
     them by; ids equal but at ties; every returned id in its pair's tile,
     its distance recomputed within the same tolerance."""
@@ -592,9 +598,9 @@ def _check_flat_scan(q, probes, data, dsq, ids, kt, ip, sub_lists=1):
     vk, ik = ps.ivf_flat_scan(q, probes, data, dsq, ids, kt, ip,
                               sub_lists=sub_lists)
     torch.cuda.synchronize()
-    listed = not ps.flat_list_scan_reject_reason(rows, data.shape[2],
-                                                 min(kt, rows), sub_lists)
-    assert tuple(_flat_routes() - before) == ((1, 0) if listed else (0, 1))
+    route = ps.flat_scan_route(rows, data.shape[2], min(kt, rows),
+                               sub_lists)[0]
+    assert tuple(_flat_routes() - before) == ROUTE[route]
     assert vk.shape == (*probes.shape, min(kt, rows))
     vp, ip_ = ps.ivf_flat_scan_plain(q, probes, data, dsq, ids, kt, ip)
     fin = torch.isfinite(vp)
@@ -634,7 +640,7 @@ def test_ivf_flat_scan_kernel_matches_plain(dev, cap, dim, kt, ip):
     probes[1, 2] = n_lists             # a super-tile dedupe sentinel
     before = _flat_routes()
     vk, _ = _check_flat_scan(q, probes, data, dsq, ids, kt, ip)
-    assert tuple(_flat_routes() - before) == (1, 0)
+    assert tuple(_flat_routes() - before) == ROUTE["list"]
     assert vk.shape == (nq, n_probes, min(kt, cap))
     assert bool(torch.isinf(vk[0, -1]).all() and torch.isinf(vk[1, 2]).all())
 
@@ -645,22 +651,31 @@ def test_ivf_flat_scan_kernel_matches_plain(dev, cap, dim, kt, ip):
     (416, 128, 20, False), (96, 20, 5, False), (2368, 96, 10, False),
     (200, 1, 10, False), (200, 3, 10, True), (200, 25, 10, False),
     (200, 50, 64, True), (200, 97, 33, False), (200, 25, 100, False),
-    (200, 50, 100, True), (200, 3, 65, False)],
-    ids=["kt64-list", "kt65-query", "ip-kt64-list", "ip-kt65-query",
+    (200, 50, 100, True), (200, 3, 65, False), (416, 128, 300, False),
+    (416, 128, 300, True), (416, 25, 257, False), (416, 50, 300, True)],
+    ids=["kt64-list", "kt65-pair", "ip-kt64-list", "ip-kt65-pair",
          "ip-dim1024", "ip-dim1024-kt33", "kt20", "dim20", "cap2368",
          "dim1", "ip-dim3", "dim25", "ip-dim50-kt64", "dim97-kt33",
-         "dim25-kt100-query", "ip-dim50-kt100-query", "dim3-kt65-query"])
+         "dim25-kt100-pair", "ip-dim50-kt100-pair", "dim3-kt65-pair",
+         "kt300-query", "ip-kt300-query", "dim25-kt257-query",
+         "ip-dim50-kt300-query"])
 def test_ivf_flat_scan_routes_by_kt(dev, cap, dim, kt, ip):
-    """Kt 64 takes the list-major pass, kt 65 the query-major kernel, each
-    held to the plain version (``_check_flat_scan`` asserts the route by
-    the launch counters); dim 1024 streams the queries with the rows (the
-    layout cannot keep them resident), dim 20 pads its last k-step with
-    zeros, a capacity of 2,368 takes 19 row windows; a row width off a
-    multiple of 4 (GloVe's 25 and 50 among them) takes either route, its
-    rows loaded a value at a time."""
+    """Kt 64 takes the list-major pass, kt 65 to 256 the pair-group pass,
+    past 256 the query-major kernel (``pair_scan.cu``), each held to the
+    plain version (``_check_flat_scan`` asserts the route by the launch
+    counters, and the case's id names it); dim 1024 streams the queries
+    with the rows (the layout cannot keep them resident), dim 20 pads its
+    last k-step with zeros, a capacity of 2,368 takes 19 row windows; a
+    row width off a multiple of 4 (GloVe's 25 and 50 among them) takes
+    every route, its rows loaded a value at a time."""
+    route = ("list" if kt <= ps.KT_LIST_MAX else
+             "pair" if kt <= ps.PAIR_KT_MAX else "query")
+    assert ps.flat_scan_route(cap, dim, kt)[0] == route
     data, dsq, ids = _flat_lists(dev, 48, cap, dim, cap + dim + kt)
     q, probes = _queries(dev, 40, dim, 48, 10)
+    before = _flat_routes()
     _check_flat_scan(q, probes, data, dsq, ids, kt, ip)
+    assert tuple(_flat_routes() - before) == ROUTE[route]
 
 
 @pytest.mark.parametrize("F", [2, 4, 8])
@@ -706,7 +721,8 @@ def test_ivf_flat_scan_splits_a_hot_tile_across_groups(dev, ip):
 def test_ivf_flat_scan_misaligned_operands_load_a_value_at_a_time(dev):
     """Queries and rows that start off a 16-byte boundary (views one float
     into their storage) at dim 128 take the one-value loads: same result
-    as the plain version, list-major (kt 10) and query-major (kt 80)."""
+    as the plain version, list-major (kt 10) and the pair-group pass (kt
+    80)."""
     cap, n_lists, dim, nq = 96, 32, 128, 40
     data, dsq, ids = _flat_lists(dev, n_lists, cap, dim, 5)
     q, probes = _queries(dev, nq, dim, n_lists, 8)
@@ -717,16 +733,15 @@ def test_ivf_flat_scan_misaligned_operands_load_a_value_at_a_time(dev):
     assert qs.data_ptr() % 16 and ds.data_ptr() % 16
     before = _flat_routes()
     _check_flat_scan(qs, probes, ds, dsq, ids, 10, False)
-    assert tuple(_flat_routes() - before) == (1, 0)
+    assert tuple(_flat_routes() - before) == (1, 0, 0)
     _check_flat_scan(qs, probes, ds, dsq, ids, 80, False)
-    assert tuple(_flat_routes() - before) == (1, 1)
+    assert tuple(_flat_routes() - before) == (1, 1, 0)
 
 
 @pytest.mark.parametrize("k", [10, 100])
 def test_ivf_flat_search_at_dim_25_is_exact_with_every_list_probed(dev, k):
     """``ivf_flat.search`` on a dim-25 index runs the list-major pass at k
-    10 and the query-major kernel at k 100 (before, that route refused a
-    width off a multiple of 4); with every list probed its distances are
+    10 and the pair-group pass at k 100 (one-value row loads); with every list probed its distances are
     brute force's, within 1e-5 of ‖q‖² + max ‖x‖²."""
     from raft_tpu_torch import DeviceResources
     from raft_tpu_torch.neighbors import ivf_flat
@@ -742,7 +757,8 @@ def test_ivf_flat_search_at_dim_25_is_exact_with_every_list_probed(dev, k):
     dist, found = ivf_flat.search(res, ivf_flat.SearchParams(n_probes=16),
                                   index, q, k)
     torch.cuda.synchronize()
-    assert tuple(_flat_routes() - before) == ((1, 0) if k <= 64 else (0, 1))
+    assert tuple(_flat_routes() - before) == ROUTE["list" if k <= 64
+                                                   else "pair"]
     ref = torch.cdist(q.double(), db.double()).square().float()
     ref_d = torch.topk(ref, k, largest=False).values
     scale = float((q * q).sum(1).max() + (db * db).sum(1).max())
@@ -751,23 +767,158 @@ def test_ivf_flat_search_at_dim_25_is_exact_with_every_list_probed(dev, k):
     torch.testing.assert_close(got, dist, rtol=0, atol=1e-5 * scale)
 
 
+def _super_view(data, dsq, ids, probes, F):
+    """The (L/F, F·cap) super-tile view of F adjacent lists and the
+    deduplicated super-probes (sentinel L/F), as ivf_flat.search makes
+    them."""
+    n_lists, cap, dim = data.shape
+    n_eff = n_lists // F
+    sp = probes // F
+    dup = torch.zeros_like(sp, dtype=torch.bool)
+    for j in range(1, probes.shape[1]):
+        dup[:, j] = (sp[:, j:j + 1] == sp[:, :j]).any(1)
+    sp = torch.where(dup | (probes < 0), torch.full_like(sp, n_eff), sp)
+    return (sp, data.reshape(n_eff, F * cap, dim),
+            dsq.reshape(n_eff, F * cap), ids.reshape(n_eff, F * cap))
+
+
+@pytest.mark.parametrize("cap,dim,kt,ip,F", [
+    (300, 128, 100, False, 1), (300, 128, 100, True, 1),
+    (416, 128, 128, False, 1), (416, 128, 256, False, 1),
+    (416, 128, 256, True, 1), (300, 128, 65, False, 1),
+    (200, 25, 100, False, 1), (200, 25, 256, True, 1),
+    (200, 1024, 100, True, 1), (200, 1024, 256, False, 1),
+    (96, 128, 100, False, 4), (96, 128, 200, True, 8),
+    (2368, 96, 200, False, 1), (200, 3, 65, False, 1),
+    (200, 50, 129, True, 2)])
+def test_flat_pair_list_scan_matches_plain(dev, cap, dim, kt, ip, F):
+    """Kernel F's pair-group pass (kt 65-256, groups of 64 or 32 pairs):
+    every width from 3 to 1,024 (queries resident or streamed, one-value
+    loads off a multiple of 4), InnerProduct, super-tiles of F lists with
+    a dead sub-list and a dead tile, a capacity of 2,368 (19 windows),
+    held to the plain version by ``_check_flat_scan`` (the route by the
+    launch counters)."""
+    n_lists, nq, n_probes = 64, 40, 12
+    data, dsq, ids = _flat_lists(dev, n_lists, cap, dim, cap + dim + kt)
+    ids[3] = -1                        # a dead list (a dead sub-list)
+    if F > 1:
+        ids[2 * F:3 * F] = -1          # a dead tile
+    q, probes = _queries(dev, nq, dim, n_lists, n_probes)
+    if F > 1:
+        probes, data, dsq, ids = _super_view(data, dsq, ids, probes, F)
+    before = _flat_routes()
+    vk, ik = _check_flat_scan(q, probes, data, dsq, ids, kt, ip,
+                              sub_lists=F)
+    assert tuple(_flat_routes() - before) == ROUTE["pair"]
+    worst = float("-inf") if ip else float("inf")
+    assert bool((vk[0, -1] == worst).all() and (ik[0, -1] == -1).all())
+
+
+@pytest.mark.parametrize("ip", [False, True])
+def test_flat_pair_list_scan_splits_a_hot_tile_across_groups(dev, ip):
+    """300 queries all probe list 5 (five groups of one tile) at kt 100;
+    one probe negative, one a sentinel past the lists."""
+    n_lists, nq, n_probes, cap, dim = 32, 300, 6, 416, 128
+    data, dsq, ids = _flat_lists(dev, n_lists, cap, dim, 3)
+    q, probes = _queries(dev, nq, dim, n_lists, n_probes)
+    probes[:, 1] = torch.where(probes[:, 0] == 5, probes[:, 1],
+                               torch.full_like(probes[:, 1], 5))
+    probes[probes[:, 0] == 5, 0] = (5 + 1) % n_lists
+    probes[3, 2] = n_lists
+    group = ps.pair_list_layout(dim, 100, True).group
+    assert int((grouped.build_groups(probes, n_lists, group)[0] == 5).sum()
+               ) >= 5
+    before = _flat_routes()
+    vk, ik = _check_flat_scan(q, probes, data, dsq, ids, 100, ip)
+    assert tuple(_flat_routes() - before) == ROUTE["pair"]
+    worst = float("-inf") if ip else float("inf")
+    assert bool((vk[3, 2] == worst).all() and (ik[3, 2] == -1).all())
+
+
+@pytest.mark.parametrize("kernel", ["F", "G"])
+@pytest.mark.parametrize("kt", [100, 256])
+def test_pair_list_scan_group_size_leaves_the_result_bit_equal(dev, kernel,
+                                                               kt):
+    """The pair-group pass at 64, 32 and 16 pairs a group (``group`` given;
+    64 only where it fits, kt up to 128): the same values and ids bit for
+    bit, as a pair's products do not depend on its row of the tile (what
+    the full-probe contracts, a filtered k 100 against an unfiltered k 256
+    at another group size, rely on)."""
+    n_lists, nq, n_probes, cap = 32, 200, 8, 300
+    if kernel == "F":
+        data, dsq, ids = _flat_lists(dev, n_lists, cap, 128, 11)
+        q, probes = _queries(dev, nq, 128, n_lists, n_probes)
+
+        def run(group):
+            return ps.flat_pair_list_scan(
+                q, probes, *grouped.build_groups(probes, n_lists, group),
+                data, dsq, ids, kt, group=group)
+    else:
+        centers, recon, rsq, ids = _random_index(dev, n_lists, cap, 128, 11)
+        q, probes = _queries(dev, nq, 128, n_lists, n_probes)
+
+        def run(group):
+            return ps.recon_pair_list_scan(
+                q, centers, probes,
+                *grouped.build_groups(probes, n_lists, group), recon, rsq,
+                ids, kt, group=group)
+    groups = (64, 32, 16) if kt <= 128 else (32, 16)
+    outs = [run(group) for group in groups]
+    torch.cuda.synchronize()
+    for v, i in outs[1:]:
+        assert torch.equal(v, outs[0][0]) and torch.equal(i, outs[0][1])
+
+
+@pytest.mark.parametrize("cap,rot,kt", [(300, 128, 100), (416, 128, 128),
+                                        (416, 128, 256), (300, 96, 65),
+                                        (128, 1024, 100), (200, 256, 200),
+                                        (2368, 96, 200), (80, 24, 70)])
+def test_recon_pair_list_scan_matches_plain(dev, cap, rot, kt):
+    """Kernel G's pair-group pass (kt 65-256; rot past 128 in 128-dim
+    residual stages) against its plain version, the route by the launch
+    counters; a hot list split across five groups at the first shape."""
+    n_lists, nq, n_probes = 64, 300, 6
+    centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, cap + kt)
+    qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
+    probes[:, 1] = torch.where(probes[:, 0] == 5, probes[:, 1],
+                               torch.full_like(probes[:, 1], 5))
+    probes[probes[:, 0] == 5, 0] = 6
+    probes[3, 2] = n_lists
+    before = _recon_routes()
+    vk, ik = ps.ivf_pq_scan_recon(qrot, centers, probes, recon, rsq, ids, kt)
+    torch.cuda.synchronize()
+    assert tuple(_recon_routes() - before) == ROUTE["pair"]
+    assert vk.shape == (nq, n_probes, min(kt, cap))
+    vp, ip = ps.ivf_pq_scan_recon_plain(qrot, centers, probes, recon, rsq,
+                                        ids, kt)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+    assert bool(torch.isinf(vk[3, 2]).all() and (ik[3, 2] == -1).all())
+
+
+def _recon_routes():
+    """Launches of Kernel G's list-major pass 1, of its pair-group pass and
+    of its query-major route."""
+    return np.array([pgs.list_scan.launches,
+                     ps.recon_pair_list_scan.launches,
+                     ps.recon_scan_query_major.launches])
+
+
 @pytest.mark.parametrize("cap,rot,kt", [(96, 128, 10), (416, 128, 20),
                                         (2368, 96, 4), (40, 24, 40),
-                                        (64, 1024, 64), (300, 96, 100)])
+                                        (64, 1024, 64), (300, 96, 100),
+                                        (300, 128, 300)])
 def test_ivf_pq_scan_recon_kernel_matches_plain(dev, cap, rot, kt):
     """Kernel G: Kernel B's distances with each pair's top kt; kt up to
-    KT_LIST_MAX on the list-major pass 1, above it the query-major
-    kernel."""
+    KT_LIST_MAX on the list-major pass 1, up to PAIR_KT_MAX the pair-group
+    pass, above it the query-major kernel."""
     n_lists, nq, n_probes = 64, 40, 12
     centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, cap + kt)
     qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
-    before = (pgs.list_scan.launches, ps.recon_scan_query_major.launches)
+    before = _recon_routes()
     vk, ik = ps.ivf_pq_scan_recon(qrot, centers, probes, recon, rsq, ids, kt)
     torch.cuda.synchronize()
-    listed = min(kt, cap) <= pgs.KT_LIST_MAX
-    assert (pgs.list_scan.launches - before[0],
-            ps.recon_scan_query_major.launches - before[1]) == (
-                (1, 0) if listed else (0, 1))
+    route = ps.recon_scan_route(rot, min(kt, cap))[0]
+    assert tuple(_recon_routes() - before) == ROUTE[route]
     assert vk.shape == (nq, n_probes, min(kt, cap))
     vp, ip = ps.ivf_pq_scan_recon_plain(qrot, centers, probes, recon, rsq,
                                         ids, kt)
@@ -1026,8 +1177,8 @@ def test_numpy_input_lands_on_the_card(dev):
 
 
 def test_pair_scans_and_fused_l2_nn_reject_what_they_cannot_hold(dev):
-    """Both of Kernel F's routes take a row width off a multiple of 4 (kt
-    65 at dim 10 runs the query-major kernel; its plain version agrees);
+    """Kernel F's routes take a row width off a multiple of 4 (kt 65 at
+    dim 10 runs the pair-group pass; its plain version agrees);
     Kernel G's query-major route still needs bf16 rows a multiple of 8
     wide, and fused_l2_nn an empty y, raise."""
     data, dsq, ids = _flat_lists(dev, 4, 96, 10, 0)
@@ -1036,7 +1187,7 @@ def test_pair_scans_and_fused_l2_nn_reject_what_they_cannot_hold(dev):
     before = _flat_routes()
     vk, ik = ps.ivf_flat_scan(q, probes, data, dsq, ids, 65)
     torch.cuda.synchronize()
-    assert tuple(_flat_routes() - before) == (0, 1)
+    assert tuple(_flat_routes() - before) == ROUTE["pair"]
     vp, ip = ps.ivf_flat_scan_plain(q, probes, data, dsq, ids, 65)
     _assert_kernel_matches_plain(vk, ik, vp, ip)
     centers, recon, rsq, rids = _random_index(dev, 4, 32, 12, 0)
@@ -1464,12 +1615,32 @@ def test_pair_scan_variant_kernel_matches_plain(dev, bf16, cap, width, kt,
 
 def test_pair_scan_variant_gather_extract_is_kernel_f(dev):
     """The (gather, extract) variant is the instantiation of Kernel F's
-    query-major route: the same values and ids bit for bit."""
+    pair-group pass (on its groups at the same kt), and the query-major
+    variant that of its query-major route: the same values and ids bit for
+    bit; every variant of the query-major yardstick is held to the plain
+    version as the pair-group pass is."""
     data, dsq, ids = _flat_lists(dev, 64, 160, 128, 3)
     q, probes = _queries(dev, 40, 128, 64, 12)
-    vk, ik = ps.flat_scan_query_major(q, probes, data, dsq, ids, 10)
+    group = ps.pair_list_layout(128, 10, True).group
+    vk, ik = ps.flat_pair_list_scan(q, probes, *grouped.build_groups(
+        probes, 64, group), data, dsq, ids, 10)
     vv, iv = ps.pair_scan_variant(q, probes, data, dsq, ids, 10)
     assert torch.equal(vk, vv) and torch.equal(ik, iv)
+    vk, ik = ps.flat_scan_query_major(q, probes, data, dsq, ids, 10)
+    before = ps.pair_scan_variant_query_major.launches
+    vv, iv = ps.pair_scan_variant_query_major(q, probes, data, dsq, ids, 10)
+    assert torch.equal(vk, vv) and torch.equal(ik, iv)
+    qg = q.repeat_interleave(12, 0)
+    raw = ps.pair_scan_variant_query_major(qg, probes, data, dsq, ids, 10,
+                                           gather=False, extract=False)
+    torch.cuda.synchronize()
+    assert ps.pair_scan_variant_query_major.launches == before + 2
+    ref = ps.pair_scan_variant_plain(qg, probes, data, dsq, ids, 10,
+                                     gather=False, extract=False)
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(raw))
+    scale = float((q * q).sum(1).max() + dsq.max())
+    torch.testing.assert_close(raw[fin], ref[fin], rtol=0, atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1558,24 +1729,32 @@ def _assert_admitted(ids, words):
 FILTERED_SCANS = ["B", "G", "C", "D", "E", "F", "F-IP"]
 
 
-# each scan's query-major wrapper (the route past kt 64)
-QUERY_MAJOR = {"B": pgs.scan_query_major, "G": ps.recon_scan_query_major,
-               "C": pcs.codes_fused_query_major,
-               "D": pcs.codes_scan_query_major,
-               "E": pcs.recon8_scan_query_major,
-               "F": ps.flat_scan_query_major,
-               "F-IP": ps.flat_scan_query_major}
+# each scan's wrapper past kt 64: the query-major kernels of B-E, the
+# pair-group passes of F and G
+LARGE_KT = {"B": pgs.scan_query_major, "G": ps.recon_pair_list_scan,
+            "C": pcs.codes_fused_query_major,
+            "D": pcs.codes_scan_query_major,
+            "E": pcs.recon8_scan_query_major,
+            "F": ps.flat_pair_list_scan,
+            "F-IP": ps.flat_pair_list_scan}
+# F and G past the pair-group pass (kt 300 of 600 slots): the query-major
+# kernels of csrc/pair_scan.cu
+PAST_PAIR_KT = {"G": ps.recon_scan_query_major,
+                "F": ps.flat_scan_query_major,
+                "F-IP": ps.flat_scan_query_major}
 
 
-def _filtered_scan(dev, kernel, fw_of, seed, k=20, kt=16):
+def _filtered_scan(dev, kernel, fw_of, seed, k=20, kt=16, cap=300):
     """(kernel result, plain result, filter words, value tolerance) of one
-    scan (through its dispatcher: list-major at the default k 20, kt 16,
-    query-major where min(kt, k) passes 64) on a random index with
-    padding and tombstones, 40 queries of 12 probes over 64 lists; the
-    tolerance is the unfiltered check's (1e-4; F: 1e-5 of ‖q‖² + max
-    ‖x‖²)."""
+    scan through its dispatcher, on the route its shape takes (list-major
+    at the default k 20, kt 16; past 64, the query-major kernels of B-E
+    and the pair-group passes of F and G, which take kt up to 256 and
+    leave F and G's query-major kernels the kt past it), on a random
+    index of ``cap`` slots a list with padding and tombstones, 40 queries
+    of 12 probes over 64 lists; the tolerance is the unfiltered check's
+    (1e-4; F: 1e-5 of ‖q‖² + max ‖x‖²)."""
     atol = 1e-4
-    n_lists, nq, n_probes, cap = 64, 40, 12, 300
+    n_lists, nq, n_probes = 64, 40, 12
     if kernel in ("B", "G"):
         centers, recon, rsq, ids = _random_index(dev, n_lists, cap, 128,
                                                  seed)
@@ -1616,7 +1795,7 @@ def _filtered_scan(dev, kernel, fw_of, seed, k=20, kt=16):
     return out, fns[1](*args, filter_words=fw), fw, atol
 
 
-def _check_filtered_scans(dev, kernel, k, kt, route=None):
+def _check_filtered_scans(dev, kernel, k, kt, route=None, cap=300):
     """Hypothesis draws a filter (selectivity 0 to 1, a per-query filter
     or one row broadcast at query stride 0) for the scan at (k, kt) and
     holds it to its plain version at the unfiltered check's tolerance
@@ -1636,7 +1815,7 @@ def _check_filtered_scans(dev, kernel, k, kt, route=None):
         (vk, ik), (vp, ip), fw, atol = _filtered_scan(
             dev, kernel,
             lambda nq, n: _filter_words(dev, nq, n, selectivity, broadcast,
-                                        seed), seed, k, kt)
+                                        seed), seed, k, kt, cap)
         if route is not None:
             assert route.launches == before + 1
         fin = torch.isfinite(vp)
@@ -1660,11 +1839,22 @@ def test_filtered_list_major_scans_match_plain(dev, kernel):
 
 @pytest.mark.parametrize("kernel", FILTERED_SCANS)
 def test_filtered_query_major_scans_match_plain(dev, kernel):
-    """Each query-major kernel with a filter, at kt past 64 (k = kt = 100;
-    G at kt 80), against its plain version (``_check_filtered_scans``),
-    its route's launch counter moving once a scan."""
+    """Each scan past kt 64 with a filter (the query-major kernels of B-E,
+    the pair-group passes of F and G), k = kt = 100 (G at kt 80), against
+    its plain version (``_check_filtered_scans``), its route's launch
+    counter moving once a scan."""
     kt = 80 if kernel == "G" else 100
-    _check_filtered_scans(dev, kernel, 100, kt, QUERY_MAJOR[kernel])
+    _check_filtered_scans(dev, kernel, 100, kt, LARGE_KT[kernel])
+
+
+@pytest.mark.parametrize("kernel", sorted(PAST_PAIR_KT))
+def test_filtered_scans_past_the_pair_group_pass_match_plain(dev, kernel):
+    """F, F's InnerProduct form and G with a filter at k = kt = 300 of 600
+    slots, past the pair-group pass: their query-major kernels
+    (``csrc/pair_scan.cu``), against the plain version
+    (``_check_filtered_scans``), that kernel's launch counter moving once
+    a scan."""
+    _check_filtered_scans(dev, kernel, 300, 300, PAST_PAIR_KT[kernel], 600)
 
 
 @pytest.mark.parametrize("nq,itopk,width,deg,pdim,quant,ip", [
