@@ -191,8 +191,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     batch of 5,000 (the main entries of the pair-group pass's rows).  In
     the deep phase the same at k = kt = 128
     refined to 100, on 1,000 queries with the three filters over the 10M
-    ids: ``fused``, ``codes`` and ``recon8`` (Kernels C, D and E
-    query-major), and C, D and E with the 50% filter against plain.
+    ids: ``fused`` (Kernel C query-major), ``codes`` and ``recon8`` (D
+    and E's pair-group pass; no query-major D or E kernel), the unfiltered
+    ``codes`` / ``recon8`` recall@100 through the pass and through the
+    query-major kernel swapped in (within 0.002), and C, D and E with the
+    50% filter against plain, D and E's query-major kernels held to the
+    same plain result and timed in turns beside the pass.
 13. CAGRA at full width (``conf/sift-like-1m.json`` entry
     ``raft_cagra.deg32``) on the same rows: ``cagra.build`` at
     ``IndexParams(graph_degree=32, intermediate_graph_degree=64)`` (seconds,
@@ -247,9 +251,17 @@ Phases, in order; any failure raises and the script exits non-zero:
     (with their device splits; E's time beside G's); the codes pass
     against Kernel G's pass 1 over the recon cache on the codes' norms,
     and E's pass with every scale 1 against G's pass 1 over the int8
-    rows as bf16, each bit for bit; C, D and E's query-major routes at k
-    = kt = 128 on 1,000 queries, unfiltered and (phase 12) filtered; and
-    each mode's batch under the profiler.  Then the rest of IVF-PQ on the
+    rows as bf16, each bit for bit, and the same at kt 128 (D and E's
+    pair-group pass against G's on the same groups); ``codes`` and
+    ``recon8`` at k = kt = 128 refined to 100 on the whole batch (the
+    pair-group pass launched, no other scan; ms a batch) and D and E's
+    pass against plain on that batch's scan inputs (device split, groups,
+    the modelled bytes a probed live byte, printed: the main entries of the
+    ``code_pair_list_scan`` / ``recon8_pair_list_scan`` rows); C's
+    query-major route and D and E's pass at k = kt = 128 on 1,000 queries,
+    D and E's query-major kernels held to the same plain result and timed
+    in turns, unfiltered and (phase 12) filtered; and each mode's batch
+    under the profiler.  Then the rest of IVF-PQ on the
     deep index: ``lut`` on 1,000 queries; ``recon8`` at k = kt = 256 (the
     composition past Kernel E's gates) on 1,000 queries, the composition
     held to E at kt 128, and E's query-major kernel at a row width past
@@ -264,8 +276,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path (the
-    pair-group pass's two rows, ``flat_pair_list_scan`` and
-    ``recon_pair_list_scan``: launches from the unfiltered k-100 batches
+    pair-group pass's four rows, ``flat_pair_list_scan``,
+    ``recon_pair_list_scan``, ``code_pair_list_scan`` and
+    ``recon8_pair_list_scan``: launches from the unfiltered k-100 batches
     and the pass held to plain on those batches' own scan inputs, the
     query-major kernel's error against the same plain result and its ms
     in turns as ``yardstick_query_major_max_abs_err`` and
@@ -364,9 +377,11 @@ def counters():
             "recon_scan_query_major": ps.recon_scan_query_major,
             "recon_pair_list_scan": ps.recon_pair_list_scan,
             "code_list_scan": pcs.code_list_scan,
+            "code_pair_list_scan": pcs.code_pair_list_scan,
             "codes_fused_query_major": pcs.codes_fused_query_major,
             "codes_scan_query_major": pcs.codes_scan_query_major,
             "recon8_list_scan": pcs.recon8_list_scan,
+            "recon8_pair_list_scan": pcs.recon8_pair_list_scan,
             "recon8_scan_query_major": pcs.recon8_scan_query_major,
             "flat_list_scan": ps.flat_list_scan,
             "flat_scan_query_major": ps.flat_scan_query_major,
@@ -1004,22 +1019,30 @@ def check_query_major(index, queries, nq, fused, k=None, filter_words=None,
 
 
 def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
-                       k=K_SEARCH, filter_words=None):
+                       k=K_SEARCH, filter_words=None, yardstick=False):
     """Kernels C, D and E (those named in ``kernels``) against their plain
     versions on a path's batch (n_probes 96) at per-pair ``kt`` and C's
-    ``k``.  Each runs the route its gate picks (list-major where a pair
-    keeps at most 64 candidates: ``csrc/pq_code_list_scan.cu``, over the
+    ``k``.  Each runs the route its gate picks: list-major where a pair
+    keeps at most 64 candidates (``csrc/pq_code_list_scan.cu``, over the
     codes or, for E, the int8 rows, with the device split and the group
-    count; else the query-major ``pq_code_scan.cu`` / ``pq_recon8_scan.
-    cu``); each route's launch counter must move.  With ``filter_words``
-    every kernel and plain version runs filtered (names marked), every
-    returned id must be admitted, and the bytes count the admission bits
-    (one a probed live row for a broadcast row)."""
+    count); D and E up to kt 128 the pair-group pass
+    (``csrc/pair_list_scan.cu``: its device split, group count and size,
+    and the bytes its groups stream per probed live byte by
+    ``flat_stream_bytes``' model); else the query-major ``pq_code_scan.cu``
+    / ``pq_recon8_scan.cu``.  Each route's launch counter must move, and
+    on the pass the query-major kernel's must not.  With ``yardstick``,
+    D and E's query-major kernel, where the pass ran, is held to the same
+    plain result and timed in turns with the pass (the row's ``ms`` then
+    the pass's first turn).  With ``filter_words`` every kernel and plain
+    version runs filtered (names marked), every returned id must be
+    admitted, and the bytes count the admission bits (one a probed live
+    row for a broadcast row, one a query and probed live row else)."""
     from raft_tpu_torch.ops import pq_code_scan as pcs
 
     qrot, probes = probe(index, queries)
     nq, n_probes = probes.shape
     rot, W = index.rot_dim, index.code_width
+    cap = index.capacity
     books = index.codebooks
     codes_args = (qrot, index.centers, probes, index.list_codes, books,
                   index.list_code_rsq, index.list_indices, index.pq_bits)
@@ -1035,10 +1058,12 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
 
     def listed(pair_kt):
         return not pcs.code_list_scan_reject_reason(
-            rot, index.pq_dim, index.pq_bits, min(pair_kt, index.capacity))
+            rot, index.pq_dim, index.pq_bits, min(pair_kt, cap))
 
     pair_out = nq * n_probes * kt * 8
     codes_src = "raft_tpu/ops/pq_code_scan_pallas.py:"
+    # per spec: (route wrapper, query-major kernel, layout of the pass or
+    # None, row bytes)
     specs, routes = [], []
     if "C" in kernels:
         on_list = listed(min(kt, k))
@@ -1049,27 +1074,34 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
             pcs.ivf_pq_scan_codes_fused_plain, codes_args + (k, kt) + fw,
             decoded, index.list_code_rsq, None, W + 8,
             2 * books.numel() + adm, nq * k * 8, rot))
-        routes.append(pcs.code_list_scan if on_list
-                      else pcs.codes_fused_query_major)
+        routes.append((pcs.code_list_scan if on_list
+                       else pcs.codes_fused_query_major, None, None, W + 8))
     if "D" in kernels:
-        on_list = listed(kt)
+        route = pcs.codes_scan_route(cap, rot, index.pq_dim, index.pq_bits,
+                                     min(kt, cap))[0]
         specs.append((
             "ivf_pq_scan_codes" + tag,
-            "pq_code_list_scan.cu" if on_list else "pq_code_scan.cu",
+            {"list": "pq_code_list_scan.cu", "pair": "pair_list_scan.cu",
+             "query": "pq_code_scan.cu"}[route],
             codes_src + "367", pcs.ivf_pq_scan_codes,
             pcs.ivf_pq_scan_codes_plain, codes_args + (kt,) + fw, decoded,
             index.list_code_rsq, None, W + 8, 2 * books.numel() + adm,
             pair_out, rot))
-        routes.append(pcs.code_list_scan if on_list
-                      else pcs.codes_scan_query_major)
+        routes.append((
+            {"list": pcs.code_list_scan, "pair": pcs.code_pair_list_scan,
+             "query": pcs.codes_scan_query_major}[route],
+            pcs.codes_scan_query_major,
+            pcs.code_pair_list_layout(rot, index.pq_dim, index.pq_bits,
+                                      min(kt, cap))
+            if route == "pair" else None, W + 8))
     if "E" in kernels:
         i8 = index.list_recon_i8
         rot_pad = i8.shape[2]
-        on_list = not pcs.recon8_list_scan_reject_reason(
-            rot_pad, min(kt, index.capacity))
+        route = pcs.recon8_scan_route(cap, rot_pad, min(kt, cap))[0]
         specs.append((
             "ivf_pq_scan_recon8" + tag,
-            "pq_code_list_scan.cu" if on_list else "pq_recon8_scan.cu",
+            {"list": "pq_code_list_scan.cu", "pair": "pair_list_scan.cu",
+             "query": "pq_recon8_scan.cu"}[route],
             codes_src + "441", pcs.ivf_pq_scan_recon8,
             pcs.ivf_pq_scan_recon8_plain,
             (qrot, index.centers, probes, i8, index.list_recon_scale,
@@ -1077,12 +1109,24 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
             lambda slot: i8.reshape(-1, rot_pad)[slot].float(),
             index.list_recon_i8_sq, index.list_recon_scale, rot_pad + 8,
             4 * index.n_lists + adm, pair_out, rot_pad))
-        routes.append(pcs.recon8_list_scan if on_list
-                      else pcs.recon8_scan_query_major)
-    before = [r.launches for r in routes]
-    rows = check_scans(index, qrot, probes, specs)
-    for row, spec, route, b in zip(rows, specs, routes, before):
+        routes.append((
+            {"list": pcs.recon8_list_scan, "pair": pcs.recon8_pair_list_scan,
+             "query": pcs.recon8_scan_query_major}[route],
+            pcs.recon8_scan_query_major,
+            pcs.recon8_pair_list_layout(rot_pad, min(kt, cap))
+            if route == "pair" else None, rot_pad + 8))
+    # the pass's query-major yardstick: held to the same plain result
+    yards = {spec[0]: walked for spec, (_, walked, layout, _) in
+             zip(specs, routes) if yardstick and layout is not None}
+    before = [(r.launches, w.launches if w else 0)
+              for r, w, _, _ in routes]
+    rows = check_scans(index, qrot, probes, specs, yards)
+    for row, spec, (route, walked, layout, row_bytes), (b, bw) in zip(
+            rows, specs, routes, before):
         assert route.launches > b, f"{row['name']}: its route never ran"
+        if layout is not None:
+            assert walked.launches == bw + (spec[0] in yards), (
+                f"{row['name']}: the query-major kernel ran on the pass")
         if filter_words is not None:
             assert_admitted(row["name"], spec[3](*spec[5])[1], filter_words)
         if route in (pcs.code_list_scan, pcs.recon8_list_scan):
@@ -1093,84 +1137,144 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
                 lambda spec=spec: spec[3](*spec[5]), probes, index.n_lists,
                 nq * n_probes * pair_kt * 8, merged,
                 "code_list_scan_kernel"))
+        if layout is None:
+            continue
+        # the pair-group pass: its split and groups, and the bytes the
+        # schedule model says it streams (printed only: not measured)
+        row.update(list_major_split(
+            f"{row['name']} (pair-group pass, kt {kt})",
+            lambda spec=spec: spec[3](*spec[5]), probes, index.n_lists,
+            pair_out, False, "recon_pair_kernel", layout.group))
+        streamed, _, live_bytes = flat_stream_bytes(
+            probes, index.list_indices, 1, row_bytes, layout.group)
+        row.update(group=layout.group)
+        print(f"{row['name']}, schedule model (flat_stream_bytes, not "
+              f"measured): {layout.group} pairs a group; "
+              f"models {streamed / 1e6:.1f} MB for {live_bytes / 1e6:.1f} "
+              f"MB of probed live rows ({streamed / max(live_bytes, 1):.3f} "
+              f"per live byte)", flush=True)
+        if spec[0] in yards:
+            ms, yard = in_turns(lambda spec=spec: spec[3](*spec[5]),
+                                lambda spec=spec, walked=walked: walked(
+                                    *spec[5]))
+            row.update(ms=ms[0], yardstick_query_major_ms=yard)
+            print(f"{row['name']}: in turns with the query-major kernel "
+                  f"({walked.__name__}): pass {ms[0]:.3f} / {ms[1]:.3f} ms, "
+                  f"query-major {yard[0]:.3f} / {yard[1]:.3f} ms; "
+                  f"{layout.group} pairs a group", flush=True)
     return rows
 
 
 def check_codes_query_major(index, queries, nq):
-    """Kernels C, D and E's query-major routes (``csrc/pq_code_scan.cu``,
-    ``csrc/pq_recon8_scan.cu``) at a pair kt past 64 (k = kt = 128) on
-    the first ``nq`` queries of the batch, each against its plain version,
-    its launch counted; three ``also_checked`` entries."""
+    """Past kt 64 (k = kt = 128) on the first ``nq`` queries of the
+    batch: Kernel C's query-major route (``csrc/pq_code_scan.cu``) and D
+    and E's pair-group pass (``csrc/pair_list_scan.cu``), each against
+    its plain version, its launch counted, D and E's query-major kernels
+    (``codes_scan_query_major``, ``recon8_scan_query_major``) held to the
+    same plain result and timed in turns beside the pass; three
+    ``also_checked`` entries."""
     from raft_tpu_torch.ops import pq_code_scan as pcs
 
     kt = min(2 * 64, index.capacity)
-    walked = (pcs.codes_fused_query_major, pcs.codes_scan_query_major,
-              pcs.recon8_scan_query_major)
-    before = [w.launches for w in walked]
-    rows = check_code_kernels(index, queries[:nq], kt, ("C", "D", "E"), kt)
-    ran = [w.launches - b for w, b in zip(walked, before)]
-    assert min(ran) > 0, f"query-major routes launched {ran}"
+    ran = (pcs.codes_fused_query_major, pcs.code_pair_list_scan,
+           pcs.recon8_pair_list_scan)
+    before = [w.launches for w in ran]
+    rows = check_code_kernels(index, queries[:nq], kt, ("C", "D", "E"), kt,
+                              yardstick=True)
+    ran = [w.launches - b for w, b in zip(ran, before)]
+    assert min(ran) > 0, f"the routes past kt 64 launched {ran}"
     return [at_shape(dict(row, check_launches=n),
-                     f"query-major (csrc/{row['source'].split('/')[-1]}): "
+                     f"{'query-major' if i == 0 else 'pair-group pass'} "
+                     f"(csrc/{row['source'].split('/')[-1]}): "
                      f"{nq:,} queries x {N_PROBES} probes, k {kt}, kt {kt}, "
                      f"capacity {index.capacity:,}, rot {index.rot_dim}", 0)
-            for row, n in zip(rows, ran)]
+            for i, (row, n) in enumerate(zip(rows, ran))]
 
 
 def codes_bit_equal(index, queries, kt):
-    """The list-major codes pass against Kernel G's pass 1 over the
-    index's recon cache, both on the codes' norms (``list_code_rsq``), at
-    per-pair ``kt`` on the batch: the decoded rows are the cache's bits
-    and the tiling is the same, so values and ids must be equal."""
+    """The codes pass against Kernel G's pass over the index's recon
+    cache, both on the codes' norms (``list_code_rsq``), at per-pair
+    ``kt`` on the batch: up to kt 64 the list-major codes pass against G's
+    pass 1, past it D's pair-group pass against G's on the same groups.
+    The decoded rows are the cache's bits and the tiling is the same, so
+    values and ids must be equal."""
     import torch
     from raft_tpu_torch.neighbors import grouped
+    from raft_tpu_torch.ops import pair_scan as ps
     from raft_tpu_torch.ops import pq_code_scan as pcs
     from raft_tpu_torch.ops import pq_group_scan as pgs
 
     qrot, probes = probe(index, queries)
-    groups = grouped.build_groups(probes, index.n_lists)
-    cv, ci = pcs.code_list_scan(qrot, index.centers, probes, *groups,
-                                index.list_codes, index.codebooks,
-                                index.list_code_rsq, index.list_indices,
-                                index.pq_bits, kt)
-    rv, ri = pgs.list_scan(qrot, index.centers, probes, *groups,
-                           index.list_recon, index.list_code_rsq,
-                           index.list_indices, kt)
+    common = (qrot, index.centers, probes)
+    if kt <= pgs.KT_LIST_MAX:
+        groups = grouped.build_groups(probes, index.n_lists)
+        cv, ci = pcs.code_list_scan(*common, *groups, index.list_codes,
+                                    index.codebooks, index.list_code_rsq,
+                                    index.list_indices, index.pq_bits, kt)
+        rv, ri = pgs.list_scan(*common, *groups, index.list_recon,
+                               index.list_code_rsq, index.list_indices, kt)
+        names = "code_list_scan vs list_scan"
+    else:
+        group = pcs.code_pair_list_layout(index.rot_dim, index.pq_dim,
+                                          index.pq_bits, kt).group
+        groups = grouped.build_groups(probes, index.n_lists, group)
+        cv, ci = pcs.code_pair_list_scan(
+            *common, *groups, index.list_codes, index.codebooks,
+            index.list_code_rsq, index.list_indices, index.pq_bits, kt)
+        rv, ri = ps.recon_pair_list_scan(
+            *common, *groups, index.list_recon, index.list_code_rsq,
+            index.list_indices, kt, group=group)
+        names = (f"code_pair_list_scan vs recon_pair_list_scan ({group} "
+                 f"pairs a group)")
     torch.cuda.synchronize()
     same = torch.equal(cv, rv) and torch.equal(ci, ri)
-    print(f"code_list_scan vs list_scan over the recon cache (kt {kt}, "
-          f"{probes.numel():,} pairs): bit-equal {same}", flush=True)
-    assert same, "the codes pass differs from pass 1 over the recon cache"
+    print(f"{names} over the recon cache (kt {kt}, {probes.numel():,} "
+          f"pairs): bit-equal {same}", flush=True)
+    assert same, "the codes pass differs from G's pass over the recon cache"
 
 
 def recon8_bit_equal(index, queries, kt):
-    """Kernel E's list-major pass with every scale 1 against Kernel G's
-    pass 1 over the int8 rows as bf16 (``q8[..., :rot]``, exact), both on
-    the int8 norms, at per-pair ``kt`` on the batch: the same tiles, exact
-    products, summation order and fold, so values and ids must be
+    """Kernel E's pass with every scale 1 against Kernel G's pass over the
+    int8 rows as bf16 (``q8[..., :rot]``, exact), both on the int8 norms,
+    at per-pair ``kt`` on the batch (up to kt 64 the list-major passes,
+    past it the pair-group passes on the same groups): the same tiles,
+    exact products, summation order and fold, so values and ids must be
     equal."""
     import torch
     from raft_tpu_torch.neighbors import grouped
+    from raft_tpu_torch.ops import pair_scan as ps
     from raft_tpu_torch.ops import pq_code_scan as pcs
     from raft_tpu_torch.ops import pq_group_scan as pgs
 
     qrot, probes = probe(index, queries)
-    groups = grouped.build_groups(probes, index.n_lists)
+    common = (qrot, index.centers, probes)
     i8, rsq8 = index.list_recon_i8, index.list_recon_i8_sq
+    assert i8.shape[2] == -(-index.rot_dim // 16) * 16
     ones = torch.ones_like(index.list_recon_scale)
-    ev, ei = pcs.recon8_list_scan(qrot, index.centers, probes, *groups, i8,
-                                  ones, rsq8, index.list_indices, kt)
     rows = i8[..., :index.rot_dim].to(torch.bfloat16)
-    gv, gi = pgs.list_scan(qrot, index.centers, probes, *groups, rows, rsq8,
-                           index.list_indices, kt)
+    if kt <= pgs.KT_LIST_MAX:
+        groups = grouped.build_groups(probes, index.n_lists)
+        ev, ei = pcs.recon8_list_scan(*common, *groups, i8, ones, rsq8,
+                                      index.list_indices, kt)
+        gv, gi = pgs.list_scan(*common, *groups, rows, rsq8,
+                               index.list_indices, kt)
+        names = "recon8_list_scan at scale 1 vs list_scan"
+    else:
+        group = pcs.recon8_pair_list_layout(i8.shape[2], kt).group
+        groups = grouped.build_groups(probes, index.n_lists, group)
+        ev, ei = pcs.recon8_pair_list_scan(*common, *groups, i8, ones, rsq8,
+                                           index.list_indices, kt)
+        gv, gi = ps.recon_pair_list_scan(*common, *groups, rows, rsq8,
+                                         index.list_indices, kt, group=group)
+        names = (f"recon8_pair_list_scan at scale 1 vs recon_pair_list_scan "
+                 f"({group} pairs a group)")
     torch.cuda.synchronize()
     same = torch.equal(ev, gv) and torch.equal(ei, gi)
     del rows
     torch.cuda.empty_cache()
-    print(f"recon8_list_scan at scale 1 vs list_scan over the int8 rows as "
-          f"bf16 (kt {kt}, {probes.numel():,} pairs): bit-equal {same}",
-          flush=True)
-    assert same, "the int8 pass differs from pass 1 over its rows as bf16"
+    print(f"{names} over the int8 rows as bf16 (kt {kt}, {probes.numel():,} "
+          f"pairs): bit-equal {same}", flush=True)
+    assert same, "the int8 pass differs from G's pass over its rows as bf16"
 
 
 def check_kernel_g(index, queries, kt):
@@ -2211,14 +2315,17 @@ def search_mode(res, index, db, queries, truth, label, sp, kernel,
 
 
 def same_build_routes(label, module, name, walked, kernels, search,
-                      truth, gate=True):
-    """Recall@10 of one batch on one build (``search()`` gives its found
-    ids) through the list-major route and through the query-major scan
-    ``walked`` swapped in for ``module.name``, the search's scan: what
-    the routes' own rounding does to recall, with the build held fixed.
-    ``kernels`` (list-major wrapper, query-major wrapper): their launches
-    say that each route ran alone.  Where ``gate``, the two must agree
-    within ROUTE_RECALL_GAP; else the comparison is printed only."""
+                      truth, gate=True, gap=ROUTE_RECALL_GAP,
+                      first="list-major"):
+    """Recall@k (k: ``truth``'s width) of one batch on one build
+    (``search()`` gives its found ids) through the search's own route
+    (``first``: the list-major pass, or the pair-group pass) and through
+    the query-major scan ``walked`` swapped in for ``module.name``, the
+    search's scan: what the routes' own rounding does to recall, with the
+    build held fixed.  ``kernels`` (the first route's wrapper, the
+    query-major wrapper): their launches say that each route ran alone.
+    Where ``gate``, the two must agree within ``gap``; else the comparison
+    is printed only."""
     listed = getattr(module, name)
     recall = {}
 
@@ -2228,7 +2335,7 @@ def same_build_routes(label, module, name, walked, kernels, search,
         assert filter_words is None, f"{label}: a filtered search"
         return walked(*args, **kw)
 
-    for route in ("list-major", "query-major"):
+    for route in (first, "query-major"):
         before = [k.launches for k in kernels]
         if route == "query-major":
             setattr(module, name, walked_scan)
@@ -2237,15 +2344,16 @@ def same_build_routes(label, module, name, walked, kernels, search,
         finally:
             setattr(module, name, listed)
         ran = tuple(k.launches > b for k, b in zip(kernels, before))
-        assert ran == (route == "list-major", route == "query-major"), (
+        assert ran == (route == first, route == "query-major"), (
             f"{label}: the {route} route did not run alone")
         hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
         recall[route] = float(hits) / truth.numel()
-    print(f"{label}, one build, recall@10 by route: "
+    at = truth.shape[1]
+    print(f"{label}, one build, recall@{at} by route: "
           f"{json.dumps(recall)}", flush=True)
-    gap = abs(recall["list-major"] - recall["query-major"])
-    assert gap <= ROUTE_RECALL_GAP or not gate, (
-        f"{label}: the routes' recall@10 differ by {gap}")
+    apart = abs(recall[first] - recall["query-major"])
+    assert apart <= gap or not gate, (
+        f"{label}: the routes' recall@{at} differ by {apart}")
     return recall
 
 
@@ -2326,7 +2434,9 @@ def codes_past_smem_checks(dev):
     do not fit in its shared memory together, both admitted by the Pallas
     codes gate: rot 256, pq_dim 128, 8 bits (the books read from global
     memory) and pq_dim 256 (the LUT summed in chunks), each against its
-    plain version on random lists.  Returns D's ``also_checked`` entries
+    plain version on random lists, called as itself (``codes_scan_route``,
+    printed, gives both shapes to the pair-group pass, its books in
+    global memory).  Returns D's ``also_checked`` entries
     (no path of this script gives D these shapes: 0 launches)."""
     import torch
     from raft_tpu_torch.ops import pq_code_scan as pcs
@@ -2339,6 +2449,11 @@ def codes_past_smem_checks(dev):
         pq_len, W = rot // pq_dim, pq_dim * bits // 8
         _, lut_sub, staged = pcs.codes_layout(cap, rot, pq_dim, bits)
         assert not staged, f"Kernel D at pq_dim {pq_dim}: books staged"
+        # D's route here is the pair-group pass (its books in global
+        # memory); the query-major kernel is called as itself
+        route, why = pcs.codes_scan_route(cap, rot, pq_dim, bits, kt)
+        print(f"Kernel D at rot {rot}, pq_dim {pq_dim}, kt {kt}: route "
+              f"{route} ({why})", flush=True)
         codes = torch.randint(0, 256, (L, cap, W), device=dev, generator=g,
                               dtype=torch.uint8)
         books = torch.randn(pq_dim, 1 << bits, pq_len, device=dev,
@@ -2500,15 +2615,25 @@ def deep_path(dev):
     for row in rows:
         row["also_checked"] = []
     rows_f = deep_filtered(res, index, queries)
-    codes_bit_equal(index, queries, DEEP_KT)
-    recon8_bit_equal(index, queries, DEEP_KT)
-    walked = check_codes_query_major(index, queries, LARGE_KT_QUERIES)
+    for kt in (DEEP_KT, WIDE_DEEP_KT):
+        codes_bit_equal(index, queries, kt)
+        recon8_bit_equal(index, queries, kt)
     t0 = time.perf_counter()
-    walked_f = deep_wide_filtered(res, index, db, queries)
-    print(f"deep filtered k {WIDE_K} (query-major kernels C, D, E): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for row, *entries in zip(rows, walked, rows_f, walked_f):
-        row["also_checked"] += entries
+    pair_rows = deep_pair_batches(res, index, db, queries)
+    walked = check_codes_query_major(index, queries, LARGE_KT_QUERIES)
+    walked_f, unfiltered = deep_wide_filtered(res, index, db, queries)
+    print(f"deep k = kt = {WIDE_DEEP_KT} (C's query-major kernel, D and "
+          f"E's pair-group pass): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # C keeps its query-major checks; D and E's checks past kt 64 go under
+    # their pass's rows, the 1,000-query check with the launches of the
+    # unfiltered 1,000-query search
+    rows[0]["also_checked"] += [walked[0], rows_f[0], walked_f[0]]
+    for row, pair, i, mode in zip(rows[1:], pair_rows, (1, 2),
+                                  ("codes", "recon8")):
+        row["also_checked"].append(rows_f[i])
+        pair["also_checked"] = [dict(walked[i], launches=unfiltered[mode]),
+                                walked_f[i]]
     b_deep = at_shape(
         check_kernel_b(index, queries),
         f"deep: {N_QUERIES:,} queries x {N_PROBES} probes, k {K_SEARCH}, kt "
@@ -2558,7 +2683,7 @@ def deep_path(dev):
     rest = {"deep lut": (lut["batch_ms"], lut["recall"]),
             "deep recon8 k = kt = 256": wide8,
             "InnerProduct": ip_path(dev, db, queries)}
-    return (rows, a_deep, b_deep, g_deep, h_deep, hs_deep, rest,
+    return (rows, pair_rows, a_deep, b_deep, g_deep, h_deep, hs_deep, rest,
             (db, queries, truth))
 
 
@@ -3740,6 +3865,9 @@ WIDE_K, WIDE_K_SEARCH, WIDE_RECON_KT, WIDE_DEEP_KT = 100, 200, 128, 128
 WIDE_FULL_PROBE_K = 256
 # the most a 50% per-query filter may take off recall@100
 WIDE_RECALL_GAP = 0.05
+# the most the deep codes / recon8 k-100 recall@100 through D and E's
+# pair-group pass may differ from the query-major route's on one build
+PAIR_RECALL_GAP = 0.002
 
 
 def half_words(nq, n_rows, seed, device):
@@ -4242,22 +4370,34 @@ def wide_filtered_ivf_flat(res, index, queries, filters, truths):
 def deep_wide_filtered(res, index, db, queries):
     """The deep index's first DEEP_FILTER_QUERIES queries at k = kt =
     WIDE_DEEP_KT, refined to WIDE_K, with the phase's three filters over
-    its 10M ids: ``fused`` (Kernel C's query-major kernel), ``codes`` (D)
-    and ``recon8`` (E), ms beside unfiltered, recall@100 against the
-    filtered brute_force.knn; then C, D and E filtered (50% per query)
-    against their plain versions at that shape.  Returns three
-    ``also_checked`` entries, launches from the 50% runs."""
+    its 10M ids: ``fused`` (Kernel C's query-major kernel), ``codes`` (D's
+    pair-group pass) and ``recon8`` (E's), ms beside unfiltered, recall@100
+    against the filtered brute_force.knn, each run launching its route
+    and no other (no list-major pass; for D and E no query-major kernel);
+    the unfiltered ``codes`` and ``recon8`` batches' recall@100 through the
+    pass and through the query-major kernel swapped in on the one build,
+    within PAIR_RECALL_GAP; then C, D and E filtered (50% per query)
+    against their plain versions at that shape, D and E's query-major
+    kernels held to the same plain result and timed in turns beside the
+    pass.  Returns three ``also_checked`` entries (launches from the 50%
+    runs) and each mode's launches of its route in the unfiltered run."""
     from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.ops import pq_code_scan as pcs
 
     nq = DEEP_FILTER_QUERIES
     q = queries[:nq]
     filters = test_filters(nq, DEEP_DB, q.device)
     truths = ground_truths(res, db, q, filters, WIDE_K)
-    launched = {}
-    for mode, route, listed in (
-            ("fused", "codes_fused_query_major", "code_list_scan"),
-            ("codes", "codes_scan_query_major", "code_list_scan"),
-            ("recon8", "recon8_scan_query_major", "recon8_list_scan")):
+    launched, unfiltered = {}, {}
+    for mode, route, others, scan, walked in (
+            ("fused", "codes_fused_query_major", ("code_list_scan",), None,
+             None),
+            ("codes", "code_pair_list_scan",
+             ("code_list_scan", "codes_scan_query_major"),
+             "ivf_pq_scan_codes", pcs.codes_scan_query_major),
+            ("recon8", "recon8_pair_list_scan",
+             ("recon8_list_scan", "recon8_scan_query_major"),
+             "ivf_pq_scan_recon8", pcs.recon8_scan_query_major)):
         sp = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode=mode,
                                  per_probe_topk=WIDE_DEEP_KT)
 
@@ -4266,18 +4406,73 @@ def deep_wide_filtered(res, index, db, queries):
                                     filter=f)
             return refine(res, db, qq, cand, k)[1]
 
-        runs = wide_searches(
-            f"deep {mode} k = kt = {WIDE_DEEP_KT} -> {WIDE_K}", batch, q,
-            filters, truths, route, (listed,))
+        label = f"deep {mode} k = kt = {WIDE_DEEP_KT} -> {WIDE_K}"
+        runs = wide_searches(label, batch, q, filters, truths, route,
+                             others)
         launched[mode] = runs["50% per query"][2][route]
+        unfiltered[mode] = runs[None][2][route]
+        if walked is not None:
+            same_build_routes(
+                label, pcs, scan, walked, (getattr(pcs, route), walked),
+                lambda batch=batch: batch(q, WIDE_K, None), truths[None],
+                gap=PAIR_RECALL_GAP, first="pair-group")
     rows = check_code_kernels(index, q, WIDE_DEEP_KT, k=WIDE_DEEP_KT,
-                              filter_words=filters["50% per query"].words)
-    return [at_shape(row, f"filtered, 50% per query: query-major "
+                              filter_words=filters["50% per query"].words,
+                              yardstick=True)
+    return [at_shape(row, f"filtered, 50% per query: {name} "
                      f"(csrc/{row['source'].split('/')[-1]}): deep, {nq:,} "
                      f"queries x {N_PROBES} probes, k {WIDE_DEEP_KT}, kt "
                      f"{WIDE_DEEP_KT}, capacity {index.capacity:,}",
                      launched[mode])
-            for row, mode in zip(rows, ("fused", "codes", "recon8"))]
+            for row, mode, name in zip(
+                rows, ("fused", "codes", "recon8"),
+                ("query-major", "pair-group pass", "pair-group pass"))], \
+        unfiltered
+
+
+def deep_pair_batches(res, index, db, queries):
+    """The deep index's whole batch (N_QUERIES queries x 96 probes) at k =
+    kt = WIDE_DEEP_KT refined to WIDE_K in ``codes`` (Kernel D) and
+    ``recon8`` (E): ms per batch, launches zeroed before and read after
+    (the pair-group pass launched; no list-major pass, no query-major D or
+    E kernel), then the pass against its plain version on the batch's own
+    scan inputs (``check_code_kernels``, with its split, groups and
+    streamed bytes): the main entries of the ``code_pair_list_scan`` and
+    ``recon8_pair_list_scan`` rows, their launches those searches'."""
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+
+    launched = {}
+    for mode, route, others in (
+            ("codes", "code_pair_list_scan",
+             ("code_list_scan", "codes_scan_query_major")),
+            ("recon8", "recon8_pair_list_scan",
+             ("recon8_list_scan", "recon8_scan_query_major"))):
+        sp = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode=mode,
+                                 per_probe_topk=WIDE_DEEP_KT)
+        zero_launches()
+        ms, _ = timed_searches(lambda sp=sp: refine(
+            res, db, queries, ivf_pq.search(res, sp, index, queries,
+                                            WIDE_DEEP_KT)[1], WIDE_K)[1],
+            SEARCH_REPS)
+        launches = read_launches()
+        print(f"deep {mode} k = kt = {WIDE_DEEP_KT} -> {WIDE_K}: "
+              f"{', '.join(f'{m:.2f}' for m in ms)} ms per batch of "
+              f"{queries.shape[0]:,} (search + refine); launches "
+              f"{json.dumps(launches)}", flush=True)
+        assert launches[route] > 0 and not any(launches[o] for o in others), (
+            f"deep {mode} k = kt = {WIDE_DEEP_KT}: launches "
+            f"{json.dumps(launches)}")
+        launched[mode] = launches[route]
+    rows = check_code_kernels(index, queries, WIDE_DEEP_KT, ("D", "E"),
+                              k=WIDE_DEEP_KT)
+    return [dict(row, name=name, launches=launched[mode],
+                 shape=f"deep {mode}: {queries.shape[0]:,} queries x "
+                 f"{N_PROBES} probes, k = kt = {WIDE_DEEP_KT}, capacity "
+                 f"{index.capacity:,}, rot {index.rot_dim} (the unfiltered "
+                 f"k-{WIDE_K} batch)")
+            for row, mode, name in zip(
+                rows, ("codes", "recon8"),
+                ("code_pair_list_scan", "recon8_pair_list_scan"))]
 
 
 def filtered_phase(res, index, flat, db, queries):
@@ -4576,6 +4771,7 @@ def recon8_wide_checks(res, index, db, queries, truth):
         lambda: ivf_pq.search(res, sp, index, q, WIDE_RECON8_K), SEARCH_REPS)
     launches = read_launches()
     assert launches["recon8_list_scan"] == launches[
+        "recon8_pair_list_scan"] == launches[
         "recon8_scan_query_major"] == 0, "wide recon8: a kernel ran"
     _, found = refine(res, db, q, cand, K)
     r = live_recall(found, truth[:q.shape[0]])
@@ -4594,7 +4790,8 @@ def recon8_wide_checks(res, index, db, queries, truth):
     compare_with_plain(f"deep recon8 composition vs Kernel E at kt {kt}",
                        d_w, i_w, d_e, i_e)
     # E's query-major kernel at rot_pad 1,104 (the residual in shared
-    # memory) against its plain version
+    # memory; past the pair-group pass's 1,024, its route) against its
+    # plain version
     dev = q.device
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -4610,6 +4807,10 @@ def recon8_wide_checks(res, index, db, queries, truth):
     pr = torch.randint(0, L, (nq, P), device=dev, generator=g,
                        dtype=torch.int32)
     kt = 100
+    route, why = pcs.recon8_scan_route(cap, rot_pad, kt)
+    assert route == "query", f"E at rot_pad {rot_pad}: route {route}"
+    print(f"Kernel E at rot_pad {rot_pad}, kt {kt}: the query-major route "
+          f"({why})", flush=True)
     vk, ik = pcs.recon8_scan_query_major(qq, cc, pr, i8, sc, rsq, ids, kt)
     (vp, ip), plain_ms = timed_once(lambda: pcs.ivf_pq_scan_recon8_plain(
         qq, cc, pr, i8, sc, rsq, ids, kt))
@@ -4763,13 +4964,16 @@ def main() -> int:
         f"{src} {_cuda.build_logs.get(src, '').count('C7519')}"
         for src in ("fused_l2_nn.cu", "kmeans_update.cu",
                     "flat_list_scan.cu", "pair_list_scan.cu")), flush=True)
-    # the pair-group pass's instantiations: <resident, extract, filter>
+    # the pair-group pass's instantiations: <resident, extract, filter>,
+    # the recon kernel's led by its row source (0: G's bf16 rows, 1: D and
+    # E's built rows)
     for kernel, regs, stores, loads in _cuda.ptxas_usage(
             "pair_list_scan.cu", "pair_kernel"):
-        found = re.search(r"((?:flat|recon)_pair_kernel)I((?:Lb[01]E)+)E",
-                          kernel)
+        found = re.search(
+            r"((?:flat|recon)_pair_kernel)I((?:Li\d+E)?(?:Lb[01]E)+)E",
+            kernel)
         flags = "" if found is None else ",".join(
-            re.findall("[01]", found.group(2)))
+            re.findall(r"L[ib](\d+)E", found.group(2)))
         name = kernel if found is None else f"{found.group(1)}<{flags}>"
         print(f"ptxas: {name}: {regs} registers, spill stores {stores} B, "
               f"spill loads {loads} B", flush=True)
@@ -4961,8 +5165,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("deep path at full width: 10M x 96, n_lists 8192, pq_dim 48")
-    rows_cde, a_deep, b_deep, g_deep, h_deep, hs_deep, rest, deep_data = \
-        deep_path(dev)
+    (rows_cde, rows_de_pair, a_deep, b_deep, g_deep, h_deep, hs_deep, rest,
+     deep_data) = deep_path(dev)
     rest.update({"flagship lut": lut_runs, "per-cluster flagship": pc_runs})
     print(f"the rest of IVF-PQ (ms a batch, recall@10): {json.dumps(rest)}; "
           f"nvidia-smi: {smi_line}", flush=True)
@@ -5005,7 +5209,7 @@ def main() -> int:
     row_gp = dict(wide["G_full"], name="recon_pair_list_scan", route="cuda",
                   replaces="raft_tpu/ops/pq_group_scan_pallas.py:566",
                   also_checked=[g_query_major, wide["G"]])
-    for row in (row_fp, row_gp):
+    for row in (row_fp, row_gp, *rows_de_pair):
         assert row["launches"] > 0, f"{row['name']}: never launched"
     row_walk["also_checked"].append(at_shape(
         walk_f, f"filtered, 50% per query: {N_QUERIES:,} queries, itopk 64, "
@@ -5025,8 +5229,8 @@ def main() -> int:
                  also_checked=[b_deep, b_query_major, b_filtered,
                                wide["B"]])] + \
         rows_cde + [
-                     row_f, row_g, row_fp, row_gp, row_h, row_hs, row_i,
-                     row_walk] + \
+                     row_f, row_g, row_fp, row_gp, *rows_de_pair, row_h,
+                     row_hs, row_i, row_walk] + \
         rows_profiles
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)

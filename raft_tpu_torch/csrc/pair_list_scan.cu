@@ -73,6 +73,31 @@
 // in the plain versions' stable sort.  Numerics are the list-major
 // passes': F's 3xTF32 is within ~1.5 2^-20 (|q|^2 + |x|^2) of fp32; G's
 // bf16 products are exact, summed in the tensor core's order.
+//
+// Kernels D and E past kt 64 (ops/pq_code_scan.py routes them here from
+// kt 65 to KT_MAX, 128) run G's kernel with another row source (kSrc):
+// Kernel D replaces raft_tpu/ops/pq_code_scan_pallas.py:367
+// grouped_code_scan (body _kernel_codes), Kernel E :441
+// grouped_recon8_scan (body _kernel_recon8), each at per-pair kt past
+// KT_LIST_MAX.  Their contracts are pq_code_list_scan.cu's:
+//   D:  row = concat_j bf16(book[j][code_j(row)]), d as G's over it
+//   E:  d = max(sub_sq + rsq8[list, row] - (2 scale[list]) (bf16(sub) .
+//       q8[list, row]), 0), the scale applied to the summed dot
+// What bounds them on an H100: bytes (a row is W + 8 bytes: 56 at the
+// deep codes, 104 at its int8 rows).  The query-major kernels
+// (pq_code_scan.cu, pq_recon8_scan.cu) read a list once per query probing
+// it and kept a pair's top kt by kt block-wide argmin rounds.  Here a
+// step's rows come in by cp.async into a raw stage one step ahead (the
+// packed codes of its 128 rows as one run of bytes; the int8 rows, the
+// step's dims of each) and are built into the bf16 operand stage before
+// the step's products (row_source.cuh, as pq_code_list_scan.cu builds
+// them): the codes decoded through the bf16 books, read from global
+// memory (L2-resident), zeros past rot; the int8 values converted (exact
+// in bf16), the list's scale multiplying the summed dot in the distance.
+// The residuals, the products, the keep and the write-out are G's, so on
+// the same norms D gives G's pass over the decoded rows bit for bit, and
+// E with every scale 1 and rot_pad = round16(rot) G's pass over q8 as
+// bf16 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +107,7 @@
 #include <string.h>
 
 #include "list_fold.cuh"
+#include "row_source.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -89,6 +115,10 @@ namespace {
 using namespace raft_mma;
 using raft_list::Admit;
 using raft_list::admitted;
+using raft_rows::convert_int8_rows;
+using raft_rows::decode_rows;
+using raft_rows::int8_row_stride;
+using raft_rows::kInt8;
 
 constexpr int kThreads = 256;      // warpgroup 0 multiplies; 8 warps keep
 constexpr int kWarps = kThreads / 32;
@@ -115,11 +145,13 @@ constexpr unsigned kAll = 0xffffffffu;
 // window's keys then ids; G: stage s's norms and ids at key + s * 1024),
 // the kept values and slots, the buffers' values and slots, each pair's
 // buffered count and threshold, q_sq / sub_sq, the pair indices, the
-// sub-lists' ends and windows (and G's extent); total, the bytes to
-// request.
+// sub-lists' ends and windows (and G's extent); the raw stages of D and E
+// (stage s at raw + s raw_step; F and G: raw_step 0);
+// total, the bytes to request.
 struct PairLayout {
   int group, keep, buf, resident, a, a_step, a_lo, b, b_step, op, key,
-      keep_v, keep_s, buf_v, buf_s, cnt, thr, ssq, pair, sub, total;
+      keep_v, keep_s, buf_v, buf_s, cnt, thr, ssq, pair, sub, raw, raw_step,
+      total;
 };
 
 // A (distance, slot) entry as one 64-bit key that orders as (distance,
@@ -788,10 +820,29 @@ flat_pair_kernel(const float* __restrict__ queries,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel G: bf16 recon rows, bf16 products
+// Kernels G, D and E: bf16 products over a list's rows
 // ---------------------------------------------------------------------------
 
-template <bool kResident, bool kExtract, bool kFilter>
+// where a step's rows come from (recon_pair_kernel's kSrc)
+constexpr int kBf16Rows = 0;     // G: the bf16 recon cache by cp.async
+                                 // straight into the operand stage
+constexpr int kBuiltRows = 1;    // D, E: packed codes or int8 rows by
+                                 // cp.async into a raw stage, built into
+                                 // the operand stage (row_source.cuh)
+constexpr int kBuiltMax = 1024;  // widest built rows (rot, rot_pad)
+
+// D and E's rows (G: unused): data (n_lists, cap, W) bytes; bits 4 or 8,
+// packed codes through the bf16 books (pq_dim, 2^bits, pq_len), read from
+// global memory; or kInt8, int8 rows of W = rot_pad bytes whose list's
+// scale (scales) multiplies the summed dot
+struct BuiltRows {
+  const uint8_t* data;
+  const uint4* books;
+  const float* scales;
+  int bits, W, pq_len;
+};
+
+template <int kSrc, bool kResident, bool kExtract, bool kFilter>
 __global__ void __launch_bounds__(kThreads, 1)
 recon_pair_kernel(const float* __restrict__ qrot,
                   const float* __restrict__ centers,
@@ -799,12 +850,14 @@ recon_pair_kernel(const float* __restrict__ qrot,
                   const int* __restrict__ group_list,
                   const int* __restrict__ slot_pairs,
                   const __nv_bfloat16* __restrict__ recon,
+                  const BuiltRows src,
                   const float* __restrict__ rsq, const int* __restrict__ ids,
                   int n_groups, int n_pairs, int n_probes, int n_lists,
                   int cap, int rot, int kt, int gather, const PairLayout L,
                   const Admit adm, float* __restrict__ out_v,
                   int* __restrict__ out_i) {
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr bool kBuilt = kSrc == kBuiltRows;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int width = kExtract ? kt : cap;
   if (blockIdx.x >= n_groups) {
@@ -823,10 +876,15 @@ recon_pair_kernel(const float* __restrict__ qrot,
   int* s_extent = reinterpret_cast<int*>(base + L.sub);
   const size_t lbase = (size_t)l * cap;
   const float* cen = centers + (size_t)l * rot;
-  const __nv_bfloat16* list = recon + lbase * rot;
-  const int kp = (rot + 15) & ~15;
+  const __nv_bfloat16* list = kBuilt ? nullptr : recon + lbase * rot;
+  // D, E: int8 rows run the products over their W = rot_pad dims
+  const bool int8_rows = kBuilt && src.bits == kInt8;
+  const int kp = int8_rows ? src.W : (rot + 15) & ~15;
   const int kc = kResident ? kp : kKc;
   const int nch = (kp + kc - 1) / kc;
+  const uint8_t* ldata = kBuilt ? src.data + lbase * src.W : nullptr;
+  // the dot's factor in the distance: 2, or 2 scale[list] for int8 rows
+  const float scale2 = int8_rows ? 2.f * src.scales[l] : 2.f;
 
   start_pairs(slot_pairs, g, group, n_pairs, s_pair, K, kExtract);
   if (tid == 0) *s_extent = kExtract ? 0 : cap;
@@ -877,7 +935,8 @@ recon_pair_kernel(const float* __restrict__ qrot,
   const int nsteps = ((extent + BN - 1) / BN) * nch;
 
   // dims [k0, k0 + kc) of the group's residuals bf16(qrot[q] - cen) as the
-  // wgmma A operand at dst (zeros on an empty slot and past rot)
+  // wgmma A operand at dst (zeros on an empty slot and past rot: G's rot
+  // is a multiple of 8, D and E's any)
   auto stage_res = [&](uint32_t dst, int k0) {
     const int nkg = kc >> 3;
     for (int e = tid; e < kM * nkg; e += kThreads) {
@@ -888,8 +947,11 @@ recon_pair_kernel(const float* __restrict__ qrot,
       if (qv != nullptr && gcol < rot) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float a = qv[gcol + 2 * i] - cen[gcol + 2 * i];
-          const float b = qv[gcol + 2 * i + 1] - cen[gcol + 2 * i + 1];
+          float a = 0.f, b = 0.f;
+          if (!kBuilt || gcol + 2 * i < rot)
+            a = qv[gcol + 2 * i] - cen[gcol + 2 * i];
+          if (!kBuilt || gcol + 2 * i + 1 < rot)
+            b = qv[gcol + 2 * i + 1] - cen[gcol + 2 * i + 1];
           const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(a));
           const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(b));
           w4[i] = lo | (hi << 16);
@@ -899,13 +961,63 @@ recon_pair_kernel(const float* __restrict__ qrot,
                   make_uint4(w4[0], w4[1], w4[2], w4[3]));
     }
   };
+  // D, E: rows [r0, r0 + 128) (up to the extent) into the raw stage at
+  // dst by cp.async.  Codes: 16-byte chunks of the run of their W-byte
+  // rows from the 16-byte boundary at or below its first byte (the codes
+  // are 16-byte aligned, so it lies inside them), the last chunk cut at
+  // the run's end.  int8: dims [k0, k0 + kc) of each row, rows
+  // int8_row_stride(kc) bytes apart, consecutive threads on consecutive
+  // chunks of a row.
+  const int rs = int8_row_stride(kc);
+  auto load_raw = [&](int r0, int k0, uint32_t dst) {
+    const int n = min(BN, extent - r0);
+    if (int8_rows) {
+      const int nc = min(kc, kp - k0) >> 4;
+      const uint8_t* from = ldata + (size_t)r0 * src.W + k0;
+      for (int e = tid; e < n * nc; e += kThreads) {
+        const int r = e / nc, c = e - r * nc;
+        cp_async16(dst + r * rs + 16 * c, from + (size_t)r * src.W + 16 * c,
+                   16);
+      }
+    } else {
+      const uint8_t* run = ldata + (size_t)r0 * src.W;
+      const uint8_t* from = run - ((uintptr_t)run & 15);
+      const int nbytes = (int)(run - from) + n * src.W;
+      for (int c = tid; 16 * c < nbytes; c += kThreads)
+        cp_async16(dst + 16 * c, from + 16 * c, min(16, nbytes - 16 * c));
+    }
+  };
+  // D, E: step s's rows built from raw stage `stage` into operand stage
+  // `stage`: the codes decoded through the books, the int8 values
+  // converted; zeros past the extent and past rot
+  auto build_rows = [&](int s, int stage) {
+    const int t = s / nch, qq = s - t * nch;
+    const int r0 = t * BN, n = min(BN, extent - r0);
+    const uint32_t dst = sbase + L.b + stage * L.b_step;
+    const uint8_t* raw = base + L.raw + stage * L.raw_step;
+    if (int8_rows) {
+      convert_int8_rows(dst, raw, n, rs, min(kc, kp - qq * kc), kc, tid);
+      return;
+    }
+    raw += (uintptr_t)(ldata + (size_t)r0 * src.W) & 15;   // the head
+    const int W = src.W, pq_len = src.pq_len, k0 = qq * kc;
+    const auto* books = reinterpret_cast<const unsigned short*>(src.books);
+    if (src.bits == 8)
+      decode_rows<8>(dst, raw, books, n, W, rot, pq_len, k0, kc, tid);
+    else
+      decode_rows<4>(dst, raw, books, n, W, rot, pq_len, k0, kc, tid);
+  };
   // step s's list rows into operand stage `stage` by cp.async (zeros past
-  // the extent), with the rows' norms and ids
+  // the extent; D, E: into raw stage `stage`), with the rows' norms and
+  // ids
   auto load_step = [&](int s, int stage) {
     const int t = s / nch, qq = s - t * nch;
     if (!kResident) stage_res(sbase + L.a + stage * L.a_step, qq * kc);
-    stage_rows(sbase + L.b + stage * L.b_step, list, BN, t * BN, extent, rot,
-               qq * kc, kc, true, tid, kThreads);
+    if constexpr (kBuilt)
+      load_raw(t * BN, qq * kc, sbase + L.raw + stage * L.raw_step);
+    else
+      stage_rows(sbase + L.b + stage * L.b_step, list, BN, t * BN, extent,
+                 rot, qq * kc, kc, true, tid, kThreads);
     if (tid < BN) {
       const int r = t * BN + tid;
       const bool ok = r < cap;
@@ -936,6 +1048,11 @@ recon_pair_kernel(const float* __restrict__ qrot,
     if (s + 1 < nsteps) load_step(s + 1, stage ^ 1);
     cp_async_commit();
     cp_async_wait1();
+    if constexpr (kBuilt) {
+      // step s's raw rows landed (every thread's copies), then built
+      __syncthreads();
+      build_rows(s, stage);
+    }
     fence_proxy_async();
     __syncthreads();
     if (mma) {
@@ -965,12 +1082,21 @@ recon_pair_kernel(const float* __restrict__ qrot,
       key[tid] = INFINITY;
     __syncthreads();
     float* dist = reinterpret_cast<float*>(base + L.b + stage * L.b_step);
-    if (mma)
-      write_dist(acc, key, ssq, dist, group,
-                 [](float dot, float k, float ss) {
-                   return k < INFINITY ? fmaxf(ss + k - 2.f * dot, 0.f)
-                                       : INFINITY;
-                 });
+    if (mma) {
+      if constexpr (kBuilt)      // int8 rows: the list's scale after the sum
+        write_dist(acc, key, ssq, dist, group,
+                   [scale2](float dot, float k, float ss) {
+                     return k < INFINITY
+                         ? fmaxf(ss + k - __fmul_rn(scale2, dot), 0.f)
+                         : INFINITY;
+                   });
+      else
+        write_dist(acc, key, ssq, dist, group,
+                   [](float dot, float k, float ss) {
+                     return k < INFINITY ? fmaxf(ss + k - 2.f * dot, 0.f)
+                                         : INFINITY;
+                   });
+    }
     __syncthreads();
     if constexpr (kExtract)
       fold_keep<kFilter>(K, dist, kid, s_pair, n_pairs, group, kt, t * BN,
@@ -991,11 +1117,14 @@ recon_pair_kernel(const float* __restrict__ qrot,
 
 // the layout's offsets ascend, the operands sit on 1024-byte atoms, a
 // pair's kept entries hold kt (a power of two, 32..256), its buffer 32 or
-// 64 entries, the group 16, 32 or 64 pairs, all within the card's limit
+// 64 entries, the group 16, 32 or 64 pairs, the raw stages on
+// 16 bytes and the two raw stages inside the block's bytes, all within the
+// card's limit
 bool layout_ok(const PairLayout& L, int kt, bool extract) {
   const int at[] = {L.a, L.b, L.op, L.key, L.keep_v, L.keep_s, L.buf_v,
-                    L.buf_s, L.cnt, L.thr, L.ssq, L.pair, L.sub, L.total};
-  for (int i = 0; i + 1 < 14; ++i)
+                    L.buf_s, L.cnt, L.thr, L.ssq, L.pair, L.sub, L.raw,
+                    L.total};
+  for (int i = 0; i + 1 < 15; ++i)
     if (at[i] < 0 || at[i] > at[i + 1]) return false;
   const bool pow2 = L.keep >= 32 && L.keep <= kKtMax
                     && (L.keep & (L.keep - 1)) == 0;
@@ -1004,6 +1133,8 @@ bool layout_ok(const PairLayout& L, int kt, bool extract) {
                           && L.buf <= L.keep))
          && L.a % 1024 == 0 && L.b % 1024 == 0 && L.b_step % 1024 == 0
          && L.a_step % 1024 == 0 && L.a_lo % 1024 == 0 && L.op % 1024 == 0
+         && L.raw % 16 == 0 && L.raw_step % 16 == 0
+         && L.raw_step >= 0 && L.raw + 2 * L.raw_step <= L.total
          && L.total <= kSmemLimit;
 }
 
@@ -1036,15 +1167,16 @@ int launch_flat(int blocks, cudaStream_t s, const void* queries,
   return (int)cudaGetLastError();
 }
 
-template <bool kResident, bool kExtract, bool kFilter>
+template <int kSrc, bool kResident, bool kExtract, bool kFilter>
 int launch_recon(int blocks, cudaStream_t s, const void* qrot,
                  const void* centers, const void* probes,
                  const void* group_list, const void* slot_pairs,
-                 const void* recon, const void* rsq, const void* ids,
-                 int n_groups, int n_pairs, int n_probes, int n_lists,
-                 int cap, int rot, int kt, int gather, const PairLayout& L,
-                 const Admit& adm, void* out_v, void* out_i) {
-  const auto kernel = recon_pair_kernel<kResident, kExtract, kFilter>;
+                 const void* recon, const BuiltRows& src, const void* rsq,
+                 const void* ids, int n_groups, int n_pairs, int n_probes,
+                 int n_lists, int cap, int rot, int kt, int gather,
+                 const PairLayout& L, const Admit& adm, void* out_v,
+                 void* out_i) {
+  const auto kernel = recon_pair_kernel<kSrc, kResident, kExtract, kFilter>;
   const int err = set_smem(kernel, L.total);
   if (err != 0) return err;
   if (blocks > 0)
@@ -1052,11 +1184,37 @@ int launch_recon(int blocks, cudaStream_t s, const void* qrot,
         static_cast<const float*>(qrot), static_cast<const float*>(centers),
         static_cast<const int*>(probes), static_cast<const int*>(group_list),
         static_cast<const int*>(slot_pairs),
-        static_cast<const __nv_bfloat16*>(recon),
+        static_cast<const __nv_bfloat16*>(recon), src,
         static_cast<const float*>(rsq), static_cast<const int*>(ids),
         n_groups, n_pairs, n_probes, n_lists, cap, rot, kt, gather, L, adm,
         static_cast<float*>(out_v), static_cast<int*>(out_i));
   return (int)cudaGetLastError();
+}
+
+// D and E's pass (extract, gather): the instantiation for the layout's
+// residency and a filter (or none)
+int launch_built(const BuiltRows& src, cudaStream_t s, const void* qrot,
+                 const void* centers, const void* probes,
+                 const void* group_list, const void* slot_pairs,
+                 const void* rsq, const void* ids, int n_groups, int nq,
+                 int n_probes, int n_lists, int cap, int rot, int kt,
+                 const PairLayout& L, const void* filter_words,
+                 int filter_stride, int n_words, void* out_v, void* out_i) {
+  const int n_pairs = nq * n_probes;
+  const int blocks = n_groups + (n_pairs + kThreads - 1) / kThreads;
+  const Admit adm{static_cast<const int*>(filter_words), filter_stride,
+                  n_words, n_probes};
+#define RAFT_PAIR_BUILT(RES, FILT)                                           \
+  launch_recon<kBuiltRows, RES, true, FILT>(                                \
+      blocks, s, qrot, centers, probes, group_list, slot_pairs, nullptr,    \
+      src, rsq, ids, n_groups, n_pairs, n_probes, n_lists, cap, rot, kt, 1, \
+      L, adm, out_v, out_i)
+  if (filter_words != nullptr)
+    return L.resident ? RAFT_PAIR_BUILT(true, true)
+                      : RAFT_PAIR_BUILT(false, true);
+  return L.resident ? RAFT_PAIR_BUILT(true, false)
+                    : RAFT_PAIR_BUILT(false, false);
+#undef RAFT_PAIR_BUILT
 }
 
 }  // namespace
@@ -1072,7 +1230,7 @@ int launch_recon(int blocks, cudaStream_t s, const void* qrot,
 // pair.  group_list (n_groups,) and slot_pairs (n_groups, layout's group)
 // come from neighbors/grouped.py build_groups (nq * n_probes marks an empty
 // slot); probes (nq, n_probes) say which pairs no group holds.  layout:
-// 21 host ints in PairLayout's order, from ops/pair_scan.py's
+// 24 host ints in PairLayout's order, from ops/pair_scan.py's
 // pair_list_layout.  filter_words / filter_stride / n_words: a filter's
 // packed admission words as pq_list_scan.cu's pass 1 takes them (null:
 // unfiltered; extract only).
@@ -1144,10 +1302,10 @@ extern "C" int raft_pair_list_scan_recon(
   const Admit adm{static_cast<const int*>(filter_words), filter_stride,
                   n_words, n_probes};
 #define RAFT_PAIR_RECON(RES, EXT, FILT)                                      \
-  launch_recon<RES, EXT, FILT>(blocks, s, qrot, centers, probes,            \
-                               group_list, slot_pairs, recon, rsq, ids,     \
-                               n_groups, n_pairs, n_probes, n_lists, cap,   \
-                               rot, kt, gather, L, adm, out_v, out_i)
+  launch_recon<kBf16Rows, RES, EXT, FILT>(                                  \
+      blocks, s, qrot, centers, probes, group_list, slot_pairs, recon,      \
+      BuiltRows{}, rsq, ids, n_groups, n_pairs, n_probes, n_lists, cap, rot, \
+      kt, gather, L, adm, out_v, out_i)
   if (!extract)
     return L.resident ? RAFT_PAIR_RECON(true, false, false)
                       : RAFT_PAIR_RECON(false, false, false);
@@ -1157,4 +1315,72 @@ extern "C" int raft_pair_list_scan_recon(
   return L.resident ? RAFT_PAIR_RECON(true, true, false)
                     : RAFT_PAIR_RECON(false, true, false);
 #undef RAFT_PAIR_RECON
+}
+
+// Kernel D's pair-group pass: every (query, probe) pair's top kt (1 <= kt
+// <= 256; ops/pq_code_scan.py routes kt 65-128 here) over the packed
+// codes (n_lists, cap, W) uint8, W = ceil(pq_dim pq_bits / 8), pq_bits 4
+// or 8, decoded through the bf16 books (pq_dim, 2^pq_bits, pq_len), both
+// 16-byte aligned, rot = pq_dim pq_len up to 1,024; rsq the rows' norms
+// (of their bf16 reconstructions); qrot (nq, rot), centers (n_lists,
+// rot); groups, probes, the layout (from ops/pq_code_scan.py's
+// code_pair_list_layout) and a filter as raft_pair_list_scan_recon takes them.
+extern "C" int raft_pair_list_scan_codes(
+    const void* qrot, const void* centers, const void* probes,
+    const void* group_list, const void* slot_pairs, const void* codes,
+    const void* books, const void* rsq, const void* ids, int n_groups,
+    int nq, int n_probes, int n_lists, int cap, int rot, int pq_dim,
+    int pq_bits, int kt, const void* layout, void* out_v, void* out_i,
+    const void* filter_words, int filter_stride, int n_words, void* stream) {
+  PairLayout L;
+  memcpy(&L, layout, sizeof L);
+  const int W = (pq_dim * pq_bits + 7) / 8;
+  if (kt < 1 || kt > kKtMax || ids == nullptr
+      || (pq_bits != 4 && pq_bits != 8) || pq_dim < 1 || rot < 1
+      || rot % pq_dim != 0 || rot > kBuiltMax || cap < 1 || n_groups < 0
+      || centers == nullptr || rsq == nullptr || codes == nullptr
+      || books == nullptr || ((uintptr_t)codes & 15) != 0
+      || ((uintptr_t)books & 15) != 0 || !layout_ok(L, kt, true)
+      || L.resident != (((rot + 15) & ~15) <= kKc)
+      || L.raw_step < ((BN * W + 15) & ~15) + 16
+      || (filter_words != nullptr && (n_words < 1 || filter_stride < 0)))
+    return (int)cudaErrorInvalidValue;
+  const BuiltRows src{static_cast<const uint8_t*>(codes),
+                      static_cast<const uint4*>(books), nullptr, pq_bits, W,
+                      rot / pq_dim};
+  return launch_built(src, static_cast<cudaStream_t>(stream), qrot, centers,
+                      probes, group_list, slot_pairs, rsq, ids, n_groups, nq,
+                      n_probes, n_lists, cap, rot, kt, L, filter_words,
+                      filter_stride, n_words, out_v, out_i);
+}
+
+// Kernel E's pair-group pass: as raft_pair_list_scan_codes over the int8
+// recon cache (n_lists, cap, rot_pad), 16-byte aligned, rot_pad a multiple
+// of 16 from rot up to 1,024, zeros past rot; scales (n_lists,) the lists'
+// scales, rsq8 the rows' dequantized norms; the layout from
+// ops/pq_code_scan.py's recon8_pair_list_layout.
+extern "C" int raft_pair_list_scan_recon8(
+    const void* qrot, const void* centers, const void* probes,
+    const void* group_list, const void* slot_pairs, const void* data,
+    const void* scales, const void* rsq8, const void* ids, int n_groups,
+    int nq, int n_probes, int n_lists, int cap, int rot, int rot_pad, int kt,
+    const void* layout, void* out_v, void* out_i, const void* filter_words,
+    int filter_stride, int n_words, void* stream) {
+  PairLayout L;
+  memcpy(&L, layout, sizeof L);
+  const int kc = rot_pad <= kKc ? rot_pad : kKc;
+  if (kt < 1 || kt > kKtMax || ids == nullptr || rot < 1 || rot_pad < rot
+      || rot_pad % 16 != 0 || rot_pad > kBuiltMax || cap < 1 || n_groups < 0
+      || centers == nullptr || rsq8 == nullptr || scales == nullptr
+      || data == nullptr || ((uintptr_t)data & 15) != 0
+      || !layout_ok(L, kt, true) || L.resident != (rot_pad <= kKc)
+      || L.raw_step < BN * int8_row_stride(kc)
+      || (filter_words != nullptr && (n_words < 1 || filter_stride < 0)))
+    return (int)cudaErrorInvalidValue;
+  const BuiltRows src{static_cast<const uint8_t*>(data), nullptr,
+                      static_cast<const float*>(scales), kInt8, rot_pad, 0};
+  return launch_built(src, static_cast<cudaStream_t>(stream), qrot, centers,
+                      probes, group_list, slot_pairs, rsq8, ids, n_groups, nq,
+                      n_probes, n_lists, cap, rot, kt, L, filter_words,
+                      filter_stride, n_words, out_v, out_i);
 }

@@ -77,6 +77,12 @@ SIGNATURES = {
     "raft_pair_list_scan_recon": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                                   _I, _P),
+    "raft_pair_list_scan_codes": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                  _I, _I, _P),
+    "raft_pair_list_scan_recon8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                   _I, _I, _P),
     "raft_row_gather": (_P, _P, _I, _I, _I, _P, _P),
     "raft_fused_l2_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "raft_fused_l2_nn_simt": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),

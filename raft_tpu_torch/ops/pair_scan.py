@@ -126,9 +126,11 @@ class PairLayout(NamedTuple):
     :func:`raft_tpu_torch.neighbors.grouped.build_groups`); ``keep``: a
     pair's kept entries (a power of two >= kt, >= 32); ``buf``: its
     candidate buffer (32 or 64 entries); ``resident``: the group's queries
-    (F) or residuals (G) keep every dim in shared memory; then byte
-    offsets from the 1024-byte aligned base (see the source), ending with
-    ``total``, the bytes a block requests."""
+    (F) or residuals (G, D, E) keep every dim in shared memory; then byte
+    offsets from the 1024-byte aligned base (see the source): ``raw``
+    and ``raw_step`` (D and E's two raw stages; F and G have none:
+    ``raw_step`` 0), ending with ``total``, the bytes a block
+    requests."""
     group: int
     keep: int
     buf: int
@@ -149,6 +151,8 @@ class PairLayout(NamedTuple):
     ssq: int
     pair: int
     sub: int
+    raw: int
+    raw_step: int
     total: int
 
     def as_c(self):
@@ -162,7 +166,8 @@ def _align(b: int) -> int:
 
 
 def _pair_layout(width: int, kt: int, fp32: bool, extract: bool,
-                 group: int, resident: bool) -> PairLayout:
+                 group: int, resident: bool,
+                 raw_step: int = 0) -> PairLayout:
     keep = max(32, _next_pow2(kt)) if extract else 0
     buf = (64 if keep >= 64 else 32) if extract else 0
     if fp32:
@@ -198,37 +203,67 @@ def _pair_layout(width: int, kt: int, fp32: bool, extract: bool,
     ssq = thr + 64 * 4
     pair = ssq + 64 * 4
     sub = pair + 64 * 4
+    # the two raw stages of D and E (``raw_step`` bytes each), 16-byte
+    # aligned
+    raw = sub + 128
     return PairLayout(group, keep, buf, int(resident), 0, a_step, a_lo, b,
                       b_step, op, key, keep_v, keep_s, buf_v, buf_s, cnt,
-                      thr, ssq, pair, sub, sub + 128 + 1024)
+                      thr, ssq, pair, sub, raw, raw_step,
+                      raw + 2 * raw_step + 1024)
 
 
-def pair_list_layout(width: int, kt: int, fp32: bool, extract: bool = True,
-                     group: Optional[int] = None) -> PairLayout:
-    """:class:`PairLayout` of the pair-group pass over ``width``-wide rows
-    keeping ``kt`` (``fp32``: Kernel F's rows, else G's bf16 rows;
-    ``extract`` False: the raw variant, no keep).  The group is ``group``
-    where given (64, 32 or 16: the sizes the kernel takes), else the first
-    of ``PAIR_GROUPS`` that fits the card's shared memory (64: one
-    warpgroup's wgmma M; 32 where a pair's kept rows outgrow it, kt past
-    128); F's queries stay resident where that fits at the group's size,
-    G's residuals up to 128 dims.  At 32 pairs every shape the gates admit
-    fits (about 186 KB at kt 256 and width 1,024), so only an explicit
-    ``group`` can raise here."""
-    expects(group in (None, 64, 32, 16),
-            f"pair_list_layout: group {group} not one of 64, 32, 16")
-    for g in PAIR_GROUPS if group is None else (group,):
+def _fitting_layout(width: int, kt: int, fp32: bool, extract: bool,
+                    groups, raw_step: int
+                    ) -> Tuple[Optional[PairLayout], PairLayout]:
+    """``(fits, last)``: the first layout of ``groups`` within the card's
+    shared memory (None when none is) and the last one tried."""
+    for g in groups:
         if fp32:
             options = (True, False)
         else:
             options = (-(-width // 16) * 16 <= 128,)
         for resident in options:
-            layout = _pair_layout(width, kt, fp32, extract, g, resident)
+            layout = _pair_layout(width, kt, fp32, extract, g, resident,
+                                  raw_step)
             if layout.total <= _SMEM_LIMIT:
-                return layout
-    fail(f"pair_list_layout: {layout.group} pairs a group at width "
-         f"{width}, kt {kt} need {layout.total} B of shared memory (limit "
+                return layout, layout
+    return None, layout
+
+
+def pair_list_layout(width: int, kt: int, fp32: bool, extract: bool = True,
+                     group: Optional[int] = None,
+                     raw_step: int = 0) -> PairLayout:
+    """:class:`PairLayout` of the pair-group pass over ``width``-wide rows
+    keeping ``kt`` (``fp32``: Kernel F's rows, else bf16 products: G's
+    rows, or D and E's rows built from two raw stages of ``raw_step``
+    bytes;
+    ``extract`` False: the raw variant, no keep).  The group is ``group``
+    where given (64, 32 or 16: the sizes the kernel takes), else the first
+    of ``PAIR_GROUPS`` that fits the card's shared memory (64: one
+    warpgroup's wgmma M; 32 where a pair's kept rows outgrow it, kt past
+    128); F's queries stay resident where that fits at the group's size,
+    the bf16 residuals up to 128 dims.  At 32 pairs every shape the F and
+    G gates admit fits (about 186 KB at kt 256 and width 1,024); D and
+    E's gates test the fit themselves."""
+    expects(group in (None, 64, 32, 16),
+            f"pair_list_layout: group {group} not one of 64, 32, 16")
+    layout, last = _fitting_layout(
+        width, kt, fp32, extract, PAIR_GROUPS if group is None else (group,),
+        raw_step)
+    if layout is not None:
+        return layout
+    fail(f"pair_list_layout: {last.group} pairs a group at width "
+         f"{width}, kt {kt} need {last.total} B of shared memory (limit "
          f"{_SMEM_LIMIT})")
+
+
+def pair_list_fit(width: int, kt: int, raw_step: int = 0
+                  ) -> Tuple[Optional[PairLayout], PairLayout]:
+    """``(fits, last)``: the bf16 pass's :func:`pair_list_layout` at the
+    first group of ``PAIR_GROUPS`` that fits (None where none does: D's
+    wide raw code stages) and the last layout tried (its ``total``, what
+    the smallest group needs)."""
+    return _fitting_layout(width, kt, False, True, PAIR_GROUPS, raw_step)
 
 
 def _pair_list_reason(width: int, kt: int, fp32: bool,

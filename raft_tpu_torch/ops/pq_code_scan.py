@@ -10,8 +10,8 @@ They replace the three kernels of ``raft_tpu/ops/pq_code_scan_pallas.py``:
 - Kernel E, :func:`ivf_pq_scan_recon8`: ``:441 grouped_recon8_scan``, each
   pair's top kt over the int8 cache.
 
-C and D have two routes each, chosen by shape and counted apart, as
-Kernels B and G have (E's below):
+C has two routes, D three, chosen by shape and counted apart, as Kernels
+B and G have theirs (E's below):
 
 - **list-major** (a pair keeps at most ``KT_LIST_MAX`` candidates:
   ``min(kt, k)`` for C, kt for D): the pairs grouped by list
@@ -21,20 +21,30 @@ Kernels B and G have (E's below):
   its bf16 ``wgmma`` operand, one read of a list per group; alone it is
   D), and for C :func:`raft_tpu_torch.ops.pq_group_scan.merge_pairs`
   (pass 2), in query chunks within ``PAIR_BUFFER_BYTES``;
-- **query-major** (larger kt): :func:`codes_fused_query_major` (C) and
-  :func:`codes_scan_query_major` (D), ``csrc/pq_code_scan.cu``, one block
-  per query walking its probes through a per-pair LUT.  Where D's LUT and
-  books do not fit in shared memory together, it reads the books from
-  global memory and sums the LUT in chunks (:func:`codes_layout`), so D
-  takes every shape the Pallas ``supported_codes`` gate admits.
+- **pair-group** (D from kt 65 to ``KT_MAX``): the pairs grouped by list
+  in groups of 64 or 32 (:func:`code_pair_list_layout`) and
+  :func:`code_pair_list_scan` (``csrc/pair_list_scan.cu``: Kernel G's
+  pair-group pass with each step's codes decoded in shared memory, one
+  read of a list per group, each pair's top kt kept by a threshold and a
+  candidate buffer);
+- **query-major** (what the routes before refuse):
+  :func:`codes_fused_query_major` (C) and :func:`codes_scan_query_major`
+  (D), ``csrc/pq_code_scan.cu``, one block per query walking its probes
+  through a per-pair LUT.  Where D's LUT and books do not fit in shared
+  memory together, it reads the books from global memory and sums the LUT
+  in chunks (:func:`codes_layout`), so D takes every shape the Pallas
+  ``supported_codes`` gate admits.
 
-Kernel E, :func:`ivf_pq_scan_recon8`, has the same two routes: at kt <=
+Kernel E, :func:`ivf_pq_scan_recon8`, has D's three routes: at kt <=
 ``KT_LIST_MAX`` the pairs grouped by list and :func:`recon8_list_scan`
 (the same pass as :func:`code_list_scan` with the int8 rows converted to
-bf16 in shared memory and the list's scale applied in the fold), else
-:func:`recon8_scan_query_major` (``csrc/pq_recon8_scan.cu``).  The source
-notes say what bounds each kernel on an H100 (bytes) and what its design
-does about it.  C and D read ``list_codes`` (n_lists, cap, W) uint8 as the
+bf16 in shared memory and the list's scale applied in the fold), up to
+``KT_MAX`` :func:`recon8_pair_list_scan` (the pair-group pass with that
+row source), else :func:`recon8_scan_query_major`
+(``csrc/pq_recon8_scan.cu``).  :func:`codes_scan_route` and
+:func:`recon8_scan_route` say which route a shape takes and why.  The
+source notes say what bounds each kernel on an H100 (bytes) and what its
+design does about it.  C and D read ``list_codes`` (n_lists, cap, W) uint8 as the
 index holds it: the TPU's lane-major (n_lists, Wi, cap) int32 words and
 its one-hot decode do not come over.
 
@@ -64,13 +74,15 @@ with (+inf, −1) in exhausted slots.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.neighbors import grouped
 from raft_tpu_torch.ops import _cuda
+from raft_tpu_torch.ops import pair_scan as ps
 from raft_tpu_torch.ops.pq_group_scan import (K_MAX, KT_LIST_MAX,
                                               _SMEM_LIMIT, _next_pow2,
                                               cat_parts, filter_operand,
@@ -81,6 +93,7 @@ from raft_tpu_torch.ops.pq_group_scan import (K_MAX, KT_LIST_MAX,
 
 KT_MAX = 128                     # per-pair kt, as the JAX package's _KT_MAX
 LUT_STEP = 32                    # kLutStep in csrc/pq_code_scan.cu
+PAIR_MAX_WIDTH = 1024            # kBuiltMax in csrc/pair_list_scan.cu
 
 
 def code_field(packed: torch.Tensor, j: int, pq_bits: int) -> torch.Tensor:
@@ -193,6 +206,38 @@ def recon8_smem_bytes(cap: int, rot_pad: int) -> int:
     return 4 * (cap + rot_pad)
 
 
+def _code_raw_step(pq_dim: int, pq_bits: int) -> int:
+    """A raw stage of the codes pass's layouts: 128 rows' packed codes as
+    one run (16-byte chunks) and its 16-byte head."""
+    return -(-128 * -(-pq_dim * pq_bits // 8) // 16) * 16 + 16
+
+
+def _recon8_raw_step(rot_pad: int) -> int:
+    """A raw stage of the int8 passes: 128 rows of ``kc`` = min(rot_pad,
+    128) dims, a row padded to an odd number of 16-byte chunks."""
+    kc = min(rot_pad, 128)
+    return 128 * (kc if (kc // 16) % 2 else kc + 16)
+
+
+def code_pair_list_layout(rot: int, pq_dim: int, pq_bits: int, kt: int,
+                          group: Optional[int] = None) -> ps.PairLayout:
+    """Kernel D's :class:`raft_tpu_torch.ops.pair_scan.PairLayout` (the one
+    copy of the pair-group pass's formula): Kernel G's over ``rot`` dims
+    at kt, with D's two raw stages of packed codes (its bf16 books stay in
+    global memory, L2-resident); ``group`` as :func:`raft_tpu_torch.ops.
+    pair_scan.pair_list_layout` takes it.  Raises where nothing fits."""
+    return ps.pair_list_layout(rot, kt, False, group=group,
+                               raw_step=_code_raw_step(pq_dim, pq_bits))
+
+
+def recon8_pair_list_layout(rot_pad: int, kt: int,
+                            group: Optional[int] = None) -> ps.PairLayout:
+    """Kernel E's pair-group layout: Kernel G's over ``rot_pad`` dims at
+    kt with two raw stages of int8 rows."""
+    return ps.pair_list_layout(rot_pad, kt, False, group=group,
+                               raw_step=_recon8_raw_step(rot_pad))
+
+
 def _codes_layout_reason(rot: int, pq_dim: int, pq_bits: int) -> str:
     if pq_bits not in (4, 8):
         return (f"pq_bits={pq_bits}: the code scans read 4- or 8-bit fields "
@@ -255,6 +300,74 @@ def codes_query_major_reject_reason(cap: int, rot: int, pq_dim: int,
     return ""
 
 
+def _pair_reason(width: int, kt: int, raw_step: int, what: str) -> str:
+    if not 0 < kt <= KT_MAX:
+        return f"kt={kt} outside 1..{KT_MAX} (the pair-group route)"
+    if width > PAIR_MAX_WIDTH:
+        return (f"{what} {width} past {PAIR_MAX_WIDTH} (the pair-group "
+                f"route)")
+    fits, last = ps.pair_list_fit(width, kt, raw_step)
+    if fits is None:
+        return (f"kt {kt} needs {last.total} B of shared memory at "
+                f"{last.group} pairs a group (limit {_SMEM_LIMIT})")
+    return ""
+
+
+def code_pair_list_reject_reason(rot: int, pq_dim: int, pq_bits: int,
+                                 kt: int) -> str:
+    """Why Kernel D's pair-group pass (:func:`code_pair_list_scan`) cannot
+    take this shape ('' when it can): kt up to ``KT_MAX``, rot up to
+    1,024, and the keep and the raw code stages within the card's shared
+    memory at 32 pairs a group; any capacity."""
+    reason = _codes_layout_reason(rot, pq_dim, pq_bits)
+    if reason:
+        return reason
+    return _pair_reason(rot, kt, _code_raw_step(pq_dim, pq_bits), "rot_dim")
+
+
+def recon8_pair_list_reject_reason(rot_pad: int, kt: int) -> str:
+    """Why Kernel E's pair-group pass (:func:`recon8_pair_list_scan`)
+    cannot take this shape ('' when it can): kt up to ``KT_MAX``, rows up
+    to 1,024 bytes (wider ones: the query-major kernel's ``kWide``); any
+    capacity."""
+    reason = _recon8_width_reason(rot_pad)
+    if reason:
+        return reason
+    return _pair_reason(rot_pad, kt, _recon8_raw_step(rot_pad),
+                        "int8 row width")
+
+
+def _route(listed: str, paired: str) -> Tuple[str, str]:
+    """``(route, why)`` of a three-route kernel from the refusals of its
+    first two routes."""
+    if not listed:
+        return "list", ""
+    if not paired:
+        return "pair", listed
+    return "query", f"{listed}; pair-group route: {paired}"
+
+
+def codes_scan_route(cap: int, rot: int, pq_dim: int, pq_bits: int,
+                     kt: int) -> Tuple[str, str]:
+    """``(route, why)``: the kernel :func:`ivf_pq_scan_codes` runs for this
+    shape on the card — ``"list"`` (:func:`code_list_scan`), ``"pair"``
+    (:func:`code_pair_list_scan`) or ``"query"``
+    (:func:`codes_scan_query_major`) — and the refusals of the routes
+    before it ('' for the list-major pass).  :func:`codes_reject_reason`
+    says whether the query-major kernel takes what the others refuse."""
+    return _route(code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt),
+                  code_pair_list_reject_reason(rot, pq_dim, pq_bits, kt))
+
+
+def recon8_scan_route(cap: int, rot_pad: int, kt: int) -> Tuple[str, str]:
+    """``(route, why)`` of :func:`ivf_pq_scan_recon8`, as
+    :func:`codes_scan_route` gives it for Kernel D: ``"list"``
+    (:func:`recon8_list_scan`), ``"pair"`` (:func:`recon8_pair_list_scan`)
+    or ``"query"`` (:func:`recon8_scan_query_major`)."""
+    return _route(recon8_list_scan_reject_reason(rot_pad, kt),
+                  recon8_pair_list_reject_reason(rot_pad, kt))
+
+
 def _either_route(listed: str, walked: str) -> str:
     """A two-route gate's reason: '' when either route takes the shape,
     else both routes' reasons."""
@@ -279,16 +392,27 @@ def codes_fused_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
                                               kt))
 
 
+def _any_route(listed: str, paired: str, walked: str) -> str:
+    """A three-route gate's reason: '' when any route takes the shape,
+    else the three routes' reasons."""
+    if not listed or not paired or not walked:
+        return ""
+    return (f"{listed}; pair-group route: {paired}; query-major route: "
+            f"{walked}")
+
+
 def codes_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
                         kt: int) -> str:
     """Why Kernel D cannot take this shape ('' when it can): the
-    list-major route takes ``kt <= KT_LIST_MAX``, the query-major route
+    list-major route takes ``kt <= KT_LIST_MAX``, the pair-group route kt
+    up to ``KT_MAX`` where its shared memory holds, the query-major route
     what its gate admits."""
     reason = _codes_layout_reason(rot, pq_dim, pq_bits)
     if reason:
         return reason
-    return _either_route(
+    return _any_route(
         code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt),
+        code_pair_list_reject_reason(rot, pq_dim, pq_bits, kt),
         codes_query_major_reject_reason(cap, rot, pq_dim, pq_bits, kt))
 
 
@@ -326,13 +450,15 @@ def recon8_query_major_reject_reason(cap: int, rot_pad: int, kt: int) -> str:
 
 def recon8_reject_reason(cap: int, rot_pad: int, kt: int) -> str:
     """Why Kernel E cannot take this shape ('' when it can): the
-    list-major route takes kt <= ``KT_LIST_MAX`` at any capacity, the
+    list-major route takes kt <= ``KT_LIST_MAX`` and the pair-group route
+    kt up to ``KT_MAX`` (rows up to 1,024 bytes) at any capacity, the
     query-major route what its gate admits."""
     reason = _recon8_width_reason(rot_pad)
     if reason:
         return reason
-    return _either_route(recon8_list_scan_reject_reason(rot_pad, kt),
-                         recon8_query_major_reject_reason(cap, rot_pad, kt))
+    return _any_route(recon8_list_scan_reject_reason(rot_pad, kt),
+                      recon8_pair_list_reject_reason(rot_pad, kt),
+                      recon8_query_major_reject_reason(cap, rot_pad, kt))
 
 
 # ---------------------------------------------------------------------------
@@ -623,8 +749,9 @@ def codes_scan_query_major(qrot, centers, probes, list_codes, codebooks,
     """Kernel D's query-major route (``csrc/pq_code_scan.cu``
     ``codes_pair_kernel``): one block per query walks its probes (with
     ``filter_words``, over the rows it admits); :func:`ivf_pq_scan_codes`
-    takes it where kt exceeds ``KT_LIST_MAX`` or the list-major gate
-    refuses the shape.  CUDA tensors launch it; CPU tensors run the plain
+    takes it where the list-major and pair-group gates refuse the shape
+    (:func:`codes_scan_route`), and it stays a same-run yardstick of the
+    pair-group pass.  CUDA tensors launch it; CPU tensors run the plain
     version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_codes_plain(qrot, centers, probes, list_codes,
@@ -659,17 +786,73 @@ def codes_scan_query_major(qrot, centers, probes, list_codes, codebooks,
 codes_scan_query_major.launches = 0
 
 
+def code_pair_list_scan(qrot, centers, probes, group_list, slot_pairs,
+                        list_codes, codebooks, list_rsq, list_indices,
+                        pq_bits: int, kt: int, filter_words=None,
+                        group: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D's pair-group pass: ``(vals, ids)``, each (nq, n_probes,
+    kt), every pair's top kt (up to ``KT_MAX``) over the packed codes by
+    (distance, slot), ``(+inf, −1)`` past its live rows and on a probe
+    outside ``[0, n_lists)``; with ``filter_words`` only the rows its
+    query admits.  ``group_list`` / ``slot_pairs``:
+    :func:`raft_tpu_torch.neighbors.grouped.build_groups` of ``probes`` at
+    :func:`code_pair_list_layout`'s group size (``group`` as that
+    function takes it).  CUDA tensors launch
+    ``csrc/pair_list_scan.cu``'s codes source; CPU tensors run the
+    grouped plain schedule (``pq_group_scan.grouped_pair_topk`` over the
+    decoded rows)."""
+    what = "code_pair_list_scan"
+    cap, rot, pq_dim = _check_codes(what, qrot, centers, probes, list_codes,
+                                    codebooks, list_rsq, list_indices,
+                                    pq_bits)
+    kt = min(kt, cap)
+    if not qrot.is_cuda:
+        return grouped_pair_topk(qrot, centers, probes, group_list,
+                                 slot_pairs, list_rsq, list_indices, kt,
+                                 _codes_dot(list_codes, codebooks, pq_bits),
+                                 filter_words)
+    reason = code_pair_list_reject_reason(rot, pq_dim, pq_bits, kt)
+    expects(not reason, f"{what}: {reason}")
+    layout = code_pair_list_layout(rot, pq_dim, pq_bits, kt, group)
+    group_list, slot_pairs = ps._groups_of(group_list, slot_pairs,
+                                           qrot.device, layout.group, what)
+    qrot, centers, probes, list_rsq, list_indices = _launch_args(
+        qrot, centers, probes, list_rsq, list_indices)
+    codes, books, _ = _codes_operands(list_codes, codebooks)
+    nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, qrot.device, what)
+    vals, ids = _outputs((nq, n_probes, kt), qrot.device)
+    c_layout = layout.as_c()
+    status = _cuda.library().raft_pair_list_scan_codes(
+        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
+        group_list.data_ptr(), slot_pairs.data_ptr(), codes.data_ptr(),
+        books.data_ptr(), list_rsq.data_ptr(), list_indices.data_ptr(),
+        group_list.shape[0], nq, n_probes, centers.shape[0], cap, rot,
+        pq_dim, pq_bits, kt, ctypes.addressof(c_layout), vals.data_ptr(),
+        ids.data_ptr(), *fargs, _stream(qrot.device))
+    _cuda.check(status, what)
+    code_pair_list_scan.launches += 1
+    return vals, ids
+
+
+code_pair_list_scan.launches = 0
+
+
 def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
                       list_rsq, list_indices, pq_bits: int, kt: int,
                       filter_words=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
     pair's top kt, scanned from the packed codes.  CUDA tensors run Kernel
-    D: at kt <= ``KT_LIST_MAX`` the pairs grouped by list and
-    :func:`code_list_scan`, else :func:`codes_scan_query_major` (a
-    dispatch by shape between two kernels, each counted on its own
-    ``launches``).  CPU tensors run the plain version.  A shape neither
-    route can hold raises with its reason; ``filter_words`` as in
+    D on the route :func:`codes_scan_route` picks by shape: at kt <=
+    ``KT_LIST_MAX`` the pairs grouped by list and :func:`code_list_scan`;
+    up to ``KT_MAX`` :func:`code_pair_list_scan` on
+    :func:`code_pair_list_layout`'s groups; else
+    :func:`codes_scan_query_major` (each kernel counted on its own
+    ``launches``).  CPU tensors run the plain version.  A shape no route
+    can hold raises with its reasons; ``filter_words`` as in
     :func:`ivf_pq_scan_codes_fused`."""
     cap, rot, pq_dim = _check_codes(
         "ivf_pq_scan_codes", qrot, centers, probes, list_codes, codebooks,
@@ -681,12 +864,20 @@ def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
                                        pq_bits, kt, filter_words)
     reason = codes_reject_reason(cap, rot, pq_dim, pq_bits, kt)
     expects(not reason, f"ivf_pq_scan_codes: {reason}")
-    if code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt):
+    route, _ = codes_scan_route(cap, rot, pq_dim, pq_bits, kt)
+    if route == "query":
         return codes_scan_query_major(qrot, centers, probes, list_codes,
                                       codebooks, list_rsq, list_indices,
                                       pq_bits, kt, filter_words)
+    n_lists = centers.shape[0]
+    if route == "pair":
+        group = code_pair_list_layout(rot, pq_dim, pq_bits, kt).group
+        return code_pair_list_scan(
+            qrot, centers, probes,
+            *grouped.build_groups(probes, n_lists, group), list_codes,
+            codebooks, list_rsq, list_indices, pq_bits, kt, filter_words)
     return code_list_scan(qrot, centers, probes,
-                          *grouped.build_groups(probes, centers.shape[0]),
+                          *grouped.build_groups(probes, n_lists),
                           list_codes, codebooks, list_rsq, list_indices,
                           pq_bits, kt, filter_words)
 
@@ -810,15 +1001,63 @@ def recon8_list_scan(qrot, centers, probes, group_list, slot_pairs,
 recon8_list_scan.launches = 0
 
 
+def recon8_pair_list_scan(qrot, centers, probes, group_list, slot_pairs,
+                          recon_i8, scales, rsq8, list_indices, kt: int,
+                          filter_words=None, group: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E's pair-group pass: ``(vals, ids)`` as
+    :func:`recon8_list_scan` gives them, kt up to ``KT_MAX``, over
+    :func:`recon8_pair_list_layout`'s groups (``group`` as
+    :func:`code_pair_list_scan` takes it).  CUDA tensors launch
+    ``csrc/pair_list_scan.cu``'s int8 source; CPU tensors run the grouped
+    plain schedule (:func:`recon8_list_scan_plain`)."""
+    what = "recon8_pair_list_scan"
+    cap, rot_pad = _check_recon8(what, qrot, centers, probes, recon_i8,
+                                 scales, rsq8, list_indices)
+    kt = min(kt, cap)
+    if not qrot.is_cuda:
+        return recon8_list_scan_plain(qrot, centers, probes, group_list,
+                                      slot_pairs, recon_i8, scales, rsq8,
+                                      list_indices, kt, filter_words)
+    reason = recon8_pair_list_reject_reason(rot_pad, kt)
+    expects(not reason, f"{what}: {reason}")
+    layout = recon8_pair_list_layout(rot_pad, kt, group)
+    group_list, slot_pairs = ps._groups_of(group_list, slot_pairs,
+                                           qrot.device, layout.group, what)
+    qrot, centers, probes, rsq8, list_indices = _launch_args(
+        qrot, centers, probes, rsq8, list_indices)
+    data, scales = _recon8_operands(recon_i8, scales, what)
+    nq, n_probes = probes.shape
+    # fw holds the words the kernel reads until the launch is queued
+    fw, fargs = filter_operand(filter_words, nq, qrot.device, what)
+    vals, ids = _outputs((nq, n_probes, kt), qrot.device)
+    c_layout = layout.as_c()
+    status = _cuda.library().raft_pair_list_scan_recon8(
+        qrot.data_ptr(), centers.data_ptr(), probes.data_ptr(),
+        group_list.data_ptr(), slot_pairs.data_ptr(), data.data_ptr(),
+        scales.data_ptr(), rsq8.data_ptr(), list_indices.data_ptr(),
+        group_list.shape[0], nq, n_probes, centers.shape[0], cap,
+        qrot.shape[1], rot_pad, kt, ctypes.addressof(c_layout),
+        vals.data_ptr(), ids.data_ptr(), *fargs, _stream(qrot.device))
+    _cuda.check(status, what)
+    recon8_pair_list_scan.launches += 1
+    return vals, ids
+
+
+recon8_pair_list_scan.launches = 0
+
+
 def recon8_scan_query_major(qrot, centers, probes, recon_i8, scales, rsq8,
                             list_indices, kt: int, filter_words=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel E's query-major route (``csrc/pq_recon8_scan.cu``): one block
     per query walks its probes, re-reading each list it probes (with
     ``filter_words``, only the rows it admits);
-    :func:`ivf_pq_scan_recon8` takes it where kt exceeds ``KT_LIST_MAX``
-    or the list-major gate refuses the shape.  CUDA tensors launch it; CPU
-    tensors run the plain version."""
+    :func:`ivf_pq_scan_recon8` takes it where the list-major and
+    pair-group gates refuse the shape (:func:`recon8_scan_route`: rows past
+    1,024 bytes, ``kWide``), and it stays a same-run yardstick of the
+    pair-group pass.  CUDA tensors launch it; CPU tensors run the plain
+    version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_recon8_plain(qrot, centers, probes, recon_i8,
                                         scales, rsq8, list_indices, kt,
@@ -856,12 +1095,13 @@ def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
     """``(vals, ids)``, each (nq, n_probes, kt): every (query, probe)
     pair's top kt over the int8 cache ``recon_i8`` (L, cap, rot_pad) with
     per-list ``scales`` (L,) and dequantized row norms ``rsq8`` (L, cap).
-    CUDA tensors run Kernel E: at kt <= ``KT_LIST_MAX`` the pairs grouped
-    by list and :func:`recon8_list_scan`, else
-    :func:`recon8_scan_query_major` (a dispatch by shape between two
-    kernels, each counted on its own ``launches``).  CPU tensors run the
-    plain version.  A shape neither route can hold raises with its
-    reason; ``filter_words`` as in :func:`ivf_pq_scan_codes_fused`."""
+    CUDA tensors run Kernel E on the route :func:`recon8_scan_route` picks
+    by shape: at kt <= ``KT_LIST_MAX`` the pairs grouped by list and
+    :func:`recon8_list_scan`; up to ``KT_MAX`` (rows up to 1,024 bytes)
+    :func:`recon8_pair_list_scan`; else :func:`recon8_scan_query_major`
+    (each kernel counted on its own ``launches``).  CPU tensors run the
+    plain version.  A shape no route can hold raises with its reasons;
+    ``filter_words`` as in :func:`ivf_pq_scan_codes_fused`."""
     cap, rot_pad = _check_recon8("ivf_pq_scan_recon8", qrot, centers,
                                  probes, recon_i8, scales, rsq8,
                                  list_indices)
@@ -872,11 +1112,19 @@ def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
                                         filter_words)
     reason = recon8_reject_reason(cap, rot_pad, kt)
     expects(not reason, f"ivf_pq_scan_recon8: {reason}")
-    if recon8_list_scan_reject_reason(rot_pad, kt):
+    route, _ = recon8_scan_route(cap, rot_pad, kt)
+    if route == "query":
         return recon8_scan_query_major(qrot, centers, probes, recon_i8,
                                        scales, rsq8, list_indices, kt,
                                        filter_words)
+    n_lists = centers.shape[0]
+    if route == "pair":
+        group = recon8_pair_list_layout(rot_pad, kt).group
+        return recon8_pair_list_scan(
+            qrot, centers, probes,
+            *grouped.build_groups(probes, n_lists, group), recon_i8, scales,
+            rsq8, list_indices, kt, filter_words)
     return recon8_list_scan(qrot, centers, probes,
-                            *grouped.build_groups(probes, centers.shape[0]),
+                            *grouped.build_groups(probes, n_lists),
                             recon_i8, scales, rsq8, list_indices, kt,
                             filter_words)

@@ -5,7 +5,8 @@ with the products is faster.  A profile of the port's own design
 (``csrc/pq_code_list_scan.cu``), with no JAX script behind it.
 
 Each variant is ``csrc/pq_code_list_scan.cu`` rebuilt with text
-substitutions (:data:`VARIANTS`) under
+substitutions (:data:`VARIANTS`, in it and in the decode it includes,
+``csrc/row_source.cuh``) under
 ``build/raft_tpu_torch/code_scan_decomp/``, all loaded in one process:
 
 - ``as built``: step s + 1's codes decoded while step s's ``wgmma`` runs;
@@ -36,7 +37,7 @@ import torch
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.profiles import device_ms, list_scan_decomp, require_cuda
 
-SCAN_SOURCES = ("pq_code_list_scan.cu",)
+SCAN_SOURCES = ("pq_code_list_scan.cu", "row_source.cuh")
 _OVERLAP = ("    // meanwhile step s + 1's rows (arrived) are decoded into the "
             "other\n"
             "    // stage, and step s + 2's start coming in\n")

@@ -1,12 +1,13 @@
-"""Kernel F and G's pair-group pass (``csrc/pair_list_scan.cu``) in turns
-with the kernels beside it on one card: at chip_smoke's k-100 shapes with
-the query-major kernel it replaced (``csrc/pair_scan.cu``), at each group
-size the pass takes, and at Kernel F's k-10 shapes with the list-major
-pass (``csrc/flat_list_scan.cu``) that keeps kt up to 64.
+"""Kernels F, G, D and E's pair-group pass (``csrc/pair_list_scan.cu``) in
+turns with the kernels beside it on one card: at chip_smoke's k-100
+shapes with the query-major kernel it replaced (``csrc/pair_scan.cu``;
+D and E: ``csrc/pq_code_scan.cu``, ``csrc/pq_recon8_scan.cu``), at each
+group size the pass takes, and at Kernel F's k-10 shapes with the list-major pass
+(``csrc/flat_list_scan.cu``) that keeps kt up to 64.
 
-Run by path from the root of a checkout::
+Run by path from the root of a checkout (``codes``: D and E only)::
 
-    python3 raft_tpu_torch/profiles/pair_list_turns.py
+    python3 raft_tpu_torch/profiles/pair_list_turns.py [codes]
 
 It draws random lists on the card from a fixed seed at the shapes
 chip_smoke holds these routes at — IVF-Flat nlist 4096's 2,048 super-tiles
@@ -14,13 +15,18 @@ of up to 832 fp32 rows of dim 128 (F at kt 100, 64 probes, 1,000 and 5,000
 queries; kt 256; kt 10 on 5,000 queries), IVF-Flat nlist 16384's 4,096
 super-tiles of up to 640 rows (F 4; kt 10, 128 probes, 5,000 queries) and
 the flagship's 4,096 lists of up to 416 bf16 rows of rot 128 (G at kt
-128, 96 probes, 1,000 queries) — and prints one JSON line a shape: the
-CUDA-event ms (grouping included) of the pair-group pass at each group
-size (``group`` given explicitly) and of the other kernel, in turns
-(pass, other, other, pass) at each group size, and the card's name and
-power limit first.  The group size ``pair_list_layout`` picks first is
-the one the k-100 turns justify; the k-10 turns say what the list-major
-pass is worth beside the pass.  It runs on the card only.
+128, 96 probes, 1,000 queries), and the deep index's shape, 8,192 lists
+of up to 1,856 rows (mean about 1,237, the deep build's 1,221) of 48
+8-bit codes (D) and of 96 int8 values (E), kt 128, 96 probes, 1,000 and
+5,000 queries — and prints one JSON line a shape: the CUDA-event ms
+(grouping included) of the pair-group pass at each group size (``group``
+given explicitly) and of the other kernel, in turns (pass, other, other,
+pass) at each group size; for D and E every variant and the query-major
+kernel in one palindrome (each variant, the kernel, then the same in
+reverse order).  The card's name and power limit come first.  The group
+size ``pair_list_layout`` picks first is the one these turns justify;
+the k-10 turns say what the list-major pass is worth beside the pass.
+It runs on the card only.
 """
 
 import json
@@ -112,6 +118,81 @@ def flat_turns(g, n_tiles, rows, F, shapes, dev):
                   "list_major_ms", dim, kt, True, (64, 32))
 
 
+def palindrome(label, variants, other, other_name, picked):
+    """Each of ``variants`` (name -> call) and ``other`` timed in one
+    palindrome order (the variants, ``other``, then the same reversed):
+    two CUDA-event ms each; one JSON line."""
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+
+    calls = dict(variants, **{other_name: other})
+    order = list(calls) + list(calls)[::-1]
+    out = {"shape": label}
+    for name in order:
+        out.setdefault(name, []).append(cs.cuda_ms(calls[name],
+                                                   cs.KERNEL_REPS))
+    out.update(picked)
+    print(json.dumps(out), flush=True)
+
+
+def code_turns(g, dev):
+    """Kernels D and E at the deep index's shape, kt 128, 96 probes, 1,000
+    and 5,000 queries: the pair-group pass at each group size beside the
+    query-major kernel, in a palindrome."""
+    import torch
+    from raft_tpu_torch.neighbors import grouped
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+
+    n_lists, cap, pq_dim, pq_len, bits, kt = 8192, 1856, 48, 2, 8, 128
+    rot = pq_dim * pq_len
+    codes = torch.randint(0, 256, (n_lists, cap, pq_dim), generator=g,
+                          device=dev, dtype=torch.uint8)
+    books = torch.randn(pq_dim, 1 << bits, pq_len, generator=g, device=dev)
+    rsq = torch.cat([(pcs.decode_codes(codes[s:s + 512], books, bits)
+                      .float() ** 2).sum(-1)
+                     for s in range(0, n_lists, 512)])
+    i8 = torch.randint(-127, 128, (n_lists, cap, rot), generator=g,
+                       device=dev, dtype=torch.int8)
+    scales = torch.rand(n_lists, generator=g, device=dev) * 0.1 + 0.01
+    rsq8 = scales[:, None] ** 2 * (i8.float() ** 2).sum(-1)
+    ids = lists(g, n_lists, cap, dev)
+    centers = torch.randn(n_lists, rot, generator=g, device=dev)
+    for nq in (NQ, 5 * NQ):
+        qrot = torch.randn(nq, rot, generator=g, device=dev)
+        probes = probes_of(g, nq, n_lists, 96, dev)
+        shape = (f"{nq:,} q x 96 probes, {n_lists} lists of {cap}, rot "
+                 f"{rot}, kt {kt}")
+        variants = {
+            f"pair_group{group}_ms":
+                lambda group=group, qrot=qrot, probes=probes:
+                pcs.code_pair_list_scan(
+                    qrot, centers, probes,
+                    *grouped.build_groups(probes, n_lists, group), codes,
+                    books, rsq, ids, bits, kt, group=group)
+            for group in (64, 32, 16)}
+        palindrome(
+            f"D {shape}, {bits}-bit codes of {pq_dim} subspaces", variants,
+            lambda qrot=qrot, probes=probes: pcs.codes_scan_query_major(
+                qrot, centers, probes, codes, books, rsq, ids, bits, kt),
+            "query_major_ms",
+            {"group_picked":
+                pcs.code_pair_list_layout(rot, pq_dim, bits, kt).group})
+        variants = {
+            f"pair_group{group}_ms":
+                lambda group=group, qrot=qrot, probes=probes:
+                pcs.recon8_pair_list_scan(
+                    qrot, centers, probes,
+                    *grouped.build_groups(probes, n_lists, group), i8,
+                    scales, rsq8, ids, kt, group=group)
+            for group in (64, 32, 16)}
+        palindrome(
+            f"E {shape}, int8 rows of {rot} B", variants,
+            lambda qrot=qrot, probes=probes: pcs.recon8_scan_query_major(
+                qrot, centers, probes, i8, scales, rsq8, ids, kt),
+            "query_major_ms",
+            {"group_picked": pcs.recon8_pair_list_layout(rot, kt).group})
+
+
 def main() -> None:
     import torch
 
@@ -127,6 +208,9 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)
+    if sys.argv[1:] == ["codes"]:
+        code_turns(g, dev)
+        return
 
     # IVF-Flat nlist 4096's super-tiles (F 2): kt 100 and 256, then k 10
     flat_turns(g, 2048, 832, 2, ((NQ, 64, 100), (5 * NQ, 64, 100),
@@ -155,6 +239,11 @@ def main() -> None:
     turns(f"G {NQ:,} q x 96 probes, {n_lists} lists of {cap}, kt 128",
           pair, lambda: ps.recon_scan_query_major(*common, 128),
           "query_major_ms", rot, 128, False, (64, 32, 16))
+    del recon, rsq, ids, centers, qrot, probes, common
+    torch.cuda.empty_cache()
+
+    # the deep index's shape: D and E at kt 128
+    code_turns(g, dev)
 
 
 if __name__ == "__main__":

@@ -364,9 +364,11 @@ def test_code_list_scan_smem_bytes_mirrors_the_layout(rot, pq_dim, pq_bits):
 
 def test_code_gates_route_by_kt_and_name_their_reason():
     """The list-major pass takes a pair kt up to 64 at any capacity and
-    any rot that pq_dim divides; the two-route gates of C and D refuse
-    only where both routes do, naming both reasons; no shape the
-    query-major kernels took is refused."""
+    any rot that pq_dim divides; C's two-route gate refuses only where
+    both routes do, naming both reasons, and D's three-route gate only
+    where all three do (its pair-group pass takes kt 65-128 at any
+    capacity), naming all three; no shape the query-major kernels took is
+    refused."""
     assert not pcs.code_list_scan_reject_reason(96, 48, 8, 64)
     assert "outside 1..64" in pcs.code_list_scan_reject_reason(96, 48, 8, 65)
     assert not pcs.code_list_scan_reject_reason(36, 12, 4, 4)   # rot % 8
@@ -380,8 +382,11 @@ def test_code_gates_route_by_kt_and_name_their_reason():
     assert not pcs.codes_fused_reject_reason(big, 96, 48, 8, 20, 20)
     assert not pcs.codes_fused_reject_reason(big, 96, 48, 8, 20, 256)
     assert not pcs.codes_reject_reason(big, 96, 48, 8, 64)
-    reason = pcs.codes_reject_reason(big, 96, 48, 8, 65)
-    assert "list-major" in reason and "query-major route" in reason
+    assert not pcs.codes_reject_reason(big, 96, 48, 8, 65)
+    assert pcs.codes_scan_route(big, 96, 48, 8, 65)[0] == "pair"
+    reason = pcs.codes_reject_reason(big, 96, 48, 8, 129)
+    assert "list-major" in reason and "pair-group route" in reason
+    assert "query-major route" in reason
     reason = pcs.codes_fused_reject_reason(big, 96, 48, 8, 100, 100)
     assert "list-major" in reason and "shared memory" in reason
     # the flagship at kt 64: the query-major kernels take it
@@ -407,8 +412,9 @@ def test_code_gates_route_by_kt_and_name_their_reason():
 @pytest.mark.parametrize("name", list(code_scan_decomp.VARIANTS))
 def test_code_scan_decomp_variants_apply_to_the_scan_source(name):
     """Each profile variant's substitutions match ``pq_code_list_scan.cu``
-    exactly once (the profile raises otherwise), and only ``as built``
-    leaves the source as it is."""
+    or the decode it includes (``row_source.cuh``) exactly once (the
+    profile raises otherwise), and only ``as built`` leaves the sources as
+    they are."""
     base = {f: (code_scan_decomp._cuda.SRC_DIR / f).read_text()
             for f in code_scan_decomp.SCAN_SOURCES}
     texts = code_scan_decomp.variant_sources(name)

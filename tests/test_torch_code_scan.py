@@ -444,10 +444,12 @@ def test_code_scan_gates_name_their_reason(shape, reason):
     assert "16" in pcs.recon8_reject_reason(64, 24, 4)
     assert not pcs.recon8_reject_reason(4096, 96, 4)
     # a capacity past Kernel E's query-major shared memory: the
-    # list-major route takes it up to kt 64, and above both are named
+    # list-major route takes it up to kt 64, the pair-group pass up to
+    # 128, and above all three are named
     assert pcs.recon8_query_major_reject_reason(100_000, 96, 4)
     assert not pcs.recon8_reject_reason(100_000, 96, 64)
-    assert "query-major route" in pcs.recon8_reject_reason(100_000, 96, 65)
+    assert not pcs.recon8_reject_reason(100_000, 96, 65)
+    assert "query-major route" in pcs.recon8_reject_reason(100_000, 96, 129)
 
 
 @pytest.mark.parametrize("refused", ["capacity", "k"])

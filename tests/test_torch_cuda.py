@@ -268,11 +268,17 @@ CODE_SHAPES = [  # cap, pq_dim, pq_len, pq_bits, k, kt
 
 
 def _code_routes():
-    """Launches of the list-major codes pass, pass 2, and Kernels C's and
-    D's query-major routes."""
+    """Launches of the list-major codes pass, pass 2, Kernels C's and D's
+    query-major routes, and D's pair-group pass."""
     return np.array([pcs.code_list_scan.launches, pgs.merge_pairs.launches,
                      pcs.codes_fused_query_major.launches,
-                     pcs.codes_scan_query_major.launches])
+                     pcs.codes_scan_query_major.launches,
+                     pcs.code_pair_list_scan.launches])
+
+
+# the launches _code_routes counts on each of Kernel D's routes
+D_ROUTE = {"list": (1, 0, 0, 0, 0), "pair": (0, 0, 0, 0, 1),
+           "query": (0, 0, 0, 1, 0)}
 
 
 def _code_listed(rot, pq_dim, pq_bits, kt):
@@ -300,7 +306,7 @@ def test_codes_fused_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
     listed = _code_listed(pq_dim * pq_len, pq_dim, pq_bits,
                           min(kt, cap, k))
     assert tuple(_code_routes() - before) == (
-        (1, 1, 0, 0) if listed else (0, 0, 1, 0))
+        (1, 1, 0, 0, 0) if listed else (0, 0, 1, 0, 0))
     vp, ip = pcs.ivf_pq_scan_codes_fused_plain(qrot, centers, probes, codes,
                                                books, rsq, ids, pq_bits, k,
                                                kt)
@@ -311,8 +317,9 @@ def test_codes_fused_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
 def test_codes_pair_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
                                          k, kt):
     """Kernel D: each pair's top kt, (+inf, -1) past its live rows and on
-    the skipped probe; kt up to 64 on the list-major pass, above it the
-    query-major kernel."""
+    the skipped probe; kt up to 64 on the list-major pass, up to 128 the
+    pair-group pass where its shared memory holds the shape, else the
+    query-major kernel (``codes_scan_route``)."""
     n_lists, nq, n_probes = 64, 40, 12
     centers, codes, books, rsq, ids, *_ = _random_code_index(
         dev, n_lists, cap, pq_dim, pq_len, pq_bits, cap + kt)
@@ -322,9 +329,9 @@ def test_codes_pair_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
     vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books, rsq,
                                    ids, pq_bits, kt)
     torch.cuda.synchronize()
-    listed = _code_listed(pq_dim * pq_len, pq_dim, pq_bits, min(kt, cap))
-    assert tuple(_code_routes() - before) == (
-        (1, 0, 0, 0) if listed else (0, 0, 0, 1))
+    route = pcs.codes_scan_route(cap, pq_dim * pq_len, pq_dim, pq_bits,
+                                 min(kt, cap))[0]
+    assert tuple(_code_routes() - before) == D_ROUTE[route]
     assert vk.shape == (nq, n_probes, min(kt, cap))
     assert bool(torch.isinf(vk[0, -1]).all())
     vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes, books,
@@ -335,8 +342,9 @@ def test_codes_pair_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
 @pytest.mark.parametrize("kt", [64, 65])
 @pytest.mark.parametrize("fused", [True, False], ids=["C", "D"])
 def test_code_scans_route_by_kt(dev, kt, fused):
-    """A pair kt of 64 takes the list-major codes pass, 65 the query-major
-    kernel (C at k = kt; D), each held to its plain version."""
+    """A pair kt of 64 takes the list-major codes pass, 65 C's query-major
+    kernel (at k = kt) and D's pair-group pass, each held to its plain
+    version."""
     n_lists, cap, pq_dim, pq_len, pq_bits = 32, 300, 48, 2, 8
     centers, codes, books, rsq, ids, *_ = _random_code_index(
         dev, n_lists, cap, pq_dim, pq_len, pq_bits, kt)
@@ -348,13 +356,13 @@ def test_code_scans_route_by_kt(dev, kt, fused):
                                              kt)
         vp, ip = pcs.ivf_pq_scan_codes_fused_plain(
             qrot, centers, probes, codes, books, rsq, ids, pq_bits, kt, kt)
-        want = (1, 1, 0, 0) if kt <= 64 else (0, 0, 1, 0)
+        want = (1, 1, 0, 0, 0) if kt <= 64 else (0, 0, 1, 0, 0)
     else:
         vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books,
                                        rsq, ids, pq_bits, kt)
         vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes,
                                              books, rsq, ids, pq_bits, kt)
-        want = (1, 0, 0, 0) if kt <= 64 else (0, 0, 0, 1)
+        want = D_ROUTE["list" if kt <= 64 else "pair"]
     torch.cuda.synchronize()
     assert tuple(_code_routes() - before) == want
     _assert_kernel_matches_plain(vk, ik, vp, ip)
@@ -372,7 +380,11 @@ def test_codes_pair_kernel_past_its_shared_memory_matches_plain(
     fit in shared memory together (shapes the Pallas codes gate admits):
     the books read from global memory, the LUT summed in chunks of
     ``LUT_STEP`` subspaces, held to the plain version as at the other
-    shapes; with a filter, every id admitted."""
+    shapes; with a filter, every id admitted.  Up to rot 1,024 the
+    pair-group pass (its books in global memory) is D's route at these
+    shapes, so the query-major kernel is called as itself there; past it
+    (rot 4,096) ``ivf_pq_scan_codes`` takes the query-major kernel, the
+    pass's refusal named."""
     smem, lut_sub, staged = pcs.codes_layout(cap, pq_dim * pq_len, pq_dim,
                                              pq_bits)
     assert not staged and -(-pq_dim // lut_sub) == chunks
@@ -382,11 +394,19 @@ def test_codes_pair_kernel_past_its_shared_memory_matches_plain(
     qrot, probes = _queries(dev, nq, pq_dim * pq_len, n_lists, n_probes)
     fw = (_filter_words(dev, nq, n_lists * cap, 0.5, False, kt)
           if filtered else None)
+    route, why = pcs.codes_scan_route(cap, pq_dim * pq_len, pq_dim, pq_bits,
+                                      kt)
+    assert route == ("pair" if pq_dim * pq_len <= 1024 else "query")
     before = _code_routes()
-    vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books, rsq,
-                                   ids, pq_bits, kt, fw)
+    if route == "query":
+        assert "pair-group route: rot_dim 4096 past 1024" in why
+        vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books,
+                                       rsq, ids, pq_bits, kt, fw)
+    else:
+        vk, ik = pcs.codes_scan_query_major(qrot, centers, probes, codes,
+                                            books, rsq, ids, pq_bits, kt, fw)
     torch.cuda.synchronize()
-    assert tuple(_code_routes() - before) == (0, 0, 0, 1)
+    assert tuple(_code_routes() - before) == D_ROUTE["query"]
     vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes, books,
                                          rsq, ids, pq_bits, kt, fw)
     _assert_kernel_matches_plain(vk, ik, vp, ip)
@@ -446,10 +466,15 @@ def _int8_index(dev, n_lists, cap, rot, seed, scale=None):
 
 
 def _recon8_routes():
-    """Launches of Kernel E's list-major pass and of its query-major
-    kernel."""
+    """Launches of Kernel E's list-major pass, of its query-major kernel
+    and of its pair-group pass."""
     return (pcs.recon8_list_scan.launches,
-            pcs.recon8_scan_query_major.launches)
+            pcs.recon8_scan_query_major.launches,
+            pcs.recon8_pair_list_scan.launches)
+
+
+# the launches _recon8_routes counts on each of Kernel E's routes
+E_ROUTE = {"list": (1, 0, 0), "pair": (0, 0, 1), "query": (0, 1, 0)}
 
 
 @pytest.mark.parametrize("cap,rot,kt", [(96, 128, 10), (700, 96, 4),
@@ -457,11 +482,10 @@ def _recon8_routes():
                                         (64, 1000, 64)])
 def test_recon8_kernel_matches_plain(dev, cap, rot, kt):
     """Kernel E through its dispatch, on the route its gate picks (its
-    counter moves, the other's does not): the list-major pass
+    counter moves, the others' do not): the list-major pass
     (``recon8_list_scan``) at kt <= 64 where its shared memory holds the
-    shape, else the query-major kernel (rot 1000 at kt 64); the dot
-    scaled after it is summed, as the plain version does; each pair's top
-    kt."""
+    shape, else the pair-group pass (rot 1000 at kt 64); the dot scaled
+    after it is summed, as the plain version does; each pair's top kt."""
     n_lists, nq, n_probes = 64, 40, 12
     i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, rot,
                                                  cap + rot)
@@ -470,10 +494,9 @@ def test_recon8_kernel_matches_plain(dev, cap, rot, kt):
     vk, ik = pcs.ivf_pq_scan_recon8(qrot, centers, probes, i8, scales, rsq8,
                                     ids, kt)
     torch.cuda.synchronize()
-    listed = not pcs.recon8_list_scan_reject_reason(i8.shape[2], kt)
-    assert listed == (rot <= 128)
-    assert tuple(np.subtract(_recon8_routes(), before)) == (
-        (1, 0) if listed else (0, 1))
+    route = pcs.recon8_scan_route(cap, i8.shape[2], kt)[0]
+    assert route == ("list" if rot <= 128 else "pair")
+    assert tuple(np.subtract(_recon8_routes(), before)) == E_ROUTE[route]
     vp, ip = pcs.ivf_pq_scan_recon8_plain(qrot, centers, probes, i8, scales,
                                           rsq8, ids, kt)
     _assert_kernel_matches_plain(vk, ik, vp, ip)
@@ -500,7 +523,7 @@ def test_recon8_list_scan_matches_its_plain_twin(dev, cap, rot, kt):
     vk, ik = pcs.recon8_list_scan(qrot, centers, probes, *groups, i8, scales,
                                   rsq8, ids, kt)
     torch.cuda.synchronize()
-    assert tuple(np.subtract(_recon8_routes(), before)) == (1, 0)
+    assert tuple(np.subtract(_recon8_routes(), before)) == E_ROUTE["list"]
     assert vk.shape == (nq, n_probes, min(kt, cap))
     assert bool(torch.isinf(vk[0, -1]).all() and (ik[0, -1] == -1).all())
     vp, ip = pcs.recon8_list_scan_plain(qrot, centers, probes, *groups, i8,
@@ -532,8 +555,8 @@ def test_recon8_list_scan_at_scale_one_is_bit_equal_to_list_scan(dev, rot,
 
 @pytest.mark.parametrize("kt", [64, 65])
 def test_recon8_scan_routes_by_kt(dev, kt):
-    """A pair kt of 64 takes E's list-major pass, 65 its query-major
-    kernel, each held to the plain version."""
+    """A pair kt of 64 takes E's list-major pass, 65 its pair-group pass,
+    each held to the plain version."""
     n_lists, cap, rot = 32, 300, 96
     i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, rot, kt)
     qrot, probes = _queries(dev, 30, rot, n_lists, 6)
@@ -541,11 +564,193 @@ def test_recon8_scan_routes_by_kt(dev, kt):
     vk, ik = pcs.ivf_pq_scan_recon8(qrot, centers, probes, i8, scales, rsq8,
                                     ids, kt)
     torch.cuda.synchronize()
-    assert tuple(np.subtract(_recon8_routes(), before)) == (
-        (1, 0) if kt <= 64 else (0, 1))
+    assert tuple(np.subtract(_recon8_routes(), before)) == E_ROUTE[
+        "list" if kt <= 64 else "pair"]
     vp, ip = pcs.ivf_pq_scan_recon8_plain(qrot, centers, probes, i8, scales,
                                           rsq8, ids, kt)
     _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+# Kernels D and E past kt 64: the pair-group pass (csrc/pair_list_scan.cu)
+# with the packed codes decoded and the int8 rows converted in shared
+# memory
+
+PAIR_CODE_SHAPES = [  # cap, pq_dim, pq_len, pq_bits, kt
+    (300, 48, 2, 8, 65), (300, 48, 2, 8, 100), (2368, 48, 2, 8, 128),
+    (416, 64, 2, 8, 128), (300, 32, 4, 4, 100), (200, 12, 3, 4, 65),
+    (160, 36, 1, 8, 128), (200, 128, 2, 4, 100), (90, 16, 8, 8, 128),
+    (200, 128, 2, 8, 100), (120, 232, 1, 8, 70)]
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("cap,pq_dim,pq_len,pq_bits,kt", PAIR_CODE_SHAPES)
+def test_code_pair_list_scan_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
+                                           kt, filtered):
+    """Kernel D's pair-group pass through ``ivf_pq_scan_codes`` at kt 65
+    to 128, 4 and 8 bits, rot off a multiple of 8 (36, 232) and past 128
+    (256: residuals in 128-dim stages; at 8 bits books of 128 KB, in
+    global memory), the deep and flagship shapes, a hot list over several
+    groups: its counter moves and no other route's; values within 1e-4,
+    ids but at ties, the skipped probe empty; with a 50% filter, every id
+    admitted."""
+    n_lists, nq, n_probes = 48, 200, 8
+    rot = pq_dim * pq_len
+    centers, codes, books, rsq, ids, *_ = _random_code_index(
+        dev, n_lists, cap, pq_dim, pq_len, pq_bits, cap + kt)
+    qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
+    probes[:, 1] = torch.where(probes[:, 0] == 5, probes[:, 1],
+                               torch.full_like(probes[:, 1], 5))
+    probes[probes[:, 0] == 5, 0] = 6
+    fw = (_filter_words(dev, nq, n_lists * cap, 0.5, False, kt)
+          if filtered else None)
+    assert pcs.codes_scan_route(cap, rot, pq_dim, pq_bits, kt)[0] == "pair"
+    before = _code_routes()
+    vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books, rsq,
+                                   ids, pq_bits, kt, fw)
+    torch.cuda.synchronize()
+    assert tuple(_code_routes() - before) == D_ROUTE["pair"]
+    assert vk.shape == (nq, n_probes, min(kt, cap))
+    assert bool(torch.isinf(vk[0, -1]).all() and (ik[0, -1] == -1).all())
+    vp, ip = pcs.ivf_pq_scan_codes_plain(qrot, centers, probes, codes, books,
+                                         rsq, ids, pq_bits, kt, fw)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+    if filtered:
+        _assert_admitted(ik, fw)
+
+
+PAIR_RECON8_SHAPES = [  # cap, rot, kt
+    (300, 96, 65), (2368, 96, 128), (300, 24, 100), (416, 128, 128),
+    (200, 256, 100), (100, 1000, 65), (90, 36, 128)]
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("cap,rot,kt", PAIR_RECON8_SHAPES)
+def test_recon8_pair_list_scan_matches_plain(dev, cap, rot, kt, filtered):
+    """Kernel E's pair-group pass through ``ivf_pq_scan_recon8`` at kt 65,
+    100 and 128, rows of 32 to 1,008 bytes (rot 256 and 1000: 128-dim
+    stages), per-list scales applied to the summed dot: its counter moves
+    and no other route's; values within 1e-4, ids but at ties; with a 50%
+    filter, every id admitted."""
+    n_lists, nq, n_probes = 48, 200, 8
+    i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, rot,
+                                                 cap + kt)
+    qrot, probes = _queries(dev, nq, rot, n_lists, n_probes)
+    fw = (_filter_words(dev, nq, int(ids.max()) + 1, 0.5, False, kt)
+          if filtered else None)
+    assert pcs.recon8_scan_route(cap, i8.shape[2], kt)[0] == "pair"
+    before = _recon8_routes()
+    vk, ik = pcs.ivf_pq_scan_recon8(qrot, centers, probes, i8, scales, rsq8,
+                                    ids, kt, fw)
+    torch.cuda.synchronize()
+    assert tuple(np.subtract(_recon8_routes(), before)) == E_ROUTE["pair"]
+    assert bool(torch.isinf(vk[0, -1]).all() and (ik[0, -1] == -1).all())
+    vp, ip = pcs.ivf_pq_scan_recon8_plain(qrot, centers, probes, i8, scales,
+                                          rsq8, ids, kt, fw)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+    if filtered:
+        _assert_admitted(ik, fw)
+
+
+@pytest.mark.parametrize("kt", [100, 128])
+@pytest.mark.parametrize("kernel", ["D8", "D4", "E"])
+def test_code_pair_list_scans_group_size_leaves_the_result_bit_equal(
+        dev, kernel, kt):
+    """D and E's pair-group pass at 64, 32 and 16 pairs a group: the same
+    values and ids bit for bit."""
+    n_lists, nq, n_probes, cap = 32, 200, 8, 300
+    if kernel == "E":
+        i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, 96,
+                                                     11)
+        q, probes = _queries(dev, nq, 96, n_lists, n_probes)
+        runs = [lambda g=g: pcs.recon8_pair_list_scan(
+            q, centers, probes, *grouped.build_groups(probes, n_lists, g),
+            i8, scales, rsq8, ids, kt, group=g) for g in (64, 32, 16)]
+    else:
+        bits = int(kernel[1])
+        centers, codes, books, rsq, ids, *_ = _random_code_index(
+            dev, n_lists, cap, 48, 2, bits, 11)
+        q, probes = _queries(dev, nq, 96, n_lists, n_probes)
+        runs = [lambda g=g: pcs.code_pair_list_scan(
+            q, centers, probes, *grouped.build_groups(probes, n_lists, g),
+            codes, books, rsq, ids, bits, kt, group=g) for g in (64, 32, 16)]
+    outs = [run() for run in runs]
+    torch.cuda.synchronize()
+    for v, i in outs[1:]:
+        assert torch.equal(v, outs[0][0]) and torch.equal(i, outs[0][1])
+
+
+@pytest.mark.parametrize("rot,pq_dim,pq_bits,kt", [
+    (96, 48, 8, 65), (96, 48, 8, 128), (128, 64, 8, 100), (128, 32, 4, 128),
+    (256, 128, 4, 100)])
+def test_code_pair_list_scan_is_bit_equal_to_the_recon_pass_on_the_decoded_cache(
+        dev, rot, pq_dim, pq_bits, kt):
+    """D's pass decodes each row to the bf16 recon cache's bits and runs
+    G's pass on them, so on the same norms and groups it gives Kernel G's
+    pair-group pass over ``decode_codes`` the same values and ids
+    (``torch.equal``), at the group the layout picks and at 32."""
+    n_lists, cap = 40, 700
+    centers, codes, books, rsq, ids, *_ = _random_code_index(
+        dev, n_lists, cap, pq_dim, rot // pq_dim, pq_bits, rot + kt)
+    qrot, probes = _queries(dev, 200, rot, n_lists, 10)
+    recon = pcs.decode_codes(codes, books, pq_bits)
+    picked = pcs.code_pair_list_layout(rot, pq_dim, pq_bits, kt).group
+    for group in sorted({picked, 32}):
+        groups = grouped.build_groups(probes, n_lists, group)
+        cv, ci = pcs.code_pair_list_scan(qrot, centers, probes, *groups,
+                                         codes, books, rsq, ids, pq_bits, kt,
+                                         group=group)
+        rv, ri = ps.recon_pair_list_scan(qrot, centers, probes, *groups,
+                                         recon, rsq, ids, kt, group=group)
+        torch.cuda.synchronize()
+        assert torch.equal(cv, rv) and torch.equal(ci, ri)
+
+
+@pytest.mark.parametrize("rot,kt", [(24, 65), (96, 100), (96, 128),
+                                    (128, 128), (256, 100)])
+def test_recon8_pair_list_scan_at_scale_one_is_bit_equal_to_the_recon_pass(
+        dev, rot, kt):
+    """With every scale 1 and rows of round16(rot) bytes, E's pass is
+    Kernel G's pair-group pass over ``q8[..., :rot]`` as bf16 rows (exact)
+    on the same norms and groups: the same values and ids."""
+    n_lists, cap = 40, 700
+    i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, rot,
+                                                 rot + kt, scale=1.0)
+    qrot, probes = _queries(dev, 200, rot, n_lists, 10)
+    group = pcs.recon8_pair_list_layout(i8.shape[2], kt).group
+    groups = grouped.build_groups(probes, n_lists, group)
+    ev, ei = pcs.recon8_pair_list_scan(qrot, centers, probes, *groups, i8,
+                                       scales, rsq8, ids, kt, group=group)
+    recon = i8[..., :rot].to(torch.bfloat16)
+    gv, gi = ps.recon_pair_list_scan(qrot, centers, probes, *groups, recon,
+                                     rsq8, ids, kt, group=group)
+    torch.cuda.synchronize()
+    assert torch.equal(ev, gv) and torch.equal(ei, gi)
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_recon8_rows_past_the_pair_group_pass_take_the_query_major_kernel(
+        dev, filtered):
+    """Int8 rows past 1,024 bytes (rot_pad 1,104): the pair-group pass
+    refuses them by name and the query-major kernel (``kWide``) runs,
+    held to the plain version, unfiltered and under a filter admitting
+    half the ids (every kept id admitted)."""
+    n_lists, cap, rot, kt, nq = 32, 120, 1100, 100, 30
+    i8, scales, rsq8, centers, ids = _int8_index(dev, n_lists, cap, rot, 5)
+    qrot, probes = _queries(dev, nq, rot, n_lists, 6)
+    fw = (_filter_words(dev, nq, n_lists * cap, 0.5, False, kt)
+          if filtered else None)
+    route, why = pcs.recon8_scan_route(cap, i8.shape[2], kt)
+    assert route == "query" and "past 1024" in why
+    before = _recon8_routes()
+    vk, ik = pcs.ivf_pq_scan_recon8(qrot, centers, probes, i8, scales, rsq8,
+                                    ids, kt, fw)
+    torch.cuda.synchronize()
+    assert tuple(np.subtract(_recon8_routes(), before)) == E_ROUTE["query"]
+    vp, ip = pcs.ivf_pq_scan_recon8_plain(qrot, centers, probes, i8, scales,
+                                          rsq8, ids, kt, fw)
+    _assert_kernel_matches_plain(vk, ik, vp, ip)
+    if filtered:
+        _assert_admitted(ik, fw)
 
 
 def test_code_scans_reject_what_they_cannot_hold(dev):
@@ -1729,12 +1934,12 @@ def _assert_admitted(ids, words):
 FILTERED_SCANS = ["B", "G", "C", "D", "E", "F", "F-IP"]
 
 
-# each scan's wrapper past kt 64: the query-major kernels of B-E, the
-# pair-group passes of F and G
+# each scan's wrapper past kt 64: the query-major kernels of B and C, the
+# pair-group passes of D-G
 LARGE_KT = {"B": pgs.scan_query_major, "G": ps.recon_pair_list_scan,
             "C": pcs.codes_fused_query_major,
-            "D": pcs.codes_scan_query_major,
-            "E": pcs.recon8_scan_query_major,
+            "D": pcs.code_pair_list_scan,
+            "E": pcs.recon8_pair_list_scan,
             "F": ps.flat_pair_list_scan,
             "F-IP": ps.flat_pair_list_scan}
 # F and G past the pair-group pass (kt 300 of 600 slots): the query-major
@@ -1747,9 +1952,10 @@ PAST_PAIR_KT = {"G": ps.recon_scan_query_major,
 def _filtered_scan(dev, kernel, fw_of, seed, k=20, kt=16, cap=300):
     """(kernel result, plain result, filter words, value tolerance) of one
     scan through its dispatcher, on the route its shape takes (list-major
-    at the default k 20, kt 16; past 64, the query-major kernels of B-E
-    and the pair-group passes of F and G, which take kt up to 256 and
-    leave F and G's query-major kernels the kt past it), on a random
+    at the default k 20, kt 16; past 64, the query-major kernels of B and
+    C and the pair-group passes of D-G, which take kt up to 128 (D, E)
+    or 256 (F, G) and leave F and G's query-major kernels the kt past
+    it), on a random
     index of ``cap`` slots a list with padding and tombstones, 40 queries
     of 12 probes over 64 lists; the tolerance is the unfiltered check's
     (1e-4; F: 1e-5 of ‖q‖² + max ‖x‖²)."""
@@ -1839,8 +2045,8 @@ def test_filtered_list_major_scans_match_plain(dev, kernel):
 
 @pytest.mark.parametrize("kernel", FILTERED_SCANS)
 def test_filtered_query_major_scans_match_plain(dev, kernel):
-    """Each scan past kt 64 with a filter (the query-major kernels of B-E,
-    the pair-group passes of F and G), k = kt = 100 (G at kt 80), against
+    """Each scan past kt 64 with a filter (the query-major kernels of B and
+    C, the pair-group passes of D-G), k = kt = 100 (G at kt 80), against
     its plain version (``_check_filtered_scans``), its route's launch
     counter moving once a scan."""
     kt = 80 if kernel == "G" else 100

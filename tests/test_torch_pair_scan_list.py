@@ -513,8 +513,9 @@ def test_variants_on_the_grouped_schedule_equal_the_plain_variants(
 
 
 def test_pass_sources_state_the_layout_the_python_formula_gives():
-    """The C layout struct has the Python formula's 21 fields, in order,
-    and the kernel's kt bound is PAIR_KT_MAX."""
+    """The C layout struct has the Python formula's 23 fields (D and E's
+    raw stages among them), in order, and the kernel's kt bound is
+    PAIR_KT_MAX."""
     import re
 
     src = (ps._cuda.SRC_DIR / "pair_list_scan.cu").read_text()

@@ -277,15 +277,19 @@ def test_recon8_list_scan_smem_bytes_mirrors_the_layout(rot_pad):
 
 def test_recon8_gates_route_by_kt_and_name_their_reason():
     """The list-major pass takes kt up to 64 at any capacity; the
-    two-route gate refuses only where both routes do, naming both; no
-    shape the query-major kernel took is refused, and rows past 1,024
-    bytes are taken."""
+    three-route gate refuses only where all three routes do, naming all
+    three (the pair-group pass takes kt 65-128 at any capacity); no shape
+    the query-major kernel took is refused, and rows past 1,024 bytes are
+    taken."""
     big = 200_000
     assert pcs.recon8_query_major_reject_reason(big, 96, 4)
     assert not pcs.recon8_list_scan_reject_reason(96, 64)
     assert not pcs.recon8_reject_reason(big, 96, 64)
-    reason = pcs.recon8_reject_reason(big, 96, 65)
-    assert "list-major" in reason and "query-major route" in reason
+    assert not pcs.recon8_reject_reason(big, 96, 65)
+    assert pcs.recon8_scan_route(big, 96, 65)[0] == "pair"
+    reason = pcs.recon8_reject_reason(big, 96, 129)
+    assert "list-major" in reason and "pair-group route" in reason
+    assert "query-major route" in reason
     assert "outside 1..64" in pcs.recon8_list_scan_reject_reason(96, 65)
     assert "multiple of 16" in pcs.recon8_reject_reason(64, 24, 4)
     # rows past 1,024 bytes read the residual from shared memory: the
