@@ -35,11 +35,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. Kernel B (``ivf_pq_scan_fused``, list-major) against its plain version
    on the flagship's batch: 5000 queries of the built index at n_probes
    96, k 20, with the batch's group count and the call's device time split
-   into grouping, pass 1 and pass 2, and the pair buffer's bytes; its
-   query-major route (``scan_query_major``, k = kt = 256) against plain on
-   the batch's first 1,000 queries; the batch's recall@10 on the one
+   into grouping, pass 1 and pass 2, and the pair buffer's bytes; past kt
+   64 (k = kt = 256, groups of 32) its pair-group route (Kernel G's pass
+   ``recon_pair_list_scan``, then ``merge_pairs``) against plain on the
+   batch's first 1,000 queries, with its split (grouping, pass, pass 2),
+   pass 2 alone against ``torch.topk`` over the same pairs, and the
+   query-major kernel it replaced (``scan_query_major``) held to the same
+   plain result and timed in turns; the batch's recall@10 on the one
    build through each route (the query-major kernel swapped in for the
-   search's scan);
+   search's scan; the batch's ms through each in turns);
    Kernel H (``fused_l2_nn``) against its plain version at the shapes the
    build gave it (the extend's assignment, 1,000,000 x 128 -> 4,096, and a
    codebook fit's, 65,536 x 2 -> 256, its small-dim kernel, a row of its
@@ -176,27 +180,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     bits: one a query and probed live row, one a probed live row for a
     broadcast row).  Then filtered search at k 100, where every scan keeps
     more than 64 rows a pair: the flagship searched at k 200 and refined
-    to 100 in ``auto`` (Kernel B's query-major kernel at kt 200) and in
-    ``recon`` at kt 128 (Kernel G's pair-group pass), and IVF-Flat nlist
+    to 100 in ``auto`` (Kernel B at kt 200: G's pair-group pass and the
+    merge) and in ``recon`` at kt 128 (Kernel G's pair-group pass), and
+    IVF-Flat nlist
     4096 at n_probes 64, k 100 (Kernel F's pair-group pass), each
     unfiltered and with each filter: ms per batch of 5,000, recall@100
     against ``brute_force.knn`` at k 100 (filtered as the search; at 50%
     per query at least the unfiltered recall@100 less 0.05, the tenant
     filter's printed only), every id admitted, the route launched and no
-    other (no list-major pass; for F and G no query-major kernel); the
-    full-probe contract at k 100 (against the unfiltered k 256) on 64
-    queries for both indexes (IVF-Flat's two searches on the pair-group
-    pass); B, G and F with the 50% filter against their plain versions on
-    1,000 queries at those shapes, and G and F unfiltered on the whole
-    batch of 5,000 (the main entries of the pair-group pass's rows).  In
-    the deep phase the same at k = kt = 128
-    refined to 100, on 1,000 queries with the three filters over the 10M
-    ids: ``fused`` (Kernel C query-major), ``codes`` and ``recon8`` (D
-    and E's pair-group pass; no query-major D or E kernel), the unfiltered
-    ``codes`` / ``recon8`` recall@100 through the pass and through the
-    query-major kernel swapped in (within 0.002), and C, D and E with the
-    50% filter against plain, D and E's query-major kernels held to the
-    same plain result and timed in turns beside the pass.
+    other (no list-major pass, no query-major kernel); the unfiltered
+    ``auto`` recall@100 through B's route and through its query-major
+    kernel swapped in (within 0.002, the batch's ms through each in
+    turns); the full-probe contract at k 100 (against the unfiltered k
+    256) on 64 queries for both indexes (IVF-Flat's two searches on the
+    pair-group pass); B, G and F with the 50% filter against their plain
+    versions on 1,000 queries at those shapes, and unfiltered on the
+    whole batch of 5,000 (the main entries of the pair-group pass's rows,
+    B's with pass 2 against ``torch.topk``).  In the deep phase the same
+    at k = kt = 128 refined to 100, on 1,000 queries with the three
+    filters over the 10M ids: ``fused`` (Kernel C: D's pair-group pass
+    and the merge), ``codes`` and ``recon8`` (D and E's pair-group pass;
+    no query-major kernel), each unfiltered batch's recall@100 through
+    the pass and through the query-major kernel swapped in (within 0.002,
+    ms in turns), and C, D and E with the 50% filter against plain, the
+    query-major kernels held to the same plain result and timed in turns
+    beside the route.
 13. CAGRA at full width (``conf/sift-like-1m.json`` entry
     ``raft_cagra.deg32``) on the same rows: ``cagra.build`` at
     ``IndexParams(graph_degree=32, intermediate_graph_degree=64)`` (seconds,
@@ -257,11 +265,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     pair-group pass launched, no other scan; ms a batch) and D and E's
     pass against plain on that batch's scan inputs (device split, groups,
     the modelled bytes a probed live byte, printed: the main entries of the
-    ``code_pair_list_scan`` / ``recon8_pair_list_scan`` rows); C's
-    query-major route and D and E's pass at k = kt = 128 on 1,000 queries,
-    D and E's query-major kernels held to the same plain result and timed
-    in turns, unfiltered and (phase 12) filtered; and each mode's batch
-    under the profiler.  Then the rest of IVF-PQ on the
+    ``code_pair_list_scan`` / ``recon8_pair_list_scan`` rows); C's route
+    past kt 64 (D's pass, then the merge, pass 2 against ``torch.topk``:
+    the main entry of C's row past kt 64) and D and E's pass at k = kt =
+    128 on 1,000 queries, the query-major kernels of C, D and E held to
+    the same plain result and timed in turns, unfiltered and (phase 12)
+    filtered; and each mode's batch under the profiler.  Then the rest of IVF-PQ on the
     deep index: ``lut`` on 1,000 queries; ``recon8`` at k = kt = 256 (the
     composition past Kernel E's gates) on 1,000 queries, the composition
     held to E at kt 128, and E's query-major kernel at a row width past
@@ -276,13 +285,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path (the
-    pair-group pass's four rows, ``flat_pair_list_scan``,
-    ``recon_pair_list_scan``, ``code_pair_list_scan`` and
+    pair-group pass's six rows, ``flat_pair_list_scan``,
+    ``recon_pair_list_scan``, B past kt 64 (G's pass + ``merge_pairs``),
+    C past kt 64 (D's pass + ``merge_pairs``), ``code_pair_list_scan`` and
     ``recon8_pair_list_scan``: launches from the unfiltered k-100 batches
-    and the pass held to plain on those batches' own scan inputs, the
-    query-major kernel's error against the same plain result and its ms
-    in turns as ``yardstick_query_major_max_abs_err`` and
-    ``yardstick_query_major_ms``; the 1,000-query checks under
+    and the route held to plain on those batches' own scan inputs (C's on
+    the 1,000-query deep ``fused`` batch), the query-major kernel's error
+    against the same plain result and its ms in turns as
+    ``yardstick_query_major_max_abs_err`` and
+    ``yardstick_query_major_ms``; B and C's pass 2 alone and
+    ``torch.topk`` over the same pairs in turns as ``pass2_ms`` and
+    ``pass2_topk_ms``, their bound the function's bytes as on every
+    route (the pair buffer's bytes printed apart as
+    ``pair_buffer_bytes``); the 1,000-query checks under
     ``also_checked``), and
     under ``also_checked`` the same measurements at the other shapes its
     paths give it; the ``nvidia-smi`` line; the result line ``{"ok":
@@ -566,7 +581,8 @@ EXTRA = ("library_tf32_ms", "yardstick_simt_ms", "yardstick_simt_device_ms",
          "unfiltered_pass1_device_ms", "tenant_pass1_device_ms",
          "broadcast_pass1_device_ms", "filter_bytes",
          "yardstick_query_major_ms", "yardstick_query_major_max_abs_err",
-         "ffma_bound_ms", "group")
+         "ffma_bound_ms", "group", "pass2_ms", "pass2_topk_ms",
+         "pass2_candidates", "pass2_launches")
 
 
 def at_shape(row, shape, launches):
@@ -936,86 +952,132 @@ def in_turns(kernel, yardstick, reps=KERNEL_REPS):
     return [k1, k2], [y1, y2]
 
 
+def merge_against_topk(label, pairs, k):
+    """Pass 2 (``merge_pairs``) alone on a pair-group pass's output
+    (``pairs()``: (nq, n_probes, kt) values and ids) against
+    ``torch.topk`` over the same (nq, n_probes * kt) candidates, the
+    merge's library yardstick: the same values, ids equal but at ties
+    (the merge breaks them by probe, then the pair's rank); the two timed
+    in turns.  Returns the row's pass-2 fields."""
+    import torch
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    pv, pi = pairs()
+    nq = pv.shape[0]
+    flat_v, flat_i = pv.reshape(nq, -1), pi.reshape(nq, -1)
+
+    def topk():
+        v, pos = torch.topk(flat_v, k, dim=1, largest=False)
+        i = torch.gather(flat_i, 1, pos)
+        return v, torch.where(torch.isinf(v), torch.full_like(i, -1), i)
+
+    mv, mi = pgs.merge_pairs(pv, pi, k)
+    tv, ti = topk()
+    assert torch.equal(mv, tv), f"{label}: the merge's values are not topk's"
+    assert ties_only(mv, mi, ti, 0.0), f"{label}: ids differ off ties"
+    ms, lib = in_turns(lambda: pgs.merge_pairs(pv, pi, k), topk)
+    print(f"{label}: pass 2 alone over {flat_v.shape[1]:,} candidates a "
+          f"query, in turns with torch.topk: merge_pairs {ms[0]:.4f} / "
+          f"{ms[1]:.4f} ms, topk {lib[0]:.4f} / {lib[1]:.4f} ms", flush=True)
+    return {"pass2_ms": ms, "pass2_topk_ms": lib,
+            "pass2_candidates": flat_v.shape[1]}
+
+
 def check_query_major(index, queries, nq, fused, k=None, filter_words=None,
                       launches=0):
     """Kernel B's or G's route past kt 64 against its plain version on the
-    first ``nq`` queries of a path's batch, its launch counted; an
+    first ``nq`` queries of a path's batch, its launches counted; an
     ``also_checked`` entry of its kernel's row, with ``launches`` (that
-    path's).  ``fused``: B's query-major ``scan_query_major`` at k = kt =
-    ``k``, 256 by default.  Else G at kt ``k`` (128 by default) through
-    ``ivf_pq_scan_recon``, which runs the pair-group pass
-    (``csrc/pair_list_scan.cu``, ``recon_pair_list_scan``): its device
-    split (grouping, pass), its bound (each probed list's live rows once
-    against bf16 operations), and the query-major kernel it replaced
-    (``recon_scan_query_major``, which must not launch on the route)
-    held to the same plain result and timed in turns with it.  With
-    ``filter_words`` (``nq`` rows) both run filtered, every returned id
-    must be admitted, and the bytes count the admission bits (one a query
-    and probed live row)."""
+    path's).  ``fused``: B at k = kt = ``k`` (256 by default) through
+    ``ivf_pq_scan_fused``, which runs Kernel G's pair-group pass
+    (``csrc/pair_list_scan.cu``, ``recon_pair_list_scan``) then pass 2
+    (``merge_pairs``); else G at kt ``k`` (128 by default) through
+    ``ivf_pq_scan_recon``, the pass alone.  Either way: its device split
+    (grouping, pass, and for B pass 2), its bound (each probed list's live
+    rows once against bf16 operations; for B the same bytes as on its
+    other routes: the pair buffer, which only this route writes, is
+    reported apart as ``pair_buffer_bytes``), and the query-major kernel
+    it replaced
+    (``scan_query_major`` / ``recon_scan_query_major``, which must not
+    launch on the route) held to the same plain result and timed in turns
+    with it; for B pass 2 alone against ``torch.topk`` over the same pairs
+    (``merge_against_topk``).  With ``filter_words`` (``nq`` rows) all
+    run filtered, every returned id must be admitted, and the bytes count
+    the admission bits (one a query and probed live row)."""
+    from raft_tpu_torch.neighbors import grouped
     from raft_tpu_torch.ops import pair_scan as ps
     from raft_tpu_torch.ops import pq_group_scan as pgs
 
     qrot, probes = probe(index, queries[:nq])
-    rot = qrot.shape[1]
+    rot, cap = qrot.shape[1], index.capacity
     fw, tag, adm = (), "", 0
     if filter_words is not None:
         fw, tag = (filter_words,), ", filtered"
         adm = admission_bytes(index.list_sizes, probes,
                               filter_words.stride(0) == 0)
+    lists = (index.list_recon, index.list_recon_sq, index.list_indices)
     if fused:
-        k = kt = min(k or pgs.K_MAX, index.capacity)
-        wrapper, src = pgs.scan_query_major, "pq_group_scan.cu"
-        spec = (f"scan_query_major (B, query-major{tag})", src,
-                "raft_tpu/ops/pq_group_scan_pallas.py:410", wrapper,
-                pgs.ivf_pq_scan_fused_plain,
-                (qrot, index.centers, probes, index.list_recon,
-                 index.list_recon_sq, index.list_indices, k, kt) + fw,
+        k = kt = min(k or pgs.K_MAX, cap)
+        assert pgs.scan_route(cap, rot, k, kt)[0] == "pair"
+        pair_bytes = probes.numel() * kt * 8
+        spec = (f"ivf_pq_scan_fused (B past kt 64: G's pair-group pass + "
+                f"merge{tag})", "pair_list_scan.cu",
+                "raft_tpu/ops/pq_group_scan_pallas.py:410",
+                pgs.ivf_pq_scan_fused, pgs.ivf_pq_scan_fused_plain,
+                (qrot, index.centers, probes, *lists, k, kt) + fw,
                 recon_rows_of(index), index.list_recon_sq, None,
                 rot * 2 + 8, adm, nq * k * 8, rot)
+        walked_kernel = pgs.scan_query_major
     else:
-        k = kt = min(k or 2 * pgs.KT_LIST_MAX, index.capacity)
-        wrapper, src = ps.recon_pair_list_scan, "pair_list_scan.cu"
+        k = kt = min(k or 2 * pgs.KT_LIST_MAX, cap)
         assert ps.recon_scan_route(rot, kt)[0] == "pair"
-        spec = (f"ivf_pq_scan_recon (G, pair-group pass{tag})", src,
+        pair_bytes = probes.numel() * kt * 8
+        spec = (f"ivf_pq_scan_recon (G, pair-group pass{tag})",
+                "pair_list_scan.cu",
                 "raft_tpu/ops/pq_group_scan_pallas.py:566",
                 ps.ivf_pq_scan_recon, ps.ivf_pq_scan_recon_plain,
-                (qrot, index.centers, probes, index.list_recon,
-                 index.list_recon_sq, index.list_indices, kt) + fw,
+                (qrot, index.centers, probes, *lists, kt) + fw,
                 recon_rows_of(index), index.list_recon_sq, None,
-                rot * 2 + 8, adm, probes.numel() * kt * 8, rot)
+                rot * 2 + 8, adm, pair_bytes, rot)
+        walked_kernel = ps.recon_scan_query_major
     assert kt > pgs.KT_LIST_MAX, "the large-kt route needs kt past 64"
-    before = wrapper.launches
-    walked = ps.recon_scan_query_major.launches
-    # G's query-major kernel is held to the same plain result as the pass
-    yardsticks = None if fused else {spec[0]: ps.recon_scan_query_major}
-    row = check_scans(index, qrot, probes, [spec], yardsticks)[0]
-    launched = wrapper.launches - before
+    wrapper, src = ps.recon_pair_list_scan, spec[1]
+    before = (wrapper.launches, pgs.merge_pairs.launches)
+    walked = walked_kernel.launches
+    # the query-major kernel is held to the same plain result as the route
+    row = check_scans(index, qrot, probes, [spec],
+                      {spec[0]: walked_kernel})[0]
+    launched = wrapper.launches - before[0]
     assert launched > 0, f"{spec[0]} never launched"
-    if not fused:
-        assert ps.recon_scan_query_major.launches == walked + 1, (
-            f"{spec[0]}: the query-major kernel ran on the route")
-        args = spec[5]
-        group = ps.pair_list_layout(rot, kt, False).group
-        row.update(list_major_split(
-            f"{spec[0]} split", lambda: ps.ivf_pq_scan_recon(*args),
-            probes, index.n_lists, probes.numel() * kt * 8, False,
-            "recon_pair_kernel", group))
-        ms, yard = in_turns(
-            lambda: ps.ivf_pq_scan_recon(*args),
-            lambda: ps.recon_scan_query_major(*args))
-        row.update(ms=ms[0], yardstick_query_major_ms=yard, group=group)
-        print(f"{spec[0]}: in turns with the query-major kernel "
-              f"(csrc/pair_scan.cu): pass {ms[0]:.3f} / {ms[1]:.3f} ms, "
-              f"query-major {yard[0]:.3f} / {yard[1]:.3f} ms; {group} pairs "
-              f"a group", flush=True)
+    assert (pgs.merge_pairs.launches > before[1]) == fused, (
+        f"{spec[0]}: pass 2 launched {pgs.merge_pairs.launches - before[1]}")
+    assert walked_kernel.launches == walked + 1, (
+        f"{spec[0]}: the query-major kernel ran on the route")
+    args = spec[5]
+    group = ps.pair_list_layout(rot, kt, False).group
+    row.update(list_major_split(
+        f"{spec[0]} split", lambda: spec[3](*args), probes, index.n_lists,
+        pair_bytes, fused, "recon_pair_kernel", group))
+    ms, yard = in_turns(lambda: spec[3](*args), lambda: walked_kernel(*args))
+    row.update(ms=ms[0], yardstick_query_major_ms=yard, group=group)
+    print(f"{spec[0]}: in turns with the query-major kernel "
+          f"({walked_kernel.__name__}): route {ms[0]:.3f} / {ms[1]:.3f} ms, "
+          f"query-major {yard[0]:.3f} / {yard[1]:.3f} ms; {group} pairs a "
+          f"group", flush=True)
+    if fused:
+        row.update(merge_against_topk(
+            spec[0], lambda: ps.recon_pair_list_scan(
+                qrot, index.centers, probes,
+                *grouped.build_groups(probes, index.n_lists, group), *lists,
+                kt, *fw), k))
     if filter_words is not None:
-        assert_admitted(spec[0], spec[3](*spec[5])[1], filter_words)
+        assert_admitted(spec[0], spec[3](*args)[1], filter_words)
     return at_shape(dict(row, source=f"raft_tpu_torch/csrc/{src}",
                          check_launches=launched),
                     ("filtered, 50% per query: " if fw else "")
                     + f"{nq:,} queries x {probes.shape[1]} probes, k {k}, kt "
-                    f"{kt}, capacity {index.capacity:,}, rot {rot}",
-                    launches)
+                    f"{kt}, capacity {cap:,}, rot {rot}, {group} pairs a "
+                    f"group", launches)
 
 
 def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
@@ -1025,18 +1087,21 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
     ``k``.  Each runs the route its gate picks: list-major where a pair
     keeps at most 64 candidates (``csrc/pq_code_list_scan.cu``, over the
     codes or, for E, the int8 rows, with the device split and the group
-    count); D and E up to kt 128 the pair-group pass
-    (``csrc/pair_list_scan.cu``: its device split, group count and size,
-    and the bytes its groups stream per probed live byte by
-    ``flat_stream_bytes``' model); else the query-major ``pq_code_scan.cu``
-    / ``pq_recon8_scan.cu``.  Each route's launch counter must move, and
-    on the pass the query-major kernel's must not.  With ``yardstick``,
-    D and E's query-major kernel, where the pass ran, is held to the same
-    plain result and timed in turns with the pass (the row's ``ms`` then
-    the pass's first turn).  With ``filter_words`` every kernel and plain
+    count); up to kt 128 the pair-group pass (``csrc/pair_list_scan.cu``,
+    for C then the merge: its device split, group count and size, the
+    pair buffer's bytes (not in the bound, which is the function's bytes
+    on every route) and the bytes its groups stream per probed live byte
+    by ``flat_stream_bytes``' model; for C pass 2 alone against
+    ``torch.topk``); else the query-major
+    ``pq_code_scan.cu`` / ``pq_recon8_scan.cu``.  Each route's launch
+    counter must move, and on the pass the query-major kernel's must not.
+    With ``yardstick``, the query-major kernel, where the pass ran, is
+    held to the same plain result and timed in turns with the pass (the
+    row's ``ms`` then the route's first turn).  With ``filter_words`` every kernel and plain
     version runs filtered (names marked), every returned id must be
     admitted, and the bytes count the admission bits (one a probed live
     row for a broadcast row, one a query and probed live row else)."""
+    from raft_tpu_torch.neighbors import grouped
     from raft_tpu_torch.ops import pq_code_scan as pcs
 
     qrot, probes = probe(index, queries)
@@ -1056,26 +1121,29 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
         return pcs.decode_codes(index.list_codes.reshape(-1, W)[slot], books,
                                 index.pq_bits).float()
 
-    def listed(pair_kt):
-        return not pcs.code_list_scan_reject_reason(
-            rot, index.pq_dim, index.pq_bits, min(pair_kt, cap))
-
     pair_out = nq * n_probes * kt * 8
     codes_src = "raft_tpu/ops/pq_code_scan_pallas.py:"
     # per spec: (route wrapper, query-major kernel, layout of the pass or
     # None, row bytes)
     specs, routes = [], []
     if "C" in kernels:
-        on_list = listed(min(kt, k))
+        route = pcs.codes_fused_route(cap, rot, index.pq_dim, index.pq_bits,
+                                      k, kt)[0]
+        c_kt = min(kt, cap, k)
         specs.append((
             "ivf_pq_scan_codes_fused" + tag,
-            "pq_code_list_scan.cu" if on_list else "pq_code_scan.cu",
+            {"list": "pq_code_list_scan.cu", "pair": "pair_list_scan.cu",
+             "query": "pq_code_scan.cu"}[route],
             codes_src + "282", pcs.ivf_pq_scan_codes_fused,
             pcs.ivf_pq_scan_codes_fused_plain, codes_args + (k, kt) + fw,
             decoded, index.list_code_rsq, None, W + 8,
             2 * books.numel() + adm, nq * k * 8, rot))
-        routes.append((pcs.code_list_scan if on_list
-                       else pcs.codes_fused_query_major, None, None, W + 8))
+        routes.append((
+            {"list": pcs.code_list_scan, "pair": pcs.code_pair_list_scan,
+             "query": pcs.codes_fused_query_major}[route],
+            pcs.codes_fused_query_major,
+            pcs.code_pair_list_layout(rot, index.pq_dim, index.pq_bits, c_kt)
+            if route == "pair" else None, W + 8))
     if "D" in kernels:
         route = pcs.codes_scan_route(cap, rot, index.pq_dim, index.pq_bits,
                                      min(kt, cap))[0]
@@ -1129,9 +1197,9 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
                 f"{row['name']}: the query-major kernel ran on the pass")
         if filter_words is not None:
             assert_admitted(row["name"], spec[3](*spec[5])[1], filter_words)
+        merged = row["name"].startswith("ivf_pq_scan_codes_fused")
+        pair_kt = min(kt, cap, k) if merged else min(kt, cap)
         if route in (pcs.code_list_scan, pcs.recon8_list_scan):
-            merged = row["name"].startswith("ivf_pq_scan_codes_fused")
-            pair_kt = min(kt, k) if merged else kt
             row.update(list_major_split(
                 f"{row['name']} (list-major, kt {kt})",
                 lambda spec=spec: spec[3](*spec[5]), probes, index.n_lists,
@@ -1139,12 +1207,14 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
                 "code_list_scan_kernel"))
         if layout is None:
             continue
-        # the pair-group pass: its split and groups, and the bytes the
-        # schedule model says it streams (printed only: not measured)
+        # the pair-group pass (for C then the merge): its split and groups,
+        # and the bytes the schedule model says it streams (printed only:
+        # not measured)
         row.update(list_major_split(
-            f"{row['name']} (pair-group pass, kt {kt})",
-            lambda spec=spec: spec[3](*spec[5]), probes, index.n_lists,
-            pair_out, False, "recon_pair_kernel", layout.group))
+            f"{row['name']} (pair-group pass{' + merge' if merged else ''}, "
+            f"kt {pair_kt})", lambda spec=spec: spec[3](*spec[5]), probes,
+            index.n_lists, nq * n_probes * pair_kt * 8, merged,
+            "recon_pair_kernel", layout.group))
         streamed, _, live_bytes = flat_stream_bytes(
             probes, index.list_indices, 1, row_bytes, layout.group)
         row.update(group=layout.group)
@@ -1162,21 +1232,31 @@ def check_code_kernels(index, queries, kt, kernels=("C", "D", "E"),
                   f"({walked.__name__}): pass {ms[0]:.3f} / {ms[1]:.3f} ms, "
                   f"query-major {yard[0]:.3f} / {yard[1]:.3f} ms; "
                   f"{layout.group} pairs a group", flush=True)
+        if merged:
+            row.update(merge_against_topk(
+                row["name"], lambda layout=layout, pair_kt=pair_kt,
+                spec=spec: pcs.code_pair_list_scan(
+                    qrot, index.centers, probes, *grouped.build_groups(
+                        probes, index.n_lists, layout.group),
+                    *codes_args[3:], pair_kt, *fw), k))
     return rows
 
 
 def check_codes_query_major(index, queries, nq):
     """Past kt 64 (k = kt = 128) on the first ``nq`` queries of the
-    batch: Kernel C's query-major route (``csrc/pq_code_scan.cu``) and D
-    and E's pair-group pass (``csrc/pair_list_scan.cu``), each against
-    its plain version, its launch counted, D and E's query-major kernels
-    (``codes_scan_query_major``, ``recon8_scan_query_major``) held to the
-    same plain result and timed in turns beside the pass; three
+    batch: the pair-group pass (``csrc/pair_list_scan.cu``) of Kernel C
+    (D's pass, then the merge, pass 2 also against ``torch.topk``), D and
+    E, each against its plain version, its launches counted, the
+    query-major kernels (``codes_fused_query_major``,
+    ``codes_scan_query_major``, ``recon8_scan_query_major``) held to the
+    same plain result and timed in turns beside the route; three
     ``also_checked`` entries."""
     from raft_tpu_torch.ops import pq_code_scan as pcs
+    from raft_tpu_torch.ops import pq_group_scan as pgs
 
     kt = min(2 * 64, index.capacity)
-    ran = (pcs.codes_fused_query_major, pcs.code_pair_list_scan,
+    # C's route is the only one of the three that merges
+    ran = (pgs.merge_pairs, pcs.code_pair_list_scan,
            pcs.recon8_pair_list_scan)
     before = [w.launches for w in ran]
     rows = check_code_kernels(index, queries[:nq], kt, ("C", "D", "E"), kt,
@@ -1184,7 +1264,7 @@ def check_codes_query_major(index, queries, nq):
     ran = [w.launches - b for w, b in zip(ran, before)]
     assert min(ran) > 0, f"the routes past kt 64 launched {ran}"
     return [at_shape(dict(row, check_launches=n),
-                     f"{'query-major' if i == 0 else 'pair-group pass'} "
+                     f"pair-group pass{' + merge' if i == 0 else ''} "
                      f"(csrc/{row['source'].split('/')[-1]}): "
                      f"{nq:,} queries x {N_PROBES} probes, k {kt}, kt {kt}, "
                      f"capacity {index.capacity:,}, rot {index.rot_dim}", 0)
@@ -2316,18 +2396,22 @@ def search_mode(res, index, db, queries, truth, label, sp, kernel,
 
 def same_build_routes(label, module, name, walked, kernels, search,
                       truth, gate=True, gap=ROUTE_RECALL_GAP,
-                      first="list-major"):
+                      first="list-major", turns=False):
     """Recall@k (k: ``truth``'s width) of one batch on one build
     (``search()`` gives its found ids) through the search's own route
     (``first``: the list-major pass, or the pair-group pass) and through
     the query-major scan ``walked`` swapped in for ``module.name``, the
     search's scan: what the routes' own rounding does to recall, with the
-    build held fixed.  ``kernels`` (the first route's wrapper, the
-    query-major wrapper): their launches say that each route ran alone.
-    Where ``gate``, the two must agree within ``gap``; else the comparison
-    is printed only."""
+    build held fixed.  With ``turns`` the batch's wall ms through each, in
+    turns (route, query-major, query-major, route); else one run each,
+    untimed.  ``kernels`` (the first route's
+    wrapper, the query-major wrapper): their launches say that each route
+    ran alone.  Where ``gate``, the two must agree within ``gap``; else
+    the comparison is printed only."""
+    import torch
+
     listed = getattr(module, name)
-    recall = {}
+    recall, ms = {}, {}
 
     def walked_scan(*args, filter_words=None, **kw):
         # the search's scan is called with its filter (None: unfiltered);
@@ -2335,22 +2419,30 @@ def same_build_routes(label, module, name, walked, kernels, search,
         assert filter_words is None, f"{label}: a filtered search"
         return walked(*args, **kw)
 
-    for route in (first, "query-major"):
+    order = (first, "query-major") + (("query-major", first) if turns
+                                      else ())
+    for route in order:
         before = [k.launches for k in kernels]
         if route == "query-major":
             setattr(module, name, walked_scan)
         try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             found = search()
+            torch.cuda.synchronize()
+            ms.setdefault(route, []).append(1e3 * (time.perf_counter() - t0))
         finally:
             setattr(module, name, listed)
         ran = tuple(k.launches > b for k, b in zip(kernels, before))
         assert ran == (route == first, route == "query-major"), (
             f"{label}: the {route} route did not run alone")
         hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
-        recall[route] = float(hits) / truth.numel()
+        recall.setdefault(route, []).append(float(hits) / truth.numel())
     at = truth.shape[1]
-    print(f"{label}, one build, recall@{at} by route: "
-          f"{json.dumps(recall)}", flush=True)
+    print(f"{label}, one build, recall@{at} by route: {json.dumps(recall)}"
+          + (f"; ms a batch in turns: {json.dumps(ms)}" if turns else ""),
+          flush=True)
+    recall = {route: r[0] for route, r in recall.items()}
     apart = abs(recall[first] - recall["query-major"])
     assert apart <= gap or not gate, (
         f"{label}: the routes' recall@{at} differ by {apart}")
@@ -2494,8 +2586,9 @@ def deep_path(dev):
     every compact-code scan mode through ``ivf_pq.search``, then every
     kernel of the path against its plain version at the shapes the path
     gives it.  Returns the kernel rows of C, D and E with the launches of
-    their modes' runs, and the deep-shape checks of Kernels A, B, G and H
-    (``at_shape`` entries); the rest of IVF-PQ's runs; and the rows, the
+    their modes' runs, the rows of their pair-group pass past kt 64 (C, D,
+    E), the deep-shape checks of Kernels A, B, G and H (``at_shape``
+    entries); the rest of IVF-PQ's runs; and the rows, the
     queries and their exact top-10 for the deep CAGRA phase."""
     import torch
     from raft_tpu_torch import DeviceResources
@@ -2622,18 +2715,24 @@ def deep_path(dev):
     pair_rows = deep_pair_batches(res, index, db, queries)
     walked = check_codes_query_major(index, queries, LARGE_KT_QUERIES)
     walked_f, unfiltered = deep_wide_filtered(res, index, db, queries)
-    print(f"deep k = kt = {WIDE_DEEP_KT} (C's query-major kernel, D and "
-          f"E's pair-group pass): {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    # C keeps its query-major checks; D and E's checks past kt 64 go under
-    # their pass's rows, the 1,000-query check with the launches of the
-    # unfiltered 1,000-query search
-    rows[0]["also_checked"] += [walked[0], rows_f[0], walked_f[0]]
+    print(f"deep k = kt = {WIDE_DEEP_KT} (the pair-group pass of C, D and "
+          f"E): {time.perf_counter() - t0:.1f} s", flush=True)
+    # the checks past kt 64 go under the pass's rows: C's main entry is its
+    # 1,000-query check with the launches of the unfiltered 1,000-query
+    # fused search (its k-100 batch); D and E's 1,000-query check has the
+    # launches of theirs
+    rows[0]["also_checked"].append(rows_f[0])
     for row, pair, i, mode in zip(rows[1:], pair_rows, (1, 2),
                                   ("codes", "recon8")):
         row["also_checked"].append(rows_f[i])
         pair["also_checked"] = [dict(walked[i], launches=unfiltered[mode]),
                                 walked_f[i]]
+    pair_rows.insert(0, dict(
+        walked[0], name="ivf_pq_scan_codes_fused (C past kt 64)",
+        route="cuda", replaces="raft_tpu/ops/pq_code_scan_pallas.py:282",
+        launches=unfiltered["fused"],
+        pass2_launches=unfiltered["fused merge"],
+        also_checked=[walked_f[0]]))
     b_deep = at_shape(
         check_kernel_b(index, queries),
         f"deep: {N_QUERIES:,} queries x {N_PROBES} probes, k {K_SEARCH}, kt "
@@ -4275,23 +4374,29 @@ def wide_searches(label, search, queries, filters, truths, route, others):
 
 
 def wide_filtered_ivf_pq(res, index, db, queries, filters, truths):
-    """The flagship at k 100 with each filter: ``auto`` (Kernel B's
-    query-major kernel at kt 200) and ``recon`` at kt WIDE_RECON_KT
-    (Kernel G's pair-group pass; its query-major kernel must not run),
-    search k 200 refined to 100; the full-probe contract at k 100
-    (``auto``); B and G filtered against their plain versions on the
-    first LARGE_KT_QUERIES queries at the searches' shapes, and G
-    unfiltered on the whole batch.  Returns the two filtered
-    ``also_checked`` entries (launches from the 50% runs), G's runs and
-    G's whole-batch entry (launches from the unfiltered run)."""
+    """The flagship at k 100 with each filter: ``auto`` (Kernel B past kt
+    64: G's pair-group pass and the merge, kt 200) and ``recon`` at kt
+    WIDE_RECON_KT (Kernel G's pair-group pass), search k 200 refined to
+    100, the query-major kernels never launched; the unfiltered ``auto``
+    batch's recall@100 through B's route and through its query-major
+    kernel swapped in on the one build (within PAIR_RECALL_GAP), and
+    their ms in turns; the full-probe contract at k 100 (``auto``); B and
+    G filtered against their plain versions on the first
+    LARGE_KT_QUERIES queries at the searches' shapes, and unfiltered on
+    the whole batch.  Returns the two filtered ``also_checked`` entries
+    (launches from the 50% runs), G's runs, and B's and G's whole-batch
+    entries (launches from the unfiltered runs: B's the merge's, its
+    pass's as ``pass1_launches``)."""
     from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.ops import pq_group_scan as pgs
 
     half = filters["50% per query"]
-    out = []
+    out, whole = [], {}
     for mode, kt, route, others in (
-            ("auto", 0, "scan_query_major", ("list_scan",)),
+            ("auto", 0, "recon_pair_list_scan",
+             ("list_scan", "scan_query_major", "recon_scan_query_major")),
             ("recon", WIDE_RECON_KT, "recon_pair_list_scan",
-             ("list_scan", "recon_scan_query_major"))):
+             ("list_scan", "scan_query_major", "recon_scan_query_major"))):
         sp = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode=mode,
                                  per_probe_topk=kt)
 
@@ -4306,23 +4411,39 @@ def wide_filtered_ivf_pq(res, index, db, queries, filters, truths):
             f"flagship IVF-PQ {mode} k {WIDE_K_SEARCH} -> {WIDE_K}"
             + (f", kt {kt}" if kt else ""), batch, queries, filters, truths,
             route, others)
-        launched = runs["50% per query"][2][route]
-        if mode == "recon":
+        merges = [r[2]["merge_pairs"] for r in runs.values()]
+        assert all(merges) == (mode == "auto") and (
+            any(merges) == (mode == "auto")), (
+            f"flagship {mode} k {WIDE_K_SEARCH}: pass 2 launched {merges}")
+        fused = mode == "auto"
+        if fused:
+            same_build_routes(
+                f"flagship IVF-PQ auto k {WIDE_K_SEARCH} -> {WIDE_K}",
+                ivf_pq, "ivf_pq_scan_fused", pgs.scan_query_major,
+                (pgs.merge_pairs, pgs.scan_query_major),
+                lambda batch=batch: batch(queries, WIDE_K, None),
+                truths[None], gap=PAIR_RECALL_GAP, first="pair-group",
+                turns=True)
+        else:
             recon_runs = runs
-            # the pass at the unfiltered batch's own shape (all its
-            # queries), held to plain: the main entry of its row
-            recon_full = check_query_major(
-                index, queries, queries.shape[0], False, kt, None,
-                runs[None][2][route])
+        # the route at the unfiltered batch's own shape (all its queries),
+        # held to plain: the main entry of its row
+        count = "merge_pairs" if fused else route
+        whole[mode] = check_query_major(
+            index, queries, queries.shape[0], fused, kt or WIDE_K_SEARCH,
+            None, runs[None][2][count])
+        if fused:
+            whole[mode]["pass1_launches"] = runs[None][2][route]
         out.append(check_query_major(
-            index, queries, LARGE_KT_QUERIES, mode == "auto",
-            kt or WIDE_K_SEARCH, half.words[:LARGE_KT_QUERIES], launched))
+            index, queries, LARGE_KT_QUERIES, fused, kt or WIDE_K_SEARCH,
+            half.words[:LARGE_KT_QUERIES],
+            runs["50% per query"][2][count]))
     full = ivf_pq.SearchParams(n_probes=index.n_lists)
     full_probe_contract(
         "flagship IVF-PQ auto",
         lambda q, k, f: ivf_pq.search(res, full, index, q, k, filter=f),
         queries, half.words, N_DB, WIDE_K, WIDE_FULL_PROBE_K)
-    return out, recon_runs, recon_full
+    return out, recon_runs, whole["recon"], whole["auto"]
 
 
 def wide_filtered_ivf_flat(res, index, queries, filters, truths):
@@ -4370,17 +4491,18 @@ def wide_filtered_ivf_flat(res, index, queries, filters, truths):
 def deep_wide_filtered(res, index, db, queries):
     """The deep index's first DEEP_FILTER_QUERIES queries at k = kt =
     WIDE_DEEP_KT, refined to WIDE_K, with the phase's three filters over
-    its 10M ids: ``fused`` (Kernel C's query-major kernel), ``codes`` (D's
-    pair-group pass) and ``recon8`` (E's), ms beside unfiltered, recall@100
-    against the filtered brute_force.knn, each run launching its route
-    and no other (no list-major pass; for D and E no query-major kernel);
-    the unfiltered ``codes`` and ``recon8`` batches' recall@100 through the
-    pass and through the query-major kernel swapped in on the one build,
-    within PAIR_RECALL_GAP; then C, D and E filtered (50% per query)
-    against their plain versions at that shape, D and E's query-major
-    kernels held to the same plain result and timed in turns beside the
-    pass.  Returns three ``also_checked`` entries (launches from the 50%
-    runs) and each mode's launches of its route in the unfiltered run."""
+    its 10M ids: ``fused`` (Kernel C: D's pair-group pass and the merge),
+    ``codes`` (D's pass) and ``recon8`` (E's), ms beside unfiltered,
+    recall@100 against the filtered brute_force.knn, each run launching
+    its route and no other (no list-major pass, no query-major kernel);
+    the unfiltered batches' recall@100 through the pass and through the
+    query-major kernel swapped in on the one build, within
+    PAIR_RECALL_GAP, and their ms in turns; then C, D and E filtered (50%
+    per query) against their plain versions at that shape, the
+    query-major kernels held to the same plain result and timed in turns
+    beside the route.  Returns three ``also_checked`` entries (launches
+    from the 50% runs) and each mode's launches of its pass in the
+    unfiltered run (``"fused merge"``: C's pass 2)."""
     from raft_tpu_torch.neighbors import ivf_pq, refine
     from raft_tpu_torch.ops import pq_code_scan as pcs
 
@@ -4390,8 +4512,10 @@ def deep_wide_filtered(res, index, db, queries):
     truths = ground_truths(res, db, q, filters, WIDE_K)
     launched, unfiltered = {}, {}
     for mode, route, others, scan, walked in (
-            ("fused", "codes_fused_query_major", ("code_list_scan",), None,
-             None),
+            ("fused", "code_pair_list_scan",
+             ("code_list_scan", "codes_fused_query_major",
+              "codes_scan_query_major"),
+             "ivf_pq_scan_codes_fused", pcs.codes_fused_query_major),
             ("codes", "code_pair_list_scan",
              ("code_list_scan", "codes_scan_query_major"),
              "ivf_pq_scan_codes", pcs.codes_scan_query_major),
@@ -4411,11 +4535,16 @@ def deep_wide_filtered(res, index, db, queries):
                              others)
         launched[mode] = runs["50% per query"][2][route]
         unfiltered[mode] = runs[None][2][route]
-        if walked is not None:
-            same_build_routes(
-                label, pcs, scan, walked, (getattr(pcs, route), walked),
-                lambda batch=batch: batch(q, WIDE_K, None), truths[None],
-                gap=PAIR_RECALL_GAP, first="pair-group")
+        merges = [r[2]["merge_pairs"] for r in runs.values()]
+        assert all(merges) == (mode == "fused") and (
+            any(merges) == (mode == "fused")), (
+            f"{label}: pass 2 launched {merges}")
+        if mode == "fused":
+            unfiltered["fused merge"] = runs[None][2]["merge_pairs"]
+        same_build_routes(
+            label, pcs, scan, walked, (getattr(pcs, route), walked),
+            lambda batch=batch: batch(q, WIDE_K, None), truths[None],
+            gap=PAIR_RECALL_GAP, first="pair-group", turns=mode == "fused")
     rows = check_code_kernels(index, q, WIDE_DEEP_KT, k=WIDE_DEEP_KT,
                               filter_words=filters["50% per query"].words,
                               yardstick=True)
@@ -4426,8 +4555,8 @@ def deep_wide_filtered(res, index, db, queries):
                      launched[mode])
             for row, mode, name in zip(
                 rows, ("fused", "codes", "recon8"),
-                ("query-major", "pair-group pass", "pair-group pass"))], \
-        unfiltered
+                ("pair-group pass + merge", "pair-group pass",
+                 "pair-group pass"))], unfiltered
 
 
 def deep_pair_batches(res, index, db, queries):
@@ -4496,16 +4625,16 @@ def filtered_phase(res, index, flat, db, queries):
                                          truths)
     t0 = time.perf_counter()
     wide = ground_truths(res, db, queries, filters, WIDE_K)
-    (b_wide, g_wide), g_runs, g_full = wide_filtered_ivf_pq(
+    (b_wide, g_wide), g_runs, g_full, b_full = wide_filtered_ivf_pq(
         res, index, db, queries, filters, wide)
     f_wide, f_runs, f_full = wide_filtered_ivf_flat(res, flat, queries,
                                                     filters, wide)
-    print(f"filtered k {WIDE_K} (B's query-major kernel, the pair-group "
-          f"passes of G and F): {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"filtered k {WIDE_K} (the pair-group passes of B, G and F): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return (filters, truths, pq_rows, f_row, pq_runs, flat_runs, numbers,
             {"B": b_wide, "G": g_wide, "F": f_wide,
              "G_runs": g_runs, "F_runs": f_runs, "G_full": g_full,
-             "F_full": f_full})
+             "F_full": f_full, "B_full": b_full})
 
 # ---------------------------------------------------------------------------
 # the rest of IVF-PQ: the small-dim kernel's batch axis, per-cluster books,
@@ -5050,7 +5179,8 @@ def main() -> int:
     policy_cost(f"search alone (batch of {N_QUERIES})", lambda:
                 ivf_pq.search(res, sp, index, queries, K_SEARCH))
 
-    phase("kernel B vs plain (the main path's batch on the built index)")
+    phase("kernel B vs plain (the main path's batch on the built index; "
+          "past kt 64 G's pair-group pass + the merge)")
     row_b = check_kernel_b(index, queries)
     pq_same_build_routes(res, index, db, queries, truth, "flagship auto",
                          sp, True)
@@ -5165,7 +5295,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("deep path at full width: 10M x 96, n_lists 8192, pq_dim 48")
-    (rows_cde, rows_de_pair, a_deep, b_deep, g_deep, h_deep, hs_deep, rest,
+    (rows_cde, rows_cde_pair, a_deep, b_deep, g_deep, h_deep, hs_deep, rest,
      deep_data) = deep_path(dev)
     rest.update({"flagship lut": lut_runs, "per-cluster flagship": pc_runs})
     print(f"the rest of IVF-PQ (ms a batch, recall@10): {json.dumps(rest)}; "
@@ -5209,7 +5339,13 @@ def main() -> int:
     row_gp = dict(wide["G_full"], name="recon_pair_list_scan", route="cuda",
                   replaces="raft_tpu/ops/pq_group_scan_pallas.py:566",
                   also_checked=[g_query_major, wide["G"]])
-    for row in (row_fp, row_gp, *rows_de_pair):
+    # Kernel B past kt 64 (G's pass + the merge): its main entry the
+    # unfiltered auto k-200 batch, its launches the merge's there
+    row_bp = dict(wide["B_full"], name="ivf_pq_scan_fused (B past kt 64)",
+                  route="cuda",
+                  replaces="raft_tpu/ops/pq_group_scan_pallas.py:410",
+                  also_checked=[b_query_major, wide["B"]])
+    for row in (row_fp, row_gp, row_bp, *rows_cde_pair):
         assert row["launches"] > 0, f"{row['name']}: never launched"
     row_walk["also_checked"].append(at_shape(
         walk_f, f"filtered, 50% per query: {N_QUERIES:,} queries, itopk 64, "
@@ -5226,11 +5362,10 @@ def main() -> int:
                  also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["merge_pairs"],
                  pass1_launches=launches["list_scan"],
-                 also_checked=[b_deep, b_query_major, b_filtered,
-                               wide["B"]])] + \
+                 also_checked=[b_deep, b_filtered])] + \
         rows_cde + [
-                     row_f, row_g, row_fp, row_gp, *rows_de_pair, row_h,
-                     row_hs, row_i, row_walk] + \
+                     row_f, row_g, row_fp, row_gp, row_bp, *rows_cde_pair,
+                     row_h, row_hs, row_i, row_walk] + \
         rows_profiles
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"nvidia-smi: {smi_line}", flush=True)

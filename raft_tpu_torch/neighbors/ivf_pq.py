@@ -25,12 +25,14 @@ scan chosen by ``scan_mode`` as the JAX package resolves it
 
 - fused recon (``"auto"`` / ``"fused"`` with a recon cache and codes not
   eligible): Kernel B, :mod:`raft_tpu_torch.ops.pq_group_scan` (the pairs
-  grouped by list, then its two list-major passes; Kernel G + finalize
-  where Kernel B's gate refuses the shape);
+  grouped by list, then a per-pair pass and the merge: the list-major pass
+  where a pair keeps at most 64 candidates, Kernel G's pair-group pass up
+  to 256; Kernel G + finalize where Kernel B's gate refuses the shape);
 - fused codes (``"fused"``, and ``"auto"`` without a recon cache): Kernel
   C, :func:`raft_tpu_torch.ops.pq_code_scan.ivf_pq_scan_codes_fused` (the
-  pairs grouped by list, the list-major pass over the codes and the merge
-  where a pair keeps at most 64 candidates; else the query-major kernel);
+  pairs grouped by list, a per-pair pass over the codes and the merge: the
+  list-major pass where a pair keeps at most 64 candidates, Kernel D's
+  pair-group pass up to 128; else the query-major kernel);
 - ``"recon"`` / ``use_reconstruction=True``: Kernel G
   (:func:`raft_tpu_torch.ops.pair_scan.ivf_pq_scan_recon`), each (query,
   probe) pair's top kt, then each query's top k (:func:`_finalize_topk`);
@@ -52,7 +54,11 @@ InnerProduct: codes and recon8 resolve to recon, or to the lookup-table scan
 without a recon cache, as in the JAX package; recon is the composition of
 the JAX package's XLA twin (:func:`_search_recon_ip`; Kernels B and G,
 like their Pallas kernels, are L2 only, and a fused request counts a
-fallback with reason ``"dtype"``).
+fallback with reason ``"dtype"``).  The other metrics the JAX package
+searches (CosineExpanded, L1, CorrelationExpanded, ...) it scores as L2:
+so does the port, routed as the JAX package routes them (codes and
+recon8 to recon or the lookup-table scan; Kernel B's gate refuses the
+metric, reason ``"dtype"``, and Kernel G + finalize runs).
 
 The code and int8 caches are derived lazily by the first search that
 needs them (the recon cache too, with a warning, for ``"recon"`` on an
@@ -760,16 +766,24 @@ def _with_code_rsq(index: Index) -> Index:
     return index
 
 
+# f32(1/127), the factor XLA folds ``x / 127.0`` into (exact as a double)
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
 def _quantize_recon(list_recon: torch.Tensor, rot_pad: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """bf16 recon lists -> (int8 rows zero-padded to ``rot_pad``, per-list
     f32 scale, dequantized row norms).  One symmetric scale per list,
-    ``max|recon| / 127`` (1.0 for an all-zero list); ``round`` half to
-    even, clipped to ±127; ``rsq8 = scale² · Σ q²`` in fp32."""
+    ``max|recon| · f32(1/127)`` (1.0 for an all-zero list): the JAX
+    package writes ``maxabs / 127.0``, which XLA compiles to a product
+    with the rounded reciprocal, and ``maxabs / 127`` can differ from it
+    by an ulp; ``round(r / scale)`` half to even (a true division, as
+    XLA keeps it), clipped to ±127; ``rsq8 = scale² · Σ q²`` in fp32."""
     r = list_recon.float()
     rot = r.shape[2]
     maxabs = r.abs().amax(dim=(1, 2))
-    scale = torch.where(maxabs > 0, maxabs / 127.0, torch.ones_like(maxabs))
+    scale = torch.where(maxabs > 0, maxabs * _INV_127,
+                        torch.ones_like(maxabs))
     q = torch.clamp(torch.round(r / scale[:, None, None]), -127, 127)
     rsq8 = scale[:, None] ** 2 * (q * q).sum(-1)
     qi = torch.nn.functional.pad(q.to(torch.int8), (0, rot_pad - rot))
@@ -853,8 +867,13 @@ def _search_fused_recon(index, qrot, probes, k, kt, fw=None):
     """Kernel B over the bf16 recon cache, each query's top k in kernel;
     where Kernel B's gate refuses the shape, Kernel G + finalize, counted
     in ``search.fused_fallbacks`` with the gate's reason (the JAX
-    package's fused_fallback).  ``fw``: the filter's words, or None."""
-    reason = scan_reject_reason(index.capacity, index.rot_dim, k, kt)
+    package's fused_fallback).  Off the L2 family (CosineExpanded, L1,
+    CorrelationExpanded, ..., which the JAX package scores as L2 over the
+    recon cache) the gate refuses the metric, as the Pallas
+    ``fused_reject_reason`` does: reason "dtype".  ``fw``: the filter's
+    words, or None."""
+    reason = ("dtype" if index.metric not in L2_METRICS else
+              scan_reject_reason(index.capacity, index.rot_dim, k, kt))
     if reason:
         _note_fused_fallback(reason)
         return _search_recon(index, qrot, probes, k, kt, fw)
@@ -1120,8 +1139,6 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
         fw = words_on_device(fw, queries.device)
     mode, want_fused = _resolve_mode(params, index)
     ip_metric = index.metric == DistanceType.InnerProduct
-    expects(index.metric in L2_METRICS or ip_metric,
-            f"ivf_pq.search: metric {index.metric} not supported")
     if mode == "codes" and not _codes_mode_eligible(index):
         mode = "lut"
     if mode == "lut":

@@ -293,8 +293,17 @@ def flat_pair_list_reject_reason(rows: int, dim: int, kt: int,
 def recon_pair_list_reject_reason(rot: int, kt: int) -> str:
     """Why Kernel G's pair-group pass cannot take this shape ('' when it
     can): bf16 rows a multiple of 8 wide up to 1,024, kt up to
-    ``PAIR_KT_MAX``."""
-    return _pair_list_reason(rot, kt, False)
+    ``PAIR_KT_MAX``, and a layout within the card's shared memory (at 32
+    pairs a group every such shape fits; the gate tests it, as D and E's
+    gates test theirs, so a lowered limit refuses the shape here)."""
+    reason = _pair_list_reason(rot, kt, False)
+    if reason:
+        return reason
+    fits, last = pair_list_fit(rot, kt)
+    if fits is None:
+        return (f"kt {kt} needs {last.total} B of shared memory at "
+                f"{last.group} pairs a group (limit {_SMEM_LIMIT})")
+    return ""
 
 
 def flat_scan_route(rows: int, dim: int, kt: int, sub_lists: int = 1

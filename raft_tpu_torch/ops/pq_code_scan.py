@@ -10,8 +10,8 @@ They replace the three kernels of ``raft_tpu/ops/pq_code_scan_pallas.py``:
 - Kernel E, :func:`ivf_pq_scan_recon8`: ``:441 grouped_recon8_scan``, each
   pair's top kt over the int8 cache.
 
-C has two routes, D three, chosen by shape and counted apart, as Kernels
-B and G have theirs (E's below):
+C and D have three routes each, chosen by shape and counted apart, as
+Kernels B and G have theirs (E's below):
 
 - **list-major** (a pair keeps at most ``KT_LIST_MAX`` candidates:
   ``min(kt, k)`` for C, kt for D): the pairs grouped by list
@@ -21,12 +21,13 @@ B and G have theirs (E's below):
   its bf16 ``wgmma`` operand, one read of a list per group; alone it is
   D), and for C :func:`raft_tpu_torch.ops.pq_group_scan.merge_pairs`
   (pass 2), in query chunks within ``PAIR_BUFFER_BYTES``;
-- **pair-group** (D from kt 65 to ``KT_MAX``): the pairs grouped by list
-  in groups of 64 or 32 (:func:`code_pair_list_layout`) and
-  :func:`code_pair_list_scan` (``csrc/pair_list_scan.cu``: Kernel G's
-  pair-group pass with each step's codes decoded in shared memory, one
-  read of a list per group, each pair's top kt kept by a threshold and a
-  candidate buffer);
+- **pair-group** (what the list-major gate refuses, up to ``KT_MAX``):
+  the pairs grouped by list in groups of 64 or 32
+  (:func:`code_pair_list_layout`) and :func:`code_pair_list_scan`
+  (``csrc/pair_list_scan.cu``: Kernel G's pair-group pass with each step's
+  codes decoded in shared memory, one read of a list per group, each
+  pair's top kt kept by a threshold and a candidate buffer); for C then
+  ``merge_pairs``, in query chunks within ``PAIR_BUFFER_BYTES``;
 - **query-major** (what the routes before refuse):
   :func:`codes_fused_query_major` (C) and :func:`codes_scan_query_major`
   (D), ``csrc/pq_code_scan.cu``, one block per query walking its probes
@@ -41,8 +42,9 @@ Kernel E, :func:`ivf_pq_scan_recon8`, has D's three routes: at kt <=
 bf16 in shared memory and the list's scale applied in the fold), up to
 ``KT_MAX`` :func:`recon8_pair_list_scan` (the pair-group pass with that
 row source), else :func:`recon8_scan_query_major`
-(``csrc/pq_recon8_scan.cu``).  :func:`codes_scan_route` and
-:func:`recon8_scan_route` say which route a shape takes and why.  The
+(``csrc/pq_recon8_scan.cu``).  :func:`codes_fused_route`,
+:func:`codes_scan_route` and :func:`recon8_scan_route` say which route a
+shape takes and why.  The
 source notes say what bounds each kernel on an H100 (bytes) and what its
 design does about it.  C and D read ``list_codes`` (n_lists, cap, W) uint8 as the
 index holds it: the TPU's lane-major (n_lists, Wi, cap) int32 words and
@@ -347,6 +349,23 @@ def _route(listed: str, paired: str) -> Tuple[str, str]:
     return "query", f"{listed}; pair-group route: {paired}"
 
 
+def codes_fused_route(cap: int, rot: int, pq_dim: int, pq_bits: int,
+                      k: int, kt: int) -> Tuple[str, str]:
+    """``(route, why)``: the pass :func:`ivf_pq_scan_codes_fused` runs for
+    this shape on the card before ``merge_pairs`` — ``"list"``
+    (:func:`code_list_scan`) or ``"pair"`` (:func:`code_pair_list_scan`),
+    Kernel D's two grouped passes at the pair kt ``min(kt, cap, k)`` — or
+    ``"query"`` (:func:`codes_fused_query_major`, no merge), and the
+    refusals of the routes before it ('' for the list-major pass).
+    :func:`codes_fused_reject_reason` says whether the query-major kernel
+    takes what the others refuse."""
+    pair_kt = min(kt, cap, k)
+    return _route(code_list_scan_reject_reason(rot, pq_dim, pq_bits,
+                                               pair_kt),
+                  code_pair_list_reject_reason(rot, pq_dim, pq_bits,
+                                               pair_kt))
+
+
 def codes_scan_route(cap: int, rot: int, pq_dim: int, pq_bits: int,
                      kt: int) -> Tuple[str, str]:
     """``(route, why)``: the kernel :func:`ivf_pq_scan_codes` runs for this
@@ -368,30 +387,6 @@ def recon8_scan_route(cap: int, rot_pad: int, kt: int) -> Tuple[str, str]:
                   recon8_pair_list_reject_reason(rot_pad, kt))
 
 
-def _either_route(listed: str, walked: str) -> str:
-    """A two-route gate's reason: '' when either route takes the shape,
-    else both routes' reasons."""
-    if not listed or not walked:
-        return ""
-    return f"{listed}; query-major route: {walked}"
-
-
-def codes_fused_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
-                              k: int, kt: int) -> str:
-    """Why Kernel C cannot take this shape ('' when it can): the
-    list-major route takes ``min(kt, k) <= KT_LIST_MAX``, the query-major
-    route what its gate admits."""
-    reason = _codes_layout_reason(rot, pq_dim, pq_bits)
-    if reason:
-        return reason
-    if not 0 < k <= K_MAX:       # the merge's bound, which pass 1 lacks
-        return f"k={k} outside 1..{K_MAX}"
-    return _either_route(
-        code_list_scan_reject_reason(rot, pq_dim, pq_bits, min(kt, k)),
-        codes_fused_query_major_reject_reason(cap, rot, pq_dim, pq_bits, k,
-                                              kt))
-
-
 def _any_route(listed: str, paired: str, walked: str) -> str:
     """A three-route gate's reason: '' when any route takes the shape,
     else the three routes' reasons."""
@@ -399,6 +394,26 @@ def _any_route(listed: str, paired: str, walked: str) -> str:
         return ""
     return (f"{listed}; pair-group route: {paired}; query-major route: "
             f"{walked}")
+
+
+def codes_fused_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
+                              k: int, kt: int) -> str:
+    """Why Kernel C cannot take this shape ('' when it can): the
+    list-major route takes a pair kt ``min(kt, cap, k) <= KT_LIST_MAX``,
+    the pair-group route one up to ``KT_MAX`` where its shared memory
+    holds, both at any capacity; the query-major route what its gate
+    admits."""
+    reason = _codes_layout_reason(rot, pq_dim, pq_bits)
+    if reason:
+        return reason
+    if not 0 < k <= K_MAX:       # the merge's bound, which pass 1 lacks
+        return f"k={k} outside 1..{K_MAX}"
+    pair_kt = min(kt, cap, k)
+    return _any_route(
+        code_list_scan_reject_reason(rot, pq_dim, pq_bits, pair_kt),
+        code_pair_list_reject_reason(rot, pq_dim, pq_bits, pair_kt),
+        codes_fused_query_major_reject_reason(cap, rot, pq_dim, pq_bits, k,
+                                              kt))
 
 
 def codes_reject_reason(cap: int, rot: int, pq_dim: int, pq_bits: int,
@@ -647,9 +662,12 @@ def codes_fused_query_major(qrot, centers, probes, list_codes, codebooks,
     """Kernel C's query-major route (``csrc/pq_code_scan.cu``
     ``codes_fused_kernel``): one block per query walks its probes with the
     query's top k in shared memory (with ``filter_words``, over the rows
-    it admits); :func:`ivf_pq_scan_codes_fused` takes it where ``min(kt,
-    k)`` exceeds ``KT_LIST_MAX`` or the list-major gate refuses the shape.
-    CUDA tensors launch it; CPU tensors run the plain version."""
+    it admits); :func:`ivf_pq_scan_codes_fused` takes it where the
+    list-major and pair-group gates refuse the shape
+    (:func:`codes_fused_route`: a pair kt past ``KT_MAX``, or past the
+    pass's shared memory), and it stays a same-run yardstick of the
+    pair-group route.  CUDA tensors launch it; CPU tensors run the plain
+    version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_codes_fused_plain(
             qrot, centers, probes, list_codes, codebooks, list_rsq,
@@ -690,14 +708,16 @@ def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals (nq, k) f32, ids (nq, k) i32)``: each query's top k over its
     probed lists, scanned from the packed codes.  CUDA tensors run Kernel
-    C: at ``min(kt, k) <= KT_LIST_MAX`` the list-major route — the pairs
-    grouped by list, :func:`code_list_scan` and ``merge_pairs``, in query
-    chunks within ``PAIR_BUFFER_BYTES`` — else
-    :func:`codes_fused_query_major` (a dispatch by shape between two
-    kernels, each counted on its own ``launches``).  CPU tensors run the
-    plain version.  A shape neither route can hold raises with its
-    reason; with ``filter_words``, each query's top k over the rows it
-    admits, on either route."""
+    C on the route :func:`codes_fused_route` picks by shape: the pairs
+    grouped by list, each pair's top ``min(kt, cap, k)`` by
+    :func:`code_list_scan` (up to ``KT_LIST_MAX``) or
+    :func:`code_pair_list_scan` (on :func:`code_pair_list_layout`'s groups,
+    up to ``KT_MAX``), then ``merge_pairs``, in query chunks within
+    ``PAIR_BUFFER_BYTES``; else :func:`codes_fused_query_major` (each
+    kernel counted on its own ``launches``).  CPU tensors run the plain
+    version.  A shape no route can hold raises with its reasons; with
+    ``filter_words``, each query's top k over the rows it admits, on every
+    route."""
     cap, rot, pq_dim = _check_codes(
         "ivf_pq_scan_codes_fused", qrot, centers, probes, list_codes,
         codebooks, list_rsq, list_indices, pq_bits)
@@ -709,16 +729,22 @@ def ivf_pq_scan_codes_fused(qrot, centers, probes, list_codes, codebooks,
     kt = min(kt, cap)
     reason = codes_fused_reject_reason(cap, rot, pq_dim, pq_bits, k, kt)
     expects(not reason, f"ivf_pq_scan_codes_fused: {reason}")
-    if code_list_scan_reject_reason(rot, pq_dim, pq_bits, pair_kt):
+    route, _ = codes_fused_route(cap, rot, pq_dim, pq_bits, k, kt)
+    if route == "query":
         return codes_fused_query_major(qrot, centers, probes, list_codes,
                                        codebooks, list_rsq, list_indices,
                                        pq_bits, k, kt, filter_words)
+    if route == "pair":
+        scan = code_pair_list_scan
+        group = code_pair_list_layout(rot, pq_dim, pq_bits, pair_kt).group
+    else:
+        scan, group = code_list_scan, grouped.GROUP
     return list_major_topk(
         probes, centers.shape[0], pair_kt, k,
-        lambda rows, p, gl, sp: code_list_scan(
+        lambda rows, p, gl, sp: scan(
             qrot[rows], centers, p, gl, sp, list_codes, codebooks, list_rsq,
             list_indices, pq_bits, pair_kt,
-            None if filter_words is None else filter_words[rows]))
+            None if filter_words is None else filter_words[rows]), group)
 
 
 # ---------------------------------------------------------------------------

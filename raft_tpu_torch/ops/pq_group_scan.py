@@ -2,16 +2,24 @@
 per-query top-k.
 
 Replaces ``raft_tpu/ops/pq_group_scan_pallas.py:410 grouped_l2_scan_fused``
-(body ``_kernel_fused``).  Two routes, chosen by shape:
+(body ``_kernel_fused``).  Three routes, chosen by shape
+(:func:`scan_route`), the pairs keeping ``min(kt, cap, k)``:
 
-- **list-major** (``min(kt, k) <= KT_LIST_MAX``): the pairs grouped by
-  list (:func:`raft_tpu_torch.neighbors.grouped.build_groups`), then two
+- **list-major** (up to ``KT_LIST_MAX``): the pairs grouped by list
+  (:func:`raft_tpu_torch.neighbors.grouped.build_groups`), then two
   kernels of ``csrc/pq_list_scan.cu`` — :func:`list_scan` (pass 1, each
   pair's top kt on bf16 ``wgmma``, one read of a list per group; alone it
   is Kernel G) and :func:`merge_pairs` (pass 2, each query's top k of its
   pairs, in probe order);
-- **query-major** (larger kt, up to ``K_MAX``): :func:`scan_query_major`,
-  ``csrc/pq_group_scan.cu``, one block per query walking its probes.
+- **pair-group** (up to ``K_MAX``): the pairs grouped by list in groups of
+  64 or 32, Kernel G's pair-group pass
+  (:func:`raft_tpu_torch.ops.pair_scan.recon_pair_list_scan`,
+  ``csrc/pair_list_scan.cu``: one read of a list per group, each pair's
+  top kt kept by a threshold and a candidate buffer) as pass 1, then
+  :func:`merge_pairs`;
+- **query-major** (what both refuse: rows past 1,024 dims):
+  :func:`scan_query_major`, ``csrc/pq_group_scan.cu``, one block per query
+  walking its probes; chip_smoke's same-run yardstick.
 
 The source notes say what bounds each on an H100 (bytes) and what the
 design does about it.  None of the TPU layout comes over: no one-hot
@@ -128,17 +136,40 @@ def query_major_reject_reason(cap: int, rot: int, k: int, kt: int) -> str:
     return ""
 
 
+def scan_route(cap: int, rot: int, k: int, kt: int) -> Tuple[str, str]:
+    """``(route, why)``: the pass :func:`ivf_pq_scan_fused` runs for this
+    shape on the card before :func:`merge_pairs` — ``"list"``
+    (:func:`list_scan`), ``"pair"`` (Kernel G's pair-group pass,
+    :func:`raft_tpu_torch.ops.pair_scan.recon_pair_list_scan`) — or
+    ``"query"`` (:func:`scan_query_major`, no merge), and the refusals of
+    the routes before it ('' for the list-major route).  The pairs keep
+    ``min(kt, cap, k)``; :func:`scan_reject_reason` says whether the
+    query-major kernel takes what the others refuse."""
+    # pair_scan imports this module
+    from raft_tpu_torch.ops.pair_scan import recon_pair_list_reject_reason
+    pair_kt = min(kt, cap, k)
+    listed = list_scan_reject_reason(rot, pair_kt)
+    if not listed:
+        return "list", ""
+    paired = recon_pair_list_reject_reason(rot, pair_kt)
+    if not paired:
+        return "pair", listed
+    return "query", f"{listed}; pair-group route: {paired}"
+
+
 def scan_reject_reason(cap: int, rot: int, k: int, kt: int) -> str:
     """Why Kernel B cannot take this shape ('' when it can): the
-    list-major route takes ``min(kt, k) <= KT_LIST_MAX``, the query-major
-    route the rest of what its gate admits."""
+    list-major route takes a pair kt ``min(kt, cap, k)`` up to
+    ``KT_LIST_MAX``, the pair-group route up to ``K_MAX`` at rows up to
+    1,024 dims, both at any capacity; the query-major route the rest of
+    what its gate admits.  A refusal names all three routes' reasons."""
     if not 0 < k <= K_MAX:       # the merge's bound, which pass 1 lacks
         return f"k={k} outside 1..{K_MAX}"
-    listed = list_scan_reject_reason(rot, min(kt, k))
-    if not listed:
+    route, why = scan_route(cap, rot, k, kt)
+    if route != "query":
         return ""
     walked = query_major_reject_reason(cap, rot, k, kt)
-    return walked and f"{listed}; query-major route: {walked}"
+    return walked and f"{why}; query-major route: {walked}"
 
 
 def _check(qrot, centers, probes, list_recon, list_recon_sq, list_indices,
@@ -436,9 +467,10 @@ def scan_query_major(qrot, centers, probes, list_recon, list_recon_sq,
     """Kernel B's query-major route (``csrc/pq_group_scan.cu``): one block
     per query walks its probes with the query's top k in shared memory
     (with ``filter_words``, over the rows it admits);
-    :func:`ivf_pq_scan_fused` takes it where ``min(kt, k)`` exceeds
-    ``KT_LIST_MAX``.  CUDA tensors launch it; CPU tensors run the plain
-    version."""
+    :func:`ivf_pq_scan_fused` takes it where the list-major and pair-group
+    gates refuse the shape (:func:`scan_route`), and it stays a same-run
+    yardstick of the pair-group route.  CUDA tensors launch it; CPU tensors
+    run the plain version."""
     if not qrot.is_cuda:
         return ivf_pq_scan_fused_plain(qrot, centers, probes, list_recon,
                                        list_recon_sq, list_indices, k, kt,
@@ -476,13 +508,15 @@ def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(vals (nq, k) f32, ids (nq, k) i32)``: each query's top-k over its
     probed lists (with ``filter_words``, over the rows it admits).  CUDA
-    tensors run Kernel B: at ``min(kt, k) <= KT_LIST_MAX`` the list-major
-    route — the pairs grouped by list, then :func:`list_scan` and
-    :func:`merge_pairs`, in query chunks whose pair buffer stays within
-    ``PAIR_BUFFER_BYTES`` — else :func:`scan_query_major` (a dispatch by
-    shape between two kernels, each counted on its own ``launches``; both
-    take the filter).  CPU tensors run the plain version.  A shape neither
-    route can hold raises with its reason."""
+    tensors run Kernel B on the route :func:`scan_route` picks by shape: a
+    pair kt ``min(kt, cap, k)`` up to ``KT_LIST_MAX``, the pairs grouped by
+    list, :func:`list_scan` and :func:`merge_pairs`; up to ``K_MAX``, the
+    pairs grouped in :func:`raft_tpu_torch.ops.pair_scan.pair_list_layout`'s
+    groups, Kernel G's pair-group pass and :func:`merge_pairs` (both in
+    query chunks whose pair buffer stays within ``PAIR_BUFFER_BYTES``);
+    else :func:`scan_query_major` (each kernel counted on its own
+    ``launches``; every route takes the filter).  CPU tensors run the
+    plain version.  A shape no route can hold raises with its reasons."""
     n_lists, cap, rot = _check(qrot, centers, probes, list_recon,
                                list_recon_sq, list_indices)
     pair_kt = min(kt, cap, k)
@@ -493,32 +527,43 @@ def ivf_pq_scan_fused(qrot, centers, probes, list_recon, list_recon_sq,
     kt = min(kt, cap)
     reason = scan_reject_reason(cap, rot, k, kt)
     expects(not reason, f"ivf_pq_scan_fused: {reason}")
-    if list_scan_reject_reason(rot, pair_kt):
+    route, _ = scan_route(cap, rot, k, kt)
+    if route == "query":
         return scan_query_major(qrot, centers, probes, list_recon,
                                 list_recon_sq, list_indices, k, kt,
                                 filter_words)
+    if route == "pair":
+        # pair_scan imports this module
+        from raft_tpu_torch.ops import pair_scan as ps
+        scan, group = (ps.recon_pair_list_scan,
+                       ps.pair_list_layout(rot, pair_kt, False).group)
+    else:
+        scan, group = list_scan, grouped.GROUP
     return list_major_topk(
         probes, n_lists, pair_kt, k,
-        lambda rows, p, gl, sp: list_scan(
+        lambda rows, p, gl, sp: scan(
             qrot[rows], centers, p, gl, sp, list_recon, list_recon_sq,
             list_indices, pair_kt,
-            None if filter_words is None else filter_words[rows]))
+            None if filter_words is None else filter_words[rows]), group)
 
 
-def list_major_topk(probes, n_lists: int, pair_kt: int, k: int, pass1
+def list_major_topk(probes, n_lists: int, pair_kt: int, k: int, pass1,
+                    group: int = grouped.GROUP
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each query's top k through a list-major route (Kernels B and C):
-    per chunk of queries whose (chunk, n_probes, pair_kt) pair buffer stays
-    within ``PAIR_BUFFER_BYTES``, the chunk's pairs grouped by list
-    (:func:`raft_tpu_torch.neighbors.grouped.build_groups`), ``pass1(rows,
-    probes, group_list, slot_pairs)`` — ``rows`` the chunk's slice of the
-    queries — for the pairs' top ``pair_kt``, then :func:`merge_pairs`."""
+    """Each query's top k through a grouped route (Kernels B and C, on the
+    list-major pass or the pair-group pass): per chunk of queries whose
+    (chunk, n_probes, pair_kt) pair buffer stays within
+    ``PAIR_BUFFER_BYTES``, the chunk's pairs grouped by list in groups of
+    ``group`` (:func:`raft_tpu_torch.neighbors.grouped.build_groups`),
+    ``pass1(rows, probes, group_list, slot_pairs)`` — ``rows`` the chunk's
+    slice of the queries — for the pairs' top ``pair_kt``, then
+    :func:`merge_pairs`."""
     nq, n_probes = probes.shape
     step = max(1, PAIR_BUFFER_BYTES // max(1, n_probes * pair_kt * 8))
     parts = []
     for s in range(0, nq, step):
         p = probes[s:s + step]
         pair_v, pair_i = pass1(slice(s, s + step), p,
-                               *grouped.build_groups(p, n_lists))
+                               *grouped.build_groups(p, n_lists, group))
         parts.append(merge_pairs(pair_v, pair_i, k))
     return cat_parts(parts, (k,), probes.device)

@@ -35,9 +35,10 @@ and one of the port's own design, with no JAX script behind it:
   parent and change in turns on one card; ``query_major_turns.py`` and
   ``cagra_walk_turns.py`` likewise for B-G's query-major kernels and for
   Kernel I's walk and hop kernels at chip_smoke's shapes;
-  ``pair_list_turns.py`` (run by path from the root): F and G's
+  ``pair_list_turns.py`` (run by path from the root): F, G, D and E's
   pair-group pass at each group size beside the query-major kernel it
-  replaced, in turns;
+  replaced, in turns, and (``fused``) B and C's route, the pass then
+  ``merge_pairs``, beside theirs, with pass 2 beside ``torch.topk``;
   ``cagra_deep_witness.py`` (run by path from a checkout's root): the
   CAGRA deep regime's intermediate graph recall stage by stage, at 1M
   rows against the default regime and at 10M under three walk-table

@@ -5,9 +5,22 @@ D and E: ``csrc/pq_code_scan.cu``, ``csrc/pq_recon8_scan.cu``), at each
 group size the pass takes, and at Kernel F's k-10 shapes with the list-major pass
 (``csrc/flat_list_scan.cu``) that keeps kt up to 64.
 
-Run by path from the root of a checkout (``codes``: D and E only)::
+Run by path from the root of a checkout (``codes``: D and E only;
+``fused``: B and C only)::
 
-    python3 raft_tpu_torch/profiles/pair_list_turns.py [codes]
+    python3 raft_tpu_torch/profiles/pair_list_turns.py [codes | fused]
+
+``fused`` times Kernels B and C's pair-group route (G's or D's pass as
+pass 1 of ``list_major_topk``, then ``merge_pairs``) at each group size
+that fits beside the query-major kernel it replaced
+(``scan_query_major`` / ``codes_fused_query_major``) in one palindrome,
+then pass 2 alone beside ``torch.topk`` over the same (nq, n_probes * kt)
+pairs (merge, topk, topk, merge; the values held equal): B on the
+flagship's lists (k = kt 65, 128, 200, 256 on 1,000 queries, 200 on
+5,000), C on the deep index's (k = kt 65, 100, 128 on 1,000) and on the
+flagship's 64 8-bit codes of rot 128 at k = kt 41 and 64 (1,000 and
+5,000 queries), where C's list-major books do not fit and the route
+takes the pass at kt up to 64 too.
 
 It draws random lists on the card from a fixed seed at the shapes
 chip_smoke holds these routes at — IVF-Flat nlist 4096's 2,048 super-tiles
@@ -193,6 +206,122 @@ def code_turns(g, dev):
             {"group_picked": pcs.recon8_pair_list_layout(rot, kt).group})
 
 
+def fitting(layout_at):
+    """The group sizes 64 and 32 whose layout (``layout_at(group)``) fits
+    the card's shared memory."""
+    from raft_tpu_torch.core.error import LogicError
+
+    out = []
+    for group in (64, 32):
+        try:
+            layout_at(group)
+        except LogicError:
+            continue
+        out.append(group)
+    return out
+
+
+def route_turns(label, n_lists, k, probes, pass_at, walked, groups, picked):
+    """B or C's route (``pass_at(group, ...)`` as pass 1 of
+    ``list_major_topk``) at each of ``groups`` and the query-major kernel
+    ``walked`` in a palindrome, then pass 2 alone on the picked group's
+    pairs beside ``torch.topk``; two JSON lines."""
+    import torch
+    from raft_tpu_torch.neighbors import grouped
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    def route(group):
+        return pgs.list_major_topk(
+            probes, n_lists, k, k,
+            lambda rows, p, gl, sp: pass_at(group, rows, p, gl, sp), group)
+
+    palindrome(label, {f"route_group{g}_ms": lambda g=g: route(g)
+                       for g in groups},
+               walked, "query_major_ms", {"group_picked": picked})
+    nq = probes.shape[0]
+    pv, pi = pass_at(picked, slice(0, nq), probes,
+                     *grouped.build_groups(probes, n_lists, picked))
+    flat = pv.reshape(nq, -1)
+
+    def topk():
+        return torch.topk(flat, k, dim=1, largest=False)
+    assert torch.equal(pgs.merge_pairs(pv, pi, k)[0], topk()[0]), (
+        f"{label}: merge and topk values differ")
+    palindrome(f"{label}, pass 2", {"merge_pairs_ms": lambda: pgs.merge_pairs(
+        pv, pi, k)}, topk, "torch_topk_ms",
+        {"candidates_a_query": flat.shape[1]})
+
+
+def fused_b_turns(g, dev):
+    """Kernel B at the flagship's shape: G's pass + merge against
+    ``scan_query_major``."""
+    import torch
+    from raft_tpu_torch.ops import pair_scan as ps
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    n_lists, cap, rot = 4096, 416, 128
+    recon = (torch.randn(n_lists, cap, rot, generator=g, device=dev)
+             * 0.125).to(torch.bfloat16)
+    rsq = (recon.float() ** 2).sum(-1)
+    ids = lists(g, n_lists, cap, dev)
+    centers = torch.randn(n_lists, rot, generator=g, device=dev) * 0.125
+    for nq, k in ((NQ, 65), (NQ, 128), (NQ, 200), (NQ, 256), (5 * NQ, 200)):
+        qrot = torch.randn(nq, rot, generator=g, device=dev) * 0.125
+        probes = probes_of(g, nq, n_lists, 96, dev)
+
+        def pass_at(group, rows, p, gl, sp, qrot=qrot, k=k):
+            return ps.recon_pair_list_scan(
+                qrot[rows], centers, p, gl, sp, recon, rsq, ids, k,
+                group=group)
+        route_turns(
+            f"B {nq:,} q x 96 probes, {n_lists} lists of {cap}, rot {rot}, "
+            f"k = kt = {k}", n_lists, k, probes, pass_at,
+            lambda qrot=qrot, probes=probes, k=k: pgs.scan_query_major(
+                qrot, centers, probes, recon, rsq, ids, k, k),
+            fitting(lambda gr, k=k: ps.pair_list_layout(rot, k, False,
+                                                        group=gr)),
+            ps.pair_list_layout(rot, k, False).group)
+
+
+def fused_c_turns(g, dev, n_lists, cap, pq_dim, shapes):
+    """Kernel C on ``n_lists`` lists of up to ``cap`` rows of ``pq_dim``
+    8-bit codes (pq_len 2): D's pass + merge against
+    ``codes_fused_query_major`` at each (nq, k = kt) of ``shapes``."""
+    import torch
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+
+    pq_len, bits = 2, 8
+    rot = pq_dim * pq_len
+    codes = torch.randint(0, 256, (n_lists, cap, pq_dim), generator=g,
+                          device=dev, dtype=torch.uint8)
+    books = torch.randn(pq_dim, 1 << bits, pq_len, generator=g,
+                        device=dev) * 0.125
+    rsq = torch.cat([(pcs.decode_codes(codes[s:s + 512], books, bits)
+                      .float() ** 2).sum(-1)
+                     for s in range(0, n_lists, 512)])
+    ids = lists(g, n_lists, cap, dev)
+    centers = torch.randn(n_lists, rot, generator=g, device=dev) * 0.125
+    for nq, k in shapes:
+        assert pcs.codes_fused_route(cap, rot, pq_dim, bits, k, k)[0] == \
+            "pair"
+        qrot = torch.randn(nq, rot, generator=g, device=dev) * 0.125
+        probes = probes_of(g, nq, n_lists, 96, dev)
+
+        def pass_at(group, rows, p, gl, sp, qrot=qrot, k=k):
+            return pcs.code_pair_list_scan(
+                qrot[rows], centers, p, gl, sp, codes, books, rsq, ids,
+                bits, k, group=group)
+        route_turns(
+            f"C {nq:,} q x 96 probes, {n_lists} lists of {cap}, "
+            f"{pq_dim} {bits}-bit codes of rot {rot}, k = kt = {k}",
+            n_lists, k, probes, pass_at,
+            lambda qrot=qrot, probes=probes, k=k: pcs.codes_fused_query_major(
+                qrot, centers, probes, codes, books, rsq, ids, bits, k, k),
+            fitting(lambda gr, k=k: pcs.code_pair_list_layout(
+                rot, pq_dim, bits, k, gr)),
+            pcs.code_pair_list_layout(rot, pq_dim, bits, k).group)
+
+
 def main() -> None:
     import torch
 
@@ -210,6 +339,17 @@ def main() -> None:
     print(json.dumps({"card": smi}), flush=True)
     if sys.argv[1:] == ["codes"]:
         code_turns(g, dev)
+        return
+    if sys.argv[1:] == ["fused"]:
+        fused_b_turns(g, dev)
+        torch.cuda.empty_cache()
+        # the deep index's shape past kt 64, then the flagship's codes,
+        # whose 64 x 256 books leave the list-major pass past kt 40
+        fused_c_turns(g, dev, 8192, 1856, 48,
+                      ((NQ, 65), (NQ, 100), (NQ, 128)))
+        torch.cuda.empty_cache()
+        fused_c_turns(g, dev, 4096, 416, 64,
+                      ((NQ, 41), (NQ, 64), (5 * NQ, 64)))
         return
 
     # IVF-Flat nlist 4096's super-tiles (F 2): kt 100 and 256, then k 10

@@ -364,11 +364,10 @@ def test_code_list_scan_smem_bytes_mirrors_the_layout(rot, pq_dim, pq_bits):
 
 def test_code_gates_route_by_kt_and_name_their_reason():
     """The list-major pass takes a pair kt up to 64 at any capacity and
-    any rot that pq_dim divides; C's two-route gate refuses only where
-    both routes do, naming both reasons, and D's three-route gate only
-    where all three do (its pair-group pass takes kt 65-128 at any
-    capacity), naming all three; no shape the query-major kernels took is
-    refused."""
+    any rot that pq_dim divides; C's and D's three-route gates refuse
+    only where all three routes do (the pair-group pass takes a pair kt of
+    65-128 at any capacity), naming all three; no shape the query-major
+    kernels took is refused."""
     assert not pcs.code_list_scan_reject_reason(96, 48, 8, 64)
     assert "outside 1..64" in pcs.code_list_scan_reject_reason(96, 48, 8, 65)
     assert not pcs.code_list_scan_reject_reason(36, 12, 4, 4)   # rot % 8
@@ -387,13 +386,16 @@ def test_code_gates_route_by_kt_and_name_their_reason():
     reason = pcs.codes_reject_reason(big, 96, 48, 8, 129)
     assert "list-major" in reason and "pair-group route" in reason
     assert "query-major route" in reason
-    reason = pcs.codes_fused_reject_reason(big, 96, 48, 8, 100, 100)
-    assert "list-major" in reason and "shared memory" in reason
+    assert not pcs.codes_fused_reject_reason(big, 96, 48, 8, 100, 100)
+    assert pcs.codes_fused_route(big, 96, 48, 8, 100, 100)[0] == "pair"
+    reason = pcs.codes_fused_reject_reason(big, 96, 48, 8, 200, 200)
+    assert "list-major" in reason and "pair-group route" in reason
+    assert "shared memory" in reason
     # the flagship at kt 64: the query-major kernels take it
     assert not pcs.codes_reject_reason(416, 128, 64, 8, 64)
     assert not pcs.codes_fused_reject_reason(416, 128, 64, 8, 64, 64)
     assert "k=300" in pcs.codes_fused_reject_reason(64, 32, 8, 8, 300, 4)
-    # every shape the query-major gates take, the two-route gates take
+    # every shape the query-major gates take, the three-route gates take
     for cap in (40, 416, 2368, 20_000):
         for rot, pq_dim, bits in ((96, 48, 8), (128, 64, 8), (36, 12, 4),
                                   (256, 64, 8)):

@@ -10,6 +10,7 @@ tests/test_torch_ivf_pq.py holds Kernel B.  Searches run at
 ``packed_extract=False``: the port never truncates mantissa bits."""
 
 import dataclasses
+import io
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +31,7 @@ LEAVES = ("centers", "codebooks", "list_codes", "list_indices",
           "list_code_rsq", "list_recon_i8", "list_recon_scale",
           "list_recon_i8_sq")
 K, N_PROBES = 10, 8
+CPU = DeviceResources(device="cpu")
 
 
 def _overlap(a, b, k=K):
@@ -207,13 +209,45 @@ def test_rsq_from_codes_matches_jax(carried, pq_bits):
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("pq_bits", [8, 4])
-def test_quantize_recon_gives_the_jax_int8_cache_exactly(carried, pq_bits):
+@pytest.fixture(scope="module")
+def per_cluster():
+    """A per-cluster index ``raft_tpu`` built (seed 1) over 3,000 x 40
+    standard-normal rows, ``n_lists=12``, ``pq_dim=10``, with its int8
+    cache, and its serialized stream."""
+    x = np.random.default_rng(0).standard_normal((3000, 40)).astype(
+        np.float32)
+    res = JaxResources(seed=1)
+    index = jax_ivf_pq.build(res, jax_ivf_pq.IndexParams(
+        n_lists=12, pq_dim=10, kmeans_n_iters=4, codebook_kind=1), x)
+    index = jax_ivf_pq._with_recon8(index)
+    buf = io.BytesIO()
+    jax_ivf_pq.serialize(res, buf, index)
+    return index, buf.getvalue()
+
+
+@pytest.mark.parametrize("case", [8, 4, "per-cluster"])
+def test_quantize_recon_gives_the_jax_int8_cache_exactly(carried,
+                                                         per_cluster, case):
     """Same int8 rows, scales and dequantized norms bit for bit, from the
     recon cache and from an index without one (decoded on the fly); the
-    port pads rows to 16 bytes where the JAX package pads to 128."""
-    _, _, built = carried
-    index, port, *_ = built[pq_bits]
+    port pads rows to 16 bytes where the JAX package pads to 128.  The
+    per-cluster index has list maxima whose ``x / 127`` and ``x · f32(1 /
+    127)`` round apart (XLA folds the division into the product)."""
+    if case == "per-cluster":
+        index, stream = per_cluster
+        port = ivf_pq.deserialize(CPU, io.BytesIO(stream))
+        bare = ivf_pq.deserialize(CPU, io.BytesIO(stream),
+                                  cache_reconstructions=False)
+        maxabs = np.abs(np.asarray(index.list_recon, np.float32)).max(
+            axis=(1, 2))
+        assert (maxabs / np.float32(127)
+                != maxabs * (np.float32(1) / np.float32(127))).any()
+    else:
+        _, _, built = carried
+        index, port, *_ = built[case]
+        bare = _carry(index, list_recon=1, list_recon_sq=1,
+                      list_recon_i8=1, list_recon_scale=1,
+                      list_recon_i8_sq=1)
     rot = port.rot_dim
     qi, scale, rsq8 = ivf_pq._quantize_recon(port.list_recon, 128)
     np.testing.assert_array_equal(qi.numpy(), np.asarray(index.list_recon_i8))
@@ -221,8 +255,6 @@ def test_quantize_recon_gives_the_jax_int8_cache_exactly(carried, pq_bits):
                                   np.asarray(index.list_recon_scale))
     np.testing.assert_array_equal(rsq8.numpy(),
                                   np.asarray(index.list_recon_i8_sq))
-    bare = _carry(index, list_recon=1, list_recon_sq=1, list_recon_i8=1,
-                  list_recon_scale=1, list_recon_i8_sq=1)
     ivf_pq._with_recon8(bare)
     assert bare.list_recon is None
     assert bare.list_recon_i8.shape[2] == ivf_pq._round_up(rot, 16)
@@ -425,18 +457,21 @@ def test_recon8_serves_an_index_the_code_scans_cannot(odd_bits_index):
     (dict(cap=64, rot=32, pq_dim=8, pq_bits=5, k=10, kt=4), "pq_bits=5"),
     (dict(cap=64, rot=30, pq_dim=8, pq_bits=8, k=10, kt=4), "multiple"),
     (dict(cap=64, rot=32, pq_dim=8, pq_bits=8, k=300, kt=4), "k=300"),
-    (dict(cap=40_000, rot=96, pq_dim=48, pq_bits=8, k=100, kt=100),
+    (dict(cap=40_000, rot=96, pq_dim=48, pq_bits=8, k=200, kt=200),
      "shared memory"),
 ])
 def test_code_scan_gates_name_their_reason(shape, reason):
-    """Kernels C and D's gates refuse only where both routes do, and then
-    name both reasons: a capacity past the query-major kernel's shared
-    memory is refused only where a pair keeps more than 64 candidates
-    (the list-major route takes any capacity)."""
+    """Kernels C and D's gates refuse only where every route does, and
+    then name each route's reason: a capacity past the query-major
+    kernel's shared memory is refused only where a pair keeps more than
+    128 candidates (the list-major and pair-group routes take any
+    capacity)."""
     got = pcs.codes_fused_reject_reason(**shape)
     assert reason in got
     if reason == "shared memory":
         assert "list-major" in got and "query-major route" in got
+        assert "pair-group route" in got
+        assert not pcs.codes_fused_reject_reason(**dict(shape, k=100))
         assert not pcs.codes_fused_reject_reason(**dict(shape, k=10))
     assert not pcs.codes_fused_reject_reason(
         cap=2048, rot=96, pq_dim=48, pq_bits=8, k=20, kt=4)
@@ -456,18 +491,22 @@ def test_code_scan_gates_name_their_reason(shape, reason):
 def test_fused_codes_fallback_is_counted_with_its_reason(carried, monkeypatch,
                                                          refused):
     """Where Kernel C's gate refuses the shape (here a capacity past a
-    lowered shared-memory limit, or k past 256), a fused search runs
+    shared-memory limit lowered below its three routes, or k past 256), a
+    fused search runs
     Kernel D + finalize, as the JAX package's fused_fallback does: the
     same results as scan_mode="codes", one count, the gate's reason."""
     _, q, built = carried
     port = _carry(built[8][0])
     k, word = K, "shared memory"
-    if refused == "capacity":          # below both of Kernel C's routes
-        monkeypatch.setattr(pcs, "_SMEM_LIMIT", min(
+    if refused == "capacity":          # below all three of C's routes
+        limit = min(
             pcs.codes_fused_smem_bytes(port.capacity, port.rot_dim,
                                        port.pq_dim, 8),
-            pcs.code_list_scan_smem_bytes(port.rot_dim, port.pq_dim, 8,
-                                          4)) - 1)
+            pcs.code_list_scan_smem_bytes(port.rot_dim, port.pq_dim, 8, 4),
+            pcs.code_pair_list_layout(port.rot_dim, port.pq_dim, 8, 4,
+                                      group=32).total) - 1
+        monkeypatch.setattr(pcs, "_SMEM_LIMIT", limit)
+        monkeypatch.setattr(pcs.ps, "_SMEM_LIMIT", limit)
     else:
         k, word = 300, "k=300"
     res = DeviceResources(device="cpu")

@@ -88,10 +88,17 @@ def _random_index(dev, n_lists, cap, rot, seed):
 
 
 def _route_launches():
-    """Launches of Kernel B's list-major passes 1 and 2 and of its
-    query-major route."""
+    """Launches of Kernel B's list-major pass 1, of pass 2, of its
+    query-major route and of Kernel G's pair-group pass (B's pass 1 past
+    kt 64)."""
     return np.array([pgs.list_scan.launches, pgs.merge_pairs.launches,
-                     pgs.scan_query_major.launches])
+                     pgs.scan_query_major.launches,
+                     ps.recon_pair_list_scan.launches])
+
+
+# the launches _route_launches counts on each of Kernel B's routes
+B_ROUTE = {"list": (1, 1, 0, 0), "pair": (0, 1, 0, 1),
+           "query": (0, 0, 1, 0)}
 
 
 @pytest.mark.parametrize("cap,rot,k,kt", [(96, 128, 10, 10), (96, 128, 10, 4),
@@ -103,9 +110,24 @@ def _route_launches():
 def test_ivf_pq_scan_kernel_matches_plain(dev, cap, rot, k, kt):
     """Distances within 1e-4 at every rank, the same exhausted ranks, no
     padding or tombstone id, ids consistent with their distances.  kt' =
-    min(kt, k) up to KT_LIST_MAX runs the list-major passes, above it the
-    query-major kernel: each route's counter moves, the other's not."""
+    min(kt, cap, k) up to KT_LIST_MAX runs the list-major passes, above it
+    G's pair-group pass and the merge (``scan_route``): each route's
+    counters move, the others' not."""
     _check_scan_fused(dev, cap, rot, k, kt, 64, 12)
+
+
+@pytest.mark.parametrize("cap,rot,k,kt", [(200, 64, 100, 100),
+                                          (300, 128, 256, 256),
+                                          (300, 128, 200, 65),
+                                          (600, 1024, 129, 256)])
+def test_fused_query_major_kernel_matches_plain(dev, cap, rot, k, kt):
+    """Kernel B's query-major kernel (``scan_query_major``) past kt 64,
+    called as itself: at the card's shared memory ``scan_route`` gives
+    every such shape to G's pair-group pass and the merge, so the kernel
+    serves as their yardstick; held to the plain version as the route is
+    (``_check_scan_fused``), its own counter moving alone."""
+    assert pgs.scan_route(cap, rot, k, kt)[0] == "pair"
+    _check_scan_fused(dev, cap, rot, k, kt, 64, 12, walked=True)
 
 
 @pytest.mark.parametrize("cap,rot,k,kt,n_lists,n_probes", [
@@ -119,7 +141,8 @@ def test_ivf_pq_scan_kernel_chunked_merge_matches_plain(dev, cap, rot, k, kt,
     _check_scan_fused(dev, cap, rot, k, kt, n_lists, n_probes)
 
 
-def _check_scan_fused(dev, cap, rot, k, kt, n_lists, n_probes):
+def _check_scan_fused(dev, cap, rot, k, kt, n_lists, n_probes,
+                      walked=False):
     nq = 40
     centers, recon, rsq, ids = _random_index(dev, n_lists, cap, rot, cap + k)
     rng = np.random.default_rng(7)
@@ -130,12 +153,11 @@ def _check_scan_fused(dev, cap, rot, k, kt, n_lists, n_probes):
     probes[0, -1] = -1                 # skipped by both versions
     probes = torch.from_numpy(probes).to(dev)
     before = _route_launches()
-    vk, ik = pgs.ivf_pq_scan_fused(qrot, centers, probes, recon, rsq, ids,
-                                   k, kt)
+    vk, ik = (pgs.scan_query_major if walked else pgs.ivf_pq_scan_fused)(
+        qrot, centers, probes, recon, rsq, ids, k, kt)
     torch.cuda.synchronize()
-    listed = min(kt, cap, k) <= pgs.KT_LIST_MAX
-    assert tuple(_route_launches() - before) == (
-        (1, 1, 0) if listed else (0, 0, 1))
+    route = "query" if walked else pgs.scan_route(cap, rot, k, kt)[0]
+    assert tuple(_route_launches() - before) == B_ROUTE[route]
     vp, ip = pgs.ivf_pq_scan_fused_plain(qrot, centers, probes, recon, rsq,
                                          ids, k, kt)
     fin = torch.isfinite(vp)
@@ -153,14 +175,17 @@ def _check_scan_fused(dev, cap, rot, k, kt, n_lists, n_probes):
 
 @pytest.mark.parametrize("n_probes,kt,k", [
     (128, 20, 100), (204, 10, 40), (170, 12, 48), (700, 3, 12),
-    (289, 7, 224), (2100, 1, 256), (100, 64, 256), (96, 20, 20), (1, 5, 5)])
+    (289, 7, 224), (2100, 1, 256), (100, 64, 256), (96, 20, 20), (1, 5, 5),
+    (96, 128, 128), (96, 200, 200), (96, 256, 256), (95, 100, 128)])
 def test_merge_pairs_kernel_is_bit_equal_to_a_stable_sort(dev, n_probes, kt,
                                                           k):
     """Pass 2 alone on sorted pair lists with ties across probes and
     exhausted tails: each query's top k equals a stable sort of its
     candidates in probe order (ties to the earlier probe, then the pair's
     own rank), (+inf, -1) on exhausted ranks, to the bit.  The shapes take
-    one and several chunks and tree levels of an odd list count."""
+    one and several chunks and tree levels of an odd list count, and the
+    pair-group routes' 96 probes x kt 128-256 (up to 24,576 candidates a
+    query)."""
     nq = 6
     rng = np.random.default_rng(n_probes * kt + k)
     v = np.sort(rng.integers(0, 40, (nq, n_probes, kt)).astype(np.float32)
@@ -269,7 +294,7 @@ CODE_SHAPES = [  # cap, pq_dim, pq_len, pq_bits, k, kt
 
 def _code_routes():
     """Launches of the list-major codes pass, pass 2, Kernels C's and D's
-    query-major routes, and D's pair-group pass."""
+    query-major routes, and D's pair-group pass (C's pass 1 past kt 64)."""
     return np.array([pcs.code_list_scan.launches, pgs.merge_pairs.launches,
                      pcs.codes_fused_query_major.launches,
                      pcs.codes_scan_query_major.launches,
@@ -279,22 +304,27 @@ def _code_routes():
 # the launches _code_routes counts on each of Kernel D's routes
 D_ROUTE = {"list": (1, 0, 0, 0, 0), "pair": (0, 0, 0, 0, 1),
            "query": (0, 0, 0, 1, 0)}
+# and on each of Kernel C's
+C_ROUTE = {"list": (1, 1, 0, 0, 0), "pair": (0, 1, 0, 0, 1),
+           "query": (0, 0, 1, 0, 0)}
 
 
-def _code_listed(rot, pq_dim, pq_bits, kt):
-    """Whether the list-major codes pass takes a pair kt at this shape."""
-    return not pcs.code_list_scan_reject_reason(rot, pq_dim, pq_bits, kt)
+# Kernel C past the pair-group pass's kt 128: its query-major kernel
+C_QUERY_SHAPES = [(400, 64, 2, 8, 200, 200), (300, 48, 2, 8, 256, 129),
+                  (300, 32, 2, 4, 130, 256)]
 
 
-@pytest.mark.parametrize("cap,pq_dim,pq_len,pq_bits,k,kt", CODE_SHAPES)
+@pytest.mark.parametrize("cap,pq_dim,pq_len,pq_bits,k,kt",
+                         CODE_SHAPES + C_QUERY_SHAPES)
 def test_codes_fused_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
                                           k, kt):
     """Kernel C: distances within 1e-4 at every rank (the tensor core or
     the LUT sums the plain version's exact products in another order), the
     same exhausted ranks, no padding or tombstone id, ids equal but at
-    ties.  min(kt, k) up to 64 runs the list-major pass and the merge,
-    above it (or where the books do not fit) the query-major kernel: the
-    launch counters say which."""
+    ties.  A pair kt min(kt, cap, k) up to 64 runs the list-major pass and
+    the merge, up to 128 (or where the list-major books do not fit) D's
+    pair-group pass and the merge, above it the query-major kernel
+    (``codes_fused_route``): the launch counters say which."""
     n_lists, nq, n_probes = 64, 40, 12
     centers, codes, books, rsq, ids, *_ = _random_code_index(
         dev, n_lists, cap, pq_dim, pq_len, pq_bits, cap + k)
@@ -303,10 +333,9 @@ def test_codes_fused_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
     vk, ik = pcs.ivf_pq_scan_codes_fused(qrot, centers, probes, codes,
                                          books, rsq, ids, pq_bits, k, kt)
     torch.cuda.synchronize()
-    listed = _code_listed(pq_dim * pq_len, pq_dim, pq_bits,
-                          min(kt, cap, k))
-    assert tuple(_code_routes() - before) == (
-        (1, 1, 0, 0, 0) if listed else (0, 0, 1, 0, 0))
+    route = pcs.codes_fused_route(cap, pq_dim * pq_len, pq_dim, pq_bits, k,
+                                  kt)[0]
+    assert tuple(_code_routes() - before) == C_ROUTE[route]
     vp, ip = pcs.ivf_pq_scan_codes_fused_plain(qrot, centers, probes, codes,
                                                books, rsq, ids, pq_bits, k,
                                                kt)
@@ -342,8 +371,8 @@ def test_codes_pair_kernel_matches_plain(dev, cap, pq_dim, pq_len, pq_bits,
 @pytest.mark.parametrize("kt", [64, 65])
 @pytest.mark.parametrize("fused", [True, False], ids=["C", "D"])
 def test_code_scans_route_by_kt(dev, kt, fused):
-    """A pair kt of 64 takes the list-major codes pass, 65 C's query-major
-    kernel (at k = kt) and D's pair-group pass, each held to its plain
+    """A pair kt of 64 takes the list-major codes pass, 65 D's pair-group
+    pass (for C at k = kt, then the merge), each held to its plain
     version."""
     n_lists, cap, pq_dim, pq_len, pq_bits = 32, 300, 48, 2, 8
     centers, codes, books, rsq, ids, *_ = _random_code_index(
@@ -356,7 +385,7 @@ def test_code_scans_route_by_kt(dev, kt, fused):
                                              kt)
         vp, ip = pcs.ivf_pq_scan_codes_fused_plain(
             qrot, centers, probes, codes, books, rsq, ids, pq_bits, kt, kt)
-        want = (1, 1, 0, 0, 0) if kt <= 64 else (0, 0, 1, 0, 0)
+        want = C_ROUTE["list" if kt <= 64 else "pair"]
     else:
         vk, ik = pcs.ivf_pq_scan_codes(qrot, centers, probes, codes, books,
                                        rsq, ids, pq_bits, kt)
@@ -366,6 +395,96 @@ def test_code_scans_route_by_kt(dev, kt, fused):
     torch.cuda.synchronize()
     assert tuple(_code_routes() - before) == want
     _assert_kernel_matches_plain(vk, ik, vp, ip)
+
+
+def _fused_pair_case(dev, kernel, cap, seed):
+    """A random index for Kernel C (48 8-bit subspaces of 2 dims) or B
+    (rot 128) with queries, its data scaled by 1/8 (distances about 4, so
+    a change of summation order moves one by ~1e-6): ``(fused wrapper,
+    query-major kernel, its arguments before k and kt, the pass of its
+    pair-group route, tolerance)``."""
+    n_lists, nq, n_probes, s = 64, 40, 12, 0.125
+    if kernel == "C":
+        centers, codes, books, _, ids, *_ = _random_code_index(
+            dev, n_lists, cap, 48, 2, 8, seed)
+        books, centers = books * s, centers * s
+        rsq = (pcs.decode_codes(codes, books, 8).float() ** 2).sum(-1)
+        qrot, probes = _queries(dev, nq, 96, n_lists, n_probes)
+        return (pcs.ivf_pq_scan_codes_fused, pcs.codes_fused_query_major,
+                (qrot * s, centers, probes, codes, books, rsq, ids, 8),
+                pcs.code_pair_list_scan, 4.6e-5)
+    centers, recon, _, ids = _random_index(dev, n_lists, cap, 128, seed)
+    recon = (recon.float() * s).to(torch.bfloat16)
+    rsq = (recon.float() ** 2).sum(-1)
+    qrot, probes = _queries(dev, nq, 128, n_lists, n_probes)
+    return (pgs.ivf_pq_scan_fused, pgs.scan_query_major,
+            (qrot * s, centers * s, probes, recon, rsq, ids),
+            ps.recon_pair_list_scan, 6.1e-5)
+
+
+def _assert_topk_match(vk, ik, vr, ir, tol):
+    """Each query's top k: the same exhausted ranks (-1 exactly there),
+    values within ``tol`` at every rank, the same ids below the row's
+    last kept value less 2 ``tol`` (a tie there may keep another id)."""
+    fin = torch.isfinite(vr)
+    assert torch.equal(fin, torch.isfinite(vk))
+    assert torch.equal(ik < 0, ~fin)
+    torch.testing.assert_close(vk[fin], vr[fin], rtol=0, atol=tol)
+    for prow, pids, rrow, rids, f in zip(vk.cpu(), ik.cpu(), vr.cpu(),
+                                         ir.cpu(), fin.cpu()):
+        if bool(f.any()):
+            cut = float(rrow[f][-1]) - 2 * tol
+            assert (set(pids[prow < cut].tolist())
+                    == set(rids[rrow < cut].tolist()))
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("kernel,cap,k", [
+    ("C", 300, 65), ("C", 300, 100), ("C", 700, 128), ("B", 300, 65),
+    ("B", 416, 128), ("B", 416, 200), ("B", 416, 256)])
+def test_fused_scans_past_kt_64_take_the_pair_group_pass(dev, kernel, cap, k,
+                                                         filtered):
+    """Kernel C at k = kt 65-128 and B at 65-256 run their pair-group
+    route: D's or G's pass (groups of 64, 32 past kt 128) and
+    ``merge_pairs`` once each, and not their query-major kernel; with and
+    without a per-query filter their top k equals the query-major
+    kernel's, the same-run yardstick, within 4.6e-5 (C) / 6.1e-5 (B), ids
+    but at ties, and every id is admitted.  The merge of the pass's pairs
+    equals ``torch.topk`` of them: the same values, ids but at ties."""
+    fused, walked, args, pass1, tol = _fused_pair_case(dev, kernel, cap,
+                                                       cap + k)
+    qrot, centers, probes, *lists = args
+    n_lists, nq = centers.shape[0], qrot.shape[0]
+    ids = lists[-2] if kernel == "C" else lists[-1]
+    fw = (_filter_words(dev, nq, int(ids.max()) + 1, 0.5, False, k)
+          if filtered else None)
+    route = (pcs.codes_fused_route(cap, 96, 48, 8, k, k) if kernel == "C"
+             else pgs.scan_route(cap, 128, k, k))
+    assert route[0] == "pair"
+    counters = (pass1, pgs.merge_pairs, walked)
+    before = [c.launches for c in counters]
+    vk, ik = fused(*args, k, k, filter_words=fw)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0]
+    vr, ir = walked(*args, k, k, filter_words=fw)
+    torch.cuda.synchronize()
+    _assert_topk_match(vk, ik, vr, ir, tol)
+    if fw is not None:
+        _assert_admitted(ik, fw)
+    # pass 2 alone against torch.topk over the same pairs
+    group = (pcs.code_pair_list_layout(96, 48, 8, k).group if kernel == "C"
+             else ps.pair_list_layout(128, k, False).group)
+    assert group == (64 if k <= 128 else 32)
+    pv, pi = pass1(qrot, centers, probes,
+                   *grouped.build_groups(probes, n_lists, group), *lists, k,
+                   filter_words=fw)
+    mv, mi = pgs.merge_pairs(pv, pi, k)
+    tv, pos = torch.topk(pv.reshape(nq, -1), k, dim=1, largest=False)
+    ti = torch.gather(pi.reshape(nq, -1), 1, pos)
+    ti[torch.isinf(tv)] = -1
+    assert torch.equal(mv, tv)
+    _assert_topk_match(mv, mi, tv, ti, 0.0)
+    assert torch.equal(mv, vk) and torch.equal(mi, ik)
 
 
 @pytest.mark.parametrize("cap,pq_dim,pq_len,pq_bits,kt,chunks,filtered", [
@@ -1934,10 +2053,10 @@ def _assert_admitted(ids, words):
 FILTERED_SCANS = ["B", "G", "C", "D", "E", "F", "F-IP"]
 
 
-# each scan's wrapper past kt 64: the query-major kernels of B and C, the
-# pair-group passes of D-G
-LARGE_KT = {"B": pgs.scan_query_major, "G": ps.recon_pair_list_scan,
-            "C": pcs.codes_fused_query_major,
+# each scan's pass past kt 64: the pair-group passes of B-G (for B and C
+# those of G and D, then merge_pairs)
+LARGE_KT = {"B": ps.recon_pair_list_scan, "G": ps.recon_pair_list_scan,
+            "C": pcs.code_pair_list_scan,
             "D": pcs.code_pair_list_scan,
             "E": pcs.recon8_pair_list_scan,
             "F": ps.flat_pair_list_scan,
@@ -1952,23 +2071,26 @@ PAST_PAIR_KT = {"G": ps.recon_scan_query_major,
 def _filtered_scan(dev, kernel, fw_of, seed, k=20, kt=16, cap=300):
     """(kernel result, plain result, filter words, value tolerance) of one
     scan through its dispatcher, on the route its shape takes (list-major
-    at the default k 20, kt 16; past 64, the query-major kernels of B and
-    C and the pair-group passes of D-G, which take kt up to 128 (D, E)
-    or 256 (F, G) and leave F and G's query-major kernels the kt past
-    it), on a random
+    at the default k 20, kt 16; past 64, the pair-group passes of B-G
+    (B and C through G's and D's, then the merge), which take kt up to
+    128 (C, D, E) or 256 (B, F, G) and leave F and G's query-major kernels
+    the kt past it), on a random
     index of ``cap`` slots a list with padding and tombstones, 40 queries
     of 12 probes over 64 lists; the tolerance is the unfiltered check's
-    (1e-4; F: 1e-5 of ‖q‖² + max ‖x‖²)."""
+    (1e-4; F: 1e-5 of ‖q‖² + max ‖x‖²).  ``B-query``: Kernel B's
+    query-major kernel called as itself."""
     atol = 1e-4
     n_lists, nq, n_probes = 64, 40, 12
-    if kernel in ("B", "G"):
+    if kernel in ("B", "B-query", "G"):
         centers, recon, rsq, ids = _random_index(dev, n_lists, cap, 128,
                                                  seed)
         qrot, probes = _queries(dev, nq, 128, n_lists, n_probes)
         fw = fw_of(nq, int(ids.max()) + 1)
-        if kernel == "B":
+        if kernel in ("B", "B-query"):
             args = (qrot, centers, probes, recon, rsq, ids, k, kt)
-            fns = (pgs.ivf_pq_scan_fused, pgs.ivf_pq_scan_fused_plain)
+            fns = ({"B": pgs.ivf_pq_scan_fused,
+                    "B-query": pgs.scan_query_major}[kernel],
+                   pgs.ivf_pq_scan_fused_plain)
         else:
             args = (qrot, centers, probes, recon, rsq, ids, kt)
             fns = (ps.ivf_pq_scan_recon, ps.ivf_pq_scan_recon_plain)
@@ -2045,10 +2167,10 @@ def test_filtered_list_major_scans_match_plain(dev, kernel):
 
 @pytest.mark.parametrize("kernel", FILTERED_SCANS)
 def test_filtered_query_major_scans_match_plain(dev, kernel):
-    """Each scan past kt 64 with a filter (the query-major kernels of B and
-    C, the pair-group passes of D-G), k = kt = 100 (G at kt 80), against
-    its plain version (``_check_filtered_scans``), its route's launch
-    counter moving once a scan."""
+    """Each scan past kt 64 with a filter (the pair-group passes of B-G,
+    for B and C then the merge), k = kt = 100 (G at kt 80), against its
+    plain version (``_check_filtered_scans``), its route's launch counter
+    moving once a scan."""
     kt = 80 if kernel == "G" else 100
     _check_filtered_scans(dev, kernel, 100, kt, LARGE_KT[kernel])
 
@@ -2061,6 +2183,28 @@ def test_filtered_scans_past_the_pair_group_pass_match_plain(dev, kernel):
     (``_check_filtered_scans``), that kernel's launch counter moving once
     a scan."""
     _check_filtered_scans(dev, kernel, 300, 300, PAST_PAIR_KT[kernel], 600)
+
+
+# B and C's query-major kernels past kt 64: (k, kt) -- B's called as
+# itself (the pair-group pass takes every such shape), C's through its
+# dispatcher past the pass's kt 128
+FUSED_QUERY_MAJOR = {"B-query": (256, 256), "C": (200, 200)}
+
+
+@pytest.mark.parametrize("kernel", sorted(FUSED_QUERY_MAJOR))
+def test_filtered_fused_query_major_scans_match_plain(dev, kernel):
+    """Kernels B and C's query-major kernels with a filter: B's
+    (``scan_query_major``, the pair-group route's yardstick) at k = kt =
+    256, C's at k = kt = 200, where ``codes_fused_route`` gives it the
+    search; against the plain version (``_check_filtered_scans``), that
+    kernel's launch counter moving once a scan."""
+    k, kt = FUSED_QUERY_MAJOR[kernel]
+    if kernel == "B-query":
+        route = pgs.scan_query_major
+    else:
+        assert pcs.codes_fused_route(300, 128, 64, 8, k, kt)[0] == "query"
+        route = pcs.codes_fused_query_major
+    _check_filtered_scans(dev, kernel, k, kt, route)
 
 
 @pytest.mark.parametrize("nq,itopk,width,deg,pdim,quant,ip", [

@@ -358,10 +358,12 @@ def test_filtered_passes_match_the_pallas_scans_with_adm_words(
 
 
 def test_gate_routes_by_kt_and_names_its_reason():
-    """kt' = min(kt, k) up to KT_LIST_MAX takes the list-major route at any
-    capacity; past it the query-major gate decides; k past K_MAX is
-    refused; the shared-memory formula fits the card past 128 dims, where
-    the residuals stream in two stages."""
+    """kt' = min(kt, cap, k) up to KT_LIST_MAX takes the list-major route
+    at any capacity, up to K_MAX the pair-group pass (rows up to 1,024
+    dims, any capacity); past both the query-major gate decides, and a
+    refusal names all three routes; k past K_MAX is refused; the
+    shared-memory formula fits the card past 128 dims, where the residuals
+    stream in two stages."""
     kmax = pgs.KT_LIST_MAX
     assert not pgs.list_scan_reject_reason(1024, kmax)
     assert pgs.list_scan_smem_bytes(96) < pgs.list_scan_smem_bytes(1024)
@@ -371,9 +373,13 @@ def test_gate_routes_by_kt_and_names_its_reason():
     # a capacity whose candidate buffer no query-major block could hold
     assert not pgs.scan_reject_reason(200_000, 128, 20, 20)
     assert not pgs.scan_reject_reason(200_000, 128, 20, 256)  # kt' = 20
-    reason = pgs.scan_reject_reason(200_000, 128, 256, 256)
-    assert "list-major" in reason and "shared memory" in reason
-    assert not pgs.scan_reject_reason(64, 32, 256, 256)       # query-major
+    assert not pgs.scan_reject_reason(200_000, 128, 256, 256)
+    assert pgs.scan_route(200_000, 128, 256, 256)[0] == "pair"
+    assert pgs.scan_route(300, 32, 256, 256)[0] == "pair"
+    assert pgs.scan_route(64, 32, 256, 256)[0] == "list"     # kt' = cap
+    reason = pgs.scan_reject_reason(300, 1032, 100, 100)     # rot > 1,024
+    assert "list-major" in reason and "pair-group route" in reason
+    assert "query-major route" in reason
     assert "k=300" in pgs.scan_reject_reason(64, 128, 300, 10)
 
 

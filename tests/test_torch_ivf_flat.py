@@ -280,16 +280,17 @@ def test_recon_search_without_a_cache_warns_and_builds_it(data, jax_pq):
 @pytest.mark.parametrize("refused", ["capacity", "k"])
 def test_fused_recon_fallback_runs_kernel_g_and_counts(data, jax_pq,
                                                        monkeypatch, refused):
-    """Where Kernel B's gate refuses the shape (a capacity past a lowered
-    shared-memory limit, or k past 256), an ``auto`` search runs Kernel G
-    + finalize: one count, the gate's reason, the results of
-    ``scan_mode="recon"``."""
+    """Where Kernel B's gate refuses the shape (a capacity past a
+    shared-memory limit lowered below its three routes, or k past 256), an
+    ``auto`` search runs Kernel G + finalize: one count, the gate's
+    reason, the results of ``scan_mode="recon"``."""
     _, q = data
     port = _carry_pq(jax_pq)
     k, word = K, "shared memory"
     if refused == "capacity":
-        monkeypatch.setattr(pgs, "_SMEM_LIMIT", pgs.scan_smem_bytes(
-            port.capacity, port.rot_dim) - 1)
+        limit = pgs.scan_smem_bytes(port.capacity, port.rot_dim) - 1
+        monkeypatch.setattr(pgs, "_SMEM_LIMIT", limit)
+        monkeypatch.setattr(ps, "_SMEM_LIMIT", limit)
     else:
         k, word = 300, "k=300"
     before = ivf_pq.search.fused_fallbacks
