@@ -314,7 +314,13 @@ earlier SIMT and query-major times) and 67 TFLOP/s of fp32 FFMA for F's
 query-major route, H's small-dim kernel and I (I: its bf16 products are
 summed one by one in dimension order, as its plain version sums them; the
 walk's bytes are each run hop's fat rows once, over the hops its queries
-ran).
+ran).  Beside the bytes bound each walk has a latency bound: its longest
+query's hops, each one dependent device-memory load (the exact-row
+source: two, the graph row then the rows) of the latency a pointer chase
+measures in the build phase, once for each wave of the blocks an SM holds
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, printed with each walk
+and hop check, as the build phase prints each walk and hop kernel's ptxas
+registers and spills).
 """
 
 from __future__ import annotations
@@ -336,6 +342,9 @@ DEEP_DB, DEEP_DIM, DEEP_LISTS, DEEP_PQ_DIM = 10_000_000, 96, 8192, 48
 DEEP_TRAIN_FRACTION, DEEP_KT = 0.1, 4
 SEARCH_REPS = 3
 KERNEL_REPS = 5
+# one dependent device-memory load's latency in ns, measured on the card
+# by a pointer chase in the build phase (load_latency_ns)
+LOAD_NS = None
 # queries of the flagship batch at which the large-kt (query-major) routes
 # of Kernels B and G are held to their plain versions
 LARGE_KT_QUERIES = 1_000
@@ -582,7 +591,54 @@ EXTRA = ("library_tf32_ms", "yardstick_simt_ms", "yardstick_simt_device_ms",
          "broadcast_pass1_device_ms", "filter_bytes",
          "yardstick_query_major_ms", "yardstick_query_major_max_abs_err",
          "ffma_bound_ms", "group", "pass2_ms", "pass2_topk_ms",
-         "pass2_candidates", "pass2_launches")
+         "pass2_candidates", "pass2_launches", "latency_bound_ms",
+         "threads", "resident_blocks")
+
+
+def load_latency_ns(dev, n=1 << 26, steps=20_000):
+    """One dependent device-memory load's latency (ns): ``steps`` loads of
+    a pointer chase (``csrc/mem_latency.cu``) around a random cycle over
+    ``n`` int32 (256 MB, five times the L2), one thread, after a warm-up
+    chase; CUDA events over three chases."""
+    import torch
+    from raft_tpu_torch.ops import _cuda
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    perm = torch.randperm(n, generator=g, device=dev).int()
+    nxt = torch.empty_like(perm)
+    nxt[perm.long()] = torch.roll(perm, -1)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def chase():
+        _cuda.check(_cuda.library().raft_mem_latency_chase(
+            nxt.data_ptr(), 0, steps, out.data_ptr(), stream), "chase")
+
+    return cuda_ms(chase, 3) * 1e6 / steps
+
+
+def walk_latency_bound(nq, max_hops, loads, resident):
+    """(ms, waves) of a walk's latency bound: its longest query's hops, each
+    ``loads`` dependent device-memory loads of LOAD_NS (a table walk's fat
+    row; the exact-row source's graph row, then its candidates' rows),
+    once for each wave of ``resident`` blocks per SM over the card's SMs
+    (one query a block)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = -(-nq // max(resident * sms, 1))
+    return max_hops * loads * LOAD_NS * waves / 1e6, waves
+
+
+def ptxas_template(kernel):
+    """``walk_kernel<256,1,0,0,0>`` from a mangled Kernel I name (template
+    arguments in order), else the name as it is."""
+    found = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", kernel)
+    if found is None:
+        return kernel
+    args = re.findall(r"L[ib](\d+)E", found.group(2))
+    return f"{found.group(1)}<{','.join(args)}>"
 
 
 def at_shape(row, shape, launches):
@@ -3032,22 +3088,30 @@ def check_kernel_walk(args, kw, shape):
     loop_ms = cuda_ms(lambda: hop_loop(*args, **kw), KERNEL_REPS)
     hops = int(kh.sum())
     bound_ms, bound_by, nbytes = walk_bound(args, kw, hops)
+    nq, itopk = args[3].shape
+    threads, blocks = cw.walk_resident(itopk, kw["search_width"], kw["deg"],
+                                       args[0].shape[1], kw["quant"], False,
+                                       kw.get("filter_words") is not None)
+    lat_ms, waves = walk_latency_bound(nq, int(kh.max()), 1, blocks)
     print(f"cagra_walk at {shape}: keys, ids, visited flags and hop counts "
           f"equal to the plain walk; {hops:,} hops run "
           f"({hops / kh.numel():.2f} a query, at most {int(kh.max())} of "
           f"{kw['max_iterations']}); "
           f"{ms:.4f} ms (CUDA events; device {dev_ms:.4f}), plain "
           f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-          f"{nbytes / 1e6:.2f} MB); yardstick (per-hop loop on Kernel I's "
-          f"hop kernel) {loop_ms:.3f} ms = {loop_ms / ms:.1f}x the walk",
-          flush=True)
+          f"{nbytes / 1e6:.2f} MB), latency bound {lat_ms:.4f} ms (most "
+          f"hops x {LOAD_NS:.1f} ns x {waves} waves; {threads} threads a "
+          f"block, {blocks} resident a SM); yardstick (per-hop loop on "
+          f"Kernel I's hop kernel) {loop_ms:.3f} ms = {loop_ms / ms:.1f}x "
+          f"the walk", flush=True)
     return {"name": "cagra_walk", "route": "cuda",
             "source": "raft_tpu_torch/csrc/cagra_walk.cu",
             "replaces": "raft_tpu/ops/cagra_hop_pallas.py:257",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "device_ms": dev_ms, "yardstick_loop_ms": loop_ms,
-            "walk_hops": hops}
+            "walk_hops": hops, "latency_bound_ms": lat_ms,
+            "threads": threads, "resident_blocks": blocks}
 
 
 def check_kernel_i(args, ip_metric, shape):
@@ -3093,18 +3157,20 @@ def check_kernel_i(args, ip_metric, shape):
     cat = torch.cat([buf_d, key], 1)
     topk_ms = device_ms(lambda: torch.topk(cat, itopk, dim=1, largest=False),
                         KERNEL_REPS * 4)
+    threads, blocks = chop.hop_resident(itopk, wd, pdim)
     print(f"cagra_hop at {shape}: max |key err| {err}, ids equal at "
           f"{float(same.float().mean()):.6f}; {ms:.4f} ms on the device "
           f"(CUDA events over back-to-back calls {event_ms:.4f}), plain "
           f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-          f"{nbytes / 1e6:.1f} MB); torch.topk yardstick {topk_ms:.4f} ms",
-          flush=True)
+          f"{nbytes / 1e6:.1f} MB); torch.topk yardstick {topk_ms:.4f} ms; "
+          f"{threads} threads a block, {blocks} resident a SM", flush=True)
     return {"name": "cagra_hop", "route": "cuda",
             "source": "raft_tpu_torch/csrc/cagra_hop.cu",
             "replaces": "raft_tpu/ops/cagra_hop_pallas.py:257",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "event_ms": event_ms, "yardstick_topk_ms": topk_ms}
+            "event_ms": event_ms, "yardstick_topk_ms": topk_ms,
+            "threads": threads, "resident_blocks": blocks}
 
 
 def plain_hop_inputs(args, kw, hop):
@@ -3412,23 +3478,33 @@ def check_kernel_walk_exact(args, kw, shape, m=EXACT_CHECK_QUERIES):
 
     ms = cuda_ms(walk, KERNEL_REPS)
     dev_ms = device_ms(walk, KERNEL_REPS, "walk_kernel")
-    hops = int(cw.cagra_walk_exact(*args, return_hops=True, **kw)[3].sum())
+    all_hops = cw.cagra_walk_exact(*args, return_hops=True, **kw)[3]
+    hops = int(all_hops.sum())
     bound_ms, bound_by, nbytes = exact_walk_bound(args, kw, hops)
-    nq = args[5].shape[0]
+    nq, itopk = args[5].shape
+    threads, blocks = cw.walk_resident(itopk, kw["search_width"],
+                                       args[2].shape[1], args[3].shape[1],
+                                       exact=True, filtered=kw.get(
+                                           "filter_words") is not None)
+    lat_ms, waves = walk_latency_bound(nq, int(all_hops.max()), 2, blocks)
     print(f"cagra_walk_exact at {shape}: keys, ids, visited flags and hop "
           f"counts equal to the plain direct walk on {few[5].shape[0]} "
           f"queries (plain "
           f"{plain_ms:.2f} ms); {nq:,} queries: {hops:,} hops run "
-          f"({hops / nq:.2f} a query), {ms:.4f} ms (CUDA events; device "
+          f"({hops / nq:.2f} a query, at most {int(all_hops.max())}), "
+          f"{ms:.4f} ms (CUDA events; device "
           f"{dev_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}; "
-          f"{nbytes / 1e6:.2f} MB)", flush=True)
+          f"{nbytes / 1e6:.2f} MB), latency bound {lat_ms:.4f} ms (most "
+          f"hops x 2 loads x {LOAD_NS:.1f} ns x {waves} waves; {threads} "
+          f"threads a block, {blocks} resident a SM)", flush=True)
     return {"name": "cagra_walk_exact", "route": "cuda",
             "source": "raft_tpu_torch/csrc/cagra_walk.cu",
             "replaces": "raft_tpu/neighbors/cagra.py:1857",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "device_ms": dev_ms, "walk_hops": hops,
-            "check_queries": few[5].shape[0]}
+            "check_queries": few[5].shape[0], "latency_bound_ms": lat_ms,
+            "threads": threads, "resident_blocks": blocks}
 
 
 def search_point(res, index, sp, queries, truth, label):
@@ -5106,6 +5182,17 @@ def main() -> int:
         name = kernel if found is None else f"{found.group(1)}<{flags}>"
         print(f"ptxas: {name}: {regs} registers, spill stores {stores} B, "
               f"spill loads {loads} B", flush=True)
+    # Kernel I's instantiations: walk_kernel<threads, staged, int8, filter,
+    # exact>, hop_kernel<threads, 16-byte rows>
+    for src, name in (("cagra_walk.cu", "walk_kernel"),
+                      ("cagra_hop.cu", "hop_kernel")):
+        for kernel, regs, stores, loads in _cuda.ptxas_usage(src, name):
+            print(f"ptxas: {ptxas_template(kernel)}: {regs} registers, spill "
+                  f"stores {stores} B, spill loads {loads} B", flush=True)
+    global LOAD_NS
+    LOAD_NS = load_latency_ns(torch.device("cuda", 0))
+    print(f"dependent device-memory load (pointer chase over 256 MB): "
+          f"{LOAD_NS:.1f} ns", flush=True)
     validator_first_call(torch.device("cuda", 0))
 
     dev = torch.device("cuda", 0)

@@ -25,17 +25,16 @@
 // query and no batch cap (the TPU kernel rode queries on 128 lanes and
 // capped the batch at 64; here the grid is nq).  One thread scores one
 // candidate with 16-byte row loads against the query staged in shared
-// memory, then checks its id against the buffer and the earlier
-// candidates (O(wd * (itopk + wd)) shared-memory compares a query); the
-// candidates are ranked by counting (a rank sort needs no passes),
-// written straight to their reversed merge slots, and the merge runs in
-// shared memory with one thread per compare-exchange (the dedupe, rank
-// and merge are csrc/hop_merge.cuh, shared with the walk).  Up to 1,024
-// threads a block; past that each thread takes every blockDim.x-th
-// candidate and pair, so only shared memory bounds itopk, wd and pdim
-// (opted in past 48 KB).  The walk's hops run in csrc/cagra_walk.cu, which gathers and
-// decodes the packed table itself; this kernel serves the build's exact
-// merge, whose full-width rows have no table.
+// memory; the dedupe (by compare up to 32 candidates, by a hash table in
+// shared memory above), the rank (a count, or a bitonic sort of (key, j)
+// in the table's memory) and the merge (one thread per compare-exchange)
+// are csrc/hop_merge.cuh, shared with the walk.  Up to 256 threads a block
+// hold one candidate and pair each; wider hops run 128 or 256 threads
+// bounded at 64 registers, each looping over its candidates and pairs, so
+// only shared memory bounds itopk, wd and pdim (opted in past 48 KB).  The
+// walk's hops run in csrc/cagra_walk.cu, which gathers and decodes the
+// packed table itself; this kernel serves the build's exact merge, whose
+// full-width rows have no table.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,8 +45,9 @@
 
 namespace {
 
-using hop_merge::kMaxThreads;
+using hop_merge::kNarrowMinBlocks;
 using hop_merge::kNarrowThreads;
+using hop_merge::kWideMinBlocks;
 using hop_merge::pow2_at_least;
 
 constexpr int kSmemMax = 232448;          // an H100 block's opt-in maximum
@@ -88,8 +88,23 @@ __device__ __forceinline__ float row_dot(const float* q,
   return acc;
 }
 
-template <int kThreads, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+// Dynamic shared memory of one block, as hop_kernel lays it out:
+//   [hash table: hash_slots 64-bit, hashed only]
+//   [merge network: S 64-bit entries] [q: pdim f32] [ck, ci: wd each]
+// The Python twin is ops/cagra_hop.hop_smem_bytes.
+__host__ inline int hop_base(int itopk, int wd, int pdim) {
+  return 8 * pow2_at_least(itopk + wd) + 4 * (pdim + 2 * wd);
+}
+
+__host__ inline int hop_smem(int itopk, int wd, int pdim) {
+  const int base = hop_base(itopk, wd, pdim);
+  return base + hop_merge::hash_bytes(itopk, wd, base, kSmemMax);
+}
+
+template <int kThreads, bool kOnePass, bool kVec>
+__global__ void __launch_bounds__(kThreads,
+                                   kOnePass ? kNarrowMinBlocks
+                                            : kWideMinBlocks)
 hop_kernel(const __nv_bfloat16* __restrict__ qp,
            const float* __restrict__ q_sq,
            const __nv_bfloat16* __restrict__ nb_p,
@@ -98,18 +113,20 @@ hop_kernel(const __nv_bfloat16* __restrict__ qp,
            const float* __restrict__ buf_d,
            const int* __restrict__ buf_i,
            const uint8_t* __restrict__ visited,
-           int itopk, int wd, int pdim, int ip_metric,
+           int itopk, int wd, int pdim, int ip_metric, int hashed,
            float* __restrict__ out_d, int* __restrict__ out_i,
            uint8_t* __restrict__ out_v) {
-  constexpr bool kOnePass = kThreads <= kNarrowThreads;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S = pow2_at_least(itopk + wd);
-  float* q = smem;                                   // pdim
+  const int slots = hashed ? hop_merge::hash_slots(itopk, wd) : 0;
+  unsigned long long* table =
+      reinterpret_cast<unsigned long long*>(smem_raw);
+  unsigned long long* mw = table + slots;            // S merge entries
+  float* q = reinterpret_cast<float*>(mw + S);       // pdim
   float* ck = q + pdim;                              // wd candidate keys
   int* ci = reinterpret_cast<int*>(ck + wd);         // wd candidate ids
-  float* mk = reinterpret_cast<float*>(ci + wd);     // S merge keys
-  int* mi = reinterpret_cast<int*>(mk + S);          // S merge ids
-  int* mv = mi + S;                                  // S visited flags
+  // the dedupe's one int a candidate: merge slots past the buffer
+  int* scratch = reinterpret_cast<int*>(mw + itopk);
 
   const int tid = threadIdx.x;
   const int T = blockDim.x;
@@ -117,14 +134,14 @@ hop_kernel(const __nv_bfloat16* __restrict__ qp,
 
   for (int d = tid; d < pdim; d += T)
     q[d] = __bfloat162float(qp[row * pdim + d]);
-  for (int t = tid; t < itopk; t += T) {
-    mk[t] = buf_d[row * itopk + t];
-    mi[t] = buf_i[row * itopk + t];
-    mv[t] = visited[row * itopk + t];
-  }
+  for (int t = tid; t < itopk; t += T)
+    mw[t] = hop_merge::entry(buf_d[row * itopk + t], buf_i[row * itopk + t],
+                             visited[row * itopk + t]);
+  if (hashed) hop_merge::hash_clear(slots, table);
   __syncthreads();
 
-  // score: one thread per candidate
+  // score, one thread per candidate; the dedupe's start (the buffer's ids
+  // into the table, or the compare's flags zeroed)
   const float qsq = q_sq[row];
   for (int j = tid; j < wd; j += T) {
     const size_t c = row * wd + j;
@@ -137,39 +154,68 @@ hop_kernel(const __nv_bfloat16* __restrict__ qp,
     ck[j] = key;
     ci[j] = id >= 0 ? id : -1;
   }
+  if (hashed)
+    hop_merge::hash_buffer(itopk, mw, slots, table);
+  else
+    hop_merge::compare_clear<kOnePass>(wd, scratch);
   __syncthreads();
 
-  // dedupe against the buffer and the earlier candidates (decided on the
-  // scored ids, applied after every thread has decided; bit b of `kill`
-  // is the thread's b-th candidate, and the shared-memory gate keeps wd
-  // below 32 * blockDim.x)
-  unsigned kill = 0;
-  for (int j = tid, b = 0; j < wd; j += T, ++b) {
-    if (hop_merge::duplicate(ci[j], j, mi, itopk, ci)) kill |= 1u << b;
-    if (kOnePass) break;
-  }
+  // dedupe against the buffer and the earlier candidates
+  if (hashed)
+    hop_merge::hash_candidates<kOnePass>(wd, ci, slots, table, scratch);
+  else
+    hop_merge::compare_mark<kOnePass>(itopk, wd, mw, ci, scratch);
   __syncthreads();
-  for (int j = tid, b = 0; j < wd; j += T, ++b) {
-    if ((kill >> b) & 1u) {
-      ck[j] = INFINITY;
-      ci[j] = -1;
-    }
-    if (kOnePass) break;
-  }
-  hop_merge::pad<kOnePass>(itopk, wd, S, mk, mi, mv);
+  if (hashed)
+    hop_merge::hash_decide<kOnePass>(wd, scratch, table, ck, ci);
+  else
+    hop_merge::compare_decide<kOnePass>(wd, scratch, ck, ci);
   __syncthreads();
-  hop_merge::place<kOnePass>(wd, S, ck, ci, mk, mi, mv);
-  __syncthreads();
-  hop_merge::bitonic<kOnePass>(S, mk, mi, mv);
+
+  // rank into the merge slots, merge
+  hop_merge::pad<kOnePass>(itopk, wd, S, mw);
+  hop_merge::rank<kOnePass>(hashed, wd, S, ck, ci, table, mw);
+  hop_merge::bitonic<kOnePass>(S, itopk, mw);
 
   for (int t = tid; t < itopk; t += T) {
-    out_d[row * itopk + t] = mk[t];
-    out_i[row * itopk + t] = mi[t];
-    out_v[row * itopk + t] = static_cast<uint8_t>(mv[t] != 0);
+    const unsigned long long e = mw[t];
+    out_d[row * itopk + t] = hop_merge::entry_key(e);
+    out_i[row * itopk + t] = hop_merge::entry_id(e);
+    out_v[row * itopk + t] = static_cast<uint8_t>(hop_merge::entry_visited(e));
   }
 }
 
+// a one-pass block (up to 256 threads) or a looping one (128 or 256
+// threads, bounded at 64 registers)
+decltype(&hop_kernel<kNarrowThreads, true, true>) hop_kernel_of(int wd, int S,
+                                                                bool vec) {
+  return hop_merge::one_pass(wd, S)
+             ? (vec ? hop_kernel<kNarrowThreads, true, true>
+                    : hop_kernel<kNarrowThreads, true, false>)
+             : (vec ? hop_kernel<kNarrowThreads, false, true>
+                    : hop_kernel<kNarrowThreads, false, false>);
+}
+
 }  // namespace
+
+// The block size and resident blocks per SM of a hop launch of this shape
+// (out[0] threads, out[1] blocks; host memory), as chip_smoke prints them.
+extern "C" int raft_cagra_hop_resident(int itopk, int wd, int pdim,
+                                       int smem_bytes, void* out) {
+  int* o = static_cast<int*>(out);
+  if (itopk < 1 || wd < 1 || pdim < 1 || smem_bytes > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  const int S = pow2_at_least(itopk + wd);
+  o[0] = hop_merge::block_threads(wd, S);
+  auto* kernel = hop_kernel_of(wd, S, pdim % 8 == 0);
+  if (smem_bytes > kSmemStatic) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      o + 1, kernel, o[0], smem_bytes);
+}
 
 extern "C" int raft_cagra_hop(const void* qp, const void* q_sq,
                               const void* nb_p, const void* nb_sq,
@@ -181,33 +227,26 @@ extern "C" int raft_cagra_hop(const void* qp, const void* q_sq,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nq < 1 || itopk < 1 || wd < 1 || pdim < 1)
     return (int)cudaErrorInvalidValue;
-  const int S = pow2_at_least(itopk + wd);
-  if (smem_bytes != 4 * (pdim + 2 * wd + 3 * S) || smem_bytes > kSmemMax)
+  if (smem_bytes != hop_smem(itopk, wd, pdim) || smem_bytes > kSmemMax)
     return (int)cudaErrorInvalidValue;
+  const int S = pow2_at_least(itopk + wd);
   const int threads = hop_merge::block_threads(wd, S);
+  const int hashed = smem_bytes != hop_base(itopk, wd, pdim);
   const bool vec = pdim % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(nb_p) % 16 == 0;
-  // blocks of up to 256 threads run the instantiation bounded at 256
-  auto* kernel =
-      threads <= kNarrowThreads
-          ? (vec ? hop_kernel<kNarrowThreads, true>
-                 : hop_kernel<kNarrowThreads, false>)
-          : (vec ? hop_kernel<kMaxThreads, true>
-                 : hop_kernel<kMaxThreads, false>);
+  auto* kernel = hop_kernel_of(wd, S, vec);
   if (smem_bytes > kSmemStatic) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-#define RAFT_HOP_ARGS                                                        \
-  static_cast<const __nv_bfloat16*>(qp), static_cast<const float*>(q_sq),    \
-      static_cast<const __nv_bfloat16*>(nb_p),                               \
-      static_cast<const float*>(nb_sq), static_cast<const int*>(nb_id),      \
-      static_cast<const float*>(buf_d), static_cast<const int*>(buf_i),      \
-      static_cast<const uint8_t*>(visited), itopk, wd, pdim, ip_metric,      \
-      static_cast<float*>(out_d), static_cast<int*>(out_i),                  \
-      static_cast<uint8_t*>(out_v)
-  kernel<<<nq, threads, smem_bytes, s>>>(RAFT_HOP_ARGS);
-#undef RAFT_HOP_ARGS
+  kernel<<<nq, threads, smem_bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(qp), static_cast<const float*>(q_sq),
+      static_cast<const __nv_bfloat16*>(nb_p),
+      static_cast<const float*>(nb_sq), static_cast<const int*>(nb_id),
+      static_cast<const float*>(buf_d), static_cast<const int*>(buf_i),
+      static_cast<const uint8_t*>(visited), itopk, wd, pdim, ip_metric,
+      hashed, static_cast<float*>(out_d), static_cast<int*>(out_i),
+      static_cast<uint8_t*>(out_v));
   return (int)cudaGetLastError();
 }

@@ -51,17 +51,28 @@
 // block copies their fat rows into shared memory with 16-byte loads (each
 // table row starts 256-byte aligned: W is a multiple of 128 lanes; one
 // neighbor's slice is not 16-byte aligned, so the decode reads the staged
-// copy lane by lane) and reads the candidates' ids; one thread scores and
-// dedupes one candidate; a counting rank places them; the merge runs
-// with one thread per compare-exchange, block barriers only at strides
-// above 32.  Six block barriers a hop at the search shape (itopk 64, wd
-// 64).  Where the staged rows would not fit in shared memory (wide
-// wd x pdim), the kStaged = false variant scores straight from the table.
-// Exact rows are never staged: one thread reads its candidate's row from
-// device memory (16-byte loads where dim % 4 == 0 and the rows are
-// aligned) — a simple kernel, not yet a fast one.  Up to 1,024 threads a
-// block; past that each thread takes every blockDim.x-th candidate and
-// compare-exchange pair, so only shared memory bounds itopk and wd.
+// copy lane by lane) and reads the candidates' ids; one thread scores one
+// candidate; the dedupe (csrc/hop_merge.cuh) runs with no serial chain of
+// loads: by compare for up to 32 candidates, by a hash table in shared
+// memory above; the rank counts, or past 256 candidates sorts (key, j);
+// the merge network's entries are 64-bit (key, id, visited), one thread a
+// compare-exchange, block barriers only at strides above 32, and only the
+// pairs that can reach the buffer run.  Where the staged rows would not
+// fit in shared memory (wide wd x pdim), the kStaged = false variant
+// scores straight from the table.
+// Exact rows: the candidates' ids come from the parents' graph rows, then
+// the block copies their fp32 rows (and norms) into shared memory with
+// cp.async, consecutive lanes on consecutive 16 bytes of a row, so a hop's
+// rows are all in flight at once and every load is coalesced; one thread
+// per candidate sums from shared memory (rows padded to an odd number of
+// 16-byte units, so the quarter-warps' 16-byte reads meet no bank
+// conflict).  Where the rows would not fit, kStaged = false reads each
+// row from device memory in its candidate's thread.
+// Block size: up to 256 threads hold one candidate and one pair of a pass
+// each; wider walks (itopk 512 width 1, itopk 256 width 16) run 128 or 256
+// threads bounded at 64 registers, so that several blocks stay resident
+// on an SM, each thread looping over its candidates, slots and pairs.
+// Only shared memory bounds itopk and wd.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,12 +83,24 @@
 
 namespace {
 
-using hop_merge::kMaxThreads;
+using hop_merge::kNarrowMinBlocks;
 using hop_merge::kNarrowThreads;
+using hop_merge::kWideMinBlocks;
 using hop_merge::pow2_at_least;
 
 constexpr int kSmemMax = 232448;          // an H100 block's opt-in maximum
 constexpr int kSmemStatic = 48 * 1024;    // above this, opt in
+// The steps of a hop the kernel runs: all of them as built.
+// profiles/cagra_walk_decomp.py rebuilds it with fewer, to time each step:
+// 1 parents, 2 + candidate ids and staged rows, 3 + keys, 4 + dedupe,
+// 5 + rank, 6 + merge.
+constexpr int kHopSteps = 6;
+// The exact-row source's least block: its blocks are few a SM (their
+// staged rows' shared memory), so more threads each start the copies and
+// run the network faster — the 1M direct walk (itopk 64 width 2, 64
+// threads by the merge's rule) ran 2.84 ms in blocks of 128 against 3.26
+// in blocks of 64 and 3.96 in blocks of 256, in turns on one H100.
+constexpr int kExactMinThreads = 128;
 
 __host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
 
@@ -85,19 +108,39 @@ __host__ __device__ inline int walk_unit(int pdim, int quant) {
   return quant ? pdim / 2 + 3 : pdim + 4;
 }
 
-// Dynamic shared memory of one block; the Python twin is
-// ops/cagra_walk.walk_smem_bytes (the gate tests it, the launch passes it).
-//   [stage: width x round8(deg unit) int16, staged only]
-//   [q: pdim f32] [mk, mi, mv: S each] [ck, ci, cj: wd each]
+// f32 values a staged exact row takes: dim rounded up to 16 bytes, to an
+// odd count of 16-byte units
+__host__ __device__ inline int exact_stride(int dim) {
+  const int r = (dim + 3) & ~3;
+  return (r / 4) % 2 ? r : r + 4;
+}
+
+// Dynamic shared memory of one block without the dedupe's table; the
+// Python twin is ops/cagra_walk._walk_base_bytes.
+//   [stage: width x round8(deg unit) int16 fat rows, or wd x
+//    exact_stride(dim) f32 exact rows; staged only]
+//   [hash table: hash_slots 64-bit, hashed only]
+//   [merge network: S 64-bit entries] [q: pdim f32] [ck, ci: wd each]
 //   [par_id, par_ok: width each] [done: 1]
-// Exact rows: no stage, and pdim is the dataset's dim.
-__host__ inline int walk_smem(int itopk, int width, int deg, int pdim,
-                              int quant, int staged) {
+// Exact rows: pdim is the dataset's dim.
+__host__ inline int walk_base(int itopk, int width, int deg, int pdim,
+                              int quant, int staged, int exact) {
   const int wd = width * deg;
   const int S = pow2_at_least(itopk + wd);
-  const int stage = staged ? width * round8(deg * walk_unit(pdim, quant)) * 2
-                           : 0;
-  return stage + 4 * (pdim + 3 * S + 3 * wd + 2 * width + 1);
+  int stage = 0;
+  if (staged)
+    stage = exact ? wd * exact_stride(pdim) * 4
+                  : width * round8(deg * walk_unit(pdim, quant)) * 2;
+  return stage + 8 * S + 4 * (pdim + 2 * wd + 2 * width + 1);
+}
+
+// the whole block's bytes, the table where it is used and fits; the
+// Python twins are ops/cagra_walk.walk_smem_bytes / walk_exact_smem_bytes
+// (the gate tests them, the launch passes them)
+__host__ inline int walk_smem(int itopk, int width, int deg, int pdim,
+                              int quant, int staged, int exact) {
+  const int base = walk_base(itopk, width, deg, pdim, quant, staged, exact);
+  return base + hop_merge::hash_bytes(itopk, width * deg, base, kSmemMax);
 }
 
 // the operands of one walk launch
@@ -107,6 +150,7 @@ struct WalkArgs {
   const int16_t* table;          // (n, table_w) packed rows; null if exact
   int table_w;
   int vec;                       // 16-byte loads of table or exact rows
+  int hashed;                    // dedupe and rank by the hash table
   const float* scales;           // int8 table: [a, sq_min, sq_scale]
   const int* graph;              // exact: (n, deg) int32
   const float* rows;             // exact: (n, dim) f32 dataset
@@ -161,8 +205,10 @@ __device__ __forceinline__ float neighbor_key(const float* q,
   return ip_metric ? -acc : (qsq + nsq) - 2.0f * acc;
 }
 
-// one candidate's key from its fp32 dataset row: the product and the sum
-// each rounded, in dimension order (the plain loop's arithmetic)
+// one candidate's key from its fp32 dataset row x (device memory, or a
+// staged copy in shared memory): the product and the sum each rounded, in
+// dimension order (the plain loop's arithmetic)
+template <bool kShared>
 __device__ __forceinline__ float exact_key(const float* q, const float* x,
                                            int dim, int vec, float qsq,
                                            float xsq, int ip_metric) {
@@ -170,7 +216,7 @@ __device__ __forceinline__ float exact_key(const float* q, const float* x,
   if (vec) {
     const float4* x4 = reinterpret_cast<const float4*>(x);
     for (int c = 0; c < (dim >> 2); ++c) {
-      const float4 v = __ldg(x4 + c);
+      const float4 v = kShared ? x4[c] : __ldg(x4 + c);
       const float* s = q + 4 * c;
       acc = __fadd_rn(acc, __fmul_rn(s[0], v.x));
       acc = __fadd_rn(acc, __fmul_rn(s[1], v.y));
@@ -179,10 +225,27 @@ __device__ __forceinline__ float exact_key(const float* q, const float* x,
     }
   } else {
     for (int d = 0; d < dim; ++d)
-      acc = __fadd_rn(acc, __fmul_rn(q[d], __ldg(x + d)));
+      acc = __fadd_rn(acc, __fmul_rn(q[d], kShared ? x[d] : __ldg(x + d)));
   }
   if (ip_metric) return -acc;
   return fmaxf(__fsub_rn(__fadd_rn(qsq, xsq), __fmul_rn(2.0f, acc)), 0.0f);
+}
+
+// cp.async: `bytes` (4 or 16) from device to shared memory, not through
+// registers; completed by cp_async_wait_all
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
 }
 
 // whether the query whose packed admission row is `words` (n_words
@@ -193,10 +256,12 @@ __device__ __forceinline__ bool admitted(const int* words, int n_words,
   return id >= 0 && w < n_words && ((__ldg(words + w) >> (id & 31)) & 1);
 }
 
-template <int kThreads, bool kStaged, bool kQuant, bool kFilter, bool kExact>
-__global__ void __launch_bounds__(kThreads) walk_kernel(WalkArgs a) {
+template <int kThreads, bool kOnePass, bool kStaged, bool kQuant,
+          bool kFilter, bool kExact>
+__global__ void __launch_bounds__(
+    kThreads, kOnePass ? (kExact ? 1 : kNarrowMinBlocks) : kWideMinBlocks)
+    walk_kernel(WalkArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool kOnePass = kThreads <= kNarrowThreads;
   const int itopk = a.itopk, width = a.width, deg = a.deg, pdim = a.pdim;
   const int A = itopk;
   const int wd = width * deg;
@@ -204,18 +269,27 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(WalkArgs a) {
   const int unit = walk_unit(pdim, kQuant);
   const int du = deg * unit;              // lanes of one fat row
   const int stride = round8(du);          // a staged row, 16-byte multiple
+  const int xstride = exact_stride(pdim);  // a staged exact row, f32
+  const bool hashed = a.hashed;
+  const int slots = hashed ? hop_merge::hash_slots(itopk, wd) : 0;
   int16_t* stage = reinterpret_cast<int16_t*>(smem_raw);
-  float* q = reinterpret_cast<float*>(
-      smem_raw + (kStaged ? static_cast<size_t>(width) * stride * 2 : 0));
-  float* mk = q + pdim;                              // S merge keys
-  int* mi = reinterpret_cast<int*>(mk + S);          // S merge ids
-  int* mv = mi + S;                                  // S visited flags
-  float* ck = reinterpret_cast<float*>(mv + S);      // wd deduped keys
+  float* xs = reinterpret_cast<float*>(smem_raw);
+  size_t off = 0;
+  if (kStaged)
+    off = kExact ? static_cast<size_t>(wd) * xstride * 4
+                 : static_cast<size_t>(width) * stride * 2;
+  unsigned long long* table =
+      reinterpret_cast<unsigned long long*>(smem_raw + off);
+  unsigned long long* mw = table + slots;            // S merge entries
+  float* q = reinterpret_cast<float*>(mw + S);       // pdim
+  float* ck = q + pdim;                              // wd candidate keys
   int* ci = reinterpret_cast<int*>(ck + wd);         // wd candidate ids
-  int* cj = ci + wd;                                 // wd deduped ids
-  int* par_id = cj + wd;                             // width parent ids
+  int* par_id = ci + wd;                             // width parent ids
   int* par_ok = par_id + width;                      // width live flags
   int* done = par_ok + width;
+  // the dedupe's one int a candidate: merge slots past the buffer, free
+  // until pad and place
+  int* scratch = reinterpret_cast<int*>(mw + itopk);
 
   const int tid = threadIdx.x;
   const int T = blockDim.x;
@@ -225,20 +299,26 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(WalkArgs a) {
   const float s1 = kQuant ? a.scales[1] : 0.0f;
   const float s2 = kQuant ? a.scales[2] : 0.0f;
   const int* fw = kFilter ? a.filter_words + row * a.filter_stride : nullptr;
-  const int16_t* table = a.table;
+  const int16_t* tab = a.table;
   const int table_w = a.table_w;
 
   for (int d = tid; d < pdim; d += T)
     q[d] = kExact ? static_cast<const float*>(a.q)[row * pdim + d]
                   : __bfloat162float(static_cast<const __nv_bfloat16*>(
                         a.q)[row * pdim + d]);
-  for (int t = tid; t < itopk; t += T) {
-    mk[t] = a.buf_d[row * itopk + t];
-    mi[t] = a.buf_i[row * itopk + t];
-    mv[t] = a.visited[row * itopk + t];
-  }
+  for (int t = tid; t < itopk; t += T)
+    mw[t] = hop_merge::entry(a.buf_d[row * itopk + t],
+                             a.buf_i[row * itopk + t],
+                             a.visited[row * itopk + t]);
+  if (hashed) hop_merge::hash_clear(slots, table);
   __syncthreads();
   const float qsq = a.q_sq[row];
+  // the end of a hop cut short (kHopSteps): the table cleared, as the
+  // merge would have cleared it
+  auto cut = [&] {
+    if (hashed) hop_merge::hash_clear(slots, table);
+    __syncthreads();
+  };
 
   int hops = 0;
   for (int it = 0; it < a.max_iter; ++it) {
@@ -249,8 +329,10 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(WalkArgs a) {
         int first_good = A, first_unv = A;
         for (int c = 0; c < A; c += 32) {
           const int t = c + lane;
-          const bool unv = t < A && mv[t] == 0;
-          const bool good = unv && mi[t] >= 0 && !isinf(mk[t]);
+          const unsigned long long e = t < A ? mw[t] : 0ull;
+          const bool unv = t < A && !hop_merge::entry_visited(e);
+          const bool good = unv && hop_merge::entry_id(e) >= 0 &&
+                            !isinf(hop_merge::entry_key(e));
           const unsigned bu = __ballot_sync(0xffffffffu, unv);
           const unsigned bg = __ballot_sync(0xffffffffu, good);
           if (first_unv == A && bu) first_unv = c + __ffs(bu) - 1;
@@ -264,9 +346,10 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(WalkArgs a) {
         int pc = ok ? first_good : first_unv;
         pc = pc < A - 1 ? pc : A - 1;
         if (lane == 0) {
-          par_id[s] = ok ? mi[pc] : -1;
+          const unsigned long long e = mw[pc];
+          par_id[s] = ok ? hop_merge::entry_id(e) : -1;
           par_ok[s] = ok;
-          mv[pc] = 1;
+          mw[pc] = e | hop_merge::kVisited;
         }
         __syncwarp();
       }
@@ -276,22 +359,28 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(WalkArgs a) {
     if (*done) break;
     ++hops;
 
+    if constexpr (kHopSteps < 2) {
+      cut();
+      continue;
+    }
     // 2. the candidates' ids (-1 under a dead parent, or rejected by the
-    // filter), and the parents' fat rows into shared memory
+    // filter), the parents' fat rows into shared memory, and the dedupe's
+    // start: the buffer's ids into the table, or the compare's flags
+    // zeroed (while the loads are in flight)
     for (int j = tid; j < wd; j += T) {
       const int s = j / deg, r = j - s * deg;
       int id = -1;
       if (par_ok[s])
         id = kExact ? __ldg(a.graph + static_cast<size_t>(par_id[s]) * deg + r)
                     : static_cast<int>(lanes32(
-                          table + static_cast<size_t>(par_id[s]) * table_w +
+                          tab + static_cast<size_t>(par_id[s]) * table_w +
                           r * unit + id_off));
       if constexpr (kFilter)
         if (id >= 0 && !admitted(fw, a.n_words, id)) id = -1;
       ci[j] = id;
       if (kOnePass) break;
     }
-    if (kStaged) {
+    if (kStaged && !kExact) {
       if (a.vec) {
         const int n16 = stride >> 3;
         uint4* st4 = reinterpret_cast<uint4*>(stage);
@@ -299,83 +388,163 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(WalkArgs a) {
           const int s = x / n16, v = x - s * n16;
           if (par_ok[s])
             st4[x] = __ldg(reinterpret_cast<const uint4*>(
-                               table + static_cast<size_t>(par_id[s]) *
-                                           table_w) + v);
+                               tab + static_cast<size_t>(par_id[s]) *
+                                         table_w) + v);
         }
       } else {
         for (int x = tid; x < width * du; x += T) {
           const int s = x / du, v = x - s * du;
           if (par_ok[s])
             stage[s * stride + v] =
-                table[static_cast<size_t>(par_id[s]) * table_w + v];
+                tab[static_cast<size_t>(par_id[s]) * table_w + v];
         }
       }
     }
+    if (kHopSteps >= 4) {
+      if (hashed)
+        hop_merge::hash_buffer(itopk, mw, slots, table);
+      else
+        hop_merge::compare_clear<kOnePass>(wd, scratch);
+    }
     __syncthreads();
 
-    // 3. score and dedupe, one thread per candidate
+    // exact rows: each live candidate's fp32 row into shared memory,
+    // consecutive lanes on consecutive 16 bytes of a row, and its norm
+    // into ck[j]
+    if constexpr (kExact && kStaged) {
+      if (a.vec) {
+        const int n4 = pdim >> 2;
+        for (int x = tid; x < wd * n4; x += T) {
+          const int j = x / n4, c = x - j * n4;
+          const int id = ci[j];
+          if (id >= 0)
+            cp_async<16>(xs + j * xstride + 4 * c,
+                         a.rows + static_cast<size_t>(id) * pdim + 4 * c);
+        }
+      } else {
+        for (int x = tid; x < wd * pdim; x += T) {
+          const int j = x / pdim, c = x - j * pdim;
+          const int id = ci[j];
+          if (id >= 0)
+            cp_async<4>(xs + j * xstride + c,
+                        a.rows + static_cast<size_t>(id) * pdim + c);
+        }
+      }
+      for (int j = tid; j < wd; j += T) {
+        const int id = ci[j];
+        if (id >= 0) cp_async<4>(ck + j, a.rows_sq + id);
+        if (kOnePass) break;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+    }
+
+    // 3. score, one thread per candidate, and the dedupe's marks: each
+    // live id into the table, or the compare against the buffer and the
+    // earlier candidates
     for (int j = tid; j < wd; j += T) {
       const int s = j / deg, r = j - s * deg;
       const int id = ci[j];
       float key = INFINITY;
-      if (id >= 0) {
+      if (kHopSteps >= 3 && id >= 0) {
         if constexpr (kExact) {
-          key = exact_key(q, a.rows + static_cast<size_t>(id) * pdim, pdim,
+          key = kStaged
+                    ? exact_key<true>(q, xs + j * xstride, pdim, a.vec, qsq,
+                                      ck[j], a.ip_metric)
+                    : exact_key<false>(
+                          q, a.rows + static_cast<size_t>(id) * pdim, pdim,
                           a.vec, qsq, __ldg(a.rows_sq + id), a.ip_metric);
         } else {
           const int16_t* nb =
               kStaged ? stage + s * stride + r * unit
-                      : table + static_cast<size_t>(par_id[s]) * table_w +
+                      : tab + static_cast<size_t>(par_id[s]) * table_w +
                             r * unit;
           key = neighbor_key<kQuant>(q, nb, pdim, qsq, s1, s2, a.ip_metric);
         }
       }
-      const bool dup = hop_merge::duplicate(id, j, mi, itopk, ci);
-      ck[j] = dup ? INFINITY : key;
-      cj[j] = dup ? -1 : id;
+      ck[j] = key;
       if (kOnePass) break;
     }
-    hop_merge::pad<kOnePass>(itopk, wd, S, mk, mi, mv);
+    if (kHopSteps >= 4) {
+      if (hashed)
+        hop_merge::hash_candidates<kOnePass>(wd, ci, slots, table, scratch);
+      else
+        hop_merge::compare_mark<kOnePass>(itopk, wd, mw, ci, scratch);
+    }
     __syncthreads();
+    if constexpr (kHopSteps < 4) {
+      cut();
+      continue;
+    }
+    // 4. dead candidates (+inf, -1)
+    if (hashed)
+      hop_merge::hash_decide<kOnePass>(wd, scratch, table, ck, ci);
+    else
+      hop_merge::compare_decide<kOnePass>(wd, scratch, ck, ci);
+    __syncthreads();
+    if constexpr (kHopSteps < 5) {
+      cut();
+      continue;
+    }
 
-    // 4. rank into the merge slots, 5. merge
-    hop_merge::place<kOnePass>(wd, S, ck, cj, mk, mi, mv);
-    __syncthreads();
-    hop_merge::bitonic<kOnePass>(S, mk, mi, mv);
+    // 5. rank into the merge slots, 6. merge (clearing the table)
+    hop_merge::pad<kOnePass>(itopk, wd, S, mw);
+    hop_merge::rank<kOnePass>(hashed, wd, S, ck, ci, table, mw);
+    if constexpr (kHopSteps < 6) {
+      cut();
+      continue;
+    }
+    hop_merge::bitonic<kOnePass>(S, itopk, mw, slots,
+                                 hashed ? table : nullptr);
   }
 
   for (int t = tid; t < itopk; t += T) {
-    a.out_d[row * itopk + t] = mk[t];
-    a.out_i[row * itopk + t] = mi[t];
-    a.out_v[row * itopk + t] = static_cast<uint8_t>(mv[t] != 0);
+    const unsigned long long e = mw[t];
+    a.out_d[row * itopk + t] = hop_merge::entry_key(e);
+    a.out_i[row * itopk + t] = hop_merge::entry_id(e);
+    a.out_v[row * itopk + t] = static_cast<uint8_t>(hop_merge::entry_visited(e));
   }
   if (tid == 0 && a.out_hops != nullptr) a.out_hops[row] = hops;
 }
 
-template <int kThreads, bool kStaged, bool kQuant, bool kFilter,
-          bool kExact>
+// launch, or with `resident` set only write the blocks of this launch that
+// one SM holds at once
+template <int kThreads, bool kOnePass, bool kStaged, bool kQuant,
+          bool kFilter, bool kExact>
 int launch_bounded(int nq, int threads, int smem_bytes, cudaStream_t s,
-                   const WalkArgs& args) {
-  auto* kernel = walk_kernel<kThreads, kStaged, kQuant, kFilter, kExact>;
+                   const WalkArgs& args, int* resident) {
+  auto* kernel =
+      walk_kernel<kThreads, kOnePass, kStaged, kQuant, kFilter, kExact>;
   if (smem_bytes > kSmemStatic) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
+  if (resident != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        resident, kernel, threads, smem_bytes);
   kernel<<<nq, threads, smem_bytes, s>>>(args);
   return (int)cudaGetLastError();
 }
 
-// blocks of up to 256 threads (every walk of itopk + wd <= 512 and wd <=
-// 256) keep the instantiation bounded at 256 threads, wider ones 1,024
+// a one-pass block (up to 256 threads) or a looping one (128 or 256
+// threads, bounded at 64 registers); the exact-row source's blocks take at
+// least kExactMinThreads
 template <bool kStaged, bool kQuant, bool kFilter, bool kExact>
-int launch(int nq, int threads, int smem_bytes, cudaStream_t s,
-           const WalkArgs& args) {
-  return threads <= kNarrowThreads
-             ? launch_bounded<kNarrowThreads, kStaged, kQuant, kFilter,
-                              kExact>(nq, threads, smem_bytes, s, args)
-             : launch_bounded<kMaxThreads, kStaged, kQuant, kFilter, kExact>(
-                   nq, threads, smem_bytes, s, args);
+int launch(int nq, int smem_bytes, cudaStream_t s, const WalkArgs& args,
+           int* resident = nullptr) {
+  const int wd = args.width * args.deg;
+  const int S = pow2_at_least(args.itopk + wd);
+  int threads = hop_merge::block_threads(wd, S);
+  if (kExact && threads < kExactMinThreads) threads = kExactMinThreads;
+  if (resident != nullptr) resident[0] = threads;
+  int* blocks = resident != nullptr ? resident + 1 : nullptr;
+  return hop_merge::one_pass(wd, S)
+             ? launch_bounded<kNarrowThreads, true, kStaged, kQuant, kFilter,
+                              kExact>(nq, threads, smem_bytes, s, args, blocks)
+             : launch_bounded<kNarrowThreads, false, kStaged, kQuant, kFilter,
+                              kExact>(nq, threads, smem_bytes, s, args,
+                                      blocks);
 }
 
 WalkArgs common_args(const void* q, const void* q_sq, const void* buf_d,
@@ -414,6 +583,20 @@ bool bad_common(int nq, int itopk, int width, int deg, int pdim,
          (filter_words != nullptr && (n_words < 1 || filter_stride < 0));
 }
 
+// whether the exact-row source stages its rows: where they fit
+__host__ inline int exact_staged(int itopk, int width, int deg, int dim) {
+  return walk_base(itopk, width, deg, dim, 0, 1, 1) <= kSmemMax;
+}
+
+#define RAFT_WALK_TABLE(FILT, ...)                                       \
+  (staged ? (quant ? launch<true, true, FILT, false>(__VA_ARGS__)        \
+                   : launch<true, false, FILT, false>(__VA_ARGS__))      \
+          : (quant ? launch<false, true, FILT, false>(__VA_ARGS__)       \
+                   : launch<false, false, FILT, false>(__VA_ARGS__)))
+#define RAFT_WALK_EXACT(FILT, ...)                                       \
+  (staged ? launch<true, false, FILT, true>(__VA_ARGS__)                 \
+          : launch<false, false, FILT, true>(__VA_ARGS__))
+
 }  // namespace
 
 // filter_words: null, or the queries' packed admission words (n_words int32
@@ -435,30 +618,20 @@ extern "C" int raft_cagra_walk(const void* qp, const void* q_sq,
       (quant && (pdim % 2 != 0 || scales == nullptr)) ||
       table_w < deg * walk_unit(pdim, quant))
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes != walk_smem(itopk, width, deg, pdim, quant, staged) ||
+  if (smem_bytes != walk_smem(itopk, width, deg, pdim, quant, staged, 0) ||
       smem_bytes > kSmemMax)
     return (int)cudaErrorInvalidValue;
-  const int threads =
-      hop_merge::block_threads(width * deg, pow2_at_least(itopk + width * deg));
   WalkArgs a = common_args(qp, q_sq, buf_d, buf_i, visited, itopk, width,
                            deg, pdim, max_iter, ip_metric, filter_words,
                            filter_stride, n_words, out_d, out_i, out_v, hops);
   a.table = static_cast<const int16_t*>(table);
   a.table_w = table_w;
   a.vec = table_w % 8 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  a.hashed = smem_bytes != walk_base(itopk, width, deg, pdim, quant, staged, 0);
   a.scales = static_cast<const float*>(scales);
-#define RAFT_WALK_LAUNCH(FILT)                                              \
-  (staged ? (quant ? launch<true, true, FILT, false>(nq, threads, smem_bytes, \
-                                                     s, a)                  \
-                   : launch<true, false, FILT, false>(nq, threads,          \
-                                                      smem_bytes, s, a))    \
-          : (quant ? launch<false, true, FILT, false>(nq, threads,          \
-                                                      smem_bytes, s, a)     \
-                   : launch<false, false, FILT, false>(nq, threads,         \
-                                                       smem_bytes, s, a)))
-  return filter_words != nullptr ? RAFT_WALK_LAUNCH(true)
-                                 : RAFT_WALK_LAUNCH(false);
-#undef RAFT_WALK_LAUNCH
+  return filter_words != nullptr
+             ? RAFT_WALK_TABLE(true, nq, smem_bytes, s, a)
+             : RAFT_WALK_TABLE(false, nq, smem_bytes, s, a);
 }
 
 // The exact-row source: q (nq, dim) f32, graph (n, deg) int32, rows (n, dim)
@@ -479,11 +652,10 @@ extern "C" int raft_cagra_walk_exact(const void* q, const void* q_sq,
                  filter_stride, n_words) ||
       graph == nullptr || rows == nullptr || rows_sq == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes != walk_smem(itopk, width, deg, dim, 0, 0) ||
+  const int staged = exact_staged(itopk, width, deg, dim);
+  if (smem_bytes != walk_smem(itopk, width, deg, dim, 0, staged, 1) ||
       smem_bytes > kSmemMax)
     return (int)cudaErrorInvalidValue;
-  const int threads =
-      hop_merge::block_threads(width * deg, pow2_at_least(itopk + width * deg));
   WalkArgs a = common_args(q, q_sq, buf_d, buf_i, visited, itopk, width, deg,
                            dim, max_iter, ip_metric, filter_words,
                            filter_stride, n_words, out_d, out_i, out_v, hops);
@@ -491,8 +663,28 @@ extern "C" int raft_cagra_walk_exact(const void* q, const void* q_sq,
   a.rows = static_cast<const float*>(rows);
   a.rows_sq = static_cast<const float*>(rows_sq);
   a.vec = dim % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0;
-  return filter_words != nullptr
-             ? launch<false, false, true, true>(nq, threads, smem_bytes, s, a)
-             : launch<false, false, false, true>(nq, threads, smem_bytes, s,
-                                                 a);
+  a.hashed = smem_bytes != walk_base(itopk, width, deg, dim, 0, staged, 1);
+  return filter_words != nullptr ? RAFT_WALK_EXACT(true, nq, smem_bytes, s, a)
+                                 : RAFT_WALK_EXACT(false, nq, smem_bytes, s, a);
+}
+
+// The block size and resident blocks per SM of a walk launch of this shape
+// (out[0] threads, out[1] blocks; host memory): what chip_smoke and the
+// profiles print beside the walk's times.
+extern "C" int raft_cagra_walk_resident(int itopk, int width, int deg,
+                                        int pdim, int quant, int staged,
+                                        int exact, int filter, int smem_bytes,
+                                        void* out) {
+  if (itopk < 1 || width < 1 || deg < 1 || pdim < 1 || smem_bytes > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  WalkArgs a = {};
+  a.itopk = itopk;
+  a.width = width;
+  a.deg = deg;
+  int* o = static_cast<int*>(out);
+  if (exact)
+    return filter ? RAFT_WALK_EXACT(true, 1, smem_bytes, nullptr, a, o)
+                  : RAFT_WALK_EXACT(false, 1, smem_bytes, nullptr, a, o);
+  return filter ? RAFT_WALK_TABLE(true, 1, smem_bytes, nullptr, a, o)
+                : RAFT_WALK_TABLE(false, 1, smem_bytes, nullptr, a, o);
 }

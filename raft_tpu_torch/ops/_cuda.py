@@ -95,6 +95,9 @@ SIGNATURES = {
     "raft_cagra_walk_exact": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                               _P),
+    "raft_cagra_walk_resident": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "raft_cagra_hop_resident": (_I, _I, _I, _I, _P),
+    "raft_mem_latency_chase": (_P, _I, _I, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -43,6 +43,7 @@ them under the JAX package's private names.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -51,6 +52,9 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.ops import _cuda
 
 SMEM_MAX = 232_448               # an H100 block's opt-in shared memory
+# candidates at most this many dedupe by compare, more by a hash table in
+# shared memory (csrc/hop_merge.cuh kCompareMaxWd)
+COMPARE_MAX_WD = 32
 
 
 def hop_pow2(n: int) -> int:
@@ -66,12 +70,28 @@ def hop_merge_rows(itopk: int, wd: int) -> int:
     return hop_pow2(itopk + wd)
 
 
+def hash_slots(itopk: int, wd: int) -> int:
+    """Slots of the dedupe's hash table: a power of two at least twice the
+    ids it takes (the buffer's and the candidates')."""
+    return hop_pow2(2 * (itopk + wd))
+
+
+def hash_bytes(itopk: int, wd: int, base: int, smem_max: int) -> int:
+    """The hash table's bytes (8 a slot) where a hop of wd candidates
+    dedupes by hash (wd > ``COMPARE_MAX_WD``) and they fit beside ``base``
+    bytes within ``smem_max``, else 0: the compare dedupe needs none."""
+    nbytes = 8 * hash_slots(itopk, wd)
+    return nbytes if wd > COMPARE_MAX_WD and base + nbytes <= smem_max else 0
+
+
 def hop_smem_bytes(itopk: int, wd: int, pdim: int) -> int:
     """Dynamic shared memory of one block, as ``hop_kernel`` lays it out:
-    the query (pdim f32), the scored candidates (wd keys + ids) and the
-    merge network (keys, ids, visited flags).  The one copy of the
+    the dedupe's hash table (where it is used and fits), the merge network
+    (8 bytes an entry: key, id and visited flag), the query (pdim f32)
+    and the scored candidates (wd keys + ids).  The one copy of the
     formula: the gate tests it and the launch passes it."""
-    return 4 * (pdim + 2 * wd + 3 * hop_merge_rows(itopk, wd))
+    base = 8 * hop_merge_rows(itopk, wd) + 4 * (pdim + 2 * wd)
+    return base + hash_bytes(itopk, wd, base, SMEM_MAX)
 
 
 def hop_reject_reason(nq: int, itopk: int, wd: int, pdim: int,
@@ -97,6 +117,17 @@ def supported_hop(nq: int, itopk: int, wd: int, pdim: int,
                   merge_window: int = 0) -> bool:
     """Static shape gate of Kernel I."""
     return not hop_reject_reason(nq, itopk, wd, pdim, merge_window)
+
+
+def hop_resident(itopk: int, wd: int, pdim: int) -> Tuple[int, int]:
+    """(threads a block, resident blocks per SM) of a hop launch of this
+    shape on the current card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    the card only."""
+    out = (ctypes.c_int * 2)()
+    _cuda.check(_cuda.library().raft_cagra_hop_resident(
+        itopk, wd, pdim, hop_smem_bytes(itopk, wd, pdim),
+        ctypes.addressof(out)), "hop_resident")
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------

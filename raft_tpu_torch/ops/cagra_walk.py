@@ -47,6 +47,7 @@ The walk helpers (:func:`select_parents`, :func:`expand`,
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -72,28 +73,48 @@ def walk_unit(pdim: int, quant: bool) -> int:
     return quant_unit(pdim) if quant else pdim + 4
 
 
+def exact_stride(dim: int) -> int:
+    """f32 values a staged exact row takes: dim rounded up to 16 bytes, to
+    an odd count of 16-byte units (so quarter-warps' 16-byte reads meet
+    no bank conflict)."""
+    r = -(-dim // 4) * 4
+    return r if (r // 4) % 2 else r + 4
+
+
+def _walk_base_bytes(itopk: int, width: int, deg: int, pdim: int,
+                     quant: bool, staged: bool, exact: bool) -> int:
+    """A block's bytes without the dedupe's hash table: the staged rows
+    (``width`` fat rows of deg·unit lanes, each rounded up to 16 bytes, or
+    the exact-row source's wd fp32 rows of :func:`exact_stride`; none
+    when ``staged`` is off), the merge network (8 bytes an entry: key, id
+    and visited flag), the query (pdim f32), the candidates (keys, ids),
+    the parents (ids, live flags) and an exit flag."""
+    wd = width * deg
+    rows = 0
+    if staged and exact:
+        rows = wd * exact_stride(pdim) * 4
+    elif staged:
+        rows = width * (-(-(deg * walk_unit(pdim, quant)) // 8) * 8) * 2
+    return (rows + 8 * _hop.hop_merge_rows(itopk, wd)
+            + 4 * (pdim + 2 * wd + 2 * width + 1))
+
+
 def walk_smem_bytes(itopk: int, width: int, deg: int, pdim: int,
                     quant: bool = False, staged: bool = True) -> int:
     """Dynamic shared memory of one block, as ``walk_kernel`` lays it out:
-    the staged fat rows (``width`` rows of deg·unit lanes, each rounded up
-    to 16 bytes; none when ``staged`` is off), the query (pdim f32), the
-    merge network (keys, ids, visited flags), the candidates (keys, ids,
-    deduplicated ids), the parents (ids, live flags) and an exit flag.
-    The one copy of the formula: the gate tests it and the launch passes
-    it."""
-    wd = width * deg
-    rows = 0
-    if staged:
-        rows = width * (-(-(deg * walk_unit(pdim, quant)) // 8) * 8) * 2
-    return rows + 4 * (pdim + 3 * _hop.hop_merge_rows(itopk, wd) + 3 * wd
-                       + 2 * width + 1)
+    :func:`_walk_base_bytes` and, where the walk dedupes by hash and it
+    fits, the hash table (``cagra_hop.hash_bytes``).  The one copy of the
+    formula: the gate tests it and the launch passes it."""
+    base = _walk_base_bytes(itopk, width, deg, pdim, quant, staged, False)
+    return base + _hop.hash_bytes(itopk, width * deg, base, SMEM_MAX)
 
 
 def walk_staged(itopk: int, width: int, deg: int, pdim: int,
                 quant: bool = False) -> bool:
     """Whether the kernel stages the parents' fat rows in shared memory
     (else it scores straight from the table)."""
-    return walk_smem_bytes(itopk, width, deg, pdim, quant) <= SMEM_MAX
+    return _walk_base_bytes(itopk, width, deg, pdim, quant, True,
+                            False) <= SMEM_MAX
 
 
 def _shape_reason(nq: int, itopk: int, width: int, deg: int,
@@ -134,10 +155,21 @@ def supported_walk(nq: int, itopk: int, width: int, deg: int, pdim: int,
     return not walk_reject_reason(nq, itopk, width, deg, pdim, quant)
 
 
+def walk_exact_staged(itopk: int, width: int, deg: int, dim: int) -> bool:
+    """Whether the exact-row source stages its candidates' fp32 rows in
+    shared memory (else each is read from device memory by its
+    candidate's thread)."""
+    return _walk_base_bytes(itopk, width, deg, dim, False, True,
+                            True) <= SMEM_MAX
+
+
 def walk_exact_smem_bytes(itopk: int, width: int, deg: int, dim: int) -> int:
-    """Dynamic shared memory of the exact-row source: the query's fp32 row
-    and the merge network (no stage)."""
-    return walk_smem_bytes(itopk, width, deg, dim, staged=False)
+    """Dynamic shared memory of the exact-row source: the candidates' rows
+    where they fit (:func:`walk_exact_staged`), the query's fp32 row, the
+    merge network and, where it is used and fits, the hash table."""
+    base = _walk_base_bytes(itopk, width, deg, dim, False,
+                            walk_exact_staged(itopk, width, deg, dim), True)
+    return base + _hop.hash_bytes(itopk, width * deg, base, SMEM_MAX)
 
 
 def walk_exact_reject_reason(nq: int, itopk: int, width: int, deg: int,
@@ -151,6 +183,26 @@ def walk_exact_reject_reason(nq: int, itopk: int, width: int, deg: int,
     if need > SMEM_MAX:
         return f"shared memory {need} B above {SMEM_MAX}"
     return ""
+
+
+def walk_resident(itopk: int, width: int, deg: int, pdim: int,
+                  quant: bool = False, exact: bool = False,
+                  filtered: bool = False) -> Tuple[int, int]:
+    """(threads a block, resident blocks per SM) of a walk launch of this
+    shape on the current card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    on the instantiation the launch takes); the card only.  ``exact``: the
+    exact-row source, ``pdim`` its dim."""
+    if exact:
+        staged = walk_exact_staged(itopk, width, deg, pdim)
+        smem = walk_exact_smem_bytes(itopk, width, deg, pdim)
+    else:
+        staged = walk_staged(itopk, width, deg, pdim, quant)
+        smem = walk_smem_bytes(itopk, width, deg, pdim, quant, staged)
+    out = (ctypes.c_int * 2)()
+    _cuda.check(_cuda.library().raft_cagra_walk_resident(
+        itopk, width, deg, pdim, int(quant), int(staged), int(exact),
+        int(filtered), smem, ctypes.addressof(out)), "walk_resident")
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,10 @@ and one of the port's own design, with no JAX script behind it:
 - :mod:`.code_scan_decomp`: Kernels C and D's list-major pass over the
   PQ codes with its decode run after the products or taken out, beside
   Kernel G's pass 1 over the recon cache;
+- :mod:`.cagra_walk_decomp`: Kernel I's walk with the steps of a hop cut
+  off one at a time (parents; + ids and rows; + keys; + dedupe; + rank;
+  + merge) at the walks past 256, the search batch and the direct walk's
+  exact rows, with the hops each cut walk ran and the resident blocks;
 - :mod:`.pair_cut_ties`: how often a tie at a pair's top-kt cut leaves
   Kernel C's merged rows and its plain version's with different ids and
   no equal distance beside them (a count, not a time);
@@ -49,8 +53,8 @@ and prints one JSON line per measurement.  Each of the four ports also has
 a function with explicit sizes and a device; on the CPU it runs the plain
 versions and reports no time (``"ms": null``): a CPU run measures no
 device time.  ``kmeans_tile_decomp``, ``list_scan_decomp``,
-``flat_scan_decomp``, ``code_scan_decomp`` and ``pair_list_decomp`` build
-kernel variants and run on the card only.
+``flat_scan_decomp``, ``code_scan_decomp``, ``pair_list_decomp`` and
+``cagra_walk_decomp`` build kernel variants and run on the card only.
 """
 
 from __future__ import annotations

@@ -261,10 +261,20 @@ def test_hop_gate_and_merge_window():
     assert chop.supported_hop(64, 512, 512, 16)
     assert chop.supported_hop(4096, 291, 320, 128)
     assert chop.supported_hop(64, 64, 64, 5000)
-    assert chop.hop_smem_bytes(64, 64, 16) == 4 * (16 + 128 + 3 * 128)
-    assert chop.hop_smem_bytes(512, 512, 16) == 4 * (16 + 1024 + 3 * 1024)
-    assert chop.hop_reject_reason(64, 8192, 8192, 16).startswith(
-        "shared memory 262208 B above 232448")
+    # the merge network (8 bytes an entry), the query, the candidates'
+    # keys and ids, and (wd past 32) the dedupe's hash table: 8 bytes a
+    # slot, 2 (itopk + wd) rounded up to a power of two
+    assert chop.hop_smem_bytes(64, 64, 16) == \
+        8 * 128 + 4 * (16 + 128) + 8 * 256
+    assert chop.hop_smem_bytes(512, 512, 16) == \
+        8 * 1024 + 4 * (16 + 1024) + 8 * 2048
+    assert chop.hop_smem_bytes(64, 32, 16) == 8 * 128 + 4 * (16 + 64)
+    # itopk 8,192 with wd 8,192 fits since the network's entries packed to
+    # 8 bytes (with no room for the table: it dedupes by compare); twice
+    # that does not
+    assert chop.supported_hop(64, 8192, 8192, 16)
+    assert chop.hop_reject_reason(64, 16384, 16384, 16).startswith(
+        "shared memory 393280 B above 232448")
     assert chop.hop_reject_reason(64, 64, 64, 60000).startswith(
         "shared memory")
     assert chop.hop_reject_reason(64, 0, 64, 16).startswith("itopk=0")

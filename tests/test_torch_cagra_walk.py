@@ -223,15 +223,18 @@ def test_walk_gate_admits_every_hop_shape():
 
 
 def test_walk_smem_formula_and_refusals():
-    # the search shape: 2 fat rows of 32 x 20 lanes, then the query,
-    # the merge network of 128, the 64 candidates, 2 parents, the flag
+    # the search shape: 2 fat rows of 32 x 20 lanes, the dedupe's hash
+    # table (64 candidates: 256 slots of 8 bytes), the merge network of
+    # 128 entries of 8 bytes, then the query, the 64 candidates' keys and
+    # ids, 2 parents, the flag
     assert cw.walk_smem_bytes(64, 2, 32, 16) == \
-        2 * 640 * 2 + 4 * (16 + 3 * 128 + 3 * 64 + 2 * 2 + 1)
-    # int8, pdim 16: 11 lanes a neighbor, a row rounded to 16 bytes
+        2 * 640 * 2 + 8 * 256 + 8 * 128 + 4 * (16 + 2 * 64 + 2 * 2 + 1)
+    # int8, pdim 16: 11 lanes a neighbor, a row rounded to 16 bytes; 30
+    # candidates dedupe by compare, with no table
     assert cw.walk_smem_bytes(32, 1, 30, 16, quant=True) == \
-        336 * 2 + 4 * (16 + 3 * 64 + 3 * 30 + 2 + 1)
+        336 * 2 + 8 * 64 + 4 * (16 + 2 * 30 + 2 + 1)
     assert cw.walk_smem_bytes(64, 2, 32, 16, staged=False) == \
-        4 * (16 + 3 * 128 + 3 * 64 + 2 * 2 + 1)
+        8 * 256 + 8 * 128 + 4 * (16 + 2 * 64 + 2 * 2 + 1)
     assert cw.walk_staged(96, 1, 64, 16)
     assert not cw.walk_staged(256, 4, 64, 4096)
     # past 256: the walk gate refuses only for shared memory
@@ -240,18 +243,247 @@ def test_walk_smem_formula_and_refusals():
         assert cw.walk_reject_reason(64, itopk, width, deg, 16) == ""
         assert cw.walk_exact_reject_reason(64, itopk, width, deg, 96) == ""
     assert cw.walk_reject_reason(64, 64, 1, 32, 5000) == ""
-    assert cw.walk_reject_reason(64, 8192, 16, 512, 16).startswith(
+    assert cw.walk_reject_reason(64, 16384, 16, 512, 16).startswith(
         "shared memory")
     assert cw.walk_exact_reject_reason(64, 64, 1, 32, 60000).startswith(
         "shared memory")
-    # the exact source: the query's fp32 row and the merge network
+    # the exact source: the 64 candidates' staged rows (dim 96 padded to
+    # 100 f32, an odd count of 16-byte units), the hash table, the
+    # query's fp32 row and the merge network
+    assert cw.exact_stride(96) == 100 and cw.exact_stride(128) == 132
+    assert cw.exact_stride(13) == 20 and cw.exact_stride(4) == 4
+    assert cw.walk_exact_staged(64, 2, 32, 96)
     assert cw.walk_exact_smem_bytes(64, 2, 32, 96) == \
-        4 * (96 + 3 * 128 + 3 * 64 + 2 * 2 + 1)
+        64 * 100 * 4 + 8 * 256 + 8 * 128 + 4 * (96 + 2 * 64 + 2 * 2 + 1)
+    # rows past shared memory are read from device memory, unstaged
+    assert not cw.walk_exact_staged(64, 2, 32, 1000)
+    assert cw.walk_exact_smem_bytes(64, 2, 32, 1000) == \
+        8 * 256 + 8 * 128 + 4 * (1000 + 2 * 64 + 2 * 2 + 1)
     assert cw.walk_reject_reason(64, 64, 1, 32, 13, quant=True).startswith(
         "pdim=13 odd")
     assert cw.walk_reject_reason(64, 64, 0, 32, 16).startswith(
         "search_width=0")
     assert cw.walk_reject_reason(0, 64, 1, 32, 16).startswith("nq=0")
+
+
+# the parent design's shared-memory formulas (before the hash table, the
+# staged exact rows and the dedupe's scratch in the merge network), copied
+# here so that the gates can be held to them
+def _parent_walk_smem(itopk, width, deg, pdim, quant, staged):
+    wd = width * deg
+    stage = 0
+    if staged:
+        stage = width * (-(-(deg * cw.walk_unit(pdim, quant)) // 8) * 8) * 2
+    return stage + 4 * (pdim + 3 * chop.hop_pow2(itopk + wd) + 3 * wd
+                        + 2 * width + 1)
+
+
+def _parent_walk_admits(itopk, width, deg, pdim, quant):
+    if quant and pdim % 2:
+        return False
+    staged = _parent_walk_smem(itopk, width, deg, pdim, quant,
+                               True) <= cw.SMEM_MAX
+    return _parent_walk_smem(itopk, width, deg, pdim, quant,
+                             staged) <= cw.SMEM_MAX
+
+
+def _parent_hop_smem(itopk, wd, pdim):
+    return 4 * (pdim + 2 * wd + 3 * chop.hop_pow2(itopk + wd))
+
+
+ADMISSION_GRID = [
+    (itopk, width, deg, pdim)
+    for itopk in (1, 24, 64, 65, 96, 128, 256, 300, 512, 1024, 2048, 4096,
+                  8192, 12000, 16000)
+    for width, deg in ((1, 16), (1, 32), (2, 32), (1, 64), (4, 64), (1, 96),
+                       (3, 85), (8, 32), (256, 1), (16, 32), (8, 64),
+                       (16, 64), (16, 512))
+    for pdim in (1, 8, 13, 16, 96, 128, 1024, 4096, 20000)]
+
+
+def test_every_shape_the_parent_admitted_is_still_admitted():
+    """The gates of the walk (bf16 and int8 tables), the exact-row source
+    and the hop kernel admit every shape the parent design's formulas
+    admitted — the hop gate's grid, the walks past 256 and the exact-row
+    shapes, up to and past shared memory — and the table is added only
+    where it fits."""
+    admitted = 0
+    for itopk, width, deg, pdim in ADMISSION_GRID:
+        wd = width * deg
+        for quant in (False, True):
+            if _parent_walk_admits(itopk, width, deg, pdim, quant):
+                admitted += 1
+                assert cw.walk_reject_reason(5000, itopk, width, deg, pdim,
+                                             quant) == ""
+        if _parent_walk_smem(itopk, width, deg, pdim, False,
+                             False) <= cw.SMEM_MAX:
+            assert cw.walk_exact_reject_reason(5000, itopk, width, deg,
+                                               pdim) == ""
+            assert cw.walk_exact_smem_bytes(itopk, width, deg,
+                                            pdim) <= cw.SMEM_MAX
+        if _parent_hop_smem(itopk, wd, pdim) <= chop.SMEM_MAX:
+            assert chop.hop_reject_reason(5000, itopk, wd, pdim) == ""
+            assert chop.hop_smem_bytes(itopk, wd, pdim) <= chop.SMEM_MAX
+    # the grid reaches past shared memory on both sides
+    assert 0 < admitted < 2 * len(ADMISSION_GRID)
+
+
+def _home_slot(ids, slots):
+    """``csrc/hop_merge.cuh home_slot``: the slot where probing for an id
+    (an int or an int array) starts in a table of ``slots``,
+    ``(id * 0x9E3779B1 mod 2^32) >> (32 - log2 slots)``."""
+    return ((ids * 0x9E3779B1) & 0xFFFFFFFF) >> (32 - (slots.bit_length()
+                                                        - 1))
+
+
+def _hashed_keep(buf_i, cand_i):
+    """The hash dedupe of ``csrc/hop_merge.cuh``, slot for slot, on one
+    query: the table's size and home slots of ``cagra_hop`` (the ones its
+    gate sizes), linear probing, the buffer's ids tagged 0 then candidate
+    j's tagged j + 1 (an id already there keeps the smaller tag); j lives
+    iff its id's slot ends with tag j + 1.  Inserting one by one gives the
+    parallel inserts' result: each id takes one slot and the smallest tag.
+    Also returns the longest probe."""
+    slots = chop.hash_slots(len(buf_i), len(cand_i))
+    table = [None] * slots
+    longest = 0
+
+    def insert(i, tag):
+        nonlocal longest
+        s = _home_slot(int(i), slots)
+        for probe in range(slots):
+            if table[s] is None:
+                table[s] = [int(i), tag]
+                break
+            if table[s][0] == i:
+                table[s][1] = min(table[s][1], tag)
+                break
+            s = (s + 1) % slots
+        else:
+            raise AssertionError("the table filled up")
+        longest = max(longest, probe)
+        return s
+
+    for b in buf_i:
+        if b >= 0:
+            insert(b, 0)
+    where = [insert(c, j + 1) if c >= 0 else -1
+             for j, c in enumerate(cand_i)]
+    return (np.array([s >= 0 and table[s][1] == j + 1
+                      for j, s in enumerate(where)]), longest)
+
+
+def _merge_keep(buf_i, cand_i):
+    """Which candidates ``merge_candidates`` keeps: candidate j keyed j,
+    under a buffer keyed 1e6 + slot, merged to wd slots — the live
+    candidates come first, in order."""
+    itopk, wd = len(buf_i), len(cand_i)
+    bd = torch.arange(itopk, dtype=torch.float32)[None] + 1e6
+    cd = torch.arange(wd, dtype=torch.float32)[None]
+    out_d, _, _ = chop.merge_candidates(
+        bd, torch.tensor(buf_i, dtype=torch.int32)[None],
+        torch.zeros(1, itopk, dtype=torch.bool), cd,
+        torch.tensor(cand_i, dtype=torch.int32)[None], wd)
+    keep = np.zeros(wd, bool)
+    keep[[int(k) for k in out_d[0] if k < 1e6]] = True
+    return keep
+
+
+def _colliding(slots, n, start=0):
+    """n ids >= start with one home slot in a table of ``slots``."""
+    home, out, i = None, [], start
+    while len(out) < n:
+        h = _home_slot(i, slots)
+        if home is None:
+            home = h
+        if h == home:
+            out.append(i)
+        i += 1
+    return out
+
+
+def test_hash_table_size_and_home_slots():
+    """The table the gates size holds at least twice the ids a hop puts in
+    it, a power of two, and every home slot lies in it."""
+    for itopk, wd in ((64, 64), (512, 32), (256, 512), (65, 96), (1, 33),
+                      (300, 2048)):
+        slots = chop.hash_slots(itopk, wd)
+        assert slots >= 2 * (itopk + wd) and slots & (slots - 1) == 0
+        assert slots < 4 * (itopk + wd)
+        h = _home_slot(np.arange(0, 2 ** 31 - 1, 9973, dtype=np.int64),
+                       slots)
+        assert h.min() >= 0 and h.max() < slots
+    assert _home_slot(1, 256) == 0x9E3779B1 >> 24
+
+
+@pytest.mark.parametrize("case", [
+    "one id", "all buffered", "colliding", "multiples of the size",
+    "negative ids", "fullest", "random"])
+def test_hashed_dedupe_model_matches_merge_candidates(case):
+    """The hash dedupe's model keeps exactly the candidates
+    ``merge_candidates`` keeps, on inputs chosen against it."""
+    rng = np.random.default_rng(7)
+    itopk, wd = 64, 64
+    buf = rng.choice(10 ** 6, itopk, replace=False)
+    if case == "one id":
+        cand = np.full(wd, 777)
+    elif case == "all buffered":
+        cand = rng.choice(buf, wd)
+    elif case == "colliding":
+        slots = chop.hash_slots(itopk, wd)
+        ids = _colliding(slots, 40, 5)
+        buf = np.array(ids[:20] + list(rng.choice(10 ** 6, itopk - 20,
+                                                  replace=False) + 10 ** 6))
+        cand = np.array(ids[10:40] + ids[10:40] + [ids[0]] * 4)
+    elif case == "multiples of the size":
+        slots = chop.hash_slots(itopk, wd)
+        buf = np.arange(itopk) * slots
+        cand = (np.arange(wd) % 48) * slots + slots * 40
+    elif case == "negative ids":
+        buf[::3] = -1
+        cand = rng.choice(np.concatenate([buf, [-1] * 20, [5, 6, 7]]), wd)
+    elif case == "fullest":
+        # itopk + wd distinct live ids, all one home slot: the table at
+        # its highest load (half of 2 (itopk + wd) slots, rounded to a
+        # power of two) with one probe chain through all of them
+        itopk, wd = 96, 32
+        ids = _colliding(chop.hash_slots(itopk, wd), itopk + wd)
+        buf = np.array(ids[:itopk])
+        cand = np.array(ids[itopk:])
+    else:
+        itopk, wd = 512, 32
+        buf = rng.choice(4000, itopk, replace=False)
+        cand = rng.integers(-1, 4000, wd)
+    keep, longest = _hashed_keep(buf, cand)
+    np.testing.assert_array_equal(keep, _merge_keep(buf, cand))
+    if case == "fullest":
+        assert chop.hash_slots(itopk, wd) == 2 * (itopk + wd)
+        assert keep.all() and longest == itopk + wd - 1
+
+
+def _sort_key(key, j):
+    """``hop_merge::sort_key``: (key, j) in 64 bits, key bits mapped to an
+    unsigned order with -0 read as +0."""
+    u = int(np.array(np.float32(key) + np.float32(0.0),
+                     np.float32).view(np.uint32))
+    o = (~u & 0xFFFFFFFF) if u & 0x80000000 else u | 0x80000000
+    return (o << 32) | j
+
+
+def test_sort_rank_is_the_counting_rank():
+    """The hash route's rank (a sort of the packed (key, j)) places every
+    candidate where the counting rank does, on keys with ties, -0 and +0,
+    negatives (InnerProduct) and +inf (dead)."""
+    rng = np.random.default_rng(3)
+    keys = np.concatenate([
+        rng.choice(np.float32([-2.5, -0.0, 0.0, 1.0, 3.0, np.inf]), 40),
+        rng.normal(size=24).astype(np.float32)]).astype(np.float32)
+    rng.shuffle(keys)
+    wd = len(keys)
+    count = [sum(1 for i in range(wd) if keys[i] < keys[j]
+                 or (keys[i] == keys[j] and i < j)) for j in range(wd)]
+    order = sorted(range(wd), key=lambda j: _sort_key(keys[j], j))
+    assert [order.index(j) for j in range(wd)] == count
 
 
 def test_plain_walk_checks_its_inputs(blobs, caches):

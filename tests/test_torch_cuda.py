@@ -1585,6 +1585,22 @@ def test_cagra_hop_kernel_matches_plain(dev, nq, itopk, wd, pdim, ip):
     assert live.numel() > 0
 
 
+@pytest.mark.parametrize("nq,itopk,wd,pdim,id_hi", [
+    (500, 64, 64, 16, 96),        # hashed, most ids repeated
+    (500, 32, 32, 16, 40),        # by compare
+    (100, 512, 512, 16, 700)])    # the looping block, hashed and sorted
+def test_cagra_hop_kernel_duplicate_heavy_matches_plain(dev, nq, itopk, wd,
+                                                        pdim, id_hi):
+    """Kernel I's hop with ids drawn from a few more than the buffer and
+    candidates hold (so they repeat among the candidates and against the
+    buffer): bit for bit the plain hop."""
+    args = _hop_inputs(dev, nq, itopk, wd, pdim, nq + wd, id_hi=id_hi)
+    kd, ki, kv = chop.cagra_hop(*args, ip_metric=False)
+    pd, pi, pv = chop.cagra_hop_plain(*args, ip_metric=False)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
+
+
 def test_cagra_hop_all_visited_is_a_fixed_point(dev):
     """A fully visited buffer with only masked parents comes back as it
     went in (why the walk may skip its per-hop exit check)."""
@@ -1595,11 +1611,11 @@ def test_cagra_hop_all_visited_is_a_fixed_point(dev):
 
 
 def test_cagra_hop_rejects_what_it_cannot_hold(dev):
-    """Past its opt-in shared memory (itopk 8,192 with wd 8,192) the hop
+    """Past its opt-in shared memory (itopk 16,384 with wd 16,384) the hop
     kernel refuses before any launch: the call raises, naming shared
     memory."""
-    args = _hop_inputs(dev, 2, 8192, 8192, 16, 0)
-    assert chop.hop_smem_bytes(8192, 8192, 16) > chop.SMEM_MAX
+    args = _hop_inputs(dev, 2, 16384, 16384, 16, 0)
+    assert chop.hop_smem_bytes(16384, 16384, 16) > chop.SMEM_MAX
     before = chop.cagra_hop.launches
     with pytest.raises(LogicError, match="shared memory"):
         chop.cagra_hop(*args, ip_metric=False)
@@ -1628,15 +1644,18 @@ def test_cagra_hop_kernel_past_256_matches_plain(dev, nq, itopk, wd, pdim,
 
 
 def _walk_inputs(dev, nq, itopk, width, deg, pdim, quant, ip, seed,
-                 n=4096, all_visited=False):
+                 n=4096, all_visited=False, dup_rows=False):
     """A seeded walk over a random graph: the packed table (bf16 or int8)
     of n random rows, some graph edges masked (-1), the queries' table-side
     projections and the buffer seeded from 512 random entry points, as
-    ``cagra._search_impl_walk`` seeds it.  (args, keyword args) of
-    ``cagra_walk``."""
+    ``cagra._search_impl_walk`` seeds it; ``dup_rows``: rows in equal
+    pairs, so keys tie.  (args, keyword args) of ``cagra_walk``."""
     rng = np.random.default_rng(seed)
     dim = max(pdim, 16)
-    x = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32)).to(dev)
+    xs = rng.normal(size=(n, dim)).astype(np.float32)
+    if dup_rows:
+        xs[1::2] = xs[0::2]
+    x = torch.from_numpy(xs).to(dev)
     graph = rng.integers(0, n, size=(n, deg)).astype(np.int32)
     graph[rng.random((n, deg)) < 0.02] = -1
     graph = torch.from_numpy(graph).to(dev)
@@ -1740,8 +1759,8 @@ def test_cagra_walk_rejects_what_it_cannot_hold(dev):
     """Past its opt-in shared memory the walk kernel (and its exact-row
     source) refuses before any launch: the call raises, naming shared
     memory."""
-    args, kw = _walk_inputs(dev, 2, 8192, 16, 512, 16, False, False, 0)
-    assert cw.walk_reject_reason(2, 8192, 16, 512, 16).startswith(
+    args, kw = _walk_inputs(dev, 2, 16384, 16, 512, 16, False, False, 0)
+    assert cw.walk_reject_reason(2, 16384, 16, 512, 16).startswith(
         "shared memory")
     before = cw.cagra_walk.launches
     with pytest.raises(LogicError, match="shared memory"):
@@ -1777,14 +1796,55 @@ def test_cagra_walk_kernel_past_256_matches_plain(dev, nq, itopk, width, deg,
     assert bool((kh > 0).all())
 
 
+@pytest.mark.parametrize("nq,itopk,width,deg,quant,ip,dup_rows,filtered", [
+    (200, 64, 2, 32, False, False, False, False),  # search shape: hashed
+    (200, 32, 1, 32, False, False, False, False),  # a bucket: compare
+    (100, 64, 2, 32, False, False, True, False),   # keys tie
+    (200, 64, 2, 32, True, False, True, True),     # int8, 50% filter
+    (60, 512, 1, 32, False, False, True, False),   # 512 w1: 128 threads
+    (60, 512, 1, 32, True, True, False, False),    # int8, InnerProduct
+    (60, 512, 1, 32, False, True, True, True),     # filtered, ties
+    (40, 256, 16, 32, False, False, True, False),  # wd 512: hashed, sorted
+    (40, 256, 16, 32, True, True, True, True),
+    (20, 1024, 16, 64, False, False, False, False),  # wd 1,024 at degree 64
+    (20, 1024, 16, 64, False, False, True, True)])
+def test_cagra_walk_kernel_duplicate_heavy_matches_plain(
+        dev, nq, itopk, width, deg, quant, ip, dup_rows, filtered):
+    """The walk kernel's dedupe (by compare and by the hash table), rank
+    (count and sort) and resident-block loops on duplicate-heavy walks: a
+    graph over 2,048 rows, so ids repeat within a hop and against the
+    buffer, with rows in equal pairs where keys should tie, in both table
+    formats, both metrics and under a 50% filter: keys, ids, visited flags
+    and hop counts bit for bit the plain walk's, in one launch."""
+    args, kw = _walk_inputs(dev, nq, itopk, width, deg, 16, quant, ip,
+                            nq + itopk + deg, n=2048, dup_rows=dup_rows)
+    fw = (_filter_words(dev, nq, 2048, 0.5, False, itopk) if filtered
+          else None)
+    before = cw.cagra_walk.launches
+    kd, ki, kv, kh = cw.cagra_walk(*args, return_hops=True, filter_words=fw,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert cw.cagra_walk.launches == before + 1
+    pd, pi, pv, ph = cw.cagra_walk_plain(*args, return_hops=True,
+                                         filter_words=fw, **kw)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert torch.equal(kv, pv) and torch.equal(kh, ph)
+    if dup_rows:
+        fin = torch.isfinite(kd)
+        assert bool((torch.diff(kd, dim=1)[fin[:, 1:]] == 0).any())
+
+
 def _exact_walk_inputs(dev, nq, itopk, width, deg, dim, ip, seed, n=4096,
-                       filter_words=None):
+                       filter_words=None, dup_rows=False):
     """A direct walk over a random graph (some edges -1) of n random fp32
-    rows, the buffer seeded from 4 x itopk random draws as
-    ``cagra._search_impl`` seeds it.  (args, keyword args) of
-    ``cagra_walk_exact``."""
+    rows (``dup_rows``: in equal pairs, so keys tie), the buffer seeded
+    from 4 x itopk random draws as ``cagra._search_impl`` seeds it.
+    (args, keyword args) of ``cagra_walk_exact``."""
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32)).to(dev)
+    xs = rng.normal(size=(n, dim)).astype(np.float32)
+    if dup_rows:
+        xs[1::2] = xs[0::2]
+    x = torch.from_numpy(xs).to(dev)
     graph = rng.integers(0, n, size=(n, deg)).astype(np.int32)
     graph[rng.random((n, deg)) < 0.02] = -1
     graph = torch.from_numpy(graph).to(dev)
@@ -1830,6 +1890,33 @@ def test_cagra_walk_exact_kernel_matches_plain(dev, nq, itopk, width, dim,
     assert bool((torch.diff(kd, dim=1)[fin[:, 1:]] >= 0).all())
     if filtered:
         _assert_admitted(ki, fw)
+
+
+@pytest.mark.parametrize("dim,width,deg,staged", [
+    (13, 2, 32, True),      # one-value rows, staged by 4-byte copies
+    (96, 2, 32, True),      # deep-cagra-10m's dim
+    (128, 2, 32, True),     # sift-like
+    (1000, 2, 32, False),   # 64 rows of 4,016 B past shared memory
+    (96, 16, 32, True)])    # wd 512 looping; no room for the table
+@pytest.mark.parametrize("ip", [False, True])
+def test_cagra_walk_exact_staged_rows_match_plain(dev, dim, width, deg,
+                                                  staged, ip):
+    """The exact-row source with its rows staged in shared memory (and
+    past the stage's limit, read from device memory), on duplicate-heavy
+    walks (2,048 rows in equal pairs: ids repeat within a hop and against
+    the buffer, keys tie): bit for bit the plain direct walk."""
+    itopk = 64 if width == 2 else 256
+    args, kw = _exact_walk_inputs(dev, 80, itopk, width, deg, dim, ip,
+                                  dim + width + int(ip), n=2048,
+                                  dup_rows=True)
+    assert cw.walk_exact_staged(itopk, width, deg, dim) == staged
+    before = cw.cagra_walk_exact.launches
+    kd, ki, kv, kh = cw.cagra_walk_exact(*args, return_hops=True, **kw)
+    torch.cuda.synchronize()
+    assert cw.cagra_walk_exact.launches == before + 1
+    pd, pi, pv, ph = cw.cagra_walk_exact_plain(*args, return_hops=True, **kw)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert torch.equal(kv, pv) and torch.equal(kh, ph)
 
 
 def test_cagra_search_direct_walk_is_one_launch(dev):
