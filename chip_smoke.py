@@ -31,7 +31,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    the ``raise`` validation policy's cost: the batch's median ms under
    ``off`` and under ``raise``, in
    turns, and the difference as a share of the batch (the search alone
-   too; and CAGRA's itopk-64 batch in phase 11).
+   too; and CAGRA's itopk-64 batch in phase 11).  The build runs under
+   observability collection (``observability.collecting()``).
+4b. The host-side subsystems on the flagship index: the no-fence
+   contract (the calls through ``observability/stage.py
+   _block_until_ready`` during one search + refine batch: 0 with
+   collection off, at least one a stage crossed with it on; the batch's
+   ms both ways in turns, the fence cost); the build's report
+   (``observability.build_report``: every stage the JAX package records
+   for this build, none longer than the build, the ``ivf_pq.build.*``
+   timers within 10% or 5 ms of ``build.stage_seconds``) and the
+   Prometheus text parsed line by line; one request trace
+   (``start_request``) whose spans nest the search's stages; the delta
+   memtable (``neighbors.delta``) at a streaming size, 16,384 upserts of
+   new rows of the flagship's distribution (latent seed 1) and 4,096
+   deletes of main-index ids into a ``Memtable(128, capacity=1024)`` on
+   the card (capacity 1,024 -> 16,384), merged (``merge_with_main``) into
+   the batch's refined top 10: recall@10 >= 0.90 against brute force over
+   the live rows and the memtable, no deleted id, and equal to a host
+   merge in float64 (distances within 1e-5 of ||q||^2 + max ||x||^2, ids
+   tie-aware), its ms and ``digest()``; ``integrity.verify`` at
+   ``statistical`` on the flagship (and, in their phases, on IVF-Flat
+   nlist 4096 and CAGRA deg32), every check passing, with its seconds.
+   Each line carries the card's name and power limit.  The profiler
+   phase (7) checks that its events hold the ``raft_tpu:ivf_pq::search``
+   and ``raft_tpu:refine`` ranges.
 5. Kernel B (``ivf_pq_scan_fused``, list-major) against its plain version
    on the flagship's batch: 5000 queries of the built index at n_probes
    96, k 20, with the batch's group count and the call's device time split
@@ -657,10 +681,12 @@ def phase(name):
     print(f"== {name} (t = {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
-def device_breakdown(label, fn, top=6):
+def device_breakdown(label, fn, top=6, ranges=()):
     """Run ``fn`` once under torch.profiler: wall time, the summed device
     time of its kernels, the device's idle share of the wall time, and its
-    heaviest kernels (profiler overhead inflates the wall time)."""
+    heaviest kernels (profiler overhead inflates the wall time).  Each
+    label in ``ranges`` (a ``core.tracing`` range) must be among the
+    profiler's events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -682,6 +708,13 @@ def device_breakdown(label, fn, top=6):
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:9.2f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% "
               f"x{e.count:<6d} {e.key[:90]}", flush=True)
+    keys = {e.key for e in prof.key_averages()}
+    for name in ranges:
+        found = [e for e in prof.key_averages() if e.key == name]
+        assert found, f"{label}: the profiler saw no {name!r} range"
+        print(f"  range {name}: x{found[0].count}, "
+              f"{found[0].cpu_time_total / 1e3:.2f} ms host", flush=True)
+    return keys
 
 
 LIBRARY_OUT_BYTES = 8e9     # largest product a yardstick matmul may write
@@ -5138,6 +5171,280 @@ def ip_path(dev, db, queries):
     return out
 
 
+# the host-side subsystems phase: the memtable's stream (PERF.md §5)
+DELTA_UPSERTS, DELTA_DELETES, DELTA_CAPACITY = 16_384, 4_096, 1_024
+DELTA_SEED = 1
+FENCE_TURNS = 5
+# a build stage's timer against build.stage_seconds: within 10% or 5 ms
+STAGE_REL, STAGE_ABS_S = 0.10, 0.005
+# the memtable merge against the host's plain merge: distances within
+# 1e-5 of ||q||^2 + max ||x||^2, ids tie-aware
+DELTA_ATOL = 1e-5
+PROM_LINE = re.compile(
+    r"^(# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|summary|histogram)"
+    r"|[a-zA-Z_:][a-zA-Z0-9_:]*(\{le=\"[^\"]+\"\})? "
+    r"[-+]?([0-9.]+([eE][-+]?[0-9]+)?|inf|nan))$")
+
+
+def flagship_rows(n, seed):
+    """``n`` more rows of the flagship's distribution: sift_like's latent
+    map (its numpy seed-0 draw) applied to latents and noise drawn from
+    ``seed``, so they fall among the flagship's rows and queries."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rng.normal(size=(N_DB + N_QUERIES, LATENT))
+    A = rng.normal(size=(LATENT, DIM)).astype(np.float32) / np.sqrt(LATENT)
+    new = np.random.default_rng(seed)
+    x = (new.normal(size=(n, LATENT)).astype(np.float32) @ A).astype(
+        np.float32)
+    return x + NOISE * new.normal(size=x.shape).astype(np.float32)
+
+
+def host_merge(main_d, main_i, queries, rows, ids, deleted, k):
+    """The memtable merge built on the host, in float64: the main
+    results with deleted ids masked, the memtable's exact top-k, one
+    stable sort, worst -> id -1."""
+    import numpy as np
+
+    md = main_d.astype(np.float64)
+    mi = main_i.astype(np.int64)
+    hit = np.isin(mi, deleted) & (mi >= 0)
+    md = np.where(hit, np.inf, md)
+    mi = np.where(hit, -1, mi)
+    q = queries.astype(np.float64)
+    r = rows.astype(np.float64)
+    d = ((q * q).sum(1)[:, None] + (r * r).sum(1)[None, :]
+         - 2.0 * q @ r.T)
+    top = np.argsort(d, axis=1, kind="stable")[:, :k]
+    dd = np.take_along_axis(d, top, 1)
+    di = ids[top].astype(np.int64)
+    alld = np.concatenate([md, dd], 1)
+    alli = np.concatenate([mi, di], 1)
+    order = np.argsort(alld, axis=1, kind="stable")[:, :k]
+    out_d = np.take_along_axis(alld, order, 1)
+    out_i = np.take_along_axis(alli, order, 1)
+    return out_d, np.where(np.isinf(out_d), -1, out_i)
+
+
+def merge_matches(label, dist, ids, ref_d, ref_i, scale, atol):
+    """Distances within ``atol * scale`` (per query) of the host merge's;
+    ids equal where the distances differ from their neighbours by more
+    than that (a tie may order its ids either way)."""
+    import numpy as np
+
+    fin = np.isfinite(ref_d)
+    assert np.array_equal(np.isfinite(dist), fin), f"{label}: sentinels"
+    rel = np.where(fin, np.abs(np.where(fin, dist - ref_d, 0.0)), 0.0) / \
+        scale[:, None]
+    tol = atol * scale[:, None]
+    assert (rel <= atol).all(), (
+        f"{label}: {int((rel > atol).sum())} distances off the host merge "
+        f"by more than {atol} x (||q||^2 + max ||x||^2); worst "
+        f"{float(rel.max()):.3g}")
+    for q in np.nonzero((ids != ref_i).any(1))[0]:
+        for j in np.nonzero(ids[q] != ref_i[q])[0]:
+            near = np.abs(ref_d[q] - ref_d[q, j]) <= 2 * tol[q, 0]
+            assert ids[q, j] in ref_i[q][near], (
+                f"{label}: query {q} rank {j}: id {ids[q, j]} vs "
+                f"{ref_i[q, j]} off distance ties")
+    return float(rel.max())
+
+
+def host_side_path(res, index, db, queries, sp, build_stages, smi_line):
+    """The host-side subsystems on the flagship (phase 4b): the no-fence
+    contract and its cost, the build's stage report against
+    ``build.stage_seconds``, the Prometheus text, one request trace, the
+    delta memtable at a streaming size merged into the flagship batch,
+    and ``integrity.verify`` on the flagship index."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch import integrity
+    from raft_tpu_torch import observability as obs
+    from raft_tpu_torch.neighbors import brute_force, delta, ivf_pq, refine
+
+    # the module (the package's ``stage`` attribute is the function)
+    obs_stage = sys.modules["raft_tpu_torch.observability.stage"]
+
+    def batch():
+        d, i = refine(res, db, queries, ivf_pq.search(
+            res, sp, index, queries, K_SEARCH)[1], K)
+        return d, i
+
+    # 1. the no-fence contract: calls through the fence indirection
+    calls = [0]
+    real_wait = obs_stage._block_until_ready
+
+    def counting_wait(device):
+        calls[0] += 1
+        real_wait(device)
+
+    obs_stage._block_until_ready = counting_wait
+    try:
+        ms = {"off": [], "on": []}
+        fences = {"off": [], "on": []}
+        stages_crossed = set()
+        for _ in range(FENCE_TURNS):
+            for mode in ("off", "on"):
+                obs.reset()
+                calls[0] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "on":
+                    with obs.collecting():
+                        batch()
+                else:
+                    batch()
+                torch.cuda.synchronize()
+                ms[mode].append(1e3 * (time.perf_counter() - t0))
+                fences[mode].append(calls[0])
+                if mode == "on":
+                    stages_crossed = set(obs.snapshot()["timers"])
+    finally:
+        obs_stage._block_until_ready = real_wait
+    med = {m: sorted(v)[len(v) // 2] for m, v in ms.items()}
+    print(f"fence cost, search+refine batch of {N_QUERIES}: collection off "
+          f"{', '.join(f'{m:.3f}' for m in ms['off'])} ms ({fences['off']} "
+          f"fence waits), on {', '.join(f'{m:.3f}' for m in ms['on'])} ms "
+          f"({fences['on']} fence waits; stages {sorted(stages_crossed)}); "
+          f"medians {med['off']:.3f} / {med['on']:.3f} ms, on - off "
+          f"{med['on'] - med['off']:.3f} ms; nvidia-smi: {smi_line}",
+          flush=True)
+    assert all(n == 0 for n in fences["off"]), (
+        f"a search with collection off waited on the device: {fences}")
+    assert stages_crossed and all(
+        n >= len(stages_crossed) for n in fences["on"]), (
+        f"fewer fence waits than stages: {fences['on']}, {stages_crossed}")
+
+    # 2. the build's report (the main path built under collection)
+    rep = obs.build_report(index)
+    assert rep is not None, "the flagship build recorded no report"
+    stage_s = {n: round(t["total_s"], 4) for n, t in rep["stages"].items()}
+    print(f"build report: total {rep['total_s']:.3f} s; stages (s): "
+          f"{json.dumps(stage_s)}; counters {json.dumps(rep['counters'])}; "
+          f"nvidia-smi: {smi_line}", flush=True)
+    for name in ("ivf_pq.build.kmeans", "ivf_pq.build.codebooks",
+                 "ivf_pq.build.recon_cache", "kmeans_balanced.fit"):
+        assert name in rep["stages"], f"build report lacks {name}"
+    for name, t in rep["stages"].items():
+        assert t["total_s"] <= rep["total_s"], (
+            f"{name} {t['total_s']} s exceeds the build's {rep['total_s']}")
+    agree = {}
+    for stage, parts in (("kmeans", ("trainset", "coarse_fit")),
+                         ("codebooks", ("codebooks",)),
+                         ("recon_cache", ("recon_cache",))):
+        got = rep["stages"][f"ivf_pq.build.{stage}"]["total_s"]
+        want = sum(build_stages[p] for p in parts)
+        agree[stage] = (round(got, 4), round(want, 4))
+        assert abs(got - want) <= max(STAGE_REL * want, STAGE_ABS_S), (
+            f"ivf_pq.build.{stage}: {got} s vs build.stage_seconds {want}")
+    print(f"build stages, registry vs build.stage_seconds (s): "
+          f"{json.dumps(agree)}", flush=True)
+    text = obs.to_prometheus()
+    lines = text.strip().splitlines()
+    bad = [ln for ln in lines if not PROM_LINE.match(ln)]
+    assert not bad, f"Prometheus lines that do not parse: {bad[:5]}"
+    print(f"Prometheus text: {len(lines)} lines, all parse", flush=True)
+
+    # 3. one request trace
+    obs.reset()
+    with obs.collecting(), obs.tracing_scope():
+        rec = obs.start_request()
+        with obs.trace.activating(rec):
+            batch()
+            torch.cuda.synchronize()
+        rec.close()
+    tree = [(s.name, round(1e3 * (s.t0 - rec.t0), 3),
+             round(1e3 * s.duration, 3)) for s in rec.spans]
+    print(f"request trace {rec.trace_id} ({rec.name}, "
+          f"{1e3 * rec.duration:.3f} ms): spans (name, start ms, ms) "
+          f"{json.dumps(tree)}; nvidia-smi: {smi_line}", flush=True)
+    names = [s.name for s in rec.spans]
+    for name in ("ivf_pq.search.coarse", "ivf_pq.search.fused_scan",
+                 "refine"):
+        assert name in names, f"the request trace lacks {name}: {names}"
+    assert all(rec.t0 <= s.t0 <= s.t1 <= rec.t1 for s in rec.spans), (
+        "a span lies outside its request")
+
+    # 4. the delta memtable at a streaming size
+    rng = np.random.default_rng(DELTA_SEED)
+    new_rows = flagship_rows(DELTA_UPSERTS, DELTA_SEED)
+    new_ids = np.arange(N_DB, N_DB + DELTA_UPSERTS, dtype=np.int64)
+    deleted = np.sort(rng.choice(N_DB, DELTA_DELETES, replace=False))
+    mem = delta.Memtable(DIM, capacity=DELTA_CAPACITY, device=db.device)
+    t0 = time.perf_counter()
+    mem.apply(delta.Record(1, delta.OP_UPSERT, new_ids, new_rows))
+    mem.apply(delta.Record(2, delta.OP_DELETE, deleted))
+    apply_s = time.perf_counter() - t0
+    assert mem.capacity == DELTA_UPSERTS, mem.capacity
+    data, ids, tombs = mem.device_view()
+    main_d, main_i = batch()
+
+    def merge():
+        return delta.merge_with_main(main_d, main_i, queries, data, ids,
+                                     tombs, k=K, metric=index.metric)
+
+    # the first call pays for the product's and the selection's first use
+    (dist, found), first_ms = timed_once(merge)
+    merge_ms = []
+    for _ in range(KERNEL_REPS):
+        (dist, found), ms_ = timed_once(merge)
+        merge_ms.append(ms_)
+    live = torch.ones(N_DB, dtype=torch.bool, device=db.device)
+    live[torch.as_tensor(deleted, device=db.device)] = False
+    live_ids = torch.nonzero(live)[:, 0]
+    in_mem = ids >= 0
+    union = torch.cat([db[live_ids], data[in_mem]])
+    union_ids = torch.cat([live_ids, ids[in_mem].long()])
+    _, pos = brute_force.knn(res, union, queries, K)
+    truth = union_ids[pos.long()]
+    hits = (found[:, :, None] == truth[:, None, :]).any(2).sum()
+    recall = float(hits) / truth.numel()
+    del union, union_ids, live, live_ids
+    found_h = found.cpu().numpy()
+    assert not np.isin(found_h, deleted).any(), "a deleted id came back"
+    q_h = queries.cpu().numpy()
+    ref_d, ref_i = host_merge(main_d.cpu().numpy(), main_i.cpu().numpy(),
+                              q_h, new_rows, new_ids, deleted, K)
+    scale = (q_h.astype(np.float64) ** 2).sum(1) + max(
+        float((db * db).sum(1).max()), float((new_rows ** 2).sum(1).max()))
+    worst = merge_matches("memtable merge", dist.cpu().numpy(), found_h,
+                          ref_d, ref_i, scale, DELTA_ATOL)
+    from_mem = float((found >= N_DB).sum()) / found.numel()
+    print(f"memtable: {DELTA_UPSERTS:,} upserts + {DELTA_DELETES:,} deletes "
+          f"applied in {apply_s:.3f} s (capacity {DELTA_CAPACITY:,} -> "
+          f"{mem.capacity:,}, tombstone capacity {mem.tomb_capacity:,}, "
+          f"generation {mem.generation}); merge_with_main ms "
+          f"{', '.join(f'{m:.3f}' for m in merge_ms)} (first call "
+          f"{first_ms:.3f}; batch of {N_QUERIES:,}, k {K}); recall@10 "
+          f"{recall:.4f} against brute "
+          f"force over the live rows and the memtable; {100 * from_mem:.2f}% "
+          f"of the results from the memtable; worst distance gap to the "
+          f"host merge {worst:.3g} of ||q||^2 + max ||x||^2; digest "
+          f"{mem.digest()}; nvidia-smi: {smi_line}", flush=True)
+    assert recall >= 0.90, f"merged recall@10 {recall} below 0.90"
+
+    # 5. integrity.verify on the flagship index
+    verify_timed("flagship IVF-PQ", index, smi_line)
+    return {"fence_ms": med, "merge_ms": sorted(merge_ms)[KERNEL_REPS // 2],
+            "delta_recall": recall}
+
+
+def verify_timed(label, index, smi_line):
+    """``integrity.verify`` at ``statistical`` on a built index, timed;
+    every check passes."""
+    import torch
+    from raft_tpu_torch import integrity
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    integrity.verify(index, level="statistical")
+    torch.cuda.synchronize()
+    print(f"integrity.verify statistical, {label}: passed in "
+          f"{time.perf_counter() - t0:.3f} s; nvidia-smi: {smi_line}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5146,6 +5453,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch import observability as obs
     from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
     from raft_tpu_torch.ops import _cuda
 
@@ -5219,7 +5527,9 @@ def main() -> int:
     zero_launches()
     fallbacks = ivf_pq.search.fused_fallbacks
     t0 = time.perf_counter()
-    index = ivf_pq.build(res, params, db)
+    # built under observability collection: phase 4b reads its report
+    with obs.collecting():
+        index = ivf_pq.build(res, params, db)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_stages = dict(ivf_pq.build.stage_seconds)
@@ -5265,6 +5575,13 @@ def main() -> int:
                     res, sp, index, queries, K_SEARCH)[1], K))
     policy_cost(f"search alone (batch of {N_QUERIES})", lambda:
                 ivf_pq.search(res, sp, index, queries, K_SEARCH))
+
+    phase("host-side subsystems on the flagship: the no-fence contract, "
+          "the build report, a request trace, the delta memtable, verify")
+    t0 = time.perf_counter()
+    host_side_path(res, index, db, queries, sp, build_stages, smi_line)
+    host_side_s = time.perf_counter() - t0
+    print(f"host-side subsystems phase: {host_side_s:.1f} s", flush=True)
 
     phase("kernel B vs plain (the main path's batch on the built index; "
           "past kt 64 G's pair-group pass + the merge)")
@@ -5320,13 +5637,18 @@ def main() -> int:
     index = ivf_pq.build(DeviceResources(seed=0), params, db)
     device_breakdown("search+refine batch", lambda: refine(
         res, db, queries, ivf_pq.search(res, sp, index, queries,
-                                        K_SEARCH)[1], K))
+                                        K_SEARCH)[1], K),
+        ranges=("raft_tpu:ivf_pq::search", "raft_tpu:refine"))
     del cand, found
     torch.cuda.empty_cache()
 
     phase("IVF-Flat at full width: sift-like-1m, nlist 4096 and 16384")
     row_f, row_fp, a_flat, h_flat, flat_indexes = ivf_flat_path(db, queries,
                                                                 truth)
+
+    t0 = time.perf_counter()
+    verify_timed("IVF-Flat nlist 4096", flat_indexes[1], smi_line)
+    host_side_s += time.perf_counter() - t0
 
     phase("k-means at full width: 1M x 128 -> 1024 (BASELINE config 3)")
     row_h, a_kmeans = kmeans_path(db)
@@ -5353,6 +5675,12 @@ def main() -> int:
     phase("CAGRA at full width: sift-like-1m, raft_cagra.deg32")
     row_walk, row_i, cagra_index, cagra_recall = cagra_path(db, queries,
                                                             truth)
+
+    t0 = time.perf_counter()
+    verify_timed("CAGRA deg32", cagra_index, smi_line)
+    host_side_s += time.perf_counter() - t0
+    print(f"host-side subsystems, all their checks: {host_side_s:.1f} s",
+          flush=True)
 
     phase("CAGRA deg32: the direct walk (walk_pdim=0) and hops past 256")
     t0 = time.perf_counter()

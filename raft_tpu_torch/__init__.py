@@ -29,7 +29,13 @@ policy in :mod:`raft_tpu_torch.config`); persistence — ``serialize`` /
 package's byte format (:mod:`raft_tpu_torch.core.serialize`), checkpointed
 builds, fault injection and retries (:mod:`raft_tpu_torch.resilience`),
 recall canaries (:mod:`raft_tpu_torch.integrity.canary`), and the
-``config.set_output_as`` output types.
+``config.set_output_as`` output types; the host-side subsystems —
+observability (:mod:`raft_tpu_torch.observability`: metrics registry,
+stage timers under the JAX package's names, build reports, request
+traces, the flight recorder, live quality, exporters), tracing ranges and
+the logger (:mod:`raft_tpu_torch.core`), the index verifier
+(:func:`raft_tpu_torch.integrity.verify`) and the delta memtable
+(:mod:`raft_tpu_torch.neighbors.delta`).
 """
 
 from raft_tpu_torch import config  # noqa: F401

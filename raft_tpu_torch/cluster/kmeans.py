@@ -41,10 +41,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch import observability as obs
 from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
 from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import ensure_tensor
+from raft_tpu_torch.core.tracing import range as named_range
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
 from raft_tpu_torch.distance.pairwise import pairwise_distance
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, \
@@ -246,8 +248,10 @@ def fit(res, params: KMeansParams, X, sample_weight=None, centroids=None
     """Fit k-means: ``(centroids (k, dim) f32, inertia (0-d f32), n_iter)``
     (reference: kmeans.cuh:87).  ``centroids`` is the init when
     ``params.init == InitMethod.Array``; ``n_init`` restarts keep the
-    lowest inertia."""
-    with precision.highest():
+    lowest inertia.  The restarts run under the ``kmeans.fit`` stage;
+    ``kmeans.iterations`` and ``kmeans.restarts`` count the kept run's
+    iterations and the restarts."""
+    with named_range("kmeans::fit"), precision.highest():
         X = ensure_tensor(X, res, "X")
         expects(X.ndim == 2, "kmeans.fit: 2-D X required")
         X, _ = boundary.check_matrix(X, "X", site="kmeans.fit",
@@ -260,24 +264,30 @@ def fit(res, params: KMeansParams, X, sample_weight=None, centroids=None
         n_init = (1 if params.init == InitMethod.Array
                   else max(1, params.n_init))
         best = None
-        for restart in range(n_init):
-            gen = _restart_generator(params.seed, restart, X.device)
-            if params.init == InitMethod.Array:
-                expects(centroids is not None,
-                        "InitMethod.Array requires centroids")
-                c0 = ensure_tensor(centroids, res, "centroids").float()
-            elif params.init == InitMethod.Random:
-                c0 = init_random(res, X, params.n_clusters, generator=gen)
-            else:
-                c0 = init_plus_plus(res, X, params.n_clusters,
-                                    generator=gen)
-            c, n_iter = _lloyd(X, c0, w, params.tol, params.n_clusters,
-                               params.max_iter, params.metric)
-            # final assignment cost of the returned centroids
-            _, d = min_cluster_and_distance(X, c, metric=params.metric)
-            inertia = (d * w).sum()
-            if best is None or float(inertia) < float(best[1]):
-                best = (c, inertia, n_iter)
+        with obs.stage("kmeans.fit") as st:
+            for restart in range(n_init):
+                gen = _restart_generator(params.seed, restart, X.device)
+                if params.init == InitMethod.Array:
+                    expects(centroids is not None,
+                            "InitMethod.Array requires centroids")
+                    c0 = ensure_tensor(centroids, res, "centroids").float()
+                elif params.init == InitMethod.Random:
+                    c0 = init_random(res, X, params.n_clusters,
+                                     generator=gen)
+                else:
+                    c0 = init_plus_plus(res, X, params.n_clusters,
+                                        generator=gen)
+                c, n_iter = _lloyd(X, c0, w, params.tol, params.n_clusters,
+                                   params.max_iter, params.metric)
+                # final assignment cost of the returned centroids
+                _, d = min_cluster_and_distance(X, c, metric=params.metric)
+                inertia = (d * w).sum()
+                if best is None or float(inertia) < float(best[1]):
+                    best = (c, inertia, n_iter)
+            st.fence(best[0])
+        if obs.enabled():
+            obs.registry().counter("kmeans.iterations").inc(int(best[2]))
+            obs.registry().counter("kmeans.restarts").inc(n_init)
         return best
 
 

@@ -42,10 +42,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch import observability as obs
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core.outputs import raw
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import ensure_tensor
+from raft_tpu_torch.core.tracing import range as named_range
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.integrity import boundary
@@ -273,8 +275,10 @@ def _fit_hierarchical(X: torch.Tensor, n_clusters: int,
 def fit(res, params: KMeansBalancedParams, X, n_clusters: int, *,
         hierarchical: Optional[bool] = None) -> torch.Tensor:
     """Train balanced centroids; returns (n_clusters, dim) float32
-    (reference: cluster/kmeans_balanced.cuh:75)."""
-    with precision.highest():
+    (reference: cluster/kmeans_balanced.cuh:75).  Runs under the
+    ``kmeans_balanced.fit`` stage."""
+    with named_range("kmeans_balanced::fit"), \
+            obs.stage("kmeans_balanced.fit") as st, precision.highest():
         X = ensure_tensor(X, res, "X")
         X, _ = boundary.check_matrix(X, "X", site="kmeans_balanced.fit",
                                      allow_empty=False)
@@ -290,8 +294,10 @@ def fit(res, params: KMeansBalancedParams, X, n_clusters: int, *,
         if hierarchical is None:
             hierarchical = n_clusters >= _MESO_THRESHOLD
         if hierarchical and n_clusters >= 4:
-            return _fit_hierarchical(X, n_clusters, res.generator,
-                                     params.n_iters, params.metric)
+            centroids = _fit_hierarchical(X, n_clusters, res.generator,
+                                          params.n_iters, params.metric)
+            st.fence(centroids)
+            return centroids
         # evenly-strided init over the (caller-shuffled) trainset
         c0 = _strided_init(X, n_clusters)
         if params.metric == DistanceType.InnerProduct:
@@ -300,6 +306,7 @@ def fit(res, params: KMeansBalancedParams, X, n_clusters: int, *,
         centroids, _ = _balanced_loop(
             X, c0, res.generator, n_clusters, params.n_iters, params.metric,
             use_fused=_fused_ok(dim, params.metric))
+        st.fence(centroids)
         return centroids
 
 

@@ -1,6 +1,6 @@
 """Core: resource handle, errors, array contracts, serialization,
-cooperative cancellation (port of ``raft_tpu.core``).  The reference's
-logger and tracing are stand-ins naming their ROADMAP item."""
+cooperative cancellation, the logger and the tracing ranges (port of
+``raft_tpu.core``)."""
 
 from raft_tpu_torch.core.error import (LogicError, RaftError,  # noqa: F401
                                        expects, fail)

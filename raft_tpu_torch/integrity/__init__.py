@@ -1,9 +1,11 @@
-"""Input validation at the public entry points and recall canaries (port
-of ``raft_tpu.integrity``'s boundary layer, typed errors and
-:mod:`~raft_tpu_torch.integrity.canary`).  The index verifier is a
-stand-in naming its ROADMAP item (*host-side subsystems*)."""
+"""Index integrity verification and input hardening (port of
+``raft_tpu.integrity``): the tiered verifier
+(:func:`~raft_tpu_torch.integrity.verify.verify`), input validation at the
+public entry points (:mod:`~raft_tpu_torch.integrity.boundary`), recall
+canaries (:mod:`~raft_tpu_torch.integrity.canary`) and the typed errors.
+Counters land under ``integrity.*`` in the observability registry; the
+verifier runs under a ``verify`` stage label."""
 
-from raft_tpu_torch.core.error import not_ported_stub as _stub
 from raft_tpu_torch.integrity import boundary, canary  # noqa: F401
 from raft_tpu_torch.integrity.boundary import (  # noqa: F401
     check_matrix,
@@ -17,5 +19,4 @@ from raft_tpu_torch.integrity.canary import (  # noqa: F401
 )
 from raft_tpu_torch.integrity.errors import (IntegrityError,  # noqa: F401
                                              ValidationError)
-
-verify = _stub("integrity", "verify", "host-side subsystems")
+from raft_tpu_torch.integrity.verify import verify  # noqa: F401

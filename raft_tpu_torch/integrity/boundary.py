@@ -18,10 +18,10 @@ Behaviour follows :func:`raft_tpu_torch.config.get_validation_policy`:
 ``off``
     Every function here returns at once: no added work.
 
-The JAX package also ticks observability counters here (its
-``integrity.boundary`` checks, raised and masked-rows counters); the port
-has no observability registry yet (ROADMAP.md §1 item 11), so it counts
-nothing.
+With observability collection on, each guarded input ticks
+``integrity.boundary.checks``, a raise ``integrity.boundary.raised`` and a
+mask ``integrity.boundary.masked_rows`` by the rows it flagged (one more
+host sync, as in the JAX package; collection is off by default).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import config
+from raft_tpu_torch import observability as obs
 from raft_tpu_torch.integrity.errors import ValidationError
 
 
@@ -60,16 +61,24 @@ def guard_nonfinite(x, *, site: str, policy: Optional[str] = None,
     x = torch.as_tensor(x)
     if not x.is_floating_point():
         return x, None
+    if obs.enabled():
+        obs.registry().counter("integrity.boundary.checks").inc()
     fin = torch.isfinite(x)
     ok = fin.flatten(1).all(1) if x.ndim >= 2 else fin
     if p == "raise":
         if not bool(ok.all()):                 # the policy's one host sync
+            if obs.enabled():
+                obs.registry().counter("integrity.boundary.raised").inc()
             raise _nonfinite_error(site, int(torch.argmin(ok.to(
                 torch.uint8))))
         return x, None
     shape_ok = ok.reshape(ok.shape + (1,) * (x.ndim - 1))
-    return torch.where(shape_ok, x, torch.zeros((), dtype=x.dtype,
-                                                device=x.device)), ok
+    clean = torch.where(shape_ok, x, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
+    if obs.enabled():
+        obs.registry().counter("integrity.boundary.masked_rows").inc(
+            int((~ok).sum()))
+    return clean, ok
 
 
 def _guard_nonfinite_host(x, *, site: str, policy: str
@@ -80,14 +89,22 @@ def _guard_nonfinite_host(x, *, site: str, policy: str
     if not (np.issubdtype(x.dtype, np.floating)
             or x.dtype.name == "bfloat16"):
         return x, None
+    if obs.enabled():
+        obs.registry().counter("integrity.boundary.checks").inc()
     ok = np.all(np.isfinite(x.astype(np.float32)),
                 axis=tuple(range(1, x.ndim)))
     if policy == "raise":
         if not bool(np.all(ok)):
+            if obs.enabled():
+                obs.registry().counter("integrity.boundary.raised").inc()
             raise _nonfinite_error(site, int(np.argmin(ok)))
         return x, None
     shape_ok = ok.reshape(ok.shape + (1,) * (x.ndim - 1))
-    return np.where(shape_ok, x, np.zeros((), x.dtype)), ok
+    clean = np.where(shape_ok, x, np.zeros((), x.dtype))
+    if obs.enabled():
+        obs.registry().counter("integrity.boundary.masked_rows").inc(
+            int(np.sum(~ok)))
+    return clean, ok
 
 
 def check_matrix(x, name: str, *, site: str, dim: Optional[int] = None,

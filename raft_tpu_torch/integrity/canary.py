@@ -14,9 +14,10 @@ Canary recall is a one-sided detector: corruption can only lower it, but
 rows added by ``extend()`` can legitimately displace stored ground truth
 too, so the floor should be conservative (default 0.5).
 
-The JAX package also counts checks and failures in its observability
-registry and records a flight event on a failure; the port has no
-registry yet, so neither happens here.
+Checks and failures are counted in the observability registry
+(``integrity.canary.*``), a check runs under the
+``integrity.health_check`` stage, and a failure records the always-on
+``integrity.canary_failure`` flight event, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 
+from raft_tpu_torch import observability as obs
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.mdarray import ensure_tensor
 from raft_tpu_torch.integrity.errors import IntegrityError
@@ -146,15 +148,27 @@ def health_check(res, index, *, raise_on_fail: bool = True
     cs = getattr(index, "canaries", None)
     if cs is None:
         return None
-    rec = measure(res, index, cs)
+    with obs.stage("integrity.health_check"):
+        rec = measure(res, index, cs)
+    if obs.enabled():
+        obs.registry().counter("integrity.canary.checks").inc()
     report = CanaryReport(recall=rec, floor=cs.floor,
                           n_queries=cs.n_queries, k=cs.k)
-    if not report.ok and raise_on_fail:
-        raise IntegrityError(
-            f"canary recall {rec:.3f} below floor {cs.floor:.3f} "
-            f"({cs.n_queries} sentinels, k={cs.k}; build-time recall "
-            f"was {cs.build_recall:.3f})",
-            invariant="canary.recall_floor")
+    if not report.ok:
+        if obs.enabled():
+            obs.registry().counter("integrity.canary.failures").inc()
+        # always-on flight event: a canary failure usually precedes a
+        # rollback or a serving error
+        from raft_tpu_torch.observability import flight as _flight
+        _flight.record_event("integrity.canary_failure",
+                             recall=rec, floor=cs.floor,
+                             n_queries=cs.n_queries, k=cs.k)
+        if raise_on_fail:
+            raise IntegrityError(
+                f"canary recall {rec:.3f} below floor {cs.floor:.3f} "
+                f"({cs.n_queries} sentinels, k={cs.k}; build-time recall "
+                f"was {cs.build_recall:.3f})",
+                invariant="canary.recall_floor")
     return report
 
 
@@ -170,9 +184,11 @@ def floor_of(index) -> Optional[float]:
 def auto_check(res, index, *, site: str) -> None:
     """The post-``load()`` / ``extend()`` / ``resume`` hook: a no-op for
     canary-less indexes, an :class:`IntegrityError` for a failing one.
-    ``site`` names the hook (the JAX package counts checks by it)."""
+    ``site`` names the hook; checks are counted by it."""
     if getattr(index, "canaries", None) is None:
         return
+    if obs.enabled():
+        obs.registry().counter(f"integrity.canary.auto.{site}").inc()
     health_check(res, index, raise_on_fail=True)
 
 

@@ -24,6 +24,7 @@ import torch
 from raft_tpu_torch.core.outputs import auto_convert_output, raw
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import as_tensor, ensure_tensor
+from raft_tpu_torch.core.tracing import range as named_range
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, SQRT_METRICS
 from raft_tpu_torch.filters.bitset import (BITS_PER_WORD, query_filter_words,
                                            words_on_device)
@@ -56,7 +57,7 @@ def knn(res, database, queries, k: int, *,
     shifts the returned ids.  ``filter`` (a :class:`~raft_tpu_torch.
     filters.SampleFilter` or (q, n) bool mask) admits rows by global id;
     slots with no admitted row left are ``(worst, -1)``."""
-    with precision.highest():
+    with named_range("brute_force::knn"), precision.highest():
         database = ensure_tensor(database, res, "database")
         queries = ensure_tensor(queries, res, "queries")
         expects(database.ndim == 2 and queries.ndim == 2

@@ -100,6 +100,7 @@ from typing import BinaryIO, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import observability as obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core import serialize as ser
@@ -107,6 +108,7 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.interruptible import interruptible
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.core.outputs import auto_convert_output
+from raft_tpu_torch.core.tracing import range as named_range
 from raft_tpu_torch.distance.types import DistanceType, SQRT_METRICS
 from raft_tpu_torch.filters.bitset import (query_bits, query_filter_words,
                                            words_on_device)
@@ -795,7 +797,7 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
         queries, "queries", site="cagra.search", dim=index.dim)
     expects(queries.ndim == 2 and queries.shape[1] == index.dim,
             "cagra.search: query dim mismatch")
-    with precision.highest():
+    with named_range("cagra::search"), precision.highest():
         dist, ids = _search_checked(res, params, index, queries.float(), k,
                                     filter=filter)
     return boundary.mask_search_outputs(
@@ -809,6 +811,8 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
     fw = query_filter_words(filter, queries.shape[0], "cagra.search")
     if fw is not None:
         fw = words_on_device(fw, queries.device)
+        if obs.enabled():
+            obs.registry().counter("cagra.search.filtered").inc()
     expects(0 < k <= index.size, "cagra.search: need 0 < k <= n")
     merge_window_request(params.merge_window)
     itopk = max(params.itopk_size, k)
@@ -827,20 +831,25 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
         seed_ids = torch.randint(0, index.size, (queries.shape[0], n_seeds),
                                  generator=res.generator,
                                  device=queries.device, dtype=torch.int32)
-        out = _search_impl(index.dataset, index.graph, queries, seed_ids, k,
-                           itopk, params.search_width, max_iter,
-                           index.metric, filter_words=fw,
-                           rows_sq=_rows_sq(index))
+        with obs.stage("cagra.search.walk") as st:
+            out = _search_impl(index.dataset, index.graph, queries,
+                               seed_ids, k, itopk, params.search_width,
+                               max_iter, index.metric, filter_words=fw,
+                               rows_sq=_rows_sq(index))
+            st.fence(out)
         return _mask_deleted(index, *out)
     pdim, quant = fmt
     cache = _walk_cache(res, index, pdim, max(params.entry_points, itopk),
                         quant=quant)
     rerank = max(min(itopk, params.rerank_topk or max(32, 2 * k)), k)
-    out = _search_impl_walk(
-        index.dataset, cache.table, cache.entry_proj, cache.entry_sq,
-        cache.entry_ids, cache.proj, queries, k, itopk, params.search_width,
-        max_iter, index.metric, rerank, index.graph_degree,
-        quant=cache.quant, scales=cache.scales, filter_words=fw)
+    with obs.stage("cagra.search.walk") as st:
+        out = _search_impl_walk(
+            index.dataset, cache.table, cache.entry_proj, cache.entry_sq,
+            cache.entry_ids, cache.proj, queries, k, itopk,
+            params.search_width, max_iter, index.metric, rerank,
+            index.graph_degree, quant=cache.quant, scales=cache.scales,
+            filter_words=fw)
+        st.fence(out)
     return _mask_deleted(index, *out)
 
 
@@ -1029,77 +1038,97 @@ def _build_knn_graph_clustered(res, dataset, kg: int, p: IndexParams,
     C = max(int(p.build_refine_rate * kg), kg)
     t0 = _stage(stages, None, time.perf_counter(), dev)
 
-    if p.build_proj_dim:
-        pdim = min(p.build_proj_dim, dim)
-        vecs = _eig_vecs(dataset)
-    else:
-        pdim, vecs = _build_pdim(dataset, p.metric, kg, C)
-    proj = (vecs[:, dim - pdim:] if pdim < dim
-            else torch.eye(dim, dtype=torch.float32, device=dev))
-    xp32 = xf @ proj
-    build.build_pdim = pdim
-    walk = pdim < dim and p.build_walk_rounds > 0
-    t0 = _stage(stages, "calibration", t0, dev)
+    with obs.stage("cagra.build.calibration") as st:
+        if p.build_proj_dim:
+            pdim = min(p.build_proj_dim, dim)
+            vecs = _eig_vecs(dataset)
+        else:
+            pdim, vecs = _build_pdim(dataset, p.metric, kg, C)
+        proj = (vecs[:, dim - pdim:] if pdim < dim
+                else torch.eye(dim, dtype=torch.float32, device=dev))
+        xp32 = xf @ proj
+        build.build_pdim = pdim
+        walk = pdim < dim and p.build_walk_rounds > 0
+        st.fence(xp32)
+        t0 = _stage(stages, "calibration", t0, dev)
 
-    n_train = min(n, max(n_lists * 8, max(65536, n // 10)))
-    bal = KMeansBalancedParams(
-        n_iters=10, metric=p.metric if ip_metric else DistanceType.L2Expanded)
-    trainset = xp32[::max(n // n_train, 1)][:n_train]
-    centers = kmeans_balanced.fit(res, bal, trainset, n_lists)
-    labels = kmeans_balanced.predict(res, bal, xp32, centers)
-    sizes = torch.bincount(labels, minlength=n_lists)
-    cap = max(-(-int(sizes.max()) // 8) * 8, 8)
-    t0 = _stage(stages, "kmeans", t0, dev)
+    with obs.stage("cagra.build.kmeans"):
+        n_train = min(n, max(n_lists * 8, max(65536, n // 10)))
+        bal = KMeansBalancedParams(
+            n_iters=10,
+            metric=p.metric if ip_metric else DistanceType.L2Expanded)
+        trainset = xp32[::max(n // n_train, 1)][:n_train]
+        centers = kmeans_balanced.fit(res, bal, trainset, n_lists)
+        labels = kmeans_balanced.predict(res, bal, xp32, centers)
+        sizes = torch.bincount(labels, minlength=n_lists)
+        cap = max(-(-int(sizes.max()) // 8) * 8, 8)
+        t0 = _stage(stages, "kmeans", t0, dev)
 
     mean = max(n / n_lists, 1.0)
     t = min(n_lists,
             max(p.build_n_probes, -(-p.build_candidates // int(mean))))
     expects(kg <= t * cap, "cagra.build: candidate pool smaller than "
             "intermediate degree — raise build_n_probes/build_candidates")
-    P_proj, P_sq, P_id = _build_layout(xf, xp32, labels, n_lists, cap)
-    del xp32
-    nbrs = _center_neighbors(centers, t, ip_metric)
-    t0 = _stage(stages, "layout", t0, dev)
+    with obs.stage("cagra.build.layout") as st:
+        P_proj, P_sq, P_id = _build_layout(xf, xp32, labels, n_lists, cap)
+        del xp32
+        nbrs = _center_neighbors(centers, t, ip_metric)
+        st.fence(P_id, nbrs)
+        t0 = _stage(stages, "layout", t0, dev)
 
     # lists per block: the (LB, cap, t*cap) f32 distances and products
     # within the chunk budget
     LB = max(1, min(n_lists, _chunk_budget(dev) // (cap * t * cap * 8)))
     knn = torch.full((n, kg), -1, dtype=torch.int32, device=dev)
-    for s in range(0, n_lists, LB):
-        ids = torch.arange(s, min(s + LB, n_lists), device=dev)
-        out = _scan_chunk(P_proj, P_sq, P_id, nbrs, ids, cap, kg, ip_metric)
-        rows = P_id[ids].reshape(-1)
-        live = rows >= 0
-        knn[rows[live].long()] = out.reshape(-1, kg)[live]
-    del P_proj, P_sq, P_id
-    t0 = _stage(stages, "scan", t0, dev)
+    with obs.stage("cagra.build.scan") as st:
+        for s in range(0, n_lists, LB):
+            ids = torch.arange(s, min(s + LB, n_lists), device=dev)
+            out = _scan_chunk(P_proj, P_sq, P_id, nbrs, ids, cap, kg,
+                              ip_metric)
+            rows = P_id[ids].reshape(-1)
+            live = rows >= 0
+            knn[rows[live].long()] = out.reshape(-1, kg)[live]
+        del P_proj, P_sq, P_id
+        st.fence(knn)
+        t0 = _stage(stages, "scan", t0, dev)
 
-    rev = _reverse_edges_auto(knn, n, min(kg, 64))
-    t0 = _stage(stages, "reverse_edges", t0, dev)
+    with obs.stage("cagra.build.reverse_edges") as st:
+        rev = _reverse_edges_auto(knn, n, min(kg, 64))
+        st.fence(rev)
+        t0 = _stage(stages, "reverse_edges", t0, dev)
     if n >= _DEEP_SCALE_ROWS:
-        knn = _merge_refine_inplace(dataset, knn, rev, kg, ip_metric)
-        del rev
-        t0 = _stage(stages, "reverse_merge", t0, dev)
+        with obs.stage("cagra.build.reverse_merge") as st:
+            knn = _merge_refine_inplace(dataset, knn, rev, kg, ip_metric)
+            del rev
+            st.fence(knn)
+            t0 = _stage(stages, "reverse_merge", t0, dev)
         if pdim < dim:
             for r in range(p.build_walk_rounds):
-                knn = _deep_walk_round(dataset, knn, kg, p.metric, pdim,
-                                       p.build_walk_iters, vecs=vecs)
-                t0 = _stage(stages, f"walk_refine_{r}", t0, dev)
+                with obs.stage("cagra.build.walk_refine") as st:
+                    knn = _deep_walk_round(dataset, knn, kg, p.metric, pdim,
+                                           p.build_walk_iters, vecs=vecs)
+                    st.fence(knn)
+                    t0 = _stage(stages, f"walk_refine_{r}", t0, dev)
         return knn
     knn_d = None
     if walk:
         for r in range(p.build_walk_rounds):
-            knn, knn_d = _graph_refine_round(
-                res, dataset, knn, kg, p.metric, pdim, p.build_walk_iters,
-                knn_d=knn_d, extra=rev if r == 0 else None, vecs=vecs)
-            t0 = _stage(stages, f"walk_refine_{r}", t0, dev)
+            with obs.stage("cagra.build.walk_refine") as st:
+                knn, knn_d = _graph_refine_round(
+                    res, dataset, knn, kg, p.metric, pdim,
+                    p.build_walk_iters, knn_d=knn_d,
+                    extra=rev if r == 0 else None, vecs=vecs)
+                st.fence(knn)
+                t0 = _stage(stages, f"walk_refine_{r}", t0, dev)
     else:
         for r in range(max(p.build_reverse_rounds, 1)):
-            if r > 0:
-                rev = _reverse_edges_auto(knn, n, min(kg, 64))
-            knn, knn_d = _merge_refine_chunked(xf, knn, rev, kg, ip_metric,
-                                               with_d=True)
-            t0 = _stage(stages, f"reverse_merge_{r}", t0, dev)
+            with obs.stage("cagra.build.reverse_merge") as st:
+                if r > 0:
+                    rev = _reverse_edges_auto(knn, n, min(kg, 64))
+                knn, knn_d = _merge_refine_chunked(xf, knn, rev, kg,
+                                                   ip_metric, with_d=True)
+                st.fence(knn)
+                t0 = _stage(stages, f"reverse_merge_{r}", t0, dev)
     return knn
 
 
@@ -1398,7 +1427,7 @@ def build_knn_graph(res, dataset, intermediate_degree: int, *,
     intermediate_degree) int32 with self-edges removed: the exact pass up
     to ``_BRUTE_BUILD_MAX`` rows, the clustered pass above.  Its stage
     seconds land in ``build.stage_seconds``."""
-    with precision.highest():
+    with named_range("cagra::build_knn_graph"), precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
         expects(dataset.ndim == 2 and dataset.shape[0] > 0,
                 "cagra.build_knn_graph: non-empty 2-D dataset required")
@@ -1410,8 +1439,10 @@ def build_knn_graph(res, dataset, intermediate_degree: int, *,
         build.deep_plans = []
         if n <= _BRUTE_BUILD_MAX:
             t0 = _stage(stages, None, time.perf_counter(), dataset.device)
-            knn = _knn_graph_exact(dataset, kg, p.metric,
-                                   chunk=min(batch, 4096))
+            with obs.stage("cagra.build.knn_exact") as st:
+                knn = _knn_graph_exact(dataset, kg, p.metric,
+                                       chunk=min(batch, 4096))
+                st.fence(knn)
             _stage(stages, "knn_exact", t0, dataset.device)
         else:
             knn = _build_knn_graph_clustered(res, dataset, kg, p, stages)
@@ -1459,7 +1490,15 @@ def _detour_order(knn_graph, block: int = 0):
 
 def prune(res, knn_graph, graph_degree: int) -> torch.Tensor:
     """Prune an intermediate kNN graph to ``graph_degree`` with detour
-    counting + reverse-edge fill (reference: cagra.cuh:109 ``prune``)."""
+    counting + reverse-edge fill (reference: cagra.cuh:109 ``prune``),
+    under the ``cagra.build.prune`` stage."""
+    with named_range("cagra::prune"), obs.stage("cagra.build.prune") as st:
+        out = _prune(res, knn_graph, graph_degree)
+        st.fence(out)
+    return out
+
+
+def _prune(res, knn_graph, graph_degree: int) -> torch.Tensor:
     knn_graph = ensure_tensor(knn_graph, res, "knn_graph").int()
     n, deg = knn_graph.shape
     expects(graph_degree <= deg,
@@ -1501,32 +1540,41 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
         dev = dataset.device
         build.stage_seconds, build.build_pdim = {}, None
         build.deep_plans = []
-        knn = _ckpt.run_stage(
-            ckpt, "knn_graph", resume, res.generator, dev,
-            lambda: {"knn": build_knn_graph(
-                res, dataset, params.intermediate_graph_degree,
-                params=params)})["knn"]
-        # cancellation point: the stage above is durable before a pending
-        # cancel() can raise
-        interruptible.synchronize(knn)
-        stages = build.stage_seconds
-        t0 = _stage(stages, None, time.perf_counter(), dev)
-        graph = _ckpt.run_stage(
-            ckpt, "graph", resume, res.generator, dev,
-            lambda: {"graph": prune(res, knn, params.graph_degree)})["graph"]
-        interruptible.synchronize(graph)
-        _stage(stages, "prune", t0, dev)
-        index = Index(dataset=dataset, graph=graph, metric=params.metric,
-                      data_dtype=dataset.dtype)
-        if params.canary_queries > 0:
-            cs = _canary.make(res, dataset, metric=params.metric,
-                              n_queries=params.canary_queries,
-                              k=params.canary_k, floor=params.canary_floor)
-            index.canaries = cs
-            cs.build_recall = _canary.measure(res, index, cs)
-            if resume:
-                _canary.auto_check(res, index, site="resume")
-        return index
+        with obs.build_scope("cagra.build") as rep:
+            index = _build_scoped(res, params, dataset, ckpt, resume, dev)
+        return rep.attach(index)
+
+
+def _build_scoped(res, params: IndexParams, dataset, ckpt, resume: bool,
+                  dev) -> Index:
+    """The body of :func:`build` inside its build scope."""
+    from raft_tpu_torch.resilience import checkpoint as _ckpt
+    knn = _ckpt.run_stage(
+        ckpt, "knn_graph", resume, res.generator, dev,
+        lambda: {"knn": build_knn_graph(
+            res, dataset, params.intermediate_graph_degree,
+            params=params)})["knn"]
+    # cancellation point: the stage above is durable before a pending
+    # cancel() can raise
+    interruptible.synchronize(knn)
+    stages = build.stage_seconds
+    t0 = _stage(stages, None, time.perf_counter(), dev)
+    graph = _ckpt.run_stage(
+        ckpt, "graph", resume, res.generator, dev,
+        lambda: {"graph": prune(res, knn, params.graph_degree)})["graph"]
+    interruptible.synchronize(graph)
+    _stage(stages, "prune", t0, dev)
+    index = Index(dataset=dataset, graph=graph, metric=params.metric,
+                  data_dtype=dataset.dtype)
+    if params.canary_queries > 0:
+        cs = _canary.make(res, dataset, metric=params.metric,
+                          n_queries=params.canary_queries,
+                          k=params.canary_k, floor=params.canary_floor)
+        index.canaries = cs
+        cs.build_recall = _canary.measure(res, index, cs)
+        if resume:
+            _canary.auto_check(res, index, site="resume")
+    return index
 
 
 # wall seconds of the latest build's stages (each ends with a device
@@ -1562,21 +1610,22 @@ def delete(res, index: Index, ids) -> Index:
     ground truth excludes them.  Returns a new generation sharing the
     dataset, graph and walk caches; ``deleted_ids`` is a host-side
     frozenset, not serialized.  Reclaiming the rows takes a rebuild."""
-    ids = ensure_tensor(ids, res, "ids")
-    expects(ids.ndim == 1, "cagra.delete: 1-D ids required")
-    prior = getattr(index, "deleted_ids", None) or frozenset()
-    dropped = frozenset(prior) | {int(v) for v in ids.cpu().tolist()}
-    out = Index(dataset=index.dataset, graph=index.graph,
-                metric=index.metric, canaries=index.canaries,
-                data_dtype=index.data_dtype)
-    out.deleted_ids = dropped
-    # the walk caches depend only on the dataset and graph (both shared)
-    for attr in ("_walk_auto_pdim", "_walk_calib_vecs", "_walk_quant_ok",
-                 "_walk_tables", "_walk_entries", "_walk_rows_sq"):
-        if hasattr(index, attr):
-            setattr(out, attr, getattr(index, attr))
-    _mutate.next_generation(index, out)
-    _canary.auto_check(res, out, site="delete")
+    with named_range("cagra::delete"):
+        ids = ensure_tensor(ids, res, "ids")
+        expects(ids.ndim == 1, "cagra.delete: 1-D ids required")
+        prior = getattr(index, "deleted_ids", None) or frozenset()
+        dropped = frozenset(prior) | {int(v) for v in ids.cpu().tolist()}
+        out = Index(dataset=index.dataset, graph=index.graph,
+                    metric=index.metric, canaries=index.canaries,
+                    data_dtype=index.data_dtype)
+        out.deleted_ids = dropped
+        # the walk caches depend only on the dataset and graph (both shared)
+        for attr in ("_walk_auto_pdim", "_walk_calib_vecs", "_walk_quant_ok",
+                     "_walk_tables", "_walk_entries", "_walk_rows_sq"):
+            if hasattr(index, attr):
+                setattr(out, attr, getattr(index, attr))
+        _mutate.next_generation(index, out)
+        _canary.auto_check(res, out, site="delete")
     return out
 
 

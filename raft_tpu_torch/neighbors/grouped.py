@@ -1,6 +1,6 @@
 """Pair grouping for the list-major IVF-PQ scans (the port of
 ``raft_tpu/neighbors/grouped.py``: ``num_groups`` :48, ``touched_lists``
-:65, ``build_groups`` :137).
+:65, ``build_groups`` :137, ``finalize_topk`` :235).
 
 The query-major scan reads a probed list once per query that probes it.
 Sorting the (query, probe) pairs by list into fixed groups of ``GROUP``
@@ -88,3 +88,36 @@ def build_groups(probes: torch.Tensor, n_lists: int, group: int = GROUP
     slot_pairs[group_start[pls] + rank // group, rank % group] = (
         order[:n_valid].to(torch.int32))
     return group_list, slot_pairs
+
+
+def finalize_topk(outd: torch.Tensor, outi: torch.Tensor, nq: int, k: int,
+                  select_min: bool, sqrt: bool, select_k_fn
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Final select over per-pair (or per-shard) survivors, the JAX
+    package's shared epilogue (``raft_tpu/neighbors/grouped.py:235``).
+
+    ``outd`` / ``outi`` reshape to (nq, -1), each query's candidates in a
+    row; ``select_k_fn(values, k, in_idx=, select_min=)`` picks each row's
+    best ``min(k, row length)``, padded to k with the worst distance and id
+    -1.  The sentinel contract: a survivor at the worst distance gets id
+    -1, every negative id (a tombstone's encoding) is clamped to -1, and
+    ``sqrt`` takes the square root of the distances (clamped at 0) for the
+    sqrt-L2 metrics."""
+    worst = float("inf") if select_min else float("-inf")
+    alld = outd.reshape(nq, -1)
+    alli = outi.reshape(nq, -1)
+    kf = min(k, alld.shape[1])
+    best_d, best_i = select_k_fn(alld, kf, in_idx=alli,
+                                 select_min=select_min)
+    if kf < k:
+        best_d = torch.cat([best_d, torch.full(
+            (nq, k - kf), worst, dtype=best_d.dtype,
+            device=best_d.device)], 1)
+        best_i = torch.cat([best_i, torch.full(
+            (nq, k - kf), -1, dtype=best_i.dtype,
+            device=best_i.device)], 1)
+    best_i = torch.where(best_d == worst, torch.full_like(best_i, -1),
+                         torch.clamp_min(best_i, -1))
+    if sqrt:
+        best_d = torch.sqrt(torch.clamp_min(best_d, 0.0))
+    return best_d, best_i

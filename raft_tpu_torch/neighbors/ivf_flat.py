@@ -68,12 +68,14 @@ from typing import BinaryIO, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import observability as obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.core.outputs import auto_convert_output, raw
+from raft_tpu_torch.core.tracing import range as named_range
 from raft_tpu_torch.distance.types import DistanceType, SQRT_METRICS
 from raft_tpu_torch.filters.bitset import query_filter_words, words_on_device
 from raft_tpu_torch.integrity import boundary
@@ -293,8 +295,12 @@ def build(res, params: IndexParams, dataset) -> Index:
     """Build an IVF-Flat index (reference: ivf_flat.cuh:65).  The wall
     seconds of its stages (trainset, coarse_fit, extend) land in
     ``build.stage_seconds``; with ``canary_queries > 0`` (and the data
-    added) the index carries recall canaries."""
-    with precision.highest():
+    added) the index carries recall canaries.  Under observability
+    collection the stages record as ``ivf_flat.build.kmeans`` and the
+    extend's, and :func:`~raft_tpu_torch.observability.build_report` of
+    the index returns them."""
+    with named_range("ivf_flat::build"), \
+            obs.build_scope("ivf_flat.build") as rep, precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
         expects(dataset.ndim == 2, "ivf_flat.build: 2-D dataset required")
         dataset, _ = boundary.check_matrix(dataset, "dataset",
@@ -308,24 +314,26 @@ def build(res, params: IndexParams, dataset) -> Index:
         stages = build.stage_seconds = {}
         t = _stage(stages, None, time.perf_counter(), dev)
 
-        n_train = max(params.n_lists,
-                      int(n * params.kmeans_trainset_fraction))
-        trainset = dataset
-        if n_train < n:
-            sel = torch.randperm(n, generator=res.generator,
-                                 device=dev)[:n_train]
-            trainset = dataset[sel]
-        t = _stage(stages, "trainset", t, dev)
-        centers = kmeans_balanced.fit(
-            res, _balanced_params(params.metric, params.kmeans_n_iters),
-            trainset, params.n_lists)
-        # order lists along the centers' first principal component (of the
-        # mean-centred centers: off-origin data would otherwise put the
-        # mean direction first), so adjacent lists sit close together
-        cc = centers - centers.mean(0, keepdim=True)
-        _, vecs = torch.linalg.eigh(cc.T @ cc)
-        centers = centers[torch.argsort(cc @ vecs[:, -1], stable=True)]
-        t = _stage(stages, "coarse_fit", t, dev)
+        with obs.stage("ivf_flat.build.kmeans") as st:
+            n_train = max(params.n_lists,
+                          int(n * params.kmeans_trainset_fraction))
+            trainset = dataset
+            if n_train < n:
+                sel = torch.randperm(n, generator=res.generator,
+                                     device=dev)[:n_train]
+                trainset = dataset[sel]
+            t = _stage(stages, "trainset", t, dev)
+            centers = kmeans_balanced.fit(
+                res, _balanced_params(params.metric, params.kmeans_n_iters),
+                trainset, params.n_lists)
+            # order lists along the centers' first principal component (of the
+            # mean-centred centers: off-origin data would otherwise put the
+            # mean direction first), so adjacent lists sit close together
+            cc = centers - centers.mean(0, keepdim=True)
+            _, vecs = torch.linalg.eigh(cc.T @ cc)
+            centers = centers[torch.argsort(cc @ vecs[:, -1], stable=True)]
+            st.fence(centers)
+            t = _stage(stages, "coarse_fit", t, dev)
 
         index = Index(
             centers=centers,
@@ -348,7 +356,7 @@ def build(res, params: IndexParams, dataset) -> Index:
                 index.canaries = cs
                 cs.build_recall = _canary.measure(res, index, cs)
         _stage(stages, "extend", t, dev)
-        return index
+        return rep.attach(index)
 
 
 # wall seconds of the latest build's stages, device work included (each
@@ -370,11 +378,12 @@ def extend(res, index: Index, new_vectors, new_indices=None) -> Index:
     leaves the fullest list room for one more.  With ``adaptive_centers``
     the centers drift to their lists' means (unit norm for
     InnerProduct).  The new index keeps the canaries and health-checks
-    them."""
-    out = _extend(res, index, new_vectors, new_indices)
-    if index.canaries is not None:
-        out.canaries = index.canaries
-        _canary.auto_check(res, out, site="extend")
+    them.  Stages: ``ivf_flat.extend.assign``, ``ivf_flat.extend.pack``."""
+    with named_range("ivf_flat::extend"):
+        out = _extend(res, index, new_vectors, new_indices)
+        if index.canaries is not None:
+            out.canaries = index.canaries
+            _canary.auto_check(res, out, site="extend")
     return out
 
 
@@ -396,10 +405,14 @@ def _extend(res, index: Index, new_vectors, new_indices) -> Index:
         expects(new_indices.shape == (n_new,),
                 "ivf_flat.extend: one index per new vector required")
 
-        labels = kmeans_balanced.predict(
-            res, _balanced_params(index.metric), new_vectors, index.centers)
-        new_counts = torch.bincount(labels, minlength=index.n_lists).int()
-        needed = index.list_sizes + new_counts
+        with obs.stage("ivf_flat.extend.assign") as st:
+            labels = kmeans_balanced.predict(
+                res, _balanced_params(index.metric), new_vectors,
+                index.centers)
+            new_counts = torch.bincount(labels,
+                                        minlength=index.n_lists).int()
+            needed = index.list_sizes + new_counts
+            st.fence(labels, needed)
         max_needed = int(needed.max())
         ip = index.metric == DistanceType.InnerProduct
         common = dict(metric=index.metric,
@@ -409,13 +422,15 @@ def _extend(res, index: Index, new_vectors, new_indices) -> Index:
         centers = index.centers
 
         if max_needed <= index.capacity:
-            bufs, rows = [index.list_data], [new_vectors]
-            if index.list_data_sq is not None:
-                bufs.append(index.list_data_sq)
-                rows.append((new_vectors * new_vectors).sum(-1))
-            new_bufs, list_idx, sizes = _append_lists_multi(
-                bufs, rows, index.list_indices, index.list_sizes, labels,
-                new_indices)
+            with obs.stage("ivf_flat.extend.pack") as st:
+                bufs, rows = [index.list_data], [new_vectors]
+                if index.list_data_sq is not None:
+                    bufs.append(index.list_data_sq)
+                    rows.append((new_vectors * new_vectors).sum(-1))
+                new_bufs, list_idx, sizes = _append_lists_multi(
+                    bufs, rows, index.list_indices, index.list_sizes, labels,
+                    new_indices)
+                st.fence(new_bufs)
             if index.adaptive_centers:
                 # the centers approximate their lists' means: blend in the
                 # new rows, weighted by the sizes
@@ -444,8 +459,10 @@ def _extend(res, index: Index, new_vectors, new_indices) -> Index:
         # +1: a repack never leaves the fullest list brim-full, or the next
         # one-row extend would repack again
         capacity = _round_up(max(max_needed + 1, _LIST_ALIGN), _LIST_ALIGN)
-        list_data, list_idx, sizes = _pack_lists(
-            all_vecs, all_labels, all_ids, index.n_lists, capacity)
+        with obs.stage("ivf_flat.extend.pack") as st:
+            list_data, list_idx, sizes = _pack_lists(
+                all_vecs, all_labels, all_ids, index.n_lists, capacity)
+            st.fence(list_data)
         if index.adaptive_centers:
             sums = torch.zeros_like(centers).index_add_(0, all_labels,
                                                         all_vecs)
@@ -518,12 +535,16 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
     fw = query_filter_words(filter, queries.shape[0], "ivf_flat.search")
     if fw is not None:
         fw = words_on_device(fw, queries.device)
-    with precision.highest():
+        if obs.enabled():
+            obs.registry().counter("ivf_flat.search.filtered").inc()
+    with named_range("ivf_flat::search"), precision.highest():
         expects(0 < k, "ivf_flat.search: k must be positive")
         n_probes = min(params.n_probes, index.n_lists)
         ip = index.metric == DistanceType.InnerProduct
-        probes = _select_clusters(index.centers, queries, n_probes,
-                                  index.metric)
+        with obs.stage("ivf_flat.search.coarse") as st:
+            probes = _select_clusters(index.centers, queries, n_probes,
+                                      index.metric)
+            st.fence(probes)
         if not ip and index.list_data_sq is None:
             index.list_data_sq = _row_norms(index.list_data)
         cap = index.capacity
@@ -535,10 +556,13 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
             data = data.reshape(n_eff, F * cap, index.dim)
             ids = ids.reshape(n_eff, F * cap)
             dsq = None if ip else dsq.reshape(n_eff, F * cap)
-        vals, found = ivf_flat_scan(queries, probes, data, dsq, ids,
-                                    min(k, F * cap), ip, sub_lists=F,
-                                    filter_words=fw)
-        return _finalize_topk(vals, found, k, index.metric)
+        with obs.stage("ivf_flat.search.scan") as st:
+            vals, found = ivf_flat_scan(queries, probes, data, dsq, ids,
+                                        min(k, F * cap), ip, sub_lists=F,
+                                        filter_words=fw)
+            out = _finalize_topk(vals, found, k, index.metric)
+            st.fence(out)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -582,26 +606,32 @@ def delete(res, index: Index, ids) -> Index:
     search.  Storage comes back with :func:`compact`.  Ids not present
     match nothing.  Returns a new index, the next generation, sharing
     every tensor but ``list_indices``; its canaries are health-checked."""
-    ids = ensure_tensor(ids, res, "ids")
-    expects(ids.ndim == 1, "ivf_flat.delete: 1-D ids required")
-    new_li, _ = _mutate.tombstone(index.list_indices, ids)
-    out = dataclasses.replace(index, list_indices=new_li)
-    _mutate.next_generation(index, out)
-    _canary.auto_check(res, out, site="delete")
+    with named_range("ivf_flat::delete"):
+        ids = ensure_tensor(ids, res, "ids")
+        expects(ids.ndim == 1, "ivf_flat.delete: 1-D ids required")
+        new_li, _ = _mutate.tombstone(index.list_indices, ids)
+        out = dataclasses.replace(index, list_indices=new_li)
+        _mutate.next_generation(index, out)
+        _canary.auto_check(res, out, site="delete")
     return out
 
 
 def upsert(res, index: Index, ids, vectors) -> Index:
     """Replace-or-insert rows under explicit source ids: tombstone any
     rows with these ids, then append ``vectors`` under them — one
-    mutation, ONE generation bump.  Ids not present simply insert."""
-    ids = ensure_tensor(ids, res, "ids")
-    vectors = ensure_tensor(vectors, res, "vectors")
-    expects(ids.ndim == 1 and ids.shape[0] == vectors.shape[0],
-            "ivf_flat.upsert: ids must be 1-D, one per vector")
-    parent_gen = _mutate.generation(index)
-    out = extend(res, delete(res, index, ids), vectors, new_indices=ids)
-    out.generation = parent_gen + 1
+    mutation, ONE generation bump.  Ids not present simply insert.
+    Counted in ``ivf_flat.upserts``."""
+    with named_range("ivf_flat::upsert"):
+        ids = ensure_tensor(ids, res, "ids")
+        vectors = ensure_tensor(vectors, res, "vectors")
+        expects(ids.ndim == 1 and ids.shape[0] == vectors.shape[0],
+                "ivf_flat.upsert: ids must be 1-D, one per vector")
+        parent_gen = _mutate.generation(index)
+        out = extend(res, delete(res, index, ids), vectors,
+                     new_indices=ids)
+        out.generation = parent_gen + 1
+        if obs.enabled():
+            obs.registry().counter("ivf_flat.upserts").inc()
     return out
 
 
@@ -611,27 +641,28 @@ def compact(res, index: Index) -> Index:
     fullest list with one row of headroom (32-aligned, never above the
     parent's); ``list_data_sq`` is carried along where the parent has it.
     Returns a new generation sharing ``centers`` with its parent."""
-    order, sizes = _mutate.compaction_order(index.list_indices)
-    max_size = int(sizes.max()) if index.n_lists else 0
-    capacity = _round_up(max(max_size + 1, _LIST_ALIGN), _LIST_ALIGN)
-    capacity = min(capacity, max(index.capacity, _LIST_ALIGN))
-    order = order[:, :capacity]
-    live = (torch.arange(capacity, device=order.device)[None, :]
-            < sizes[:, None])
-    li = torch.where(live, torch.gather(index.list_indices, 1, order),
-                     torch.full_like(order, -1, dtype=torch.int32))
-    data = torch.gather(index.list_data, 1,
-                        order[:, :, None].expand(-1, -1, index.dim))
-    data = torch.where(live[:, :, None], data, torch.zeros_like(data))
-    data_sq = None
-    if index.list_data_sq is not None:
-        data_sq = torch.where(live, torch.gather(index.list_data_sq, 1,
-                                                 order),
-                              torch.zeros_like(live, dtype=torch.float32))
-    out = dataclasses.replace(index, list_data=data, list_indices=li,
-                              list_sizes=sizes, list_data_sq=data_sq)
-    _mutate.next_generation(index, out)
-    _canary.auto_check(res, out, site="compact")
+    with named_range("ivf_flat::compact"):
+        order, sizes = _mutate.compaction_order(index.list_indices)
+        max_size = int(sizes.max()) if index.n_lists else 0
+        capacity = _round_up(max(max_size + 1, _LIST_ALIGN), _LIST_ALIGN)
+        capacity = min(capacity, max(index.capacity, _LIST_ALIGN))
+        order = order[:, :capacity]
+        live = (torch.arange(capacity, device=order.device)[None, :]
+                < sizes[:, None])
+        li = torch.where(live, torch.gather(index.list_indices, 1, order),
+                         torch.full_like(order, -1, dtype=torch.int32))
+        data = torch.gather(index.list_data, 1,
+                            order[:, :, None].expand(-1, -1, index.dim))
+        data = torch.where(live[:, :, None], data, torch.zeros_like(data))
+        data_sq = None
+        if index.list_data_sq is not None:
+            data_sq = torch.where(live, torch.gather(index.list_data_sq, 1,
+                                                     order),
+                                  torch.zeros_like(live, dtype=torch.float32))
+        out = dataclasses.replace(index, list_data=data, list_indices=li,
+                                  list_sizes=sizes, list_data_sq=data_sq)
+        _mutate.next_generation(index, out)
+        _canary.auto_check(res, out, site="compact")
     return out
 
 

@@ -117,6 +117,7 @@ from typing import BinaryIO, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import observability as obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_types import KMeansBalancedParams
 from raft_tpu_torch.core import serialize as ser
@@ -124,6 +125,7 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.interruptible import interruptible
 from raft_tpu_torch.core.mdarray import _writable, ensure_tensor
 from raft_tpu_torch.core.outputs import auto_convert_output
+from raft_tpu_torch.core.tracing import range as named_range
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS
 from raft_tpu_torch.filters.bitset import (query_bits, query_filter_words,
                                            words_on_device)
@@ -464,7 +466,11 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
           resume: bool = False) -> Index:
     """Build an IVF-PQ index (reference: ivf_pq.cuh:224).  The wall
     seconds of its stages (trainset, coarse_fit, codebooks,
-    encode_and_pack, recon_cache) land in ``build.stage_seconds``.
+    encode_and_pack, recon_cache) land in ``build.stage_seconds``; under
+    observability collection the JAX package's stages record
+    (``ivf_pq.build.kmeans``, ``.codebooks``, ``.recon_cache``, the
+    extend's) and :func:`~raft_tpu_torch.observability.build_report` of
+    the index returns them.
 
     ``checkpoint`` (a directory or a :class:`~raft_tpu_torch.resilience.
     CheckpointManager`) saves the ``kmeans`` and ``codebooks`` stages
@@ -476,7 +482,8 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
                                      CodebookKind.PER_CLUSTER),
             f"ivf_pq.build: unknown codebook_kind {params.codebook_kind}")
     ckpt = _ckpt.as_manager(checkpoint)
-    with precision.highest():
+    with named_range("ivf_pq::build"), \
+            obs.build_scope("ivf_pq.build") as rep, precision.highest():
         dataset = ensure_tensor(dataset, res, "dataset")
         expects(dataset.ndim == 2, "ivf_pq.build: 2-D dataset required")
         dataset, _ = boundary.check_matrix(dataset, "dataset",
@@ -498,26 +505,28 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
         stages = build.stage_seconds = {}
         t = _stage(stages, None, time.perf_counter(), dev)
 
-        # coarse quantizer, in the rotated space
-        n_train = max(params.n_lists,
-                      int(n * params.kmeans_trainset_fraction))
-        if n_train < n:
-            sel = torch.randperm(n, generator=res.generator,
-                                 device=dev)[:n_train]
-            trainset = dataset[sel]
-        else:
-            trainset = dataset
-        train_rot = trainset.float() @ rotation
-        t = _stage(stages, "trainset", t, dev)
-        bal = KMeansBalancedParams(n_iters=params.kmeans_n_iters)
-        centers = _ckpt.run_stage(
-            ckpt, "kmeans", resume, res.generator, dev,
-            lambda: {"centers": kmeans_balanced.fit(
-                res, bal, train_rot, params.n_lists)})["centers"]
-        # cancellation point: the stage above is durable before a pending
-        # cancel() can raise
-        interruptible.synchronize(centers)
-        t = _stage(stages, "coarse_fit", t, dev)
+        with obs.stage("ivf_pq.build.kmeans") as st:
+            # coarse quantizer, in the rotated space
+            n_train = max(params.n_lists,
+                          int(n * params.kmeans_trainset_fraction))
+            if n_train < n:
+                sel = torch.randperm(n, generator=res.generator,
+                                     device=dev)[:n_train]
+                trainset = dataset[sel]
+            else:
+                trainset = dataset
+            train_rot = trainset.float() @ rotation
+            t = _stage(stages, "trainset", t, dev)
+            bal = KMeansBalancedParams(n_iters=params.kmeans_n_iters)
+            centers = _ckpt.run_stage(
+                ckpt, "kmeans", resume, res.generator, dev,
+                lambda: {"centers": kmeans_balanced.fit(
+                    res, bal, train_rot, params.n_lists)})["centers"]
+            # cancellation point: the stage above is durable before a pending
+            # cancel() can raise
+            interruptible.synchronize(centers)
+            st.fence(centers)
+            t = _stage(stages, "coarse_fit", t, dev)
 
         def fit_books():
             """Per-subspace or per-cluster codebooks over the trainset's
@@ -536,12 +545,14 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
                 labels_t.repeat_interleave(pq_dim), res.generator,
                 params.n_lists, book, params.kmeans_n_iters)}
 
-        codebooks = _ckpt.run_stage(ckpt, "codebooks", resume,
-                                    res.generator, dev,
-                                    fit_books)["codebooks"]
-        del train_rot
-        interruptible.synchronize(codebooks)
-        t = _stage(stages, "codebooks", t, dev)
+        with obs.stage("ivf_pq.build.codebooks") as st:
+            codebooks = _ckpt.run_stage(ckpt, "codebooks", resume,
+                                        res.generator, dev,
+                                        fit_books)["codebooks"]
+            del train_rot
+            interruptible.synchronize(codebooks)
+            st.fence(codebooks)
+            t = _stage(stages, "codebooks", t, dev)
 
         index = Index(
             centers=centers, codebooks=codebooks,
@@ -561,7 +572,9 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
                            torch.arange(n, dtype=torch.int32, device=dev))
         t = _stage(stages, "encode_and_pack", t, dev)
         if params.cache_reconstructions and index.list_recon is None:
-            index = _with_recon(index)
+            with obs.stage("ivf_pq.build.recon_cache") as st:
+                index = _with_recon(index)
+                st.fence(index.list_recon, index.list_recon_sq)
         _stage(stages, "recon_cache", t, dev)
         if params.canary_queries > 0 and params.add_data_on_build:
             cs = _canary.make(res, dataset, metric=params.metric,
@@ -571,7 +584,7 @@ def build(res, params: IndexParams, dataset, *, checkpoint=None,
             cs.build_recall = _canary.measure(res, index, cs)
             if resume:
                 _canary.auto_check(res, index, site="resume")
-        return index
+        return rep.attach(index)
 
 
 # wall seconds of the latest build's stages, device work included (each
@@ -585,11 +598,13 @@ def extend(res, index: Index, new_vectors, new_indices=None) -> Index:
     a scatter-append (recon cache rows appended alongside); otherwise all
     rows are repacked at a capacity that leaves the fullest list room for
     one more, and the recon cache is rebuilt if the index had one.  The
-    new index keeps the canaries and health-checks them."""
-    out = _extend(res, index, new_vectors, new_indices)
-    if index.canaries is not None:
-        out.canaries = index.canaries
-        _canary.auto_check(res, out, site="extend")
+    new index keeps the canaries and health-checks them.  Stages:
+    ``ivf_pq.extend.encode``, ``ivf_pq.extend.pack``."""
+    with named_range("ivf_pq::extend"):
+        out = _extend(res, index, new_vectors, new_indices)
+        if index.canaries is not None:
+            out.canaries = index.canaries
+            _canary.auto_check(res, out, site="extend")
     return out
 
 
@@ -612,21 +627,25 @@ def _extend(res, index: Index, new_vectors, new_indices) -> Index:
 
         bal = KMeansBalancedParams()
         want_recon_rows = index.list_recon is not None
-        codes_parts, label_parts, recon_parts = [], [], []
-        for s0 in range(0, n_new, _EXTEND_CHUNK):
-            rot_c = new_vectors[s0:s0 + _EXTEND_CHUNK].float() @ index.rotation
-            lab_c = kmeans_balanced.predict(res, bal, rot_c, index.centers)
-            cu = _encode(index.codebooks,
-                         _subspace_split(rot_c - index.centers[lab_c],
-                                         index.pq_dim),
-                         index.codebook_kind, lab_c)
-            if want_recon_rows:
-                recon_parts.append(_decode_rows(index.codebooks, cu, lab_c,
-                                                index.codebook_kind))
-            codes_parts.append(_pack_codes(cu, index.pq_bits))
-            label_parts.append(lab_c)
-        codes = torch.cat(codes_parts)
-        labels = torch.cat(label_parts)
+        with obs.stage("ivf_pq.extend.encode") as st:
+            codes_parts, label_parts, recon_parts = [], [], []
+            for s0 in range(0, n_new, _EXTEND_CHUNK):
+                rot_c = (new_vectors[s0:s0 + _EXTEND_CHUNK].float()
+                         @ index.rotation)
+                lab_c = kmeans_balanced.predict(res, bal, rot_c,
+                                                index.centers)
+                cu = _encode(index.codebooks,
+                             _subspace_split(rot_c - index.centers[lab_c],
+                                             index.pq_dim),
+                             index.codebook_kind, lab_c)
+                if want_recon_rows:
+                    recon_parts.append(_decode_rows(
+                        index.codebooks, cu, lab_c, index.codebook_kind))
+                codes_parts.append(_pack_codes(cu, index.pq_bits))
+                label_parts.append(lab_c)
+            codes = torch.cat(codes_parts)
+            labels = torch.cat(label_parts)
+            st.fence(codes, labels)
 
         needed = index.list_sizes + torch.bincount(
             labels, minlength=index.n_lists).int()
@@ -637,16 +656,18 @@ def _extend(res, index: Index, new_vectors, new_indices) -> Index:
                       pq_bits=index.pq_bits, pq_dim_=index.pq_dim,
                       generation=index.generation + 1)
         if max_needed <= index.capacity:
-            bufs, rows = [index.list_codes], [codes]
-            if want_recon_rows:
-                recon_rows = torch.cat(recon_parts)
-                bufs += [index.list_recon, _recon_sq(index.list_recon)
-                         if index.list_recon_sq is None
-                         else index.list_recon_sq]
-                rows += [recon_rows, (recon_rows.float() ** 2).sum(-1)]
-            new_bufs, list_idx, sizes = _append_lists_multi(
-                bufs, rows, index.list_indices, index.list_sizes, labels,
-                new_indices)
+            with obs.stage("ivf_pq.extend.pack") as st:
+                bufs, rows = [index.list_codes], [codes]
+                if want_recon_rows:
+                    recon_rows = torch.cat(recon_parts)
+                    bufs += [index.list_recon, _recon_sq(index.list_recon)
+                             if index.list_recon_sq is None
+                             else index.list_recon_sq]
+                    rows += [recon_rows, (recon_rows.float() ** 2).sum(-1)]
+                new_bufs, list_idx, sizes = _append_lists_multi(
+                    bufs, rows, index.list_indices, index.list_sizes,
+                    labels, new_indices)
+                st.fence(new_bufs)
             out = Index(list_codes=new_bufs[0], list_indices=list_idx,
                         list_sizes=sizes, **common)
             if want_recon_rows:
@@ -663,8 +684,10 @@ def _extend(res, index: Index, new_vectors, new_indices) -> Index:
                              new_indices])
         all_labels = torch.cat([old_labels[valid], labels])
         capacity = _round_up(max(max_needed + 1, _LIST_ALIGN), _LIST_ALIGN)
-        list_codes, list_idx, sizes = _pack_lists(
-            all_codes, all_labels, all_ids, index.n_lists, capacity)
+        with obs.stage("ivf_pq.extend.pack") as st:
+            list_codes, list_idx, sizes = _pack_lists(
+                all_codes, all_labels, all_ids, index.n_lists, capacity)
+            st.fence(list_codes)
         out = Index(list_codes=list_codes, list_indices=list_idx,
                     list_sizes=sizes, **common)
         if want_recon_rows:
@@ -859,24 +882,27 @@ def _resolve_mode(params: SearchParams, index: Index) -> Tuple[str, bool]:
 
 
 def _note_fused_fallback(reason: str) -> None:
+    """Count a fused search a gate sent elsewhere: ``search.
+    fused_fallbacks`` and ``search.last_fallback_reason``, and, as the JAX
+    package does, the ``ivf_pq.search.fused_fallback`` and ``.reason.<r>``
+    counters (collection on) and the always-on ``ivf_pq.fused_fallback``
+    flight event with the ambient request's trace id.  Only Python scalars
+    reach the event, so recording it never waits on the device."""
     search.fused_fallbacks += 1
     search.last_fallback_reason = reason
+    if obs.enabled():
+        reg = obs.registry()
+        reg.counter("ivf_pq.search.fused_fallback").inc()
+        reg.counter(f"ivf_pq.search.fused_fallback.reason.{reason}").inc()
+    rec = obs.trace.current()
+    obs.flight.record_event("ivf_pq.fused_fallback", reason=reason,
+                            trace_id=rec.trace_id if rec else None)
 
 
 def _search_fused_recon(index, qrot, probes, k, kt, fw=None):
-    """Kernel B over the bf16 recon cache, each query's top k in kernel;
-    where Kernel B's gate refuses the shape, Kernel G + finalize, counted
-    in ``search.fused_fallbacks`` with the gate's reason (the JAX
-    package's fused_fallback).  Off the L2 family (CosineExpanded, L1,
-    CorrelationExpanded, ..., which the JAX package scores as L2 over the
-    recon cache) the gate refuses the metric, as the Pallas
-    ``fused_reject_reason`` does: reason "dtype".  ``fw``: the filter's
-    words, or None."""
-    reason = ("dtype" if index.metric not in L2_METRICS else
-              scan_reject_reason(index.capacity, index.rot_dim, k, kt))
-    if reason:
-        _note_fused_fallback(reason)
-        return _search_recon(index, qrot, probes, k, kt, fw)
+    """Kernel B over the bf16 recon cache, each query's top k in kernel
+    (the caller has checked Kernel B's gate).  ``fw``: the filter's words,
+    or None."""
     if index.list_recon_sq is None:
         index.list_recon_sq = _recon_sq(index.list_recon)
     vals, ids = ivf_pq_scan_fused(
@@ -918,8 +944,6 @@ def _search_recon8(index, qrot, probes, k, kt, fw=None):
     shape both of E's routes refuse (kt > 128) runs the composition of the
     JAX package's XLA twin (:func:`_search_recon8_wide`), as the JAX
     package does past its kernel's gate."""
-    if index.list_recon_i8 is None:
-        _with_recon8(index)
     if pcs.recon8_reject_reason(index.capacity,
                                 index.list_recon_i8.shape[2], kt):
         return _search_recon8_wide(index, qrot, probes, k, kt, fw)
@@ -1134,9 +1158,16 @@ def search(res, params: SearchParams, index: Index, queries, k: int, *,
 def _search_checked(res, params: SearchParams, index: Index, queries,
                     k: int, *, filter=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dispatch, under the JAX package's stage names: ``coarse``, then
+    one scan stage (``fused_scan``, ``scan``, ``code_scan`` or
+    ``recon8_scan``); the lookup-table scan is one ``lut`` stage with its
+    coarse ranking inside, as there; a derived cache built here records
+    ``lut_build``."""
     fw = query_filter_words(filter, queries.shape[0], "ivf_pq.search")
     if fw is not None:
         fw = words_on_device(fw, queries.device)
+        if obs.enabled():
+            obs.registry().counter("ivf_pq.search.filtered").inc()
     mode, want_fused = _resolve_mode(params, index)
     ip_metric = index.metric == DistanceType.InnerProduct
     if mode == "codes" and not _codes_mode_eligible(index):
@@ -1155,53 +1186,97 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
             "with cache_reconstructions=True or pick another scan_mode to "
             "avoid this.")
         _with_recon(index)
-    with precision.highest():
+    with named_range("ivf_pq::search"), precision.highest():
         expects(queries.ndim == 2 and queries.shape[1] == index.dim,
                 "ivf_pq.search: query dim mismatch")
         expects(0 < k, "ivf_pq.search: k must be positive")
         n_probes = min(params.n_probes, index.n_lists)
         kt = min(params.per_probe_topk or k, index.capacity)
-        qrot = queries.float() @ index.rotation
-        probes = _select_clusters(index.centers, qrot, n_probes,
-                                  index.metric)
-        if mode == "lut":
-            return _search_lut(index, qrot, probes, k,
-                               _lut_dtype(params.lut_dtype), fw)
-        if mode == "recon" and ip_metric:
+
+        def coarse():
+            qrot = queries.float() @ index.rotation
+            return qrot, _select_clusters(index.centers, qrot, n_probes,
+                                          index.metric)
+
+        def lut_scan():
+            with obs.stage("ivf_pq.search.lut") as st:
+                out = _search_lut(index, *coarse(), k,
+                                  _lut_dtype(params.lut_dtype), fw)
+                st.fence(out)
+            return out
+
+        c_reason = ""
+        if mode == "codes":
+            if index.list_code_rsq is None:
+                with obs.stage("ivf_pq.search.lut_build") as st:
+                    _with_code_rsq(index)
+                    st.fence(index.list_code_rsq)
             if want_fused:
-                # Kernel B's gate refuses the metric, as the Pallas one
-                # does (reason "dtype")
-                _note_fused_fallback("dtype")
-            return _search_recon_ip(index, qrot, probes, k, kt, fw)
+                c_reason = pcs.codes_fused_reject_reason(
+                    index.capacity, index.rot_dim, index.pq_dim,
+                    index.pq_bits, k, kt)
+            if (not want_fused or c_reason) and pcs.codes_reject_reason(
+                    index.capacity, index.rot_dim, index.pq_dim,
+                    index.pq_bits, kt):
+                # Kernel C is not asked for or refuses, and both of Kernel
+                # D's routes refuse the shape, as the Pallas gate does (D
+                # takes every shape it admits): the lookup-table scan
+                # computes the same quantized distance (the JAX package's
+                # route past its codes kernel's gate)
+                if want_fused:
+                    _note_fused_fallback(c_reason)
+                return lut_scan()
+        if mode == "lut":
+            return lut_scan()
+        if mode == "recon8" and index.list_recon_i8 is None:
+            with obs.stage("ivf_pq.search.lut_build") as st:
+                _with_recon8(index)
+                st.fence(index.list_recon_i8)
+
+        with obs.stage("ivf_pq.search.coarse") as st:
+            qrot, probes = coarse()
+            st.fence(probes)
         if mode == "recon":
-            return (_search_fused_recon if want_fused else _search_recon)(
-                index, qrot, probes, k, kt, fw)
-        if mode == "recon8":
-            return _search_recon8(index, qrot, probes, k, kt, fw)
-        if index.list_code_rsq is None:
-            _with_code_rsq(index)
-        if want_fused:
-            reason = pcs.codes_fused_reject_reason(
-                index.capacity, index.rot_dim, index.pq_dim, index.pq_bits,
-                k, kt)
-            if not reason:
-                return _search_fused_codes(index, qrot, probes, k, kt, fw)
-            _note_fused_fallback(reason)
-        if pcs.codes_reject_reason(index.capacity, index.rot_dim,
-                                   index.pq_dim, index.pq_bits, kt):
-            # both of Kernel D's routes refuse the shape, and so does the
-            # Pallas gate (D takes every shape it admits): the lookup-table
-            # scan computes the same quantized distance (the JAX package's
-            # route past its codes kernel's gate)
-            return _search_lut(index, qrot, probes, k,
-                               _lut_dtype(params.lut_dtype), fw)
-        return _search_codes(index, qrot, probes, k, kt, fw)
+            scan, label = _search_recon, "ivf_pq.search.scan"
+            if ip_metric:
+                scan = _search_recon_ip
+                if want_fused:
+                    # Kernel B's gate refuses the metric, as the Pallas
+                    # one does (reason "dtype")
+                    _note_fused_fallback("dtype")
+            elif want_fused:
+                # Kernel B's gate: off the L2 family (CosineExpanded, L1,
+                # CorrelationExpanded, ..., which the JAX package scores as
+                # L2 over the recon cache) it refuses the metric, as the
+                # Pallas fused_reject_reason does (reason "dtype")
+                reason = ("dtype" if index.metric not in L2_METRICS else
+                          scan_reject_reason(index.capacity, index.rot_dim,
+                                             k, kt))
+                if reason:
+                    _note_fused_fallback(reason)
+                else:
+                    scan, label = (_search_fused_recon,
+                                   "ivf_pq.search.fused_scan")
+        elif mode == "recon8":
+            scan, label = _search_recon8, "ivf_pq.search.recon8_scan"
+        else:
+            scan, label = _search_codes, "ivf_pq.search.code_scan"
+            if want_fused:
+                if c_reason:
+                    _note_fused_fallback(c_reason)
+                else:
+                    scan, label = (_search_fused_codes,
+                                   "ivf_pq.search.fused_scan")
+        with obs.stage(label) as st:
+            out = scan(index, qrot, probes, k, kt, fw)
+            st.fence(out)
+        return out
 
 
 # fused searches a gate sent to the per-pair scan + finalize (Kernel B ->
-# G, Kernel C -> D), and the gate's reason for the latest (the JAX
-# package's fused_fallback counter, until the port has an observability
-# module)
+# G, Kernel C -> D), and the gate's reason for the latest; under
+# collection the registry counts them too (``ivf_pq.search.fused_fallback``
+# and its reasons), as the JAX package does
 search.fused_fallbacks = 0
 search.last_fallback_reason = ""
 
@@ -1264,37 +1339,43 @@ def delete(res, index: Index, ids) -> Index:
     Storage comes back with :func:`compact`.  Ids not present match
     nothing.  Returns a new index, the next generation; its canaries are
     health-checked."""
-    ids = ensure_tensor(ids, res, "ids")
-    expects(ids.ndim == 1, "ivf_pq.delete: 1-D ids required")
-    new_li, _ = _mutate.tombstone(index.list_indices, ids)
-    out = Index(
-        centers=index.centers, codebooks=index.codebooks,
-        list_codes=index.list_codes, list_indices=new_li,
-        list_sizes=index.list_sizes, rotation=index.rotation,
-        metric=index.metric, codebook_kind=index.codebook_kind,
-        pq_bits=index.pq_bits, pq_dim_=index.pq_dim,
-        list_recon=index.list_recon, list_recon_sq=index.list_recon_sq,
-        list_code_lanes=index.list_code_lanes,
-        list_code_rsq=index.list_code_rsq,
-        list_recon_i8=index.list_recon_i8,
-        list_recon_scale=index.list_recon_scale,
-        list_recon_i8_sq=index.list_recon_i8_sq, canaries=index.canaries)
-    _mutate.next_generation(index, out)
-    _canary.auto_check(res, out, site="delete")
+    with named_range("ivf_pq::delete"):
+        ids = ensure_tensor(ids, res, "ids")
+        expects(ids.ndim == 1, "ivf_pq.delete: 1-D ids required")
+        new_li, _ = _mutate.tombstone(index.list_indices, ids)
+        out = Index(
+            centers=index.centers, codebooks=index.codebooks,
+            list_codes=index.list_codes, list_indices=new_li,
+            list_sizes=index.list_sizes, rotation=index.rotation,
+            metric=index.metric, codebook_kind=index.codebook_kind,
+            pq_bits=index.pq_bits, pq_dim_=index.pq_dim,
+            list_recon=index.list_recon, list_recon_sq=index.list_recon_sq,
+            list_code_lanes=index.list_code_lanes,
+            list_code_rsq=index.list_code_rsq,
+            list_recon_i8=index.list_recon_i8,
+            list_recon_scale=index.list_recon_scale,
+            list_recon_i8_sq=index.list_recon_i8_sq, canaries=index.canaries)
+        _mutate.next_generation(index, out)
+        _canary.auto_check(res, out, site="delete")
     return out
 
 
 def upsert(res, index: Index, ids, vectors) -> Index:
     """Replace-or-insert rows under explicit source ids: tombstone any
     rows with these ids, then encode and append ``vectors`` under them —
-    one mutation, ONE generation bump.  Ids not present simply insert."""
-    ids = ensure_tensor(ids, res, "ids")
-    vectors = ensure_tensor(vectors, res, "vectors")
-    expects(ids.ndim == 1 and ids.shape[0] == vectors.shape[0],
-            "ivf_pq.upsert: ids must be 1-D, one per vector")
-    parent_gen = _mutate.generation(index)
-    out = extend(res, delete(res, index, ids), vectors, new_indices=ids)
-    out.generation = parent_gen + 1
+    one mutation, ONE generation bump.  Ids not present simply insert.
+    Counted in ``ivf_pq.upserts``."""
+    with named_range("ivf_pq::upsert"):
+        ids = ensure_tensor(ids, res, "ids")
+        vectors = ensure_tensor(vectors, res, "vectors")
+        expects(ids.ndim == 1 and ids.shape[0] == vectors.shape[0],
+                "ivf_pq.upsert: ids must be 1-D, one per vector")
+        parent_gen = _mutate.generation(index)
+        out = extend(res, delete(res, index, ids), vectors,
+                     new_indices=ids)
+        out.generation = parent_gen + 1
+        if obs.enabled():
+            obs.registry().counter("ivf_pq.upserts").inc()
     return out
 
 
@@ -1306,7 +1387,7 @@ def compact(res, index: Index) -> Index:
     scans' row norms, int8) rebuilt from the moved codes; the seconds of
     each rebuild are in ``compact.cache_seconds``.  Returns a new
     generation sharing ``centers`` / ``codebooks`` / ``rotation``."""
-    with precision.highest():
+    with named_range("ivf_pq::compact"), precision.highest():
         order, sizes = _mutate.compaction_order(index.list_indices)
         max_size = int(sizes.max()) if index.n_lists else 0
         capacity = _round_up(max(max_size + 1, _LIST_ALIGN), _LIST_ALIGN)

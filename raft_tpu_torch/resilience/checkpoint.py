@@ -28,9 +28,8 @@ keeping a resumed build's later draws those of an uninterrupted one.  A
 stage file without that record (one the JAX package wrote) reads all the
 same; the draws after it are then the handle's own.
 
-The JAX package counts saves and loads in its observability registry
-(``resilience.checkpoint.save`` / ``.load``); the port has no registry
-yet, so nothing is counted here.
+Saves and loads are counted in the observability registry
+(``resilience.checkpoint.save`` / ``.load``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -131,6 +130,7 @@ class CheckpointManager:
             self._stages.remove(stage)
         self._stages.append(stage)
         self._write_manifest()
+        _count("resilience.checkpoint.save")
 
     def load(self, stage: str) -> Dict[str, np.ndarray]:
         """Restore one stage as numpy arrays; raises
@@ -145,6 +145,7 @@ class CheckpointManager:
         for _ in range(n):
             name = str(ser.deserialize_mdspan(None, body))
             out[name] = ser.deserialize_mdspan(None, body)
+        _count("resilience.checkpoint.load")
         return out
 
     def clear(self) -> None:
@@ -169,6 +170,12 @@ def as_manager(checkpoint: Optional[Union[str, CheckpointManager]]
 
 # the extra record of a port build's stage: the generator's state after it
 GENERATOR_STATE = "generator_state"
+
+
+def _count(name: str) -> None:
+    from raft_tpu_torch import observability as obs
+    if obs.enabled():
+        obs.registry().counter(name).inc()
 
 
 def run_stage(ckpt: Optional[CheckpointManager], stage: str, resume: bool,

@@ -34,9 +34,9 @@ the per-shard failures that :func:`failed_shards`,
 distributed search.  All sleeping goes through the monkeypatchable
 ``_sleep`` seam.
 
-The JAX package also counts each firing in its observability registry
-(``resilience.fault.injected.<site>`` / ``.delayed.<site>``); the port has
-no registry yet, so nothing is counted here.
+Each firing is counted in the observability registry
+(``resilience.fault.injected.<site>`` / ``.delayed.<site>``), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -196,6 +196,7 @@ class FaultPlan:
                 spec._fired += 1
                 if spec._kill_shard is not None:
                     self._failed_shards.add(spec._kill_shard)
+                    _count(site)
                     continue
                 if spec.is_delay:
                     # draw jitter under the lock (deterministic order),
@@ -203,7 +204,9 @@ class FaultPlan:
                     pause += spec.delay + (
                         spec.jitter * self._rng.random() if spec.jitter
                         else 0.0)
+                    _count_delayed(site)
                     continue
+                _count(site)
                 try:
                     err = spec.exc(f"injected fault at {site!r}")
                 except TypeError:
@@ -245,6 +248,18 @@ class FaultPlan:
 _ACTIVE: Optional[FaultPlan] = None
 _STACK: List[FaultPlan] = []
 _STATE_LOCK = threading.Lock()
+
+
+def _count(site: str) -> None:
+    from raft_tpu_torch import observability as obs
+    if obs.enabled():
+        obs.registry().counter(f"resilience.fault.injected.{site}").inc()
+
+
+def _count_delayed(site: str) -> None:
+    from raft_tpu_torch import observability as obs
+    if obs.enabled():
+        obs.registry().counter(f"resilience.fault.delayed.{site}").inc()
 
 
 def _push(plan: FaultPlan) -> int:

@@ -9,9 +9,9 @@
   raises :class:`DeadlineExceededError` instead of starting an attempt.
 - :func:`retry_call` — run a thunk under a policy and a deadline.
 
-The JAX package counts re-attempts and give-ups in its observability
-registry (``resilience.retry.<site>`` / ``resilience.giveup.<site>``); the
-port has no registry yet, so nothing is counted here.
+Re-attempts and give-ups are counted in the observability registry
+(``resilience.retry.<site>`` / ``resilience.giveup.<site>``), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -110,20 +110,28 @@ def retry_call(fn: Callable[..., T], *args, site: str,
     """Call ``fn(*args, **kwargs)`` under ``policy`` and ``deadline``; on
     giving up (attempts exhausted, a non-retryable error, or the deadline
     spent) the last error, or :class:`DeadlineExceededError`,
-    propagates.  ``site`` names the operation in the deadline's error."""
+    propagates.  ``site`` names the operation in the deadline's error.
+    Per re-attempt ``resilience.retry.<site>`` +1; on giving up
+    ``resilience.giveup.<site>`` +1."""
     policy = policy or DEFAULT_POLICY
     deadline = deadline or Deadline.unlimited()
     attempt = 0
     while True:
         attempt += 1
-        deadline.check(f"{site} attempt {attempt}")
+        try:
+            deadline.check(f"{site} attempt {attempt}")
+        except DeadlineExceededError:
+            _count(f"resilience.giveup.{site}")
+            raise
         try:
             return fn(*args, **kwargs)
         except BaseException as e:  # noqa: BLE001 - classified below
             if (not policy.is_retryable(e)
                     or attempt >= policy.max_attempts):
+                _count(f"resilience.giveup.{site}")
                 raise
             pause = min(policy.delay(attempt, rng), deadline.remaining())
+            _count(f"resilience.retry.{site}")
             if pause > 0.0:
                 _sleep(pause)
 
@@ -142,3 +150,9 @@ def retryable(site: str, *, policy: Optional[RetryPolicy] = None):
         inner.__wrapped__ = fn
         return inner
     return wrap
+
+
+def _count(name: str) -> None:
+    from raft_tpu_torch import observability as obs
+    if obs.enabled():
+        obs.registry().counter(name).inc()

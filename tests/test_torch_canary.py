@@ -8,8 +8,10 @@ the check and by ``load``'s automatic check) on port-built indexes, plus
 the parity with ``raft_tpu.integrity.canary``: the same sentinel rows and
 exact ground truth from the same data, the same nested envelope byte for
 byte, and a canary block written by either package read by the other.
-The port has no observability registry, so the JAX tests' counter reads
-are left out; the raised error and the report carry what they checked.
+The counters the JAX tests read (``integrity.canary.*``, the
+``integrity.health_check`` stage and the ``integrity.canary_failure``
+flight event) are held to the JAX package's on the same script in
+``test_canary_counters_and_events_match_the_reference``.
 """
 
 import dataclasses
@@ -257,3 +259,54 @@ def test_unsupported_index_type_raises():
                            gt_ids=np.zeros((1, 1), np.int32), floor=0.5)
     with pytest.raises(TypeError, match="unsupported index type"):
         _canary.measure(None, object(), cs)
+
+
+def test_canary_counters_and_events_match_the_reference(tmp_path):
+    """The same script in both packages under collection — a build with
+    canaries, save and load (the ``load`` check), ``extend`` (its check), a
+    passing health check, then a damaged index's failing one — leaves the
+    same ``integrity.*`` counters, the same ``integrity.health_check``
+    stage count and the same failure events (recall apart)."""
+    import jax.numpy as jnp
+
+    import raft_tpu.observability as jobs
+    import raft_tpu_torch.observability as tobs
+    from raft_tpu.integrity import canary as jcanary
+
+    x = _data(400, 16, seed=3)
+    out = []
+    for obs, mod, canary, res, arr, zeros in (
+            (jobs, jax_ivf_flat, jcanary, JaxResources(seed=7),
+             x, jnp.zeros_like),
+            (tobs, ivf_flat, _canary, DeviceResources(seed=7, device="cpu"),
+             torch.tensor(x), torch.zeros_like)):
+        obs.reset()
+        obs.flight.clear()
+        with obs.collecting():
+            index = mod.build(res, mod.IndexParams(
+                n_lists=8, canary_queries=16, canary_k=5, canary_floor=0.3),
+                arr)
+            path = str(tmp_path / f"{obs.__name__}.idx")
+            mod.save(res, path, index)
+            index = mod.load(res, path)
+            index = mod.extend(res, index, arr[:10])
+            assert canary.health_check(res, index).ok
+            bad = dataclasses.replace(index,
+                                      list_data=zeros(index.list_data),
+                                      list_data_sq=None)
+            with pytest.raises(Exception) as err:
+                canary.health_check(res, bad)
+            assert err.value.invariant == "canary.recall_floor"
+        snap = obs.snapshot()
+        stage = next(t for n, t in snap["timers"].items()
+                     if n.endswith("health_check"))
+        events = obs.flight.events()
+        out.append(({n: v for n, v in snap["counters"].items()
+                     if n.startswith("integrity.canary")},
+                    stage["count"],
+                    [(e["name"], sorted(e["attrs"])) for e in events],
+                    [e["attrs"]["floor"] for e in events]))
+        obs.flight.clear()
+        obs.reset()
+    assert out[0] == out[1]
+    assert out[1][1] >= 4 and len(out[1][2]) == 1

@@ -2331,3 +2331,142 @@ def test_filtered_walk_matches_plain(dev, nq, itopk, width, deg, pdim,
         _assert_admitted(torch.where(added, ki, torch.full_like(ki, -1)), fw)
 
     check()
+
+
+# ---------------------------------------------------------------------------
+# the host-side subsystems on the card: stage fences, the memtable, verify
+# ---------------------------------------------------------------------------
+
+def test_stage_fences_wait_on_the_card_and_never_with_collection_off(
+        dev, monkeypatch):
+    """A stage's fence waits on the current stream of each CUDA tensor's
+    device (the stream is idle after it); with collection off a search on
+    the card never reaches the fence indirection."""
+    import importlib
+
+    from raft_tpu_torch import observability as obs
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    stage_mod = importlib.import_module("raft_tpu_torch.observability.stage")
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(4000, 32)).astype(
+        np.float32)).to(dev)
+    res = DeviceResources(seed=0)
+    index = ivf_pq.build(res, ivf_pq.IndexParams(n_lists=16, pq_dim=8), x)
+    sp = ivf_pq.SearchParams(n_probes=4)
+    ivf_pq.search(res, sp, index, x[:64], 10)
+
+    def forbidden(device):
+        raise AssertionError(f"fence reached with collection off: {device}")
+
+    monkeypatch.setattr(stage_mod, "_block_until_ready", forbidden)
+    assert not obs.enabled()
+    ivf_pq.search(res, sp, index, x[:64], 10)
+    waited = []
+
+    def wait(device):
+        waited.append(device)
+        stage_mod._wait_device(device)
+        assert torch.cuda.current_stream(device).query()
+
+    monkeypatch.setattr(stage_mod, "_block_until_ready", wait)
+    obs.reset()
+    with obs.collecting():
+        ivf_pq.search(res, sp, index, x[:64], 10)
+    assert waited and all(d.type == "cuda" for d in waited)
+    assert len(waited) >= len(obs.snapshot()["timers"])
+    obs.reset()
+
+
+def test_memtable_on_the_card_matches_the_cpu(dev):
+    """The same record stream into a card memtable and a CPU one: equal
+    digests and fold payloads, and search / merge results within 1e-5 of
+    ||q||^2 + max ||x||^2, ids equal but at ties."""
+    from raft_tpu_torch.neighbors import delta
+
+    rng = np.random.default_rng(5)
+    mems = [delta.Memtable(16, capacity=8, device=d) for d in (dev, "cpu")]
+    lsn = 0
+    for step in range(40):
+        lsn += 1
+        if step % 4 == 3:
+            rec = delta.Record(lsn, delta.OP_DELETE,
+                               rng.integers(0, 200, size=5))
+        else:
+            ids = rng.integers(0, 200, size=12)
+            rec = delta.Record(lsn, delta.OP_UPSERT, ids, rng.normal(
+                size=(12, 16)).astype(np.float32))
+        assert mems[0].apply(rec) == mems[1].apply(rec)
+    assert mems[0].digest() == mems[1].digest()
+    for a, b in zip(mems[0].fold_payload(), mems[1].fold_payload()):
+        assert np.array_equal(a, b)
+    q = rng.normal(size=(50, 16)).astype(np.float32)
+    main_d = np.sort(rng.random((50, 10)).astype(np.float32) * 20, 1)
+    main_i = rng.integers(0, 400, size=(50, 10)).astype(np.int32)
+    outs = []
+    for m in mems:
+        data, ids, tombs = m.device_view()
+        assert data.device.type == torch.device(m.device).type
+        qd = torch.tensor(q, device=m.device)
+        outs.append([t.cpu() for t in m.search(qd, 10)]
+                    + [t.cpu() for t in delta.merge_with_main(
+                        torch.tensor(main_d, device=m.device),
+                        torch.tensor(main_i, device=m.device), qd, data, ids,
+                        tombs, k=10, metric=m.metric)])
+    scale = float((q ** 2).sum(1).max()) + float(
+        (mems[1].fold_payload()[1] ** 2).sum(1).max()) + 20.0
+    for j in (0, 2):
+        torch.testing.assert_close(outs[0][j], outs[1][j], rtol=0,
+                                   atol=1e-5 * scale)
+        near = (outs[1][j][:, :, None] - outs[1][j][:, None, :]).abs() \
+            <= 2e-5 * scale
+        same = outs[0][j + 1] == outs[1][j + 1]
+        assert bool((same | (near.sum(-1) > 1)).all())
+
+
+def test_verify_on_a_card_built_index(dev):
+    """``verify`` at every level on an IVF-PQ index built on the card with
+    its int8 cache attached; a stale recon row and a stale int8 scale raise
+    with the invariant and the coordinate of the damage."""
+    import dataclasses
+
+    from raft_tpu_torch import integrity
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(6000, 32)).astype(
+        np.float32)).to(dev)
+    res = DeviceResources(seed=0)
+    index = ivf_pq.build(res, ivf_pq.IndexParams(
+        n_lists=16, pq_dim=8, canary_queries=16, canary_floor=0.2), x)
+    ivf_pq.search(res, ivf_pq.SearchParams(n_probes=4, scan_mode="recon8"),
+                  index, x[:32], 10)
+    for level in ("structural", "statistical", "full"):
+        integrity.verify(index, level, res=res)
+    li = int(torch.argmax(index.list_sizes))
+    recon = index.list_recon.clone()
+    recon[li, 0] += 1.0
+    with pytest.raises(integrity.IntegrityError) as err:
+        integrity.verify(dataclasses.replace(index, list_recon=recon))
+    assert err.value.coord == (li, 0, 0)
+    assert err.value.invariant.endswith("list_recon.stale")
+    scale = index.list_recon_scale.clone()
+    scale[3] *= 1.5
+    with pytest.raises(integrity.IntegrityError) as err:
+        integrity.verify(dataclasses.replace(index, list_recon_scale=scale))
+    assert err.value.coord == (3,)
+
+
+def test_ranges_reach_the_profiler_on_the_card(dev):
+    """A ``core.tracing`` range on the card pushes NVTX and records a
+    profiler event under the JAX package's label."""
+    from raft_tpu_torch.core import tracing
+
+    x = torch.ones(1024, device=dev)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with tracing.range("card %d", 1):
+            (x * 2).sum()
+        torch.cuda.synchronize()
+    assert "raft_tpu:card 1" in {e.key for e in prof.key_averages()}

@@ -6,12 +6,13 @@ checkpointed builds that resume bit-identical to an uninterrupted build.
 The cases follow the JAX package's ``tests/test_resilience.py`` (its
 non-distributed fault and retry cases, the envelope tests with their
 random-mutation property, the per-index corruption round trips, the
-checkpoint manager and the interrupt-then-resume builds).  The port has
-no observability registry yet, so where the JAX tests read
-``resilience.*`` counters these count calls instead: sleeps through the
-``_sleep`` seams, and ``CheckpointManager.load`` / ``.save`` through a
-spy.  Builds are the port's own at a small size; a resumed build is held
-bit for bit to an uninterrupted build of the same seed.
+checkpoint manager and the interrupt-then-resume builds).  The cases
+count calls where the JAX tests read ``resilience.*`` counters (sleeps
+through the ``_sleep`` seams, ``CheckpointManager.load`` / ``.save``
+through a spy); the counters themselves are held to the JAX package's on
+one script in ``test_resilience_counters_match_the_reference``.  Builds
+are the port's own at a small size; a resumed build is held bit for bit
+to an uninterrupted build of the same seed.
 """
 
 import io
@@ -814,3 +815,61 @@ def test_synchronize_checks_the_token_on_both_sides():
         with pytest.raises(TransientFault):
             interruptible.synchronize()
     interruptible.release_token()
+
+
+def test_resilience_counters_match_the_reference(tmp_path, monkeypatch):
+    """One script in both packages under collection — an injected fault,
+    a delayed site, a retry that recovers, one that gives up, a deadline
+    spent, checkpoint saves and loads — leaves the same ``resilience.*``
+    counters."""
+    import raft_tpu.observability as jobs
+    import raft_tpu.resilience as jres
+    import raft_tpu_torch.observability as tobs
+    import raft_tpu_torch.resilience as tres
+    from raft_tpu.resilience import faults as jfaults
+    from raft_tpu.resilience import retry as jretry
+
+    monkeypatch.setattr(jretry, "_sleep", lambda s: None)
+    for mod in (jfaults, faults):
+        monkeypatch.setattr(mod, "_sleep", lambda s: None)
+    site = ".".join(("site", "g"))
+    out = []
+    for obs, res_mod, fmod in ((jobs, jres, jfaults), (tobs, tres, faults)):
+        obs.reset()
+        with obs.collecting():
+            with res_mod.inject(site):
+                with pytest.raises(res_mod.TransientFault):
+                    fmod.maybe_fail(site)
+            plan = res_mod.FaultPlan(seed=0).delay_at(site + "d", delay=0.1)
+            with plan.active():
+                fmod.maybe_fail(site + "d")
+                fmod.maybe_fail(site + "d")
+            calls = []
+
+            def flaky():
+                calls.append(1)
+                if len(calls) < 2:
+                    raise res_mod.TransientFault("once")
+                return 1
+
+            res_mod.retry_call(flaky, site="t.recover",
+                               policy=res_mod.RetryPolicy(max_attempts=3))
+
+            def always():
+                raise res_mod.TransientFault("always")
+
+            with pytest.raises(res_mod.TransientFault):
+                res_mod.retry_call(always, site="t.exhaust",
+                                   policy=res_mod.RetryPolicy(max_attempts=2))
+            with pytest.raises(res_mod.DeadlineExceededError):
+                res_mod.retry_call(always, site="t.deadline",
+                                   deadline=res_mod.Deadline(-1.0))
+            mgr = res_mod.CheckpointManager(str(tmp_path / obs.__name__))
+            mgr.save("a", {"x": np.arange(3)})
+            mgr.save("b", {"x": np.arange(2)})
+            mgr.load("a")
+        out.append({n: v for n, v in obs.snapshot()["counters"].items()
+                    if n.startswith("resilience")})
+        obs.reset()
+    assert out[0] == out[1]
+    assert len(out[1]) == 8 and all(v >= 1 for v in out[1].values())
