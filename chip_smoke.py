@@ -56,6 +56,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    Each line carries the card's name and power limit.  The profiler
    phase (7) checks that its events hold the ``raft_tpu:ivf_pq::search``
    and ``raft_tpu:refine`` ranges.
+4c. The flagship served (``core/aot`` and ``serving/``): an ``Executor``
+   at ``scan_mode="fused"``, n_probes 96, k 10, ``max_batch`` 1,024 (11
+   buckets) with one brownout rung at n_probes 48 and a ``ShadowMonitor``,
+   and one at the default ``auto`` with an ``IngestServer``; every bucket
+   a captured CUDA graph (Kernel B, or G + the final top k), none served
+   live; each bucket's replay equal to its live program bit for bit; all
+   5,000 queries through ``Server.submit``
+   from 16 threads in requests of 1-64 rows (closed loop, then each client
+   submitting all its requests at once), each row equal to the direct
+   batch's (tie-aware), recall@10, rows/s, p50 / p99, batch fill, the raw
+   bucket-1,024 replay loop; a brownout step and back; 4,096 upserts and
+   1,024 deletes through ``Server.write`` (visible, never returned,
+   replayed from the WAL to the same memtable), folded and swapped in;
+   shadow recall and one gated ``Rebalancer`` pass; no capture and no
+   cache miss after warm-up or after a swap's own.  B's and G's kernels
+   rows gain the served replays under ``also_checked``, their launches
+   the kernel events torch.profiler sees in one served run (the replays
+   pass no wrapper's count), cross-checked against the run's replays
+   times each program's launches.  Every grouped pass checked here and in
+   the kernel phases (B, G, F) runs at the static group count and at the
+   exact one, bit-equal, each timed (``grouping_cost``).
 5. Kernel B (``ivf_pq_scan_fused``, list-major) against its plain version
    on the flagship's batch: 5000 queries of the built index at n_probes
    96, k 20, with the batch's group count and the call's device time split
@@ -1028,6 +1049,11 @@ def check_kernel_b(index, queries):
     row.update(list_major_split(
         "kernel B", lambda: pgs.ivf_pq_scan_fused(*args), probes,
         index.n_lists, probes.numel() * min(kt, K_SEARCH) * 8, True))
+    row["static_vs_exact"] = grouping_cost(
+        "kernel B (list_scan + merge_pairs)", probes, index.n_lists,
+        lambda gl, sp: pgs.merge_pairs(*pgs.list_scan(
+            qrot, index.centers, probes, gl, sp, index.list_recon,
+            index.list_recon_sq, index.list_indices, kt), K_SEARCH))
     return row
 
 
@@ -1039,6 +1065,42 @@ def in_turns(kernel, yardstick, reps=KERNEL_REPS):
     y2 = cuda_ms(yardstick, reps)
     k2 = cuda_ms(kernel, reps)
     return [k1, k2], [y1, y2]
+
+
+def grouping_cost(label, probes, n_lists, run, group=None):
+    """A grouped pass ``run(group_list, slot_pairs)`` after grouping at the
+    exact count (what a live search runs: one wait on the device) and at
+    ``grouped.group_capacity``'s static count (what a captured one runs):
+    the outputs equal bit for bit, then the CUDA-event ms of grouping +
+    pass each way, in turns (exact, static, static, exact), and both group
+    counts.  Returns the dict kept on the kernels-line entry."""
+    import torch
+    from raft_tpu_torch.neighbors import grouped
+
+    group = group or grouped.GROUP
+    nq, n_probes = probes.shape
+    cap = grouped.group_capacity(nq, n_probes, n_lists, group)[0]
+
+    def exact():
+        return run(*grouped.build_groups(probes, n_lists, group))
+
+    def static():
+        return run(*grouped.build_groups(probes, n_lists, group, cap))
+    ve, ie = exact()
+    vs, i_s = static()
+    assert torch.equal(ve, vs) and torch.equal(ie, i_s), (
+        f"{label}: the static group count changed the result")
+    del ve, ie, vs, i_s
+    n_exact = int(grouped.num_groups(probes, n_lists, group))
+    st, ex = in_turns(static, exact)
+    print(f"{label}: exact group count {n_exact:,} vs static {cap:,} "
+          f"(+{cap - n_exact:,} groups without a pair): "
+          f"grouping + pass {sum(ex) / 2:.3f} ms exact, "
+          f"{sum(st) / 2:.3f} ms static ({ex[0]:.3f} / {st[0]:.3f} / "
+          f"{st[1]:.3f} / {ex[1]:.3f} in turns); results bit-equal",
+          flush=True)
+    return {"exact_groups": n_exact, "static_groups": cap,
+            "exact_ms": ex, "static_ms": st}
 
 
 def merge_against_topk(label, pairs, k):
@@ -1452,10 +1514,13 @@ def check_kernel_g(index, queries, kt):
     with its device time split and group count."""
     from raft_tpu_torch.ops import pair_scan as ps
 
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
     qrot, probes = probe(index, queries)
     nq, n_probes = probes.shape
     rot = index.rot_dim
     kt = min(kt, index.capacity)
+    assert kt <= pgs.KT_LIST_MAX, "kernel G check: the list-major route"
     args = (qrot, index.centers, probes, index.list_recon,
             index.list_recon_sq, index.list_indices, kt)
     row = check_scans(index, qrot, probes, [
@@ -1467,6 +1532,11 @@ def check_kernel_g(index, queries, kt):
     row.update(list_major_split(
         "kernel G", lambda: ps.ivf_pq_scan_recon(*args), probes,
         index.n_lists, nq * n_probes * kt * 8, False))
+    row["static_vs_exact"] = grouping_cost(
+        "kernel G (list_scan)", probes, index.n_lists,
+        lambda gl, sp: pgs.list_scan(
+            qrot, index.centers, probes, gl, sp, index.list_recon,
+            index.list_recon_sq, index.list_indices, kt))
     return row
 
 
@@ -1609,6 +1679,11 @@ def check_kernel_f(index, queries, n_probes, k, label, filter_words=None):
             probes, data.shape[0], vk.numel() * 8, False,
             "flat_list_scan_kernel" if route == "list"
             else "flat_pair_kernel", group))
+        if route == "list" and filter_words is None:
+            row["static_vs_exact"] = grouping_cost(
+                f"{label} (flat_list_scan)", probes, data.shape[0],
+                lambda gl, sp: ps.flat_list_scan(q, probes, gl, sp, data,
+                                                 dsq, ids, kt, False, F))
         print(f"{label}, schedule model (flat_stream_bytes, not measured): "
               f"streams {streamed / 1e6:.1f} MB for {live_bytes / 1e6:.1f} "
               f"MB of probed live rows ({streamed / max(live_bytes, 1):.3f} "
@@ -5445,6 +5520,609 @@ def verify_timed(label, index, smi_line):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# serving the flagship (phase 4c): core/aot and serving/
+# ---------------------------------------------------------------------------
+
+SERVE_K, SERVE_MAX_BATCH, SERVE_RUNG_PROBES = 10, 1024, 48
+SERVE_CLIENTS, SERVE_MAX_REQUEST = 16, 64
+SERVE_SHADOW_ROWS = 1_000
+SERVE_UPSERTS, SERVE_DELETES, SERVE_CROWD = 4_096, 1_024, 2_048
+SERVE_SEED = 2
+# served rows against the direct batch: distances within this share of
+# the row's largest distance (the coarse matmul sums in another order at
+# another batch size), ids equal off distance ties
+SERVE_RTOL = 1e-4
+
+
+class ReplayCount:
+    """A bucket callable that counts its calls (the served path's graph
+    replays); the executor's table entries are wrapped after warm-up."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+        self.graph = getattr(fn, "graph", None)
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.fn(*args)
+
+
+def count_replays(ex):
+    for key, fn in list(ex._fns.items()):
+        ex._fns[key] = ReplayCount(fn)
+
+
+def replays(ex):
+    """{(bucket, k, rung): calls} of an executor's wrapped table."""
+    return {key: fn.calls for key, fn in ex._fns.items()
+            if isinstance(fn, ReplayCount)}
+
+
+# the served kernels by the symbols the profiler names them with (\b keeps
+# code_list_scan_kernel out of list_scan_kernel)
+SERVED_KERNELS = {"list_scan": r"\blist_scan_kernel<",
+                  "merge_pairs": r"\bmerge_kernel\b"}
+
+
+def served_launches(fn):
+    """``(fn(), {name: launches})``: ``fn`` (served traffic) run under
+    torch.profiler's CUDA activity, and the launches of each of
+    SERVED_KERNELS among the window's kernel events — the graph replays'
+    own kernels, which no wrapper's count sees (PROFILE_PAD_S of idle time
+    at each end: the profiler drops device events it places outside its
+    window)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    counts = dict.fromkeys(SERVED_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name, pattern in SERVED_KERNELS.items():
+                if re.search(pattern, e.key):
+                    counts[name] += e.count
+    return out, counts
+
+
+def derived_launches(before, after, per_bucket):
+    """The launches a window's replays should make: each bucket's replays
+    in the window (``after`` - ``before``, from ``replays``) times the
+    launches one run of its program makes (``program_launches``) — the
+    cross-check of ``served_launches``."""
+    return {name: sum((after.get((b, SERVE_K, 0), 0)
+                       - before.get((b, SERVE_K, 0), 0)) * per.get(name, 0)
+                      for b, per in per_bucket.items())
+            for name in SERVED_KERNELS}
+
+
+def program_launches(res, index, n_probes, batch, mode, queries):
+    """The kernel launches one run of a bucket's program makes (what each
+    replay of its graph launches), from the wrappers' counts."""
+    from raft_tpu_torch.core import aot
+
+    zero_launches()
+    aot.search_program(*aot._bake_ivf_pq(res, index, n_probes, SERVE_K,
+                                         batch, scan_mode=mode))(
+        queries[:batch])
+    return {name: n for name, n in read_launches().items() if n}
+
+
+def served_equal(label, d, i, rd, ri):
+    """Served rows against the direct batch's: the same exhausted ranks,
+    distances within SERVE_RTOL of the row's scale, ids equal off ties
+    (``ties_only``).  Returns (rows equal bit for bit, max |diff|)."""
+    import torch
+
+    fin = torch.isfinite(rd)
+    assert torch.equal(fin, torch.isfinite(d)), f"{label}: exhausted ranks"
+    scale = rd.masked_fill(~fin, 0).abs().amax(1, keepdim=True).clamp_min(1)
+    gap = (d - rd).masked_fill(~fin, 0).abs()
+    assert bool((gap <= SERVE_RTOL * scale).all()), (
+        f"{label}: distances differ by {float(gap.max())}")
+    assert ties_only(rd, i, ri, atol=float(SERVE_RTOL * scale.max())), (
+        f"{label}: ids differ off distance ties")
+    same = ((d == rd) & (i == ri)).all(1)
+    return int(same.sum()), float(gap.max())
+
+
+def serve_traffic(srv, queries, seed, burst=False):
+    """Every row of ``queries`` through ``Server.submit`` from
+    SERVE_CLIENTS threads in requests of 1..SERVE_MAX_REQUEST rows:
+    ``(distances, ids)`` in row order, the wall seconds and (requests,
+    p50, p99 ms at the clients).  Each client waits for a request's
+    result before its next submit (closed loop), or with ``burst``
+    submits all its requests, then waits for them."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    q = queries.cpu().numpy()
+    n = q.shape[0]
+    rng = np.random.default_rng(seed)
+    cuts = [0]
+    while cuts[-1] < n:
+        cuts.append(min(n, cuts[-1] + int(rng.integers(
+            1, SERVE_MAX_REQUEST + 1))))
+    spans = list(zip(cuts[:-1], cuts[1:]))
+    d = np.zeros((n, SERVE_K), np.float32)
+    i = np.zeros((n, SERVE_K), np.int32)
+    errors, waits = [], []
+
+    def client(c):
+        try:
+            mine = spans[c::SERVE_CLIENTS]
+            if burst:
+                t = time.perf_counter()
+                futs = [srv.submit(q[s:e], SERVE_K) for s, e in mine]
+                for (s, e), f in zip(mine, futs):
+                    d[s:e], i[s:e] = f.result(timeout=120)
+                    waits.append(time.perf_counter() - t)
+                return
+            for s, e in mine:
+                t = time.perf_counter()
+                d[s:e], i[s:e] = srv.submit(q[s:e], SERVE_K).result(
+                    timeout=120)
+                waits.append(time.perf_counter() - t)
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    wall = time.perf_counter() - t0
+    assert not errors, f"serving traffic failed: {errors[0]!r}"
+    assert not any(th.is_alive() for th in threads), "a client hung"
+    dev = queries.device
+    ms = np.asarray(waits) * 1e3
+    return (torch.from_numpy(d).to(dev), torch.from_numpy(i).to(dev),
+            wall, (len(spans), float(np.percentile(ms, 50)),
+                   float(np.percentile(ms, 99))))
+
+
+def latency_line(reg):
+    """p50 / p99 of end-to-end serving latency (ms) and the mean batch
+    fill, from the serving histograms."""
+    snap = reg.snapshot()["histograms"]
+    tot = snap["serving.latency.total"]
+    fill = snap["serving.batch_fill"]
+    return (1e3 * tot["p50"], 1e3 * tot["p99"],
+            fill["sum"] / max(fill["count"], 1), int(tot["count"]))
+
+
+def raw_loop_rows_per_s(ex, queries):
+    """The bucket-1024 replay loop over every query, no batcher: rows/s
+    (the JAX smoke's same-call yardstick)."""
+    import torch
+
+    n = queries.shape[0]
+    b = ex.max_batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, n, b):
+        chunk = queries[s:s + b]
+        m = chunk.shape[0]
+        if m < b:
+            chunk = ex.pad(chunk, b)
+        d, i = ex.search_bucket(chunk, m, SERVE_K)
+        d.cpu(), i.cpu()
+    return n / (time.perf_counter() - t0)
+
+
+def served_kernel_entry(index, queries, fn, live, plain, name, launches,
+                        merged, smi_line):
+    """A served bucket's check for the kernels line: the replay at bucket
+    SERVE_MAX_BATCH against the kernel's plain version on the bucket's own
+    scan inputs (tie-aware, every id recomputed from the index), the replay
+    equal to the live program bit for bit, their CUDA-event ms, the
+    function's bound, and the bucket's list_scan pass (+ merge_pairs where
+    ``merged``: Kernel B) at the static and the exact group count."""
+    import torch
+
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    q = queries[:SERVE_MAX_BATCH]
+    qrot, probes = probe(index, q)
+    d, i = fn(q)
+    ld, li = live(q)
+    assert torch.equal(d, ld) and torch.equal(i, li), (
+        f"{name}: the replay differs from the live program")
+    (vp, ip), plain_ms = timed_once(lambda: plain(qrot, probes))
+
+    def dist_of(qs, ids):
+        return id_distances(index, qrot, qs, ids, recon_rows_of(index),
+                            index.list_recon_sq)[0]
+    err = compare_with_plain(f"served {name}", d, i, vp, ip,
+                             dist_of=dist_of)
+    ms = cuda_ms(lambda: fn(q), KERNEL_REPS)
+    live_ms = cuda_ms(lambda: live(q), KERNEL_REPS)
+    rot = index.rot_dim
+    bound_ms, bound_by, _, _ = scan_bound(index, probes, rot * 2 + 8, 0,
+                                          SERVE_MAX_BATCH * SERVE_K * 8,
+                                          rot)
+
+    def grouped_pass(gl, sp):
+        out = pgs.list_scan(qrot, index.centers, probes, gl, sp,
+                            index.list_recon, index.list_recon_sq,
+                            index.list_indices, SERVE_K)
+        return pgs.merge_pairs(*out, SERVE_K) if merged else out
+    static_vs_exact = grouping_cost(f"served {name} at bucket "
+                                    f"{SERVE_MAX_BATCH}", probes,
+                                    index.n_lists, grouped_pass)
+    print(f"served {name} at bucket {SERVE_MAX_BATCH}: replay {ms:.3f} ms, "
+          f"the live program {live_ms:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}); served launches "
+          f"{launches}; nvidia-smi: {smi_line}", flush=True)
+    return {"shape": f"served: {name}, graph replays at buckets 1-"
+                     f"{SERVE_MAX_BATCH} (checked at {SERVE_MAX_BATCH} x "
+                     f"{N_PROBES} probes, k {SERVE_K}, kt {SERVE_K}); the "
+                     f"replay equals the live program bit for bit",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "live_ms": live_ms,
+            "served_by": "CUDA graph replay",
+            "static_vs_exact": static_vs_exact}
+
+
+def serving_path(res, index, db, queries, truth, smi_line):
+    """Phase 4c: the flagship served through ``core/aot`` and
+    ``serving/`` on captured CUDA graphs.  Returns Kernel B's and G's
+    served kernels-line entries (``also_checked``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import observability as obs
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.core import aot
+    from raft_tpu_torch.integrity import canary
+    from raft_tpu_torch.neighbors import ivf_pq, mutate
+    from raft_tpu_torch.ops import pair_scan as ps
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    t_phase = time.perf_counter()
+    cache = aot.executables()
+    full = ivf_pq.SearchParams(n_probes=N_PROBES, scan_mode="fused")
+    rung = ivf_pq.SearchParams(n_probes=SERVE_RUNG_PROBES,
+                               scan_mode="fused")
+    cfg = serving.ServerConfig(max_batch=SERVE_MAX_BATCH, max_wait_us=500,
+                               max_queue_rows=4 * N_QUERIES)
+
+    # 1. warm-up: the fused executor (one brownout rung) with the shadow
+    # monitor, and the default (auto -> recon) executor with the ingest
+    # tier, each bucket one capture
+    ex_f = serving.Executor(res, "ivf_pq", index, ks=(SERVE_K,),
+                            max_batch=SERVE_MAX_BATCH, search_params=full)
+    srv_f = serving.Server(ex_f, cfg)
+    ctl = serving.BrownoutController(
+        srv_f, [serving.Rung("full"), serving.Rung("probes/2", params=rung)],
+        serving.BrownoutConfig(dwell_s=0.0))
+    shadow = serving.ShadowMonitor(serving.ShadowConfig(
+        sample_rows_per_s=1e6, burst_rows=256, max_batch=64,
+        window_s=3600.0))
+    srv_f.attach_shadow(shadow)
+    ex_a = serving.Executor(res, "ivf_pq", index, ks=(SERVE_K,),
+                            max_batch=SERVE_MAX_BATCH,
+                            search_params=ivf_pq.SearchParams(
+                                n_probes=N_PROBES))
+    srv_a = serving.Server(ex_a, cfg)
+    tmp = tempfile.mkdtemp(prefix="raft-serving-")
+    ing = serving.IngestServer(res, serving.IngestConfig(
+        wal_dir=tmp + "/wal", memtable_capacity=1024, tomb_capacity=1024,
+        max_memtable_rows=2 * SERVE_UPSERTS), dim=DIM)
+    srv_a.attach_ingest(ing)
+    ing.recover(base_index=index)
+    reg = obs.registry()
+    obs.reset()
+    with obs.collecting():
+        torch.cuda.synchronize()
+        c0 = cache.captures
+        t0 = time.perf_counter()
+        srv_f.start()
+        torch.cuda.synchronize()
+        warm_f = time.perf_counter() - t0
+        caps_f = cache.captures - c0
+        t0 = time.perf_counter()
+        srv_a.start()
+        torch.cuda.synchronize()
+        warm_a = time.perf_counter() - t0
+        caps_a = cache.captures - c0 - caps_f
+    try:
+        n_b = len(ex_f.buckets)
+        assert caps_f == n_b * 2 + len(shadow.executor.buckets), caps_f
+        assert caps_a == n_b, caps_a
+        for ex in (ex_f, ex_a, shadow.executor):
+            assert not ex.fallbacks, f"buckets served live: {ex.fallbacks}"
+            assert all(hasattr(fn, "graph") for fn in ex._fns.values())
+        print(f"serving warm-up: fused executor {n_b} buckets x 2 rungs "
+              f"(n_probes {N_PROBES} / {SERVE_RUNG_PROBES}) + the shadow's "
+              f"{len(shadow.executor.buckets)} at full probe: {caps_f} "
+              f"captures in {warm_f:.2f} s; auto executor {n_b} buckets: "
+              f"{caps_a} captures in {warm_a:.2f} s; every bucket a captured "
+              f"graph, none served live; graph pools {ex_f.pool.bytes()} / "
+              f"{ex_a.pool.bytes()} / {shadow.executor.pool.bytes()} bytes "
+              f"(fused / auto / shadow); nvidia-smi: {smi_line}",
+              flush=True)
+
+        # 2. each bucket's replay against the live program (exact group
+        # count), on padded flagship queries
+        for ex, mode, rungs in ((ex_f, "fused", ((0, N_PROBES),
+                                                 (1, SERVE_RUNG_PROBES))),
+                                (ex_a, "recon", ((0, N_PROBES),))):
+            for b in ex.buckets:
+                padded = ex.pad(queries[:max(1, b - 1)], b)
+                for r, n_probes in rungs:
+                    live = aot.search_program(*aot._bake_ivf_pq(
+                        res, index, n_probes, SERVE_K, b, scan_mode=mode))
+                    d, i = ex._fns[(b, SERVE_K, r)](padded)
+                    ld, li = live(padded)
+                    assert torch.equal(i, li) and torch.equal(d, ld), (
+                        f"{mode} bucket {b} rung {r}: replay != live")
+        d, i = ex_a._fns[(SERVE_MAX_BATCH, SERVE_K, 0)](
+            queries[:SERVE_MAX_BATCH])
+        rd, ri = ivf_pq.search(res, ivf_pq.SearchParams(
+            n_probes=N_PROBES, scan_mode="recon"), index,
+            queries[:SERVE_MAX_BATCH], SERVE_K)
+        assert torch.equal(d, rd) and torch.equal(i, ri), (
+            "auto bucket: replay != ivf_pq.search (recon)")
+        print(f"serving replay vs live: every bucket of both executors (and "
+              f"the fused rung) equals its live program at the exact group "
+              f"count bit for bit; the auto executor's bucket "
+              f"{SERVE_MAX_BATCH} equals ivf_pq.search(scan_mode='recon') "
+              f"bit for bit; nvidia-smi: {smi_line}", flush=True)
+
+        # launches each graph replays: B (list_scan + merge_pairs) for the
+        # fused buckets, G (list_scan) for the auto ones
+        per_f = {b: program_launches(res, index, N_PROBES, b, "fused",
+                                     queries) for b in ex_f.buckets}
+        per_a = {b: program_launches(res, index, N_PROBES, b, "recon",
+                                     queries) for b in ex_a.buckets}
+        assert all(set(v) == {"list_scan", "merge_pairs"}
+                   for v in per_f.values()), per_f
+        assert all(set(v) == {"list_scan"} for v in per_a.values()), per_a
+
+        # 3. traffic: every flagship query through Server.submit
+        count_replays(ex_f)
+        count_replays(ex_a)
+        fn_a = ex_a._fns[(SERVE_MAX_BATCH, SERVE_K, 0)].fn
+        direct = aot.search_program(*aot._bake_ivf_pq(
+            res, index, N_PROBES, SERVE_K, N_QUERIES, scan_mode="fused"))
+        rd, ri = direct(queries)
+        obs.reset()
+        c1, m1 = cache.captures, cache.misses
+        # the shadow's full-probe replays would share the card with the
+        # measured traffic: sampled apart below
+        shadow.disable()
+        with obs.collecting():
+            d, i, wall, (n_req, c50, c99) = serve_traffic(srv_f, queries,
+                                                          SERVE_SEED)
+            p50, p99, fill, n_lat = latency_line(reg)
+        same, gap = served_equal("served fused", d, i, rd, ri)
+        obs.reset()
+        with obs.collecting():
+            bd, bi, bwall, (_, b50, b99) = serve_traffic(
+                srv_f, queries, SERVE_SEED, burst=True)
+            _, _, bfill, _ = latency_line(reg)
+        served_equal("served fused, burst", bd, bi, rd, ri)
+        hits = (i[:, :, None] == truth[:, None, :]).any(2).sum()
+        recall = float(hits) / truth.numel()
+        loop = raw_loop_rows_per_s(ex_f, queries)
+        # Kernel B's launches on the served path: one more burst of every
+        # query through Server.submit under the profiler, its kernels
+        # counted there (the graphs' replays pass no wrapper's count)
+        rep0 = replays(ex_f)
+        (pd, pi, _, _), served_b = served_launches(
+            lambda: serve_traffic(srv_f, queries, SERVE_SEED, burst=True))
+        served_equal("served fused, profiled", pd, pi, rd, ri)
+        rep_f = replays(ex_f)
+        derived_b = derived_launches(rep0, rep_f, per_f)
+        assert served_b == derived_b, (
+            f"served B launches {served_b}, the window's replays times "
+            f"their programs' launches {derived_b}")
+        assert cache.captures == c1 and cache.misses == m1, (
+            "the traffic captured or missed")
+        print(f"serving traffic: {N_QUERIES:,} flagship queries from "
+              f"{SERVE_CLIENTS} threads in {n_req} requests of 1-"
+              f"{SERVE_MAX_REQUEST} rows: {N_QUERIES / wall:.0f} rows/s "
+              f"served ({wall:.3f} s), latency p50 {p50:.3f} ms, p99 "
+              f"{p99:.3f} ms ({n_lat} requests; the histogram's bucket "
+              f"bounds; at the clients {c50:.3f} / {c99:.3f} ms), mean "
+              f"batch fill {fill:.3f}; each client submitting all its "
+              f"requests at once {N_QUERIES / bwall:.0f} rows/s "
+              f"({bwall:.3f} s, at the clients p50 {b50:.3f} / p99 "
+              f"{b99:.3f} ms, batch fill {bfill:.3f}); the raw "
+              f"bucket-{SERVE_MAX_BATCH} replay loop "
+              f"{loop:.0f} rows/s in the same call; recall@10 {recall:.4f};"
+              f" rows equal to the direct batch bit for bit {same} of "
+              f"{N_QUERIES} (max |dist diff| {gap}, the rest distance ties "
+              f"or the coarse matmul's summation order); replays "
+              f"{sum(rep_f.values())}; a profiled served burst launched B "
+              f"{json.dumps(served_b)} (kernel events; its "
+              f"{sum(rep_f.values()) - sum(rep0.values())} replays times "
+              f"their programs' launches agree); new captures 0, new cache "
+              f"misses 0; nvidia-smi: {smi_line}", flush=True)
+        assert recall >= NEW_RECALL_FLOOR, f"served recall@10 {recall}"
+
+        # 4. brownout: one step to the rung and back
+        c2 = cache.captures
+        ctl.config.step_down_p99_s, ctl.config.step_up_p99_s = 0.0, -1.0
+        with obs.collecting():
+            srv_f.search(queries[:8].cpu().numpy(), SERVE_K, timeout=60)
+            assert ctl.evaluate() == "step_down"
+            assert srv_f.brownout.rung == 1
+            d, i = srv_f.search(queries[:8].cpu().numpy(), SERVE_K,
+                                timeout=60)
+            ld, li = aot.search_program(*aot._bake_ivf_pq(
+                res, index, SERVE_RUNG_PROBES, SERVE_K, 8,
+                scan_mode="fused"))(queries[:8])
+            assert np.array_equal(i, li.cpu().numpy()), "rung results"
+            ctl.config.step_down_p99_s, ctl.config.step_up_p99_s = 1e9, 1e8
+            assert ctl.evaluate() == "step_up"
+            assert srv_f.brownout.rung == 0
+        assert cache.captures == c2, "the brownout step captured"
+        print(f"serving brownout: one step to n_probes {SERVE_RUNG_PROBES} "
+              f"and back, served at the rung equal to its live program; new "
+              f"captures 0; nvidia-smi: {smi_line}", flush=True)
+
+        # 5. ingest: upserts (half crowded around one list) and deletes of
+        # the first queries' nearest ids, through the auto server
+        rows = flagship_rows(SERVE_UPSERTS, SERVE_SEED)
+        cen = index.centers[0].cpu().numpy()
+        rot = index.rotation.cpu().numpy()
+        crowd = np.random.default_rng(SERVE_SEED).normal(
+            size=(SERVE_CROWD, DIM)).astype(np.float32) * 0.05
+        rows[:SERVE_CROWD] = (cen @ rot.T)[None, :] + crowd
+        new_ids = np.arange(N_DB, N_DB + SERVE_UPSERTS, dtype=np.int64)
+        dead = np.unique(truth[:, 0].cpu().numpy())[:SERVE_DELETES]
+        assert dead.size == SERVE_DELETES
+        t0 = time.perf_counter()
+        for s in range(0, SERVE_UPSERTS, 256):
+            srv_a.write(new_ids[s:s + 256], rows[s:s + 256])
+        for s in range(0, dead.size, 256):
+            srv_a.write(dead[s:s + 256], op="delete")
+        write_s = time.perf_counter() - t0
+        probe_rows = rows[SERVE_CROWD::32]
+        probe_ids = new_ids[SERVE_CROWD::32]
+        c3 = cache.captures
+        for r, want in zip(probe_rows[:64], probe_ids[:64]):
+            _, got = srv_a.search(r[None, :], SERVE_K, timeout=60)
+            assert int(got[0, 0]) == want, "an upsert is not its own top 1"
+        rep0 = replays(ex_a)
+        (d, i, _, _), served_g = served_launches(
+            lambda: serve_traffic(srv_a, queries, SERVE_SEED + 1))
+        assert not np.isin(i.cpu().numpy(), dead).any(), "a deleted id"
+        assert cache.captures == c3, "traffic with the memtable captured"
+        derived_g = derived_launches(rep0, replays(ex_a), per_a)
+        assert served_g == derived_g, (
+            f"served G launches {served_g}, the window's replays times "
+            f"their programs' launches {derived_g}")
+        pool_a = [ex_a.pool.bytes()]
+        digest = ing.memtable.digest()
+        rec = serving.IngestServer(res, serving.IngestConfig(
+            wal_dir=tmp + "/wal", memtable_capacity=1024,
+            tomb_capacity=1024, max_memtable_rows=2 * SERVE_UPSERTS),
+            dim=DIM)
+        rec.recover(base_index=index)
+        assert rec.memtable.digest() == digest, "WAL replay state"
+        rec.close()
+        t0 = time.perf_counter()
+        folded = ing.fold()
+        torch.cuda.synchronize()
+        fold_s = time.perf_counter() - t0
+        assert ex_a.index is folded and ing.stats()["wal_bytes"] == 0
+        count_replays(ex_a)
+        c4 = cache.captures
+        assert c4 - c3 == n_b, "the fold's swap captured one table"
+        d, i, _, _ = serve_traffic(srv_a, queries, SERVE_SEED + 2)
+        assert not np.isin(i.cpu().numpy(), dead).any(), "deleted after fold"
+        _, got = srv_a.search(probe_rows[:64], SERVE_K, timeout=60)
+        assert (got[:, 0] == probe_ids[:64]).all(), "upserts after the fold"
+        assert cache.captures == c4, "steady traffic after the swap captured"
+        pool_a.append(ex_a.pool.bytes())
+        print(f"serving ingest: {SERVE_UPSERTS:,} upserts and {dead.size:,} "
+              f"deletes through Server.write in {write_s:.2f} s (fsync'd "
+              f"WAL); each probed upsert its own top 1, no deleted id in "
+              f"{N_QUERIES:,} served rows; a fresh recover replays the WAL "
+              f"to the same memtable digest; the fold (delete + extend + "
+              f"verify, swapped in) {fold_s:.2f} s, generation "
+              f"{mutate.generation(folded)}, {c4 - c3} captures, none after; "
+              f"the served traffic before it launched G {served_g['list_scan']}"
+              f" times (profiled kernel events, agreeing with its replays); "
+              f"nvidia-smi: {smi_line}", flush=True)
+
+        # 6. shadow recall (a sampled closed-loop pass over the first
+        # queries) and one rebalance pass, gated by verify and the canary,
+        # swapped in through the auto server
+        shadow.enable()
+        serve_traffic(srv_f, queries[:SERVE_SHADOW_ROWS], SERVE_SEED)
+        shadow.stop()
+        shadow.disable()
+        est = shadow.estimator.estimate()
+        assert est is not None and est.rows > 0, "no shadow sample"
+        folded.canaries = canary.make(res, db, metric=folded.metric)
+        rb = serving.Rebalancer(res, folded, server=srv_a, ingest=ing,
+                                config=serving.RebalanceConfig(
+                                    max_lists_per_pass=2))
+        overfull, _ = rb._plan(folded)
+        t0 = time.perf_counter()
+        out = rb.run_once()
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        st = rb.stats()
+        assert overfull.size >= 1 and st["reclustered_rows"] > 0
+        assert st["swaps"] == 1 and ex_a.index is out
+        d, i, _, _ = serve_traffic(srv_a, queries, SERVE_SEED + 3)
+        assert not np.isin(i.cpu().numpy(), dead).any(), "deleted after pass"
+        live_truth = ~torch.from_numpy(np.isin(
+            truth.cpu().numpy(), dead)).to(truth.device)
+        hits = ((i[:, :, None] == truth[:, None, :]) & live_truth[:, None, :]
+                ).any(2).sum()
+        recall_after = float(hits) / float(live_truth.sum())
+        pool_a.append(ex_a.pool.bytes())
+        print(f"serving shadow + rebalance: shadow recall {est.recall:.4f} "
+              f"[{est.lo:.4f}, {est.hi:.4f}] over {est.rows} sampled rows "
+              f"at full probe; the rebalancer re-clustered lists "
+              f"{overfull.tolist()} ({st['reclustered_rows']} rows), "
+              f"compacted, passed verify + the canary and swapped in "
+              f"({pass_s:.2f} s); served recall@10 after {recall_after:.4f} "
+              f"(of the truth's ids not deleted); the auto executor's graph "
+              f"pool {pool_a[0]} / {pool_a[1]} / {pool_a[2]} bytes before the "
+              f"fold / after it / after the pass (the flagship's table "
+              f"stays, held by this script; the fold's generation is the "
+              f"server's last good one); nvidia-smi: {smi_line}",
+              flush=True)
+    finally:
+        srv_f.stop()
+        srv_a.stop()
+        ing.close()
+    entry_g = served_kernel_entry(
+        index, queries, fn_a,
+        aot.search_program(*aot._bake_ivf_pq(
+            res, index, N_PROBES, SERVE_K, SERVE_MAX_BATCH,
+            scan_mode="recon")),
+        lambda qrot, probes: ivf_pq._finalize_topk(
+            *ps.ivf_pq_scan_recon_plain(
+                qrot, index.centers, probes, index.list_recon,
+                index.list_recon_sq, index.list_indices, SERVE_K),
+            SERVE_K, index.metric),
+        "auto executor (Kernel G + the final top k)", served_g["list_scan"],
+        False, smi_line)
+    entry_b = served_kernel_entry(
+        index, queries, ReplayCount(ex_f._fns[(SERVE_MAX_BATCH, SERVE_K,
+                                               0)].fn),
+        aot.search_program(*aot._bake_ivf_pq(
+            res, index, N_PROBES, SERVE_K, SERVE_MAX_BATCH,
+            scan_mode="fused")),
+        lambda qrot, probes: pgs.ivf_pq_scan_fused_plain(
+            qrot, index.centers, probes, index.list_recon,
+            index.list_recon_sq, index.list_indices, SERVE_K, SERVE_K),
+        "fused executor (Kernel B)", served_b["merge_pairs"], True, smi_line)
+    entry_b["pass1_launches"] = served_b["list_scan"]
+    for entry in (entry_b, entry_g):
+        entry["launches_from"] = ("torch.profiler kernel events of one "
+                                  "served run, equal to its replays times "
+                                  "their programs' launches")
+    assert entry_b["launches"] > 0 and entry_g["launches"] > 0, (
+        "a served kernel was never replayed")
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s; "
+          f"nvidia-smi: {smi_line}", flush=True)
+    return entry_b, entry_g
+
+
 def main() -> int:
     import torch
 
@@ -5582,6 +6260,12 @@ def main() -> int:
     host_side_path(res, index, db, queries, sp, build_stages, smi_line)
     host_side_s = time.perf_counter() - t0
     print(f"host-side subsystems phase: {host_side_s:.1f} s", flush=True)
+
+    phase("serving the flagship: core/aot bucket graphs, the batcher and "
+          "Server, brownout, ingest, shadow recall and the rebalancer")
+    served_b, served_g = serving_path(res, index, db, queries, truth,
+                                      smi_line)
+    torch.cuda.empty_cache()
 
     phase("kernel B vs plain (the main path's batch on the built index; "
           "past kt 64 G's pair-group pass + the merge)")
@@ -5770,14 +6454,14 @@ def main() -> int:
     print(f"CAGRA runs past the walk table and past 256: "
           f"{json.dumps({str(k): v for k, v in rest_runs.items()})}",
           flush=True)
-    row_g["also_checked"] = [g_deep, g_filtered]
+    row_g["also_checked"] = [g_deep, g_filtered, served_g]
     row_h["also_checked"] += h_more + h_flat + h_deep
     row_hs["also_checked"] = [hs_cluster, hs_one, hs_deep]
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["merge_pairs"],
                  pass1_launches=launches["list_scan"],
-                 also_checked=[b_deep, b_filtered])] + \
+                 also_checked=[b_deep, b_filtered, served_b])] + \
         rows_cde + [
                      row_f, row_g, row_fp, row_gp, row_bp, *rows_cde_pair,
                      row_h, row_hs, row_i, row_walk] + \

@@ -152,7 +152,9 @@ flat_list_scan_kernel(const float* __restrict__ queries,
 
   start_group(slot_pairs, g, s_pair, top_v, top_s, stride, tid);
   if (tid < kMaxSub) s_end[tid] = 0;
-  __syncthreads();
+  // a group without a pair (past the exact count of a static one) scans
+  // nothing and writes nothing
+  if (!__syncthreads_or(tid < kGroup && s_pair[tid] < n_pairs)) return;
   // each sub-list's live end, one past its last row with an id >= 0: the
   // lanes of a warp on one sub-list reduce together
   for (int r0 = 0; r0 < rows; r0 += kThreads) {

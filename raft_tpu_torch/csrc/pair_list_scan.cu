@@ -585,7 +585,9 @@ flat_pair_kernel(const float* __restrict__ queries,
 
   start_pairs(slot_pairs, g, group, n_pairs, s_pair, K, kExtract);
   if (tid < kMaxSub) s_end[tid] = 0;
-  __syncthreads();
+  // a group without a pair (past the exact count of a static one) scans
+  // nothing and writes nothing
+  if (!__syncthreads_or(tid < kM && s_pair[tid] < n_pairs)) return;
   if constexpr (kExtract) {
     // each sub-list's live end, one past its last row with an id >= 0
     for (int r0 = 0; r0 < rows; r0 += kThreads) {
@@ -888,7 +890,9 @@ recon_pair_kernel(const float* __restrict__ qrot,
 
   start_pairs(slot_pairs, g, group, n_pairs, s_pair, K, kExtract);
   if (tid == 0) *s_extent = kExtract ? 0 : cap;
-  __syncthreads();
+  // a group without a pair (past the exact count of a static one) scans
+  // nothing and writes nothing
+  if (!__syncthreads_or(tid < kM && s_pair[tid] < n_pairs)) return;
   if constexpr (kExtract) {
     // one past the list's last row with an id >= 0
     int last = 0;

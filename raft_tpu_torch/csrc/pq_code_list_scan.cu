@@ -198,7 +198,9 @@ code_list_scan_kernel(const float* __restrict__ qrot,
     for (int i = tid; i < (rot << kBits) / 8; i += kThreads)
       books_dst[i] = __ldg(books + i);
   }
-  __syncthreads();
+  // a group without a pair (past the exact count of a static one) scans
+  // nothing and writes nothing
+  if (!__syncthreads_or(tid < kGroup && s_pair[tid] < n_pairs)) return;
   norms_and_extent(qrot, cen, s_pair, n_pairs, n_probes, rot, ids, lbase,
                    cap, ssq, &s_extent, tid);
   __syncthreads();

@@ -179,7 +179,9 @@ list_scan_kernel(const float* __restrict__ qrot,
 
   if (tid == 0) s_extent = 0;
   start_group(slot_pairs, g, s_pair, top_v, top_s, kKtMax, tid);
-  __syncthreads();
+  // a group without a pair (past the exact count of a static one) scans
+  // nothing and writes nothing
+  if (!__syncthreads_or(tid < kGroup && s_pair[tid] < n_pairs)) return;
   norms_and_extent(qrot, cen, s_pair, n_pairs, n_probes, rot, ids, lbase,
                    cap, ssq, &s_extent, tid);
   __syncthreads();

@@ -8,22 +8,25 @@ pairs lets one block scan a list for a whole group, so each list is read
 once per group (``csrc/pq_list_scan.cu``).  A hot list gets several
 groups, so padding stays under one partial group per touched list.
 
-Two differences from the JAX module: the group count is exact (the JAX
-package rounds it up for XLA's compile cache, ``round_groups``; Hopper
-launches size their grids per call), and a NEGATIVE probe is mapped to
-the sentinel ``n_lists`` before grouping, as probes ``>= n_lists`` are,
-so its pair lands in no group.  ``probe_overlap_order`` (the TPU's DMA
-reuse across adjacent groups) has no counterpart: a block stages its
-list itself.
+The scan routes group at :func:`group_capacity`'s static bound
+(:func:`groups_of`, as the JAX package dispatches), so nothing waits on
+the host and a search can be captured in a CUDA graph (``core/aot``); a
+group past the exact count holds no pair, and the kernels skip it.
+``build_groups`` without ``n_groups`` counts the groups exactly (one
+wait on the device).  A NEGATIVE probe is mapped to the sentinel
+``n_lists`` before grouping, as probes ``>= n_lists`` are, so its pair
+lands in no group.  ``probe_overlap_order`` (the TPU's DMA reuse across
+adjacent groups) has no counterpart: a block stages its list itself.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 GROUP = 128          # pairs a group: the wgmma A tile of two warpgroups
+_GROUP_ROUND = 256   # round_groups' quantum (the JAX package's)
 
 
 def _list_counts(probes: torch.Tensor, n_lists: int
@@ -51,7 +54,28 @@ def touched_lists(probes: torch.Tensor, n_lists: int) -> torch.Tensor:
     return (_list_counts(probes, n_lists)[1] > 0).sum()
 
 
-def build_groups(probes: torch.Tensor, n_lists: int, group: int = GROUP
+def round_groups(n: int) -> int:
+    """Round a group count up to the quantum (``grouped.py:74``)."""
+    return -(-max(n, 1) // _GROUP_ROUND) * _GROUP_ROUND
+
+
+def group_capacity(nq: int, n_probes: int, n_lists: int,
+                   group: int = GROUP) -> Tuple[int, bool]:
+    """``(capacity, exact)``: the static group count for
+    :func:`build_groups` (``grouped.py:85`` at its default ``est``, at
+    groups of ``group``).  With ``P = nq * n_probes`` pairs each touched
+    list wastes at most one partial group, so ``ceil(P / group) +
+    min(n_lists, P)`` groups never drop a pair; ``exact`` is always True.
+    The JAX package's calibrated tightening (``est``) has no caller here:
+    the port's static routes run at the bound."""
+    P = nq * n_probes
+    if P <= 0:
+        return 1, True
+    return -(-P // group) + min(n_lists, P), True
+
+
+def build_groups(probes: torch.Tensor, n_lists: int, group: int = GROUP,
+                 n_groups: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bucket the (query, probe) pairs of ``probes`` (nq, n_probes) into
     per-list groups of ``group`` pairs (``GROUP`` for the list-major
@@ -65,8 +89,12 @@ def build_groups(probes: torch.Tensor, n_lists: int, group: int = GROUP
     their order; the pair of in-list rank r of list l lands in group
     ``group_start[l] + r // group``, slot ``r % group``.  Probes outside
     ``[0, n_lists)`` (the JAX package's ``>= n_lists`` sentinels, and
-    negative probes) are in no group.  ``n_groups`` is exact, so reading it
-    waits for the probes.
+    negative probes) are in no group.  With ``n_groups=None`` the count is
+    exact, so reading it waits for the probes.  A static ``n_groups``
+    (:func:`group_capacity`) waits on nothing: the groups past the exact
+    count take the last list with every slot empty, as the JAX package's
+    do, and a pair past ``n_groups`` (none at the capacity's bound) is
+    dropped.
     """
     P = probes.numel()
     dev = probes.device
@@ -74,6 +102,9 @@ def build_groups(probes: torch.Tensor, n_lists: int, group: int = GROUP
     order = torch.sort(pl, stable=True).indices
     pl_s = pl[order]
     per_list = (counts + group - 1) // group
+    if n_groups is not None:
+        return _static_groups(pl_s, order, counts, per_list, n_lists, group,
+                              int(n_groups))
     # one wait: the exact group count, and the valid pairs (sorted first)
     n_groups, n_valid = torch.stack([per_list.sum(), counts.sum()]).tolist()
     group_start = torch.cumsum(per_list, 0) - per_list
@@ -88,6 +119,44 @@ def build_groups(probes: torch.Tensor, n_lists: int, group: int = GROUP
     slot_pairs[group_start[pls] + rank // group, rank % group] = (
         order[:n_valid].to(torch.int32))
     return group_list, slot_pairs
+
+
+def groups_of(probes: torch.Tensor, n_lists: int, group: int = GROUP
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`build_groups` of ``probes`` in groups of ``group`` at
+    :func:`group_capacity`'s static count, as the grouped scan routes
+    take them: no wait on the host, and the same results as the exact
+    count (the groups past it are empty)."""
+    return build_groups(probes, n_lists, group, group_capacity(
+        probes.shape[0], probes.shape[1], n_lists, group)[0])
+
+
+def _static_groups(pl_s, order, counts, per_list, n_lists: int, group: int,
+                   n_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`build_groups` at a static ``n_groups``: every pair is
+    scattered, the out-of-range ones (and any past ``n_groups``) into a
+    row that is dropped, so nothing is sliced by a count read back."""
+    P = pl_s.numel()
+    dev = pl_s.device
+    ends = torch.cumsum(per_list, 0)
+    group_start = ends - per_list
+    # the list of group g is the first whose groups end past g; groups
+    # past the exact count clamp to the last list
+    group_list = torch.searchsorted(
+        ends, torch.arange(n_groups, device=dev), right=True).clamp_max(
+            n_lists - 1).to(torch.int32)
+    starts = torch.cumsum(counts, 0) - counts
+    valid = pl_s < n_lists
+    lc = pl_s.clamp_max(n_lists - 1)
+    rank = torch.arange(P, device=dev) - starts[lc]
+    g = group_start[lc] + rank // group
+    drop = ~valid | (g >= n_groups)
+    g = torch.where(drop, torch.full_like(g, n_groups), g)
+    s = torch.where(drop, torch.zeros_like(rank), rank % group)
+    slot_pairs = torch.full((n_groups + 1, group), P, dtype=torch.int32,
+                            device=dev)
+    slot_pairs[g, s] = order.to(torch.int32)
+    return group_list, slot_pairs[:n_groups]
 
 
 def finalize_topk(outd: torch.Tensor, outi: torch.Tensor, nq: int, k: int,

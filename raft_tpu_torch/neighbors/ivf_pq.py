@@ -930,6 +930,29 @@ def _search_fused_codes(index, qrot, probes, k, kt, fw=None):
     return _sqrt_epilogue(vals, index.metric), ids
 
 
+def _recon_scan(index, k: int, kt: int, want_fused: bool
+                ) -> Tuple[object, str, str]:
+    """``(scan, stage label, fallback reason)`` over the bf16 recon cache:
+    Kernel B where the fused form is wanted and its gate admits the shape,
+    else Kernel G, and for InnerProduct the composition of the XLA twin.
+    The reason is "" unless a wanted fused form was refused: Kernel B's
+    gate refuses InnerProduct and every metric off the L2 family
+    (CosineExpanded, L1, CorrelationExpanded, ..., which the JAX package
+    scores as L2 over the recon cache), as the Pallas
+    ``fused_reject_reason`` does (reason "dtype").  ``core/aot``'s recon
+    programs choose through it too."""
+    if index.metric == DistanceType.InnerProduct:
+        return (_search_recon_ip, "ivf_pq.search.scan",
+                "dtype" if want_fused else "")
+    if not want_fused:
+        return _search_recon, "ivf_pq.search.scan", ""
+    reason = ("dtype" if index.metric not in L2_METRICS else
+              scan_reject_reason(index.capacity, index.rot_dim, k, kt))
+    if reason:
+        return _search_recon, "ivf_pq.search.scan", reason
+    return _search_fused_recon, "ivf_pq.search.fused_scan", ""
+
+
 def _search_codes(index, qrot, probes, k, kt, fw=None):
     """Kernel D over the packed codes, then each query's top k."""
     vals, ids = pcs.ivf_pq_scan_codes(
@@ -999,7 +1022,12 @@ def _search_recon_ip(index, qrot, probes, k, kt, fw=None):
     kt = min(kt, cap)
     cf = index.centers.float()
     qf = qrot.float()
-    group_list, slot_pairs = grouped.build_groups(probes, n_lists)
+    # live, the exact group count; a capture cannot wait on the host, so
+    # there the static one (its empty groups computed and dropped)
+    static = qf.is_cuda and torch.cuda.is_current_stream_capturing()
+    group_list, slot_pairs = grouped.build_groups(
+        probes, n_lists, n_groups=grouped.group_capacity(
+            nq, n_probes, n_lists)[0] if static else None)
     out_v = torch.full((P + 1, kt), float("-inf"), dtype=torch.float32,
                        device=qf.device)
     out_i = torch.full((P + 1, kt), -1, dtype=torch.int32, device=qf.device)
@@ -1169,7 +1197,6 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
         if obs.enabled():
             obs.registry().counter("ivf_pq.search.filtered").inc()
     mode, want_fused = _resolve_mode(params, index)
-    ip_metric = index.metric == DistanceType.InnerProduct
     if mode == "codes" and not _codes_mode_eligible(index):
         mode = "lut"
     if mode == "lut":
@@ -1237,26 +1264,9 @@ def _search_checked(res, params: SearchParams, index: Index, queries,
             qrot, probes = coarse()
             st.fence(probes)
         if mode == "recon":
-            scan, label = _search_recon, "ivf_pq.search.scan"
-            if ip_metric:
-                scan = _search_recon_ip
-                if want_fused:
-                    # Kernel B's gate refuses the metric, as the Pallas
-                    # one does (reason "dtype")
-                    _note_fused_fallback("dtype")
-            elif want_fused:
-                # Kernel B's gate: off the L2 family (CosineExpanded, L1,
-                # CorrelationExpanded, ..., which the JAX package scores as
-                # L2 over the recon cache) it refuses the metric, as the
-                # Pallas fused_reject_reason does (reason "dtype")
-                reason = ("dtype" if index.metric not in L2_METRICS else
-                          scan_reject_reason(index.capacity, index.rot_dim,
-                                             k, kt))
-                if reason:
-                    _note_fused_fallback(reason)
-                else:
-                    scan, label = (_search_fused_recon,
-                                   "ivf_pq.search.fused_scan")
+            scan, label, reason = _recon_scan(index, k, kt, want_fused)
+            if reason:
+                _note_fused_fallback(reason)
         elif mode == "recon8":
             scan, label = _search_recon8, "ivf_pq.search.recon8_scan"
         else:

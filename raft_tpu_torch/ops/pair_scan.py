@@ -705,11 +705,11 @@ def ivf_flat_scan(queries, probes, list_data, list_data_sq: Optional[
     if route == "pair":
         group = pair_list_layout(dim, kt, True).group
         return flat_pair_list_scan(
-            queries, probes, *grouped.build_groups(probes, n_lists, group),
+            queries, probes, *grouped.groups_of(probes, n_lists, group),
             list_data, list_data_sq, list_indices, kt, ip, sub_lists,
             filter_words)
     return flat_list_scan(queries, probes,
-                          *grouped.build_groups(probes, n_lists), list_data,
+                          *grouped.groups_of(probes, n_lists), list_data,
                           list_data_sq, list_indices, kt, ip, sub_lists,
                           filter_words)
 
@@ -854,10 +854,10 @@ def ivf_pq_scan_recon(qrot, centers, probes, list_recon, list_recon_sq,
         group = pair_list_layout(rot, kt, False).group
         return recon_pair_list_scan(
             qrot, centers, probes,
-            *grouped.build_groups(probes, n_lists, group), list_recon,
+            *grouped.groups_of(probes, n_lists, group), list_recon,
             list_recon_sq, list_indices, kt, filter_words)
     return list_scan(qrot, centers, probes,
-                     *grouped.build_groups(probes, n_lists), list_recon,
+                     *grouped.groups_of(probes, n_lists), list_recon,
                      list_recon_sq, list_indices, kt, filter_words)
 
 

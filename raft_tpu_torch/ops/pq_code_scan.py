@@ -900,10 +900,10 @@ def ivf_pq_scan_codes(qrot, centers, probes, list_codes, codebooks,
         group = code_pair_list_layout(rot, pq_dim, pq_bits, kt).group
         return code_pair_list_scan(
             qrot, centers, probes,
-            *grouped.build_groups(probes, n_lists, group), list_codes,
+            *grouped.groups_of(probes, n_lists, group), list_codes,
             codebooks, list_rsq, list_indices, pq_bits, kt, filter_words)
     return code_list_scan(qrot, centers, probes,
-                          *grouped.build_groups(probes, n_lists),
+                          *grouped.groups_of(probes, n_lists),
                           list_codes, codebooks, list_rsq, list_indices,
                           pq_bits, kt, filter_words)
 
@@ -1148,9 +1148,9 @@ def ivf_pq_scan_recon8(qrot, centers, probes, recon_i8, scales, rsq8,
         group = recon8_pair_list_layout(rot_pad, kt).group
         return recon8_pair_list_scan(
             qrot, centers, probes,
-            *grouped.build_groups(probes, n_lists, group), recon_i8, scales,
+            *grouped.groups_of(probes, n_lists, group), recon_i8, scales,
             rsq8, list_indices, kt, filter_words)
     return recon8_list_scan(qrot, centers, probes,
-                            *grouped.build_groups(probes, n_lists),
+                            *grouped.groups_of(probes, n_lists),
                             recon_i8, scales, rsq8, list_indices, kt,
                             filter_words)

@@ -564,6 +564,6 @@ def list_major_topk(probes, n_lists: int, pair_kt: int, k: int, pass1,
     for s in range(0, nq, step):
         p = probes[s:s + step]
         pair_v, pair_i = pass1(slice(s, s + step), p,
-                               *grouped.build_groups(p, n_lists, group))
+                               *grouped.groups_of(p, n_lists, group))
         parts.append(merge_pairs(pair_v, pair_i, k))
     return cat_parts(parts, (k,), probes.device)

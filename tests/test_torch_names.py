@@ -13,7 +13,8 @@ the rest of IVF-PQ's ``neighbors.ivf_pq_helpers`` and the primitives'
 ``random`` package and its ``rng`` and ``generators`` modules; the
 host-side subsystems' ``observability`` package and its seven modules,
 ``core.tracing``, ``core.logger``, ``integrity.verify`` and
-``neighbors.delta``)
+``neighbors.delta``; the serving slice's ``serving`` package and its
+modules, and ``core.aot``)
 resolves in ``raft_tpu_torch`` to the
 same kind of object (module, class, function, or a constant of the same
 type), or to a stand-in that raises ``NotImplementedError`` naming an
@@ -48,7 +49,7 @@ from raft_tpu_torch.utils import precision
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGES = ["", ".core", ".distance", ".cluster", ".matrix", ".neighbors",
             ".integrity", ".resilience", ".filters", ".random",
-            ".observability"]
+            ".observability", ".serving"]
 SHIPPED_MODULES = [".core.error", ".core.resources", ".core.mdarray",
                    ".utils.precision", ".matrix.ops", ".core.serialize",
                    ".core.interruptible", ".core.outputs", ".config",
@@ -62,7 +63,11 @@ SHIPPED_MODULES = [".core.error", ".core.resources", ".core.mdarray",
                    ".observability.trace", ".observability.report",
                    ".observability.export", ".observability.flight",
                    ".observability.quality", ".integrity.verify",
-                   ".neighbors.delta"]
+                   ".neighbors.delta", ".core.aot", ".serving.buckets",
+                   ".serving.admission", ".serving.batcher",
+                   ".serving.brownout", ".serving.executor",
+                   ".serving.server", ".serving.ingest", ".serving.shadow",
+                   ".serving.rebalancer", ".serving.dist_ingest"]
 
 
 def _deferred_items():
@@ -157,6 +162,8 @@ def _assert_counterpart(ref, port_module, name, where):
 
 def test_the_deferred_list_is_read():
     assert "the tail" in DEFERRED
+    # the serving slice's stand-ins wait for distributed/
+    assert "distributed (item 7)" in DEFERRED
     # shipped with the persistence slice, with the filters and mutation
     # slice, with the filters of the query-major routes, with the rest of
     # IVF-PQ and the primitives, and with the host-side subsystems: no
@@ -165,7 +172,7 @@ def test_the_deferred_list_is_read():
                 "mutation", "filters on the query-major routes",
                 "primitives", "LUT scan", "InnerProduct search",
                 "per-cluster books", "wide recon8 scans",
-                "host-side subsystems"} & DEFERRED
+                "host-side subsystems", "serving"} & DEFERRED
 
 
 def test_persistence_names_are_the_ported_objects():

@@ -595,3 +595,68 @@ def test_no_search_waits_on_the_device_with_collection_off(
     with tobs.collecting():
         run(port_indexes, q)
     assert len(waits) >= len(tobs.snapshot()["timers"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the serving slice's names
+# ---------------------------------------------------------------------------
+
+def _serving_names(m):
+    snap = m.snapshot()
+    keep = ("serving" + SEP, "aot" + SEP)
+    return {kind: sorted(n for n in snap[kind] if n.startswith(keep))
+            for kind in ("counters", "gauges", "histograms")}
+
+
+def test_serving_records_the_jax_names_and_aot_captures(pq_pair, rows,
+                                                         tmp_path):
+    """One script through both packages under collection: an ``aot``
+    executor (max_batch 4) served three requests and one shed at a full
+    queue, then an ingest tier's upsert and delete.  The same counter,
+    gauge and histogram names under ``serving.`` and ``aot.`` and the same
+    flight events; the JAX package's ``xla.*`` names have one
+    counterpart, the port's capture counter, pinned by its own
+    increment."""
+    import raft_tpu.serving as jserving
+    import raft_tpu_torch.serving as tserving
+    from raft_tpu_torch.core import aot
+
+    jidx, tidx = pq_pair
+    _, Q = rows
+    names, events = [], []
+    for m, srv_mod, res, index, mod in (
+            (jobs, jserving, JR, jidx, jp), (tobs, tserving, CPU, tidx,
+                                             ivf_pq)):
+        m.reset()
+        m.flight.clear()
+        with m.collecting():
+            ex = srv_mod.Executor(res, "ivf_pq", index, ks=(K,),
+                                  max_batch=4,
+                                  search_params=mod.SearchParams(n_probes=4))
+            cfg = srv_mod.ServerConfig(max_batch=4, max_wait_us=1_000,
+                                       max_queue_rows=4)
+            with srv_mod.Server(ex, cfg) as srv:
+                for n in (1, 3, 2):
+                    srv.search(Q[:n], K, timeout=30)
+                srv.batcher.stop(drain=False)
+                srv.submit(Q[:3], K)
+                with pytest.raises(srv_mod.Overloaded):
+                    srv.submit(Q[:3], K)
+                srv.batcher.start()
+            ing = srv_mod.IngestServer(res, srv_mod.IngestConfig(
+                wal_dir=str(tmp_path / m.__name__)), dim=Q.shape[1])
+            with ing:
+                ing.recover()
+                ing.write(np.arange(2), Q[:2])
+                ing.write(np.arange(1), op="delete")
+        names.append(_serving_names(m))
+        events.append(sorted({e["name"] for e in m.flight.events()}))
+    ref, ours = names
+    assert ours == ref
+    assert events[1] == events[0]
+    assert dotted("aot", "cache_miss") in events[1]
+    tobs.reset()
+    with tobs.collecting():
+        aot.ExecutableCache()._note_capture()
+        assert list(tobs.snapshot()["counters"]) == [dotted("aot",
+                                                            "captures")]
