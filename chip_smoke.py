@@ -327,7 +327,22 @@ Phases, in order; any failure raises and the script exits non-zero:
     and ``lut`` on 1,000, refined by inner product, recall@10 against the
     inner-product ``brute_force.knn`` (>= 0.80), the 50% per-query filter,
     and the full-probe filter contract on 64 queries, bit for bit.
-15. A JSON line with each kernel's route, source, launches, error, time
+15. Distributed (BASELINE.md config 5, ``bench.py bench_mnmg``): (a)
+    world size 1 over NCCL in this process: the nine comms self-tests,
+    ``distributed.kmeans.fit`` on 10,000,000 x 256 rows (a 32-d latent
+    drawn on the card) -> 1,024 clusters, 5 iterations at tol 0 from
+    k-means++, held to the same Lloyd loop without comms from the same
+    centroids, Kernel H's launches counted on the fit (5 + 1),
+    ``distributed.knn`` of 1,000 queries at k 10 held to
+    ``brute_force.knn`` tie-aware, H at the fit's shape against plain;
+    (b) two gloo ranks on the card (spawned, 1,250,000 rows each, the
+    kernels already built): the self-tests, the fit and the kNN equal to
+    world size 1 on the same 2.5M rows; the ops gloo staged through the
+    host and each collective's ms.  Before it, after the IVF-Flat phase,
+    the card paths that call ``select_k`` (brute force, refine, IVF-Flat
+    search, the memtable merge) timed with its JAX tie order and with
+    ``torch.topk`` alone, in turns.
+16. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path (the
     pair-group pass's six rows, ``flat_pair_list_scan``,
@@ -6123,6 +6138,620 @@ def serving_path(res, index, db, queries, truth, smi_line):
     return entry_b, entry_g
 
 
+# ---------------------------------------------------------------------------
+# select_k's tie order (the JAX package's) against torch.topk's, in turns
+# ---------------------------------------------------------------------------
+
+# the order of the two selections' timings
+SELECT_K_TURNS = ("topk", "stable", "stable", "topk")
+
+
+class TopkSelect:
+    """``select_k``'s selection swapped for ``torch.topk`` alone (its order
+    among equal values arbitrary: the port before its tie fix) inside a
+    ``with`` block, as the yardstick of the paths that call it."""
+
+    def __enter__(self):
+        import torch
+        import raft_tpu_torch.matrix.select_k  # noqa: F401
+
+        self.mod = sys.modules["raft_tpu_torch.matrix.select_k"]
+        self.real = self.mod._stable_topk
+        self.mod._stable_topk = lambda v, k, smin: torch.topk(
+            v, k, dim=1, largest=not smin, sorted=True).indices
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._stable_topk = self.real
+
+
+# the ties of select_k's card-route check: each row's values from this
+# set, so every k-th value is tied thousands of times
+SELECT_K_TIE_VALUES = (-float("inf"), -0.0, 0.0, 1.0, 2.0, float("inf"))
+
+
+def select_k_card_route(dev, smi_line, rows=LARGE_KT_QUERIES,
+                        cols=None, seed=0):
+    """``select_k``'s card route past the whole-row sort relies on a detail
+    of ATen's CUDA ``torch.topk`` (of the k-th value's ties it keeps the
+    first it meets in the row), not on a documented promise: re-checked
+    here on every run.  Tie-heavy rows at the brute-force tile's shape
+    (LARGE_KT_QUERIES queries x the tile's 65,536 rows), values drawn on
+    the card from SELECT_K_TIE_VALUES, at k 1, K and 100 and both
+    directions: the card route (``_topk_card``) equal to the exact keys
+    route (``_topk_keys``) and to a stable sort of the whole row."""
+    import importlib
+    import torch
+    from raft_tpu_torch.neighbors import brute_force
+
+    sk = importlib.import_module("raft_tpu_torch.matrix.select_k")
+    cols = cols or brute_force._TILE_N
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    table = torch.tensor(SELECT_K_TIE_VALUES, device=dev)
+    vals = table[torch.randint(0, len(SELECT_K_TIE_VALUES), (rows, cols),
+                               generator=g, device=dev)]
+    checked = []
+    for select_min in (True, False):
+        whole = torch.sort(sk._order_keys(vals, select_min), dim=1,
+                           stable=True).indices
+        for k in (1, K, 100):
+            card = sk._topk_card(vals, k, select_min)
+            keys = sk._topk_keys(vals, k, select_min)
+            assert torch.equal(card, keys) and torch.equal(
+                card, whole[:, :k]), (
+                f"select_k's card route breaks ties in another order at "
+                f"({rows}, {cols}), k {k}, select_min {select_min}: "
+                f"torch.topk no longer keeps the first of the k-th "
+                f"value's ties")
+            checked.append((select_min, k))
+    print(f"select_k card route on tie-heavy rows ({rows:,} x {cols:,}, "
+          f"values {SELECT_K_TIE_VALUES}): equal to the keys route and "
+          f"to a stable sort of the whole row at (select_min, k) "
+          f"{checked}; torch {torch.__version__}; nvidia-smi: {smi_line}",
+          flush=True)
+
+
+def select_k_turns(res, index, flat, db, queries, sp, smi_line):
+    """The card paths that call ``select_k`` — ``brute_force.knn`` (1,000
+    queries over the 1M rows), ``refine`` (the flagship batch's k-20
+    candidates to 10), ``ivf_flat.search`` (nlist 4096 at 32 probes, k
+    10) and ``delta.merge_with_main`` (a memtable of DELTA_UPSERTS rows
+    and DELTA_DELETES deletes merged into the flagship batch) — each timed
+    (CUDA events, KERNEL_REPS calls) with ``select_k``'s JAX tie order
+    and with ``torch.topk`` alone, in turns (topk, stable, stable, topk).
+    Each path's answers through the two agree in distance bit for bit
+    (ids may differ only where distances tie).  Returns {path: {"stable":
+    [ms, ms], "topk": [ms, ms]}}."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.neighbors import brute_force, delta, ivf_flat, \
+        ivf_pq, refine
+
+    q1k = queries[:LARGE_KT_QUERIES]
+    _, cand = ivf_pq.search(res, sp, index, queries, K_SEARCH)
+    main_d, main_i = refine(res, db, queries, cand, K)
+    rng = np.random.default_rng(DELTA_SEED)
+    mem = delta.Memtable(DIM, capacity=DELTA_CAPACITY, device=db.device)
+    mem.apply(delta.Record(1, delta.OP_UPSERT, np.arange(
+        N_DB, N_DB + DELTA_UPSERTS, dtype=np.int64),
+        flagship_rows(DELTA_UPSERTS, DELTA_SEED)))
+    mem.apply(delta.Record(2, delta.OP_DELETE, np.sort(
+        rng.choice(N_DB, DELTA_DELETES, replace=False))))
+    data, ids, tombs = mem.device_view()
+    flat_sp = ivf_flat.SearchParams(n_probes=FLAT_PROBES[0])
+    paths = {
+        "brute_force.knn": lambda: brute_force.knn(res, db, q1k, K),
+        "refine": lambda: refine(res, db, queries, cand, K),
+        "ivf_flat.search": lambda: ivf_flat.search(res, flat_sp, flat,
+                                                   queries, K),
+        "delta.merge_with_main": lambda: delta.merge_with_main(
+            main_d, main_i, queries, data, ids, tombs, k=K,
+            metric=index.metric),
+    }
+    out = {}
+    for name, fn in paths.items():
+        times, answers = {"stable": [], "topk": []}, {}
+        for turn in SELECT_K_TURNS:
+            if turn == "topk":
+                with TopkSelect():
+                    answers[turn] = fn()
+                    times[turn].append(cuda_ms(fn, KERNEL_REPS))
+            else:
+                answers[turn] = fn()
+                times[turn].append(cuda_ms(fn, KERNEL_REPS))
+        assert torch.equal(answers["stable"][0], answers["topk"][0]), (
+            f"{name}: select_k's two orders give other distances")
+        same = float((answers["stable"][1] == answers["topk"][1]).float()
+                     .mean())
+        out[name] = times
+        print(f"select_k turns, {name}: ms with the JAX tie order "
+              f"{', '.join(f'{m:.3f}' for m in times['stable'])}, with "
+              f"torch.topk alone {', '.join(f'{m:.3f}' for m in times['topk'])}"
+              f"; ids equal at {same:.6f} (the rest at distance ties); "
+              f"nvidia-smi: {smi_line}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Distributed: comms self-tests and MNMG k-means + kNN (BASELINE config 5)
+# ---------------------------------------------------------------------------
+
+# bench.py bench_mnmg (BASELINE.md config 5): rows of dim 256 from a 32-d
+# latent (5% noise), 1,024 clusters, 5 Lloyd iterations at tol 0 from
+# k-means++ (InitMethod.Random, which the distributed fit seeds with ++),
+# 1,000 queries at k 10.  Part (a): BASELINE's whole 10M rows on the one
+# card, NCCL at world size 1; part (b): bench_mnmg's 1.25M rows a rank on
+# two gloo ranks sharing the card
+MNMG_ROWS, MNMG_QUERIES, MNMG_DIM, MNMG_LATENT = 10_000_000, 1_000, 256, 32
+MNMG_CLUSTERS, MNMG_ITERS = 1024, 5
+MNMG_RANKS, MNMG_RANK_ROWS = 2, 1_250_000
+# Kernel H is held to plain on the first rows of the 10M
+MNMG_CHECK_ROWS = 1_000_000
+# a fit against the same Lloyd loop without comms, or against world size
+# 1, from the same centroids.  One iteration: only the sums' order differs
+# (index_add_'s atomic adds, the ranks' partial sums), ~1e-6 of a
+# centroid.  Five: a row at a near tie between two centroids may take the
+# other label after such a difference, moving each centroid by |x - c| /
+# count (~1e-4 a row here, on data of unit scale), and a few of those
+# compound over the iterations.  Each
+# five-iteration check prints how many rows' final labels differ between
+# the two fits and how near a tie those rows are (label_flips)
+MNMG_ONE_ITER_ATOL = 1e-4
+MNMG_CENTROID_ATOL, MNMG_INERTIA_RTOL = 1e-2, 1e-4
+MNMG_KNN_REPS = 3
+MNMG_RANK_TIMEOUT_S = 420
+
+
+def device_sift_like(n, n_queries, dim, latent, noise, device, seed=0,
+                     chunk=1 << 20):
+    """``sift_like``'s model (a ``latent``-d Gaussian mapped to ``dim``
+    plus ``noise``) drawn on the device by torch's generator from
+    ``seed``: the same rows in every process on the same card, and no
+    host draw of 10M x 256 values."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    A = torch.randn(latent, dim, generator=g, device=device) / latent ** 0.5
+    X = torch.empty(n + n_queries, dim, device=device)
+    for s in range(0, n + n_queries, chunk):
+        m = min(chunk, n + n_queries - s)
+        z = torch.randn(m, latent, generator=g, device=device)
+        X[s:s + m] = z @ A + noise * torch.randn(m, dim, generator=g,
+                                                 device=device)
+    return X[:n], X[n:]
+
+
+def mnmg_params():
+    from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
+
+    return KMeansParams(n_clusters=MNMG_CLUSTERS, max_iter=MNMG_ITERS,
+                        tol=0.0, init=InitMethod.Random)
+
+
+def self_tests(session):
+    """The nine comms self-tests on ``session``: {name: passed}."""
+    from raft_tpu_torch.comms import self_test
+
+    names = [n for n in dir(self_test) if n.startswith("perform_test_")]
+    out = {n[len("perform_test_"):]: getattr(self_test, n)(session)
+           for n in sorted(names)}
+    assert len(out) == 9, sorted(out)
+    return out
+
+
+def lloyd_plain(x, c, max_iter, tol):
+    """The distributed fit's Lloyd loop on the whole array, without comms:
+    Kernel H, ``index_add_`` of the rows and counts, the same update.
+    Returns (centroids, inertia, n_iter)."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_nn as fnn
+
+    ones = torch.ones(x.shape[0], device=x.device)
+    n_iter, shift = 0, float("inf")
+    while n_iter < max_iter and shift >= tol:
+        lab = fnn.fused_l2_nn(x, c)[1].long()
+        sums = torch.zeros_like(c).index_add_(0, lab, x)
+        counts = torch.zeros(c.shape[0], device=x.device).index_add_(
+            0, lab, ones)
+        new_c = torch.where((counts > 0)[:, None],
+                            sums / torch.clamp_min(counts, 1.0)[:, None], c)
+        shift = float(((new_c - c) ** 2).sum())
+        c, n_iter = new_c, n_iter + 1
+    return c, float(fnn.fused_l2_nn(x, c)[0].sum()), n_iter
+
+
+def knn_agree(label, x, q, d, i, ref_d, ref_i):
+    """kNN distances within 1e-5 of ‖q‖² + max ‖x‖² of the reference's,
+    each id equal to the reference's or at a distance tie with it (both
+    recomputed directly); returns the share of equal ids."""
+    import torch
+
+    x_sq_max = float((x * x).sum(1).max())
+    scale = (q * q).sum(1, keepdim=True) + x_sq_max
+    err = float(((d - ref_d).abs() / scale).max())
+    assert err <= 1e-5, f"{label}: distances off by {err} of the scale"
+
+    def dist(ids):
+        return ((q[:, None, :] - x[ids.long()]) ** 2).sum(-1)
+
+    same = i == ref_i
+    gap = ((dist(i) - dist(ref_i)).abs() / scale)
+    assert bool((same | (gap <= 1e-5)).all()), (
+        f"{label}: an id off a distance tie")
+    return float(same.float().mean())
+
+
+def fit_agree(label, got, ref, atol=MNMG_CENTROID_ATOL):
+    """(centroids, inertia, n_iter) against a reference fit's: n_iter
+    equal, centroids within ``atol``, inertia within MNMG_INERTIA_RTOL."""
+    c, inertia, n_iter = got
+    rc, r_inertia, r_n = ref
+    gap = float((c - rc).abs().max())
+    rel = abs(inertia - r_inertia) / r_inertia
+    assert n_iter == r_n, f"{label}: n_iter {n_iter} against {r_n}"
+    assert gap <= atol and rel <= MNMG_INERTIA_RTOL, (
+        f"{label}: centroids off by {gap}, inertia by {rel} (relative)")
+    return gap, rel
+
+
+def label_flips(x, c, rc):
+    """The rows whose nearest centroid under a fit's ``c`` differs from the
+    one under its reference's ``rc`` (Kernel H on both), and how near a
+    tie they sit: (count, the largest relative gap |d_a - d_b| / min(d_a,
+    d_b) between a row's distances to its two labels' centroids, under
+    either fit's centroids)."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_nn as fnn
+
+    la = fnn.fused_l2_nn(x, c)[1].long()
+    lb = fnn.fused_l2_nn(x, rc)[1].long()
+    rows = (la != lb).nonzero().squeeze(1)
+    if rows.numel() == 0:
+        return 0, 0.0
+    xs, la, lb = x[rows], la[rows], lb[rows]
+    gap = 0.0
+    for cc in (c, rc):
+        da = ((xs - cc[la]) ** 2).sum(1)
+        db = ((xs - cc[lb]) ** 2).sum(1)
+        gap = max(gap, float(((da - db).abs() / torch.minimum(da, db)
+                              .clamp_min(1e-30)).max()))
+    return int(rows.numel()), gap
+
+
+def check_kernel_h_mnmg(x, c, launches, shape):
+    """Kernel H at the MNMG fit's shape: held to plain (dmin within 1e-5 of
+    ‖x‖² + max ‖c‖², labels tie-aware) on the first MNMG_CHECK_ROWS rows,
+    timed on all of them (the plain version once), the bound that of the
+    whole pass; an ``also_checked`` entry of H's row."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_nn as fnn
+
+    xs = x[:MNMG_CHECK_ROWS]
+    dk, ik = fnn.fused_l2_nn(xs, c)
+    dp, ip = fnn.fused_l2_nn_plain(xs, c)
+    scale = float((xs * xs).sum(1).max() + (c * c).sum(1).max())
+    err = float((dk - dp).abs().max())
+    assert err <= 1e-5 * scale, f"fused_l2_nn at {shape}: dmin off by {err}"
+
+    def dist(i):
+        return ((xs - c[i.long()]) ** 2).sum(1)
+
+    assert bool(((ik == ip) | ((dist(ik) - dist(ip)).abs()
+                               <= 1e-5 * scale)).all()), (
+        f"fused_l2_nn at {shape}: an index off a distance tie")
+    same = float((ik == ip).float().mean())
+    del dk, ik, dp, ip
+    ms = cuda_ms(lambda: fnn.fused_l2_nn(x, c), 3)
+    dev_ms = device_ms(lambda: fnn.fused_l2_nn(x, c), 3, "nn_tf32_kernel")
+    _, plain_ms = timed_once(lambda: fnn.fused_l2_nn_plain(x, c))
+    (m, k), n = x.shape, c.shape[0]
+    flops = 2.0 * m * n * k
+    bound_ms, bound_by = bound((m + n) * k * 4 + m * 8, 3 * flops,
+                               TF32_FLOP_PER_S)
+    lib_ms = matmul_ms(x, c)
+    torch.cuda.empty_cache()
+    print(f"fused_l2_nn at {shape}: max |dmin err| {err} (scale "
+          f"{scale:.1f}) on {xs.shape[0]:,} rows, indices equal at "
+          f"{same:.6f} (others at ties); {ms:.3f} ms a call, kernel "
+          f"{dev_ms:.4f} ms on the device ({flops / dev_ms / 1e9:.1f} "
+          f"TFLOP/s of one product), plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); fp32 matmul "
+          f"{'n/a (output past LIBRARY_OUT_BYTES)' if lib_ms is None else f'{lib_ms:.3f} ms'}",
+          flush=True)
+    return {"shape": shape, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "device_ms": dev_ms}
+
+
+def timed_comms(base):
+    """``base`` (a Comms) with each allreduce / bcast / allgather call
+    timed between two device synchronises: ``.ms[op]`` lists them."""
+    import torch
+    from raft_tpu_torch.comms import Comms
+
+    class TimedComms(Comms):
+        def __init__(self):
+            super().__init__(base.axis_name, base.group, base.device,
+                             base.axes)
+            self.ms = {}
+
+        def _timed(self, op, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.ms.setdefault(op, []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+
+        def allreduce(self, x, op="sum"):
+            return self._timed("allreduce", super().allreduce, x, op)
+
+        def bcast(self, x, root=0):
+            return self._timed("bcast", super().bcast, x, root)
+
+        def allgather(self, x):
+            return self._timed("allgather", super().allgather, x)
+
+    return TimedComms()
+
+
+def mnmg_run(handle, X, Q, timed=False):
+    """One MNMG fit and kNN through the handle's comms, as a rank runs
+    them: Kernel H's launches counted on the fit alone (zeroed just
+    before, read just after), the fit's seconds, kNN's seconds over
+    MNMG_KNN_REPS batches after one warm-up, the collectives' times when
+    ``timed``."""
+    import torch
+    from raft_tpu_torch.distributed import kmeans as dist_kmeans
+    from raft_tpu_torch.distributed import knn as dist_knn
+
+    if timed:
+        handle.set_comms(timed_comms(handle.get_comms()))
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    c, inertia, n_iter = dist_kmeans.fit(handle, mnmg_params(), X)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = h_tf32_launches(read_launches())
+    fit_ms = dict(handle.get_comms().ms) if timed else {}
+    d, i = dist_knn.knn(handle, X, Q, K)
+    knn_ms, (d, i) = timed_searches(lambda: dist_knn.knn(handle, X, Q, K),
+                                    MNMG_KNN_REPS)
+    return {"fit": (c, float(inertia), n_iter), "fit_s": fit_s,
+            "h_launches": launches, "knn": (d, i), "knn_ms": knn_ms,
+            "collective_ms": fit_ms}
+
+
+def mnmg_rank(rank, world, rows, device, c0):
+    """Part (b)'s rank: on ``device`` beside the other ranks, over the gloo
+    default group the launcher made; the self-tests, then the fit and the
+    kNN on the whole ``rows``-row array held on the host (each rank moves
+    its own rows to the card), then one iteration from the centroids
+    ``c0``.  Returns plain values for the parent."""
+    import torch
+    from raft_tpu_torch import observability as obs
+    from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
+    from raft_tpu_torch.comms import CommsSession, comms as comms_mod
+    from raft_tpu_torch.distributed import kmeans as dist_kmeans
+    from raft_tpu_torch.ops import _cuda
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    _cuda.library()                      # the parent built it: a load
+    session = CommsSession(device=dev).init()
+    with obs.collecting():
+        checks = self_tests(session)
+        X, Q = device_sift_like(rows, MNMG_QUERIES, MNMG_DIM, MNMG_LATENT,
+                                NOISE, dev)
+        X = X.cpu()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = mnmg_run(session.worker_handle(seed=0), X, Q, timed=True)
+        one_it = KMeansParams(n_clusters=MNMG_CLUSTERS, max_iter=1, tol=0.0,
+                              init=InitMethod.Array)
+        c1, inertia1, n1 = dist_kmeans.fit(
+            session.worker_handle(seed=0), one_it, X,
+            centroids=torch.from_numpy(c0).to(dev))
+        used = sorted({name.split(".")[1] for name in obs.snapshot()[
+            "counters"] if name.startswith("comms.")})
+    c, inertia, n_iter = out["fit"]
+    d, i = out["knn"]
+    return {"backend": session.backend, "checks": checks, "used": used,
+            "staged": sorted(comms_mod.staged),
+            "fit": (c.cpu().numpy(), inertia, n_iter),
+            "fit one": (c1.cpu().numpy(), float(inertia1), int(n1)),
+            "knn": (d.cpu().numpy(), i.cpu().numpy()),
+            "fit_s": out["fit_s"], "knn_ms": out["knn_ms"],
+            "h_launches": out["h_launches"],
+            "collective_ms": out["collective_ms"],
+            "peak_gb": peak_gb()}
+
+
+def mnmg_path(dev, smi_line):
+    """BASELINE.md config 5 on the card.  (a) World size 1 over NCCL in
+    this process (the group made for the phase and destroyed after): the
+    nine self-tests; ``distributed.kmeans.fit`` on 10M x 256 rows ->
+    1,024 clusters (5 iterations, tol 0, k-means++) held to the same
+    Lloyd loop without comms from the same ++ centroids; ``distributed.
+    knn`` of the 1,000 queries at k 10 held to ``brute_force.knn`` on the
+    whole array; Kernel H at the fit's shape against plain; then the fit
+    and kNN at world size 1 on part (b)'s 2.5M rows.  (b) Two gloo ranks
+    on the card (1.25M rows each): the self-tests, the fit and the kNN,
+    equal to world size 1 on the same rows (ids tie-aware, centroids
+    within MNMG_CENTROID_ATOL, one iteration from the same centroids
+    within MNMG_ONE_ITER_ATOL), each rank's ids global; the backend, the
+    ops gloo ran on CUDA tensors and those it staged through the host,
+    each collective's ms.  Returns H's ``also_checked`` entry."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="raft_mnmg_")
+    try:
+        return mnmg_parts(dev, smi_line, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mnmg_parts(dev, smi_line, tmp):
+    """:func:`mnmg_path`'s two parts, their rendezvous files in ``tmp``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.cluster.kmeans import init_plus_plus
+    from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
+    from raft_tpu_torch.comms import CommsSession, launch
+    from raft_tpu_torch.distributed import kmeans as dist_kmeans
+    from raft_tpu_torch.neighbors import brute_force
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/a",
+                            world_size=1, rank=0)
+    try:
+        session = CommsSession(device=dev).init()
+        checks = self_tests(session)
+        print(f"MNMG (a): backend {session.backend}, world size 1; "
+              f"self-tests {json.dumps(checks)}", flush=True)
+        assert all(checks.values()), f"a comms self-test failed: {checks}"
+        X, Q = device_sift_like(MNMG_ROWS, MNMG_QUERIES, MNMG_DIM,
+                                MNMG_LATENT, NOISE, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = mnmg_run(session.worker_handle(seed=0), X, Q)
+        peak = peak_gb()
+        c, inertia, n_iter = a["fit"]
+        shape = (f"MNMG k-means (BASELINE config 5): {MNMG_ROWS:,} x "
+                 f"{MNMG_DIM} -> {MNMG_CLUSTERS:,}")
+        assert a["h_launches"] == MNMG_ITERS + 1, (
+            f"Kernel H launched {a['h_launches']} times in the fit, not "
+            f"{MNMG_ITERS + 1}")
+        assert c.shape == (MNMG_CLUSTERS, MNMG_DIM) and bool(
+            torch.isfinite(c).all()) and 0 < inertia < float("inf")
+        # the same ++ draw (a seed-0 handle's first), then the loop
+        # without comms
+        take = min(MNMG_ROWS, max(64 * MNMG_CLUSTERS, 16384))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c0 = init_plus_plus(DeviceResources(seed=0, device=dev), X[:take],
+                            MNMG_CLUSTERS).float()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = lloyd_plain(X, c0, MNMG_ITERS, 0.0)
+        torch.cuda.synchronize()
+        plain_loop_s = time.perf_counter() - t0
+        gap, rel = fit_agree("MNMG (a) fit", a["fit"], ref)
+        flips, flip_gap = label_flips(X, c, ref[0])
+        # one iteration from the same centroids: the sums' order only
+        one_it = KMeansParams(n_clusters=MNMG_CLUSTERS, max_iter=1, tol=0.0,
+                              init=InitMethod.Array)
+        c1, inertia1, n1 = dist_kmeans.fit(session.worker_handle(seed=0),
+                                           one_it, X, centroids=c0)
+        gap1, rel1 = fit_agree("MNMG (a) one iteration",
+                               (c1, float(inertia1), n1),
+                               lloyd_plain(X, c0, 1, 0.0),
+                               atol=MNMG_ONE_ITER_ATOL)
+        del c1
+        res = DeviceResources(seed=0, device=dev)
+        ref_d, ref_i = brute_force.knn(res, X, Q, K, metric=0)
+        same = knn_agree("MNMG (a) kNN", X, Q, *a["knn"], ref_d, ref_i)
+        knn_s = median(a["knn_ms"]) / 1e3
+        print(f"MNMG (a) {MNMG_ROWS:,} x {MNMG_DIM} -> {MNMG_CLUSTERS:,}: "
+              f"fit {a['fit_s']:.3f} s (k-means++ on {take:,} rows alone "
+              f"{init_s:.3f} s), n_iter {n_iter}, "
+              f"{n_iter / a['fit_s']:.3f} iterations/s "
+              f"({n_iter / max(a['fit_s'] - init_s, 1e-9):.3f} without the "
+              f"++ init), inertia {inertia:.6e}; Kernel H launches in the "
+              f"fit {a['h_launches']}; the loop without comms "
+              f"{plain_loop_s:.3f} s, centroids within {gap:.3g}, inertia "
+              f"within {rel:.3g} (relative; after one iteration "
+              f"{gap1:.3g} and {rel1:.3g}); final labels differ on "
+              f"{flips:,} of {MNMG_ROWS:,} rows, each within "
+              f"{flip_gap:.3g} (relative) of a distance tie between its "
+              f"two labels; kNN of {MNMG_QUERIES:,} at k "
+              f"{K}: ms {', '.join(f'{m:.2f}' for m in a['knn_ms'])}, QPS "
+              f"{MNMG_QUERIES / knn_s:.1f} (median), ids equal to "
+              f"brute_force.knn at {same:.6f}; peak device memory "
+              f"{peak:.2f} GB; nvidia-smi: {smi_line}", flush=True)
+        h_entry = check_kernel_h_mnmg(X, c, a["h_launches"], shape)
+        del X, Q, ref, ref_d, ref_i, c0, a
+        torch.cuda.empty_cache()
+
+        # world size 1 on part (b)'s rows, for (b) to equal
+        rows = MNMG_RANKS * MNMG_RANK_ROWS
+        Xb, Qb = device_sift_like(rows, MNMG_QUERIES, MNMG_DIM, MNMG_LATENT,
+                                  NOISE, dev)
+        one = mnmg_run(session.worker_handle(seed=0), Xb, Qb)
+        c0b = init_plus_plus(DeviceResources(seed=0, device=dev),
+                             Xb[:take], MNMG_CLUSTERS).float()
+        c1b, inertia1b, n1b = dist_kmeans.fit(session.worker_handle(seed=0),
+                                              one_it, Xb, centroids=c0b)
+        one_iter_b = (c1b, float(inertia1b), n1b)
+        session.destroy()
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    ranks = launch.spawn(mnmg_rank, MNMG_RANKS, f"{tmp}/b",
+                         backend="gloo",
+                         args=(rows, str(dev), c0b.cpu().numpy()),
+                         timeout_s=MNMG_RANK_TIMEOUT_S, collective_s=120)
+    spawn_s = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        assert all(out["checks"].values()), (
+            f"MNMG (b) rank {r}: a self-test failed: {out['checks']}")
+        assert out["h_launches"] == MNMG_ITERS + 1, (
+            f"MNMG (b) rank {r}: Kernel H launched {out['h_launches']}")
+        np.testing.assert_array_equal(out["fit"][0], ranks[0]["fit"][0])
+        np.testing.assert_array_equal(out["fit one"][0],
+                                      ranks[0]["fit one"][0])
+        np.testing.assert_array_equal(out["knn"][1], ranks[0]["knn"][1])
+    ours = ranks[0]
+    gap_b, rel_b = fit_agree(
+        "MNMG (b) fit", (torch.from_numpy(ours["fit"][0]).to(dev),
+                         *ours["fit"][1:]), one["fit"])
+    gap1_b, rel1_b = fit_agree(
+        "MNMG (b) one iteration", (torch.from_numpy(ours["fit one"][0])
+                                   .to(dev), *ours["fit one"][1:]),
+        one_iter_b, atol=MNMG_ONE_ITER_ATOL)
+    flips_b, flip_gap_b = label_flips(
+        Xb, torch.from_numpy(ours["fit"][0]).to(dev), one["fit"][0])
+    d_b = torch.from_numpy(ours["knn"][0]).to(dev)
+    i_b = torch.from_numpy(ours["knn"][1]).to(dev)
+    same_b = knn_agree("MNMG (b) kNN", Xb, Qb, d_b, i_b, *one["knn"])
+    half = (i_b >= MNMG_RANK_ROWS).float().mean()
+    assert 0 < float(half) < 1, "MNMG (b): the ids come from one shard"
+    iters = ours["fit"][2]
+    per_iter = {op: f"{sum(ms) / len(ms):.3f} ms x {len(ms)}"
+                for op, ms in ours["collective_ms"].items()}
+    print(f"MNMG (b) {MNMG_RANKS} ranks on cuda:0, {MNMG_RANK_ROWS:,} rows "
+          f"each ({rows:,} x {MNMG_DIM}): backend {ours['backend']}; ops "
+          f"used {ours['used']}, staged through the host {ours['staged']}, "
+          f"run by gloo on CUDA tensors "
+          f"{sorted(set(ours['used']) - set(ours['staged']))}; "
+          f"self-tests {json.dumps(ours['checks'])}; fit "
+          f"{ours['fit_s']:.3f} s ({iters / ours['fit_s']:.3f} "
+          f"iterations/s; world size 1 on the same rows {one['fit_s']:.3f} "
+          f"s), centroids within {gap_b:.3g} of world size 1, inertia "
+          f"within {rel_b:.3g} (after one iteration from the same "
+          f"centroids {gap1_b:.3g} and {rel1_b:.3g}); final labels differ "
+          f"on {flips_b:,} of {rows:,} rows, each within {flip_gap_b:.3g} "
+          f"(relative) of a distance tie between its two labels; "
+          f"collectives in the fit (mean ms a call x "
+          f"calls, {iters} iterations) {json.dumps(per_iter)}; kNN QPS "
+          f"{MNMG_QUERIES / (median(ours['knn_ms']) / 1e3):.1f} (world size "
+          f"1: {MNMG_QUERIES / (median(one['knn_ms']) / 1e3):.1f}), ids "
+          f"equal to world size 1 at {same_b:.6f}, "
+          f"{100 * float(half):.1f}% from rank 1's rows; peak device memory "
+          f"a rank {ours['peak_gb']:.2f} GB; ranks spawned and joined in "
+          f"{spawn_s:.1f} s; nvidia-smi: {smi_line}", flush=True)
+    return h_entry
+
+
 def main() -> int:
     import torch
 
@@ -6334,6 +6963,11 @@ def main() -> int:
     verify_timed("IVF-Flat nlist 4096", flat_indexes[1], smi_line)
     host_side_s += time.perf_counter() - t0
 
+    phase("select_k: the JAX package's tie order against torch.topk alone "
+          "on the card paths that call it")
+    select_k_card_route(dev, smi_line)
+    select_k_turns(res, index, flat_indexes[1], db, queries, sp, smi_line)
+
     phase("k-means at full width: 1M x 128 -> 1024 (BASELINE config 3)")
     row_h, a_kmeans = kmeans_path(db)
 
@@ -6410,6 +7044,13 @@ def main() -> int:
     print(f"deep-cagra-10m: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(deep_cagra)}; nvidia-smi: {smi_line}", flush=True)
 
+    phase("distributed: comms self-tests and MNMG k-means + kNN (BASELINE "
+          "config 5)")
+    t0 = time.perf_counter()
+    h_mnmg = mnmg_path(dev, smi_line)
+    print(f"distributed phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     phase("result")
     rows_cde[0]["also_checked"] += c_flag
     rows_cde[1]["also_checked"] += d_flag
@@ -6455,7 +7096,7 @@ def main() -> int:
           f"{json.dumps({str(k): v for k, v in rest_runs.items()})}",
           flush=True)
     row_g["also_checked"] = [g_deep, g_filtered, served_g]
-    row_h["also_checked"] += h_more + h_flat + h_deep
+    row_h["also_checked"] += h_more + h_flat + h_deep + [h_mnmg]
     row_hs["also_checked"] = [hs_cluster, hs_one, hs_deep]
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),

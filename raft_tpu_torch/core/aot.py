@@ -283,6 +283,7 @@ def _brute_force_program(p: Mapping, arrays) -> Callable:
 
     (db,) = arrays
     k, metric = int(p["k"]), int(p["metric"])
+    metric_arg = float(p.get("metric_arg", 2.0))
     handle = types.SimpleNamespace(device=db.device)
 
     def g(queries, words=None):
@@ -291,7 +292,8 @@ def _brute_force_program(p: Mapping, arrays) -> Callable:
         # trusted input: the server validated each request on the host
         with config.validation_policy("off"):
             return raw(brute_force.knn)(handle, db, queries, k,
-                                        metric=metric, filter=f)
+                                        metric=metric,
+                                        metric_arg=metric_arg, filter=f)
     return g
 
 

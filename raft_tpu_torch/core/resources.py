@@ -72,7 +72,9 @@ class DeviceResources(Resources):
     none raises :class:`~raft_tpu_torch.core.error.LogicError`.  Tests pass
     ``device="cpu"``, where every kernel wrapper runs its plain version.
     The registry holds the device and the generator under
-    ``resource_type.DEVICE`` and ``resource_type.RNG``.
+    ``resource_type.DEVICE`` and ``resource_type.RNG``, and a communicator
+    once one is injected (:meth:`set_comms`, as
+    ``comms.inject_comms_on_handle`` does).
     """
 
     def __init__(self, seed: int = 0, device="cuda") -> None:
@@ -90,3 +92,25 @@ class DeviceResources(Resources):
         self.add_resource_factory(resource_type.DEVICE, lambda: dev)
         generator = self.generator
         self.add_resource_factory(resource_type.RNG, lambda: generator)
+
+    # -- comms (reference: device_resources.hpp get_comms :209) -------------
+    def set_comms(self, comms: Any) -> None:
+        """Inject a communicator (reference: comms/std_comms.hpp inject
+        pattern)."""
+        self.add_resource_factory(resource_type.COMMUNICATOR, lambda: comms)
+
+    def get_comms(self) -> Any:
+        return self.get_resource(resource_type.COMMUNICATOR)
+
+    def comms_initialized(self) -> bool:
+        return self.has_resource_factory(resource_type.COMMUNICATOR)
+
+    def set_sub_comms(self, key: str, comms: Any) -> None:
+        """Register a sub-communicator by key (reference: sub_comms.hpp)."""
+        subs = self._resources.setdefault(resource_type.SUB_COMMUNICATOR, {})
+        subs[key] = comms
+
+    def get_sub_comms(self, key: str) -> Any:
+        subs = self._resources.get(resource_type.SUB_COMMUNICATOR, {})
+        expects(key in subs, f"no sub-communicator '{key}'")
+        return subs[key]

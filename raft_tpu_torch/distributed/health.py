@@ -1,0 +1,8 @@
+"""Stand-in for ``raft_tpu.distributed.health``: not ported yet.  Every
+public name raises ``NotImplementedError`` naming ROADMAP.md §1's
+'distributed (item 7)'."""
+
+from raft_tpu_torch.core.error import not_ported_getattr
+
+__getattr__ = not_ported_getattr("raft_tpu_torch.distributed.health",
+                                 "distributed (item 7)")

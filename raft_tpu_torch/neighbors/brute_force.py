@@ -5,9 +5,13 @@ Reference: raft/neighbors/brute_force.cuh:150 ``knn``.  Tiled over the
 database: each (n_queries, tile_n) distance block is one fp32 product, its
 local top-k merges into the running top-k, so peak memory is
 O(n_queries · tile_n).  Plain PyTorch; the JAX version has no Pallas
-kernel.  Metrics of this slice: the L2 family and InnerProduct.  The
-queries pass the boundary validator (:mod:`raft_tpu_torch.integrity.
-boundary`): under ``mask`` a non-finite query row returns the worst
+kernel.  Metrics: those :func:`~raft_tpu_torch.distance.pairwise_distance`
+computes (the L2 family, InnerProduct and CosineExpanded; the L2 family
+scored expanded); the others raise ``NotImplementedError``.  As in the JAX
+package, the running top-k starts as k slots of ``(worst, -1)`` and each
+tile keeps ``min(k, tile_n)``, so any ``tile_n`` works.  The queries
+pass the boundary validator (:mod:`raft_tpu_torch.integrity.boundary`):
+under ``mask`` a non-finite query row returns the worst
 distance and id -1.  ``filter=`` admits rows by GLOBAL id (after the
 ``global_id_offset`` shift, so one filter covers a row-partitioned id
 space); a query with fewer admitted rows than k gets ``(worst, -1)`` on
@@ -22,7 +26,7 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.outputs import auto_convert_output, raw
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.mdarray import as_tensor, ensure_tensor
 from raft_tpu_torch.core.tracing import range as named_range
 from raft_tpu_torch.distance.types import DistanceType, L2_METRICS, SQRT_METRICS
@@ -47,16 +51,31 @@ def _tile_admission(fw: torch.Tensor, gid0: int, n: int) -> torch.Tensor:
     return (bits > 0) & (gids < fw.shape[1] * BITS_PER_WORD)[None, :]
 
 
+def _tile_scores(metric, qf, q_sq, tile):
+    """The (nq, tile rows) distances of one tile at ``metric``."""
+    ip = qf @ tile.T
+    if metric == DistanceType.InnerProduct:
+        return ip
+    t_sq = (tile * tile).sum(1)
+    if metric == DistanceType.CosineExpanded:
+        denom = torch.sqrt(q_sq) * torch.sqrt(t_sq)[None, :]
+        return 1.0 - ip / torch.clamp_min(denom, 1e-30)
+    d = torch.clamp_min(q_sq + t_sq[None, :] - 2.0 * ip, 0.0)
+    return torch.sqrt(d) if metric in SQRT_METRICS else d
+
+
 @auto_convert_output
 def knn(res, database, queries, k: int, *,
-        metric: int = DistanceType.L2Unexpanded, global_id_offset: int = 0,
-        tile_n: int = _TILE_N, filter=None
+        metric: int = DistanceType.L2Unexpanded, metric_arg: float = 2.0,
+        global_id_offset: int = 0, tile_n: int = _TILE_N, filter=None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN of ``queries`` (q, d) in ``database`` (n, d): (distances
-    (q, k) f32, indices (q, k) int32), best first; ``global_id_offset``
-    shifts the returned ids.  ``filter`` (a :class:`~raft_tpu_torch.
-    filters.SampleFilter` or (q, n) bool mask) admits rows by global id;
-    slots with no admitted row left are ``(worst, -1)``."""
+    (q, k) f32, indices (q, k) int32), best first, equal distances in id
+    order; ``global_id_offset`` shifts the returned ids.  ``metric_arg``
+    is the Minkowski p of a metric not ported yet.  ``filter`` (a
+    :class:`~raft_tpu_torch.filters.SampleFilter` or (q, n) bool mask)
+    admits rows by global id; slots with no admitted row left are
+    ``(worst, -1)``."""
     with named_range("brute_force::knn"), precision.highest():
         database = ensure_tensor(database, res, "database")
         queries = ensure_tensor(queries, res, "queries")
@@ -64,9 +83,12 @@ def knn(res, database, queries, k: int, *,
                 and database.shape[1] == queries.shape[1],
                 "knn: (n,d) database and (q,d) queries required")
         expects(0 < k <= database.shape[0], "knn: need 0 < k <= n")
-        expects(tile_n >= k, "knn: tile_n must be at least k")
-        expects(metric in L2_METRICS or metric == DistanceType.InnerProduct,
-                "knn: L2 / InnerProduct metrics only in this port slice")
+        expects(tile_n > 0, "knn: tile_n must be positive")
+        metric = DistanceType(metric)
+        if not (metric in L2_METRICS or metric in (
+                DistanceType.InnerProduct, DistanceType.CosineExpanded)):
+            raise not_ported("brute_force.knn", f"metric {metric.name}",
+                             "the other pairwise metrics (item 15)")
         queries, ok_rows = boundary.check_matrix(
             queries, "queries", site="brute_force.knn",
             dim=database.shape[1])
@@ -77,36 +99,30 @@ def knn(res, database, queries, k: int, *,
             fw = words_on_device(fw, queries.device)
         qf = queries.float()
         q_sq = (qf * qf).sum(1, keepdim=True)
-        best_d = best_i = None
+        nq = queries.shape[0]
+        best_d = torch.full((nq, k), worst, dtype=torch.float32,
+                            device=qf.device)
+        best_i = torch.full((nq, k), -1, dtype=torch.int64, device=qf.device)
         for s in range(0, database.shape[0], tile_n):
             tile = database[s:s + tile_n].float()
-            ip = qf @ tile.T
-            if select_min:
-                d = torch.clamp_min(q_sq + (tile * tile).sum(1)[None, :]
-                                    - 2.0 * ip, 0.0)
-            else:
-                d = ip
+            d = _tile_scores(metric, qf, q_sq, tile)
             if fw is not None:
                 d = torch.where(_tile_admission(fw, global_id_offset + s,
                                                 tile.shape[0]),
                                 d, torch.full_like(d, worst))
             td, ti = raw(select_k)(d, min(k, tile.shape[0]),
-                              select_min=select_min)
-            ti = ti + s
-            if best_d is not None:
-                td = torch.cat([best_d, td], 1)
-                ti = torch.cat([best_i, ti], 1)
-                td, pos = raw(select_k)(td, k, select_min=select_min)
-                ti = torch.gather(ti, 1, pos)
-            best_d, best_i = td, ti
-        best_i = best_i + global_id_offset
+                                   select_min=select_min)
+            # the running entries first: on a tie they keep their place
+            best_d, pos = raw(select_k)(torch.cat([best_d, td], 1), k,
+                                        select_min=select_min)
+            best_i = torch.gather(torch.cat([best_i, ti + s], 1), 1, pos)
         if fw is not None:
             # a query can run out of admitted rows: the (worst, -1)
             # sentinel, never a positional id
             best_i = torch.where(best_d == worst, torch.full_like(best_i, -1),
                                  best_i)
-        if metric in SQRT_METRICS:
-            best_d = torch.sqrt(best_d)
+        # -1 marks a slot no row reached; keep it
+        best_i = torch.where(best_i >= 0, best_i + global_id_offset, best_i)
         return boundary.mask_search_outputs(
             best_d, best_i.int(), ok_rows, select_min=select_min)
 

@@ -50,6 +50,9 @@ from raft_tpu_torch.utils import precision
 
 # elements per chunk of the plain version's (rows, n) distance block
 _PLAIN_BLOCK = 1 << 26
+# elements of x whose squares the launch sums at once: ||x||² of a larger
+# x is summed a block of rows at a time, not through one (m, k) temporary
+_NORM_BLOCK = 1 << 28
 # k at or below: the small-dim kernel (csrc/fused_l2_nn.cu kSmallDim)
 SMALL_DIM = 16
 # an H100 block's dynamic shared memory
@@ -164,7 +167,8 @@ def _launch(kernel: str, x, y, sqrt: bool, warpgroups: int = 0):
     n = yf.shape[0]
     expects(m < 2 ** 31 and n < 2 ** 31, "fused_l2_nn: sizes must fit int32")
     xf, yf = xf.contiguous(), yf.contiguous()
-    x_sq = (xf * xf).sum(1)
+    x_sq = torch.cat([(b * b).sum(1)
+                      for b in xf.split(max(1, _NORM_BLOCK // k))])
     y_sq = (yf * yf).sum(1)
     dmin = torch.empty(m, dtype=torch.float32, device=xf.device)
     idx = torch.empty(m, dtype=torch.int32, device=xf.device)

@@ -18,7 +18,7 @@ RAFT-class deployment interposes between users and the card):
 - :mod:`~raft_tpu_torch.serving.executor` — bucket-warmed executors over
   IVF-PQ / IVF-Flat / CAGRA / brute force, each bucket a CUDA graph
   captured through ``core/aot`` (the sharded executor waits for
-  ``distributed/``);
+  ``distributed.ann``);
 - :mod:`~raft_tpu_torch.serving.server` — the ``Server`` front end:
   ``submit() -> Future``, boundary validation per request, serving
   counters + latency histograms at enqueue→dispatch→complete, plus the
@@ -45,7 +45,8 @@ RAFT-class deployment interposes between users and the card):
   checkpointed, gated compaction; ``recover()`` replays the WAL to
   bit-identical state after a kill at any boundary;
 - :mod:`~raft_tpu_torch.serving.dist_ingest` — the replicated write path
-  over routed indexes: a stand-in until ``distributed/`` is ported, as
+  over routed indexes: a stand-in until ``distributed.ann`` and
+  ``distributed.routing`` are ported, as
   are ``DistributedExecutor``, ``rebalance_routed`` and
   ``Server.refresh_routing``.
 

@@ -2470,3 +2470,49 @@ def test_ranges_reach_the_profiler_on_the_card(dev):
             (x * 2).sum()
         torch.cuda.synchronize()
     assert "raft_tpu:card 1" in {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.parametrize("length", [300, 1025, 5000, 70000, 1_000_000])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_select_k_on_the_card_breaks_ties_as_on_the_cpu(dev, length,
+                                                        select_min):
+    """``select_k`` on the card gives the CPU's answer, which the CPU tests
+    hold to ``lax.top_k``: ties, ±inf and ±0 included (no NaN: the card
+    takes one with its sign bit set as the largest).  Past the whole-row
+    sort it relies on ``torch.topk`` keeping the first of the k-th value's
+    ties it meets in the row, at every size (one block a row, and several
+    at the 1M rows)."""
+    from raft_tpu_torch.matrix import select_k
+
+    rng = np.random.default_rng(length)
+    b = 7 if length >= 70000 else 40
+    special = np.array([np.inf, -np.inf, 0.0, -0.0, 1.0, 2.0], np.float32)
+    rows = np.concatenate([
+        rng.integers(0, 3, size=(b, length)).astype(np.float32),
+        rng.choice(special, size=(b, length)),
+        np.zeros((1, length), np.float32),
+        np.where(rng.random((b, length)) < 0.001, 0.5,
+                 rng.random((b, length)) + 1).astype(np.float32),
+        rng.normal(size=(b, length)).astype(np.float32)])
+    x = torch.from_numpy(rows)
+    for k in (k for k in (1, 10, 100, 1000) if k <= length):
+        v, i = select_k(x.to(dev), k, select_min=select_min)
+        cv, ci = select_k(x, k, select_min=select_min)
+        assert torch.equal(i.cpu(), ci)
+        assert torch.equal(v.cpu().view(torch.int32), cv.view(torch.int32))
+
+
+def test_select_k_on_the_card_takes_a_negative_nan_as_the_largest(dev):
+    """The one difference from ``lax.top_k`` on the card: past the
+    whole-row sort, a NaN with its sign bit set sorts as the largest value
+    (``lax.top_k``, and ``select_k`` on the CPU, put it below -inf)."""
+    from raft_tpu_torch.matrix import select_k
+
+    x = torch.arange(2000, dtype=torch.float32)[None, :].repeat(2, 1)
+    x[:, 7] = -float("inf")
+    x.view(torch.int32)[:, 11] = -0x400000      # 0xFFC00000: a negative NaN
+    _, top = select_k(x.to(dev), 1, select_min=False)
+    _, low = select_k(x.to(dev), 1, select_min=True)
+    assert top.cpu().tolist() == [[11], [11]]
+    assert low.cpu().tolist() == [[7], [7]]
+    assert select_k(x, 1, select_min=True)[1].tolist() == [[11], [11]]

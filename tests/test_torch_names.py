@@ -14,7 +14,9 @@ the rest of IVF-PQ's ``neighbors.ivf_pq_helpers`` and the primitives'
 host-side subsystems' ``observability`` package and its seven modules,
 ``core.tracing``, ``core.logger``, ``integrity.verify`` and
 ``neighbors.delta``; the serving slice's ``serving`` package and its
-modules, and ``core.aot``)
+modules, and ``core.aot``; the comms slice's ``comms`` and
+``distributed`` packages, ``comms.comms``, ``comms.session``,
+``comms.self_test``, ``distributed.knn`` and ``distributed.kmeans``)
 resolves in ``raft_tpu_torch`` to the
 same kind of object (module, class, function, or a constant of the same
 type), or to a stand-in that raises ``NotImplementedError`` naming an
@@ -49,7 +51,7 @@ from raft_tpu_torch.utils import precision
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGES = ["", ".core", ".distance", ".cluster", ".matrix", ".neighbors",
             ".integrity", ".resilience", ".filters", ".random",
-            ".observability", ".serving"]
+            ".observability", ".serving", ".comms", ".distributed"]
 SHIPPED_MODULES = [".core.error", ".core.resources", ".core.mdarray",
                    ".utils.precision", ".matrix.ops", ".core.serialize",
                    ".core.interruptible", ".core.outputs", ".config",
@@ -67,7 +69,12 @@ SHIPPED_MODULES = [".core.error", ".core.resources", ".core.mdarray",
                    ".serving.admission", ".serving.batcher",
                    ".serving.brownout", ".serving.executor",
                    ".serving.server", ".serving.ingest", ".serving.shadow",
-                   ".serving.rebalancer", ".serving.dist_ingest"]
+                   ".serving.rebalancer", ".serving.dist_ingest",
+                   ".comms.comms", ".comms.session"]
+# shipped modules whose public names include the JAX package's
+# ``P = jax.sharding.PartitionSpec`` alias, which the port has no use for
+MESH_MODULES = [".comms.self_test", ".distributed.knn",
+                ".distributed.kmeans"]
 
 
 def _deferred_items():
@@ -240,6 +247,35 @@ def test_shipped_module_public_names_resolve(module):
                             "raft_tpu_torch" + module)
 
 
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_shipped_mesh_module_public_names_resolve(module):
+    """Each public name of a shipped reference module that runs on a mesh,
+    but its ``PartitionSpec`` alias ``P``, in the port's module."""
+    ref_mod = importlib.import_module("raft_tpu" + module)
+    port_mod = importlib.import_module("raft_tpu_torch" + module)
+    names = [n for n in _public(module) if n != "P"]
+    assert names
+    for name in names:
+        _assert_counterpart(getattr(ref_mod, name), port_mod, name,
+                            "raft_tpu_torch" + module)
+
+
+@pytest.mark.parametrize("module", ["ann", "routing", "health"])
+def test_distributed_stand_ins_name_item_7(module):
+    """``distributed.ann``, ``routing`` and ``health`` are stand-ins: each
+    public name of the reference module raises ``not_ported`` naming
+    'distributed (item 7)'."""
+    ref_mod = importlib.import_module("raft_tpu.distributed." + module)
+    port_mod = importlib.import_module("raft_tpu_torch.distributed." + module)
+    names = [n for n in _public(".distributed." + module) if n != "P"]
+    assert names
+    for name in names:
+        with pytest.raises(NotImplementedError,
+                           match=r"distributed \(item 7\)"):
+            getattr(port_mod, name)
+    assert getattr(ref_mod, names[0]) is not None
+
+
 def test_refine_and_select_k_are_the_functions():
     """As in the reference, the package attribute is the function, which
     shadows the submodule of the same name."""
@@ -287,6 +323,13 @@ from raft_tpu_torch.integrity import verify
 from raft_tpu_torch.neighbors import delta, ivf_pq
 assert obs.stage and obs.flight.dump and verify and delta.Memtable
 assert logger.Logger.get() and tracing.range and ivf_pq.build
+""",
+    # the comms slice: the communicator, then the algorithms over it
+    "distributed": """
+from raft_tpu_torch.comms import Comms, CommsSession, launch, self_test
+from raft_tpu_torch.distributed import kmeans, knn
+assert knn.knn and kmeans.fit and self_test.perform_test_comm_split
+assert launch.spawn and Comms.waitall and CommsSession.worker_handle
 """,
     "ops-first": """
 import raft_tpu_torch.ops.pq_group_scan
