@@ -342,7 +342,25 @@ Phases, in order; any failure raises and the script exits non-zero:
     the card paths that call ``select_k`` (brute force, refine, IVF-Flat
     search, the memtable merge) timed with its JAX tie order and with
     ``torch.topk`` alone, in turns.
-16. A JSON line with each kernel's route, source, launches, error, time
+16. Distributed by row (``bench.py bench_distributed``: 1,048,576 x 96
+    rows from a 32-d latent, IVF-PQ with 512 lists a shard, pq_dim 48, 5
+    k-means iterations, 32 probes, 1,000 queries at k 10; IVF-Flat with
+    512 lists a shard and CAGRA deg32 at itopk 64, width 2 on the same
+    rows): (a) world size 1 over NCCL in this process: ``distributed.ann``
+    ``build`` / ``build_flat`` / ``build_cagra``, then ``search`` at
+    ``auto`` (Kernel B) and ``recon`` (Kernel G), ``search_flat`` (Kernel
+    F) and ``search_cagra`` (Kernel I's walk), each kernel's launches
+    counted on its searches; every answer equal to the single-index
+    ``ivf_pq.search`` / ``ivf_flat.search`` / ``cagra.search`` (on the
+    table and entry set the sharded build attached) of the same shard (ids
+    equal, distances within 1e-4); B, G, F and I held to their plain
+    versions at these shapes (``also_checked``); (b) two gloo ranks on the
+    card, 524,288 rows each: every search equal to the host merge of the
+    ranks' single-index searches, shard 1 failed giving rank 0's answer
+    and status [1, 0], each index's recall@10 within 0.02 of part (a)'s
+    (and above 0.5); build seconds, QPS, recall@10 and the allgather's ms
+    a call for each part.
+17. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path (the
     pair-group pass's six rows, ``flat_pair_list_scan``,
@@ -6752,6 +6770,400 @@ def mnmg_parts(dev, smi_line, tmp):
     return h_entry
 
 
+# Phase 16, bench.py bench_distributed (bench.py:2531-2534, 2552-2558):
+# DIST_ROWS_PER_DEV rows a device on its 8 devices, dim 96 from a 32-d
+# latent (sift_like's generator), IVF-PQ with 512 lists a shard, pq_dim
+# 48 (DIST_DIM // 2) and 5 k-means iterations, n_probes 32, 1,000 queries
+# at k 10; none cut.  IVF-Flat (512 lists a shard, 32 probes) and CAGRA
+# (raft_cagra.deg32, itopk 64, width 2) on the same rows.  Part (a): the
+# whole 1,048,576 rows at world size 1 (NCCL); part (b): two gloo ranks on
+# the card, 524,288 rows each
+DIST_ROWS, DIST_DIM, DIST_LATENT = 131_072 * 8, 96, 32
+DIST_LISTS, DIST_PQ_DIM, DIST_ITERS = 512, 48, 5
+DIST_PROBES, DIST_QUERIES, DIST_RANKS = 32, 1_000, 2
+DIST_CAGRA_POINT = (64, 2)
+DIST_REPS = 3
+# part (b)'s recall may fall below part (a)'s by this much (each shard
+# probes 32 of its own 512 lists); below the floor a merge is broken
+DIST_RECALL_SLACK, DIST_RECALL_FLOOR = 0.02, 0.5
+DIST_ATOL = 1e-4
+DIST_RANK_TIMEOUT_S = 300
+# the kernel each search of the path runs, and the wrapper counting it
+DIST_KERNELS = {"IVF-PQ auto": "merge_pairs", "IVF-PQ recon": "list_scan",
+                "IVF-Flat": "flat_list_scan", "CAGRA": "cagra_walk"}
+
+
+def dist_build(h, X):
+    """The three by-row indexes over ``X`` through the handle's comms, and
+    each build's seconds."""
+    import torch
+    from raft_tpu_torch.distributed import ann
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+
+    builds = {
+        "IVF-PQ": lambda: ann.build(h, ivf_pq.IndexParams(
+            n_lists=DIST_LISTS, pq_dim=DIST_PQ_DIM,
+            kmeans_n_iters=DIST_ITERS), X),
+        "IVF-Flat": lambda: ann.build_flat(h, ivf_flat.IndexParams(
+            n_lists=DIST_LISTS), X),
+        "CAGRA": lambda: ann.build_cagra(h, cagra.IndexParams(
+            graph_degree=CAGRA_DEGREE,
+            intermediate_graph_degree=CAGRA_INTERMEDIATE), X)}
+    out, secs = {}, {}
+    for name, fn in builds.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    assert out["CAGRA"].use_walk, "distributed CAGRA: no walk table"
+    return out, secs
+
+
+def dist_searches(h, idx, Q):
+    """Each search of the path (IVF-PQ at ``auto`` and ``recon``, IVF-Flat,
+    CAGRA): a warm-up and DIST_REPS timed batches; the last result, the
+    ms, and the launches each search kind made."""
+    from raft_tpu_torch.distributed import ann
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+
+    itopk, width = DIST_CAGRA_POINT
+    calls = {
+        "IVF-PQ auto": lambda: ann.search(h, ivf_pq.SearchParams(
+            n_probes=DIST_PROBES), idx["IVF-PQ"], Q, K),
+        "IVF-PQ recon": lambda: ann.search(h, ivf_pq.SearchParams(
+            n_probes=DIST_PROBES, scan_mode="recon"), idx["IVF-PQ"], Q, K),
+        "IVF-Flat": lambda: ann.search_flat(h, ivf_flat.SearchParams(
+            n_probes=DIST_PROBES), idx["IVF-Flat"], Q, K),
+        "CAGRA": lambda: ann.search_cagra(h, cagra.SearchParams(
+            itopk_size=itopk, search_width=width), idx["CAGRA"], Q, K)}
+    out = {}
+    for name, fn in calls.items():
+        before = read_launches()
+        fn()
+        ms, res = timed_searches(fn, DIST_REPS)
+        after = read_launches()
+        out[name] = {"result": res, "ms": ms,
+                     "launches": {k: after[k] - before[k] for k in after
+                                  if after[k] != before[k]}}
+        assert out[name]["launches"].get(DIST_KERNELS[name], 0) > 0, (
+            f"distributed {name}: {DIST_KERNELS[name]} never launched")
+    return out
+
+
+def dist_singles(idx, Q):
+    """The single-index searches of this rank's shards at the path's
+    operating points, without refine: IVF-PQ at ``auto`` and ``recon``,
+    IVF-Flat (whose lists hold 512 slots or more here, so its search tiles
+    one list at a time, as the shard-local scan does), and CAGRA on the
+    walk table and entry set the sharded build attached to the shard (its
+    local ids shifted by the shard's offset)."""
+    import torch
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+
+    res = DeviceResources(seed=0, device=Q.device)
+    pq, flat = idx["IVF-PQ"].local, idx["IVF-Flat"].local
+    assert ivf_flat.super_tile_factor(flat.capacity, flat.n_lists,
+                                      DIST_PROBES)[0] == 1
+    graph = idx["CAGRA"]
+    itopk, width = DIST_CAGRA_POINT
+    d_c, i_c = cagra.search(res, cagra.SearchParams(
+        itopk_size=itopk, search_width=width), graph.local, Q, K)
+    offset = graph.rank * graph.local.size
+    return {"CAGRA": (d_c, torch.where(i_c >= 0, i_c + offset, i_c)),
+        "IVF-PQ auto": ivf_pq.search(res, ivf_pq.SearchParams(
+            n_probes=DIST_PROBES), pq, Q, K),
+        "IVF-PQ recon": ivf_pq.search(res, ivf_pq.SearchParams(
+            n_probes=DIST_PROBES, scan_mode="recon"), pq, Q, K),
+        "IVF-Flat": ivf_flat.search(res, ivf_flat.SearchParams(
+            n_probes=DIST_PROBES), flat, Q, K)}
+
+
+def allgather_ms(comms, nq, reps=20):
+    """Mean ms of one allgather of a (nq, k) candidate buffer (distances
+    and ids alternately), each call between device synchronises."""
+    import torch
+
+    d = torch.zeros(nq, K, device=comms.device)
+    i = torch.zeros(nq, K, dtype=torch.int32, device=comms.device)
+    ms = []
+    for r in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comms.allgather(d if r % 2 else i)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return sum(ms[1:]) / reps
+
+
+def same_answer(label, got, ref, atol=DIST_ATOL):
+    """(distances, ids) against a reference: ids equal, distances within
+    ``atol``; returns the largest distance gap."""
+    import numpy as np
+
+    d, i = (np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in got)
+    rd, ri = (np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in ref)
+    assert np.array_equal(i, ri), (
+        f"{label}: ids differ at {int((i != ri).sum())} ranks")
+    fin = np.isfinite(rd)
+    assert np.array_equal(fin, np.isfinite(d)), f"{label}: exhausted ranks"
+    gap = float(np.abs(d[fin] - rd[fin]).max()) if fin.any() else 0.0
+    assert gap <= atol, f"{label}: distances off by {gap}"
+    return gap
+
+
+def dist_host_merge(parts):
+    """The ranks' (distances, ids) merged on the host, each query's best
+    k by distance, ties in rank order (as the device merge breaks them)."""
+    import numpy as np
+
+    d = np.concatenate([p[0] for p in parts], 1)
+    i = np.concatenate([p[1] for p in parts], 1)
+    order = np.argsort(d, axis=1, kind="stable")[:, :K]
+    return np.take_along_axis(d, order, 1), np.take_along_axis(i, order, 1)
+
+
+def dist_kernel_checks(idx, Q, walks, launches):
+    """Kernels B, G, F and I held to their plain versions at the shapes the
+    distributed path gave them at world size 1 (the shard's index, its
+    1,000 queries x 32 probes at k 10; the walk captured from the CAGRA
+    search): one ``also_checked`` entry each, with the path's launches."""
+    from raft_tpu_torch.neighbors.ivf_flat import _select_clusters
+    from raft_tpu_torch.ops import pair_scan as ps
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    pq = idx["IVF-PQ"].local
+    qrot = Q.float() @ pq.rotation
+    probes = _select_clusters(pq.centers, qrot, DIST_PROBES, pq.metric)
+    nq, rot = Q.shape[0], pq.rot_dim
+    kt = min(K, pq.capacity)
+    base = (qrot, pq.centers, probes, pq.list_recon, pq.list_recon_sq,
+            pq.list_indices)
+    b, g = check_scans(pq, qrot, probes, [
+        ("ivf_pq_scan_fused", "pq_list_scan.cu",
+         "raft_tpu/ops/pq_group_scan_pallas.py:410", pgs.ivf_pq_scan_fused,
+         pgs.ivf_pq_scan_fused_plain, base + (K, kt), recon_rows_of(pq),
+         pq.list_recon_sq, None, rot * 2 + 8, 0, nq * K * 8, rot),
+        ("ivf_pq_scan_recon", "pq_list_scan.cu",
+         "raft_tpu/ops/pq_group_scan_pallas.py:566", ps.ivf_pq_scan_recon,
+         ps.ivf_pq_scan_recon_plain, base + (kt,), recon_rows_of(pq),
+         pq.list_recon_sq, None, rot * 2 + 8, 0,
+         nq * DIST_PROBES * kt * 8, rot)])
+    f = check_kernel_f(idx["IVF-Flat"].local, Q, DIST_PROBES, K,
+                       "distributed IVF-Flat at world size 1")
+    itopk, width = DIST_CAGRA_POINT
+    key = (nq, itopk, width, CAGRA_DEGREE)
+    shape = (f"distributed by row at world size 1: {nq:,} queries, itopk "
+             f"{itopk}, width {width}, deg {CAGRA_DEGREE}, "
+             f"{DIST_ROWS:,} x {DIST_DIM}")
+    walk = check_kernel_walk(*walks.kept[key], shape)
+    where = (f"distributed by row at world size 1: {DIST_ROWS:,} x "
+             f"{DIST_DIM}, {DIST_LISTS} lists, capacity {pq.capacity}, "
+             f"{nq:,} queries x {DIST_PROBES} probes, k {K}")
+    return {
+        "B": at_shape(b, where + f", kt {kt}",
+                      launches["IVF-PQ auto"]["merge_pairs"]),
+        "G": at_shape(g, where + f" (recon), kt {kt}",
+                      launches["IVF-PQ recon"]["list_scan"]),
+        "F": at_shape(f, f"distributed IVF-Flat by row at world size 1: "
+                      f"{DIST_ROWS:,} x {DIST_DIM}, {DIST_LISTS} lists, "
+                      f"{nq:,} queries x {DIST_PROBES} probes, k {K}, "
+                      f"F {f['F']}", launches["IVF-Flat"]["flat_list_scan"]),
+        "I": at_shape(walk, shape, launches["CAGRA"]["cagra_walk"])}
+
+
+def dist_summary(label, secs, runs, truth, ag_ms, smi_line):
+    """Print each index's build seconds, QPS of a batch, recall@10 and the
+    path's launches; returns the recalls."""
+    import torch
+
+    recalls = {}
+    for name, run in runs.items():
+        ids = run["result"][1]
+        ids = torch.as_tensor(ids).to(truth.device)
+        recalls[name] = recall_at(ids, truth)
+        assert recalls[name] >= DIST_RECALL_FLOOR, (
+            f"{label} {name}: recall@10 {recalls[name]} below "
+            f"{DIST_RECALL_FLOOR}")
+    print(f"{label}: build s {json.dumps({k: round(v, 3) for k, v in secs.items()})}; "
+          + "; ".join(
+              f"{name} QPS {DIST_QUERIES / (median(run['ms']) / 1e3):.1f} "
+              f"(ms {', '.join(f'{m:.2f}' for m in run['ms'])}), recall@10 "
+              f"{recalls[name]:.4f}, launches {json.dumps(run['launches'])}"
+              for name, run in runs.items())
+          + f"; allgather of a ({DIST_QUERIES:,}, {K}) buffer "
+          f"{ag_ms:.3f} ms a call; nvidia-smi: {smi_line}", flush=True)
+    return recalls
+
+
+def dist_rank(rank, world, path, q, device):
+    """Part (b)'s rank: on ``device`` beside the other rank, over the gloo
+    default group the launcher made; the whole ``path`` array memory-mapped
+    (each rank moves its own rows to the card).  The path's builds and
+    searches (launches zeroed before, read after), this rank's
+    single-index searches, a search with shard 1 failed, the allgather's
+    ms.  Returns plain values for the parent."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.comms import CommsSession
+    from raft_tpu_torch.distributed import ann
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import _cuda
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    _cuda.library()                      # the parent built it: a load
+    session = CommsSession(device=dev).init()
+    h = session.worker_handle(seed=0)
+    X = np.load(path, mmap_mode="r")
+    Q = torch.from_numpy(q).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    idx, secs = dist_build(h, X)
+    runs = dist_searches(h, idx, Q)
+    launches = read_launches()
+
+    def host(out):
+        return tuple(t.cpu().numpy() for t in out)
+
+    singles = {name: host(out) for name, out in dist_singles(idx, Q).items()}
+    failed = ann.search(h, ivf_pq.SearchParams(n_probes=DIST_PROBES),
+                        idx["IVF-PQ"], Q, K, failed_shards=[1],
+                        return_status=True)
+    return {"backend": session.backend, "build_s": secs,
+            "runs": {name: dict(run, result=host(run["result"]))
+                     for name, run in runs.items()},
+            "launches": launches, "singles": singles,
+            "failed": host(failed), "allgather_ms": allgather_ms(
+                session.comms(), DIST_QUERIES),
+            "rows": (idx["IVF-PQ"].rank * (DIST_ROWS // world),
+                     idx["IVF-PQ"].local.capacity),
+            "peak_gb": peak_gb()}
+
+
+def dist_path(dev, smi_line):
+    """Phase 16: ``distributed.ann`` by row at bench_distributed's
+    configuration.  (a) World size 1 over NCCL in this process: the three
+    builds; IVF-PQ at ``auto`` (Kernel B) and ``recon`` (Kernel G) equal
+    to ``ivf_pq``'s single-index search of the same shard at the same
+    operating point (ids equal, distances within DIST_ATOL), IVF-Flat
+    (Kernel F) to ``ivf_flat.search``'s, CAGRA's walk (Kernel I) to
+    ``cagra.search``'s on the same table; each kernel held to its plain
+    version at the path's shape.  (b) Two gloo
+    ranks on the card: every search equal to the host merge of the ranks'
+    single-index searches, shard 1 failed giving rank 0's answer with
+    status [1, 0], each recall@10 within DIST_RECALL_SLACK of part (a)'s.
+    Returns B, G, F and I's ``also_checked`` entries."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="raft_dist_")
+    try:
+        return dist_parts(dev, smi_line, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dist_parts(dev, smi_line, tmp):
+    """:func:`dist_path`'s two parts, their files in ``tmp``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.comms import CommsSession, launch
+    from raft_tpu_torch.neighbors import brute_force
+
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    X, Q = sift_like(DIST_ROWS, DIST_QUERIES, DIST_DIM, DIST_LATENT, NOISE,
+                     dev)
+    truth = brute_force.knn(DeviceResources(seed=0, device=dev), X, Q,
+                            K)[1]
+    np.save(f"{tmp}/x.npy", X.cpu().numpy())
+    data_s = time.perf_counter() - t0
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/a",
+                            world_size=1, rank=0)
+    try:
+        session = CommsSession(device=dev).init()
+        h = session.worker_handle(seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        idx, secs = dist_build(h, X)
+        with WalkCapture() as walks:
+            runs = dist_searches(h, idx, Q)
+        launches = read_launches()
+        peak = peak_gb()
+        singles = dist_singles(idx, Q)
+        gaps = {name: same_answer(f"distributed (a) {name}",
+                                  runs[name]["result"], singles[name])
+                for name in runs}
+        ag_ms = allgather_ms(session.comms(), DIST_QUERIES)
+        print(f"distributed (a): backend {session.backend}, world size 1, "
+              f"{DIST_ROWS:,} x {DIST_DIM} (data and exact truth "
+              f"{data_s:.1f} s); IVF-PQ capacity "
+              f"{idx['IVF-PQ'].local.capacity}; the path's launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+              f"equal to the single-index searches (ids equal, largest "
+              f"distance gap {json.dumps(gaps)}); peak device memory "
+              f"{peak:.2f} GB", flush=True)
+        recall_a = dist_summary("distributed (a)", secs, runs, truth, ag_ms,
+                                smi_line)
+        entries = dist_kernel_checks(idx, Q, walks, {
+            name: run["launches"] for name, run in runs.items()})
+        session.destroy()
+        del idx, runs, singles, walks
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    ranks = launch.spawn(dist_rank, DIST_RANKS, f"{tmp}/b", backend="gloo",
+                         args=(f"{tmp}/x.npy", Q.cpu().numpy(), str(dev)),
+                         timeout_s=DIST_RANK_TIMEOUT_S, collective_s=120)
+    spawn_s = time.perf_counter() - t0
+    per = DIST_ROWS // DIST_RANKS
+    for r, out in enumerate(ranks):
+        assert out["rows"][0] == r * per, f"distributed (b) rank {r}: rows"
+        for name, run in out["runs"].items():
+            for a, b in zip(run["result"], ranks[0]["runs"][name]["result"]):
+                np.testing.assert_array_equal(a, b)
+    ours = ranks[0]
+    for name in ours["runs"]:
+        same_answer(f"distributed (b) {name} against the host merge",
+                    ours["runs"][name]["result"],
+                    dist_host_merge([out["singles"][name] for out in ranks]))
+    d_f, i_f, status = ours["failed"]
+    assert status.tolist() == [1, 0], f"failed shard status {status}"
+    assert (i_f < per).all(), "distributed (b): an id of the failed shard"
+    same_answer("distributed (b) shard 1 failed", (d_f, i_f),
+                ranks[0]["singles"]["IVF-PQ auto"])
+    runs_b = {name: dict(run, result=tuple(torch.from_numpy(a)
+                                           for a in run["result"]))
+              for name, run in ours["runs"].items()}
+    recall_b = dist_summary(
+        f"distributed (b) {DIST_RANKS} gloo ranks on cuda:0, {per:,} rows "
+        f"each", ours["build_s"], runs_b, truth, ours["allgather_ms"],
+        smi_line)
+    for name in recall_a:
+        assert recall_b[name] >= recall_a[name] - DIST_RECALL_SLACK, (
+            f"distributed (b) {name}: recall@10 {recall_b[name]} against "
+            f"{recall_a[name]} at world size 1")
+    share = float((ours["runs"]["IVF-PQ auto"]["result"][1] >= per).mean())
+    assert 0 < share < 1, "distributed (b): the ids come from one shard"
+    print(f"distributed (b): backend {ours['backend']}; every rank's answer "
+          f"equal; IVF-PQ auto / recon, IVF-Flat and CAGRA equal to the host "
+          f"merge of the ranks' single-index searches; shard 1 failed: status "
+          f"{status.tolist()}, rank 0's answer; {100 * share:.1f}% of the "
+          f"ids from rank 1's rows; recall@10 (b) against (a) "
+          f"{json.dumps({k: [round(recall_b[k], 4), round(recall_a[k], 4)] for k in recall_a})}; "
+          f"peak device memory a rank {ours['peak_gb']:.2f} GB; ranks "
+          f"spawned and joined in {spawn_s:.1f} s; nvidia-smi: {smi_line}",
+          flush=True)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -7051,6 +7463,14 @@ def main() -> int:
     print(f"distributed phase: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    phase("distributed by row: sharded IVF-PQ, IVF-Flat and CAGRA "
+          "(bench.py bench_distributed)")
+    t0 = time.perf_counter()
+    by_row = dist_path(dev, smi_line)
+    print(f"distributed by-row phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
     phase("result")
     rows_cde[0]["also_checked"] += c_flag
     rows_cde[1]["also_checked"] += d_flag
@@ -7068,6 +7488,7 @@ def main() -> int:
         f_row, f"filtered, 50% per query: nlist 4096, {N_QUERIES:,} queries "
         f"x {FLAT_CHECK_PROBES} probes, k {K}, F {f_row['F']}",
         flat_runs["50% per query"][2]["flat_list_scan"]))
+    row_f["also_checked"].append(by_row["F"])
     # the pair-group pass's rows: their main entry the unfiltered k-100
     # batch (a path of its own: launches zeroed before it and read after),
     # its launches and the check on that batch's own scan inputs; the
@@ -7090,19 +7511,19 @@ def main() -> int:
     row_walk["also_checked"].append(at_shape(
         walk_f, f"filtered, 50% per query: {N_QUERIES:,} queries, itopk 64, "
         f"width 2, deg {CAGRA_DEGREE}", walk_launches["cagra_walk"]))
-    row_walk["also_checked"] += rest_walks + deep_walks
+    row_walk["also_checked"] += rest_walks + deep_walks + [by_row["I"]]
     row_i["also_checked"] += rest_hops
     print(f"CAGRA runs past the walk table and past 256: "
           f"{json.dumps({str(k): v for k, v in rest_runs.items()})}",
           flush=True)
-    row_g["also_checked"] = [g_deep, g_filtered, served_g]
+    row_g["also_checked"] = [g_deep, g_filtered, served_g, by_row["G"]]
     row_h["also_checked"] += h_more + h_flat + h_deep + [h_mnmg]
     row_hs["also_checked"] = [hs_cluster, hs_one, hs_deep]
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["merge_pairs"],
                  pass1_launches=launches["list_scan"],
-                 also_checked=[b_deep, b_filtered, served_b])] + \
+                 also_checked=[b_deep, b_filtered, served_b, by_row["B"]])] + \
         rows_cde + [
                      row_f, row_g, row_fp, row_gp, row_bp, *rows_cde_pair,
                      row_h, row_hs, row_i, row_walk] + \

@@ -150,10 +150,21 @@ def health_check(res, index, *, raise_on_fail: bool = True
         return None
     with obs.stage("integrity.health_check"):
         rec = measure(res, index, cs)
+    return _verdict(rec, cs.floor, cs.n_queries, cs.k, cs.build_recall,
+                    raise_on_fail)
+
+
+def _verdict(rec: float, floor: float, n_queries: int, k: int,
+             build_recall: float, raise_on_fail: bool) -> CanaryReport:
+    """Judge a measured canary recall against its floor: the check and
+    failure counters, the ``integrity.canary_failure`` flight event and,
+    with ``raise_on_fail``, the :class:`IntegrityError` of a floor
+    violation.  Shared with the sharded indexes' ``health_check``, which
+    judges every shard's measurement on every rank."""
     if obs.enabled():
         obs.registry().counter("integrity.canary.checks").inc()
-    report = CanaryReport(recall=rec, floor=cs.floor,
-                          n_queries=cs.n_queries, k=cs.k)
+    report = CanaryReport(recall=rec, floor=floor, n_queries=n_queries,
+                          k=k)
     if not report.ok:
         if obs.enabled():
             obs.registry().counter("integrity.canary.failures").inc()
@@ -161,13 +172,13 @@ def health_check(res, index, *, raise_on_fail: bool = True
         # rollback or a serving error
         from raft_tpu_torch.observability import flight as _flight
         _flight.record_event("integrity.canary_failure",
-                             recall=rec, floor=cs.floor,
-                             n_queries=cs.n_queries, k=cs.k)
+                             recall=rec, floor=floor,
+                             n_queries=n_queries, k=k)
         if raise_on_fail:
             raise IntegrityError(
-                f"canary recall {rec:.3f} below floor {cs.floor:.3f} "
-                f"({cs.n_queries} sentinels, k={cs.k}; build-time recall "
-                f"was {cs.build_recall:.3f})",
+                f"canary recall {rec:.3f} below floor {floor:.3f} "
+                f"({n_queries} sentinels, k={k}; build-time recall "
+                f"was {build_recall:.3f})",
                 invariant="canary.recall_floor")
     return report
 

@@ -329,8 +329,11 @@ def straggler_delays(n_shards: int) -> Tuple[float, ...]:
 
 
 def pause(seconds: float) -> None:
-    """Host-side pause for an injected straggler wait."""
+    """Host-side pause for an injected straggler wait; a positive wait
+    ticks ``resilience.fault.delayed.distributed.straggler``, as in the
+    JAX package."""
     if seconds > 0.0:
+        _count_delayed("distributed.straggler")
         _sleep(seconds)
 
 

@@ -16,7 +16,8 @@ host-side subsystems' ``observability`` package and its seven modules,
 ``neighbors.delta``; the serving slice's ``serving`` package and its
 modules, and ``core.aot``; the comms slice's ``comms`` and
 ``distributed`` packages, ``comms.comms``, ``comms.session``,
-``comms.self_test``, ``distributed.knn`` and ``distributed.kmeans``)
+``comms.self_test``, ``distributed.knn`` and ``distributed.kmeans``;
+the by-row slice's ``distributed.ann`` and ``distributed.health``)
 resolves in ``raft_tpu_torch`` to the
 same kind of object (module, class, function, or a constant of the same
 type), or to a stand-in that raises ``NotImplementedError`` naming an
@@ -74,7 +75,8 @@ SHIPPED_MODULES = [".core.error", ".core.resources", ".core.mdarray",
 # shipped modules whose public names include the JAX package's
 # ``P = jax.sharding.PartitionSpec`` alias, which the port has no use for
 MESH_MODULES = [".comms.self_test", ".distributed.knn",
-                ".distributed.kmeans"]
+                ".distributed.kmeans", ".distributed.ann",
+                ".distributed.health"]
 
 
 def _deferred_items():
@@ -260,20 +262,39 @@ def test_shipped_mesh_module_public_names_resolve(module):
                             "raft_tpu_torch" + module)
 
 
+# the names of 7b-ii, still stand-ins: ann's routed placement, all of
+# routing, and the readmission of a routed shard (None: every public name)
+ITEM_7_NAMES = {
+    "ann": ["Placement", "compute_placement", "placement_to_stream",
+            "placement_from_stream", "RoutedIndex", "shard_by_list",
+            "route_vectors", "rebalance_placement", "serialize_routed",
+            "deserialize_routed"],
+    "routing": None,
+    "health": ["catch_up", "readmit"],
+}
+
+
 @pytest.mark.parametrize("module", ["ann", "routing", "health"])
 def test_distributed_stand_ins_name_item_7(module):
-    """``distributed.ann``, ``routing`` and ``health`` are stand-ins: each
-    public name of the reference module raises ``not_ported`` naming
-    'distributed (item 7)'."""
+    """The names of ``distributed.ann``, ``routing`` and ``health`` still
+    deferred (the routed placement, all of ``routing``, ``catch_up`` and
+    ``readmit``) raise ``not_ported`` naming 'distributed (item 7)' when
+    called (or, for a stub module, when read); ``ann.build`` refuses
+    ``placement="by_list"`` the same way."""
     ref_mod = importlib.import_module("raft_tpu.distributed." + module)
     port_mod = importlib.import_module("raft_tpu_torch.distributed." + module)
-    names = [n for n in _public(".distributed." + module) if n != "P"]
-    assert names
+    names = ITEM_7_NAMES[module] or [
+        n for n in _public(".distributed." + module) if n != "P"]
+    assert names and set(names) <= set(_public(".distributed." + module))
     for name in names:
         with pytest.raises(NotImplementedError,
                            match=r"distributed \(item 7\)"):
-            getattr(port_mod, name)
+            getattr(port_mod, name)()
     assert getattr(ref_mod, names[0]) is not None
+    if module == "ann":
+        with pytest.raises(NotImplementedError,
+                           match=r"distributed \(item 7\)"):
+            port_mod.build(None, None, None, placement="by_list")
 
 
 def test_refine_and_select_k_are_the_functions():
