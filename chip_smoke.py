@@ -360,7 +360,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     and status [1, 0], each index's recall@10 within 0.02 of part (a)'s
     (and above 0.5); build seconds, QPS, recall@10 and the allgather's ms
     a call for each part.
-17. A JSON line with each kernel's route, source, launches, error, time
+17. Distributed, routed (``bench.py bench_distributed``'s routed
+    configuration: phase 16's rows, IVF-PQ with 512 GLOBAL lists, pq_dim
+    48, 5 iterations, the recon cache, 32 probes, 1,000 queries at k 10):
+    (a) world size 1 over NCCL: ``build(placement="by_list")`` end to end;
+    the routed ``recon`` (Kernel G) and ``fused`` (Kernel C) searches of
+    the base's routed index, ``fused`` without the code leaves (Kernel B)
+    and at k 100 (C past kt 64), each equal to ``ivf_pq.search`` of the
+    base at the same form (ids equal, distances within 1e-4); B, G and C
+    held to their plain versions on rank 0's probes of a 4-shard
+    placement, three in four of them sentinels (``also_checked``); (b)
+    four gloo ranks on the card, each loading the base and placing its
+    lists at r = 1 and r = 2: every answer equal to the single-index
+    search (ids equal or at a tie), alike on every rank, every rank's
+    probe set equal; shard 0 failed at r = 2 bit-identical with status 3,
+    at r = 1 degraded (its recall printed); a hedged straggler (10x the
+    median search, the median its deadline) bit-identical, its p99 below
+    the delay; catch-up and readmission of shard 2 through a stub server;
+    the routed stream equal on every rank and read back; the most-scanned
+    shard within 1.5x the probed rows / 4; build and placement seconds,
+    QPS, the failover QPS, the hedged p99, the allgather's ms.
+18. A JSON line with each kernel's route, source, launches, error, time
     (CUDA events), plain-version time, bound and yardstick library call
     (null where none computes the product) on its main path (the
     pair-group pass's six rows, ``flat_pair_list_scan``,
@@ -976,12 +996,15 @@ def scan_bound(index, probes, row_bytes, extra_bytes, out_bytes, rot):
 
     nq = probes.shape[0]
     sizes = index.list_sizes.long()
-    probed = torch.unique(probes.long())
+    # a probe outside [0, n_lists) (a routed rank's sentinel) reads nothing
+    pl = probes.long()
+    pl = pl[(pl >= 0) & (pl < index.n_lists)]
+    probed = torch.unique(pl)
     nbytes = (nq * index.rot_dim * 4 + probes.numel() * 4
               + probed.numel() * index.rot_dim * 4
               + int(sizes[probed].sum()) * row_bytes + extra_bytes
               + out_bytes)
-    flops = 2.0 * rot * int(sizes[probes.long()].sum())
+    flops = 2.0 * rot * int(sizes[pl].sum())
     ms, by = bound(nbytes, flops)
     return ms, by, nbytes, flops
 
@@ -7164,6 +7187,459 @@ def dist_parts(dev, smi_line, tmp):
     return entries
 
 
+# Phase 17, bench.py bench_distributed's routed configuration (bench.py:
+# 2531-2534, 2586-2636): phase 16's rows, IVF-PQ with 512 GLOBAL lists,
+# pq_dim 48, 5 k-means iterations and the recon cache, 32 probes, 1,000
+# queries at k 10, no refine; none cut.  Part (a): world size 1 over NCCL;
+# part (b): four gloo ranks sharing the card, each loading the base the
+# parent built and placing its lists at r = 1 and r = 2
+ROUTED_RANKS = 4
+ROUTED_WIDE_K = 100           # C past kt 64: the pair-group pass + merge
+ROUTED_HEDGE_SEARCHES = 20
+ROUTED_TRIPWIRE = 1.5         # the JAX package's most-scanned-shard bound
+ROUTED_RANK_TIMEOUT_S = 300
+
+
+class StubServer:
+    """What readmission publishes through: anything with ``swap_index``."""
+
+    def __init__(self):
+        self.swapped = []
+
+    def swap_index(self, index):
+        self.swapped.append(index)
+
+
+def routed_same(label, got, ref, atol=DIST_ATOL):
+    """(distances, ids) against a reference: distances within ``atol`` at
+    every rank, ids equal or at a distance tie (``ties_only``); returns
+    the share of equal ids."""
+    import torch
+
+    d, i = (torch.as_tensor(x).cpu() for x in got[:2])
+    rd, ri = (torch.as_tensor(x).cpu() for x in ref[:2])
+    fin = torch.isfinite(rd)
+    assert torch.equal(fin, torch.isfinite(d)), f"{label}: exhausted ranks"
+    gap = float((d[fin] - rd[fin]).abs().max()) if bool(fin.any()) else 0.0
+    assert gap <= atol, f"{label}: distances off by {gap}"
+    assert ties_only(d, i, ri, atol), f"{label}: ids differ off ties"
+    return float((i == ri).float().mean())
+
+
+def routed_bit_equal(label, got, ref):
+    import numpy as np
+
+    for a, b in zip(got[:2], ref[:2]):
+        assert np.array_equal(np.asarray(a), np.asarray(b)), (
+            f"{label}: not bit-identical")
+
+
+def routed_part(base, rank):
+    """Rank ``rank``'s part of ``base`` under a ROUTED_RANKS-shard LPT
+    placement at r = 1 (what ``shard_by_list`` gives that rank), and the
+    path's probes of ``Q`` as that rank scans them: its own lists at their
+    local slots, every other probe the out-of-range sentinel."""
+    from raft_tpu_torch.distributed import ann
+    from raft_tpu_torch.neighbors import ivf_pq, mutate
+
+    ivf_pq._with_code_rsq(base)
+    p = ann.compute_placement(
+        mutate.live_sizes(base.list_indices).cpu().numpy(), ROUTED_RANKS)
+    return ann._place_lists(
+        rank, (base.list_recon, base.list_recon_sq, base.list_indices,
+               base.list_sizes), base.centers.float(), base.rotation.float(),
+        p, base.metric, int(base.list_sizes.sum()),
+        code_leaves=(base.codebooks.float(), base.list_codes,
+                     base.list_code_rsq), pq_bits=base.pq_bits)
+
+
+def routed_kernel_checks(base, Q):
+    """Kernels B, G and C (k 10 and, past kt 64, k ROUTED_WIDE_K) held to
+    their plain versions on rank 0's part of the 4-shard placement and its
+    probes, about three in four of them sentinels; one row each."""
+    from raft_tpu_torch.distributed import ann
+    from raft_tpu_torch.ops import pair_scan as ps
+    from raft_tpu_torch.ops import pq_code_scan as pcs
+    from raft_tpu_torch.ops import pq_group_scan as pgs
+
+    part = routed_part(base, 0)
+    local = part.local
+    qrot, probes = ann._routed_probes(part, Q, DIST_PROBES)
+    lp, owned = ann._local_probes(part, ann._Route(()), probes)
+    assert int((lp >= local.n_lists).sum()) > 0, "no sentinel probe"
+    nq, rot, W = Q.shape[0], local.rot_dim, local.code_width
+    cap, books = local.capacity, local.codebooks
+    kt = min(K, cap)
+    recon = (qrot, local.centers, lp, local.list_recon,
+             local.list_recon_sq, local.list_indices)
+    codes = (qrot, local.centers, lp, local.list_codes, books,
+             local.list_code_rsq, local.list_indices, local.pq_bits)
+
+    def decoded(slot):
+        return pcs.decode_codes(local.list_codes.reshape(-1, W)[slot], books,
+                                local.pq_bits).float()
+
+    def c_spec(k):
+        route = pcs.codes_fused_route(cap, rot, local.pq_dim, local.pq_bits,
+                                      k, min(k, cap))[0]
+        return ("ivf_pq_scan_codes_fused",
+                {"list": "pq_code_list_scan.cu", "pair": "pair_list_scan.cu",
+                 "query": "pq_code_scan.cu"}[route],
+                "raft_tpu/ops/pq_code_scan_pallas.py:282",
+                pcs.ivf_pq_scan_codes_fused, pcs.ivf_pq_scan_codes_fused_plain,
+                codes + (k, min(k, cap)), decoded, local.list_code_rsq, None,
+                W + 8, 2 * books.numel(), nq * k * 8, rot)
+
+    rows = check_scans(local, qrot, lp, [
+        ("ivf_pq_scan_fused", "pq_list_scan.cu",
+         "raft_tpu/ops/pq_group_scan_pallas.py:410", pgs.ivf_pq_scan_fused,
+         pgs.ivf_pq_scan_fused_plain, recon + (K, kt), recon_rows_of(local),
+         local.list_recon_sq, None, rot * 2 + 8, 0, nq * K * 8, rot),
+        ("ivf_pq_scan_recon", "pq_list_scan.cu",
+         "raft_tpu/ops/pq_group_scan_pallas.py:566", ps.ivf_pq_scan_recon,
+         ps.ivf_pq_scan_recon_plain, recon + (kt,), recon_rows_of(local),
+         local.list_recon_sq, None, rot * 2 + 8, 0,
+         nq * DIST_PROBES * kt * 8, rot),
+        c_spec(K), c_spec(ROUTED_WIDE_K)])
+    where = (f"routed, rank 0 of {ROUTED_RANKS} (r = 1): {DIST_ROWS:,} x "
+             f"{DIST_DIM}, {local.n_lists - 1} of {DIST_LISTS} lists, "
+             f"capacity {cap:,}, {nq:,} queries x {DIST_PROBES} probes, "
+             f"{int(owned.sum()):,} of {lp.numel():,} pairs owned (the rest "
+             f"sentinels)")
+    return dict(zip(("B", "G", "C", "C wide"), rows)), where
+
+
+def routed_rank(rank, world, base_path, q, device):
+    """Part (b)'s rank: on ``device`` beside the other ranks, over the gloo
+    default group the launcher made.  Loads the parent's base, places its
+    lists at r = 1 and r = 2 (launches zeroed before, read after the
+    healthy searches), then failover, a hedged straggler, catch-up and
+    readmission of shard 2, and a serialize / deserialize round trip.
+    Returns plain values for the parent."""
+    import hashlib
+    import io
+
+    import numpy as np
+    import torch
+    from raft_tpu_torch.comms import CommsSession
+    from raft_tpu_torch.distributed import ann, health
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import _cuda
+    from raft_tpu_torch.resilience import faults
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    _cuda.library()                      # the parent built it: a load
+    session = CommsSession(device=dev).init()
+    h = session.worker_handle(seed=0)
+    with open(base_path, "rb") as f:
+        base = ivf_pq.deserialize(h, f)
+    Q = torch.from_numpy(q).to(dev)
+
+    def host(out):
+        return tuple(t.cpu().numpy() if torch.is_tensor(t) else t
+                     for t in out)
+
+    def sp(mode="fused"):
+        return ivf_pq.SearchParams(n_probes=DIST_PROBES, scan_mode=mode)
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = {r: ann.shard_by_list(h, base, replication_factor=r)
+           for r in (1, 2)}
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    del base
+    torch.cuda.empty_cache()
+    runs = {}
+    for r in (1, 2):
+        for mode in ("recon", "fused"):
+            def fn(r=r, mode=mode):
+                return ann.search(h, sp(mode), idx[r], Q, K,
+                                  return_status=True, return_stats=True)
+            fn()
+            ms, out = timed_searches(fn, DIST_REPS)
+            runs[f"r{r} {mode}"] = {"result": host(out[:3]), "ms": ms,
+                                    "stats": out[3]}
+    launches = read_launches()
+    probes = ann._routed_probes(idx[1], Q, DIST_PROBES)[1]
+    out = {"runs": runs, "launches": launches, "place_s": place_s,
+           "probes": hashlib.sha256(probes.cpu().numpy().tobytes())
+           .hexdigest(),
+           "allgather_ms": allgather_ms(session.comms(), DIST_QUERIES)}
+    # shard 0 failed: covered at r = 2, degraded at r = 1
+    for r in (1, 2):
+        def failed(r=r):
+            return ann.search(h, sp(), idx[r], Q, K, failed_shards=[0],
+                              return_status=True)
+        failed()
+        ms, res = timed_searches(failed, DIST_REPS)
+        out[f"failover r{r}"] = {"result": host(res), "ms": ms}
+    # a hedged straggler: shard 1 scripted 10x the median search, the
+    # shard deadline the median (rank 0's, on every rank)
+    ms, _ = timed_searches(lambda: ann.search(h, sp(), idx[2], Q, K), 5)
+    t_med = float(session.comms().bcast(torch.tensor(
+        [median(ms) / 1e3], dtype=torch.float64), root=0)[0])
+    deadline = max(t_med, 1e-3)
+    plan = faults.FaultPlan(seed=17).straggle_shard(1, delay=10.0 * t_med)
+    with plan.active():
+        lat, res = timed_searches(lambda: ann.search(
+            h, sp(), idx[2], Q, K, shard_deadline_s=deadline,
+            return_status=True), ROUTED_HEDGE_SEARCHES)
+    out["hedged"] = {"result": host(res), "ms": lat, "median_s": t_med,
+                     "delay_s": 10.0 * t_med, "deadline_s": deadline}
+    # catch-up and canary-gated readmission of shard 2
+    tr = health.HealthTracker(ROUTED_RANKS, health.HealthConfig(
+        suspect_after=1, fail_after=1, ok_to_clear=1))
+    tr.note_timeout(2)
+    tr.note_timeout(2)
+    srv = StubServer()
+    caught = health.catch_up(h, idx[2], 2, tracker=tr)
+    ok = health.readmit(h, srv, caught, 2, tracker=tr)
+    out["readmit"] = (ok, tr.state(2), len(srv.swapped),
+                      caught.placement.generation
+                      - idx[2].placement.generation,
+                      host(ann.search(h, sp(), srv.swapped[-1], Q, K))
+                      if srv.swapped else None)
+    # the routed stream: the same bytes on every rank, read back
+    buf = io.BytesIO()
+    ann.serialize_routed(h, buf, idx[2])
+    back = ann.deserialize_routed(h, io.BytesIO(buf.getvalue()))
+    out["stream"] = (hashlib.sha256(buf.getvalue()).hexdigest(),
+                     len(buf.getvalue()),
+                     host(ann.search(h, sp(), back, Q, K)),
+                     host(ann.search(h, sp("recon"), back, Q, K)))
+    out["peak_gb"] = peak_gb()
+    session.destroy()
+    return out
+
+
+def routed_path(dev, smi_line):
+    """Phase 17: ``distributed.ann``'s routed placement at
+    bench_distributed's routed configuration.  (a) World size 1 over NCCL
+    in this process: ``build(placement="by_list")`` end to end; the
+    routed ``recon`` (Kernel G) and ``fused`` (Kernel C) searches of the
+    base's routed index equal to ``ivf_pq.search`` of the base at the
+    same form (ids equal, distances within DIST_ATOL); ``fused`` without
+    the code leaves (Kernel B) and at k ROUTED_WIDE_K (C past kt 64) held
+    the same way; B, G and C held to their plain versions on a rank's
+    probes with sentinels.  (b) ROUTED_RANKS gloo ranks on the card at r =
+    1 and r = 2: the healthy answers equal to the single-index searches
+    (ids equal or at a tie) and alike on every rank, every rank's probe
+    set equal; r = 2 with shard 0 failed bit-identical with status 3, r =
+    1 degraded; a hedged straggler's answer bit-identical, its p99 below
+    the scripted delay; catch-up + readmit of shard 2; the stream round
+    trip; the scanned-rows tripwire.  Returns the kernels' ``also_checked``
+    entries (B, G, C, C past kt 64)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="raft_routed_")
+    try:
+        return routed_parts(dev, smi_line, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def routed_parts(dev, smi_line, tmp):
+    """:func:`routed_path`'s two parts, their files in ``tmp``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from raft_tpu_torch import DeviceResources
+    from raft_tpu_torch.comms import CommsSession, launch
+    from raft_tpu_torch.distributed import ann
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq
+
+    torch.cuda.set_device(dev)
+    X, Q = sift_like(DIST_ROWS, DIST_QUERIES, DIST_DIM, DIST_LATENT, NOISE,
+                     dev)
+    res = DeviceResources(seed=0, device=dev)
+    truth = brute_force.knn(res, X, Q, K)[1]
+    params = ivf_pq.IndexParams(n_lists=DIST_LISTS, pq_dim=DIST_PQ_DIM,
+                                kmeans_n_iters=DIST_ITERS,
+                                cache_reconstructions=True)
+
+    def sp(mode, **kw):
+        return ivf_pq.SearchParams(n_probes=DIST_PROBES, scan_mode=mode,
+                                   **kw)
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/a",
+                            world_size=1, rank=0)
+    try:
+        session = CommsSession(device=dev).init()
+        h = session.worker_handle(seed=0)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = ann.build(h, params, X, placement="by_list")
+        runs = {}
+        for mode in ("recon", "fused"):
+            def fn(mode=mode):
+                return ann.search(h, sp(mode), built, Q, K,
+                                  return_status=True, return_stats=True)
+            if mode == "recon":
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+            fn()
+            ms, out = timed_searches(fn, DIST_REPS)
+            runs[mode] = {"result": out, "ms": ms}
+        launches = read_launches()
+        for name in ("kmeans_assign_update", "list_scan", "code_list_scan",
+                     "merge_pairs"):
+            assert launches[name] > 0, (
+                f"routed (a): {name} never launched on the path")
+        assert runs["fused"]["result"][3]["scan_mode"] == "fused_codes"
+        assert runs["recon"]["result"][3]["scan_mode"] == "recon"
+        recalls = {m: recall_at(torch.as_tensor(r["result"][1]).to(dev),
+                                truth) for m, r in runs.items()}
+        for m, rec in recalls.items():
+            assert rec >= DIST_RECALL_FLOOR, f"routed (a) {m}: {rec}"
+        del built
+        torch.cuda.empty_cache()
+        # the base the ranks load, and its routed index here
+        base = ivf_pq.build(DeviceResources(seed=0, device=dev), params, X)
+        with open(f"{tmp}/base.bin", "wb") as f:
+            ivf_pq.serialize(res, f, base)
+        routed = ann.shard_by_list(h, base)
+        singles = {m: ivf_pq.search(res, sp(m), base, Q, K)
+                   for m in ("recon", "fused", "auto")}
+        singles["wide"] = ivf_pq.search(res, sp("fused"), base, Q,
+                                        ROUTED_WIDE_K)
+        gaps = {}
+        for m in ("recon", "fused"):
+            got = ann.search(h, sp(m), routed, Q, K)
+            gaps[m] = same_answer(f"routed (a) {m}", got, singles[m])
+        # no code leaves (a v1 stream's index): fused runs Kernel B
+        recon_only = dataclasses.replace(
+            routed, local=dataclasses.replace(
+                routed.local, codebooks=None, list_codes=None,
+                list_code_rsq=None))
+        zero_launches()
+        got = ann.search(h, sp("fused"), recon_only, Q, K,
+                         return_stats=True)
+        b_launches = read_launches()
+        assert got[2]["scan_mode"] == "fused_recon", got[2]["scan_mode"]
+        assert b_launches["code_list_scan"] == 0 < b_launches["list_scan"]
+        gaps["fused, no code leaves (B)"] = same_answer(
+            "routed (a) fused without code leaves", got[:2],
+            singles["auto"])
+        zero_launches()
+        got = ann.search(h, sp("fused"), routed, Q, ROUTED_WIDE_K)
+        wide_launches = read_launches()
+        assert wide_launches["code_pair_list_scan"] > 0, (
+            "routed (a) k 100: C's pair-group pass never launched")
+        gaps[f"fused k {ROUTED_WIDE_K}"] = same_answer(
+            f"routed (a) fused k {ROUTED_WIDE_K}", got, singles["wide"])
+        ag_ms = allgather_ms(session.comms(), DIST_QUERIES)
+        print(f"routed (a): backend {session.backend}, world size 1, "
+              f"{DIST_ROWS:,} x {DIST_DIM}, {DIST_LISTS} global lists, "
+              f"capacity {routed.capacity:,}; build(placement='by_list') "
+              f"{build_s:.3f} s; QPS of {DIST_QUERIES:,} q: "
+              + ", ".join(f"{m} {DIST_QUERIES / (median(r['ms']) / 1e3):.1f}"
+                          f" (ms {', '.join(f'{x:.2f}' for x in r['ms'])}, "
+                          f"recall@10 {recalls[m]:.4f})"
+                          for m, r in runs.items())
+              + f"; the path's launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+              f"equal to ivf_pq.search of the base at the same form (ids "
+              f"equal, largest distance gap {json.dumps(gaps)}); NCCL "
+              f"allgather of a ({DIST_QUERIES:,}, {K}) buffer {ag_ms:.3f} "
+              f"ms; nvidia-smi: {smi_line}", flush=True)
+        checked, where = routed_kernel_checks(base, Q)
+        singles = {m: tuple(t.cpu() for t in out)
+                   for m, out in singles.items()}
+        session.destroy()
+        del routed, recon_only, base, X
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    ranks = launch.spawn(routed_rank, ROUTED_RANKS, f"{tmp}/b",
+                         backend="gloo",
+                         args=(f"{tmp}/base.bin", Q.cpu().numpy(), str(dev)),
+                         timeout_s=ROUTED_RANK_TIMEOUT_S, collective_s=120)
+    spawn_s = time.perf_counter() - t0
+    ours = ranks[0]
+    for r, out in enumerate(ranks):
+        assert out["probes"] == ours["probes"], f"rank {r}: probe set"
+        assert out["stream"][0] == ours["stream"][0], f"rank {r}: stream"
+        for name, run in out["runs"].items():
+            routed_bit_equal(f"routed (b) rank {r} {name}", run["result"],
+                             ours["runs"][name]["result"])
+    same = {}
+    for name, run in ours["runs"].items():
+        mode = name.split()[1]
+        same[name] = routed_same(f"routed (b) {name}", run["result"],
+                                 singles[mode])
+        assert run["result"][2].tolist() == [1] * ROUTED_RANKS, name
+        scanned = run["stats"]["scanned_rows"]
+        probed = int(scanned.sum())
+        assert scanned.max() <= ROUTED_TRIPWIRE * probed / ROUTED_RANKS, (
+            f"routed (b) {name}: scanned rows {scanned.tolist()}")
+    healthy = ours["runs"]["r2 fused"]["result"]
+    covered = ours["failover r2"]["result"]
+    routed_bit_equal("routed (b) r2, shard 0 failed", covered, healthy)
+    assert covered[2].tolist() == [3, 1, 1, 1], covered[2]
+    degraded = ours["failover r1"]["result"]
+    assert degraded[2].tolist() == [0, 1, 1, 1], degraded[2]
+    ids_h = torch.as_tensor(ours["runs"]["r1 fused"]["result"][1])
+    degraded_recall = recall_at(torch.as_tensor(degraded[1]), ids_h)
+    hedged = ours["hedged"]
+    routed_bit_equal("routed (b) hedged straggler", hedged["result"],
+                     healthy)
+    assert hedged["result"][2].tolist() == [1, 3, 1, 1], hedged["result"][2]
+    p99 = float(np.percentile(hedged["ms"], 99))
+    assert p99 < 1e3 * hedged["delay_s"], (
+        f"hedged p99 {p99} ms against the scripted {hedged['delay_s']} s")
+    ok, state, swapped, placement_bump, published = ours["readmit"]
+    assert (ok, state, swapped, placement_bump) == (True, "HEALTHY", 1, 1)
+    routed_bit_equal("routed (b) readmitted", published, healthy)
+    routed_bit_equal("routed (b) stream", ours["stream"][2], healthy)
+    routed_bit_equal("routed (b) stream recon", ours["stream"][3],
+                     ours["runs"]["r2 recon"]["result"])
+
+    def qps(ms):
+        return DIST_QUERIES / (median(ms) / 1e3)
+
+    print(f"routed (b): {ROUTED_RANKS} gloo ranks on {dev}; every rank's "
+          f"answers and probe set equal; placed in "
+          f"{ours['place_s']:.3f} s (r = 1 and 2); QPS "
+          + ", ".join(f"{name} {qps(run['ms']):.1f}"
+                      for name, run in ours["runs"].items())
+          + f"; shard 0 failed: r2 {qps(ours['failover r2']['ms']):.1f} QPS "
+          f"bit-identical with status {covered[2].tolist()}, r1 "
+          f"{qps(ours['failover r1']['ms']):.1f} QPS at recall@10 "
+          f"{degraded_recall:.4f} against the healthy answer; hedged "
+          f"straggler (delay {1e3 * hedged['delay_s']:.2f} ms, deadline "
+          f"{1e3 * hedged['deadline_s']:.2f} ms): p99 {p99:.2f} ms, median "
+          f"{median(hedged['ms']):.2f} ms, bit-identical; readmitted shard "
+          f"2; stream {ours['stream'][1]:,} bytes, equal on every rank; "
+          f"ids equal to the single-index searches at "
+          f"{json.dumps({k: round(v, 5) for k, v in same.items()})} (the "
+          f"rest at ties); scanned rows per shard "
+          f"{json.dumps({k: v['stats']['scanned_rows'].tolist() for k, v in ours['runs'].items()})}; "
+          f"gloo allgather {ours['allgather_ms']:.3f} ms; peak device memory "
+          f"a rank {ours['peak_gb']:.2f} GB; ranks spawned and joined in "
+          f"{spawn_s:.1f} s; nvidia-smi: {smi_line}", flush=True)
+    launches_b = ours["launches"]
+    return {
+        "B": at_shape(checked["B"], where + f", k {K}, kt {K} (no code "
+                      f"leaves; launches at world size 1)",
+                      b_launches["merge_pairs"]),
+        "G": at_shape(checked["G"], where + f" (recon), kt {K}",
+                      launches_b["list_scan"]),
+        "C": at_shape(checked["C"], where + f", k {K}, kt {K}",
+                      launches_b["code_list_scan"]),
+        "C wide": at_shape(checked["C wide"], where + f", k = kt = "
+                           f"{ROUTED_WIDE_K} (launches at world size 1)",
+                           wide_launches["code_pair_list_scan"])}
+
+
 def main() -> int:
     import torch
 
@@ -7471,8 +7947,18 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
 
+    phase("distributed, routed: index-parallel IVF-PQ with replicas, "
+          "failover, hedged reads and readmission (bench.py "
+          "bench_distributed)")
+    t0 = time.perf_counter()
+    routed = routed_path(dev, smi_line)
+    print(f"distributed routed phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
     phase("result")
-    rows_cde[0]["also_checked"] += c_flag
+    rows_cde[0]["also_checked"] += c_flag + [routed["C"]]
+    rows_cde_pair[0]["also_checked"].append(routed["C wide"])
     rows_cde[1]["also_checked"] += d_flag
     half_launches = pq_runs["50% per query"][2]
     b_f, g_f = pq_rows
@@ -7516,14 +8002,16 @@ def main() -> int:
     print(f"CAGRA runs past the walk table and past 256: "
           f"{json.dumps({str(k): v for k, v in rest_runs.items()})}",
           flush=True)
-    row_g["also_checked"] = [g_deep, g_filtered, served_g, by_row["G"]]
+    row_g["also_checked"] = [g_deep, g_filtered, served_g, by_row["G"],
+                             routed["G"]]
     row_h["also_checked"] += h_more + h_flat + h_deep + [h_mnmg]
     row_hs["also_checked"] = [hs_cluster, hs_one, hs_deep]
     rows = [dict(row_a, launches=launches["kmeans_assign_update"],
                  also_checked=a_deep + a_flat + [a_kmeans]),
             dict(row_b, launches=launches["merge_pairs"],
                  pass1_launches=launches["list_scan"],
-                 also_checked=[b_deep, b_filtered, served_b, by_row["B"]])] + \
+                 also_checked=[b_deep, b_filtered, served_b, by_row["B"],
+                               routed["B"]])] + \
         rows_cde + [
                      row_f, row_g, row_fp, row_gp, row_bp, *rows_cde_pair,
                      row_h, row_hs, row_i, row_walk] + \

@@ -24,9 +24,12 @@ in the same order (the fault plan, seeded alike on every rank, gives each
 the same straggler schedule; the canary reports are allgathered), so the
 ranks' trackers stay identical and every rank computes the same failed set.
 
-:func:`catch_up` and :func:`readmit` rebuild and readmit a shard of the
-routed index, which is not ported yet: they are stand-ins naming ROADMAP.md
-§1's 'distributed (item 7)'.
+Readmission is anti-entropy catch-up: :func:`catch_up` rebuilds the
+routed index with the recovering shard's lists from the live replicas
+(the gathered global lists are the authoritative state) under **one**
+placement-generation bump; :func:`readmit` canary-gates the caught-up
+index and installs it through ``server.swap_index``.  Both are
+collective over the ranks (the gather, the canary search).
 """
 
 from __future__ import annotations
@@ -37,8 +40,10 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from raft_tpu_torch import observability as obs
-from raft_tpu_torch.core.error import expects, not_ported_stub
+from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.neighbors import mutate as _mutate
 from raft_tpu_torch.observability import flight as _flight
+from raft_tpu_torch.resilience import faults
 
 #: shard lifecycle states (strings, as in the JAX package: they appear
 #: verbatim in flight-event attrs, stats dicts and test assertions)
@@ -289,7 +294,68 @@ class HealthTracker:
                     "transitions": dict(self._transitions)}
 
 
-catch_up = not_ported_stub("distributed.health", "catch_up",
-                           "distributed (item 7)")
-readmit = not_ported_stub("distributed.health", "readmit",
-                          "distributed (item 7)")
+# ---------------------------------------------------------------------------
+# anti-entropy readmission
+
+
+def catch_up(handle, index, shard: int, *,
+             tracker: Optional[HealthTracker] = None,
+             stale=None, ingest=None):
+    """Anti-entropy catch-up for recovering ``shard`` of a routed index:
+    its lists rebuilt from the live index (whose replicas hold every list
+    the shard owned) and the index re-placed under **one**
+    placement-generation bump (:func:`~raft_tpu_torch.distributed.ann.
+    rebalance_placement`, collective).  Returns the caught-up
+    :class:`~raft_tpu_torch.distributed.ann.RoutedIndex`, not yet
+    published: route it through :func:`readmit`.
+
+    ``stale`` (the snapshot the shard went down holding, if kept) feeds
+    the ``generation_delta`` of the ``distributed.health.catch_up``
+    event.  ``ingest`` (the distributed write path's WAL replay) is not
+    ported yet."""
+    from raft_tpu_torch.distributed import ann
+    if ingest is not None:
+        raise not_ported("distributed.health.catch_up", "ingest=",
+                         "distributed (item 7)")
+    expects(index.placement is not None,
+            "health.catch_up: index carries no placement map")
+    faults.maybe_fail("distributed.catch_up")
+    delta = _mutate.generation(index) - (
+        _mutate.generation(stale) if stale is not None else
+        _mutate.generation(index))
+    if tracker is not None:
+        tracker.begin_catch_up(shard, generation_delta=delta)
+    placement = dataclasses.replace(
+        index.placement, generation=index.placement.generation + 1)
+    # one generation bump: the gathered global lists (replicas hold the
+    # dead shard's) re-placed under the bumped placement, the index
+    # stamped with its next generation
+    return ann.rebalance_placement(handle, index, placement=placement)
+
+
+def readmit(handle, server, index, shard: int, *,
+            tracker: Optional[HealthTracker] = None) -> bool:
+    """Canary-gated readmission: health-check the caught-up ``index``
+    (collective); on pass publish it through ``server.swap_index`` (any
+    object with that method) and move the tracker CATCHING_UP -> HEALTHY.
+    On a canary failure the shard goes back to FAILED
+    (``distributed.health.readmit_blocked``) and nothing is published.
+    Returns True when routing resumed."""
+    from raft_tpu_torch.distributed import ann
+    faults.maybe_fail("distributed.swap")
+    reports = ann.health_check(handle, index, raise_on_fail=False,
+                               health=None)
+    ok = all(r is None or r.ok for r in (reports or []))
+    if not ok:
+        if tracker is not None:
+            tracker.block_readmit(shard, reason="canary")
+        else:
+            _emit("distributed.health.readmit_blocked", shard=int(shard),
+                  reason="canary")
+        return False
+    server.swap_index(index)
+    if tracker is not None:
+        tracker.readmit(shard)
+    else:
+        _emit("distributed.health.readmitted", shard=int(shard))
+    return True

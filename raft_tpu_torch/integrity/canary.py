@@ -107,16 +107,28 @@ def _search_canaries(res, index, cs: CanarySet, filter=None) -> np.ndarray:
     elif isinstance(index, cagra.Index):
         _, ids = raw(cagra.search)(res, cagra.SearchParams(), index, q,
                                    cs.k, filter=filter)
+    elif type(index).__name__ == "RoutedIndex":
+        # a rank of the routed distributed index (imported here: integrity
+        # must not pull the comms fabric in); ``res`` is the rank's worker
+        # handle, and the search is collective
+        from raft_tpu_torch.distributed import ann as _dann
+        p = ivf_pq.SearchParams(n_probes=min(32, index.n_lists))
+        _, ids = _dann.search(res, p, index, q, cs.k, filter=filter)
     else:
         raise TypeError(
             f"health_check: unsupported index type {type(index).__name__}")
     return ids.cpu().numpy()
 
 
-def _deleted_ids(index) -> frozenset:
+def _deleted_ids(index, res=None, among=None) -> frozenset:
     """Deleted source ids (:func:`raft_tpu_torch.neighbors.mutate.
     deleted_ids`: a graph index's ``deleted_ids``, else the tombstones of
-    ``list_indices`` whose id has no live copy in another slot)."""
+    ``list_indices`` whose id has no live copy in another slot).  A routed
+    rank holds only its own lists: there the ids of ``among`` deleted in
+    the whole index, one collective over ``res``'s ranks."""
+    if type(index).__name__ == "RoutedIndex":
+        from raft_tpu_torch.distributed import ann as _dann
+        return _dann._deleted_among(res, index, among)
     from raft_tpu_torch.neighbors.mutate import deleted_ids
 
     return deleted_ids(index)
@@ -130,7 +142,7 @@ def measure(res, index, cs: CanarySet, *, filter=None) -> float:
     an index whose every ground-truth id was deleted measures 1.0.
     ``filter`` goes to the sentinel search."""
     found = _search_canaries(res, index, cs, filter=filter)
-    dropped = _deleted_ids(index)
+    dropped = _deleted_ids(index, res, cs.gt_ids)
     hits = total = 0
     for f, t in zip(found, cs.gt_ids):
         gt = set(t.tolist()) - dropped if dropped else set(t.tolist())

@@ -227,7 +227,10 @@ class Index:
     zero-padded to a multiple of 16 bytes, ``list_recon_scale``
     (n_lists,) f32 and ``list_recon_i8_sq`` (n_lists, capacity) f32 for
     the int8 scan.  ``list_code_lanes`` (the TPU's lane-major code words)
-    stays None: the port's kernels read ``list_codes`` as it is."""
+    stays None: the port's kernels read ``list_codes`` as it is.  A routed
+    shard's local index (:class:`raft_tpu_torch.distributed.ann.
+    RoutedIndex`) may hold the recon cache alone, ``codebooks`` and
+    ``list_codes`` None: only the recon scans run on it."""
 
     centers: torch.Tensor
     codebooks: torch.Tensor
@@ -280,7 +283,9 @@ class Index:
 
     @property
     def capacity(self) -> int:
-        return self.list_codes.shape[1]
+        # list_indices, not list_codes: a routed shard's local index may
+        # carry the recon cache alone (no codes)
+        return self.list_indices.shape[1]
 
     @property
     def size(self) -> int:

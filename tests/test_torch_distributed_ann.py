@@ -433,12 +433,20 @@ def _jax_error(case, h, x):
                                              replication_factor=2),
         "placement": lambda: jax_ann.build(h, params, x,
                                            placement="by_grid"),
+        "by_list recon": lambda: jax_ann.build(
+            h, jax_ivf_pq.IndexParams(cache_reconstructions=False,
+                                      **ranks.PQ_PARAMS), x,
+            placement="by_list"),
+        "by_list lists": lambda: jax_ann.build(
+            h, jax_ivf_pq.IndexParams(**dict(ranks.PQ_PARAMS, n_lists=1)),
+            x, placement="by_list"),
     }
     return ranks._error(JAX, calls[case])
 
 
 @pytest.mark.parametrize("case", ["uneven", "uneven flat", "replication",
-                                  "placement"])
+                                  "placement", "by_list recon",
+                                  "by_list lists"])
 def test_build_errors_are_the_jax_errors(runs, jax_built, case):
     h = jax_built[4]["h"]
     expected = _jax_error(case, h, DATA[4]["x"])
@@ -448,7 +456,14 @@ def test_build_errors_are_the_jax_errors(runs, jax_built, case):
 
 
 def test_by_list_names_item_7(runs):
-    """The routed placement is a stand-in naming its ROADMAP item."""
-    err = _ours(runs, 4, "builds")["errors"]["by_list"]
-    assert err.startswith("NotImplementedError") and (
-        "distributed (item 7)" in err)
+    """``build(placement="by_list")`` is no longer a stand-in naming its
+    ROADMAP item: every rank holds its part of one routed index, under
+    the same placement, and answers alike."""
+    first = _ours(runs, 4, "builds")["by_list"]
+    assert first[:2] == ("RoutedIndex", 4)
+    assert sorted(set(first[2].tolist())) == [0, 1, 2, 3]
+    for r in runs:
+        got = r[4]["builds"]["by_list"]
+        np.testing.assert_array_equal(got[2], first[2])
+        for a, b in zip(got[3], first[3]):
+            np.testing.assert_array_equal(a, b)

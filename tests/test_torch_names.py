@@ -17,7 +17,8 @@ host-side subsystems' ``observability`` package and its seven modules,
 modules, and ``core.aot``; the comms slice's ``comms`` and
 ``distributed`` packages, ``comms.comms``, ``comms.session``,
 ``comms.self_test``, ``distributed.knn`` and ``distributed.kmeans``;
-the by-row slice's ``distributed.ann`` and ``distributed.health``)
+the by-row slice's ``distributed.ann`` and ``distributed.health``; the
+routed slice's ``distributed.routing``)
 resolves in ``raft_tpu_torch`` to the
 same kind of object (module, class, function, or a constant of the same
 type), or to a stand-in that raises ``NotImplementedError`` naming an
@@ -76,7 +77,7 @@ SHIPPED_MODULES = [".core.error", ".core.resources", ".core.mdarray",
 # ``P = jax.sharding.PartitionSpec`` alias, which the port has no use for
 MESH_MODULES = [".comms.self_test", ".distributed.knn",
                 ".distributed.kmeans", ".distributed.ann",
-                ".distributed.health"]
+                ".distributed.health", ".distributed.routing"]
 
 
 def _deferred_items():
@@ -262,39 +263,51 @@ def test_shipped_mesh_module_public_names_resolve(module):
                             "raft_tpu_torch" + module)
 
 
-# the names of 7b-ii, still stand-ins: ann's routed placement, all of
-# routing, and the readmission of a routed shard (None: every public name)
+# the names of 7c, still stand-ins: the serving tier over the routed index
+# (the distributed executor, the routed rebalance, the routing refresh),
+# every name of the distributed write path, the routed AOT exports, and
+# the WAL delta phase of a routed shard's catch-up (None: every public
+# name of the module)
 ITEM_7_NAMES = {
-    "ann": ["Placement", "compute_placement", "placement_to_stream",
-            "placement_from_stream", "RoutedIndex", "shard_by_list",
-            "route_vectors", "rebalance_placement", "serialize_routed",
-            "deserialize_routed"],
-    "routing": None,
-    "health": ["catch_up", "readmit"],
+    "serving": [("serving.executor", "DistributedExecutor"),
+                ("serving.rebalancer", "rebalance_routed")],
+    "dist_ingest": [("serving.dist_ingest", None)],
+    "aot": [("core.aot", "export_ivf_pq_routed_search"),
+            ("core.aot", "warm_write_router")],
 }
 
 
-@pytest.mark.parametrize("module", ["ann", "routing", "health"])
+@pytest.mark.parametrize("module", ["serving", "dist_ingest", "aot",
+                                    "health"])
 def test_distributed_stand_ins_name_item_7(module):
-    """The names of ``distributed.ann``, ``routing`` and ``health`` still
-    deferred (the routed placement, all of ``routing``, ``catch_up`` and
-    ``readmit``) raise ``not_ported`` naming 'distributed (item 7)' when
-    called (or, for a stub module, when read); ``ann.build`` refuses
-    ``placement="by_list"`` the same way."""
-    ref_mod = importlib.import_module("raft_tpu.distributed." + module)
-    port_mod = importlib.import_module("raft_tpu_torch.distributed." + module)
-    names = ITEM_7_NAMES[module] or [
-        n for n in _public(".distributed." + module) if n != "P"]
-    assert names and set(names) <= set(_public(".distributed." + module))
-    for name in names:
-        with pytest.raises(NotImplementedError,
-                           match=r"distributed \(item 7\)"):
-            getattr(port_mod, name)()
-    assert getattr(ref_mod, names[0]) is not None
-    if module == "ann":
-        with pytest.raises(NotImplementedError,
-                           match=r"distributed \(item 7\)"):
-            port_mod.build(None, None, None, placement="by_list")
+    """The names still deferred to 7c (the serving tier over a routed
+    index, ``serving/dist_ingest``, the routed AOT exports,
+    ``health.catch_up(ingest=...)``) raise ``not_ported`` naming
+    'distributed (item 7)' when called (or, for a stub module, when
+    read), and each exists in the reference."""
+    match = r"distributed \(item 7\)"
+    if module == "health":
+        from raft_tpu.distributed import health as ref_health
+        from raft_tpu_torch.distributed import health
+
+        assert "ingest" in ref_health.catch_up.__code__.co_varnames
+        with pytest.raises(NotImplementedError, match=match):
+            health.catch_up(None, None, 0, ingest=object())
+        return
+    if module == "serving":
+        from raft_tpu_torch.serving import server
+
+        with pytest.raises(NotImplementedError, match=match):
+            server.Server.refresh_routing(None)
+        assert callable(importlib.import_module(
+            "raft_tpu.serving.server").Server.refresh_routing)
+    for path, name in ITEM_7_NAMES[module]:
+        port_mod = importlib.import_module("raft_tpu_torch." + path)
+        names = [name] if name else _public("." + path)
+        assert names and set(names) <= set(_public("." + path))
+        for n in names:
+            with pytest.raises(NotImplementedError, match=match):
+                getattr(port_mod, n)()
 
 
 def test_refine_and_select_k_are_the_functions():

@@ -268,9 +268,19 @@ def own_builds(pkg, h, data, shards):
             h, params, X, replication_factor=2)),
         "placement": _error(pkg, lambda: ann.build(
             h, params, X, placement="by_grid")),
-        "by_list": _error(pkg, lambda: ann.build(
-            h, params, X, placement="by_list")),
+        "by_list recon": _error(pkg, lambda: ann.build(
+            h, pkg.ivf_pq.IndexParams(cache_reconstructions=False,
+                                      **PQ_PARAMS), X, placement="by_list")),
+        "by_list lists": _error(pkg, lambda: ann.build(
+            h, pkg.ivf_pq.IndexParams(**dict(PQ_PARAMS, n_lists=1)), X,
+            placement="by_list")),
     }
+    # the routed build: one global index on rank 0, its lists placed
+    routed = ann.build(h, params, X, placement="by_list")
+    out["by_list"] = (type(routed).__name__, routed.n_shards,
+                      np.asarray(routed.placement.owner),
+                      _result(ann.search(h, pkg.ivf_pq.SearchParams(
+                          n_probes=params.n_lists), routed, q, K)))
     return out
 
 
